@@ -4,11 +4,13 @@ It sits beside the JAX package, which stays the reference, and mirrors its
 module names. It imports ``torch`` and never ``jax`` or ``flax``. Voxels keep
 the JAX layout, NDHWC ``(B, D, H, W, C)``, at every public function.
 
-This slice is the serving path of ``modelnet_nolbo``: packed bits in,
+Ported so far, for ``modelnet_nolbo``: the serving path (packed bits in,
 blocked-head encoder, nearest-prior classification with latent fill,
-blocked-tail decoder, packed bits out, behind a micro-batching HTTP server.
-The 2x2x2 convolutions run through a hand-written CUDA kernel
-(``kernels/csrc/conv_k2.cu``) on the GPU.
+blocked-tail decoder, packed bits out, behind a micro-batching HTTP server)
+and the train step (packed-blocked batches, losses in float32, a gradient
+zeroed whole when any leaf is non-finite, Adam; ``cli/train.py``). The 2x2x2
+convolutions run through hand-written CUDA kernels, forward and backward
+(``kernels/csrc/conv_k2.cu``), on the GPU.
 """
 
 __version__ = "0.1.0"

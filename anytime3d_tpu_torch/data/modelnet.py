@@ -1,0 +1,105 @@
+"""Procedural voxel loader for tests, smoke runs and dataset-free training.
+
+Counterpart of ``anytime3d_tpu/data/modelnet.py:100-233``
+(``SyntheticVoxelLoader``): NumPy only, the same seeds give the same batches
+as the JAX package's loader. The loader of pre-voxelized ModelNet shards and
+the part-based instance shapes (``structural_inst``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+
+class SyntheticVoxelLoader:
+    """Procedural shapes behind the ModelNet loader's interface:
+    ``getNextBatch(batchSize)`` -> ``input_images`` (B, dim, dim, dim, 1),
+    ``class_list`` (B, num_classes) and ``inst_list`` (B, num_inst) one-hots,
+    all float32; ``epoch``, ``batchStart`` and ``dataLength`` for progress.
+
+    Class-informative by construction: each class owns one of 8 shape families
+    and class-specific half-extents; each instance scales those by a fixed
+    factor within ``1 +- inst_spread``; each sample adds a small jitter and
+    one of 4 yaw rotations. All voxels are generated at construction."""
+
+    def __init__(self, num_samples: int = 512, dim: int = 64, num_classes: int = 40, num_inst: int = 10,
+                 seed: int = 0, inst_spread: float = 0.15, structural_inst: bool = False):
+        if structural_inst:
+            raise NotImplementedError("not ported yet: structural_inst (the part-based instance shapes)")
+        self.epoch = 0
+        self.batchStart = 0
+        self.dataLength = num_samples
+        self._dim = dim
+        self._num_classes = num_classes
+        self._num_inst = num_inst
+        rng = np.random.default_rng(seed)
+        self._labels = rng.integers(0, num_classes, num_samples)
+        self._insts = rng.integers(0, num_inst, num_samples)
+        # class and instance extents come from streams of their own, shared
+        # by every loader whatever its seed
+        class_params = np.random.default_rng(12345).uniform(0.18, 0.42, size=(num_classes, 3))
+        inst_scale = np.random.default_rng(54321).uniform(
+            1.0 - inst_spread, 1.0 + inst_spread, size=(num_classes, num_inst, 3)
+        )
+        jitter = rng.uniform(0.95, 1.05, size=(num_samples, 3))
+        self._params = (
+            class_params[self._labels] * inst_scale[self._labels, self._insts] * jitter
+        ).astype(np.float32)
+        self._rots = rng.integers(0, 4, num_samples)
+        self._idx = np.arange(num_samples)
+        self._rng = rng
+        coords = (np.arange(dim) + 0.5) / dim - 0.5
+        self._grid = np.stack(np.meshgrid(coords, coords, coords, indexing="ij"), -1)
+        self._cache = np.stack([self._generate(i) for i in range(num_samples)]).astype(bool)
+
+    def _generate(self, i: int) -> np.ndarray:
+        """Occupancy of sample i: family = class % 8, rotated by the sample's yaw quarter-turns."""
+        a, b, c = self._params[i]
+        g = self._grid
+        x, y, z = g[..., 0], g[..., 1], g[..., 2]
+        family = int(self._labels[i]) % 8
+        if family == 0:  # ellipsoid
+            occ = (x / a) ** 2 + (y / b) ** 2 + (z / c) ** 2 <= 1.0
+        elif family == 1:  # box
+            occ = (np.abs(x) <= a) & (np.abs(y) <= b) & (np.abs(z) <= c)
+        elif family == 2:  # elliptic cylinder along y
+            occ = ((x / a) ** 2 + (z / c) ** 2 <= 1.0) & (np.abs(y) <= b)
+        elif family == 3:  # hollow box
+            outer = (np.abs(x) <= a) & (np.abs(y) <= b) & (np.abs(z) <= c)
+            inner = (np.abs(x) <= 0.6 * a) & (np.abs(y) <= 0.6 * b) & (np.abs(z) <= 0.6 * c)
+            occ = outer & ~inner
+        elif family == 4:  # three-axis cross of slabs
+            t = 0.35
+            sx = (np.abs(x) <= a) & (np.abs(y) <= t * b) & (np.abs(z) <= t * c)
+            sy = (np.abs(x) <= t * a) & (np.abs(y) <= b) & (np.abs(z) <= t * c)
+            sz = (np.abs(x) <= t * a) & (np.abs(y) <= t * b) & (np.abs(z) <= c)
+            occ = sx | sy | sz
+        elif family == 5:  # wedge tapering upward in y
+            t = np.clip((b - y) / (2.0 * b), 0.0, 1.0)
+            occ = (np.abs(x) <= a * t) & (np.abs(z) <= c * t) & (np.abs(y) <= b)
+        elif family == 6:  # torus about y
+            ring = np.sqrt(x**2 + z**2) - a
+            occ = ring**2 + (y / max(b, 1e-3) * 0.4 * a) ** 2 <= (0.4 * a) ** 2
+        else:  # capsule along y
+            r = 0.5 * (a + c) * 0.6
+            seg = np.clip(y, -b + r, b - r)
+            occ = x**2 + (y - seg) ** 2 + z**2 <= r**2
+        occ = occ.astype(np.float32)
+        k = int(self._rots[i])
+        if k:
+            occ = np.rot90(occ, k=k, axes=(0, 2)).copy()
+        return occ
+
+    def getNextBatch(self, batchSize: int = 32) -> Dict[str, np.ndarray]:
+        if self.batchStart + batchSize > self.dataLength:
+            self.epoch += 1
+            self._rng.shuffle(self._idx)
+            self.batchStart = 0
+        sel = self._idx[self.batchStart : self.batchStart + batchSize]
+        self.batchStart += batchSize
+        vox = self._cache[sel].astype(np.float32)[..., None]
+        cls = np.eye(self._num_classes, dtype=np.float32)[self._labels[sel]]
+        inst = np.eye(self._num_inst, dtype=np.float32)[self._insts[sel]]
+        return {"input_images": vox, "class_list": cls, "inst_list": inst}

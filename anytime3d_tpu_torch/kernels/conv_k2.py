@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from anytime3d_tpu_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_TAPS = [(dz, dy, dx) for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
 
 
 def conv_k2_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -30,55 +31,189 @@ def conv_k2_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
+def conv_k2_dx_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain dx, as the JAX package's ``_conv_k2_bwd_impl`` writes it: the k=2
+    conv of ``g`` padded (1, 0) with ``w`` reversed and each tap transposed."""
+    gc = F.pad(g.permute(0, 4, 1, 2, 3), (1, 0) * 3)
+    # F.conv3d wants (out=C, in=N, kd, kh, kw) of the reversed kernel
+    dx = F.conv3d(gc, w.to(g.dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2))
+    return dx.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def conv_k2_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain dw (float32), as ``_conv_k2_bwd_impl`` writes it: 8 shifted
+    contractions of ``x`` padded (0, 1) with ``g``, summed in float32."""
+    _, D, H, W, _ = x.shape
+    xp = F.pad(x, (0, 0) + (0, 1) * 3).float()
+    gf = g.float()
+    dw = torch.stack([
+        torch.einsum("bdhwc,bdhwn->cn", xp[:, dz:dz + D, dy:dy + H, dx:dx + W], gf) for dz, dy, dx in _TAPS
+    ])
+    return dw.reshape(2, 2, 2, *dw.shape[1:])
+
+
+def conv_k2_backward_reference(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the gradient: ``(dx, dw)``, dx in ``x``'s dtype, dw in float32."""
+    g = g.to(x.dtype)
+    return conv_k2_dx_reference(g, w), conv_k2_dw_reference(x, g)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("conv_k2")
-    lib.conv_k2_forward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.conv_k2_forward.restype = ctypes.c_int
-    lib.conv_k2_error_string.argtypes = [ctypes.c_int]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.conv_k2_forward.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+    lib.conv_k2_backward_input.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+    lib.conv_k2_backward_weight.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+    for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight):
+        fn.restype = i32
+    lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """k=2 s=1 SAME conv. A CUDA tensor goes through the CUDA kernel, or the
-    call raises; a CPU tensor goes through :func:`conv_k2_reference`.
+def _check_launch(what: str, rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"{what} launch failed: {_lib().conv_k2_error_string(rc).decode()} (cudaError {rc})")
 
-    Every kernel launch adds one to ``conv_k2.launches``."""
+
+def _check_operands(what: str, C: int, N: int, *tensors: torch.Tensor, depth_is_n: bool = False) -> None:
+    """What the kernels need of their operands: the depth's channel count a
+    multiple of 8 and the output's column count of 4 (C and N for the forward
+    and dw; N and C for dx, ``depth_is_n``), and 16-byte aligned storage."""
+    depth, cols = (("N", N), ("C", C)) if depth_is_n else (("C", C), ("N", N))
+    if depth[1] % 8 or cols[1] % 4:
+        raise ValueError(f"{what} kernel needs {depth[0]} % 8 == 0 and {cols[0]} % 4 == 0; got C={C}, N={N}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} kernel needs 16-byte aligned tensors")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous (B,D,H,W,C) on the card, ``w`` (2,2,2,C,N) in ``x``'s dtype."""
+    B, D, H, W, C = x.shape
+    N = w.shape[-1]
+    w = w.contiguous()
+    y = torch.empty((B, D, H, W, N), dtype=x.dtype, device=x.device)
+    _check_operands("conv_k2", C, N, x, w, y)
+    _check_launch("conv_k2", _lib().conv_k2_forward(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N,
+        _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+    conv_k2.launches += 1
+    return y
+
+
+def _check_cuda_operand(what: str, name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, not {t.device}")
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, not {t.dtype}")
+    if t.dim() != 5 or min(t.shape) < 1 or not t.is_contiguous():
+        raise ValueError(f"{what} kernel takes a non-empty contiguous NDHWC {name}; got {tuple(t.shape)}")
+
+
+def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx (B,D,H,W,C), in ``g``'s dtype, of ``conv_k2`` from the output
+    gradient ``g`` (B,D,H,W,N) and ``w`` (2,2,2,C,N). CUDA tensors go through
+    the kernel (adding one to ``conv_k2.launches_dx``) or the call raises; CPU
+    tensors through :func:`conv_k2_dx_reference`."""
+    if g.device.type == "cpu":
+        return conv_k2_dx_reference(g, w)
+    _check_cuda_operand("conv_k2 dx", "g", g)
+    B, D, H, W, N = g.shape
+    C = w.shape[3]
+    # (2,2,2,N,C): the depth of dx is (tap, n). Plumbing on <= 2.1 M elements; no
+    # flip, the kernel's mirrored shift already pairs tap t with w[t]
+    wt = w.to(g.dtype).transpose(3, 4).contiguous()
+    dx = torch.empty((B, D, H, W, C), dtype=g.dtype, device=g.device)
+    _check_operands("conv_k2 dx", C, N, g, wt, dx, depth_is_n=True)
+    _check_launch("conv_k2 dx", _lib().conv_k2_backward_input(
+        g.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, D, H, W, C, N,
+        _DTYPE_CODES[g.dtype], g.device.index, _stream(g)))
+    conv_k2.launches_dx += 1
+    return dx
+
+
+def _dw_splits(rows: int, tiles: int, device: torch.device) -> int:
+    """Parts the row reduction of dw is cut into: enough blocks for about four
+    per SM, each part at least 256 rows deep."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-4 * sms // tiles), rows // 256))
+
+
+def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw (2,2,2,C,N), float32, of ``conv_k2`` from its input ``x``
+    (B,D,H,W,C) and the output gradient ``g`` (B,D,H,W,N) of the same dtype.
+    CUDA tensors go through the kernel (adding one to
+    ``conv_k2.launches_dw``) or the call raises; CPU tensors through
+    :func:`conv_k2_dw_reference`. The result is the same from run to run."""
+    if x.device.type == "cpu":
+        return conv_k2_dw_reference(x, g)
+    _check_cuda_operand("conv_k2 dw", "x", x)
+    _check_cuda_operand("conv_k2 dw", "g", g)
+    if g.dtype != x.dtype or g.shape[:4] != x.shape[:4]:
+        raise ValueError(f"conv_k2 dw takes x and g of one dtype and grid; got {tuple(x.shape)} {x.dtype}, "
+                         f"{tuple(g.shape)} {g.dtype}")
+    B, D, H, W, C = x.shape
+    N = g.shape[-1]
+    splits = _dw_splits(B * D * H * W, -(-8 * C // 128) * -(-N // 64), x.device)
+    dw = torch.empty((2, 2, 2, C, N), dtype=torch.float32, device=x.device)
+    workspace = torch.empty((splits if splits > 1 else 0, 8 * C, N), dtype=torch.float32, device=x.device)
+    _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
+    _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, B, D, H, W, C, N,
+        _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+    conv_k2.launches_dw += 1
+    return dw
+
+
+class _ConvK2(torch.autograd.Function):
+    """The kernels behind autograd, for CUDA tensors: ``forward`` casts the
+    parameter to ``x``'s dtype, ``backward`` launches dx and dw only where a
+    gradient is asked for and returns dw in the parameter's dtype."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        wc = w.to(x.dtype)
+        ctx.save_for_backward(x, wc)
+        ctx.w_dtype = w.dtype
+        return _launch_forward(x, wc)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, wc = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()  # autograd hands over permuted views more often than not
+        dx = conv_k2_dx(g, wc) if ctx.needs_input_grad[0] else None
+        dw = conv_k2_dw(x, g).to(ctx.w_dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """k=2 s=1 SAME conv, differentiable in ``x`` and ``w``. A CUDA tensor goes
+    through the CUDA kernels, forward and backward, or the call raises; a CPU
+    tensor goes through :func:`conv_k2_reference` and autograd's own backward.
+
+    ``w`` may be a float32 parameter beside a bfloat16 ``x``: it is cast to
+    ``x``'s dtype and its gradient comes back in float32. Every kernel launch
+    adds one to ``conv_k2.launches`` (forward), ``conv_k2.launches_dx`` or
+    ``conv_k2.launches_dw``."""
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:4]) != (2, 2, 2, x.shape[-1]):
         raise ValueError(f"conv_k2 takes x (B,D,H,W,C) and w (2,2,2,C,N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:
         raise ValueError(f"x on {x.device} but w on {w.device}")
     if x.device.type == "cpu":
         return conv_k2_reference(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_k2 runs on CPU or CUDA tensors, not {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"conv_k2 kernel takes float32 or bfloat16, not {x.dtype}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise RuntimeError(
-            "conv_k2 has no backward kernel yet: call it under torch.no_grad() or torch.inference_mode()"
-        )
-    if not x.is_contiguous():
-        raise ValueError("conv_k2 kernel takes a contiguous NDHWC x")
-    B, D, H, W, C = x.shape
-    N = w.shape[-1]
-    if min(B, D, H, W, N) < 1 or C % 8 or N % 4:
-        raise ValueError(f"conv_k2 kernel needs non-empty shapes, C % 8 == 0 and N % 4 == 0; got C={C}, N={N}")
-    w = w.to(x.dtype).contiguous()
-    y = torch.empty((B, D, H, W, N), dtype=x.dtype, device=x.device)
-    for t in (x, w, y):
-        if t.data_ptr() % 16:
-            raise ValueError("conv_k2 kernel needs 16-byte aligned tensors")
-    lib = _lib()
-    rc = lib.conv_k2_forward(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N,
-        _DTYPE_CODES[x.dtype], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if rc:
-        raise RuntimeError(f"conv_k2 launch failed: {lib.conv_k2_error_string(rc).decode()} (cudaError {rc})")
-    conv_k2.launches += 1
-    return y
+    _check_cuda_operand("conv_k2", "x", x)
+    # checked here, not first in backward
+    _check_operands("conv_k2", x.shape[-1], w.shape[-1])
+    if torch.is_grad_enabled() and x.requires_grad:
+        _check_operands("conv_k2 dx", x.shape[-1], w.shape[-1], depth_is_n=True)
+    return _ConvK2.apply(x, w)
 
 
 conv_k2.launches = 0
+conv_k2.launches_dx = 0
+conv_k2.launches_dw = 0

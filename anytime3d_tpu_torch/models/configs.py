@@ -1,9 +1,9 @@
-"""Named model configs the port can run.
+"""Named model configs the port can run, each with its training-loss values.
 
 Counterpart of ``anytime3d_tpu/models/configs.py``: the same factories build
 the port's own dataclasses, with the same values (a test holds them equal
 field by field). ``REGISTRY`` lists only the names whose every module is
-ported.
+ported; ``variant(name)`` is the entry point for training.
 """
 
 from __future__ import annotations
@@ -60,3 +60,32 @@ def modelnet_nolbo(z_dim: int = 64, category_dim: int = 40, latent_dropout: bool
 REGISTRY = {
     "modelnet_nolbo": modelnet_nolbo,
 }
+
+
+def _loss_table():
+    """Per-name ``LossConfig``, the values of the JAX package's table.
+
+    ``modelnet_nolbo``: one coin (p 0.5) then an elementwise prior mix at
+    p 0.3; repulsion margin 2.0 * z; total = kl + shape + 0.01 * reg, no
+    kernel L2."""
+    from anytime3d_tpu_torch.train.step import LossConfig
+
+    modelnet_cat = LossConfig(
+        reg_weight=0.01,
+        reg_margin_scale_category=2.0,
+        l2_weight=0.0,
+        mix_coin_prob=0.5,
+        mix_element_prob=0.3,
+    )
+    return {"modelnet_nolbo": modelnet_cat}
+
+
+def loss_config(name: str):
+    """The ``LossConfig`` of a REGISTRY name."""
+    return _loss_table()[name]
+
+
+def variant(name: str, **overrides):
+    """Everything needed to train ``name``: ``(MMVAEConfig, LossConfig)``.
+    ``overrides`` go to the config factory (e.g. ``category_dim``)."""
+    return REGISTRY[name](**overrides), loss_config(name)

@@ -1,13 +1,16 @@
 """MultiModalVAE, voxel branch.
 
 Counterpart of ``anytime3d_tpu/models/mmvae.py:33-254``. ``MMVAEConfig``
-mirrors the JAX config field by field; the module ports what serving needs:
-``encode`` (posterior split, log-var clipped to +-log_var_clip), ``decode``
-and ``priors_category``. Submodule names (``encoder3d``, ``decoder``,
-``prior_category``) are the flax ones, so converted checkpoints load by name.
+mirrors the JAX config field by field; the module ports what serving and
+training need: ``encode`` (posterior split, log-var clipped to
++-log_var_clip), ``decode``, ``priors_category`` and the blocked-IO
+predicates. Submodule names (``encoder3d``, ``decoder``, ``prior_category``)
+are the flax ones, so converted checkpoints load by name.
 
 Parameters are created on the CPU from ``generator``; move the module with
-``.to(device)`` and, for bf16 compute, ``.to(torch.bfloat16)``.
+``.to(device)``. For bfloat16 compute, training passes
+``dtype=torch.bfloat16`` (float32 parameters, cast at use, as flax does);
+serving may instead cast the whole module with ``.to(torch.bfloat16)``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,14 @@ from typing import Any, Optional
 import torch
 import torch.nn as nn
 
-from anytime3d_tpu_torch.nn.autoencoder3d import Decoder3D, Decoder3DConfig, Encoder3D, Encoder3DConfig
+from anytime3d_tpu_torch.nn.autoencoder3d import (
+    Decoder3D,
+    Decoder3DConfig,
+    Encoder3D,
+    Encoder3DConfig,
+    decoder_tail_blocked_active,
+    encoder_head_blocked_active,
+)
 from anytime3d_tpu_torch.nn.priornet import PriorNet, PriorNetConfig
 
 
@@ -41,7 +51,7 @@ class MMVAEConfig:
     prior_inst: Optional[PriorNetConfig] = None
     # behavior flags
     variational: bool = True
-    latent_dropout: bool = False  # a training behaviour; serving ignores it
+    latent_dropout: bool = False  # the `_dr` variants; the train step refuses it for now
     log_var_clip: float = 10.0
 
     @property
@@ -62,11 +72,44 @@ class EncoderOutput:
     mean_inst: torch.Tensor
     log_var_inst: torch.Tensor
 
+    @property
+    def mean(self) -> torch.Tensor:
+        if self.mean_category is None:
+            return self.mean_inst
+        return torch.cat([self.mean_category, self.mean_inst], dim=-1)
+
+    @property
+    def log_var(self) -> torch.Tensor:
+        if self.log_var_category is None:
+            return self.log_var_inst
+        return torch.cat([self.log_var_category, self.log_var_inst], dim=-1)
+
+
+def decoder_blocked_block(cfg: MMVAEConfig) -> Optional[int]:
+    """Block size (4) when the decoder can emit the coarse depth-to-space
+    layout (``blocked_output``), else None."""
+    if not decoder_tail_blocked_active(cfg.decoder) or any(s % 4 for s in cfg.decoder.output_shape[:-1]):
+        return None
+    return 4
+
+
+def blocked_io_block(cfg: MMVAEConfig) -> Optional[int]:
+    """Block size (4) when the voxel round trip of ``cfg`` can stay in the
+    coarse layout end to end (blocked-head encoder and blocked-tail decoder
+    on the same grid), else None."""
+    if cfg.encoder != "voxel" or cfg.encoder3d is None or not encoder_head_blocked_active(cfg.encoder3d):
+        return None
+    return decoder_blocked_block(cfg)
+
 
 class MultiModalVAE(nn.Module):
-    def __init__(self, config: MMVAEConfig, generator: Optional[torch.Generator] = None):
+    def __init__(self, config: MMVAEConfig, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        """``dtype``: the compute dtype. Parameters stay float32 and are cast
+        at use; inputs are cast on entry. None computes in the inputs' dtype."""
         super().__init__()
         cfg = config
+        self.dtype = dtype
         unsupported = [name for name, on in (
             (f"encoder={cfg.encoder!r}", cfg.encoder != "voxel"),
             ("deterministic (variational=False) models", not cfg.variational),
@@ -76,18 +119,24 @@ class MultiModalVAE(nn.Module):
             raise NotImplementedError(f"not ported yet: {', '.join(unsupported)}")
         self.config = cfg
         enc_cfg = cfg.encoder3d or Encoder3DConfig(output_dim=cfg.enc_output_dim)
-        self.encoder3d = Encoder3D(enc_cfg, in_channels=cfg.decoder.output_shape[-1], generator=generator)
-        self.decoder = Decoder3D(cfg.decoder, generator=generator)
+        self.encoder3d = Encoder3D(enc_cfg, in_channels=cfg.decoder.output_shape[-1], generator=generator,
+                                   dtype=dtype)
+        self.decoder = Decoder3D(cfg.decoder, generator=generator, dtype=dtype)
         self.prior_category = (
-            PriorNet(cfg.prior_category, generator=generator) if cfg.prior_category is not None else None
+            PriorNet(cfg.prior_category, generator=generator, dtype=dtype)
+            if cfg.prior_category is not None else None
         )
 
-    def encode(self, x: torch.Tensor) -> EncoderOutput:
+    @property
+    def blocked_io_block(self) -> Optional[int]:
+        return blocked_io_block(self.config)
+
+    def encode(self, x: torch.Tensor, blocked_input: bool = False) -> EncoderOutput:
         """Voxels (B, D, H, W, C) -> posterior blocks. The flat encoder output
         is [mean_cat | log_var_cat | mean_inst | log_var_inst] with a category
         split, [mean | log_var] without."""
         cfg = self.config
-        out = self.encoder3d(x)
+        out = self.encoder3d(x, blocked_input=blocked_input)
         clip = cfg.log_var_clip
         if cfg.z_category_dim > 0:
             zc, zi = cfg.z_category_dim, cfg.z_inst_dim
@@ -100,8 +149,10 @@ class MultiModalVAE(nn.Module):
         zi = cfg.z_inst_dim
         return EncoderOutput(None, None, out[:, :zi], out[:, zi:].clamp(-clip, clip))
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(z)
+    def decode(self, z: torch.Tensor, blocked_output: bool = False) -> torch.Tensor:
+        return self.decoder(z, blocked_output=blocked_output)
 
-    def priors_category(self, category_onehot: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return self.prior_category(category_onehot)
+    def priors_category(self, category_onehot: torch.Tensor,
+                        generator: Optional[torch.Generator] = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Class prior (mean, log_var); dropout is on in train mode and draws from ``generator``."""
+        return self.prior_category(category_onehot, generator)

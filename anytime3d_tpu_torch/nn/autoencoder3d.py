@@ -4,12 +4,18 @@ Counterpart of ``anytime3d_tpu/nn/autoencoder3d.py``. The configs mirror the
 JAX dataclasses field by field. The modules port the layout the flagship
 ``modelnet_nolbo`` runs:
 
-- ``Encoder3D`` on the blocked-head path: space-to-depth(4) of the input,
-  two k=2 s=1 convs at the coarse grid (the ``conv_k2`` kernel), then the
-  remaining stride-2 k=4 stages, a final conv and a mean pool;
+- ``Encoder3D`` on the blocked-head path: space-to-depth(4) of the input
+  (skipped with ``blocked_input``), two k=2 s=1 convs at the coarse grid (the
+  ``conv_k2`` kernel), then the remaining stride-2 k=4 stages, a final conv
+  and a mean pool;
 - ``Decoder3D`` on the blocked-tail path: dense to a small grid, transposed
   convs, two k=2 s=1 convs emitting phase channels (the ``conv_k2`` kernel),
-  one depth-to-space(4) and the final activation.
+  one depth-to-space(4) (skipped with ``blocked_output``) and the final
+  activation.
+
+The train step keeps the whole voxel round trip in the coarse layout
+(``blocked_input`` and ``blocked_output``), so the fine 64^3 x 1 grid is never
+laid out on the device.
 
 Layouts and flags the slice does not use raise ``NotImplementedError``.
 """
@@ -96,9 +102,10 @@ class Encoder3D(nn.Module):
     """Voxel grid (B, D, H, W, C) -> latent vector (B, output_dim)."""
 
     def __init__(self, config: Encoder3DConfig, in_channels: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = config
+        self.dtype = dtype  # compute dtype; None: that of the input
         _refuse([name for name, on in (
             ("the classic encoder (head_blocked off)", not encoder_head_blocked_active(cfg)),
             ("mid_blocked", cfg.mid_blocked),
@@ -116,8 +123,12 @@ class Encoder3D(nn.Module):
         self.conv_0 = Conv3d(cin, filters[-1], sizes[-1], strides[-1], generator)
         self.final_act = activation(cfg.final_act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = space_to_depth3d(x, 4)
+    def forward(self, x: torch.Tensor, blocked_input: bool = False) -> torch.Tensor:
+        """``blocked_input``: ``x`` is already (B, D/4, H/4, W/4, 64*C), the
+        space-to-depth(4) layout, and the relayout is skipped."""
+        x = x.to(self.dtype or x.dtype)
+        if not blocked_input:
+            x = space_to_depth3d(x, 4)
         for i in range(self.num_blocks):
             x = getattr(self, f"convblock3d_{i}")(x)
         x = self.conv_0(x).mean(dim=(1, 2, 3))
@@ -127,9 +138,11 @@ class Encoder3D(nn.Module):
 class Decoder3D(nn.Module):
     """Latent vector (B, input_dim) -> occupancy grid (B, D, H, W, C)."""
 
-    def __init__(self, config: Decoder3DConfig, generator: Optional[torch.Generator] = None):
+    def __init__(self, config: Decoder3DConfig, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = config
+        self.dtype = dtype  # compute dtype; None: that of the input
         _refuse([name for name, on in (
             (f"the decoder with final_mode={cfg.final_mode!r} and tail_blocked={cfg.tail_blocked}",
              not decoder_tail_blocked_active(cfg)),
@@ -157,11 +170,17 @@ class Decoder3D(nn.Module):
         self.act = activation(cfg.act)
         self.final_act = activation(cfg.final_act)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, blocked_output: bool = False) -> torch.Tensor:
+        """``blocked_output``: return the grid as (B, D/4, H/4, W/4, 64*C), the
+        layout depth-to-space(4) would read, with the final activation applied:
+        element for element the space-to-depth(4) of the normal output."""
+        z = z.to(self.dtype or z.dtype)
         # the dense output is laid out channels-last, (B, *spatial, channels)
         x = self.denseblock_0(z).reshape(z.shape[0], *self.spatial, self.channels)
         for i in range(self.num_blocks):
             x = getattr(self, f"deconvblock3d_{i}")(x)
         x = self.act(self.groupnorm_0(self.conv_0(x)))
-        x = depth_to_space3d(self.conv_1(x), 4)
+        x = self.conv_1(x)
+        if not blocked_output:
+            x = depth_to_space3d(x, 4)
         return self.final_act(x)

@@ -6,6 +6,12 @@ NCDHW view of that storage. Each block computes what its flax counterpart
 computes, including flax's SAME padding and initialisers (truncated
 lecun-normal kernels, zero biases, ones/zeros for the norms).
 
+Compute dtype: parameters stay float32 (the optimizer updates them) and
+every layer casts them to the dtype of the input it is given, as flax does
+with its ``dtype`` argument; the norms take their statistics in float32. The
+modules that own a stack (``Encoder3D``, ``Decoder3D``, ``PriorNet``,
+``MultiModalVAE``) take the ``dtype`` and cast their input to it on entry.
+
 Submodules are named as flax names them, lowercased (flax ``Conv_0`` is
 ``conv_0`` here), so ``convert.params_from_flax`` maps a flax tree to a
 ``state_dict`` by name alone.
@@ -69,17 +75,32 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def dense(in_features: int, features: int, generator: Optional[torch.Generator]) -> nn.Linear:
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in float32, returned in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+def dense(in_features: int, features: int, generator: Optional[torch.Generator]) -> Dense:
     """flax ``nn.Dense``: lecun-normal kernel, zero bias."""
-    layer = torch.nn.utils.skip_init(nn.Linear, in_features, features)  # no draw from the global RNG
+    layer = torch.nn.utils.skip_init(Dense, in_features, features)  # no draw from the global RNG
     lecun_normal_(layer.weight, in_features, generator)
     nn.init.zeros_(layer.bias)
     return layer
 
 
-def layer_norm(features: int) -> nn.LayerNorm:
+def layer_norm(features: int) -> LayerNorm:
     """flax ``nn.LayerNorm()``, whose epsilon is 1e-6 (PyTorch's default is 1e-5)."""
-    return nn.LayerNorm(features, eps=1e-6)
+    return LayerNorm(features, eps=1e-6)
 
 
 def _same_pads(k: int, s: int, size: int) -> tuple[int, int]:

@@ -3,7 +3,8 @@
 Counterpart of ``anytime3d_tpu/nn/priornet.py``: a tower of
 Dense + LayerNorm + Dropout + activation layers over ``2*onehot - 1`` and a
 linear last layer gives the mean; ``const_log_var`` pins the log-variance.
-Dropout follows the module's train/eval mode (flax's ``deterministic``).
+Dropout follows the module's train/eval mode (flax's ``deterministic``) and
+draws from the ``torch.Generator`` it is handed.
 """
 
 from __future__ import annotations
@@ -36,27 +37,35 @@ class _Tower(nn.Module):
             self.add_module(f"dense_{i}", dense(widths[i], widths[i + 1], generator))
             if i < self.depth - 1:
                 self.add_module(f"layernorm_{i}", layer_norm(widths[i + 1]))
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.act = activation(act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.depth - 1):
             x = getattr(self, f"layernorm_{i}")(getattr(self, f"dense_{i}")(x))
-            x = self.act(self.dropout(x))
+            if self.training and self.dropout_rate > 0.0:
+                keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout_rate
+                x = torch.where(keep, x / (1.0 - self.dropout_rate), torch.zeros_like(x))
+            x = self.act(x)
         return getattr(self, f"dense_{self.depth - 1}")(x)
 
 
 class PriorNet(nn.Module):
     """One-hot label (B, input_dim) -> (mean, log_var), each (B, unit_nums[-1])."""
 
-    def __init__(self, config: PriorNetConfig, generator: Optional[torch.Generator] = None):
+    def __init__(self, config: PriorNetConfig, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype  # compute dtype; None: that of the input
         if config.const_log_var is None:
             raise NotImplementedError("PriorNet with a learned log-var tower is not ported yet")
         self.config = config
         self.mean_tower = _Tower(config.input_dim, config.unit_nums, config.act,
                                  config.dropout_rate, generator)
 
-    def forward(self, onehot: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        mean = self.mean_tower(2.0 * onehot - 1.0)
+    def forward(self, onehot: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``generator`` feeds the dropout masks in train mode."""
+        onehot = onehot.to(self.dtype or onehot.dtype)
+        mean = self.mean_tower(2.0 * onehot - 1.0, generator)
         return mean, torch.full_like(mean, self.config.const_log_var)

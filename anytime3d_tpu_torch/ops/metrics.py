@@ -1,0 +1,27 @@
+"""Voxel precision and recall.
+
+Counterpart of ``anytime3d_tpu/ops/metrics.py:13-37`` (``voxel_iou`` and
+``topk_accuracy`` are not ported yet).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def voxel_tp_fp_fn(target: torch.Tensor, pred: torch.Tensor,
+                   threshold: float = 0.5) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-sample TP/FP/FN counts at an occupancy threshold, three (B,) float32
+    tensors. ``target`` is a {0, 1} grid, ``pred`` holds probabilities; both
+    are flattened per sample."""
+    n = target.shape[0]
+    y = target.reshape(n, -1).float()
+    p = (pred.reshape(n, -1) >= threshold).float()
+    return (y * p).sum(dim=-1), ((1.0 - y) * p).sum(dim=-1), (y * (1.0 - p)).sum(dim=-1)
+
+
+def voxel_precision_recall(target: torch.Tensor, pred: torch.Tensor, threshold: float = 0.5,
+                           eps: float = 1e-10) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch-mean voxel precision and recall at ``threshold``."""
+    tp, fp, fn = voxel_tp_fp_fn(target, pred, threshold)
+    return (tp / (tp + fp + eps)).mean(), (tp / (tp + fn + eps)).mean()

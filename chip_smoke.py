@@ -6,17 +6,32 @@ Needs one CUDA card and ``nvcc``; fails at once without them. Phases, in
 order, any failure ending the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile the ``conv_k2`` CUDA kernel from ``anytime3d_tpu_torch/kernels/csrc``;
-3. kernel check: ``conv_k2`` against its plain version (``conv_k2_reference``)
-   at the four flagship shapes (B=8, 16^3), in float32 with TF32 off and in
-   bfloat16, timed with CUDA events;
+2. build: compile the ``conv_k2`` CUDA kernels (forward, dx, dw) from
+   ``anytime3d_tpu_torch/kernels/csrc``;
+3. kernel check: ``conv_k2``, ``conv_k2_dx`` and ``conv_k2_dw`` against their
+   plain versions at the flagship stages (16^3): at B=8, the served batch, in
+   float32 with TF32 off and in bfloat16, and at B=32 in bfloat16, the train
+   step's shapes; each timed with CUDA events beside its plain version and
+   beside the one library call that computes the same function (cuDNN
+   through ``F.conv3d``, ``torch.nn.grad.conv3d_input`` and
+   ``conv3d_weight``), and set against its bound on this card;
 4. full-width slice: ``modelnet_nolbo`` (64^3 voxels, z=64, 40 classes) from
    seeded weights, a batch of 8 seeded occupancy grids with full, partial and
    empty latent masks through ``make_packed_infer`` on the card, held against
    the same weights run on the CPU (float32) and against itself in bfloat16;
-5. serve: ``InferenceServer`` on an ephemeral port, batch 8, answering HTTP
-   requests from 8 client threads; the launch count of ``conv_k2`` is reset
-   just before and read just after, and must be 4 per served batch.
+5. train slice: one full-width float32 train step (losses, gradients, the
+   guarded Adam update) on the card at a batch of 4 against the same on the CPU, from the same weights, batch and
+   injected random draws: every loss term, every leaf's gradient,
+   ``grads_finite``;
+6. serve: ``InferenceServer`` on an ephemeral port, batch 8, answering HTTP
+   requests from 8 client threads; the launch counts are reset just before
+   and read just after, and ``conv_k2`` must show 4 per served batch;
+7. train run: the trainer ``cli/train.py`` builds for ``--config
+   modelnet_nolbo --data synthetic --packed --bf16`` at B=32, a few tens of
+   steps and one eval; counts reset just before and read just after: 4
+   forward, 3 dx and 4 dw launches per step, 4 forward per eval step; every
+   metric finite, the loss falling, ``grads_finite`` 1; step time and peak
+   memory printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -26,6 +41,7 @@ from __future__ import annotations
 
 import base64
 import copy
+import dataclasses
 import http.client
 import json
 import math
@@ -40,20 +56,51 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from anytime3d_tpu_torch.data.packing import pack_voxels, pack_voxels_device, unpack_voxels  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from anytime3d_tpu_torch.cli import train as cli_train  # noqa: E402
+from anytime3d_tpu_torch.data.packing import (  # noqa: E402
+    pack_voxels,
+    pack_voxels_blocked,
+    pack_voxels_device,
+    unpack_voxels,
+)
 from anytime3d_tpu_torch.kernels import build  # noqa: E402
-from anytime3d_tpu_torch.kernels.conv_k2 import conv_k2, conv_k2_reference  # noqa: E402
+from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
+    conv_k2,
+    conv_k2_dw,
+    conv_k2_dw_reference,
+    conv_k2_dx,
+    conv_k2_dx_reference,
+    conv_k2_reference,
+)
+from anytime3d_tpu_torch.models import configs  # noqa: E402
 from anytime3d_tpu_torch.models.configs import REGISTRY  # noqa: E402
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE  # noqa: E402
 from anytime3d_tpu_torch.serving.export import make_infer_fn, make_packed_infer  # noqa: E402
 from anytime3d_tpu_torch.serving.server import InferenceServer  # noqa: E402
+from anytime3d_tpu_torch.train.state import create_train_state  # noqa: E402
+from anytime3d_tpu_torch.train.step import apply_gradients_if_finite, compute_losses  # noqa: E402
 
 BATCH = 8
+TRAIN_BATCH = 32
+TRAIN_SLICE_BATCH = 4  # the float32 step that is also run on the CPU
+TRAIN_STEPS = 40
+TRAIN_WARMUP = 5  # steps left out of the step time
 GRID = 16  # the flagship k=2 stages run at 16^3
 FLAGSHIP_K2 = [(64, 512), (512, 128), (128, 512), (512, 64)]  # (C, N): encoder head, decoder tail
+# (label, batch, dtype) of the kernel check: the served batch in both types, the train step's shapes
+KERNEL_CASES = [("b8_f32", BATCH, torch.float32), ("b8_bf16", BATCH, torch.bfloat16),
+                ("b32_bf16", TRAIN_BATCH, torch.bfloat16)]
 SEED = 0
 N_REQUESTS = 1024  # p99 then has 10 samples beyond it
 N_CLIENTS = 8
+
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
+# device memory 3.35 TB/s; 989 TFLOP/s in bf16 on the tensor cores; 67 TFLOP/s
+# in float32 outside them (the float32 comparisons here are true float32).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # Tolerances, each with its reason.
 # f32 kernel vs cuDNN f32 (TF32 off): only the summation order differs; at
@@ -62,6 +109,14 @@ K2_TOL_F32 = 1e-4
 # bf16: both sides read the same bf16 operands and round an f32 sum once to
 # bf16 (2^-8 relative); allow 2 ulps at the largest output.
 K2_TOL_BF16_REL = 2.0**-7
+# dw is an f32 sum of up to 131072 products on both sides, taken in another
+# order; relative to the largest entry of dw.
+K2_TOL_DW_REL = 1e-5
+# train step, card f32 vs CPU f32 of the same weights, batch and draws: the
+# loss terms are sums of 262144 voxel terms a sample (summation order); the
+# gradients go back through ~20 layers, relative to each leaf's largest entry.
+TRAIN_TOL_LOSS_REL = 1e-4
+TRAIN_TOL_GRAD_REL = 1e-3
 # card f32 vs CPU f32 of the same weights: summation order again, over ~20
 # layers with depths up to 32768 (the final k=4 conv); values are O(1).
 SLICE_TOL_F32 = 1e-3
@@ -115,57 +170,118 @@ def phase_build() -> None:
     print((lib.parent / "build.log").read_text().strip(), flush=True)
 
 
+def reset_counts() -> None:
+    conv_k2.launches = conv_k2.launches_dx = conv_k2.launches_dw = 0
+
+
+def read_counts() -> dict:
+    return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw}
+
+
+def k2_bound_ms(kernel: str, batch: int, C: int, N: int, dtype: torch.dtype) -> tuple[float, str]:
+    """The least time the card could take for one stage: the larger of its
+    bytes (each input read once, each output written once) over the memory
+    rate and its operations over the peak rate of its type. A tap that falls
+    off the grid is no work: each axis has 2*GRID - 1 (row, tap) pairs in it."""
+    rows = batch * GRID**3
+    item = torch.empty((), dtype=dtype).element_size()
+    flops = 2.0 * batch * (2 * GRID - 1) ** 3 * C * N
+    if kernel == "conv_k2_dw":  # reads x and g, writes dw in float32
+        nbytes = rows * (C + N) * item + 8 * C * N * 4
+    else:  # reads x (or g) and w, writes y (or dx)
+        nbytes = rows * (C + N) * item + 8 * C * N * item
+    t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes > t_flops else "operations"
+
+
 def phase_kernels(card: str) -> dict:
-    """conv_k2 vs conv_k2_reference at the flagship shapes; returns the JSON
-    entry, whose times are sums over the four shapes and whose error is the
-    largest (``ms``/``plain_ms``/``max_abs_err`` in f32, ``bf16_*`` in bf16)."""
+    """Forward, dx and dw against their plain versions at the flagship stages,
+    for every case of ``KERNEL_CASES``. Returns ``{kernel: {case: numbers}}``:
+    times and bounds summed over the stages (dx has three: the first stage's
+    input is data), the error the largest over them."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
-    res = {"f32": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}, "bf16": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    res = {k: {case: dict.fromkeys(keys, 0.0) | {"max_abs_err": 0.0, "bound_by": set()}
+               for case, _, _ in KERNEL_CASES} for k in ("conv_k2", "conv_k2_dx", "conv_k2_dw")}
     with torch.inference_mode():
-        for C, N in FLAGSHIP_K2:
-            x32 = torch.randn(BATCH, GRID, GRID, GRID, C, generator=gen).to(dev)
-            w32 = (torch.randn(2, 2, 2, C, N, generator=gen) / math.sqrt(8 * C)).to(dev)
-            for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-                x, w = x32.to(dtype), w32.to(dtype)
-                y = conv_k2(x, w)
-                ref = conv_k2_reference(x, w)
-                torch.cuda.synchronize()
-                if y.shape != ref.shape or y.dtype != x.dtype:
-                    raise AssertionError(f"conv_k2 {C}->{N} {name}: {y.shape}/{y.dtype} vs {ref.shape}")
-                err = float((y.float() - ref.float()).abs().max())
-                tol = K2_TOL_F32 if name == "f32" else K2_TOL_BF16_REL * float(ref.float().abs().max())
-                # plain, kernel, kernel, plain: both sides see the same card state
-                p1 = cuda_ms(lambda: conv_k2_reference(x, w))
-                k1 = cuda_ms(lambda: conv_k2(x, w))
-                k2 = cuda_ms(lambda: conv_k2(x, w))
-                p2 = cuda_ms(lambda: conv_k2_reference(x, w))
-                ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-                tflops = 2 * BATCH * GRID**3 * 8 * C * N / (ms * 1e-3) / 1e12
-                print(f"conv_k2 {name} B={BATCH} {GRID}^3 {C}->{N}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-                      f"kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s) plain {plain_ms:.4f} ms [{card}]", flush=True)
-                if not err <= tol:
-                    raise AssertionError(f"conv_k2 {C}->{N} {name}: max_abs_err {err} > {tol}")
-                r = res[name]
-                r["err"] = max(r["err"], err)
-                r["ms"] += ms
-                r["plain_ms"] += plain_ms
-    print(f"conv_k2 four flagship stages, sum: f32 kernel {res['f32']['ms']:.4f} ms plain "
-          f"{res['f32']['plain_ms']:.4f} ms; bf16 kernel {res['bf16']['ms']:.4f} ms plain "
-          f"{res['bf16']['plain_ms']:.4f} ms [{card}]", flush=True)
-    return {
-        "name": "conv_k2",
-        "route": "cuda",
-        "source": "anytime3d_tpu_torch/kernels/csrc/conv_k2.cu",
-        "replaces": "anytime3d_tpu/kernels/conv_k2.py:156",
-        "launches": None,  # filled from the served run
-        "max_abs_err": res["f32"]["err"],
-        "ms": res["f32"]["ms"],
-        "plain_ms": res["f32"]["plain_ms"],
-        "bf16_max_abs_err": res["bf16"]["err"],
-        "bf16_ms": res["bf16"]["ms"],
-        "bf16_plain_ms": res["bf16"]["plain_ms"],
-    }
+        for case, batch, dtype in KERNEL_CASES:
+            for stage, (C, N) in enumerate(FLAGSHIP_K2):
+                x = torch.randn(batch, GRID, GRID, GRID, C, generator=gen).to(dev, dtype)
+                w = (torch.randn(2, 2, 2, C, N, generator=gen) / math.sqrt(8 * C)).to(dev, dtype)
+                g = torch.randn(batch, GRID, GRID, GRID, N, generator=gen).to(dev, dtype)
+                # the library calls' operands, laid out once outside the timing
+                x_ncdhw, g_ncdhw = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+                x_pad = F.pad(x_ncdhw, (0, 1) * 3)
+                w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
+                runs = {
+                    "conv_k2": (lambda: conv_k2(x, w), lambda: conv_k2_reference(x, w),
+                                lambda: F.conv3d(x_pad, w_oidhw)),
+                    "conv_k2_dx": (lambda: conv_k2_dx(g, w), lambda: conv_k2_dx_reference(g, w),
+                                   lambda: torch.nn.grad.conv3d_input(x_pad.shape, w_oidhw, g_ncdhw)),
+                    "conv_k2_dw": (lambda: conv_k2_dw(x, g), lambda: conv_k2_dw_reference(x, g),
+                                   lambda: torch.nn.grad.conv3d_weight(x_pad, w_oidhw.shape, g_ncdhw)),
+                }
+                for kernel, (run, plain, library) in runs.items():
+                    if kernel == "conv_k2_dx" and stage == 0:
+                        continue
+                    out, ref = run(), plain()
+                    torch.cuda.synchronize()
+                    if out.shape != ref.shape or out.dtype != ref.dtype:
+                        raise AssertionError(f"{kernel} {C}->{N} {case}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
+                    err = float((out.float() - ref.float()).abs().max())
+                    top = float(ref.float().abs().max())
+                    if kernel == "conv_k2_dw":
+                        tol = K2_TOL_DW_REL * top
+                    else:
+                        tol = K2_TOL_F32 if dtype == torch.float32 else K2_TOL_BF16_REL * top
+                    # plain, kernel, kernel, plain: both sides see the same card state
+                    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
+                    ms, plain_ms, library_ms = (k1 + k2) / 2, (p1 + p2) / 2, cuda_ms(library)
+                    bound_ms, bound_by = k2_bound_ms(kernel, batch, C, N, dtype)
+                    tflops = 2 * batch * GRID**3 * 8 * C * N / (ms * 1e-3) / 1e12
+                    print(f"{kernel} {case} {GRID}^3 {C}->{N}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+                          f"kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s) plain {plain_ms:.4f} ms "
+                          f"library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+                    if not err <= tol:
+                        raise AssertionError(f"{kernel} {C}->{N} {case}: max_abs_err {err} > {tol}")
+                    r = res[kernel][case]
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                    r["bound_by"].add(bound_by)
+                    for key, v in zip(keys, (ms, plain_ms, library_ms, bound_ms)):
+                        r[key] += v
+    for kernel, cases in res.items():
+        for case, r in cases.items():
+            r["bound_by"] = "operations" if "operations" in r["bound_by"] else "bytes"
+            print(f"{kernel} {case}, sum over its stages: kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+                  f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]",
+                  flush=True)
+    return res
+
+
+def kernel_entries(res: dict, serve_counts: dict, train_counts: dict) -> list:
+    """The ``kernels`` JSON entries. The headline numbers of each kernel are
+    at the shapes its main path gives it: the served batch in float32 for the
+    forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
+    every case measured. ``launches`` sums the served run and the train run."""
+    replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
+                "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
+                "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
+    entries = []
+    for kernel, cases in res.items():
+        head = cases["b8_f32" if kernel == "conv_k2" else "b32_bf16"]
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "anytime3d_tpu_torch/kernels/csrc/conv_k2.cu",
+            "replaces": replaces[kernel],
+            "launches": serve_counts[kernel] + train_counts[kernel],
+            "launches_serve": serve_counts[kernel],
+            "launches_train": train_counts[kernel],
+            **head,
+            "cases": cases,
+        })
+    return entries
 
 
 def synthetic_grids(n: int, dim: int, seed: int) -> np.ndarray:
@@ -259,8 +375,127 @@ def phase_slice(cfg, device: torch.device) -> MultiModalVAE:
     return model_gpu
 
 
-def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> tuple[int, int]:
-    """Serve the card model over HTTP; returns (conv_k2 launches, batches run)."""
+def phase_train_slice(cfg, device: torch.device) -> None:
+    """One full-width float32 train step on ``device`` against the same step on
+    the CPU: same weights, same packed batch, same injected draws."""
+    loss_cfg = configs.loss_config("modelnet_nolbo")
+    item = cfg.decoder.output_shape
+    n, z_dim = TRAIN_SLICE_BATCH, cfg.z_category_dim
+    rng = np.random.default_rng(SEED + 2)
+    batch = {
+        "input_packed_blocked": torch.from_numpy(pack_voxels_blocked(synthetic_grids(n, item[0], SEED + 2), 4)),
+        "category_onehot": torch.from_numpy(np.eye(cfg.category_dim, dtype=np.float32)[rng.integers(0, cfg.category_dim, n)]),
+    }
+    draws = {
+        "eps_post": torch.from_numpy(rng.normal(size=(n, z_dim)).astype(np.float32)),
+        "eps_prior": torch.from_numpy(rng.normal(size=(n, z_dim)).astype(np.float32)),
+        "coin": torch.tensor(True),  # the mixed branch: the prior sample reaches the decoder
+        "take_prior": torch.from_numpy(rng.uniform(size=(n, z_dim)) < loss_cfg.mix_element_prob),
+    }
+    # dropout rate 0: the prior net's mask is the one draw that cannot be injected
+    no_drop = dataclasses.replace(cfg, prior_category=dataclasses.replace(cfg.prior_category, dropout_rate=0.0))
+    model_cpu = MultiModalVAE(no_drop, generator=torch.Generator().manual_seed(SEED))
+    model_gpu = copy.deepcopy(model_cpu).to(device)
+    results = {}
+    for name, model, dev in (("card", model_gpu, device), ("cpu", model_cpu, torch.device("cpu"))):
+        state = create_train_state(model)
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            reset_counts()
+        # make_train_step's body written out, to keep a copy of the gradients it hands to the optimizer
+        total, metrics = compute_losses(model, loss_cfg, {k: v.to(dev) for k, v in batch.items()},
+                                        draws={k: v.to(dev) for k, v in draws.items()})
+        names, params = zip(*model.named_parameters())
+        grads = dict(zip(names, torch.autograd.grad(total, params)))
+        kept = {k: g.cpu().clone() for k, g in grads.items()}
+        state, metrics = apply_gradients_if_finite(state, grads, metrics)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        moved = max(float((p.detach() - before[k]).abs().max()) for k, p in model.named_parameters())
+        results[name] = (metrics, kept, moved, state.step)
+        print(f"train slice {name}: {time.perf_counter() - t0:.1f} s, {metrics}", flush=True)
+        if dev.type == "cuda" and read_counts() != {"conv_k2": 4, "conv_k2_dx": 3, "conv_k2_dw": 4}:
+            raise AssertionError(f"train slice: launches {read_counts()}, expected 4 / 3 / 4")
+    (m_gpu, g_gpu, moved_gpu, step_gpu), (m_cpu, g_cpu, _, _) = results["card"], results["cpu"]
+    for k, v in m_cpu.items():
+        if not (math.isfinite(m_gpu[k]) and abs(m_gpu[k] - v) <= TRAIN_TOL_LOSS_REL * abs(v) + 1e-6):
+            raise AssertionError(f"train slice: {k} card {m_gpu[k]} vs CPU {v}")
+    if m_gpu["grads_finite"] != 1.0 or step_gpu != 1 or not 0.0 < moved_gpu <= 1.01e-4:
+        raise AssertionError(f"train slice: grads_finite {m_gpu['grads_finite']}, step {step_gpu}, moved {moved_gpu}")
+    worst = ("", 0.0)
+    for k, g in g_cpu.items():
+        rel = float((g_gpu[k] - g).abs().max()) / float(g.abs().max())
+        worst = max(worst, (k, rel), key=lambda kv: kv[1])
+    print(f"train slice f32 card vs CPU: {len(g_cpu)} gradient leaves, largest error relative to its leaf's "
+          f"largest entry {worst[1]:.3e} ({worst[0]}; tol {TRAIN_TOL_GRAD_REL}); largest parameter move "
+          f"{moved_gpu:.3e} (Adam's first step is at most lr = 1e-4)", flush=True)
+    if not worst[1] <= TRAIN_TOL_GRAD_REL:
+        raise AssertionError(f"train slice: gradient of {worst[0]} off by {worst[1]} of its largest entry")
+
+
+def phase_train_run(card: str) -> dict:
+    """The train CLI's path at full width: B=32, bfloat16 compute, packed
+    synthetic batches, ``TRAIN_STEPS`` steps and one eval. Returns the launch
+    counts of the run."""
+    t0 = time.perf_counter()
+    args = cli_train.parse_args(["--config", "modelnet_nolbo", "--data", "synthetic", "--packed", "--bf16",
+                                 "--batch-size", str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS),
+                                 "--eval-every", str(TRAIN_STEPS)])
+    trainer, loader = cli_train.build_trainer(args)
+    print(f"train run: model, optimizer and {loader.dataLength} + 256 synthetic shapes built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    events = []
+    inner = trainer.step_fn
+
+    def timed_step(*a, **kw):  # CUDA events around each step's device work
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer.step_fn = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run(epoch_fn=lambda: loader.epoch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print("", flush=True)  # end the logger's carriage-return line
+
+    n_eval = len(trainer.eval_history)
+    want = {"conv_k2": 4 * TRAIN_STEPS + 4 * n_eval, "conv_k2_dx": 3 * TRAIN_STEPS, "conv_k2_dw": 4 * TRAIN_STEPS}
+    if trainer.state.step != TRAIN_STEPS or len(trainer.history) != TRAIN_STEPS or n_eval != 1 or trainer.aborted_nan:
+        raise AssertionError(f"train run: {trainer.state.step} steps, {len(trainer.history)} logged, {n_eval} evals")
+    if counts != want:
+        raise AssertionError(f"train run: launches {counts}, expected {want} (4 / 3 / 4 a step, 4 an eval step)")
+    for row in trainer.history + trainer.eval_history:
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"train run: non-finite metric in {row}")
+    if any(row["grads_finite"] != 1.0 for row in trainer.history):
+        raise AssertionError("train run: a step's gradients were not finite")
+    first = trainer.history[0]["loss_total"]
+    last = float(np.mean([row["loss_total"] for row in trainer.history[-5:]]))
+    if not last < first:
+        raise AssertionError(f"train run: loss_total did not fall ({first} -> mean of last 5 {last})")
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in events[TRAIN_WARMUP:]])
+    voxels = TRAIN_BATCH * math.prod(trainer.model.config.decoder.output_shape)
+    print(f"train run: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, bf16 compute, 64^3: loss_total {first:.1f} -> {last:.1f} "
+          f"(mean of the last 5), eval {trainer.eval_history[0]}", flush=True)
+    print(f"train run: device time per step (CUDA events, steps {TRAIN_WARMUP}..{TRAIN_STEPS - 1}) median "
+          f"{np.median(step_ms):.2f} ms, min {step_ms.min():.2f}, max {step_ms.max():.2f} "
+          f"({voxels / np.median(step_ms) * 1e3:.3e} voxels/s); host wall per step, batch making and a metrics "
+          f"fetch every step included, {wall / TRAIN_STEPS * 1e3:.2f} ms; peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; launches {counts} [{card}]", flush=True)
+    return counts
+
+
+def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> dict:
+    """Serve the card model over HTTP; returns the launch counts of the served run."""
     cfg = model.config
     item = cfg.decoder.output_shape
     z_dim = cfg.z_category_dim
@@ -296,7 +531,7 @@ def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> tuple[
             conn.close()
 
     try:
-        conv_k2.launches = 0
+        reset_counts()
         port = server.serve(0, background=True)
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(list(range(c, N_REQUESTS, N_CLIENTS)),))
@@ -312,7 +547,8 @@ def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> tuple[
         conn.close()
     finally:
         server.close()
-    launches = conv_k2.launches
+    counts = read_counts()
+    launches = counts["conv_k2"]
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"serve: client failures {errors!r}")
     for i, r in enumerate(replies):
@@ -326,26 +562,29 @@ def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> tuple[
     batches = int(health["batches_run"])
     if not (health["ok"] and batches >= 2):
         raise AssertionError(f"serve: /healthz {health}")
-    if launches != 4 * batches:
-        raise AssertionError(f"serve: conv_k2 launched {launches} times for {batches} batches")
+    if counts != {"conv_k2": 4 * batches, "conv_k2_dx": 0, "conv_k2_dw": 0}:
+        raise AssertionError(f"serve: launches {counts} for {batches} batches, expected 4 forward each")
     lat = np.sort(np.asarray(latencies)) * 1e3
     print(f"serve: {N_REQUESTS} requests from {N_CLIENTS} threads (closed loop), batch {BATCH}, "
           f"{batches} batches ({N_REQUESTS / batches:.2f} requests each), p50 {np.percentile(lat, 50):.2f} ms "
-          f"p99 {np.percentile(lat, 99):.2f} ms, {N_REQUESTS / wall:.1f} shapes/s (64^3, f32) [{card}]",
-          flush=True)
-    return launches, batches
+          f"p99 {np.percentile(lat, 99):.2f} ms, {N_REQUESTS / wall:.1f} shapes/s (64^3, f32), "
+          f"conv_k2 launches {launches} [{card}]", flush=True)
+    return counts
 
 
 def main() -> None:
     card = phase_device()
     phase_build()
-    entry = phase_kernels(card)
+    kernels = phase_kernels(card)
     device = torch.device("cuda")
-    model = phase_slice(REGISTRY["modelnet_nolbo"](), device)
-    launches, _ = phase_serve(model, device, card)
-    entry["launches"] = launches
+    cfg = REGISTRY["modelnet_nolbo"]()
+    model = phase_slice(cfg, device)
+    phase_train_slice(cfg, device)
+    serve_counts = phase_serve(model, device, card)
+    del model
+    train_counts = phase_train_run(card)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

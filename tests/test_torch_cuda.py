@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the ``conv_k2`` CUDA kernel against its plain
-version, its refusals, and a small serving slice on the GPU against the CPU.
+"""PyTorch port on the card: the ``conv_k2`` CUDA kernels (forward, dx, dw)
+against their plain versions, their refusals, and a small serving slice and a
+small train step on the GPU against the CPU.
 
 Every test here needs a CUDA GPU and ``nvcc`` and skips without them. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -14,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from anytime3d_tpu_torch.data.packing import pack_voxels
-from anytime3d_tpu_torch.kernels.conv_k2 import conv_k2, conv_k2_reference
-from anytime3d_tpu_torch.models.configs import modelnet_nolbo
+from anytime3d_tpu_torch.data.packing import pack_voxels, pack_voxels_blocked
+from anytime3d_tpu_torch.kernels.conv_k2 import conv_k2, conv_k2_backward_reference, conv_k2_reference
+from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
 from anytime3d_tpu_torch.serving.export import make_infer_fn, make_packed_infer
+from anytime3d_tpu_torch.train.state import create_train_state
+from anytime3d_tpu_torch.train.step import make_eval_step, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -59,11 +62,91 @@ def test_kernel_matches_plain(cuda, C, N, dtype):
     assert err <= tol, err
 
 
+def _counts():
+    return conv_k2.launches, conv_k2.launches_dx, conv_k2.launches_dw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,N", FLAGSHIP + [(8, 16), (136, 8), (16, 24)])
+def test_backward_kernels_match_plain(cuda, C, N, dtype):
+    """dx and dw through autograd against ``conv_k2_backward_reference``:
+    flagship stages at B=8, 16^3; the others on a small ragged grid (partial
+    tiles, every boundary row, a reduction that does not fill its splits)."""
+    B, D = (8, 16) if (C, N) in FLAGSHIP else (2, 5)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(B, D, D + 1, D + 2, C, generator=gen).to(cuda, dtype).requires_grad_()
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
+    g = torch.randn(B, D, D + 1, D + 2, N, generator=gen).to(cuda, dtype)
+    before = _counts()
+    y = conv_k2(x, w)
+    # a permuted view, as autograd hands gradients over
+    y.backward(g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1))
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    with torch.no_grad():
+        dx_ref, dw_ref = conv_k2_backward_reference(x, w, g)
+    torch.cuda.synchronize()
+    assert x.grad.dtype == dtype and x.grad.shape == x.shape
+    assert w.grad.dtype == torch.float32 and w.grad.shape == w.shape
+    err_dx = float((x.grad.float() - dx_ref.float()).abs().max())
+    err_dw = float((w.grad - dw_ref).abs().max())
+    # dx: as the forward (f32: summation order over a depth <= 4096; bf16: one
+    # rounding of an f32 sum on each side, 2 ulps at the largest entry).
+    # dw: f32 sums of up to 32768 O(1) products on both sides, in another
+    # order: 1e-5 of the largest entry (measured ~1e-6).
+    tol_dx = 1e-4 if dtype == torch.float32 else 2.0**-7 * float(dx_ref.float().abs().max())
+    tol_dw = 1e-5 * float(dw_ref.abs().max()) + 1e-5
+    assert err_dx <= tol_dx, err_dx
+    assert err_dw <= tol_dw, err_dw
+
+
+def test_backward_launches_only_what_is_asked(cuda):
+    x = torch.randn(1, 4, 4, 4, 8, device=cuda)
+    w = torch.randn(2, 2, 2, 8, 8, device=cuda)
+    before = _counts()
+    conv_k2(x, w.clone().requires_grad_()).sum().backward()  # data in: no dx
+    assert _counts() == (before[0] + 1, before[1], before[2] + 1)
+    conv_k2(x.clone().requires_grad_(), w).sum().backward()  # frozen weight: no dw
+    assert _counts() == (before[0] + 2, before[1] + 1, before[2] + 1)
+    with torch.no_grad():
+        conv_k2(x.clone().requires_grad_(), w)
+    assert _counts() == (before[0] + 3, before[1] + 1, before[2] + 1)
+
+
+def test_backward_kernels_pass_gradcheck_style(cuda):
+    """Central differences of sum(conv_k2(x, w) * g) in float64 on the CPU
+    against the kernels' dx and dw at one tiny f32 shape. (gradcheck itself
+    needs float64 inputs, which the kernels do not take.)"""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(1, 2, 3, 2, 8, generator=gen)
+    w = torch.randn(2, 2, 2, 8, 8, generator=gen) * 0.2
+    g = torch.randn(1, 2, 3, 2, 8, generator=gen)
+    xc, wc = x.to(cuda).requires_grad_(), w.to(cuda).requires_grad_()
+    conv_k2(xc, wc).backward(g.to(cuda))
+
+    def numeric(t, other_first):
+        t64 = t.double()
+        out = torch.zeros_like(t64)
+        flat, oflat = t64.view(-1), out.view(-1)
+        for i in range(flat.numel()):
+            vals = []
+            for eps in (1e-3, -1e-3):
+                flat[i] += eps
+                args = (x.double(), t64) if other_first else (t64, w.double())
+                vals.append(float((conv_k2_reference(*args) * g.double()).sum()))
+                flat[i] -= eps
+            oflat[i] = (vals[0] - vals[1]) / 2e-3
+        return out.float()
+
+    # the function is bilinear, so central differences are exact up to f64 rounding
+    np.testing.assert_allclose(xc.grad.cpu().numpy(), numeric(x, False).numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(wc.grad.cpu().numpy(), numeric(w, True).numpy(), rtol=0, atol=1e-4)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.randn(1, 4, 4, 4, 8, device=cuda)
     w = torch.randn(2, 2, 2, 8, 8, device=cuda)
-    with pytest.raises(RuntimeError, match="backward"):
-        conv_k2(x, w.clone().requires_grad_())
+    with pytest.raises(ValueError, match="N % 8"):  # dx's depth is (tap, n)
+        conv_k2(x.clone().requires_grad_(), torch.randn(2, 2, 2, 8, 4, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         conv_k2(x.transpose(1, 2), w)
     with pytest.raises(TypeError):
@@ -74,17 +157,64 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         conv_k2(x, w.cpu())
 
 
+def small_config(dropout_rate=0.2):
+    base = modelnet_nolbo(z_dim=8, category_dim=5)
+    return dataclasses.replace(
+        base,
+        encoder3d=dataclasses.replace(base.encoder3d, filter_nums=(8, 16, 16, 32)),
+        decoder=dataclasses.replace(base.decoder, output_shape=(32, 32, 32, 1), filter_nums=(32, 16, 16, 8, 1)),
+        prior_category=dataclasses.replace(base.prior_category, unit_nums=(16, 8), dropout_rate=dropout_rate),
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_train_step_on_card_matches_cpu(cuda, dtype):
+    """Three train steps of the 32^3 narrow model on the card, through the
+    kernels (4 forward, 3 dx, 4 dw launches a step; 4 forward an eval step),
+    against the same steps on the CPU from the same weights, batch and draws.
+    float32: every metric to rtol 1e-4 at the first step (summation order; later steps
+    feel Adam's sign-like first updates). bfloat16: the card's bf16 against
+    the CPU's bf16, 5%."""
+    cfg, loss_cfg = small_config(dropout_rate=0.0), loss_config("modelnet_nolbo")
+    rng = np.random.default_rng(3)
+    vox = (rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32)
+    batch = {"input_packed_blocked": torch.from_numpy(pack_voxels_blocked(vox, 4)),
+             "category_onehot": torch.from_numpy(np.eye(5, dtype=np.float32)[rng.integers(0, 5, 4)])}
+    draws = {"eps_post": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)),
+             "eps_prior": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)),
+             "coin": torch.tensor(True), "take_prior": torch.from_numpy(rng.uniform(size=(4, 8)) < 0.3)}
+    model_cpu = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0), dtype=dtype)
+    model_gpu = copy.deepcopy(model_cpu).to(cuda)
+    history = {}
+    for name, model, dev in (("cpu", model_cpu, torch.device("cpu")), ("card", model_gpu, cuda)):
+        state, step = create_train_state(model), make_train_step(model, loss_cfg)
+        b, d = {k: v.to(dev) for k, v in batch.items()}, {k: v.to(dev) for k, v in draws.items()}
+        before = _counts()
+        history[name] = []
+        for _ in range(3):
+            state, metrics = step(state, b, draws=d)
+            history[name].append({k: float(v) for k, v in metrics.items()})
+        launched = tuple(a - b0 for a, b0 in zip(_counts(), before))
+        assert launched == ((12, 9, 12) if name == "card" else (0, 0, 0))
+        assert state.step == 3 and all(p.dtype == torch.float32 for p in model.parameters())
+    rtol = 1e-4 if dtype == torch.float32 else 0.05
+    for k, v in history["cpu"][0].items():
+        np.testing.assert_allclose(history["card"][0][k], v, rtol=rtol, atol=1e-6, err_msg=k)
+    for row in history["card"]:
+        assert all(np.isfinite(v) for v in row.values()) and row["grads_finite"] == 1.0
+    assert history["card"][2]["loss_total"] < history["card"][0]["loss_total"]
+    np.testing.assert_allclose(history["card"][2]["loss_total"], history["cpu"][2]["loss_total"], rtol=max(rtol, 1e-2))
+    before = _counts()
+    out = make_eval_step(model_gpu, loss_cfg)(b, torch.Generator(device=cuda).manual_seed(0))
+    assert tuple(a - b0 for a, b0 in zip(_counts(), before)) == (4, 0, 0)
+    assert all(torch.isfinite(v) for v in out.values())
+
+
 def test_small_slice_on_card_matches_cpu(cuda):
     """modelnet_nolbo's layout at 32^3 with narrow filters: served on the card
     through the kernel (4 launches a batch), equal to the CPU run within f32
     summation-order tolerance."""
-    base = modelnet_nolbo(z_dim=8, category_dim=5)
-    cfg = dataclasses.replace(
-        base,
-        encoder3d=dataclasses.replace(base.encoder3d, filter_nums=(8, 16, 16, 32)),
-        decoder=dataclasses.replace(base.decoder, output_shape=(32, 32, 32, 1), filter_nums=(32, 16, 16, 8, 1)),
-        prior_category=dataclasses.replace(base.prior_category, unit_nums=(16, 8)),
-    )
+    cfg = small_config()
     model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0))
     model_gpu = copy.deepcopy(model).to(cuda)
     rng = np.random.default_rng(0)

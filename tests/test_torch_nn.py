@@ -175,6 +175,79 @@ def test_decoder_matches_flax(small_model):
     np.testing.assert_allclose(y, ref, rtol=1e-4, atol=1e-5)
 
 
+def test_blocked_input_matches_flax(small_model):
+    """The encoder fed the space-to-depth(4) layout directly, against flax's
+    ``blocked_input=True`` and against the dense path of the port itself."""
+    jax_model, tree, model = small_model
+    x = (np.random.default_rng(10).uniform(size=(3, 32, 32, 32, 1)) > 0.7).astype(np.float32)
+    xb = np.asarray(jax_blocks.space_to_depth3d(jnp.asarray(x), 4))
+    ref = jax_model.apply({"params": tree}, xb, method=lambda m, v: m.encoder3d(v, blocked_input=True))
+    with torch.no_grad():
+        y = model.encoder3d(torch.from_numpy(np.array(xb)), blocked_input=True)
+        assert torch.equal(y, model.encoder3d(torch.from_numpy(x)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+def test_blocked_output_matches_flax(small_model):
+    """The decoder's blocked output (final activation applied, no d2s) against
+    flax's ``blocked_output=True``; it is the space-to-depth(4) of the normal output."""
+    jax_model, tree, model = small_model
+    z = np.random.default_rng(11).normal(size=(3, 8)).astype(np.float32)
+    ref = np.asarray(jax_model.apply({"params": tree}, z, blocked_output=True, method=JaxVAE.decode))
+    with torch.no_grad():
+        y = model.decode(torch.from_numpy(z), blocked_output=True)
+        assert torch.equal(blocks.space_to_depth3d(model.decode(torch.from_numpy(z)), 4), y)
+    assert y.shape == ref.shape == (3, 8, 8, 8, 64)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+def test_blocked_io_predicates_match_jax():
+    from anytime3d_tpu.models import mmvae as jax_mmvae
+    from anytime3d_tpu_torch.models import mmvae
+
+    for jax_cfg, cfg in (small_configs(), (jax_configs.modelnet_nolbo(), configs.modelnet_nolbo())):
+        assert mmvae.blocked_io_block(cfg) == jax_mmvae.blocked_io_block(jax_cfg) == 4
+        assert mmvae.decoder_blocked_block(cfg) == jax_mmvae.decoder_blocked_block(jax_cfg) == 4
+    jax_cfg, cfg = small_configs()
+    odd = dict(output_shape=(34, 32, 32, 1))
+    assert mmvae.blocked_io_block(dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, **odd))) is None
+    assert jax_mmvae.blocked_io_block(
+        dataclasses.replace(jax_cfg, decoder=dataclasses.replace(jax_cfg.decoder, **odd))) is None
+    assert MultiModalVAE(cfg).blocked_io_block == 4
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_priornet_dropout_follows_mode_and_generator(rate):
+    cfg = PriorNetConfig(input_dim=5, unit_nums=(64, 8), const_log_var=0.0, dropout_rate=rate)
+    net = PriorNet(cfg, generator=torch.Generator().manual_seed(0))
+    onehot = torch.eye(5)
+    still = net.eval()(onehot)[0]
+    net.train()
+    a = net(onehot, torch.Generator().manual_seed(1))[0]
+    b = net(onehot, torch.Generator().manual_seed(1))[0]
+    c = net(onehot, torch.Generator().manual_seed(2))[0]
+    assert torch.equal(a, b)
+    assert torch.equal(a, still) == (rate == 0.0) and torch.equal(a, c) == (rate == 0.0)
+
+
+def test_compute_dtype_casts_at_use(small_model):
+    """``dtype=torch.bfloat16``: float32 parameters, bfloat16 activations, the
+    same function as the float32 model within bf16's 8 bits of mantissa."""
+    _, tree, model = small_model
+    low = MultiModalVAE(model.config, dtype=torch.bfloat16)
+    low.load_state_dict(params_from_flax(tree))
+    low.eval()
+    assert all(p.dtype == torch.float32 for p in low.parameters())
+    x = torch.from_numpy((np.random.default_rng(12).uniform(size=(2, 32, 32, 32, 1)) > 0.7).astype(np.float32))
+    with torch.no_grad():
+        enc, ref = low.encode(x), model.encode(x)
+        pred, pred_ref = low.decode(ref.mean), model.decode(ref.mean)
+        prior = low.priors_category(torch.eye(5))[0]
+    assert enc.mean.dtype == pred.dtype == prior.dtype == torch.bfloat16
+    assert float((enc.mean.float() - ref.mean).abs().max()) <= 0.05 * max(1.0, float(ref.mean.abs().max()))
+    assert float((pred.float() - pred_ref).abs().max()) <= 0.05
+
+
 def test_flat_npz_loads_like_the_tree(small_model, tmp_path):
     _, tree, model = small_model
     flat = {"/".join(k.key for k in path): leaf for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
