@@ -10,7 +10,8 @@ prints for one configuration:
   (with the encoder and the decoder inside it), backward, and the guarded
   Adam update;
 - device time by kernel name over a few steps, from ``torch.profiler``, with
-  the device's busy share of the window;
+  the device's busy share of the window, and the ``conv_k2`` kernels (any
+  kernel with that in its name) listed apart;
 - the host's time to make one batch.
 
 Every line carries the card's name and power limit. Needs a CUDA card.
@@ -116,6 +117,12 @@ def main(argv=None):
           f"({100 * busy_ms * profiled_steps / window_ms:.1f}%) {label}", flush=True)
     for name, ms, count in rows[: args.rows]:
         print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:6.1f}  {name[:110]}", flush=True)
+    # the package's own kernels, wherever they rank: FFMA and tensor-core forward, dx, dw and dw's reduce
+    own = [r for r in rows if "conv_k2" in r[0]]
+    print(f"conv_k2 kernels: {sum(r[1] for r in own):.3f} ms a step ({100 * sum(r[1] for r in own) / busy_ms:.1f}% "
+          f"of busy) {label}", flush=True)
+    for name, ms, count in own:
+        print(f"  {ms:9.3f} ms x{count:6.1f}  {name[:110]}", flush=True)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "batch_size": batch_size, "dtype": "f32" if args.f32 else "bf16",

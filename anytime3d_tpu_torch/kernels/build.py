@@ -6,6 +6,11 @@ plain C interface, for ``sm_90a`` (Hopper). The library lands in
 sources and the compiler flags, so an edited source is rebuilt and an
 unchanged one is reused. ``_build/`` is not committed.
 
+``EXTRA_DEFINES`` (names, or ``NAME=value``) are passed as ``-D`` and are part
+of the hash; set them before the first kernel is used. The default build has
+none. ``CONV_K2_WAIT_TRAP_NS=<ns>`` makes the tensor-core kernels trap when a
+wait on a barrier lasts that long, for bring-up and the card tests.
+
 There is no fallback: without ``nvcc`` (on ``PATH``, under ``$CUDA_HOME`` or
 in ``/usr/local/cuda``) the build raises.
 """
@@ -26,6 +31,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills go to build.log
 )
+EXTRA_DEFINES: tuple[str, ...] = ()
+
+
+def _flags() -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in EXTRA_DEFINES)
 
 
 def find_nvcc() -> str:
@@ -49,7 +59,7 @@ def library_path(name: str) -> Path:
     for src in sorted(CSRC.iterdir()):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags()).encode())
     return BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
@@ -62,7 +72,7 @@ def build(name: str) -> Path:
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [nvcc, *_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         capture_output=True,
         text=True,
         check=False,

@@ -3,8 +3,12 @@ and its plain PyTorch version.
 
 Counterpart of ``anytime3d_tpu/kernels/conv_k2.py``. The four heaviest
 convolutions of the flagship model (the blocked encoder head and decoder
-tail at 16^3) are this operation. ``csrc/conv_k2.cu`` says how the kernel
-is formed and what bounds it.
+tail at 16^3) are this operation. ``csrc/conv_k2.cu`` says how the kernels
+are formed and what bounds them. There are two designs: bfloat16 operands
+whose shape has a plan (:func:`wgmma_plan`) take the tensor-core kernels of
+``csrc/conv_k2_wgmma.cuh`` in the forward and in dw; float32, dx, and shapes
+without a plan take the FFMA kernels. The choice is made from shape and
+dtype before the launch, never by catching a failure.
 
 Layouts are the JAX package's: ``x`` is NDHWC ``(B, D, H, W, C)``, ``w`` is
 ``(2, 2, 2, C, N)``, the result is ``(B, D, H, W, N)`` in ``x``'s dtype.
@@ -13,6 +17,7 @@ Layouts are the JAX package's: ``x`` is NDHWC ``(B, D, H, W, C)``, ``w`` is
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -65,11 +70,124 @@ def _lib() -> ctypes.CDLL:
     lib.conv_k2_forward.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.conv_k2_backward_input.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.conv_k2_backward_weight.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
-    for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight):
+    lib.conv_k2_forward_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
+    lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
+    for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
+               lib.conv_k2_forward_wgmma, lib.conv_k2_backward_weight_wgmma):
         fn.restype = i32
     lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# The tensor-core kernels' tiling (csrc/conv_k2_wgmma.cuh): 128 or 256 output
+# rows a block, 64 deep a stage, tiles of 64 x 64 bf16 (8 KB) in shared memory.
+_WG_ROWS = 128
+_WG_DEPTH = 64
+_WG_TILE_BYTES = 64 * 64 * 2
+_WG_SMEM_MAX = 232_448  # what one block may have on an H100
+_WG_DW_MIN_STAGES = 16  # a split of dw's row reduction is at least this deep
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaPlan:
+    """How the tensor-core kernels cut one bfloat16 ``conv_k2`` shape.
+
+    Forward: an output tile is ``bm`` rows (128 or 256) by ``bn`` columns (64
+    or 128); ``box`` is the (w, h, d) extents of the TMA box of ``x`` that
+    holds a tile's rows, 64 channels (128 bytes) wide, inside one batch item.
+    The ring has ``stages`` slots and the block ``smem_bytes`` of dynamic
+    shared memory (ring, alignment room, barriers), which the launcher holds
+    to its own arithmetic, as it does ``tiles``. The ``tiles`` output tiles
+    (column tiles fastest) are walked by ``grid`` blocks, block i taking tiles
+    i, i + grid, ...
+
+    dw: an output tile is 128 rows of (tap, c) by ``bn`` columns and a stage
+    64 rows m, whose box is ``dw_box``; the ring has ``dw_stages`` slots in
+    ``dw_smem_bytes``. ``dw_grid`` is (column tiles, row tiles, splits); a
+    split reduces ``dw_stages_per_split`` stages, the last one the rest.
+    """
+
+    bm: int
+    bn: int
+    box: tuple[int, int, int]
+    stages: int
+    smem_bytes: int
+    tiles: int
+    grid: int
+    dw_box: tuple[int, int, int]
+    dw_stages: int
+    dw_smem_bytes: int
+    dw_grid: tuple[int, int, int]
+    dw_stages_per_split: int
+
+
+def _row_box(rows: int, D: int, H: int, W: int) -> tuple[int, int, int] | None:
+    """(w, h, d) extents of a box of ``rows`` consecutive rows of one batch
+    item such that consecutive boxes tile the (D, H, W) grid, or None: whole
+    w-lines before a second h, whole (h, w) planes before a second d."""
+    extents = []
+    whole = True  # every faster axis is covered whole
+    for size in (W, H, D):
+        take = min(size, rows) if whole else 1
+        if rows % take or size % take:
+            return None
+        extents.append(take)
+        rows //= take
+        whole = whole and take == size
+    return tuple(extents) if rows == 1 else None
+
+
+def _ring(a_tiles: int, bn: int, blocks_per_sm: int) -> tuple[int, int]:
+    """(stages, dynamic shared memory) of a ring whose stage holds ``a_tiles``
+    tiles of A and bn/64 of B, for ``blocks_per_sm`` blocks on an SM: 96 KB of
+    stages a block where two share an SM, 192 KB where one has it."""
+    stage_bytes = (a_tiles + bn // 64) * _WG_TILE_BYTES
+    stages = (192 * 1024 // blocks_per_sm) // stage_bytes
+    smem_bytes = 1024 + stages * stage_bytes + 2 * 8 * 8
+    assert 3 <= stages <= 8 and blocks_per_sm * smem_bytes <= _WG_SMEM_MAX
+    return stages, smem_bytes
+
+
+@functools.lru_cache(maxsize=256)  # a model asks for the same few shapes at every step
+def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> WgmmaPlan | None:
+    """The tensor-core kernels' plan for bfloat16 ``x`` (B,D,H,W,C) and ``w``
+    (2,2,2,C,N), or None where they do not apply: C and N multiples of 64 and
+    a grid whose rows tile into boxes of 128 and of 64 (16^3, 8^3, 32^3, ...).
+    Pure arithmetic; ``sms`` is the card's count of multiprocessors."""
+    if min(B, D, H, W, C, N) < 1 or C % _WG_DEPTH or N % 64 or B * D * H * W >= 2**31:
+        return None
+    box, dw_box = _row_box(_WG_ROWS, D, H, W), _row_box(_WG_DEPTH, D, H, W)
+    if box is None or dw_box is None:
+        return None
+    rows = B * D * H * W
+    bn = 128 if N % 128 == 0 else 64
+    # forward: tiles of 256 rows (one block an SM, the B tile fetched half as often) where the rows
+    # tile so and a tile is at least 16 stages deep: its store then hides without a second block
+    box_256 = _row_box(256, D, H, W) if C >= 128 else None
+    bm, box = (_WG_ROWS, box) if box_256 is None else (256, box_256)
+    blocks_per_sm = 2 if bm == _WG_ROWS else 1
+    stages, smem_bytes = _ring(2 * bm // _WG_ROWS, bn, blocks_per_sm)
+    fwd_tiles = (rows // bm) * (N // bn)
+    # dw: one wave of blocks, two an SM, each split a whole number of stages
+    dw_stages, dw_smem_bytes = _ring(2, bn, 2)
+    total = rows // _WG_DEPTH
+    tiles = (8 * C // _WG_ROWS) * (N // bn)
+    splits = max(1, min(2 * sms // tiles, total // _WG_DW_MIN_STAGES))
+    per_split = -(-total // splits)
+    splits = -(-total // per_split)
+    return WgmmaPlan(bm=bm, bn=bn, box=box, stages=stages, smem_bytes=smem_bytes, tiles=fwd_tiles,
+                     grid=min(fwd_tiles, blocks_per_sm * sms), dw_box=dw_box, dw_stages=dw_stages,
+                     dw_smem_bytes=dw_smem_bytes, dw_grid=(N // bn, 8 * C // _WG_ROWS, splits),
+                     dw_stages_per_split=per_split)
+
+
+def _plan_for(x: torch.Tensor, N: int) -> WgmmaPlan | None:
+    """The plan of a CUDA operand, or None: bfloat16 only."""
+    if x.dtype != torch.bfloat16:
+        return None
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return wgmma_plan(*x.shape, N, sms=sms)
 
 
 def _check_launch(what: str, rc: int) -> None:
@@ -99,9 +217,16 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w = w.contiguous()
     y = torch.empty((B, D, H, W, N), dtype=x.dtype, device=x.device)
     _check_operands("conv_k2", C, N, x, w, y)
-    _check_launch("conv_k2", _lib().conv_k2_forward(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N,
-        _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+    plan = _plan_for(x, N)
+    if plan is None:
+        _check_launch("conv_k2", _lib().conv_k2_forward(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N,
+            _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+    else:
+        _check_launch("conv_k2 (wgmma)", _lib().conv_k2_forward_wgmma(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *plan.box, plan.bm, plan.bn, plan.stages,
+            plan.grid, plan.smem_bytes, plan.tiles, x.device.index, _stream(x)))
+        conv_k2.launches_wgmma += 1
     conv_k2.launches += 1
     return y
 
@@ -159,13 +284,24 @@ def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                          f"{tuple(g.shape)} {g.dtype}")
     B, D, H, W, C = x.shape
     N = g.shape[-1]
-    splits = _dw_splits(B * D * H * W, -(-8 * C // 128) * -(-N // 64), x.device)
+    plan = _plan_for(x, N)
+    if plan is None:
+        splits = _dw_splits(B * D * H * W, -(-8 * C // 128) * -(-N // 64), x.device)
+    else:
+        splits = plan.dw_grid[2]
     dw = torch.empty((2, 2, 2, C, N), dtype=torch.float32, device=x.device)
     workspace = torch.empty((splits if splits > 1 else 0, 8 * C, N), dtype=torch.float32, device=x.device)
     _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
-    _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
-        x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, B, D, H, W, C, N,
-        _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+    if plan is None:
+        _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, B, D, H, W, C, N,
+            _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+    else:
+        _check_launch("conv_k2 dw (wgmma)", _lib().conv_k2_backward_weight_wgmma(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, plan.dw_stages_per_split,
+            B, D, H, W, C, N, *plan.dw_box, plan.bn, plan.dw_stages, plan.dw_smem_bytes,
+            x.device.index, _stream(x)))
+        conv_k2.launches_dw_wgmma += 1
     conv_k2.launches_dw += 1
     return dw
 
@@ -199,7 +335,8 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``w`` may be a float32 parameter beside a bfloat16 ``x``: it is cast to
     ``x``'s dtype and its gradient comes back in float32. Every kernel launch
     adds one to ``conv_k2.launches`` (forward), ``conv_k2.launches_dx`` or
-    ``conv_k2.launches_dw``."""
+    ``conv_k2.launches_dw``; a launch of a tensor-core kernel also to
+    ``conv_k2.launches_wgmma`` (forward) or ``conv_k2.launches_dw_wgmma``."""
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:4]) != (2, 2, 2, x.shape[-1]):
         raise ValueError(f"conv_k2 takes x (B,D,H,W,C) and w (2,2,2,C,N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:
@@ -217,3 +354,5 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 conv_k2.launches = 0
 conv_k2.launches_dx = 0
 conv_k2.launches_dw = 0
+conv_k2.launches_wgmma = 0
+conv_k2.launches_dw_wgmma = 0

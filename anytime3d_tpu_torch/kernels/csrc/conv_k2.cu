@@ -46,13 +46,22 @@
 // What bounds it on this card: at the flagship shapes (B=8, 16^3, C->N of
 // 64->512, 512->128, 128->512, 512->64) the depth is 512 to 4096 and the
 // four stages need ~1.03e11 FLOPs per batch against ~0.2 GB of traffic, so
-// the work is compute bound, forward and backward alike. This version is a
-// plain tiled SIMT GEMM: a 128x64 output tile per block, 8x4 outputs per
-// thread held in f32 registers, a 16-deep chunk of A and B staged in shared
-// memory, and the next chunk prefetched into registers while the current one
-// is consumed. f32 is computed in true f32 (FFMA, no TF32); bf16 is read as
-// bf16, widened to f32 in shared memory, accumulated in f32 and rounded once
-// on store. Tensor cores (wgmma), TMA and a deeper pipeline are later work.
+// the work is compute bound, forward and backward alike.
+//
+// Two designs live here. The kernels of this file are plain tiled SIMT GEMMs
+// (FFMA): a 128x64 output tile per block, 8x4 outputs per thread held in f32
+// registers, a 16-deep chunk of A and B staged in shared memory, and the next
+// chunk prefetched into registers while the current one is consumed. f32 is
+// computed in true f32 (FFMA, no TF32); bf16 is read as bf16, widened to f32
+// in shared memory, accumulated in f32 and rounded once on store. They take
+// float32 of any shape, dx in both types, and the bfloat16 shapes that have
+// no plan. The bfloat16 forward and dw of the shapes that have a plan (C and
+// N multiples of 64, rows that tile into boxes: the flagship stages) run on
+// the tensor cores: conv_k2_wgmma.cuh holds those kernels (wgmma products,
+// operands brought in by TMA box copies into a ring of swizzled shared-memory
+// tiles) and says how they are formed. Which design a call takes is settled
+// by the Python wrapper from shape and dtype, before the launch. dx on the
+// tensor cores (the same box copy at mirrored coordinates) is later work.
 //
 // Preconditions, checked by the Python wrapper: all tensors contiguous and
 // 16-byte aligned; the depth's channel count a multiple of 8 (so every
@@ -64,6 +73,8 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include "conv_k2_wgmma.cuh"
 
 namespace {
 
@@ -445,7 +456,68 @@ int conv_k2_backward_weight(const void* x, const void* g, void* dw, void* worksp
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The bfloat16 tensor-core forward. The wrapper's plan gives the output tile
+// (bm rows, 128 or 256, by bn columns, 64 or 128), the box of its bm rows
+// (bw, bh, bd) in (w, h, d), the ring's stages, the number of blocks that
+// share the output tiles, and the dynamic shared memory and the tile count it
+// worked out, which must be this file's own (else wg::PLAN_MISMATCH). Needs
+// C % 64 == 0, N % bn == 0 and D*H*W % bm == 0.
+int conv_k2_forward_wgmma(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
+                          int N, int bw, int bh, int bd, int bm, int bn, int stages, int grid, int smem_bytes,
+                          int tiles, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C % wg::BK || N % bn || bw * bh * bd != bm || static_cast<long long>(D) * H * W % bm || stages < 2 ||
+      stages > wg::MAX_STAGES || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FWD_ARGS x, w, y, B, D, H, W, C, N, bw, bh, bd, stages, grid, smem_bytes, tiles, s
+  if (bm == 128 && bn == 128) return wg::launch_fwd<128, 1>(FWD_ARGS);
+  if (bm == 128 && bn == 64) return wg::launch_fwd<64, 1>(FWD_ARGS);
+  if (bm == 256 && bn == 128) return wg::launch_fwd<128, 2>(FWD_ARGS);
+  if (bm == 256 && bn == 64) return wg::launch_fwd<64, 2>(FWD_ARGS);
+#undef FWD_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bfloat16 tensor-core dw: the box of a stage's 64 rows (bw, bh, bd); the
+// M/64 stages of the row reduction are cut into `splits` parts of
+// `stages_per_split` (the last may be shorter, none is empty); `workspace`
+// holds splits*8*C*N floats (unused when splits == 1); `smem_bytes` is the
+// plan's dynamic shared memory, held to this file's own.
+int conv_k2_backward_weight_wgmma(const void* x, const void* g, void* dw, void* workspace, int splits,
+                                  int stages_per_split, int B, int D, int H, int W, int C, int N, int bw,
+                                  int bh, int bd, int bn, int stages, int smem_bytes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(B) * D * H * W / wg::BK;
+  if (C % wg::BK || N % bn || bw * bh * bd != wg::BK || stages < 2 || stages > wg::MAX_STAGES || splits < 1 ||
+      static_cast<long long>(splits - 1) * stages_per_split >= total ||
+      static_cast<long long>(splits) * stages_per_split < total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(dw);
+  float* part = splits == 1 ? out : static_cast<float*>(workspace);
+  int rc;
+  if (bn == 128)
+    rc = wg::launch_dw<128>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, stages, smem_bytes,
+                            s);
+  else if (bn == 64)
+    rc = wg::launch_dw<64>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, stages, smem_bytes,
+                           s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rc || splits == 1) return rc;
+  const long long count4 = static_cast<long long>(8) * C * N / 4;
+  conv_k2_dw_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(part, out, count4, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Codes from wg::PLAN_MISMATCH up are this library's own, not cudaError_t.
 const char* conv_k2_error_string(int code) {
+  if (code == wg::PLAN_MISMATCH) return "the plan's shared memory or tile count is not the kernel's";
+  if (code == wg::NO_ENCODER) return "cuTensorMapEncodeTiled not found in libcuda";
+  if (code >= wg::ENCODE_FAILED) return "cuTensorMapEncodeTiled refused the tensor map (code - 10000 is its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

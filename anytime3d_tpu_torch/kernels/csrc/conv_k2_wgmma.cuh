@@ -1,0 +1,610 @@
+// conv_k2 in bfloat16 on Hopper's tensor cores: the forward and dw.
+// Included by conv_k2.cu, which states what the operation computes.
+//
+// Replaces, for bfloat16 operands whose shape has a plan (see
+// kernels/conv_k2.py::wgmma_plan), the forward of the TPU kernel
+// anytime3d_tpu/kernels/conv_k2.py::_conv_k2_pallas (pallas_call at :156) and
+// the dw product of its backward (_conv_k2_bwd_impl, :181-205).
+//
+// What bounds them: operations. A flagship stage at B=32 is 6e10 to 1.2e11
+// operations against at most 0.17 GB of traffic, and only the tensor cores
+// reach the card's bf16 rate. So both kernels are built around wgmma:
+//
+// - Products: wgmma.mma_async m64nNk16, bf16 operands read from shared
+//   memory through descriptors, f32 accumulators in registers. A block owns a
+//   128 x BN output tile (BN = 128, or 64 where N is an odd multiple of 64):
+//   two consumer warpgroups of 64 rows each, 64 (or 32) accumulators a thread,
+//   two blocks an SM. The forward also has a 256-row tile (MT = 2: two
+//   accumulators a warpgroup, one block an SM), which fetches the B tile from
+//   L2 half as often for the same products; the wrapper's plan takes it where
+//   a tile is deep enough (C >= 128) to hide its store without a second block
+//   on the SM. dw gained nothing from it and keeps 128 rows.
+//
+// - The gather is a box copy. x is described to the TMA as the 5-D tensor it
+//   is, (C, W, H, D, B) innermost first. The rows of an output tile are a box
+//   of one batch item (at 16^3: 8 h-lines of one (b, d)), so the A tile of tap
+//   (dz, dy, dx) is that box at coordinates shifted by the tap. Where the box
+//   leaves the tensor the TMA writes zeros, which is SAME padding (lo 0, hi
+//   1): no mask, no division and no address register in any consumer thread.
+//   The inner 64 channels are 128 bytes, written with the 128-byte swizzle
+//   that a wgmma descriptor reads directly.
+//
+// - A ring of stages in dynamic shared memory, each 64 deep, filled by one
+//   producer thread (lane 0 of warp 8) and drained by the two consumer
+//   warpgroups (warps 0-7). Each slot has a `full` mbarrier, which the
+//   producer arms with the stage's byte count (zero-filled bytes included)
+//   and the TMA completes, and an `empty` mbarrier, on which one lane of
+//   every consumer warp arrives once wgmma.wait_group has shown that the
+//   products reading the slot are done. One group of products stays in flight
+//   while the next stage is awaited.
+//
+// Forward: y [M, N] = A [M, 8C] * w [8C, N], one stage = one tap and 64
+//   channels. A is K-major (c contiguous); w lies [8C, N] with n contiguous,
+//   which is the MN-major B operand (transpose bit set), loaded as 64 x 64
+//   boxes: no re-lay of w. A block walks over several output tiles and the
+//   ring runs on across them, so the next tile's loads are in flight while
+//   this tile is stored. Epilogue: accumulators rounded once to bf16,
+//   exchanged within each quad of lanes so that a lane holds 8 consecutive
+//   columns, and stored from registers 16 bytes a lane.
+//
+// dw: dw [8C, N] = A^T [8C, M] * g [M, N], depth m, one stage = 64 rows m:
+//   for each warpgroup the box of x (64 c x 64 rows) at its tap's shift (at
+//   C = 64 the two warpgroups of a tile hold two taps, else two channel
+//   blocks of one tap) and 64 rows of g. Both operands are MN-major (c and n
+//   contiguous), both transpose bits set. The rows are split over blockIdx.z;
+//   each split stores its f32 partial tile from registers (8 bytes a lane)
+//   to the workspace and conv_k2_dw_reduce_kernel sums the splits in
+//   ascending order. No atomics: the same bits every run.
+//
+// Shared memory of a stage: A 2 MT tiles of 8 KB (64 rows each) + B BN/64
+// tiles of 8 KB; every tile starts on a 1024-byte boundary (the swizzle's
+// period). Built with -DCONV_K2_WAIT_TRAP_NS=<ns> (bring-up and the card
+// tests; kernels/build.py::EXTRA_DEFINES), a wait on an mbarrier that lasts
+// that long traps instead of hanging the card. The default build has no such
+// bound: the timer runs on while a kernel is preempted or the card is shared,
+// and a trap poisons the context of a healthy process.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stdint.h>
+
+namespace wg {
+
+constexpr int BM = 128;            // output rows per block: 64 for each of two consumer warpgroups (x MT)
+constexpr int BK = 64;             // depth per stage: 64 bf16 = one 128-byte swizzled row
+constexpr int CONSUMER_WARPS = 8;  // warps 0-7; warp 8 is the producer
+constexpr int THREADS = (CONSUMER_WARPS + 1) * 32;
+constexpr int MAX_STAGES = 8;
+constexpr uint32_t TILE_BYTES = 64 * 128;  // a 64 x 64 bf16 box
+constexpr uint32_t SWIZZLE_PERIOD = 1024;  // 8 rows of 128 bytes
+constexpr uint32_t K16_IN_ROW = 32;        // K-major: 16 bf16 further along a 128-byte row
+constexpr uint32_t K16_ROWS = 16 * 128;    // MN-major: 16 rows further down
+
+// A stage holds MT tiles of A for each of the two warpgroups, then BN/64 tiles of B.
+template <int MT>
+__host__ __device__ constexpr uint32_t a_bytes() {
+  return 2 * MT * TILE_BYTES;
+}
+
+template <int BN, int MT>
+__host__ __device__ constexpr uint32_t stage_bytes() {
+  return a_bytes<MT>() + (BN / 64) * TILE_BYTES;
+}
+
+// Dynamic shared memory of a launch: the ring, room to align it, the barriers.
+template <int BN, int MT>
+__host__ __device__ constexpr size_t smem_bytes(int stages) {
+  return SWIZZLE_PERIOD + static_cast<size_t>(stages) * stage_bytes<BN, MT>() + 2 * MAX_STAGES * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+#ifdef CONV_K2_WAIT_TRAP_NS
+__device__ __forceinline__ uint64_t global_timer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+#endif
+
+// Wait until the phase of `bar` with this parity is over. A wrong phase or
+// byte count waits for ever; a debug build (CONV_K2_WAIT_TRAP_NS) traps.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+#ifdef CONV_K2_WAIT_TRAP_NS
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_timer_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (global_timer_ns() - t0 > CONV_K2_WAIT_TRAP_NS) __trap();
+  }
+#else
+  while (!mbar_try_wait(bar, parity)) {
+  }
+#endif
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile. K-major: rows
+// of 128 bytes, groups of 8 rows `sbo` bytes apart (lbo unused). MN-major:
+// 64 elements of M or N contiguous in a 128-byte row, one row per k, groups
+// of 8 k `sbo` bytes apart, the next 64 elements of M or N `lbo` bytes on.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x N, f32) (+)= a (64 x 16) * b (16 x N): a from `desc_a` (K-major for
+// TRANS_A = 0, MN-major for 1), b from `desc_b`, always MN-major here.
+// scale_d = 0 overwrites d. Row lane/4 (+8) of the warp's 16 rows and columns
+// 8j + 2(lane%4) + {0, 1} are d[4j + {0, 1}] (+2).
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A));
+}
+
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A));
+}
+
+// The compiler must not read or move an accumulator between the launch of a
+// product and the wait that ends it.
+template <int R>
+__device__ __forceinline__ void pin(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+struct Ring {
+  uint32_t base;   // first stage, 1024-byte aligned (shared-space address)
+  uint32_t full;   // `full` barrier of slot 0; slot s at + 8 s
+  uint32_t empty;  // `empty` barrier of slot 0
+};
+
+// Called by every thread of the block, before the roles part.
+__device__ __forceinline__ Ring ring_setup(uint8_t* smem_raw, int stages, uint32_t stage_size) {
+  Ring r;
+  r.base = (smem_u32(smem_raw) + SWIZZLE_PERIOD - 1) & ~(SWIZZLE_PERIOD - 1);
+  r.full = r.base + stages * stage_size;
+  r.empty = r.full + MAX_STAGES * 8;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(r.full + 8 * s, 1);                // the producer's arrive; the TMA completes the bytes
+      mbar_init(r.empty + 8 * s, CONSUMER_WARPS);  // one lane of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// The consumer side of the ring: n_iter stages, four k16 products each, into
+// this warpgroup's MT accumulators of 64 x BN (rows 64 (MT wgroup + i) ..
+// of the tile), overwriting them. A_MN: the A tiles are MN-major (dw). `slot`
+// and `parity` carry the ring's state from one output tile to the next; every
+// slot read is released before the return.
+template <int BN, bool A_MN, int MT>
+__device__ __forceinline__ void consume(const Ring& r, int stages, int n_iter, int wgroup, int& slot,
+                                        uint32_t& parity, float (&acc)[MT][BN / 2]) {
+  const int lane = threadIdx.x & 31;
+  int prev = -1;
+  for (int it = 0; it < n_iter; ++it) {
+    mbar_wait(r.full + 8 * slot, parity);
+    const uint32_t a = r.base + slot * stage_bytes<BN, MT>() + wgroup * MT * TILE_BYTES;
+    const uint32_t b = r.base + slot * stage_bytes<BN, MT>() + a_bytes<MT>();
+#pragma unroll
+    for (int i = 0; i < MT; ++i) pin(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k) {
+      const uint64_t db = smem_desc(b + k * K16_ROWS, TILE_BYTES, SWIZZLE_PERIOD);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const uint64_t da = smem_desc(a + i * TILE_BYTES + k * (A_MN ? K16_ROWS : K16_IN_ROW),
+                                      A_MN ? TILE_BYTES : 16, SWIZZLE_PERIOD);
+        wgmma_bf16<A_MN ? 1 : 0>(acc[i], da, db, (it | k) != 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: its slot is free
+    if (prev >= 0 && lane == 0) mbar_arrive(r.empty + 8 * prev);
+    prev = slot;
+    if (++slot == stages) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  if (prev >= 0 && lane == 0) mbar_arrive(r.empty + 8 * prev);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) pin(acc[i]);
+}
+
+// Within a quad, lane q holds columns 2q, 2q+1 (one packed pair) of each of
+// four neighbouring 8-column blocks, p[0..3]. Returns all 8 columns of block
+// q, for one 16-byte store. Round r: send the pair of block q^r to lane q^r.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&p)[4], int q) {
+  uint32_t out[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int peer = q ^ r;
+    const uint32_t send = peer == 0 ? p[0] : peer == 1 ? p[1] : peer == 2 ? p[2] : p[3];
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, send, r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (peer == i) out[i] = got;
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Forward. Each block walks over output tiles blockIdx.x, + gridDim.x, ...
+// (column tiles fastest, so that the blocks sharing an A tile run together);
+// the ring runs on across tiles, so the producer fills the next tile's first
+// stages while the consumers store this tile. A tile is 128 MT rows: with
+// MT = 2 a warpgroup keeps two accumulators, B is read from L2 half as often
+// for the same products, and one block fits an SM instead of two.
+template <int BN, int MT>
+__global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
+conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                         __nv_bfloat16* __restrict__ y, int D, int H, int W, int C, int N, long long tiles,
+                         int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const Ring r = ring_setup(smem_raw, stages, stage_bytes<BN, MT>());
+
+  const int n_tiles = N / BN;
+  const int c_blocks = C / BK;
+  const int n_iter = 8 * c_blocks;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp == CONSUMER_WARPS) {
+    if ((threadIdx.x & 31) != 0) return;
+    int slot = 0;
+    uint32_t parity = 1;  // a fresh slot is empty
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = static_cast<int>(tile % n_tiles) * BN;
+      // origin of the tile's box in (w, h, d, b)
+      long long t = tile / n_tiles * (BM * MT);
+      const int w0 = static_cast<int>(t % W); t /= W;
+      const int h0 = static_cast<int>(t % H); t /= H;
+      const int d0 = static_cast<int>(t % D);
+      const int b0 = static_cast<int>(t / D);
+      for (int it = 0; it < n_iter; ++it) {
+        const int tap = it / c_blocks;
+        const int c0 = (it - tap * c_blocks) * BK;
+        const uint32_t full = r.full + 8 * slot;
+        const uint32_t dst = r.base + slot * stage_bytes<BN, MT>();
+        mbar_wait(r.empty + 8 * slot, parity);
+        mbar_arrive_expect_tx(full, stage_bytes<BN, MT>());
+        tma_load_5d(dst, &map_x, full, c0, w0 + (tap & 1), h0 + ((tap >> 1) & 1), d0 + (tap >> 2), b0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)  // rows it*64 .. of w [8C, N]: (tap, c) order
+          tma_load_2d(dst + a_bytes<MT>() + j * TILE_BYTES, &map_w, full, n0 + 64 * j, it * BK);
+        if (++slot == stages) {
+          slot = 0;
+          parity ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int wgroup = warp >> 2;
+  const int lane = threadIdx.x & 31;
+  const int q = lane & 3;
+  int slot = 0;
+  uint32_t parity = 0;
+  float acc[MT][BN / 2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[i][j] = 0.f;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    consume<BN, false, MT>(r, stages, n_iter, wgroup, slot, parity, acc);
+    const int n0 = static_cast<int>(tile % n_tiles) * BN;
+    const long long row = tile / n_tiles * (BM * MT) + wgroup * (64 * MT) + (warp & 3) * 16 + (lane >> 2);
+    __nv_bfloat16* out = y + row * N + n0 + 8 * q;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // rows lane/4 and lane/4 + 8
+#pragma unroll
+        for (int j = 0; j < BN / 8; j += 4) {
+          uint32_t p[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            p[u] = pack_bf16(acc[i][4 * (j + u) + 2 * half], acc[i][4 * (j + u) + 2 * half + 1]);
+          *reinterpret_cast<uint4*>(out + (64 * i + 8 * half) * static_cast<long long>(N) + 8 * j) =
+              quad_transpose(p, q);
+        }
+      }
+    }
+  }
+}
+
+// dw partial: part[z][r][n] over the stages [z * stages_per_split, ...) of the
+// rows m. Grid: (N / BN, 8C / 128, splits). Always 128 rows a tile: 256 gained
+// nothing here.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 2)
+conv_k2_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
+                        float* __restrict__ part, int D, int H, int W, int C, int N, int total_stages,
+                        int stages_per_split, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const Ring r = ring_setup(smem_raw, stages, stage_bytes<BN, 1>());
+
+  const int n0 = blockIdx.x * BN;
+  const int r0 = blockIdx.y * BM;
+  const int first = blockIdx.z * stages_per_split;
+  const int n_iter = min(stages_per_split, total_stages - first);
+  const int warp = threadIdx.x >> 5;
+
+  if (warp == CONSUMER_WARPS) {
+    if ((threadIdx.x & 31) != 0) return;
+    int tap[2], c0[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // the 64 output rows (tap, c) of warpgroup i
+      tap[i] = (r0 + 64 * i) / C;
+      c0[i] = (r0 + 64 * i) - tap[i] * C;
+    }
+    int slot = 0;
+    uint32_t parity = 1;
+    for (int it = 0; it < n_iter; ++it) {
+      const long long m0 = static_cast<long long>(first + it) * BK;
+      long long t = m0;
+      const int w0 = static_cast<int>(t % W); t /= W;
+      const int h0 = static_cast<int>(t % H); t /= H;
+      const int d0 = static_cast<int>(t % D);
+      const int b0 = static_cast<int>(t / D);
+      const uint32_t full = r.full + 8 * slot;
+      const uint32_t dst = r.base + slot * stage_bytes<BN, 1>();
+      mbar_wait(r.empty + 8 * slot, parity);
+      mbar_arrive_expect_tx(full, stage_bytes<BN, 1>());
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        tma_load_5d(dst + i * TILE_BYTES, &map_x, full, c0[i], w0 + (tap[i] & 1), h0 + ((tap[i] >> 1) & 1),
+                    d0 + (tap[i] >> 2), b0);
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        tma_load_2d(dst + a_bytes<1>() + j * TILE_BYTES, &map_g, full, n0 + 64 * j, static_cast<int>(m0));
+      if (++slot == stages) {
+        slot = 0;
+        parity ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int wgroup = warp >> 2;
+  float acc[1][BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[0][j] = 0.f;
+  int slot = 0;
+  uint32_t parity = 0;
+  consume<BN, true, 1>(r, stages, n_iter, wgroup, slot, parity, acc);
+
+  const int lane = threadIdx.x & 31;
+  const long long row = r0 + wgroup * 64 + (warp & 3) * 16 + (lane >> 2);
+  float* out = part + (static_cast<long long>(blockIdx.z) * 8 * C + row) * N + n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[0][4 * j], acc[0][4 * j + 1]);
+    *reinterpret_cast<float2*>(out + 8 * static_cast<long long>(N) + 8 * j) =
+        make_float2(acc[0][4 * j + 2], acc[0][4 * j + 3]);
+  }
+}
+
+// ---- host side ----
+
+// cuTensorMapEncodeTiled, looked up in the loaded libcuda: the library links
+// against the runtime only.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes of the entry points above cudaError_t's range: ENCODE_FAILED + CUresult.
+constexpr int ENCODE_FAILED = 10000;
+constexpr int NO_ENCODER = 9999;
+constexpr int PLAN_MISMATCH = 9998;  // the wrapper's shared-memory size or tile count is not this file's
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A bf16 tensor of `rank` dims (innermost first, dense) and its box, written
+// with the 128-byte swizzle, zeros where the box leaves the tensor.
+inline int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint32_t* box) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode) return NO_ENCODER;
+  cuuint64_t strides[4];  // bytes, from dim 1 on
+  cuuint64_t stride = 2;
+  for (int i = 0; i + 1 < rank; ++i) {
+    stride *= dims[i];
+    strides[i] = stride;
+  }
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+                              const_cast<void*>(ptr), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ENCODE_FAILED + static_cast<int>(res);
+}
+
+// x [B, D, H, W, C] with a box of 64 channels and bw * bh * bd rows of one batch item.
+inline int encode_x_map(CUtensorMap* map, const void* x, int B, int D, int H, int W, int C, int bw, int bh, int bd) {
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(B)};
+  const cuuint32_t box[5] = {BK, static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh),
+                             static_cast<cuuint32_t>(bd), 1};
+  return encode_map(map, x, 5, dims, box);
+}
+
+// A matrix [rows, cols], cols contiguous, in boxes of 64 x 64.
+inline int encode_matrix_map(CUtensorMap* map, const void* p, long long rows, int cols) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[2] = {64, BK};
+  return encode_map(map, p, 2, dims, box);
+}
+
+template <int BN, int MT>
+int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw, int bh,
+               int bd, int stages, int grid, int plan_smem, int plan_tiles, cudaStream_t s) {
+  // the wrapper's plan and this file must agree on the ring's size and the tile count
+  const size_t smem = smem_bytes<BN, MT>(stages);
+  const long long M = static_cast<long long>(B) * D * H * W;
+  const long long tiles = (M / (BM * MT)) * (N / BN);
+  if (static_cast<size_t>(plan_smem) != smem || plan_tiles != tiles) return PLAN_MISMATCH;
+  CUtensorMap map_x, map_w;
+  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd);
+  if (rc) return rc;
+  rc = encode_matrix_map(&map_w, w, 8LL * C, N);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_fwd_wgmma_kernel<BN, MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_k2_fwd_wgmma_kernel<BN, MT><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+      map_x, map_w, static_cast<__nv_bfloat16*>(y), D, H, W, C, N, tiles, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+int launch_dw(const void* x, const void* g, float* part, int splits, int stages_per_split, int B, int D, int H,
+              int W, int C, int N, int bw, int bh, int bd, int stages, int plan_smem, cudaStream_t s) {
+  const size_t smem = smem_bytes<BN, 1>(stages);
+  if (static_cast<size_t>(plan_smem) != smem) return PLAN_MISMATCH;
+  const long long M = static_cast<long long>(B) * D * H * W;
+  CUtensorMap map_x, map_g;
+  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd);
+  if (rc) return rc;
+  rc = encode_matrix_map(&map_g, g, M, N);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_dw_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(N / BN), static_cast<unsigned>(8 * C / BM), static_cast<unsigned>(splits));
+  conv_k2_dw_wgmma_kernel<BN><<<grid, THREADS, smem, s>>>(map_x, map_g, part, D, H, W, C, N,
+                                                         static_cast<int>(M / BK), stages_per_split, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg

@@ -6,7 +6,8 @@ Needs one CUDA card and ``nvcc``; fails at once without them. Phases, in
 order, any failure ending the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile the ``conv_k2`` CUDA kernels (forward, dx, dw) from
+2. build: compile the ``conv_k2`` CUDA kernels (forward, dx, dw, each as an
+   FFMA kernel; the forward and dw also as bfloat16 tensor-core kernels) from
    ``anytime3d_tpu_torch/kernels/csrc``;
 3. kernel check: ``conv_k2``, ``conv_k2_dx`` and ``conv_k2_dw`` against their
    plain versions at the flagship stages (16^3): at B=8, the served batch, in
@@ -14,11 +15,18 @@ order, any failure ending the run with a non-zero exit:
    step's shapes; each timed with CUDA events beside its plain version and
    beside the one library call that computes the same function (cuDNN
    through ``F.conv3d``, ``torch.nn.grad.conv3d_input`` and
-   ``conv3d_weight``), and set against its bound on this card;
+   ``conv3d_weight``), and set against its bound on this card. The bfloat16
+   forward and dw must take the tensor-core kernels (``design`` "wgmma"),
+   everything else the FFMA ones; the tensor-core kernels and their plain
+   versions are also held against a float64 product of the same operands, dw
+   must give the same bits twice, and two bfloat16 shapes off the main path
+   are checked, one with a plan (8^3) and one without;
 4. full-width slice: ``modelnet_nolbo`` (64^3 voxels, z=64, 40 classes) from
    seeded weights, a batch of 8 seeded occupancy grids with full, partial and
    empty latent masks through ``make_packed_infer`` on the card, held against
    the same weights run on the CPU (float32) and against itself in bfloat16;
+   then a few bfloat16 batches served through ``make_packed_infer``, counts
+   reset just before: 4 launches a batch, all on the tensor-core forward;
 5. train slice: one full-width float32 train step (losses, gradients, the
    guarded Adam update) on the card at a batch of 4 against the same on the CPU, from the same weights, batch and
    injected random draws: every loss term, every leaf's gradient,
@@ -29,8 +37,8 @@ order, any failure ending the run with a non-zero exit:
 7. train run: the trainer ``cli/train.py`` builds for ``--config
    modelnet_nolbo --data synthetic --packed --bf16`` at B=32, a few tens of
    steps and one eval; counts reset just before and read just after: 4
-   forward, 3 dx and 4 dw launches per step, 4 forward per eval step; every
-   metric finite, the loss falling, ``grads_finite`` 1; step time and peak
+   forward, 3 dx and 4 dw launches per step, 4 forward per eval step, every
+   forward and dw launch on the tensor-core kernels; every metric finite, the loss falling, ``grads_finite`` 1; step time and peak
    memory printed.
 
 The last two lines of standard output are a JSON object of kernel results
@@ -73,6 +81,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
     conv_k2_dx,
     conv_k2_dx_reference,
     conv_k2_reference,
+    wgmma_plan,
 )
 from anytime3d_tpu_torch.models import configs  # noqa: E402
 from anytime3d_tpu_torch.models.configs import REGISTRY  # noqa: E402
@@ -110,8 +119,16 @@ K2_TOL_F32 = 1e-4
 # bf16 (2^-8 relative); allow 2 ulps at the largest output.
 K2_TOL_BF16_REL = 2.0**-7
 # dw is an f32 sum of up to 131072 products on both sides, taken in another
-# order; relative to the largest entry of dw.
+# order; relative to the largest entry of dw. For the FFMA kernel.
 K2_TOL_DW_REL = 1e-5
+# dw on the tensor cores, and its plain version, each against the float64 sum
+# of the same bf16 products, relative to the largest entry: see
+# K2_TOL_DW_F64_NOTE. Kernel against plain version: twice that.
+K2_TOL_DW_F64_REL = 1e-4
+K2_TOL_DW_F64_NOTE = ("the products of bf16 operands are exact in f32; the tensor cores add them to the f32 "
+                      "accumulator 16 deep at a time without rounding to nearest, a chain of up to 1024 such adds "
+                      "a split (1024 * 2^-24 = 6e-5 at worst), where fmaf rounds each add")
+SERVE_BF16_BATCHES = 5
 # train step, card f32 vs CPU f32 of the same weights, batch and draws: the
 # loss terms are sums of 262144 voxel terms a sample (summation order); the
 # gradients go back through ~20 layers, relative to each leaf's largest entry.
@@ -172,10 +189,25 @@ def phase_build() -> None:
 
 def reset_counts() -> None:
     conv_k2.launches = conv_k2.launches_dx = conv_k2.launches_dw = 0
+    conv_k2.launches_wgmma = conv_k2.launches_dw_wgmma = 0
 
 
 def read_counts() -> dict:
-    return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw}
+    """Launches since ``reset_counts``: every launch by kernel, and under
+    ``*_wgmma`` those of them that took the tensor-core kernels."""
+    return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
+            "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma}
+
+
+def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool) -> dict:
+    """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
+    the forward's and dw's all on the tensor-core kernels or none of them."""
+    counts = read_counts()
+    want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
+            "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dw_wgmma": dw if tensor_cores else 0}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    return counts
 
 
 def k2_bound_ms(kernel: str, batch: int, C: int, N: int, dtype: torch.dtype) -> tuple[float, str]:
@@ -194,68 +226,140 @@ def k2_bound_ms(kernel: str, batch: int, C: int, N: int, dtype: torch.dtype) -> 
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes > t_flops else "operations"
 
 
+def float64_products(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``conv_k2(x, w)`` and dw of (x, g) as float64 products of the same
+    operands, tap by tap: what every kernel and plain version approximates."""
+    B, D, H, W, C = x.shape
+    N = w.shape[-1]
+    xp = F.pad(x.double(), (0, 0) + (0, 1) * 3)
+    w64, g64 = w.double().reshape(8, C, N), g.double().flatten(0, 3)
+    y, dw = torch.zeros(B * D * H * W, N, dtype=torch.float64, device=x.device), []
+    for t in range(8):
+        xs = xp[:, t >> 2:(t >> 2) + D, (t >> 1) & 1:((t >> 1) & 1) + H, t & 1:(t & 1) + W].flatten(0, 3)
+        y += xs @ w64[t]
+        dw.append(xs.T @ g64)
+    return y.reshape(B, D, H, W, N), torch.stack(dw).reshape(2, 2, 2, C, N)
+
+
+def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None, want: str) -> dict:
+    """Launch ``run`` once, hold it against ``plain`` with the tolerance of its
+    design and dtype, and hold the design the launch took to ``want`` ("wgmma"
+    or "ffma"). With ``exact`` (a float64 product) the tensor-core kernels and
+    their plain versions are also held against it; dw must give the same bits
+    twice."""
+    before = conv_k2.launches_wgmma + conv_k2.launches_dw_wgmma
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    design = "wgmma" if conv_k2.launches_wgmma + conv_k2.launches_dw_wgmma > before else "ffma"
+    if design != want:
+        raise AssertionError(f"{kernel} {label}: took the {design} kernel, expected {want}")
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"{kernel} {label}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
+    err = float((out.float() - ref.float()).abs().max())
+    top = float(ref.float().abs().max())
+    if kernel == "conv_k2_dw":
+        tol = (2 * K2_TOL_DW_F64_REL if design == "wgmma" else K2_TOL_DW_REL) * top
+    else:
+        tol = K2_TOL_F32 if ref.dtype == torch.float32 else K2_TOL_BF16_REL * top
+    line = f"{kernel} {label} [{design}]: max_abs_err {err:.3e} (tol {tol:.3e})"
+    if not err <= tol:
+        raise AssertionError(f"{line}: the kernel disagrees with its plain version")
+    if design == "wgmma" and exact is not None:
+        err_k, err_p = (float((t.double() - exact).abs().max()) for t in (out, ref))
+        top64 = float(exact.abs().max())
+        # the forward's f32 sum is rounded once to bf16: half an ulp of the largest output, and the sum's own error
+        tol64 = K2_TOL_DW_F64_REL * top64 if kernel == "conv_k2_dw" else (2.0**-8 + K2_TOL_DW_F64_REL) * top64
+        line += (f"; against float64 (largest entry {top64:.3e}): kernel {err_k:.3e} ({err_k / top64:.2e} rel), "
+                 f"plain {err_p:.3e} ({err_p / top64:.2e} rel), tol {tol64:.3e}")
+        if not (err_k <= tol64 and err_p <= tol64):
+            raise AssertionError(f"{line}: off the float64 product")
+    if kernel == "conv_k2_dw":
+        same = bool(torch.equal(out, run()))
+        line += f"; same bits twice: {same}"
+        if not same:
+            raise AssertionError(f"{line}: dw differs between two calls")
+    print(line, flush=True)
+    return {"design": design, "max_abs_err": err}
+
+
+def k2_runs(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> dict:
+    """(kernel, plain version, library call) of each kernel on these operands;
+    the library calls' operands are laid out once, outside any timing."""
+    x_ncdhw, g_ncdhw = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+    x_pad = F.pad(x_ncdhw, (0, 1) * 3)
+    w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
+    return {
+        "conv_k2": (lambda: conv_k2(x, w), lambda: conv_k2_reference(x, w),
+                    lambda: F.conv3d(x_pad, w_oidhw)),
+        "conv_k2_dx": (lambda: conv_k2_dx(g, w), lambda: conv_k2_dx_reference(g, w),
+                       lambda: torch.nn.grad.conv3d_input(x_pad.shape, w_oidhw, g_ncdhw)),
+        "conv_k2_dw": (lambda: conv_k2_dw(x, g), lambda: conv_k2_dw_reference(x, g),
+                       lambda: torch.nn.grad.conv3d_weight(x_pad, w_oidhw.shape, g_ncdhw)),
+    }
+
+
+def k2_operands(gen: torch.Generator, shape: tuple, C: int, N: int, dtype: torch.dtype):
+    dev = torch.device("cuda")
+    x = torch.randn(*shape, C, generator=gen).to(dev, dtype)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / math.sqrt(8 * C)).to(dev, dtype)
+    g = torch.randn(*shape, N, generator=gen).to(dev, dtype)
+    return x, w, g
+
+
 def phase_kernels(card: str) -> dict:
     """Forward, dx and dw against their plain versions at the flagship stages,
     for every case of ``KERNEL_CASES``. Returns ``{kernel: {case: numbers}}``:
     times and bounds summed over the stages (dx has three: the first stage's
-    input is data), the error the largest over them."""
-    dev = torch.device("cuda")
+    input is data), the error the largest over them, the design they took."""
     gen = torch.Generator().manual_seed(SEED)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    res = {k: {case: dict.fromkeys(keys, 0.0) | {"max_abs_err": 0.0, "bound_by": set()}
+    res = {k: {case: dict.fromkeys(keys, 0.0) | {"max_abs_err": 0.0, "bound_by": set(), "design": set()}
                for case, _, _ in KERNEL_CASES} for k in ("conv_k2", "conv_k2_dx", "conv_k2_dw")}
+    print(f"dw on the tensor cores is held to {K2_TOL_DW_F64_REL} of the largest entry of the float64 sum: "
+          f"{K2_TOL_DW_F64_NOTE}", flush=True)
     with torch.inference_mode():
         for case, batch, dtype in KERNEL_CASES:
             for stage, (C, N) in enumerate(FLAGSHIP_K2):
-                x = torch.randn(batch, GRID, GRID, GRID, C, generator=gen).to(dev, dtype)
-                w = (torch.randn(2, 2, 2, C, N, generator=gen) / math.sqrt(8 * C)).to(dev, dtype)
-                g = torch.randn(batch, GRID, GRID, GRID, N, generator=gen).to(dev, dtype)
-                # the library calls' operands, laid out once outside the timing
-                x_ncdhw, g_ncdhw = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
-                x_pad = F.pad(x_ncdhw, (0, 1) * 3)
-                w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
-                runs = {
-                    "conv_k2": (lambda: conv_k2(x, w), lambda: conv_k2_reference(x, w),
-                                lambda: F.conv3d(x_pad, w_oidhw)),
-                    "conv_k2_dx": (lambda: conv_k2_dx(g, w), lambda: conv_k2_dx_reference(g, w),
-                                   lambda: torch.nn.grad.conv3d_input(x_pad.shape, w_oidhw, g_ncdhw)),
-                    "conv_k2_dw": (lambda: conv_k2_dw(x, g), lambda: conv_k2_dw_reference(x, g),
-                                   lambda: torch.nn.grad.conv3d_weight(x_pad, w_oidhw.shape, g_ncdhw)),
-                }
-                for kernel, (run, plain, library) in runs.items():
+                x, w, g = k2_operands(gen, (batch, GRID, GRID, GRID), C, N, dtype)
+                exact = dict(zip(("conv_k2", "conv_k2_dw"), float64_products(x, w, g))) if dtype == torch.bfloat16 else {}
+                for kernel, (run, plain, library) in k2_runs(x, w, g).items():
                     if kernel == "conv_k2_dx" and stage == 0:
                         continue
-                    out, ref = run(), plain()
-                    torch.cuda.synchronize()
-                    if out.shape != ref.shape or out.dtype != ref.dtype:
-                        raise AssertionError(f"{kernel} {C}->{N} {case}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
-                    err = float((out.float() - ref.float()).abs().max())
-                    top = float(ref.float().abs().max())
-                    if kernel == "conv_k2_dw":
-                        tol = K2_TOL_DW_REL * top
-                    else:
-                        tol = K2_TOL_F32 if dtype == torch.float32 else K2_TOL_BF16_REL * top
+                    label = f"{case} {GRID}^3 {C}->{N}"
+                    # every flagship stage has a plan: bf16 forward and dw on the tensor cores
+                    want = "wgmma" if dtype == torch.bfloat16 and kernel != "conv_k2_dx" else "ffma"
+                    checked = check_kernel(kernel, label, run, plain, exact.get(kernel), want)
                     # plain, kernel, kernel, plain: both sides see the same card state
                     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
                     ms, plain_ms, library_ms = (k1 + k2) / 2, (p1 + p2) / 2, cuda_ms(library)
                     bound_ms, bound_by = k2_bound_ms(kernel, batch, C, N, dtype)
                     tflops = 2 * batch * GRID**3 * 8 * C * N / (ms * 1e-3) / 1e12
-                    print(f"{kernel} {case} {GRID}^3 {C}->{N}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-                          f"kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s) plain {plain_ms:.4f} ms "
-                          f"library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
-                    if not err <= tol:
-                        raise AssertionError(f"{kernel} {C}->{N} {case}: max_abs_err {err} > {tol}")
+                    print(f"{kernel} {label} [{checked['design']}]: kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s) "
+                          f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+                          f"[{card}]", flush=True)
                     r = res[kernel][case]
-                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                    r["max_abs_err"] = max(r["max_abs_err"], checked["max_abs_err"])
                     r["bound_by"].add(bound_by)
+                    r["design"].add(checked["design"])
                     for key, v in zip(keys, (ms, plain_ms, library_ms, bound_ms)):
                         r[key] += v
+                del exact
+        # off the main path, bfloat16: a shape with a plan (8^3) and one without (ragged grid, narrow channels)
+        for shape, C, N in (((3, 8, 8, 8), 64, 64), ((2, 5, 6, 7), 16, 24)):
+            planned = wgmma_plan(*shape, C, N) is not None
+            label = f"off the main path {shape} {C}->{N}" + ("" if planned else " (no plan)")
+            x, w, g = k2_operands(gen, shape, C, N, torch.bfloat16)
+            exact = dict(zip(("conv_k2", "conv_k2_dw"), float64_products(x, w, g)))
+            for kernel, (run, plain, _) in k2_runs(x, w, g).items():
+                if kernel != "conv_k2_dx":
+                    check_kernel(kernel, label, run, plain, exact[kernel], "wgmma" if planned else "ffma")
     for kernel, cases in res.items():
         for case, r in cases.items():
             r["bound_by"] = "operations" if "operations" in r["bound_by"] else "bytes"
-            print(f"{kernel} {case}, sum over its stages: kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-                  f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]",
-                  flush=True)
+            (r["design"],) = r["design"]  # one design for all stages of a case
+            print(f"{kernel} {case} [{r['design']}], sum over its stages: kernel {r['ms']:.4f} ms plain "
+                  f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}) [{card}]", flush=True)
     return res
 
 
@@ -263,14 +367,17 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
-    every case measured. ``launches`` sums the served run and the train run."""
+    every case measured, with the design it took (``ffma`` or ``wgmma``). Every
+    number but ``bound_ms`` was measured in this run. ``launches`` sums
+    the served runs and the train run; ``launches_wgmma`` is the part of them
+    that took the tensor-core kernels."""
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
     entries = []
     for kernel, cases in res.items():
         head = cases["b8_f32" if kernel == "conv_k2" else "b32_bf16"]
-        entries.append({
+        entry = {
             "name": kernel,
             "route": "cuda",
             "source": "anytime3d_tpu_torch/kernels/csrc/conv_k2.cu",
@@ -280,7 +387,11 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict) -> list:
             "launches_train": train_counts[kernel],
             **head,
             "cases": cases,
-        })
+        }
+        if kernel != "conv_k2_dx":
+            entry["source_wgmma"] = "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh"
+            entry["launches_wgmma"] = serve_counts[f"{kernel}_wgmma"] + train_counts[f"{kernel}_wgmma"]
+        entries.append(entry)
     return entries
 
 
@@ -305,8 +416,9 @@ def latent_masks(n: int, dim: int, seed: int) -> np.ndarray:
     return m
 
 
-def phase_slice(cfg, device: torch.device) -> MultiModalVAE:
-    """``cfg`` on ``device`` vs the CPU, f32 and bf16; returns the f32 device model."""
+def phase_slice(cfg, device: torch.device, card: str) -> tuple[MultiModalVAE, dict]:
+    """``cfg`` on ``device`` vs the CPU, f32 and bf16, then a short bf16 served
+    run; returns the f32 device model and the bf16 run's launch counts."""
     item = cfg.decoder.output_shape
     z_dim = cfg.z_category_dim
     t0 = time.perf_counter()
@@ -321,13 +433,11 @@ def phase_slice(cfg, device: torch.device) -> MultiModalVAE:
     packed_gpu, mask_gpu = packed.to(device), mask.to(device)
 
     infer_packed = make_packed_infer(model_gpu, item)
-    before = conv_k2.launches
+    reset_counts()
     outs = [infer_packed(packed_gpu, mask_gpu) for _ in range(2)]
     card_out = {k: v.cpu() for k, v in outs[0].items()}
-    launched = conv_k2.launches - before
-    if launched != 4 * len(outs):
-        raise AssertionError(f"conv_k2 launched {launched} times for {len(outs)} batches, expected 4 each")
-    print(f"slice: conv_k2 launches {launched} for {len(outs)} batches", flush=True)
+    counts = expect_counts("slice, f32", 4 * len(outs), 0, 0, tensor_cores=False)
+    print(f"slice: conv_k2 launches {counts['conv_k2']} for {len(outs)} f32 batches", flush=True)
 
     with torch.inference_mode():
         x_cpu = unpack_voxels(packed, item)
@@ -372,7 +482,22 @@ def phase_slice(cfg, device: torch.device) -> MultiModalVAE:
           flush=True)
     if not (err_zb <= tol_zb and err_pb <= SLICE_TOL_BF16_PRED):
         raise AssertionError("slice: bf16 on the card strays from f32")
-    return model_gpu
+
+    # the serving path in bf16: every k=2 stage on the tensor-core forward
+    infer_bf16 = make_packed_infer(model_bf16, item)
+    infer_bf16(packed_gpu, mask_gpu)  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counts()
+    served = [infer_bf16(packed_gpu, mask_gpu) for _ in range(SERVE_BF16_BATCHES)]
+    torch.cuda.synchronize()
+    counts = expect_counts("bf16 served run", 4 * SERVE_BF16_BATCHES, 0, 0, tensor_cores=True)
+    z = served[-1]["z_mean"].float().cpu()
+    if not (torch.isfinite(z).all() and float((z - gpu["z_mean"]).abs().max()) <= tol_zb):
+        raise AssertionError("bf16 served run: z_mean strays from the f32 slice")
+    ms16, ms32 = cuda_ms(lambda: infer_bf16(packed_gpu, mask_gpu)), cuda_ms(lambda: infer_packed(packed_gpu, mask_gpu))
+    print(f"bf16 served run: {SERVE_BF16_BATCHES} batches of {BATCH} through make_packed_infer, launches {counts}; "
+          f"device time per batch (CUDA events) bf16 {ms16:.3f} ms, f32 {ms32:.3f} ms [{card}]", flush=True)
+    return model_gpu, counts
 
 
 def phase_train_slice(cfg, device: torch.device) -> None:
@@ -414,8 +539,8 @@ def phase_train_slice(cfg, device: torch.device) -> None:
         moved = max(float((p.detach() - before[k]).abs().max()) for k, p in model.named_parameters())
         results[name] = (metrics, kept, moved, state.step)
         print(f"train slice {name}: {time.perf_counter() - t0:.1f} s, {metrics}", flush=True)
-        if dev.type == "cuda" and read_counts() != {"conv_k2": 4, "conv_k2_dx": 3, "conv_k2_dw": 4}:
-            raise AssertionError(f"train slice: launches {read_counts()}, expected 4 / 3 / 4")
+        if dev.type == "cuda":
+            expect_counts("train slice, f32", 4, 3, 4, tensor_cores=False)
     (m_gpu, g_gpu, moved_gpu, step_gpu), (m_cpu, g_cpu, _, _) = results["card"], results["cpu"]
     for k, v in m_cpu.items():
         if not (math.isfinite(m_gpu[k]) and abs(m_gpu[k] - v) <= TRAIN_TOL_LOSS_REL * abs(v) + 1e-6):
@@ -463,16 +588,15 @@ def phase_train_run(card: str) -> dict:
     trainer.run(epoch_fn=lambda: loader.epoch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     print("", flush=True)  # end the logger's carriage-return line
 
     n_eval = len(trainer.eval_history)
-    want = {"conv_k2": 4 * TRAIN_STEPS + 4 * n_eval, "conv_k2_dx": 3 * TRAIN_STEPS, "conv_k2_dw": 4 * TRAIN_STEPS}
     if trainer.state.step != TRAIN_STEPS or len(trainer.history) != TRAIN_STEPS or n_eval != 1 or trainer.aborted_nan:
         raise AssertionError(f"train run: {trainer.state.step} steps, {len(trainer.history)} logged, {n_eval} evals")
-    if counts != want:
-        raise AssertionError(f"train run: launches {counts}, expected {want} (4 / 3 / 4 a step, 4 an eval step)")
+    # 4 / 3 / 4 a step and 4 an eval step; bf16 compute: every forward and dw on the tensor cores
+    counts = expect_counts("train run", 4 * TRAIN_STEPS + 4 * n_eval, 3 * TRAIN_STEPS, 4 * TRAIN_STEPS,
+                           tensor_cores=True)
     for row in trainer.history + trainer.eval_history:
         if not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"train run: non-finite metric in {row}")
@@ -547,8 +671,6 @@ def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> dict:
         conn.close()
     finally:
         server.close()
-    counts = read_counts()
-    launches = counts["conv_k2"]
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"serve: client failures {errors!r}")
     for i, r in enumerate(replies):
@@ -562,8 +684,8 @@ def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> dict:
     batches = int(health["batches_run"])
     if not (health["ok"] and batches >= 2):
         raise AssertionError(f"serve: /healthz {health}")
-    if counts != {"conv_k2": 4 * batches, "conv_k2_dx": 0, "conv_k2_dw": 0}:
-        raise AssertionError(f"serve: launches {counts} for {batches} batches, expected 4 forward each")
+    counts = expect_counts(f"serve, {batches} f32 batches", 4 * batches, 0, 0, tensor_cores=False)
+    launches = counts["conv_k2"]
     lat = np.sort(np.asarray(latencies)) * 1e3
     print(f"serve: {N_REQUESTS} requests from {N_CLIENTS} threads (closed loop), batch {BATCH}, "
           f"{batches} batches ({N_REQUESTS / batches:.2f} requests each), p50 {np.percentile(lat, 50):.2f} ms "
@@ -578,9 +700,10 @@ def main() -> None:
     kernels = phase_kernels(card)
     device = torch.device("cuda")
     cfg = REGISTRY["modelnet_nolbo"]()
-    model = phase_slice(cfg, device)
+    model, serve_bf16_counts = phase_slice(cfg, device, card)
     phase_train_slice(cfg, device)
     serve_counts = phase_serve(model, device, card)
+    serve_counts = {k: v + serve_bf16_counts[k] for k, v in serve_counts.items()}
     del model
     train_counts = phase_train_run(card)
     print(card, flush=True)

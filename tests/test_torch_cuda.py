@@ -16,7 +16,14 @@ import pytest
 import torch
 
 from anytime3d_tpu_torch.data.packing import pack_voxels, pack_voxels_blocked
-from anytime3d_tpu_torch.kernels.conv_k2 import conv_k2, conv_k2_backward_reference, conv_k2_reference
+from anytime3d_tpu_torch.kernels import build
+from anytime3d_tpu_torch.kernels.conv_k2 import (
+    conv_k2,
+    conv_k2_backward_reference,
+    conv_k2_dw,
+    conv_k2_reference,
+    wgmma_plan,
+)
 from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
 from anytime3d_tpu_torch.serving.export import make_infer_fn, make_packed_infer
@@ -27,12 +34,18 @@ pytestmark = pytest.mark.cuda
 
 # (C, N) of the flagship model's four k=2 stages at 16^3
 FLAGSHIP = [(64, 512), (512, 128), (128, 512), (512, 64)]
+# (B, grid, C, N) that the tensor-core kernels take in bfloat16: rows that tile
+# into boxes at 8^3, 16^3 and 32^3, odd batches, both tile widths
+PLANNED = [(1, 8, 64, 64), (3, 8, 64, 128), (1, 16, 128, 64), (3, 16, 64, 128), (1, 32, 64, 64), (3, 32, 128, 128),
+           (8, 16, 64, 512), (8, 16, 512, 128), (8, 16, 128, 512), (8, 16, 512, 64)]
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
+    # a wrong barrier phase in a tensor-core kernel traps after 4 s here instead of hanging the card
+    build.EXTRA_DEFINES = ("CONV_K2_WAIT_TRAP_NS=4000000000ull",)
     # the plain versions in true f32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,8 +75,50 @@ def test_kernel_matches_plain(cuda, C, N, dtype):
     assert err <= tol, err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,G,C,N", PLANNED)
+def test_kernel_matches_plain_on_planned_shapes(cuda, B, G, C, N, dtype):
+    """Shapes with a plan: bfloat16 goes through the tensor-core forward (both
+    counters move), float32 through the FFMA kernel (only ``launches``)."""
+    assert wgmma_plan(B, G, G, G, C, N) is not None
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
+    with torch.inference_mode():
+        before = conv_k2.launches, conv_k2.launches_wgmma
+        y = conv_k2(x, w)
+        assert conv_k2.launches == before[0] + 1
+        assert conv_k2.launches_wgmma == before[1] + (dtype == torch.bfloat16)
+        ref = conv_k2_reference(x, w)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape and y.dtype == dtype
+    err = float((y.float() - ref.float()).abs().max())
+    # as test_kernel_matches_plain: f32 summation order; bf16 one rounding of an f32 sum on each side
+    tol = 1e-4 if dtype == torch.float32 else 2.0**-7 * float(ref.float().abs().max())
+    assert err <= tol, err
+
+
+# dw, kernel or plain version, against the float64 sum of the same bf16
+# products, relative to the largest entry: see chip_smoke.py's K2_TOL_DW_F64_REL
+DW_TOL_F64_REL = 1e-4
+
+
+def _dw_float64(x, g):
+    """dw as a float64 product of the same operands, tap by tap."""
+    _, D, H, W, _ = x.shape
+    xp = torch.nn.functional.pad(x.double(), (0, 0) + (0, 1) * 3)
+    g64 = g.double().flatten(0, 3)
+    taps = [xp[:, dz:dz + D, dy:dy + H, dx:dx + W].flatten(0, 3).T @ g64
+            for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+    return torch.stack(taps).reshape(2, 2, 2, x.shape[-1], g.shape[-1])
+
+
 def _counts():
     return conv_k2.launches, conv_k2.launches_dx, conv_k2.launches_dw
+
+
+def _wgmma_counts():
+    return conv_k2.launches_wgmma, conv_k2.launches_dw_wgmma
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -97,6 +152,39 @@ def test_backward_kernels_match_plain(cuda, C, N, dtype):
     tol_dw = 1e-5 * float(dw_ref.abs().max()) + 1e-5
     assert err_dx <= tol_dx, err_dx
     assert err_dw <= tol_dw, err_dw
+
+
+@pytest.mark.parametrize("B,G,C,N", PLANNED)
+def test_backward_kernels_match_plain_on_planned_shapes(cuda, B, G, C, N):
+    """bfloat16 shapes with a plan, through autograd: the forward and dw on the
+    tensor-core kernels (their counters move), dx on the FFMA kernel; dw the
+    same bits from two calls."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, torch.bfloat16).requires_grad_()
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
+    g = torch.randn(B, G, G, G, N, generator=gen).to(cuda, torch.bfloat16)
+    before, before_wg = _counts(), _wgmma_counts()
+    y = conv_k2(x, w)
+    y.backward(g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1))  # a permuted view
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert _wgmma_counts() == (before_wg[0] + 1, before_wg[1] + 1)
+    with torch.no_grad():
+        dx_ref, dw_ref = conv_k2_backward_reference(x, w, g)
+        again = conv_k2_dw(x.detach(), g), conv_k2_dw(x.detach(), g)
+        dw64 = _dw_float64(x.detach(), g)
+    torch.cuda.synchronize()
+    assert w.grad.dtype == torch.float32 and w.grad.shape == w.shape
+    assert torch.equal(again[0], again[1]) and torch.equal(again[0], w.grad)  # no atomics: the same bits every run
+    err_dx = float((x.grad.float() - dx_ref.float()).abs().max())
+    assert err_dx <= 2.0**-7 * float(dx_ref.float().abs().max()), err_dx
+    # dw: the exact products of bf16 operands summed in f32, on the tensor cores
+    # in another order and with other intermediate roundings than the plain
+    # version's. Each is held to the float64 sum: sqrt(rows) roundings of 2^-24
+    # relative to partial sums of the size of the largest entry.
+    top = float(dw64.abs().max())
+    tol = DW_TOL_F64_REL * top
+    assert float((w.grad.double() - dw64).abs().max()) <= tol
+    assert float((dw_ref.double() - dw64).abs().max()) <= tol
 
 
 def test_backward_launches_only_what_is_asked(cuda):
@@ -157,25 +245,32 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         conv_k2(x, w.cpu())
 
 
-def small_config(dropout_rate=0.2):
+def small_config(dropout_rate=0.2, planned=False):
+    """modelnet_nolbo's layout at 32^3 with narrow filters. ``planned``: the
+    four k=2 stages (at 8^3) are 64 -> 64, a width the tensor-core kernels take."""
     base = modelnet_nolbo(z_dim=8, category_dim=5)
+    enc, dec = ((8, 64, 16, 32), (32, 16, 64, 8, 1)) if planned else ((8, 16, 16, 32), (32, 16, 16, 8, 1))
     return dataclasses.replace(
         base,
-        encoder3d=dataclasses.replace(base.encoder3d, filter_nums=(8, 16, 16, 32)),
-        decoder=dataclasses.replace(base.decoder, output_shape=(32, 32, 32, 1), filter_nums=(32, 16, 16, 8, 1)),
+        encoder3d=dataclasses.replace(base.encoder3d, filter_nums=enc),
+        decoder=dataclasses.replace(base.decoder, output_shape=(32, 32, 32, 1), filter_nums=dec),
         prior_category=dataclasses.replace(base.prior_category, unit_nums=(16, 8), dropout_rate=dropout_rate),
     )
 
 
+@pytest.mark.parametrize("planned", [False, True], ids=["narrow", "planned"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_small_train_step_on_card_matches_cpu(cuda, dtype):
+def test_small_train_step_on_card_matches_cpu(cuda, dtype, planned):
     """Three train steps of the 32^3 narrow model on the card, through the
     kernels (4 forward, 3 dx, 4 dw launches a step; 4 forward an eval step),
     against the same steps on the CPU from the same weights, batch and draws.
     float32: every metric to rtol 1e-4 at the first step (summation order; later steps
     feel Adam's sign-like first updates). bfloat16: the card's bf16 against
-    the CPU's bf16, 5%."""
-    cfg, loss_cfg = small_config(dropout_rate=0.0), loss_config("modelnet_nolbo")
+    the CPU's bf16, 5%. In bfloat16 the k=2 stages whose widths have a plan
+    take the tensor-core kernels in the forward and in dw: all 4 at the planned
+    width, 2 at the narrow one (its 64 -> 64 stages); in float32 none does."""
+    cfg, loss_cfg = small_config(dropout_rate=0.0, planned=planned), loss_config("modelnet_nolbo")
+    n_wgmma = 0 if dtype == torch.float32 else 4 if planned else 2
     rng = np.random.default_rng(3)
     vox = (rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32)
     batch = {"input_packed_blocked": torch.from_numpy(pack_voxels_blocked(vox, 4)),
@@ -189,13 +284,15 @@ def test_small_train_step_on_card_matches_cpu(cuda, dtype):
     for name, model, dev in (("cpu", model_cpu, torch.device("cpu")), ("card", model_gpu, cuda)):
         state, step = create_train_state(model), make_train_step(model, loss_cfg)
         b, d = {k: v.to(dev) for k, v in batch.items()}, {k: v.to(dev) for k, v in draws.items()}
-        before = _counts()
+        before, before_wg = _counts(), _wgmma_counts()
         history[name] = []
         for _ in range(3):
             state, metrics = step(state, b, draws=d)
             history[name].append({k: float(v) for k, v in metrics.items()})
         launched = tuple(a - b0 for a, b0 in zip(_counts(), before))
         assert launched == ((12, 9, 12) if name == "card" else (0, 0, 0))
+        launched_wg = tuple(a - b0 for a, b0 in zip(_wgmma_counts(), before_wg))
+        assert launched_wg == ((3 * n_wgmma, 3 * n_wgmma) if name == "card" else (0, 0))
         assert state.step == 3 and all(p.dtype == torch.float32 for p in model.parameters())
     rtol = 1e-4 if dtype == torch.float32 else 0.05
     for k, v in history["cpu"][0].items():
@@ -204,9 +301,10 @@ def test_small_train_step_on_card_matches_cpu(cuda, dtype):
         assert all(np.isfinite(v) for v in row.values()) and row["grads_finite"] == 1.0
     assert history["card"][2]["loss_total"] < history["card"][0]["loss_total"]
     np.testing.assert_allclose(history["card"][2]["loss_total"], history["cpu"][2]["loss_total"], rtol=max(rtol, 1e-2))
-    before = _counts()
+    before, before_wg = _counts(), _wgmma_counts()
     out = make_eval_step(model_gpu, loss_cfg)(b, torch.Generator(device=cuda).manual_seed(0))
     assert tuple(a - b0 for a, b0 in zip(_counts(), before)) == (4, 0, 0)
+    assert tuple(a - b0 for a, b0 in zip(_wgmma_counts(), before_wg)) == (n_wgmma, 0)
     assert all(torch.isfinite(v) for v in out.values())
 
 
@@ -229,3 +327,23 @@ def test_small_slice_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(out["z_mean"].cpu().numpy(), ref["z_mean"].numpy(), rtol=1e-4, atol=1e-4)
     gpu = make_infer_fn(model_gpu)(torch.from_numpy(x).to(cuda), mask.to(cuda))
     np.testing.assert_allclose(gpu["pred"].cpu().numpy(), ref["pred"].numpy(), rtol=0, atol=1e-4)
+
+
+def test_small_bf16_slice_on_card_takes_tensor_cores(cuda):
+    """The same layout at a width with a plan, served in bfloat16 on the card:
+    all 4 launches a batch on the tensor-core forward, the outputs within
+    bfloat16's reach of the float32 CPU run of the same weights."""
+    cfg = small_config(planned=True)
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0))
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16).to(cuda)
+    rng = np.random.default_rng(0)
+    x = (rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32)
+    mask = torch.from_numpy((rng.uniform(size=(4, 8)) < 0.5).astype(np.float32))
+    before, before_wg = conv_k2.launches, conv_k2.launches_wgmma
+    out = make_packed_infer(model_bf16, (32, 32, 32, 1))(torch.from_numpy(pack_voxels(x)).to(cuda), mask.to(cuda))
+    assert (conv_k2.launches, conv_k2.launches_wgmma) == (before + 4, before_wg + 4)
+    ref = make_infer_fn(model)(torch.from_numpy(x), mask)
+    z = out["z_mean"].float().cpu()
+    # bf16 keeps 8 bits of mantissa through every layer: 5% of the largest |z_mean|, as chip_smoke.py holds it
+    assert torch.isfinite(z).all()
+    assert float((z - ref["z_mean"]).abs().max()) <= 0.05 * max(1.0, float(ref["z_mean"].abs().max()))

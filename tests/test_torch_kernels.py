@@ -2,7 +2,11 @@
 that the port never imports JAX.
 
 On the CPU the wrapper runs its plain version (``conv_k2_reference``); the
-CUDA kernel itself is checked on the card by tests/test_torch_cuda.py."""
+CUDA kernels themselves are checked on the card by tests/test_torch_cuda.py.
+What the tensor-core kernels rest on is checked here without a card: the plan
+that cuts a shape into boxes, tiles and splits, and a plain-tensor emulation
+of the box reads (zeros where a box leaves the tensor) against the plain
+versions and the JAX package."""
 
 import os
 import subprocess
@@ -17,7 +21,13 @@ import torch
 from anytime3d_tpu.kernels.conv_k2 import conv_k2 as jax_conv_k2
 from anytime3d_tpu.kernels.conv_k2 import _conv_k2_bwd_impl, conv_k2_xla
 from anytime3d_tpu_torch.kernels import build
-from anytime3d_tpu_torch.kernels.conv_k2 import conv_k2, conv_k2_backward_reference
+from anytime3d_tpu_torch.kernels.conv_k2 import (
+    conv_k2,
+    conv_k2_backward_reference,
+    conv_k2_dw_reference,
+    conv_k2_reference,
+    wgmma_plan,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -100,6 +110,183 @@ def test_conv_k2_rejects_bad_shapes(xs, ws):
         conv_k2(torch.zeros(xs), torch.zeros(ws))
 
 
+# ---- the tensor-core kernels' plan and their box reads ----
+
+FLAGSHIP_K2 = [(64, 512), (512, 128), (128, 512), (512, 64)]  # (C, N) at 16^3
+# (B, D, H, W, C, N) with a plan: the flagship stages at the served and the
+# train batch, and the card tests' 8^3 and 32^3 and some grids that are no cubes
+PLANNED = ([(B, 16, 16, 16, C, N) for B in (8, 32) for C, N in FLAGSHIP_K2]
+           + [(1, 8, 8, 8, 64, 64), (3, 8, 8, 8, 64, 128), (1, 32, 32, 32, 64, 64), (3, 32, 32, 32, 128, 64),
+              (2, 4, 8, 16, 64, 64), (1, 2, 4, 32, 64, 192), (1, 2, 2, 256, 64, 64)])
+# and without: narrow or ragged channels, grids whose rows do not tile into boxes
+UNPLANNED = [(2, 5, 6, 7, 64, 64), (8, 16, 17, 18, 64, 512), (1, 4, 4, 4, 64, 64), (2, 16, 16, 16, 8, 16),
+             (2, 16, 16, 16, 136, 8), (2, 16, 16, 16, 16, 24), (2, 16, 16, 16, 64, 4), (1, 16, 16, 12, 64, 64),
+             (1, 8, 8, 8, 96, 64), (1, 8, 8, 8, 64, 96)]
+SMEM_PER_BLOCK = 232_448  # what one block may have on an H100
+
+
+def _origin(row, D, H, W):
+    """(b, d, h, w) of a flat row index, as the kernels' producer computes it."""
+    w0, row = row % W, row // W
+    h0, row = row % H, row // H
+    return row // D, row % D, h0, w0
+
+
+def _box_read(x, origin, extents, tap, c0):
+    """The (rows, 64) tile a TMA box copy of ``x`` (B,D,H,W,C) delivers: the
+    box of ``extents`` (w, h, d) at ``origin`` (b, d, h, w) shifted by the tap,
+    64 channels from ``c0``, zeros wherever it leaves the tensor."""
+    (b, d, h, w), (bw, bh, bd) = origin, extents
+    d, h, w = d + (tap >> 2), h + ((tap >> 1) & 1), w + (tap & 1)
+    _, D, H, W, _ = x.shape
+    out = torch.zeros(bd, bh, bw, 64, dtype=x.dtype)
+    nd, nh, nw = (max(0, min(n, size - lo)) for n, size, lo in ((bd, D, d), (bh, H, h), (bw, W, w)))
+    out[:nd, :nh, :nw] = x[b, d:d + nd, h:h + nh, w:w + nw, c0:c0 + 64]
+    return out.reshape(-1, 64)
+
+
+def _emulate_forward(x, w, plan):
+    """The forward as the kernel walks it: block i takes tiles i, i + grid, ...;
+    a tile is 8C/64 stages of one tap and 64 channels. Returns y and how often
+    each output element was written."""
+    B, D, H, W, C = x.shape
+    N = w.shape[-1]
+    w2 = w.reshape(8 * C, N)
+    y = torch.zeros(B * D * H * W, N)
+    written = torch.zeros(B * D * H * W, N, dtype=torch.int32)
+    n_tiles = N // plan.bn
+    for block in range(plan.grid):
+        for tile in range(block, plan.tiles, plan.grid):
+            n0, row0 = tile % n_tiles * plan.bn, tile // n_tiles * plan.bm
+            acc = torch.zeros(plan.bm, plan.bn)
+            for it in range(8 * C // 64):
+                tap, c0 = it * 64 // C, it * 64 % C
+                acc += _box_read(x, _origin(row0, D, H, W), plan.box, tap, c0) @ w2[it * 64:it * 64 + 64, n0:n0 + plan.bn]
+            y[row0:row0 + plan.bm, n0:n0 + plan.bn] = acc
+            written[row0:row0 + plan.bm, n0:n0 + plan.bn] += 1
+    return y.reshape(B, D, H, W, N), written
+
+
+def _emulate_dw(x, g, plan):
+    """dw as the kernel walks it: per (column tile, row tile, split) the
+    stages of 64 rows, two boxes of x a stage (one for each 64 output rows);
+    the splits summed in ascending order. Returns dw and how often each row m
+    entered each output element's sum."""
+    B, D, H, W, C = x.shape
+    N = g.shape[-1]
+    g2 = g.reshape(-1, N)
+    total = g2.shape[0] // 64
+    nt, rt, splits = plan.dw_grid
+    part = torch.zeros(splits, 8 * C, N)
+    depth = torch.zeros(8 * C, N, dtype=torch.int64)
+    for z in range(splits):
+        first = z * plan.dw_stages_per_split
+        for stage in range(first, min(total, first + plan.dw_stages_per_split)):
+            m0 = stage * 64
+            for r0 in range(0, rt * 128, 64):
+                tap, c0 = r0 // C, r0 % C
+                a = _box_read(x, _origin(m0, D, H, W), plan.dw_box, tap, c0)
+                for n0 in range(0, nt * plan.bn, plan.bn):
+                    part[z, r0:r0 + 64, n0:n0 + plan.bn] += a.T @ g2[m0:m0 + 64, n0:n0 + plan.bn]
+                    depth[r0:r0 + 64, n0:n0 + plan.bn] += 64
+    dw = part[0].clone()
+    for z in range(1, splits):
+        dw += part[z]
+    return dw.reshape(2, 2, 2, C, N), depth
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", PLANNED)
+def test_wgmma_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
+    plan = wgmma_plan(B, D, H, W, C, N)
+    assert plan is not None
+    rows = B * D * H * W
+    # boxes: 64 channels = 128 bytes inner (the 128-byte swizzle), every extent
+    # within the TMA's 256, bm rows a forward tile and 64 rows a dw stage
+    assert 64 * 2 == 128 and max(*plan.box, *plan.dw_box, 64) <= 256
+    assert plan.bm in (128, 256) and plan.bn in (64, 128) and N % plan.bn == 0
+    assert plan.box[0] * plan.box[1] * plan.box[2] == plan.bm and plan.dw_box[0] * plan.dw_box[1] * plan.dw_box[2] == 64
+    # rings of at least 3 stages of 8 KB tiles; two blocks share an SM's shared
+    # memory, except the forward at 256 rows, which has it alone
+    per_sm = 2 if plan.bm == 128 else 1
+    ring = plan.stages * (plan.bm // 64 + plan.bn // 64) * 64 * 64 * 2
+    assert 3 <= plan.stages <= 8 and ring + 1024 <= plan.smem_bytes <= SMEM_PER_BLOCK // per_sm
+    dw_ring = plan.dw_stages * (2 + plan.bn // 64) * 64 * 64 * 2
+    assert 3 <= plan.dw_stages <= 8 and dw_ring + 1024 <= plan.dw_smem_bytes <= SMEM_PER_BLOCK // 2
+    # forward: the boxes of consecutive tiles tile the grid, every row once
+    seen = np.zeros((B, D, H, W), np.int32)
+    bw, bh, bd = plan.box
+    for row0 in range(0, rows, plan.bm):
+        b, d, h, w = _origin(row0, D, H, W)
+        assert d + bd <= D and h + bh <= H and w + bw <= W
+        flat = np.ravel_multi_index(np.meshgrid([b], np.arange(d, d + bd), np.arange(h, h + bh), np.arange(w, w + bw),
+                                                indexing="ij"), (B, D, H, W)).ravel()
+        assert (flat == np.arange(row0, row0 + plan.bm)).all()  # the box's rows, in order, are the tile's rows
+        seen[b, d:d + bd, h:h + bh, w:w + bw] += 1
+    assert (seen == 1).all()
+    assert plan.tiles == rows // plan.bm * (N // plan.bn) and 1 <= plan.grid <= min(plan.tiles, per_sm * 132)
+    walked = sorted(t for block in range(plan.grid) for t in range(block, plan.tiles, plan.grid))
+    assert walked == list(range(plan.tiles))
+    # dw: stages of 64 rows are boxes too; the splits are whole stages, none empty, all of them
+    bw, bh, bd = plan.dw_box
+    for m0 in range(0, rows, 64):
+        b, d, h, w = _origin(m0, D, H, W)
+        assert d + bd <= D and h + bh <= H and w + bw <= W
+        assert np.ravel_multi_index((b, d, h, w), (B, D, H, W)) == m0
+    nt, rt, splits = plan.dw_grid
+    assert nt * plan.bn == N and rt * 128 == 8 * C
+    total = rows // 64
+    assert (splits - 1) * plan.dw_stages_per_split < total <= splits * plan.dw_stages_per_split
+    assert splits == 1 or plan.dw_stages_per_split >= 16  # each split many stages deep
+    assert nt * rt * splits <= max(nt * rt, 2 * 132)  # one wave at two blocks an SM
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", UNPLANNED)
+def test_wgmma_plan_is_none_where_the_kernels_do_not_apply(B, D, H, W, C, N):
+    assert wgmma_plan(B, D, H, W, C, N) is None
+
+
+# small grids, cubes and not: the box spans two d-planes (8^3), part of a
+# plane (4x8x16), part of a line (2x2x256); N = 128 takes the wide tile
+EMULATED = [(1, 8, 8, 8, 64, 64), (2, 8, 8, 8, 128, 128), (1, 4, 8, 16, 64, 128), (1, 2, 4, 32, 64, 64),
+            (1, 2, 2, 256, 64, 64), (1, 16, 16, 16, 64, 64)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", EMULATED)
+def test_box_reads_with_zero_fill_give_the_forward(B, D, H, W, C, N):
+    """Out-of-bounds zero fill of the shifted box is SAME padding (0, 1): the
+    emulated tile walk equals the plain version and ``conv_k2_xla`` (f32,
+    summation order only: 1e-5 of the largest output)."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
+    w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
+    plan = wgmma_plan(B, D, H, W, C, N, sms=2)  # 4 blocks: every block walks several tiles
+    y, written = _emulate_forward(torch.from_numpy(x), torch.from_numpy(w), plan)
+    assert (written == 1).all()
+    ref = conv_k2_reference(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(y.numpy(), ref, atol=tol, rtol=0)
+    np.testing.assert_allclose(y.numpy(), np.asarray(conv_k2_xla(jnp.asarray(x), jnp.asarray(w))), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", EMULATED)
+def test_box_reads_with_zero_fill_give_dw(B, D, H, W, C, N):
+    """The emulated dw walk (two boxes a stage, splits summed in order) equals
+    ``conv_k2_dw_reference`` and ``_conv_k2_bwd_impl``'s dw: f32, summation
+    order only, 1e-5 of the largest entry."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
+    w = np.zeros((2, 2, 2, C, N), np.float32)
+    g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
+    plan = wgmma_plan(B, D, H, W, C, N, sms=2 * (8 * C // 128) * (N // 64))  # several splits where the depth allows
+    dw, depth = _emulate_dw(torch.from_numpy(x), torch.from_numpy(g), plan)
+    assert (depth == B * D * H * W).all()  # every row entered every sum once
+    ref = conv_k2_dw_reference(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(dw.numpy(), ref, atol=tol, rtol=0)
+    jax_dw = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))[1])
+    np.testing.assert_allclose(dw.numpy(), jax_dw, atol=tol, rtol=0)
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
@@ -113,7 +300,23 @@ def test_library_path_keyed_by_sources_and_flags(monkeypatch):
     path = build.library_path("conv_k2")
     assert path.name == "libconv_k2.so" and path.parent.parent == build.BUILD_ROOT
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
-    assert build.library_path("conv_k2") != path
+    flagged = build.library_path("conv_k2")
+    assert flagged != path
+    monkeypatch.setattr(build, "EXTRA_DEFINES", ("CONV_K2_WAIT_TRAP_NS=1000ull",))
+    assert build.library_path("conv_k2") not in (path, flagged)
+
+
+def test_default_build_waits_without_a_trap():
+    """The barrier wait's time bound is a debug define: the default build has
+    no defines, and every ``__trap`` of the tensor-core source lies under it."""
+    assert build.EXTRA_DEFINES == ()
+    guarded = 0
+    for line in (build.CSRC / "conv_k2_wgmma.cuh").read_text().splitlines():
+        if line.startswith("#ifdef CONV_K2_WAIT_TRAP_NS"):
+            guarded += 1
+        elif line.startswith(("#else", "#endif")):
+            guarded = 0
+        assert "__trap" not in line or guarded
 
 
 def test_port_imports_no_jax():
