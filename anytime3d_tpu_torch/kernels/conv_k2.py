@@ -6,9 +6,9 @@ convolutions of the flagship model (the blocked encoder head and decoder
 tail at 16^3) are this operation. ``csrc/conv_k2.cu`` says how the kernels
 are formed and what bounds them. There are two designs: bfloat16 operands
 whose shape has a plan (:func:`wgmma_plan`) take the tensor-core kernels of
-``csrc/conv_k2_wgmma.cuh`` in the forward and in dw; float32, dx, and shapes
-without a plan take the FFMA kernels. The choice is made from shape and
-dtype before the launch, never by catching a failure.
+``csrc/conv_k2_wgmma.cuh`` in the forward, in dx and in dw; float32 and
+shapes without a plan take the FFMA kernels. The choice is made from shape
+and dtype before the launch, never by catching a failure.
 
 Layouts are the JAX package's: ``x`` is NDHWC ``(B, D, H, W, C)``, ``w`` is
 ``(2, 2, 2, C, N)``, the result is ``(B, D, H, W, N)`` in ``x``'s dtype.
@@ -71,9 +71,10 @@ def _lib() -> ctypes.CDLL:
     lib.conv_k2_backward_input.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.conv_k2_backward_weight.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
     lib.conv_k2_forward_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
+    lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
     lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
     for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
-               lib.conv_k2_forward_wgmma, lib.conv_k2_backward_weight_wgmma):
+               lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma):
         fn.restype = i32
     lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p
@@ -101,6 +102,10 @@ class WgmmaPlan:
     to its own arithmetic, as it does ``tiles``. The ``tiles`` output tiles
     (column tiles fastest) are walked by ``grid`` blocks, block i taking tiles
     i, i + grid, ...
+
+    dx has no fields of its own: it is cut by the plan of the forward from N
+    to C channels, ``wgmma_plan(B, D, H, W, N, C)``, whose tiles are ``bm``
+    rows by ``bn`` columns of dx and whose box holds those rows of ``g``.
 
     dw: an output tile is 128 rows of (tap, c) by ``bn`` columns and a stage
     64 rows m, whose box is ``dw_box``; the ring has ``dw_stages`` slots in
@@ -243,21 +248,33 @@ def _check_cuda_operand(what: str, name: str, t: torch.Tensor) -> None:
 def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx (B,D,H,W,C), in ``g``'s dtype, of ``conv_k2`` from the output
     gradient ``g`` (B,D,H,W,N) and ``w`` (2,2,2,C,N). CUDA tensors go through
-    the kernel (adding one to ``conv_k2.launches_dx``) or the call raises; CPU
-    tensors through :func:`conv_k2_dx_reference`."""
+    a kernel (adding one to ``conv_k2.launches_dx``, and to
+    ``conv_k2.launches_dx_wgmma`` where it is the tensor-core kernel: bfloat16
+    whose shape, as a forward from N to C, has a plan) or the call raises;
+    CPU tensors through :func:`conv_k2_dx_reference`."""
     if g.device.type == "cpu":
         return conv_k2_dx_reference(g, w)
     _check_cuda_operand("conv_k2 dx", "g", g)
     B, D, H, W, N = g.shape
     C = w.shape[3]
-    # (2,2,2,N,C): the depth of dx is (tap, n). Plumbing on <= 2.1 M elements; no
-    # flip, the kernel's mirrored shift already pairs tap t with w[t]
-    wt = w.to(g.dtype).transpose(3, 4).contiguous()
     dx = torch.empty((B, D, H, W, C), dtype=g.dtype, device=g.device)
-    _check_operands("conv_k2 dx", C, N, g, wt, dx, depth_is_n=True)
-    _check_launch("conv_k2 dx", _lib().conv_k2_backward_input(
-        g.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, D, H, W, C, N,
-        _DTYPE_CODES[g.dtype], g.device.index, _stream(g)))
+    plan = _plan_for(g, C)
+    if plan is None:
+        # (2,2,2,N,C): the depth of dx is (tap, n). Plumbing on <= 2.1 M elements; no
+        # flip, the kernel's mirrored shift already pairs tap t with w[t]
+        wt = w.to(g.dtype).transpose(3, 4).contiguous()
+        _check_operands("conv_k2 dx", C, N, g, wt, dx, depth_is_n=True)
+        _check_launch("conv_k2 dx", _lib().conv_k2_backward_input(
+            g.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, D, H, W, C, N,
+            _DTYPE_CODES[g.dtype], g.device.index, _stream(g)))
+    else:
+        # w as it lies: its (c, n) boxes are the K-major B tiles of dx
+        wc = w.to(g.dtype).contiguous()
+        _check_operands("conv_k2 dx", C, N, g, wc, dx, depth_is_n=True)
+        _check_launch("conv_k2 dx (wgmma)", _lib().conv_k2_backward_input_wgmma(
+            g.data_ptr(), wc.data_ptr(), dx.data_ptr(), B, D, H, W, C, N, *plan.box, plan.bm, plan.bn, plan.stages,
+            plan.grid, plan.smem_bytes, plan.tiles, g.device.index, _stream(g)))
+        conv_k2.launches_dx_wgmma += 1
     conv_k2.launches_dx += 1
     return dx
 
@@ -336,7 +353,8 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``x``'s dtype and its gradient comes back in float32. Every kernel launch
     adds one to ``conv_k2.launches`` (forward), ``conv_k2.launches_dx`` or
     ``conv_k2.launches_dw``; a launch of a tensor-core kernel also to
-    ``conv_k2.launches_wgmma`` (forward) or ``conv_k2.launches_dw_wgmma``."""
+    ``conv_k2.launches_wgmma`` (forward), ``conv_k2.launches_dx_wgmma`` or
+    ``conv_k2.launches_dw_wgmma``."""
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:4]) != (2, 2, 2, x.shape[-1]):
         raise ValueError(f"conv_k2 takes x (B,D,H,W,C) and w (2,2,2,C,N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:
@@ -355,4 +373,5 @@ conv_k2.launches = 0
 conv_k2.launches_dx = 0
 conv_k2.launches_dw = 0
 conv_k2.launches_wgmma = 0
+conv_k2.launches_dx_wgmma = 0
 conv_k2.launches_dw_wgmma = 0

@@ -28,8 +28,8 @@
 // kernel). The A operand is g viewed as [M, N]; row m for tap t is row
 // m - ((dz*H + dy)*W + dx), zeroed where d-dz, h-dy or w-dx is below 0. The
 // depth is 8*N in (tap, n) order and the B operand is w re-laid to
-// [2, 2, 2, N, C] (each tap transposed; the wrapper does that, no flip: the
-// mirrored shift already pairs tap t with w[t]).
+// [2, 2, 2, N, C] (each tap transposed; the wrapper does that for the FFMA
+// kernel, no flip: the mirrored shift already pairs tap t with w[t]).
 //
 // dw: a GEMM whose reduction axis is M. Its output is [8C, N] (row (tap, c));
 // A^T for output row (t, c) at depth m is x[m + shift(t), c], edge-masked as
@@ -48,20 +48,44 @@
 // four stages need ~1.03e11 FLOPs per batch against ~0.2 GB of traffic, so
 // the work is compute bound, forward and backward alike.
 //
-// Two designs live here. The kernels of this file are plain tiled SIMT GEMMs
-// (FFMA): a 128x64 output tile per block, 8x4 outputs per thread held in f32
-// registers, a 16-deep chunk of A and B staged in shared memory, and the next
-// chunk prefetched into registers while the current one is consumed. f32 is
-// computed in true f32 (FFMA, no TF32); bf16 is read as bf16, widened to f32
-// in shared memory, accumulated in f32 and rounded once on store. They take
-// float32 of any shape, dx in both types, and the bfloat16 shapes that have
-// no plan. The bfloat16 forward and dw of the shapes that have a plan (C and
+// Two designs live here. The kernels of this file are tiled SIMT GEMMs (FFMA)
+// with f32 accumulators in registers: f32 is computed in true f32 (no TF32),
+// bf16 is read as bf16, widened to f32, accumulated in f32 and rounded once on
+// store. They take float32 of any shape and the bfloat16 shapes that have no
+// plan. The bfloat16 forward, dx and dw of the shapes that have a plan (C and
 // N multiples of 64, rows that tile into boxes: the flagship stages) run on
 // the tensor cores: conv_k2_wgmma.cuh holds those kernels (wgmma products,
 // operands brought in by TMA box copies into a ring of swizzled shared-memory
 // tiles) and says how they are formed. Which design a call takes is settled
-// by the Python wrapper from shape and dtype, before the launch. dx on the
-// tensor cores (the same box copy at mirrored coordinates) is later work.
+// by the Python wrapper from shape and dtype, before the launch.
+//
+// The FFMA forward and dx (conv_k2_gemm_kernel, namespace gemm). The float32
+// serving path launches it four times a batch, and what bounds it is the FFMA
+// rate, so the design spends as few instruction slots as it can on anything else:
+// - a block owns 128 rows by 128 columns: four warps of 64 x 64, a thread 16
+//   rows by 8 columns (128 accumulators, up to 255 registers, two blocks an
+//   SM): 128 FFMA for every 16 + 8 operand values read. Where N <= 64 the
+//   tile is 128 x 64, a warp 32 x 64 and a thread 8 x 8. A thread's columns
+//   are two runs of 4, 32 apart, so the eight lanes of a quarter warp read
+//   128 consecutive bytes of B; its rows are 4 apart (row r of a warp belongs
+//   to lane group r % 4) and a row of A is padded by 16 bytes, so the lane
+//   groups' reads of A fall into different banks.
+// - A is read without a transpose. A stage lies in shared memory as it lies
+//   in device memory, [row][k] with k contiguous, and a thread reads 2 (or 4)
+//   consecutive k of each of its rows as one vector: as many bytes as a
+//   k-major layout would give it, all lanes of a group on one address (a
+//   broadcast), and nothing to scatter on the way in.
+// - three stages of 16 k in dynamic shared memory, filled by cp.async in
+//   16-byte pieces (8-byte for bf16's B, whose rows are only 8-byte aligned):
+//   a source size of 0 writes zeros, which is the edge mask of the gather and
+//   the mask of the ragged last rows and columns. One __syncthreads a stage;
+//   the loads of the next two stages are in flight under this one's FFMAs.
+//   The (tap, channel) of a thread's pieces advances with the stages: no
+//   division in the loop.
+// `python -m anytime3d_tpu_torch.cli.probe_ffma` (csrc/ffma_probe.cu) times the
+// inner loop alone, which is what this kernel can at most reach as compiled.
+// dw keeps the earlier tiling (a 128x64 tile per block, 8x4 outputs a thread,
+// one 16-deep shared-memory stage, the next held in registers meanwhile).
 //
 // Preconditions, checked by the Python wrapper: all tensors contiguous and
 // 16-byte aligned; the depth's channel count a multiple of 8 (so every
@@ -78,6 +102,7 @@
 
 namespace {
 
+// dw's tiling (conv_k2_dw_kernel, fma_stage); the forward and dx have their own in namespace gemm
 constexpr int BM = 128;  // output rows per block
 constexpr int BN = 64;   // output columns per block
 constexpr int BK = 16;   // reduction depth per shared-memory stage
@@ -152,113 +177,224 @@ __device__ __forceinline__ void fma_stage(float (*As)[BM], float (*Bs)[BN], int 
   }
 }
 
+// ---- the forward and dx ----
+
+namespace gemm {
+
+constexpr int BM = 128;       // output rows per block
+constexpr int BK = 16;        // depth per shared-memory stage
+constexpr int STAGES = 3;     // stages in flight
+constexpr int TN = 8;         // output columns per thread: two runs of 4, 32 apart
+constexpr int WARP_N = 64;    // a warp's columns: 8 lanes of 4, twice
+constexpr int LANE_ROWS = 4;  // a warp's rows: 4 lane groups, row r of the warp to group r % 4
+
+static_assert(BK % 8 == 0 && 64 % BK == 0, "a stage is whole 16-byte pieces and divides the depth 8C (C % 8 == 0)");
+static_assert(STAGES >= 2, "one stage computes while another loads");
+
+// A block of BM rows by BN columns (128 or 64) whose threads hold TM rows (8
+// or 16) by TN columns each, and how it loads a stage: A as BM rows of BK
+// elements in 16-byte pieces, B as BK rows of BN elements in pieces of 4
+// elements; piece i of a thread is `*_ROW_STEP` rows below its piece i - 1.
+template <typename T, int BN, int TM>
+struct Tile {
+  static constexpr int WARP_M = LANE_ROWS * TM;
+  static constexpr int THREADS = (BM / WARP_M) * (BN / WARP_N) * 32;
+  static constexpr int KV = TM == 8 ? 4 : 2;  // consecutive k a thread reads of each of its rows at once
+  static constexpr int A_ELEMS = 16 / sizeof(T);
+  static constexpr int A_PIECES_ROW = BK / A_ELEMS;
+  static constexpr int A_PER_THREAD = BM * A_PIECES_ROW / THREADS;
+  static constexpr int A_ROW_STEP = THREADS / A_PIECES_ROW;
+  // a row of A in shared memory: BK elements and 16 bytes of padding, so that the rows of a
+  // warp's four lane groups (neighbours) start in different banks
+  static constexpr int A_PITCH = BK + A_ELEMS;
+  static constexpr int B_PIECES_ROW = BN / 4;
+  static constexpr int B_PER_THREAD = BK * B_PIECES_ROW / THREADS;
+  static constexpr int B_ROW_STEP = THREADS / B_PIECES_ROW;
+  static constexpr int STAGE_ELEMS = BM * A_PITCH + BK * BN;
+  static constexpr size_t SMEM_BYTES = static_cast<size_t>(STAGES) * STAGE_ELEMS * sizeof(T);
+  // blocks an SM: 128 registers a thread for 8 x 8 outputs, up to 255 for 16 x 8
+  static constexpr int MIN_BLOCKS = (TM == 8 ? 512 : 256) / THREADS;
+  static_assert(TM == 8 || TM == 16, "KV and MIN_BLOCKS are set for these");
+  static_assert(BM % WARP_M == 0 && BN % WARP_N == 0, "warps tile the block");
+  static_assert(A_PER_THREAD >= 1 && A_PER_THREAD <= 4 && A_PER_THREAD * THREADS == BM * A_PIECES_ROW, "A pieces");
+  static_assert(B_PER_THREAD >= 1 && B_PER_THREAD * THREADS == BK * B_PIECES_ROW, "B pieces");
+};
+
+// 16 bytes from device to shared memory, or 16 zero bytes where !ok (`src` is
+// then not read, but must be an address of the tensor).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(wg::smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 elements of B: 16 bytes of float, 8 of bfloat16 (a row of w [K, N] with
+// N % 4 == 0 is only 8-byte aligned there).
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src, bool ok) { cp_async_16(dst, src, ok); }
+
+__device__ __forceinline__ void cp_async_4(__nv_bfloat16* dst, const __nv_bfloat16* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(wg::smem_u32(dst)), "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// KV (2 or 4) consecutive elements as floats.
+template <int KV, typename T>
+__device__ __forceinline__ void load_k(const T* p, float* out) {
+  if constexpr (KV == 4) {
+    load4(p, out);
+  } else if constexpr (sizeof(T) == 4) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+  } else {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = v.x;
+    out[1] = v.y;
+  }
+}
+
 // Forward (BWD = false): y = conv(x, w), x [M, C], w [8C, N], y [M, N].
 // dx (BWD = true): called with x := g [M, N'], w := w^T [8N', C'], y := dx
 // [M, C'], C := N', N := C'; tap t reads row m - shift(t), masked at the low edge.
-template <typename T, bool BWD>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, bool BWD, int BN, int TM>
+__global__ void __launch_bounds__(Tile<T, BN, TM>::THREADS, Tile<T, BN, TM>::MIN_BLOCKS)
 conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
                     int D, int H, int W, int C, int N, long long M) {
-  // A is stored transposed (k-major) so a thread reads its TM rows as vectors.
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
+  using L = Tile<T, BN, TM>;
+  // stage s: A [BM][A_PITCH] as it lies in x (k contiguous), then B [BK][BN]
+  extern __shared__ __align__(16) uint8_t gemm_smem[];
+  T* const smem = reinterpret_cast<T*>(gemm_smem);
 
   const int tid = threadIdx.x;
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const int n0 = blockIdx.y * BN;
-  const int K = 8 * C;
-  const long long S = static_cast<long long>(D) * H * W;
+  const int n_stages = 8 * C / BK;
 
-  // A loader: one output row per thread, 8 consecutive k of the stage.
-  // Consecutive threads take consecutive rows, so the transposed store into
-  // As hits 32 distinct banks.
-  const int a_row = tid % BM;
-  const int a_k = (tid / BM) * 8;
-  const long long m = m0 + a_row;
-  const T* xrow = x;
-  unsigned tap_ok = 0;  // bit t set: tap t of this row lies inside the grid
-  if (m < M) {
-    const long long s = m % S;
-    const int d = static_cast<int>(s / (static_cast<long long>(H) * W));
-    const int h = static_cast<int>((s / W) % H);
-    const int ww = static_cast<int>(s % W);
-    xrow = x + m * C;
+  // A loader: pieces of 16 bytes, L::A_PIECES_ROW consecutive threads on one
+  // row; this thread's piece i is row a_row + i * A_ROW_STEP, elements a_k ..
+  const int a_row = tid / L::A_PIECES_ROW;
+  const int a_k = (tid % L::A_PIECES_ROW) * L::A_ELEMS;
+  unsigned tap_ok = 0;  // bit 8 i + t: tap t of piece i's row lies inside the grid
+  {
+    const long long S = static_cast<long long>(D) * H * W;
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int dz = t >> 2, dy = (t >> 1) & 1, dx = t & 1;
-      const bool ok = BWD ? (d - dz >= 0 && h - dy >= 0 && ww - dx >= 0)
-                          : (d + dz < D && h + dy < H && ww + dx < W);
-      if (ok) tap_ok |= 1u << t;
+    for (int i = 0; i < L::A_PER_THREAD; ++i) {
+      const long long m = m0 + a_row + i * L::A_ROW_STEP;
+      if (m >= M) continue;
+      const long long s = m % S;
+      const int d = static_cast<int>(s / (static_cast<long long>(H) * W));
+      const int h = static_cast<int>((s / W) % H);
+      const int ww = static_cast<int>(s % W);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int dz = t >> 2, dy = (t >> 1) & 1, dx = t & 1;
+        const bool ok = BWD ? (d - dz >= 0 && h - dy >= 0 && ww - dx >= 0)
+                            : (d + dz < D && h + dy < H && ww + dx < W);
+        if (ok) tap_ok |= 1u << (8 * i + t);
+      }
     }
   }
+  const long long a_off = (m0 + a_row) * C;  // of piece 0's row in x; only read where tap_ok says so
 
-  // B loader: one k row of the stage per 16 threads, 4 consecutive columns.
-  const int b_k = tid / (BN / 4);
-  const int b_n = (tid % (BN / 4)) * 4;
-  const bool b_col_ok = n0 + b_n < N;
+  // B loader: pieces of 4 columns, L::B_PIECES_ROW consecutive threads on one
+  // k; this thread's piece i is row b_k + i * B_ROW_STEP of the stage.
+  const int b_k = tid / L::B_PIECES_ROW;
+  const int b_n = (tid % L::B_PIECES_ROW) * 4;
+  const bool b_ok = n0 + b_n < N;
+  const long long b_off = static_cast<long long>(b_k) * N + n0 + b_n;
 
-  float a_reg[8];
-  float b_reg[4];
+  // (tap, channel) of this thread's pieces of A in the next stage to load: a piece is 4 or 8
+  // elements from a multiple of as many, and C % 8 == 0, so it lies in one tap
+  int tap = a_k / C;
+  int c = a_k - tap * C;
 
-  auto load_stage = [&](int k0) {
-    const int k = k0 + a_k;  // multiple of 8, so k .. k+7 share one tap
-    const int tap = k / C;
-    const int c = k - tap * C;
-    if ((tap_ok >> tap) & 1u) {
-      const long long shift =
-          (static_cast<long long>((tap >> 2) * H + ((tap >> 1) & 1)) * W + (tap & 1)) * C;
-      load8(xrow + (BWD ? -shift : shift) + c, a_reg);
-    } else {
+  auto load_stage = [&](int stage, int slot) {
+    T* const As = smem + slot * L::STAGE_ELEMS;
+    T* const Bs = As + BM * L::A_PITCH;
+    const long long shift = (static_cast<long long>((tap >> 2) * H + ((tap >> 1) & 1)) * W + (tap & 1)) * C;
+    const long long src = a_off + (BWD ? -shift : shift) + c;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a_reg[i] = 0.f;
+    for (int i = 0; i < L::A_PER_THREAD; ++i) {
+      const bool ok = (tap_ok >> (8 * i + tap)) & 1u;
+      cp_async_16(As + (a_row + i * L::A_ROW_STEP) * L::A_PITCH + a_k,
+                  ok ? x + src + static_cast<long long>(i * L::A_ROW_STEP) * C : x, ok);
     }
-    if (b_col_ok) {
-      load4(w + static_cast<long long>(k0 + b_k) * N + n0 + b_n, b_reg);
-    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b_reg[j] = 0.f;
+    for (int i = 0; i < L::B_PER_THREAD; ++i) {
+      const long long row = static_cast<long long>(stage) * BK + i * L::B_ROW_STEP;
+      cp_async_4(Bs + (b_k + i * L::B_ROW_STEP) * BN + b_n, b_ok ? w + b_off + row * N : w, b_ok);
+    }
+    c += BK;  // stages are loaded in order: on to the next one's tap and channel
+    while (c >= C) {
+      c -= C;
+      ++tap;
     }
   };
 
-  auto store_stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) As[a_k + i][a_row] = a_reg[i];
-    *reinterpret_cast<float4*>(&Bs[b_k][b_n]) = make_float4(b_reg[0], b_reg[1], b_reg[2], b_reg[3]);
-  };
-
-  const int ty = tid / (BN / TN);  // this thread's rows: ty*TM .. ty*TM+TM-1
-  const int tx = tid % (BN / TN);  // this thread's columns: tx*TN .. tx*TN+TN-1
+  // this thread's outputs: rows row0, row0 + 4, ... (TM of them), columns col0 .. + 3 and
+  // col0 + 32 .. + 35 of the block's tile
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = (warp / (BN / WARP_N)) * L::WARP_M + (lane >> 3);
+  const int col0 = (warp % (BN / WARP_N)) * WARP_N + (lane & 7) * 4;
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  load_stage(0);
-  store_stage();
-  __syncthreads();
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) load_stage(k0 + BK);  // in flight while this stage computes
-
-    fma_stage(As, Bs, ty, tx, acc);
-    __syncthreads();
-    if (more) {
-      store_stage();
-      __syncthreads();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_stages) load_stage(s, s);
+    cp_async_commit();
+  }
+  int slot = 0, load_slot = STAGES - 1;
+  for (int stage = 0; stage < n_stages; ++stage) {
+    cp_async_wait<STAGES - 2>();  // this thread's pieces of `stage` have landed
+    __syncthreads();              // everyone's have, and everyone is done with the slot loaded next
+    if (stage + STAGES - 1 < n_stages) load_stage(stage + STAGES - 1, load_slot);
+    cp_async_commit();  // an empty group at the tail keeps the count of pending groups
+    const T* const a_base = smem + slot * L::STAGE_ELEMS + row0 * L::A_PITCH;
+    const T* const b_base = smem + slot * L::STAGE_ELEMS + BM * L::A_PITCH + col0;
+#pragma unroll
+    for (int k0 = 0; k0 < BK; k0 += L::KV) {
+      float a[TM][L::KV];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) load_k<L::KV>(a_base + i * LANE_ROWS * L::A_PITCH + k0, a[i]);
+#pragma unroll
+      for (int kk = 0; kk < L::KV; ++kk) {
+        float b[TN];
+        load4(b_base + (k0 + kk) * BN, b);
+        load4(b_base + (k0 + kk) * BN + WARP_N / 2, b + 4);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
     }
+    if (++slot == STAGES) slot = 0;
+    if (++load_slot == STAGES) load_slot = 0;
   }
 
-  const int n = n0 + tx * TN;
-  if (n < N) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const long long mo = m0 + ty * TM + i;
-      if (mo < M) store4(y + mo * N + n, acc[i]);
+  for (int i = 0; i < TM; ++i) {
+    const long long mo = m0 + row0 + i * LANE_ROWS;
+    if (mo >= M) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + col0 + half * (WARP_N / 2);
+      if (n < N) store4(y + mo * N + n, acc[i] + 4 * half);
     }
   }
 }
+
+}  // namespace gemm
 
 // dw partial: part[z][r][n] = sum over rows m of split z of x_t[m, c] * g[m, n],
 // r = t*C + c. x [M, C], g [M, N], part [gridDim.z, 8C, N] in f32. Split z
@@ -380,13 +516,28 @@ __global__ void conv_k2_dw_reduce_kernel(const float* __restrict__ part, float* 
   reinterpret_cast<float4*>(dw)[i] = sum;
 }
 
+template <typename T, bool BWD, int TILE_N, int TM>
+cudaError_t launch_gemm_tile(const void* x, const void* w, void* y, int D, int H, int W, int C, int N,
+                             long long M, cudaStream_t s) {
+  using L = gemm::Tile<T, TILE_N, TM>;
+  cudaError_t err = cudaFuncSetAttribute(gemm::conv_k2_gemm_kernel<T, BWD, TILE_N, TM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::SMEM_BYTES));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((M + gemm::BM - 1) / gemm::BM),
+                  static_cast<unsigned>((N + TILE_N - 1) / TILE_N));
+  gemm::conv_k2_gemm_kernel<T, BWD, TILE_N, TM><<<grid, L::THREADS, L::SMEM_BYTES, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), D, H, W, C, N, M);
+  return cudaGetLastError();
+}
+
+// Tiles of 128 columns and 16 rows a thread, or of 64 and 8 where the output is no wider: there 16
+// rows a thread would leave an SM four warps at the flagship sizes, too few to hide anything.
 template <typename T, bool BWD>
 cudaError_t launch_gemm(const void* x, const void* w, void* y, int D, int H, int W, int C, int N,
                         long long M, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM), static_cast<unsigned>((N + BN - 1) / BN));
-  conv_k2_gemm_kernel<T, BWD><<<grid, THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), D, H, W, C, N, M);
-  return cudaGetLastError();
+  if (N <= 64) return launch_gemm_tile<T, BWD, 64, 8>(x, w, y, D, H, W, C, N, M, s);
+  return launch_gemm_tile<T, BWD, 128, 16>(x, w, y, D, H, W, C, N, M, s);
 }
 
 template <typename T>
@@ -404,6 +555,24 @@ cudaError_t launch_dw(const void* x, const void* g, float* dw, float* workspace,
   conv_k2_dw_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(
       workspace, dw, count4, splits);
   return cudaGetLastError();
+}
+
+// The tensor-core forward (DX = false: `depth` = C, `cols` = N) or dx (DX =
+// true: x := g, `depth` = N, `cols` = C, y := dx) at the tile the plan names.
+template <bool DX>
+int launch_wgmma_gemm(const void* x, const void* w, void* y, int B, int D, int H, int W, int depth, int cols,
+                      int bw, int bh, int bd, int bm, int bn, int stages, int grid, int smem_bytes, int tiles,
+                      cudaStream_t s) {
+  if (depth % wg::BK || cols % bn || bw * bh * bd != bm || static_cast<long long>(D) * H * W % bm || stages < 2 ||
+      stages > wg::MAX_STAGES || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define GEMM_ARGS x, w, y, B, D, H, W, depth, cols, bw, bh, bd, stages, grid, smem_bytes, tiles, s
+  if (bm == 128 && bn == 128) return wg::launch_fwd<128, 1, DX>(GEMM_ARGS);
+  if (bm == 128 && bn == 64) return wg::launch_fwd<64, 1, DX>(GEMM_ARGS);
+  if (bm == 256 && bn == 128) return wg::launch_fwd<128, 2, DX>(GEMM_ARGS);
+  if (bm == 256 && bn == 64) return wg::launch_fwd<64, 2, DX>(GEMM_ARGS);
+#undef GEMM_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -467,17 +636,21 @@ int conv_k2_forward_wgmma(const void* x, const void* w, void* y, int B, int D, i
                           int tiles, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (C % wg::BK || N % bn || bw * bh * bd != bm || static_cast<long long>(D) * H * W % bm || stages < 2 ||
-      stages > wg::MAX_STAGES || grid < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD_ARGS x, w, y, B, D, H, W, C, N, bw, bh, bd, stages, grid, smem_bytes, tiles, s
-  if (bm == 128 && bn == 128) return wg::launch_fwd<128, 1>(FWD_ARGS);
-  if (bm == 128 && bn == 64) return wg::launch_fwd<64, 1>(FWD_ARGS);
-  if (bm == 256 && bn == 128) return wg::launch_fwd<128, 2>(FWD_ARGS);
-  if (bm == 256 && bn == 64) return wg::launch_fwd<64, 2>(FWD_ARGS);
-#undef FWD_ARGS
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wgmma_gemm<false>(x, w, y, B, D, H, W, C, N, bw, bh, bd, bm, bn, stages, grid, smem_bytes, tiles,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 tensor-core dx [B,D,H,W,C] from g [B,D,H,W,N] and w [2,2,2,C,N]
+// as it lies (no re-lay). The plan is that of a forward from N to C channels:
+// tiles of bm rows by bn columns of C, the same box, ring, grid, shared memory
+// and tile count. Needs N % 64 == 0, C % bn == 0 and D*H*W % bm == 0.
+int conv_k2_backward_input_wgmma(const void* g, const void* w, void* dx, int B, int D, int H, int W, int C,
+                                 int N, int bw, int bh, int bd, int bm, int bn, int stages, int grid,
+                                 int smem_bytes, int tiles, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_wgmma_gemm<true>(g, w, dx, B, D, H, W, N, C, bw, bh, bd, bm, bn, stages, grid, smem_bytes, tiles,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // The bfloat16 tensor-core dw: the box of a stage's 64 rows (bw, bh, bd); the

@@ -1,14 +1,14 @@
-// conv_k2 in bfloat16 on Hopper's tensor cores: the forward and dw.
+// conv_k2 in bfloat16 on Hopper's tensor cores: the forward, dx and dw.
 // Included by conv_k2.cu, which states what the operation computes.
 //
 // Replaces, for bfloat16 operands whose shape has a plan (see
 // kernels/conv_k2.py::wgmma_plan), the forward of the TPU kernel
 // anytime3d_tpu/kernels/conv_k2.py::_conv_k2_pallas (pallas_call at :156) and
-// the dw product of its backward (_conv_k2_bwd_impl, :181-205).
+// the dx and dw products of its backward (_conv_k2_bwd_impl, :172-205).
 //
 // What bounds them: operations. A flagship stage at B=32 is 6e10 to 1.2e11
 // operations against at most 0.17 GB of traffic, and only the tensor cores
-// reach the card's bf16 rate. So both kernels are built around wgmma:
+// reach the card's bf16 rate. So all three kernels are built around wgmma:
 //
 // - Products: wgmma.mma_async m64nNk16, bf16 operands read from shared
 //   memory through descriptors, f32 accumulators in registers. A block owns a
@@ -18,7 +18,8 @@
 //   accumulators a warpgroup, one block an SM), which fetches the B tile from
 //   L2 half as often for the same products; the wrapper's plan takes it where
 //   a tile is deep enough (C >= 128) to hide its store without a second block
-//   on the SM. dw gained nothing from it and keeps 128 rows.
+//   on the SM. dx is the forward's kernel (the DX instance) and has its tiles.
+//   dw gained nothing from 256 rows and keeps 128.
 //
 // - The gather is a box copy. x is described to the TMA as the 5-D tensor it
 //   is, (C, W, H, D, B) innermost first. The rows of an output tile are a box
@@ -46,6 +47,19 @@
 //   this tile is stored. Epilogue: accumulators rounded once to bf16,
 //   exchanged within each quad of lanes so that a lane holds 8 consecutive
 //   columns, and stored from registers 16 bytes a lane.
+//
+// dx: dx [M, C] = A [M, 8N] * B [8N, C], depth in (tap, n) order, one stage =
+//   one tap and 64 channels n. It is the forward with the roles of C and N
+//   swapped and two differences. A is the box of g at mirrored coordinates:
+//   tap (dz, dy, dx) reads it at the tile's origin minus the tap, and the
+//   TMA's zero fill below coordinate 0 is the low-edge mask. B[(tap, n), c] =
+//   w[tap, c, n]: in w viewed [8C, N] the depth n is contiguous, so a 64 (c) x
+//   64 (n) box at (n0, tap C + c0) lands as a K-major tile under the same
+//   swizzle as A, read through A's kind of descriptor with the transpose bit
+//   clear: no re-lay of w here either, and no flip (the mirrored shift already
+//   pairs tap t with w[t]). The j-th 64 columns of a tile are the j-th box,
+//   8 KB on, which continues the 1024-byte stride of its 8-row groups. Ring,
+//   barriers, tile walk and epilogue are the forward's.
 //
 // dw: dw [8C, N] = A^T [8C, M] * g [M, N], depth m, one stage = 64 rows m:
 //   for each warpgroup the box of x (64 c x 64 rows) at its tap's shift (at
@@ -188,11 +202,11 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// d (64 x N, f32) (+)= a (64 x 16) * b (16 x N): a from `desc_a` (K-major for
-// TRANS_A = 0, MN-major for 1), b from `desc_b`, always MN-major here.
+// d (64 x N, f32) (+)= a (64 x 16) * b (16 x N): a from `desc_a`, b from
+// `desc_b`, each K-major for TRANS_ = 0 and MN-major for 1.
 // scale_d = 0 overwrites d. Row lane/4 (+8) of the warp's 16 rows and columns
 // 8j + 2(lane%4) + {0, 1} are d[4j + {0, 1}] (+2).
-template <int TRANS_A>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
@@ -207,7 +221,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint
       " %40, %41, %42, %43, %44, %45, %46, %47, "
       " %48, %49, %50, %51, %52, %53, %54, %55, "
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, 1;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -225,10 +239,10 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-template <int TRANS_A>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
@@ -239,7 +253,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint
       " %8, %9, %10, %11, %12, %13, %14, %15, "
       " %16, %17, %18, %19, %20, %21, %22, %23, "
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, 1;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -249,7 +263,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // The compiler must not read or move an accumulator between the launch of a
@@ -285,10 +299,11 @@ __device__ __forceinline__ Ring ring_setup(uint8_t* smem_raw, int stages, uint32
 
 // The consumer side of the ring: n_iter stages, four k16 products each, into
 // this warpgroup's MT accumulators of 64 x BN (rows 64 (MT wgroup + i) ..
-// of the tile), overwriting them. A_MN: the A tiles are MN-major (dw). `slot`
-// and `parity` carry the ring's state from one output tile to the next; every
-// slot read is released before the return.
-template <int BN, bool A_MN, int MT>
+// of the tile), overwriting them. A_MN: the A tiles are MN-major (dw). B_K:
+// the B tiles are K-major (dx), else MN-major. `slot` and `parity` carry the
+// ring's state from one output tile to the next; every slot read is released
+// before the return.
+template <int BN, bool A_MN, int MT, bool B_K = false>
 __device__ __forceinline__ void consume(const Ring& r, int stages, int n_iter, int wgroup, int& slot,
                                         uint32_t& parity, float (&acc)[MT][BN / 2]) {
   const int lane = threadIdx.x & 31;
@@ -302,12 +317,13 @@ __device__ __forceinline__ void consume(const Ring& r, int stages, int n_iter, i
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < BK / 16; ++k) {
-      const uint64_t db = smem_desc(b + k * K16_ROWS, TILE_BYTES, SWIZZLE_PERIOD);
+      const uint64_t db = B_K ? smem_desc(b + k * K16_IN_ROW, 16, SWIZZLE_PERIOD)
+                              : smem_desc(b + k * K16_ROWS, TILE_BYTES, SWIZZLE_PERIOD);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const uint64_t da = smem_desc(a + i * TILE_BYTES + k * (A_MN ? K16_ROWS : K16_IN_ROW),
                                       A_MN ? TILE_BYTES : 16, SWIZZLE_PERIOD);
-        wgmma_bf16<A_MN ? 1 : 0>(acc[i], da, db, (it | k) != 0);
+        wgmma_bf16<A_MN ? 1 : 0, B_K ? 0 : 1>(acc[i], da, db, (it | k) != 0);
       }
     }
     wgmma_commit();
@@ -353,7 +369,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // stages while the consumers store this tile. A tile is 128 MT rows: with
 // MT = 2 a warpgroup keeps two accumulators, B is read from L2 half as often
 // for the same products, and one block fits an SM instead of two.
-template <int BN, int MT>
+//
+// DX: the same walk computes dx. Then x is g, C its channel count (the depth's),
+// N the channel count of dx and y is dx; map_w still describes w [8N, C] as it
+// lies (rows (tap, channel of dx), the depth's channel contiguous).
+template <int BN, int MT, bool DX>
 __global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
 conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
                          __nv_bfloat16* __restrict__ y, int D, int H, int W, int C, int N, long long tiles,
@@ -385,10 +405,16 @@ conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
         const uint32_t dst = r.base + slot * stage_bytes<BN, MT>();
         mbar_wait(r.empty + 8 * slot, parity);
         mbar_arrive_expect_tx(full, stage_bytes<BN, MT>());
-        tma_load_5d(dst, &map_x, full, c0, w0 + (tap & 1), h0 + ((tap >> 1) & 1), d0 + (tap >> 2), b0);
+        const int sign = DX ? -1 : 1;  // dx reads g at the origin minus the tap; below 0 the TMA writes zeros
+        tma_load_5d(dst, &map_x, full, c0, w0 + sign * (tap & 1), h0 + sign * ((tap >> 1) & 1),
+                    d0 + sign * (tap >> 2), b0);
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)  // rows it*64 .. of w [8C, N]: (tap, c) order
-          tma_load_2d(dst + a_bytes<MT>() + j * TILE_BYTES, &map_w, full, n0 + 64 * j, it * BK);
+        for (int j = 0; j < BN / 64; ++j) {
+          if (DX)  // rows (tap, n0 + 64 j ..) of w [8N, C], columns c0 .. of the depth: a K-major tile
+            tma_load_2d(dst + a_bytes<MT>() + j * TILE_BYTES, &map_w, full, c0, tap * N + n0 + 64 * j);
+          else  // rows it*64 .. of w [8C, N]: (tap, c) order
+            tma_load_2d(dst + a_bytes<MT>() + j * TILE_BYTES, &map_w, full, n0 + 64 * j, it * BK);
+        }
         if (++slot == stages) {
           slot = 0;
           parity ^= 1;
@@ -409,7 +435,7 @@ conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) acc[i][j] = 0.f;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    consume<BN, false, MT>(r, stages, n_iter, wgroup, slot, parity, acc);
+    consume<BN, false, MT, DX>(r, stages, n_iter, wgroup, slot, parity, acc);
     const int n0 = static_cast<int>(tile % n_tiles) * BN;
     const long long row = tile / n_tiles * (BM * MT) + wgroup * (64 * MT) + (warp & 3) * 16 + (lane >> 2);
     __nv_bfloat16* out = y + row * N + n0 + 8 * q;
@@ -566,7 +592,8 @@ inline int encode_matrix_map(CUtensorMap* map, const void* p, long long rows, in
   return encode_map(map, p, 2, dims, box);
 }
 
-template <int BN, int MT>
+// The forward, or (DX) dx with x := g, C := g's channel count, N := dx's, y := dx.
+template <int BN, int MT, bool DX>
 int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw, int bh,
                int bd, int stages, int grid, int plan_smem, int plan_tiles, cudaStream_t s) {
   // the wrapper's plan and this file must agree on the ring's size and the tile count
@@ -577,12 +604,12 @@ int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W
   CUtensorMap map_x, map_w;
   int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd);
   if (rc) return rc;
-  rc = encode_matrix_map(&map_w, w, 8LL * C, N);
+  rc = DX ? encode_matrix_map(&map_w, w, 8LL * N, C) : encode_matrix_map(&map_w, w, 8LL * C, N);
   if (rc) return rc;
-  cudaError_t err = cudaFuncSetAttribute(conv_k2_fwd_wgmma_kernel<BN, MT>,
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_fwd_wgmma_kernel<BN, MT, DX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_k2_fwd_wgmma_kernel<BN, MT><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+  conv_k2_fwd_wgmma_kernel<BN, MT, DX><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
       map_x, map_w, static_cast<__nv_bfloat16*>(y), D, H, W, C, N, tiles, stages);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,7 @@ order, any failure ending the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the ``conv_k2`` CUDA kernels (forward, dx, dw, each as an
-   FFMA kernel; the forward and dw also as bfloat16 tensor-core kernels) from
+   FFMA kernel and as a bfloat16 tensor-core kernel) from
    ``anytime3d_tpu_torch/kernels/csrc``;
 3. kernel check: ``conv_k2``, ``conv_k2_dx`` and ``conv_k2_dw`` against their
    plain versions at the flagship stages (16^3): at B=8, the served batch, in
@@ -15,12 +15,12 @@ order, any failure ending the run with a non-zero exit:
    step's shapes; each timed with CUDA events beside its plain version and
    beside the one library call that computes the same function (cuDNN
    through ``F.conv3d``, ``torch.nn.grad.conv3d_input`` and
-   ``conv3d_weight``), and set against its bound on this card. The bfloat16
-   forward and dw must take the tensor-core kernels (``design`` "wgmma"),
-   everything else the FFMA ones; the tensor-core kernels and their plain
-   versions are also held against a float64 product of the same operands, dw
-   must give the same bits twice, and two bfloat16 shapes off the main path
-   are checked, one with a plan (8^3) and one without;
+   ``conv3d_weight``), and set against its bound on this card. In bfloat16
+   all three must take the tensor-core kernels (``design`` "wgmma"), in
+   float32 the FFMA ones; the tensor-core kernels and their plain versions
+   are also held against a float64 product of the same operands, dw must
+   give the same bits twice, and two bfloat16 shapes off the main path are
+   checked, one with a plan (8^3) and one without (the FFMA kernels);
 4. full-width slice: ``modelnet_nolbo`` (64^3 voxels, z=64, 40 classes) from
    seeded weights, a batch of 8 seeded occupancy grids with full, partial and
    empty latent masks through ``make_packed_infer`` on the card, held against
@@ -38,7 +38,7 @@ order, any failure ending the run with a non-zero exit:
    modelnet_nolbo --data synthetic --packed --bf16`` at B=32, a few tens of
    steps and one eval; counts reset just before and read just after: 4
    forward, 3 dx and 4 dw launches per step, 4 forward per eval step, every
-   forward and dw launch on the tensor-core kernels; every metric finite, the loss falling, ``grads_finite`` 1; step time and peak
+   one of them on the tensor-core kernels; every metric finite, the loss falling, ``grads_finite`` 1; step time and peak
    memory printed.
 
 The last two lines of standard output are a JSON object of kernel results
@@ -189,22 +189,24 @@ def phase_build() -> None:
 
 def reset_counts() -> None:
     conv_k2.launches = conv_k2.launches_dx = conv_k2.launches_dw = 0
-    conv_k2.launches_wgmma = conv_k2.launches_dw_wgmma = 0
+    conv_k2.launches_wgmma = conv_k2.launches_dx_wgmma = conv_k2.launches_dw_wgmma = 0
 
 
 def read_counts() -> dict:
     """Launches since ``reset_counts``: every launch by kernel, and under
     ``*_wgmma`` those of them that took the tensor-core kernels."""
     return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
-            "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma}
+            "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dx_wgmma": conv_k2.launches_dx_wgmma,
+            "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma}
 
 
 def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool) -> dict:
     """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
-    the forward's and dw's all on the tensor-core kernels or none of them."""
+    all of them on the tensor-core kernels or none of them."""
     counts = read_counts()
     want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
-            "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dw_wgmma": dw if tensor_cores else 0}
+            "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dx_wgmma": dx if tensor_cores else 0,
+            "conv_k2_dw_wgmma": dw if tensor_cores else 0}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     return counts
@@ -226,19 +228,25 @@ def k2_bound_ms(kernel: str, batch: int, C: int, N: int, dtype: torch.dtype) -> 
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes > t_flops else "operations"
 
 
-def float64_products(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``conv_k2(x, w)`` and dw of (x, g) as float64 products of the same
-    operands, tap by tap: what every kernel and plain version approximates."""
+def float64_products(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> dict:
+    """``conv_k2(x, w)``, dx of (g, w) and dw of (x, g) as float64 products of
+    the same operands, tap by tap: what every kernel and plain version
+    approximates. Keyed by kernel."""
     B, D, H, W, C = x.shape
     N = w.shape[-1]
-    xp = F.pad(x.double(), (0, 0) + (0, 1) * 3)
+    xp, gp = F.pad(x.double(), (0, 0) + (0, 1) * 3), F.pad(g.double(), (0, 0) + (1, 0) * 3)
     w64, g64 = w.double().reshape(8, C, N), g.double().flatten(0, 3)
-    y, dw = torch.zeros(B * D * H * W, N, dtype=torch.float64, device=x.device), []
+    y = torch.zeros(B * D * H * W, N, dtype=torch.float64, device=x.device)
+    dx, dw = torch.zeros(B * D * H * W, C, dtype=torch.float64, device=x.device), []
     for t in range(8):
-        xs = xp[:, t >> 2:(t >> 2) + D, (t >> 1) & 1:((t >> 1) & 1) + H, t & 1:(t & 1) + W].flatten(0, 3)
+        tz, ty, tx = t >> 2, (t >> 1) & 1, t & 1
+        xs = xp[:, tz:tz + D, ty:ty + H, tx:tx + W].flatten(0, 3)
         y += xs @ w64[t]
         dw.append(xs.T @ g64)
-    return y.reshape(B, D, H, W, N), torch.stack(dw).reshape(2, 2, 2, C, N)
+        # g shifted down by the tap: the padded copy read one short of it
+        dx += gp[:, 1 - tz:1 - tz + D, 1 - ty:1 - ty + H, 1 - tx:1 - tx + W].flatten(0, 3) @ w64[t].T
+    return {"conv_k2": y.reshape(B, D, H, W, N), "conv_k2_dx": dx.reshape(B, D, H, W, C),
+            "conv_k2_dw": torch.stack(dw).reshape(2, 2, 2, C, N)}
 
 
 def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None, want: str) -> dict:
@@ -247,10 +255,13 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
     or "ffma"). With ``exact`` (a float64 product) the tensor-core kernels and
     their plain versions are also held against it; dw must give the same bits
     twice."""
-    before = conv_k2.launches_wgmma + conv_k2.launches_dw_wgmma
+    def on_tensor_cores() -> int:
+        return sum(n for name, n in read_counts().items() if name.endswith("_wgmma"))
+
+    before = on_tensor_cores()
     out, ref = run(), plain()
     torch.cuda.synchronize()
-    design = "wgmma" if conv_k2.launches_wgmma + conv_k2.launches_dw_wgmma > before else "ffma"
+    design = "wgmma" if on_tensor_cores() > before else "ffma"
     if design != want:
         raise AssertionError(f"{kernel} {label}: took the {design} kernel, expected {want}")
     if out.shape != ref.shape or out.dtype != ref.dtype:
@@ -267,7 +278,7 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
     if design == "wgmma" and exact is not None:
         err_k, err_p = (float((t.double() - exact).abs().max()) for t in (out, ref))
         top64 = float(exact.abs().max())
-        # the forward's f32 sum is rounded once to bf16: half an ulp of the largest output, and the sum's own error
+        # the forward's and dx's f32 sum is rounded once to bf16: half an ulp of the largest output, and the sum's own error
         tol64 = K2_TOL_DW_F64_REL * top64 if kernel == "conv_k2_dw" else (2.0**-8 + K2_TOL_DW_F64_REL) * top64
         line += (f"; against float64 (largest entry {top64:.3e}): kernel {err_k:.3e} ({err_k / top64:.2e} rel), "
                  f"plain {err_p:.3e} ({err_p / top64:.2e} rel), tol {tol64:.3e}")
@@ -321,13 +332,13 @@ def phase_kernels(card: str) -> dict:
         for case, batch, dtype in KERNEL_CASES:
             for stage, (C, N) in enumerate(FLAGSHIP_K2):
                 x, w, g = k2_operands(gen, (batch, GRID, GRID, GRID), C, N, dtype)
-                exact = dict(zip(("conv_k2", "conv_k2_dw"), float64_products(x, w, g))) if dtype == torch.bfloat16 else {}
+                exact = float64_products(x, w, g) if dtype == torch.bfloat16 else {}
                 for kernel, (run, plain, library) in k2_runs(x, w, g).items():
                     if kernel == "conv_k2_dx" and stage == 0:
                         continue
                     label = f"{case} {GRID}^3 {C}->{N}"
-                    # every flagship stage has a plan: bf16 forward and dw on the tensor cores
-                    want = "wgmma" if dtype == torch.bfloat16 and kernel != "conv_k2_dx" else "ffma"
+                    # every flagship stage has a plan: bf16 on the tensor cores, forward, dx and dw
+                    want = "wgmma" if dtype == torch.bfloat16 else "ffma"
                     checked = check_kernel(kernel, label, run, plain, exact.get(kernel), want)
                     # plain, kernel, kernel, plain: both sides see the same card state
                     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
@@ -349,10 +360,9 @@ def phase_kernels(card: str) -> dict:
             planned = wgmma_plan(*shape, C, N) is not None
             label = f"off the main path {shape} {C}->{N}" + ("" if planned else " (no plan)")
             x, w, g = k2_operands(gen, shape, C, N, torch.bfloat16)
-            exact = dict(zip(("conv_k2", "conv_k2_dw"), float64_products(x, w, g)))
+            exact = float64_products(x, w, g)
             for kernel, (run, plain, _) in k2_runs(x, w, g).items():
-                if kernel != "conv_k2_dx":
-                    check_kernel(kernel, label, run, plain, exact[kernel], "wgmma" if planned else "ffma")
+                check_kernel(kernel, label, run, plain, exact[kernel], "wgmma" if planned else "ffma")
     for kernel, cases in res.items():
         for case, r in cases.items():
             r["bound_by"] = "operations" if "operations" in r["bound_by"] else "bytes"
@@ -377,7 +387,7 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict) -> list:
     entries = []
     for kernel, cases in res.items():
         head = cases["b8_f32" if kernel == "conv_k2" else "b32_bf16"]
-        entry = {
+        entries.append({
             "name": kernel,
             "route": "cuda",
             "source": "anytime3d_tpu_torch/kernels/csrc/conv_k2.cu",
@@ -387,11 +397,9 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict) -> list:
             "launches_train": train_counts[kernel],
             **head,
             "cases": cases,
-        }
-        if kernel != "conv_k2_dx":
-            entry["source_wgmma"] = "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh"
-            entry["launches_wgmma"] = serve_counts[f"{kernel}_wgmma"] + train_counts[f"{kernel}_wgmma"]
-        entries.append(entry)
+            "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
+            "launches_wgmma": serve_counts[f"{kernel}_wgmma"] + train_counts[f"{kernel}_wgmma"],
+        })
     return entries
 
 
@@ -594,7 +602,7 @@ def phase_train_run(card: str) -> dict:
     n_eval = len(trainer.eval_history)
     if trainer.state.step != TRAIN_STEPS or len(trainer.history) != TRAIN_STEPS or n_eval != 1 or trainer.aborted_nan:
         raise AssertionError(f"train run: {trainer.state.step} steps, {len(trainer.history)} logged, {n_eval} evals")
-    # 4 / 3 / 4 a step and 4 an eval step; bf16 compute: every forward and dw on the tensor cores
+    # 4 / 3 / 4 a step and 4 an eval step; bf16 compute: every one of them on the tensor cores
     counts = expect_counts("train run", 4 * TRAIN_STEPS + 4 * n_eval, 3 * TRAIN_STEPS, 4 * TRAIN_STEPS,
                            tensor_cores=True)
     for row in trainer.history + trainer.eval_history:

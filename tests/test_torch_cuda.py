@@ -118,7 +118,18 @@ def _counts():
 
 
 def _wgmma_counts():
-    return conv_k2.launches_wgmma, conv_k2.launches_dw_wgmma
+    return conv_k2.launches_wgmma, conv_k2.launches_dx_wgmma, conv_k2.launches_dw_wgmma
+
+
+def _dx_float64(g, w):
+    """dx as a float64 product of the same operands, tap by tap: g shifted
+    down by the tap (zeros below the low edge) times w[tap] transposed."""
+    _, D, H, W, N = g.shape
+    gp = torch.nn.functional.pad(g.double(), (0, 0) + (1, 0) * 3)
+    w64 = w.double().reshape(8, w.shape[3], N)
+    taps = [gp[:, 1 - dz:1 - dz + D, 1 - dy:1 - dy + H, 1 - dx:1 - dx + W].flatten(0, 3) @ w64[4 * dz + 2 * dy + dx].T
+            for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+    return sum(taps).reshape(*g.shape[:4], w.shape[3])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -132,11 +143,12 @@ def test_backward_kernels_match_plain(cuda, C, N, dtype):
     x = torch.randn(B, D, D + 1, D + 2, C, generator=gen).to(cuda, dtype).requires_grad_()
     w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
     g = torch.randn(B, D, D + 1, D + 2, N, generator=gen).to(cuda, dtype)
-    before = _counts()
+    before, before_wg = _counts(), _wgmma_counts()
     y = conv_k2(x, w)
     # a permuted view, as autograd hands gradients over
     y.backward(g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1))
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert _wgmma_counts() == before_wg  # float32, and a grid without a plan: the FFMA kernels
     with torch.no_grad():
         dx_ref, dw_ref = conv_k2_backward_reference(x, w, g)
     torch.cuda.synchronize()
@@ -156,9 +168,9 @@ def test_backward_kernels_match_plain(cuda, C, N, dtype):
 
 @pytest.mark.parametrize("B,G,C,N", PLANNED)
 def test_backward_kernels_match_plain_on_planned_shapes(cuda, B, G, C, N):
-    """bfloat16 shapes with a plan, through autograd: the forward and dw on the
-    tensor-core kernels (their counters move), dx on the FFMA kernel; dw the
-    same bits from two calls."""
+    """bfloat16 shapes with a plan, through autograd: the forward, dx and dw on
+    the tensor-core kernels (their counters move); dx and dw also held to a
+    float64 product of the same operands; dw the same bits from two calls."""
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, torch.bfloat16).requires_grad_()
     w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
@@ -167,16 +179,22 @@ def test_backward_kernels_match_plain_on_planned_shapes(cuda, B, G, C, N):
     y = conv_k2(x, w)
     y.backward(g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1))  # a permuted view
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
-    assert _wgmma_counts() == (before_wg[0] + 1, before_wg[1] + 1)
+    assert _wgmma_counts() == (before_wg[0] + 1, before_wg[1] + 1, before_wg[2] + 1)
     with torch.no_grad():
         dx_ref, dw_ref = conv_k2_backward_reference(x, w, g)
         again = conv_k2_dw(x.detach(), g), conv_k2_dw(x.detach(), g)
         dw64 = _dw_float64(x.detach(), g)
+        dx64 = _dx_float64(g, w.detach().to(torch.bfloat16))
     torch.cuda.synchronize()
     assert w.grad.dtype == torch.float32 and w.grad.shape == w.shape
     assert torch.equal(again[0], again[1]) and torch.equal(again[0], w.grad)  # no atomics: the same bits every run
     err_dx = float((x.grad.float() - dx_ref.float()).abs().max())
     assert err_dx <= 2.0**-7 * float(dx_ref.float().abs().max()), err_dx
+    # dx, kernel and plain version, against float64: an f32 sum rounded once to bf16 (half an ulp of the
+    # largest entry) and the sum's own error, as chip_smoke.py holds the forward
+    tol_dx64 = (2.0**-8 + DW_TOL_F64_REL) * float(dx64.abs().max())
+    assert float((x.grad.double() - dx64).abs().max()) <= tol_dx64
+    assert float((dx_ref.double() - dx64).abs().max()) <= tol_dx64
     # dw: the exact products of bf16 operands summed in f32, on the tensor cores
     # in another order and with other intermediate roundings than the plain
     # version's. Each is held to the float64 sum: sqrt(rows) roundings of 2^-24
@@ -267,10 +285,13 @@ def test_small_train_step_on_card_matches_cpu(cuda, dtype, planned):
     float32: every metric to rtol 1e-4 at the first step (summation order; later steps
     feel Adam's sign-like first updates). bfloat16: the card's bf16 against
     the CPU's bf16, 5%. In bfloat16 the k=2 stages whose widths have a plan
-    take the tensor-core kernels in the forward and in dw: all 4 at the planned
-    width, 2 at the narrow one (its 64 -> 64 stages); in float32 none does."""
+    take the tensor-core kernels in the forward, in dx and in dw: all 4 at the
+    planned width (every one of the 3 dx launches), 2 at the narrow one (its
+    64 -> 64 stages: the encoder's first, which has no dx, and the decoder's
+    last); in float32 none does."""
     cfg, loss_cfg = small_config(dropout_rate=0.0, planned=planned), loss_config("modelnet_nolbo")
     n_wgmma = 0 if dtype == torch.float32 else 4 if planned else 2
+    n_dx_wgmma = 0 if dtype == torch.float32 else 3 if planned else 1
     rng = np.random.default_rng(3)
     vox = (rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32)
     batch = {"input_packed_blocked": torch.from_numpy(pack_voxels_blocked(vox, 4)),
@@ -292,7 +313,7 @@ def test_small_train_step_on_card_matches_cpu(cuda, dtype, planned):
         launched = tuple(a - b0 for a, b0 in zip(_counts(), before))
         assert launched == ((12, 9, 12) if name == "card" else (0, 0, 0))
         launched_wg = tuple(a - b0 for a, b0 in zip(_wgmma_counts(), before_wg))
-        assert launched_wg == ((3 * n_wgmma, 3 * n_wgmma) if name == "card" else (0, 0))
+        assert launched_wg == ((3 * n_wgmma, 3 * n_dx_wgmma, 3 * n_wgmma) if name == "card" else (0, 0, 0))
         assert state.step == 3 and all(p.dtype == torch.float32 for p in model.parameters())
     rtol = 1e-4 if dtype == torch.float32 else 0.05
     for k, v in history["cpu"][0].items():
@@ -304,7 +325,7 @@ def test_small_train_step_on_card_matches_cpu(cuda, dtype, planned):
     before, before_wg = _counts(), _wgmma_counts()
     out = make_eval_step(model_gpu, loss_cfg)(b, torch.Generator(device=cuda).manual_seed(0))
     assert tuple(a - b0 for a, b0 in zip(_counts(), before)) == (4, 0, 0)
-    assert tuple(a - b0 for a, b0 in zip(_wgmma_counts(), before_wg)) == (n_wgmma, 0)
+    assert tuple(a - b0 for a, b0 in zip(_wgmma_counts(), before_wg)) == (n_wgmma, 0, 0)
     assert all(torch.isfinite(v) for v in out.values())
 
 

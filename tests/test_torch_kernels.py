@@ -5,8 +5,9 @@ On the CPU the wrapper runs its plain version (``conv_k2_reference``); the
 CUDA kernels themselves are checked on the card by tests/test_torch_cuda.py.
 What the tensor-core kernels rest on is checked here without a card: the plan
 that cuts a shape into boxes, tiles and splits, and a plain-tensor emulation
-of the box reads (zeros where a box leaves the tensor) against the plain
-versions and the JAX package."""
+of the box reads (zeros where a box leaves the tensor, below 0 for dx as
+past the end for the forward and dw) against the plain versions and the JAX
+package."""
 
 import os
 import subprocess
@@ -25,6 +26,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2,
     conv_k2_backward_reference,
     conv_k2_dw_reference,
+    conv_k2_dx_reference,
     conv_k2_reference,
     wgmma_plan,
 )
@@ -132,16 +134,21 @@ def _origin(row, D, H, W):
     return row // D, row % D, h0, w0
 
 
-def _box_read(x, origin, extents, tap, c0):
+def _box_read(x, origin, extents, tap, c0, sign=1):
     """The (rows, 64) tile a TMA box copy of ``x`` (B,D,H,W,C) delivers: the
-    box of ``extents`` (w, h, d) at ``origin`` (b, d, h, w) shifted by the tap,
-    64 channels from ``c0``, zeros wherever it leaves the tensor."""
+    box of ``extents`` (w, h, d) at ``origin`` (b, d, h, w) shifted by
+    ``sign`` times the tap (+1 the forward and dw, -1 dx: a start coordinate
+    may be negative), 64 channels from ``c0``, zeros wherever it leaves the
+    tensor, below 0 as well as past the end."""
     (b, d, h, w), (bw, bh, bd) = origin, extents
-    d, h, w = d + (tap >> 2), h + ((tap >> 1) & 1), w + (tap & 1)
+    d, h, w = d + sign * (tap >> 2), h + sign * ((tap >> 1) & 1), w + sign * (tap & 1)
     _, D, H, W, _ = x.shape
     out = torch.zeros(bd, bh, bw, 64, dtype=x.dtype)
-    nd, nh, nw = (max(0, min(n, size - lo)) for n, size, lo in ((bd, D, d), (bh, H, h), (bw, W, w)))
-    out[:nd, :nh, :nw] = x[b, d:d + nd, h:h + nh, w:w + nw, c0:c0 + 64]
+    # per axis: the part [lo, hi) of the box that lies inside the tensor
+    (d0, d1), (h0, h1), (w0, w1) = ((max(0, -lo), max(0, min(n, size - lo))) for n, size, lo in
+                                    ((bd, D, d), (bh, H, h), (bw, W, w)))
+    if d0 < d1 and h0 < h1 and w0 < w1:
+        out[d0:d1, h0:h1, w0:w1] = x[b, d + d0:d + d1, h + h0:h + h1, w + w0:w + w1, c0:c0 + 64]
     return out.reshape(-1, 64)
 
 
@@ -165,6 +172,33 @@ def _emulate_forward(x, w, plan):
             y[row0:row0 + plan.bm, n0:n0 + plan.bn] = acc
             written[row0:row0 + plan.bm, n0:n0 + plan.bn] += 1
     return y.reshape(B, D, H, W, N), written
+
+
+def _emulate_dx(g, w, plan):
+    """dx as the kernel walks it, with the plan of the forward from N to C
+    channels: a tile is 8N/64 stages of one tap and 64 channels n; A is the
+    box of g at the origin minus the tap, B the rows (tap, c0 ..) and columns
+    n0 .. of ``w`` viewed [8C, N] as it lies, used transposed (K-major).
+    Returns dx and how often each element was written."""
+    B, D, H, W, N = g.shape
+    C = w.shape[3]
+    w2 = w.reshape(8 * C, N)
+    dx = torch.zeros(B * D * H * W, C)
+    written = torch.zeros(B * D * H * W, C, dtype=torch.int32)
+    c_tiles = C // plan.bn
+    for block in range(plan.grid):
+        for tile in range(block, plan.tiles, plan.grid):
+            c0, row0 = tile % c_tiles * plan.bn, tile // c_tiles * plan.bm
+            acc = torch.zeros(plan.bm, plan.bn)
+            for it in range(8 * N // 64):
+                tap, n0 = it * 64 // N, it * 64 % N
+                a = _box_read(g, _origin(row0, D, H, W), plan.box, tap, n0, sign=-1)
+                for j in range(plan.bn // 64):  # one 64 x 64 box of w a 64-column block
+                    rows = tap * C + c0 + 64 * j
+                    acc[:, 64 * j:64 * j + 64] += a @ w2[rows:rows + 64, n0:n0 + 64].T
+            dx[row0:row0 + plan.bm, c0:c0 + plan.bn] = acc
+            written[row0:row0 + plan.bm, c0:c0 + plan.bn] += 1
+    return dx.reshape(B, D, H, W, C), written
 
 
 def _emulate_dw(x, g, plan):
@@ -285,6 +319,56 @@ def test_box_reads_with_zero_fill_give_dw(B, D, H, W, C, N):
     np.testing.assert_allclose(dw.numpy(), ref, atol=tol, rtol=0)
     jax_dw = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))[1])
     np.testing.assert_allclose(dw.numpy(), jax_dw, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", EMULATED)
+def test_box_reads_with_zero_fill_give_dx(B, D, H, W, C, N):
+    """The box of g at mirrored coordinates, zero-filled below 0, and the
+    boxes of w as it lies give dx: the emulated tile walk equals
+    ``conv_k2_dx_reference`` and, at the first shape, ``_conv_k2_bwd_impl``'s
+    dx (f32, summation order only: 1e-5 of the largest entry; against JAX the
+    2e-4 of ``test_plain_backward_matches_jax``)."""
+    rng = np.random.default_rng(5)
+    g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
+    w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
+    plan = wgmma_plan(B, D, H, W, N, C, sms=2)  # dx's plan: the forward's with C and N swapped
+    dx, written = _emulate_dx(torch.from_numpy(g), torch.from_numpy(w), plan)
+    assert (written == 1).all()
+    ref = conv_k2_dx_reference(torch.from_numpy(g), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(dx.numpy(), ref, atol=1e-5 * float(np.abs(ref).max()), rtol=0)
+    if (B, D, H, W, C, N) == EMULATED[0]:
+        x = np.zeros((B, D, H, W, C), np.float32)
+        jax_dx = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))[0])
+        np.testing.assert_allclose(dx.numpy(), jax_dx, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", PLANNED)
+def test_dx_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
+    """dx is cut by ``wgmma_plan`` with C and N swapped: there is one wherever
+    the forward has one, its tiles are rows of g by columns of C, and the walk
+    over them writes every element of dx once."""
+    plan = wgmma_plan(B, D, H, W, N, C)
+    assert plan is not None
+    rows = B * D * H * W
+    assert plan.bm in (128, 256) and plan.bn in (64, 128) and C % plan.bn == 0 and N % 64 == 0
+    assert plan.bm == 128 or N >= 128  # 256 rows only where a tile is at least 16 stages deep
+    per_sm = 2 if plan.bm == 128 else 1
+    ring = plan.stages * (plan.bm // 64 + plan.bn // 64) * 64 * 64 * 2
+    assert 3 <= plan.stages <= 8 and ring + 1024 <= plan.smem_bytes <= SMEM_PER_BLOCK // per_sm
+    bw, bh, bd = plan.box
+    assert bw * bh * bd == plan.bm and max(bw, bh, bd) <= 256
+    for row0 in range(0, rows, plan.bm):  # the box of a tile's rows stays inside one batch item before the shift
+        b, d, h, w = _origin(row0, D, H, W)
+        assert d + bd <= D and h + bh <= H and w + bw <= W
+        assert np.ravel_multi_index((b, d, h, w), (B, D, H, W)) == row0
+    assert plan.tiles == rows // plan.bm * (C // plan.bn) and 1 <= plan.grid <= min(plan.tiles, per_sm * 132)
+    written = np.zeros((rows // plan.bm, C // plan.bn), np.int32)
+    for block in range(plan.grid):
+        for tile in range(block, plan.tiles, plan.grid):
+            written[tile // (C // plan.bn), tile % (C // plan.bn)] += 1
+    assert (written == 1).all()
+    # a stage is one tap and 64 channels n: 8N/64 stages a tile, each 64 deep
+    assert 8 * N % 64 == 0 and 8 * N // 64 >= 8
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
