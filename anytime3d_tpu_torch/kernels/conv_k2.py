@@ -69,7 +69,7 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.conv_k2_forward.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.conv_k2_backward_input.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
-    lib.conv_k2_backward_weight.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+    lib.conv_k2_backward_weight.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
     lib.conv_k2_forward_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
     lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
     lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
@@ -279,11 +279,28 @@ def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return dx
 
 
-def _dw_splits(rows: int, tiles: int, device: torch.device) -> int:
-    """Parts the row reduction of dw is cut into: enough blocks for about four
-    per SM, each part at least 256 rows deep."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-4 * sms // tiles), rows // 256))
+# The FFMA dw's tiling (csrc/conv_k2.cu, gemm::DwTile): output tiles of 128
+# rows (tap, c) by 128 columns, two blocks an SM, or by 64 columns where
+# N <= 64, four blocks an SM (gemm::Tile::MIN_BLOCKS); stages of 16 rows m.
+_FFMA_DW_ROWS = 128
+_FFMA_DW_DEPTH = 16
+_FFMA_DW_MIN_STAGES = 16  # a split of the row reduction is at least this deep
+
+
+def ffma_dw_split(rows: int, C: int, N: int, sms: int = 132) -> tuple[int, int]:
+    """``(splits, stages_per_split)`` of the FFMA dw's row reduction over
+    ``rows`` = B*D*H*W rows for x with C and g with N channels: its
+    ceil(rows / 16) stages of 16 rows cut into ``splits`` parts of
+    ``stages_per_split`` (the last may be shorter, none is empty), so that the
+    output tiles times the splits make one wave of blocks on ``sms``
+    multiprocessors and each split is at least 16 stages deep. Pure
+    arithmetic."""
+    bn, per_sm = (64, 4) if N <= 64 else (128, 2)
+    tiles = -(-8 * C // _FFMA_DW_ROWS) * -(-N // bn)
+    stages = -(-rows // _FFMA_DW_DEPTH)
+    splits = max(1, min(per_sm * sms // tiles, stages // _FFMA_DW_MIN_STAGES))
+    per_split = -(-stages // splits)
+    return -(-stages // per_split), per_split
 
 
 def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -303,7 +320,8 @@ def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     N = g.shape[-1]
     plan = _plan_for(x, N)
     if plan is None:
-        splits = _dw_splits(B * D * H * W, -(-8 * C // 128) * -(-N // 64), x.device)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        splits, per_split = ffma_dw_split(B * D * H * W, C, N, sms=sms)
     else:
         splits = plan.dw_grid[2]
     dw = torch.empty((2, 2, 2, C, N), dtype=torch.float32, device=x.device)
@@ -311,7 +329,7 @@ def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
     if plan is None:
         _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
-            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, B, D, H, W, C, N,
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, per_split, B, D, H, W, C, N,
             _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
     else:
         _check_launch("conv_k2 dw (wgmma)", _lib().conv_k2_backward_weight_wgmma(

@@ -34,9 +34,9 @@
 // dw: a GEMM whose reduction axis is M. Its output is [8C, N] (row (tap, c));
 // A^T for output row (t, c) at depth m is x[m + shift(t), c], edge-masked as
 // in the forward, and B at depth m is row m of g. Both operands are already
-// depth-major in memory, so a stage is BK consecutive rows of x and of g and
+// depth-major in memory, so a stage is consecutive rows of x and of g and
 // lands in shared memory without a transpose. The output has few tiles
-// (8C*N / (128*64) = 32 or 64 at the flagship stages) against 132 SMs, and
+// (16 or 32 of 128 x 128 at the flagship stages) against 132 SMs, and
 // each reduces over up to 131,072 rows, so the reduction is split over
 // blockIdx.z: every split writes its partial [8C, N] tile into a workspace
 // and a second small kernel sums the splits in a fixed order. No atomics:
@@ -84,8 +84,28 @@
 //   division in the loop.
 // `python -m anytime3d_tpu_torch.cli.probe_ffma` (csrc/ffma_probe.cu) times the
 // inner loop alone, which is what this kernel can at most reach as compiled.
-// dw keeps the earlier tiling (a 128x64 tile per block, 8x4 outputs a thread,
-// one 16-deep shared-memory stage, the next held in registers meanwhile).
+//
+// The FFMA dw (conv_k2_dw_kernel, namespace gemm; the float32 train step
+// launches it four times a step) is built on the same Tile and pipeline:
+// - a block owns 128 output rows r = (tap, c) by 128 columns n (by 64 where
+//   N <= 64) on 128 threads, 16 (or 8) rows by 8 columns a thread.
+// - both operands are depth-major, so a stage is 16 rows m of x, shifted by
+//   the tile's taps, and the same 16 rows of g, and each lands in shared
+//   memory as it lies, [m][r] and [m][n]: no transpose, no padding. A thread
+//   reads its rows as runs of 4 (16 apart; a warp's lane groups 4 apart) and
+//   its columns as two runs of 4, 32 apart, each run one float4 (8 bytes of
+//   bfloat16): a quarter warp reads one address of A (a broadcast) and 128
+//   consecutive bytes of B.
+// - a thread loads all its pieces of a stage from one row m (8 threads a row,
+//   its pieces 8 apart). A piece's tap and channel are fixed for the tile, so
+//   its source is row m of x plus a constant. One (d, h, w) a thread,
+//   advanced 16 rows a stage with carries, gives the edge mask of all 8 taps
+//   as 8 bits; a source size of 0 writes the zeros of a masked tap, of rows
+//   past 8C and columns past N, and of rows past the end of the split.
+// - the row reduction is split over blockIdx.z into whole stages (the Python
+//   wrapper chooses the splits: one wave of blocks); every split writes its
+//   partial [8C, N] tile into a workspace and conv_k2_dw_reduce_kernel sums
+//   them in ascending order.
 //
 // Preconditions, checked by the Python wrapper: all tensors contiguous and
 // 16-byte aligned; the depth's channel count a multiple of 8 (so every
@@ -101,36 +121,6 @@
 #include "conv_k2_wgmma.cuh"
 
 namespace {
-
-// dw's tiling (conv_k2_dw_kernel, fma_stage); the forward and dx have their own in namespace gemm
-constexpr int BM = 128;  // output rows per block
-constexpr int BN = 64;   // output columns per block
-constexpr int BK = 16;   // reduction depth per shared-memory stage
-constexpr int TM = 8;    // output rows per thread
-constexpr int TN = 4;    // output columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-
-static_assert(THREADS == 256, "loader mapping below assumes 256 threads");
-static_assert(BM * BK == THREADS * 8, "each thread loads 8 A values per stage");
-static_assert(BK * BN == THREADS * 4, "each thread loads 4 B values per stage");
-
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ void load4(const float* p, float* out) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -160,24 +150,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// One 8x4 register tile step over a staged chunk: acc += As[kk]^T * Bs[kk].
-__device__ __forceinline__ void fma_stage(float (*As)[BM], float (*Bs)[BN], int ty, int tx,
-                                          float (*acc)[TN]) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    const float4 a_lo = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-    const float4 a_hi = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-    const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-    const float a[TM] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-    const float b[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// ---- the forward and dx ----
+// ---- the forward and dx, and dw ----
 
 namespace gemm {
 
@@ -394,113 +367,169 @@ conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restr
   }
 }
 
-}  // namespace gemm
+// dw's stage on the forward's Tile (the same threads, thread tile and blocks
+// an SM): BK rows m of x, shifted by the tile's taps, as [BK][BM] and the same
+// rows of g as [BK][BN], each as it lies in device memory. Thread tid loads row
+// tid / ROW_THREADS of the stage; its pieces of x are 16 bytes (A_ELEMS rows r),
+// A_STEP rows r apart, and of g 4 elements, B_STEP columns apart.
+template <typename T, int BN, int TM>
+struct DwTile {
+  using L = Tile<T, BN, TM>;
+  static constexpr int ROW_THREADS = L::THREADS / BK;  // 8
+  static constexpr int A_PER_THREAD = BM / L::A_ELEMS / ROW_THREADS;
+  static constexpr int A_STEP = ROW_THREADS * L::A_ELEMS;
+  static constexpr int B_PER_THREAD = BN / 4 / ROW_THREADS;
+  static constexpr int B_STEP = ROW_THREADS * 4;
+  static constexpr int RUN_STEP = LANE_ROWS * 4;  // a thread's rows: runs of 4, this far apart
+  static constexpr int STAGE_ELEMS = BK * (BM + BN);
+  static constexpr size_t SMEM_BYTES = static_cast<size_t>(STAGES) * STAGE_ELEMS * sizeof(T);
+  static_assert(ROW_THREADS * BK == L::THREADS, "the threads cover the stage's rows");
+  static_assert(A_PER_THREAD >= 1 && A_PER_THREAD * A_STEP == BM, "A pieces");
+  static_assert(B_PER_THREAD >= 1 && B_PER_THREAD * B_STEP == BN, "B pieces");
+  static_assert(TM % 4 == 0 && RUN_STEP * (TM / 4) == L::WARP_M, "a thread's runs cover its warp's rows");
+};
 
-// dw partial: part[z][r][n] = sum over rows m of split z of x_t[m, c] * g[m, n],
-// r = t*C + c. x [M, C], g [M, N], part [gridDim.z, 8C, N] in f32. Split z
-// reduces rows [z*rows_per_split, min(M, (z+1)*rows_per_split)).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// dw partial: part[z][r][n] = sum over the rows m of split z of x[m + shift(t), c] * g[m, n],
+// r = t*C + c; x [M, C], g [M, N], part [gridDim.z][8C][N] in f32. blockIdx.x is the row tile,
+// blockIdx.y the column tile; split z reduces the rows [z * BK * stages_per_split, min(M, (z + 1)
+// * BK * stages_per_split)).
+template <typename T, int BN, int TM>
+__global__ void __launch_bounds__(Tile<T, BN, TM>::THREADS, Tile<T, BN, TM>::MIN_BLOCKS)
 conv_k2_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ part,
-                  int D, int H, int W, int C, int N, long long M, long long rows_per_split) {
-  // Both operands arrive depth-major: a stage is BK rows m, stored as they lie.
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
+                  int D, int H, int W, int C, int N, long long M, int stages_per_split) {
+  using L = Tile<T, BN, TM>;
+  using DL = DwTile<T, BN, TM>;
+  // stage s: A [BK][BM], then B [BK][BN]
+  extern __shared__ __align__(16) uint8_t dw_smem[];
+  T* const smem = reinterpret_cast<T*>(dw_smem);
 
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int R = 8 * C;
-  const long long m_begin = static_cast<long long>(blockIdx.z) * rows_per_split;
-  const long long m_end = (m_begin + rows_per_split < M) ? m_begin + rows_per_split : M;
+  const long long m_begin = static_cast<long long>(blockIdx.z) * stages_per_split * BK;
+  const long long split_end = m_begin + static_cast<long long>(stages_per_split) * BK;
+  const int split_rows = static_cast<int>((split_end < M ? split_end : M) - m_begin);
+  const int n_stages = (split_rows + BK - 1) / BK;
 
-  // A loader: one row m of the stage per 16 threads, 8 consecutive output
-  // rows r (8 channels of one tap, since C % 8 == 0) each.
-  const int a_k = tid / (BM / 8);
-  const int a_r = (tid % (BM / 8)) * 8;
-  const int r = r0 + a_r;
-  const bool a_row_ok = r < R;
-  const int tap = a_row_ok ? r / C : 0;
-  const int c = a_row_ok ? r - tap * C : 0;
-  const int dz = tap >> 2, dy = (tap >> 1) & 1, dx = tap & 1;
-  const T* xcol = x + (static_cast<long long>(dz * H + dy) * W + dx) * C + c;
+  // the loaders: row `lr` of every stage, pieces from `lp`
+  const int lr = tid / DL::ROW_THREADS;
+  const int lp = tid % DL::ROW_THREADS;
+  // A piece i: rows lp * A_ELEMS + i * A_STEP of the tile, all of one tap t (C % 8 == 0), read from row
+  // m + shift(t) of x: `a_off[i]` elements from row m. `a_tap` holds t in bits 4i..4i+3, or 8 (a bit of
+  // `inside` that is never set) for rows past 8C.
+  int a_off[DL::A_PER_THREAD];
+  unsigned a_tap = 0;
+#pragma unroll
+  for (int i = 0; i < DL::A_PER_THREAD; ++i) {
+    const int r = r0 + lp * L::A_ELEMS + i * DL::A_STEP;
+    const int t = r < R ? r / C : 8;
+    const int c = r - t * C;
+    a_off[i] = t < 8 ? (((t >> 2) * H + ((t >> 1) & 1)) * W + (t & 1)) * C + c : 0;
+    a_tap |= static_cast<unsigned>(t) << (4 * i);
+  }
+  // B piece i: columns n0 + lp * 4 + i * B_STEP; bit i of `b_ok`: they lie below N
+  unsigned b_ok = 0;
+#pragma unroll
+  for (int i = 0; i < DL::B_PER_THREAD; ++i)
+    if (n0 + lp * 4 + i * DL::B_STEP < N) b_ok |= 1u << i;
 
-  // B loader: the same row m, 4 consecutive columns.
-  const int b_k = tid / (BN / 4);
-  const int b_n = (tid % (BN / 4)) * 4;
-  const bool b_col_ok = n0 + b_n < N;
-
-  // (d, h, w) of this thread's A row, advanced by BK rows a stage with carries
-  long long m_a = m_begin + a_k;
+  // (d, h, w) of the loaders' row, advanced by BK rows a stage: by (sd, sh, sw) with carries
+  const long long m = m_begin + lr;
   const long long S = static_cast<long long>(D) * H * W;
-  const long long s0 = m_a % S;
+  const long long s0 = m % S;
   int d = static_cast<int>(s0 / (static_cast<long long>(H) * W));
   int h = static_cast<int>((s0 / W) % H);
-  int ww = static_cast<int>(s0 % W);
+  int w = static_cast<int>(s0 % W);
+  const int step = static_cast<int>(BK % S);
+  const int sd = step / (H * W), sh = (step / W) % H, sw = step % W;
+  const T* xm = x + m * C;
+  const T* gm = g + m * N + n0 + lp * 4;
+  int rows_left = split_rows - lr;  // the loaders' row lies in the split while this is > 0
 
-  float a_reg[8];
-  float b_reg[4];
-
-  auto load_stage = [&](long long k0) {
-    if (a_row_ok && m_a < m_end && d + dz < D && h + dy < H && ww + dx < W) {
-      load8(xcol + m_a * C, a_reg);
-    } else {
+  auto load_stage = [&](int slot) {
+    T* const As = smem + slot * DL::STAGE_ELEMS + lr * BM + lp * L::A_ELEMS;
+    T* const Bs = smem + slot * DL::STAGE_ELEMS + BK * BM + lr * BN + lp * 4;
+    // bit t: tap t of this row lies inside the grid (odd taps step in w, taps 2, 3, 6, 7 in h, 4-7 in d)
+    unsigned inside = rows_left > 0 ? 0xFFu : 0u;
+    if (w + 1 >= W) inside &= 0x55u;
+    if (h + 1 >= H) inside &= 0x33u;
+    if (d + 1 >= D) inside &= 0x0Fu;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a_reg[i] = 0.f;
+    for (int i = 0; i < DL::A_PER_THREAD; ++i) {
+      const bool ok = (inside >> ((a_tap >> (4 * i)) & 15u)) & 1u;
+      cp_async_16(As + i * DL::A_STEP, ok ? xm + a_off[i] : x, ok);
     }
-    const long long m_b = k0 + b_k;
-    if (b_col_ok && m_b < m_end) {
-      load4(g + m_b * N + n0 + b_n, b_reg);
-    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b_reg[j] = 0.f;
+    for (int i = 0; i < DL::B_PER_THREAD; ++i) {
+      const bool ok = rows_left > 0 && ((b_ok >> i) & 1u);
+      cp_async_4(Bs + i * DL::B_STEP, ok ? gm + i * DL::B_STEP : g, ok);
     }
-    m_a += BK;
-    ww += BK;
-    while (ww >= W) { ww -= W; ++h; }
-    while (h >= H) { h -= H; ++d; }
-    while (d >= D) d -= D;
+    rows_left -= BK;
+    xm += BK * C;
+    gm += BK * N;
+    w += sw;
+    if (w >= W) { w -= W; ++h; }
+    h += sh;
+    if (h >= H) { h -= H; ++d; }
+    d += sd;
+    if (d >= D) d -= D;
   };
 
-  auto store_stage = [&]() {
-    *reinterpret_cast<float4*>(&As[a_k][a_r]) = make_float4(a_reg[0], a_reg[1], a_reg[2], a_reg[3]);
-    *reinterpret_cast<float4*>(&As[a_k][a_r + 4]) = make_float4(a_reg[4], a_reg[5], a_reg[6], a_reg[7]);
-    *reinterpret_cast<float4*>(&Bs[b_k][b_n]) = make_float4(b_reg[0], b_reg[1], b_reg[2], b_reg[3]);
-  };
-
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
+  // this thread's outputs: rows row0 + RUN_STEP * j + 0..3 (j < TM / 4), columns col0 .. + 3 and
+  // col0 + 32 .. + 35 of the block's tile
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = (warp / (BN / WARP_N)) * L::WARP_M + (lane >> 3) * 4;
+  const int col0 = (warp % (BN / WARP_N)) * WARP_N + (lane & 7) * 4;
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  load_stage(m_begin);
-  store_stage();
-  __syncthreads();
-
-  for (long long k0 = m_begin; k0 < m_end; k0 += BK) {
-    const bool more = k0 + BK < m_end;
-    if (more) load_stage(k0 + BK);  // in flight while this stage computes
-    fma_stage(As, Bs, ty, tx, acc);
-    __syncthreads();
-    if (more) {
-      store_stage();
-      __syncthreads();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_stages) load_stage(s);
+    cp_async_commit();
+  }
+  int slot = 0, load_slot = STAGES - 1;
+  for (int stage = 0; stage < n_stages; ++stage) {
+    cp_async_wait<STAGES - 2>();  // this thread's pieces of `stage` have landed
+    __syncthreads();              // everyone's have, and everyone is done with the slot loaded next
+    if (stage + STAGES - 1 < n_stages) load_stage(load_slot);
+    cp_async_commit();  // an empty group at the tail keeps the count of pending groups
+    const T* const a_base = smem + slot * DL::STAGE_ELEMS + row0;
+    const T* const b_base = smem + slot * DL::STAGE_ELEMS + BK * BM + col0;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int j = 0; j < TM / 4; ++j) load4(a_base + kk * BM + j * DL::RUN_STEP, a + 4 * j);
+      load4(b_base + kk * BN, b);
+      load4(b_base + kk * BN + WARP_N / 2, b + 4);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
+    if (++slot == STAGES) slot = 0;
+    if (++load_slot == STAGES) load_slot = 0;
   }
 
-  const int n = n0 + tx * TN;
-  if (n < N) {
-    float* out = part + static_cast<long long>(blockIdx.z) * R * N;
+  float* const out = part + static_cast<long long>(blockIdx.z) * R * N;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int ro = r0 + ty * TM + i;
-      if (ro < R) store4(out + static_cast<long long>(ro) * N + n, acc[i]);
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + row0 + (i / 4) * DL::RUN_STEP + i % 4;
+    if (r >= R) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + col0 + half * (WARP_N / 2);
+      if (n < N) store4(out + static_cast<long long>(r) * N + n, acc[i] + 4 * half);
     }
   }
 }
+
+}  // namespace gemm
 
 // dw[i] = sum_z part[z][i], z ascending: the same order in every run.
 __global__ void conv_k2_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
@@ -540,21 +569,41 @@ cudaError_t launch_gemm(const void* x, const void* w, void* y, int D, int H, int
   return launch_gemm_tile<T, BWD, 128, 16>(x, w, y, D, H, W, C, N, M, s);
 }
 
-template <typename T>
-cudaError_t launch_dw(const void* x, const void* g, float* dw, float* workspace, int splits, int D,
-                      int H, int W, int C, int N, long long M, cudaStream_t s) {
-  const long long rows_per_split = ((M + splits - 1) / splits + BK - 1) / BK * BK;
-  const dim3 grid(static_cast<unsigned>((8 * C + BM - 1) / BM), static_cast<unsigned>((N + BN - 1) / BN),
-                  static_cast<unsigned>(splits));
-  conv_k2_dw_kernel<T><<<grid, THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), splits == 1 ? dw : workspace,
-      D, H, W, C, N, M, rows_per_split);
-  cudaError_t err = cudaGetLastError();
+// `splits` parts of `per_split` stages each cover `total` stages, the last part possibly shorter, none empty.
+bool splits_cover(int splits, int per_split, long long total) {
+  return splits >= 1 && per_split >= 1 && static_cast<long long>(splits - 1) * per_split < total &&
+         static_cast<long long>(splits) * per_split >= total;
+}
+
+// dw's partial sums (into dw itself where splits == 1), then their sum: the tile of the forward's shape.
+template <typename T, int TILE_N, int TM>
+cudaError_t launch_dw_tile(const void* x, const void* g, float* dw, float* workspace, int splits, int stages_per_split,
+                           int D, int H, int W, int C, int N, long long M, cudaStream_t s) {
+  using DL = gemm::DwTile<T, TILE_N, TM>;
+  cudaError_t err = cudaFuncSetAttribute(gemm::conv_k2_dw_kernel<T, TILE_N, TM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(DL::SMEM_BYTES));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((8 * C + gemm::BM - 1) / gemm::BM),
+                  static_cast<unsigned>((N + TILE_N - 1) / TILE_N), static_cast<unsigned>(splits));
+  gemm::conv_k2_dw_kernel<T, TILE_N, TM><<<grid, DL::L::THREADS, DL::SMEM_BYTES, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), splits == 1 ? dw : workspace, D, H, W, C, N, M,
+      stages_per_split);
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long count4 = static_cast<long long>(8) * C * N / 4;
   conv_k2_dw_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(
       workspace, dw, count4, splits);
   return cudaGetLastError();
+}
+
+// The forward's choice of tile: 128 columns and 16 rows a thread, or 64 and 8 where N <= 64.
+template <typename T>
+cudaError_t launch_dw(const void* x, const void* g, float* dw, float* workspace, int splits, int stages_per_split,
+                      int D, int H, int W, int C, int N, long long M, cudaStream_t s) {
+  if (!splits_cover(splits, stages_per_split, (M + gemm::BK - 1) / gemm::BK)) return cudaErrorInvalidValue;
+  if (N <= 64) return launch_dw_tile<T, 64, 8>(x, g, dw, workspace, splits, stages_per_split, D, H, W, C, N, M, s);
+  return launch_dw_tile<T, 128, 16>(x, g, dw, workspace, splits, stages_per_split, D, H, W, C, N, M, s);
 }
 
 // The tensor-core forward (DX = false: `depth` = C, `cols` = N) or dx (DX =
@@ -607,21 +656,23 @@ int conv_k2_backward_input(const void* g, const void* wt, void* dx, int B, int D
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dw [2,2,2,C,N] in float32 from x [B,D,H,W,C] and g [B,D,H,W,N]. The row
-// reduction is cut into `splits` parts; `workspace` holds splits*8*C*N floats
-// (unused when splits == 1).
+// dw [2,2,2,C,N] in float32 from x [B,D,H,W,C] and g [B,D,H,W,N]. The
+// ceil(B*D*H*W / 16) stages of 16 rows of the row reduction are cut into
+// `splits` parts of `stages_per_split` (the last may be shorter, none is
+// empty); `workspace` holds splits*8*C*N floats (unused when splits == 1).
 int conv_k2_backward_weight(const void* x, const void* g, void* dw, void* workspace, int splits,
-                            int B, int D, int H, int W, int C, int N, int dtype, int device,
+                            int stages_per_split, int B, int D, int H, int W, int C, int N, int dtype, int device,
                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long M = static_cast<long long>(B) * D * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(dw);
   float* ws = static_cast<float*>(workspace);
-  if (dtype == 0) return static_cast<int>(launch_dw<float>(x, g, out, ws, splits, D, H, W, C, N, M, s));
-  if (dtype == 1) return static_cast<int>(launch_dw<__nv_bfloat16>(x, g, out, ws, splits, D, H, W, C, N, M, s));
+#define DW_ARGS x, g, out, ws, splits, stages_per_split, D, H, W, C, N, M, s
+  if (dtype == 0) return static_cast<int>(launch_dw<float>(DW_ARGS));
+  if (dtype == 1) return static_cast<int>(launch_dw<__nv_bfloat16>(DW_ARGS));
+#undef DW_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -664,9 +715,8 @@ int conv_k2_backward_weight_wgmma(const void* x, const void* g, void* dw, void* 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long total = static_cast<long long>(B) * D * H * W / wg::BK;
-  if (C % wg::BK || N % bn || bw * bh * bd != wg::BK || stages < 2 || stages > wg::MAX_STAGES || splits < 1 ||
-      static_cast<long long>(splits - 1) * stages_per_split >= total ||
-      static_cast<long long>(splits) * stages_per_split < total)
+  if (C % wg::BK || N % bn || bw * bh * bd != wg::BK || stages < 2 || stages > wg::MAX_STAGES ||
+      !splits_cover(splits, stages_per_split, total))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(dw);

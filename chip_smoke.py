@@ -11,8 +11,9 @@ order, any failure ending the run with a non-zero exit:
    ``anytime3d_tpu_torch/kernels/csrc``;
 3. kernel check: ``conv_k2``, ``conv_k2_dx`` and ``conv_k2_dw`` against their
    plain versions at the flagship stages (16^3): at B=8, the served batch, in
-   float32 with TF32 off and in bfloat16, and at B=32 in bfloat16, the train
-   step's shapes; each timed with CUDA events beside its plain version and
+   float32 with TF32 off and in bfloat16, and at B=32, the train step's
+   shapes, in both types (cli/train.py computes in float32 unless --bf16);
+   each timed with CUDA events beside its plain version and
    beside the one library call that computes the same function (cuDNN
    through ``F.conv3d``, ``torch.nn.grad.conv3d_input`` and
    ``conv3d_weight``), and set against its bound on this card. In bfloat16
@@ -98,9 +99,9 @@ TRAIN_STEPS = 40
 TRAIN_WARMUP = 5  # steps left out of the step time
 GRID = 16  # the flagship k=2 stages run at 16^3
 FLAGSHIP_K2 = [(64, 512), (512, 128), (128, 512), (512, 64)]  # (C, N): encoder head, decoder tail
-# (label, batch, dtype) of the kernel check: the served batch in both types, the train step's shapes
+# (label, batch, dtype) of the kernel check: the served batch and the train step's shapes, in both types
 KERNEL_CASES = [("b8_f32", BATCH, torch.float32), ("b8_bf16", BATCH, torch.bfloat16),
-                ("b32_bf16", TRAIN_BATCH, torch.bfloat16)]
+                ("b32_bf16", TRAIN_BATCH, torch.bfloat16), ("b32_f32", TRAIN_BATCH, torch.float32)]
 SEED = 0
 N_REQUESTS = 1024  # p99 then has 10 samples beyond it
 N_CLIENTS = 8

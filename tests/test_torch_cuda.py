@@ -21,7 +21,9 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2,
     conv_k2_backward_reference,
     conv_k2_dw,
+    conv_k2_dw_reference,
     conv_k2_reference,
+    ffma_dw_split,
     wgmma_plan,
 )
 from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo
@@ -203,6 +205,39 @@ def test_backward_kernels_match_plain_on_planned_shapes(cuda, B, G, C, N):
     tol = DW_TOL_F64_REL * top
     assert float((w.grad.double() - dw64).abs().max()) <= tol
     assert float((dw_ref.double() - dw64).abs().max()) <= tol
+
+
+# (B, D, H, W, C, N) at the edges of the FFMA dw's tile and splits, none with a
+# plan: a ragged grid with 8C < 128 and N <= 64 (the 128 x 64 tile), 8C not a
+# multiple of 128, N % 128 != 0 on the 128-column tile, bf16 rows of g only
+# 8-byte aligned (N % 8 == 4), a grid smaller than a stage; one split for the
+# first four, several for the rest (ffma_dw_split)
+FFMA_DW_EDGES = [(2, 5, 6, 7, 8, 16), (2, 5, 6, 7, 136, 8), (1, 4, 4, 4, 64, 200), (3, 2, 2, 2, 8, 4),
+                 (2, 9, 10, 11, 24, 68), (1, 16, 16, 16, 136, 96), (4, 16, 16, 16, 512, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,D,H,W,C,N", FFMA_DW_EDGES)
+def test_ffma_dw_matches_plain_at_the_tile_edges(cuda, B, D, H, W, C, N, dtype):
+    """The FFMA dw, float32 and bfloat16 without a plan, against
+    ``conv_k2_dw_reference``: f32 sums of the same products in another order,
+    1e-5 of the largest entry (chip_smoke.py's K2_TOL_DW_REL); the same bits
+    from two calls; no tensor-core launch."""
+    assert wgmma_plan(B, D, H, W, C, N) is None
+    assert (ffma_dw_split(B * D * H * W, C, N)[0] == 1) == (FFMA_DW_EDGES.index((B, D, H, W, C, N)) < 4)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, dtype)
+    g = torch.randn(B, D, H, W, N, generator=gen).to(cuda, dtype)
+    before, before_wg = _counts(), _wgmma_counts()
+    with torch.no_grad():
+        dw, again = conv_k2_dw(x, g), conv_k2_dw(x, g)
+        ref = conv_k2_dw_reference(x, g)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1], before[2] + 2) and _wgmma_counts() == before_wg
+    assert dw.dtype == torch.float32 and dw.shape == (2, 2, 2, C, N)
+    assert torch.equal(dw, again)
+    err = float((dw - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err
 
 
 def test_backward_launches_only_what_is_asked(cuda):

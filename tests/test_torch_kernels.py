@@ -28,6 +28,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2_dw_reference,
     conv_k2_dx_reference,
     conv_k2_reference,
+    ffma_dw_split,
     wgmma_plan,
 )
 
@@ -369,6 +370,129 @@ def test_dx_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     assert (written == 1).all()
     # a stage is one tap and 64 channels n: 8N/64 stages a tile, each 64 deep
     assert 8 * N % 64 == 0 and 8 * N // 64 >= 8
+
+
+# ---- the FFMA dw: its splits and its loaders' walk ----
+
+# (B, D, H, W, C, N): the flagship stages at the served and the train batch, and
+# small shapes: ragged grids, 8C < 128, 8C not a multiple of 128, N <= 64 and
+# N % 128 != 0, a grid smaller than a stage, few rows (one split) and many
+FFMA_DW_SPLIT = ([(B, 16, 16, 16, C, N) for B in (8, 32) for C, N in FLAGSHIP_K2]
+                 + [(2, 5, 6, 7, 8, 16), (2, 5, 6, 7, 136, 8), (1, 4, 4, 4, 64, 200), (2, 9, 10, 11, 24, 68),
+                    (1, 16, 16, 16, 136, 96), (3, 2, 2, 2, 8, 4), (4, 16, 16, 16, 512, 40), (1, 1, 1, 1, 8, 4)])
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", FFMA_DW_SPLIT)
+def test_ffma_dw_split_covers_every_row_once(B, D, H, W, C, N):
+    """The splits are whole 16-row stages that reduce every row once, none
+    empty; output tiles times splits make at most one wave at 132 SMs (two
+    blocks of the 128-column tile an SM, four of the 64-column one); a split
+    is at least 16 stages deep, so few rows make one split; the workspace
+    holds at most 16 MiB."""
+    rows = B * D * H * W
+    splits, per_split = ffma_dw_split(rows, C, N)
+    stages = -(-rows // 16)
+    assert splits >= 1 and per_split >= 1
+    seen = np.zeros(rows, np.int32)
+    for z in range(splits):
+        first = z * per_split * 16  # a whole number of stages
+        rows_z = seen[first:first + per_split * 16]
+        assert rows_z.size > 0  # no split is empty
+        rows_z += 1
+    assert (seen == 1).all()
+    bn, per_sm = (64, 4) if N <= 64 else (128, 2)
+    tiles = -(-8 * C // 128) * -(-N // bn)
+    assert tiles * splits <= max(tiles, per_sm * 132)
+    assert splits == 1 or per_split >= 16
+    if stages < 32:
+        assert splits == 1
+    workspace_bytes = (splits if splits > 1 else 0) * 8 * C * N * 4
+    assert workspace_bytes <= 2**24
+
+
+@pytest.mark.parametrize("B", [8, 32])
+def test_ffma_dw_split_at_the_flagship_stages(B):
+    """At 16^3 the four stages have 16, 32, 32 and 32 output tiles (the last 128
+    x 64): 16, 8, 8 and 16 splits, a wave of 256, 256, 256 and 512 blocks."""
+    got = [ffma_dw_split(B * 16**3, C, N) for C, N in FLAGSHIP_K2]
+    assert [s for s, _ in got] == [16, 8, 8, 16]
+    assert [p * 16 for _, p in got] == [B * 256, B * 512, B * 512, B * 256]  # rows a split
+
+
+def _emulate_ffma_dw(x, g, splits, per_split):
+    """dw as the FFMA kernel's loaders walk it. Split z reduces the stages from
+    z * per_split on; loader row lr of a stage is row m_begin + lr + 16 s,
+    whose (d, h, w) is found by division once and then carried forward 16 rows
+    a stage; 8 tap bits from it (and whether m lies in the split) decide which
+    shifted rows of x are copied and which are zeros (a copy of source size 0).
+    The splits' partial sums are added in ascending order. Returns dw and how
+    often each row m entered the sum."""
+    B, D, H, W, C = x.shape
+    N = g.shape[-1]
+    M, S = B * D * H * W, D * H * W
+    x2, g2 = x.reshape(M, C), g.reshape(M, N)
+    shifts = [(dz * H + dy) * W + dx for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+    step = 16 % S
+    sd, sh, sw = step // (H * W), step // W % H, step % W
+    part = torch.zeros(splits, 8 * C, N)
+    seen = torch.zeros(M, dtype=torch.int64)
+    for z in range(splits):
+        m_begin = z * per_split * 16
+        m_end = min(M, m_begin + per_split * 16)
+        m = m_begin + torch.arange(16)
+        d, h, w = m % S // (H * W), m // W % H, m % W
+        for _ in range(-(-(m_end - m_begin) // 16)):
+            assert torch.equal(torch.stack([d, h, w]), torch.stack([m % S // (H * W), m // W % H, m % W]))
+            live = m < m_end
+            inside = torch.where(live, 0xFF, 0)
+            inside = torch.where(w + 1 >= W, inside & 0x55, inside)
+            inside = torch.where(h + 1 >= H, inside & 0x33, inside)
+            inside = torch.where(d + 1 >= D, inside & 0x0F, inside)
+            a = torch.zeros(16, 8 * C)
+            for t, shift in enumerate(shifts):
+                ok = (inside >> t) & 1 == 1
+                a[ok, t * C:(t + 1) * C] = x2[m[ok] + shift]
+            b = torch.where(live[:, None], g2[m.clamp(max=M - 1)], 0.0)
+            part[z] += a.T @ b
+            seen[m[live]] += 1
+            m = m + 16
+            w = w + sw
+            h, w = h + (w >= W).long(), torch.where(w >= W, w - W, w)
+            h = h + sh
+            d, h = d + (h >= H).long(), torch.where(h >= H, h - H, h)
+            d = d + sd
+            d = torch.where(d >= D, d - D, d)
+    dw = part[0].clone()
+    for z in range(1, splits):
+        dw += part[z]
+    return dw.reshape(2, 2, 2, C, N), seen
+
+
+# a ragged grid with 8C < 128 (C = 8), a tile over two taps (C = 64) and 8C not
+# a multiple of 128 (C = 136), all in one split; several splits on a ragged grid
+# and at 16^3; a grid smaller than a stage (the carried position wraps)
+FFMA_DW_EMULATED = [(2, 5, 6, 7, 8, 16), (2, 5, 6, 7, 64, 24), (2, 5, 6, 7, 136, 8), (2, 9, 10, 11, 8, 16),
+                    (1, 16, 16, 16, 136, 8), (3, 2, 2, 2, 8, 4)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", FFMA_DW_EMULATED)
+def test_ffma_dw_loader_walk_gives_dw(B, D, H, W, C, N):
+    """The emulated walk of the FFMA dw (stages of 16 rows, zero-filled shifted
+    rows of x, the splits of ``ffma_dw_split`` summed in order) reduces every
+    row once and equals ``conv_k2_dw_reference`` and ``_conv_k2_bwd_impl``'s dw:
+    f32, summation order only, 1e-5 of the largest entry."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
+    g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
+    splits, per_split = ffma_dw_split(B * D * H * W, C, N)
+    dw, seen = _emulate_ffma_dw(torch.from_numpy(x), torch.from_numpy(g), splits, per_split)
+    assert (seen == 1).all()
+    ref = conv_k2_dw_reference(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(dw.numpy(), ref, atol=tol, rtol=0)
+    w = np.zeros((2, 2, 2, C, N), np.float32)
+    jax_dw = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))[1])
+    np.testing.assert_allclose(dw.numpy(), jax_dw, atol=tol, rtol=0)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
