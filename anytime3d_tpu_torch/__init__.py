@@ -6,9 +6,12 @@ the JAX layout, NDHWC ``(B, D, H, W, C)``, at every public function.
 
 Ported so far, for ``modelnet_nolbo``: the serving path (packed bits in,
 blocked-head encoder, nearest-prior classification with latent fill,
-blocked-tail decoder, packed bits out, behind a micro-batching HTTP server)
-and the train step (packed-blocked batches, losses in float32, a gradient
-zeroed whole when any leaf is non-finite, Adam; ``cli/train.py``). The 2x2x2
+blocked-tail decoder, packed bits out, behind a micro-batching HTTP server);
+the train step (packed-blocked batches, losses in float32, a gradient
+zeroed whole when any leaf is non-finite, Adam) and its loop (batches
+prefetched on a worker thread, packed natively; ``cli/train.py``); and the
+anytime engine with the evaluation protocols (``anytime/``, ``evaluation/``,
+``cli/evaluate.py``). The 2x2x2
 convolutions run through hand-written CUDA kernels, forward and backward
 (``kernels/csrc/conv_k2.cu``), on the GPU.
 """

@@ -1,1 +1,1 @@
-"""Nearest-prior classification."""
+"""The anytime protocol: nearest-prior classification, prior correction, Gaussian and occupancy fusion."""

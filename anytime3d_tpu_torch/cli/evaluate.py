@@ -1,0 +1,99 @@
+"""Evaluation CLI: the anytime missing-rate sweep and a PR curve, per-class
+latents, or reconstruction dumps.
+
+    python -m anytime3d_tpu_torch.cli.evaluate --config modelnet_nolbo [--weights params.npz] [--bf16]
+
+Counterpart of ``anytime3d_tpu/cli/evaluate.py``. By default it prints the
+sweep table (metrics per missing rate, uncorrected and corrected) as JSON,
+then the decode threshold of best IoU on one batch's posterior-mean
+reconstruction. ``--latents-out f.npy`` writes the per-class mean latents
+(``category_vectors``) instead; ``--dump dir/`` writes GT and decoded grids
+per missing rate (``evaluation/dump.py``).
+
+Without ``--weights`` the model holds seeded random weights (``--seed``);
+``--weights`` takes flax params as a flat ``.npz`` (``convert.load_flax_npz``).
+``--data synthetic`` evaluates on procedural voxels (the eval split of
+``cli.train``), sent as packed bits. The device defaults to ``cuda``; when
+CUDA is absent the command fails rather than run on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+
+def parse_args(argv=None):
+    from anytime3d_tpu_torch.models.configs import REGISTRY
+
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", required=True, choices=sorted(REGISTRY))
+    p.add_argument("--weights", default=None, help="flax params as a flat .npz")
+    p.add_argument("--ckpt", default=None, help="a training checkpoint (not ported yet)")
+    p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--data", default="synthetic", help="'synthetic' (a dataset path is not ported yet)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--batches", type=int, default=8)
+    p.add_argument("--rates", default="0.3,0.5,0.7,0.9")
+    p.add_argument("--latents-out", default=None, help="write per-class mean latents (category_vectors) to .npy")
+    p.add_argument("--dump", default=None, help="dump GT/pred voxel grids per missing rate to this dir")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute dtype (float32 parameters)")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    import numpy as np
+    import torch
+
+    from anytime3d_tpu_torch.cli.train import build_batch_fn, build_loaders
+    from anytime3d_tpu_torch.convert import load_flax_npz
+    from anytime3d_tpu_torch.data.prefetch import to_device
+    from anytime3d_tpu_torch.evaluation.dump import dump_reconstructions
+    from anytime3d_tpu_torch.evaluation.protocols import category_vectors, missing_rate_sweep, pr_curve
+    from anytime3d_tpu_torch.models.configs import REGISTRY
+    from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
+    from anytime3d_tpu_torch.train.step import materialize_batch
+
+    args = parse_args(argv)
+    if args.ckpt:
+        raise NotImplementedError("not ported yet (A17): training checkpoints; pass --weights params.npz")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to evaluate on the CPU)")
+    cfg = REGISTRY[args.config]()
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(args.seed),
+                          dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    if args.weights:
+        model.load_state_dict(load_flax_npz(args.weights))
+    model = model.to(device).eval()
+    _, loader = build_loaders(args, cfg)
+    batch_fn = build_batch_fn(loader, cfg, args.batch_size, packed=True,
+                              native=True if device.type == "cuda" else None)
+
+    if args.latents_out:
+        vecs = category_vectors(model, batch_fn, num_classes=cfg.category_dim or 40, num_batches=args.batches)
+        np.save(args.latents_out, vecs)
+        print(f"wrote {vecs.shape} category vectors to {args.latents_out}")
+        return vecs
+
+    rates = [float(r) for r in args.rates.split(",")]
+    if args.dump:
+        paths = dump_reconstructions(model, batch_fn(0), args.dump, rates=rates)
+        print(f"dumped reconstructions for rates {rates} to {args.dump}")
+        return paths
+
+    table = missing_rate_sweep(model, batch_fn, rates=rates, num_batches=args.batches)
+    print(json.dumps({str(k): v for k, v in table.items()}, indent=2))
+
+    with torch.no_grad():  # the posterior-mean reconstruction, in the model's layout
+        batch, blocked_in, blocked_out = materialize_batch(model, to_device(batch_fn(0), device))
+        pred = model.decode(model.encode(batch["input"], blocked_input=blocked_in).mean, blocked_output=blocked_out)
+    curve = pr_curve(batch["target"], pred)
+    best = int(curve["iou"].argmax())
+    print(f"best decode threshold {curve['threshold'][best]:.2f} iou {curve['iou'][best]:.4f}")
+    return table, curve
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,11 @@
 ``--data synthetic`` trains on procedural voxels; reading a dataset from a
 path is not ported yet. The device defaults to ``cuda``; when CUDA is absent
 the command fails rather than train on the CPU. ``--bf16`` computes in
-bfloat16 with float32 parameters, losses and optimizer.
+bfloat16 with float32 parameters, losses and optimizer. Batches are made on a
+prefetch thread two steps ahead; on CUDA, ``--packed`` batches of a
+blocked-IO model are packed by the native packer, and the run fails if
+``g++`` cannot build it. Each eval reports the losses, P/R and the anytime
+protocol's metrics at missing rate 0.5 (``anytime_*``).
 """
 
 from __future__ import annotations
@@ -15,11 +19,12 @@ import argparse
 import numpy as np
 
 
-def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False):
+def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False, native=None):
     """Adapt a loader of modelnet-style dict batches (``input_images``,
     ``class_list``, ``inst_list``) to the train step's batch dict of numpy
     arrays. ``packed`` ships the voxels as bits, pre-ordered in the blocked
-    layout when the model reads it, so the device unpacks with no relayout."""
+    layout when the model reads it, so the device unpacks with no relayout;
+    ``native`` is ``pack_voxels_blocked``'s choice of packer."""
     from anytime3d_tpu_torch.data.packing import pack_voxels, pack_voxels_blocked
     from anytime3d_tpu_torch.models.mmvae import blocked_io_block
 
@@ -32,7 +37,7 @@ def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False
         if not packed:
             out = {"input": np.asarray(b["input_images"], np.float32)}
         elif block is not None:
-            out = {"input_packed_blocked": pack_voxels_blocked(b["input_images"], block)}
+            out = {"input_packed_blocked": pack_voxels_blocked(b["input_images"], block, native)}
         else:
             out = {"input_packed": pack_voxels(b["input_images"])}
         if model_cfg.prior_category is not None or model_cfg.category_dim:
@@ -76,12 +81,13 @@ def build_trainer(args):
     model = MultiModalVAE(model_cfg, generator=torch.Generator().manual_seed(0),
                           dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
     loader, eval_loader = build_loaders(args, model_cfg)
+    native = True if device.type == "cuda" else None  # on the card the native packer or nothing
     trainer = Trainer(
         model,
         create_train_state(model, learning_rate=args.learning_rate),
-        build_batch_fn(loader, model_cfg, args.batch_size, packed=args.packed),
+        build_batch_fn(loader, model_cfg, args.batch_size, args.packed, native),
         loss_config=loss_cfg,
-        eval_batch_fn=build_batch_fn(eval_loader, model_cfg, args.batch_size, packed=args.packed),
+        eval_batch_fn=build_batch_fn(eval_loader, model_cfg, args.batch_size, args.packed, native),
         config=TrainerConfig(total_steps=args.steps, eval_every=args.eval_every, jsonl_path=args.jsonl),
     )
     return trainer, loader

@@ -1,1 +1,1 @@
-"""Bit-packed voxel transfer."""
+"""Procedural loaders, bit-packed voxel transfer and the batch prefetcher."""

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is compiled on first use into a shared library with a
 plain C interface, for ``sm_90a`` (Hopper). The library lands in
 ``kernels/_build/<name>-<hash>/lib<name>.so``, where the hash covers the
 sources and the compiler flags, so an edited source is rebuilt and an
-unchanged one is reused. ``_build/`` is not committed.
+unchanged one is reused. ``_build/`` is not committed. :func:`build_host`
+does the same for a host C++ source with ``g++`` (the native voxel packer,
+``data/csrc/pack.cpp``).
 
 ``EXTRA_DEFINES`` (names, or ``NAME=value``) are passed as ``-D`` and are part
 of the hash; set them before the first kernel is used. The default build has
@@ -32,6 +34,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills go to build.log
 )
 EXTRA_DEFINES: tuple[str, ...] = ()
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
+GXX_LIBS = ("-lpthread",)
 
 
 def _flags() -> tuple[str, ...]:
@@ -53,14 +57,32 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    """Where ``lib<name>.so`` is built, keyed by a hash of sources and flags."""
+def _keyed_path(name: str, sources, flags) -> Path:
     digest = hashlib.sha256()
-    for src in sorted(CSRC.iterdir()):
+    for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(_flags()).encode())
+    digest.update(" ".join(flags).encode())
     return BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
+
+
+def library_path(name: str) -> Path:
+    """Where ``lib<name>.so`` is built, keyed by a hash of sources and flags."""
+    return _keyed_path(name, sorted(CSRC.iterdir()), _flags())
+
+
+def _compile(lib: Path, argv: list[str], what: str) -> Path:
+    """Run the compiler ``argv`` with ``-o`` a temporary path, then move the
+    library to ``lib``; the compiler's output goes to ``build.log`` beside it."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([*argv, "-o", str(tmp)], capture_output=True, text=True, check=False)
+    (lib.parent / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{what} (exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees no half-written file
+    return lib
 
 
 def build(name: str) -> Path:
@@ -68,21 +90,21 @@ def build(name: str) -> Path:
     lib = library_path(name)
     if lib.exists():
         return lib
-    nvcc = find_nvcc()
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True,
-        text=True,
-        check=False,
-    )
-    (lib.parent / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name} (exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees no half-written file
-    return lib
+    return _compile(lib, [find_nvcc(), *_flags(), str(CSRC / f"{name}.cu")], f"nvcc failed to build {name}")
+
+
+def build_host(src: Path) -> Path:
+    """Compile the host C++ source ``src`` with ``g++`` into
+    ``_build/<stem>-<hash>/lib<stem>.so`` unless an up-to-date library exists.
+    ``-march=native``: the library is built on the machine that loads it.
+    Raises RuntimeError without ``g++`` or when it fails."""
+    lib = _keyed_path(src.stem, [src], GXX_FLAGS + GXX_LIBS)
+    if lib.exists():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {src.name} cannot be built")
+    return _compile(lib, [gxx, *GXX_FLAGS, str(src), *GXX_LIBS], f"g++ failed to build {src.name}")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,7 +1,7 @@
-"""Voxel precision and recall.
+"""Voxel precision, recall and IoU.
 
-Counterpart of ``anytime3d_tpu/ops/metrics.py:13-37`` (``voxel_iou`` and
-``topk_accuracy`` are not ported yet).
+Counterpart of ``anytime3d_tpu/ops/metrics.py:13-46``; ``topk_accuracy``
+(classifier pretraining) is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,3 +25,10 @@ def voxel_precision_recall(target: torch.Tensor, pred: torch.Tensor, threshold: 
     """Batch-mean voxel precision and recall at ``threshold``."""
     tp, fp, fn = voxel_tp_fp_fn(target, pred, threshold)
     return (tp / (tp + fp + eps)).mean(), (tp / (tp + fn + eps)).mean()
+
+
+def voxel_iou(target: torch.Tensor, pred: torch.Tensor, threshold: float = 0.5,
+              eps: float = 1e-10) -> torch.Tensor:
+    """Batch-mean voxel intersection-over-union at ``threshold``."""
+    tp, fp, fn = voxel_tp_fp_fn(target, pred, threshold)
+    return (tp / (tp + fp + fn + eps)).mean()

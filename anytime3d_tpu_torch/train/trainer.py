@@ -1,11 +1,15 @@
-"""Training loop: batches from a host loader, periodic eval, NaN abort.
+"""Training loop: prefetched batches from a host loader, periodic eval with
+the anytime metrics, NaN abort.
 
-Counterpart of ``anytime3d_tpu/train/trainer.py``. Each batch is copied to
-the device from pinned memory without blocking, so the copy overlaps the
-step before it; metrics are fetched (a device sync) only on the logging
-cadence. Checkpoints, NaN restarts from a checkpoint, the background
-prefetcher, the multi-scale schedule and the anytime eval metrics are not
-ported yet: ``TrainerConfig`` has no field for them.
+Counterpart of ``anytime3d_tpu/train/trainer.py``. With ``prefetch_depth``
+> 0 (the default, 2) a ``DevicePrefetcher`` makes the batches on a worker
+thread and copies them to the device on a side stream, so batch making
+overlaps the steps before; at 0 each batch is made between steps and copied
+from pinned memory without blocking. Metrics are fetched (a device sync) on
+the logging cadence. Each eval adds the anytime protocol's metrics
+(``anytime_*``, at ``eval_missing_prob``) for models with a category prior.
+Checkpoints, NaN restarts from a checkpoint and the multi-scale schedule are
+not ported yet: ``TrainerConfig`` has no field for them.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from typing import Callable, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from anytime3d_tpu_torch.anytime.engine import anytime_eval
+from anytime3d_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from anytime3d_tpu_torch.train.state import TrainState
 from anytime3d_tpu_torch.train.step import LossConfig, make_eval_step, make_train_step
 from anytime3d_tpu_torch.utils.logging import MetricLogger
@@ -28,6 +34,9 @@ class TrainerConfig:
     eval_every: int = 100
     log_every: int = 1
     jsonl_path: Optional[str] = None
+    eval_missing_prob: float = 0.5
+    # batches made on a worker thread this many steps ahead; 0 makes each between steps
+    prefetch_depth: int = 2
 
 
 class Trainer:
@@ -58,23 +67,29 @@ class Trainer:
         self.aborted_nan = False
 
     def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(v)
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+        return to_device(batch, self.device)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def run(self, epoch_fn: Optional[Callable[[], int]] = None) -> TrainState:
+        prefetcher = None
+        if self.cfg.prefetch_depth > 0:
+            steps = iter(range(self.state.step, self.cfg.total_steps))
+            prefetcher = DevicePrefetcher(lambda: self.batch_fn(next(steps)), self.device, self.cfg.prefetch_depth)
+        try:
+            return self._run_loop(epoch_fn, prefetcher)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+
+    def _run_loop(self, epoch_fn: Optional[Callable[[], int]], prefetcher: Optional[DevicePrefetcher]) -> TrainState:
         cfg = self.cfg
         generator = self._generator(self.state.step)  # the draws of a run follow from the step it starts at
         it = self.state.step
         while it < cfg.total_steps:
-            self.state, metrics = self.step_fn(self.state, self.to_device(self.batch_fn(it)), generator)
+            batch = prefetcher.get() if prefetcher is not None else self.to_device(self.batch_fn(it))
+            self.state, metrics = self.step_fn(self.state, batch, generator)
             if it % cfg.log_every == 0 or it == cfg.total_steps - 1:
                 host_metrics = {k: float(v) for k, v in metrics.items()}
                 self.logger.update(host_metrics, step=it, epoch=epoch_fn() if epoch_fn else 0)
@@ -90,9 +105,16 @@ class Trainer:
         return self.state
 
     def evaluate(self, it: int) -> Dict[str, float]:
-        """Losses and P/R of one eval batch at a posterior sample, no gradient."""
-        metrics = self.eval_fn(self.to_device(self.eval_batch_fn(it)), self._generator(it))
+        """Losses and P/R of one eval batch at a posterior sample, no gradient;
+        for a model with a category prior, also the anytime protocol on the
+        same batch at ``eval_missing_prob`` (``anytime_*``). Both draw from
+        generators seeded with ``it``."""
+        batch = self.to_device(self.eval_batch_fn(it))
+        metrics = self.eval_fn(batch, self._generator(it))
         out = {f"eval_{k}": float(v) for k, v in metrics.items()}
+        if self.model.config.prior_category is not None and self.cfg.eval_missing_prob > 0:
+            anytime = anytime_eval(self.model, batch, self._generator(it), missing_prob=self.cfg.eval_missing_prob)
+            out.update({f"anytime_{k}": float(v) for k, v in anytime.items()})
         self.eval_history.append(out)
         print("\n" + " ".join(f"{k}:{v:.4f}" for k, v in sorted(out.items())))
         return out

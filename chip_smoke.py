@@ -35,12 +35,30 @@ order, any failure ending the run with a non-zero exit:
 6. serve: ``InferenceServer`` on an ephemeral port, batch 8, answering HTTP
    requests from 8 client threads; the launch counts are reset just before
    and read just after, and ``conv_k2`` must show 4 per served batch;
-7. train run: the trainer ``cli/train.py`` builds for ``--config
+7. anytime slice: the anytime protocol (``anytime/engine.py::anytime_eval``)
+   on full-width ``modelnet_nolbo`` from seeded weights, a packed-blocked
+   batch of 8, in float32 on the card against the same on the CPU with the
+   same injected draws, at missing rates 0.0 and 0.5: equal category
+   accuracies, loss terms and P/R within tolerance; then in bfloat16 on the
+   card against the card's float32. 4 forward launches per clean batch and 6
+   per masked one (2 in the encoder head, 2 in each decode's tail), on the
+   FFMA kernels in float32 and the tensor-core ones in bfloat16;
+8. anytime timing, B=32, bfloat16, packed-blocked synthetic batches (the
+   native packer): ``anytime_eval`` at missing 0.5 and 0.0, a
+   ``missing_rate_sweep`` over 0.3/0.5/0.7/0.9 (counts reset just before and
+   read just after: 6 launches a batch, all on the tensor cores) and a
+   ``pr_curve`` with the acceptance tail on one batch's decode, timed;
+9. train run: the trainer ``cli/train.py`` builds for ``--config
    modelnet_nolbo --data synthetic --packed --bf16`` at B=32, a few tens of
-   steps and one eval; counts reset just before and read just after: 4
-   forward, 3 dx and 4 dw launches per step, 4 forward per eval step, every
-   one of them on the tensor-core kernels; every metric finite, the loss falling, ``grads_finite`` 1; step time and peak
-   memory printed.
+   steps and one eval, with the trainer's default prefetch depth (2: batches
+   made and copied on a worker thread) and the native packer; counts reset
+   just before and read just after: 4 forward, 3 dx and 4 dw launches per
+   step, 4 forward per eval step and 6 for its anytime pass, every one of
+   them on the tensor-core kernels; every train and eval batch through the
+   native packer; every metric finite, the ``anytime_*`` metrics present, the
+   loss falling, ``grads_finite`` 1; step time, host wall per step and peak
+   memory printed; then as many steps again at prefetch depth 0, its host
+   wall per step printed beside.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -67,13 +85,17 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch.nn.functional as F  # noqa: E402
 
+from anytime3d_tpu_torch.anytime.engine import anytime_eval  # noqa: E402
 from anytime3d_tpu_torch.cli import train as cli_train  # noqa: E402
+from anytime3d_tpu_torch.data.modelnet import SyntheticVoxelLoader  # noqa: E402
 from anytime3d_tpu_torch.data.packing import (  # noqa: E402
     pack_voxels,
     pack_voxels_blocked,
     pack_voxels_device,
     unpack_voxels,
 )
+from anytime3d_tpu_torch.data.prefetch import to_device  # noqa: E402
+from anytime3d_tpu_torch.evaluation.protocols import missing_rate_sweep, pr_curve  # noqa: E402
 from anytime3d_tpu_torch.kernels import build  # noqa: E402
 from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
     conv_k2,
@@ -87,10 +109,11 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
 from anytime3d_tpu_torch.models import configs  # noqa: E402
 from anytime3d_tpu_torch.models.configs import REGISTRY  # noqa: E402
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE  # noqa: E402
+from anytime3d_tpu_torch.nn.blocks import depth_to_space3d  # noqa: E402
 from anytime3d_tpu_torch.serving.export import make_infer_fn, make_packed_infer  # noqa: E402
 from anytime3d_tpu_torch.serving.server import InferenceServer  # noqa: E402
 from anytime3d_tpu_torch.train.state import create_train_state  # noqa: E402
-from anytime3d_tpu_torch.train.step import apply_gradients_if_finite, compute_losses  # noqa: E402
+from anytime3d_tpu_torch.train.step import apply_gradients_if_finite, compute_losses, materialize_batch  # noqa: E402
 
 BATCH = 8
 TRAIN_BATCH = 32
@@ -143,6 +166,21 @@ SLICE_BITS_TOL = 1e-4
 # card bf16 vs card f32: bf16 keeps 8 bits of mantissa through every layer.
 SLICE_TOL_BF16_Z = 0.05  # times max(1, max |z_mean|)
 SLICE_TOL_BF16_PRED = 0.05
+ANYTIME_BATCH = 8  # the anytime slice, card against CPU
+ANYTIME_RATES = (0.0, 0.5)
+SWEEP_RATES = (0.3, 0.5, 0.7, 0.9)
+SWEEP_BATCHES = 8
+PR_ACCEPTANCE_DIV = 10
+# anytime eval, card f32 vs CPU f32 of the same weights, batch and draws: each
+# loss is a mean of 262144-voxel sums (summation order); P and R count voxels
+# against 0.5, and a voxel within rounding of it moves them by ~1e-5
+ANYTIME_TOL_LOSS_REL = 1e-4
+ANYTIME_TOL_PR = 1e-3
+# card bf16 vs card f32: bf16 keeps 8 bits of mantissa through ~20 layers (the
+# serving slice's decode differs by up to SLICE_TOL_BF16_PRED), which moves the
+# focal loss by a few parts in a thousand and flips voxels near 0.5
+ANYTIME_TOL_BF16_LOSS_REL = 0.05
+ANYTIME_TOL_BF16_PR = 0.02
 
 
 def card_line() -> str:
@@ -374,14 +412,14 @@ def phase_kernels(card: str) -> dict:
     return res
 
 
-def kernel_entries(res: dict, serve_counts: dict, train_counts: dict) -> list:
+def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
     every case measured, with the design it took (``ffma`` or ``wgmma``). Every
     number but ``bound_ms`` was measured in this run. ``launches`` sums
-    the served runs and the train run; ``launches_wgmma`` is the part of them
-    that took the tensor-core kernels."""
+    the served runs, the train run and the anytime sweep; ``launches_wgmma``
+    is the part of them that took the tensor-core kernels."""
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
@@ -393,13 +431,14 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict) -> list:
             "route": "cuda",
             "source": "anytime3d_tpu_torch/kernels/csrc/conv_k2.cu",
             "replaces": replaces[kernel],
-            "launches": serve_counts[kernel] + train_counts[kernel],
+            "launches": serve_counts[kernel] + train_counts[kernel] + anytime_counts[kernel],
             "launches_serve": serve_counts[kernel],
             "launches_train": train_counts[kernel],
+            "launches_anytime": anytime_counts[kernel],
             **head,
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
-            "launches_wgmma": serve_counts[f"{kernel}_wgmma"] + train_counts[f"{kernel}_wgmma"],
+            "launches_wgmma": sum(c[f"{kernel}_wgmma"] for c in (serve_counts, train_counts, anytime_counts)),
         })
     return entries
 
@@ -567,21 +606,165 @@ def phase_train_slice(cfg, device: torch.device) -> None:
         raise AssertionError(f"train slice: gradient of {worst[0]} off by {worst[1]} of its largest entry")
 
 
+def anytime_draws(n: int, z_dim: int, seed: int) -> dict:
+    """``anytime_eval``'s three draws, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return {"eps_cat": torch.from_numpy(rng.normal(size=(n, z_dim)).astype(np.float32)),
+            "keep": torch.from_numpy(rng.uniform(size=(n, z_dim)) < 0.5),
+            "eps_corr": torch.from_numpy(rng.normal(size=(n, z_dim)).astype(np.float32))}
+
+
+def phase_anytime_slice(cfg, device: torch.device) -> None:
+    """The anytime protocol at full width: card f32 against CPU f32, then card
+    bf16 against card f32, on the same weights, packed-blocked batch and draws."""
+    item = cfg.decoder.output_shape
+    n = ANYTIME_BATCH
+    rng = np.random.default_rng(SEED + 3)
+    batch = {
+        "input_packed_blocked": torch.from_numpy(pack_voxels_blocked(synthetic_grids(n, item[0], SEED + 3), 4,
+                                                                     native=True)),
+        "category_onehot": torch.from_numpy(np.eye(cfg.category_dim, dtype=np.float32)[rng.integers(0, cfg.category_dim, n)]),
+    }
+    draws = anytime_draws(n, cfg.z_category_dim, SEED + 3)
+    model_cpu = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED))
+    model_gpu = copy.deepcopy(model_cpu).to(device)
+    model_bf16 = MultiModalVAE(cfg, dtype=torch.bfloat16)  # the trainer's form: f32 parameters, bf16 compute
+    model_bf16.load_state_dict(model_cpu.state_dict())
+    model_bf16 = model_bf16.to(device)
+    on_card = {k: v.to(device) for k, v in batch.items()}
+    draws_card = {k: v.to(device) for k, v in draws.items()}
+    for rate in ANYTIME_RATES:
+        runs = {}
+        for label, model, b, d in (("card", model_gpu, on_card, draws_card), ("bf16", model_bf16, on_card, draws_card),
+                                   ("cpu", model_cpu, batch, draws)):
+            t0 = time.perf_counter()
+            if label != "cpu":
+                torch.cuda.synchronize()
+                reset_counts()
+            out = anytime_eval(model, b, missing_prob=rate, draws=d)
+            runs[label] = {k: float(v) for k, v in out.items()}
+            if label != "cpu":
+                expect_counts(f"anytime {label} missing {rate}", 6 if rate else 4, 0, 0, tensor_cores=label == "bf16")
+            print(f"anytime {label} missing {rate}: {time.perf_counter() - t0:.1f} s, {runs[label]}", flush=True)
+        card, cpu, bf = runs["card"], runs["cpu"], runs["bf16"]
+        want = {"acc_category", "loss_shape", "precision", "recall"}
+        if rate:
+            want |= {f"{k}_corrected" for k in want}
+        if not set(card) == set(cpu) == set(bf) == want or not all(math.isfinite(v) for v in card.values()):
+            raise AssertionError(f"anytime missing {rate}: outputs {sorted(card)} (want {sorted(want)}) or non-finite")
+        worst = {}
+        for k, v in cpu.items():
+            if k.startswith("acc"):
+                ok, ok_bf = card[k] == v, True  # bf16 may move a sample across a decision boundary: printed only
+            elif k.startswith(("precision", "recall")):
+                ok, ok_bf = abs(card[k] - v) <= ANYTIME_TOL_PR, abs(bf[k] - card[k]) <= ANYTIME_TOL_BF16_PR
+            else:
+                ok = abs(card[k] - v) <= ANYTIME_TOL_LOSS_REL * abs(v)
+                ok_bf = abs(bf[k] - card[k]) <= ANYTIME_TOL_BF16_LOSS_REL * abs(card[k])
+            worst[k] = (card[k] - v, bf[k] - card[k])
+            if not ok:
+                raise AssertionError(f"anytime missing {rate}: {k} card {card[k]} vs CPU {v}")
+            if not ok_bf:
+                raise AssertionError(f"anytime missing {rate}: {k} bf16 {bf[k]} vs f32 {card[k]}")
+        print(f"anytime slice missing {rate}, B={n}: card f32 - CPU and card bf16 - card f32 by metric "
+              + ", ".join(f"{k} {a:+.3e} / {b:+.3e}" for k, (a, b) in worst.items())
+              + f" (tolerances: loss {ANYTIME_TOL_LOSS_REL} / {ANYTIME_TOL_BF16_LOSS_REL} relative, P/R "
+              f"{ANYTIME_TOL_PR} / {ANYTIME_TOL_BF16_PR}, accuracies equal / printed)", flush=True)
+
+
+def phase_anytime_timing(cfg, device: torch.device, card: str) -> dict:
+    """The evaluation protocols at the quality gate's shapes: B=32, bf16
+    compute, packed-blocked batches of the synthetic eval split. Returns the
+    sweep's launch counts."""
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16).to(device)
+    loader = SyntheticVoxelLoader(num_samples=256, dim=cfg.decoder.output_shape[0], num_classes=cfg.category_dim,
+                                  seed=1)
+    batch_fn = cli_train.build_batch_fn(loader, cfg, TRAIN_BATCH, packed=True, native=True)
+    batch = to_device(batch_fn(0), device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    anytime_eval(model, batch, gen, missing_prob=0.5)
+    anytime_eval(model, batch, gen)
+    torch.cuda.synchronize()
+    expect_counts("anytime, one masked and one clean batch", 6 + 4, 0, 0, tensor_cores=True)
+    ms_masked = cuda_ms(lambda: anytime_eval(model, batch, gen, missing_prob=0.5), iters=10)
+    ms_clean = cuda_ms(lambda: anytime_eval(model, batch, gen), iters=10)
+
+    packs = pack_voxels_blocked.native_calls
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    table = missing_rate_sweep(model, batch_fn, SWEEP_RATES, num_batches=SWEEP_BATCHES)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    n_batches = len(SWEEP_RATES) * SWEEP_BATCHES
+    counts = expect_counts("missing_rate_sweep", 6 * n_batches, 0, 0, tensor_cores=True)
+    if pack_voxels_blocked.native_calls - packs != n_batches:
+        raise AssertionError("missing_rate_sweep: a batch was not made by the native packer")
+    for rate, row in table.items():
+        if not (len(row) == 8 and all(math.isfinite(v) for v in row.values())):
+            raise AssertionError(f"missing_rate_sweep at {rate}: {row}")
+
+    with torch.no_grad():
+        pred = anytime_eval(model, batch, gen, return_pred=True)["pred"]
+        target = depth_to_space3d(materialize_batch(model, batch)[0]["target"], 4)
+    curve = pr_curve(target, pred, acceptance_div=PR_ACCEPTANCE_DIV)
+    ms_pr = cuda_ms(lambda: pr_curve(target, pred, acceptance_div=PR_ACCEPTANCE_DIV), iters=3, warmup=1)
+    rows = 19 + PR_ACCEPTANCE_DIV
+    if not (curve["iou"].shape == (rows,) and np.isfinite(curve["precision"]).all() and np.isfinite(curve["iou"]).all()):
+        raise AssertionError(f"pr_curve: {curve}")
+    best = int(curve["iou"][:19].argmax())
+    print(f"anytime timing, B={TRAIN_BATCH} bf16 64^3: device time per eval batch (CUDA events, 10 calls) "
+          f"anytime_eval at missing 0.5 {ms_masked:.3f} ms, at 0.0 {ms_clean:.3f} ms; missing_rate_sweep over "
+          f"{SWEEP_RATES} x {SWEEP_BATCHES} batches (batch making included) {sweep_s:.3f} s wall, "
+          f"{sweep_s / n_batches * 1e3:.2f} ms a batch, launches {counts}; pr_curve ({rows} rows, acceptance tail "
+          f"{PR_ACCEPTANCE_DIV}) {ms_pr:.3f} ms, best threshold {curve['threshold'][best]:.2f} iou "
+          f"{curve['iou'][best]:.4f} [{card}]", flush=True)
+    print(f"anytime sweep (seeded weights, untrained): " + json.dumps({str(k): v for k, v in table.items()}), flush=True)
+    return counts
+
+
+def host_batch_ms(cfg, card: str) -> None:
+    """The host's work for one train batch of ``TRAIN_BATCH``, mean of 4: the
+    loader's gather and cast of the grids, then the native pack and the NumPy
+    pack of the same grids (same bytes)."""
+    loader = SyntheticVoxelLoader(num_samples=4 * TRAIN_BATCH, dim=cfg.decoder.output_shape[0],
+                                  num_classes=cfg.category_dim, seed=2)
+    t0 = time.perf_counter()
+    grids = [loader.getNextBatch(TRAIN_BATCH)["input_images"] for _ in range(4)]
+    t1 = time.perf_counter()
+    native = [pack_voxels_blocked(g, 4, native=True) for g in grids]
+    t2 = time.perf_counter()
+    numpy_ = [pack_voxels_blocked(g, 4, native=False) for g in grids]
+    t3 = time.perf_counter()
+    if not all(np.array_equal(a, b) for a, b in zip(native, numpy_)):
+        raise AssertionError("host batch: the native packer and NumPy disagree")
+    print(f"host batch, B={TRAIN_BATCH} 64^3, mean of 4: loader gather and cast {(t1 - t0) / 4 * 1e3:.2f} ms, native "
+          f"pack {(t2 - t1) / 4 * 1e3:.2f} ms, NumPy pack {(t3 - t2) / 4 * 1e3:.2f} ms (same bytes) [{card}]",
+          flush=True)
+
+
 def phase_train_run(card: str) -> dict:
     """The train CLI's path at full width: B=32, bfloat16 compute, packed
-    synthetic batches, ``TRAIN_STEPS`` steps and one eval. Returns the launch
-    counts of the run."""
+    synthetic batches, ``TRAIN_STEPS`` steps and one eval, at the trainer's
+    default prefetch depth; then as many steps again at depth 0. Returns the
+    launch counts of the first run."""
     t0 = time.perf_counter()
     args = cli_train.parse_args(["--config", "modelnet_nolbo", "--data", "synthetic", "--packed", "--bf16",
                                  "--batch-size", str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS),
                                  "--eval-every", str(TRAIN_STEPS)])
     trainer, loader = cli_train.build_trainer(args)
+    host_batch_ms(trainer.model.config, card)
     print(f"train run: model, optimizer and {loader.dataLength} + 256 synthetic shapes built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    events = []
+    if trainer.cfg.prefetch_depth != 2:
+        raise AssertionError(f"train run: the trainer's default prefetch depth is {trainer.cfg.prefetch_depth}")
+    events, entries = [], []
     inner = trainer.step_fn
 
-    def timed_step(*a, **kw):  # CUDA events around each step's device work
+    def timed_step(*a, **kw):  # host clock at each step's start, CUDA events around its device work
+        entries.append(time.perf_counter())
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = inner(*a, **kw)
@@ -589,26 +772,53 @@ def phase_train_run(card: str) -> dict:
         events.append((start, end))
         return out
 
-    trainer.step_fn = timed_step
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    trainer.run(epoch_fn=lambda: loader.epoch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    print("", flush=True)  # end the logger's carriage-return line
+    def timed_run(what: str) -> tuple[float, dict, int]:
+        """Run the trainer to ``total_steps`` with the counts reset; returns
+        the wall seconds, the launch counts and the native packer's calls,
+        and prints where the run's wall went outside the steady steps."""
+        events.clear()
+        entries.clear()
+        n_eval, packs = len(trainer.eval_history), pack_voxels_blocked.native_calls
+        numpy_packs = pack_voxels_blocked.numpy_calls
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.run(epoch_fn=lambda: loader.epoch)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        wall = t_end - t0
+        print("", flush=True)  # end the logger's carriage-return line
+        warm = np.diff(np.asarray(entries[: TRAIN_WARMUP + 1])) * 1e3
+        print(f"{what}: wall {wall * 1e3:.1f} ms = before the first step {(entries[0] - t0) * 1e3:.1f} ms + steps "
+              f"0..{TRAIN_WARMUP - 1} {', '.join(f'{v:.1f}' for v in warm)} ms + steps {TRAIN_WARMUP}.."
+              f"{TRAIN_STEPS - 2} {(entries[-1] - entries[TRAIN_WARMUP]) * 1e3:.1f} ms + the last step, the eval "
+              f"and the prefetcher's close {(t_end - entries[-1]) * 1e3:.1f} ms", flush=True)
+        if len(trainer.eval_history) != n_eval + 1 or trainer.aborted_nan:
+            raise AssertionError(f"{what}: {len(trainer.eval_history) - n_eval} evals, aborted {trainer.aborted_nan}")
+        # 4 / 3 / 4 a step, 4 an eval step and 6 its anytime pass; bf16: all on the tensor cores
+        counts = expect_counts(what, 4 * TRAIN_STEPS + 4 + 6, 3 * TRAIN_STEPS, 4 * TRAIN_STEPS, tensor_cores=True)
+        native = pack_voxels_blocked.native_calls - packs
+        if native != TRAIN_STEPS + 1 or pack_voxels_blocked.numpy_calls != numpy_packs:
+            raise AssertionError(f"{what}: {native} of {TRAIN_STEPS + 1} batches packed natively, "
+                                 f"{pack_voxels_blocked.numpy_calls - numpy_packs} in NumPy")
+        return wall, counts, native
 
-    n_eval = len(trainer.eval_history)
-    if trainer.state.step != TRAIN_STEPS or len(trainer.history) != TRAIN_STEPS or n_eval != 1 or trainer.aborted_nan:
-        raise AssertionError(f"train run: {trainer.state.step} steps, {len(trainer.history)} logged, {n_eval} evals")
-    # 4 / 3 / 4 a step and 4 an eval step; bf16 compute: every one of them on the tensor cores
-    counts = expect_counts("train run", 4 * TRAIN_STEPS + 4 * n_eval, 3 * TRAIN_STEPS, 4 * TRAIN_STEPS,
-                           tensor_cores=True)
+    def host_ms() -> np.ndarray:
+        """Host wall between the starts of consecutive steps after the warm-up (no eval between them)."""
+        return np.diff(np.asarray(entries[TRAIN_WARMUP:])) * 1e3
+
+    trainer.step_fn = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    wall, counts, native = timed_run("train run")
+    peak = torch.cuda.max_memory_allocated()
+    if trainer.state.step != TRAIN_STEPS or len(trainer.history) != TRAIN_STEPS:
+        raise AssertionError(f"train run: {trainer.state.step} steps, {len(trainer.history)} logged")
     for row in trainer.history + trainer.eval_history:
         if not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"train run: non-finite metric in {row}")
+    anytime_keys = {k for k in trainer.eval_history[0] if k.startswith("anytime_")}
+    if not {"anytime_acc_category", "anytime_acc_category_corrected", "anytime_loss_shape_corrected"} <= anytime_keys:
+        raise AssertionError(f"train run: the eval has no anytime metrics ({sorted(trainer.eval_history[0])})")
     if any(row["grads_finite"] != 1.0 for row in trainer.history):
         raise AssertionError("train run: a step's gradients were not finite")
     first = trainer.history[0]["loss_total"]
@@ -616,14 +826,26 @@ def phase_train_run(card: str) -> dict:
     if not last < first:
         raise AssertionError(f"train run: loss_total did not fall ({first} -> mean of last 5 {last})")
     step_ms = np.asarray([a.elapsed_time(b) for a, b in events[TRAIN_WARMUP:]])
+    host2 = host_ms()
     voxels = TRAIN_BATCH * math.prod(trainer.model.config.decoder.output_shape)
     print(f"train run: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, bf16 compute, 64^3: loss_total {first:.1f} -> {last:.1f} "
           f"(mean of the last 5), eval {trainer.eval_history[0]}", flush=True)
-    print(f"train run: device time per step (CUDA events, steps {TRAIN_WARMUP}..{TRAIN_STEPS - 1}) median "
-          f"{np.median(step_ms):.2f} ms, min {step_ms.min():.2f}, max {step_ms.max():.2f} "
-          f"({voxels / np.median(step_ms) * 1e3:.3e} voxels/s); host wall per step, batch making and a metrics "
-          f"fetch every step included, {wall / TRAIN_STEPS * 1e3:.2f} ms; peak memory allocated "
+    print(f"train run, prefetch depth 2: device time per step (CUDA events, steps {TRAIN_WARMUP}..{TRAIN_STEPS - 1}) "
+          f"median {np.median(step_ms):.2f} ms, min {step_ms.min():.2f}, max {step_ms.max():.2f} "
+          f"({voxels / np.median(step_ms) * 1e3:.3e} voxels/s); host wall per step, start to start, steps "
+          f"{TRAIN_WARMUP}..{TRAIN_STEPS - 1}, median {np.median(host2):.2f} ms (min {host2.min():.2f}, max "
+          f"{host2.max():.2f}); whole run (warm-up, batch making, a metrics fetch every step, the eval) "
+          f"{wall / TRAIN_STEPS * 1e3:.2f} ms a step; {native} batches by the native packer; peak memory allocated "
           f"{peak / 2**30:.2f} GiB; launches {counts} [{card}]", flush=True)
+
+    trainer.cfg.prefetch_depth = 0  # as many steps again, batches made between steps
+    trainer.cfg.total_steps = 2 * TRAIN_STEPS
+    wall0, _, _ = timed_run("train run, prefetch depth 0")
+    step_ms0, host0 = np.asarray([a.elapsed_time(b) for a, b in events[TRAIN_WARMUP:]]), host_ms()
+    print(f"train run, prefetch depth 0 (steps {TRAIN_STEPS}..{2 * TRAIN_STEPS - 1}): device time per step median "
+          f"{np.median(step_ms0):.2f} ms; host wall per step, start to start, median {np.median(host0):.2f} ms "
+          f"(min {host0.min():.2f}, max {host0.max():.2f}); whole run {wall0 / TRAIN_STEPS * 1e3:.2f} ms a step "
+          f"[{card}]", flush=True)
     return counts
 
 
@@ -714,9 +936,11 @@ def main() -> None:
     serve_counts = phase_serve(model, device, card)
     serve_counts = {k: v + serve_bf16_counts[k] for k, v in serve_counts.items()}
     del model
+    phase_anytime_slice(cfg, device)
+    anytime_counts = phase_anytime_timing(cfg, device, card)
     train_counts = phase_train_run(card)
     print(card, flush=True)
-    print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts)}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

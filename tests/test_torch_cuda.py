@@ -1,6 +1,7 @@
 """PyTorch port on the card: the ``conv_k2`` CUDA kernels (forward, dx, dw)
-against their plain versions, their refusals, and a small serving slice and a
-small train step on the GPU against the CPU.
+against their plain versions, their refusals, a small serving slice, a small
+train step and the anytime protocol on the GPU against the CPU, and the
+batch prefetcher's stream ordering.
 
 Every test here needs a CUDA GPU and ``nvcc`` and skips without them. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -10,12 +11,15 @@ file imports no JAX, so it also runs where JAX is not installed:
 
 import copy
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from anytime3d_tpu_torch.anytime.engine import anytime_eval
 from anytime3d_tpu_torch.data.packing import pack_voxels, pack_voxels_blocked
+from anytime3d_tpu_torch.data.prefetch import DevicePrefetcher
 from anytime3d_tpu_torch.kernels import build
 from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2,
@@ -403,3 +407,85 @@ def test_small_bf16_slice_on_card_takes_tensor_cores(cuda):
     # bf16 keeps 8 bits of mantissa through every layer: 5% of the largest |z_mean|, as chip_smoke.py holds it
     assert torch.isfinite(z).all()
     assert float((z - ref["z_mean"]).abs().max()) <= 0.05 * max(1.0, float(ref["z_mean"].abs().max()))
+
+
+def test_prefetched_batches_equal_direct_copies(cuda):
+    """10 batches through the prefetcher's pinned buffers and side stream,
+    each equal to a direct ``.to("cuda")`` of the same arrays."""
+    def make(i):
+        rng = np.random.default_rng(i)
+        return {"bits": rng.integers(0, 256, (4, 4096), dtype=np.uint8),
+                "onehot": np.eye(5, dtype=np.float32)[rng.integers(0, 5, 4)]}
+
+    steps = iter(range(10))
+    pf = DevicePrefetcher(lambda: make(next(steps)), cuda, depth=2)
+    try:
+        got = [pf.get() for _ in range(10)]
+        for i, batch in enumerate(got):
+            want = {k: torch.from_numpy(v).to(cuda) for k, v in make(i).items()}
+            assert batch.keys() == want.keys()
+            for k in want:
+                assert batch[k].device.type == "cuda" and torch.equal(batch[k], want[k]), (i, k)
+    finally:
+        pf.close()
+
+
+def test_prefetched_batch_is_read_after_its_copy(cuda):
+    """The side stream is held busy before each copy, so at ``get`` the copy
+    has not run yet. Waiting on the current stream, then poisoning the pinned
+    buffer the batch came from, must leave the batch intact: the current
+    stream waited on the copy's event, and the device tensor owns its memory.
+    (The worker cannot refill that buffer yet: the queue holds 2 batches and
+    the worker stages the 4th into the 4th buffer.)"""
+    holder, ready = {}, threading.Event()
+
+    def make():
+        ready.wait(10)
+        with torch.cuda.stream(holder["pf"].stream):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the side stream before the copy
+        return {"x": np.full((256, 1024), 7.0, np.float32)}
+
+    pf = DevicePrefetcher(make, cuda, depth=2)
+    holder["pf"] = pf
+    ready.set()
+    try:
+        batch = pf.get()
+        torch.cuda.current_stream().synchronize()
+        pf._slots[0].buffers["x"].fill_(-1.0)
+        assert bool((batch["x"] == 7.0).all())
+    finally:
+        pf.close()
+
+
+@pytest.mark.parametrize("missing_prob", [0.0, 0.5])
+def test_anytime_eval_on_card_matches_cpu(cuda, missing_prob):
+    """The anytime protocol on the 32^3 narrow model, card f32 against CPU f32
+    on the same weights, batch and draws: equal accuracies, losses to rtol
+    1e-4 (summation order), P and R to 1e-3; 4 forward launches a clean
+    batch, 6 a masked one."""
+    cfg = small_config()
+    rng = np.random.default_rng(4)
+    vox = (rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32)
+    batch = {"input_packed_blocked": torch.from_numpy(pack_voxels_blocked(vox, 4)),
+             "category_onehot": torch.from_numpy(np.eye(5, dtype=np.float32)[rng.integers(0, 5, 4)])}
+    draws = {"eps_cat": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)),
+             "keep": torch.from_numpy(rng.uniform(size=(4, 8)) < 0.5),
+             "eps_corr": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32))}
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0))
+    model_gpu = copy.deepcopy(model).to(cuda)
+    ref = anytime_eval(model, batch, missing_prob=missing_prob, draws=draws, return_pred=True)
+    before = conv_k2.launches
+    got = anytime_eval(model_gpu, {k: v.to(cuda) for k, v in batch.items()}, missing_prob=missing_prob,
+                       draws={k: v.to(cuda) for k, v in draws.items()}, return_pred=True)
+    assert conv_k2.launches == before + (6 if missing_prob else 4)
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        g = got[k].cpu()
+        if k.startswith("pred"):
+            np.testing.assert_allclose(g.numpy(), v.numpy(), rtol=0, atol=1e-4, err_msg=k)
+        elif k.startswith("acc"):
+            assert float(g) == float(v), k
+        elif k.startswith(("precision", "recall")):
+            assert abs(float(g) - float(v)) <= 1e-3, k
+        else:
+            np.testing.assert_allclose(float(g), float(v), rtol=1e-4, err_msg=k)
