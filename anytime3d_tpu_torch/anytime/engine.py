@@ -210,7 +210,7 @@ class GaussianBelief:
         return cls(info=mean * prec, precision=prec)
 
     @classmethod
-    def uninformative(cls, shape, eps: float = 1e-6, device: Optional[torch.device] = None) -> "GaussianBelief":
+    def uninformative(cls, shape, eps: float = 1e-6, device="cuda") -> "GaussianBelief":
         return cls(info=torch.zeros(shape, device=device), precision=torch.full(shape, eps, device=device))
 
     @property
@@ -234,8 +234,7 @@ class OccupancyBelief:
     count: torch.Tensor
 
     @classmethod
-    def empty(cls, shape, dtype: torch.dtype = torch.float32,
-              device: Optional[torch.device] = None) -> "OccupancyBelief":
+    def empty(cls, shape, dtype: torch.dtype = torch.float32, device="cuda") -> "OccupancyBelief":
         return cls(log_odds=torch.zeros(shape, dtype=dtype, device=device),
                    count=torch.zeros((), dtype=dtype, device=device))
 

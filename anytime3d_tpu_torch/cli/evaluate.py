@@ -1,7 +1,7 @@
 """Evaluation CLI: the anytime missing-rate sweep and a PR curve, per-class
 latents, or reconstruction dumps.
 
-    python -m anytime3d_tpu_torch.cli.evaluate --config modelnet_nolbo [--weights params.npz] [--bf16]
+    python -m anytime3d_tpu_torch.cli.evaluate --config modelnet_nolbo [--ckpt dir | --weights params.npz] [--bf16]
 
 Counterpart of ``anytime3d_tpu/cli/evaluate.py``. By default it prints the
 sweep table (metrics per missing rate, uncorrected and corrected) as JSON,
@@ -10,10 +10,12 @@ reconstruction. ``--latents-out f.npy`` writes the per-class mean latents
 (``category_vectors``) instead; ``--dump dir/`` writes GT and decoded grids
 per missing rate (``evaluation/dump.py``).
 
-Without ``--weights`` the model holds seeded random weights (``--seed``);
-``--weights`` takes flax params as a flat ``.npz`` (``convert.load_flax_npz``).
-``--data synthetic`` evaluates on procedural voxels (the eval split of
-``cli.train``), sent as packed bits. The device defaults to ``cuda``; when
+``--ckpt`` restores the parameters of a checkpoint of ``cli.train
+--save-path`` (``train/checkpoint.py``); ``--weights`` takes flax params as a
+flat ``.npz`` (``convert.load_flax_npz``); without either the model holds
+seeded random weights (``--seed``). ``--data synthetic`` evaluates on
+procedural voxels (the eval split of ``cli.train``), a path on the ModelNet
+test split under it, sent as packed bits. The device defaults to ``cuda``; when
 CUDA is absent the command fails rather than run on the CPU.
 """
 
@@ -29,9 +31,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", required=True, choices=sorted(REGISTRY))
     p.add_argument("--weights", default=None, help="flax params as a flat .npz")
-    p.add_argument("--ckpt", default=None, help="a training checkpoint (not ported yet)")
+    p.add_argument("--ckpt", default=None, help="a checkpoint directory of cli.train --save-path")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
-    p.add_argument("--data", default="synthetic", help="'synthetic' (a dataset path is not ported yet)")
+    p.add_argument("--data", default="synthetic", help="'synthetic' or a ModelNet dataset path")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--batches", type=int, default=8)
     p.add_argument("--rates", default="0.3,0.5,0.7,0.9")
@@ -53,11 +55,12 @@ def main(argv=None):
     from anytime3d_tpu_torch.evaluation.protocols import category_vectors, missing_rate_sweep, pr_curve
     from anytime3d_tpu_torch.models.configs import REGISTRY
     from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
+    from anytime3d_tpu_torch.train.checkpoint import restore_params
     from anytime3d_tpu_torch.train.step import materialize_batch
 
     args = parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError("not ported yet (A17): training checkpoints; pass --weights params.npz")
+    if args.ckpt and args.weights:
+        raise SystemExit("pass --ckpt or --weights, not both")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to evaluate on the CPU)")
@@ -66,6 +69,8 @@ def main(argv=None):
                           dtype=torch.bfloat16 if args.bf16 else torch.float32)
     if args.weights:
         model.load_state_dict(load_flax_npz(args.weights))
+    if args.ckpt:
+        model.load_state_dict(restore_params(args.ckpt, model.state_dict()))
     model = model.to(device).eval()
     _, loader = build_loaders(args, cfg)
     batch_fn = build_batch_fn(loader, cfg, args.batch_size, packed=True,

@@ -1,0 +1,64 @@
+"""Export CLI: write a model's serving program as one artifact.
+
+    python -m anytime3d_tpu_torch.cli.export --config modelnet_nolbo --ckpt ckpt/ --batch-size 8 --out model.pt2
+
+Counterpart of ``anytime3d_tpu/cli/export.py``. The artifact is the
+float-input program that the JAX command writes: ``x`` float32 (B, D, H, W,
+1) and ``mask`` float32 (B, z_cat_dim) in; ``category``, ``z_mean``,
+``z_log_var`` and ``pred`` out (``serving/export.py::export_infer``), weights
+and prior means baked in on ``--device``, which defaults to ``cuda``; when
+CUDA is absent the command fails rather than export for the CPU. ``--bf16``
+casts the model to bfloat16 first. ``--ckpt`` takes a checkpoint of
+``cli.train --save-path``; without it the model holds seeded random weights
+(``--seed``). Serve the artifact with ``cli.serve --artifact``, or load it
+with ``serving.export.load_infer`` under the torch version that wrote it.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    import time
+
+    import torch
+
+    from anytime3d_tpu_torch.models.configs import REGISTRY
+    from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
+    from anytime3d_tpu_torch.serving.export import export_infer
+    from anytime3d_tpu_torch.train.checkpoint import restore_params
+
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", required=True, choices=sorted(REGISTRY))
+    p.add_argument("--ckpt", default=None, help="checkpoint directory (omit: seeded random weights)")
+    p.add_argument("--batch-size", type=int, default=8, help="the program's one batch shape")
+    p.add_argument("--no-correction", action="store_true", help="skip the masked-latent prior fill")
+    p.add_argument("--out", required=True)
+    p.add_argument("--bf16", action="store_true", help="cast the model to bfloat16")
+    p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to export for the CPU)")
+    cfg = REGISTRY[args.config]()
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(args.seed))
+    if args.ckpt:
+        model.load_state_dict(restore_params(args.ckpt, model.state_dict()))
+    if args.bf16:
+        model = model.to(torch.bfloat16)
+    model = model.to(device)
+    shape = (args.batch_size, *cfg.decoder.output_shape)
+    t0 = time.perf_counter()
+    data = export_infer(model, shape, correction=not args.no_correction)
+    with open(args.out, "wb") as f:
+        f.write(data)
+    print(f"wrote {args.out}: {len(data)} bytes, input {shape} float32 on {device}, "
+          f"{'bfloat16' if args.bf16 else 'float32'} compute, exported in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+if __name__ == "__main__":
+    main()

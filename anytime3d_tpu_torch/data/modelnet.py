@@ -1,16 +1,85 @@
-"""Procedural voxel loader for tests, smoke runs and dataset-free training.
+"""Host loaders of voxel batches: the pre-voxelized ModelNet shards, and
+procedural shapes for tests, smoke runs and dataset-free training.
 
-Counterpart of ``anytime3d_tpu/data/modelnet.py:100-233``
-(``SyntheticVoxelLoader``): NumPy only, the same seeds give the same batches
-as the JAX package's loader. The loader of pre-voxelized ModelNet shards and
-the part-based instance shapes (``structural_inst``) are not ported yet.
+Counterpart of ``anytime3d_tpu/data/modelnet.py``, NumPy only.
+``ModelNetLoader`` reads the shard triples ``{i}Full.npy`` / ``{i}Class.npy``
+/ ``{i}Inst.npy`` under ``32to64_4rot_64sqr/{train,test}`` and gives, at the
+same seed, the same batches as the JAX loader; with ``partial_num=None`` it
+reads the shard indices present on disk, whether or not they are contiguous.
+``SyntheticVoxelLoader`` gives the same batches as the JAX package's at the
+same seed. The part-based instance shapes (``structural_inst``) are not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+import re
+from typing import Dict, List, Optional
 
 import numpy as np
+
+
+def _shard_indices(base: str) -> List[int]:
+    """The indices ``i`` of the ``{i}Full.npy`` shards under ``base``, sorted."""
+    found = sorted(int(m.group(1)) for name in (os.listdir(base) if os.path.isdir(base) else ())
+                   if (m := re.fullmatch(r"(\d+)Full\.npy", name)))
+    if not found:
+        raise FileNotFoundError(f"no *Full.npy shards under {base}")
+    return found
+
+
+class ModelNetLoader:
+    """Pre-voxelized ModelNet shards, copied whole into host memory, drawn in
+    seeded shuffled epochs.
+
+    ``getNextBatch(batchSize)`` -> ``input_images`` (B, 64, 64, 64, 1),
+    ``class_list`` (B, 40) and ``inst_list`` one-hots, all float32; ``epoch``,
+    ``batchStart`` and ``dataLength`` for progress. ``partial_num``: the
+    number of train shards to read, indices 0.. (the reference's 30; the test
+    split has 5); None reads every shard present."""
+
+    def __init__(self, data_path: str, train_or_test: str = "train", partial_num: Optional[int] = 30,
+                 seed: int = 0):
+        self.epoch = 0
+        self.batchStart = 0
+        self._rng = np.random.default_rng(seed)
+        split = "train" if train_or_test == "train" else "test"
+        base = os.path.join(data_path, "32to64_4rot_64sqr", split)
+        if partial_num is None:
+            indices = _shard_indices(base)
+        else:
+            indices = list(range(partial_num if split == "train" else 5))
+        parts: Dict[str, list] = {"Full": [], "Class": [], "Inst": []}
+        for i in indices:
+            for kind, arrays in parts.items():
+                path = os.path.join(base, f"{i}{kind}.npy")
+                if not os.path.exists(path):
+                    raise FileNotFoundError(f"shard {i} under {base} has no {i}{kind}.npy")
+                arrays.append(np.load(path, mmap_mode="r"))
+        self._vox, self._cls, self._inst = (np.concatenate(parts[k], axis=0) for k in ("Full", "Class", "Inst"))
+        self.dataLength = len(self._vox)
+        self._idx = np.arange(self.dataLength)
+        self._shuffle()
+
+    def _shuffle(self):
+        self._rng.shuffle(self._idx)
+        self.batchStart = 0
+
+    def getNextBatch(self, batchSize: int = 32) -> Dict[str, np.ndarray]:
+        if self.batchStart + batchSize > self.dataLength:
+            self.epoch += 1
+            self._shuffle()
+        sel = self._idx[self.batchStart : self.batchStart + batchSize]
+        self.batchStart += batchSize
+        vox = np.ascontiguousarray(self._vox[sel]).astype(np.float32)
+        if vox.ndim == 4:
+            vox = vox[..., None]
+        return {
+            "input_images": vox,
+            "class_list": np.ascontiguousarray(self._cls[sel]).astype(np.float32),
+            "inst_list": np.ascontiguousarray(self._inst[sel]).astype(np.float32),
+        }
 
 
 class SyntheticVoxelLoader:

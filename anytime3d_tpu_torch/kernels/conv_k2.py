@@ -10,6 +10,16 @@ whose shape has a plan (:func:`wgmma_plan`) take the tensor-core kernels of
 shapes without a plan take the FFMA kernels. The choice is made from shape
 and dtype before the launch, never by catching a failure.
 
+The forward, dx and dw are the custom operators ``anytime3d_torch::conv_k2``,
+``::conv_k2_dx`` and ``::conv_k2_dw`` (``torch.library``): a CUDA
+implementation that launches the kernels, a CPU one that is the plain
+version, a fake one that gives the output's shape and dtype and touches no
+data (so ``torch.export`` traces through the forward, and an exported program
+calls the op), and the forward's backward, which calls the dx and dw ops.
+Importing this module registers them; a process that loads an exported
+program must import it first. The launch counts are kept in the CUDA
+implementations, so an exported program counts its launches too.
+
 Layouts are the JAX package's: ``x`` is NDHWC ``(B, D, H, W, C)``, ``w`` is
 ``(2, 2, 2, C, N)``, the result is ``(B, D, H, W, N)`` in ``x``'s dtype.
 """
@@ -45,12 +55,19 @@ def conv_k2_dx_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return dx.permute(0, 2, 3, 4, 1).contiguous()
 
 
+def _dw_dtype(dtype: torch.dtype) -> torch.dtype:
+    """dw's dtype: float32, or float64 for float64 operands."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def conv_k2_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Plain dw (float32), as ``_conv_k2_bwd_impl`` writes it: 8 shifted
-    contractions of ``x`` padded (0, 1) with ``g``, summed in float32."""
+    """Plain dw (float32; float64 for float64 operands), as
+    ``_conv_k2_bwd_impl`` writes it: 8 shifted contractions of ``x`` padded
+    (0, 1) with ``g``, summed in float32."""
     _, D, H, W, _ = x.shape
-    xp = F.pad(x, (0, 0) + (0, 1) * 3).float()
-    gf = g.float()
+    dtype = _dw_dtype(x.dtype)
+    xp = F.pad(x, (0, 0) + (0, 1) * 3).to(dtype)
+    gf = g.to(dtype)
     dw = torch.stack([
         torch.einsum("bdhwc,bdhwn->cn", xp[:, dz:dz + D, dy:dy + H, dx:dx + W], gf) for dz, dy, dx in _TAPS
     ])
@@ -215,11 +232,28 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_cuda_operand(what: str, name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, not {t.device}")
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, not {t.dtype}")
+    if t.dim() != 5 or min(t.shape) < 1 or not t.is_contiguous():
+        raise ValueError(f"{what} kernel takes a non-empty contiguous NDHWC {name}; got {tuple(t.shape)}")
+
+
+@torch.library.custom_op("anytime3d_torch::conv_k2", mutates_args=(), device_types="cpu")
+def _conv_k2_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward: the plain version on the CPU, the kernel on CUDA (``w`` cast to ``x``'s dtype)."""
+    return conv_k2_reference(x, w)
+
+
+@_conv_k2_op.register_kernel("cuda")
 def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous (B,D,H,W,C) on the card, ``w`` (2,2,2,C,N) in ``x``'s dtype."""
+    """``x`` contiguous (B,D,H,W,C) on the card, ``w`` (2,2,2,C,N)."""
+    _check_cuda_operand("conv_k2", "x", x)
     B, D, H, W, C = x.shape
     N = w.shape[-1]
-    w = w.contiguous()
+    w = w.to(x.dtype).contiguous()
     y = torch.empty((B, D, H, W, N), dtype=x.dtype, device=x.device)
     _check_operands("conv_k2", C, N, x, w, y)
     plan = _plan_for(x, N)
@@ -236,24 +270,19 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _check_cuda_operand(what: str, name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what} runs on CPU or CUDA tensors, not {t.device}")
-    if t.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{what} kernel takes float32 or bfloat16, not {t.dtype}")
-    if t.dim() != 5 or min(t.shape) < 1 or not t.is_contiguous():
-        raise ValueError(f"{what} kernel takes a non-empty contiguous NDHWC {name}; got {tuple(t.shape)}")
+@_conv_k2_op.register_fake
+def _(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((*x.shape[:4], w.shape[-1]))
 
 
-def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """dx (B,D,H,W,C), in ``g``'s dtype, of ``conv_k2`` from the output
-    gradient ``g`` (B,D,H,W,N) and ``w`` (2,2,2,C,N). CUDA tensors go through
-    a kernel (adding one to ``conv_k2.launches_dx``, and to
-    ``conv_k2.launches_dx_wgmma`` where it is the tensor-core kernel: bfloat16
-    whose shape, as a forward from N to C, has a plan) or the call raises;
-    CPU tensors through :func:`conv_k2_dx_reference`."""
-    if g.device.type == "cpu":
-        return conv_k2_dx_reference(g, w)
+@torch.library.custom_op("anytime3d_torch::conv_k2_dx", mutates_args=(), device_types="cpu")
+def _conv_k2_dx_op(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx: the plain version on the CPU, the kernel on CUDA."""
+    return conv_k2_dx_reference(g, w)
+
+
+@_conv_k2_dx_op.register_kernel("cuda")
+def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_cuda_operand("conv_k2 dx", "g", g)
     B, D, H, W, N = g.shape
     C = w.shape[3]
@@ -277,6 +306,22 @@ def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         conv_k2.launches_dx_wgmma += 1
     conv_k2.launches_dx += 1
     return dx
+
+
+@_conv_k2_dx_op.register_fake
+def _(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return g.new_empty((*g.shape[:4], w.shape[3]))
+
+
+def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx (B,D,H,W,C), in ``g``'s dtype, of ``conv_k2`` from the output
+    gradient ``g`` (B,D,H,W,N) and ``w`` (2,2,2,C,N): the op
+    ``anytime3d_torch::conv_k2_dx``. CUDA tensors go through a kernel (adding
+    one to ``conv_k2.launches_dx``, and to ``conv_k2.launches_dx_wgmma`` where
+    it is the tensor-core kernel: bfloat16 whose shape, as a forward from N to
+    C, has a plan) or the call raises; CPU tensors through
+    :func:`conv_k2_dx_reference`."""
+    return _conv_k2_dx_op(g, w)
 
 
 # The FFMA dw's tiling (csrc/conv_k2.cu, gemm::DwTile): output tiles of 128
@@ -303,14 +348,14 @@ def ffma_dw_split(rows: int, C: int, N: int, sms: int = 132) -> tuple[int, int]:
     return -(-stages // per_split), per_split
 
 
-def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dw (2,2,2,C,N), float32, of ``conv_k2`` from its input ``x``
-    (B,D,H,W,C) and the output gradient ``g`` (B,D,H,W,N) of the same dtype.
-    CUDA tensors go through the kernel (adding one to
-    ``conv_k2.launches_dw``) or the call raises; CPU tensors through
-    :func:`conv_k2_dw_reference`. The result is the same from run to run."""
-    if x.device.type == "cpu":
-        return conv_k2_dw_reference(x, g)
+@torch.library.custom_op("anytime3d_torch::conv_k2_dw", mutates_args=(), device_types="cpu")
+def _conv_k2_dw_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw: the plain version on the CPU, the kernel on CUDA."""
+    return conv_k2_dw_reference(x, g)
+
+
+@_conv_k2_dw_op.register_kernel("cuda")
+def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check_cuda_operand("conv_k2 dw", "x", x)
     _check_cuda_operand("conv_k2 dw", "g", g)
     if g.dtype != x.dtype or g.shape[:4] != x.shape[:4]:
@@ -341,50 +386,61 @@ def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw
 
 
-class _ConvK2(torch.autograd.Function):
-    """The kernels behind autograd, for CUDA tensors: ``forward`` casts the
-    parameter to ``x``'s dtype, ``backward`` launches dx and dw only where a
-    gradient is asked for and returns dw in the parameter's dtype."""
+@_conv_k2_dw_op.register_fake
+def _(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((2, 2, 2, x.shape[-1], g.shape[-1]), dtype=_dw_dtype(x.dtype))
 
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        wc = w.to(x.dtype)
-        ctx.save_for_backward(x, wc)
-        ctx.w_dtype = w.dtype
-        return _launch_forward(x, wc)
 
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        x, wc = ctx.saved_tensors
-        g = g.to(x.dtype).contiguous()  # autograd hands over permuted views more often than not
-        dx = conv_k2_dx(g, wc) if ctx.needs_input_grad[0] else None
-        dw = conv_k2_dw(x, g).to(ctx.w_dtype) if ctx.needs_input_grad[1] else None
-        return dx, dw
+def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw (2,2,2,C,N), float32, of ``conv_k2`` from its input ``x``
+    (B,D,H,W,C) and the output gradient ``g`` (B,D,H,W,N) of the same dtype:
+    the op ``anytime3d_torch::conv_k2_dw``. CUDA tensors go through the
+    kernel (adding one to ``conv_k2.launches_dw``) or the call raises; CPU
+    tensors through :func:`conv_k2_dw_reference`. The result is the same
+    from run to run."""
+    return _conv_k2_dw_op(x, g)
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g: torch.Tensor):
+    """dx and dw through their ops, each only where a gradient is asked for;
+    dw in the parameter's dtype straight from the op's float32 sum."""
+    x, w = ctx.saved_tensors
+    g = g.to(x.dtype).contiguous()  # autograd hands over permuted views more often than not
+    dx = _conv_k2_dx_op(g, w) if ctx.needs_input_grad[0] else None
+    dw = _conv_k2_dw_op(x, g).to(w.dtype) if ctx.needs_input_grad[1] else None
+    return dx, dw
+
+
+_conv_k2_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """k=2 s=1 SAME conv, differentiable in ``x`` and ``w``. A CUDA tensor goes
-    through the CUDA kernels, forward and backward, or the call raises; a CPU
-    tensor goes through :func:`conv_k2_reference` and autograd's own backward.
+    """k=2 s=1 SAME conv, differentiable in ``x`` and ``w``: the op
+    ``anytime3d_torch::conv_k2``. A CUDA tensor goes through the CUDA
+    kernels, forward and backward, or the call raises; a CPU tensor through
+    :func:`conv_k2_reference` and the plain dx and dw.
 
     ``w`` may be a float32 parameter beside a bfloat16 ``x``: it is cast to
-    ``x``'s dtype and its gradient comes back in float32. Every kernel launch
-    adds one to ``conv_k2.launches`` (forward), ``conv_k2.launches_dx`` or
-    ``conv_k2.launches_dw``; a launch of a tensor-core kernel also to
-    ``conv_k2.launches_wgmma`` (forward), ``conv_k2.launches_dx_wgmma`` or
-    ``conv_k2.launches_dw_wgmma``."""
+    ``x``'s dtype inside the op and its gradient comes back in float32. Every
+    kernel launch adds one to ``conv_k2.launches`` (forward),
+    ``conv_k2.launches_dx`` or ``conv_k2.launches_dw``; a launch of a
+    tensor-core kernel also to ``conv_k2.launches_wgmma`` (forward),
+    ``conv_k2.launches_dx_wgmma`` or ``conv_k2.launches_dw_wgmma``."""
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:4]) != (2, 2, 2, x.shape[-1]):
         raise ValueError(f"conv_k2 takes x (B,D,H,W,C) and w (2,2,2,C,N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:
         raise ValueError(f"x on {x.device} but w on {w.device}")
-    if x.device.type == "cpu":
-        return conv_k2_reference(x, w)
-    _check_cuda_operand("conv_k2", "x", x)
-    # checked here, not first in backward
-    _check_operands("conv_k2", x.shape[-1], w.shape[-1])
-    if torch.is_grad_enabled() and x.requires_grad:
-        _check_operands("conv_k2 dx", x.shape[-1], w.shape[-1], depth_is_n=True)
-    return _ConvK2.apply(x, w)
+    if x.device.type != "cpu":
+        _check_cuda_operand("conv_k2", "x", x)
+        # checked here, not first in backward
+        _check_operands("conv_k2", x.shape[-1], w.shape[-1])
+        if torch.is_grad_enabled() and x.requires_grad:
+            _check_operands("conv_k2 dx", x.shape[-1], w.shape[-1], depth_is_n=True)
+    return _conv_k2_op(x, w)
 
 
 conv_k2.launches = 0

@@ -37,10 +37,11 @@ class MicroBatcher:
         max_wait_s: float = 0.005,
         input_dtype=np.float32,
         max_in_flight: int = 2,
-        device="cpu",
+        device="cuda",
     ):
         """``input_shape`` is the per-item shape (no batch dim); ``mask_dim``
-        the latent-mask width; ``device`` where ``infer_fn`` takes its inputs."""
+        the latent-mask width; ``device`` where ``infer_fn`` takes its inputs
+        (the card unless the caller names another)."""
         self._fn = infer_fn
         self._b = int(batch_size)
         self._item_shape = tuple(input_shape)

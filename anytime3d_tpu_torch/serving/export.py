@@ -1,8 +1,16 @@
-"""The serving program: encode -> nearest-prior classify -> prior fill -> decode.
+"""The serving program: encode -> nearest-prior classify -> prior fill -> decode,
+as an eager function over the model or as one exported artifact.
 
-Counterpart of ``anytime3d_tpu/serving/export.py:41-169``. The JAX package
-serialises this program as StableHLO; here it is an eager function over the
-model (ahead-of-time export with ``torch.export`` is not ported yet).
+Counterpart of ``anytime3d_tpu/serving/export.py:41-169,229-236``. The JAX
+package serialises the program as StableHLO; here :func:`export_infer` traces
+it with ``torch.export`` (the weights and the prior means become constants of
+the program, on the model's device and in its dtype) and saves it with
+``torch.export.save`` into bytes, and :func:`load_infer` loads those bytes in
+any process, with no model class, config or checkpoint. An artifact is tied to
+the torch version that saved it: load it with the same version. Its batch
+shape is static, as in the JAX artifact: the micro-batcher pads requests to it.
+The ``conv_k2`` stages are the op ``anytime3d_torch::conv_k2`` in the program;
+importing this module registers it.
 
 One deliberate difference: the JAX program applies a sigmoid to the decoder
 output, which the decoder has already passed through its own sigmoid, so its
@@ -12,15 +20,80 @@ output, which the decoder has already passed through its own sigmoid, so its
 
 from __future__ import annotations
 
+import io
+import math
 from typing import Callable, Dict, Sequence
 
 import torch
+import torch.nn as nn
 
+import anytime3d_tpu_torch.kernels.conv_k2  # noqa: F401  registers the ops an exported program calls
 from anytime3d_tpu_torch.anytime.engine import classify_by_prior
 from anytime3d_tpu_torch.data.packing import pack_voxels_device, unpack_voxels
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
 
 InferFn = Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
+
+
+class _ServingProgram(nn.Module):
+    """The serving program over ``model`` and its prior means (a buffer): the
+    module that the eager functions call and that ``export_infer`` exports.
+    With ``item_shape`` it takes packed bits, (B, N/8) uint8, of (B,
+    *item_shape) grids; with ``threshold`` it returns ``pred_packed`` bits of
+    ``pred > threshold`` in place of ``pred``."""
+
+    def __init__(self, model: MultiModalVAE, correction: bool = True, item_shape=None, threshold=None):
+        super().__init__()
+        cfg = model.config
+        if cfg.prior_category is None:
+            raise NotImplementedError("not ported yet (A13): serving without class priors")
+        model.eval()
+        param = next(model.parameters())
+        with torch.inference_mode():
+            eye = torch.eye(cfg.prior_category.input_dim, dtype=param.dtype, device=param.device)
+            prior_means, _ = model.priors_category(eye)
+        self.model = model
+        self.register_buffer("prior_means", prior_means.clone())  # a normal tensor, not an inference one
+        self.correction = correction
+        self.item_shape = None if item_shape is None else tuple(item_shape)
+        self.threshold = threshold
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.item_shape is not None:
+            x = unpack_voxels(x, self.item_shape)
+        prior_means = self.prior_means
+        enc = self.model.encode(x.to(prior_means.dtype))
+        if enc.mean_category is not None:
+            z_cat, lv_cat = enc.mean_category, enc.log_var_category
+            z_parts, lv_parts = [enc.mean_inst], [enc.log_var_inst]
+        else:
+            z_cat, lv_cat = enc.mean_inst, enc.log_var_inst
+            z_parts, lv_parts = [], []
+        if self.correction:
+            category = classify_by_prior(z_cat, prior_means, mask=mask)
+            z_cat = torch.where(mask > 0, z_cat, prior_means[category])
+        else:
+            category = classify_by_prior(z_cat, prior_means)
+        z = torch.cat([z_cat, *z_parts], dim=-1)
+        out = {
+            "category": category,
+            "z_mean": z.float(),
+            "z_log_var": torch.cat([lv_cat, *lv_parts], dim=-1).float(),
+        }
+        pred = self.model.decode(z).float()
+        if self.threshold is None:
+            out["pred"] = pred
+        else:
+            out["pred_packed"] = pack_voxels_device(pred, self.threshold)
+        return out
+
+
+def _inference(program: nn.Module) -> InferFn:
+    def fn(x: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            return program(x, mask)
+
+    return fn
 
 
 def make_infer_fn(model: MultiModalVAE, correction: bool = True) -> InferFn:
@@ -35,39 +108,7 @@ def make_infer_fn(model: MultiModalVAE, correction: bool = True) -> InferFn:
 
     Switches the model to eval mode. The prior means are computed here, once.
     """
-    cfg = model.config
-    if cfg.prior_category is None:
-        raise NotImplementedError("serving without class priors is not ported yet")
-    model.eval()
-    param = next(model.parameters())
-    dtype, device = param.dtype, param.device
-    with torch.inference_mode():
-        eye = torch.eye(cfg.prior_category.input_dim, dtype=dtype, device=device)
-        prior_means, _ = model.priors_category(eye)
-
-    def fn(x: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode():
-            enc = model.encode(x.to(dtype))
-            if enc.mean_category is not None:
-                z_cat, lv_cat = enc.mean_category, enc.log_var_category
-                z_parts, lv_parts = [enc.mean_inst], [enc.log_var_inst]
-            else:
-                z_cat, lv_cat = enc.mean_inst, enc.log_var_inst
-                z_parts, lv_parts = [], []
-            if correction:
-                category = classify_by_prior(z_cat, prior_means, mask=mask)
-                z_cat = torch.where(mask > 0, z_cat, prior_means[category])
-            else:
-                category = classify_by_prior(z_cat, prior_means)
-            z = torch.cat([z_cat, *z_parts], dim=-1)
-            return {
-                "category": category,
-                "z_mean": z.float(),
-                "z_log_var": torch.cat([lv_cat, *lv_parts], dim=-1).float(),
-                "pred": model.decode(z).float(),
-            }
-
-    return fn
+    return _inference(_ServingProgram(model, correction))
 
 
 def make_packed_infer(model: MultiModalVAE, item_shape: Sequence[int], threshold: float = 0.5) -> InferFn:
@@ -75,13 +116,56 @@ def make_packed_infer(model: MultiModalVAE, item_shape: Sequence[int], threshold
     uint8 occupancy bits (``np.packbits`` order) of (B, *item_shape) grids and
     returns ``pred_packed`` (B, N/8) uint8 of ``pred > threshold`` in place of
     ``pred``, beside ``z_mean``, ``z_log_var`` and ``category``."""
-    infer = make_infer_fn(model)
-    item_shape = tuple(item_shape)
+    return _inference(_ServingProgram(model, item_shape=item_shape, threshold=threshold))
 
-    def fn(packed: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode():
-            out = infer(unpack_voxels(packed, item_shape), mask)
-            out["pred_packed"] = pack_voxels_device(out.pop("pred"), threshold)
-        return out
 
-    return fn
+def export_infer(model: MultiModalVAE, input_shape: Sequence[int], correction: bool = True,
+                 packed_input: bool = False, packed_output: bool = False, output_threshold: float = 0.5) -> bytes:
+    """The serving program of ``model`` exported with ``torch.export`` and
+    saved into bytes: weights and prior means baked in, on the model's device
+    and in its dtype.
+
+    ``input_shape`` includes the batch, e.g. ``(8, 64, 64, 64, 1)``; the
+    program takes ``x`` as float32 of that shape, or with ``packed_input`` as
+    (B, N/8) uint8 occupancy bits, and a (B, z_cat_dim) float32 ``mask``.
+    ``packed_output`` replaces ``pred`` with ``pred_packed`` bits at
+    ``output_threshold``. Load the bytes with :func:`load_infer`."""
+    batch, item_shape = int(input_shape[0]), tuple(input_shape[1:])
+    program = _ServingProgram(model, correction, item_shape if packed_input else None,
+                              output_threshold if packed_output else None)
+    device = program.prior_means.device
+    if packed_input:
+        x = torch.zeros((batch, math.prod(item_shape) // 8), dtype=torch.uint8, device=device)
+    else:
+        x = torch.zeros((batch, *item_shape), dtype=torch.float32, device=device)
+    z_cat_dim = model.config.z_category_dim or model.config.z_inst_dim
+    mask = torch.ones((batch, z_cat_dim), dtype=torch.float32, device=device)
+    with torch.no_grad():
+        exported = torch.export.export(program, (x, mask), strict=False)
+    buf = io.BytesIO()
+    torch.export.save(exported, buf)
+    return buf.getvalue()
+
+
+class LoadedInfer:
+    """An exported serving program, loaded: ``fn(x, mask) -> outputs``, run
+    under ``inference_mode``. ``input_shape`` and ``input_dtype`` are those of
+    its ``x`` (uint8 (B, N/8) for a packed-input program, float32 (B, D, H, W,
+    1) otherwise), ``mask_shape`` that of its mask, ``device`` where both go;
+    ``module`` is the program as an ``fx.GraphModule``."""
+
+    def __init__(self, exported: torch.export.ExportedProgram):
+        names = set(exported.graph_signature.user_inputs)
+        x, mask = [n.meta["val"] for n in exported.graph.nodes if n.op == "placeholder" and n.name in names]
+        self.input_shape, self.input_dtype, self.mask_shape = tuple(x.shape), x.dtype, tuple(mask.shape)
+        self.device = x.device
+        self.module = exported.module()
+        self._run = _inference(self.module)
+
+    def __call__(self, x: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self._run(x, mask)
+
+
+def load_infer(data: bytes) -> LoadedInfer:
+    """Load an artifact of :func:`export_infer` into ``fn(x, mask) -> outputs``."""
+    return LoadedInfer(torch.export.load(io.BytesIO(data)))

@@ -5,11 +5,16 @@ Counterpart of ``anytime3d_tpu/serving/server.py``, with the same protocol
 
   POST /infer   {"voxels_packed_b64": <base64 of N/8 uint8 bit-packed
                  occupancy>, "mask": [z_cat floats, optional]}
+                (a float-input program takes {"input": [nested floats of
+                 the item grid], "mask": ...} instead)
             ->  {"category": int, "z_mean": [...], "z_log_var": [...],
-                 "pred_packed_b64": <base64 bits>}
+                 "pred_packed_b64": <base64 bits>}  (fields per program;
+                 a float grid of more than 4096 values comes back as
+                 "<key>_f32_b64", base64 of its float32 bytes)
   GET  /healthz ->  {"ok": true, "batches_run": int}
 
 Start: python -m anytime3d_tpu_torch.cli.serve --config modelnet_nolbo --port 8731
+   or: python -m anytime3d_tpu_torch.cli.serve --artifact model.pt2 --port 8731
 """
 
 from __future__ import annotations
@@ -36,27 +41,38 @@ class InferenceServer:
         mask_dim: int,
         batch_size: int = 8,
         max_wait_s: float = 0.002,
-        device="cpu",
+        device="cuda",
+        input_dtype=np.uint8,
     ):
-        """``infer_fn`` takes packed bits, (B, *item_shape) uint8, as
-        ``make_packed_infer`` builds it."""
+        """``infer_fn`` takes a batch of (B, *item_shape) items of
+        ``input_dtype`` on ``device``: packed bits, uint8 (B, N/8), as
+        ``make_packed_infer`` builds it, or float grids for a float-input
+        program (``input_dtype=np.float32``)."""
         self.batcher = MicroBatcher(
             infer_fn,
             batch_size=batch_size,
             input_shape=tuple(item_shape),
             mask_dim=mask_dim,
             max_wait_s=max_wait_s,
-            input_dtype=np.uint8,
+            input_dtype=input_dtype,
             device=device,
         )
         self._item_shape = tuple(item_shape)
+        self._dtype = input_dtype
         self._httpd: Optional[ThreadingHTTPServer] = None
 
     # ---- request handling ------------------------------------------------
     def infer_one(self, body: dict) -> dict:
-        if "voxels_packed_b64" not in body:
-            raise ValueError("send 'voxels_packed_b64': base64 of np.packbits of the boolean grid")
-        x = np.frombuffer(base64.b64decode(body["voxels_packed_b64"]), np.uint8).reshape(self._item_shape)
+        if "voxels_packed_b64" in body:
+            x = np.frombuffer(base64.b64decode(body["voxels_packed_b64"]), np.uint8)
+        else:
+            if self._dtype == np.uint8:
+                # a float grid cast to uint8 would truncate [0, 1] to zeros and
+                # return a confident wrong prediction: fail the request
+                raise ValueError("this server takes packed-bit input: send 'voxels_packed_b64' "
+                                 "(np.packbits of the boolean grid), not raw 'input' floats")
+            x = np.asarray(body["input"], np.float32)
+        x = x.reshape(self._item_shape).astype(self._dtype)
         mask = np.asarray(body["mask"], np.float32) if body.get("mask") is not None else None
         out = self.batcher.submit(x, mask).result(timeout=300)
         resp = {}
@@ -64,8 +80,12 @@ class InferenceServer:
             v = np.asarray(v)
             if k.endswith("_packed"):
                 resp[k + "_b64"] = base64.b64encode(v.tobytes()).decode()
-            else:
-                resp[k] = v.tolist()  # a 0-d array gives a plain scalar
+            elif v.ndim == 0:
+                resp[k] = v.item()
+            elif v.size <= 4096:
+                resp[k] = v.tolist()
+            else:  # large float grids ride base64 of their raw bytes
+                resp[k + "_f32_b64"] = base64.b64encode(v.astype(np.float32).tobytes()).decode()
         return resp
 
     # ---- HTTP plumbing ---------------------------------------------------

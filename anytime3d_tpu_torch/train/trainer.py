@@ -1,5 +1,5 @@
 """Training loop: prefetched batches from a host loader, periodic eval with
-the anytime metrics, NaN abort.
+the anytime metrics, checkpoints, and NaN restarts from the last checkpoint.
 
 Counterpart of ``anytime3d_tpu/train/trainer.py``. With ``prefetch_depth``
 > 0 (the default, 2) a ``DevicePrefetcher`` makes the batches on a worker
@@ -8,8 +8,17 @@ overlaps the steps before; at 0 each batch is made between steps and copied
 from pinned memory without blocking. Metrics are fetched (a device sync) on
 the logging cadence. Each eval adds the anytime protocol's metrics
 (``anytime_*``, at ``eval_missing_prob``) for models with a category prior.
-Checkpoints, NaN restarts from a checkpoint and the multi-scale schedule are
-not ported yet: ``TrainerConfig`` has no field for them.
+
+Checkpoints and failures follow the JAX loop (``trainer.py:133-213``): a
+``load_path`` is restored when the trainer is made; every ``save_every``
+steps the state is saved to ``save_path`` without waiting for the write,
+but only when the step's loss is finite and its gradients were
+(``grads_finite``), so a NaN that falls between log ticks never reaches the
+checkpoint; on a non-finite logged loss the run restores the last checkpoint
+it saved while ``max_nan_restarts`` allows, reseeds its generator with
+``step * 7919 + restarts`` and rewinds the batch stream to the restored step,
+and aborts otherwise; a final save follows unless the run aborted. The
+multi-scale schedule (an image-family loader's concern) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 
 from anytime3d_tpu_torch.anytime.engine import anytime_eval
 from anytime3d_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+from anytime3d_tpu_torch.train.checkpoint import restore_state, save_state
 from anytime3d_tpu_torch.train.state import TrainState
 from anytime3d_tpu_torch.train.step import LossConfig, make_eval_step, make_train_step
 from anytime3d_tpu_torch.utils.logging import MetricLogger
@@ -32,11 +42,16 @@ from anytime3d_tpu_torch.utils.logging import MetricLogger
 class TrainerConfig:
     total_steps: int = 1000
     eval_every: int = 100
+    save_every: int = 1000
     log_every: int = 1
+    save_path: Optional[str] = None
+    load_path: Optional[str] = None
     jsonl_path: Optional[str] = None
     eval_missing_prob: float = 0.5
     # batches made on a worker thread this many steps ahead; 0 makes each between steps
     prefetch_depth: int = 2
+    # on a non-finite loss, restore the last checkpoint this many times before aborting
+    max_nan_restarts: int = 0
 
 
 class Trainer:
@@ -65,6 +80,9 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
         self.eval_history: List[Dict[str, float]] = []
         self.aborted_nan = False
+        self._stream: Optional[DevicePrefetcher] = None  # the batch stream of a run
+        if config.load_path:
+            self.state = restore_state(config.load_path, self.state)
 
     def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return to_device(batch, self.device)
@@ -72,35 +90,61 @@ class Trainer:
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def run(self, epoch_fn: Optional[Callable[[], int]] = None) -> TrainState:
-        prefetcher = None
-        if self.cfg.prefetch_depth > 0:
-            steps = iter(range(self.state.step, self.cfg.total_steps))
-            prefetcher = DevicePrefetcher(lambda: self.batch_fn(next(steps)), self.device, self.cfg.prefetch_depth)
-        try:
-            return self._run_loop(epoch_fn, prefetcher)
-        finally:
-            if prefetcher is not None:
-                prefetcher.close()
+    def _prefetcher(self, start: int) -> Optional[DevicePrefetcher]:
+        """The batch stream from step ``start``: ``batch_fn(start), batch_fn(start + 1), ...``
+        made ``prefetch_depth`` ahead, or None at depth 0."""
+        if self.cfg.prefetch_depth <= 0:
+            return None
+        steps = iter(range(start, self.cfg.total_steps))
+        return DevicePrefetcher(lambda: self.batch_fn(next(steps)), self.device, self.cfg.prefetch_depth)
 
-    def _run_loop(self, epoch_fn: Optional[Callable[[], int]], prefetcher: Optional[DevicePrefetcher]) -> TrainState:
+    def run(self, epoch_fn: Optional[Callable[[], int]] = None) -> TrainState:
+        self._stream = self._prefetcher(self.state.step)
+        try:
+            return self._run_loop(epoch_fn)
+        finally:
+            if self._stream is not None:
+                self._stream.close()
+                self._stream = None
+
+    def _run_loop(self, epoch_fn: Optional[Callable[[], int]]) -> TrainState:
         cfg = self.cfg
         generator = self._generator(self.state.step)  # the draws of a run follow from the step it starts at
         it = self.state.step
+        nan_restarts, last_saved_step = 0, -1
         while it < cfg.total_steps:
-            batch = prefetcher.get() if prefetcher is not None else self.to_device(self.batch_fn(it))
+            batch = self._stream.get() if self._stream is not None else self.to_device(self.batch_fn(it))
             self.state, metrics = self.step_fn(self.state, batch, generator)
             if it % cfg.log_every == 0 or it == cfg.total_steps - 1:
                 host_metrics = {k: float(v) for k, v in metrics.items()}
                 self.logger.update(host_metrics, step=it, epoch=epoch_fn() if epoch_fn else 0)
                 self.history.append(host_metrics)
                 if not math.isfinite(host_metrics["loss_total"]):
+                    if nan_restarts < cfg.max_nan_restarts and cfg.save_path and last_saved_step >= 0:
+                        nan_restarts += 1
+                        print(f"\nNaN/Inf loss at step {it}, restoring the checkpoint of step {last_saved_step} "
+                              f"(restart {nan_restarts}/{cfg.max_nan_restarts})")
+                        self.state = restore_state(cfg.save_path, self.state)
+                        generator = self._generator(self.state.step * 7919 + nan_restarts)
+                        it = self.state.step
+                        if self._stream is not None:  # rewind the batch stream to the restored step
+                            self._stream.close()
+                            self._stream = self._prefetcher(it)
+                        continue
                     print("\nNaN/Inf loss, aborting")
                     self.aborted_nan = True
                     break
+            # never checkpoint a non-finite state: the loss is checked on the log cadence only, and a
+            # finite loss with overflowed gradients would save poison too (two scalar syncs a save)
+            if cfg.save_path and (it + 1) % cfg.save_every == 0:
+                if math.isfinite(float(metrics["loss_total"])) and float(metrics["grads_finite"]) > 0:
+                    save_state(cfg.save_path, self.state, wait=False)
+                    last_saved_step = it
             if self.eval_batch_fn is not None and cfg.eval_every > 0 and (it + 1) % cfg.eval_every == 0:
                 self.evaluate(it)
             it += 1
+        if cfg.save_path and not self.aborted_nan:
+            save_state(cfg.save_path, self.state)
         self.logger.close()
         return self.state
 

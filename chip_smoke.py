@@ -58,7 +58,23 @@ order, any failure ending the run with a non-zero exit:
    native packer; every metric finite, the ``anytime_*`` metrics present, the
    loss falling, ``grads_finite`` 1; step time, host wall per step and peak
    memory printed; then as many steps again at prefetch depth 0, its host
-   wall per step printed beside.
+   wall per step printed beside;
+10. lifecycle, on the ModelNet fixtures (``tests/fixtures/modelnet``, 64^3)
+   at full width: ``cli/train.py --data <fixtures> --packed --bf16`` at B=4,
+   6 steps, checkpoints every 3 and at the end (4 / 3 / 4 launches a step and
+   4 + 6 for the eval, all on the tensor cores; the checkpoint's bytes, the
+   save's snapshot and commit and the restore timed); the restored state
+   equal to the trainer's, bit for bit; ``cli/evaluate.py --ckpt`` equal to
+   the trainer's model; one step from the restored state and one from the
+   trainer's on the same batch and generator (equal metrics, parameters
+   within ``LIFE_TOL_PARAM``); ``cli/export.py`` (f32, float input) and
+   ``export_infer`` (bf16, packed) loaded with ``load_infer`` and held to the
+   eager program, 4 launches a batch (FFMA in f32, tensor cores in bf16),
+   timed beside it; ``cli/serve.py --artifact`` (bf16 packed) in a
+   subprocess on an ephemeral port answering HTTP requests, beside
+   ``cli/serve.py --checkpoint --bf16`` (the eager ``make_packed_infer``) in
+   another, both started and warmed up at once, then each timed alone, every
+   reply's class equal to the other server's; the phase's wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -67,21 +83,26 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import base64
+import collections
+import concurrent.futures
 import copy
 import dataclasses
 import http.client
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
 
 import torch.nn.functional as F  # noqa: E402
 
@@ -181,6 +202,23 @@ ANYTIME_TOL_PR = 1e-3
 # focal loss by a few parts in a thousand and flips voxels near 0.5
 ANYTIME_TOL_BF16_LOSS_REL = 0.05
 ANYTIME_TOL_BF16_PR = 0.02
+FIXTURES = os.path.join(REPO, "tests", "fixtures", "modelnet")  # 5 train and 5 test shapes, 64^3, 40 classes
+LIFE_BATCH = 4
+LIFE_STEPS = 6
+LIFE_SAVE_EVERY = 3
+# one step from the restored state against one from the trainer's: the same
+# forward (equal metrics); cuDNN's bf16 weight gradient of the k=4 convs may
+# sum in another order, which moves an Adam update (at most lr = 1e-4) by far
+# less than 1% of it
+LIFE_TOL_PARAM = 1e-6
+ARTIFACT_BATCHES = 5
+ARTIFACT_REQUESTS = 256
+LIFE_SERVE_START_S = 300  # the subprocess loads torch and the artifact
+# exported program vs the eager one: the same ops on the same weights, so the
+# same numbers unless cuDNN picks another algorithm in the other caller; f32:
+# summation order only; bf16: two ulps (2^-7) of the largest entry
+EXPORT_TOL_F32 = 1e-5
+EXPORT_TOL_BF16 = 2.0**-7
 
 
 def card_line() -> str:
@@ -203,6 +241,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_enqueue_ms(fn, iters: int = 10) -> float:
+    """Mean host milliseconds of one call, from an idle card until the call
+    returns with its work enqueued: the host's share of a served batch."""
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / iters * 1e3
 
 
 def phase_device() -> str:
@@ -412,14 +463,17 @@ def phase_kernels(card: str) -> dict:
     return res
 
 
-def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict) -> list:
+def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict, life_counts: dict,
+                   artifact_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
     every case measured, with the design it took (``ffma`` or ``wgmma``). Every
     number but ``bound_ms`` was measured in this run. ``launches`` sums
-    the served runs, the train run and the anytime sweep; ``launches_wgmma``
-    is the part of them that took the tensor-core kernels."""
+    the served runs, the train run, the anytime sweep, the lifecycle's train,
+    restored and evaluate runs and its exported programs' batches;
+    ``launches_wgmma`` is the part of them that took the tensor-core kernels."""
+    paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
@@ -431,14 +485,16 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "route": "cuda",
             "source": "anytime3d_tpu_torch/kernels/csrc/conv_k2.cu",
             "replaces": replaces[kernel],
-            "launches": serve_counts[kernel] + train_counts[kernel] + anytime_counts[kernel],
+            "launches": sum(c[kernel] for c in paths),
             "launches_serve": serve_counts[kernel],
             "launches_train": train_counts[kernel],
             "launches_anytime": anytime_counts[kernel],
+            "launches_lifecycle": life_counts[kernel],
+            "launches_artifact": artifact_counts[kernel],
             **head,
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
-            "launches_wgmma": sum(c[f"{kernel}_wgmma"] for c in (serve_counts, train_counts, anytime_counts)),
+            "launches_wgmma": sum(c[f"{kernel}_wgmma"] for c in paths),
         })
     return entries
 
@@ -849,28 +905,31 @@ def phase_train_run(card: str) -> dict:
     return counts
 
 
-def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> dict:
-    """Serve the card model over HTTP; returns the launch counts of the served run."""
-    cfg = model.config
-    item = cfg.decoder.output_shape
-    z_dim = cfg.z_category_dim
-    item_bytes = math.prod(item) // 8
-    grids = pack_voxels(synthetic_grids(64, item[0], SEED + 1))  # request i sends grid i % 64
-    rng = np.random.default_rng(SEED + 1)
-    masks = np.ones((N_REQUESTS, z_dim), np.float32)  # full, partial and empty masks in turn
+def serve_requests(n_requests: int, dim: int, z_dim: int, seed: int):
+    """Packed grids and latent masks of ``n_requests`` requests: request i
+    sends grid i % 64 and a full, partial or empty mask in turn."""
+    grids = pack_voxels(synthetic_grids(64, dim, seed))
+    rng = np.random.default_rng(seed)
+    masks = np.ones((n_requests, z_dim), np.float32)
     masks[1::3] = rng.uniform(size=masks[1::3].shape) < 0.5
     masks[2::3] = 0.0
-    server = InferenceServer(make_packed_infer(model, item), (item_bytes,), z_dim, batch_size=BATCH,
-                             device=device)
-    latencies = [0.0] * N_REQUESTS
-    replies: list = [None] * N_REQUESTS
+    return grids, masks
+
+
+def http_load(port: int, grids: np.ndarray, masks: np.ndarray) -> tuple[np.ndarray, list, float, dict]:
+    """``len(masks)`` requests to ``/infer`` from ``N_CLIENTS`` closed-loop
+    threads; returns the latencies (s), the replies, the wall seconds and
+    ``/healthz`` after the run. Fails on any client error."""
+    n = len(masks)
+    latencies = np.zeros(n)
+    replies: list = [None] * n
     errors: list = []
 
     def client(idx: list) -> None:
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
         try:
             for i in idx:
-                body = json.dumps({"voxels_packed_b64": base64.b64encode(grids[i % 64].tobytes()).decode(),
+                body = json.dumps({"voxels_packed_b64": base64.b64encode(grids[i % len(grids)].tobytes()).decode(),
                                    "mask": masks[i].tolist()})
                 t = time.perf_counter()
                 conn.request("POST", "/infer", body, {"Content-Type": "application/json"})
@@ -885,44 +944,358 @@ def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> dict:
         finally:
             conn.close()
 
-    try:
-        reset_counts()
-        port = server.serve(0, background=True)
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(list(range(c, N_REQUESTS, N_CLIENTS)),))
-                   for c in range(N_CLIENTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        conn.request("GET", "/healthz")
-        health = json.loads(conn.getresponse().read())
-        conn.close()
-    finally:
-        server.close()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(list(range(c, n, N_CLIENTS)),)) for c in range(N_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"serve: client failures {errors!r}")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/healthz")
+    health = json.loads(conn.getresponse().read())
+    conn.close()
+    return latencies, replies, wall, health
+
+
+def check_replies(what: str, replies: list, cfg, item_bytes: int) -> None:
     for i, r in enumerate(replies):
         ok = (
             isinstance(r.get("category"), int) and 0 <= r["category"] < cfg.category_dim
-            and len(r["z_mean"]) == z_dim and all(math.isfinite(v) for v in r["z_mean"])
+            and len(r["z_mean"]) == cfg.z_category_dim and all(math.isfinite(v) for v in r["z_mean"])
             and len(base64.b64decode(r["pred_packed_b64"])) == item_bytes
         )
         if not ok:
-            raise AssertionError(f"serve: malformed reply {i}: {str(r)[:200]}")
+            raise AssertionError(f"{what}: malformed reply {i}: {str(r)[:200]}")
+
+
+def phase_serve(model: MultiModalVAE, device: torch.device, card: str) -> dict:
+    """Serve the card model over HTTP; returns the launch counts of the served run."""
+    cfg = model.config
+    item = cfg.decoder.output_shape
+    item_bytes = math.prod(item) // 8
+    grids, masks = serve_requests(N_REQUESTS, item[0], cfg.z_category_dim, SEED + 1)
+    server = InferenceServer(make_packed_infer(model, item), (item_bytes,), cfg.z_category_dim, batch_size=BATCH,
+                             device=device)
+    try:
+        reset_counts()
+        port = server.serve(0, background=True)
+        latencies, replies, wall, health = http_load(port, grids, masks)
+    finally:
+        server.close()
+    check_replies("serve", replies, cfg, item_bytes)
     batches = int(health["batches_run"])
     if not (health["ok"] and batches >= 2):
         raise AssertionError(f"serve: /healthz {health}")
     counts = expect_counts(f"serve, {batches} f32 batches", 4 * batches, 0, 0, tensor_cores=False)
     launches = counts["conv_k2"]
-    lat = np.sort(np.asarray(latencies)) * 1e3
+    lat = np.sort(latencies) * 1e3
     print(f"serve: {N_REQUESTS} requests from {N_CLIENTS} threads (closed loop), batch {BATCH}, "
           f"{batches} batches ({N_REQUESTS / batches:.2f} requests each), p50 {np.percentile(lat, 50):.2f} ms "
           f"p99 {np.percentile(lat, 99):.2f} ms, {N_REQUESTS / wall:.1f} shapes/s (64^3, f32), "
           f"conv_k2 launches {launches} [{card}]", flush=True)
     return counts
+
+
+def state_leaves(state) -> list:
+    """(name, tensor) of a train state's parameters and Adam moments, in order."""
+    opt = state.optimizer.state_dict()["state"]
+    return list(state.model.state_dict().items()) + [
+        (f"adam {i} {k}", t) for i in sorted(opt) for k, t in sorted(opt[i].items())]
+
+
+def compare_outputs(what: str, got: dict, want: dict, rel_tol: float) -> str:
+    """Hold one program's outputs to another's: ``category`` equal, every float
+    within ``rel_tol`` of max(1, its largest entry), packed bits flipping only
+    near the threshold (``SLICE_BITS_TOL``). Returns a line of the errors."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} vs {sorted(want)}")
+    parts = []
+    for k in sorted(want):
+        a, b = got[k].cpu(), want[k].cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what} {k}: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+        if k == "category":
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: category {a.tolist()} vs {b.tolist()}")
+        elif k.endswith("_packed"):
+            flips = int((np.unpackbits(a.numpy()) != np.unpackbits(b.numpy())).sum())
+            parts.append(f"{k} bit flips {flips}/{a.numel() * 8}")
+            if flips > SLICE_BITS_TOL * a.numel() * 8:
+                raise AssertionError(f"{what}: {flips} {k} bits differ")
+        else:
+            err, top = float((a.float() - b.float()).abs().max()), max(1.0, float(b.float().abs().max()))
+            parts.append(f"{k} max_abs_err {err:.3e}")
+            if not (torch.isfinite(a).all() and err <= rel_tol * top):
+                raise AssertionError(f"{what}: {k} off by {err:.3e} (tol {rel_tol * top:.3e})")
+    return ", ".join(parts)
+
+
+def serving_subprocesses(argvs: list, device: torch.device) -> list:
+    """``python -m anytime3d_tpu_torch.cli.serve <args>`` for each ``args`` in
+    ``argvs``, all started at once on ephemeral ports, as a user starts them;
+    returns ``(process, port, seconds to ready)`` of each once all are ready.
+    The caller terminates them."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "anytime3d_tpu_torch.cli.serve", *args,
+                               "--port", "0", "--device", device.type], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for args in argvs]
+    lines: list = [[] for _ in procs]
+
+    def pump(proc: subprocess.Popen, out: list) -> None:
+        for line in proc.stdout:
+            out.append(line)
+
+    for proc, out in zip(procs, lines):
+        threading.Thread(target=pump, args=(proc, out), daemon=True).start()
+    ready: list = [None] * len(procs)
+    deadline = time.monotonic() + LIFE_SERVE_START_S
+    while time.monotonic() < deadline and not all(ready) and all(p.poll() is None for p in procs):
+        for i, out in enumerate(lines):
+            found = [line for line in out if line.startswith("serving ")]
+            if ready[i] is None and found:
+                print(f"lifecycle serve: {found[0].strip()}", flush=True)
+                ready[i] = (procs[i], int(found[0].rsplit(":", 1)[1]), time.perf_counter() - t0)
+        time.sleep(0.2)
+    if all(ready):
+        return ready
+    for proc in procs:
+        proc.kill()
+        proc.wait()
+    raise AssertionError("cli.serve did not start: " + " | ".join(
+        f"{' '.join(args)}: {''.join(out)[-1000:]}" for args, out in zip(argvs, lines)))
+
+
+def phase_lifecycle(cfg, device: torch.device, card: str) -> tuple[dict, dict]:
+    """The model's lifecycle at full width, on the ModelNet fixtures: train
+    with checkpoints, restore, evaluate the checkpoint, export, serve the
+    artifact. Returns the launch counts of the train, restored and evaluate
+    runs, and those of the exported programs."""
+    from anytime3d_tpu_torch.cli import evaluate as cli_evaluate
+    from anytime3d_tpu_torch.cli import export as cli_export
+    from anytime3d_tpu_torch.data.modelnet import ModelNetLoader
+    from anytime3d_tpu_torch.serving.export import export_infer, load_infer
+    from anytime3d_tpu_torch.train.checkpoint import (
+        CHECKPOINT_FILE, restore_params, restore_state, save_state, wait_for_saves)
+    from anytime3d_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    try:
+        ckpt = os.path.join(tmp, "ckpt")
+        life_counts = dict.fromkeys(read_counts(), 0)
+
+        def add(counts: dict) -> None:
+            for k, v in counts.items():
+                life_counts[k] += v
+
+        # 1. cli.train on the fixtures: bf16, packed, checkpoints every LIFE_SAVE_EVERY steps and at the end
+        args = cli_train.parse_args(["--config", "modelnet_nolbo", "--data", FIXTURES, "--packed", "--bf16",
+                                     "--batch-size", str(LIFE_BATCH), "--steps", str(LIFE_STEPS),
+                                     "--eval-every", str(LIFE_STEPS), "--save-path", ckpt,
+                                     "--save-every", str(LIFE_SAVE_EVERY)])
+        trainer, loader = cli_train.build_trainer(args)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.run(epoch_fn=lambda: loader.epoch)
+        torch.cuda.synchronize()
+        print("", flush=True)
+        train_s = time.perf_counter() - t0
+        add(expect_counts("lifecycle train", 4 * LIFE_STEPS + 4 + 6, 3 * LIFE_STEPS, 4 * LIFE_STEPS,
+                          tensor_cores=True))
+        rows = trainer.history + trainer.eval_history
+        if trainer.state.step != LIFE_STEPS or trainer.aborted_nan or not all(
+                math.isfinite(v) for row in rows for v in row.values()):
+            raise AssertionError(f"lifecycle train: step {trainer.state.step}, aborted {trainer.aborted_nan}, {rows}")
+        nbytes = os.path.getsize(os.path.join(ckpt, CHECKPOINT_FILE))
+        print(f"lifecycle train: {LIFE_STEPS} steps at B={LIFE_BATCH} on {loader.dataLength} ModelNet fixture "
+              f"shapes, bf16, saves every {LIFE_SAVE_EVERY} and at the end, {train_s:.2f} s; loss_total "
+              f"{trainer.history[0]['loss_total']:.1f} -> {trainer.history[-1]['loss_total']:.1f}; checkpoint "
+              f"{nbytes} bytes ({sum(p.numel() for p in trainer.model.parameters())} parameters x 3 x 4 = "
+              f"{sum(p.numel() for p in trainer.model.parameters()) * 12})", flush=True)
+
+        # the save's two halves and the restore, timed on the final state
+        t0 = time.perf_counter()
+        save_state(os.path.join(tmp, "timed"), trainer.state, wait=False)
+        t1 = time.perf_counter()
+        wait_for_saves()
+        t2 = time.perf_counter()
+        fresh = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED + 9), dtype=torch.bfloat16).to(device)
+        restored = create_train_state(fresh, learning_rate=args.learning_rate)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        restore_state(ckpt, restored)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        print(f"lifecycle checkpoint: save_state(wait=False) snapshot {(t1 - t0) * 1e3:.2f} ms, commit "
+              f"{(t2 - t1) * 1e3:.2f} ms; restore_state {(t4 - t3) * 1e3:.2f} ms; {nbytes} bytes [{card}]", flush=True)
+
+        # 2. the restored state is the trainer's final state, bit for bit
+        ours, theirs = state_leaves(trainer.state), state_leaves(restored)
+        if restored.step != trainer.state.step or not len(ours) == len(theirs) == 4 * len(trainer.state.params):
+            raise AssertionError(f"lifecycle restore: step {restored.step}, {len(theirs)} leaves of {len(ours)}")
+        differ = [name for (name, a), (_, b) in zip(ours, theirs) if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"lifecycle restore: {len(differ)} leaves differ, first {differ[:3]}")
+        print(f"lifecycle restore: step {restored.step}, {len(ours)} leaves (parameters, Adam moments and step "
+              f"counts) equal bit for bit", flush=True)
+
+        # 4 (before 3, whose steps move both states). cli.evaluate --ckpt against the trainer's own model
+        torch.cuda.synchronize()
+        reset_counts()
+        table, _ = cli_evaluate.main(["--config", "modelnet_nolbo", "--data", FIXTURES, "--ckpt", ckpt, "--bf16",
+                                      "--batch-size", str(LIFE_BATCH), "--batches", "1", "--rates", "0.5"])
+        torch.cuda.synchronize()
+        add(expect_counts("lifecycle evaluate --ckpt", 6 + 4, 0, 0, tensor_cores=True))  # sweep, then the PR curve
+        trainer.model.eval()
+        eval_fn = cli_train.build_batch_fn(ModelNetLoader(FIXTURES, "test", partial_num=None), cfg, LIFE_BATCH,
+                                           packed=True, native=True)
+        own = missing_rate_sweep(trainer.model, eval_fn, [0.5], num_batches=1)
+        for k, v in own[0.5].items():
+            w = table[0.5][k]
+            ok = w == v if k.startswith("acc") else abs(w - v) <= (
+                ANYTIME_TOL_PR if k.startswith(("precision", "recall")) else ANYTIME_TOL_LOSS_REL * abs(v))
+            if not (ok and math.isfinite(w)):
+                raise AssertionError(f"lifecycle evaluate --ckpt: {k} {w} vs the trainer's model {v}")
+        print(f"lifecycle evaluate --ckpt: test split, missing 0.5, equal to the trainer's model: {table[0.5]}",
+              flush=True)
+
+        # 3. one step from the restored state and one from the trainer's, same batch and generator
+        batch = to_device(cli_train.build_batch_fn(ModelNetLoader(FIXTURES, "train", partial_num=None), cfg,
+                                                   LIFE_BATCH, packed=True, native=True)(0), device)
+        loss_cfg = configs.loss_config("modelnet_nolbo")
+        metrics = []
+        torch.cuda.synchronize()
+        reset_counts()
+        for state in (trainer.state, restored):
+            state.model.train()
+            _, m = make_train_step(state.model, loss_cfg)(state, batch, torch.Generator(device=device).manual_seed(7))
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        add(expect_counts("lifecycle restored step", 8, 6, 8, tensor_cores=True))
+        moved = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(ours, state_leaves(restored))
+                    if a.is_floating_point())
+        if metrics[0] != metrics[1] or not moved <= LIFE_TOL_PARAM:
+            raise AssertionError(f"lifecycle restored step: metrics {metrics}, leaves apart by {moved}")
+        print(f"lifecycle restored step: metrics equal ({metrics[0]}); parameters and moments after the step "
+              f"within {moved:.3e} (tol {LIFE_TOL_PARAM})", flush=True)
+        del trainer, restored, fresh, batch
+
+        # 5. the f32 float-input artifact (cli.export) and a bf16 packed one (export_infer), against eager
+        f32_path, bf16_path = os.path.join(tmp, "model_f32.pt2"), os.path.join(tmp, "model_bf16_packed.pt2")
+        t0 = time.perf_counter()
+        cli_export.main(["--config", "modelnet_nolbo", "--ckpt", ckpt, "--batch-size", str(BATCH), "--out", f32_path])
+        export_f32_s = time.perf_counter() - t0
+        model32 = MultiModalVAE(cfg)
+        model32.load_state_dict(restore_params(ckpt, model32.state_dict()))
+        model16 = copy.deepcopy(model32).to(torch.bfloat16).to(device)
+        model32 = model32.to(device)
+        item = cfg.decoder.output_shape
+        t0 = time.perf_counter()
+        data16 = export_infer(model16, (BATCH, *item), packed_input=True, packed_output=True)
+        export_bf16_s = time.perf_counter() - t0
+        with open(bf16_path, "wb") as fh:
+            fh.write(data16)
+        with open(f32_path, "rb") as fh:
+            data32 = fh.read()
+        fn32, fn16 = load_infer(data32), load_infer(data16)
+        vox = synthetic_grids(BATCH, item[0], SEED + 4)
+        x = torch.from_numpy(vox).to(device)
+        packed = torch.from_numpy(pack_voxels(vox)).to(device)
+        mask = torch.from_numpy(latent_masks(BATCH, cfg.z_category_dim, SEED + 4)).to(device)
+        eager32, eager32_packed = make_infer_fn(model32), make_packed_infer(model32, item)
+        eager16 = make_packed_infer(model16, item)
+        art_counts = {}
+        for label, fn, inp, tensor_cores in (("f32 float-input", fn32, x, False), ("bf16 packed", fn16, packed, True)):
+            fn(inp, mask)  # warm-up, not counted
+            torch.cuda.synchronize()
+            reset_counts()
+            outs = [fn(inp, mask) for _ in range(ARTIFACT_BATCHES)]
+            torch.cuda.synchronize()
+            counts = expect_counts(f"lifecycle artifact, {label}", 4 * ARTIFACT_BATCHES, 0, 0, tensor_cores)
+            art_counts = {k: art_counts.get(k, 0) + v for k, v in counts.items()}
+            if tensor_cores:
+                line = compare_outputs("bf16 packed artifact vs eager", outs[0], eager16(packed, mask), EXPORT_TOL_BF16)
+            else:
+                line = compare_outputs("f32 artifact vs eager", outs[0], eager32(x, mask), EXPORT_TOL_F32)
+                bits = {"pred_packed": pack_voxels_device(outs[0]["pred"])}
+                line += "; its pred packed vs make_packed_infer: " + compare_outputs(
+                    "f32 artifact's bits", bits, {"pred_packed": eager32_packed(packed, mask)["pred_packed"]}, 0.0)
+            calls = collections.Counter(str(n.target) for n in fn.module.graph.nodes if n.op == "call_function")
+            print(f"lifecycle artifact, {label}: {ARTIFACT_BATCHES} batches of {BATCH}, launches {counts}; "
+                  f"against the eager program: {line}; the program makes {sum(calls.values())} calls, most often "
+                  f"{calls.most_common(4)}", flush=True)
+        runs = {"f32 artifact": lambda: fn32(x, mask), "f32 eager make_infer_fn": lambda: eager32(x, mask),
+                "f32 eager make_packed_infer": lambda: eager32_packed(packed, mask),
+                "bf16 packed artifact": lambda: fn16(packed, mask),
+                "bf16 eager make_packed_infer": lambda: eager16(packed, mask)}
+        first = {k: cuda_ms(f) for k, f in runs.items()}
+        again = {k: cuda_ms(f) for k, f in reversed(runs.items())}
+        enqueue = {k: host_enqueue_ms(f) for k, f in runs.items()}
+        print(f"lifecycle export: cli.export (f32, float input) {export_f32_s:.2f} s, {len(data32)} bytes; "
+              f"export_infer (bf16, packed) {export_bf16_s:.2f} s, {len(data16)} bytes; device time per batch of "
+              f"{BATCH} (CUDA events, mean of 20, two rounds in opposite orders): "
+              + ", ".join(f"{k} {(first[k] + again[k]) / 2:.3f} ms ({first[k]:.3f}, {again[k]:.3f})" for k in runs)
+              + "; host time to enqueue one batch (the card idle before each, mean of 10): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in enqueue.items()) + f" [{card}]", flush=True)
+
+        # 6. cli.serve --artifact in a subprocess, beside cli.serve --checkpoint (make_packed_infer, eager) in another,
+        # both started at once
+        item_bytes = math.prod(item) // 8
+        grids, masks = serve_requests(ARTIFACT_REQUESTS, item[0], cfg.z_category_dim, SEED + 5)
+        labels = ("serve --artifact", "serve --checkpoint --bf16")
+        servers = serving_subprocesses([["--artifact", bf16_path], ["--checkpoint", ckpt, "--bf16"]], device)
+        served = {}
+        try:
+            # the first batches of a fresh process (cuDNN's algorithm choice, first launches), both servers at
+            # once; not in the rate, which each server then gets alone
+            with concurrent.futures.ThreadPoolExecutor(len(servers)) as pool:
+                warm = list(pool.map(lambda srv: http_load(srv[1], grids[:N_CLIENTS], masks[:N_CLIENTS])[0],
+                                     servers))
+            for label, (_, port, started), warm_lat in zip(labels, servers, warm):
+                lat, replies, wall, health = http_load(port, grids, masks)
+                served[label] = (started, float(warm_lat.max()), lat, replies, wall, health)
+        finally:
+            for proc, _, _ in servers:
+                proc.terminate()
+            rcs = []
+            for proc, _, _ in servers:
+                try:
+                    rcs.append(proc.wait(timeout=60))
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    rcs.append(f"killed after 60 s ({proc.wait()})")
+        for (label, (_, _, _, replies, _, health)), rc in zip(served.items(), rcs):
+            check_replies(label, replies, cfg, item_bytes)
+            if rc != 0 or not health["ok"] or health["batches_run"] < 2:
+                raise AssertionError(f"{label}: exit {rc}, /healthz {health}")
+        (_, _, _, replies_a, _, _), (_, _, _, replies_e, _, _) = served.values()
+        z_err = max(float(np.abs(np.subtract(a["z_mean"], e["z_mean"])).max()) for a, e in zip(replies_a, replies_e))
+        z_top = max(1.0, max(float(np.abs(e["z_mean"]).max()) for e in replies_e))
+        same_cat = sum(a["category"] == e["category"] for a, e in zip(replies_a, replies_e))
+        # the same ops on the same weights in both servers: the same class for every request
+        if same_cat != ARTIFACT_REQUESTS:
+            raise AssertionError(f"serve --artifact: category differs from the eager server's in "
+                                 f"{ARTIFACT_REQUESTS - same_cat} of {ARTIFACT_REQUESTS} replies")
+        if not z_err <= SLICE_TOL_BF16_Z * z_top:
+            raise AssertionError(f"serve --artifact: z_mean {z_err} from the eager server's")
+        parts = []
+        for label, (started, first, lat, _, wall, health) in served.items():
+            lat = np.sort(lat) * 1e3
+            parts.append(f"{label} (subprocess, started beside the other): ready {started:.2f} s, slowest of "
+                         f"the first {N_CLIENTS} requests {first * 1e3:.1f} ms; then {ARTIFACT_REQUESTS / wall:.1f} shapes/s, p50 "
+                         f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms, "
+                         f"{health['batches_run']} batches")
+        print(f"lifecycle serve, bf16 packed, {ARTIFACT_REQUESTS} requests from {N_CLIENTS} threads, batch {BATCH}: "
+              + "; ".join(parts) + f"; replies agree: category {same_cat}/{ARTIFACT_REQUESTS}, z_mean within "
+              f"{z_err:.3e} [{card}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"lifecycle phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return life_counts, art_counts
 
 
 def main() -> None:
@@ -939,8 +1312,10 @@ def main() -> None:
     phase_anytime_slice(cfg, device)
     anytime_counts = phase_anytime_timing(cfg, device, card)
     train_counts = phase_train_run(card)
+    life_counts, artifact_counts = phase_lifecycle(cfg, device, card)
     print(card, flush=True)
-    print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts)}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts,
+                                                artifact_counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

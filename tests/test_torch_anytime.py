@@ -279,7 +279,7 @@ def test_fusion_matches_jax():
                                  None if m is None else torch.from_numpy(m), prior)
         close(g.mean, j.mean)
         close(g.log_var, j.log_var)
-    un = engine.GaussianBelief.uninformative((n, Z))
+    un = engine.GaussianBelief.uninformative((n, Z), device="cpu")
     ju = jax_engine.GaussianBelief.uninformative((n, Z))
     close(un.info, ju.info)
     close(un.precision, ju.precision)
@@ -288,7 +288,7 @@ def test_fusion_matches_jax():
     probs[0, 0, 0, :2] = (0.0, 1.0)  # clipped before the logit
     seen = (rng.uniform(size=(T, 6, 6, 6)) < 0.5).astype(np.float32)
     for use_mask in (False, True):
-        jb, tb = jax_engine.OccupancyBelief.empty((6, 6, 6)), engine.OccupancyBelief.empty((6, 6, 6))
+        jb, tb = jax_engine.OccupancyBelief.empty((6, 6, 6)), engine.OccupancyBelief.empty((6, 6, 6), device="cpu")
         for i in range(T):
             jb = jax_engine.fuse_occupancy(jb, jnp.asarray(probs[i]), jnp.asarray(seen[i]) if use_mask else None)
             tb = engine.fuse_occupancy(tb, torch.from_numpy(probs[i]), torch.from_numpy(seen[i]) if use_mask else None)
@@ -571,5 +571,5 @@ def test_cli_evaluate_refuses_what_it_cannot_do():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA is not available"):
             cli_evaluate.main(["--config", "modelnet_nolbo"])
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(FileNotFoundError, match="checkpoint.pt"):
         cli_evaluate.main(["--config", "modelnet_nolbo", "--device", "cpu", "--ckpt", "x"])

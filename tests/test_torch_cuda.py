@@ -1,5 +1,6 @@
 """PyTorch port on the card: the ``conv_k2`` CUDA kernels (forward, dx, dw)
-against their plain versions, their refusals, a small serving slice, a small
+against their plain versions, their refusals, the three ``torch.library``
+ops under ``opcheck``, a small serving slice (eager and exported), a small
 train step and the anytime protocol on the GPU against the CPU, and the
 batch prefetcher's stream ordering.
 
@@ -21,6 +22,7 @@ from anytime3d_tpu_torch.anytime.engine import anytime_eval
 from anytime3d_tpu_torch.data.packing import pack_voxels, pack_voxels_blocked
 from anytime3d_tpu_torch.data.prefetch import DevicePrefetcher
 from anytime3d_tpu_torch.kernels import build
+from anytime3d_tpu_torch.kernels import conv_k2 as k2
 from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2,
     conv_k2_backward_reference,
@@ -32,7 +34,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
 )
 from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
-from anytime3d_tpu_torch.serving.export import make_infer_fn, make_packed_infer
+from anytime3d_tpu_torch.serving.export import export_infer, load_infer, make_infer_fn, make_packed_infer
 from anytime3d_tpu_torch.train.state import create_train_state
 from anytime3d_tpu_torch.train.step import make_eval_step, make_train_step
 
@@ -407,6 +409,50 @@ def test_small_bf16_slice_on_card_takes_tensor_cores(cuda):
     # bf16 keeps 8 bits of mantissa through every layer: 5% of the largest |z_mean|, as chip_smoke.py holds it
     assert torch.isfinite(z).all()
     assert float((z - ref["z_mean"]).abs().max()) <= 0.05 * max(1.0, float(ref["z_mean"].abs().max()))
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 8, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64))],
+                         ids=["f32_ffma", "bf16_wgmma"])
+@pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
+def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
+    """The three ops on CUDA tensors: schema, autograd registration (the
+    forward's backward calls the dx and dw ops), the fake implementation
+    against the kernel's output, and an AOT-autograd trace; in bfloat16 at a
+    shape with a plan, so the tensor-core kernels answer."""
+    *grid, C, N = shape
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(*grid, C, generator=gen).to(cuda, dtype)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) * 0.1).to(cuda)
+    g = torch.randn(*grid, N, generator=gen).to(cuda, dtype)
+    fn, args = {"conv_k2": (k2._conv_k2_op, (x.requires_grad_(), w.requires_grad_())),
+                "conv_k2_dx": (k2._conv_k2_dx_op, (g, w.detach())),
+                "conv_k2_dw": (k2._conv_k2_dw_op, (x.detach(), g))}[op]
+    results = torch.library.opcheck(fn, args)
+    assert set(results.values()) == {"SUCCESS"}, results
+
+
+def test_exported_bf16_packed_program_takes_tensor_cores(cuda):
+    """``export_infer`` of the planned 32^3 model in bfloat16 with packed IO,
+    loaded with ``load_infer``: 4 forward launches a batch, all on the
+    tensor-core kernel, counted by the op's CUDA implementation; the outputs
+    equal the eager program's."""
+    model = MultiModalVAE(small_config(planned=True), generator=torch.Generator().manual_seed(0))
+    model = model.to(torch.bfloat16).to(cuda)
+    fn = load_infer(export_infer(model, (4, 32, 32, 32, 1), packed_input=True, packed_output=True))
+    assert fn.device.type == "cuda" and fn.input_dtype == torch.uint8
+    rng = np.random.default_rng(1)
+    packed = torch.from_numpy(pack_voxels((rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32))).to(cuda)
+    mask = torch.from_numpy((rng.uniform(size=(4, 8)) < 0.5).astype(np.float32)).to(cuda)
+    before, before_wg = conv_k2.launches, conv_k2.launches_wgmma
+    outs = [fn(packed, mask) for _ in range(3)]
+    assert (conv_k2.launches, conv_k2.launches_wgmma) == (before + 12, before_wg + 12)
+    eager = make_packed_infer(model, (32, 32, 32, 1))(packed, mask)
+    # the same ops on the same weights: equal unless cuDNN picks another algorithm for the other caller
+    assert torch.equal(outs[-1]["category"], eager["category"])
+    for k in ("z_mean", "z_log_var"):
+        assert float((outs[-1][k] - eager[k]).abs().max()) <= 2.0**-7 * max(1.0, float(eager[k].abs().max())), k
+    flips = np.unpackbits((outs[-1]["pred_packed"] ^ eager["pred_packed"]).cpu().numpy()).sum()
+    assert flips <= 1e-4 * 8 * eager["pred_packed"].numel()
 
 
 def test_prefetched_batches_equal_direct_copies(cuda):

@@ -528,7 +528,7 @@ def test_default_build_waits_without_a_trap():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without jax or flax
+    """Every module of the port, and chip_smoke.py, import without jax, flax or orbax
     (a subprocess: this test process has jax loaded by conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -536,7 +536,7 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'anytime3d_tpu'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orbax', 'anytime3d_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -140,7 +140,7 @@ def test_batcher_pads_and_routes_concurrent_items(models):
     fn = make_infer_fn(model)
     items = list(_grids(11, 5))  # 11 % 4 != 0: the last group is padded
     futures = [None] * len(items)
-    with MicroBatcher(fn, batch_size=4, input_shape=ITEM, mask_dim=Z) as mb:
+    with MicroBatcher(fn, batch_size=4, input_shape=ITEM, mask_dim=Z, device="cpu") as mb:
         def submit(i):
             futures[i] = mb.submit(items[i])
 
@@ -164,7 +164,8 @@ def test_batcher_pads_and_routes_concurrent_items(models):
 
 def test_http_roundtrip(models):
     *_, model = models
-    server = InferenceServer(make_packed_infer(model, ITEM), (DIM**3 // 8,), Z, batch_size=B, max_wait_s=0.002)
+    server = InferenceServer(make_packed_infer(model, ITEM), (DIM**3 // 8,), Z, batch_size=B, max_wait_s=0.002,
+                             device="cpu")
     try:
         port = server.serve(0, background=True)
         x = _grids(1, 6)

@@ -364,7 +364,9 @@ def test_cli_train_fails_without_cuda_or_data():
         with pytest.raises(SystemExit, match="CUDA is not available"):
             cli_train.main(["--config", "modelnet_nolbo", "--steps", "1"])
     args = cli_train.parse_args(["--config", "modelnet_nolbo", "--data", "/some/path"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(FileNotFoundError, match="/some/path"):
         cli_train.build_loaders(args, configs.modelnet_nolbo())
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        cli_train.build_loaders(args, dataclasses.replace(configs.modelnet_nolbo(), encoder="image"))
     with pytest.raises(SystemExit):
-        cli_train.parse_args(["--config", "modelnet_nolbo", "--save-path", "x"])
+        cli_train.parse_args(["--config", "modelnet_nolbo", "--mesh"])
