@@ -127,25 +127,33 @@ def anytime_eval(model: MultiModalVAE, batch: Mapping[str, torch.Tensor],
     """Run the anytime protocol on one batch; returns scalar metrics on the
     model's device.
 
-    ``batch`` is any form the train step takes (dense ``input``,
-    ``input_packed``, ``input_packed_blocked``; see
+    ``batch`` is any form the train step takes (voxel ``input``,
+    ``input_packed``, ``input_packed_blocked``; images with a voxel
+    ``target``, ``target_packed`` or ``target_packed_blocked``; see
     ``train.step.materialize_batch``), with ``category_onehot`` for the
-    accuracies; an ``inst_onehot`` key is ignored. Encode and decode run in the
-    blocked layout when the model has it: every metric is a sum of elementwise
-    terms and does not depend on the layout.
+    accuracies and, for a dual-latent model with an instance prior,
+    ``inst_onehot`` for ``acc_inst``. Encode and decode run in the blocked
+    layout when the model has it: every metric is a sum of elementwise terms
+    and does not depend on the layout.
 
-    ``prior_means`` (K, z_dim): class anchors; None takes them from the
+    Only the category block is masked and corrected. A dual-latent model's
+    instance block is sampled and appended to it before each decode, and
+    ``acc_inst`` is the share of samples whose nearest instance prior mean,
+    over every instance under the sample's category (prior net in eval
+    mode), is its own instance.
+
+    ``prior_means`` (K, z_cat_dim): class anchors; None takes them from the
     category prior net (:func:`category_prior_means`). Outputs: ``loss_shape``,
-    ``precision``, ``recall`` and ``acc_category``, and with ``missing_prob > 0``
-    the same four with a ``_corrected`` suffix. ``return_pred`` adds the decoded
-    grids ``pred`` (and ``pred_corrected``) in the dense (B, D, H, W, C) layout.
+    ``precision``, ``recall``, ``acc_category`` (and ``acc_inst``), and with
+    ``missing_prob > 0`` the same but ``acc_inst`` with a ``_corrected``
+    suffix. ``return_pred`` adds the decoded grids ``pred`` (and
+    ``pred_corrected``) in the dense (B, D, H, W, C) layout.
 
     Draws, in order, from ``generator`` unless given in ``draws``: ``eps_cat``
-    (the posterior sample), ``keep`` (the observation mask, true where
-    observed) and ``eps_corr`` (the correction's prior sample)."""
+    (the category block's posterior sample), ``keep`` (the observation mask,
+    true where observed), ``eps_inst`` (the instance block's sample) and
+    ``eps_corr`` (the correction's prior sample)."""
     mcfg = model.config
-    if mcfg.z_category_dim > 0 and mcfg.z_inst_dim > 0:
-        raise NotImplementedError("not ported yet (A14): the dual (category + instance) latent")
     draws = draws or {}
     masked = missing_prob > 0.0
     was_training = model.training
@@ -154,8 +162,11 @@ def anytime_eval(model: MultiModalVAE, batch: Mapping[str, torch.Tensor],
         with torch.no_grad():
             b, blocked_in, blocked_out = materialize_batch(model, batch)
             enc = model.encode(b["input"], blocked_input=blocked_in)
+            inst = None
             if enc.mean_category is not None:
                 mean, log_var = enc.mean_category, enc.log_var_category
+                if mcfg.z_inst_dim > 0:
+                    inst = (enc.mean_inst, enc.log_var_inst)
             else:  # single-latent models carry the latent in the inst slot
                 mean, log_var = enc.mean_inst, enc.log_var_inst
             if prior_means is None:
@@ -170,14 +181,22 @@ def anytime_eval(model: MultiModalVAE, batch: Mapping[str, torch.Tensor],
             gt = onehot.argmax(dim=-1) if onehot is not None else None
             metrics: Dict[str, torch.Tensor] = {}
 
+            z_inst = None
+            if inst is not None:
+                z_inst = reparameterize(*inst, generator, draws.get("eps_inst"))
+                if mcfg.prior_inst is not None and onehot is not None and "inst_onehot" in batch:
+                    metrics["acc_inst"] = _instance_accuracy(model, z_inst, onehot, batch["inst_onehot"])
+
             def decode_and_score(z_: torch.Tensor, suffix: str) -> None:
                 if gt is not None:  # nearest prior mean over every dim, the filled ones included
                     hit = classify_by_prior(z_, prior_means) == gt
                     metrics[f"acc_category{suffix}"] = hit.float().mean()
+                if z_inst is not None:
+                    z_ = torch.cat([z_, z_inst], dim=-1)
                 pred = model.decode(z_, blocked_output=blocked_out)
                 metrics.update({f"{k}{suffix}": v for k, v in _shape_metrics(pred, b["target"], gamma).items()})
                 if return_pred:
-                    dense = depth_to_space3d(pred, model.blocked_io_block) if blocked_out else pred
+                    dense = depth_to_space3d(pred, model.decoder_block) if blocked_out else pred
                     metrics[f"pred{suffix}"] = dense
 
             decode_and_score(z, "")
@@ -188,6 +207,18 @@ def anytime_eval(model: MultiModalVAE, batch: Mapping[str, torch.Tensor],
             return metrics
     finally:
         model.train(was_training)
+
+
+def _instance_accuracy(model: MultiModalVAE, z_inst: torch.Tensor, category_onehot: torch.Tensor,
+                       inst_onehot: torch.Tensor) -> torch.Tensor:
+    """Share of samples whose nearest instance prior mean, over every
+    instance under the sample's own category, is its instance."""
+    b, n = z_inst.shape[0], model.config.inst_dim
+    cat_rep = category_onehot.repeat_interleave(n, dim=0)
+    inst_rep = torch.eye(n, dtype=category_onehot.dtype, device=z_inst.device).repeat(b, 1)
+    means = model.priors_inst(torch.cat([cat_rep, inst_rep], dim=-1))[0].reshape(b, n, -1)
+    nearest = (z_inst[:, None, :] - means).square().sum(dim=-1).argmin(dim=-1)
+    return (nearest == inst_onehot.argmax(dim=-1)).float().mean()
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Export CLI: write a model's serving program as one artifact.
 
     python -m anytime3d_tpu_torch.cli.export --config modelnet_nolbo --ckpt ckpt/ --batch-size 8 --out model.pt2
+    python -m anytime3d_tpu_torch.cli.export --config pascal_nolbo --image-size 64 --out image.pt2
 
 Counterpart of ``anytime3d_tpu/cli/export.py``. The artifact is the
 float-input program that the JAX command writes: ``x`` float32 (B, D, H, W,
-1) and ``mask`` float32 (B, z_cat_dim) in; ``category``, ``z_mean``,
+1), or (B, S, S, 3) images for an image config (``--image-size`` S), and
+``mask`` float32 (B, z_cat_dim) in; ``category``, ``z_mean``,
 ``z_log_var`` and ``pred`` out (``serving/export.py::export_infer``), weights
 and prior means baked in on ``--device``, which defaults to ``cuda``; when
 CUDA is absent the command fails rather than export for the CPU. ``--bf16``
@@ -33,6 +35,7 @@ def main(argv=None):
     p.add_argument("--config", required=True, choices=sorted(REGISTRY))
     p.add_argument("--ckpt", default=None, help="checkpoint directory (omit: seeded random weights)")
     p.add_argument("--batch-size", type=int, default=8, help="the program's one batch shape")
+    p.add_argument("--image-size", type=int, default=64, help="square image size of image configs")
     p.add_argument("--no-correction", action="store_true", help="skip the masked-latent prior fill")
     p.add_argument("--out", required=True)
     p.add_argument("--bf16", action="store_true", help="cast the model to bfloat16")
@@ -50,7 +53,10 @@ def main(argv=None):
     if args.bf16:
         model = model.to(torch.bfloat16)
     model = model.to(device)
-    shape = (args.batch_size, *cfg.decoder.output_shape)
+    if cfg.encoder == "image":
+        shape = (args.batch_size, args.image_size, args.image_size, 3)
+    else:
+        shape = (args.batch_size, *cfg.decoder.output_shape)
     t0 = time.perf_counter()
     data = export_infer(model, shape, correction=not args.no_correction)
     with open(args.out, "wb") as f:

@@ -8,7 +8,8 @@ Counterpart of ``anytime3d_tpu/cli/serve.py``, in two modes:
 - ``--artifact``: serve an exported program (``cli.export`` or
   ``serving/export.py::export_infer``) by its own input signature: a
   program that takes uint8 (B, N/8) bits takes the packed requests, one that
-  takes float (B, D, H, W, 1) grids the raw ``input`` requests. Its batch
+  takes float (B, D, H, W, 1) grids or (B, H, W, 3) images (an image
+  config's ``cli.export``) the raw ``input`` requests. Its batch
   is the program's; ``--batch-size``, ``--mask-dim`` and ``--item-bytes``,
   where given, are checked against it. (The JAX command serves every
   artifact as packed, so the float artifact its own export writes cannot be
@@ -16,7 +17,8 @@ Counterpart of ``anytime3d_tpu/cli/serve.py``, in two modes:
 - ``--config``: build the model, with ``--checkpoint`` (a checkpoint of
   ``cli.train --save-path``), ``--weights`` (flax params as a flat ``.npz``
   keyed by '/'-joined flax paths, ``convert.load_flax_npz``) or seeded random
-  weights (``--seed``), and serve its packed-IO program.
+  weights (``--seed``), and serve its packed-IO program (voxel configs; an
+  image config is served from its exported artifact).
 
 The device defaults to ``cuda``; when CUDA is absent the command fails rather
 than serve from the CPU. ``--port 0`` binds an ephemeral port; the line
@@ -74,7 +76,7 @@ def _from_artifact(args, device):
     else:
         item_shape, dtype = fn.input_shape[1:], np.float32
         if args.item_bytes is not None:
-            raise SystemExit(f"{args.artifact} takes float grids {item_shape}, not packed items: drop --item-bytes")
+            raise SystemExit(f"{args.artifact} takes float items {item_shape}, not packed items: drop --item-bytes")
     for flag, want, have in (("--mask-dim", args.mask_dim, mask_dim), ("--batch-size", args.batch_size, batch)):
         if want is not None and want != have:
             raise SystemExit(f"{flag} {want}, but {args.artifact} takes {have}")
@@ -93,6 +95,9 @@ def _from_config(args, device):
     from anytime3d_tpu_torch.train.checkpoint import restore_params
 
     cfg = REGISTRY[args.config]()
+    if cfg.encoder != "voxel":
+        raise SystemExit(f"packed-IO serving needs a voxel-encoder config; serve {args.config} from "
+                         f"cli.export's artifact with --artifact")
     d = args.dim
     if cfg.decoder.output_shape != (d, d, d, 1):
         raise SystemExit(f"{args.config} serves {cfg.decoder.output_shape} grids, not {d}^3")

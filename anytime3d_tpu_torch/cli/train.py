@@ -2,8 +2,13 @@
 
     python -m anytime3d_tpu_torch.cli.train --config modelnet_nolbo --data synthetic --packed --bf16
     python -m anytime3d_tpu_torch.cli.train --config modelnet_nolbo --data <modelnet dir> --save-path ckpt/
+    python -m anytime3d_tpu_torch.cli.train --config pascal_nolbo --bf16 --image-size 64 [--multi-scale 64,96]
 
-``--data synthetic`` trains on procedural voxels; a path trains on the
+``--data synthetic`` trains on procedural voxels, or for an image config
+(``pascal_*``) on their renders at ``--image-size`` (square; ``--multi-scale``
+walks a list of square sizes three steps each, in an order reshuffled every
+round; image batches ship dense voxel targets, as in the JAX command, and
+``--packed`` concerns voxel configs only); a path trains a voxel config on the
 pre-voxelized ModelNet shards under it (``<path>/32to64_4rot_64sqr/{train,test}``,
 every shard present) and evaluates on its test split (``--swap-splits``:
 the other way round). ``--save-path`` checkpoints the full train state
@@ -24,52 +29,77 @@ import argparse
 import numpy as np
 
 
-def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False, native=None):
-    """Adapt a loader of modelnet-style dict batches (``input_images``,
-    ``class_list``, ``inst_list``) to the train step's batch dict of numpy
-    arrays. ``packed`` ships the voxels as bits, pre-ordered in the blocked
-    layout when the model reads it, so the device unpacks with no relayout;
-    ``native`` is ``pack_voxels_blocked``'s choice of packer."""
+def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False, native=None, image_size=None,
+                   multi_scale=None):
+    """Adapt a loader to the train step's batch dict of numpy arrays: the
+    modelnet-style dict batches (``input_images``, ``class_list``,
+    ``inst_list``) and the Pascal-style 6-tuples ``(inst, cls, sin, cos,
+    images, voxels)`` of the image loaders. ``packed`` ships the voxels as
+    bits, pre-ordered in the blocked layout where the model reads it (the
+    input of a blocked-IO model, the target of a blocked-tail decoder), so
+    the device unpacks with no relayout; ``native`` is
+    ``pack_voxels_blocked``'s choice of packer. Image loaders are asked for
+    ``image_size`` = (cols, rows), or with ``multi_scale``, a list of (rows,
+    cols, batch), for the size and batch of ``multi_scale_schedule``."""
     from anytime3d_tpu_torch.data.packing import pack_voxels, pack_voxels_blocked
-    from anytime3d_tpu_torch.models.mmvae import blocked_io_block
+    from anytime3d_tpu_torch.models.mmvae import blocked_io_block, decoder_blocked_block
+    from anytime3d_tpu_torch.train.trainer import multi_scale_schedule
 
-    block = blocked_io_block(model_cfg)
+    block, dec_block = blocked_io_block(model_cfg), decoder_blocked_block(model_cfg)
+    wants_category = model_cfg.prior_category is not None or model_cfg.category_dim
 
-    def batch_fn(_it: int):
-        b = loader.getNextBatch(batch_size)
-        if not isinstance(b, dict):
-            raise NotImplementedError("not ported yet: the tuple batches of the image loaders")
-        if not packed:
-            out = {"input": np.asarray(b["input_images"], np.float32)}
-        elif block is not None:
-            out = {"input_packed_blocked": pack_voxels_blocked(b["input_images"], block, native)}
+    def batch_fn(it: int):
+        size, bs = image_size, batch_size
+        if multi_scale:
+            rows, cols, bs = multi_scale_schedule(multi_scale, it)
+            size = (cols, rows)
+        b = loader.getNextBatch(bs) if size is None else loader.getNextBatch(bs, imageSize=size)
+        if isinstance(b, dict):
+            if not packed:
+                out = {"input": np.asarray(b["input_images"], np.float32)}
+            elif block is not None:
+                out = {"input_packed_blocked": pack_voxels_blocked(b["input_images"], block, native)}
+            else:
+                out = {"input_packed": pack_voxels(b["input_images"])}
+            cls, inst = b["class_list"], b["inst_list"]
         else:
-            out = {"input_packed": pack_voxels(b["input_images"])}
-        if model_cfg.prior_category is not None or model_cfg.category_dim:
-            out["category_onehot"] = np.asarray(b["class_list"], np.float32)
+            if len(b) != 6:
+                raise NotImplementedError(f"not ported yet (A15): loader tuples of {len(b)} (the KITTI loader's are 5)")
+            inst, cls, _sin, _cos, images, voxels = b
+            out = {"input": np.asarray(images)}
+            if not packed:
+                out["target"] = np.asarray(voxels, np.float32)
+            elif dec_block is not None:
+                out["target_packed_blocked"] = pack_voxels_blocked(voxels, dec_block, native)
+            else:
+                out["target_packed"] = pack_voxels(voxels)
+        if wants_category:
+            out["category_onehot"] = np.asarray(cls, np.float32)
         if model_cfg.inst_dim:
-            out["inst_onehot"] = np.asarray(b["inst_list"], np.float32)
+            out["inst_onehot"] = np.asarray(inst, np.float32)
         return out
 
     return batch_fn
 
 
 def build_loaders(args, model_cfg):
-    """(train, eval) loaders: procedural shapes for ``--data synthetic``, else
-    the ModelNet train and test shards under the path (every shard present)."""
-    from anytime3d_tpu_torch.data.modelnet import ModelNetLoader, SyntheticVoxelLoader
+    """(train, eval) loaders: procedural shapes (rendered to images for an
+    image config) for ``--data synthetic``, else the ModelNet train and test
+    shards under the path (every shard present)."""
+    from anytime3d_tpu_torch.data.modelnet import ModelNetLoader, SyntheticImageObjectLoader, SyntheticVoxelLoader
 
     if args.data != "synthetic":
         if model_cfg.encoder != "voxel" or "kitti" in args.config:
-            raise NotImplementedError("not ported yet (A14/A15): the Pascal3D and KITTI loaders")
+            raise NotImplementedError("not ported yet (A14b/A15): the Pascal3D and KITTI loaders")
         return (ModelNetLoader(args.data, "train", partial_num=None),
                 ModelNetLoader(args.data, "test", partial_num=None))
     n_cls = model_cfg.category_dim if model_cfg.category_dim else 40
     n_inst = model_cfg.inst_dim if model_cfg.inst_dim else 10
     dim = model_cfg.decoder.output_shape[0]
+    make = SyntheticImageObjectLoader if model_cfg.encoder == "image" else SyntheticVoxelLoader
     return (
-        SyntheticVoxelLoader(num_samples=1024, dim=dim, num_classes=n_cls, num_inst=n_inst),
-        SyntheticVoxelLoader(num_samples=256, dim=dim, num_classes=n_cls, num_inst=n_inst, seed=1),
+        make(num_samples=1024, dim=dim, num_classes=n_cls, num_inst=n_inst),
+        make(num_samples=256, dim=dim, num_classes=n_cls, num_inst=n_inst, seed=1),
     )
 
 
@@ -92,12 +122,19 @@ def build_trainer(args):
     if args.swap_splits:
         loader, eval_loader = eval_loader, loader
     native = True if device.type == "cuda" else None  # on the card the native packer or nothing
+    image = model_cfg.encoder == "image"
+    # image batches ship dense targets, as the JAX command sends them
+    packed = args.packed and not image
+    size = (args.image_size, args.image_size) if image else None
+    schedule = None
+    if args.multi_scale and image:
+        schedule = [(int(s), int(s), args.batch_size) for s in args.multi_scale.split(",")]
     trainer = Trainer(
         model,
         create_train_state(model, learning_rate=args.learning_rate),
-        build_batch_fn(loader, model_cfg, args.batch_size, args.packed, native),
+        build_batch_fn(loader, model_cfg, args.batch_size, packed, native, size, schedule),
         loss_config=loss_cfg,
-        eval_batch_fn=build_batch_fn(eval_loader, model_cfg, args.batch_size, args.packed, native),
+        eval_batch_fn=build_batch_fn(eval_loader, model_cfg, args.batch_size, packed, native, size),
         config=TrainerConfig(total_steps=args.steps, eval_every=args.eval_every, save_every=args.save_every,
                              save_path=args.save_path, load_path=args.load_path, jsonl_path=args.jsonl),
     )
@@ -109,7 +146,7 @@ def parse_args(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", required=True, choices=sorted(REGISTRY))
-    p.add_argument("--data", default="synthetic", help="'synthetic' or a ModelNet dataset path")
+    p.add_argument("--data", default="synthetic", help="'synthetic' or a ModelNet dataset path (voxel configs)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--learning-rate", type=float, default=1e-4)
@@ -121,6 +158,9 @@ def parse_args(argv=None):
     p.add_argument("--swap-splits", action="store_true", help="train on the eval split and evaluate on train")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute dtype (float32 parameters)")
     p.add_argument("--packed", action="store_true", help="bit-pack voxel batches host->device (32x less transfer)")
+    p.add_argument("--image-size", type=int, default=64, help="square image size of image configs")
+    p.add_argument("--multi-scale", default=None,
+                   help="comma list of square image sizes, e.g. '64,96': the multi-scale schedule of image configs")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 

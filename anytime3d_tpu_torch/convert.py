@@ -2,11 +2,13 @@
 
 A flax param tree (nested dicts of arrays, keyed as flax keys it) maps to
 the port by name: each auto-named flax module ``Class_i`` is the port's
-submodule ``class_i`` (explicit names such as ``encoder3d`` stay), and each
-leaf is renamed and laid out as the port holds it:
+submodule ``class_i`` (``_ResBlock_3`` is ``_resblock_3``; explicit names
+such as ``encoder3d`` or ``backbone`` stay), and each leaf is renamed and
+laid out as the port holds it:
 
-- ``Conv_*/kernel``: DHWIO -> OIDHW (``F.conv3d``), except the 2x2x2 kernels,
-  which stay (2, 2, 2, C, N) as the ``conv_k2`` kernel takes them;
+- ``Conv_*/kernel`` of a 2-D conv: HWIO -> OIHW (``F.conv2d``);
+- ``Conv_*/kernel`` of a 3-D conv: DHWIO -> OIDHW (``F.conv3d``), except the
+  2x2x2 kernels, which stay (2, 2, 2, C, N) as the ``conv_k2`` kernel takes them;
 - ``ConvTranspose_*/kernel``: flipped in D, H and W and permuted to
   (Cin, Cout, k, k, k) (``F.conv_transpose3d``; see
   ``nn.blocks.ConvTranspose3d``);
@@ -30,6 +32,8 @@ def _leaf(module: str, name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
         return "bias", value
     if name != "kernel":
         raise KeyError(f"unknown flax leaf {module}/{name}")
+    if kind == "Conv" and value.ndim == 4:
+        return "weight", value.transpose(3, 2, 0, 1)
     if kind == "Conv":
         return "weight", value if value.shape[:3] == (2, 2, 2) else value.transpose(4, 3, 0, 1, 2)
     if kind == "ConvTranspose":

@@ -7,15 +7,16 @@ Counterpart of ``anytime3d_tpu/data/modelnet.py``, NumPy only.
 same seed, the same batches as the JAX loader; with ``partial_num=None`` it
 reads the shard indices present on disk, whether or not they are contiguous.
 ``SyntheticVoxelLoader`` gives the same batches as the JAX package's at the
-same seed. The part-based instance shapes (``structural_inst``) are not
-ported yet.
+same seed, and ``SyntheticImageObjectLoader`` renders them to images in the
+Pascal loader's tuple form, the same arrays as the JAX loader's. The
+part-based instance shapes (``structural_inst``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -172,3 +173,67 @@ class SyntheticVoxelLoader:
         cls = np.eye(self._num_classes, dtype=np.float32)[self._labels[sel]]
         inst = np.eye(self._num_inst, dtype=np.float32)[self._insts[sel]]
         return {"input_images": vox, "class_list": cls, "inst_list": inst}
+
+
+class SyntheticImageObjectLoader(SyntheticVoxelLoader):
+    """The procedural shapes behind the Pascal single-object loader's
+    interface: ``getNextBatch(batchSizeof3DShape, imageSize=(cols, rows))``
+    -> the tuple ``(inst, cls, sin, cos, images, voxels)``: one-hots (B,
+    num_inst) and (B, num_classes), the sine and cosine of the (azimuth, 0, 0)
+    Euler angles (B, 3), images (B, rows, cols, 3) float32 in [0, 1] and
+    voxels (B, dim, dim, dim, 1) float32. ``dataStart`` tracks progress as the
+    Pascal loader's does.
+
+    Each sample has a fixed azimuth; its image is the shape turned about the
+    vertical axis (nearest neighbour), shaded brighter along its own +x axis
+    (0.35 -> 1.0, so that the image shows which way it faces) and max-projected.
+    Renders are kept as uint8 by (sample, image size), so after one epoch at a
+    size a batch renders nothing."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dataStart = 0
+        self._azimuths = np.random.default_rng(kwargs.get("seed", 0) + 1).uniform(-np.pi, np.pi, self.dataLength)
+        self._render_cache: Dict[Tuple[int, Tuple[int, int]], np.ndarray] = {}
+
+    def _render(self, vox: np.ndarray, azimuth: float, image_size) -> np.ndarray:
+        """(rows, cols, 3) float32 render of one (dim, dim, dim) grid; ``image_size`` is (cols, rows)."""
+        d = vox.shape[0]
+        c, s = np.cos(azimuth), np.sin(azimuth)
+        idx = np.arange(d) - d / 2 + 0.5
+        gx, gz = np.meshgrid(idx, idx, indexing="ij")
+        sx = np.clip(np.round(c * gx - s * gz + d / 2 - 0.5), 0, d - 1).astype(int)
+        sz = np.clip(np.round(s * gx + c * gz + d / 2 - 0.5), 0, d - 1).astype(int)
+        rot = vox[sx, :, sz]  # (x_out, z_out, y): the index arrays' dims come first
+        w = (0.35 + 0.65 * sx / max(d - 1, 1)).astype(np.float32)
+        rot = rot * w[:, :, None]
+        img = rot.max(axis=2).T.astype(np.float32)  # (rows=y, cols=x)
+        out_c, out_r = image_size
+        ys = (np.arange(out_r) * d // out_r).astype(int)
+        xs = (np.arange(out_c) * d // out_c).astype(int)
+        img = img[ys][:, xs]
+        return np.stack([img] * 3, axis=-1)
+
+    def _render_cached(self, i: int, vox: np.ndarray, azimuth: float, image_size) -> np.ndarray:
+        mono = self._render_cache.get((i, image_size))
+        if mono is None:
+            mono = (self._render(vox, azimuth, image_size)[..., 0] * 255).astype(np.uint8)
+            self._render_cache[(i, image_size)] = mono
+        img = mono.astype(np.float32) / 255.0
+        return np.stack([img] * 3, axis=-1)
+
+    def getNextBatch(self, batchSizeof3DShape: int = 32, imageSize=(64, 64)):
+        if self.batchStart + batchSizeof3DShape > self.dataLength:
+            self.epoch += 1
+            self._rng.shuffle(self._idx)
+            self.batchStart = 0
+        sel = self._idx[self.batchStart : self.batchStart + batchSizeof3DShape]
+        self.batchStart += batchSizeof3DShape
+        self.dataStart = self.batchStart
+        vox = self._cache[sel].astype(np.float32)
+        az = self._azimuths[sel]
+        images = np.stack([self._render_cached(int(i), v, a, tuple(imageSize)) for i, v, a in zip(sel, vox, az)])
+        euler = np.stack([az, np.zeros_like(az), np.zeros_like(az)], axis=-1)
+        cls = np.eye(self._num_classes, dtype=np.float32)[self._labels[sel]]
+        inst = np.eye(self._num_inst, dtype=np.float32)[self._insts[sel]]
+        return inst, cls, np.sin(euler), np.cos(euler), images, vox[..., None]

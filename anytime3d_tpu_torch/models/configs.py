@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from anytime3d_tpu_torch.models.mmvae import MMVAEConfig
 from anytime3d_tpu_torch.nn.autoencoder3d import Decoder3DConfig, Encoder3DConfig
+from anytime3d_tpu_torch.nn.heads import Head2DConfig
 from anytime3d_tpu_torch.nn.priornet import PriorNetConfig
 
 
@@ -57,18 +58,83 @@ def modelnet_nolbo(z_dim: int = 64, category_dim: int = 40, latent_dropout: bool
     )
 
 
+def _pascal_head(output_dim: int) -> Head2DConfig:
+    """The Pascal heads: a bare 1x1 projection and a global max-pool."""
+    return Head2DConfig(output_dim=output_dim, filter_nums=(), filter_sizes=(), last_pooling="max")
+
+
+def pascal_nolbo(z_dim: int = 16, category_dim: int = 12, inst_dim: int = 10,
+                 backbone: str = "darknet19") -> MMVAEConfig:
+    """Dual-latent NOLBO, image -> 64^3 shape: z = z_category (z_dim/2) +
+    z_inst, a class prior on the category one-hot and an instance prior on
+    the (category, instance) one-hots concatenated."""
+    zc = z_dim // 2
+    return MMVAEConfig(
+        z_category_dim=zc,
+        z_inst_dim=z_dim - zc,
+        category_dim=category_dim,
+        inst_dim=inst_dim,
+        encoder="image",
+        backbone=backbone,
+        head=_pascal_head(2 * z_dim),
+        decoder=_decoder64(z_dim),
+        prior_category=PriorNetConfig(input_dim=category_dim, unit_nums=(32, zc), const_log_var=0.0),
+        prior_inst=PriorNetConfig(input_dim=category_dim + inst_dim, unit_nums=(32, z_dim - zc),
+                                  const_log_var=0.0),
+        variational=True,
+    )
+
+
+def pascal_category(z_dim: int = 16, category_dim: int = 12, backbone: str = "darknet19") -> MMVAEConfig:
+    """One category latent with a class prior, image -> 64^3 shape."""
+    return MMVAEConfig(
+        z_category_dim=z_dim,
+        z_inst_dim=0,
+        category_dim=category_dim,
+        encoder="image",
+        backbone=backbone,
+        head=_pascal_head(2 * z_dim),
+        decoder=_decoder64(z_dim),
+        prior_category=PriorNetConfig(input_dim=category_dim, unit_nums=(32, z_dim), const_log_var=0.0),
+        variational=True,
+    )
+
+
 REGISTRY = {
     "modelnet_nolbo": modelnet_nolbo,
+    "pascal_nolbo": pascal_nolbo,
+    "pascal_category": pascal_category,
 }
 
 
 def _loss_table():
     """Per-name ``LossConfig``, the values of the JAX package's table.
 
-    ``modelnet_nolbo``: one coin (p 0.5) then an elementwise prior mix at
-    p 0.3; repulsion margin 2.0 * z; total = kl + shape + 0.01 * reg, no
-    kernel L2."""
+    - ``modelnet_nolbo``: one coin (p 0.5) then an elementwise prior mix at
+      p 0.3; repulsion margin 2.0 * z; total = kl + shape + 0.01 * reg, no
+      kernel L2.
+    - ``pascal_nolbo``: coin then an elementwise mix at p 0.5; margins
+      3.0 * z_cat and 3.0 * z_inst (the instance one gated to same-class
+      pairs); total = kl + shape + reg + 5e-4 * kernel L2.
+    - ``pascal_category``: coin then p 0.3; margin 3.0 * z; total = kl +
+      shape + 0.01 * reg, no kernel L2."""
     from anytime3d_tpu_torch.train.step import LossConfig
+
+    prior_img = LossConfig(
+        reg_weight=1.0,
+        reg_margin_scale_category=3.0,
+        reg_margin_scale_inst=3.0,
+        l2_weight=5e-4,
+        mix_coin_prob=0.5,
+        mix_element_prob=0.5,
+    )
+    pascal_cat = LossConfig(
+        reg_weight=0.01,
+        reg_margin_scale_category=3.0,
+        l2_weight=0.0,
+        mix_coin_prob=0.5,
+        mix_element_prob=0.3,
+    )
 
     modelnet_cat = LossConfig(
         reg_weight=0.01,
@@ -77,7 +143,7 @@ def _loss_table():
         mix_coin_prob=0.5,
         mix_element_prob=0.3,
     )
-    return {"modelnet_nolbo": modelnet_cat}
+    return {"modelnet_nolbo": modelnet_cat, "pascal_nolbo": prior_img, "pascal_category": pascal_cat}
 
 
 def loss_config(name: str):
@@ -87,5 +153,6 @@ def loss_config(name: str):
 
 def variant(name: str, **overrides):
     """Everything needed to train ``name``: ``(MMVAEConfig, LossConfig)``.
-    ``overrides`` go to the config factory (e.g. ``category_dim``)."""
+    ``overrides`` go to the config factory: ``category_dim`` resizes the
+    one-hots and the prior nets to a dataset's class count."""
     return REGISTRY[name](**overrides), loss_config(name)

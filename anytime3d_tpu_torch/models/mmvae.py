@@ -1,11 +1,15 @@
-"""MultiModalVAE, voxel branch.
+"""MultiModalVAE: a voxel or image encoder, the shared Gaussian latent (one
+block, or a category block and an instance block), label priors and the
+voxel decoder.
 
 Counterpart of ``anytime3d_tpu/models/mmvae.py:33-254``. ``MMVAEConfig``
 mirrors the JAX config field by field; the module ports what serving and
-training need: ``encode`` (posterior split, log-var clipped to
-+-log_var_clip), ``decode``, ``priors_category`` and the blocked-IO
-predicates. Submodule names (``encoder3d``, ``decoder``, ``prior_category``)
-are the flax ones, so converted checkpoints load by name.
+training need: ``encode`` (the image or voxel encoder, posterior split,
+log-var clipped to +-log_var_clip), ``decode``, ``priors_category``,
+``priors_inst`` and the blocked-IO predicates. Submodule names
+(``backbone``, ``head``, ``encoder3d``, ``decoder``, ``prior_category``,
+``prior_inst``) are the flax ones, so converted checkpoints load by name.
+Deterministic (``variational=False``) models are not ported yet.
 
 Parameters are created on the CPU from ``generator``; move the module with
 ``.to(device)``. For bfloat16 compute, training passes
@@ -16,7 +20,7 @@ serving may instead cast the whole module with ``.to(torch.bfloat16)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -29,6 +33,8 @@ from anytime3d_tpu_torch.nn.autoencoder3d import (
     decoder_tail_blocked_active,
     encoder_head_blocked_active,
 )
+from anytime3d_tpu_torch.nn.darknet import BACKBONES, Head2D
+from anytime3d_tpu_torch.nn.heads import Head2DConfig
 from anytime3d_tpu_torch.nn.priornet import PriorNet, PriorNetConfig
 
 
@@ -43,7 +49,7 @@ class MMVAEConfig:
     # encoder modality
     encoder: str = "voxel"  # 'image' | 'voxel'
     backbone: str = "darknet19"
-    head: Optional[Any] = None
+    head: Optional[Head2DConfig] = None
     encoder3d: Optional[Encoder3DConfig] = None
     decoder: Decoder3DConfig = dataclasses.field(default_factory=Decoder3DConfig)
     # priors: None => standard-normal prior (VAE) / no prior (AE)
@@ -110,33 +116,50 @@ class MultiModalVAE(nn.Module):
         super().__init__()
         cfg = config
         self.dtype = dtype
-        unsupported = [name for name, on in (
-            (f"encoder={cfg.encoder!r}", cfg.encoder != "voxel"),
-            ("deterministic (variational=False) models", not cfg.variational),
-            ("prior_inst", cfg.prior_inst is not None),
-        ) if on]
-        if unsupported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unsupported)}")
+        if not cfg.variational:
+            raise NotImplementedError("not ported yet: deterministic (variational=False) models")
         self.config = cfg
-        enc_cfg = cfg.encoder3d or Encoder3DConfig(output_dim=cfg.enc_output_dim)
-        self.encoder3d = Encoder3D(enc_cfg, in_channels=cfg.decoder.output_shape[-1], generator=generator,
-                                   dtype=dtype)
+        if cfg.encoder == "image":
+            head_cfg = cfg.head or Head2DConfig(output_dim=cfg.enc_output_dim)
+            self.backbone = BACKBONES[cfg.backbone](act=head_cfg.act, generator=generator, dtype=dtype)
+            self.head = Head2D(self.backbone.out_features, head_cfg.output_dim, head_cfg.filter_nums,
+                               head_cfg.filter_sizes, head_cfg.last_pooling, head_cfg.act, generator)
+        else:
+            enc_cfg = cfg.encoder3d or Encoder3DConfig(output_dim=cfg.enc_output_dim)
+            self.encoder3d = Encoder3D(enc_cfg, in_channels=cfg.decoder.output_shape[-1], generator=generator,
+                                       dtype=dtype)
         self.decoder = Decoder3D(cfg.decoder, generator=generator, dtype=dtype)
         self.prior_category = (
             PriorNet(cfg.prior_category, generator=generator, dtype=dtype)
             if cfg.prior_category is not None else None
+        )
+        self.prior_inst = (
+            PriorNet(cfg.prior_inst, generator=generator, dtype=dtype) if cfg.prior_inst is not None else None
         )
 
     @property
     def blocked_io_block(self) -> Optional[int]:
         return blocked_io_block(self.config)
 
+    @property
+    def decoder_block(self) -> Optional[int]:
+        """Block size (4) when the decoder alone can emit the coarse layout:
+        image -> shape steps then run the voxel loss blocked."""
+        return decoder_blocked_block(self.config)
+
     def encode(self, x: torch.Tensor, blocked_input: bool = False) -> EncoderOutput:
-        """Voxels (B, D, H, W, C) -> posterior blocks. The flat encoder output
-        is [mean_cat | log_var_cat | mean_inst | log_var_inst] with a category
+        """Images (B, H, W, 3) or voxels (B, D, H, W, C) -> posterior blocks
+        (``blocked_input`` concerns voxels only). The flat encoder output is
+        [mean_cat | log_var_cat | mean_inst | log_var_inst] with a category
         split, [mean | log_var] without."""
         cfg = self.config
-        out = self.encoder3d(x, blocked_input=blocked_input)
+        if cfg.encoder == "image":
+            feats = self.backbone(x)
+            if isinstance(feats, tuple):
+                feats = feats[-1]  # the multi-map backbones: the last map
+            out = self.head(feats)
+        else:
+            out = self.encoder3d(x, blocked_input=blocked_input)
         clip = cfg.log_var_clip
         if cfg.z_category_dim > 0:
             zc, zi = cfg.z_category_dim, cfg.z_inst_dim
@@ -156,3 +179,9 @@ class MultiModalVAE(nn.Module):
                         generator: Optional[torch.Generator] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """Class prior (mean, log_var); dropout is on in train mode and draws from ``generator``."""
         return self.prior_category(category_onehot, generator)
+
+    def priors_inst(self, inst_onehot: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Instance prior (mean, log_var). In the dual-latent model its input
+        is concat(category_onehot, inst_onehot); the caller concatenates."""
+        return self.prior_inst(inst_onehot, generator)

@@ -1,8 +1,9 @@
-"""Building blocks: conv / transposed conv / dense + norm + activation.
+"""Building blocks: conv / transposed conv / dense + norm + activation, the
+2-D max-pool.
 
 Counterpart of ``anytime3d_tpu/nn/blocks.py``. Activations are channels-last,
-NDHWC ``(B, D, H, W, C)``, as in the JAX package; convolutions hand cuDNN an
-NCDHW view of that storage. Each block computes what its flax counterpart
+NDHWC ``(B, D, H, W, C)`` and NHWC ``(B, H, W, C)`` for images, as in the JAX
+package; convolutions hand cuDNN a channels-first view of that storage. Each block computes what its flax counterpart
 computes, including flax's SAME padding and initialisers (truncated
 lecun-normal kernels, zero biases, ones/zeros for the norms).
 
@@ -146,6 +147,48 @@ class ConvK2(nn.Module):
         return conv_k2(x, self.weight)
 
 
+def _same_pad_list(x: torch.Tensor, kernel_size: int, stride: int) -> list[int]:
+    """``F.pad``'s list of flax SAME pads over the spatial axes of channels-last
+    ``x`` (the last spatial axis first, as ``F.pad`` lists them)."""
+    pads = []
+    for size in reversed(x.shape[1:-1]):
+        pads += _same_pads(kernel_size, stride, size)
+    return pads
+
+
+class Conv2d(nn.Module):
+    """flax ``nn.Conv(features, (k, k), strides=(s, s), padding='SAME',
+    use_bias=False)`` on NHWC, via ``F.conv2d``. ``weight`` is OIHW."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        k = kernel_size
+        self.weight = nn.Parameter(torch.empty(features, in_features, k, k))
+        lecun_normal_(self.weight, k * k * in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = _same_pad_list(x, self.kernel_size, self.stride)
+        xc = x.permute(0, 3, 1, 2)
+        if any(pads):
+            xc = F.pad(xc, pads)
+        y = F.conv2d(xc, self.weight.to(x.dtype), stride=self.stride)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+def maxpool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """flax ``nn.max_pool(x, (window, window), strides=(stride, stride),
+    padding='SAME')`` on NHWC: the overhang is padded with -inf, never zero
+    (an ELU output goes below 0). A window's gradient goes to its first
+    largest element in row-major order, as XLA's ``select_and_scatter`` sends it."""
+    pads = _same_pad_list(x, window, stride)
+    xc = x.permute(0, 3, 1, 2)
+    if any(pads):
+        xc = F.pad(xc, pads, value=float("-inf"))
+    return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1).contiguous()
+
+
 class Conv3d(nn.Module):
     """flax ``nn.Conv(features, (k, k, k), strides=(s, s, s), padding='SAME',
     use_bias=False)`` on NDHWC, via ``F.conv3d``. ``weight`` is OIDHW."""
@@ -159,10 +202,7 @@ class Conv3d(nn.Module):
         lecun_normal_(self.weight, k**3 * in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pads = []
-        for size in reversed(x.shape[1:4]):  # F.pad lists the last axis first
-            pads += _same_pads(self.kernel_size, self.stride, size)
-        xc = F.pad(x.permute(0, 4, 1, 2, 3), pads)
+        xc = F.pad(x.permute(0, 4, 1, 2, 3), _same_pad_list(x, self.kernel_size, self.stride))
         y = F.conv3d(xc, self.weight.to(x.dtype), stride=self.stride)
         return y.permute(0, 2, 3, 4, 1).contiguous()
 
@@ -196,6 +236,21 @@ class ConvTranspose3d(nn.Module):
         crop = [slice(start, start + (n - 1) * s + 1 + pad_a + pad_b - k + 1) for n in x.shape[1:4]]
         y = y[:, :, crop[0], crop[1], crop[2]]
         return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class ConvBlock2D(nn.Module):
+    """Conv2D (no bias) + GroupNorm + activation. (flax's ``use_norm=False``
+    form, a conv with a bias, has no caller and is not ported.)"""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3, strides: int = 1,
+                 act: str = "elu", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv_0 = Conv2d(in_features, features, kernel_size, strides, generator=generator)
+        self.groupnorm_0 = group_norm(features)
+        self.act = activation(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.groupnorm_0(self.conv_0(x)))
 
 
 class ConvBlock3D(nn.Module):

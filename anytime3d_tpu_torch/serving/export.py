@@ -99,7 +99,8 @@ def _inference(program: nn.Module) -> InferFn:
 def make_infer_fn(model: MultiModalVAE, correction: bool = True) -> InferFn:
     """Build ``fn(x, mask) -> outputs`` on the model's device and dtype.
 
-    ``x`` is a (B, D, H, W, 1) occupancy grid; ``mask`` a (B, z_cat_dim) 0/1
+    ``x`` is a (B, D, H, W, 1) occupancy grid, or for an image model (B, H,
+    W, 3) float images in [0, 1]; ``mask`` a (B, z_cat_dim) 0/1
     tensor of OBSERVED latent dims. With ``correction``, the class is the
     nearest prior mean over the observed dims and the missing dims take that
     prior's mean before decoding. Outputs: ``z_mean`` (B, z_dim) and
@@ -125,9 +126,10 @@ def export_infer(model: MultiModalVAE, input_shape: Sequence[int], correction: b
     saved into bytes: weights and prior means baked in, on the model's device
     and in its dtype.
 
-    ``input_shape`` includes the batch, e.g. ``(8, 64, 64, 64, 1)``; the
-    program takes ``x`` as float32 of that shape, or with ``packed_input`` as
-    (B, N/8) uint8 occupancy bits, and a (B, z_cat_dim) float32 ``mask``.
+    ``input_shape`` includes the batch, e.g. ``(8, 64, 64, 64, 1)``, or ``(8,
+    64, 64, 3)`` for an image model; the program takes ``x`` as float32 of
+    that shape, or with ``packed_input`` (voxel models) as (B, N/8) uint8
+    occupancy bits, and a (B, z_cat_dim) float32 ``mask``.
     ``packed_output`` replaces ``pred`` with ``pred_packed`` bits at
     ``output_threshold``. Load the bytes with :func:`load_infer`."""
     batch, item_shape = int(input_shape[0]), tuple(input_shape[1:])
@@ -151,7 +153,8 @@ class LoadedInfer:
     """An exported serving program, loaded: ``fn(x, mask) -> outputs``, run
     under ``inference_mode``. ``input_shape`` and ``input_dtype`` are those of
     its ``x`` (uint8 (B, N/8) for a packed-input program, float32 (B, D, H, W,
-    1) otherwise), ``mask_shape`` that of its mask, ``device`` where both go;
+    1) grids or (B, H, W, 3) images otherwise), ``mask_shape`` that of its
+    mask, ``device`` where both go;
     ``module`` is the program as an ``fx.GraphModule``."""
 
     def __init__(self, exported: torch.export.ExportedProgram):

@@ -7,11 +7,14 @@ precision and recall, all in float32 whatever the model computes in.
 
 Random draws: where the JAX step splits a PRNG key, this step draws from an
 explicit ``torch.Generator`` on the model's device, or takes the draws
-themselves in ``draws`` (``eps_post``, ``eps_prior``, ``coin``,
-``take_prior``), so a test can hand both packages the same numbers.
+themselves in ``draws``, one name per JAX key, so a test can hand both
+packages the same numbers: ``eps_cat`` and ``eps_inst`` (the posterior
+samples of the category and instance blocks; a one-block latent draws from
+``eps_inst``, as the JAX step does), ``eps_prior_cat`` and ``eps_prior_inst``
+(the prior samples of the mix), ``coin`` and ``take_prior`` (the mix's coin
+and element mask).
 
-The explicit data-parallel step waits for the port of the mesh; batches with
-image inputs or explicit targets wait for the image family.
+The explicit data-parallel step waits for the port of the mesh.
 """
 
 from __future__ import annotations
@@ -59,45 +62,69 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def materialize_batch(model: MultiModalVAE, batch: Batch) -> Tuple[Dict[str, torch.Tensor], bool, bool]:
-    """Unpack or re-lay a voxel batch on the device; returns
-    ``(batch, blocked_in, blocked_out)`` with ``input`` and ``target`` set.
+    """Unpack or re-lay a batch on the device; returns ``(batch, blocked_in,
+    blocked_out)`` with ``input`` and ``target`` set.
 
-    The target is the input grid (voxel -> voxel models ship one copy for both
-    roles). When the model supports blocked IO, both come in the
-    space-to-depth(4) coarse layout: ``input_packed_blocked`` batches (bits
-    pre-ordered on the host by ``pack_voxels_blocked``) unpack straight into
-    it; ``input_packed`` and dense ``input`` batches pay one relayout. The
-    losses and TP/FP/FN are sums of elementwise terms, so the layout changes
-    no metric."""
-    for key in ("target", "target_packed", "target_packed_blocked"):
-        if key in batch:
-            raise _not_ported(f"batches with an explicit {key!r} (image -> shape models)")
+    A uint8 ``input`` (images) becomes float32 / 255. The voxel target is
+    ``target``, ``target_packed`` or ``target_packed_blocked`` (image -> shape
+    models), or else the voxel input (voxel -> voxel models ship one copy for
+    both roles). When the model supports blocked IO, a voxel input comes in
+    the space-to-depth(4) coarse layout: ``input_packed_blocked`` batches
+    (bits pre-ordered on the host by ``pack_voxels_blocked``) unpack straight
+    into it; ``input_packed`` and dense ``input`` batches pay one relayout.
+    ``blocked_out`` concerns the decoder alone: whenever its tail is blocked,
+    the target comes in the coarse layout too (``target_packed_blocked``
+    unpacks straight into it), image models included. The losses and
+    TP/FP/FN are sums of elementwise terms, so the layout changes no metric."""
     if "input" in batch and batch["input"].dtype == torch.uint8:
-        raise _not_ported("uint8 image inputs")
-    block = model.blocked_io_block
+        batch = dict(batch, input=batch["input"].float() / 255.0)
+    block, dec_block = model.blocked_io_block, model.decoder_block
     grid = model.config.decoder.output_shape
-    out = dict(batch)
+
+    tgt, tgt_blocked = batch.get("target"), False
+    if "target_packed_blocked" in batch:
+        if dec_block is None:
+            raise ValueError("target_packed_blocked requires a blocked-tail decoder")
+        tgt, tgt_blocked = unpack_voxels_blocked(batch["target_packed_blocked"], grid, dec_block), True
+    elif "target_packed" in batch:
+        tgt = unpack_voxels(batch["target_packed"], grid)
+    out = {k: v for k, v in batch.items() if k not in ("target", "target_packed", "target_packed_blocked")}
+
+    blocked_in = False
     if "input_packed_blocked" in out:
         if block is None:
             raise ValueError("input_packed_blocked requires a blocked-IO model "
                              "(blocked-head encoder + blocked-tail decoder)")
-        vox = unpack_voxels_blocked(out.pop("input_packed_blocked"), grid, block)
+        out["input"] = unpack_voxels_blocked(out.pop("input_packed_blocked"), grid, block)
+        blocked_in = True
+        if tgt is None:
+            tgt, tgt_blocked = out["input"], True
     elif "input_packed" in out:
         vox = unpack_voxels(out.pop("input_packed"), grid)
         if block is not None:
             vox = space_to_depth3d(vox, block)
-    else:
-        vox = out["input"]
-        if block is not None:
-            vox = space_to_depth3d(vox, block)
-    out["input"] = out["target"] = vox
-    blocked = block is not None
-    return out, blocked, blocked
+        out["input"] = vox
+        blocked_in = block is not None
+        if tgt is None:
+            tgt, tgt_blocked = vox, blocked_in
+    elif block is not None:
+        shared = tgt is None or tgt is batch.get("input")
+        out["input"] = space_to_depth3d(out["input"], block)
+        blocked_in = True
+        if shared:
+            tgt, tgt_blocked = out["input"], True
+
+    blocked_out = dec_block is not None and tgt is not None
+    if tgt is not None:
+        if blocked_out and not tgt_blocked:
+            tgt = space_to_depth3d(tgt, dec_block)
+        out["target"] = tgt
+    return out, blocked_in, blocked_out
 
 
 def _encode_and_sample(model: MultiModalVAE, cfg: LossConfig, batch: Batch, generator: Optional[torch.Generator],
                        deterministic: bool, blocked: bool, blocked_out: bool, draws: Optional[Draws]) -> Dict:
-    """Shared forward: prior -> posterior -> z draw -> prior mixing -> decoder."""
+    """Shared forward: priors -> posterior -> z draw -> prior mixing -> decoder."""
     mcfg = model.config
     draws = draws or {}
     x = batch["input"]
@@ -107,18 +134,31 @@ def _encode_and_sample(model: MultiModalVAE, cfg: LossConfig, batch: Batch, gene
     enc = model.encode(x, blocked_input=blocked)
     out["enc"] = enc
 
-    prior_cat = None
+    prior_cat = prior_inst = None
     if mcfg.prior_category is not None:
         prior_cat = model.priors_category(batch["category_onehot"], generator)
         out["prior_cat"] = prior_cat
+    if mcfg.prior_inst is not None:
+        inst_in = batch["inst_onehot"]
+        if mcfg.category_dim > 0:  # the dual latent: the instance prior sees both one-hots
+            inst_in = torch.cat([batch["category_onehot"], inst_in], dim=-1)
+        prior_inst = model.priors_inst(inst_in, generator)
+        out["prior_inst"] = prior_inst
 
-    if enc.mean_category is not None and mcfg.z_inst_dim > 0:
-        raise _not_ported("the dual (category + instance) latent")
-    z = reparameterize(enc.mean, enc.log_var, generator, draws.get("eps_post"))
+    if enc.mean_category is not None and mcfg.z_inst_dim > 0:  # one draw a block
+        z = torch.cat([reparameterize(enc.mean_category, enc.log_var_category, generator, draws.get("eps_cat")),
+                       reparameterize(enc.mean_inst, enc.log_var_inst, generator, draws.get("eps_inst"))], dim=-1)
+    else:
+        z = reparameterize(enc.mean, enc.log_var, generator, draws.get("eps_inst"))
 
-    # decoder-input prior mixing, before any latent dropout
-    if not deterministic and cfg.mix_coin_prob > 0.0 and prior_cat is not None:
-        z_prior = reparameterize(prior_cat[0], prior_cat[1], generator, draws.get("eps_prior"))
+    # decoder-input prior mixing on the prior sample of every block, before any latent dropout
+    if not deterministic and cfg.mix_coin_prob > 0.0 and (prior_cat is not None or prior_inst is not None):
+        parts = []
+        if prior_cat is not None:
+            parts.append(reparameterize(prior_cat[0], prior_cat[1], generator, draws.get("eps_prior_cat")))
+        if prior_inst is not None:
+            parts.append(reparameterize(prior_inst[0], prior_inst[1], generator, draws.get("eps_prior_inst")))
+        z_prior = torch.cat(parts, dim=-1)
         coin, take = draws.get("coin"), draws.get("take_prior")
         if coin is None:
             coin = torch.rand((), generator=generator, device=z.device) < cfg.mix_coin_prob
@@ -138,10 +178,13 @@ def compute_losses(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
                    generator: Optional[torch.Generator] = None, deterministic: bool = False,
                    draws: Optional[Draws] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns ``(total_loss, metrics)``. Batch keys: ``input`` (a dense
-    (B, D, H, W, 1) grid), ``input_packed`` or ``input_packed_blocked``
-    (bit-packed uint8, ``data/packing.py``), and ``category_onehot`` for the
-    prior variants. The model's parameters are the ones differentiated;
-    ``deterministic`` puts the model in eval mode (no dropout, no prior mix)."""
+    (B, D, H, W, 1) grid, or (B, H, W, 3) images, float or uint8),
+    ``input_packed`` or ``input_packed_blocked`` (bit-packed uint8,
+    ``data/packing.py``), a voxel target for image models (``target``,
+    ``target_packed`` or ``target_packed_blocked``), and ``category_onehot``
+    / ``inst_onehot`` for the prior variants. The model's parameters are the
+    ones differentiated; ``deterministic`` puts the model in eval mode (no
+    dropout, no prior mix)."""
     mcfg = model.config
     if not mcfg.variational:
         raise _not_ported("deterministic (variational=False) models")
@@ -152,22 +195,30 @@ def compute_losses(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
     # the voxel BCE sums ~262k log terms per sample: float32 whatever the model computes in
     pred = fwd["pred"].float()
     target = batch["target"].float()
-    mean, log_var = enc.mean.float(), enc.log_var.float()
 
     metrics: Dict[str, torch.Tensor] = {}
     loss_shape = focal_binary_loss(pred, target, gamma=cfg.gamma, b_range=cfg.b_range).mean()
     metrics["loss_shape"] = loss_shape
     total = loss_shape
 
-    if mcfg.prior_category is not None:
-        mc, lvc = (t.float() for t in fwd["prior_cat"])
-        kl = gaussian_kl(mean, log_var, mc, lvc).mean()
-        reg = prior_repulsion(mc, lvc, cfg.reg_margin_scale_category * mc.shape[-1]).mean()
+    if mcfg.prior_category is not None or mcfg.prior_inst is not None:
+        kl = reg = 0.0
+        if mcfg.prior_category is not None:  # on the category block, or on the one block there is
+            mc, lvc = (t.float() for t in fwd["prior_cat"])
+            mean = enc.mean_category if enc.mean_category is not None else enc.mean_inst
+            log_var = enc.log_var_category if enc.log_var_category is not None else enc.log_var_inst
+            kl = kl + gaussian_kl(mean.float(), log_var.float(), mc, lvc).mean()
+            reg = reg + prior_repulsion(mc, lvc, cfg.reg_margin_scale_category * mc.shape[-1]).mean()
+        if mcfg.prior_inst is not None:  # repulsion between same-class pairs only in the dual latent
+            mi, lvi = (t.float() for t in fwd["prior_inst"])
+            kl = kl + gaussian_kl(enc.mean_inst.float(), enc.log_var_inst.float(), mi, lvi).mean()
+            gate = batch["category_onehot"] if mcfg.category_dim > 0 else None
+            reg = reg + prior_repulsion(mi, lvi, cfg.reg_margin_scale_inst * mi.shape[-1], class_onehot=gate).mean()
         metrics["loss_kl"] = kl
         metrics["loss_reg"] = reg
         total = total + cfg.kl_weight * kl + cfg.reg_weight * reg
     else:
-        kl = standard_gaussian_kl(mean, log_var).mean()
+        kl = standard_gaussian_kl(enc.mean.float(), enc.log_var.float()).mean()
         metrics["loss_kl"] = kl
         total = total + cfg.kl_weight * kl
 

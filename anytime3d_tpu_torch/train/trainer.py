@@ -18,14 +18,16 @@ checkpoint; on a non-finite logged loss the run restores the last checkpoint
 it saved while ``max_nan_restarts`` allows, reseeds its generator with
 ``step * 7919 + restarts`` and rewinds the batch stream to the restored step,
 and aborts otherwise; a final save follows unless the run aborted. The
-multi-scale schedule (an image-family loader's concern) is not ported yet.
+multi-scale image schedule changes the batch a loader makes, so it lives in
+the batch function (``cli.train.build_batch_fn``), which walks
+:func:`multi_scale_schedule`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -162,3 +164,15 @@ class Trainer:
         self.eval_history.append(out)
         print("\n" + " ".join(f"{k}:{v:.4f}" for k, v in sorted(out.items())))
         return out
+
+
+def multi_scale_schedule(sizes: Sequence[Tuple[int, int, int]], it: int, period: int = 3,
+                         seed: int = 0) -> Tuple[int, int, int]:
+    """The (rows, cols, batch) of step ``it``: the list is walked ``period``
+    steps an entry, in an order shuffled anew every ``period * len(sizes)``
+    steps from ``numpy.random.default_rng(seed + round)``, as the JAX package
+    walks it."""
+    sizes = list(sizes)
+    block = period * len(sizes)
+    order = np.random.default_rng(seed + it // block).permutation(len(sizes))
+    return sizes[order[(it % block) // period]]

@@ -74,7 +74,24 @@ order, any failure ending the run with a non-zero exit:
    subprocess on an ephemeral port answering HTTP requests, beside
    ``cli/serve.py --checkpoint --bf16`` (the eager ``make_packed_infer``) in
    another, both started and warmed up at once, then each timed alone, every
-   reply's class equal to the other server's; the phase's wall time printed.
+   reply's class equal to the other server's; the phase's wall time printed;
+11. image: full-width ``pascal_nolbo`` (Darknet19 -> category + instance
+   latent -> the 64^3 blocked decoder, whose tail runs the k=2 stages 128 ->
+   512 and 512 -> 64) from seeded weights on rendered images
+   (``SyntheticImageObjectLoader``): served at batch 2 on the card in float32
+   against the CPU, one float32 train step at B=2 against the CPU (every
+   loss, every gradient leaf) and ``anytime_eval`` at B=4, missing 0.5, with
+   injected draws against the CPU (equal accuracies, ``acc_inst`` among
+   them); a served batch of 8 at 64x64 in float32 and bfloat16, timed, 2
+   launches a batch (FFMA, tensor cores); ``cli/train.py``'s trainer in
+   bfloat16 at B=32 on 96x128 images (bench.py's shape) with packed-blocked
+   targets, 24 steps from a 256-shape loader (the render cache warm after 8):
+   2 / 2 / 2 launches a step, all on the tensor cores, a finite loss, device
+   time, host wall and peak memory printed, the host's batch cold and cached
+   and the prefetcher's pinned staging under a changing shape timed;
+   ``anytime_eval`` at B=32, 64x64, bfloat16, masked and clean, timed (4 and
+   2 launches); ``export_infer`` of the float32 image program loaded and held
+   to the eager one (2 launches a batch); the phase's wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -108,7 +125,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from anytime3d_tpu_torch.anytime.engine import anytime_eval  # noqa: E402
 from anytime3d_tpu_torch.cli import train as cli_train  # noqa: E402
-from anytime3d_tpu_torch.data.modelnet import SyntheticVoxelLoader  # noqa: E402
+from anytime3d_tpu_torch.data.modelnet import SyntheticImageObjectLoader, SyntheticVoxelLoader  # noqa: E402
 from anytime3d_tpu_torch.data.packing import (  # noqa: E402
     pack_voxels,
     pack_voxels_blocked,
@@ -219,6 +236,13 @@ LIFE_SERVE_START_S = 300  # the subprocess loads torch and the artifact
 # summation order only; bf16: two ulps (2^-7) of the largest entry
 EXPORT_TOL_F32 = 1e-5
 EXPORT_TOL_BF16 = 2.0**-7
+IMAGE_SIZE = 64  # (rows = cols) of the image phase's served and evaluated batches
+IMAGE_BENCH = (96, 128)  # (rows, cols) of bench.py's image train step
+IMAGE_TRAIN_STEPS = 24
+IMAGE_TRAIN_SAMPLES = 256  # 8 batches of 32: the render cache is warm from step 8
+IMAGE_HOST_LAST = 16  # host wall a step over the last 16 steps (all cached)
+IMAGE_SLICE_BATCH = 2  # served and trained on the card and the CPU
+IMAGE_ANYTIME_BATCH = 4
 
 
 def card_line() -> str:
@@ -464,16 +488,17 @@ def phase_kernels(card: str) -> dict:
 
 
 def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict, life_counts: dict,
-                   artifact_counts: dict) -> list:
+                   artifact_counts: dict, image_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
     every case measured, with the design it took (``ffma`` or ``wgmma``). Every
     number but ``bound_ms`` was measured in this run. ``launches`` sums
     the served runs, the train run, the anytime sweep, the lifecycle's train,
-    restored and evaluate runs and its exported programs' batches;
-    ``launches_wgmma`` is the part of them that took the tensor-core kernels."""
-    paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts)
+    restored and evaluate runs, its exported programs' batches and the image
+    phase's runs; ``launches_wgmma`` is the part of them that took the
+    tensor-core kernels."""
+    paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
@@ -491,6 +516,7 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "launches_anytime": anytime_counts[kernel],
             "launches_lifecycle": life_counts[kernel],
             "launches_artifact": artifact_counts[kernel],
+            "launches_image": image_counts[kernel],
             **head,
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
@@ -616,8 +642,8 @@ def phase_train_slice(cfg, device: torch.device) -> None:
         "category_onehot": torch.from_numpy(np.eye(cfg.category_dim, dtype=np.float32)[rng.integers(0, cfg.category_dim, n)]),
     }
     draws = {
-        "eps_post": torch.from_numpy(rng.normal(size=(n, z_dim)).astype(np.float32)),
-        "eps_prior": torch.from_numpy(rng.normal(size=(n, z_dim)).astype(np.float32)),
+        "eps_inst": torch.from_numpy(rng.normal(size=(n, z_dim)).astype(np.float32)),
+        "eps_prior_cat": torch.from_numpy(rng.normal(size=(n, z_dim)).astype(np.float32)),
         "coin": torch.tensor(True),  # the mixed branch: the prior sample reaches the decoder
         "take_prior": torch.from_numpy(rng.uniform(size=(n, z_dim)) < loss_cfg.mix_element_prob),
     }
@@ -1298,6 +1324,272 @@ def phase_lifecycle(cfg, device: torch.device, card: str) -> tuple[dict, dict]:
     return life_counts, art_counts
 
 
+def image_draws(n: int, zc: int, zi: int, mix_prob: float, seed: int) -> dict:
+    """The image train step's six draws and ``anytime_eval``'s four, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def normal(d):
+        return torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+
+    return {"eps_cat": normal(zc), "eps_inst": normal(zi), "eps_prior_cat": normal(zc), "eps_prior_inst": normal(zi),
+            "coin": torch.tensor(True), "take_prior": torch.from_numpy(rng.uniform(size=(n, zc + zi)) < mix_prob),
+            "keep": torch.from_numpy(rng.uniform(size=(n, zc)) < 0.5), "eps_corr": normal(zc)}
+
+
+def image_batch(cfg, n: int, rows: int, cols: int, seed: int) -> dict:
+    """``n`` rendered images (rows x cols) with their voxels and one-hots,
+    as the image loader makes them (numpy)."""
+    loader = SyntheticImageObjectLoader(num_samples=n, dim=cfg.decoder.output_shape[0], num_classes=cfg.category_dim,
+                                        num_inst=cfg.inst_dim, seed=seed)
+    inst, cls, _, _, images, voxels = loader.getNextBatch(n, imageSize=(cols, rows))
+    return {"input": images, "target": voxels, "category_onehot": cls, "inst_onehot": inst}
+
+
+def image_step_batch(b: dict, n: int) -> dict:
+    """The first ``n`` items of ``image_batch`` as the train step takes them
+    (CPU tensors): images, packed-blocked targets (the native packer), one-hots."""
+    return {"input": torch.from_numpy(b["input"][:n]),
+            "target_packed_blocked": torch.from_numpy(pack_voxels_blocked(b["target"][:n], 4, native=True)),
+            "category_onehot": torch.from_numpy(b["category_onehot"][:n]),
+            "inst_onehot": torch.from_numpy(b["inst_onehot"][:n])}
+
+
+def phase_image(device: torch.device, card: str) -> dict:
+    """The image family at full width (``pascal_nolbo``): card against CPU,
+    served batches, the bf16 train run at bench.py's image shape, the anytime
+    protocol and the exported image program. Returns the launch counts of
+    its served, train, anytime and exported runs, summed."""
+    from anytime3d_tpu_torch.data.prefetch import _Slot
+    from anytime3d_tpu_torch.serving.export import export_infer, load_infer
+
+    t_phase = time.perf_counter()
+    cfg, loss_cfg = configs.variant("pascal_nolbo")
+    zc, zi = cfg.z_category_dim, cfg.z_inst_dim
+    image_counts = dict.fromkeys(read_counts(), 0)
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            image_counts[k] += v
+
+    # 1. float32 on the card against the CPU: serving, one train step, anytime_eval. The prior nets' dropout
+    # at 0: their masks are the one draw that cannot be injected
+    no_drop = dataclasses.replace(cfg, prior_category=dataclasses.replace(cfg.prior_category, dropout_rate=0.0),
+                                  prior_inst=dataclasses.replace(cfg.prior_inst, dropout_rate=0.0))
+    model_cpu = MultiModalVAE(no_drop, generator=torch.Generator().manual_seed(SEED))
+    model_gpu = copy.deepcopy(model_cpu).to(device)
+    n_params = sum(p.numel() for p in model_cpu.parameters())
+    n = IMAGE_SLICE_BATCH
+    b = image_batch(cfg, 16, IMAGE_SIZE, IMAGE_SIZE, SEED + 6)
+    x, mask = torch.from_numpy(b["input"][:n]), torch.from_numpy(latent_masks(8, zc, SEED + 6)[2:2 + n])
+    with torch.inference_mode():
+        cpu = make_infer_fn(model_cpu)(x, mask)
+        reset_counts()
+        gpu = {k: v.cpu() for k, v in make_infer_fn(model_gpu)(x.to(device), mask.to(device)).items()}
+        torch.cuda.synchronize()
+    add(expect_counts("image slice, f32", 2, 0, 0, tensor_cores=False))
+    err_z = float((gpu["z_mean"] - cpu["z_mean"]).abs().max())
+    err_pred = float((gpu["pred"] - cpu["pred"]).abs().max())
+    print(f"image slice f32 card vs CPU, B={n} {IMAGE_SIZE}x{IMAGE_SIZE}, pascal_nolbo {n_params} params: z_mean "
+          f"max_abs_err {err_z:.3e}, pred max_abs_err {err_pred:.3e} (tol {SLICE_TOL_F32}), category card "
+          f"{gpu['category'].tolist()} cpu {cpu['category'].tolist()}, pred std {float(gpu['pred'].std()):.4f}",
+          flush=True)
+    if tuple(gpu["z_mean"].shape) != (n, zc + zi) or tuple(gpu["pred"].shape) != (n, *cfg.decoder.output_shape):
+        raise AssertionError(f"image slice: shapes {gpu['z_mean'].shape}, {gpu['pred'].shape}")
+    if not (err_z <= SLICE_TOL_F32 and err_pred <= SLICE_TOL_F32 and torch.equal(gpu["category"], cpu["category"])):
+        raise AssertionError("image slice: card f32 disagrees with the CPU")
+
+    draws = image_draws(n, zc, zi, loss_cfg.mix_element_prob, SEED + 7)
+    step_draws = {k: draws[k] for k in ("eps_cat", "eps_inst", "eps_prior_cat", "eps_prior_inst", "coin", "take_prior")}
+    batch = image_step_batch(b, n)
+    results = {}
+    for name, model, dev in (("card", model_gpu, device), ("cpu", model_cpu, torch.device("cpu"))):
+        if dev.type == "cuda":
+            reset_counts()
+        total, metrics = compute_losses(model, loss_cfg, {k: v.to(dev) for k, v in batch.items()},
+                                        draws={k: v.to(dev) for k, v in step_draws.items()})
+        names, params = zip(*model.named_parameters())
+        grads = dict(zip(names, torch.autograd.grad(total, params)))
+        results[name] = ({k: float(v) for k, v in metrics.items()}, {k: g.cpu() for k, g in grads.items()})
+        if dev.type == "cuda":
+            add(expect_counts("image train slice, f32", 2, 2, 2, tensor_cores=False))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = results["card"], results["cpu"]
+    for k, v in m_cpu.items():
+        if not (math.isfinite(m_gpu[k]) and abs(m_gpu[k] - v) <= TRAIN_TOL_LOSS_REL * abs(v) + 1e-6):
+            raise AssertionError(f"image train slice: {k} card {m_gpu[k]} vs CPU {v}")
+    worst = max(((k, float((g_gpu[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)) for k, g in g_cpu.items()),
+                key=lambda kv: kv[1])
+    print(f"image train slice f32 card vs CPU, B={n}: metrics {m_gpu}; {len(g_cpu)} gradient leaves, worst "
+          f"{worst[0]} at {worst[1]:.3e} of its largest entry (tol {TRAIN_TOL_GRAD_REL})", flush=True)
+    if not worst[1] <= TRAIN_TOL_GRAD_REL:
+        raise AssertionError(f"image train slice: gradient of {worst[0]} off by {worst[1]} of its largest entry")
+
+    n = IMAGE_ANYTIME_BATCH
+    any_batch = image_step_batch(b, n)
+    any_draws = {k: v for k, v in image_draws(n, zc, zi, 0.5, SEED + 8).items()
+                 if k in ("eps_cat", "eps_inst", "keep", "eps_corr")}
+    reset_counts()
+    card_any = {k: float(v) for k, v in anytime_eval(model_gpu, {k: v.to(device) for k, v in any_batch.items()},
+                                                     missing_prob=0.5,
+                                                     draws={k: v.to(device) for k, v in any_draws.items()}).items()}
+    torch.cuda.synchronize()
+    add(expect_counts("image anytime slice, f32", 4, 0, 0, tensor_cores=False))
+    cpu_any = {k: float(v) for k, v in anytime_eval(model_cpu, any_batch, missing_prob=0.5, draws=any_draws).items()}
+    if set(card_any) != set(cpu_any) or "acc_inst" not in card_any:
+        raise AssertionError(f"image anytime: outputs {sorted(card_any)} vs {sorted(cpu_any)}")
+    for k, v in cpu_any.items():
+        if k.startswith("acc"):
+            ok = card_any[k] == v
+        elif k.startswith(("precision", "recall")):
+            ok = abs(card_any[k] - v) <= ANYTIME_TOL_PR
+        else:
+            ok = abs(card_any[k] - v) <= ANYTIME_TOL_LOSS_REL * abs(v)
+        if not (ok and math.isfinite(card_any[k])):
+            raise AssertionError(f"image anytime: {k} card {card_any[k]} vs CPU {v}")
+    print(f"image anytime f32 card vs CPU, B={n}, missing 0.5: card {card_any}; equal accuracies, losses within "
+          f"{ANYTIME_TOL_LOSS_REL} relative, P/R within {ANYTIME_TOL_PR}", flush=True)
+    del model_cpu, results, g_gpu, g_cpu
+
+    # 2. a served batch of 8 at 64x64, f32 and bf16
+    model_bf16 = copy.deepcopy(model_gpu).to(torch.bfloat16)
+    x8 = torch.from_numpy(b["input"][:BATCH]).to(device)
+    mask8 = torch.from_numpy(latent_masks(BATCH, zc, SEED + 6)).to(device)
+    served_ms = {}
+    for label, model, tensor_cores in (("f32", model_gpu, False), ("bf16", model_bf16, True)):
+        infer = make_infer_fn(model)
+        infer(x8, mask8)  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_counts()
+        out = [infer(x8, mask8) for _ in range(SERVE_BF16_BATCHES)]
+        torch.cuda.synchronize()
+        add(expect_counts(f"image served {label}", 2 * SERVE_BF16_BATCHES, 0, 0, tensor_cores))
+        if not all(torch.isfinite(o["pred"]).all() and torch.isfinite(o["z_mean"]).all() for o in out):
+            raise AssertionError(f"image served {label}: non-finite outputs")
+        served_ms[label] = cuda_ms(lambda: infer(x8, mask8))
+    print(f"image served batch of {BATCH}, {IMAGE_SIZE}x{IMAGE_SIZE} images: device time (CUDA events, mean of 20) "
+          f"f32 {served_ms['f32']:.3f} ms, bf16 {served_ms['bf16']:.3f} ms; 2 conv_k2 launches a batch [{card}]",
+          flush=True)
+
+    # 5 (before the train run frees nothing it needs). the exported f32 image program against the eager one
+    t0 = time.perf_counter()
+    fn = load_infer(export_infer(model_gpu, (BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)))
+    export_s = time.perf_counter() - t0
+    fn(x8, mask8)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [fn(x8, mask8) for _ in range(ARTIFACT_BATCHES)]
+    torch.cuda.synchronize()
+    add(expect_counts("image artifact, f32", 2 * ARTIFACT_BATCHES, 0, 0, tensor_cores=False))
+    line = compare_outputs("image artifact vs eager", outs[0], make_infer_fn(model_gpu)(x8, mask8), EXPORT_TOL_F32)
+    print(f"image export: export_infer (f32, float input {BATCH}x{IMAGE_SIZE}x{IMAGE_SIZE}x3) {export_s:.2f} s; "
+          f"loaded, against the eager program: {line}; device time per batch {cuda_ms(lambda: fn(x8, mask8)):.3f} ms "
+          f"[{card}]", flush=True)
+    del model_gpu, model_bf16, fn, outs
+
+    # 4. anytime_eval at B=32, 64x64, bf16
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16).to(device)
+    b32 = image_batch(cfg, TRAIN_BATCH, IMAGE_SIZE, IMAGE_SIZE, SEED + 9)
+    a_batch = to_device({"input": b32["input"], "target_packed_blocked": pack_voxels_blocked(b32["target"], 4, True),
+                         "category_onehot": b32["category_onehot"], "inst_onehot": b32["inst_onehot"]}, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    masked = anytime_eval(model, a_batch, gen, missing_prob=0.5)
+    anytime_eval(model, a_batch, gen)
+    torch.cuda.synchronize()
+    add(expect_counts("image anytime, one masked and one clean batch", 4 + 2, 0, 0, tensor_cores=True))
+    if "acc_inst" not in masked or not all(math.isfinite(float(v)) for v in masked.values()):
+        raise AssertionError(f"image anytime B={TRAIN_BATCH}: {masked}")
+    ms_masked = cuda_ms(lambda: anytime_eval(model, a_batch, gen, missing_prob=0.5), iters=10)
+    ms_clean = cuda_ms(lambda: anytime_eval(model, a_batch, gen), iters=10)
+    print(f"image anytime, B={TRAIN_BATCH} bf16 {IMAGE_SIZE}x{IMAGE_SIZE}: device time per batch (CUDA events, "
+          f"10 calls) at missing 0.5 {ms_masked:.3f} ms, at 0.0 {ms_clean:.3f} ms [{card}]", flush=True)
+    del model, a_batch
+
+    # 3. the train run: cli/train.py's trainer, bf16, B=32, bench.py's 96x128 images, packed-blocked targets
+    args = cli_train.parse_args(["--config", "pascal_nolbo", "--data", "synthetic", "--bf16", "--batch-size",
+                                 str(TRAIN_BATCH), "--steps", str(IMAGE_TRAIN_STEPS), "--eval-every", "0"])
+    trainer, _ = cli_train.build_trainer(args)
+    rows, cols = IMAGE_BENCH
+    loader = SyntheticImageObjectLoader(num_samples=IMAGE_TRAIN_SAMPLES, dim=cfg.decoder.output_shape[0],
+                                        num_classes=cfg.category_dim, num_inst=cfg.inst_dim)
+    trainer.batch_fn = cli_train.build_batch_fn(loader, cfg, TRAIN_BATCH, packed=True, native=True,
+                                                image_size=(cols, rows))
+    # the host's batch, cold (rendering) and cached, on a loader of its own
+    probe_fn = cli_train.build_batch_fn(
+        SyntheticImageObjectLoader(num_samples=IMAGE_TRAIN_SAMPLES, dim=cfg.decoder.output_shape[0],
+                                   num_classes=cfg.category_dim, num_inst=cfg.inst_dim, seed=5),
+        cfg, TRAIN_BATCH, packed=True, native=True, image_size=(cols, rows))
+    per_epoch = IMAGE_TRAIN_SAMPLES // TRAIN_BATCH
+    host = []
+    for i in range(2 * per_epoch):
+        t0 = time.perf_counter()
+        hb = probe_fn(i)
+        host.append((time.perf_counter() - t0) * 1e3)
+    if hb["input"].shape != (TRAIN_BATCH, rows, cols, 3) or "target_packed_blocked" not in hb:
+        raise AssertionError(f"image batch: {({k: v.shape for k, v in hb.items()})}")
+    # the prefetcher's pinned staging when the batch shape changes every batch (a multi-scale schedule) or not:
+    # the same bytes in two shapes, so the difference is the reallocation alone; two rounds in opposite orders
+    slot, turned = _Slot(), np.ascontiguousarray(hb["input"].transpose(0, 2, 1, 3))
+    runs = {"same shape": [hb["input"]] * 8, "alternating shapes": [hb["input"], turned] * 4}
+    stage_ms = dict.fromkeys(runs, 0.0)
+    for order in (list(runs), list(runs)[::-1]):
+        for label in order:
+            slot.stage("input", runs[label][-1])
+            t0 = time.perf_counter()
+            for a in runs[label]:
+                slot.stage("input", a)
+            stage_ms[label] += (time.perf_counter() - t0) / len(runs[label]) * 1e3 / 2
+    print(f"image host batch, B={TRAIN_BATCH} {rows}x{cols}, packed-blocked targets: cold (rendering) "
+          f"{np.mean(host[:per_epoch]):.2f} ms, cached {np.mean(host[per_epoch:]):.2f} ms (means of {per_epoch}); "
+          f"prefetcher staging of the images into pinned memory (mean of 8, two rounds) {stage_ms['same shape']:.3f} "
+          f"ms a batch at one shape, {stage_ms['alternating shapes']:.3f} ms when the shape changes every batch "
+          f"(the same bytes, {rows}x{cols} and {cols}x{rows}) [{card}]", flush=True)
+
+    events, entries = [], []
+    inner = trainer.step_fn
+
+    def timed_step(*a, **kw):
+        entries.append(time.perf_counter())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer.step_fn = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print("", flush=True)
+    add(expect_counts("image train run", 2 * IMAGE_TRAIN_STEPS, 2 * IMAGE_TRAIN_STEPS, 2 * IMAGE_TRAIN_STEPS,
+                      tensor_cores=True))
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    if trainer.state.step != IMAGE_TRAIN_STEPS or trainer.aborted_nan or not all(
+            math.isfinite(v) for row in hist for v in row.values()):
+        raise AssertionError(f"image train run: step {trainer.state.step}, aborted {trainer.aborted_nan}")
+    if any(row["grads_finite"] != 1.0 for row in hist):
+        raise AssertionError("image train run: a step's gradients were not finite")
+    step_ms = np.asarray([a.elapsed_time(e) for a, e in events[TRAIN_WARMUP:]])
+    host_wall = np.diff(np.asarray(entries[-IMAGE_HOST_LAST - 1:])) * 1e3
+    voxels = TRAIN_BATCH * math.prod(cfg.decoder.output_shape)
+    print(f"image train run: {IMAGE_TRAIN_STEPS} steps of pascal_nolbo, B={TRAIN_BATCH} bf16, {rows}x{cols} images, "
+          f"64^3 packed-blocked targets, {IMAGE_TRAIN_SAMPLES}-shape loader: loss_total {hist[0]['loss_total']:.1f} -> "
+          f"{hist[-1]['loss_total']:.1f}; device time per step (CUDA events, steps {TRAIN_WARMUP}.."
+          f"{IMAGE_TRAIN_STEPS - 1}) median {np.median(step_ms):.2f} ms (min {step_ms.min():.2f}, max "
+          f"{step_ms.max():.2f}; {voxels / np.median(step_ms) * 1e3:.3e} voxels/s); host wall per step, start to "
+          f"start, over the last {IMAGE_HOST_LAST} median {np.median(host_wall):.2f} ms (min {host_wall.min():.2f}, "
+          f"max {host_wall.max():.2f}); whole run {wall:.2f} s; peak memory allocated {peak / 2**30:.2f} GiB; "
+          f"launches 2 / 2 / 2 a step, all on the tensor cores [{card}]", flush=True)
+    print(f"image phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return image_counts
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -1313,9 +1605,10 @@ def main() -> None:
     anytime_counts = phase_anytime_timing(cfg, device, card)
     train_counts = phase_train_run(card)
     life_counts, artifact_counts = phase_lifecycle(cfg, device, card)
+    image_counts = phase_image(device, card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts,
-                                                artifact_counts)}), flush=True)
+                                                artifact_counts, image_counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

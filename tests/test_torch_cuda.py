@@ -1,8 +1,9 @@
 """PyTorch port on the card: the ``conv_k2`` CUDA kernels (forward, dx, dw)
 against their plain versions, their refusals, the three ``torch.library``
 ops under ``opcheck``, a small serving slice (eager and exported), a small
-train step and the anytime protocol on the GPU against the CPU, and the
-batch prefetcher's stream ordering.
+train step and the anytime protocol on the GPU against the CPU, the small
+image model (``pascal_nolbo``'s layout) served and trained on the card
+against the CPU, and the batch prefetcher's stream ordering.
 
 Every test here needs a CUDA GPU and ``nvcc`` and skips without them. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -32,7 +33,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     ffma_dw_split,
     wgmma_plan,
 )
-from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo
+from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo, pascal_nolbo
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
 from anytime3d_tpu_torch.serving.export import export_infer, load_infer, make_infer_fn, make_packed_infer
 from anytime3d_tpu_torch.train.state import create_train_state
@@ -337,8 +338,8 @@ def test_small_train_step_on_card_matches_cpu(cuda, dtype, planned):
     vox = (rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32)
     batch = {"input_packed_blocked": torch.from_numpy(pack_voxels_blocked(vox, 4)),
              "category_onehot": torch.from_numpy(np.eye(5, dtype=np.float32)[rng.integers(0, 5, 4)])}
-    draws = {"eps_post": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)),
-             "eps_prior": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)),
+    draws = {"eps_inst": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)),
+             "eps_prior_cat": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)),
              "coin": torch.tensor(True), "take_prior": torch.from_numpy(rng.uniform(size=(4, 8)) < 0.3)}
     model_cpu = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0), dtype=dtype)
     model_gpu = copy.deepcopy(model_cpu).to(cuda)
@@ -476,6 +477,26 @@ def test_prefetched_batches_equal_direct_copies(cuda):
         pf.close()
 
 
+def test_prefetched_batches_of_changing_shape_equal_direct_copies(cuda):
+    """A multi-scale stream (the image shape changes every other batch): each
+    batch equal to a direct copy, and each slot keeps one pinned buffer a
+    (key, shape, dtype), allocated once."""
+    def make(i):
+        side = 24 if i % 2 else 16
+        return {"input": np.random.default_rng(i).uniform(size=(2, side, side + 8, 3)).astype(np.float32)}
+
+    steps = iter(range(12))
+    pf = DevicePrefetcher(lambda: make(next(steps)), cuda, depth=2)
+    try:
+        for i in range(12):
+            batch = pf.get()
+            assert torch.equal(batch["input"], torch.from_numpy(make(i)["input"]).to(cuda)), i
+        for slot in pf._slots:
+            assert {spec[1] for spec in slot.buffers} <= {(2, 16, 24, 3), (2, 24, 32, 3)}
+    finally:
+        pf.close()
+
+
 def test_prefetched_batch_is_read_after_its_copy(cuda):
     """The side stream is held busy before each copy, so at ``get`` the copy
     has not run yet. Waiting on the current stream, then poisoning the pinned
@@ -497,7 +518,7 @@ def test_prefetched_batch_is_read_after_its_copy(cuda):
     try:
         batch = pf.get()
         torch.cuda.current_stream().synchronize()
-        pf._slots[0].buffers["x"].fill_(-1.0)
+        pf._slots[0].buffers[("x", (256, 1024), torch.float32)].fill_(-1.0)
         assert bool((batch["x"] == 7.0).all())
     finally:
         pf.close()
@@ -535,3 +556,71 @@ def test_anytime_eval_on_card_matches_cpu(cuda, missing_prob):
             assert abs(float(g) - float(v)) <= 1e-3, k
         else:
             np.testing.assert_allclose(float(g), float(v), rtol=1e-4, err_msg=k)
+
+
+def small_image_config():
+    """pascal_nolbo's layout (Darknet19 at full width, z = 8 + 8) with the
+    decoder cut to 32^3; its two k=2 stages (at 8^3) are 64 -> 64, a width
+    the tensor-core kernels take. The prior nets' dropout at 0 (their masks
+    cannot be injected)."""
+    base = pascal_nolbo()
+    return dataclasses.replace(
+        base,
+        decoder=dataclasses.replace(base.decoder, output_shape=(32, 32, 32, 1), filter_nums=(32, 16, 64, 8, 1)),
+        prior_category=dataclasses.replace(base.prior_category, dropout_rate=0.0),
+        prior_inst=dataclasses.replace(base.prior_inst, dropout_rate=0.0),
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_image_model_on_card_matches_cpu(cuda, dtype):
+    """The image path on the card against the CPU, from the same weights,
+    images, targets and draws: served (2 forward launches a batch: the
+    decoder tail's two k=2 stages), then two train steps (2 forward, 2 dx and
+    2 dw launches a step, all on the tensor-core kernels in bfloat16, none in
+    float32). float32: served outputs to 1e-4, the first step's metrics to
+    rtol 1e-4 (summation order); bfloat16: the card's bf16 against the CPU's
+    bf16, 5%."""
+    cfg, loss_cfg = small_image_config(), loss_config("pascal_nolbo")
+    rng = np.random.default_rng(6)
+    n = 2
+    images = rng.uniform(size=(n, 32, 48, 3)).astype(np.float32)
+    vox = (rng.uniform(size=(n, 32, 32, 32, 1)) > 0.7).astype(np.float32)
+    batch = {"input": torch.from_numpy(images), "target_packed_blocked": torch.from_numpy(pack_voxels_blocked(vox, 4)),
+             "category_onehot": torch.from_numpy(np.eye(12, dtype=np.float32)[[3, 3]]),
+             "inst_onehot": torch.from_numpy(np.eye(10, dtype=np.float32)[[1, 7]])}
+    draws = {k: torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32))
+             for k in ("eps_cat", "eps_inst", "eps_prior_cat", "eps_prior_inst")}
+    draws.update(coin=torch.tensor(True), take_prior=torch.from_numpy(rng.uniform(size=(n, 16)) < 0.5))
+    model_cpu = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0), dtype=dtype)
+    model_gpu = copy.deepcopy(model_cpu).to(cuda)
+    n_wgmma = 2 if dtype == torch.bfloat16 else 0
+
+    if dtype == torch.float32:
+        mask = torch.from_numpy((rng.uniform(size=(n, 8)) < 0.5).astype(np.float32))
+        ref = make_infer_fn(model_cpu)(batch["input"], mask)
+        before = _counts()
+        out = make_infer_fn(model_gpu)(batch["input"].to(cuda), mask.to(cuda))
+        assert tuple(a - b for a, b in zip(_counts(), before)) == (2, 0, 0)
+        assert torch.equal(out["category"].cpu(), ref["category"])
+        for k in ("z_mean", "pred"):
+            np.testing.assert_allclose(out[k].cpu().numpy(), ref[k].numpy(), rtol=0, atol=1e-4, err_msg=k)
+
+    history = {}
+    for name, model, dev in (("cpu", model_cpu, torch.device("cpu")), ("card", model_gpu, cuda)):
+        state, step = create_train_state(model), make_train_step(model, loss_cfg)
+        b, d = {k: v.to(dev) for k, v in batch.items()}, {k: v.to(dev) for k, v in draws.items()}
+        before, before_wg = _counts(), _wgmma_counts()
+        history[name] = []
+        for _ in range(2):
+            state, metrics = step(state, b, draws=d)
+            history[name].append({k: float(v) for k, v in metrics.items()})
+        launched = tuple(a - b0 for a, b0 in zip(_counts(), before))
+        launched_wg = tuple(a - b0 for a, b0 in zip(_wgmma_counts(), before_wg))
+        assert launched == ((4, 4, 4) if name == "card" else (0, 0, 0))
+        assert launched_wg == ((2 * n_wgmma,) * 3 if name == "card" else (0, 0, 0))
+    rtol = 1e-4 if dtype == torch.float32 else 0.05
+    for k, v in history["cpu"][0].items():
+        np.testing.assert_allclose(history["card"][0][k], v, rtol=rtol, atol=1e-6, err_msg=k)
+    for row in history["card"]:
+        assert all(np.isfinite(v) for v in row.values()) and row["grads_finite"] == 1.0

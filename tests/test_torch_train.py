@@ -84,8 +84,8 @@ def jax_draws(key, cfg):
     ks = jax.random.split(key, 7)
     k_coin, k_elem = jax.random.split(ks[4])
     return {
-        "eps_post": np.asarray(jax.random.normal(ks[1], (B, Z), jnp.float32)),
-        "eps_prior": np.asarray(jax.random.normal(ks[2], (B, Z), jnp.float32)),
+        "eps_inst": np.asarray(jax.random.normal(ks[1], (B, Z), jnp.float32)),
+        "eps_prior_cat": np.asarray(jax.random.normal(ks[2], (B, Z), jnp.float32)),
         "coin": np.asarray(jax.random.bernoulli(k_coin, cfg.mix_coin_prob, ())),
         "take_prior": np.asarray(jax.random.bernoulli(k_elem, cfg.mix_element_prob, (B, Z))),
     }
@@ -257,13 +257,17 @@ def test_batch_forms_give_the_same_loss(setup):
             assert float(got[name][k]) == float(got["dense"][k]), (name, k)
 
 
-@pytest.mark.parametrize("batch", [{"input": torch.zeros(1, DIM, DIM, DIM, 1), "target": torch.zeros(1)},
-                                   {"input": torch.zeros(1, 8, 8, 3, dtype=torch.uint8)},
-                                   {"input_packed": torch.zeros(1, 8, dtype=torch.uint8),
-                                    "target_packed_blocked": torch.zeros(1, 8, dtype=torch.uint8)}])
-def test_unported_batch_forms_raise(setup, batch):
+@pytest.mark.parametrize("n", [4, 5, 7])
+def test_unported_batch_forms_raise(setup, n):
+    """Image batches (explicit voxel targets, uint8 images, packed targets)
+    are ported and held to the JAX package in ``test_torch_image.py``; loader
+    tuples other than the Pascal loader's 6 (the KITTI loader's 5) are not."""
+    class Loader:
+        def getNextBatch(self, batch_size):
+            return tuple(np.zeros((batch_size, 1), np.float32) for _ in range(n))
+
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_step.materialize_batch(setup[2], batch)
+        cli_train.build_batch_fn(Loader(), setup[3], 2)(0)
 
 
 def test_bf16_compute_keeps_f32_params(setup):
