@@ -11,7 +11,10 @@ the train step (packed-blocked batches, losses in float32, a gradient
 zeroed whole when any leaf is non-finite, Adam) and its loop (batches
 prefetched on a worker thread, packed natively; ``cli/train.py``); and the
 anytime engine with the evaluation protocols (``anytime/``, ``evaluation/``,
-``cli/evaluate.py``). The 2x2x2
+``cli/evaluate.py``); the image family (``pascal_nolbo``); and the
+multi-object detector-reconstructor (``models/detector.py``, ``ops/nms.py``,
+``geometry/``, ``models/pipeline.py``, ``train/detector_step.py``,
+``evaluation/detection.py``, ``cli/train_detector.py``). The 2x2x2
 convolutions run through hand-written CUDA kernels, forward and backward
 (``kernels/csrc/conv_k2.cu``), on the GPU.
 """

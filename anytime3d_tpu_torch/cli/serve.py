@@ -66,6 +66,9 @@ def _from_artifact(args, device):
         fn = load_infer(fh.read())
     if fn.device.type != device.type:
         raise SystemExit(f"{args.artifact} was exported for {fn.device}, not --device {device}")
+    if fn.mask_shape is None:
+        raise SystemExit(f"{args.artifact} takes one input (a detector program, export_detector): the HTTP server "
+                         "serves (x, mask) programs only")
     batch, mask_dim = fn.input_shape[0], fn.mask_shape[1]
     if fn.input_dtype == torch.uint8:
         if len(fn.input_shape) != 2:

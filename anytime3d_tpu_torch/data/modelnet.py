@@ -8,8 +8,10 @@ same seed, the same batches as the JAX loader; with ``partial_num=None`` it
 reads the shard indices present on disk, whether or not they are contiguous.
 ``SyntheticVoxelLoader`` gives the same batches as the JAX package's at the
 same seed, and ``SyntheticImageObjectLoader`` renders them to images in the
-Pascal loader's tuple form, the same arrays as the JAX loader's. The
-part-based instance shapes (``structural_inst``) are not ported yet.
+Pascal loader's tuple form, the same arrays as the JAX loader's;
+``SyntheticMultiObjectLoader`` pastes several renders into one scene with its
+grid targets, the same batches as the JAX loader's. The part-based instance
+shapes (``structural_inst``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -237,3 +239,74 @@ class SyntheticImageObjectLoader(SyntheticVoxelLoader):
         cls = np.eye(self._num_classes, dtype=np.float32)[self._labels[sel]]
         inst = np.eye(self._num_inst, dtype=np.float32)[self._insts[sel]]
         return inst, cls, np.sin(euler), np.cos(euler), images, vox[..., None]
+
+
+def _extents(vox: np.ndarray) -> np.ndarray:
+    """(3,) float32: the occupied span of a (d, d, d) grid along each axis, in
+    voxels (max index - min index + 1), 1 along an axis with nothing occupied."""
+    occ = vox > 0.5
+    ext = []
+    for axis in range(3):
+        hit = np.nonzero(occ.any(axis=tuple(a for a in range(3) if a != axis)))[0]
+        ext.append(hit[-1] - hit[0] + 1 if len(hit) else 1)
+    return np.array(ext, np.float32)
+
+
+class SyntheticMultiObjectLoader(SyntheticVoxelLoader):
+    """Synthetic scenes behind the multi-object Pascal loader's interface:
+    ``getNextBatch(B) -> (images, grid_targets, voxel_lists)``: images (B,
+    rows, cols, 3) float32, the stacked ``build_grid_targets`` dicts and each
+    image's list of (n, dim, dim, dim, 1) voxels. Each image holds 1 to
+    ``max_objects`` procedural shapes, rendered at random azimuths, sizes and
+    places and max-pasted; each object's metric (w, h, l) is its occupied
+    extent at a nominal 4 m scale. The same batches as the JAX loader's at the
+    same seed."""
+
+    def __init__(self, num_samples: int = 512, dim: int = 32, num_classes: int = 8, num_inst: int = 10,
+                 image_size=(128, 96), grid_size=(4, 3), predictors_per_cell: int = 5, max_objects: int = 3,
+                 seed: int = 0):
+        super().__init__(num_samples, dim, num_classes, num_inst, seed)
+        self.dataStart = 0
+        self._image_size = image_size
+        self._grid_size = grid_size
+        self._p = predictors_per_cell
+        self._max_obj = max_objects
+
+    def getNextBatch(self, batchSize: int = 8):
+        from anytime3d_tpu_torch.data.pascal3d import build_grid_targets
+
+        out_c, out_r = self._image_size
+        images, targets_list, voxel_lists = [], [], []
+        for _ in range(batchSize):
+            if self.batchStart >= self.dataLength:
+                self.epoch += 1
+                self._rng.shuffle(self._idx)
+                self.batchStart = 0
+            img = np.zeros((out_r, out_c, 3), np.float32)
+            objs, voxels = [], []
+            for _k in range(int(self._rng.integers(1, self._max_obj + 1))):
+                i = self._idx[self.batchStart % self.dataLength]
+                self.batchStart += 1
+                vox = self._cache[i].astype(np.float32)
+                az = float(self._rng.uniform(-np.pi, np.pi))
+                h = int(self._rng.integers(out_r // 4, out_r // 2 + 1))
+                w = int(self._rng.integers(out_c // 4, out_c // 2 + 1))
+                r0 = int(self._rng.integers(0, out_r - h + 1))
+                c0 = int(self._rng.integers(0, out_c - w + 1))
+                region = img[r0 : r0 + h, c0 : c0 + w]
+                np.maximum(region, SyntheticImageObjectLoader._render(self, vox, az, (w, h)), out=region)
+                ext = _extents(vox) / vox.shape[0]
+                objs.append({
+                    "bbox": np.array([c0 / out_c, r0 / out_r, (c0 + w) / out_c, (r0 + h) / out_r], np.float32),
+                    "euler_rad": (az, 0.0, 0.0),
+                    "inst_onehot": np.eye(self._num_inst, dtype=np.float32)[self._insts[i]],
+                    "voxel_index": len(voxels),
+                    "bbox3d_whl": np.array([ext[2], ext[1], ext[0]], np.float32) * 4.0,
+                })
+                voxels.append(vox[..., None])
+            images.append(img)
+            targets_list.append(build_grid_targets(objs, self._grid_size, self._p))
+            voxel_lists.append(np.stack(voxels))
+        self.dataStart = self.batchStart
+        targets = {k: np.stack([t[k] for t in targets_list]) for k in targets_list[0]}
+        return np.stack(images), targets, voxel_lists

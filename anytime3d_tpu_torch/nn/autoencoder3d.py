@@ -11,7 +11,13 @@ JAX dataclasses field by field. The modules port the layout the flagship
 - ``Decoder3D`` on the blocked-tail path: dense to a small grid, transposed
   convs, two k=2 s=1 convs emitting phase channels (the ``conv_k2`` kernel),
   one depth-to-space(4) (skipped with ``blocked_output``) and the final
-  activation.
+  activation;
+- ``Decoder3D`` on the pixel-shuffle path (the detector's decoder, and any
+  ``final_mode='pixel_shuffle'`` config without a blocked tail): dense to a
+  small grid, a transposed conv for every stage but the last, then one stride-1
+  conv of ``max(1, ceil(k/s))`` emitting ``s^3`` phase channels (at 2x2x2,
+  every config of the repo, the ``conv_k2`` kernel), depth-to-space(s) and the
+  final activation.
 
 The train step keeps the whole voxel round trip in the coarse layout
 (``blocked_input`` and ``blocked_output``), so the fine 64^3 x 1 grid is never
@@ -143,9 +149,11 @@ class Decoder3D(nn.Module):
         super().__init__()
         cfg = config
         self.dtype = dtype  # compute dtype; None: that of the input
+        self.blocked = decoder_tail_blocked_active(cfg)
+        pixel_shuffle = cfg.final_mode == "pixel_shuffle" and cfg.strides[-1] > 1
         _refuse([name for name, on in (
-            (f"the decoder with final_mode={cfg.final_mode!r} and tail_blocked={cfg.tail_blocked}",
-             not decoder_tail_blocked_active(cfg)),
+            (f"the decoder with final_mode={cfg.final_mode!r}, tail_blocked={cfg.tail_blocked} and last stride "
+             f"{cfg.strides[-1]}", not (self.blocked or pixel_shuffle)),
             ("mid_blocked", cfg.mid_blocked),
             ("mid_equiv", cfg.mid_equiv),
             ("tail_phase_norm", cfg.tail_phase_norm),
@@ -155,30 +163,42 @@ class Decoder3D(nn.Module):
         self.channels = max(cfg.filter_nums[0] // 64, 8)
         self.denseblock_0 = DenseBlock(cfg.input_dim, math.prod(self.spatial) * self.channels,
                                        cfg.act, generator)
-        n_mid = len(cfg.filter_nums) - 2
+        n_mid = len(cfg.filter_nums) - (2 if self.blocked else 1)
         cin = self.channels
         for i, (f, k, s) in enumerate(zip(cfg.filter_nums[:n_mid], cfg.filter_sizes[:n_mid],
                                           cfg.strides[:n_mid])):
             self.add_module(f"deconvblock3d_{i}", DeconvBlock3D(cin, f, k, s, cfg.act, generator))
             cin = f
         self.num_blocks = n_mid
-        # blocked tail: the last two stride-2 stages as k=2 convs at the coarse grid
-        f4 = cfg.filter_nums[-2]
-        self.conv_0 = ConvK2(cin, f4 * 8, generator)
-        self.groupnorm_0 = group_norm(f4 * 8)
-        self.conv_1 = ConvK2(f4 * 8, cfg.filter_nums[-1] * 64, generator)
-        self.act = activation(cfg.act)
+        if self.blocked:
+            # blocked tail: the last two stride-2 stages as k=2 convs at the coarse grid
+            f4 = cfg.filter_nums[-2]
+            self.conv_0 = ConvK2(cin, f4 * 8, generator)
+            self.groupnorm_0 = group_norm(f4 * 8)
+            self.conv_1 = ConvK2(f4 * 8, cfg.filter_nums[-1] * 64, generator)
+            self.act = activation(cfg.act)
+        else:
+            # pixel shuffle: a stride-1 SAME conv of ceil(k/s) emitting f * s^3 phase channels
+            f, k, self.shuffle = cfg.filter_nums[-1], cfg.filter_sizes[-1], cfg.strides[-1]
+            size = max(1, -(-k // self.shuffle))
+            features = f * self.shuffle**3
+            self.conv_0 = ConvK2(cin, features, generator) if size == 2 else Conv3d(cin, features, size, 1, generator)
         self.final_act = activation(cfg.final_act)
 
     def forward(self, z: torch.Tensor, blocked_output: bool = False) -> torch.Tensor:
-        """``blocked_output``: return the grid as (B, D/4, H/4, W/4, 64*C), the
-        layout depth-to-space(4) would read, with the final activation applied:
-        element for element the space-to-depth(4) of the normal output."""
+        """``blocked_output`` (blocked tail only): return the grid as (B, D/4,
+        H/4, W/4, 64*C), the layout depth-to-space(4) would read, with the
+        final activation applied: element for element the space-to-depth(4)
+        of the normal output."""
+        if blocked_output and not self.blocked:
+            raise ValueError("blocked_output requires the blocked-tail layout")
         z = z.to(self.dtype or z.dtype)
         # the dense output is laid out channels-last, (B, *spatial, channels)
         x = self.denseblock_0(z).reshape(z.shape[0], *self.spatial, self.channels)
         for i in range(self.num_blocks):
             x = getattr(self, f"deconvblock3d_{i}")(x)
+        if not self.blocked:
+            return self.final_act(depth_to_space3d(self.conv_0(x), self.shuffle))
         x = self.act(self.groupnorm_0(self.conv_0(x)))
         x = self.conv_1(x)
         if not blocked_output:

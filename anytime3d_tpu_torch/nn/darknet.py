@@ -145,17 +145,19 @@ class Darknet53Tiny(_Backbone):
 
 
 class Head2D(nn.Module):
-    """Conv stack, a bare 1x1 projection and a global max over H and W: the
-    single-object encoder head, whose flat output holds the latent blocks.
-    (The JAX head's other poolings, ``'average'`` and None for the detector's
-    map, have no caller in the port.)"""
+    """Conv stack and a bare 1x1 projection, then ``last_pooling``: ``'max'``
+    (a global max over H and W: the single-object encoder head, whose flat
+    output holds the latent blocks), ``'average'`` (a global mean) or None
+    (the map itself, (B, H, W, output_dim): the detector's fully
+    convolutional head)."""
 
     def __init__(self, in_features: int, output_dim: int, filter_nums: Sequence[int] = (1024, 1024, 1024, 1024),
                  filter_sizes: Sequence[int] = (3, 3, 3, 1), last_pooling: Optional[str] = "max", act: str = "elu",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if last_pooling != "max":
-            raise NotImplementedError(f"not ported yet: Head2D with last_pooling={last_pooling!r}")
+        if last_pooling not in ("max", "average", None):
+            raise ValueError(f"Head2D last_pooling must be 'max', 'average' or None; got {last_pooling!r}")
+        self.last_pooling = last_pooling
         cin = in_features
         for i, (f, k) in enumerate(zip(filter_nums, filter_sizes)):
             self.add_module(f"convblock2d_{i}", ConvBlock2D(cin, f, k, act=act, generator=generator))
@@ -166,8 +168,13 @@ class Head2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_blocks):
             x = getattr(self, f"convblock2d_{i}")(x)
-        # amax, not max(dim=): tied maxima share the gradient evenly, as jnp.max's does
-        return torch.amax(self.conv_0(x), dim=(1, 2))
+        x = self.conv_0(x)
+        if self.last_pooling == "max":
+            # amax, not max(dim=): tied maxima share the gradient evenly, as jnp.max's does
+            return torch.amax(x, dim=(1, 2))
+        if self.last_pooling == "average":
+            return x.mean(dim=(1, 2))
+        return x
 
 
 BACKBONES = {

@@ -1,7 +1,8 @@
-"""The serving program: encode -> nearest-prior classify -> prior fill -> decode,
-as an eager function over the model or as one exported artifact.
+"""The serving programs: encode -> nearest-prior classify -> prior fill ->
+decode, as an eager function over the model or as one exported artifact; and
+the detector's per-frame program (:func:`export_detector`).
 
-Counterpart of ``anytime3d_tpu/serving/export.py:41-169,229-236``. The JAX
+Counterpart of ``anytime3d_tpu/serving/export.py``. The JAX
 package serialises the program as StableHLO; here :func:`export_infer` traces
 it with ``torch.export`` (the weights and the prior means become constants of
 the program, on the model's device and in its dtype) and saves it with
@@ -88,10 +89,10 @@ class _ServingProgram(nn.Module):
         return out
 
 
-def _inference(program: nn.Module) -> InferFn:
-    def fn(x: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _inference(program: nn.Module) -> Callable[..., Dict[str, torch.Tensor]]:
+    def fn(*args: torch.Tensor) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            return program(x, mask)
+            return program(*args)
 
     return fn
 
@@ -149,26 +150,85 @@ def export_infer(model: MultiModalVAE, input_shape: Sequence[int], correction: b
     return buf.getvalue()
 
 
+class _DetectorProgram(nn.Module):
+    """One frame (1, H, W, 3) -> ``detect`` with the thresholds baked in, then
+    (``reconstruct``) the posterior-mean decode of all K slots in one decoder
+    call, as ``vox`` (K, D, H, W)."""
+
+    def __init__(self, model, obj_thresh: float, iou_thresh: float, reconstruct: bool):
+        super().__init__()
+        model.eval()
+        self.model = model
+        self.obj_thresh, self.iou_thresh, self.reconstruct = obj_thresh, iou_thresh, reconstruct
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = dict(self.model.detect(images, self.obj_thresh, self.iou_thresh))
+        if self.reconstruct:
+            out["vox"] = self.model.reconstruct(out["z_mean"], out["z_log_var"], sample=False)
+        return out
+
+
+def make_detector_fn(model, obj_thresh: float = 0.5, iou_thresh: float = 0.5,
+                     reconstruct: bool = True) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """The eager per-frame detector program, ``fn(images) -> outputs``, on the
+    model's device and dtype: what :func:`export_detector` exports."""
+    return _inference(_DetectorProgram(model, obj_thresh, iou_thresh, reconstruct))
+
+
+def export_detector(model, image_shape: Sequence[int], obj_thresh: float = 0.5, iou_thresh: float = 0.5,
+                    reconstruct: bool = True, input_dtype: torch.dtype = torch.float32) -> bytes:
+    """The detector's serving program exported with ``torch.export`` and saved
+    into bytes: one frame in, fixed-size padded detections (and shapes) out,
+    the weights and thresholds baked in, on the model's device and in its dtype.
+
+    The program is ``DetectorReconstructor.detect`` (grid decode, per-cell
+    winner, a stable top-K and the fixed-size NMS, all on the device), then,
+    with ``reconstruct``, the posterior-mean decode of all K slots in one
+    decoder call. ``image_shape`` includes the batch and must be (1, H, W, 3):
+    detection is per frame. Outputs: ``bbox2d`` (K, 5) [x0, y0, x1, y1,
+    score] normalized, ``valid`` (K,) bool, per slot ``ori_sin``,
+    ``ori_cos``, ``rad_log_var``, ``bbox3d``, ``z_mean``, ``z_log_var``, and
+    ``vox`` (K, D, H, W) when reconstructing. :func:`load_infer` loads it as
+    ``fn(images) -> outputs``."""
+    if tuple(image_shape)[0] != 1:
+        raise ValueError(f"detector serving is per-frame; got batch {image_shape[0]}")
+    program = _DetectorProgram(model, obj_thresh, iou_thresh, reconstruct)
+    device = next(model.parameters()).device
+    images = torch.zeros(tuple(image_shape), dtype=input_dtype, device=device)
+    with torch.no_grad():
+        exported = torch.export.export(program, (images,), strict=False)
+    buf = io.BytesIO()
+    torch.export.save(exported, buf)
+    return buf.getvalue()
+
+
 class LoadedInfer:
-    """An exported serving program, loaded: ``fn(x, mask) -> outputs``, run
-    under ``inference_mode``. ``input_shape`` and ``input_dtype`` are those of
-    its ``x`` (uint8 (B, N/8) for a packed-input program, float32 (B, D, H, W,
+    """An exported serving program, loaded, run under ``inference_mode``: the
+    voxel and image programs of :func:`export_infer` as ``fn(x, mask) ->
+    outputs``, the detector's of :func:`export_detector` as ``fn(images) ->
+    outputs``. ``input_shape`` and ``input_dtype`` are those of its first
+    input (uint8 (B, N/8) for a packed-input program, float32 (B, D, H, W,
     1) grids or (B, H, W, 3) images otherwise), ``mask_shape`` that of its
-    mask, ``device`` where both go;
+    mask (None for a one-input program), ``device`` where the inputs go;
     ``module`` is the program as an ``fx.GraphModule``."""
 
     def __init__(self, exported: torch.export.ExportedProgram):
         names = set(exported.graph_signature.user_inputs)
-        x, mask = [n.meta["val"] for n in exported.graph.nodes if n.op == "placeholder" and n.name in names]
-        self.input_shape, self.input_dtype, self.mask_shape = tuple(x.shape), x.dtype, tuple(mask.shape)
+        inputs = [n.meta["val"] for n in exported.graph.nodes if n.op == "placeholder" and n.name in names]
+        if len(inputs) not in (1, 2):
+            raise ValueError(f"a serving program takes (x, mask) or (images,); this one takes {len(inputs)} inputs")
+        x = inputs[0]
+        self.input_shape, self.input_dtype = tuple(x.shape), x.dtype
+        self.mask_shape = tuple(inputs[1].shape) if len(inputs) == 2 else None
         self.device = x.device
         self.module = exported.module()
         self._run = _inference(self.module)
 
-    def __call__(self, x: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self._run(x, mask)
+    def __call__(self, *args: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self._run(*args)
 
 
 def load_infer(data: bytes) -> LoadedInfer:
-    """Load an artifact of :func:`export_infer` into ``fn(x, mask) -> outputs``."""
+    """Load an artifact of :func:`export_infer` (``fn(x, mask)``) or of
+    :func:`export_detector` (``fn(images)``)."""
     return LoadedInfer(torch.export.load(io.BytesIO(data)))

@@ -61,14 +61,20 @@ class Trainer:
 
     ``batch_fn(step) -> dict of numpy arrays`` decouples the trainer from the
     loader; ``cli.train.build_batch_fn`` adapts the loaders. ``state`` holds
-    the model, which lives on the device the trainer runs on. ``step_fn`` and
-    ``eval_fn`` are plain attributes: a caller may wrap them (to time a step,
-    say) before ``run``."""
+    the model, which lives on the device the trainer runs on. ``step_fn``
+    (``step(state, batch, generator) -> (state, metrics)``) and ``eval_fn``
+    (``eval(batch, generator) -> metrics``) replace the MultiModalVAE steps,
+    so that the detector reuses this loop (prefetch, checkpoints, NaN
+    restarts, logging) with its own losses; with a ``step_fn`` and no
+    ``eval_fn`` there is no eval, and the anytime protocol runs for the
+    default steps only, as in the JAX loop. Both are plain attributes: a
+    caller may wrap them (to time a step, say) before ``run``."""
 
     def __init__(self, model, state: TrainState, batch_fn: Callable[[int], Mapping[str, np.ndarray]],
                  loss_config: LossConfig = LossConfig(),
                  eval_batch_fn: Optional[Callable[[int], Mapping[str, np.ndarray]]] = None,
-                 config: TrainerConfig = TrainerConfig()):
+                 config: TrainerConfig = TrainerConfig(), step_fn: Optional[Callable] = None,
+                 eval_fn: Optional[Callable] = None):
         self.model = model
         self.state = state
         self.batch_fn = batch_fn
@@ -76,8 +82,9 @@ class Trainer:
         self.cfg = config
         self.loss_cfg = loss_config
         self.device = next(model.parameters()).device
-        self.step_fn = make_train_step(model, loss_config)
-        self.eval_fn = make_eval_step(model, loss_config)
+        self._custom_step = step_fn is not None
+        self.step_fn = step_fn or make_train_step(model, loss_config)
+        self.eval_fn = eval_fn or (None if step_fn else make_eval_step(model, loss_config))
         self.logger = MetricLogger(config.jsonl_path, print_every=config.log_every)
         self.history: List[Dict[str, float]] = []
         self.eval_history: List[Dict[str, float]] = []
@@ -154,11 +161,13 @@ class Trainer:
         """Losses and P/R of one eval batch at a posterior sample, no gradient;
         for a model with a category prior, also the anytime protocol on the
         same batch at ``eval_missing_prob`` (``anytime_*``). Both draw from
-        generators seeded with ``it``."""
+        generators seeded with ``it``. Without an ``eval_fn``, nothing."""
+        if self.eval_fn is None:
+            return {}
         batch = self.to_device(self.eval_batch_fn(it))
         metrics = self.eval_fn(batch, self._generator(it))
         out = {f"eval_{k}": float(v) for k, v in metrics.items()}
-        if self.model.config.prior_category is not None and self.cfg.eval_missing_prob > 0:
+        if not self._custom_step and self.model.config.prior_category is not None and self.cfg.eval_missing_prob > 0:
             anytime = anytime_eval(self.model, batch, self._generator(it), missing_prob=self.cfg.eval_missing_prob)
             out.update({f"anytime_{k}": float(v) for k, v in anytime.items()})
         self.eval_history.append(out)

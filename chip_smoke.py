@@ -91,7 +91,27 @@ order, any failure ending the run with a non-zero exit:
    and the prefetcher's pinned staging under a changing shape timed;
    ``anytime_eval`` at B=32, 64x64, bfloat16, masked and clean, timed (4 and
    2 launches); ``export_infer`` of the float32 image program loaded and held
-   to the eager one (2 launches a batch); the phase's wall time printed.
+   to the eager one (2 launches a batch); the phase's wall time printed;
+12. detector: ``conv_k2``, dx and dw at the detector decoder's final conv (32
+   decodes of 32^3, C=32 -> N=8; no plan, so the FFMA kernels in both types)
+   against their plain versions (dw the same bits twice), timed beside cuDNN
+   and their bound; the reference-scale detector-reconstructor (Darknet19,
+   the 4 x 1024 grid head, 5 predictors of 49 channels, the pixel-shuffle
+   decoder to 64^3, K=32) from seeded weights on one 416x416 rendered frame,
+   float32 on the card against the CPU: the grid fields, ``detect`` (equal
+   ``valid``, boxes within 1e-4), the K slots' shapes and
+   ``scene_reconstruction`` (poses, projected corners, ``valid``); the served
+   frame, ``export_detector`` in float32 and bfloat16 loaded with
+   ``load_infer`` and held to the eager program, 50 frames under
+   ``torch.cuda.set_sync_debug_mode("error")`` with 1 launch a frame, timed by
+   events with the host's share; the scene pass at its defaults in bfloat16
+   (1024 decodes, 1 launch), timed, with the lifting and its batched SVD
+   timed alone; one float32 train step at B=2 against the CPU (every loss
+   term, every gradient leaf, ``grads_finite``); ``cli/train_detector.py``'s
+   trainer at the reference scale (bfloat16, B=8, 13x13 grid, up to 6
+   objects, packed voxels, uint8 frames), 24 steps, 1 / 1 / 1 launches a
+   step, device time, host wall, the host's batch and peak memory printed;
+   ``evaluate_detector`` on 2 batches, timed; the phase's wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -326,14 +346,15 @@ def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool)
     return counts
 
 
-def k2_bound_ms(kernel: str, batch: int, C: int, N: int, dtype: torch.dtype) -> tuple[float, str]:
-    """The least time the card could take for one stage: the larger of its
-    bytes (each input read once, each output written once) over the memory
-    rate and its operations over the peak rate of its type. A tap that falls
-    off the grid is no work: each axis has 2*GRID - 1 (row, tap) pairs in it."""
-    rows = batch * GRID**3
+def k2_bound_ms(kernel: str, batch: int, C: int, N: int, dtype: torch.dtype, grid: int = GRID) -> tuple[float, str]:
+    """The least time the card could take for one stage on a ``grid``^3 grid:
+    the larger of its bytes (each input read once, each output written once)
+    over the memory rate and its operations over the peak rate of its type.
+    A tap that falls off the grid is no work: each axis has 2*grid - 1 (row,
+    tap) pairs in it."""
+    rows = batch * grid**3
     item = torch.empty((), dtype=dtype).element_size()
-    flops = 2.0 * batch * (2 * GRID - 1) ** 3 * C * N
+    flops = 2.0 * batch * (2 * grid - 1) ** 3 * C * N
     if kernel == "conv_k2_dw":  # reads x and g, writes dw in float32
         nbytes = rows * (C + N) * item + 8 * C * N * 4
     else:  # reads x (or g) and w, writes y (or dx)
@@ -488,17 +509,17 @@ def phase_kernels(card: str) -> dict:
 
 
 def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict, life_counts: dict,
-                   artifact_counts: dict, image_counts: dict) -> list:
+                   artifact_counts: dict, image_counts: dict, detector_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
     every case measured, with the design it took (``ffma`` or ``wgmma``). Every
     number but ``bound_ms`` was measured in this run. ``launches`` sums
     the served runs, the train run, the anytime sweep, the lifecycle's train,
-    restored and evaluate runs, its exported programs' batches and the image
-    phase's runs; ``launches_wgmma`` is the part of them that took the
-    tensor-core kernels."""
-    paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts)
+    restored and evaluate runs, its exported programs' batches, the image
+    phase's runs and the detector phase's; ``launches_wgmma`` is the part of
+    them that took the tensor-core kernels."""
+    paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
@@ -517,6 +538,7 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "launches_lifecycle": life_counts[kernel],
             "launches_artifact": artifact_counts[kernel],
             "launches_image": image_counts[kernel],
+            "launches_detector": detector_counts[kernel],
             **head,
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
@@ -1590,6 +1612,439 @@ def phase_image(device: torch.device, card: str) -> dict:
     return image_counts
 
 
+# phase 12: the detector at the reference scale (benchmarks/detector_quality.py, docs/results/detector_refscale_r5.json)
+DET_FRAME = 416  # 416 x 416 frames on a 13 x 13 grid
+DET_GRID = 13
+DET_VOXEL = 64
+DET_MAX_DETECTIONS = 32
+DET_MAX_OBJECTS = 6
+DET_SLOTS = 8
+DET_TRAIN_BATCH = 8
+DET_TRAIN_STEPS = 24
+DET_SLICE_BATCH = 2  # the float32 step that is also run on the CPU
+DET_SERVE_FRAMES = 50
+DET_IMAGE_PX = (1242, 375)  # the KITTI frame the 416 x 416 input was resized from, for the lifting
+DET_K2 = (DET_TRAIN_BATCH * 4, 32, 32, 8)  # (decodes, grid, C, N) of the decoder's final conv in a train step
+DET_K2_CASES = [("det_f32", torch.float32), ("det_bf16", torch.bfloat16)]
+DET_SCENE_DECODES = DET_MAX_DETECTIONS * 32  # K * shape_samples: the scene pass's decodes
+# card f32 vs CPU f32 of the same weights and frame: summation order through Darknet19 and the 1024-wide head
+# (depths up to 9216); the fields are O(1) after GroupNorm: 1e-3 of max(1, the largest entry). Boxes: 1e-4 (normalized
+# coordinates of O(1)). Shapes: occupancies in [0, 1] through the decoder, as SLICE_TOL_F32. The lifted detections'
+# poses (metres through the SVD), hypothesis IoUs and projected corners (pixels): each entry to 1e-3 of max(1, its size).
+DET_TOL_FIELDS = 1e-3
+DET_TOL_BOX = 1e-4
+DET_TOL_POSE_REL = 1e-3
+DET_MIN_LIFTED = 24  # of lift_inputs' 32 car-like detections (all 32 lift on the CPU)
+# the exported program against the eager one: the same ops on the same weights (EXPORT_TOL_*)
+
+
+def phase_detector_kernels(card: str) -> dict:
+    """``conv_k2``, dx and dw at the detector decoder's final conv (32 decodes
+    of 32^3, C=32 -> N=8: no plan, the FFMA kernels in both types), and the
+    forward at the scene pass's 1024 decodes in bf16, against their plain
+    versions, each timed beside its library call and its bound. Returns
+    ``{kernel: {case: numbers}}`` as ``phase_kernels``."""
+    gen = torch.Generator().manual_seed(SEED + 12)
+    n, grid, C, N = DET_K2
+    res = {k: {} for k in ("conv_k2", "conv_k2_dx", "conv_k2_dw")}
+    with torch.inference_mode():
+        for case, dtype in DET_K2_CASES:
+            x, w, g = k2_operands(gen, (n, grid, grid, grid), C, N, dtype)
+            for kernel, (run, plain, library) in k2_runs(x, w, g).items():
+                label = f"detector {case} B={n} {grid}^3 {C}->{N}"
+                checked = check_kernel(kernel, label, run, plain, None, "ffma")
+                p1, k1, k2_, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
+                ms, plain_ms, library_ms = (k1 + k2_) / 2, (p1 + p2) / 2, cuda_ms(library)
+                bound_ms, bound_by = k2_bound_ms(kernel, n, C, N, dtype, grid)
+                print(f"{kernel} {label} [ffma]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
+                      f"bound {bound_ms:.4f} ms ({bound_by}); kernel / bound {ms / bound_ms:.1f}, kernel / library "
+                      f"{ms / library_ms:.2f} [{card}]", flush=True)
+                res[kernel][case] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                                     "max_abs_err": checked["max_abs_err"], "bound_by": bound_by,
+                                     "design": checked["design"]}
+            del x, w, g
+        # the scene pass's final conv, bf16: K * S decodes, the largest grid the forward is given (x ~2.1 GB)
+        n, dtype = DET_SCENE_DECODES, torch.bfloat16
+        cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+        x = torch.randn(n, grid, grid, grid, C, generator=cuda_gen, device="cuda", dtype=dtype)
+        w = (torch.randn(2, 2, 2, C, N, generator=cuda_gen, device="cuda") / math.sqrt(8 * C)).to(dtype)
+        run, plain, library = k2_runs(x, w, x[..., :N])["conv_k2"]
+        label = f"detector scene pass bf16 B={n} {grid}^3 {C}->{N}"
+        checked = check_kernel("conv_k2", label, run, plain, None, "ffma")
+        p1, k1, k2_, p2 = (cuda_ms(f, iters=5, warmup=1) for f in (plain, run, run, plain))
+        ms, plain_ms, library_ms = (k1 + k2_) / 2, (p1 + p2) / 2, cuda_ms(library, iters=5, warmup=1)
+        bound_ms, bound_by = k2_bound_ms("conv_k2", n, C, N, dtype, grid)
+        print(f"conv_k2 {label} [ffma]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
+              f"bound {bound_ms:.4f} ms ({bound_by}); kernel / bound {ms / bound_ms:.1f}, kernel / library "
+              f"{ms / library_ms:.2f} [{card}]", flush=True)
+        res["conv_k2"]["det_scene_bf16"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                            "bound_ms": bound_ms, "max_abs_err": checked["max_abs_err"],
+                                            "bound_by": bound_by, "design": checked["design"]}
+        del x, w
+    return res
+
+
+def detector_frame(seed: int) -> np.ndarray:
+    """One (1, 416, 416, 3) rendered scene of the multi-object loader."""
+    from anytime3d_tpu_torch.data.modelnet import SyntheticMultiObjectLoader
+
+    loader = SyntheticMultiObjectLoader(num_samples=64, dim=DET_VOXEL, image_size=(DET_FRAME, DET_FRAME),
+                                        grid_size=(DET_GRID, DET_GRID), max_objects=DET_MAX_OBJECTS, seed=seed)
+    return loader.getNextBatch(1)[0]
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def compare_fields(what: str, got: dict, want: dict, tol: float, box_tol: float | None = None) -> str:
+    """Every field of ``got`` within ``tol`` of ``want`` times max(1, its
+    largest entry); bool fields equal; ``bbox2d`` within ``box_tol``."""
+    parts = []
+    for k, w in want.items():
+        g = got[k]
+        if tuple(g.shape) != tuple(w.shape) or not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{what} {k}: shape {tuple(g.shape)} (want {tuple(w.shape)}) or non-finite values")
+        if w.dtype == torch.bool:
+            if not torch.equal(g.cpu(), w.cpu()):
+                raise AssertionError(f"{what} {k}: {g.cpu().tolist()} vs {w.cpu().tolist()}")
+            parts.append(f"{k} equal ({int(w.sum())} of {w.numel()})")
+            continue
+        err = max_err(g, w)
+        lim = box_tol if (k == "bbox2d" and box_tol is not None) else tol * max(1.0, float(w.float().abs().max()))
+        parts.append(f"{k} {err:.2e}")
+        if not err <= lim:
+            raise AssertionError(f"{what} {k}: max_abs_err {err} > {lim}")
+    return ", ".join(parts)
+
+
+def lift_inputs(seed: int) -> tuple:
+    """(bbox2d, bbox3d, ori_sin, ori_cos) of ``DET_MAX_DETECTIONS`` car-like
+    detections: boxes in the frame's lower middle, (w, h, l) of cars in
+    metres, any yaw. Every one of them lifts on the CPU."""
+    rng = np.random.default_rng(seed)
+    k = DET_MAX_DETECTIONS
+    cx, cy = rng.uniform(0.25, 0.75, k), rng.uniform(0.45, 0.7, k)
+    w, h = rng.uniform(0.05, 0.2, k), rng.uniform(0.08, 0.3, k)
+    box = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2, rng.uniform(0.5, 1.0, k)], -1)
+    whl = np.stack([rng.uniform(1.4, 1.9, k), rng.uniform(1.3, 1.7, k), rng.uniform(3.2, 4.6, k)], -1)
+    euler = np.stack([rng.uniform(-np.pi, np.pi, k), np.zeros(k), np.zeros(k)], -1)
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in (box, whl, np.sin(euler), np.cos(euler)))
+
+
+def compare_lifts(what: str, got: dict, want: dict, min_lifted: int) -> str:
+    """``valid`` (and ``valid_det`` where present) equal, at least
+    ``min_lifted`` detections lifted, and on each lifted one every entry of
+    ``pose``, ``hypothesis_iou`` and ``bbox3d_corners_px`` within
+    ``DET_TOL_POSE_REL`` of max(1, its own size): metres, IoUs and pixels."""
+    parts = []
+    for k in ("valid", "valid_det"):
+        if k in want:
+            if not torch.equal(got[k].cpu(), want[k]):
+                raise AssertionError(f"{what} {k}: card {got[k].tolist()} vs CPU {want[k].tolist()}")
+            parts.append(f"{k} equal ({int(want[k].sum())} of {want[k].numel()})")
+    lifted = want["valid"]
+    if int(lifted.sum()) < min_lifted:
+        raise AssertionError(f"{what}: {int(lifted.sum())} detections lifted, fewer than {min_lifted}")
+    for k in ("pose", "hypothesis_iou", "bbox3d_corners_px"):
+        g, w = got[k].float().cpu()[lifted], want[k].float()[lifted]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what} {k}: non-finite values")
+        err = float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+        parts.append(f"{k} {err:.2e}")
+        if not err <= DET_TOL_POSE_REL:
+            raise AssertionError(f"{what} {k}: error {err} of max(1, the entry) on the lifted detections")
+    return ", ".join(parts) + f" (each entry of the {int(lifted.sum())} lifted, relative to max(1, its size))"
+
+
+def profile_kernels(what: str, fn, runs: int, card: str, top: int = 10) -> None:
+    """``fn`` warmed up, then ``runs`` calls under ``torch.profiler``: the
+    device's busy time a call beside the wall window, and the ``top``
+    longest kernels (``cli/profile.py``'s table)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from anytime3d_tpu_torch.cli.profile import kernel_rows, print_kernels
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3 / runs
+    rows = kernel_rows(prof, runs)
+    busy = sum(r[1] for r in rows)
+    print(f"{what}, profiled: device busy {busy:.3f} ms a call of a {window_ms:.3f} ms window "
+          f"({100 * busy / window_ms:.1f}%), {sum(r[2] for r in rows):.0f} kernels a call [{card}]", flush=True)
+    print_kernels(rows, busy, top, f"{what} [{card}]")
+
+
+def phase_detector(device: torch.device, card: str) -> dict:
+    """The multi-object detector-reconstructor at the reference scale: card
+    f32 against the CPU (grid fields, detections, shapes, the scene pass),
+    the served frame (exported, f32 and bf16, under sync-debug "error"), the
+    scene pass at its defaults (1024 decodes) with the lifting timed alone,
+    one f32 train step against the CPU, the bf16 trainer of
+    ``cli/train_detector.py`` and ``evaluate_detector``. Returns the launch
+    counts of its served, scene and trainer runs, summed."""
+    from anytime3d_tpu_torch.cli import train_detector as cli_det
+    from anytime3d_tpu_torch.data.collate import collate_multiobject
+    from anytime3d_tpu_torch.data.modelnet import SyntheticMultiObjectLoader
+    from anytime3d_tpu_torch.evaluation.detection import evaluate_detector
+    from anytime3d_tpu_torch.geometry import lift_detections
+    from anytime3d_tpu_torch.models.detector import DetectorReconstructor
+    from anytime3d_tpu_torch.models.pipeline import scene_reconstruction
+    from anytime3d_tpu_torch.serving.export import export_detector, load_infer, make_detector_fn
+    from anytime3d_tpu_torch.train.detector_step import DetectorLossConfig, detector_losses
+
+    t_phase = time.perf_counter()
+    det_counts = dict.fromkeys(read_counts(), 0)
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            det_counts[k] += v
+
+    cfg = cli_det.detector_config(DET_VOXEL, DET_MAX_DETECTIONS)
+    t0 = time.perf_counter()
+    model_cpu = DetectorReconstructor(cfg, generator=torch.Generator().manual_seed(SEED))
+    model_gpu = copy.deepcopy(model_cpu).to(device)
+    with torch.device("meta"):
+        model_bf16 = DetectorReconstructor(cfg, dtype=torch.bfloat16)
+    model_bf16.load_state_dict(model_gpu.state_dict(), assign=True)  # the same float32 parameters, bf16 compute
+    print(f"detector: {sum(p.numel() for p in model_cpu.parameters())} params (Darknet19, head 4 x 1024, "
+          f"{cfg.head_output_dim} channels a cell, decoder to {DET_VOXEL}^3), built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    frame = torch.from_numpy(detector_frame(SEED + 12))
+    frame_gpu = frame.to(device)
+
+    # 1. f32 on the card against the CPU: fields, detections, the K slots' shapes, the scene pass
+    with torch.inference_mode():
+        fields = {k: v[0] for k, v in model_gpu.encode_grid(frame_gpu).items()}
+        fields_cpu = {k: v[0] for k, v in model_cpu.encode_grid(frame).items()}
+        line = compare_fields("detector encode_grid", fields, fields_cpu, DET_TOL_FIELDS)
+        print(f"detector f32 card vs CPU, encode_grid (13x13x5): {line}", flush=True)
+        det, det_cpu = model_gpu.detect(frame_gpu), model_cpu.detect(frame)
+        line = compare_fields("detector detect", det, det_cpu, DET_TOL_FIELDS, DET_TOL_BOX)
+        print(f"detector f32 card vs CPU, detect (K={DET_MAX_DETECTIONS}): {line}", flush=True)
+        shapes = model_gpu.reconstruct(det["z_mean"], det["z_log_var"], sample=False)
+        shapes_cpu = model_cpu.reconstruct(det_cpu["z_mean"], det_cpu["z_log_var"], sample=False)
+        err = max_err(shapes, shapes_cpu)
+        print(f"detector f32 card vs CPU, reconstruct of the {DET_MAX_DETECTIONS} slots ({DET_VOXEL}^3): max_abs_err "
+              f"{err:.2e} (tol {SLICE_TOL_F32}), occupied {float((shapes > 0.5).float().mean()):.4f}", flush=True)
+        if not err <= SLICE_TOL_F32:
+            raise AssertionError("detector reconstruct: card f32 disagrees with the CPU")
+    scene = scene_reconstruction(model_gpu, frame_gpu, DET_IMAGE_PX, sample_shapes=False)
+    scene_cpu = scene_reconstruction(model_cpu, frame, DET_IMAGE_PX, sample_shapes=False)
+    line = compare_lifts("detector scene", scene, scene_cpu, 1)
+    print(f"detector f32 card vs CPU, scene_reconstruction (sample_shapes=False): {line}", flush=True)
+    # the lifting on K car-like detections, clear of the borders, which lift as a trained detector's would
+    lift_in = lift_inputs(SEED + 14)
+    lifts = lift_detections(*(t.to(device) for t in lift_in), image_size=DET_IMAGE_PX)
+    line = compare_lifts("detector lift_detections", lifts, lift_detections(*lift_in, image_size=DET_IMAGE_PX),
+                         DET_MIN_LIFTED)
+    print(f"detector f32 card vs CPU, lift_detections of {DET_MAX_DETECTIONS} car-like detections: {line}", flush=True)
+    del model_cpu, fields_cpu, det_cpu, shapes_cpu, scene_cpu
+
+    # 2. the served frame: exported, f32 and bf16, each against its eager program; sync-debug "error"
+    served = {}
+    for label, model, tol in (("f32", model_gpu, EXPORT_TOL_F32), ("bf16", model_bf16, EXPORT_TOL_BF16)):
+        t0 = time.perf_counter()
+        fn = load_infer(export_detector(model, (1, DET_FRAME, DET_FRAME, 3)))
+        export_s = time.perf_counter() - t0
+        eager = make_detector_fn(model)(frame_gpu)
+        fn(frame_gpu)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [fn(frame_gpu) for _ in range(DET_SERVE_FRAMES)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        add(expect_counts(f"detector served frames, {label}", DET_SERVE_FRAMES, 0, 0, tensor_cores=False))
+        peak = torch.cuda.max_memory_allocated()
+        line = compare_fields(f"detector artifact {label} vs eager", outs[-1], eager, tol)
+        ms = cuda_ms(lambda: fn(frame_gpu), iters=DET_SERVE_FRAMES)
+        host = host_enqueue_ms(lambda: fn(frame_gpu), iters=DET_SERVE_FRAMES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DET_SERVE_FRAMES):
+            fn(frame_gpu)["valid"].cpu()
+        wall = (time.perf_counter() - t0) / DET_SERVE_FRAMES * 1e3
+        served[label] = ms
+        print(f"detector served frame {label}: export_detector + load_infer {export_s:.2f} s; against the eager "
+              f"program: {line}; {DET_SERVE_FRAMES} frames under sync-debug 'error', 1 conv_k2 launch a frame; "
+              f"device time a frame (CUDA events, mean of {DET_SERVE_FRAMES}) {ms:.3f} ms, host to enqueue one "
+              f"{host:.3f} ms, wall a frame to its valid mask on the host {wall:.3f} ms; peak memory allocated "
+              f"{peak / 2**30:.2f} GiB; valid {int(outs[-1]['valid'].sum())} of {DET_MAX_DETECTIONS} [{card}]",
+              flush=True)
+        profile_kernels(f"detector served frame {label}", lambda: fn(frame_gpu), 5, card)
+        del fn, outs, eager
+
+    # 3. the scene pass at its defaults, bf16: K * S = 1024 decodes, then the lifting (batched SVD) alone
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = scene_reconstruction(model_bf16, frame_gpu, DET_IMAGE_PX, generator=gen)
+    torch.cuda.synchronize()
+    add(expect_counts("detector scene pass", 1, 0, 0, tensor_cores=False))
+    s = cfg.shape_samples
+    assert DET_MAX_DETECTIONS * s == DET_SCENE_DECODES  # the shape phase_detector_kernels checks
+    if tuple(out["shapes"].shape) != (DET_MAX_DETECTIONS, DET_VOXEL, DET_VOXEL, DET_VOXEL) or not all(
+            torch.isfinite(out[k].float()).all() for k in ("shapes", "pose", "bbox3d_corners_px")):
+        raise AssertionError(f"detector scene pass: shapes {tuple(out['shapes'].shape)} or non-finite values")
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    scene_ms = cuda_ms(lambda: scene_reconstruction(model_bf16, frame_gpu, DET_IMAGE_PX, generator=gen), iters=5,
+                       warmup=1)
+    add(expect_counts("detector scene pass, timed", 6, 0, 0, tensor_cores=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        scene_reconstruction(model_bf16, frame_gpu, DET_IMAGE_PX, generator=gen)["valid"].cpu()
+    scene_wall = (time.perf_counter() - t0) / 5 * 1e3
+    with torch.inference_mode():
+        det16 = model_bf16.detect(frame_gpu)
+        lift_args = (det16["bbox2d"], det16["bbox3d"], det16["ori_sin"], det16["ori_cos"])
+        lift_ms = cuda_ms(lambda: lift_detections(*lift_args, image_size=DET_IMAGE_PX, valid=det16["valid"]))
+        svd_in = torch.randn(DET_MAX_DETECTIONS * 128, 4, 4, device=device)
+        svd_ms = cuda_ms(lambda: torch.linalg.svd(svd_in, full_matrices=True))
+        detect_ms = cuda_ms(lambda: model_bf16.detect(frame_gpu))
+        z = det16["z_mean"].repeat_interleave(s, dim=0)
+        decode_ms = cuda_ms(lambda: model_bf16.decoder(z), iters=5, warmup=1)
+    print(f"detector scene pass, bf16, sample_shapes=True ({DET_MAX_DETECTIONS} x {s} = {DET_MAX_DETECTIONS * s} "
+          f"decodes at {DET_VOXEL}^3, 1 conv_k2 launch): device time (CUDA events, mean of 5) {scene_ms:.2f} ms, wall "
+          f"to its valid mask on the host {scene_wall:.2f} ms; inside it: detect {detect_ms:.3f} ms, the "
+          f"{DET_MAX_DETECTIONS * s} decodes {decode_ms:.2f} ms, lift_detections {lift_ms:.3f} ms (its batched SVD of "
+          f"{DET_MAX_DETECTIONS * 128} 4x4 systems alone {svd_ms:.3f} ms); peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; lifted {int(out['valid'].sum())} of {int(out['valid_det'].sum())} detections "
+          f"[{card}]", flush=True)
+    del out, det16, z
+
+    # 4. one f32 train step, B=2, card against CPU: same weights, batch and draws
+    loss_cfg = DetectorLossConfig()
+    loader = SyntheticMultiObjectLoader(num_samples=64, dim=DET_VOXEL, image_size=(DET_FRAME, DET_FRAME),
+                                        grid_size=(DET_GRID, DET_GRID), max_objects=DET_MAX_OBJECTS, seed=SEED + 13)
+    images, targets, vlists = loader.getNextBatch(DET_SLICE_BATCH)
+    batch = {k: torch.from_numpy(v) for k, v in collate_multiobject(images, targets, vlists, DET_SLOTS).items()}
+    rng = np.random.default_rng(SEED + 13)
+    draws = {"eps_z": torch.from_numpy(rng.normal(size=(DET_SLICE_BATCH, loss_cfg.shape_decode_per_image,
+                                                        cfg.z_inst_dim)).astype(np.float32))}
+    model_cpu = copy.deepcopy(model_gpu).cpu()
+    results = {}
+    for name, model, dev in (("card", model_gpu, device), ("cpu", model_cpu, torch.device("cpu"))):
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            reset_counts()
+        total, metrics = detector_losses(model, loss_cfg, {k: v.to(dev) for k, v in batch.items()},
+                                         draws={k: v.to(dev) for k, v in draws.items()})
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
+        finite = float(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        results[name] = ({k: float(v) for k, v in metrics.items()}, {k: g.cpu() for k, g in zip(names, grads)}, finite)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            add(expect_counts("detector train slice, f32", 1, 1, 1, tensor_cores=False))
+        print(f"detector train slice {name}: {time.perf_counter() - t0:.1f} s, {results[name][0]}", flush=True)
+    (m_gpu, g_gpu, fin_gpu), (m_cpu, g_cpu, _) = results["card"], results["cpu"]
+    for k, v in m_cpu.items():
+        if not (math.isfinite(m_gpu[k]) and abs(m_gpu[k] - v) <= TRAIN_TOL_LOSS_REL * abs(v) + 1e-6):
+            raise AssertionError(f"detector train slice: {k} card {m_gpu[k]} vs CPU {v}")
+    worst = ("", 0.0)
+    for k, g in g_cpu.items():
+        top = float(g.abs().max())
+        rel = float((g_gpu[k] - g).abs().max()) / top if top > 0 else float((g_gpu[k] - g).abs().max())
+        worst = max(worst, (k, rel), key=lambda kv: kv[1])
+    print(f"detector train slice f32 card vs CPU, B={DET_SLICE_BATCH} {DET_FRAME}x{DET_FRAME}: every loss term within "
+          f"{TRAIN_TOL_LOSS_REL}; {len(g_cpu)} gradient leaves, largest error relative to its leaf's largest entry "
+          f"{worst[1]:.3e} ({worst[0]}; tol {TRAIN_TOL_GRAD_REL}); grads_finite {fin_gpu}", flush=True)
+    if not (worst[1] <= TRAIN_TOL_GRAD_REL and fin_gpu == 1.0):
+        raise AssertionError(f"detector train slice: gradient of {worst[0]} off by {worst[1]}, finite {fin_gpu}")
+    del model_cpu, results, g_gpu, g_cpu, model_gpu, model_bf16
+
+    # 5. cli/train_detector.py's trainer at the reference scale: bf16, packed voxels, uint8 images
+    args = cli_det.parse_args(["--bf16", "--batch-size", str(DET_TRAIN_BATCH), "--image-size", str(DET_FRAME),
+                               str(DET_FRAME), "--grid-size", str(DET_GRID), str(DET_GRID), "--voxel-dim",
+                               str(DET_VOXEL), "--max-slots", str(DET_SLOTS), "--max-objects", str(DET_MAX_OBJECTS),
+                               "--max-detections", str(DET_MAX_DETECTIONS), "--steps", str(DET_TRAIN_STEPS)])
+    trainer, loader = cli_det.build_trainer(args)
+    dense = cli_det.build_batch_fn(
+        SyntheticMultiObjectLoader(num_samples=1024, dim=DET_VOXEL, image_size=(DET_FRAME, DET_FRAME),
+                                   grid_size=(DET_GRID, DET_GRID), max_objects=DET_MAX_OBJECTS, seed=7),
+        DET_TRAIN_BATCH, DET_SLOTS)
+
+    def probe(i: int) -> dict:
+        return cli_det.transfer_forms(dense(i))
+
+    host = []
+    for i in range(6):
+        t0 = time.perf_counter()
+        hb = probe(i)
+        host.append((time.perf_counter() - t0) * 1e3)
+    if hb["images"].dtype != np.uint8 or hb["voxels_packed"].shape != (DET_TRAIN_BATCH, DET_SLOTS, DET_VOXEL**3 // 8):
+        raise AssertionError(f"detector batch: {({k: (v.shape, v.dtype) for k, v in hb.items()})}")
+    events, entries = [], []
+    inner = trainer.step_fn
+
+    def timed_step(*a, **kw):
+        entries.append(time.perf_counter())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer.step_fn = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run(epoch_fn=lambda: loader.epoch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print("", flush=True)
+    add(expect_counts("detector train run", DET_TRAIN_STEPS, DET_TRAIN_STEPS, DET_TRAIN_STEPS, tensor_cores=False))
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    if trainer.state.step != DET_TRAIN_STEPS or trainer.aborted_nan or not all(
+            math.isfinite(v) for row in hist for v in row.values()):
+        raise AssertionError(f"detector train run: step {trainer.state.step}, aborted {trainer.aborted_nan}")
+    if any(row["grads_finite"] != 1.0 for row in hist):
+        raise AssertionError("detector train run: a step's gradients were not finite")
+    step_ms = np.asarray([a.elapsed_time(e) for a, e in events[TRAIN_WARMUP:]])
+    host_wall = np.diff(np.asarray(entries[TRAIN_WARMUP:])) * 1e3
+    print(f"detector train run: {DET_TRAIN_STEPS} steps of cli/train_detector.py's trainer, bf16, B={DET_TRAIN_BATCH} "
+          f"{DET_FRAME}x{DET_FRAME} uint8 frames, {DET_GRID}x{DET_GRID} grid, up to {DET_MAX_OBJECTS} objects, "
+          f"{DET_VOXEL}^3 packed voxels in {DET_SLOTS} slots: loss_total {hist[0]['loss_total']:.2f} -> "
+          f"{hist[-1]['loss_total']:.2f}; device time per step (CUDA events, steps {TRAIN_WARMUP}..{DET_TRAIN_STEPS - 1}) "
+          f"median {np.median(step_ms):.2f} ms (min {step_ms.min():.2f}, max {step_ms.max():.2f}); host wall per "
+          f"step, start to start, median {np.median(host_wall):.2f} ms (min {host_wall.min():.2f}, max "
+          f"{host_wall.max():.2f}); whole run {wall:.2f} s; the host's batch (up to {DET_TRAIN_BATCH * DET_MAX_OBJECTS} "
+          f"renders, collate, pack) {np.median(host):.2f} ms median of {len(host)} (min {min(host):.2f}); peak memory "
+          f"allocated {peak / 2**30:.2f} GiB; launches 1 / 1 / 1 a step, FFMA [{card}]", flush=True)
+
+    # 6. evaluate_detector on 2 batches of the training loader, as the CLI ends, on the trained model
+    t0 = time.perf_counter()
+    det = evaluate_detector(trainer.model, cli_det.build_batch_fn(loader, DET_TRAIN_BATCH, DET_SLOTS), num_batches=2)
+    eval_s = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in det.values()):
+        raise AssertionError(f"detector eval: {det}")
+    print(f"detector eval: evaluate_detector on 2 batches of {DET_TRAIN_BATCH} frames {eval_s:.2f} s, "
+          f"{ {k: round(v, 4) for k, v in det.items()} } [{card}]", flush=True)
+
+    # where a train step's time goes: its kernels over 3 more steps (after the eval: they move the model)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    batch = trainer.to_device(probe(0))
+    profile_kernels(f"detector train step bf16 B={DET_TRAIN_BATCH}", lambda: inner(trainer.state, batch, gen), 3, card)
+    print(f"detector phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return det_counts
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -1606,9 +2061,12 @@ def main() -> None:
     train_counts = phase_train_run(card)
     life_counts, artifact_counts = phase_lifecycle(cfg, device, card)
     image_counts = phase_image(device, card)
+    for kernel, cases in phase_detector_kernels(card).items():
+        kernels[kernel].update(cases)
+    detector_counts = phase_detector(device, card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts,
-                                                artifact_counts, image_counts)}), flush=True)
+                                                artifact_counts, image_counts, detector_counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -3,7 +3,8 @@ against their plain versions, their refusals, the three ``torch.library``
 ops under ``opcheck``, a small serving slice (eager and exported), a small
 train step and the anytime protocol on the GPU against the CPU, the small
 image model (``pascal_nolbo``'s layout) served and trained on the card
-against the CPU, and the batch prefetcher's stream ordering.
+against the CPU, the batch prefetcher's stream ordering, the kernels at the
+detector decoder's N = 8 and a small detector on the card against the CPU.
 
 Every test here needs a CUDA GPU and ``nvcc`` and skips without them. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -34,8 +35,10 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     wgmma_plan,
 )
 from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo, pascal_nolbo
+from anytime3d_tpu_torch.models.detector import DetectorConfig, DetectorReconstructor
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
-from anytime3d_tpu_torch.serving.export import export_infer, load_infer, make_infer_fn, make_packed_infer
+from anytime3d_tpu_torch.nn.autoencoder3d import Decoder3DConfig
+from anytime3d_tpu_torch.serving.export import export_detector, export_infer, load_infer, make_infer_fn, make_packed_infer
 from anytime3d_tpu_torch.train.state import create_train_state
 from anytime3d_tpu_torch.train.step import make_eval_step, make_train_step
 
@@ -624,3 +627,78 @@ def test_small_image_model_on_card_matches_cpu(cuda, dtype):
         np.testing.assert_allclose(history["card"][0][k], v, rtol=rtol, atol=1e-6, err_msg=k)
     for row in history["card"]:
         assert all(np.isfinite(v) for v in row.values()) and row["grads_finite"] == 1.0
+
+
+# (B, grid, C) of the detector decoder's final conv, N = 8 (no plan: N % 64): the tiny test model's (C=8),
+# the reference scale's (C=32 at 32^3; a train step decodes B*4 = 32 grids) and the default config's (C=64)
+N8_SHAPES = [(2, 8, 8), (4, 32, 32), (2, 32, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,G,C", N8_SHAPES)
+def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
+    """Forward, dx and dw at N = 8 against their plain versions, on the FFMA
+    kernels in both dtypes (no counter of the tensor-core kernels moves); dw
+    gives the same bits twice. Tolerances as ``test_kernel_matches_plain``
+    and ``test_backward_kernels_match_plain``."""
+    assert wgmma_plan(B, G, G, G, C, 8) is None
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
+    w = (torch.randn(2, 2, 2, C, 8, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
+    g = torch.randn(B, G, G, G, 8, generator=gen).to(cuda, dtype)
+    before, before_wg = _counts(), _wgmma_counts()
+    with torch.inference_mode():
+        y, dx, dw = conv_k2(x, w), k2.conv_k2_dx(g, w), conv_k2_dw(x, g)
+        again = conv_k2_dw(x, g)
+        y_ref, dx_ref, dw_ref = conv_k2_reference(x, w), k2.conv_k2_dx_reference(g, w), conv_k2_dw_reference(x, g)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 2) and _wgmma_counts() == before_wg
+    assert torch.equal(dw, again)
+    for out, ref in ((y, y_ref), (dx, dx_ref)):
+        assert out.shape == ref.shape and out.dtype == dtype
+        tol = 1e-4 if dtype == torch.float32 else 2.0**-7 * float(ref.float().abs().max())
+        assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert dw.dtype == torch.float32 and dw.shape == (2, 2, 2, C, 8)
+    assert float((dw - dw_ref.float()).abs().max()) <= 1e-5 * float(dw_ref.float().abs().max()) + 1e-5
+
+
+def small_detector_config():
+    """The detector with Darknet53Tiny, a 32-wide head, 3 predictors, z = 4 and
+    the CLI's pixel-shuffle decoder cut to 16^3 (its last conv 16 -> 8 at 8^3)."""
+    return DetectorConfig(predictor_num=3, z_inst_dim=4, backbone="darknet53tiny", head_filter_nums=(32,),
+                          head_filter_sizes=(3,), max_detections=8, shape_samples=4,
+                          decoder=Decoder3DConfig(input_dim=4, output_shape=(16, 16, 16, 1), filter_nums=(32, 16, 1),
+                                                  filter_sizes=(4, 4, 4), strides=(1, 2, 2)))
+
+
+def test_small_detector_on_card_matches_cpu(cuda):
+    """``detect`` on the card equal to the CPU from the same weights and frame
+    (equal ``valid`` and the same slots; f32, summation order: 1e-4), the
+    posterior-mean shapes of the K slots (one forward launch), and the
+    exported per-frame program on the card, which syncs with the host nowhere."""
+    model_cpu = DetectorReconstructor(small_detector_config(), generator=torch.Generator().manual_seed(0))
+    model_gpu = copy.deepcopy(model_cpu).to(cuda)
+    frame = torch.from_numpy(np.random.default_rng(7).uniform(size=(1, 64, 64, 3)).astype(np.float32))
+    with torch.inference_mode():
+        ref = model_cpu.detect(frame, 0.3, 0.5)
+        out = model_gpu.detect(frame.to(cuda), 0.3, 0.5)
+        shapes_ref = model_cpu.reconstruct(ref["z_mean"], ref["z_log_var"], sample=False)
+        before = _counts()
+        shapes = model_gpu.reconstruct(out["z_mean"], out["z_log_var"], sample=False)
+        assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 0, 0)
+    assert torch.equal(out["valid"].cpu(), ref["valid"])
+    for k in ref:
+        if k != "valid":
+            np.testing.assert_allclose(out[k].cpu().numpy(), ref[k].numpy(), rtol=1e-4, atol=1e-4, err_msg=k)
+    np.testing.assert_allclose(shapes.cpu().numpy(), shapes_ref.numpy(), rtol=0, atol=1e-4)
+    fn = load_infer(export_detector(model_gpu, (1, 64, 64, 3), 0.3, 0.5))
+    frame_gpu = frame.to(cuda)
+    fn(frame_gpu)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        served = fn(frame_gpu)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(served["valid"].cpu(), ref["valid"])
+    np.testing.assert_allclose(served["vox"].cpu().numpy(), shapes_ref.numpy(), rtol=0, atol=1e-4)

@@ -278,7 +278,7 @@ def test_modelnet_nolbo_config_mirrors_jax():
 @pytest.mark.parametrize("part,change", [
     ("encoder3d", {"head_blocked": False}),
     ("encoder3d", {"mid_blocked": True}),
-    ("decoder", {"tail_blocked": False}),
+    ("decoder", {"tail_blocked": False, "final_mode": "transpose"}),  # the pixel-shuffle decoder is ported
     ("decoder", {"final_mode": "transpose_equiv"}),
     ("decoder", {"mid_equiv": True}),
     ("decoder", {"tail_phase_norm": True}),
