@@ -4,11 +4,14 @@ and its plain PyTorch version.
 Counterpart of ``anytime3d_tpu/kernels/conv_k2.py``. The four heaviest
 convolutions of the flagship model (the blocked encoder head and decoder
 tail at 16^3) are this operation. ``csrc/conv_k2.cu`` says how the kernels
-are formed and what bounds them. There are two designs: bfloat16 operands
+are formed and what bounds them. There are three designs: bfloat16 operands
 whose shape has a plan (:func:`wgmma_plan`) take the tensor-core kernels of
-``csrc/conv_k2_wgmma.cuh`` in the forward, in dx and in dw; float32 and
-shapes without a plan take the FFMA kernels. The choice is made from shape
-and dtype before the launch, never by catching a failure.
+``csrc/conv_k2_wgmma.cuh`` in the forward, in dx and in dw; else bfloat16
+operands of a narrow output (N = 8, 16 or 32) whose shape has a narrow plan
+(:func:`narrow_plan`) take the ``mma.sync`` kernels of
+``csrc/conv_k2_narrow.cuh`` in the forward and in dw (dx stays FFMA); float32
+and the rest take the FFMA kernels. The choice is made from shape and dtype
+before the launch, never by catching a failure.
 
 The forward, dx and dw are the custom operators ``anytime3d_torch::conv_k2``,
 ``::conv_k2_dx`` and ``::conv_k2_dw`` (``torch.library``): a CUDA
@@ -90,8 +93,11 @@ def _lib() -> ctypes.CDLL:
     lib.conv_k2_forward_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
     lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
     lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
+    lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
+    lib.conv_k2_backward_weight_narrow.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
     for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
-               lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma):
+               lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma,
+               lib.conv_k2_forward_narrow, lib.conv_k2_backward_weight_narrow):
         fn.restype = i32
     lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p
@@ -204,12 +210,130 @@ def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -
                      dw_stages_per_split=per_split)
 
 
+# The narrow kernels' tiling (csrc/conv_k2_narrow.cuh): a box of at most 1024
+# output rows a block, each extent at most 255 (its halo's one more, within the
+# TMA's 256); stages aligned to 1024 bytes; one block an SM.
+_NR_ROWS = 1024
+_NR_EXTENT = 255
+_NR_ALIGN = 1024
+_NR_CHANNELS = (8, 16, 32, 64)  # C: one TMA box of all channels, rows of 16 to 128 bytes
+_NR_OUTPUTS = (8, 16, 32)  # N: 1, 2 or 4 mma n8 tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class NarrowPlan:
+    """How the narrow kernels cut one bfloat16 ``conv_k2`` shape.
+
+    Forward: a block computes boxes of ``box`` (w, h, d) output voxels of one
+    batch item, reading each box grown by one voxel along w, h and d (its halo)
+    in one TMA copy; the grid's ``boxes`` (w fastest, the last along each axis
+    ragged) are walked by ``grid`` blocks, block i taking boxes i, i + grid,
+    .... ``smem_bytes`` is its dynamic shared memory (two stages of the halo,
+    w's fragments, the row table, barriers), which the launcher holds to its
+    own arithmetic.
+
+    dw: boxes of ``dw_box``, ``dw_boxes`` of them, each a halo box of x and a
+    box of g; ``dw_splits`` blocks reduce runs of ``dw_boxes_per_split``
+    consecutive boxes (the last may be shorter, none is empty) in
+    ``dw_smem_bytes``.
+    """
+
+    box: tuple[int, int, int]
+    boxes: int
+    grid: int
+    smem_bytes: int
+    dw_box: tuple[int, int, int]
+    dw_boxes: int
+    dw_splits: int
+    dw_boxes_per_split: int
+    dw_smem_bytes: int
+
+
+def _round_up(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool) -> int:
+    """Dynamic shared memory of a narrow launch (``nr::smem_bytes``):
+    alignment room, two stages (the halo box of x; for dw also the box of g,
+    its rows rounded up to 16), the forward's w fragments and table of output
+    rows, the table of halo rows, two barriers."""
+    bw, bh, bd = box
+    rows16 = _round_up(bw * bh * bd, 16)
+    stage = _round_up((bw + 1) * (bh + 1) * (bd + 1) * 2 * C, _NR_ALIGN)
+    if dw:
+        stage += _round_up(rows16 * 2 * N, _NR_ALIGN)
+    return _NR_ALIGN + 2 * stage + (0 if dw else 16 * C * N + 4 * rows16) + 4 * rows16 + 16
+
+
+def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool) -> tuple[int, int, int] | None:
+    """The (w, h, d) extents of the box that reads the fewest halo voxels a
+    row (ties: more rows), among boxes of at most 1024 rows whose extents are
+    at most 255 and the grid's, w a multiple of 16 (an m-tile's 16 rows on
+    one line) or all of W, h and d powers of two or all of H and D, whose
+    launch fits one block's shared memory; or None."""
+    def extents(size: int, step: int) -> list[int]:
+        top = min(size, _NR_EXTENT)
+        out = {size} if size <= _NR_EXTENT else set()
+        out |= set(range(step, top + 1, step)) if step > 1 else {1 << i for i in range(top.bit_length())}
+        return sorted(out)
+
+    best, best_key = None, None
+    for bd in extents(D, 1):
+        for bh in extents(H, 1):
+            for bw in extents(W, 16):
+                rows = bw * bh * bd
+                if rows > _NR_ROWS or _narrow_smem((bw, bh, bd), C, N, dw) > _WG_SMEM_MAX:
+                    continue
+                key = ((bw + 1) * (bh + 1) * (bd + 1) / rows, -rows)
+                if best_key is None or key < best_key:
+                    best, best_key = (bw, bh, bd), key
+    return best
+
+
+def _boxes(B: int, D: int, H: int, W: int, box: tuple[int, int, int]) -> int:
+    bw, bh, bd = box
+    return B * -(-D // bd) * -(-H // bh) * -(-W // bw)
+
+
+@functools.lru_cache(maxsize=256)  # a model asks for the same few shapes at every step
+def narrow_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> NarrowPlan | None:
+    """The narrow kernels' plan for bfloat16 ``x`` (B,D,H,W,C) and ``w``
+    (2,2,2,C,N), or None where they do not apply: N of 8, 16 or 32, C of 8,
+    16, 32 or 64 (a multiple of 8, one TMA box of all channels, at most 4 m16
+    tiles of dw's accumulators a warp), and never where :func:`wgmma_plan`
+    applies. Pure arithmetic; ``sms`` is the card's count of
+    multiprocessors."""
+    if (C not in _NR_CHANNELS or N not in _NR_OUTPUTS or min(B, D, H, W) < 1
+            or B * D * H * W >= 2**31 or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None):
+        return None
+    box, dw_box = _narrow_box(D, H, W, C, N, False), _narrow_box(D, H, W, C, N, True)
+    if box is None or dw_box is None:
+        return None
+    boxes, dw_boxes = _boxes(B, D, H, W, box), _boxes(B, D, H, W, dw_box)
+    # dw: one wave of blocks, one an SM, each a run of whole boxes
+    per_split = -(-dw_boxes // min(dw_boxes, sms))
+    return NarrowPlan(box=box, boxes=boxes, grid=min(boxes, sms), smem_bytes=_narrow_smem(box, C, N, False),
+                      dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
+                      dw_boxes_per_split=per_split, dw_smem_bytes=_narrow_smem(dw_box, C, N, True))
+
+
+def _sms(x: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
 def _plan_for(x: torch.Tensor, N: int) -> WgmmaPlan | None:
     """The plan of a CUDA operand, or None: bfloat16 only."""
     if x.dtype != torch.bfloat16:
         return None
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return wgmma_plan(*x.shape, N, sms=sms)
+    return wgmma_plan(*x.shape, N, sms=_sms(x))
+
+
+def _narrow_for(x: torch.Tensor, N: int) -> NarrowPlan | None:
+    """The narrow plan of a CUDA operand, or None: bfloat16 only."""
+    if x.dtype != torch.bfloat16:
+        return None
+    return narrow_plan(*x.shape, N, sms=_sms(x))
 
 
 def _check_launch(what: str, rc: int) -> None:
@@ -257,15 +381,21 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((B, D, H, W, N), dtype=x.dtype, device=x.device)
     _check_operands("conv_k2", C, N, x, w, y)
     plan = _plan_for(x, N)
-    if plan is None:
-        _check_launch("conv_k2", _lib().conv_k2_forward(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N,
-            _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
-    else:
+    narrow = None if plan is not None else _narrow_for(x, N)
+    if plan is not None:
         _check_launch("conv_k2 (wgmma)", _lib().conv_k2_forward_wgmma(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *plan.box, plan.bm, plan.bn, plan.stages,
             plan.grid, plan.smem_bytes, plan.tiles, x.device.index, _stream(x)))
         conv_k2.launches_wgmma += 1
+    elif narrow is not None:
+        _check_launch("conv_k2 (narrow)", _lib().conv_k2_forward_narrow(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
+            narrow.smem_bytes, x.device.index, _stream(x)))
+        conv_k2.launches_narrow += 1
+    else:
+        _check_launch("conv_k2", _lib().conv_k2_forward(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N,
+            _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
     conv_k2.launches += 1
     return y
 
@@ -364,24 +494,31 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     B, D, H, W, C = x.shape
     N = g.shape[-1]
     plan = _plan_for(x, N)
-    if plan is None:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits, per_split = ffma_dw_split(B * D * H * W, C, N, sms=sms)
-    else:
+    narrow = None if plan is not None else _narrow_for(x, N)
+    if plan is not None:
         splits = plan.dw_grid[2]
+    elif narrow is not None:
+        splits = narrow.dw_splits
+    else:
+        splits, per_split = ffma_dw_split(B * D * H * W, C, N, sms=_sms(x))
     dw = torch.empty((2, 2, 2, C, N), dtype=torch.float32, device=x.device)
     workspace = torch.empty((splits if splits > 1 else 0, 8 * C, N), dtype=torch.float32, device=x.device)
     _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
-    if plan is None:
-        _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
-            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, per_split, B, D, H, W, C, N,
-            _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
-    else:
+    if plan is not None:
         _check_launch("conv_k2 dw (wgmma)", _lib().conv_k2_backward_weight_wgmma(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, plan.dw_stages_per_split,
             B, D, H, W, C, N, *plan.dw_box, plan.bn, plan.dw_stages, plan.dw_smem_bytes,
             x.device.index, _stream(x)))
         conv_k2.launches_dw_wgmma += 1
+    elif narrow is not None:
+        _check_launch("conv_k2 dw (narrow)", _lib().conv_k2_backward_weight_narrow(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, narrow.dw_boxes_per_split,
+            B, D, H, W, C, N, *narrow.dw_box, narrow.dw_smem_bytes, x.device.index, _stream(x)))
+        conv_k2.launches_dw_narrow += 1
+    else:
+        _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, per_split, B, D, H, W, C, N,
+            _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
     conv_k2.launches_dw += 1
     return dw
 
@@ -394,8 +531,9 @@ def _(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dw (2,2,2,C,N), float32, of ``conv_k2`` from its input ``x``
     (B,D,H,W,C) and the output gradient ``g`` (B,D,H,W,N) of the same dtype:
-    the op ``anytime3d_torch::conv_k2_dw``. CUDA tensors go through the
-    kernel (adding one to ``conv_k2.launches_dw``) or the call raises; CPU
+    the op ``anytime3d_torch::conv_k2_dw``. CUDA tensors go through a kernel
+    (adding one to ``conv_k2.launches_dw``, and to ``launches_dw_wgmma`` or
+    ``launches_dw_narrow`` where the shape has that plan) or the call raises; CPU
     tensors through :func:`conv_k2_dw_reference`. The result is the same
     from run to run."""
     return _conv_k2_dw_op(x, g)
@@ -429,7 +567,9 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     kernel launch adds one to ``conv_k2.launches`` (forward),
     ``conv_k2.launches_dx`` or ``conv_k2.launches_dw``; a launch of a
     tensor-core kernel also to ``conv_k2.launches_wgmma`` (forward),
-    ``conv_k2.launches_dx_wgmma`` or ``conv_k2.launches_dw_wgmma``."""
+    ``conv_k2.launches_dx_wgmma`` or ``conv_k2.launches_dw_wgmma``, and of a
+    narrow kernel to ``conv_k2.launches_narrow`` (forward) or
+    ``conv_k2.launches_dw_narrow``."""
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:4]) != (2, 2, 2, x.shape[-1]):
         raise ValueError(f"conv_k2 takes x (B,D,H,W,C) and w (2,2,2,C,N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:
@@ -449,3 +589,5 @@ conv_k2.launches_dw = 0
 conv_k2.launches_wgmma = 0
 conv_k2.launches_dx_wgmma = 0
 conv_k2.launches_dw_wgmma = 0
+conv_k2.launches_narrow = 0
+conv_k2.launches_dw_narrow = 0

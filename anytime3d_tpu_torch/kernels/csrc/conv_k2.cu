@@ -48,16 +48,19 @@
 // four stages need ~1.03e11 FLOPs per batch against ~0.2 GB of traffic, so
 // the work is compute bound, forward and backward alike.
 //
-// Two designs live here. The kernels of this file are tiled SIMT GEMMs (FFMA)
+// Three designs live here. The kernels of this file are tiled SIMT GEMMs (FFMA)
 // with f32 accumulators in registers: f32 is computed in true f32 (no TF32),
 // bf16 is read as bf16, widened to f32, accumulated in f32 and rounded once on
 // store. They take float32 of any shape and the bfloat16 shapes that have no
-// plan. The bfloat16 forward, dx and dw of the shapes that have a plan (C and
-// N multiples of 64, rows that tile into boxes: the flagship stages) run on
+// plan. The bfloat16 forward, dx and dw of the shapes that have a wgmma plan (C
+// and N multiples of 64, rows that tile into boxes: the flagship stages) run on
 // the tensor cores: conv_k2_wgmma.cuh holds those kernels (wgmma products,
 // operands brought in by TMA box copies into a ring of swizzled shared-memory
-// tiles) and says how they are formed. Which design a call takes is settled
-// by the Python wrapper from shape and dtype, before the launch.
+// tiles) and says how they are formed. The bfloat16 forward and dw of narrow
+// outputs (N = 8, 16, 32; C = 8, 16, 32, 64: the detector decoder's last conv)
+// run on mma.sync over one halo box of x a block: conv_k2_narrow.cuh. Which
+// design a call takes is settled by the Python wrapper from shape and dtype,
+// before the launch: the wgmma plan, else the narrow plan, else FFMA.
 //
 // The FFMA forward and dx (conv_k2_gemm_kernel, namespace gemm). The float32
 // serving path launches it four times a batch, and what bounds it is the FFMA
@@ -118,6 +121,7 @@
 
 #include <stdint.h>
 
+#include "conv_k2_narrow.cuh"
 #include "conv_k2_wgmma.cuh"
 
 namespace {
@@ -730,6 +734,36 @@ int conv_k2_backward_weight_wgmma(const void* x, const void* g, void* dw, void* 
                            s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  if (rc || splits == 1) return rc;
+  const long long count4 = static_cast<long long>(8) * C * N / 4;
+  conv_k2_dw_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(part, out, count4, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 forward for narrow outputs: the output box (bw, bh, bd) of the
+// wrapper's narrow plan, `grid` blocks walking the boxes, and the dynamic
+// shared memory it worked out, which must be this file's own (else
+// wg::PLAN_MISMATCH). Needs C in {8, 16, 32, 64} and N in {8, 16, 32}.
+int conv_k2_forward_narrow(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw,
+                           int bh, int bd, int grid, int smem_bytes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return nr::launch_fwd(x, w, y, B, D, H, W, C, N, bw, bh, bd, grid, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 dw for narrow outputs: the boxes (bw, bh, bd) of the grid are
+// cut into `splits` runs of `boxes_per_split` (the last may be shorter, none
+// is empty); `workspace` holds splits*8*C*N floats (unused when splits == 1);
+// `smem_bytes` is the plan's dynamic shared memory, held to this file's own.
+int conv_k2_backward_weight_narrow(const void* x, const void* g, void* dw, void* workspace, int splits,
+                                   int boxes_per_split, int B, int D, int H, int W, int C, int N, int bw, int bh,
+                                   int bd, int smem_bytes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(dw);
+  float* part = splits == 1 ? out : static_cast<float*>(workspace);
+  const int rc = nr::launch_dw(x, g, part, splits, boxes_per_split, B, D, H, W, C, N, bw, bh, bd, smem_bytes, s);
   if (rc || splits == 1) return rc;
   const long long count4 = static_cast<long long>(8) * C * N / 4;
   conv_k2_dw_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(part, out, count4, splits);

@@ -1,0 +1,508 @@
+// conv_k2 in bfloat16 for narrow outputs (N = 8, 16 or 32) on Hopper: the
+// forward and dw, on mma.sync. Included by conv_k2.cu, which states what the
+// operation computes; the barrier and TMA helpers are conv_k2_wgmma.cuh's.
+//
+// Replaces, for bfloat16 operands whose shape has a narrow plan (see
+// kernels/conv_k2.py::narrow_plan), the forward of the TPU kernel
+// anytime3d_tpu/kernels/conv_k2.py::_conv_k2_pallas (:129-169) and the dw
+// product of its backward (_conv_k2_bwd_impl, :181-205). dx of these shapes
+// stays on the FFMA kernel.
+//
+// What bounds them on this card: bytes. At the detector decoder's last conv
+// (32 decodes of 32^3, C = 32 -> N = 8) the forward reads 67 MB of x and
+// writes 17 MB of y for 4.3 GFLOP, about 1 operation a byte, where the tensor
+// cores become the limit only at ~295. So the design reads each byte of x
+// from device memory once and asks of the products only that they keep up:
+//
+// - The halo box. A block's outputs are a box of bd x bh x bw voxels of one
+//   batch item (8 x 8 x 16 at 32^3, C = 32). One 5-D TMA copy brings the box
+//   grown by one voxel along d, h and w, all C channels, into shared memory;
+//   where it leaves the grid the TMA writes zeros, which is the SAME padding
+//   (lo 0, hi 1). All 8 taps read that one copy: tap (dz, dy, dx) of an
+//   output voxel is the halo voxel that far on. The halos of neighbouring
+//   boxes overlap (1.34x the box at 8 x 8 x 16); the overlap comes from L2.
+//   The FFMA kernel this replaces read 8 shifted copies of its rows and
+//   computed 64 columns for N = 8.
+// - Shared-memory layout: a voxel's C channels are one row of 2C bytes (16 to
+//   128), written by the TMA under the swizzle of that width, which XORs the
+//   16-byte piece of a row with bits 7.. of its offset. The 8 rows an ldmatrix
+//   reads are 8 consecutive voxels; under the swizzle they fall into 8
+//   different 16-byte bank groups whatever voxel they start at (a tap moves
+//   them by one). Without it a 64-byte row (C = 32) is 4-way conflicted.
+// - Products: mma.sync.m16n8k16, bf16 operands, f32 accumulators. Its n8 is
+//   N = 8 (N = 16 and 32 are 2 and 4 of them) and it needs no 64-row
+//   warpgroup tile; 4.3 GFLOP is under 0.02 ms at a fraction of the
+//   tensor-core rate.
+//   Forward: y [rows, N] = A [rows, 8C] w [8C, N], depth in (tap, c) order. A
+//   k-step of 16 is two pieces of 8 channels, each inside one tap (C % 8 ==
+//   0), so ldmatrix's row addresses pick each output row's shifted halo voxel
+//   directly: no gather, no copy. w is laid out once a block in shared memory
+//   as mma fragments (one 8-byte read a lane a k-step and n8 tile). The
+//   accumulators are rounded once to bf16 and stored from registers; rows
+//   past the grid's edge (a ragged last box) are not stored.
+//   dw: dw [8C, N] = A [8C, rows] g [rows, N] over the box's rows. g's box is
+//   copied as x's is (no halo; its rows past the grid are zeros, and so are
+//   the rows that round the box up to 16). Both operands lie [row][channel],
+//   so both are read with ldmatrix.trans. All 8C x N accumulators stay in
+//   registers, spread over the warps (at C = 32, N = 8: 16 m16n8 tiles, 2 a
+//   warp). Each k-step's product is formed from zero and added to them with a
+//   rounded f32 add: the tensor cores' own accumulation does not round to
+//   nearest, and a chain of thousands of k-steps would drift by ~1e-5.
+// - A block walks boxes (the forward: boxes i, i + grid, ...; dw: a run of
+//   consecutive boxes, its split) through two stages: the TMA fills the next
+//   box's stage while the warps compute on this one. One thread issues the
+//   copies; a `full` mbarrier a stage counts their bytes, and a __syncthreads
+//   after each box frees its stage for the copy after next.
+// - dw's splits write partial [8C, N] sums to a workspace, which
+//   conv_k2_dw_reduce_kernel adds in ascending order: no atomics, the same
+//   bits every run.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stdint.h>
+
+#include "conv_k2_wgmma.cuh"
+
+namespace nr {
+
+constexpr int THREADS = 256;  // 8 warps, one block an SM
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_ROWS = 1024;      // output rows of a box
+constexpr int MAX_EXTENT = 255;     // a box extent; its halo's is one more, within the TMA's 256
+constexpr int DW_MAX_M_TILES = 4;   // m16 tiles of dw's 8C rows a warp: C <= 64
+constexpr uint32_t ALIGN = 1024;    // stage alignment: the longest swizzle's period
+
+// Where a launch's shapes meet: the grid, the box and the byte counts, worked
+// out on the host and passed by value.
+struct Geom {
+  int D, H, W, C;
+  int bw, bh, bd;       // output box
+  int nw, nh, nd;       // boxes along w, h and d, the last ones ragged
+  int boxes;            // B * nd * nh * nw
+  int rows, rows16;     // bw * bh * bd, and that rounded up to 16
+  uint32_t halo_bytes;  // (bw + 1)(bh + 1)(bd + 1) * 2C: one TMA copy of x
+  uint32_t g_bytes;     // rows * 2N: one TMA copy of g (dw)
+  uint32_t stage_x;     // halo_bytes rounded up to ALIGN
+  uint32_t stage_g;     // rows16 * 2N rounded up to ALIGN (dw; 0 for the forward)
+};
+
+__host__ __device__ constexpr uint32_t round_up(uint32_t v, uint32_t a) { return (v + a - 1) / a * a; }
+
+// Dynamic shared memory of a launch: alignment room, two stages, the forward's
+// w fragments (16 C N bytes) and its table of output rows, the table of halo
+// rows, two barriers.
+__host__ __device__ inline size_t smem_bytes(const Geom& g, int N, bool dw) {
+  return ALIGN + 2 * static_cast<size_t>(g.stage_x + g.stage_g) + (dw ? 0 : 16 * g.C * N + 4 * g.rows16) +
+         4 * g.rows16 + 16;
+}
+
+// Byte offset `off` of a buffer of rows of `mask` + 1 16-byte pieces, as the
+// TMA's swizzle of that row width placed it: piece ^= bits 7.. of the offset.
+__device__ __forceinline__ uint32_t swizzle(uint32_t off, uint32_t mask) {
+  return off ^ (((off >> 7) & mask) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d = a (16 x 16, row) * b (16 x 8, col) + c. Lane l holds rows l/4 and l/4 + 8,
+// columns 2(l%4) + {0, 1} of d: d[0], d[1] and d[2], d[3].
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1,
+                                    const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// Origin (w, h, d, b) of box `box`: w fastest, as the rows of y.
+__device__ __forceinline__ void box_origin(const Geom& g, int box, int& w0, int& h0, int& d0, int& b) {
+  int t = box;
+  w0 = (t % g.nw) * g.bw; t /= g.nw;
+  h0 = (t % g.nh) * g.bh; t /= g.nh;
+  d0 = (t % g.nd) * g.bd;
+  b = t / g.nd;
+}
+
+// Byte offset of tap t's halo voxel from an output voxel's own.
+__device__ __forceinline__ int tap_offset(const Geom& g, int t) {
+  return (((t >> 2) * (g.bh + 1) + ((t >> 1) & 1)) * (g.bw + 1) + (t & 1)) * 2 * g.C;
+}
+
+// The tables of the box's rows, the same for every box: vrow[r] = byte
+// offset of output row r's own halo voxel (tap 0), rows past the box (up to
+// rows16) at voxel 0; and where `loc` is given, loc[r] = (d, h, w) of row r
+// in the box, 10 bits each, -1 past the box.
+__device__ __forceinline__ void fill_rows(const Geom& g, int* vrow, int* loc) {
+  for (int r = threadIdx.x; r < g.rows16; r += THREADS) {
+    int v = 0, l = -1;
+    if (r < g.rows) {
+      const int rw = r % g.bw, t = r / g.bw, rh = t % g.bh, rd = t / g.bh;
+      v = ((rd * (g.bh + 1) + rh) * (g.bw + 1) + rw) * 2 * g.C;
+      l = rd << 20 | rh << 10 | rw;
+    }
+    vrow[r] = v;
+    if (loc) loc[r] = l;
+  }
+}
+
+__device__ __forceinline__ void init_barriers(uint32_t bar) {
+  if (threadIdx.x == 0) {
+    wg::mbar_init(bar, 1);
+    wg::mbar_init(bar + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// Forward: y [B, D, H, W, N] from x [B, D, H, W, C] and w [8C, N] (N = 8 NT).
+// Block i computes boxes i, i + gridDim.x, ... (gridDim.x <= boxes). A warp
+// takes m-tiles (16 rows of the box) warp, warp + 8, ..., MW of them a pass,
+// which share one read of w's fragments a k-step. A k-step issues all its
+// ldmatrix first and then its products, so that the loads' latencies overlap
+// instead of each product waiting on its own load.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_k2_narrow_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __nv_bfloat16* __restrict__ w,
+                          __nv_bfloat16* __restrict__ y, const Geom g) {
+  constexpr int N = 8 * NT;
+  constexpr int MW = 8 / NT;  // 8, 4 or 2 m-tiles a pass: 32 accumulators a lane
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = round_up(raw, ALIGN);
+  uint8_t* const base_p = smem_raw + (base - raw);
+  uint2* const wfrag = reinterpret_cast<uint2*>(base_p + 2 * g.stage_x);
+  int* const vrow = reinterpret_cast<int*>(base_p + 2 * g.stage_x + 16 * g.C * N);
+  int* const loc = vrow + g.rows16;
+  const uint32_t bar = base + 2 * g.stage_x + 16 * g.C * N + 8 * g.rows16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grid = gridDim.x, n_boxes = (g.boxes - static_cast<int>(blockIdx.x) + grid - 1) / grid;
+
+  const CUtensorMap* mx = &map_x;
+  auto issue = [&](int s, int box) {  // thread 0: the halo box of `box` into stage s
+    int w0, h0, d0, b;
+    box_origin(g, box, w0, h0, d0, b);
+    wg::mbar_arrive_expect_tx(bar + 8 * s, g.halo_bytes);
+    wg::tma_load_5d(base + s * g.stage_x, mx, bar + 8 * s, 0, w0, h0, d0, b);
+  };
+
+  init_barriers(bar);
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < 2 && s < n_boxes; ++s) issue(s, blockIdx.x + s * grid);
+  // while the first boxes land: w as mma fragments, entry (k-step, n8 tile, lane); b0 holds
+  // rows k = 16 ks + 2 (lane % 4) + {0, 1} of column 8 j + lane / 4, b1 the rows 8 further
+  {
+    const uint16_t* wr = reinterpret_cast<const uint16_t*>(w);
+    for (int i = tid; i < g.C / 2 * NT * 32; i += THREADS) {
+      const int l = i & 31, j = (i >> 5) % NT, ks = (i >> 5) / NT;
+      const int k = 16 * ks + 2 * (l & 3), n = 8 * j + (l >> 2);
+      wfrag[i] = make_uint2(wr[k * N + n] | static_cast<uint32_t>(wr[(k + 1) * N + n]) << 16,
+                            wr[(k + 8) * N + n] | static_cast<uint32_t>(wr[(k + 9) * N + n]) << 16);
+    }
+  }
+  fill_rows(g, vrow, loc);
+  __syncthreads();
+
+  const uint32_t mask = 2 * g.C / 16 - 1;
+  const int log_c = __ffs(g.C) - 1;  // C is a power of two
+  const int mtiles = g.rows16 / 16;
+  // this lane's ldmatrix row: row lane % 16 of an m-tile, channels 8 (lane / 16) .. of a k-step
+  const int a_row = lane & 15, a_half = lane >> 4;
+  for (int i = 0; i < n_boxes; ++i) {
+    const int s = i & 1;
+    int w0, h0, d0, b;
+    box_origin(g, blockIdx.x + i * grid, w0, h0, d0, b);
+    wg::mbar_wait(bar + 8 * s, (i >> 1) & 1);
+    const uint32_t xs = base + s * g.stage_x;
+    for (int p = warp; p < mtiles; p += WARPS * MW) {  // m-tiles p, p + 8, ... (MW of them)
+      float acc[MW][NT][4];
+      uint32_t vr[MW];
+#pragma unroll
+      for (int m = 0; m < MW; ++m) {
+        vr[m] = p + WARPS * m < mtiles ? vrow[16 * (p + WARPS * m) + a_row] : 0;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
+      }
+      for (int ks = 0; ks < g.C / 2; ++ks) {
+        const int k = 16 * ks + 8 * a_half;  // this lane's 8 channels: one tap
+        const uint32_t koff = tap_offset(g, k >> log_c) + 2 * (k & (g.C - 1));
+        uint2 bf[NT];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) bf[j] = wfrag[(ks * NT + j) * 32 + lane];
+        uint32_t a[MW][4];
+#pragma unroll
+        for (int m = 0; m < MW; ++m)  // the same for the whole warp
+          if (p + WARPS * m < mtiles) ldsm_x4(xs + swizzle(vr[m] + koff, mask), a[m]);
+#pragma unroll
+        for (int m = 0; m < MW; ++m)
+          if (p + WARPS * m < mtiles)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma(acc[m][j], a[m], bf[j].x, bf[j].y, acc[m][j]);
+      }
+      // rows past the grid (a ragged last box) are not stored
+      const int lim_w = g.W - w0, lim_h = g.H - h0, lim_d = g.D - d0;
+      const long long row0 = ((static_cast<long long>(b) * g.D + d0) * g.H + h0) * g.W + w0;
+#pragma unroll
+      for (int m = 0; m < MW; ++m) {
+        if (p + WARPS * m >= mtiles) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // rows lane/4 and lane/4 + 8 of the m-tile
+          const int l = loc[16 * (p + WARPS * m) + (lane >> 2) + 8 * half];
+          const int rw = l & 1023, rh = (l >> 10) & 1023, rd = l >> 20;
+          if (l < 0 || rw >= lim_w || rh >= lim_h || rd >= lim_d) continue;
+          __nv_bfloat16* out = y + (row0 + (static_cast<long long>(rd) * g.H + rh) * g.W + rw) * N + 2 * (lane & 3);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            *reinterpret_cast<uint32_t*>(out + 8 * j) = wg::pack_bf16(acc[m][j][2 * half], acc[m][j][2 * half + 1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && i + 2 < n_boxes) issue(s, blockIdx.x + (i + 2) * grid);
+  }
+}
+
+// dw partial: part[z] [8C, N] (N = 8 NT) over the boxes [z * per_split,
+// min(boxes, (z + 1) * per_split)) of block z. The 8C/16 m-tiles of dw's rows
+// (tap, c) are dealt to the warps, `mw` a warp (1, 2 or 4); where there are
+// fewer than 8 (C = 8: 4), the other warps only take part in the barriers.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
+                         float* __restrict__ part, const Geom g, int per_split) {
+  constexpr int N = 8 * NT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = round_up(raw, ALIGN);
+  uint8_t* const base_p = smem_raw + (base - raw);
+  const uint32_t stage = g.stage_x + g.stage_g;
+  int* const vrow = reinterpret_cast<int*>(base_p + 2 * stage);
+  const uint32_t bar = base + 2 * stage + 4 * g.rows16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int first = static_cast<int>(blockIdx.x) * per_split;
+  const int n_boxes = min(per_split, g.boxes - first);
+
+  const CUtensorMap *mx = &map_x, *mg = &map_g;
+  auto issue = [&](int s, int box) {  // thread 0: the halo box of x and the box of g into stage s
+    int w0, h0, d0, b;
+    box_origin(g, box, w0, h0, d0, b);
+    const uint32_t full = bar + 8 * s, dst = base + s * stage;
+    wg::mbar_arrive_expect_tx(full, g.halo_bytes + g.g_bytes);
+    wg::tma_load_5d(dst, mx, full, 0, w0, h0, d0, b);
+    wg::tma_load_5d(dst + g.stage_x, mg, full, 0, w0, h0, d0, b);
+  };
+
+  init_barriers(bar);
+  // g's rows from `rows` to `rows16` stay zero: the copies never write them
+  for (int s = 0; s < 2; ++s)
+    for (int i = g.rows * 2 * N / 16 + tid; i < g.rows16 * 2 * N / 16; i += THREADS)
+      reinterpret_cast<uint4*>(base_p + s * stage + g.stage_x)[i] = make_uint4(0, 0, 0, 0);
+  fill_rows(g, vrow, nullptr);
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < 2 && s < n_boxes; ++s) issue(s, first + s);
+
+  const int mtiles = g.C / 2;  // 8C / 16
+  const int wpg = min(WARPS, mtiles), mw = mtiles / wpg;  // warps that compute, m-tiles each
+  const uint32_t xmask = 2 * g.C / 16 - 1, gmask = 2 * N / 16 - 1;
+  const int log_c = __ffs(g.C) - 1;
+  // A (x, transposed): lane l gives row m = 16 ks + (l % 8) + 8 (l / 16) of the k-step, the 8 channels
+  // of half (l / 8) % 2 of its m-tile's 16 rows (tap, c), one tap each
+  uint32_t aoff[DW_MAX_M_TILES];
+#pragma unroll
+  for (int m = 0; m < DW_MAX_M_TILES; ++m) {
+    const int tc = 16 * (warp + wpg * m) + 8 * ((lane >> 3) & 1);
+    aoff[m] = m < mw ? tap_offset(g, tc >> log_c) + 2 * (tc & (g.C - 1)) : 0;
+  }
+  const int a_row = (lane & 7) + 8 * (lane >> 4);
+  const int b_row = lane & 15;  // B (g, transposed): rows 16 ks + l % 16 of the k-step
+  float acc[DW_MAX_M_TILES][NT][4];
+#pragma unroll
+  for (int m = 0; m < DW_MAX_M_TILES; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int i = 0; i < n_boxes; ++i) {
+    const int s = i & 1;
+    wg::mbar_wait(bar + 8 * s, (i >> 1) & 1);
+    const uint32_t xs = base + s * stage, gs = xs + g.stage_x;
+    for (int ks = 0; warp < wpg && ks < g.rows16 / 16; ++ks) {
+      // every ldmatrix of the k-step first, then its products: the loads' latencies overlap
+      const uint32_t va = vrow[16 * ks + a_row];
+      uint32_t bf[NT][2], a[DW_MAX_M_TILES][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        ldsm_x2_trans(gs + swizzle(static_cast<uint32_t>((16 * ks + b_row) * 2 * N + 16 * j), gmask), bf[j]);
+#pragma unroll
+      for (int m = 0; m < DW_MAX_M_TILES; ++m)
+        if (m < mw) ldsm_x4_trans(xs + swizzle(va + aoff[m], xmask), a[m]);
+#pragma unroll
+      for (int m = 0; m < DW_MAX_M_TILES; ++m) {
+        if (m >= mw) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float d[4];
+          mma(d, a[m], bf[j][0], bf[j][1], zero);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[m][j][q] += d[q];
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && i + 2 < n_boxes) issue(s, first + i + 2);
+  }
+
+  if (warp >= wpg) return;
+  float* out = part + static_cast<long long>(blockIdx.x) * 8 * g.C * N;
+#pragma unroll
+  for (int m = 0; m < DW_MAX_M_TILES; ++m) {
+    if (m >= mw) break;
+    const int row = 16 * (warp + wpg * m) + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(out + row * N + n) = make_float2(acc[m][j][0], acc[m][j][1]);
+      *reinterpret_cast<float2*>(out + (row + 8) * N + n) = make_float2(acc[m][j][2], acc[m][j][3]);
+    }
+  }
+}
+
+// ---- host side ----
+
+// The box of a launch, checked: C a power of two from 8 to 64 (one TMA box of
+// all C channels, rows of 16 to 128 bytes), N = 8, 16 or 32, extents within
+// the grid and MAX_EXTENT, at most MAX_ROWS rows; `dw` adds the stage of g.
+// Returns false where the kernels do not apply.
+inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw, int bh, int bd, bool dw) {
+  if ((C != 8 && C != 16 && C != 32 && C != 64) || (N != 8 && N != 16 && N != 32) || B < 1) return false;
+  if (bw < 1 || bh < 1 || bd < 1 || bw > W || bh > H || bd > D || bw > MAX_EXTENT || bh > MAX_EXTENT ||
+      bd > MAX_EXTENT || bw * bh * bd > MAX_ROWS)
+    return false;
+  g.D = D; g.H = H; g.W = W; g.C = C;
+  g.bw = bw; g.bh = bh; g.bd = bd;
+  g.nw = (W + bw - 1) / bw; g.nh = (H + bh - 1) / bh; g.nd = (D + bd - 1) / bd;
+  const long long boxes = static_cast<long long>(B) * g.nd * g.nh * g.nw;
+  if (boxes >= (1LL << 31)) return false;
+  g.boxes = static_cast<int>(boxes);
+  g.rows = bw * bh * bd;
+  g.rows16 = static_cast<int>(round_up(g.rows, 16));
+  g.halo_bytes = static_cast<uint32_t>((bw + 1) * (bh + 1) * (bd + 1) * 2 * C);
+  g.g_bytes = dw ? static_cast<uint32_t>(g.rows * 2 * N) : 0;
+  g.stage_x = round_up(g.halo_bytes, ALIGN);
+  g.stage_g = dw ? round_up(g.rows16 * 2 * N, ALIGN) : 0;
+  return true;
+}
+
+// A bf16 tensor [B, D, H, W, ch] as the TMA sees it, (ch, W, H, D, B)
+// innermost first, in boxes of (ch, bw, bh, bd, 1): rows of 2 ch bytes
+// under the swizzle of their width, zeros where a box leaves the tensor.
+inline int encode_box_map(CUtensorMap* map, const void* p, int B, int D, int H, int W, int ch, int bw, int bh,
+                          int bd) {
+  wg::EncodeTiledFn encode = wg::encode_tiled_fn();
+  if (!encode) return wg::NO_ENCODER;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(ch), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[4];
+  cuuint64_t stride = 2;
+  for (int i = 0; i < 4; ++i) {
+    stride *= dims[i];
+    strides[i] = stride;
+  }
+  const cuuint32_t box[5] = {static_cast<cuuint32_t>(ch), static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh),
+                             static_cast<cuuint32_t>(bd), 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = ch == 8    ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                     : ch == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : ch == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(p), dims, strides, box, ones,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : wg::ENCODE_FAILED + static_cast<int>(res);
+}
+
+template <int NT>
+int launch_fwd_nt(const CUtensorMap& map_x, const void* w, void* y, const Geom& g, int grid, size_t smem,
+                  cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_narrow_fwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_k2_narrow_fwd_kernel<NT><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+      map_x, static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(y), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward at the box (bw, bh, bd) with `grid` blocks; `plan_smem` is the
+// wrapper's dynamic shared memory, held to this file's own.
+inline int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw, int bh,
+                      int bd, int grid, int plan_smem, cudaStream_t s) {
+  Geom g;
+  if (!make_geom(g, B, D, H, W, C, N, bw, bh, bd, false) || grid < 1 || grid > g.boxes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(g, N, false);
+  if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
+  CUtensorMap map_x;
+  const int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1);
+  if (rc) return rc;
+  if (N == 8) return launch_fwd_nt<1>(map_x, w, y, g, grid, smem, s);
+  if (N == 16) return launch_fwd_nt<2>(map_x, w, y, g, grid, smem, s);
+  return launch_fwd_nt<4>(map_x, w, y, g, grid, smem, s);
+}
+
+template <int NT>
+int launch_dw_nt(const CUtensorMap& map_x, const CUtensorMap& map_g, float* part, const Geom& g, int splits,
+                 int per_split, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_narrow_dw_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_k2_narrow_dw_kernel<NT><<<static_cast<unsigned>(splits), THREADS, smem, s>>>(map_x, map_g, part, g,
+                                                                                     per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dw's partial sums, one [8C, N] a split, into `part`: the splits are runs of
+// `per_split` boxes (the last may be shorter, none is empty).
+inline int launch_dw(const void* x, const void* gr, float* part, int splits, int per_split, int B, int D, int H, int W,
+                     int C, int N, int bw, int bh, int bd, int plan_smem, cudaStream_t s) {
+  Geom g;
+  if (!make_geom(g, B, D, H, W, C, N, bw, bh, bd, true) || splits < 1 || per_split < 1 ||
+      static_cast<long long>(splits - 1) * per_split >= g.boxes || static_cast<long long>(splits) * per_split < g.boxes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(g, N, true);
+  if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
+  CUtensorMap map_x, map_g;
+  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1);
+  if (rc) return rc;
+  rc = encode_box_map(&map_g, gr, B, D, H, W, N, bw, bh, bd);
+  if (rc) return rc;
+  if (N == 8) return launch_dw_nt<1>(map_x, map_g, part, g, splits, per_split, smem, s);
+  if (N == 16) return launch_dw_nt<2>(map_x, map_g, part, g, splits, per_split, smem, s);
+  return launch_dw_nt<4>(map_x, map_g, part, g, splits, per_split, smem, s);
+}
+
+}  // namespace nr

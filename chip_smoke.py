@@ -7,7 +7,8 @@ order, any failure ending the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the ``conv_k2`` CUDA kernels (forward, dx, dw, each as an
-   FFMA kernel and as a bfloat16 tensor-core kernel) from
+   FFMA kernel and as a bfloat16 tensor-core kernel; the bfloat16 forward and
+   dw of narrow outputs also on ``mma.sync``) from
    ``anytime3d_tpu_torch/kernels/csrc``;
 3. kernel check: ``conv_k2``, ``conv_k2_dx`` and ``conv_k2_dw`` against their
    plain versions at the flagship stages (16^3): at B=8, the served batch, in
@@ -20,8 +21,9 @@ order, any failure ending the run with a non-zero exit:
    all three must take the tensor-core kernels (``design`` "wgmma"), in
    float32 the FFMA ones; the tensor-core kernels and their plain versions
    are also held against a float64 product of the same operands, dw must
-   give the same bits twice, and two bfloat16 shapes off the main path are
-   checked, one with a plan (8^3) and one without (the FFMA kernels);
+   give the same bits twice, and three bfloat16 shapes off the main path are
+   checked, one with a plan (8^3), one without (the FFMA kernels) and one with
+   a narrow plan (the narrow forward and dw);
 4. full-width slice: ``modelnet_nolbo`` (64^3 voxels, z=64, 40 classes) from
    seeded weights, a batch of 8 seeded occupancy grids with full, partial and
    empty latent masks through ``make_packed_infer`` on the card, held against
@@ -93,9 +95,12 @@ order, any failure ending the run with a non-zero exit:
    2 launches); ``export_infer`` of the float32 image program loaded and held
    to the eager one (2 launches a batch); the phase's wall time printed;
 12. detector: ``conv_k2``, dx and dw at the detector decoder's final conv (32
-   decodes of 32^3, C=32 -> N=8; no plan, so the FFMA kernels in both types)
-   against their plain versions (dw the same bits twice), timed beside cuDNN
-   and their bound; the reference-scale detector-reconstructor (Darknet19,
+   decodes of 32^3, C=32 -> N=8: no wgmma plan; in bfloat16 the forward and dw
+   on the narrow kernels, dx and float32 on the FFMA ones) against their plain
+   versions (the narrow kernels and their plain versions also against a
+   float64 product; dw the same bits twice), timed beside cuDNN and their
+   bound, and the narrow forward at the scene pass's 1024 decodes; the
+   reference-scale detector-reconstructor (Darknet19,
    the 4 x 1024 grid head, 5 predictors of 49 channels, the pixel-shuffle
    decoder to 64^3, K=32) from seeded weights on one 416x416 rendered frame,
    float32 on the card against the CPU: the grid fields, ``detect`` (equal
@@ -103,14 +108,14 @@ order, any failure ending the run with a non-zero exit:
    ``scene_reconstruction`` (poses, projected corners, ``valid``); the served
    frame, ``export_detector`` in float32 and bfloat16 loaded with
    ``load_infer`` and held to the eager program, 50 frames under
-   ``torch.cuda.set_sync_debug_mode("error")`` with 1 launch a frame, timed by
-   events with the host's share; the scene pass at its defaults in bfloat16
-   (1024 decodes, 1 launch), timed, with the lifting and its batched SVD
+   ``torch.cuda.set_sync_debug_mode("error")`` with 1 launch a frame (narrow
+   in bfloat16), timed by events with the host's share; the scene pass at its
+   defaults in bfloat16 (1024 decodes, 1 narrow launch), timed, with the lifting and its batched SVD
    timed alone; one float32 train step at B=2 against the CPU (every loss
    term, every gradient leaf, ``grads_finite``); ``cli/train_detector.py``'s
    trainer at the reference scale (bfloat16, B=8, 13x13 grid, up to 6
    objects, packed voxels, uint8 frames), 24 steps, 1 / 1 / 1 launches a
-   step, device time, host wall, the host's batch and peak memory printed;
+   step (the forward and dw narrow), device time, host wall, the host's batch and peak memory printed;
    ``evaluate_detector`` on 2 batches, timed; the phase's wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
@@ -162,6 +167,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
     conv_k2_dx,
     conv_k2_dx_reference,
     conv_k2_reference,
+    narrow_plan,
     wgmma_plan,
 )
 from anytime3d_tpu_torch.models import configs  # noqa: E402
@@ -190,6 +196,7 @@ N_CLIENTS = 8
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
 # device memory 3.35 TB/s; 989 TFLOP/s in bf16 on the tensor cores; 67 TFLOP/s
 # in float32 outside them (the float32 comparisons here are true float32).
+SLEEP_CYCLES_PER_MS = 2.0e6  # torch.cuda._sleep's cycles: the H100's top clock is 1.98 GHz
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -287,6 +294,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds of one call on the card alone: ``cuda_ms``, with the
+    card first held busy (``torch.cuda._sleep``) for longer than the host
+    takes to enqueue the ``iters`` calls, so that they run back to back and a
+    call whose host side outlasts its kernels is timed by its kernels."""
+    for _ in range(warmup):
+        fn()
+    host = host_enqueue_ms(fn, iters=3)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * iters * host + 1.0) * SLEEP_CYCLES_PER_MS))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def host_enqueue_ms(fn, iters: int = 10) -> float:
     """Mean host milliseconds of one call, from an idle card until the call
     returns with its work enqueued: the host's share of a served batch."""
@@ -324,23 +349,28 @@ def phase_build() -> None:
 def reset_counts() -> None:
     conv_k2.launches = conv_k2.launches_dx = conv_k2.launches_dw = 0
     conv_k2.launches_wgmma = conv_k2.launches_dx_wgmma = conv_k2.launches_dw_wgmma = 0
+    conv_k2.launches_narrow = conv_k2.launches_dw_narrow = 0
 
 
 def read_counts() -> dict:
-    """Launches since ``reset_counts``: every launch by kernel, and under
-    ``*_wgmma`` those of them that took the tensor-core kernels."""
+    """Launches since ``reset_counts``: every launch by kernel, under
+    ``*_wgmma`` those of them that took the tensor-core kernels and under
+    ``*_narrow`` those that took the narrow ones (dx has none)."""
     return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
             "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dx_wgmma": conv_k2.launches_dx_wgmma,
-            "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma}
+            "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma, "conv_k2_narrow": conv_k2.launches_narrow,
+            "conv_k2_dw_narrow": conv_k2.launches_dw_narrow}
 
 
-def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool) -> dict:
+def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool, narrow: bool = False) -> dict:
     """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
-    all of them on the tensor-core kernels or none of them."""
+    all of them on the tensor-core kernels or none of them; with ``narrow``,
+    every forward and dw launch on the narrow kernels (dx on the FFMA one)."""
     counts = read_counts()
     want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
             "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dx_wgmma": dx if tensor_cores else 0,
-            "conv_k2_dw_wgmma": dw if tensor_cores else 0}
+            "conv_k2_dw_wgmma": dw if tensor_cores else 0, "conv_k2_narrow": forward if narrow else 0,
+            "conv_k2_dw_narrow": dw if narrow else 0}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     return counts
@@ -363,6 +393,20 @@ def k2_bound_ms(kernel: str, batch: int, C: int, N: int, dtype: torch.dtype, gri
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes > t_flops else "operations"
 
 
+def float64_forward(x: torch.Tensor, w: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """``conv_k2(x, w)`` as a float64 product of the same operands, tap by
+    tap, ``chunk`` batch items at a time (the scene pass's x is 2.1 GB in
+    bf16)."""
+    B, D, H, W, C = x.shape
+    w64 = w.double().reshape(8, C, -1)
+    out = []
+    for i in range(0, B, chunk):
+        xp = F.pad(x[i:i + chunk].double(), (0, 0) + (0, 1) * 3)
+        out.append(sum(xp[:, t >> 2:(t >> 2) + D, (t >> 1) & 1:((t >> 1) & 1) + H, t & 1:(t & 1) + W] @ w64[t]
+                       for t in range(8)))
+    return torch.cat(out)
+
+
 def float64_products(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> dict:
     """``conv_k2(x, w)``, dx of (g, w) and dw of (x, g) as float64 products of
     the same operands, tap by tap: what every kernel and plain version
@@ -371,32 +415,29 @@ def float64_products(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> dict:
     N = w.shape[-1]
     xp, gp = F.pad(x.double(), (0, 0) + (0, 1) * 3), F.pad(g.double(), (0, 0) + (1, 0) * 3)
     w64, g64 = w.double().reshape(8, C, N), g.double().flatten(0, 3)
-    y = torch.zeros(B * D * H * W, N, dtype=torch.float64, device=x.device)
     dx, dw = torch.zeros(B * D * H * W, C, dtype=torch.float64, device=x.device), []
     for t in range(8):
         tz, ty, tx = t >> 2, (t >> 1) & 1, t & 1
-        xs = xp[:, tz:tz + D, ty:ty + H, tx:tx + W].flatten(0, 3)
-        y += xs @ w64[t]
-        dw.append(xs.T @ g64)
+        dw.append(xp[:, tz:tz + D, ty:ty + H, tx:tx + W].flatten(0, 3).T @ g64)
         # g shifted down by the tap: the padded copy read one short of it
         dx += gp[:, 1 - tz:1 - tz + D, 1 - ty:1 - ty + H, 1 - tx:1 - tx + W].flatten(0, 3) @ w64[t].T
-    return {"conv_k2": y.reshape(B, D, H, W, N), "conv_k2_dx": dx.reshape(B, D, H, W, C),
+    return {"conv_k2": float64_forward(x, w, chunk=B), "conv_k2_dx": dx.reshape(B, D, H, W, C),
             "conv_k2_dw": torch.stack(dw).reshape(2, 2, 2, C, N)}
 
 
 def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None, want: str) -> dict:
     """Launch ``run`` once, hold it against ``plain`` with the tolerance of its
-    design and dtype, and hold the design the launch took to ``want`` ("wgmma"
-    or "ffma"). With ``exact`` (a float64 product) the tensor-core kernels and
-    their plain versions are also held against it; dw must give the same bits
-    twice."""
-    def on_tensor_cores() -> int:
-        return sum(n for name, n in read_counts().items() if name.endswith("_wgmma"))
+    design and dtype, and hold the design the launch took to ``want`` ("wgmma",
+    "narrow" or "ffma"). With ``exact`` (a float64 product) the tensor-core and
+    narrow kernels and their plain versions are also held against it; dw must
+    give the same bits twice."""
+    def launched(design: str) -> int:
+        return sum(n for name, n in read_counts().items() if name.endswith(f"_{design}"))
 
-    before = on_tensor_cores()
+    before = {d: launched(d) for d in ("wgmma", "narrow")}
     out, ref = run(), plain()
     torch.cuda.synchronize()
-    design = "wgmma" if on_tensor_cores() > before else "ffma"
+    design = next((d for d in ("wgmma", "narrow") if launched(d) > before[d]), "ffma")
     if design != want:
         raise AssertionError(f"{kernel} {label}: took the {design} kernel, expected {want}")
     if out.shape != ref.shape or out.dtype != ref.dtype:
@@ -410,7 +451,7 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
     line = f"{kernel} {label} [{design}]: max_abs_err {err:.3e} (tol {tol:.3e})"
     if not err <= tol:
         raise AssertionError(f"{line}: the kernel disagrees with its plain version")
-    if design == "wgmma" and exact is not None:
+    if design != "ffma" and exact is not None:
         err_k, err_p = (float((t.double() - exact).abs().max()) for t in (out, ref))
         top64 = float(exact.abs().max())
         # the forward's and dx's f32 sum is rounded once to bf16: half an ulp of the largest output, and the sum's own error
@@ -490,14 +531,17 @@ def phase_kernels(card: str) -> dict:
                     for key, v in zip(keys, (ms, plain_ms, library_ms, bound_ms)):
                         r[key] += v
                 del exact
-        # off the main path, bfloat16: a shape with a plan (8^3) and one without (ragged grid, narrow channels)
-        for shape, C, N in (((3, 8, 8, 8), 64, 64), ((2, 5, 6, 7), 16, 24)):
-            planned = wgmma_plan(*shape, C, N) is not None
-            label = f"off the main path {shape} {C}->{N}" + ("" if planned else " (no plan)")
+        # off the main path, bfloat16: a shape with a wgmma plan (8^3), one with none (ragged grid, N = 24) and one
+        # with a narrow plan (a whole-grid box of 210 rows): the design of forward, dx and dw each
+        for shape, C, N, designs in (((3, 8, 8, 8), 64, 64, ("wgmma",) * 3), ((2, 5, 6, 7), 16, 24, ("ffma",) * 3),
+                                     ((3, 5, 6, 7), 16, 16, ("narrow", "ffma", "narrow"))):
+            assert (wgmma_plan(*shape, C, N) is not None) == (designs[0] == "wgmma")
+            assert (narrow_plan(*shape, C, N) is not None) == (designs[0] == "narrow")
+            label = f"off the main path {shape} {C}->{N}"
             x, w, g = k2_operands(gen, shape, C, N, torch.bfloat16)
             exact = float64_products(x, w, g)
-            for kernel, (run, plain, _) in k2_runs(x, w, g).items():
-                check_kernel(kernel, label, run, plain, exact[kernel], "wgmma" if planned else "ffma")
+            for (kernel, (run, plain, _)), want in zip(k2_runs(x, w, g).items(), designs):
+                check_kernel(kernel, label, run, plain, exact[kernel], want)
     for kernel, cases in res.items():
         for case, r in cases.items():
             r["bound_by"] = "operations" if "operations" in r["bound_by"] else "bytes"
@@ -518,7 +562,8 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     the served runs, the train run, the anytime sweep, the lifecycle's train,
     restored and evaluate runs, its exported programs' batches, the image
     phase's runs and the detector phase's; ``launches_wgmma`` is the part of
-    them that took the tensor-core kernels."""
+    them that took the tensor-core kernels, ``launches_narrow`` the part that
+    took the narrow kernels (the bf16 forward and dw of N = 8; dx has none)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
@@ -544,6 +589,9 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
             "launches_wgmma": sum(c[f"{kernel}_wgmma"] for c in paths),
         })
+        if f"{kernel}_narrow" in serve_counts:  # the forward and dw have a narrow design, dx none
+            entries[-1] |= {"source_narrow": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
+                            "launches_narrow": sum(c[f"{kernel}_narrow"] for c in paths)}
     return entries
 
 
@@ -1638,48 +1686,63 @@ DET_MIN_LIFTED = 24  # of lift_inputs' 32 car-like detections (all 32 lift on th
 # the exported program against the eager one: the same ops on the same weights (EXPORT_TOL_*)
 
 
+def detector_kernel_case(kernel: str, label: str, fns: tuple, exact, want: str, shape: tuple, dtype: torch.dtype,
+                         card: str, iters: int = 20) -> dict:
+    """One detector kernel case: checked against its plain version (and
+    ``exact``) on the design ``want``, then timed as every kernel row is
+    (``cuda_ms``: plain, kernel, kernel, plain) beside its library call and
+    its bound. Beside them, the kernel and the library call on the card alone
+    (``device_ms``, under ``device_ms`` and ``library_device_ms``: at 32
+    decodes the host takes longer to enqueue an op call than the narrow
+    kernels run) and the host's enqueue of a kernel call."""
+    run, plain, library = fns
+    n, grid, C, N = shape
+    checked = check_kernel(kernel, label, run, plain, exact, want)
+    warmup = 3 if iters >= 20 else 1
+    p1, k1, k2_, p2 = (cuda_ms(f, iters=iters, warmup=warmup) for f in (plain, run, run, plain))
+    ms, plain_ms, library_ms = (k1 + k2_) / 2, (p1 + p2) / 2, cuda_ms(library, iters=iters, warmup=warmup)
+    alone, library_alone = (device_ms(f, iters=iters, warmup=warmup) for f in (run, library))
+    bound_ms, bound_by = k2_bound_ms(kernel, n, C, N, dtype, grid)
+    host = host_enqueue_ms(run, iters=iters)
+    print(f"{kernel} {label} [{want}]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
+          f"bound {bound_ms:.4f} ms ({bound_by}); kernel / bound {ms / bound_ms:.1f} "
+          f"({100 * bound_ms / ms:.1f}% of the bound), kernel / library {ms / library_ms:.2f}; on the card alone: "
+          f"kernel {alone:.4f} ms ({100 * bound_ms / alone:.1f}% of the bound) library {library_alone:.4f} ms, "
+          f"kernel / library {alone / library_alone:.2f}; the host's enqueue of a kernel call {host:.4f} ms "
+          f"[{card}]", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "device_ms": alone, "library_device_ms": library_alone,
+            "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": checked["design"]}
+
+
 def phase_detector_kernels(card: str) -> dict:
     """``conv_k2``, dx and dw at the detector decoder's final conv (32 decodes
-    of 32^3, C=32 -> N=8: no plan, the FFMA kernels in both types), and the
-    forward at the scene pass's 1024 decodes in bf16, against their plain
-    versions, each timed beside its library call and its bound. Returns
-    ``{kernel: {case: numbers}}`` as ``phase_kernels``."""
+    of 32^3, C=32 -> N=8: no wgmma plan; in bf16 the forward and dw on the
+    narrow kernels, dx and f32 on the FFMA ones), and the narrow forward at the
+    scene pass's 1024 decodes, against their plain versions (the narrow ones
+    also against float64 products), each timed beside its library call and its
+    bound. Returns ``{kernel: {case: numbers}}`` as ``phase_kernels``."""
     gen = torch.Generator().manual_seed(SEED + 12)
     n, grid, C, N = DET_K2
+    assert narrow_plan(n, grid, grid, grid, C, N) is not None and narrow_plan(DET_SCENE_DECODES, grid, grid, grid, C, N)
     res = {k: {} for k in ("conv_k2", "conv_k2_dx", "conv_k2_dw")}
     with torch.inference_mode():
         for case, dtype in DET_K2_CASES:
             x, w, g = k2_operands(gen, (n, grid, grid, grid), C, N, dtype)
-            for kernel, (run, plain, library) in k2_runs(x, w, g).items():
-                label = f"detector {case} B={n} {grid}^3 {C}->{N}"
-                checked = check_kernel(kernel, label, run, plain, None, "ffma")
-                p1, k1, k2_, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
-                ms, plain_ms, library_ms = (k1 + k2_) / 2, (p1 + p2) / 2, cuda_ms(library)
-                bound_ms, bound_by = k2_bound_ms(kernel, n, C, N, dtype, grid)
-                print(f"{kernel} {label} [ffma]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
-                      f"bound {bound_ms:.4f} ms ({bound_by}); kernel / bound {ms / bound_ms:.1f}, kernel / library "
-                      f"{ms / library_ms:.2f} [{card}]", flush=True)
-                res[kernel][case] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                                     "max_abs_err": checked["max_abs_err"], "bound_by": bound_by,
-                                     "design": checked["design"]}
-            del x, w, g
+            exact = float64_products(x, w, g) if dtype == torch.bfloat16 else {}
+            for kernel, fns in k2_runs(x, w, g).items():
+                want = "narrow" if dtype == torch.bfloat16 and kernel != "conv_k2_dx" else "ffma"
+                res[kernel][case] = detector_kernel_case(kernel, f"detector {case} B={n} {grid}^3 {C}->{N}", fns,
+                                                         exact.get(kernel), want, DET_K2, dtype, card)
+            del x, w, g, exact
         # the scene pass's final conv, bf16: K * S decodes, the largest grid the forward is given (x ~2.1 GB)
         n, dtype = DET_SCENE_DECODES, torch.bfloat16
         cuda_gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
         x = torch.randn(n, grid, grid, grid, C, generator=cuda_gen, device="cuda", dtype=dtype)
         w = (torch.randn(2, 2, 2, C, N, generator=cuda_gen, device="cuda") / math.sqrt(8 * C)).to(dtype)
-        run, plain, library = k2_runs(x, w, x[..., :N])["conv_k2"]
-        label = f"detector scene pass bf16 B={n} {grid}^3 {C}->{N}"
-        checked = check_kernel("conv_k2", label, run, plain, None, "ffma")
-        p1, k1, k2_, p2 = (cuda_ms(f, iters=5, warmup=1) for f in (plain, run, run, plain))
-        ms, plain_ms, library_ms = (k1 + k2_) / 2, (p1 + p2) / 2, cuda_ms(library, iters=5, warmup=1)
-        bound_ms, bound_by = k2_bound_ms("conv_k2", n, C, N, dtype, grid)
-        print(f"conv_k2 {label} [ffma]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
-              f"bound {bound_ms:.4f} ms ({bound_by}); kernel / bound {ms / bound_ms:.1f}, kernel / library "
-              f"{ms / library_ms:.2f} [{card}]", flush=True)
-        res["conv_k2"]["det_scene_bf16"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                                            "bound_ms": bound_ms, "max_abs_err": checked["max_abs_err"],
-                                            "bound_by": bound_by, "design": checked["design"]}
+        res["conv_k2"]["det_scene_bf16"] = detector_kernel_case(
+            "conv_k2", f"detector scene pass bf16 B={n} {grid}^3 {C}->{N}", k2_runs(x, w, x[..., :N])["conv_k2"],
+            float64_forward(x, w), "narrow", (n, grid, C, N), dtype, card, iters=5)
         del x, w
     return res
 
@@ -1864,7 +1927,8 @@ def phase_detector(device: torch.device, card: str) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        add(expect_counts(f"detector served frames, {label}", DET_SERVE_FRAMES, 0, 0, tensor_cores=False))
+        add(expect_counts(f"detector served frames, {label}", DET_SERVE_FRAMES, 0, 0, tensor_cores=False,
+                          narrow=label == "bf16"))
         peak = torch.cuda.max_memory_allocated()
         line = compare_fields(f"detector artifact {label} vs eager", outs[-1], eager, tol)
         ms = cuda_ms(lambda: fn(frame_gpu), iters=DET_SERVE_FRAMES)
@@ -1876,7 +1940,8 @@ def phase_detector(device: torch.device, card: str) -> dict:
         wall = (time.perf_counter() - t0) / DET_SERVE_FRAMES * 1e3
         served[label] = ms
         print(f"detector served frame {label}: export_detector + load_infer {export_s:.2f} s; against the eager "
-              f"program: {line}; {DET_SERVE_FRAMES} frames under sync-debug 'error', 1 conv_k2 launch a frame; "
+              f"program: {line}; {DET_SERVE_FRAMES} frames under sync-debug 'error', 1 conv_k2 launch a frame "
+              f"({'narrow' if label == 'bf16' else 'FFMA'}); "
               f"device time a frame (CUDA events, mean of {DET_SERVE_FRAMES}) {ms:.3f} ms, host to enqueue one "
               f"{host:.3f} ms, wall a frame to its valid mask on the host {wall:.3f} ms; peak memory allocated "
               f"{peak / 2**30:.2f} GiB; valid {int(outs[-1]['valid'].sum())} of {DET_MAX_DETECTIONS} [{card}]",
@@ -1891,7 +1956,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
     reset_counts()
     out = scene_reconstruction(model_bf16, frame_gpu, DET_IMAGE_PX, generator=gen)
     torch.cuda.synchronize()
-    add(expect_counts("detector scene pass", 1, 0, 0, tensor_cores=False))
+    add(expect_counts("detector scene pass", 1, 0, 0, tensor_cores=False, narrow=True))
     s = cfg.shape_samples
     assert DET_MAX_DETECTIONS * s == DET_SCENE_DECODES  # the shape phase_detector_kernels checks
     if tuple(out["shapes"].shape) != (DET_MAX_DETECTIONS, DET_VOXEL, DET_VOXEL, DET_VOXEL) or not all(
@@ -1901,7 +1966,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
     reset_counts()
     scene_ms = cuda_ms(lambda: scene_reconstruction(model_bf16, frame_gpu, DET_IMAGE_PX, generator=gen), iters=5,
                        warmup=1)
-    add(expect_counts("detector scene pass, timed", 6, 0, 0, tensor_cores=False))
+    add(expect_counts("detector scene pass, timed", 6, 0, 0, tensor_cores=False, narrow=True))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
@@ -1917,7 +1982,8 @@ def phase_detector(device: torch.device, card: str) -> dict:
         z = det16["z_mean"].repeat_interleave(s, dim=0)
         decode_ms = cuda_ms(lambda: model_bf16.decoder(z), iters=5, warmup=1)
     print(f"detector scene pass, bf16, sample_shapes=True ({DET_MAX_DETECTIONS} x {s} = {DET_MAX_DETECTIONS * s} "
-          f"decodes at {DET_VOXEL}^3, 1 conv_k2 launch): device time (CUDA events, mean of 5) {scene_ms:.2f} ms, wall "
+          f"decodes at {DET_VOXEL}^3, 1 narrow conv_k2 launch): device time (CUDA events, mean of 5) "
+          f"{scene_ms:.2f} ms, wall "
           f"to its valid mask on the host {scene_wall:.2f} ms; inside it: detect {detect_ms:.3f} ms, the "
           f"{DET_MAX_DETECTIONS * s} decodes {decode_ms:.2f} ms, lift_detections {lift_ms:.3f} ms (its batched SVD of "
           f"{DET_MAX_DETECTIONS * 128} 4x4 systems alone {svd_ms:.3f} ms); peak memory allocated "
@@ -2008,7 +2074,8 @@ def phase_detector(device: torch.device, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     print("", flush=True)
-    add(expect_counts("detector train run", DET_TRAIN_STEPS, DET_TRAIN_STEPS, DET_TRAIN_STEPS, tensor_cores=False))
+    add(expect_counts("detector train run", DET_TRAIN_STEPS, DET_TRAIN_STEPS, DET_TRAIN_STEPS, tensor_cores=False,
+                      narrow=True))
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.history
     if trainer.state.step != DET_TRAIN_STEPS or trainer.aborted_nan or not all(
@@ -2026,7 +2093,8 @@ def phase_detector(device: torch.device, card: str) -> dict:
           f"step, start to start, median {np.median(host_wall):.2f} ms (min {host_wall.min():.2f}, max "
           f"{host_wall.max():.2f}); whole run {wall:.2f} s; the host's batch (up to {DET_TRAIN_BATCH * DET_MAX_OBJECTS} "
           f"renders, collate, pack) {np.median(host):.2f} ms median of {len(host)} (min {min(host):.2f}); peak memory "
-          f"allocated {peak / 2**30:.2f} GiB; launches 1 / 1 / 1 a step, FFMA [{card}]", flush=True)
+          f"allocated {peak / 2**30:.2f} GiB; launches 1 / 1 / 1 a step, the forward and dw narrow, dx FFMA [{card}]",
+          flush=True)
 
     # 6. evaluate_detector on 2 batches of the training loader, as the CLI ends, on the trained model
     t0 = time.perf_counter()

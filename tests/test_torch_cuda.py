@@ -4,7 +4,9 @@ ops under ``opcheck``, a small serving slice (eager and exported), a small
 train step and the anytime protocol on the GPU against the CPU, the small
 image model (``pascal_nolbo``'s layout) served and trained on the card
 against the CPU, the batch prefetcher's stream ordering, the kernels at the
-detector decoder's N = 8 and a small detector on the card against the CPU.
+detector decoder's N = 8, the narrow kernels (bf16 forward and dw of N = 8,
+16, 32) at the edges of their plan, and a small detector on the card against
+the CPU.
 
 Every test here needs a CUDA GPU and ``nvcc`` and skips without them. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -32,6 +34,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2_dw_reference,
     conv_k2_reference,
     ffma_dw_split,
+    narrow_plan,
     wgmma_plan,
 )
 from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo, pascal_nolbo
@@ -133,6 +136,10 @@ def _wgmma_counts():
     return conv_k2.launches_wgmma, conv_k2.launches_dx_wgmma, conv_k2.launches_dw_wgmma
 
 
+def _narrow_counts():
+    return conv_k2.launches_narrow, conv_k2.launches_dw_narrow
+
+
 def _dx_float64(g, w):
     """dx as a float64 product of the same operands, tap by tap: g shifted
     down by the tap (zeros below the low edge) times w[tap] transposed."""
@@ -160,7 +167,8 @@ def test_backward_kernels_match_plain(cuda, C, N, dtype):
     # a permuted view, as autograd hands gradients over
     y.backward(g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1))
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
-    assert _wgmma_counts() == before_wg  # float32, and a grid without a plan: the FFMA kernels
+    # float32, and grids without a wgmma plan: no tensor-core launch (bf16 at N = 16 takes the narrow forward and dw)
+    assert _wgmma_counts() == before_wg
     with torch.no_grad():
         dx_ref, dw_ref = conv_k2_backward_reference(x, w, g)
     torch.cuda.synchronize()
@@ -222,8 +230,8 @@ def test_backward_kernels_match_plain_on_planned_shapes(cuda, B, G, C, N):
 # multiple of 128, N % 128 != 0 on the 128-column tile, bf16 rows of g only
 # 8-byte aligned (N % 8 == 4), a grid smaller than a stage; one split for the
 # first four, several for the rest (ffma_dw_split)
-FFMA_DW_EDGES = [(2, 5, 6, 7, 8, 16), (2, 5, 6, 7, 136, 8), (1, 4, 4, 4, 64, 200), (3, 2, 2, 2, 8, 4),
-                 (2, 9, 10, 11, 24, 68), (1, 16, 16, 16, 136, 96), (4, 16, 16, 16, 512, 40)]
+FFMA_DW_EDGES = [(2, 5, 6, 7, 8, 16), (2, 5, 6, 7, 24, 16), (2, 5, 6, 7, 136, 8), (1, 4, 4, 4, 64, 200),
+                 (3, 2, 2, 2, 8, 4), (2, 9, 10, 11, 24, 68), (1, 16, 16, 16, 136, 96), (4, 16, 16, 16, 512, 40)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -232,18 +240,23 @@ def test_ffma_dw_matches_plain_at_the_tile_edges(cuda, B, D, H, W, C, N, dtype):
     """The FFMA dw, float32 and bfloat16 without a plan, against
     ``conv_k2_dw_reference``: f32 sums of the same products in another order,
     1e-5 of the largest entry (chip_smoke.py's K2_TOL_DW_REL); the same bits
-    from two calls; no tensor-core launch."""
+    from two calls; no tensor-core launch. bfloat16 at (8 -> 16) has a narrow
+    plan and takes the narrow dw, held to the same; (24 -> 16), the same
+    edge without one, keeps the FFMA dw's one split in bfloat16."""
     assert wgmma_plan(B, D, H, W, C, N) is None
-    assert (ffma_dw_split(B * D * H * W, C, N)[0] == 1) == (FFMA_DW_EDGES.index((B, D, H, W, C, N)) < 4)
+    assert (ffma_dw_split(B * D * H * W, C, N)[0] == 1) == (FFMA_DW_EDGES.index((B, D, H, W, C, N)) < 5)
+    narrow = dtype == torch.bfloat16 and narrow_plan(B, D, H, W, C, N) is not None
+    assert narrow == (dtype == torch.bfloat16 and (C, N) == (8, 16))
     gen = torch.Generator().manual_seed(5)
     x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, dtype)
     g = torch.randn(B, D, H, W, N, generator=gen).to(cuda, dtype)
-    before, before_wg = _counts(), _wgmma_counts()
+    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
     with torch.no_grad():
         dw, again = conv_k2_dw(x, g), conv_k2_dw(x, g)
         ref = conv_k2_dw_reference(x, g)
     torch.cuda.synchronize()
     assert _counts() == (before[0], before[1], before[2] + 2) and _wgmma_counts() == before_wg
+    assert _narrow_counts() == (before_nr[0], before_nr[1] + 2 * narrow)
     assert dw.dtype == torch.float32 and dw.shape == (2, 2, 2, C, N)
     assert torch.equal(dw, again)
     err = float((dw - ref).abs().max())
@@ -415,14 +428,16 @@ def test_small_bf16_slice_on_card_takes_tensor_cores(cuda):
     assert float((z - ref["z_mean"]).abs().max()) <= 0.05 * max(1.0, float(ref["z_mean"].abs().max()))
 
 
-@pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 8, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64))],
-                         ids=["f32_ffma", "bf16_wgmma"])
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 8, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64)),
+                                         (torch.bfloat16, (2, 8, 8, 8, 32, 8))],
+                         ids=["f32_ffma", "bf16_wgmma", "bf16_narrow"])
 @pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
 def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     """The three ops on CUDA tensors: schema, autograd registration (the
     forward's backward calls the dx and dw ops), the fake implementation
     against the kernel's output, and an AOT-autograd trace; in bfloat16 at a
-    shape with a plan, so the tensor-core kernels answer."""
+    shape with a plan, so the tensor-core kernels answer, and at N = 8, where
+    the narrow forward and dw do (dx FFMA)."""
     *grid, C, N = shape
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(*grid, C, generator=gen).to(cuda, dtype)
@@ -637,22 +652,26 @@ N8_SHAPES = [(2, 8, 8), (4, 32, 32), (2, 32, 64)]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,G,C", N8_SHAPES)
 def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
-    """Forward, dx and dw at N = 8 against their plain versions, on the FFMA
-    kernels in both dtypes (no counter of the tensor-core kernels moves); dw
-    gives the same bits twice. Tolerances as ``test_kernel_matches_plain``
-    and ``test_backward_kernels_match_plain``."""
+    """Forward, dx and dw at N = 8 against their plain versions: in bfloat16
+    the forward and dw on the narrow kernels (their counters move), dx on the
+    FFMA kernel; in float32 all three FFMA. No counter of the tensor-core
+    kernels moves; dw gives the same bits twice. Tolerances as
+    ``test_kernel_matches_plain`` and ``test_backward_kernels_match_plain``."""
     assert wgmma_plan(B, G, G, G, C, 8) is None
+    narrow = dtype == torch.bfloat16
+    assert narrow_plan(B, G, G, G, C, 8) is not None
     gen = torch.Generator().manual_seed(9)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, 8, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
     g = torch.randn(B, G, G, G, 8, generator=gen).to(cuda, dtype)
-    before, before_wg = _counts(), _wgmma_counts()
+    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
     with torch.inference_mode():
         y, dx, dw = conv_k2(x, w), k2.conv_k2_dx(g, w), conv_k2_dw(x, g)
         again = conv_k2_dw(x, g)
         y_ref, dx_ref, dw_ref = conv_k2_reference(x, w), k2.conv_k2_dx_reference(g, w), conv_k2_dw_reference(x, g)
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 2) and _wgmma_counts() == before_wg
+    assert _narrow_counts() == (before_nr[0] + narrow, before_nr[1] + 2 * narrow)
     assert torch.equal(dw, again)
     for out, ref in ((y, y_ref), (dx, dx_ref)):
         assert out.shape == ref.shape and out.dtype == dtype
@@ -660,6 +679,60 @@ def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
         assert float((out.float() - ref.float()).abs().max()) <= tol
     assert dw.dtype == torch.float32 and dw.shape == (2, 2, 2, C, 8)
     assert float((dw - dw_ref.float()).abs().max()) <= 1e-5 * float(dw_ref.float().abs().max()) + 1e-5
+
+
+# (B, D, H, W, C, N) at the edges of the narrow plan: C = 8 (half the warps
+# idle in dw), 64 (4 m-tiles a warp) and 16, 32; N = 8, 16, 32; a whole-grid
+# box of 210 rows (not a multiple of 16), a w-line longer than a box, ragged
+# last boxes along every axis, and the detector's 32^3 at C = 32 -> 8 with
+# several boxes a block and a split
+NARROW_EDGES = [(3, 8, 8, 8, 8, 8), (1, 8, 8, 8, 64, 16), (3, 5, 6, 7, 32, 32), (1, 2, 2, 256, 16, 8),
+                (2, 9, 10, 40, 16, 8), (1, 33, 33, 33, 8, 16), (2, 32, 32, 32, 64, 32), (6, 32, 32, 32, 32, 8)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EDGES)
+def test_narrow_kernels_match_plain_and_float64(cuda, B, D, H, W, C, N):
+    """bfloat16 shapes with a narrow plan, through autograd: the forward and
+    dw on the narrow kernels (their counters move, no tensor-core one does),
+    dx on the FFMA kernel. The forward against its plain version (2^-7 of the
+    largest output) and both against a float64 product (an f32 sum rounded
+    once to bf16, half an ulp of the largest entry, plus the sum's own error);
+    dw against its plain version (f32 sums in another order, 1e-5 of the
+    largest entry) and both against the float64 sum (DW_TOL_F64_REL); dw the
+    same bits from two calls; dx against its plain version."""
+    assert wgmma_plan(B, D, H, W, C, N) is None and narrow_plan(B, D, H, W, C, N) is not None
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, torch.bfloat16).requires_grad_()
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
+    g = torch.randn(B, D, H, W, N, generator=gen).to(cuda, torch.bfloat16)
+    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
+    y = conv_k2(x, w)
+    y.backward(g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1))  # a permuted view
+    y = y.detach()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1) and _wgmma_counts() == before_wg
+    assert _narrow_counts() == (before_nr[0] + 1, before_nr[1] + 1)
+    wb = w.detach().to(torch.bfloat16)
+    with torch.no_grad():
+        y_ref = conv_k2_reference(x.detach(), wb)
+        dx_ref, dw_ref = conv_k2_backward_reference(x.detach(), w.detach(), g)
+        again = conv_k2_dw(x.detach(), g), conv_k2_dw(x.detach(), g)
+        dw64 = _dw_float64(x.detach(), g)
+        xp = torch.nn.functional.pad(x.detach().double(), (0, 0) + (0, 1) * 3)
+        w64 = wb.double().reshape(8, C, N)
+        y64 = sum(xp[:, t >> 2:(t >> 2) + D, (t >> 1) & 1:((t >> 1) & 1) + H, t & 1:(t & 1) + W] @ w64[t]
+                  for t in range(8))
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (B, D, H, W, N)
+    assert float((y.float() - y_ref.float()).abs().max()) <= 2.0**-7 * float(y_ref.float().abs().max())
+    tol_y64 = (2.0**-8 + DW_TOL_F64_REL) * float(y64.abs().max())
+    assert float((y.double() - y64).abs().max()) <= tol_y64
+    assert float((y_ref.double() - y64).abs().max()) <= tol_y64
+    assert float((x.grad.float() - dx_ref.float()).abs().max()) <= 2.0**-7 * float(dx_ref.float().abs().max())
+    assert w.grad.dtype == torch.float32 and torch.equal(again[0], again[1]) and torch.equal(again[0], w.grad)
+    assert float((w.grad - dw_ref).abs().max()) <= 1e-5 * float(dw_ref.abs().max())
+    tol_dw64 = DW_TOL_F64_REL * float(dw64.abs().max())
+    assert float((w.grad.double() - dw64).abs().max()) <= tol_dw64
+    assert float((dw_ref.double() - dw64).abs().max()) <= tol_dw64
 
 
 def small_detector_config():

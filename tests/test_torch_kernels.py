@@ -3,11 +3,12 @@ that the port never imports JAX.
 
 On the CPU the wrapper runs its plain version (``conv_k2_reference``); the
 CUDA kernels themselves are checked on the card by tests/test_torch_cuda.py.
-What the tensor-core kernels rest on is checked here without a card: the plan
-that cuts a shape into boxes, tiles and splits, and a plain-tensor emulation
-of the box reads (zeros where a box leaves the tensor, below 0 for dx as
-past the end for the forward and dw) against the plain versions and the JAX
-package."""
+What the tensor-core kernels rest on is checked here without a card: the plans
+that cut a shape into boxes, tiles and splits (``wgmma_plan``,
+``narrow_plan``), and plain-tensor emulations of the box reads (zeros where a
+box leaves the tensor, below 0 for dx as past the end for the forward and dw;
+the narrow kernels' halo boxes and row table) against the plain versions and
+the JAX package."""
 
 import os
 import subprocess
@@ -23,12 +24,14 @@ from anytime3d_tpu.kernels.conv_k2 import conv_k2 as jax_conv_k2
 from anytime3d_tpu.kernels.conv_k2 import _conv_k2_bwd_impl, conv_k2_xla
 from anytime3d_tpu_torch.kernels import build
 from anytime3d_tpu_torch.kernels.conv_k2 import (
+    _narrow_for,
     conv_k2,
     conv_k2_backward_reference,
     conv_k2_dw_reference,
     conv_k2_dx_reference,
     conv_k2_reference,
     ffma_dw_split,
+    narrow_plan,
     wgmma_plan,
 )
 
@@ -370,6 +373,220 @@ def test_dx_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     assert (written == 1).all()
     # a stage is one tap and 64 channels n: 8N/64 stages a tile, each 64 deep
     assert 8 * N % 64 == 0 and 8 * N // 64 >= 8
+
+
+# ---- the narrow kernels (bf16, N = 8, 16, 32): their plan and their halo-box walk ----
+
+# (B, D, H, W, C, N) with a narrow plan: odd batches; 8^3, 32^3 (the detector decoder's last conv at a train
+# step's 32 decodes and the scene pass's 1024), 5x6x7 (one box the whole grid), 2x2x256 (a line longer than a
+# box) and 9x10x40, 33^3 (ragged last boxes along every axis); every N and C
+NARROW = [(3, 8, 8, 8, 8, 8), (1, 8, 8, 8, 64, 16), (3, 8, 8, 8, 32, 32), (32, 32, 32, 32, 32, 8),
+          (1024, 32, 32, 32, 32, 8), (2, 32, 32, 32, 64, 8), (3, 32, 32, 32, 16, 32), (5, 5, 6, 7, 16, 8),
+          (3, 5, 6, 7, 64, 32), (1, 2, 2, 256, 32, 16), (1, 2, 2, 256, 8, 8), (2, 9, 10, 40, 16, 8),
+          (1, 33, 33, 33, 8, 8)]
+# and without: float32, N outside {8, 16, 32}, C % 8 != 0 or C not one TMA box (24, 128), shapes a wgmma plan takes
+NARROW_NONE = [((3, 8, 8, 8, 32, 8), torch.float32), ((32, 32, 32, 32, 32, 4), torch.bfloat16),
+               ((32, 32, 32, 32, 32, 24), torch.bfloat16), ((2, 8, 8, 8, 64, 64), torch.bfloat16),
+               ((2, 5, 6, 7, 12, 8), torch.bfloat16), ((2, 5, 6, 7, 24, 8), torch.bfloat16),
+               ((2, 8, 8, 8, 128, 8), torch.bfloat16), ((2, 5, 6, 7, 136, 8), torch.bfloat16),
+               ((1, 16, 16, 16, 64, 64), torch.bfloat16), ((8, 16, 16, 16, 512, 64), torch.bfloat16)]
+
+
+def _narrow_boxes(B, D, H, W, box):
+    """Origins (b, d, h, w) of the boxes, in the kernels' order: w fastest."""
+    bw, bh, bd = box
+    return [(b, d, h, w) for b in range(B) for d in range(0, D, bd) for h in range(0, H, bh) for w in range(0, W, bw)]
+
+
+def _narrow_smem_of(box, C, N, dw):
+    """What ``nr::smem_bytes`` allots: 1024 bytes of alignment room, two stages (the halo box of x, 2C bytes a
+    voxel, and for dw the box of g, rows rounded up to 16), the forward's w fragments and its table of output
+    rows, the table of halo rows, two barriers; stages in whole KiB."""
+    bw, bh, bd = box
+    rows16 = -(-bw * bh * bd // 16) * 16
+    kib = lambda n: -(-n // 1024) * 1024  # noqa: E731
+    stage = kib((bw + 1) * (bh + 1) * (bd + 1) * 2 * C) + (kib(rows16 * 2 * N) if dw else 0)
+    return 1024 + 2 * stage + (0 if dw else 16 * C * N + 4 * rows16) + 4 * rows16 + 16
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW)
+def test_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
+    plan = narrow_plan(B, D, H, W, C, N)
+    assert plan is not None and wgmma_plan(B, D, H, W, C, N) is None
+    for box, boxes, smem, dw in ((plan.box, plan.boxes, plan.smem_bytes, False),
+                                 (plan.dw_box, plan.dw_boxes, plan.dw_smem_bytes, True)):
+        bw, bh, bd = box
+        # the halo box (one more along each axis) within the TMA's 256 a dimension, at most 1024 rows a box,
+        # an m-tile's 16 rows on one w-line unless the box spans all of W, one block an SM
+        assert max(bw, bh, bd) + 1 <= 256 and bw <= W and bh <= H and bd <= D and bw * bh * bd <= 1024
+        assert bw % 16 == 0 or bw == W
+        assert smem == _narrow_smem_of(box, C, N, dw) <= SMEM_PER_BLOCK
+        # the boxes of each batch item cover every voxel of its grid once (the last along an axis ragged)
+        origins = _narrow_boxes(B, D, H, W, box)
+        assert len(origins) == boxes
+        seen = np.zeros((D, H, W), np.int32)
+        for b, d, h, w in origins[:boxes // B]:
+            assert b == 0
+            seen[d:d + bd, h:h + bh, w:w + bw] += 1
+        assert (seen == 1).all()
+    # the forward: blocks i take boxes i, i + grid, ...: every box once
+    assert 1 <= plan.grid <= min(plan.boxes, 132)
+    walked = sorted(t for block in range(plan.grid) for t in range(block, plan.boxes, plan.grid))
+    assert walked == list(range(plan.boxes))
+    # dw: one wave, one block an SM; runs of whole boxes, every box once, none empty
+    splits, per = plan.dw_splits, plan.dw_boxes_per_split
+    assert 1 <= splits <= 132 and (splits - 1) * per < plan.dw_boxes <= splits * per
+    runs = [range(z * per, min(plan.dw_boxes, (z + 1) * per)) for z in range(splits)]
+    assert all(len(r) > 0 for r in runs) and [t for r in runs for t in r] == list(range(plan.dw_boxes))
+
+
+@pytest.mark.parametrize("shape,dtype", NARROW_NONE)
+def test_narrow_plan_is_none_where_the_kernels_do_not_apply(shape, dtype):
+    if dtype == torch.bfloat16:
+        assert narrow_plan(*shape) is None
+    else:  # the launcher gates the dtype, as it does wgmma_plan's: a float32 operand never asks for a plan
+        assert _narrow_for(torch.empty(*shape[:5], dtype=dtype), shape[5]) is None
+
+
+def _narrow_operand(x, plan_box, origin):
+    """The halo box of ``x`` (B,D,H,W,ch) at ``origin`` (b, d, h, w), (bd+1, bh+1, bw+1) voxels, zeros past
+    the grid (the TMA's fill), flattened to (voxels, ch) as it lies in shared memory (less the swizzle)."""
+    bw, bh, bd = plan_box
+    b, d, h, w = origin
+    _, D, H, W, ch = x.shape
+    out = torch.zeros(bd, bh, bw, ch, dtype=x.dtype)
+    part = x[b, d:d + bd, h:h + bh, w:w + bw]
+    out[:part.shape[0], :part.shape[1], :part.shape[2]] = part
+    return out.reshape(-1, ch)
+
+
+def _narrow_rows(box, C):
+    """The kernels' row table and tap offsets in voxels: row r of the box (w fastest) reads halo voxel
+    ``vrow[r] + toff[t]`` for tap t; rows past the box, up to a multiple of 16, read voxel 0."""
+    bw, bh, bd = box
+    rows = bw * bh * bd
+    r = torch.arange(-(-rows // 16) * 16)
+    vrow = torch.where(r < rows, ((r // bw // bh) * (bh + 1) + r // bw % bh) * (bw + 1) + r % bw, 0)
+    toff = [((t >> 2) * (bh + 1) + ((t >> 1) & 1)) * (bw + 1) + (t & 1) for t in range(8)]
+    return vrow, toff, rows
+
+
+def _narrow_a(halo, vrow, toff, C):
+    """A [rows16, 8C] of a box, depth (tap, c): each 8-channel piece of a k-step read from its row's halo voxel
+    shifted by the piece's tap, as the ldmatrix addresses pick it."""
+    pieces = []
+    for k in range(0, 8 * C, 8):
+        tap, c = k // C, k % C
+        pieces.append(halo[vrow + toff[tap], c:c + 8])
+    return torch.cat(pieces, dim=1)
+
+
+def _emulate_narrow_forward(x, w, plan):
+    """The narrow forward as its blocks walk it: block i takes boxes i, i + grid, ...; each reads its halo box
+    once, forms A from the row table and stores the rows that lie inside the grid. Returns y and how often each
+    output row was written."""
+    B, D, H, W, C = x.shape
+    N = w.shape[-1]
+    bw, bh, bd = plan.box
+    origins = _narrow_boxes(B, D, H, W, plan.box)
+    vrow, toff, rows = _narrow_rows(plan.box, C)
+    y = torch.zeros(B, D, H, W, N)
+    written = torch.zeros(B, D, H, W, dtype=torch.int32)
+    for block in range(plan.grid):
+        for box in range(block, plan.boxes, plan.grid):
+            b, d0, h0, w0 = origins[box]
+            halo = _narrow_operand(x, (bw + 1, bh + 1, bd + 1), origins[box])
+            acc = _narrow_a(halo, vrow, toff, C) @ w.reshape(8 * C, N)
+            for r in range(rows):
+                d, h, ww = d0 + r // bw // bh, h0 + r // bw % bh, w0 + r % bw
+                if d < D and h < H and ww < W:  # the ragged edge is not stored
+                    y[b, d, h, ww] = acc[r]
+                    written[b, d, h, ww] += 1
+    return y, written
+
+
+def _emulate_narrow_dw(x, g, plan):
+    """The narrow dw as its splits walk it: split z reduces the run of boxes z * per ..., each a halo box of x
+    and a box of g (zeros past the grid, and on the rows that round the box up to 16); the splits' partial sums
+    added in ascending order. Returns dw and how often each row m entered the sum."""
+    B, D, H, W, C = x.shape
+    N = g.shape[-1]
+    bw, bh, bd = plan.dw_box
+    origins = _narrow_boxes(B, D, H, W, plan.dw_box)
+    vrow, toff, rows = _narrow_rows(plan.dw_box, C)
+    part = torch.zeros(plan.dw_splits, 8 * C, N)
+    seen = torch.zeros(B, D, H, W, dtype=torch.int64)
+    for z in range(plan.dw_splits):
+        for box in range(z * plan.dw_boxes_per_split, min(plan.dw_boxes, (z + 1) * plan.dw_boxes_per_split)):
+            b, d0, h0, w0 = origins[box]
+            halo = _narrow_operand(x, (bw + 1, bh + 1, bd + 1), origins[box])
+            gbox = torch.zeros(len(vrow), N)
+            gbox[:rows] = _narrow_operand(g, plan.dw_box, origins[box])
+            part[z] += _narrow_a(halo, vrow, toff, C).T @ gbox
+            seen[b, d0:d0 + bd, h0:h0 + bh, w0:w0 + bw] += 1
+    dw = part[0].clone()
+    for z in range(1, plan.dw_splits):
+        dw += part[z]
+    return dw.reshape(2, 2, 2, C, N), seen
+
+
+# small grids: several boxes a block (the walk's stride), whole-grid boxes, a line longer than a box, ragged
+# boxes along every axis; every N and every C
+NARROW_EMULATED = [(3, 8, 8, 8, 8, 8), (1, 8, 8, 8, 64, 16), (3, 5, 6, 7, 32, 32), (1, 2, 2, 256, 16, 8),
+                   (2, 9, 10, 40, 16, 8), (1, 33, 33, 33, 8, 16)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED)
+def test_narrow_halo_reads_give_the_forward(B, D, H, W, C, N):
+    """The halo box zero-filled past the grid is SAME padding (0, 1), and the row table with the taps' offsets
+    gathers every shifted row: the emulated walk writes every output once and equals the plain version and
+    ``conv_k2_xla`` (f32, summation order only: 1e-5 of the largest output)."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
+    w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
+    plan = narrow_plan(B, D, H, W, C, N, sms=2)  # 2 blocks: each walks several boxes where there are
+    y, written = _emulate_narrow_forward(torch.from_numpy(x), torch.from_numpy(w), plan)
+    assert (written == 1).all()
+    ref = conv_k2_reference(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(y.numpy(), ref, atol=tol, rtol=0)
+    np.testing.assert_allclose(y.numpy(), np.asarray(conv_k2_xla(jnp.asarray(x), jnp.asarray(w))), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED)
+def test_narrow_halo_reads_give_dw(B, D, H, W, C, N):
+    """The emulated dw walk (halo boxes of x, boxes of g, splits summed in order) reduces every row once and
+    equals ``conv_k2_dw_reference`` and ``_conv_k2_bwd_impl``'s dw: f32, summation order only, 1e-5 of the
+    largest entry."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
+    g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
+    plan = narrow_plan(B, D, H, W, C, N, sms=2)
+    dw, seen = _emulate_narrow_dw(torch.from_numpy(x), torch.from_numpy(g), plan)
+    assert (seen == 1).all()
+    ref = conv_k2_dw_reference(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(dw.numpy(), ref, atol=tol, rtol=0)
+    w = np.zeros((2, 2, 2, C, N), np.float32)
+    jax_dw = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))[1])
+    np.testing.assert_allclose(dw.numpy(), jax_dw, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("row_bytes", [16, 32, 64, 128])
+def test_swizzled_rows_of_an_ldmatrix_fall_in_distinct_banks(row_bytes):
+    """The narrow kernels' ``swizzle`` (the TMA's of a row's width: its 16-byte pieces XOR bits 7.. of the
+    offset) keeps each piece in its row, and puts the same piece of any 8 consecutive rows (an ldmatrix
+    phase, from any first row: a tap moves it by one) into 8 different 16-byte groups of the 32 banks."""
+    mask = row_bytes // 16 - 1
+
+    def swizzle(off):
+        return off ^ (((off >> 7) & mask) << 4)
+
+    for first in range(64):
+        for piece in range(row_bytes // 16):
+            offs = [swizzle(v * row_bytes + 16 * piece) for v in range(first, first + 8)]
+            assert all(o // row_bytes == v for o, v in zip(offs, range(first, first + 8)))
+            assert len({o % 128 // 16 for o in offs}) == 8
 
 
 # ---- the FFMA dw: its splits and its loaders' walk ----
