@@ -15,7 +15,8 @@ per missing rate (``evaluation/dump.py``).
 flat ``.npz`` (``convert.load_flax_npz``); without either the model holds
 seeded random weights (``--seed``). ``--data synthetic`` evaluates on
 procedural voxels (the eval split of ``cli.train``), a path on the ModelNet
-test split under it, sent as packed bits. The device defaults to ``cuda``; when
+test split under it, sent as packed bits; an image config's renders are
+``--image-size`` pixels square (64 by default). The device defaults to ``cuda``; when
 CUDA is absent the command fails rather than run on the CPU.
 """
 
@@ -37,6 +38,7 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--batches", type=int, default=8)
     p.add_argument("--rates", default="0.3,0.5,0.7,0.9")
+    p.add_argument("--image-size", type=int, default=64, help="side of the square renders an image config reads")
     p.add_argument("--latents-out", default=None, help="write per-class mean latents (category_vectors) to .npy")
     p.add_argument("--dump", default=None, help="dump GT/pred voxel grids per missing rate to this dir")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute dtype (float32 parameters)")
@@ -73,8 +75,9 @@ def main(argv=None):
         model.load_state_dict(restore_params(args.ckpt, model.state_dict()))
     model = model.to(device).eval()
     _, loader = build_loaders(args, cfg)
+    image_size = (args.image_size, args.image_size) if cfg.encoder == "image" else None
     batch_fn = build_batch_fn(loader, cfg, args.batch_size, packed=True,
-                              native=True if device.type == "cuda" else None)
+                              native=True if device.type == "cuda" else None, image_size=image_size)
 
     if args.latents_out:
         vecs = category_vectors(model, batch_fn, num_classes=cfg.category_dim or 40, num_batches=args.batches)

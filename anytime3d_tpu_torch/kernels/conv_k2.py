@@ -6,12 +6,13 @@ convolutions of the flagship model (the blocked encoder head and decoder
 tail at 16^3) are this operation. ``csrc/conv_k2.cu`` says how the kernels
 are formed and what bounds them. There are three designs: bfloat16 operands
 whose shape has a plan (:func:`wgmma_plan`) take the tensor-core kernels of
-``csrc/conv_k2_wgmma.cuh`` in the forward, in dx and in dw; else bfloat16
-operands of a narrow output (N = 8, 16 or 32) whose shape has a narrow plan
-(:func:`narrow_plan`) take the ``mma.sync`` kernels of
-``csrc/conv_k2_narrow.cuh`` in the forward and in dw (dx stays FFMA); float32
-and the rest take the FFMA kernels. The choice is made from shape and dtype
-before the launch, never by catching a failure.
+``csrc/conv_k2_wgmma.cuh`` in the forward, in dx and in dw; else operands of
+a narrow output (N = 8, 16 or 32) whose shape has a narrow plan
+(:func:`narrow_plan`) take the halo-box kernels of ``csrc/conv_k2_narrow.cuh``:
+in bfloat16 the forward, dw and dx (dx where the forward from N to C
+channels has a plan) on ``mma.sync``, in float32 the forward on FFMA; the
+rest take the FFMA kernels. The choice is made from shape and dtype before
+the launch, never by catching a failure.
 
 The forward, dx and dw are the custom operators ``anytime3d_torch::conv_k2``,
 ``::conv_k2_dx`` and ``::conv_k2_dw`` (``torch.library``): a CUDA
@@ -93,11 +94,12 @@ def _lib() -> ctypes.CDLL:
     lib.conv_k2_forward_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
     lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
     lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
-    lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
+    lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
+    lib.conv_k2_backward_input_narrow.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
     lib.conv_k2_backward_weight_narrow.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
     for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
                lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma,
-               lib.conv_k2_forward_narrow, lib.conv_k2_backward_weight_narrow):
+               lib.conv_k2_forward_narrow, lib.conv_k2_backward_input_narrow, lib.conv_k2_backward_weight_narrow):
         fn.restype = i32
     lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p
@@ -216,57 +218,64 @@ def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -
 _NR_ROWS = 1024
 _NR_EXTENT = 255
 _NR_ALIGN = 1024
-_NR_CHANNELS = (8, 16, 32, 64)  # C: one TMA box of all channels, rows of 16 to 128 bytes
+_NR_CHANNELS = (8, 16, 32, 64)  # C: one TMA box of all channels
+_NR_ROW_BYTES = 128  # a voxel's channels in at most 128 bytes (float32: C <= 32)
 _NR_OUTPUTS = (8, 16, 32)  # N: 1, 2 or 4 mma n8 tiles
+_NR_ESIZE = {torch.bfloat16: 2, torch.float32: 4}
 
 
 @dataclasses.dataclass(frozen=True)
 class NarrowPlan:
-    """How the narrow kernels cut one bfloat16 ``conv_k2`` shape.
+    """How the narrow kernels cut one ``conv_k2`` shape.
 
     Forward: a block computes boxes of ``box`` (w, h, d) output voxels of one
     batch item, reading each box grown by one voxel along w, h and d (its halo)
     in one TMA copy; the grid's ``boxes`` (w fastest, the last along each axis
     ragged) are walked by ``grid`` blocks, block i taking boxes i, i + grid,
     .... ``smem_bytes`` is its dynamic shared memory (two stages of the halo,
-    w's fragments, the row table, barriers), which the launcher holds to its
-    own arithmetic.
+    w, the row table, barriers), which the launcher holds to its own
+    arithmetic. bfloat16 dx is cut by the forward plan of the shape as a
+    forward from N to C channels, ``narrow_plan(B, D, H, W, N, C)``.
 
-    dw: boxes of ``dw_box``, ``dw_boxes`` of them, each a halo box of x and a
-    box of g; ``dw_splits`` blocks reduce runs of ``dw_boxes_per_split``
-    consecutive boxes (the last may be shorter, none is empty) in
-    ``dw_smem_bytes``.
+    dw (bfloat16; None for float32, whose dw stays on the FFMA kernel): boxes
+    of ``dw_box``, ``dw_boxes`` of them, each a halo box of x and a box of g;
+    ``dw_splits`` blocks reduce runs of ``dw_boxes_per_split`` consecutive
+    boxes (the last may be shorter, none is empty) in ``dw_smem_bytes``.
     """
 
     box: tuple[int, int, int]
     boxes: int
     grid: int
     smem_bytes: int
-    dw_box: tuple[int, int, int]
-    dw_boxes: int
-    dw_splits: int
-    dw_boxes_per_split: int
-    dw_smem_bytes: int
+    dw_box: tuple[int, int, int] | None
+    dw_boxes: int | None
+    dw_splits: int | None
+    dw_boxes_per_split: int | None
+    dw_smem_bytes: int | None
 
 
 def _round_up(v: int, a: int) -> int:
     return -(-v // a) * a
 
 
-def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool) -> int:
-    """Dynamic shared memory of a narrow launch (``nr::smem_bytes``):
-    alignment room, two stages (the halo box of x; for dw also the box of g,
-    its rows rounded up to 16), the forward's w fragments and table of output
-    rows, the table of halo rows, two barriers."""
+def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool, esize: int = 2) -> int:
+    """Dynamic shared memory of a narrow launch (``nr::smem_bytes``) with
+    elements of ``esize`` bytes: alignment room, two stages (the halo box of
+    x; for dw also the box of g, its rows rounded up to 16), the forward's w
+    (8C x N) and table of output rows, the table of halo rows, two barriers;
+    and where the float32 forward splits the taps over two halves of the
+    block (a box of at most 512 rows), the second half's partial sums."""
     bw, bh, bd = box
-    rows16 = _round_up(bw * bh * bd, 16)
-    stage = _round_up((bw + 1) * (bh + 1) * (bd + 1) * 2 * C, _NR_ALIGN)
+    rows = bw * bh * bd
+    rows16 = _round_up(rows, 16)
+    stage = _round_up((bw + 1) * (bh + 1) * (bd + 1) * esize * C, _NR_ALIGN)
     if dw:
-        stage += _round_up(rows16 * 2 * N, _NR_ALIGN)
-    return _NR_ALIGN + 2 * stage + (0 if dw else 16 * C * N + 4 * rows16) + 4 * rows16 + 16
+        stage += _round_up(rows16 * esize * N, _NR_ALIGN)
+    split_sums = 4 * rows * N if esize == 4 and rows <= _NR_ROWS // 2 else 0
+    return _NR_ALIGN + 2 * stage + (0 if dw else 8 * C * N * esize + 4 * rows16) + 4 * rows16 + 16 + split_sums
 
 
-def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool) -> tuple[int, int, int] | None:
+def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool, esize: int = 2) -> tuple[int, int, int] | None:
     """The (w, h, d) extents of the box that reads the fewest halo voxels a
     row (ties: more rows), among boxes of at most 1024 rows whose extents are
     at most 255 and the grid's, w a multiple of 16 (an m-tile's 16 rows on
@@ -283,7 +292,7 @@ def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool) -> tuple[int, 
         for bh in extents(H, 1):
             for bw in extents(W, 16):
                 rows = bw * bh * bd
-                if rows > _NR_ROWS or _narrow_smem((bw, bh, bd), C, N, dw) > _WG_SMEM_MAX:
+                if rows > _NR_ROWS or _narrow_smem((bw, bh, bd), C, N, dw, esize) > _WG_SMEM_MAX:
                     continue
                 key = ((bw + 1) * (bh + 1) * (bd + 1) / rows, -rows)
                 if best_key is None or key < best_key:
@@ -297,25 +306,35 @@ def _boxes(B: int, D: int, H: int, W: int, box: tuple[int, int, int]) -> int:
 
 
 @functools.lru_cache(maxsize=256)  # a model asks for the same few shapes at every step
-def narrow_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> NarrowPlan | None:
-    """The narrow kernels' plan for bfloat16 ``x`` (B,D,H,W,C) and ``w``
-    (2,2,2,C,N), or None where they do not apply: N of 8, 16 or 32, C of 8,
-    16, 32 or 64 (a multiple of 8, one TMA box of all channels, at most 4 m16
+def narrow_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
+                dtype: torch.dtype = torch.bfloat16) -> NarrowPlan | None:
+    """The narrow kernels' plan for ``x`` (B,D,H,W,C) of ``dtype`` (bfloat16
+    or float32) and ``w`` (2,2,2,C,N), or None where they do not apply: N of
+    8, 16 or 32, C of 8, 16, 32 or 64 (a multiple of 8, one TMA box of all
+    channels in rows of at most 128 bytes, so float32 C <= 32; at most 4 m16
     tiles of dw's accumulators a warp), and never where :func:`wgmma_plan`
-    applies. Pure arithmetic; ``sms`` is the card's count of
-    multiprocessors."""
-    if (C not in _NR_CHANNELS or N not in _NR_OUTPUTS or min(B, D, H, W) < 1
-            or B * D * H * W >= 2**31 or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None):
+    applies. float32 plans have no dw part. Pure arithmetic; ``sms`` is the
+    card's count of multiprocessors."""
+    esize = _NR_ESIZE.get(dtype)
+    if (esize is None or C not in _NR_CHANNELS or esize * C > _NR_ROW_BYTES or N not in _NR_OUTPUTS
+            or min(B, D, H, W) < 1 or B * D * H * W >= 2**31 or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None):
         return None
-    box, dw_box = _narrow_box(D, H, W, C, N, False), _narrow_box(D, H, W, C, N, True)
-    if box is None or dw_box is None:
+    box = _narrow_box(D, H, W, C, N, False, esize)
+    if box is None:
         return None
-    boxes, dw_boxes = _boxes(B, D, H, W, box), _boxes(B, D, H, W, dw_box)
+    boxes = _boxes(B, D, H, W, box)
+    plan = NarrowPlan(box=box, boxes=boxes, grid=min(boxes, sms), smem_bytes=_narrow_smem(box, C, N, False, esize),
+                      dw_box=None, dw_boxes=None, dw_splits=None, dw_boxes_per_split=None, dw_smem_bytes=None)
+    if esize != 2:
+        return plan
+    dw_box = _narrow_box(D, H, W, C, N, True)
+    if dw_box is None:
+        return None
+    dw_boxes = _boxes(B, D, H, W, dw_box)
     # dw: one wave of blocks, one an SM, each a run of whole boxes
     per_split = -(-dw_boxes // min(dw_boxes, sms))
-    return NarrowPlan(box=box, boxes=boxes, grid=min(boxes, sms), smem_bytes=_narrow_smem(box, C, N, False),
-                      dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
-                      dw_boxes_per_split=per_split, dw_smem_bytes=_narrow_smem(dw_box, C, N, True))
+    return dataclasses.replace(plan, dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
+                               dw_boxes_per_split=per_split, dw_smem_bytes=_narrow_smem(dw_box, C, N, True))
 
 
 def _sms(x: torch.Tensor) -> int:
@@ -330,10 +349,10 @@ def _plan_for(x: torch.Tensor, N: int) -> WgmmaPlan | None:
 
 
 def _narrow_for(x: torch.Tensor, N: int) -> NarrowPlan | None:
-    """The narrow plan of a CUDA operand, or None: bfloat16 only."""
-    if x.dtype != torch.bfloat16:
+    """The narrow plan of a CUDA operand (bfloat16 or float32), or None."""
+    if x.dtype not in _NR_ESIZE:
         return None
-    return narrow_plan(*x.shape, N, sms=_sms(x))
+    return narrow_plan(*x.shape, N, sms=_sms(x), dtype=x.dtype)
 
 
 def _check_launch(what: str, rc: int) -> None:
@@ -390,7 +409,7 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     elif narrow is not None:
         _check_launch("conv_k2 (narrow)", _lib().conv_k2_forward_narrow(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
-            narrow.smem_bytes, x.device.index, _stream(x)))
+            narrow.smem_bytes, _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
         conv_k2.launches_narrow += 1
     else:
         _check_launch("conv_k2", _lib().conv_k2_forward(
@@ -417,16 +436,10 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     B, D, H, W, N = g.shape
     C = w.shape[3]
     dx = torch.empty((B, D, H, W, C), dtype=g.dtype, device=g.device)
+    # both plans are those of the forward from N to C channels
     plan = _plan_for(g, C)
-    if plan is None:
-        # (2,2,2,N,C): the depth of dx is (tap, n). Plumbing on <= 2.1 M elements; no
-        # flip, the kernel's mirrored shift already pairs tap t with w[t]
-        wt = w.to(g.dtype).transpose(3, 4).contiguous()
-        _check_operands("conv_k2 dx", C, N, g, wt, dx, depth_is_n=True)
-        _check_launch("conv_k2 dx", _lib().conv_k2_backward_input(
-            g.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, D, H, W, C, N,
-            _DTYPE_CODES[g.dtype], g.device.index, _stream(g)))
-    else:
+    narrow = None if plan is not None or g.dtype != torch.bfloat16 else _narrow_for(g, C)
+    if plan is not None:
         # w as it lies: its (c, n) boxes are the K-major B tiles of dx
         wc = w.to(g.dtype).contiguous()
         _check_operands("conv_k2 dx", C, N, g, wc, dx, depth_is_n=True)
@@ -434,6 +447,23 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             g.data_ptr(), wc.data_ptr(), dx.data_ptr(), B, D, H, W, C, N, *plan.box, plan.bm, plan.bn, plan.stages,
             plan.grid, plan.smem_bytes, plan.tiles, g.device.index, _stream(g)))
         conv_k2.launches_dx_wgmma += 1
+    elif narrow is not None:
+        # (2,2,2,N,C), w'[s] = w[7 - s]^T: the forward's weights over g read one voxel lower.
+        # Plumbing on <= 2K elements
+        wm = w.to(g.dtype).flip(0, 1, 2).transpose(3, 4).contiguous()
+        _check_operands("conv_k2 dx", C, N, g, wm, dx, depth_is_n=True)
+        _check_launch("conv_k2 dx (narrow)", _lib().conv_k2_backward_input_narrow(
+            g.data_ptr(), wm.data_ptr(), dx.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
+            narrow.smem_bytes, g.device.index, _stream(g)))
+        conv_k2.launches_dx_narrow += 1
+    else:
+        # (2,2,2,N,C): the depth of dx is (tap, n). Plumbing on <= 2.1 M elements; no
+        # flip, the kernel's mirrored shift already pairs tap t with w[t]
+        wt = w.to(g.dtype).transpose(3, 4).contiguous()
+        _check_operands("conv_k2 dx", C, N, g, wt, dx, depth_is_n=True)
+        _check_launch("conv_k2 dx", _lib().conv_k2_backward_input(
+            g.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, D, H, W, C, N,
+            _DTYPE_CODES[g.dtype], g.device.index, _stream(g)))
     conv_k2.launches_dx += 1
     return dx
 
@@ -447,10 +477,10 @@ def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx (B,D,H,W,C), in ``g``'s dtype, of ``conv_k2`` from the output
     gradient ``g`` (B,D,H,W,N) and ``w`` (2,2,2,C,N): the op
     ``anytime3d_torch::conv_k2_dx``. CUDA tensors go through a kernel (adding
-    one to ``conv_k2.launches_dx``, and to ``conv_k2.launches_dx_wgmma`` where
-    it is the tensor-core kernel: bfloat16 whose shape, as a forward from N to
-    C, has a plan) or the call raises; CPU tensors through
-    :func:`conv_k2_dx_reference`."""
+    one to ``conv_k2.launches_dx``, and to ``conv_k2.launches_dx_wgmma`` or
+    ``conv_k2.launches_dx_narrow`` where it is the tensor-core or the narrow
+    kernel: bfloat16 whose shape, as a forward from N to C, has that plan) or
+    the call raises; CPU tensors through :func:`conv_k2_dx_reference`."""
     return _conv_k2_dx_op(g, w)
 
 
@@ -494,7 +524,7 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     B, D, H, W, C = x.shape
     N = g.shape[-1]
     plan = _plan_for(x, N)
-    narrow = None if plan is not None else _narrow_for(x, N)
+    narrow = None if plan is not None or x.dtype != torch.bfloat16 else _narrow_for(x, N)
     if plan is not None:
         splits = plan.dw_grid[2]
     elif narrow is not None:
@@ -568,8 +598,9 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``conv_k2.launches_dx`` or ``conv_k2.launches_dw``; a launch of a
     tensor-core kernel also to ``conv_k2.launches_wgmma`` (forward),
     ``conv_k2.launches_dx_wgmma`` or ``conv_k2.launches_dw_wgmma``, and of a
-    narrow kernel to ``conv_k2.launches_narrow`` (forward) or
-    ``conv_k2.launches_dw_narrow``."""
+    narrow kernel to ``conv_k2.launches_narrow`` (forward, bfloat16 or
+    float32), ``conv_k2.launches_dx_narrow`` or ``conv_k2.launches_dw_narrow``
+    (bfloat16)."""
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:4]) != (2, 2, 2, x.shape[-1]):
         raise ValueError(f"conv_k2 takes x (B,D,H,W,C) and w (2,2,2,C,N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:
@@ -590,4 +621,5 @@ conv_k2.launches_wgmma = 0
 conv_k2.launches_dx_wgmma = 0
 conv_k2.launches_dw_wgmma = 0
 conv_k2.launches_narrow = 0
+conv_k2.launches_dx_narrow = 0
 conv_k2.launches_dw_narrow = 0

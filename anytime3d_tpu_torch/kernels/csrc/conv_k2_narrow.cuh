@@ -1,12 +1,13 @@
-// conv_k2 in bfloat16 for narrow outputs (N = 8, 16 or 32) on Hopper: the
-// forward and dw, on mma.sync. Included by conv_k2.cu, which states what the
-// operation computes; the barrier and TMA helpers are conv_k2_wgmma.cuh's.
+// conv_k2 for narrow outputs (N = 8, 16 or 32) on Hopper: in bfloat16 the
+// forward, dx and dw on mma.sync, in float32 the forward on FFMA. Included by
+// conv_k2.cu, which states what the operation computes; the barrier and TMA
+// helpers are conv_k2_wgmma.cuh's.
 //
-// Replaces, for bfloat16 operands whose shape has a narrow plan (see
+// Replaces, for operands whose shape has a narrow plan (see
 // kernels/conv_k2.py::narrow_plan), the forward of the TPU kernel
-// anytime3d_tpu/kernels/conv_k2.py::_conv_k2_pallas (:129-169) and the dw
-// product of its backward (_conv_k2_bwd_impl, :181-205). dx of these shapes
-// stays on the FFMA kernel.
+// anytime3d_tpu/kernels/conv_k2.py::_conv_k2_pallas (:129-169) and, in
+// bfloat16, the dx and dw products of its backward (_conv_k2_bwd_impl,
+// :172-205). float32 dx and dw stay on the FFMA kernels.
 //
 // What bounds them on this card: bytes. At the detector decoder's last conv
 // (32 decodes of 32^3, C = 32 -> N = 8) the forward reads 67 MB of x and
@@ -40,6 +41,12 @@
 //   as mma fragments (one 8-byte read a lane a k-step and n8 tile). The
 //   accumulators are rounded once to bf16 and stored from registers; rows
 //   past the grid's edge (a ragged last box) are not stored.
+//   dx: the forward's kernel (its DX instance) over g. dx[p, c] =
+//   sum_s sum_n g[p - 1 + s, n] w'[s, n, c] with w'[s] = w[7 - s]^T (each bit
+//   of the tap flipped): a forward from N to C channels whose halo box starts
+//   one voxel lower along d, h and w, where the TMA's zeros at coordinate -1
+//   are the low-edge mask. The wrapper lays out w' ([8N, C]) on its 2K
+//   elements; the row table, tap offsets, ldmatrix and store are the forward's.
 //   dw: dw [8C, N] = A [8C, rows] g [rows, N] over the box's rows. g's box is
 //   copied as x's is (no halo; its rows past the grid are zeros, and so are
 //   the rows that round the box up to 16). Both operands lie [row][channel],
@@ -56,6 +63,22 @@
 // - dw's splits write partial [8C, N] sums to a workspace, which
 //   conv_k2_dw_reduce_kernel adds in ascending order: no atomics, the same
 //   bits every run.
+// - float32 forward (conv_k2_narrow_fwd_f32_kernel): exact FFMA, no TF32. At
+//   the detector's shape it is bound by operations (4.3 GFLOP against 84 MB),
+//   and the FFMA tile it replaces computed 64 columns for 8. The same box
+//   walk, copied by the TMA as float32 rows of 4C bytes (32 to 128: C = 8, 16,
+//   32) under the swizzle of that width, so that 8 lanes reading one 16-byte
+//   piece of 8 consecutive voxels hit 8 bank groups. Two stages of 4 x 8 x 16
+//   outputs at C = 32 take 2 x 98 KB. A thread owns 4 rows of the box and all
+//   N columns; w (8C x N, 8 KB at C = 32) lies in shared memory and is read
+//   as float4 broadcasts. A k-step of 4 channels reads one float4 of each row
+//   and N float4 of w for 16 N FFMA: the operands as vectors and broadcasts,
+//   nothing else in the inner loop. Shared memory's 128 bytes a clock are
+//   then the other limit beside the FFMA rate: at N = 8 the rows' float4 take
+//   half of it. Where the box has at most 512 rows (C = 32) the block's two
+//   halves each take 4 of the 8 taps for all rows, so w is read once for 4
+//   rows, not 2; the second half's partial sums meet the first's in shared
+//   memory. A row's result is stored as N/4 float4.
 
 #pragma once
 
@@ -80,24 +103,27 @@ constexpr uint32_t ALIGN = 1024;    // stage alignment: the longest swizzle's pe
 // out on the host and passed by value.
 struct Geom {
   int D, H, W, C;
+  int row;              // bytes of a voxel's C channels: 2C (bfloat16) or 4C (float32)
   int bw, bh, bd;       // output box
   int nw, nh, nd;       // boxes along w, h and d, the last ones ragged
   int boxes;            // B * nd * nh * nw
   int rows, rows16;     // bw * bh * bd, and that rounded up to 16
-  uint32_t halo_bytes;  // (bw + 1)(bh + 1)(bd + 1) * 2C: one TMA copy of x
+  uint32_t halo_bytes;  // (bw + 1)(bh + 1)(bd + 1) * row: one TMA copy of x
   uint32_t g_bytes;     // rows * 2N: one TMA copy of g (dw)
   uint32_t stage_x;     // halo_bytes rounded up to ALIGN
   uint32_t stage_g;     // rows16 * 2N rounded up to ALIGN (dw; 0 for the forward)
+  int split;            // the float32 forward's parts of the taps: 2 where rows <= 2 THREADS, else 1
 };
 
 __host__ __device__ constexpr uint32_t round_up(uint32_t v, uint32_t a) { return (v + a - 1) / a * a; }
 
 // Dynamic shared memory of a launch: alignment room, two stages, the forward's
-// w fragments (16 C N bytes) and its table of output rows, the table of halo
-// rows, two barriers.
+// w (8C x N elements: 8 N row bytes) and its table of output rows, the table
+// of halo rows, two barriers, and where the float32 forward splits the taps
+// the partial sums of the second part (rows x N floats).
 __host__ __device__ inline size_t smem_bytes(const Geom& g, int N, bool dw) {
-  return ALIGN + 2 * static_cast<size_t>(g.stage_x + g.stage_g) + (dw ? 0 : 16 * g.C * N + 4 * g.rows16) +
-         4 * g.rows16 + 16;
+  return ALIGN + 2 * static_cast<size_t>(g.stage_x + g.stage_g) + (dw ? 0 : 8 * N * g.row + 4 * g.rows16) +
+         4 * g.rows16 + 16 + (g.split > 1 ? 4 * g.rows * N : 0);
 }
 
 // Byte offset `off` of a buffer of rows of `mask` + 1 16-byte pieces, as the
@@ -146,7 +172,7 @@ __device__ __forceinline__ void box_origin(const Geom& g, int box, int& w0, int&
 
 // Byte offset of tap t's halo voxel from an output voxel's own.
 __device__ __forceinline__ int tap_offset(const Geom& g, int t) {
-  return (((t >> 2) * (g.bh + 1) + ((t >> 1) & 1)) * (g.bw + 1) + (t & 1)) * 2 * g.C;
+  return (((t >> 2) * (g.bh + 1) + ((t >> 1) & 1)) * (g.bw + 1) + (t & 1)) * g.row;
 }
 
 // The tables of the box's rows, the same for every box: vrow[r] = byte
@@ -158,7 +184,7 @@ __device__ __forceinline__ void fill_rows(const Geom& g, int* vrow, int* loc) {
     int v = 0, l = -1;
     if (r < g.rows) {
       const int rw = r % g.bw, t = r / g.bw, rh = t % g.bh, rd = t / g.bh;
-      v = ((rd * (g.bh + 1) + rh) * (g.bw + 1) + rw) * 2 * g.C;
+      v = ((rd * (g.bh + 1) + rh) * (g.bw + 1) + rw) * g.row;
       l = rd << 20 | rh << 10 | rw;
     }
     vrow[r] = v;
@@ -174,13 +200,15 @@ __device__ __forceinline__ void init_barriers(uint32_t bar) {
   }
 }
 
-// Forward: y [B, D, H, W, N] from x [B, D, H, W, C] and w [8C, N] (N = 8 NT).
+// Forward: y [B, D, H, W, N] from x [B, D, H, W, C] and w [8C, N] (N = 8 NT);
+// DX: dx [B, D, H, W, N] from g [B, D, H, W, C] and w' [8C, N], the halo box
+// one voxel lower (C and N here are the depth's and the output's channels).
 // Block i computes boxes i, i + gridDim.x, ... (gridDim.x <= boxes). A warp
 // takes m-tiles (16 rows of the box) warp, warp + 8, ..., MW of them a pass,
 // which share one read of w's fragments a k-step. A k-step issues all its
 // ldmatrix first and then its products, so that the loads' latencies overlap
 // instead of each product waiting on its own load.
-template <int NT>
+template <int NT, bool DX>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_k2_narrow_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __nv_bfloat16* __restrict__ w,
                           __nv_bfloat16* __restrict__ y, const Geom g) {
@@ -191,9 +219,9 @@ conv_k2_narrow_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __nv_
   const uint32_t base = round_up(raw, ALIGN);
   uint8_t* const base_p = smem_raw + (base - raw);
   uint2* const wfrag = reinterpret_cast<uint2*>(base_p + 2 * g.stage_x);
-  int* const vrow = reinterpret_cast<int*>(base_p + 2 * g.stage_x + 16 * g.C * N);
+  int* const vrow = reinterpret_cast<int*>(base_p + 2 * g.stage_x + 8 * N * g.row);
   int* const loc = vrow + g.rows16;
-  const uint32_t bar = base + 2 * g.stage_x + 16 * g.C * N + 8 * g.rows16;
+  const uint32_t bar = base + 2 * g.stage_x + 8 * N * g.row + 8 * g.rows16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grid = gridDim.x, n_boxes = (g.boxes - static_cast<int>(blockIdx.x) + grid - 1) / grid;
 
@@ -201,8 +229,9 @@ conv_k2_narrow_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __nv_
   auto issue = [&](int s, int box) {  // thread 0: the halo box of `box` into stage s
     int w0, h0, d0, b;
     box_origin(g, box, w0, h0, d0, b);
+    const int lo = DX ? 1 : 0;  // dx reads g one voxel lower; below 0 the TMA writes zeros
     wg::mbar_arrive_expect_tx(bar + 8 * s, g.halo_bytes);
-    wg::tma_load_5d(base + s * g.stage_x, mx, bar + 8 * s, 0, w0, h0, d0, b);
+    wg::tma_load_5d(base + s * g.stage_x, mx, bar + 8 * s, 0, w0 - lo, h0 - lo, d0 - lo, b);
   };
 
   init_barriers(bar);
@@ -223,7 +252,7 @@ conv_k2_narrow_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __nv_
   fill_rows(g, vrow, loc);
   __syncthreads();
 
-  const uint32_t mask = 2 * g.C / 16 - 1;
+  const uint32_t mask = g.row / 16 - 1;
   const int log_c = __ffs(g.C) - 1;  // C is a power of two
   const int mtiles = g.rows16 / 16;
   // this lane's ldmatrix row: row lane % 16 of an m-tile, channels 8 (lane / 16) .. of a k-step
@@ -284,6 +313,150 @@ conv_k2_narrow_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __nv_
   }
 }
 
+// Forward in float32: y [B, D, H, W, N] from x [B, D, H, W, C] and w [8C, N]
+// (N = 8 NT), each product an FFMA. The walk, stages and tables are the bf16
+// forward's. The block is g.split parts of THREADS / split threads, part p
+// taking taps [8p / split, 8(p + 1) / split); a thread owns rows lt + q
+// THREADS / split (q < RT) of the box, lt its index in its part, and all N
+// columns: 8 consecutive lanes read 8 consecutive voxels, conflict-free under
+// the swizzle. Rows past the box compute on voxel 0 and are not stored.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const float* __restrict__ w,
+                              float* __restrict__ y, const Geom g) {
+  constexpr int N = 8 * NT;
+  constexpr int NV = N / 4;  // float4 a row of w or y
+  constexpr int RT = MAX_ROWS / THREADS;  // rows a thread: split * RT * (THREADS / split) covers any box
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = round_up(raw, ALIGN);
+  uint8_t* const base_p = smem_raw + (base - raw);
+  float4* const ws = reinterpret_cast<float4*>(base_p + 2 * g.stage_x);
+  int* const vrow = reinterpret_cast<int*>(base_p + 2 * g.stage_x + 8 * N * g.row);
+  int* const loc = vrow + g.rows16;
+  const uint32_t bar = base + 2 * g.stage_x + 8 * N * g.row + 8 * g.rows16;
+  float4* const part_sum = reinterpret_cast<float4*>(base_p + 2 * g.stage_x + 8 * N * g.row + 8 * g.rows16 + 16);
+  const int tid = threadIdx.x;
+  const int grid = gridDim.x, n_boxes = (g.boxes - static_cast<int>(blockIdx.x) + grid - 1) / grid;
+  const int part_threads = THREADS / g.split, part = tid / part_threads, lt = tid % part_threads;
+  const int tap0 = 8 * part / g.split, tap1 = 8 * (part + 1) / g.split;
+
+  const CUtensorMap* mx = &map_x;
+  auto issue = [&](int s, int box) {  // thread 0: the halo box of `box` into stage s
+    int w0, h0, d0, b;
+    box_origin(g, box, w0, h0, d0, b);
+    wg::mbar_arrive_expect_tx(bar + 8 * s, g.halo_bytes);
+    wg::tma_load_5d(base + s * g.stage_x, mx, bar + 8 * s, 0, w0, h0, d0, b);
+  };
+
+  init_barriers(bar);
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < 2 && s < n_boxes; ++s) issue(s, blockIdx.x + s * grid);
+  // while the first boxes land: w [8C, N] as it lies
+  for (int i = tid; i < 2 * g.C * N; i += THREADS) ws[i] = reinterpret_cast<const float4*>(w)[i];
+  fill_rows(g, vrow, loc);
+  __syncthreads();
+
+  const uint32_t mask = g.row / 16 - 1;
+  for (int i = 0; i < n_boxes; ++i) {
+    const int s = i & 1;
+    int w0, h0, d0, b;
+    box_origin(g, blockIdx.x + i * grid, w0, h0, d0, b);
+    wg::mbar_wait(bar + 8 * s, (i >> 1) & 1);
+    const uint8_t* const xs = base_p + s * g.stage_x;
+    {
+      uint32_t vr[RT];
+      float acc[RT][N];
+#pragma unroll
+      for (int q = 0; q < RT; ++q) {
+        const int r = lt + part_threads * q;
+        vr[q] = r < g.rows ? vrow[r] : 0;
+#pragma unroll
+        for (int n = 0; n < N; ++n) acc[q][n] = 0.f;
+      }
+      for (int t = tap0; t < tap1; ++t) {
+        // a row's pieces lie inside its row bytes, so its swizzle is one XOR key a tap:
+        // swizzle(rb + 16 c4) = rb + (16 c4 ^ key)
+        uint32_t rb[RT], key[RT];
+#pragma unroll
+        for (int q = 0; q < RT; ++q) {
+          rb[q] = vr[q] + tap_offset(g, t);
+          key[q] = ((rb[q] >> 7) & mask) << 4;
+        }
+        const float4* const wt = ws + t * g.C * NV;  // rows (t, c) of w
+#pragma unroll 2
+        for (int c4 = 0; c4 < g.C / 4; ++c4) {
+          float4 a[RT];
+#pragma unroll
+          for (int q = 0; q < RT; ++q) a[q] = *reinterpret_cast<const float4*>(xs + rb[q] + ((c4 << 4) ^ key[q]));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float4 wv[NV];
+#pragma unroll
+            for (int j = 0; j < NV; ++j) wv[j] = wt[(4 * c4 + kk) * NV + j];  // the same for every lane
+#pragma unroll
+            for (int q = 0; q < RT; ++q) {
+              const float av = kk == 0 ? a[q].x : kk == 1 ? a[q].y : kk == 2 ? a[q].z : a[q].w;
+#pragma unroll
+              for (int j = 0; j < NV; ++j) {
+                acc[q][4 * j] = fmaf(av, wv[j].x, acc[q][4 * j]);
+                acc[q][4 * j + 1] = fmaf(av, wv[j].y, acc[q][4 * j + 1]);
+                acc[q][4 * j + 2] = fmaf(av, wv[j].z, acc[q][4 * j + 2]);
+                acc[q][4 * j + 3] = fmaf(av, wv[j].w, acc[q][4 * j + 3]);
+              }
+            }
+          }
+        }
+      }
+      if (g.split > 1) {  // the second part's sums into the first's: [row][N] floats
+        if (part == 1)
+#pragma unroll
+          for (int q = 0; q < RT; ++q) {
+            const int r = lt + part_threads * q;
+            if (r < g.rows)
+#pragma unroll
+              for (int j = 0; j < NV; ++j)
+                part_sum[r * NV + j] = make_float4(acc[q][4 * j], acc[q][4 * j + 1], acc[q][4 * j + 2],
+                                                   acc[q][4 * j + 3]);
+          }
+        __syncthreads();
+        if (part == 0)
+#pragma unroll
+          for (int q = 0; q < RT; ++q) {
+            const int r = lt + part_threads * q;
+            if (r < g.rows)
+#pragma unroll
+              for (int j = 0; j < NV; ++j) {
+                const float4 v = part_sum[r * NV + j];
+                acc[q][4 * j] += v.x;
+                acc[q][4 * j + 1] += v.y;
+                acc[q][4 * j + 2] += v.z;
+                acc[q][4 * j + 3] += v.w;
+              }
+          }
+      }
+      // rows past the box or the grid (a ragged last box) are not stored; the first part stores
+      const int lim_w = g.W - w0, lim_h = g.H - h0, lim_d = g.D - d0;
+      const long long row0 = ((static_cast<long long>(b) * g.D + d0) * g.H + h0) * g.W + w0;
+#pragma unroll
+      for (int q = 0; q < RT; ++q) {
+        const int r = lt + part_threads * q;
+        if (part != 0 || r >= g.rows) continue;
+        const int l = loc[r];
+        const int rw = l & 1023, rh = (l >> 10) & 1023, rd = l >> 20;
+        if (rw >= lim_w || rh >= lim_h || rd >= lim_d) continue;
+        float4* out = reinterpret_cast<float4*>(y + (row0 + (static_cast<long long>(rd) * g.H + rh) * g.W + rw) * N);
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+          out[j] = make_float4(acc[q][4 * j], acc[q][4 * j + 1], acc[q][4 * j + 2], acc[q][4 * j + 3]);
+      }
+    }
+    __syncthreads();  // every thread is done with stage s and the partial sums
+    if (tid == 0 && i + 2 < n_boxes) issue(s, blockIdx.x + (i + 2) * grid);
+  }
+}
+
 // dw partial: part[z] [8C, N] (N = 8 NT) over the boxes [z * per_split,
 // min(boxes, (z + 1) * per_split)) of block z. The 8C/16 m-tiles of dw's rows
 // (tap, c) are dealt to the warps, `mw` a warp (1, 2 or 4); where there are
@@ -326,7 +499,7 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
 
   const int mtiles = g.C / 2;  // 8C / 16
   const int wpg = min(WARPS, mtiles), mw = mtiles / wpg;  // warps that compute, m-tiles each
-  const uint32_t xmask = 2 * g.C / 16 - 1, gmask = 2 * N / 16 - 1;
+  const uint32_t xmask = g.row / 16 - 1, gmask = 2 * N / 16 - 1;
   const int log_c = __ffs(g.C) - 1;
   // A (x, transposed): lane l gives row m = 16 ks + (l % 8) + 8 (l / 16) of the k-step, the 8 channels
   // of half (l / 8) % 2 of its m-tile's 16 rows (tap, c), one tap each
@@ -394,16 +567,21 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
 
 // ---- host side ----
 
-// The box of a launch, checked: C a power of two from 8 to 64 (one TMA box of
-// all C channels, rows of 16 to 128 bytes), N = 8, 16 or 32, extents within
-// the grid and MAX_EXTENT, at most MAX_ROWS rows; `dw` adds the stage of g.
+// The box of a launch, checked: C a power of two from 8 to 64 whose rows of
+// `esize` C bytes (esize 2: bfloat16, 4: float32) are 16 to 128 bytes (one TMA
+// box of all C channels), N = 8, 16 or 32, extents within the grid and
+// MAX_EXTENT, at most MAX_ROWS rows; `dw` adds the stage of g (bfloat16).
 // Returns false where the kernels do not apply.
-inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw, int bh, int bd, bool dw) {
-  if ((C != 8 && C != 16 && C != 32 && C != 64) || (N != 8 && N != 16 && N != 32) || B < 1) return false;
+inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw, int bh, int bd, bool dw,
+                      int esize) {
+  if ((C != 8 && C != 16 && C != 32 && C != 64) || (esize != 2 && esize != 4) || esize * C > 128 ||
+      (N != 8 && N != 16 && N != 32) || B < 1 || (dw && esize != 2))
+    return false;
   if (bw < 1 || bh < 1 || bd < 1 || bw > W || bh > H || bd > D || bw > MAX_EXTENT || bh > MAX_EXTENT ||
       bd > MAX_EXTENT || bw * bh * bd > MAX_ROWS)
     return false;
   g.D = D; g.H = H; g.W = W; g.C = C;
+  g.row = esize * C;
   g.bw = bw; g.bh = bh; g.bd = bd;
   g.nw = (W + bw - 1) / bw; g.nh = (H + bh - 1) / bh; g.nd = (D + bd - 1) / bd;
   const long long boxes = static_cast<long long>(B) * g.nd * g.nh * g.nw;
@@ -411,24 +589,26 @@ inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw,
   g.boxes = static_cast<int>(boxes);
   g.rows = bw * bh * bd;
   g.rows16 = static_cast<int>(round_up(g.rows, 16));
-  g.halo_bytes = static_cast<uint32_t>((bw + 1) * (bh + 1) * (bd + 1) * 2 * C);
+  g.halo_bytes = static_cast<uint32_t>((bw + 1) * (bh + 1) * (bd + 1) * g.row);
   g.g_bytes = dw ? static_cast<uint32_t>(g.rows * 2 * N) : 0;
   g.stage_x = round_up(g.halo_bytes, ALIGN);
   g.stage_g = dw ? round_up(g.rows16 * 2 * N, ALIGN) : 0;
+  g.split = esize == 4 && g.rows <= 2 * THREADS ? 2 : 1;
   return true;
 }
 
-// A bf16 tensor [B, D, H, W, ch] as the TMA sees it, (ch, W, H, D, B)
-// innermost first, in boxes of (ch, bw, bh, bd, 1): rows of 2 ch bytes
-// under the swizzle of their width, zeros where a box leaves the tensor.
+// A tensor [B, D, H, W, ch] of bfloat16 (esize 2) or float32 (esize 4) as the
+// TMA sees it, (ch, W, H, D, B) innermost first, in boxes of (ch, bw, bh, bd,
+// 1): rows of esize ch bytes (16 to 128) under the swizzle of that width,
+// zeros where a box leaves the tensor.
 inline int encode_box_map(CUtensorMap* map, const void* p, int B, int D, int H, int W, int ch, int bw, int bh,
-                          int bd) {
+                          int bd, int esize) {
   wg::EncodeTiledFn encode = wg::encode_tiled_fn();
   if (!encode) return wg::NO_ENCODER;
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(ch), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(B)};
   cuuint64_t strides[4];
-  cuuint64_t stride = 2;
+  cuuint64_t stride = static_cast<cuuint64_t>(esize);
   for (int i = 0; i < 4; ++i) {
     stride *= dims[i];
     strides[i] = stride;
@@ -436,42 +616,74 @@ inline int encode_box_map(CUtensorMap* map, const void* p, int B, int D, int H, 
   const cuuint32_t box[5] = {static_cast<cuuint32_t>(ch), static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh),
                              static_cast<cuuint32_t>(bd), 1};
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = ch == 8    ? CU_TENSOR_MAP_SWIZZLE_NONE
-                                     : ch == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
-                                     : ch == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_128B;
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(p), dims, strides, box, ones,
+  const int row = esize * ch;
+  const CUtensorMapSwizzle swizzle = row == 16   ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                     : row == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapDataType type = esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult res = encode(map, type, 5, const_cast<void*>(p), dims, strides, box, ones,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : wg::ENCODE_FAILED + static_cast<int>(res);
 }
 
-template <int NT>
+template <int NT, bool DX>
 int launch_fwd_nt(const CUtensorMap& map_x, const void* w, void* y, const Geom& g, int grid, size_t smem,
                   cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(conv_k2_narrow_fwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_narrow_fwd_kernel<NT, DX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_k2_narrow_fwd_kernel<NT><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+  conv_k2_narrow_fwd_kernel<NT, DX><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
       map_x, static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(y), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward at the box (bw, bh, bd) with `grid` blocks; `plan_smem` is the
-// wrapper's dynamic shared memory, held to this file's own.
+template <int NT>
+int launch_fwd_f32_nt(const CUtensorMap& map_x, const void* w, void* y, const Geom& g, int grid, size_t smem,
+                      cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_narrow_fwd_f32_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_k2_narrow_fwd_f32_kernel<NT><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+      map_x, static_cast<const float*>(w), static_cast<float*>(y), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DX>
+int launch_fwd_bf16(const CUtensorMap& map_x, const void* w, void* y, const Geom& g, int N, int grid, size_t smem,
+                    cudaStream_t s) {
+  if (N == 8) return launch_fwd_nt<1, DX>(map_x, w, y, g, grid, smem, s);
+  if (N == 16) return launch_fwd_nt<2, DX>(map_x, w, y, g, grid, smem, s);
+  return launch_fwd_nt<4, DX>(map_x, w, y, g, grid, smem, s);
+}
+
+int launch_fwd_f32(const CUtensorMap& map_x, const void* w, void* y, const Geom& g, int N, int grid, size_t smem,
+                   cudaStream_t s) {
+  if (N == 8) return launch_fwd_f32_nt<1>(map_x, w, y, g, grid, smem, s);
+  if (N == 16) return launch_fwd_f32_nt<2>(map_x, w, y, g, grid, smem, s);
+  return launch_fwd_f32_nt<4>(map_x, w, y, g, grid, smem, s);
+}
+
+// The forward of bfloat16 (dtype 1) or float32 (dtype 0) operands at the box
+// (bw, bh, bd) with `grid` blocks, or with `dx` (bfloat16 only) dx: x := g,
+// C := g's channels, N := dx's, w := w' [8C, N]. `plan_smem` is the wrapper's
+// dynamic shared memory, held to this file's own.
 inline int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw, int bh,
-                      int bd, int grid, int plan_smem, cudaStream_t s) {
+                      int bd, int grid, int plan_smem, int dtype, bool dx, cudaStream_t s) {
+  const int esize = dtype == 0 ? 4 : 2;
   Geom g;
-  if (!make_geom(g, B, D, H, W, C, N, bw, bh, bd, false) || grid < 1 || grid > g.boxes)
+  if ((dtype != 0 && dtype != 1) || (dx && dtype != 1) ||
+      !make_geom(g, B, D, H, W, C, N, bw, bh, bd, false, esize) || grid < 1 || grid > g.boxes)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(g, N, false);
   if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
   CUtensorMap map_x;
-  const int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1);
+  const int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, esize);
   if (rc) return rc;
-  if (N == 8) return launch_fwd_nt<1>(map_x, w, y, g, grid, smem, s);
-  if (N == 16) return launch_fwd_nt<2>(map_x, w, y, g, grid, smem, s);
-  return launch_fwd_nt<4>(map_x, w, y, g, grid, smem, s);
+  if (dtype == 0) return launch_fwd_f32(map_x, w, y, g, N, grid, smem, s);
+  return dx ? launch_fwd_bf16<true>(map_x, w, y, g, N, grid, smem, s)
+            : launch_fwd_bf16<false>(map_x, w, y, g, N, grid, smem, s);
 }
 
 template <int NT>
@@ -490,15 +702,15 @@ int launch_dw_nt(const CUtensorMap& map_x, const CUtensorMap& map_g, float* part
 inline int launch_dw(const void* x, const void* gr, float* part, int splits, int per_split, int B, int D, int H, int W,
                      int C, int N, int bw, int bh, int bd, int plan_smem, cudaStream_t s) {
   Geom g;
-  if (!make_geom(g, B, D, H, W, C, N, bw, bh, bd, true) || splits < 1 || per_split < 1 ||
+  if (!make_geom(g, B, D, H, W, C, N, bw, bh, bd, true, 2) || splits < 1 || per_split < 1 ||
       static_cast<long long>(splits - 1) * per_split >= g.boxes || static_cast<long long>(splits) * per_split < g.boxes)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(g, N, true);
   if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
   CUtensorMap map_x, map_g;
-  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1);
+  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, 2);
   if (rc) return rc;
-  rc = encode_box_map(&map_g, gr, B, D, H, W, N, bw, bh, bd);
+  rc = encode_box_map(&map_g, gr, B, D, H, W, N, bw, bh, bd, 2);
   if (rc) return rc;
   if (N == 8) return launch_dw_nt<1>(map_x, map_g, part, g, splits, per_split, smem, s);
   if (N == 16) return launch_dw_nt<2>(map_x, map_g, part, g, splits, per_split, smem, s);

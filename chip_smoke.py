@@ -7,9 +7,9 @@ order, any failure ending the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the ``conv_k2`` CUDA kernels (forward, dx, dw, each as an
-   FFMA kernel and as a bfloat16 tensor-core kernel; the bfloat16 forward and
-   dw of narrow outputs also on ``mma.sync``) from
-   ``anytime3d_tpu_torch/kernels/csrc``;
+   FFMA kernel and as a bfloat16 tensor-core kernel; the bfloat16 forward, dx
+   and dw of narrow outputs also on ``mma.sync``, their float32 forward as an
+   FFMA halo-box kernel) from ``anytime3d_tpu_torch/kernels/csrc``;
 3. kernel check: ``conv_k2``, ``conv_k2_dx`` and ``conv_k2_dw`` against their
    plain versions at the flagship stages (16^3): at B=8, the served batch, in
    float32 with TF32 off and in bfloat16, and at B=32, the train step's
@@ -23,7 +23,7 @@ order, any failure ending the run with a non-zero exit:
    are also held against a float64 product of the same operands, dw must
    give the same bits twice, and three bfloat16 shapes off the main path are
    checked, one with a plan (8^3), one without (the FFMA kernels) and one with
-   a narrow plan (the narrow forward and dw);
+   a narrow plan (the narrow forward, dx and dw);
 4. full-width slice: ``modelnet_nolbo`` (64^3 voxels, z=64, 40 classes) from
    seeded weights, a batch of 8 seeded occupancy grids with full, partial and
    empty latent masks through ``make_packed_infer`` on the card, held against
@@ -95,8 +95,9 @@ order, any failure ending the run with a non-zero exit:
    2 launches); ``export_infer`` of the float32 image program loaded and held
    to the eager one (2 launches a batch); the phase's wall time printed;
 12. detector: ``conv_k2``, dx and dw at the detector decoder's final conv (32
-   decodes of 32^3, C=32 -> N=8: no wgmma plan; in bfloat16 the forward and dw
-   on the narrow kernels, dx and float32 on the FFMA ones) against their plain
+   decodes of 32^3, C=32 -> N=8: no wgmma plan; in bfloat16 all three on the
+   narrow kernels, in float32 the forward on the narrow FFMA kernel, dx and dw
+   on the FFMA ones) against their plain
    versions (the narrow kernels and their plain versions also against a
    float64 product; dw the same bits twice), timed beside cuDNN and their
    bound, and the narrow forward at the scene pass's 1024 decodes; the
@@ -109,13 +110,14 @@ order, any failure ending the run with a non-zero exit:
    frame, ``export_detector`` in float32 and bfloat16 loaded with
    ``load_infer`` and held to the eager program, 50 frames under
    ``torch.cuda.set_sync_debug_mode("error")`` with 1 launch a frame (narrow
-   in bfloat16), timed by events with the host's share; the scene pass at its
+   in both types), timed by events with the host's share; the scene pass at its
    defaults in bfloat16 (1024 decodes, 1 narrow launch), timed, with the lifting and its batched SVD
    timed alone; one float32 train step at B=2 against the CPU (every loss
-   term, every gradient leaf, ``grads_finite``); ``cli/train_detector.py``'s
+   term, every gradient leaf, ``grads_finite``; the forward narrow, dx and dw
+   FFMA); ``cli/train_detector.py``'s
    trainer at the reference scale (bfloat16, B=8, 13x13 grid, up to 6
    objects, packed voxels, uint8 frames), 24 steps, 1 / 1 / 1 launches a
-   step (the forward and dw narrow), device time, host wall, the host's batch and peak memory printed;
+   step (all three narrow), device time, host wall, the host's batch and peak memory printed;
    ``evaluate_detector`` on 2 batches, timed; the phase's wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
@@ -349,28 +351,29 @@ def phase_build() -> None:
 def reset_counts() -> None:
     conv_k2.launches = conv_k2.launches_dx = conv_k2.launches_dw = 0
     conv_k2.launches_wgmma = conv_k2.launches_dx_wgmma = conv_k2.launches_dw_wgmma = 0
-    conv_k2.launches_narrow = conv_k2.launches_dw_narrow = 0
+    conv_k2.launches_narrow = conv_k2.launches_dx_narrow = conv_k2.launches_dw_narrow = 0
 
 
 def read_counts() -> dict:
     """Launches since ``reset_counts``: every launch by kernel, under
     ``*_wgmma`` those of them that took the tensor-core kernels and under
-    ``*_narrow`` those that took the narrow ones (dx has none)."""
+    ``*_narrow`` those that took the narrow ones."""
     return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
             "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dx_wgmma": conv_k2.launches_dx_wgmma,
             "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma, "conv_k2_narrow": conv_k2.launches_narrow,
-            "conv_k2_dw_narrow": conv_k2.launches_dw_narrow}
+            "conv_k2_dx_narrow": conv_k2.launches_dx_narrow, "conv_k2_dw_narrow": conv_k2.launches_dw_narrow}
 
 
-def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool, narrow: bool = False) -> dict:
+def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
+                  narrow: tuple[int, int, int] = (0, 0, 0)) -> dict:
     """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
-    all of them on the tensor-core kernels or none of them; with ``narrow``,
-    every forward and dw launch on the narrow kernels (dx on the FFMA one)."""
+    all of them on the tensor-core kernels or none of them, and ``narrow``'s
+    forward / dx / dw launches of them on the narrow kernels."""
     counts = read_counts()
     want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
             "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dx_wgmma": dx if tensor_cores else 0,
-            "conv_k2_dw_wgmma": dw if tensor_cores else 0, "conv_k2_narrow": forward if narrow else 0,
-            "conv_k2_dw_narrow": dw if narrow else 0}
+            "conv_k2_dw_wgmma": dw if tensor_cores else 0, "conv_k2_narrow": narrow[0],
+            "conv_k2_dx_narrow": narrow[1], "conv_k2_dw_narrow": narrow[2]}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     return counts
@@ -534,7 +537,7 @@ def phase_kernels(card: str) -> dict:
         # off the main path, bfloat16: a shape with a wgmma plan (8^3), one with none (ragged grid, N = 24) and one
         # with a narrow plan (a whole-grid box of 210 rows): the design of forward, dx and dw each
         for shape, C, N, designs in (((3, 8, 8, 8), 64, 64, ("wgmma",) * 3), ((2, 5, 6, 7), 16, 24, ("ffma",) * 3),
-                                     ((3, 5, 6, 7), 16, 16, ("narrow", "ffma", "narrow"))):
+                                     ((3, 5, 6, 7), 16, 16, ("narrow",) * 3)):
             assert (wgmma_plan(*shape, C, N) is not None) == (designs[0] == "wgmma")
             assert (narrow_plan(*shape, C, N) is not None) == (designs[0] == "narrow")
             label = f"off the main path {shape} {C}->{N}"
@@ -557,13 +560,15 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
-    every case measured, with the design it took (``ffma`` or ``wgmma``). Every
+    every case measured, with the design it took (``ffma``, ``wgmma`` or
+    ``narrow``). Every
     number but ``bound_ms`` was measured in this run. ``launches`` sums
     the served runs, the train run, the anytime sweep, the lifecycle's train,
     restored and evaluate runs, its exported programs' batches, the image
     phase's runs and the detector phase's; ``launches_wgmma`` is the part of
     them that took the tensor-core kernels, ``launches_narrow`` the part that
-    took the narrow kernels (the bf16 forward and dw of N = 8; dx has none)."""
+    took the narrow kernels (the detector's final conv: in bf16 all three, in
+    f32 the forward)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
@@ -588,10 +593,9 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
             "launches_wgmma": sum(c[f"{kernel}_wgmma"] for c in paths),
+            "source_narrow": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
+            "launches_narrow": sum(c[f"{kernel}_narrow"] for c in paths),
         })
-        if f"{kernel}_narrow" in serve_counts:  # the forward and dw have a narrow design, dx none
-            entries[-1] |= {"source_narrow": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
-                            "launches_narrow": sum(c[f"{kernel}_narrow"] for c in paths)}
     return entries
 
 
@@ -1717,21 +1721,24 @@ def detector_kernel_case(kernel: str, label: str, fns: tuple, exact, want: str, 
 
 def phase_detector_kernels(card: str) -> dict:
     """``conv_k2``, dx and dw at the detector decoder's final conv (32 decodes
-    of 32^3, C=32 -> N=8: no wgmma plan; in bf16 the forward and dw on the
-    narrow kernels, dx and f32 on the FFMA ones), and the narrow forward at the
+    of 32^3, C=32 -> N=8: no wgmma plan; in bf16 all three on the narrow
+    kernels, dx by the plan of 8 -> 32; in f32 the forward on the narrow FFMA
+    kernel, dx and dw on the FFMA ones), and the narrow forward at the
     scene pass's 1024 decodes, against their plain versions (the narrow ones
     also against float64 products), each timed beside its library call and its
     bound. Returns ``{kernel: {case: numbers}}`` as ``phase_kernels``."""
     gen = torch.Generator().manual_seed(SEED + 12)
     n, grid, C, N = DET_K2
     assert narrow_plan(n, grid, grid, grid, C, N) is not None and narrow_plan(DET_SCENE_DECODES, grid, grid, grid, C, N)
+    assert narrow_plan(n, grid, grid, grid, N, C) is not None
+    assert narrow_plan(n, grid, grid, grid, C, N, dtype=torch.float32) is not None
     res = {k: {} for k in ("conv_k2", "conv_k2_dx", "conv_k2_dw")}
     with torch.inference_mode():
         for case, dtype in DET_K2_CASES:
             x, w, g = k2_operands(gen, (n, grid, grid, grid), C, N, dtype)
             exact = float64_products(x, w, g) if dtype == torch.bfloat16 else {}
             for kernel, fns in k2_runs(x, w, g).items():
-                want = "narrow" if dtype == torch.bfloat16 and kernel != "conv_k2_dx" else "ffma"
+                want = "narrow" if dtype == torch.bfloat16 or kernel == "conv_k2" else "ffma"
                 res[kernel][case] = detector_kernel_case(kernel, f"detector {case} B={n} {grid}^3 {C}->{N}", fns,
                                                          exact.get(kernel), want, DET_K2, dtype, card)
             del x, w, g, exact
@@ -1928,7 +1935,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         add(expect_counts(f"detector served frames, {label}", DET_SERVE_FRAMES, 0, 0, tensor_cores=False,
-                          narrow=label == "bf16"))
+                          narrow=(DET_SERVE_FRAMES, 0, 0)))
         peak = torch.cuda.max_memory_allocated()
         line = compare_fields(f"detector artifact {label} vs eager", outs[-1], eager, tol)
         ms = cuda_ms(lambda: fn(frame_gpu), iters=DET_SERVE_FRAMES)
@@ -1941,7 +1948,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
         served[label] = ms
         print(f"detector served frame {label}: export_detector + load_infer {export_s:.2f} s; against the eager "
               f"program: {line}; {DET_SERVE_FRAMES} frames under sync-debug 'error', 1 conv_k2 launch a frame "
-              f"({'narrow' if label == 'bf16' else 'FFMA'}); "
+              f"(narrow); "
               f"device time a frame (CUDA events, mean of {DET_SERVE_FRAMES}) {ms:.3f} ms, host to enqueue one "
               f"{host:.3f} ms, wall a frame to its valid mask on the host {wall:.3f} ms; peak memory allocated "
               f"{peak / 2**30:.2f} GiB; valid {int(outs[-1]['valid'].sum())} of {DET_MAX_DETECTIONS} [{card}]",
@@ -1956,7 +1963,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
     reset_counts()
     out = scene_reconstruction(model_bf16, frame_gpu, DET_IMAGE_PX, generator=gen)
     torch.cuda.synchronize()
-    add(expect_counts("detector scene pass", 1, 0, 0, tensor_cores=False, narrow=True))
+    add(expect_counts("detector scene pass", 1, 0, 0, tensor_cores=False, narrow=(1, 0, 0)))
     s = cfg.shape_samples
     assert DET_MAX_DETECTIONS * s == DET_SCENE_DECODES  # the shape phase_detector_kernels checks
     if tuple(out["shapes"].shape) != (DET_MAX_DETECTIONS, DET_VOXEL, DET_VOXEL, DET_VOXEL) or not all(
@@ -1966,7 +1973,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
     reset_counts()
     scene_ms = cuda_ms(lambda: scene_reconstruction(model_bf16, frame_gpu, DET_IMAGE_PX, generator=gen), iters=5,
                        warmup=1)
-    add(expect_counts("detector scene pass, timed", 6, 0, 0, tensor_cores=False, narrow=True))
+    add(expect_counts("detector scene pass, timed", 6, 0, 0, tensor_cores=False, narrow=(6, 0, 0)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
@@ -2014,7 +2021,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
         results[name] = ({k: float(v) for k, v in metrics.items()}, {k: g.cpu() for k, g in zip(names, grads)}, finite)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            add(expect_counts("detector train slice, f32", 1, 1, 1, tensor_cores=False))
+            add(expect_counts("detector train slice, f32", 1, 1, 1, tensor_cores=False, narrow=(1, 0, 0)))
         print(f"detector train slice {name}: {time.perf_counter() - t0:.1f} s, {results[name][0]}", flush=True)
     (m_gpu, g_gpu, fin_gpu), (m_cpu, g_cpu, _) = results["card"], results["cpu"]
     for k, v in m_cpu.items():
@@ -2075,7 +2082,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
     wall = time.perf_counter() - t0
     print("", flush=True)
     add(expect_counts("detector train run", DET_TRAIN_STEPS, DET_TRAIN_STEPS, DET_TRAIN_STEPS, tensor_cores=False,
-                      narrow=True))
+                      narrow=(DET_TRAIN_STEPS,) * 3))
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.history
     if trainer.state.step != DET_TRAIN_STEPS or trainer.aborted_nan or not all(
@@ -2093,7 +2100,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
           f"step, start to start, median {np.median(host_wall):.2f} ms (min {host_wall.min():.2f}, max "
           f"{host_wall.max():.2f}); whole run {wall:.2f} s; the host's batch (up to {DET_TRAIN_BATCH * DET_MAX_OBJECTS} "
           f"renders, collate, pack) {np.median(host):.2f} ms median of {len(host)} (min {min(host):.2f}); peak memory "
-          f"allocated {peak / 2**30:.2f} GiB; launches 1 / 1 / 1 a step, the forward and dw narrow, dx FFMA [{card}]",
+          f"allocated {peak / 2**30:.2f} GiB; launches 1 / 1 / 1 a step, all three narrow [{card}]",
           flush=True)
 
     # 6. evaluate_detector on 2 batches of the training loader, as the CLI ends, on the trained model

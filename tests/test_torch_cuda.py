@@ -4,9 +4,9 @@ ops under ``opcheck``, a small serving slice (eager and exported), a small
 train step and the anytime protocol on the GPU against the CPU, the small
 image model (``pascal_nolbo``'s layout) served and trained on the card
 against the CPU, the batch prefetcher's stream ordering, the kernels at the
-detector decoder's N = 8, the narrow kernels (bf16 forward and dw of N = 8,
-16, 32) at the edges of their plan, and a small detector on the card against
-the CPU.
+detector decoder's N = 8, the narrow kernels (bf16 forward, dx and dw of
+N = 8, 16, 32; the f32 forward) at the edges of their plan, and a small
+detector on the card against the CPU.
 
 Every test here needs a CUDA GPU and ``nvcc`` and skips without them. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -137,7 +137,7 @@ def _wgmma_counts():
 
 
 def _narrow_counts():
-    return conv_k2.launches_narrow, conv_k2.launches_dw_narrow
+    return conv_k2.launches_narrow, conv_k2.launches_dx_narrow, conv_k2.launches_dw_narrow
 
 
 def _dx_float64(g, w):
@@ -256,7 +256,7 @@ def test_ffma_dw_matches_plain_at_the_tile_edges(cuda, B, D, H, W, C, N, dtype):
         ref = conv_k2_dw_reference(x, g)
     torch.cuda.synchronize()
     assert _counts() == (before[0], before[1], before[2] + 2) and _wgmma_counts() == before_wg
-    assert _narrow_counts() == (before_nr[0], before_nr[1] + 2 * narrow)
+    assert _narrow_counts() == (before_nr[0], before_nr[1], before_nr[2] + 2 * narrow)
     assert dw.dtype == torch.float32 and dw.shape == (2, 2, 2, C, N)
     assert torch.equal(dw, again)
     err = float((dw - ref).abs().max())
@@ -428,17 +428,20 @@ def test_small_bf16_slice_on_card_takes_tensor_cores(cuda):
     assert float((z - ref["z_mean"]).abs().max()) <= 0.05 * max(1.0, float(ref["z_mean"].abs().max()))
 
 
-@pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 8, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64)),
-                                         (torch.bfloat16, (2, 8, 8, 8, 32, 8))],
-                         ids=["f32_ffma", "bf16_wgmma", "bf16_narrow"])
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 64, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64)),
+                                         (torch.bfloat16, (2, 8, 8, 8, 32, 8)), (torch.float32, (1, 3, 4, 5, 8, 16))],
+                         ids=["f32_ffma", "bf16_wgmma", "bf16_narrow", "f32_narrow"])
 @pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
 def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     """The three ops on CUDA tensors: schema, autograd registration (the
     forward's backward calls the dx and dw ops), the fake implementation
-    against the kernel's output, and an AOT-autograd trace; in bfloat16 at a
-    shape with a plan, so the tensor-core kernels answer, and at N = 8, where
-    the narrow forward and dw do (dx FFMA)."""
+    against the kernel's output, and an AOT-autograd trace; in float32 at
+    C = 64, which has no narrow plan (all FFMA); in bfloat16 at a shape with
+    a plan, so the tensor-core kernels answer; at 32 -> 8, where the narrow
+    forward, dx (8 -> 32) and dw do; and in float32 at 8 -> 16, where the
+    narrow forward does (dx and dw FFMA)."""
     *grid, C, N = shape
+    assert (narrow_plan(*grid, C, N, dtype=dtype) is None) == (shape[4] == 64)
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(*grid, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, N, generator=gen) * 0.1).to(cuda)
@@ -653,13 +656,18 @@ N8_SHAPES = [(2, 8, 8), (4, 32, 32), (2, 32, 64)]
 @pytest.mark.parametrize("B,G,C", N8_SHAPES)
 def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
     """Forward, dx and dw at N = 8 against their plain versions: in bfloat16
-    the forward and dw on the narrow kernels (their counters move), dx on the
-    FFMA kernel; in float32 all three FFMA. No counter of the tensor-core
-    kernels moves; dw gives the same bits twice. Tolerances as
+    the forward and dw on the narrow kernels, and dx where its forward from 8
+    to C channels has a narrow plan (C = 8, 32; C = 64 stays FFMA); in float32
+    the forward on the narrow kernel where C <= 32, dx and dw FFMA. The
+    counters of the narrow kernels move as that says, no tensor-core one
+    does; dw gives the same bits twice. Tolerances as
     ``test_kernel_matches_plain`` and ``test_backward_kernels_match_plain``."""
     assert wgmma_plan(B, G, G, G, C, 8) is None
-    narrow = dtype == torch.bfloat16
+    bf16 = dtype == torch.bfloat16
     assert narrow_plan(B, G, G, G, C, 8) is not None
+    narrow_fwd = narrow_plan(B, G, G, G, C, 8, dtype=dtype) is not None
+    narrow_dx = bf16 and narrow_plan(B, G, G, G, 8, C) is not None
+    assert narrow_fwd == (bf16 or C <= 32) and narrow_dx == (bf16 and C <= 32)
     gen = torch.Generator().manual_seed(9)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, 8, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
@@ -671,7 +679,7 @@ def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
         y_ref, dx_ref, dw_ref = conv_k2_reference(x, w), k2.conv_k2_dx_reference(g, w), conv_k2_dw_reference(x, g)
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 2) and _wgmma_counts() == before_wg
-    assert _narrow_counts() == (before_nr[0] + narrow, before_nr[1] + 2 * narrow)
+    assert _narrow_counts() == (before_nr[0] + narrow_fwd, before_nr[1] + narrow_dx, before_nr[2] + 2 * bf16)
     assert torch.equal(dw, again)
     for out, ref in ((y, y_ref), (dx, dx_ref)):
         assert out.shape == ref.shape and out.dtype == dtype
@@ -685,22 +693,39 @@ def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
 # idle in dw), 64 (4 m-tiles a warp) and 16, 32; N = 8, 16, 32; a whole-grid
 # box of 210 rows (not a multiple of 16), a w-line longer than a box, ragged
 # last boxes along every axis, and the detector's 32^3 at C = 32 -> 8 with
-# several boxes a block and a split
+# several boxes a block and a split. dx is the forward from N to C: narrow
+# where that has a plan (all but 64 -> 16 and 64 -> 32), among them 8 -> 32
+# (the detector's dx) and 8 -> 16 with several boxes a block (16 -> 8 at 16^3,
+# B = 40); and float32's forward at each C <= 32
 NARROW_EDGES = [(3, 8, 8, 8, 8, 8), (1, 8, 8, 8, 64, 16), (3, 5, 6, 7, 32, 32), (1, 2, 2, 256, 16, 8),
-                (2, 9, 10, 40, 16, 8), (1, 33, 33, 33, 8, 16), (2, 32, 32, 32, 64, 32), (6, 32, 32, 32, 32, 8)]
+                (2, 9, 10, 40, 16, 8), (1, 33, 33, 33, 8, 16), (2, 32, 32, 32, 64, 32), (6, 32, 32, 32, 32, 8),
+                (40, 16, 16, 16, 16, 8), (3, 9, 10, 40, 32, 8)]
+
+
+def _float64_forward(x, w):
+    """conv_k2 as a float64 product of the same operands, tap by tap."""
+    _, D, H, W, C = x.shape
+    xp = torch.nn.functional.pad(x.double(), (0, 0) + (0, 1) * 3)
+    w64 = w.double().reshape(8, C, -1)
+    return sum(xp[:, t >> 2:(t >> 2) + D, (t >> 1) & 1:((t >> 1) & 1) + H, t & 1:(t & 1) + W] @ w64[t]
+               for t in range(8))
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EDGES)
 def test_narrow_kernels_match_plain_and_float64(cuda, B, D, H, W, C, N):
     """bfloat16 shapes with a narrow plan, through autograd: the forward and
-    dw on the narrow kernels (their counters move, no tensor-core one does),
-    dx on the FFMA kernel. The forward against its plain version (2^-7 of the
-    largest output) and both against a float64 product (an f32 sum rounded
-    once to bf16, half an ulp of the largest entry, plus the sum's own error);
-    dw against its plain version (f32 sums in another order, 1e-5 of the
-    largest entry) and both against the float64 sum (DW_TOL_F64_REL); dw the
-    same bits from two calls; dx against its plain version."""
+    dw on the narrow kernels, dx too where its forward from N to C has a
+    narrow plan, else on the FFMA kernel (the counters move as that says, no
+    tensor-core one does). The forward and dx against their plain versions
+    (2^-7 of the largest output) and, the forward and a narrow dx, both
+    sides against a float64 product (an f32 sum rounded once to bf16, half an
+    ulp of the largest entry, plus the sum's own error); dw against its plain
+    version (f32 sums in another order, 1e-5 of the largest entry) and both
+    against the float64 sum (DW_TOL_F64_REL); dw the same bits from two
+    calls."""
     assert wgmma_plan(B, D, H, W, C, N) is None and narrow_plan(B, D, H, W, C, N) is not None
+    narrow_dx = narrow_plan(B, D, H, W, N, C) is not None
+    assert narrow_dx == (C <= 32)
     gen = torch.Generator().manual_seed(11)
     x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, torch.bfloat16).requires_grad_()
     w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
@@ -710,29 +735,67 @@ def test_narrow_kernels_match_plain_and_float64(cuda, B, D, H, W, C, N):
     y.backward(g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1))  # a permuted view
     y = y.detach()
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1) and _wgmma_counts() == before_wg
-    assert _narrow_counts() == (before_nr[0] + 1, before_nr[1] + 1)
+    assert _narrow_counts() == (before_nr[0] + 1, before_nr[1] + narrow_dx, before_nr[2] + 1)
     wb = w.detach().to(torch.bfloat16)
     with torch.no_grad():
         y_ref = conv_k2_reference(x.detach(), wb)
         dx_ref, dw_ref = conv_k2_backward_reference(x.detach(), w.detach(), g)
         again = conv_k2_dw(x.detach(), g), conv_k2_dw(x.detach(), g)
         dw64 = _dw_float64(x.detach(), g)
-        xp = torch.nn.functional.pad(x.detach().double(), (0, 0) + (0, 1) * 3)
-        w64 = wb.double().reshape(8, C, N)
-        y64 = sum(xp[:, t >> 2:(t >> 2) + D, (t >> 1) & 1:((t >> 1) & 1) + H, t & 1:(t & 1) + W] @ w64[t]
-                  for t in range(8))
+        y64 = _float64_forward(x.detach(), wb)
+        dx64 = _dx_float64(g, wb)
     torch.cuda.synchronize()
     assert y.dtype == torch.bfloat16 and y.shape == (B, D, H, W, N)
     assert float((y.float() - y_ref.float()).abs().max()) <= 2.0**-7 * float(y_ref.float().abs().max())
     tol_y64 = (2.0**-8 + DW_TOL_F64_REL) * float(y64.abs().max())
     assert float((y.double() - y64).abs().max()) <= tol_y64
     assert float((y_ref.double() - y64).abs().max()) <= tol_y64
+    assert x.grad.dtype == torch.bfloat16 and x.grad.shape == x.shape
     assert float((x.grad.float() - dx_ref.float()).abs().max()) <= 2.0**-7 * float(dx_ref.float().abs().max())
+    if narrow_dx:
+        tol_dx64 = (2.0**-8 + DW_TOL_F64_REL) * float(dx64.abs().max())
+        assert float((x.grad.double() - dx64).abs().max()) <= tol_dx64
+        assert float((dx_ref.double() - dx64).abs().max()) <= tol_dx64
     assert w.grad.dtype == torch.float32 and torch.equal(again[0], again[1]) and torch.equal(again[0], w.grad)
     assert float((w.grad - dw_ref).abs().max()) <= 1e-5 * float(dw_ref.abs().max())
     tol_dw64 = DW_TOL_F64_REL * float(dw64.abs().max())
     assert float((w.grad.double() - dw64).abs().max()) <= tol_dw64
     assert float((dw_ref.double() - dw64).abs().max()) <= tol_dw64
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", [s for s in NARROW_EDGES if s[4] <= 32])
+def test_f32_narrow_forward_matches_plain_and_float64(cuda, B, D, H, W, C, N):
+    """float32 shapes with a narrow plan, through autograd: the forward on
+    the narrow FFMA kernel (its counter moves), dx and dw on the FFMA
+    kernels. The forward against its plain version (true f32, summation
+    order only: 1e-4, as ``test_kernel_matches_plain``) and both against a
+    float64 product (f32 sums of at most 256 products: 1e-5 of the largest
+    entry); dx and dw against their plain versions as
+    ``test_backward_kernels_match_plain``."""
+    plan = narrow_plan(B, D, H, W, C, N, dtype=torch.float32)
+    assert plan is not None and wgmma_plan(B, D, H, W, C, N) is None
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn(B, D, H, W, C, generator=gen).to(cuda).requires_grad_()
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()
+    g = torch.randn(B, D, H, W, N, generator=gen).to(cuda)
+    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
+    y = conv_k2(x, w)
+    y.backward(g)
+    y = y.detach()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1) and _wgmma_counts() == before_wg
+    assert _narrow_counts() == (before_nr[0] + 1, before_nr[1], before_nr[2])
+    with torch.no_grad():
+        y_ref = conv_k2_reference(x.detach(), w.detach())
+        dx_ref, dw_ref = conv_k2_backward_reference(x.detach(), w.detach(), g)
+        y64 = _float64_forward(x.detach(), w.detach())
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == (B, D, H, W, N)
+    assert float((y - y_ref).abs().max()) <= 1e-4
+    tol_y64 = 1e-5 * float(y64.abs().max())
+    assert float((y.double() - y64).abs().max()) <= tol_y64
+    assert float((y_ref.double() - y64).abs().max()) <= tol_y64
+    assert float((x.grad - dx_ref).abs().max()) <= 1e-4
+    assert float((w.grad - dw_ref).abs().max()) <= 1e-5 * float(dw_ref.abs().max()) + 1e-5
 
 
 def small_detector_config():

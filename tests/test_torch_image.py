@@ -49,6 +49,7 @@ from anytime3d_tpu.train.state import grads_finite_flag as jax_grads_finite_flag
 from anytime3d_tpu.train.state import l2_penalty as jax_l2_penalty
 from anytime3d_tpu.train.trainer import multi_scale_schedule as jax_multi_scale_schedule
 from anytime3d_tpu_torch.anytime import engine
+from anytime3d_tpu_torch.cli import evaluate as cli_evaluate
 from anytime3d_tpu_torch.cli import export as cli_export
 from anytime3d_tpu_torch.cli import serve as serve_cli
 from anytime3d_tpu_torch.cli import train as cli_train
@@ -838,6 +839,35 @@ def test_cli_train_runs_the_image_config_on_the_cpu(monkeypatch, tmp_path):
     train_shapes = {s for s, k in shapes[:3]}
     assert all(k == keys for _, k in shapes) and train_shapes <= {(2, 32, 32, 3), (2, 48, 48, 3)}
     assert shapes[-1][0] == (2, 32, 32, 3)  # the eval batches at --image-size
+
+
+@pytest.mark.parametrize("size", [None, 32])
+def test_cli_evaluate_reads_images_of_image_size(monkeypatch, capsys, size):
+    """``cli.evaluate.main`` on an image config evaluates renders of
+    ``--image-size`` pixels square, 64 without the flag, as the JAX CLI does:
+    every batch of the sweep and of the PR curve has that size."""
+    cfg = image_configs()[1]
+    monkeypatch.setitem(configs.REGISTRY, "pascal_nolbo", lambda: cfg)
+    shapes = []
+    real = cli_train.build_batch_fn
+
+    def spy(*a, **kw):
+        fn = real(*a, **kw)
+
+        def batch_fn(it):
+            b = fn(it)
+            shapes.append(tuple(b["input"].shape))
+            return b
+
+        return batch_fn
+
+    monkeypatch.setattr(cli_train, "build_batch_fn", spy)
+    argv = ["--config", "pascal_nolbo", "--device", "cpu", "--batch-size", "2", "--batches", "1", "--rates", "0.5"]
+    table, curve = cli_evaluate.main(argv + ([] if size is None else ["--image-size", str(size)]))
+    side = 64 if size is None else size
+    assert shapes and set(shapes) == {(2, side, side, 3)}
+    assert all(np.isfinite(v) for v in table[0.5].values()) and np.isfinite(curve["iou"]).all()
+    assert "best decode threshold" in capsys.readouterr().out
 
 
 def test_orbax_to_npz_carries_an_image_checkpoint_into_the_port(tmp_path):

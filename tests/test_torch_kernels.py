@@ -7,9 +7,11 @@ What the tensor-core kernels rest on is checked here without a card: the plans
 that cut a shape into boxes, tiles and splits (``wgmma_plan``,
 ``narrow_plan``), and plain-tensor emulations of the box reads (zeros where a
 box leaves the tensor, below 0 for dx as past the end for the forward and dw;
-the narrow kernels' halo boxes and row table) against the plain versions and
-the JAX package."""
+the narrow kernels' halo boxes and row table, dx's one voxel lower) against
+the plain versions and the JAX package, and which kernel each dtype and shape
+is routed to."""
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -23,8 +25,8 @@ import torch
 from anytime3d_tpu.kernels.conv_k2 import conv_k2 as jax_conv_k2
 from anytime3d_tpu.kernels.conv_k2 import _conv_k2_bwd_impl, conv_k2_xla
 from anytime3d_tpu_torch.kernels import build
+from anytime3d_tpu_torch.kernels import conv_k2 as k2
 from anytime3d_tpu_torch.kernels.conv_k2 import (
-    _narrow_for,
     conv_k2,
     conv_k2_backward_reference,
     conv_k2_dw_reference,
@@ -384,8 +386,9 @@ NARROW = [(3, 8, 8, 8, 8, 8), (1, 8, 8, 8, 64, 16), (3, 8, 8, 8, 32, 32), (32, 3
           (1024, 32, 32, 32, 32, 8), (2, 32, 32, 32, 64, 8), (3, 32, 32, 32, 16, 32), (5, 5, 6, 7, 16, 8),
           (3, 5, 6, 7, 64, 32), (1, 2, 2, 256, 32, 16), (1, 2, 2, 256, 8, 8), (2, 9, 10, 40, 16, 8),
           (1, 33, 33, 33, 8, 8)]
-# and without: float32, N outside {8, 16, 32}, C % 8 != 0 or C not one TMA box (24, 128), shapes a wgmma plan takes
-NARROW_NONE = [((3, 8, 8, 8, 32, 8), torch.float32), ((32, 32, 32, 32, 32, 4), torch.bfloat16),
+# and without: float32 rows past 128 bytes (C = 64), N outside {8, 16, 32}, C % 8 != 0 or C not one TMA box (24,
+# 128), shapes a wgmma plan takes
+NARROW_NONE = [((3, 8, 8, 8, 64, 8), torch.float32), ((32, 32, 32, 32, 32, 4), torch.bfloat16),
                ((32, 32, 32, 32, 32, 24), torch.bfloat16), ((2, 8, 8, 8, 64, 64), torch.bfloat16),
                ((2, 5, 6, 7, 12, 8), torch.bfloat16), ((2, 5, 6, 7, 24, 8), torch.bfloat16),
                ((2, 8, 8, 8, 128, 8), torch.bfloat16), ((2, 5, 6, 7, 136, 8), torch.bfloat16),
@@ -398,15 +401,43 @@ def _narrow_boxes(B, D, H, W, box):
     return [(b, d, h, w) for b in range(B) for d in range(0, D, bd) for h in range(0, H, bh) for w in range(0, W, bw)]
 
 
-def _narrow_smem_of(box, C, N, dw):
-    """What ``nr::smem_bytes`` allots: 1024 bytes of alignment room, two stages (the halo box of x, 2C bytes a
-    voxel, and for dw the box of g, rows rounded up to 16), the forward's w fragments and its table of output
-    rows, the table of halo rows, two barriers; stages in whole KiB."""
+def _narrow_smem_of(box, C, N, dw, esize=2):
+    """What ``nr::smem_bytes`` allots for elements of ``esize`` bytes: 1024 bytes of alignment room, two stages
+    (the halo box of x, esize C bytes a voxel, and for dw the box of g, rows rounded up to 16), the forward's w
+    (8C x N) and its table of output rows, the table of halo rows, two barriers; stages in whole KiB. The float32
+    forward of a box of at most 512 rows splits the taps over the block's two halves: the second half's sums,
+    rows x N floats, besides."""
     bw, bh, bd = box
-    rows16 = -(-bw * bh * bd // 16) * 16
+    rows = bw * bh * bd
+    rows16 = -(-rows // 16) * 16
     kib = lambda n: -(-n // 1024) * 1024  # noqa: E731
-    stage = kib((bw + 1) * (bh + 1) * (bd + 1) * 2 * C) + (kib(rows16 * 2 * N) if dw else 0)
-    return 1024 + 2 * stage + (0 if dw else 16 * C * N + 4 * rows16) + 4 * rows16 + 16
+    stage = kib((bw + 1) * (bh + 1) * (bd + 1) * esize * C) + (kib(rows16 * esize * N) if dw else 0)
+    sums = 4 * rows * N if esize == 4 and rows <= 512 else 0
+    return 1024 + 2 * stage + (0 if dw else 8 * C * N * esize + 4 * rows16) + 4 * rows16 + 16 + sums
+
+
+def _check_narrow_boxes(B, D, H, W, C, N, box, boxes, smem, dw, esize):
+    bw, bh, bd = box
+    # the halo box (one more along each axis) within the TMA's 256 a dimension, at most 1024 rows a box,
+    # an m-tile's 16 rows on one w-line unless the box spans all of W, one block an SM
+    assert max(bw, bh, bd) + 1 <= 256 and bw <= W and bh <= H and bd <= D and bw * bh * bd <= 1024
+    assert bw % 16 == 0 or bw == W
+    assert smem == _narrow_smem_of(box, C, N, dw, esize) <= SMEM_PER_BLOCK
+    # the boxes of each batch item cover every voxel of its grid once (the last along an axis ragged)
+    origins = _narrow_boxes(B, D, H, W, box)
+    assert len(origins) == boxes
+    seen = np.zeros((D, H, W), np.int32)
+    for b, d, h, w in origins[:boxes // B]:
+        assert b == 0
+        seen[d:d + bd, h:h + bh, w:w + bw] += 1
+    assert (seen == 1).all()
+
+
+def _check_narrow_walk(plan):
+    """The forward: blocks i take boxes i, i + grid, ...: every box once."""
+    assert 1 <= plan.grid <= min(plan.boxes, 132)
+    walked = sorted(t for block in range(plan.grid) for t in range(block, plan.boxes, plan.grid))
+    assert walked == list(range(plan.boxes))
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", NARROW)
@@ -415,24 +446,8 @@ def test_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     assert plan is not None and wgmma_plan(B, D, H, W, C, N) is None
     for box, boxes, smem, dw in ((plan.box, plan.boxes, plan.smem_bytes, False),
                                  (plan.dw_box, plan.dw_boxes, plan.dw_smem_bytes, True)):
-        bw, bh, bd = box
-        # the halo box (one more along each axis) within the TMA's 256 a dimension, at most 1024 rows a box,
-        # an m-tile's 16 rows on one w-line unless the box spans all of W, one block an SM
-        assert max(bw, bh, bd) + 1 <= 256 and bw <= W and bh <= H and bd <= D and bw * bh * bd <= 1024
-        assert bw % 16 == 0 or bw == W
-        assert smem == _narrow_smem_of(box, C, N, dw) <= SMEM_PER_BLOCK
-        # the boxes of each batch item cover every voxel of its grid once (the last along an axis ragged)
-        origins = _narrow_boxes(B, D, H, W, box)
-        assert len(origins) == boxes
-        seen = np.zeros((D, H, W), np.int32)
-        for b, d, h, w in origins[:boxes // B]:
-            assert b == 0
-            seen[d:d + bd, h:h + bh, w:w + bw] += 1
-        assert (seen == 1).all()
-    # the forward: blocks i take boxes i, i + grid, ...: every box once
-    assert 1 <= plan.grid <= min(plan.boxes, 132)
-    walked = sorted(t for block in range(plan.grid) for t in range(block, plan.boxes, plan.grid))
-    assert walked == list(range(plan.boxes))
+        _check_narrow_boxes(B, D, H, W, C, N, box, boxes, smem, dw, 2)
+    _check_narrow_walk(plan)
     # dw: one wave, one block an SM; runs of whole boxes, every box once, none empty
     splits, per = plan.dw_splits, plan.dw_boxes_per_split
     assert 1 <= splits <= 132 and (splits - 1) * per < plan.dw_boxes <= splits * per
@@ -442,21 +457,46 @@ def test_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
 
 @pytest.mark.parametrize("shape,dtype", NARROW_NONE)
 def test_narrow_plan_is_none_where_the_kernels_do_not_apply(shape, dtype):
-    if dtype == torch.bfloat16:
-        assert narrow_plan(*shape) is None
-    else:  # the launcher gates the dtype, as it does wgmma_plan's: a float32 operand never asks for a plan
-        assert _narrow_for(torch.empty(*shape[:5], dtype=dtype), shape[5]) is None
+    assert narrow_plan(*shape, dtype=dtype) is None
+
+
+# (B, D, H, W, C, N) that float32 takes on the narrow forward: NARROW's shapes whose rows are at most 128 bytes
+NARROW_F32 = [s for s in NARROW if s[4] <= 32]
+# and without: C = 64 (256-byte rows), N outside {8, 16, 32}, C % 8 != 0, C = 24
+NARROW_F32_NONE = [(2, 32, 32, 32, 64, 8), (3, 5, 6, 7, 64, 32), (32, 32, 32, 32, 32, 4), (2, 8, 8, 8, 32, 64),
+                   (2, 5, 6, 7, 12, 8), (2, 5, 6, 7, 24, 16)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_F32)
+def test_f32_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
+    """float32's plan: 4C-byte rows in the halo box and w of 8C x N floats in one block's shared memory (at
+    32^3, C = 32, a 16 x 8 x 4 box: 2 x 98 KB of stages), every voxel in one box, every box walked once; no dw
+    part (float32 dw stays FFMA)."""
+    plan = narrow_plan(B, D, H, W, C, N, dtype=torch.float32)
+    assert plan is not None and plan.dw_box is None and plan.dw_smem_bytes is None
+    _check_narrow_boxes(B, D, H, W, C, N, plan.box, plan.boxes, plan.smem_bytes, False, 4)
+    _check_narrow_walk(plan)
+    if (D, H, W, C) == (32, 32, 32, 32):
+        assert plan.box == (16, 8, 4) and plan.smem_bytes > SMEM_PER_BLOCK // 2
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_F32_NONE)
+def test_f32_narrow_plan_is_none_where_the_kernel_does_not_apply(B, D, H, W, C, N):
+    assert narrow_plan(B, D, H, W, C, N, dtype=torch.float32) is None
+    assert narrow_plan(B, D, H, W, C, N, dtype=torch.float16) is None
 
 
 def _narrow_operand(x, plan_box, origin):
-    """The halo box of ``x`` (B,D,H,W,ch) at ``origin`` (b, d, h, w), (bd+1, bh+1, bw+1) voxels, zeros past
-    the grid (the TMA's fill), flattened to (voxels, ch) as it lies in shared memory (less the swizzle)."""
+    """The halo box of ``x`` (B,D,H,W,ch) at ``origin`` (b, d, h, w), (bd+1, bh+1, bw+1) voxels, zeros where
+    it leaves the grid, past the end or below 0 (the TMA's fill), flattened to (voxels, ch) as it lies in shared
+    memory (less the swizzle)."""
     bw, bh, bd = plan_box
     b, d, h, w = origin
     _, D, H, W, ch = x.shape
     out = torch.zeros(bd, bh, bw, ch, dtype=x.dtype)
-    part = x[b, d:d + bd, h:h + bh, w:w + bw]
-    out[:part.shape[0], :part.shape[1], :part.shape[2]] = part
+    lo = [max(0, -o) for o in (d, h, w)]
+    part = x[b, d + lo[0]:max(0, d + bd), h + lo[1]:max(0, h + bh), w + lo[2]:max(0, w + bw)]
+    out[lo[0]:lo[0] + part.shape[0], lo[1]:lo[1] + part.shape[1], lo[2]:lo[2] + part.shape[2]] = part
     return out.reshape(-1, ch)
 
 
@@ -481,10 +521,10 @@ def _narrow_a(halo, vrow, toff, C):
     return torch.cat(pieces, dim=1)
 
 
-def _emulate_narrow_forward(x, w, plan):
+def _emulate_narrow_forward(x, w, plan, lower=0):
     """The narrow forward as its blocks walk it: block i takes boxes i, i + grid, ...; each reads its halo box
-    once, forms A from the row table and stores the rows that lie inside the grid. Returns y and how often each
-    output row was written."""
+    once (``lower`` voxels below the box along d, h and w: 1 for dx), forms A from the row table and stores the
+    rows that lie inside the grid. Returns y and how often each output row was written."""
     B, D, H, W, C = x.shape
     N = w.shape[-1]
     bw, bh, bd = plan.box
@@ -495,7 +535,7 @@ def _emulate_narrow_forward(x, w, plan):
     for block in range(plan.grid):
         for box in range(block, plan.boxes, plan.grid):
             b, d0, h0, w0 = origins[box]
-            halo = _narrow_operand(x, (bw + 1, bh + 1, bd + 1), origins[box])
+            halo = _narrow_operand(x, (bw + 1, bh + 1, bd + 1), (b, d0 - lower, h0 - lower, w0 - lower))
             acc = _narrow_a(halo, vrow, toff, C) @ w.reshape(8 * C, N)
             for r in range(rows):
                 d, h, ww = d0 + r // bw // bh, h0 + r // bw % bh, w0 + r % bw
@@ -572,6 +612,33 @@ def test_narrow_halo_reads_give_dw(B, D, H, W, C, N):
     np.testing.assert_allclose(dw.numpy(), jax_dw, atol=tol, rtol=0)
 
 
+# NARROW_EMULATED's shapes whose dx has a narrow plan (the forward from N to C channels), and the detector's
+# pairing at a small grid: dx of 32 -> 8 is a forward of 8 -> 32
+NARROW_DX_EMULATED = [s for s in NARROW_EMULATED if narrow_plan(*s[:4], s[5], s[4]) is not None] + [
+    (2, 8, 8, 8, 32, 8)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_DX_EMULATED)
+def test_narrow_mirrored_halo_reads_give_dx(B, D, H, W, C, N):
+    """dx as the narrow kernel's DX instance walks it: the forward from N to C channels over g, with the halo
+    box one voxel lower (zeros below 0, the low-edge mask) and w'[s] = w[7 - s]^T, each bit of the tap flipped.
+    The emulated walk writes every dx row once and equals ``conv_k2_dx_reference`` and ``_conv_k2_bwd_impl``'s
+    dx: f32, summation order only, 1e-5 of the largest entry."""
+    rng = np.random.default_rng(9)
+    g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
+    w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
+    plan = narrow_plan(B, D, H, W, N, C, sms=2)  # the route's plan: 2 blocks, each walks several boxes
+    wm = torch.from_numpy(w).flip(0, 1, 2).transpose(3, 4)  # (2, 2, 2, N, C), as the wrapper lays it out
+    dx, written = _emulate_narrow_forward(torch.from_numpy(g), wm, plan, lower=1)
+    assert (written == 1).all()
+    ref = conv_k2_dx_reference(torch.from_numpy(g), torch.from_numpy(w)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(dx.numpy(), ref, atol=tol, rtol=0)
+    x = np.zeros((B, D, H, W, C), np.float32)
+    jax_dx = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))[0])
+    np.testing.assert_allclose(dx.numpy(), jax_dx, atol=tol, rtol=0)
+
+
 @pytest.mark.parametrize("row_bytes", [16, 32, 64, 128])
 def test_swizzled_rows_of_an_ldmatrix_fall_in_distinct_banks(row_bytes):
     """The narrow kernels' ``swizzle`` (the TMA's of a row's width: its 16-byte pieces XOR bits 7.. of the
@@ -587,6 +654,98 @@ def test_swizzled_rows_of_an_ldmatrix_fall_in_distinct_banks(row_bytes):
             offs = [swizzle(v * row_bytes + 16 * piece) for v in range(first, first + 8)]
             assert all(o // row_bytes == v for o, v in zip(offs, range(first, first + 8)))
             assert len({o % 128 // 16 for o in offs}) == 8
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_swizzled_f32_rows_read_as_float4_fall_in_distinct_banks(C):
+    """The float32 forward's rows of 4C bytes (32, 64, 128) under the TMA's swizzle of that width: the kernel
+    addresses piece c4 of a row as rb + (16 c4 ^ key), key from the row's start alone, which is the swizzle of
+    rb + 16 c4 (a piece never carries into bit 7); 8 lanes reading one piece of 8 consecutive voxels (a float4
+    phase, from any voxel) hit 8 different 16-byte bank groups."""
+    row_bytes = 4 * C
+    mask = row_bytes // 16 - 1
+
+    def swizzle(off):
+        return off ^ (((off >> 7) & mask) << 4)
+
+    for first in range(64):
+        for piece in range(row_bytes // 16):
+            offs = []
+            for v in range(first, first + 8):
+                rb = v * row_bytes
+                key = ((rb >> 7) & mask) << 4
+                offs.append(rb + ((piece << 4) ^ key))
+                assert offs[-1] == swizzle(rb + 16 * piece) and offs[-1] // row_bytes == v
+            assert len({o % 128 // 16 for o in offs}) == 8
+
+
+class _FakeLib:
+    """Stands in for the built library on the CPU: records each entry point's arguments, returns 0; of the
+    narrow dx also the bytes of w' (bfloat16 [8N, C]) as the launch is given them."""
+
+    def __init__(self):
+        self.calls = []
+        self.wm = None
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            if name == "conv_k2_backward_input_narrow":
+                C, N = args[7], args[8]
+                self.wm = ctypes.string_at(args[1], 8 * N * C * 2)
+            return 0
+
+        return entry
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """The CUDA launchers run on CPU tensors against a fake library: which entry point each call takes."""
+    lib = _FakeLib()
+    monkeypatch.setattr(k2, "_lib", lambda: lib)
+    monkeypatch.setattr(k2, "_check_cuda_operand", lambda *a: None)
+    monkeypatch.setattr(k2, "_sms", lambda t: 132)
+    monkeypatch.setattr(k2, "_stream", lambda t: 0)
+    return lib
+
+
+# (B, D, H, W, C, N, dtype, forward, dx, dw): the entry point each kernel takes. bf16 at the detector's 32 -> 8:
+# all three narrow (dx by the plan of 8 -> 32); float32 there: the forward narrow, dx and dw FFMA; bf16 64 -> 8:
+# the forward and dw narrow, dx FFMA (8 -> 64 has no narrow plan); float32 64 -> 8 (256-byte rows): all FFMA
+ROUTES = [(2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
+          (2, 8, 8, 8, 32, 8, torch.float32, "forward_narrow", "backward_input", "backward_weight"),
+          (2, 8, 8, 8, 64, 8, torch.bfloat16, "forward_narrow", "backward_input", "backward_weight_narrow"),
+          (2, 8, 8, 8, 64, 8, torch.float32, "forward", "backward_input", "backward_weight"),
+          (1, 8, 8, 8, 64, 64, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma")]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N,dtype,fwd,dx,dw", ROUTES)
+def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, dw):
+    """The launchers' choice, from shape and dtype alone: the narrow forward with the plan of its dtype and the
+    dtype's code; the narrow dx with the plan of the forward from N to C, ``narrow_plan(B, D, H, W, N, C)``, and
+    w'[s] = w[7 - s]^T laid out as (2, 2, 2, N, C); the counters of the route taken."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(B, D, H, W, C, generator=gen).to(dtype)
+    w = torch.randn(2, 2, 2, C, N, generator=gen)
+    g = torch.randn(B, D, H, W, N, generator=gen).to(dtype)
+    counters = ("launches_narrow", "launches_dx_narrow", "launches_dw_narrow")
+    before = [getattr(conv_k2, c) for c in counters]
+    k2._launch_forward(x, w)
+    k2._launch_dx(g, w)
+    k2._launch_dw(x, g)
+    assert [name for name, _ in routes.calls] == [f"conv_k2_{fwd}", f"conv_k2_{dx}", f"conv_k2_{dw}"]
+    moved = [getattr(conv_k2, c) - b for c, b in zip(counters, before)]
+    assert moved == [int(fwd.endswith("narrow")), int(dx.endswith("narrow")), int(dw.endswith("narrow"))]
+    (_, fargs), (_, dargs), _ = routes.calls
+    if fwd == "forward_narrow":
+        plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
+        assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, k2._DTYPE_CODES[dtype], None, 0)
+    if dx == "backward_input_narrow":
+        plan = narrow_plan(B, D, H, W, N, C)
+        assert dargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, None, 0)
+        # w' lies as w flipped in every tap bit, each tap transposed
+        wm = w.to(dtype).flip(0, 1, 2).transpose(3, 4).contiguous()
+        assert torch.equal(torch.frombuffer(bytearray(routes.wm), dtype=dtype).reshape(wm.shape), wm)
 
 
 # ---- the FFMA dw: its splits and its loaders' walk ----
