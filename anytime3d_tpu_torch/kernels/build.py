@@ -11,7 +11,10 @@ does the same for a host C++ source with ``g++`` (the native voxel packer,
 ``EXTRA_DEFINES`` (names, or ``NAME=value``) are passed as ``-D`` and are part
 of the hash; set them before the first kernel is used. The default build has
 none. ``CONV_K2_WAIT_TRAP_NS=<ns>`` makes the tensor-core kernels trap when a
-wait on a barrier lasts that long, for bring-up and the card tests.
+wait on a barrier lasts that long, for bring-up and the card tests;
+``CONV_K2_NARROW_PROBE=<1..3>`` leaves a part out of the float32 narrow
+kernels (``cli/probe_narrow.py``, which builds those libraries beside the
+port's with :func:`build`'s ``defines``).
 
 There is no fallback: without ``nvcc`` (on ``PATH``, under ``$CUDA_HOME`` or
 in ``/usr/local/cuda``) the build raises.
@@ -38,8 +41,8 @@ GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
 GXX_LIBS = ("-lpthread",)
 
 
-def _flags() -> tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in EXTRA_DEFINES)
+def _flags(defines: tuple[str, ...] | None = None) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in (EXTRA_DEFINES if defines is None else defines))
 
 
 def find_nvcc() -> str:
@@ -66,9 +69,9 @@ def _keyed_path(name: str, sources, flags) -> Path:
     return BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple[str, ...] | None = None) -> Path:
     """Where ``lib<name>.so`` is built, keyed by a hash of sources and flags."""
-    return _keyed_path(name, sorted(CSRC.iterdir()), _flags())
+    return _keyed_path(name, sorted(CSRC.iterdir()), _flags(defines))
 
 
 def _compile(lib: Path, argv: list[str], what: str) -> Path:
@@ -85,12 +88,13 @@ def _compile(lib: Path, argv: list[str], what: str) -> Path:
     return lib
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    lib = library_path(name)
+def build(name: str, defines: tuple[str, ...] | None = None) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists, with
+    ``defines`` in place of ``EXTRA_DEFINES`` where given."""
+    lib = library_path(name, defines)
     if lib.exists():
         return lib
-    return _compile(lib, [find_nvcc(), *_flags(), str(CSRC / f"{name}.cu")], f"nvcc failed to build {name}")
+    return _compile(lib, [find_nvcc(), *_flags(defines), str(CSRC / f"{name}.cu")], f"nvcc failed to build {name}")
 
 
 def build_host(src: Path) -> Path:

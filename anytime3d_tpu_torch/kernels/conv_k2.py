@@ -8,10 +8,10 @@ are formed and what bounds them. There are three designs: bfloat16 operands
 whose shape has a plan (:func:`wgmma_plan`) take the tensor-core kernels of
 ``csrc/conv_k2_wgmma.cuh`` in the forward, in dx and in dw; else operands of
 a narrow output (N = 8, 16 or 32) whose shape has a narrow plan
-(:func:`narrow_plan`) take the halo-box kernels of ``csrc/conv_k2_narrow.cuh``:
-in bfloat16 the forward, dw and dx (dx where the forward from N to C
-channels has a plan) on ``mma.sync``, in float32 the forward on FFMA; the
-rest take the FFMA kernels. The choice is made from shape and dtype before
+(:func:`narrow_plan`) take the halo-box kernels of ``csrc/conv_k2_narrow.cuh``
+in the forward, dw and dx (dx where the forward from N to C channels has a
+plan): on ``mma.sync`` in bfloat16, on FFMA in float32; the rest take the
+FFMA kernels. The choice is made from shape and dtype before
 the launch, never by catching a failure.
 
 The forward, dx and dw are the custom operators ``anytime3d_torch::conv_k2``,
@@ -86,7 +86,12 @@ def conv_k2_backward_reference(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("conv_k2")
+    return bind(build.load("conv_k2"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/conv_k2.cu``, with the argument and result
+    types of its entry points set."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.conv_k2_forward.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.conv_k2_backward_input.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
@@ -94,9 +99,9 @@ def _lib() -> ctypes.CDLL:
     lib.conv_k2_forward_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
     lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
     lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
-    lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
-    lib.conv_k2_backward_input_narrow.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
-    lib.conv_k2_backward_weight_narrow.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
+    lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
+    lib.conv_k2_backward_input_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
+    lib.conv_k2_backward_weight_narrow.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
     for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
                lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma,
                lib.conv_k2_forward_narrow, lib.conv_k2_backward_input_narrow, lib.conv_k2_backward_weight_narrow):
@@ -148,6 +153,7 @@ class WgmmaPlan:
     dw_box: tuple[int, int, int]
     dw_stages: int
     dw_smem_bytes: int
+    dw_stages: int
     dw_grid: tuple[int, int, int]
     dw_stages_per_split: int
 
@@ -222,6 +228,7 @@ _NR_CHANNELS = (8, 16, 32, 64)  # C: one TMA box of all channels
 _NR_ROW_BYTES = 128  # a voxel's channels in at most 128 bytes (float32: C <= 32)
 _NR_OUTPUTS = (8, 16, 32)  # N: 1, 2 or 4 mma n8 tiles
 _NR_ESIZE = {torch.bfloat16: 2, torch.float32: 4}
+_NR_CHUNK = 256  # rows of the float32 forward's output chunk: one a thread
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,46 +240,79 @@ class NarrowPlan:
     in one TMA copy; the grid's ``boxes`` (w fastest, the last along each axis
     ragged) are walked by ``grid`` blocks, block i taking boxes i, i + grid,
     .... ``smem_bytes`` is its dynamic shared memory (two stages of the halo,
-    w, the row table, barriers), which the launcher holds to its own
-    arithmetic. bfloat16 dx is cut by the forward plan of the shape as a
-    forward from N to C channels, ``narrow_plan(B, D, H, W, N, C)``.
+    w, the row table, barriers; in float32 the output chunks or the partial
+    sums), which the launcher holds to its own arithmetic. ``chunk_d``: the
+    d-planes of the box in each 256-row output chunk that the float32 kernel
+    stores through shared memory and the TMA, or 0 where it stores from
+    registers (:func:`_narrow_chunk_d`). dx is cut by the forward plan of the
+    shape as a forward from N to C channels, ``narrow_plan(B, D, H, W, N, C,
+    dtype=...)``.
 
-    dw (bfloat16; None for float32, whose dw stays on the FFMA kernel): boxes
-    of ``dw_box``, ``dw_boxes`` of them, each a halo box of x and a box of g;
-    ``dw_splits`` blocks reduce runs of ``dw_boxes_per_split`` consecutive
-    boxes (the last may be shorter, none is empty) in ``dw_smem_bytes``.
+    dw: boxes of ``dw_box``, ``dw_boxes`` of them, each a halo box of x and a
+    box of g, walked through ``dw_stages`` copies a block
+    (:func:`_narrow_stages`); ``dw_splits`` blocks reduce runs of
+    ``dw_boxes_per_split`` consecutive boxes (the last may be shorter, none is
+    empty) in ``dw_smem_bytes`` (float32: with the block's [8C, N] sum of its
+    groups' tiles).
     """
 
     box: tuple[int, int, int]
     boxes: int
     grid: int
     smem_bytes: int
-    dw_box: tuple[int, int, int] | None
-    dw_boxes: int | None
-    dw_splits: int | None
-    dw_boxes_per_split: int | None
-    dw_smem_bytes: int | None
+    chunk_d: int
+    dw_box: tuple[int, int, int]
+    dw_boxes: int
+    dw_splits: int
+    dw_boxes_per_split: int
+    dw_smem_bytes: int
+    dw_stages: int
 
 
 def _round_up(v: int, a: int) -> int:
     return -(-v // a) * a
 
 
-def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool, esize: int = 2) -> int:
+def _narrow_stages(dw: bool, esize: int) -> int:
+    """Copies of the operands a block holds: three for the float32 dw, two
+    for the rest."""
+    return 3 if dw and esize == 4 else 2
+
+
+def _narrow_chunk_d(box: tuple[int, int, int], dw: bool, esize: int) -> int:
+    """The d-planes of ``box`` in each 256-row output chunk of the float32
+    forward, which stores through two chunk buffers and the TMA where the box
+    does not split its taps (more than 512 rows) and is whole chunks of whole
+    d-planes; else 0, each row stored from registers."""
+    bw, bh, bd = box
+    rows = bw * bh * bd
+    if dw or esize != 4 or rows <= _NR_ROWS // 2 or rows % _NR_CHUNK or _NR_CHUNK % (bw * bh):
+        return 0
+    return _NR_CHUNK // (bw * bh)
+
+
+def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool, esize: int, stages: int, chunk_d: int) -> int:
     """Dynamic shared memory of a narrow launch (``nr::smem_bytes``) with
-    elements of ``esize`` bytes: alignment room, two stages (the halo box of
-    x; for dw also the box of g, its rows rounded up to 16), the forward's w
-    (8C x N) and table of output rows, the table of halo rows, two barriers;
-    and where the float32 forward splits the taps over two halves of the
-    block (a box of at most 512 rows), the second half's partial sums."""
+    elements of ``esize`` bytes: alignment room, ``stages`` stages (the halo
+    box of x; for dw also the box of g, its rows rounded up to 16), the
+    forward's w (8C x N) and table of output rows, the table of halo rows, a
+    barrier a stage (in a multiple of 16 bytes); the float32 forward's two
+    chunk buffers of 256 rows (4N bytes each) where ``chunk_d`` is set; and
+    the float32 kernels' partial sums: where the forward splits the taps over
+    two halves of the block (a box of at most 512 rows), the second half's
+    (rows x N); dw's sum of its groups' tiles (8C x N)."""
     bw, bh, bd = box
     rows = bw * bh * bd
     rows16 = _round_up(rows, 16)
     stage = _round_up((bw + 1) * (bh + 1) * (bd + 1) * esize * C, _NR_ALIGN)
     if dw:
         stage += _round_up(rows16 * esize * N, _NR_ALIGN)
-    split_sums = 4 * rows * N if esize == 4 and rows <= _NR_ROWS // 2 else 0
-    return _NR_ALIGN + 2 * stage + (0 if dw else 8 * C * N * esize + 4 * rows16) + 4 * rows16 + 16 + split_sums
+    sums = 0
+    if esize == 4:
+        sums = 32 * C * N if dw else 4 * rows * N if rows <= _NR_ROWS // 2 else 0
+    chunks = 2 * _round_up(_NR_CHUNK * 4 * N, _NR_ALIGN) if chunk_d else 0
+    return (_NR_ALIGN + stages * stage + chunks + (0 if dw else 8 * C * N * esize + 4 * rows16) + 4 * rows16
+            + _round_up(8 * stages, 16) + sums)
 
 
 def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool, esize: int = 2) -> tuple[int, int, int] | None:
@@ -292,7 +332,11 @@ def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool, esize: int = 2
         for bh in extents(H, 1):
             for bw in extents(W, 16):
                 rows = bw * bh * bd
-                if rows > _NR_ROWS or _narrow_smem((bw, bh, bd), C, N, dw, esize) > _WG_SMEM_MAX:
+                if rows > _NR_ROWS:
+                    continue
+                smem = _narrow_smem((bw, bh, bd), C, N, dw, esize, _narrow_stages(dw, esize),
+                                    _narrow_chunk_d((bw, bh, bd), dw, esize))
+                if smem > _WG_SMEM_MAX:
                     continue
                 key = ((bw + 1) * (bh + 1) * (bd + 1) / rows, -rows)
                 if best_key is None or key < best_key:
@@ -313,28 +357,24 @@ def narrow_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
     8, 16 or 32, C of 8, 16, 32 or 64 (a multiple of 8, one TMA box of all
     channels in rows of at most 128 bytes, so float32 C <= 32; at most 4 m16
     tiles of dw's accumulators a warp), and never where :func:`wgmma_plan`
-    applies. float32 plans have no dw part. Pure arithmetic; ``sms`` is the
-    card's count of multiprocessors."""
+    applies. Pure arithmetic; ``sms`` is the card's count of
+    multiprocessors."""
     esize = _NR_ESIZE.get(dtype)
     if (esize is None or C not in _NR_CHANNELS or esize * C > _NR_ROW_BYTES or N not in _NR_OUTPUTS
             or min(B, D, H, W) < 1 or B * D * H * W >= 2**31 or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None):
         return None
-    box = _narrow_box(D, H, W, C, N, False, esize)
-    if box is None:
+    box, dw_box = _narrow_box(D, H, W, C, N, False, esize), _narrow_box(D, H, W, C, N, True, esize)
+    if box is None or dw_box is None:
         return None
-    boxes = _boxes(B, D, H, W, box)
-    plan = NarrowPlan(box=box, boxes=boxes, grid=min(boxes, sms), smem_bytes=_narrow_smem(box, C, N, False, esize),
-                      dw_box=None, dw_boxes=None, dw_splits=None, dw_boxes_per_split=None, dw_smem_bytes=None)
-    if esize != 2:
-        return plan
-    dw_box = _narrow_box(D, H, W, C, N, True)
-    if dw_box is None:
-        return None
-    dw_boxes = _boxes(B, D, H, W, dw_box)
+    boxes, dw_boxes = _boxes(B, D, H, W, box), _boxes(B, D, H, W, dw_box)
     # dw: one wave of blocks, one an SM, each a run of whole boxes
     per_split = -(-dw_boxes // min(dw_boxes, sms))
-    return dataclasses.replace(plan, dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
-                               dw_boxes_per_split=per_split, dw_smem_bytes=_narrow_smem(dw_box, C, N, True))
+    chunk_d, dw_stages = _narrow_chunk_d(box, False, esize), _narrow_stages(True, esize)
+    return NarrowPlan(box=box, boxes=boxes, grid=min(boxes, sms),
+                      smem_bytes=_narrow_smem(box, C, N, False, esize, 2, chunk_d), chunk_d=chunk_d,
+                      dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
+                      dw_boxes_per_split=per_split,
+                      dw_smem_bytes=_narrow_smem(dw_box, C, N, True, esize, dw_stages, 0), dw_stages=dw_stages)
 
 
 def _sms(x: torch.Tensor) -> int:
@@ -409,7 +449,7 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     elif narrow is not None:
         _check_launch("conv_k2 (narrow)", _lib().conv_k2_forward_narrow(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
-            narrow.smem_bytes, _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+            narrow.smem_bytes, narrow.chunk_d, _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
         conv_k2.launches_narrow += 1
     else:
         _check_launch("conv_k2", _lib().conv_k2_forward(
@@ -438,7 +478,7 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dx = torch.empty((B, D, H, W, C), dtype=g.dtype, device=g.device)
     # both plans are those of the forward from N to C channels
     plan = _plan_for(g, C)
-    narrow = None if plan is not None or g.dtype != torch.bfloat16 else _narrow_for(g, C)
+    narrow = None if plan is not None else _narrow_for(g, C)
     if plan is not None:
         # w as it lies: its (c, n) boxes are the K-major B tiles of dx
         wc = w.to(g.dtype).contiguous()
@@ -454,7 +494,7 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _check_operands("conv_k2 dx", C, N, g, wm, dx, depth_is_n=True)
         _check_launch("conv_k2 dx (narrow)", _lib().conv_k2_backward_input_narrow(
             g.data_ptr(), wm.data_ptr(), dx.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
-            narrow.smem_bytes, g.device.index, _stream(g)))
+            narrow.smem_bytes, narrow.chunk_d, _DTYPE_CODES[g.dtype], g.device.index, _stream(g)))
         conv_k2.launches_dx_narrow += 1
     else:
         # (2,2,2,N,C): the depth of dx is (tap, n). Plumbing on <= 2.1 M elements; no
@@ -479,8 +519,9 @@ def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``anytime3d_torch::conv_k2_dx``. CUDA tensors go through a kernel (adding
     one to ``conv_k2.launches_dx``, and to ``conv_k2.launches_dx_wgmma`` or
     ``conv_k2.launches_dx_narrow`` where it is the tensor-core or the narrow
-    kernel: bfloat16 whose shape, as a forward from N to C, has that plan) or
-    the call raises; CPU tensors through :func:`conv_k2_dx_reference`."""
+    kernel: bfloat16 whose shape, as a forward from N to C, has a wgmma plan,
+    or either type whose shape so has a narrow plan) or the call raises; CPU
+    tensors through :func:`conv_k2_dx_reference`."""
     return _conv_k2_dx_op(g, w)
 
 
@@ -524,7 +565,7 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     B, D, H, W, C = x.shape
     N = g.shape[-1]
     plan = _plan_for(x, N)
-    narrow = None if plan is not None or x.dtype != torch.bfloat16 else _narrow_for(x, N)
+    narrow = None if plan is not None else _narrow_for(x, N)
     if plan is not None:
         splits = plan.dw_grid[2]
     elif narrow is not None:
@@ -543,7 +584,8 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     elif narrow is not None:
         _check_launch("conv_k2 dw (narrow)", _lib().conv_k2_backward_weight_narrow(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, narrow.dw_boxes_per_split,
-            B, D, H, W, C, N, *narrow.dw_box, narrow.dw_smem_bytes, x.device.index, _stream(x)))
+            B, D, H, W, C, N, *narrow.dw_box, narrow.dw_smem_bytes, narrow.dw_stages, _DTYPE_CODES[x.dtype],
+            x.device.index, _stream(x)))
         conv_k2.launches_dw_narrow += 1
     else:
         _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
@@ -598,9 +640,9 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``conv_k2.launches_dx`` or ``conv_k2.launches_dw``; a launch of a
     tensor-core kernel also to ``conv_k2.launches_wgmma`` (forward),
     ``conv_k2.launches_dx_wgmma`` or ``conv_k2.launches_dw_wgmma``, and of a
-    narrow kernel to ``conv_k2.launches_narrow`` (forward, bfloat16 or
-    float32), ``conv_k2.launches_dx_narrow`` or ``conv_k2.launches_dw_narrow``
-    (bfloat16)."""
+    narrow kernel (bfloat16 or float32) to ``conv_k2.launches_narrow``
+    (forward), ``conv_k2.launches_dx_narrow`` or
+    ``conv_k2.launches_dw_narrow``."""
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:4]) != (2, 2, 2, x.shape[-1]):
         raise ValueError(f"conv_k2 takes x (B,D,H,W,C) and w (2,2,2,C,N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:

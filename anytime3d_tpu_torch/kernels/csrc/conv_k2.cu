@@ -51,17 +51,17 @@
 // Three designs live here. The kernels of this file are tiled SIMT GEMMs (FFMA)
 // with f32 accumulators in registers: f32 is computed in true f32 (no TF32),
 // bf16 is read as bf16, widened to f32, accumulated in f32 and rounded once on
-// store. They take the shapes that have no plan: float32 dx and dw of any
-// shape, float32 forwards and bfloat16 calls without a narrow plan. The
+// store. They take float32 calls without a narrow plan (the flagship stages
+// among them) and bfloat16 calls with neither plan. The
 // bfloat16 forward, dx and dw of the shapes that have a wgmma plan (C and N
 // multiples of 64, rows that tile into boxes: the flagship stages) run on the
 // tensor cores: conv_k2_wgmma.cuh holds those kernels (wgmma products,
 // operands brought in by TMA box copies into a ring of swizzled shared-memory
 // tiles) and says how they are formed. Narrow outputs (N = 8, 16, 32; C = 8,
 // 16, 32, 64, and at most 32 in float32: the detector decoder's last conv) run
-// over one halo box of x a block, conv_k2_narrow.cuh: the bfloat16 forward,
-// dw and dx (the forward from N to C channels, the box one voxel lower) on
-// mma.sync, the float32 forward on FFMA. Which design a call takes is settled
+// over one halo box of x a block, conv_k2_narrow.cuh: the forward, dw and dx
+// (the forward from N to C channels, the box one voxel lower), on mma.sync in
+// bfloat16 and on FFMA in float32. Which design a call takes is settled
 // by the Python wrapper from shape and dtype, before the launch: the wgmma
 // plan, else the narrow plan, else FFMA.
 //
@@ -569,8 +569,8 @@ cudaError_t launch_gemm_tile(const void* x, const void* w, void* y, int D, int H
 
 // Tiles of 128 columns and 16 rows a thread, or of 64 and 8 where the output is no wider: there 16
 // rows a thread would leave an SM four warps at the flagship sizes, too few to hide anything. Outputs of
-// 8, 16 or 32 columns come here only without a narrow plan (float32 dx, float32 at C = 64, shapes whose box
-// does not fit), and then leave most of the 64 idle.
+// 8, 16 or 32 columns come here only without a narrow plan (float32 at C = 64, shapes whose box does not
+// fit), and then leave most of the 64 idle.
 template <typename T, bool BWD>
 cudaError_t launch_gemm(const void* x, const void* w, void* y, int D, int H, int W, int C, int N,
                         long long M, cudaStream_t s) {
@@ -747,43 +747,51 @@ int conv_k2_backward_weight_wgmma(const void* x, const void* g, void* dw, void* 
 
 // The forward for narrow outputs, bfloat16 on mma.sync or float32 on FFMA:
 // the output box (bw, bh, bd) of the wrapper's narrow plan, `grid` blocks
-// walking the boxes, and the dynamic shared memory it worked out, which must
-// be this file's own (else wg::PLAN_MISMATCH). Needs C in {8, 16, 32, 64}
-// (float32: up to 32) and N in {8, 16, 32}.
+// walking the boxes, the dynamic shared memory it worked out, which must be
+// this file's own (else wg::PLAN_MISMATCH), and its `chunk_d`: the d-planes of
+// the float32 output chunk stored through shared memory, or 0 (see
+// nr::make_geom). Needs C in {8, 16, 32, 64} (float32: up to 32) and N in {8,
+// 16, 32}.
 int conv_k2_forward_narrow(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw,
-                           int bh, int bd, int grid, int smem_bytes, int dtype, int device, void* stream) {
+                           int bh, int bd, int grid, int smem_bytes, int chunk_d, int dtype, int device,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return nr::launch_fwd(x, w, y, B, D, H, W, C, N, bw, bh, bd, grid, smem_bytes, dtype, false,
+  return nr::launch_fwd(x, w, y, B, D, H, W, C, N, bw, bh, bd, grid, smem_bytes, chunk_d, dtype, false,
                         static_cast<cudaStream_t>(stream));
 }
 
-// The bfloat16 dx [B,D,H,W,C] for narrow shapes from g [B,D,H,W,N] and wm
-// [2,2,2,N,C], w's taps mirrored and each transposed (wm[s] = w[7 - s]^T):
-// the forward from N to C channels over g read one voxel lower, at the box
-// and grid of the plan of that forward. Needs N in {8, 16, 32, 64} and C in
-// {8, 16, 32}.
+// dx [B,D,H,W,C] for narrow shapes, bfloat16 on mma.sync or float32 on FFMA,
+// from g [B,D,H,W,N] and wm [2,2,2,N,C], w's taps mirrored and each
+// transposed (wm[s] = w[7 - s]^T): the forward from N to C channels over g
+// read one voxel lower, at the box, grid, shared memory and chunk_d of the
+// plan of that forward. Needs N in {8, 16, 32, 64} (float32: up to 32) and C
+// in {8, 16, 32}.
 int conv_k2_backward_input_narrow(const void* g, const void* wm, void* dx, int B, int D, int H, int W, int C, int N,
-                                  int bw, int bh, int bd, int grid, int smem_bytes, int device, void* stream) {
+                                  int bw, int bh, int bd, int grid, int smem_bytes, int chunk_d, int dtype,
+                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return nr::launch_fwd(g, wm, dx, B, D, H, W, N, C, bw, bh, bd, grid, smem_bytes, 1, true,
+  return nr::launch_fwd(g, wm, dx, B, D, H, W, N, C, bw, bh, bd, grid, smem_bytes, chunk_d, dtype, true,
                         static_cast<cudaStream_t>(stream));
 }
 
-// The bfloat16 dw for narrow outputs: the boxes (bw, bh, bd) of the grid are
-// cut into `splits` runs of `boxes_per_split` (the last may be shorter, none
-// is empty); `workspace` holds splits*8*C*N floats (unused when splits == 1);
-// `smem_bytes` is the plan's dynamic shared memory, held to this file's own.
+// dw for narrow outputs, bfloat16 on mma.sync or float32 on FFMA: the boxes
+// (bw, bh, bd) of the grid are cut into `splits` runs of `boxes_per_split`
+// (the last may be shorter, none is empty); `workspace` holds splits*8*C*N
+// floats (unused when splits == 1); `smem_bytes` is the plan's dynamic shared
+// memory, held to this file's own, and `stages` its copies of x and g a block
+// (2; the float32 dw's 3).
 int conv_k2_backward_weight_narrow(const void* x, const void* g, void* dw, void* workspace, int splits,
                                    int boxes_per_split, int B, int D, int H, int W, int C, int N, int bw, int bh,
-                                   int bd, int smem_bytes, int device, void* stream) {
+                                   int bd, int smem_bytes, int stages, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(dw);
   float* part = splits == 1 ? out : static_cast<float*>(workspace);
-  const int rc = nr::launch_dw(x, g, part, splits, boxes_per_split, B, D, H, W, C, N, bw, bh, bd, smem_bytes, s);
+  const int rc = nr::launch_dw(x, g, part, splits, boxes_per_split, B, D, H, W, C, N, bw, bh, bd, smem_bytes, stages,
+                               dtype, s);
   if (rc || splits == 1) return rc;
   const long long count4 = static_cast<long long>(8) * C * N / 4;
   conv_k2_dw_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(part, out, count4, splits);

@@ -1,13 +1,12 @@
 // conv_k2 for narrow outputs (N = 8, 16 or 32) on Hopper: in bfloat16 the
-// forward, dx and dw on mma.sync, in float32 the forward on FFMA. Included by
-// conv_k2.cu, which states what the operation computes; the barrier and TMA
-// helpers are conv_k2_wgmma.cuh's.
+// forward, dx and dw on mma.sync, in float32 the forward, dx and dw on FFMA.
+// Included by conv_k2.cu, which states what the operation computes; the
+// barrier and TMA helpers are conv_k2_wgmma.cuh's.
 //
 // Replaces, for operands whose shape has a narrow plan (see
 // kernels/conv_k2.py::narrow_plan), the forward of the TPU kernel
-// anytime3d_tpu/kernels/conv_k2.py::_conv_k2_pallas (:129-169) and, in
-// bfloat16, the dx and dw products of its backward (_conv_k2_bwd_impl,
-// :172-205). float32 dx and dw stay on the FFMA kernels.
+// anytime3d_tpu/kernels/conv_k2.py::_conv_k2_pallas (:129-169) and the dx and
+// dw products of its backward (_conv_k2_bwd_impl, :172-205), in both types.
 //
 // What bounds them on this card: bytes. At the detector decoder's last conv
 // (32 decodes of 32^3, C = 32 -> N = 8) the forward reads 67 MB of x and
@@ -78,7 +77,31 @@
 //   half of it. Where the box has at most 512 rows (C = 32) the block's two
 //   halves each take 4 of the 8 taps for all rows, so w is read once for 4
 //   rows, not 2; the second half's partial sums meet the first's in shared
-//   memory. A row's result is stored as N/4 float4.
+//   memory. A row's result is stored as N/4 float4, or, where the box has no
+//   split and is a whole number of 256-row chunks of d-planes, through
+//   shared memory: each chunk written swizzled into one of two buffers and
+//   stored by the TMA (clipped at the grid) while the block goes on. float32
+//   dx is its DX instance, as the bf16 forward's: the halo box of g one voxel
+//   lower, w' from the wrapper. At the detector (8 -> 32 channels, a 16 x 8 x
+//   8 box of 1024 rows, 4 rows and 32 columns a thread) dx writes 134 MB: as
+//   8 float4 a row at a 128-byte stride a lane, the store alone took longer
+//   than the products.
+// - float32 dw (conv_k2_narrow_dw_f32_kernel): the bf16 dw's walk (a run of
+//   consecutive boxes a block, the halo box of x and the box of g by one TMA
+//   copy each), exact FFMA, three stages. The output is small (8C x N, 2048
+//   floats at C = 32, N = 8), so a thread keeps a register tile of it: 8
+//   channels of one tap by 8 outputs, 64 accumulators. The C N / 8 tiles make
+//   a group of threads (32 at the detector: one warp, lane = tap * C/8 +
+//   channel group), and the block's 256 / (C N / 8) groups deal the box's
+//   rows among them, row r to group r % groups. A row costs a thread two
+//   swizzled float4 of x and two float4 of g, which every lane of a group
+//   reads at once (a broadcast), for 64 FFMA: shared memory's 128 bytes a
+//   clock stay under the FFMA rate. In a warp, lanes of taps 2k and 2k + 1 read
+//   voxels v and v + 1, whose swizzles differ in the low bit, so a phase of 8
+//   lanes hits 8 bank groups. After the run the groups' tiles are added in
+//   shared memory, group 0 first, then 1, ...; the split's partial goes to the
+//   workspace and conv_k2_dw_reduce_kernel adds the splits in order: the same
+//   bits every run.
 
 #pragma once
 
@@ -99,6 +122,16 @@ constexpr int MAX_EXTENT = 255;     // a box extent; its halo's is one more, wit
 constexpr int DW_MAX_M_TILES = 4;   // m16 tiles of dw's 8C rows a warp: C <= 64
 constexpr uint32_t ALIGN = 1024;    // stage alignment: the longest swizzle's period
 
+// CONV_K2_NARROW_PROBE builds the float32 kernels with a part left out, to
+// time the rest (cli/probe_narrow.py; the port's build has 0, all of it). The
+// forward and dx: 1 without the store of y, 2 without the products, 3 without
+// both. dw: 1 without each row's loads (every row's products on the first
+// row's operands), 2 with 8 FFMA a row for 64, 3 without the loop over rows.
+#ifndef CONV_K2_NARROW_PROBE
+#define CONV_K2_NARROW_PROBE 0
+#endif
+constexpr int PROBE = CONV_K2_NARROW_PROBE;
+
 // Where a launch's shapes meet: the grid, the box and the byte counts, worked
 // out on the host and passed by value.
 struct Geom {
@@ -109,27 +142,54 @@ struct Geom {
   int boxes;            // B * nd * nh * nw
   int rows, rows16;     // bw * bh * bd, and that rounded up to 16
   uint32_t halo_bytes;  // (bw + 1)(bh + 1)(bd + 1) * row: one TMA copy of x
-  uint32_t g_bytes;     // rows * 2N: one TMA copy of g (dw)
+  uint32_t g_bytes;     // rows * esize N: one TMA copy of g (dw)
   uint32_t stage_x;     // halo_bytes rounded up to ALIGN
-  uint32_t stage_g;     // rows16 * 2N rounded up to ALIGN (dw; 0 for the forward)
+  uint32_t stage_g;     // rows16 * esize N rounded up to ALIGN (dw; 0 for the forward)
   int split;            // the float32 forward's parts of the taps: 2 where rows <= 2 THREADS, else 1
+  uint32_t sums;        // float32 partial sums: the split forward's second part (rows x N), dw's tile (8C x N)
+  uint32_t stage_y;     // the float32 forward's output chunk (THREADS rows x 4N, two of them), or 0: see make_geom
+  int chunk_d;          // d-planes of the box in a chunk, THREADS / (bw bh), or 0: the plan's
+  int stages;           // copies of x (and g) a block holds: the plan's, 2 or (the float32 dw) 3
 };
 
 __host__ __device__ constexpr uint32_t round_up(uint32_t v, uint32_t a) { return (v + a - 1) / a * a; }
 
-// Dynamic shared memory of a launch: alignment room, two stages, the forward's
-// w (8C x N elements: 8 N row bytes) and its table of output rows, the table
-// of halo rows, two barriers, and where the float32 forward splits the taps
-// the partial sums of the second part (rows x N floats).
+// Dynamic shared memory of a launch: alignment room, the stages (and the
+// float32 forward's two output chunks), the forward's w (8C x N elements: 8 N
+// row bytes) and its table of output rows, the table of halo rows, a barrier a
+// stage (their room a multiple of 16 bytes), and the float32 kernels' partial
+// sums.
 __host__ __device__ inline size_t smem_bytes(const Geom& g, int N, bool dw) {
-  return ALIGN + 2 * static_cast<size_t>(g.stage_x + g.stage_g) + (dw ? 0 : 8 * N * g.row + 4 * g.rows16) +
-         4 * g.rows16 + 16 + (g.split > 1 ? 4 * g.rows * N : 0);
+  return ALIGN + static_cast<size_t>(g.stages) * (g.stage_x + g.stage_g) + 2 * static_cast<size_t>(g.stage_y) +
+         (dw ? 0 : 8 * N * g.row + 4 * g.rows16) + 4 * g.rows16 + round_up(8 * g.stages, 16) + g.sums;
 }
 
 // Byte offset `off` of a buffer of rows of `mask` + 1 16-byte pieces, as the
 // TMA's swizzle of that row width placed it: piece ^= bits 7.. of the offset.
 __device__ __forceinline__ uint32_t swizzle(uint32_t off, uint32_t mask) {
   return off ^ (((off >> 7) & mask) << 4);
+}
+
+// The TMA's store of a box from shared memory (the bulk-group form): one
+// thread issues it after the writing threads' proxy fence and a barrier; a
+// chunk buffer is written again only once its store has read it.
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2, int c3,
+                                             int c4) {
+  asm volatile("cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait_read() {  // at most PENDING stores still reading shared memory
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void fence_proxy_async() {  // this thread's shared-memory writes, seen by the TMA
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
@@ -192,10 +252,9 @@ __device__ __forceinline__ void fill_rows(const Geom& g, int* vrow, int* loc) {
   }
 }
 
-__device__ __forceinline__ void init_barriers(uint32_t bar) {
+__device__ __forceinline__ void init_barriers(uint32_t bar, int n = 2) {
   if (threadIdx.x == 0) {
-    wg::mbar_init(bar, 1);
-    wg::mbar_init(bar + 8, 1);
+    for (int i = 0; i < n; ++i) wg::mbar_init(bar + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 }
@@ -314,16 +373,22 @@ conv_k2_narrow_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __nv_
 }
 
 // Forward in float32: y [B, D, H, W, N] from x [B, D, H, W, C] and w [8C, N]
-// (N = 8 NT), each product an FFMA. The walk, stages and tables are the bf16
-// forward's. The block is g.split parts of THREADS / split threads, part p
-// taking taps [8p / split, 8(p + 1) / split); a thread owns rows lt + q
-// THREADS / split (q < RT) of the box, lt its index in its part, and all N
-// columns: 8 consecutive lanes read 8 consecutive voxels, conflict-free under
-// the swizzle. Rows past the box compute on voxel 0 and are not stored.
-template <int NT>
+// (N = 8 NT), each product an FFMA; DX: dx from g and w' with the halo box one
+// voxel lower, as the bf16 kernel's DX instance. The walk, stages and tables
+// are the bf16 forward's. The block is g.split parts of THREADS / split
+// threads, part p taking taps [8p / split, 8(p + 1) / split); a thread owns
+// rows lt + q THREADS / split (q < RT) of the box, lt its index in its part,
+// and all N columns: 8 consecutive lanes read 8 consecutive voxels,
+// conflict-free under the swizzle. Rows past the box compute on voxel 0 and
+// are not stored. Where g.stage_y is set (no split, the box a whole number of
+// THREADS-row chunks of d-planes) row q of each thread, chunk q of the box, is
+// written swizzled into one of two chunk buffers and stored by the TMA, which
+// clips it at the grid's edge, while the block goes on: 16-byte stores a lane
+// at a row's stride left most of each line unwritten a request.
+template <int NT, bool DX>
 __global__ void __launch_bounds__(THREADS, 1)
-conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const float* __restrict__ w,
-                              float* __restrict__ y, const Geom g) {
+conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_y,
+                              const float* __restrict__ w, float* __restrict__ y, const Geom g) {
   constexpr int N = 8 * NT;
   constexpr int NV = N / 4;  // float4 a row of w or y
   constexpr int RT = MAX_ROWS / THREADS;  // rows a thread: split * RT * (THREADS / split) covers any box
@@ -331,11 +396,12 @@ conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const f
   const uint32_t raw = wg::smem_u32(smem_raw);
   const uint32_t base = round_up(raw, ALIGN);
   uint8_t* const base_p = smem_raw + (base - raw);
-  float4* const ws = reinterpret_cast<float4*>(base_p + 2 * g.stage_x);
-  int* const vrow = reinterpret_cast<int*>(base_p + 2 * g.stage_x + 8 * N * g.row);
+  const uint32_t ys = 2 * g.stage_x, rest = 2 * (g.stage_x + g.stage_y);  // the chunk buffers, then the rest
+  float4* const ws = reinterpret_cast<float4*>(base_p + rest);
+  int* const vrow = reinterpret_cast<int*>(base_p + rest + 8 * N * g.row);
   int* const loc = vrow + g.rows16;
-  const uint32_t bar = base + 2 * g.stage_x + 8 * N * g.row + 8 * g.rows16;
-  float4* const part_sum = reinterpret_cast<float4*>(base_p + 2 * g.stage_x + 8 * N * g.row + 8 * g.rows16 + 16);
+  const uint32_t bar = base + rest + 8 * N * g.row + 8 * g.rows16;
+  float4* const part_sum = reinterpret_cast<float4*>(base_p + rest + 8 * N * g.row + 8 * g.rows16 + 16);
   const int tid = threadIdx.x;
   const int grid = gridDim.x, n_boxes = (g.boxes - static_cast<int>(blockIdx.x) + grid - 1) / grid;
   const int part_threads = THREADS / g.split, part = tid / part_threads, lt = tid % part_threads;
@@ -345,8 +411,9 @@ conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const f
   auto issue = [&](int s, int box) {  // thread 0: the halo box of `box` into stage s
     int w0, h0, d0, b;
     box_origin(g, box, w0, h0, d0, b);
+    const int lo = DX ? 1 : 0;  // dx reads g one voxel lower; below 0 the TMA writes zeros
     wg::mbar_arrive_expect_tx(bar + 8 * s, g.halo_bytes);
-    wg::tma_load_5d(base + s * g.stage_x, mx, bar + 8 * s, 0, w0, h0, d0, b);
+    wg::tma_load_5d(base + s * g.stage_x, mx, bar + 8 * s, 0, w0 - lo, h0 - lo, d0 - lo, b);
   };
 
   init_barriers(bar);
@@ -375,7 +442,7 @@ conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const f
 #pragma unroll
         for (int n = 0; n < N; ++n) acc[q][n] = 0.f;
       }
-      for (int t = tap0; t < tap1; ++t) {
+      for (int t = tap0; t < (PROBE & 2 ? tap0 : tap1); ++t) {
         // a row's pieces lie inside its row bytes, so its swizzle is one XOR key a tap:
         // swizzle(rb + 16 c4) = rb + (16 c4 ^ key)
         uint32_t rb[RT], key[RT];
@@ -436,25 +503,46 @@ conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const f
               }
           }
       }
-      // rows past the box or the grid (a ragged last box) are not stored; the first part stores
-      const int lim_w = g.W - w0, lim_h = g.H - h0, lim_d = g.D - d0;
-      const long long row0 = ((static_cast<long long>(b) * g.D + d0) * g.H + h0) * g.W + w0;
+      if (PROBE & 1 && g.D > 0) {
+        // the probe without the store: g.D > 0 always holds, but the compiler cannot know it and keeps the products
+      } else if (g.stage_y) {  // chunk q (rows q THREADS ..) through buffer (i * chunks + q) % 2 and the TMA
+        const uint32_t omask = 4 * N / 16 - 1;
 #pragma unroll
-      for (int q = 0; q < RT; ++q) {
-        const int r = lt + part_threads * q;
-        if (part != 0 || r >= g.rows) continue;
-        const int l = loc[r];
-        const int rw = l & 1023, rh = (l >> 10) & 1023, rd = l >> 20;
-        if (rw >= lim_w || rh >= lim_h || rd >= lim_d) continue;
-        float4* out = reinterpret_cast<float4*>(y + (row0 + (static_cast<long long>(rd) * g.H + rh) * g.W + rw) * N);
+        for (int q = 0; q < RT; ++q) {
+          if (THREADS * q >= g.rows) break;
+          const uint32_t buf = ys + ((i * (g.rows / THREADS) + q) & 1) * g.stage_y;
+          if (tid == 0) bulk_wait_read<1>();  // the buffer's last store has read it
+          __syncthreads();
 #pragma unroll
-        for (int j = 0; j < NV; ++j)
-          out[j] = make_float4(acc[q][4 * j], acc[q][4 * j + 1], acc[q][4 * j + 2], acc[q][4 * j + 3]);
+          for (int j = 0; j < NV; ++j)
+            *reinterpret_cast<float4*>(base_p + buf + swizzle(tid * 4 * N + 16 * j, omask)) =
+                make_float4(acc[q][4 * j], acc[q][4 * j + 1], acc[q][4 * j + 2], acc[q][4 * j + 3]);
+          fence_proxy_async();
+          __syncthreads();
+          if (tid == 0) tma_store_5d(&map_y, base + buf, 0, w0, h0, d0 + q * g.chunk_d, b);
+        }
+      } else {  // rows past the box or the grid (a ragged last box) are not stored; the first part stores
+        const int lim_w = g.W - w0, lim_h = g.H - h0, lim_d = g.D - d0;
+        const long long row0 = ((static_cast<long long>(b) * g.D + d0) * g.H + h0) * g.W + w0;
+#pragma unroll
+        for (int q = 0; q < RT; ++q) {
+          const int r = lt + part_threads * q;
+          if (part != 0 || r >= g.rows) continue;
+          const int l = loc[r];
+          const int rw = l & 1023, rh = (l >> 10) & 1023, rd = l >> 20;
+          if (rw >= lim_w || rh >= lim_h || rd >= lim_d) continue;
+          float4* out =
+              reinterpret_cast<float4*>(y + (row0 + (static_cast<long long>(rd) * g.H + rh) * g.W + rw) * N);
+#pragma unroll
+          for (int j = 0; j < NV; ++j)
+            out[j] = make_float4(acc[q][4 * j], acc[q][4 * j + 1], acc[q][4 * j + 2], acc[q][4 * j + 3]);
+        }
       }
     }
     __syncthreads();  // every thread is done with stage s and the partial sums
     if (tid == 0 && i + 2 < n_boxes) issue(s, blockIdx.x + (i + 2) * grid);
   }
+  if (g.stage_y && tid == 0) bulk_wait_all();  // the chunk buffers stay until the last store has read them
 }
 
 // dw partial: part[z] [8C, N] (N = 8 NT) over the boxes [z * per_split,
@@ -565,17 +653,126 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
   }
 }
 
+// dw in float32: part[z] [8C, N] (N = 8 NT) over the run of boxes of block z,
+// as the bf16 dw walks it, each product an FFMA. Thread tid is tile tid % tiles
+// of group tid / tiles; tile (t, cg, og) = (tap, 8 channels 8 cg.., 8 outputs
+// 8 og..), numbered og fastest. Group q reduces rows q, q + groups, ... of each
+// box (rows past the grid are zeros in both boxes), one row ahead in registers.
+// The walk holds g.stages boxes a block (the plan's: three).
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_k2_narrow_dw_f32_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
+                             float* __restrict__ part, const Geom g, int per_split) {
+  constexpr int N = 8 * NT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = round_up(raw, ALIGN);
+  uint8_t* const base_p = smem_raw + (base - raw);
+  const int S = g.stages;
+  const uint32_t stage = g.stage_x + g.stage_g;
+  int* const vrow = reinterpret_cast<int*>(base_p + S * stage);
+  const uint32_t bar = base + S * stage + 4 * g.rows16;
+  float* const sums = reinterpret_cast<float*>(base_p + S * stage + 4 * g.rows16 + round_up(8 * S, 16));  // [8C, N]
+  const int tid = threadIdx.x;
+  const int first = static_cast<int>(blockIdx.x) * per_split;
+  const int n_boxes = min(per_split, g.boxes - first);
+
+  const CUtensorMap *mx = &map_x, *mg = &map_g;
+  auto issue = [&](int s, int box) {  // thread 0: the halo box of x and the box of g into stage s
+    int w0, h0, d0, b;
+    box_origin(g, box, w0, h0, d0, b);
+    const uint32_t full = bar + 8 * s, dst = base + s * stage;
+    wg::mbar_arrive_expect_tx(full, g.halo_bytes + g.g_bytes);
+    wg::tma_load_5d(dst, mx, full, 0, w0, h0, d0, b);
+    wg::tma_load_5d(dst + g.stage_x, mg, full, 0, w0, h0, d0, b);
+  };
+
+  init_barriers(bar, S);
+  fill_rows(g, vrow, nullptr);
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < S && s < n_boxes; ++s) issue(s, first + s);
+
+  const int groups_c = g.C / 8, tiles = g.C * NT, groups = THREADS / tiles;  // tiles: 8 taps x C/8 x N/8
+  const int grp = tid / tiles, tile = tid % tiles;
+  const int og = tile % NT, cg = tile / NT % groups_c, t = tile / NT / groups_c;
+  const uint32_t xoff = tap_offset(g, t) + 32 * cg, goff = 32 * og;  // bytes of this tile's 8 channels, 8 outputs
+  const uint32_t xmask = g.row / 16 - 1, gmask = 4 * N / 16 - 1;
+  float acc[8][8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[k][j] = 0.f;
+
+  for (int i = 0; i < n_boxes; ++i) {
+    const int s = i % S;
+    wg::mbar_wait(bar + 8 * s, (i / S) & 1);
+    const uint8_t* const xs = base_p + s * stage;
+    const uint8_t* const gs = xs + g.stage_x;
+    // row r's operands: its tap's halo voxel, 8 channels; its g row, 8 outputs (the same for the whole group).
+    // Both offsets are 32-byte aligned, so the second piece's swizzle is the first's with bit 4 flipped
+    auto load = [&](int r, float4 (&a)[2], float4 (&b)[2]) {
+      const uint32_t xo = swizzle(vrow[r] + xoff, xmask);
+      const uint32_t go = swizzle(static_cast<uint32_t>(r) * 4 * N + goff, gmask);
+      a[0] = *reinterpret_cast<const float4*>(xs + xo);
+      a[1] = *reinterpret_cast<const float4*>(xs + (xo ^ 16));
+      b[0] = *reinterpret_cast<const float4*>(gs + go);
+      b[1] = *reinterpret_cast<const float4*>(gs + (go ^ 16));
+    };
+    const int rows = PROBE == 3 ? 0 : g.rows;
+    float4 a[2], b[2];
+    if (grp < rows) load(grp, a, b);
+    for (int r = grp; r < rows; r += groups) {
+      float4 an[2] = {a[0], a[1]}, bn[2] = {b[0], b[1]};
+      if (PROBE != 1) load(r + groups < rows ? r + groups : r, an, bn);  // the next row's, under this one's products
+      const float av[8] = {a[0].x, a[0].y, a[0].z, a[0].w, a[1].x, a[1].y, a[1].z, a[1].w};
+      const float bv[8] = {b[0].x, b[0].y, b[0].z, b[0].w, b[1].x, b[1].y, b[1].z, b[1].w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (PROBE != 2 || j == k) acc[k][j] = fmaf(av[k], bv[j], acc[k][j]);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        a[q] = an[q];
+        b[q] = bn[q];
+      }
+    }
+    __syncthreads();  // every thread is done with stage s
+    if (tid == 0 && i + S < n_boxes) issue(s, first + i + S);
+  }
+
+  // the groups' tiles into sums, group 0 first, then 1, ...: the same order every run
+  for (int q = 0; q < groups; ++q) {
+    if (grp == q)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float* row = sums + (t * g.C + 8 * cg + k) * N + 8 * og;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) row[j] = q == 0 ? acc[k][j] : row[j] + acc[k][j];
+      }
+    __syncthreads();
+  }
+  float4* out = reinterpret_cast<float4*>(part + static_cast<long long>(blockIdx.x) * 8 * g.C * N);
+  for (int i = tid; i < 2 * g.C * N; i += THREADS) out[i] = reinterpret_cast<const float4*>(sums)[i];
+}
+
 // ---- host side ----
 
 // The box of a launch, checked: C a power of two from 8 to 64 whose rows of
 // `esize` C bytes (esize 2: bfloat16, 4: float32) are 16 to 128 bytes (one TMA
 // box of all C channels), N = 8, 16 or 32, extents within the grid and
-// MAX_EXTENT, at most MAX_ROWS rows; `dw` adds the stage of g (bfloat16).
-// Returns false where the kernels do not apply.
+// MAX_EXTENT, at most MAX_ROWS rows; `dw` adds the stage of g (rows of esize N
+// bytes). The plan's choices are checked, not made here: `stages` copies a
+// block holds (2; the float32 dw may take 3) and `chunk_d`, the d-planes of
+// the float32 forward's output chunk of THREADS rows where it stores through
+// shared memory (0: from registers; else the box has no tap split and is
+// whole chunks of whole d-planes). Returns false where the kernels do not
+// apply.
 inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw, int bh, int bd, bool dw,
-                      int esize) {
+                      int esize, int stages, int chunk_d) {
   if ((C != 8 && C != 16 && C != 32 && C != 64) || (esize != 2 && esize != 4) || esize * C > 128 ||
-      (N != 8 && N != 16 && N != 32) || B < 1 || (dw && esize != 2))
+      (N != 8 && N != 16 && N != 32) || B < 1 || (stages != 2 && !(dw && esize == 4 && stages == 3)))
     return false;
   if (bw < 1 || bh < 1 || bd < 1 || bw > W || bh > H || bd > D || bw > MAX_EXTENT || bh > MAX_EXTENT ||
       bd > MAX_EXTENT || bw * bh * bd > MAX_ROWS)
@@ -590,10 +787,16 @@ inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw,
   g.rows = bw * bh * bd;
   g.rows16 = static_cast<int>(round_up(g.rows, 16));
   g.halo_bytes = static_cast<uint32_t>((bw + 1) * (bh + 1) * (bd + 1) * g.row);
-  g.g_bytes = dw ? static_cast<uint32_t>(g.rows * 2 * N) : 0;
+  g.g_bytes = dw ? static_cast<uint32_t>(g.rows * esize * N) : 0;
   g.stage_x = round_up(g.halo_bytes, ALIGN);
-  g.stage_g = dw ? round_up(g.rows16 * 2 * N, ALIGN) : 0;
-  g.split = esize == 4 && g.rows <= 2 * THREADS ? 2 : 1;
+  g.stage_g = dw ? round_up(g.rows16 * esize * N, ALIGN) : 0;
+  g.split = !dw && esize == 4 && g.rows <= 2 * THREADS ? 2 : 1;
+  g.sums = esize != 4 ? 0 : dw ? 32 * C * N : g.split > 1 ? 4 * g.rows * N : 0;
+  if (chunk_d != 0 && (dw || esize != 4 || g.split != 1 || chunk_d * bw * bh != THREADS || g.rows % THREADS != 0))
+    return false;
+  g.stage_y = chunk_d ? round_up(THREADS * 4 * N, ALIGN) : 0;
+  g.chunk_d = chunk_d;
+  g.stages = stages;
   return true;
 }
 
@@ -639,14 +842,14 @@ int launch_fwd_nt(const CUtensorMap& map_x, const void* w, void* y, const Geom& 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NT>
-int launch_fwd_f32_nt(const CUtensorMap& map_x, const void* w, void* y, const Geom& g, int grid, size_t smem,
-                      cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(conv_k2_narrow_fwd_f32_kernel<NT>,
+template <int NT, bool DX>
+int launch_fwd_f32_nt(const CUtensorMap& map_x, const CUtensorMap& map_y, const void* w, void* y, const Geom& g,
+                      int grid, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_narrow_fwd_f32_kernel<NT, DX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_k2_narrow_fwd_f32_kernel<NT><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
-      map_x, static_cast<const float*>(w), static_cast<float*>(y), g);
+  conv_k2_narrow_fwd_f32_kernel<NT, DX><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+      map_x, map_y, static_cast<const float*>(w), static_cast<float*>(y), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -658,63 +861,81 @@ int launch_fwd_bf16(const CUtensorMap& map_x, const void* w, void* y, const Geom
   return launch_fwd_nt<4, DX>(map_x, w, y, g, grid, smem, s);
 }
 
-int launch_fwd_f32(const CUtensorMap& map_x, const void* w, void* y, const Geom& g, int N, int grid, size_t smem,
-                   cudaStream_t s) {
-  if (N == 8) return launch_fwd_f32_nt<1>(map_x, w, y, g, grid, smem, s);
-  if (N == 16) return launch_fwd_f32_nt<2>(map_x, w, y, g, grid, smem, s);
-  return launch_fwd_f32_nt<4>(map_x, w, y, g, grid, smem, s);
+// The float32 forward; y's tensor map, in chunks of the box, where the kernel stores through shared memory.
+template <bool DX>
+int launch_fwd_f32(const CUtensorMap& map_x, const void* w, void* y, int B, const Geom& g, int N, int grid,
+                   size_t smem, cudaStream_t s) {
+  CUtensorMap map_y = map_x;  // unused without chunk buffers
+  if (g.stage_y) {
+    const int rc = encode_box_map(&map_y, y, B, g.D, g.H, g.W, N, g.bw, g.bh, g.chunk_d, 4);
+    if (rc) return rc;
+  }
+  if (N == 8) return launch_fwd_f32_nt<1, DX>(map_x, map_y, w, y, g, grid, smem, s);
+  if (N == 16) return launch_fwd_f32_nt<2, DX>(map_x, map_y, w, y, g, grid, smem, s);
+  return launch_fwd_f32_nt<4, DX>(map_x, map_y, w, y, g, grid, smem, s);
 }
 
 // The forward of bfloat16 (dtype 1) or float32 (dtype 0) operands at the box
-// (bw, bh, bd) with `grid` blocks, or with `dx` (bfloat16 only) dx: x := g,
-// C := g's channels, N := dx's, w := w' [8C, N]. `plan_smem` is the wrapper's
-// dynamic shared memory, held to this file's own.
+// (bw, bh, bd) with `grid` blocks, or with `dx` dx: x := g, C := g's channels,
+// N := dx's, w := w' [8C, N]. `chunk_d` as make_geom takes it; `plan_smem` is
+// the wrapper's dynamic shared memory, held to this file's own.
 inline int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw, int bh,
-                      int bd, int grid, int plan_smem, int dtype, bool dx, cudaStream_t s) {
+                      int bd, int grid, int plan_smem, int chunk_d, int dtype, bool dx, cudaStream_t s) {
   const int esize = dtype == 0 ? 4 : 2;
   Geom g;
-  if ((dtype != 0 && dtype != 1) || (dx && dtype != 1) ||
-      !make_geom(g, B, D, H, W, C, N, bw, bh, bd, false, esize) || grid < 1 || grid > g.boxes)
+  if ((dtype != 0 && dtype != 1) || !make_geom(g, B, D, H, W, C, N, bw, bh, bd, false, esize, 2, chunk_d) ||
+      grid < 1 || grid > g.boxes)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(g, N, false);
   if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
   CUtensorMap map_x;
   const int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, esize);
   if (rc) return rc;
-  if (dtype == 0) return launch_fwd_f32(map_x, w, y, g, N, grid, smem, s);
+  if (dtype == 0)
+    return dx ? launch_fwd_f32<true>(map_x, w, y, B, g, N, grid, smem, s)
+              : launch_fwd_f32<false>(map_x, w, y, B, g, N, grid, smem, s);
   return dx ? launch_fwd_bf16<true>(map_x, w, y, g, N, grid, smem, s)
             : launch_fwd_bf16<false>(map_x, w, y, g, N, grid, smem, s);
 }
 
-template <int NT>
+template <int NT, bool F32>
 int launch_dw_nt(const CUtensorMap& map_x, const CUtensorMap& map_g, float* part, const Geom& g, int splits,
                  int per_split, size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(conv_k2_narrow_dw_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  auto kernel = F32 ? conv_k2_narrow_dw_f32_kernel<NT> : conv_k2_narrow_dw_kernel<NT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_k2_narrow_dw_kernel<NT><<<static_cast<unsigned>(splits), THREADS, smem, s>>>(map_x, map_g, part, g,
-                                                                                     per_split);
+  kernel<<<static_cast<unsigned>(splits), THREADS, smem, s>>>(map_x, map_g, part, g, per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dw's partial sums, one [8C, N] a split, into `part`: the splits are runs of
-// `per_split` boxes (the last may be shorter, none is empty).
+template <bool F32>
+int launch_dw_n(const CUtensorMap& map_x, const CUtensorMap& map_g, float* part, const Geom& g, int N, int splits,
+                int per_split, size_t smem, cudaStream_t s) {
+  if (N == 8) return launch_dw_nt<1, F32>(map_x, map_g, part, g, splits, per_split, smem, s);
+  if (N == 16) return launch_dw_nt<2, F32>(map_x, map_g, part, g, splits, per_split, smem, s);
+  return launch_dw_nt<4, F32>(map_x, map_g, part, g, splits, per_split, smem, s);
+}
+
+// dw's partial sums of bfloat16 (dtype 1) or float32 (dtype 0) operands, one
+// [8C, N] a split, into `part`: the splits are runs of `per_split` boxes (the
+// last may be shorter, none is empty), walked through `stages` copies.
 inline int launch_dw(const void* x, const void* gr, float* part, int splits, int per_split, int B, int D, int H, int W,
-                     int C, int N, int bw, int bh, int bd, int plan_smem, cudaStream_t s) {
+                     int C, int N, int bw, int bh, int bd, int plan_smem, int stages, int dtype, cudaStream_t s) {
+  const int esize = dtype == 0 ? 4 : 2;
   Geom g;
-  if (!make_geom(g, B, D, H, W, C, N, bw, bh, bd, true, 2) || splits < 1 || per_split < 1 ||
-      static_cast<long long>(splits - 1) * per_split >= g.boxes || static_cast<long long>(splits) * per_split < g.boxes)
+  if ((dtype != 0 && dtype != 1) || !make_geom(g, B, D, H, W, C, N, bw, bh, bd, true, esize, stages, 0) ||
+      splits < 1 || per_split < 1 || static_cast<long long>(splits - 1) * per_split >= g.boxes ||
+      static_cast<long long>(splits) * per_split < g.boxes)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(g, N, true);
   if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
   CUtensorMap map_x, map_g;
-  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, 2);
+  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, esize);
   if (rc) return rc;
-  rc = encode_box_map(&map_g, gr, B, D, H, W, N, bw, bh, bd, 2);
+  rc = encode_box_map(&map_g, gr, B, D, H, W, N, bw, bh, bd, esize);
   if (rc) return rc;
-  if (N == 8) return launch_dw_nt<1>(map_x, map_g, part, g, splits, per_split, smem, s);
-  if (N == 16) return launch_dw_nt<2>(map_x, map_g, part, g, splits, per_split, smem, s);
-  return launch_dw_nt<4>(map_x, map_g, part, g, splits, per_split, smem, s);
+  return dtype == 0 ? launch_dw_n<true>(map_x, map_g, part, g, N, splits, per_split, smem, s)
+                    : launch_dw_n<false>(map_x, map_g, part, g, N, splits, per_split, smem, s);
 }
 
 }  // namespace nr

@@ -7,9 +7,9 @@ order, any failure ending the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the ``conv_k2`` CUDA kernels (forward, dx, dw, each as an
-   FFMA kernel and as a bfloat16 tensor-core kernel; the bfloat16 forward, dx
-   and dw of narrow outputs also on ``mma.sync``, their float32 forward as an
-   FFMA halo-box kernel) from ``anytime3d_tpu_torch/kernels/csrc``;
+   FFMA kernel and as a bfloat16 tensor-core kernel; the forward, dx and dw
+   of narrow outputs also as halo-box kernels, on ``mma.sync`` in bfloat16
+   and on FFMA in float32) from ``anytime3d_tpu_torch/kernels/csrc``;
 3. kernel check: ``conv_k2``, ``conv_k2_dx`` and ``conv_k2_dw`` against their
    plain versions at the flagship stages (16^3): at B=8, the served batch, in
    float32 with TF32 off and in bfloat16, and at B=32, the train step's
@@ -95,10 +95,9 @@ order, any failure ending the run with a non-zero exit:
    2 launches); ``export_infer`` of the float32 image program loaded and held
    to the eager one (2 launches a batch); the phase's wall time printed;
 12. detector: ``conv_k2``, dx and dw at the detector decoder's final conv (32
-   decodes of 32^3, C=32 -> N=8: no wgmma plan; in bfloat16 all three on the
-   narrow kernels, in float32 the forward on the narrow FFMA kernel, dx and dw
-   on the FFMA ones) against their plain
-   versions (the narrow kernels and their plain versions also against a
+   decodes of 32^3, C=32 -> N=8: no wgmma plan; all three on the narrow
+   kernels, on ``mma.sync`` in bfloat16 and on FFMA in float32) against their
+   plain versions (the narrow kernels and their plain versions also against a
    float64 product; dw the same bits twice), timed beside cuDNN and their
    bound, and the narrow forward at the scene pass's 1024 decodes; the
    reference-scale detector-reconstructor (Darknet19,
@@ -113,12 +112,14 @@ order, any failure ending the run with a non-zero exit:
    in both types), timed by events with the host's share; the scene pass at its
    defaults in bfloat16 (1024 decodes, 1 narrow launch), timed, with the lifting and its batched SVD
    timed alone; one float32 train step at B=2 against the CPU (every loss
-   term, every gradient leaf, ``grads_finite``; the forward narrow, dx and dw
-   FFMA); ``cli/train_detector.py``'s
+   term, every gradient leaf, ``grads_finite``; the forward, dx and dw
+   narrow); ``cli/train_detector.py``'s
    trainer at the reference scale (bfloat16, B=8, 13x13 grid, up to 6
    objects, packed voxels, uint8 frames), 24 steps, 1 / 1 / 1 launches a
    step (all three narrow), device time, host wall, the host's batch and peak memory printed;
-   ``evaluate_detector`` on 2 batches, timed; the phase's wall time printed.
+   ``evaluate_detector`` on 2 batches, timed; the bfloat16 step, then the
+   default trainer's float32 step at B=8 (1 / 1 / 1 narrow launches a step),
+   profiled by kernel; the phase's wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -219,6 +220,10 @@ K2_TOL_DW_F64_REL = 1e-4
 K2_TOL_DW_F64_NOTE = ("the products of bf16 operands are exact in f32; the tensor cores add them to the f32 "
                       "accumulator 16 deep at a time without rounding to nearest, a chain of up to 1024 such adds "
                       "a split (1024 * 2^-24 = 6e-5 at worst), where fmaf rounds each add")
+# the f32 forward and dx, kernel and plain version, against the float64 product
+# of the same f32 operands: f32 sums of at most 256 products (2^-24 each add),
+# relative to the largest entry
+K2_TOL_F32_F64_REL = 1e-5
 SERVE_BF16_BATCHES = 5
 # train step, card f32 vs CPU f32 of the same weights, batch and draws: the
 # loss terms are sums of 262144 voxel terms a sample (summation order); the
@@ -457,8 +462,12 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
     if design != "ffma" and exact is not None:
         err_k, err_p = (float((t.double() - exact).abs().max()) for t in (out, ref))
         top64 = float(exact.abs().max())
-        # the forward's and dx's f32 sum is rounded once to bf16: half an ulp of the largest output, and the sum's own error
-        tol64 = K2_TOL_DW_F64_REL * top64 if kernel == "conv_k2_dw" else (2.0**-8 + K2_TOL_DW_F64_REL) * top64
+        if kernel == "conv_k2_dw":
+            tol64 = K2_TOL_DW_F64_REL * top64
+        elif out.dtype == torch.float32:
+            tol64 = K2_TOL_F32_F64_REL * top64
+        else:  # the f32 sum rounded once to bf16: half an ulp of the largest output, and the sum's own error
+            tol64 = (2.0**-8 + K2_TOL_DW_F64_REL) * top64
         line += (f"; against float64 (largest entry {top64:.3e}): kernel {err_k:.3e} ({err_k / top64:.2e} rel), "
                  f"plain {err_p:.3e} ({err_p / top64:.2e} rel), tol {tol64:.3e}")
         if not (err_k <= tol64 and err_p <= tol64):
@@ -567,8 +576,8 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     restored and evaluate runs, its exported programs' batches, the image
     phase's runs and the detector phase's; ``launches_wgmma`` is the part of
     them that took the tensor-core kernels, ``launches_narrow`` the part that
-    took the narrow kernels (the detector's final conv: in bf16 all three, in
-    f32 the forward)."""
+    took the narrow kernels (the detector's final conv, all three in both
+    types)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
@@ -1675,6 +1684,7 @@ DET_TRAIN_BATCH = 8
 DET_TRAIN_STEPS = 24
 DET_SLICE_BATCH = 2  # the float32 step that is also run on the CPU
 DET_SERVE_FRAMES = 50
+DET_F32_STEPS = 3  # the float32 step timed and profiled
 DET_IMAGE_PX = (1242, 375)  # the KITTI frame the 416 x 416 input was resized from, for the lifting
 DET_K2 = (DET_TRAIN_BATCH * 4, 32, 32, 8)  # (decodes, grid, C, N) of the decoder's final conv in a train step
 DET_K2_CASES = [("det_f32", torch.float32), ("det_bf16", torch.bfloat16)]
@@ -1721,26 +1731,27 @@ def detector_kernel_case(kernel: str, label: str, fns: tuple, exact, want: str, 
 
 def phase_detector_kernels(card: str) -> dict:
     """``conv_k2``, dx and dw at the detector decoder's final conv (32 decodes
-    of 32^3, C=32 -> N=8: no wgmma plan; in bf16 all three on the narrow
-    kernels, dx by the plan of 8 -> 32; in f32 the forward on the narrow FFMA
-    kernel, dx and dw on the FFMA ones), and the narrow forward at the
-    scene pass's 1024 decodes, against their plain versions (the narrow ones
-    also against float64 products), each timed beside its library call and its
+    of 32^3, C=32 -> N=8: no wgmma plan; all three on the narrow kernels, dx
+    by the plan of 8 -> 32: on ``mma.sync`` in bf16, on FFMA in f32), and the
+    narrow forward at the scene pass's 1024 decodes, against their plain
+    versions and float64 products, each timed beside its library call and its
     bound. Returns ``{kernel: {case: numbers}}`` as ``phase_kernels``."""
     gen = torch.Generator().manual_seed(SEED + 12)
     n, grid, C, N = DET_K2
-    assert narrow_plan(n, grid, grid, grid, C, N) is not None and narrow_plan(DET_SCENE_DECODES, grid, grid, grid, C, N)
-    assert narrow_plan(n, grid, grid, grid, N, C) is not None
-    assert narrow_plan(n, grid, grid, grid, C, N, dtype=torch.float32) is not None
+    assert narrow_plan(DET_SCENE_DECODES, grid, grid, grid, C, N) is not None
+    for _, dtype in DET_K2_CASES:
+        # the forward with its dw part, and dx by the plan of the forward from N to C channels
+        plan = narrow_plan(n, grid, grid, grid, C, N, dtype=dtype)
+        assert plan is not None and plan.dw_splits >= 1
+        assert narrow_plan(n, grid, grid, grid, N, C, dtype=dtype) is not None
     res = {k: {} for k in ("conv_k2", "conv_k2_dx", "conv_k2_dw")}
     with torch.inference_mode():
         for case, dtype in DET_K2_CASES:
             x, w, g = k2_operands(gen, (n, grid, grid, grid), C, N, dtype)
-            exact = float64_products(x, w, g) if dtype == torch.bfloat16 else {}
+            exact = float64_products(x, w, g)
             for kernel, fns in k2_runs(x, w, g).items():
-                want = "narrow" if dtype == torch.bfloat16 or kernel == "conv_k2" else "ffma"
                 res[kernel][case] = detector_kernel_case(kernel, f"detector {case} B={n} {grid}^3 {C}->{N}", fns,
-                                                         exact.get(kernel), want, DET_K2, dtype, card)
+                                                         exact[kernel], "narrow", DET_K2, dtype, card)
             del x, w, g, exact
         # the scene pass's final conv, bf16: K * S decodes, the largest grid the forward is given (x ~2.1 GB)
         n, dtype = DET_SCENE_DECODES, torch.bfloat16
@@ -1857,8 +1868,9 @@ def phase_detector(device: torch.device, card: str) -> dict:
     the served frame (exported, f32 and bf16, under sync-debug "error"), the
     scene pass at its defaults (1024 decodes) with the lifting timed alone,
     one f32 train step against the CPU, the bf16 trainer of
-    ``cli/train_detector.py`` and ``evaluate_detector``. Returns the launch
-    counts of its served, scene and trainer runs, summed."""
+    ``cli/train_detector.py`` and ``evaluate_detector``, then the trainer's
+    default f32 step timed and profiled. Returns the launch counts of its
+    served, scene, trainer and f32 step runs, summed."""
     from anytime3d_tpu_torch.cli import train_detector as cli_det
     from anytime3d_tpu_torch.data.collate import collate_multiobject
     from anytime3d_tpu_torch.data.modelnet import SyntheticMultiObjectLoader
@@ -2021,7 +2033,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
         results[name] = ({k: float(v) for k, v in metrics.items()}, {k: g.cpu() for k, g in zip(names, grads)}, finite)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            add(expect_counts("detector train slice, f32", 1, 1, 1, tensor_cores=False, narrow=(1, 0, 0)))
+            add(expect_counts("detector train slice, f32", 1, 1, 1, tensor_cores=False, narrow=(1, 1, 1)))
         print(f"detector train slice {name}: {time.perf_counter() - t0:.1f} s, {results[name][0]}", flush=True)
     (m_gpu, g_gpu, fin_gpu), (m_cpu, g_cpu, _) = results["card"], results["cpu"]
     for k, v in m_cpu.items():
@@ -2116,6 +2128,33 @@ def phase_detector(device: torch.device, card: str) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED)
     batch = trainer.to_device(probe(0))
     profile_kernels(f"detector train step bf16 B={DET_TRAIN_BATCH}", lambda: inner(trainer.state, batch, gen), 3, card)
+    del trainer, inner, batch
+
+    # 7. the default trainer's step: float32 (cli/train_detector.py without --bf16), B=8, by events and by kernel
+    args = cli_det.parse_args(["--batch-size", str(DET_TRAIN_BATCH), "--image-size", str(DET_FRAME), str(DET_FRAME),
+                               "--grid-size", str(DET_GRID), str(DET_GRID), "--voxel-dim", str(DET_VOXEL),
+                               "--max-slots", str(DET_SLOTS), "--max-objects", str(DET_MAX_OBJECTS),
+                               "--max-detections", str(DET_MAX_DETECTIONS), "--steps", "1"])
+    trainer, _ = cli_det.build_trainer(args)
+    step, batch = trainer.step_fn, trainer.to_device(probe(1))
+    if any(p.dtype != torch.float32 for p in trainer.model.parameters()):
+        raise AssertionError("detector f32 train step: the default trainer's parameters are not all float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = cuda_ms(lambda: step(trainer.state, batch, gen), iters=DET_F32_STEPS, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    finite = float(step(trainer.state, batch, gen)[1]["grads_finite"])
+    print(f"detector train step f32 B={DET_TRAIN_BATCH} (cli/train_detector.py's default): device time (CUDA events, "
+          f"mean of {DET_F32_STEPS} after 1) {step_ms:.2f} ms; peak memory allocated {peak / 2**30:.2f} GiB; "
+          f"grads_finite {finite} [{card}]", flush=True)
+    if finite != 1.0:
+        raise AssertionError("detector f32 train step: a gradient was not finite")
+    profile_kernels(f"detector train step f32 B={DET_TRAIN_BATCH}", lambda: step(trainer.state, batch, gen),
+                    DET_F32_STEPS, card)
+    n_steps = 1 + DET_F32_STEPS + 1 + 2 + DET_F32_STEPS  # cuda_ms, the finite check, profile_kernels
+    add(expect_counts("detector train step, f32", n_steps, n_steps, n_steps, tensor_cores=False,
+                      narrow=(n_steps,) * 3))
     print(f"detector phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
     return det_counts
 

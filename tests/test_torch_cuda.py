@@ -4,9 +4,9 @@ ops under ``opcheck``, a small serving slice (eager and exported), a small
 train step and the anytime protocol on the GPU against the CPU, the small
 image model (``pascal_nolbo``'s layout) served and trained on the card
 against the CPU, the batch prefetcher's stream ordering, the kernels at the
-detector decoder's N = 8, the narrow kernels (bf16 forward, dx and dw of
-N = 8, 16, 32; the f32 forward) at the edges of their plan, and a small
-detector on the card against the CPU.
+detector decoder's N = 8, the narrow kernels (forward, dx and dw of N = 8,
+16, 32, bf16 and f32) at the edges of their plan, and a small detector on
+the card against the CPU.
 
 Every test here needs a CUDA GPU and ``nvcc`` and skips without them. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -167,7 +167,7 @@ def test_backward_kernels_match_plain(cuda, C, N, dtype):
     # a permuted view, as autograd hands gradients over
     y.backward(g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1))
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
-    # float32, and grids without a wgmma plan: no tensor-core launch (bf16 at N = 16 takes the narrow forward and dw)
+    # float32, and grids without a wgmma plan: no tensor-core launch (8 -> 16 takes the narrow kernels in both types)
     assert _wgmma_counts() == before_wg
     with torch.no_grad():
         dx_ref, dw_ref = conv_k2_backward_reference(x, w, g)
@@ -240,13 +240,13 @@ def test_ffma_dw_matches_plain_at_the_tile_edges(cuda, B, D, H, W, C, N, dtype):
     """The FFMA dw, float32 and bfloat16 without a plan, against
     ``conv_k2_dw_reference``: f32 sums of the same products in another order,
     1e-5 of the largest entry (chip_smoke.py's K2_TOL_DW_REL); the same bits
-    from two calls; no tensor-core launch. bfloat16 at (8 -> 16) has a narrow
-    plan and takes the narrow dw, held to the same; (24 -> 16), the same
-    edge without one, keeps the FFMA dw's one split in bfloat16."""
+    from two calls; no tensor-core launch. (8 -> 16) has a narrow plan in
+    both types and takes the narrow dw, held to the same; (24 -> 16), the
+    same edge without one, keeps the FFMA dw's one split."""
     assert wgmma_plan(B, D, H, W, C, N) is None
     assert (ffma_dw_split(B * D * H * W, C, N)[0] == 1) == (FFMA_DW_EDGES.index((B, D, H, W, C, N)) < 5)
-    narrow = dtype == torch.bfloat16 and narrow_plan(B, D, H, W, C, N) is not None
-    assert narrow == (dtype == torch.bfloat16 and (C, N) == (8, 16))
+    narrow = narrow_plan(B, D, H, W, C, N, dtype=dtype) is not None
+    assert narrow == ((C, N) == (8, 16))
     gen = torch.Generator().manual_seed(5)
     x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, dtype)
     g = torch.randn(B, D, H, W, N, generator=gen).to(cuda, dtype)
@@ -439,9 +439,10 @@ def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     C = 64, which has no narrow plan (all FFMA); in bfloat16 at a shape with
     a plan, so the tensor-core kernels answer; at 32 -> 8, where the narrow
     forward, dx (8 -> 32) and dw do; and in float32 at 8 -> 16, where the
-    narrow forward does (dx and dw FFMA)."""
+    narrow FFMA forward, dx (16 -> 8) and dw do."""
     *grid, C, N = shape
     assert (narrow_plan(*grid, C, N, dtype=dtype) is None) == (shape[4] == 64)
+    assert (narrow_plan(*grid, N, C, dtype=dtype) is None) == (shape[4] == 64)
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(*grid, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, N, generator=gen) * 0.1).to(cuda)
@@ -658,7 +659,7 @@ def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
     """Forward, dx and dw at N = 8 against their plain versions: in bfloat16
     the forward and dw on the narrow kernels, and dx where its forward from 8
     to C channels has a narrow plan (C = 8, 32; C = 64 stays FFMA); in float32
-    the forward on the narrow kernel where C <= 32, dx and dw FFMA. The
+    all three on the narrow kernels where C <= 32 (at C = 64 all FFMA). The
     counters of the narrow kernels move as that says, no tensor-core one
     does; dw gives the same bits twice. Tolerances as
     ``test_kernel_matches_plain`` and ``test_backward_kernels_match_plain``."""
@@ -666,8 +667,8 @@ def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
     bf16 = dtype == torch.bfloat16
     assert narrow_plan(B, G, G, G, C, 8) is not None
     narrow_fwd = narrow_plan(B, G, G, G, C, 8, dtype=dtype) is not None
-    narrow_dx = bf16 and narrow_plan(B, G, G, G, 8, C) is not None
-    assert narrow_fwd == (bf16 or C <= 32) and narrow_dx == (bf16 and C <= 32)
+    narrow_dx = narrow_plan(B, G, G, G, 8, C, dtype=dtype) is not None
+    assert narrow_fwd == (bf16 or C <= 32) and narrow_dx == (C <= 32)
     gen = torch.Generator().manual_seed(9)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, 8, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
@@ -679,7 +680,7 @@ def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
         y_ref, dx_ref, dw_ref = conv_k2_reference(x, w), k2.conv_k2_dx_reference(g, w), conv_k2_dw_reference(x, g)
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 2) and _wgmma_counts() == before_wg
-    assert _narrow_counts() == (before_nr[0] + narrow_fwd, before_nr[1] + narrow_dx, before_nr[2] + 2 * bf16)
+    assert _narrow_counts() == (before_nr[0] + narrow_fwd, before_nr[1] + narrow_dx, before_nr[2] + 2 * narrow_fwd)
     assert torch.equal(dw, again)
     for out, ref in ((y, y_ref), (dx, dx_ref)):
         assert out.shape == ref.shape and out.dtype == dtype
@@ -765,13 +766,14 @@ def test_narrow_kernels_match_plain_and_float64(cuda, B, D, H, W, C, N):
 
 @pytest.mark.parametrize("B,D,H,W,C,N", [s for s in NARROW_EDGES if s[4] <= 32])
 def test_f32_narrow_forward_matches_plain_and_float64(cuda, B, D, H, W, C, N):
-    """float32 shapes with a narrow plan, through autograd: the forward on
-    the narrow FFMA kernel (its counter moves), dx and dw on the FFMA
-    kernels. The forward against its plain version (true f32, summation
-    order only: 1e-4, as ``test_kernel_matches_plain``) and both against a
-    float64 product (f32 sums of at most 256 products: 1e-5 of the largest
-    entry); dx and dw against their plain versions as
-    ``test_backward_kernels_match_plain``."""
+    """float32 shapes with a narrow plan, through autograd: the forward, dx
+    and dw on the narrow FFMA kernels (their counters move). The forward
+    against its plain version (true f32, summation order only: 1e-4, as
+    ``test_kernel_matches_plain``) and both against a float64 product (f32
+    sums of at most 256 products: 1e-5 of the largest entry); dx and dw
+    against their plain versions as ``test_backward_kernels_match_plain``
+    (``test_f32_narrow_backward_matches_plain_and_float64`` holds them to
+    float64)."""
     plan = narrow_plan(B, D, H, W, C, N, dtype=torch.float32)
     assert plan is not None and wgmma_plan(B, D, H, W, C, N) is None
     gen = torch.Generator().manual_seed(13)
@@ -783,7 +785,7 @@ def test_f32_narrow_forward_matches_plain_and_float64(cuda, B, D, H, W, C, N):
     y.backward(g)
     y = y.detach()
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1) and _wgmma_counts() == before_wg
-    assert _narrow_counts() == (before_nr[0] + 1, before_nr[1], before_nr[2])
+    assert _narrow_counts() == (before_nr[0] + 1, before_nr[1] + 1, before_nr[2] + 1)
     with torch.no_grad():
         y_ref = conv_k2_reference(x.detach(), w.detach())
         dx_ref, dw_ref = conv_k2_backward_reference(x.detach(), w.detach(), g)
@@ -796,6 +798,42 @@ def test_f32_narrow_forward_matches_plain_and_float64(cuda, B, D, H, W, C, N):
     assert float((y_ref.double() - y64).abs().max()) <= tol_y64
     assert float((x.grad - dx_ref).abs().max()) <= 1e-4
     assert float((w.grad - dw_ref).abs().max()) <= 1e-5 * float(dw_ref.abs().max()) + 1e-5
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", [s for s in NARROW_EDGES if s[4] <= 32])
+def test_f32_narrow_backward_matches_plain_and_float64(cuda, B, D, H, W, C, N):
+    """float32 dx and dw of shapes with a narrow plan, called as the ops:
+    dx on the narrow FFMA kernel's DX instance (the forward from N to C, its
+    halo box one voxel lower), dw on the narrow FFMA dw (their counters
+    move, no other design's). dx against its plain version (true f32,
+    summation order only: 1e-4) and both against a float64 product (f32 sums
+    of at most 256 products: 1e-5 of the largest entry); dw against its
+    plain version (f32 sums in another order: 1e-5 of the largest entry and
+    1e-5) and both against the float64 sum (DW_TOL_F64_REL); dw the same bits
+    from two calls."""
+    assert narrow_plan(B, D, H, W, N, C, dtype=torch.float32) is not None
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn(B, D, H, W, C, generator=gen).to(cuda)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda)
+    g = torch.randn(B, D, H, W, N, generator=gen).to(cuda)
+    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
+    with torch.no_grad():
+        dx, dw, again = k2.conv_k2_dx(g, w), conv_k2_dw(x, g), conv_k2_dw(x, g)
+        dx_ref, dw_ref = k2.conv_k2_dx_reference(g, w), conv_k2_dw_reference(x, g)
+        dx64, dw64 = _dx_float64(g, w), _dw_float64(x, g)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2] + 2) and _wgmma_counts() == before_wg
+    assert _narrow_counts() == (before_nr[0], before_nr[1] + 1, before_nr[2] + 2)
+    assert dx.dtype == torch.float32 and dx.shape == (B, D, H, W, C)
+    assert float((dx - dx_ref).abs().max()) <= 1e-4
+    tol_dx64 = 1e-5 * float(dx64.abs().max())
+    assert float((dx.double() - dx64).abs().max()) <= tol_dx64
+    assert float((dx_ref.double() - dx64).abs().max()) <= tol_dx64
+    assert dw.dtype == torch.float32 and dw.shape == (2, 2, 2, C, N) and torch.equal(dw, again)
+    assert float((dw - dw_ref).abs().max()) <= 1e-5 * float(dw_ref.abs().max()) + 1e-5
+    tol_dw64 = DW_TOL_F64_REL * float(dw64.abs().max())
+    assert float((dw.double() - dw64).abs().max()) <= tol_dw64
+    assert float((dw_ref.double() - dw64).abs().max()) <= tol_dw64
 
 
 def small_detector_config():

@@ -401,28 +401,38 @@ def _narrow_boxes(B, D, H, W, box):
     return [(b, d, h, w) for b in range(B) for d in range(0, D, bd) for h in range(0, H, bh) for w in range(0, W, bw)]
 
 
-def _narrow_smem_of(box, C, N, dw, esize=2):
-    """What ``nr::smem_bytes`` allots for elements of ``esize`` bytes: 1024 bytes of alignment room, two stages
-    (the halo box of x, esize C bytes a voxel, and for dw the box of g, rows rounded up to 16), the forward's w
-    (8C x N) and its table of output rows, the table of halo rows, two barriers; stages in whole KiB. The float32
-    forward of a box of at most 512 rows splits the taps over the block's two halves: the second half's sums,
-    rows x N floats, besides."""
+def _narrow_smem_of(box, C, N, dw, esize, stages, chunk_d):
+    """What ``nr::smem_bytes`` allots for elements of ``esize`` bytes: 1024 bytes of alignment room, ``stages``
+    stages (the halo box of x, esize C bytes a voxel, and for dw the box of g, rows rounded up to 16), the
+    forward's w (8C x N) and its table of output rows, the table of halo rows, a barrier a stage (their room
+    rounded up to 16 bytes); stages in whole KiB. The float32 forward of a box of at most 512 rows splits the taps
+    over the block's two halves: the second half's sums, rows x N floats, besides; where ``chunk_d`` is set, two
+    chunk buffers of 256 rows x N floats; the float32 dw sums its groups' tiles in 8C x N floats."""
     bw, bh, bd = box
     rows = bw * bh * bd
     rows16 = -(-rows // 16) * 16
     kib = lambda n: -(-n // 1024) * 1024  # noqa: E731
     stage = kib((bw + 1) * (bh + 1) * (bd + 1) * esize * C) + (kib(rows16 * esize * N) if dw else 0)
-    sums = 4 * rows * N if esize == 4 and rows <= 512 else 0
-    return 1024 + 2 * stage + (0 if dw else 8 * C * N * esize + 4 * rows16) + 4 * rows16 + 16 + sums
+    sums = 0
+    if esize == 4:
+        sums = 4 * 8 * C * N if dw else 4 * rows * N if rows <= 512 else 0
+    chunks = 2 * kib(256 * 4 * N) if chunk_d else 0
+    return (1024 + stages * stage + chunks + (0 if dw else 8 * C * N * esize + 4 * rows16) + 4 * rows16
+            + -(-8 * stages // 16) * 16 + sums)
 
 
-def _check_narrow_boxes(B, D, H, W, C, N, box, boxes, smem, dw, esize):
+def _check_narrow_boxes(B, D, H, W, C, N, box, boxes, smem, dw, esize, stages=2, chunk_d=0):
     bw, bh, bd = box
     # the halo box (one more along each axis) within the TMA's 256 a dimension, at most 1024 rows a box,
     # an m-tile's 16 rows on one w-line unless the box spans all of W, one block an SM
     assert max(bw, bh, bd) + 1 <= 256 and bw <= W and bh <= H and bd <= D and bw * bh * bd <= 1024
     assert bw % 16 == 0 or bw == W
-    assert smem == _narrow_smem_of(box, C, N, dw, esize) <= SMEM_PER_BLOCK
+    # what nr::make_geom takes of the plan's choices: two stages, or three for the float32 dw; an output chunk
+    # only in the float32 forward without a tap split, 256 rows of whole d-planes, the box whole chunks
+    assert stages == 2 or (dw and esize == 4 and stages == 3)
+    assert chunk_d == 0 or (not dw and esize == 4 and bw * bh * bd > 512 and chunk_d * bw * bh == 256
+                            and bd % chunk_d == 0)
+    assert smem == _narrow_smem_of(box, C, N, dw, esize, stages, chunk_d) <= SMEM_PER_BLOCK
     # the boxes of each batch item cover every voxel of its grid once (the last along an axis ragged)
     origins = _narrow_boxes(B, D, H, W, box)
     assert len(origins) == boxes
@@ -434,25 +444,30 @@ def _check_narrow_boxes(B, D, H, W, C, N, box, boxes, smem, dw, esize):
 
 
 def _check_narrow_walk(plan):
-    """The forward: blocks i take boxes i, i + grid, ...: every box once."""
+    """The forward: blocks i take boxes i, i + grid, ...: every box once. dw: one wave, one block an SM; runs of
+    whole boxes, every box once, none empty."""
     assert 1 <= plan.grid <= min(plan.boxes, 132)
     walked = sorted(t for block in range(plan.grid) for t in range(block, plan.boxes, plan.grid))
     assert walked == list(range(plan.boxes))
+    splits, per = plan.dw_splits, plan.dw_boxes_per_split
+    assert 1 <= splits <= 132 and (splits - 1) * per < plan.dw_boxes <= splits * per
+    runs = [range(z * per, min(plan.dw_boxes, (z + 1) * per)) for z in range(splits)]
+    assert all(len(r) > 0 for r in runs) and [t for r in runs for t in r] == list(range(plan.dw_boxes))
+
+
+def _check_narrow_plan(B, D, H, W, C, N, plan, esize):
+    """The forward's and dw's boxes, shared memory and choices, and both walks."""
+    _check_narrow_boxes(B, D, H, W, C, N, plan.box, plan.boxes, plan.smem_bytes, False, esize, 2, plan.chunk_d)
+    _check_narrow_boxes(B, D, H, W, C, N, plan.dw_box, plan.dw_boxes, plan.dw_smem_bytes, True, esize,
+                        plan.dw_stages)
+    _check_narrow_walk(plan)
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", NARROW)
 def test_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     plan = narrow_plan(B, D, H, W, C, N)
     assert plan is not None and wgmma_plan(B, D, H, W, C, N) is None
-    for box, boxes, smem, dw in ((plan.box, plan.boxes, plan.smem_bytes, False),
-                                 (plan.dw_box, plan.dw_boxes, plan.dw_smem_bytes, True)):
-        _check_narrow_boxes(B, D, H, W, C, N, box, boxes, smem, dw, 2)
-    _check_narrow_walk(plan)
-    # dw: one wave, one block an SM; runs of whole boxes, every box once, none empty
-    splits, per = plan.dw_splits, plan.dw_boxes_per_split
-    assert 1 <= splits <= 132 and (splits - 1) * per < plan.dw_boxes <= splits * per
-    runs = [range(z * per, min(plan.dw_boxes, (z + 1) * per)) for z in range(splits)]
-    assert all(len(r) > 0 for r in runs) and [t for r in runs for t in r] == list(range(plan.dw_boxes))
+    _check_narrow_plan(B, D, H, W, C, N, plan, 2)
 
 
 @pytest.mark.parametrize("shape,dtype", NARROW_NONE)
@@ -460,24 +475,41 @@ def test_narrow_plan_is_none_where_the_kernels_do_not_apply(shape, dtype):
     assert narrow_plan(*shape, dtype=dtype) is None
 
 
-# (B, D, H, W, C, N) that float32 takes on the narrow forward: NARROW's shapes whose rows are at most 128 bytes
+# (B, D, H, W, C, N) that float32 takes on the narrow kernels: NARROW's shapes whose rows are at most 128 bytes
 NARROW_F32 = [s for s in NARROW if s[4] <= 32]
-# and without: C = 64 (256-byte rows), N outside {8, 16, 32}, C % 8 != 0, C = 24
+# and without: C = 64 (256-byte rows: the dw of 64 -> 8), N outside {8, 16, 32} (N = 64: the dx of 64 -> 8, a
+# forward of 8 -> 64), C % 8 != 0, C = 24
 NARROW_F32_NONE = [(2, 32, 32, 32, 64, 8), (3, 5, 6, 7, 64, 32), (32, 32, 32, 32, 32, 4), (2, 8, 8, 8, 32, 64),
-                   (2, 5, 6, 7, 12, 8), (2, 5, 6, 7, 24, 16)]
+                   (2, 5, 6, 7, 12, 8), (2, 5, 6, 7, 24, 16), (2, 32, 32, 32, 8, 64)]
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", NARROW_F32)
 def test_f32_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     """float32's plan: 4C-byte rows in the halo box and w of 8C x N floats in one block's shared memory (at
-    32^3, C = 32, a 16 x 8 x 4 box: 2 x 98 KB of stages), every voxel in one box, every box walked once; no dw
-    part (float32 dw stays FFMA)."""
+    32^3, C = 32, a 16 x 8 x 4 box: 2 x 98 KB of stages), every voxel in one box, every box walked once; its dw
+    part: the halo box of x and the box of g (rows of 4N bytes) in three stages beside the 8C x N sum of the
+    groups' tiles within the block's shared memory (at 32^3, C = 32 -> N = 8, a 16 x 4 x 4 box in 200,736
+    bytes), every voxel in one box, every box in one split's run."""
     plan = narrow_plan(B, D, H, W, C, N, dtype=torch.float32)
-    assert plan is not None and plan.dw_box is None and plan.dw_smem_bytes is None
-    _check_narrow_boxes(B, D, H, W, C, N, plan.box, plan.boxes, plan.smem_bytes, False, 4)
-    _check_narrow_walk(plan)
+    assert plan is not None
+    _check_narrow_plan(B, D, H, W, C, N, plan, 4)
     if (D, H, W, C) == (32, 32, 32, 32):
         assert plan.box == (16, 8, 4) and plan.smem_bytes > SMEM_PER_BLOCK // 2
+    if (D, H, W, C, N) == (32, 32, 32, 32, 8):
+        assert plan.dw_box == (16, 4, 4) and plan.dw_stages == 3 and plan.dw_smem_bytes == 200_736
+
+
+@pytest.mark.parametrize("B", [32, 1024])
+def test_f32_narrow_dx_plan_of_the_detector(B):
+    """The detector decoder's last conv, 32 -> 8 at 32^3: its float32 dx is the forward from 8 to 32 channels,
+    which has a narrow plan: a 16 x 8 x 8 box of 1024 rows (one part of the taps, 4 rows a thread) whose halo of
+    8-channel rows, w' (8 x 8 x 32 floats) and two output chunks of 256 rows x 128 bytes take 173,072 bytes;
+    every voxel in one box, every box walked once."""
+    plan = narrow_plan(B, 32, 32, 32, 8, 32, dtype=torch.float32)
+    assert plan is not None and plan.box == (16, 8, 8) and plan.smem_bytes == 107_536 + 2 * 256 * 128
+    assert plan.chunk_d == 2  # two d-planes of 16 x 8 a chunk, stored through shared memory
+    _check_narrow_boxes(B, 32, 32, 32, 8, 32, plan.box, plan.boxes, plan.smem_bytes, False, 4, 2, plan.chunk_d)
+    _check_narrow_walk(plan)
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", NARROW_F32_NONE)
@@ -612,22 +644,86 @@ def test_narrow_halo_reads_give_dw(B, D, H, W, C, N):
     np.testing.assert_allclose(dw.numpy(), jax_dw, atol=tol, rtol=0)
 
 
+def _emulate_narrow_dw_f32(x, g, plan):
+    """The float32 narrow dw as its blocks walk it: split z reduces its run of boxes (a halo box of x and a box
+    of g each); in a box, group q of the block's 256 threads takes rows q, q + groups, ..., and the thread of
+    tile (tap t, channels 8 cg.., outputs 8 og..) adds those rows' products to its 8 x 8 accumulators; after
+    the run the groups' tiles are summed in ascending order, then the splits' partials. Returns dw, how often
+    each row m entered the sum, and how often each (tap, c, n) was some tile's."""
+    B, D, H, W, C = x.shape
+    N = g.shape[-1]
+    bw, bh, bd = plan.dw_box
+    tiles = C * N // 8
+    groups = 256 // tiles
+    tile_of = [(i // (N // 8) // (C // 8), i // (N // 8) % (C // 8), i % (N // 8)) for i in range(tiles)]
+    covered = torch.zeros(8, C, N, dtype=torch.int32)
+    for t, cg, og in tile_of:
+        covered[t, 8 * cg:8 * cg + 8, 8 * og:8 * og + 8] += 1
+    origins = _narrow_boxes(B, D, H, W, plan.dw_box)
+    vrow, toff, rows = _narrow_rows(plan.dw_box, C)
+    part = torch.zeros(plan.dw_splits, 8 * C, N)
+    seen = torch.zeros(B, D, H, W, dtype=torch.int64)
+    for z in range(plan.dw_splits):
+        acc = torch.zeros(groups, tiles, 8, 8)
+        for box in range(z * plan.dw_boxes_per_split, min(plan.dw_boxes, (z + 1) * plan.dw_boxes_per_split)):
+            b, d0, h0, w0 = origins[box]
+            a = _narrow_a(_narrow_operand(x, (bw + 1, bh + 1, bd + 1), origins[box]), vrow, toff, C)[:rows]
+            gbox = _narrow_operand(g, plan.dw_box, origins[box])
+            for q in range(groups):
+                for i, (t, cg, og) in enumerate(tile_of):
+                    col = t * C + 8 * cg
+                    acc[q, i] += a[q::groups, col:col + 8].T @ gbox[q::groups, 8 * og:8 * og + 8]
+            seen[b, d0:d0 + bd, h0:h0 + bh, w0:w0 + bw] += 1
+        total = acc[0].clone()
+        for q in range(1, groups):
+            total += acc[q]
+        for i, (t, cg, og) in enumerate(tile_of):
+            part[z, t * C + 8 * cg:t * C + 8 * cg + 8, 8 * og:8 * og + 8] = total[i]
+    dw = part[0].clone()
+    for z in range(1, plan.dw_splits):
+        dw += part[z]
+    return dw.reshape(2, 2, 2, C, N), seen, covered
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", [s for s in NARROW_EMULATED if s[4] <= 32] + [(2, 8, 8, 8, 32, 8)])
+def test_f32_narrow_dw_groups_give_dw(B, D, H, W, C, N):
+    """The float32 dw's walk: its tiles cover every (tap, c, n) once, its groups and splits reduce every row
+    once, and the tiles summed group by group, then split by split, equal ``conv_k2_dw_reference`` and
+    ``_conv_k2_bwd_impl``'s dw (f32, summation order only: 1e-5 of the largest entry). The detector's pairing
+    (32 -> 8: one warp a group, 8 groups) at a small grid."""
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
+    g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
+    plan = narrow_plan(B, D, H, W, C, N, sms=2, dtype=torch.float32)  # 2 splits, each a run of several boxes
+    dw, seen, covered = _emulate_narrow_dw_f32(torch.from_numpy(x), torch.from_numpy(g), plan)
+    assert (covered == 1).all() and (seen == 1).all()
+    ref = conv_k2_dw_reference(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(dw.numpy(), ref, atol=tol, rtol=0)
+    jax_dw = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.zeros((2, 2, 2, C, N)), jnp.asarray(g))[1])
+    np.testing.assert_allclose(dw.numpy(), jax_dw, atol=tol, rtol=0)
+
+
 # NARROW_EMULATED's shapes whose dx has a narrow plan (the forward from N to C channels), and the detector's
-# pairing at a small grid: dx of 32 -> 8 is a forward of 8 -> 32
+# pairing at a small grid: dx of 32 -> 8 is a forward of 8 -> 32; in bfloat16, then in float32 (N <= 32)
 NARROW_DX_EMULATED = [s for s in NARROW_EMULATED if narrow_plan(*s[:4], s[5], s[4]) is not None] + [
     (2, 8, 8, 8, 32, 8)]
+NARROW_DX_CASES = ([pytest.param(*s, torch.bfloat16, id="-".join(map(str, s))) for s in NARROW_DX_EMULATED]
+                   + [pytest.param(*s, torch.float32, id="-".join(map(str, s)) + "-f32") for s in NARROW_DX_EMULATED
+                      if narrow_plan(*s[:4], s[5], s[4], dtype=torch.float32) is not None])
 
 
-@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_DX_EMULATED)
-def test_narrow_mirrored_halo_reads_give_dx(B, D, H, W, C, N):
-    """dx as the narrow kernel's DX instance walks it: the forward from N to C channels over g, with the halo
-    box one voxel lower (zeros below 0, the low-edge mask) and w'[s] = w[7 - s]^T, each bit of the tap flipped.
-    The emulated walk writes every dx row once and equals ``conv_k2_dx_reference`` and ``_conv_k2_bwd_impl``'s
-    dx: f32, summation order only, 1e-5 of the largest entry."""
+@pytest.mark.parametrize("B,D,H,W,C,N,dtype", NARROW_DX_CASES)
+def test_narrow_mirrored_halo_reads_give_dx(B, D, H, W, C, N, dtype):
+    """dx as the narrow kernel's DX instance walks it (bfloat16's and float32's, each at the plan of its
+    dtype): the forward from N to C channels over g, with the halo box one voxel lower (zeros below 0, the
+    low-edge mask) and w'[s] = w[7 - s]^T, each bit of the tap flipped. The emulated walk writes every dx row
+    once and equals ``conv_k2_dx_reference`` and ``_conv_k2_bwd_impl``'s dx: f32, summation order only, 1e-5 of
+    the largest entry."""
     rng = np.random.default_rng(9)
     g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
     w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
-    plan = narrow_plan(B, D, H, W, N, C, sms=2)  # the route's plan: 2 blocks, each walks several boxes
+    plan = narrow_plan(B, D, H, W, N, C, sms=2, dtype=dtype)  # the route's plan: 2 blocks, each walks several boxes
     wm = torch.from_numpy(w).flip(0, 1, 2).transpose(3, 4)  # (2, 2, 2, N, C), as the wrapper lays it out
     dx, written = _emulate_narrow_forward(torch.from_numpy(g), wm, plan, lower=1)
     assert (written == 1).all()
@@ -681,7 +777,7 @@ def test_swizzled_f32_rows_read_as_float4_fall_in_distinct_banks(C):
 
 class _FakeLib:
     """Stands in for the built library on the CPU: records each entry point's arguments, returns 0; of the
-    narrow dx also the bytes of w' (bfloat16 [8N, C]) as the launch is given them."""
+    narrow dx also the bytes of w' ([8N, C] of the dtype whose code it is given) as the launch is given them."""
 
     def __init__(self):
         self.calls = []
@@ -691,8 +787,8 @@ class _FakeLib:
         def entry(*args):
             self.calls.append((name, args))
             if name == "conv_k2_backward_input_narrow":
-                C, N = args[7], args[8]
-                self.wm = ctypes.string_at(args[1], 8 * N * C * 2)
+                C, N, dtype = args[7], args[8], args[15]
+                self.wm = ctypes.string_at(args[1], 8 * N * C * (4 if dtype == 0 else 2))
             return 0
 
         return entry
@@ -709,11 +805,11 @@ def routes(monkeypatch):
     return lib
 
 
-# (B, D, H, W, C, N, dtype, forward, dx, dw): the entry point each kernel takes. bf16 at the detector's 32 -> 8:
-# all three narrow (dx by the plan of 8 -> 32); float32 there: the forward narrow, dx and dw FFMA; bf16 64 -> 8:
-# the forward and dw narrow, dx FFMA (8 -> 64 has no narrow plan); float32 64 -> 8 (256-byte rows): all FFMA
+# (B, D, H, W, C, N, dtype, forward, dx, dw): the entry point each kernel takes. The detector's 32 -> 8, bf16
+# and float32: all three narrow (dx by the plan of 8 -> 32); bf16 64 -> 8: the forward and dw narrow, dx FFMA
+# (8 -> 64 has no narrow plan); float32 64 -> 8 (256-byte rows, and 8 -> 64): all FFMA
 ROUTES = [(2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
-          (2, 8, 8, 8, 32, 8, torch.float32, "forward_narrow", "backward_input", "backward_weight"),
+          (2, 8, 8, 8, 32, 8, torch.float32, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 64, 8, torch.bfloat16, "forward_narrow", "backward_input", "backward_weight_narrow"),
           (2, 8, 8, 8, 64, 8, torch.float32, "forward", "backward_input", "backward_weight"),
           (1, 8, 8, 8, 64, 64, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma")]
@@ -722,8 +818,9 @@ ROUTES = [(2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_
 @pytest.mark.parametrize("B,D,H,W,C,N,dtype,fwd,dx,dw", ROUTES)
 def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, dw):
     """The launchers' choice, from shape and dtype alone: the narrow forward with the plan of its dtype and the
-    dtype's code; the narrow dx with the plan of the forward from N to C, ``narrow_plan(B, D, H, W, N, C)``, and
-    w'[s] = w[7 - s]^T laid out as (2, 2, 2, N, C); the counters of the route taken."""
+    dtype's code; the narrow dx with the plan of the forward from N to C, ``narrow_plan(B, D, H, W, N, C)`` of
+    its dtype, and w'[s] = w[7 - s]^T laid out as (2, 2, 2, N, C); the narrow dw with the plan's dw part and the
+    dtype's code; the counters of the route taken."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(B, D, H, W, C, generator=gen).to(dtype)
     w = torch.randn(2, 2, 2, C, N, generator=gen)
@@ -736,13 +833,18 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
     assert [name for name, _ in routes.calls] == [f"conv_k2_{fwd}", f"conv_k2_{dx}", f"conv_k2_{dw}"]
     moved = [getattr(conv_k2, c) - b for c, b in zip(counters, before)]
     assert moved == [int(fwd.endswith("narrow")), int(dx.endswith("narrow")), int(dw.endswith("narrow"))]
-    (_, fargs), (_, dargs), _ = routes.calls
+    (_, fargs), (_, dargs), (_, wargs) = routes.calls
+    code = k2._DTYPE_CODES[dtype]
     if fwd == "forward_narrow":
         plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
-        assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, k2._DTYPE_CODES[dtype], None, 0)
+        assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, plan.chunk_d, code, None, 0)
+    if dw == "backward_weight_narrow":
+        plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
+        assert wargs[4:] == (plan.dw_splits, plan.dw_boxes_per_split, B, D, H, W, C, N, *plan.dw_box,
+                             plan.dw_smem_bytes, plan.dw_stages, code, None, 0)
     if dx == "backward_input_narrow":
-        plan = narrow_plan(B, D, H, W, N, C)
-        assert dargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, None, 0)
+        plan = narrow_plan(B, D, H, W, N, C, dtype=dtype)
+        assert dargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, plan.chunk_d, code, None, 0)
         # w' lies as w flipped in every tap bit, each tap transposed
         wm = w.to(dtype).flip(0, 1, 2).transpose(3, 4).contiguous()
         assert torch.equal(torch.frombuffer(bytearray(routes.wm), dtype=dtype).reshape(wm.shape), wm)
@@ -888,6 +990,25 @@ def test_library_path_keyed_by_sources_and_flags(monkeypatch):
     assert flagged != path
     monkeypatch.setattr(build, "EXTRA_DEFINES", ("CONV_K2_WAIT_TRAP_NS=1000ull",))
     assert build.library_path("conv_k2") not in (path, flagged)
+
+
+def test_library_path_of_given_defines(monkeypatch):
+    """A build's own ``defines`` stand in for ``EXTRA_DEFINES`` in its path: each probe build of the narrow
+    kernels has its own library, and none is the port's."""
+    monkeypatch.setattr(build, "EXTRA_DEFINES", ())
+    port = build.library_path("conv_k2")
+    probes = [build.library_path("conv_k2", (f"CONV_K2_NARROW_PROBE={m}",)) for m in (1, 2, 3)]
+    assert len({port, *probes}) == 4 and build.library_path("conv_k2", ()) == port
+    monkeypatch.setattr(build, "EXTRA_DEFINES", ("CONV_K2_NARROW_PROBE=1",))
+    assert build.library_path("conv_k2") == probes[0]
+
+
+def test_probe_narrow_needs_a_card(monkeypatch):
+    from anytime3d_tpu_torch.cli import probe_narrow
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA GPU"):
+        probe_narrow.main()
 
 
 def test_default_build_waits_without_a_trap():
