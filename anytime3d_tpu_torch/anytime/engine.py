@@ -143,7 +143,10 @@ def anytime_eval(model: MultiModalVAE, batch: Mapping[str, torch.Tensor],
     mode), is its own instance.
 
     ``prior_means`` (K, z_cat_dim): class anchors; None takes them from the
-    category prior net (:func:`category_prior_means`). Outputs: ``loss_shape``,
+    category prior net (:func:`category_prior_means`), which a model without
+    one lacks (``ValueError``): pass it the per-class mean latents of
+    ``evaluation.protocols.category_vectors``. An AE model's latent is its
+    encoder's output, with no draw. Outputs: ``loss_shape``,
     ``precision``, ``recall``, ``acc_category`` (and ``acc_inst``), and with
     ``missing_prob > 0`` the same but ``acc_inst`` with a ``_corrected``
     suffix. ``return_pred`` adds the decoded grids ``pred`` (and
@@ -173,7 +176,7 @@ def anytime_eval(model: MultiModalVAE, batch: Mapping[str, torch.Tensor],
                 prior_means = category_prior_means(model, mean.dtype)
             prior_means = prior_means.to(mean.device)
 
-            z = reparameterize(mean, log_var, generator, draws.get("eps_cat"))
+            z = _sample(mean, log_var, generator, draws.get("eps_cat"))
             if masked:
                 # missing dims <- the mean of the prior means
                 z, mask = mask_latent(z, missing_prob, prior_means.mean(dim=0), generator, draws.get("keep"))
@@ -183,7 +186,7 @@ def anytime_eval(model: MultiModalVAE, batch: Mapping[str, torch.Tensor],
 
             z_inst = None
             if inst is not None:
-                z_inst = reparameterize(*inst, generator, draws.get("eps_inst"))
+                z_inst = _sample(*inst, generator, draws.get("eps_inst"))
                 if mcfg.prior_inst is not None and onehot is not None and "inst_onehot" in batch:
                     metrics["acc_inst"] = _instance_accuracy(model, z_inst, onehot, batch["inst_onehot"])
 
@@ -207,6 +210,12 @@ def anytime_eval(model: MultiModalVAE, batch: Mapping[str, torch.Tensor],
             return metrics
     finally:
         model.train(was_training)
+
+
+def _sample(mean: torch.Tensor, log_var: Optional[torch.Tensor], generator: Optional[torch.Generator],
+            eps: Optional[torch.Tensor]) -> torch.Tensor:
+    """A posterior sample, or the mean itself for an AE model (no log-var)."""
+    return mean if log_var is None else reparameterize(mean, log_var, generator, eps)
 
 
 def _instance_accuracy(model: MultiModalVAE, z_inst: torch.Tensor, category_onehot: torch.Tensor,

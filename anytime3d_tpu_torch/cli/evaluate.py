@@ -6,9 +6,14 @@ latents, or reconstruction dumps.
 Counterpart of ``anytime3d_tpu/cli/evaluate.py``. By default it prints the
 sweep table (metrics per missing rate, uncorrected and corrected) as JSON,
 then the decode threshold of best IoU on one batch's posterior-mean
-reconstruction. ``--latents-out f.npy`` writes the per-class mean latents
-(``category_vectors``) instead; ``--dump dir/`` writes GT and decoded grids
-per missing rate (``evaluation/dump.py``).
+reconstruction; a model without a category prior (the VAE, AE and
+``kitti_inst_only`` configs) has no class anchors for the sweep and raises
+``ValueError``, as the JAX command does. ``--latents-out f.npy`` writes the
+per-class mean latents (``category_vectors``) instead, for any config: the
+anchors that ``cli.export --prior-means`` bakes into such a model's serving
+program (its batches carry the class labels; the JAX command's omit them
+for a model without a category prior or width and fail there). ``--dump
+dir/`` writes GT and decoded grids per missing rate (``evaluation/dump.py``).
 
 ``--ckpt`` restores the parameters of a checkpoint of ``cli.train
 --save-path`` (``train/checkpoint.py``); ``--weights`` takes flax params as a
@@ -76,8 +81,8 @@ def main(argv=None):
     model = model.to(device).eval()
     _, loader = build_loaders(args, cfg)
     image_size = (args.image_size, args.image_size) if cfg.encoder == "image" else None
-    batch_fn = build_batch_fn(loader, cfg, args.batch_size, packed=True,
-                              native=True if device.type == "cuda" else None, image_size=image_size)
+    batch_fn = build_batch_fn(loader, cfg, args.batch_size, packed=True, native=True if device.type == "cuda" else None,
+                              image_size=image_size, category=True if args.latents_out else None)
 
     if args.latents_out:
         vecs = category_vectors(model, batch_fn, num_classes=cfg.category_dim or 40, num_batches=args.batches)

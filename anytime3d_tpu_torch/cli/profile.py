@@ -61,7 +61,7 @@ def main(argv=None):
     image = cfg.encoder == "image"
     if image:  # bench.py's image step: 96x128 images, the voxel target packed in the decoder's blocked order
         loader = SyntheticImageObjectLoader(num_samples=256, dim=cfg.decoder.output_shape[0],
-                                            num_classes=cfg.category_dim, num_inst=cfg.inst_dim)
+                                            num_classes=cfg.category_dim or 40, num_inst=cfg.inst_dim or 10)
         trainer.batch_fn = cli_train.build_batch_fn(loader, cfg, batch_size, packed=True, native=True,
                                                     image_size=(128, 96))
     # the served model, copied before the train model gets its hooks; cast as cli.serve --bf16 casts it

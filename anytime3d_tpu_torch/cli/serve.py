@@ -18,7 +18,11 @@ Counterpart of ``anytime3d_tpu/cli/serve.py``, in two modes:
   ``cli.train --save-path``), ``--weights`` (flax params as a flat ``.npz``
   keyed by '/'-joined flax paths, ``convert.load_flax_npz``) or seeded random
   weights (``--seed``), and serve its packed-IO program (voxel configs; an
-  image config is served from its exported artifact).
+  image config is served from its exported artifact). A config without a
+  category prior (``modelnet_vae``, ``modelnet_ae``, ``ae3d`` and their
+  ``_dr`` forms) is served with no class: its replies carry no
+  ``category`` and its missing latent dims take 0; to classify, export it
+  with ``cli.export --prior-means`` and serve the artifact.
 
 The device defaults to ``cuda``; when CUDA is absent the command fails rather
 than serve from the CPU. ``--port 0`` binds an ephemeral port; the line

@@ -30,7 +30,7 @@ import numpy as np
 
 
 def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False, native=None, image_size=None,
-                   multi_scale=None):
+                   multi_scale=None, category=None):
     """Adapt a loader to the train step's batch dict of numpy arrays: the
     modelnet-style dict batches (``input_images``, ``class_list``,
     ``inst_list``) and the Pascal-style 6-tuples ``(inst, cls, sin, cos,
@@ -47,6 +47,8 @@ def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False
 
     block, dec_block = blocked_io_block(model_cfg), decoder_blocked_block(model_cfg)
     wants_category = model_cfg.prior_category is not None or model_cfg.category_dim
+    if category is not None:
+        wants_category = category
 
     def batch_fn(it: int):
         size, bs = image_size, batch_size

@@ -11,9 +11,10 @@ laid out as the port holds it:
 - ``Conv_*/kernel`` of a 2-D conv: HWIO -> OIHW (``F.conv2d``);
 - ``Conv_*/kernel`` of a 3-D conv: DHWIO -> OIDHW (``F.conv3d``), except the
   2x2x2 kernels, which stay (2, 2, 2, C, N) as the ``conv_k2`` kernel takes them;
-- ``ConvTranspose_*/kernel``: flipped in D, H and W and permuted to
-  (Cin, Cout, k, k, k) (``F.conv_transpose3d``; see
-  ``nn.blocks.ConvTranspose3d``);
+- ``ConvTranspose_*/kernel`` and ``ConvTransposeEquiv3D_*/kernel``: flipped
+  in D, H and W and permuted to (Cin, Cout, k, k, k) (``F.conv_transpose3d``;
+  see ``nn.blocks.ConvTranspose3d``; ``ConvTransposeEquiv3D`` keeps that
+  layout and embeds its k=3 phase kernel from it at each call);
 - ``Dense_*/kernel``: (in, out) -> (out, in);
 - ``scale`` -> ``weight``; ``bias`` stays.
 """
@@ -38,7 +39,7 @@ def _leaf(module: str, name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
         return "weight", value.transpose(3, 2, 0, 1)
     if kind == "Conv":
         return "weight", value if value.shape[:3] == (2, 2, 2) else value.transpose(4, 3, 0, 1, 2)
-    if kind == "ConvTranspose":
+    if kind in ("ConvTranspose", "ConvTransposeEquiv3D"):
         return "weight", value[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
     if kind == "Dense":
         return "weight", value.T

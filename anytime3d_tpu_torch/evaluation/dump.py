@@ -39,7 +39,8 @@ def dump_reconstructions(model: MultiModalVAE, batch: Mapping, out_dir: str,
     whatever layout the model computes in. Returns {str(rate): path}.
 
     Each rate draws from a generator seeded ``seed + int(rate*1000)`` on the
-    model's device, in the order ``eps`` (posterior sample), ``keep``
+    model's device, in the order ``eps`` (posterior sample; none for an AE
+    model, which takes its mean), ``keep``
     (observation mask) and ``eps_corr`` (correction), unless ``draws[rate]``
     gives them."""
     os.makedirs(out_dir, exist_ok=True)
@@ -65,7 +66,8 @@ def dump_reconstructions(model: MultiModalVAE, batch: Mapping, out_dir: str,
             for rate in rates:
                 d = (draws or {}).get(rate, {})
                 gen = torch.Generator(device=device).manual_seed(seed + int(rate * 1000))
-                z = reparameterize(mean, log_var, gen, d.get("eps"))
+                # an AE model (no log-var) decodes its mean
+                z = mean if log_var is None else reparameterize(mean, log_var, gen, d.get("eps"))
                 fill = prior_means.mean(dim=0) if prior_means is not None else 0.0
                 z_masked, mask = mask_latent(z, rate, fill, gen, d.get("keep"))
                 out = {"gt": gt, "pred": decode(z_masked), "mask": _host(mask), "rate": rate}

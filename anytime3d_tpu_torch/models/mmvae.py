@@ -9,7 +9,8 @@ log-var clipped to +-log_var_clip), ``decode``, ``priors_category``,
 ``priors_inst`` and the blocked-IO predicates. Submodule names
 (``backbone``, ``head``, ``encoder3d``, ``decoder``, ``prior_category``,
 ``prior_inst``) are the flax ones, so converted checkpoints load by name.
-Deterministic (``variational=False``) models are not ported yet.
+A deterministic model (``variational=False``, the AE variants) encodes to
+means alone: every ``log_var`` is None.
 
 Parameters are created on the CPU from ``generator``; move the module with
 ``.to(device)``. For bfloat16 compute, training passes
@@ -30,6 +31,7 @@ from anytime3d_tpu_torch.nn.autoencoder3d import (
     Decoder3DConfig,
     Encoder3D,
     Encoder3DConfig,
+    decoder_final_equiv_active,
     decoder_tail_blocked_active,
     encoder_head_blocked_active,
 )
@@ -57,7 +59,7 @@ class MMVAEConfig:
     prior_inst: Optional[PriorNetConfig] = None
     # behavior flags
     variational: bool = True
-    latent_dropout: bool = False  # the `_dr` variants; the train step refuses it for now
+    latent_dropout: bool = False  # the `_dr` variants: dropout on z at a random rate each train step
     log_var_clip: float = 10.0
 
     @property
@@ -71,12 +73,12 @@ class MMVAEConfig:
 
 @dataclasses.dataclass
 class EncoderOutput:
-    """Posterior blocks, each (B, dim)."""
+    """Posterior blocks, each (B, dim); the log-vars are None for AE models."""
 
     mean_category: Optional[torch.Tensor]
     log_var_category: Optional[torch.Tensor]
     mean_inst: torch.Tensor
-    log_var_inst: torch.Tensor
+    log_var_inst: Optional[torch.Tensor]
 
     @property
     def mean(self) -> torch.Tensor:
@@ -85,16 +87,23 @@ class EncoderOutput:
         return torch.cat([self.mean_category, self.mean_inst], dim=-1)
 
     @property
-    def log_var(self) -> torch.Tensor:
+    def log_var(self) -> Optional[torch.Tensor]:
+        if self.log_var_inst is None:
+            return None
         if self.log_var_category is None:
             return self.log_var_inst
         return torch.cat([self.log_var_category, self.log_var_inst], dim=-1)
 
 
 def decoder_blocked_block(cfg: MMVAEConfig) -> Optional[int]:
-    """Block size (4) when the decoder can emit the coarse depth-to-space
-    layout (``blocked_output``), else None."""
-    if not decoder_tail_blocked_active(cfg.decoder) or any(s % 4 for s in cfg.decoder.output_shape[:-1]):
+    """Block size (4) when the decoder can emit the coarse depth-to-space(4)
+    layout (``blocked_output``), else None: the blocked tail, or the phase
+    lowering of a final transposed conv (``final_mode='transpose_equiv'``,
+    whose phase output relays to the same layout), on a grid of whole blocks."""
+    dec = cfg.decoder
+    if not (decoder_tail_blocked_active(dec) or decoder_final_equiv_active(dec)):
+        return None
+    if any(s % 4 for s in dec.output_shape[:-1]):
         return None
     return 4
 
@@ -116,8 +125,6 @@ class MultiModalVAE(nn.Module):
         super().__init__()
         cfg = config
         self.dtype = dtype
-        if not cfg.variational:
-            raise NotImplementedError("not ported yet: deterministic (variational=False) models")
         self.config = cfg
         if cfg.encoder == "image":
             head_cfg = cfg.head or Head2DConfig(output_dim=cfg.enc_output_dim)
@@ -151,7 +158,8 @@ class MultiModalVAE(nn.Module):
         """Images (B, H, W, 3) or voxels (B, D, H, W, C) -> posterior blocks
         (``blocked_input`` concerns voxels only). The flat encoder output is
         [mean_cat | log_var_cat | mean_inst | log_var_inst] with a category
-        split, [mean | log_var] without."""
+        split, [mean | log_var] without; an AE model's is the means alone,
+        [z_cat | z_inst] or z."""
         cfg = self.config
         if cfg.encoder == "image":
             feats = self.backbone(x)
@@ -161,16 +169,20 @@ class MultiModalVAE(nn.Module):
         else:
             out = self.encoder3d(x, blocked_input=blocked_input)
         clip = cfg.log_var_clip
+        if not cfg.variational:
+            if cfg.z_category_dim > 0:
+                return EncoderOutput(out[..., :cfg.z_category_dim], None, out[..., cfg.z_category_dim:], None)
+            return EncoderOutput(None, None, out, None)
         if cfg.z_category_dim > 0:
             zc, zi = cfg.z_category_dim, cfg.z_inst_dim
             return EncoderOutput(
-                out[:, :zc],
-                out[:, zc : 2 * zc].clamp(-clip, clip),
-                out[:, 2 * zc : 2 * zc + zi],
-                out[:, 2 * zc + zi :].clamp(-clip, clip),
+                out[..., :zc],
+                out[..., zc : 2 * zc].clamp(-clip, clip),
+                out[..., 2 * zc : 2 * zc + zi],
+                out[..., 2 * zc + zi :].clamp(-clip, clip),
             )
         zi = cfg.z_inst_dim
-        return EncoderOutput(None, None, out[:, :zi], out[:, zi:].clamp(-clip, clip))
+        return EncoderOutput(None, None, out[..., :zi], out[..., zi:].clamp(-clip, clip))
 
     def decode(self, z: torch.Tensor, blocked_output: bool = False) -> torch.Tensor:
         return self.decoder(z, blocked_output=blocked_output)

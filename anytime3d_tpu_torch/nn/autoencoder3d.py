@@ -1,46 +1,58 @@
-"""3-D convolutional voxel encoder/decoder, blocked layouts.
+"""3-D convolutional voxel encoder/decoder in every layout of the JAX package
+but ``mid_blocked``.
 
 Counterpart of ``anytime3d_tpu/nn/autoencoder3d.py``. The configs mirror the
-JAX dataclasses field by field. The modules port the layout the flagship
-``modelnet_nolbo`` runs:
+JAX dataclasses field by field.
 
-- ``Encoder3D`` on the blocked-head path: space-to-depth(4) of the input
-  (skipped with ``blocked_input``), two k=2 s=1 convs at the coarse grid (the
-  ``conv_k2`` kernel), then the remaining stride-2 k=4 stages, a final conv
-  and a mean pool;
-- ``Decoder3D`` on the blocked-tail path: dense to a small grid, transposed
-  convs, two k=2 s=1 convs emitting phase channels (the ``conv_k2`` kernel),
-  one depth-to-space(4) (skipped with ``blocked_output``) and the final
-  activation;
-- ``Decoder3D`` on the pixel-shuffle path (the detector's decoder, and any
-  ``final_mode='pixel_shuffle'`` config without a blocked tail): dense to a
-  small grid, a transposed conv for every stage but the last, then one stride-1
-  conv of ``max(1, ceil(k/s))`` emitting ``s^3`` phase channels (at 2x2x2,
-  every config of the repo, the ``conv_k2`` kernel), depth-to-space(s) and the
-  final activation.
+- ``Encoder3D``, blocked head (``head_blocked``): space-to-depth(4) of the
+  input (skipped with ``blocked_input``), two k=2 s=1 convs at the coarse grid
+  (the ``conv_k2`` kernel), then the remaining stages. Classic: an optional
+  space-to-depth(b) stem (``stem_space_to_depth``; a k=4 s=2 stem becomes k=2
+  s=1 over 8 channels at b=2, the ``conv_k2`` kernel), then every stage as
+  configured. Both end in a final conv (no norm) and a mean, max or no pool.
+- ``Decoder3D``: dense to a small grid, then a transposed conv for every stage
+  but the last (``DeconvEquivBlock3D``, the same function in its phase
+  lowering, for the k=4 s=2 stages under ``mid_equiv``), then one of: the
+  blocked tail (two k=2 convs emitting phase channels, ``conv_k2``; its norm
+  per phase, or with ``tail_phase_norm`` the fine grid's ``PhaseGroupNorm``;
+  ``tail_init_match_transpose`` scales their init variance by 1/8), one
+  depth-to-space(4) (skipped with ``blocked_output``); the pixel shuffle (a
+  stride-1 conv of ``max(1, ceil(k/s))`` emitting ``s^3`` phase channels,
+  ``conv_k2`` at k=2, and depth-to-space(s)); ``ConvTransposeEquiv3D``
+  (``final_mode='transpose_equiv'`` at k=4 s=2; ``blocked_output`` gives the
+  space-to-depth(4) layout of its fine output straight from the phase
+  tensor); else a ``ConvTranspose3d`` (``final_mode='transpose'``, or any
+  last stride of 1). The final activation last.
 
 The train step keeps the whole voxel round trip in the coarse layout
-(``blocked_input`` and ``blocked_output``), so the fine 64^3 x 1 grid is never
-laid out on the device.
+(``blocked_input`` and ``blocked_output``) where the layout has it, so the
+fine 64^3 x 1 grid is never laid out on the device.
 
-Layouts and flags the slice does not use raise ``NotImplementedError``.
+Submodules carry the names flax gives them, lowercased and numbered per
+class (``_decoder_stage_names``). ``mid_blocked`` (encoder and decoder) stays
+unported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from anytime3d_tpu_torch.nn.blocks import (
+    TRANSPOSE_MATCH_SCALE,
     ConvBlock3D,
     Conv3d,
     ConvK2,
+    ConvTranspose3d,
+    ConvTransposeEquiv3D,
     DeconvBlock3D,
+    DeconvEquivBlock3D,
     DenseBlock,
+    PhaseGroupNorm,
     activation,
     depth_to_space3d,
     group_norm,
@@ -99,45 +111,162 @@ def decoder_tail_blocked_active(cfg: Decoder3DConfig) -> bool:
     )
 
 
-def _refuse(what: list[str]) -> None:
-    if what:
-        raise NotImplementedError(f"not ported yet: {', '.join(what)}")
+def decoder_final_equiv_active(cfg: Decoder3DConfig) -> bool:
+    """True when the decoder's final stage is ``ConvTransposeEquiv3D``."""
+    return cfg.final_mode == "transpose_equiv" and cfg.strides[-1] == 2 and cfg.filter_sizes[-1] == 4
+
+
+def phase2_to_block4(u: torch.Tensor, c: int) -> torch.Tensor:
+    """(B, D, H, W, 8 C) phase tensor, channels (pd, ph, pw, c) -> the
+    space-to-depth(4) layout of its fine output, (B, D/2, H/2, W/2, 64 C),
+    channels (bd, bh, bw, c): fine index o = 2j + p with j = 2i + q gives o =
+    4i + 2q + p, so the block-4 index is b = 2q + p per axis. A relayout."""
+    x = space_to_depth3d(u, 2)  # channels (qd, qh, qw), (pd, ph, pw), c
+    B, D, H, W, _ = x.shape
+    x = x.reshape(B, D, H, W, 2, 2, 2, 2, 2, 2, c).permute(0, 1, 2, 3, 4, 7, 5, 8, 6, 9, 10)
+    return x.reshape(B, D, H, W, 64 * c)
+
+
+def _decoder_stage_names(cfg: Decoder3DConfig) -> list[str]:
+    """flax's names of the decoder's conv stages, in order (flax numbers its
+    submodules per class), as the JAX package lists them."""
+    names: list[str] = []
+    counts: dict[str, int] = {}
+
+    def fresh(cls_name: str) -> str:
+        i = counts.get(cls_name, 0)
+        counts[cls_name] = i + 1
+        return f"{cls_name}_{i}"
+
+    blocked = decoder_tail_blocked_active(cfg)
+    n_mid = len(cfg.filter_nums) - (2 if blocked else 1)
+    for k, s in zip(cfg.filter_sizes[:n_mid], cfg.strides[:n_mid]):
+        if cfg.mid_blocked and s == 2 and k == 4:
+            names.append(fresh("Conv"))
+        elif cfg.mid_equiv and s == 2 and k == 4:
+            names.append(fresh("DeconvEquivBlock3D"))
+        else:
+            names.append(fresh("DeconvBlock3D"))
+    if blocked:
+        return names + [fresh("Conv"), fresh("Conv")]
+    k, s = cfg.filter_sizes[-1], cfg.strides[-1]
+    if cfg.final_mode == "transpose_equiv" and s == 2 and k == 4:
+        names.append(fresh("ConvTransposeEquiv3D"))
+    elif cfg.final_mode == "pixel_shuffle" and s > 1:
+        names.append(fresh("Conv"))
+    else:
+        names.append(fresh("ConvTranspose"))
+    return names
+
+
+# stage pairs that hold the same parameter tensors in two lowerings, and the
+# conv each block holds
+_COMPATIBLE = {("deconvblock3d", "deconvequivblock3d"), ("deconvequivblock3d", "deconvblock3d"),
+               ("convtranspose", "convtransposeequiv3d"), ("convtransposeequiv3d", "convtranspose")}
+_INNER = {"deconvblock3d": "convtranspose_0", "deconvequivblock3d": "convtransposeequiv3d_0"}
+
+
+def remap_decoder_params(state: Mapping[str, torch.Tensor], src_cfg: Decoder3DConfig,
+                         dst_cfg: Decoder3DConfig) -> dict[str, torch.Tensor]:
+    """Rename a ``Decoder3D`` state dict (keys relative to the decoder) from
+    the ``src_cfg`` layout to the ``dst_cfg`` layout, for layouts that share
+    their parameter tensors: the classic transposed convs and their phase
+    lowering (``'transpose'`` <-> ``'transpose_equiv'``, ``mid_equiv``), whose
+    weights have one layout here. Raises ``ValueError`` where a stage pair is
+    not tensor-compatible (a blocked tail or pixel shuffle is another
+    parameterization), where the stage counts differ, or where a block's conv
+    holds a leaf beyond its weight (it would be dropped). The JAX package's
+    ``remap_decoder_params`` on flax trees, for loading a classic checkpoint
+    into an ``*_acc`` config or back."""
+    src_names = [n.lower() for n in _decoder_stage_names(src_cfg)]
+    dst_names = [n.lower() for n in _decoder_stage_names(dst_cfg)]
+    if len(src_names) != len(dst_names):
+        raise ValueError(f"layout stage mismatch: {src_names} vs {dst_names}")
+    out = dict(state)
+    moved: dict[str, torch.Tensor] = {}
+    for s_name, d_name in zip(src_names, dst_names):
+        if s_name == d_name:
+            continue
+        s_cls, d_cls = s_name.rsplit("_", 1)[0], d_name.rsplit("_", 1)[0]
+        if (s_cls, d_cls) not in _COMPATIBLE:
+            raise ValueError(f"stages {s_name} -> {d_name} are not tensor-compatible "
+                             "(different parameterizations, not just lowerings)")
+        for key in [k for k in out if k.startswith(s_name + ".")]:
+            rest = key[len(s_name) + 1:]
+            if s_cls in _INNER and rest.startswith(_INNER[s_cls] + "."):
+                leaf = rest[len(_INNER[s_cls]) + 1:]
+                if leaf != "weight":
+                    raise ValueError(f"stage {s_name}: leaf {leaf!r} beyond the weight has no counterpart in "
+                                     f"{_INNER[d_cls]}; the remap would drop it")
+                rest = f"{_INNER[d_cls]}.{leaf}"
+            moved[f"{d_name}.{rest}"] = out.pop(key)
+    out.update(moved)
+    return out
+
+
+def _conv(in_features: int, features: int, k: int, s: int, generator: Optional[torch.Generator]) -> nn.Module:
+    """flax ``nn.Conv`` (k, s, SAME, no bias): ``conv_k2`` at k=2 s=1, else ``F.conv3d``."""
+    return ConvK2(in_features, features, generator) if (k, s) == (2, 1) else Conv3d(in_features, features, k, s,
+                                                                                      generator)
+
+
+def _refuse_mid_blocked(cfg) -> None:
+    if cfg.mid_blocked:
+        raise NotImplementedError("not ported: mid_blocked (the blocked middle stages)")
 
 
 class Encoder3D(nn.Module):
-    """Voxel grid (B, D, H, W, C) -> latent vector (B, output_dim)."""
+    """Voxel grid (B, D, H, W, C) -> latent vector (B, output_dim), or with
+    ``final_pool='none'`` the final conv's map."""
 
     def __init__(self, config: Encoder3DConfig, in_channels: int = 1,
                  generator: Optional[torch.Generator] = None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = config
+        _refuse_mid_blocked(cfg)
+        if cfg.final_pool not in ("average", "max", "none"):
+            raise ValueError(f"unknown final_pool {cfg.final_pool!r}")
         self.dtype = dtype  # compute dtype; None: that of the input
-        _refuse([name for name, on in (
-            ("the classic encoder (head_blocked off)", not encoder_head_blocked_active(cfg)),
-            ("mid_blocked", cfg.mid_blocked),
-            (f"final_pool={cfg.final_pool!r}", cfg.final_pool != "average"),
-        ) if on])
-        filters, sizes, strides = cfg.all_filters, cfg.filter_sizes, cfg.strides
-        stages = [(filters[0] * 8, 2, 1), (filters[1], 2, 1)]  # the blocked head
-        stages += list(zip(filters[2:-1], sizes[2:-1], strides[2:-1]))
-        cin = 64 * in_channels
+        self.blocked = encoder_head_blocked_active(cfg)
+        self.final_pool = cfg.final_pool
+        filters, sizes, strides = cfg.all_filters, list(cfg.filter_sizes), list(cfg.strides)
+        if self.blocked:
+            self.fold = 4
+            stages = [(filters[0] * 8, 2, 1), (filters[1], 2, 1)]
+            stages += list(zip(filters[2:-1], sizes[2:-1], strides[2:-1]))
+        else:
+            self.fold = cfg.stem_space_to_depth
+            if self.fold > 1:
+                if strides[0] % self.fold != 0:
+                    raise ValueError("stem_space_to_depth must divide the stem stride")
+                sizes[0] = max(1, -(-sizes[0] // self.fold))  # the stem's receptive field, ceil-divided
+                strides[0] //= self.fold
+            stages = list(zip(filters[:-1], sizes[:-1], strides[:-1]))
+        cin = in_channels * self.fold**3
         for i, (f, k, s) in enumerate(stages):
             self.add_module(f"convblock3d_{i}", ConvBlock3D(cin, f, k, s, cfg.act, generator))
             cin = f
         self.num_blocks = len(stages)
         # final conv: no norm, no activation
-        self.conv_0 = Conv3d(cin, filters[-1], sizes[-1], strides[-1], generator)
+        self.conv_0 = _conv(cin, filters[-1], cfg.filter_sizes[-1], cfg.strides[-1], generator)
         self.final_act = activation(cfg.final_act)
 
     def forward(self, x: torch.Tensor, blocked_input: bool = False) -> torch.Tensor:
-        """``blocked_input``: ``x`` is already (B, D/4, H/4, W/4, 64*C), the
-        space-to-depth(4) layout, and the relayout is skipped."""
+        """``blocked_input`` (blocked head only): ``x`` is already (B, D/4,
+        H/4, W/4, 64*C), the space-to-depth(4) layout, and the relayout is
+        skipped."""
+        if blocked_input and not self.blocked:
+            raise ValueError("blocked_input requires the blocked-head layout")
         x = x.to(self.dtype or x.dtype)
-        if not blocked_input:
-            x = space_to_depth3d(x, 4)
+        if self.fold > 1 and not blocked_input:
+            x = space_to_depth3d(x, self.fold)
         for i in range(self.num_blocks):
             x = getattr(self, f"convblock3d_{i}")(x)
-        x = self.conv_0(x).mean(dim=(1, 2, 3))
+        x = self.conv_0(x)
+        if self.final_pool == "average":
+            x = x.mean(dim=(1, 2, 3))
+        elif self.final_pool == "max":
+            x = x.amax(dim=(1, 2, 3))  # a tie's gradient is shared evenly, as jnp.max's
         return self.final_act(x)
 
 
@@ -148,59 +277,68 @@ class Decoder3D(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = config
+        _refuse_mid_blocked(cfg)
         self.dtype = dtype  # compute dtype; None: that of the input
         self.blocked = decoder_tail_blocked_active(cfg)
-        pixel_shuffle = cfg.final_mode == "pixel_shuffle" and cfg.strides[-1] > 1
-        _refuse([name for name, on in (
-            (f"the decoder with final_mode={cfg.final_mode!r}, tail_blocked={cfg.tail_blocked} and last stride "
-             f"{cfg.strides[-1]}", not (self.blocked or pixel_shuffle)),
-            ("mid_blocked", cfg.mid_blocked),
-            ("mid_equiv", cfg.mid_equiv),
-            ("tail_phase_norm", cfg.tail_phase_norm),
-            ("tail_init_match_transpose", cfg.tail_init_match_transpose),
-        ) if on])
         self.spatial = tuple(n // math.prod(cfg.strides) for n in cfg.output_shape[:-1])
         self.channels = max(cfg.filter_nums[0] // 64, 8)
         self.denseblock_0 = DenseBlock(cfg.input_dim, math.prod(self.spatial) * self.channels,
                                        cfg.act, generator)
+        names = [n.lower() for n in _decoder_stage_names(cfg)]
         n_mid = len(cfg.filter_nums) - (2 if self.blocked else 1)
+        self.stages = names[:n_mid]
         cin = self.channels
-        for i, (f, k, s) in enumerate(zip(cfg.filter_nums[:n_mid], cfg.filter_sizes[:n_mid],
-                                          cfg.strides[:n_mid])):
-            self.add_module(f"deconvblock3d_{i}", DeconvBlock3D(cin, f, k, s, cfg.act, generator))
+        for name, f, k, s in zip(self.stages, cfg.filter_nums, cfg.filter_sizes, cfg.strides):
+            if name.startswith("deconvequivblock3d"):
+                self.add_module(name, DeconvEquivBlock3D(cin, f, cfg.act, generator))
+            else:
+                self.add_module(name, DeconvBlock3D(cin, f, k, s, cfg.act, generator))
             cin = f
-        self.num_blocks = n_mid
+        f, k, s = cfg.filter_nums[-1], cfg.filter_sizes[-1], cfg.strides[-1]
+        self.final = names[-1]
+        self.final_features = f
         if self.blocked:
-            # blocked tail: the last two stride-2 stages as k=2 convs at the coarse grid
+            # the last two stride-2 stages as k=2 convs at the coarse grid
             f4 = cfg.filter_nums[-2]
-            self.conv_0 = ConvK2(cin, f4 * 8, generator)
-            self.groupnorm_0 = group_norm(f4 * 8)
-            self.conv_1 = ConvK2(f4 * 8, cfg.filter_nums[-1] * 64, generator)
+            scale = TRANSPOSE_MATCH_SCALE if cfg.tail_init_match_transpose else 1.0
+            self.conv_0 = ConvK2(cin, f4 * 8, generator, scale)
+            self.tail_norm = "phasegroupnorm_0" if cfg.tail_phase_norm else "groupnorm_0"
+            self.add_module(self.tail_norm, PhaseGroupNorm(f4, 8) if cfg.tail_phase_norm else group_norm(f4 * 8))
+            self.conv_1 = ConvK2(f4 * 8, f * 64, generator, scale)
             self.act = activation(cfg.act)
-        else:
+        elif self.final.startswith("convtransposeequiv3d"):
+            self.convtransposeequiv3d_0 = ConvTransposeEquiv3D(cin, f, generator)
+        elif self.final.startswith("conv_"):
             # pixel shuffle: a stride-1 SAME conv of ceil(k/s) emitting f * s^3 phase channels
-            f, k, self.shuffle = cfg.filter_nums[-1], cfg.filter_sizes[-1], cfg.strides[-1]
-            size = max(1, -(-k // self.shuffle))
-            features = f * self.shuffle**3
-            self.conv_0 = ConvK2(cin, features, generator) if size == 2 else Conv3d(cin, features, size, 1, generator)
+            self.shuffle = s
+            self.conv_0 = _conv(cin, f * s**3, max(1, -(-k // s)), 1, generator)
+        else:
+            self.convtranspose_0 = ConvTranspose3d(cin, f, k, s, generator)
         self.final_act = activation(cfg.final_act)
 
     def forward(self, z: torch.Tensor, blocked_output: bool = False) -> torch.Tensor:
-        """``blocked_output`` (blocked tail only): return the grid as (B, D/4,
-        H/4, W/4, 64*C), the layout depth-to-space(4) would read, with the
-        final activation applied: element for element the space-to-depth(4)
-        of the normal output."""
-        if blocked_output and not self.blocked:
-            raise ValueError("blocked_output requires the blocked-tail layout")
+        """``blocked_output`` (the blocked tail or ``transpose_equiv``): return
+        the grid as (B, D/4, H/4, W/4, 64*C), the layout depth-to-space(4)
+        would read, with the final activation applied: element for element
+        the space-to-depth(4) of the normal output."""
+        equiv = self.final.startswith("convtransposeequiv3d")
+        if blocked_output and not (self.blocked or equiv):
+            raise ValueError("blocked_output requires the blocked-tail or transpose_equiv layout")
         z = z.to(self.dtype or z.dtype)
         # the dense output is laid out channels-last, (B, *spatial, channels)
         x = self.denseblock_0(z).reshape(z.shape[0], *self.spatial, self.channels)
-        for i in range(self.num_blocks):
-            x = getattr(self, f"deconvblock3d_{i}")(x)
-        if not self.blocked:
-            return self.final_act(depth_to_space3d(self.conv_0(x), self.shuffle))
-        x = self.act(self.groupnorm_0(self.conv_0(x)))
-        x = self.conv_1(x)
-        if not blocked_output:
-            x = depth_to_space3d(x, 4)
+        for name in self.stages:
+            x = getattr(self, name)(x)
+        if self.blocked:
+            x = self.conv_1(self.act(getattr(self, self.tail_norm)(self.conv_0(x))))
+            if not blocked_output:
+                x = depth_to_space3d(x, 4)
+        elif equiv:
+            x = self.convtransposeequiv3d_0(x, phase_output=blocked_output)
+            if blocked_output:
+                x = phase2_to_block4(x, self.final_features)
+        elif self.final.startswith("conv_"):
+            x = depth_to_space3d(self.conv_0(x), self.shuffle)
+        else:
+            x = self.convtranspose_0(x)
         return self.final_act(x)

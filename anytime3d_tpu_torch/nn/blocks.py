@@ -69,9 +69,12 @@ def _num_groups(channels: int, max_groups: int = 32) -> int:
     return g
 
 
-def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``lecun_normal()``: normal truncated at +-2 std, rescaled to variance 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # std of N(0,1) cut at +-2
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator],
+                  scale: float = 1.0) -> torch.Tensor:
+    """flax ``lecun_normal()``: normal truncated at +-2 std, rescaled to
+    variance 1/fan_in; with ``scale``, flax ``variance_scaling(scale,
+    'fan_in', 'truncated_normal')``, variance scale/fan_in."""
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978  # std of N(0,1) cut at +-2
     with torch.no_grad():
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
@@ -134,14 +137,48 @@ def group_norm(channels: int) -> GroupNorm:
     return GroupNorm(channels)
 
 
+class PhaseGroupNorm(nn.Module):
+    """flax ``PhaseGroupNorm``: GroupNorm over a phase-folded tensor (B, D, H,
+    W, phases * f), channels ordered (phase, c), with the statistics of the
+    fine grid: group g pools every voxel, every phase and a slice of the f
+    fine channels (``_num_groups(f)`` groups, not ``_num_groups(phases * f)``),
+    in float32; scale and bias are (f,), shared by the phases."""
+
+    eps = 1e-5
+
+    def __init__(self, features: int, phases: int = 8):
+        super().__init__()
+        self.features, self.phases = features, phases
+        self.num_groups = _num_groups(features)
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, f, G = x.shape[0], self.features, self.num_groups
+        if x.shape[-1] != self.phases * f:
+            raise ValueError(f"PhaseGroupNorm: {x.shape[-1]} channels, expected {self.phases} x {f}")
+        xf = x.float().reshape(B, -1, self.phases, G, f // G)
+        var, mean = torch.var_mean(xf, dim=(1, 2, 4), keepdim=True, correction=0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(B, -1, self.phases, f)
+        return (y * self.weight + self.bias).reshape(x.shape).to(x.dtype)
+
+
+# The variance scale of flax's TRANSPOSE_MATCH_INIT (variance_scaling(1/8,
+# 'fan_in', 'truncated_normal')): a k=2 conv of the blocked tail then starts
+# with the outputs' std of the stride-2 transposed conv it replaces, whose fine
+# outputs sum 8 of its 64 taps.
+TRANSPOSE_MATCH_SCALE = 1.0 / 8.0
+
+
 class ConvK2(nn.Module):
     """flax ``nn.Conv(features, (2, 2, 2), padding='SAME', use_bias=False)``
     through the ``conv_k2`` kernel. ``weight`` keeps flax's (2, 2, 2, C, N)."""
 
-    def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None,
+                 init_scale: float = 1.0):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(2, 2, 2, in_features, features))
-        lecun_normal_(self.weight, 8 * in_features, generator)
+        lecun_normal_(self.weight, 8 * in_features, generator, init_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_k2(x, self.weight)
@@ -238,6 +275,46 @@ class ConvTranspose3d(nn.Module):
         return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
+def conv_transpose_equiv_kernel(weight: torch.Tensor) -> torch.Tensor:
+    """``ConvTranspose3d``'s (Cin, Cout, 4, 4, 4) stride-2 weight (flax's
+    kernel flipped) -> the (8 Cout, Cin, 3, 3, 3) ``F.conv3d`` weight of its
+    exact phase decomposition (flax ``conv_transpose_equiv_kernel``): with
+    SAME padding, output phase p of an axis is y[2i + p] = K[p] x[i - 1 + p] +
+    K[p + 2] x[i + p], a 2-tap conv with taps K[2t + p] at k=3 positions t + p
+    (K the flax kernel); the other taps are zero. Output channels in the
+    order (pd, ph, pw, c)."""
+    cin, cout = weight.shape[:2]
+    k = weight.flip(2, 3, 4)  # flax's kernel, as (Cin, Cout, kd, kh, kw)
+    k3 = weight.new_zeros(8, cout, cin, 3, 3, 3)
+    for i in range(8):
+        pd, ph, pw = i >> 2, (i >> 1) & 1, i & 1
+        k3[i, :, :, pd:pd + 2, ph:ph + 2, pw:pw + 2] = k[:, :, pd::2, ph::2, pw::2].transpose(0, 1)
+    return k3.reshape(8 * cout, cin, 3, 3, 3)
+
+
+class ConvTransposeEquiv3D(ConvTranspose3d):
+    """flax ``ConvTransposeEquiv3D``: ``nn.ConvTranspose(features, (4, 4, 4),
+    strides 2, SAME, use_bias=False)`` computed as one zero-structured k=3
+    SAME conv at the coarse grid emitting 8 * features phase channels, then
+    depth-to-space(2). The same function, parameter tensor and init as
+    ``ConvTranspose3d``, whose layout ``weight`` keeps (flax's kernel flipped,
+    (Cin, Cout, 4, 4, 4)), so a classic stage's weight loads unchanged; the
+    k=3 kernel is embedded from it at each call. On the H100 the phase form
+    beats ``F.conv_transpose3d`` at ``modelnet_nolbo_acc``'s last stage in
+    bfloat16 and in float32 with cuDNN's TF32 (PyTorch's default), forward
+    and backward (``cli/probe_transpose.py``)."""
+
+    def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, features, 4, 2, generator)
+
+    def forward(self, x: torch.Tensor, phase_output: bool = False) -> torch.Tensor:
+        """``phase_output``: return the (B, D, H, W, 8 * Cout) phase tensor,
+        channels (pd, ph, pw, c), whose depth-to-space(2) is the output."""
+        xc = F.pad(x.permute(0, 4, 1, 2, 3), (1, 1) * 3)
+        u = F.conv3d(xc, conv_transpose_equiv_kernel(self.weight).to(x.dtype)).permute(0, 2, 3, 4, 1)
+        return u.contiguous() if phase_output else depth_to_space3d(u, 2)
+
+
 class ConvBlock2D(nn.Module):
     """Conv2D (no bias) + GroupNorm + activation. (flax's ``use_norm=False``
     form, a conv with a bias, has no caller and is not ported.)"""
@@ -283,6 +360,22 @@ class DeconvBlock3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.groupnorm_0(self.convtranspose_0(x)))
+
+
+class DeconvEquivBlock3D(nn.Module):
+    """``DeconvBlock3D`` (k=4, s=2) through ``ConvTransposeEquiv3D``; the
+    norm and activation run at the fine grid after the interleave, as in the
+    classic block."""
+
+    def __init__(self, in_features: int, features: int, act: str = "elu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.convtransposeequiv3d_0 = ConvTransposeEquiv3D(in_features, features, generator)
+        self.groupnorm_0 = group_norm(features)
+        self.act = activation(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.groupnorm_0(self.convtransposeequiv3d_0(x)))
 
 
 class DenseBlock(nn.Module):

@@ -37,24 +37,35 @@ InferFn = Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 
 
 class _ServingProgram(nn.Module):
-    """The serving program over ``model`` and its prior means (a buffer): the
-    module that the eager functions call and that ``export_infer`` exports.
-    With ``item_shape`` it takes packed bits, (B, N/8) uint8, of (B,
-    *item_shape) grids; with ``threshold`` it returns ``pred_packed`` bits of
-    ``pred > threshold`` in place of ``pred``."""
+    """The serving program over ``model`` and its class anchors (a buffer,
+    or None): the module that the eager functions call and that
+    ``export_infer`` exports. The anchors are ``prior_means`` (K, z_cat_dim)
+    when given (a model without a category prior: the per-class mean latents
+    of ``evaluation.protocols.category_vectors``), else the category prior
+    net's means over all K one-hots, else none. With ``item_shape`` it takes
+    packed bits, (B, N/8) uint8, of (B, *item_shape) grids; with
+    ``threshold`` it returns ``pred_packed`` bits of ``pred > threshold`` in
+    place of ``pred``."""
 
-    def __init__(self, model: MultiModalVAE, correction: bool = True, item_shape=None, threshold=None):
+    def __init__(self, model: MultiModalVAE, correction: bool = True, item_shape=None, threshold=None,
+                 prior_means=None):
         super().__init__()
         cfg = model.config
-        if cfg.prior_category is None:
-            raise NotImplementedError("not ported yet (A13): serving without class priors")
         model.eval()
         param = next(model.parameters())
-        with torch.inference_mode():
-            eye = torch.eye(cfg.prior_category.input_dim, dtype=param.dtype, device=param.device)
-            prior_means, _ = model.priors_category(eye)
+        self.dtype = param.dtype
+        if prior_means is not None:
+            prior_means = torch.as_tensor(prior_means).to(param.device, param.dtype)
+            z_cat_dim = cfg.z_category_dim or cfg.z_inst_dim
+            if prior_means.ndim != 2 or prior_means.shape[1] != z_cat_dim:
+                raise ValueError(f"prior_means {tuple(prior_means.shape)}: expected (K, {z_cat_dim})")
+        elif cfg.prior_category is not None:
+            with torch.inference_mode():
+                eye = torch.eye(cfg.prior_category.input_dim, dtype=param.dtype, device=param.device)
+                prior_means = model.priors_category(eye)[0]
         self.model = model
-        self.register_buffer("prior_means", prior_means.clone())  # a normal tensor, not an inference one
+        # a normal tensor, not an inference one; None where the model has no anchors
+        self.register_buffer("prior_means", None if prior_means is None else prior_means.clone())
         self.correction = correction
         self.item_shape = None if item_shape is None else tuple(item_shape)
         self.threshold = threshold
@@ -62,25 +73,29 @@ class _ServingProgram(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.item_shape is not None:
             x = unpack_voxels(x, self.item_shape)
-        prior_means = self.prior_means
-        enc = self.model.encode(x.to(prior_means.dtype))
+        enc = self.model.encode(x.to(self.dtype))
         if enc.mean_category is not None:
             z_cat, lv_cat = enc.mean_category, enc.log_var_category
             z_parts, lv_parts = [enc.mean_inst], [enc.log_var_inst]
         else:
             z_cat, lv_cat = enc.mean_inst, enc.log_var_inst
             z_parts, lv_parts = [], []
-        if self.correction:
-            category = classify_by_prior(z_cat, prior_means, mask=mask)
-            z_cat = torch.where(mask > 0, z_cat, prior_means[category])
-        else:
-            category = classify_by_prior(z_cat, prior_means)
+        out = {}
+        prior_means = self.prior_means
+        if prior_means is not None:
+            if self.correction:  # the class over the observed dims; the missing ones take its mean
+                category = classify_by_prior(z_cat, prior_means, mask=mask)
+                z_cat = torch.where(mask > 0, z_cat, prior_means[category])
+            else:
+                category = classify_by_prior(z_cat, prior_means)
+            out["category"] = category
+        elif self.correction:  # no anchors: the missing dims take N(0, I)'s mean, 0
+            z_cat = torch.where(mask > 0, z_cat, torch.zeros_like(z_cat))
+        # an AE model has no log-var: zeros
+        lv_parts = [torch.zeros_like(z) if lv is None else lv for z, lv in zip([z_cat, *z_parts], [lv_cat, *lv_parts])]
         z = torch.cat([z_cat, *z_parts], dim=-1)
-        out = {
-            "category": category,
-            "z_mean": z.float(),
-            "z_log_var": torch.cat([lv_cat, *lv_parts], dim=-1).float(),
-        }
+        out["z_mean"] = z.float()
+        out["z_log_var"] = torch.cat(lv_parts, dim=-1).float()
         pred = self.model.decode(z).float()
         if self.threshold is None:
             out["pred"] = pred
@@ -97,35 +112,42 @@ def _inference(program: nn.Module) -> Callable[..., Dict[str, torch.Tensor]]:
     return fn
 
 
-def make_infer_fn(model: MultiModalVAE, correction: bool = True) -> InferFn:
+def make_infer_fn(model: MultiModalVAE, correction: bool = True, prior_means=None) -> InferFn:
     """Build ``fn(x, mask) -> outputs`` on the model's device and dtype.
 
     ``x`` is a (B, D, H, W, 1) occupancy grid, or for an image model (B, H,
     W, 3) float images in [0, 1]; ``mask`` a (B, z_cat_dim) 0/1
-    tensor of OBSERVED latent dims. With ``correction``, the class is the
-    nearest prior mean over the observed dims and the missing dims take that
-    prior's mean before decoding. Outputs: ``z_mean`` (B, z_dim) and
-    ``z_log_var`` (float32), ``category`` (B,) int64, ``pred`` (B, D, H, W, 1)
-    float32 occupancy probabilities.
+    tensor of OBSERVED latent dims. The class anchors are ``prior_means``
+    (K, z_cat_dim) where given, else the category prior's means. With
+    anchors and ``correction``, the class is the nearest anchor over the
+    observed dims and the missing dims take that anchor before decoding;
+    without anchors there is no class and, with ``correction``, the missing
+    dims take 0. Outputs: ``z_mean`` (B, z_dim) and ``z_log_var`` (float32;
+    zeros for an AE model), ``category`` (B,) int64 where there are anchors,
+    ``pred`` (B, D, H, W, 1) float32 occupancy probabilities.
 
     Switches the model to eval mode. The prior means are computed here, once.
     """
-    return _inference(_ServingProgram(model, correction))
+    return _inference(_ServingProgram(model, correction, prior_means=prior_means))
 
 
-def make_packed_infer(model: MultiModalVAE, item_shape: Sequence[int], threshold: float = 0.5) -> InferFn:
+def make_packed_infer(model: MultiModalVAE, item_shape: Sequence[int], threshold: float = 0.5,
+                      prior_means=None) -> InferFn:
     """The serving program with packed IO: ``fn(packed, mask)`` takes (B, N/8)
     uint8 occupancy bits (``np.packbits`` order) of (B, *item_shape) grids and
     returns ``pred_packed`` (B, N/8) uint8 of ``pred > threshold`` in place of
-    ``pred``, beside ``z_mean``, ``z_log_var`` and ``category``."""
-    return _inference(_ServingProgram(model, item_shape=item_shape, threshold=threshold))
+    ``pred``, beside ``z_mean``, ``z_log_var`` and (with anchors, as in
+    :func:`make_infer_fn`) ``category``."""
+    return _inference(_ServingProgram(model, item_shape=item_shape, threshold=threshold, prior_means=prior_means))
 
 
 def export_infer(model: MultiModalVAE, input_shape: Sequence[int], correction: bool = True,
-                 packed_input: bool = False, packed_output: bool = False, output_threshold: float = 0.5) -> bytes:
+                 packed_input: bool = False, packed_output: bool = False, output_threshold: float = 0.5,
+                 prior_means=None) -> bytes:
     """The serving program of ``model`` exported with ``torch.export`` and
-    saved into bytes: weights and prior means baked in, on the model's device
-    and in its dtype.
+    saved into bytes: weights and class anchors (``prior_means``, or the
+    category prior's means, as in :func:`make_infer_fn`) baked in, on the
+    model's device and in its dtype.
 
     ``input_shape`` includes the batch, e.g. ``(8, 64, 64, 64, 1)``, or ``(8,
     64, 64, 3)`` for an image model; the program takes ``x`` as float32 of
@@ -135,8 +157,8 @@ def export_infer(model: MultiModalVAE, input_shape: Sequence[int], correction: b
     ``output_threshold``. Load the bytes with :func:`load_infer`."""
     batch, item_shape = int(input_shape[0]), tuple(input_shape[1:])
     program = _ServingProgram(model, correction, item_shape if packed_input else None,
-                              output_threshold if packed_output else None)
-    device = program.prior_means.device
+                              output_threshold if packed_output else None, prior_means)
+    device = next(model.parameters()).device
     if packed_input:
         x = torch.zeros((batch, math.prod(item_shape) // 8), dtype=torch.uint8, device=device)
     else:

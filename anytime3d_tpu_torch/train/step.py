@@ -12,7 +12,8 @@ packages the same numbers: ``eps_cat`` and ``eps_inst`` (the posterior
 samples of the category and instance blocks; a one-block latent draws from
 ``eps_inst``, as the JAX step does), ``eps_prior_cat`` and ``eps_prior_inst``
 (the prior samples of the mix), ``coin`` and ``take_prior`` (the mix's coin
-and element mask).
+and element mask), ``drop_rate`` and ``drop_keep`` (the `_dr` variants'
+dropout rate, U(0, 0.95), and keep mask, drawn after the mix).
 
 The explicit data-parallel step waits for the port of the mesh.
 """
@@ -55,10 +56,6 @@ class LossConfig:
     # prior sample with probability mix_element_prob
     mix_coin_prob: float = 0.0
     mix_element_prob: float = 0.5
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {what}")
 
 
 def materialize_batch(model: MultiModalVAE, batch: Batch) -> Tuple[Dict[str, torch.Tensor], bool, bool]:
@@ -145,7 +142,9 @@ def _encode_and_sample(model: MultiModalVAE, cfg: LossConfig, batch: Batch, gene
         prior_inst = model.priors_inst(inst_in, generator)
         out["prior_inst"] = prior_inst
 
-    if enc.mean_category is not None and mcfg.z_inst_dim > 0:  # one draw a block
+    if not mcfg.variational:  # an AE: z is the encoder's output
+        z = enc.mean
+    elif enc.mean_category is not None and mcfg.z_inst_dim > 0:  # one draw a block
         z = torch.cat([reparameterize(enc.mean_category, enc.log_var_category, generator, draws.get("eps_cat")),
                        reparameterize(enc.mean_inst, enc.log_var_inst, generator, draws.get("eps_inst"))], dim=-1)
     else:
@@ -166,8 +165,15 @@ def _encode_and_sample(model: MultiModalVAE, cfg: LossConfig, batch: Batch, gene
             take = torch.rand(z.shape, generator=generator, device=z.device) < cfg.mix_element_prob
         z = torch.where(coin.bool() & take.bool(), z_prior, z)
 
+    # the `_dr` variants: dropout on the (mixed) z at a rate drawn from U(0, 0.95) each step; in float32,
+    # as the JAX step's float32 rate promotes a bfloat16 z
     if mcfg.latent_dropout and not deterministic:
-        raise _not_ported("latent_dropout (the `_dr` variants)")
+        rate, keep = draws.get("drop_rate"), draws.get("drop_keep")
+        if rate is None:
+            rate = torch.rand((), generator=generator, device=z.device) * 0.95
+        if keep is None:
+            keep = torch.rand(z.shape, generator=generator, device=z.device) < 1.0 - rate
+        z = torch.where(keep.bool(), z.float() / (1.0 - rate.float()), 0.0)
 
     out["z"] = z
     out["pred"] = model.decode(z, blocked_output=blocked_out)
@@ -186,8 +192,6 @@ def compute_losses(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
     ones differentiated; ``deterministic`` puts the model in eval mode (no
     dropout, no prior mix)."""
     mcfg = model.config
-    if not mcfg.variational:
-        raise _not_ported("deterministic (variational=False) models")
     model.train(not deterministic)
     batch, blocked_in, blocked_out = materialize_batch(model, batch)
     fwd = _encode_and_sample(model, cfg, batch, generator, deterministic, blocked_in, blocked_out, draws)
@@ -201,26 +205,34 @@ def compute_losses(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
     metrics["loss_shape"] = loss_shape
     total = loss_shape
 
-    if mcfg.prior_category is not None or mcfg.prior_inst is not None:
-        kl = reg = 0.0
-        if mcfg.prior_category is not None:  # on the category block, or on the one block there is
-            mc, lvc = (t.float() for t in fwd["prior_cat"])
-            mean = enc.mean_category if enc.mean_category is not None else enc.mean_inst
-            log_var = enc.log_var_category if enc.log_var_category is not None else enc.log_var_inst
-            kl = kl + gaussian_kl(mean.float(), log_var.float(), mc, lvc).mean()
-            reg = reg + prior_repulsion(mc, lvc, cfg.reg_margin_scale_category * mc.shape[-1]).mean()
-        if mcfg.prior_inst is not None:  # repulsion between same-class pairs only in the dual latent
-            mi, lvi = (t.float() for t in fwd["prior_inst"])
-            kl = kl + gaussian_kl(enc.mean_inst.float(), enc.log_var_inst.float(), mi, lvi).mean()
-            gate = batch["category_onehot"] if mcfg.category_dim > 0 else None
-            reg = reg + prior_repulsion(mi, lvi, cfg.reg_margin_scale_inst * mi.shape[-1], class_onehot=gate).mean()
-        metrics["loss_kl"] = kl
-        metrics["loss_reg"] = reg
-        total = total + cfg.kl_weight * kl + cfg.reg_weight * reg
-    else:
-        kl = standard_gaussian_kl(enc.mean.float(), enc.log_var.float()).mean()
+    priors = mcfg.prior_category is not None or mcfg.prior_inst is not None
+    if mcfg.variational:  # KL to the label priors, or to N(0, I) without them; an AE has none
+        if priors:
+            kl = 0.0
+            if mcfg.prior_category is not None:  # on the category block, or on the one block there is
+                mc, lvc = (t.float() for t in fwd["prior_cat"])
+                mean = enc.mean_category if enc.mean_category is not None else enc.mean_inst
+                log_var = enc.log_var_category if enc.log_var_category is not None else enc.log_var_inst
+                kl = kl + gaussian_kl(mean.float(), log_var.float(), mc, lvc).mean()
+            if mcfg.prior_inst is not None:
+                mi, lvi = (t.float() for t in fwd["prior_inst"])
+                kl = kl + gaussian_kl(enc.mean_inst.float(), enc.log_var_inst.float(), mi, lvi).mean()
+        else:
+            kl = standard_gaussian_kl(enc.mean.float(), enc.log_var.float()).mean()
         metrics["loss_kl"] = kl
         total = total + cfg.kl_weight * kl
+
+    if priors:  # prior repulsion; between same-class pairs only for the dual latent's instance prior
+        reg = 0.0
+        if mcfg.prior_category is not None:
+            mc, lvc = (t.float() for t in fwd["prior_cat"])
+            reg = reg + prior_repulsion(mc, lvc, cfg.reg_margin_scale_category * mc.shape[-1]).mean()
+        if mcfg.prior_inst is not None:
+            mi, lvi = (t.float() for t in fwd["prior_inst"])
+            gate = batch["category_onehot"] if mcfg.category_dim > 0 else None
+            reg = reg + prior_repulsion(mi, lvi, cfg.reg_margin_scale_inst * mi.shape[-1], class_onehot=gate).mean()
+        metrics["loss_reg"] = reg
+        total = total + cfg.reg_weight * reg
 
     if cfg.l2_weight:  # skipped at weight 0: a reduction over every kernel otherwise
         total = total + l2_penalty(dict(model.named_parameters()), cfg.l2_weight)

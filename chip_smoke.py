@@ -119,7 +119,37 @@ order, any failure ending the run with a non-zero exit:
    step (all three narrow), device time, host wall, the host's batch and peak memory printed;
    ``evaluate_detector`` on 2 batches, timed; the bfloat16 step, then the
    default trainer's float32 step at B=8 (1 / 1 / 1 narrow launches a step),
-   profiled by kernel; the phase's wall time printed.
+   profiled by kernel; the phase's wall time printed;
+13. stem kernels: ``conv_k2`` and dw at the classic encoder's space-to-depth(2)
+   stem (32^3, C=8 -> N=64: no wgmma or narrow plan, the FFMA kernels) at B=8
+   and B=32 in float32 and bfloat16, against their plain versions and a
+   float64 product, timed beside cuDNN and their bound (rows of the
+   ``kernels`` line);
+14. variants (``phase_variants``): the other ``REGISTRY`` names at full width
+   from seeded weights. Each distinct model (``modelnet_vae``,
+   ``modelnet_ae``, ``ae3d``, ``modelnet_nolbo_acc``, ``pascal_vae``,
+   ``pascal_ae``, ``pascal_nolbo_acc``, ``kitti_inst_only``; a `_dr` name
+   builds its base's model): one float32 encode + decode of 2 items on the
+   card against the CPU, its ``conv_k2`` launches counted (4, 4, 4, 2, 2, 2,
+   0, 2). ``cli/train.py``'s trainer, bf16, B=32, packed synthetic batches,
+   ``VARIANT_TRAIN_STEPS`` steps each of ``modelnet_vae_dr``, ``modelnet_ae``,
+   ``ae3d``, ``modelnet_nolbo_acc`` (packed-blocked IO through the
+   phase-equivalent decoder), ``pascal_ae_dr`` and ``kitti_inst_only`` (the
+   image phase's 96x128 images, packed-blocked targets): device ms a step,
+   host wall, peak memory, finite losses and gradients, launches 4 / 3 / 4,
+   2 / 1 / 2 or 2 / 2 / 2 a step on the tensor cores. A bf16 B=32 train step
+   of ``modelnet_nolbo`` in three layouts no name uses
+   (``benchmarks/quality_parity.py``'s ``classic`` and ``blocked_dynfix``,
+   and the classic encoder on the s2d(2) stem, 1 / 0 / 1 FFMA launches a
+   step), device ms each. Serving without class priors: ``modelnet_vae``
+   over HTTP with the zero fill (no ``category`` in any reply, empty masks
+   read back as zeros; 4 launches a batch); ``cli.evaluate --config
+   modelnet_ae --latents-out`` -> ``cli.export --prior-means`` (the artifact
+   held to the eager program with the same anchors, 4 launches a batch) ->
+   ``cli.serve --artifact`` in a subprocess (float requests, every reply's
+   ``category`` that of the in-process program); ``anytime_eval`` at B=32,
+   bf16, with those anchors, masked and clean (6 and 4 launches), device ms.
+   The phase's wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -277,6 +307,22 @@ IMAGE_TRAIN_SAMPLES = 256  # 8 batches of 32: the render cache is warm from step
 IMAGE_HOST_LAST = 16  # host wall a step over the last 16 steps (all cached)
 IMAGE_SLICE_BATCH = 2  # served and trained on the card and the CPU
 IMAGE_ANYTIME_BATCH = 4
+# the variants phase: each distinct model of the other REGISTRY names with the forward launches of one encode +
+# decode (the blocked head's 2, the blocked tail's 2), then the names trained with their launches a step
+VARIANT_MODELS = {"modelnet_vae": 4, "modelnet_ae": 4, "ae3d": 4, "modelnet_nolbo_acc": 2, "pascal_vae": 2,
+                  "pascal_ae": 2, "pascal_nolbo_acc": 0, "kitti_inst_only": 2}
+VARIANT_TRAIN = {"modelnet_vae_dr": (4, 3, 4), "modelnet_ae": (4, 3, 4), "ae3d": (4, 3, 4),
+                 "modelnet_nolbo_acc": (2, 1, 2), "pascal_ae_dr": (2, 2, 2), "kitti_inst_only": (2, 2, 2)}
+VARIANT_SLICE_BATCH = 2
+VARIANT_TRAIN_STEPS = 20
+VARIANT_LAYOUT_STEPS = 3  # timed, after one warm-up step
+VARIANT_ARTIFACT_REQUESTS = 8  # float-input requests (262144 floats of JSON each) to the exported AE
+# layouts of modelnet_nolbo that no REGISTRY name uses (benchmarks/quality_parity.py's classic and
+# blocked_dynfix, and the classic encoder on an s2d(2) stem), with their launches a step and whether on wgmma
+VARIANT_LAYOUTS = {"classic": ((0, 0, 0), False), "blocked_dynfix": ((4, 3, 4), True), "classic_s2d2": ((1, 0, 1), False)}
+STEM_K2 = (32, 8, 64)  # grid, C, N of the s2d(2) stem: 64^3 x 1 folded to 32^3 x 8, 8 -> 64
+STEM_CASES = [("stem_b8_f32", 8, torch.float32), ("stem_b8_bf16", 8, torch.bfloat16),
+              ("stem_b32_f32", 32, torch.float32), ("stem_b32_bf16", 32, torch.bfloat16)]
 
 
 def card_line() -> str:
@@ -565,7 +611,7 @@ def phase_kernels(card: str) -> dict:
 
 
 def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict, life_counts: dict,
-                   artifact_counts: dict, image_counts: dict, detector_counts: dict) -> list:
+                   artifact_counts: dict, image_counts: dict, detector_counts: dict, variant_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
@@ -574,11 +620,13 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     number but ``bound_ms`` was measured in this run. ``launches`` sums
     the served runs, the train run, the anytime sweep, the lifecycle's train,
     restored and evaluate runs, its exported programs' batches, the image
-    phase's runs and the detector phase's; ``launches_wgmma`` is the part of
+    phase's runs, the detector phase's and the variants phase's;
+    ``launches_wgmma`` is the part of
     them that took the tensor-core kernels, ``launches_narrow`` the part that
     took the narrow kernels (the detector's final conv, all three in both
     types)."""
-    paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts)
+    paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
+             variant_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
@@ -598,6 +646,7 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "launches_artifact": artifact_counts[kernel],
             "launches_image": image_counts[kernel],
             "launches_detector": detector_counts[kernel],
+            "launches_variants": variant_counts[kernel],
             **head,
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
@@ -1069,11 +1118,19 @@ def http_load(port: int, grids: np.ndarray, masks: np.ndarray) -> tuple[np.ndarr
     return latencies, replies, wall, health
 
 
-def check_replies(what: str, replies: list, cfg, item_bytes: int) -> None:
+def check_replies(what: str, replies: list, cfg, item_bytes: int, classes: int | None = None) -> None:
+    """Every reply holds exactly ``category`` (an int below ``classes``,
+    default the config's class count; ``classes=0``: a program without class
+    anchors, whose replies hold no ``category``), ``z_mean`` and
+    ``z_log_var`` of the latent's width, finite, and ``pred_packed_b64`` of
+    ``item_bytes`` bytes."""
+    classes = cfg.category_dim if classes is None else classes
+    fields = {"z_mean", "z_log_var", "pred_packed_b64"} | ({"category"} if classes else set())
     for i, r in enumerate(replies):
         ok = (
-            isinstance(r.get("category"), int) and 0 <= r["category"] < cfg.category_dim
-            and len(r["z_mean"]) == cfg.z_category_dim and all(math.isfinite(v) for v in r["z_mean"])
+            set(r) == fields
+            and (not classes or (isinstance(r["category"], int) and 0 <= r["category"] < classes))
+            and all(len(r[k]) == cfg.z_dim and all(math.isfinite(v) for v in r[k]) for k in ("z_mean", "z_log_var"))
             and len(base64.b64decode(r["pred_packed_b64"])) == item_bytes
         )
         if not ok:
@@ -1165,7 +1222,7 @@ def serving_subprocesses(argvs: list, device: torch.device) -> list:
         for i, out in enumerate(lines):
             found = [line for line in out if line.startswith("serving ")]
             if ready[i] is None and found:
-                print(f"lifecycle serve: {found[0].strip()}", flush=True)
+                print(f"cli.serve subprocess: {found[0].strip()}", flush=True)
                 ready[i] = (procs[i], int(found[0].rsplit(":", 1)[1]), time.perf_counter() - t0)
         time.sleep(0.2)
     if all(ready):
@@ -2159,6 +2216,327 @@ def phase_detector(device: torch.device, card: str) -> dict:
     return det_counts
 
 
+def phase_stem_kernels(card: str) -> dict:
+    """``conv_k2`` and dw at the classic encoder's space-to-depth(2) stem
+    (64^3 x 1 folded to 32^3 x 8, C=8 -> N=64: no wgmma or narrow plan, the
+    FFMA kernels) at B=8 and B=32 in float32 and bfloat16: each against its
+    plain version and a float64 product of the same operands, timed beside
+    its library call and its bound. Returns ``{kernel: {case: numbers}}``
+    as ``phase_kernels``."""
+    grid, C, N = STEM_K2
+    gen = torch.Generator().manual_seed(SEED + 13)
+    res = {"conv_k2": {}, "conv_k2_dw": {}}
+    with torch.inference_mode():
+        for case, batch, dtype in STEM_CASES:
+            assert wgmma_plan(batch, grid, grid, grid, C, N) is None
+            assert narrow_plan(batch, grid, grid, grid, C, N, dtype=dtype) is None
+            x, w, g = k2_operands(gen, (batch, grid, grid, grid), C, N, dtype)
+            exact = float64_products(x, w, g)
+            runs = k2_runs(x, w, g)
+            for kernel in res:
+                run, plain, library = runs[kernel]
+                label = f"s2d(2) stem {case} B={batch} {grid}^3 {C}->{N}"
+                checked = check_kernel(kernel, label, run, plain, None, "ffma")
+                # the FFMA kernels held to float64 too: f32 sums of at most 64 (forward) or 2^20 (dw) products
+                out, ref, top64 = run(), plain(), float(exact[kernel].abs().max())
+                if kernel == "conv_k2_dw":
+                    tol64 = K2_TOL_DW_F64_REL * top64
+                elif dtype == torch.float32:
+                    tol64 = K2_TOL_F32_F64_REL * top64
+                else:
+                    tol64 = (2.0**-8 + K2_TOL_DW_F64_REL) * top64
+                err_k, err_p = (float((t.double() - exact[kernel]).abs().max()) for t in (out, ref))
+                p1, k1, k2_, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
+                ms, plain_ms, library_ms = (k1 + k2_) / 2, (p1 + p2) / 2, cuda_ms(library)
+                bound_ms, bound_by = k2_bound_ms(kernel, batch, C, N, dtype, grid)
+                print(f"{kernel} {label} [ffma]: against float64 (largest entry {top64:.3e}) kernel {err_k:.3e} "
+                      f"plain {err_p:.3e} (tol {tol64:.3e}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+                      f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); kernel / bound {ms / bound_ms:.1f}, "
+                      f"kernel / library {ms / library_ms:.2f} [{card}]", flush=True)
+                if not (err_k <= tol64 and err_p <= tol64):
+                    raise AssertionError(f"{kernel} {label}: off the float64 product")
+                res[kernel][case] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                                     "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": "ffma"}
+            del x, w, g, exact, runs
+    return res
+
+
+def timed_train(trainer, what: str) -> tuple[np.ndarray, np.ndarray, float, int]:
+    """Run ``trainer`` to its ``total_steps``: device ms a step by CUDA events
+    and host wall ms between step starts (both after ``TRAIN_WARMUP`` steps),
+    the run's wall seconds and its peak memory. Fails on a non-finite metric
+    or gradient."""
+    events, entries = [], []
+    inner = trainer.step_fn
+
+    def timed_step(*a, **kw):
+        entries.append(time.perf_counter())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer.step_fn = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print("", flush=True)  # end the logger's carriage-return line
+    rows = trainer.history
+    if trainer.state.step != trainer.cfg.total_steps or trainer.aborted_nan or not all(
+            math.isfinite(v) for row in rows for v in row.values()):
+        raise AssertionError(f"{what}: step {trainer.state.step}, aborted {trainer.aborted_nan}")
+    if any(row["grads_finite"] != 1.0 for row in rows):
+        raise AssertionError(f"{what}: a step's gradients were not finite")
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in events[TRAIN_WARMUP:]])
+    return step_ms, np.diff(np.asarray(entries[TRAIN_WARMUP:])) * 1e3, wall, torch.cuda.max_memory_allocated()
+
+
+def phase_variants(device: torch.device, card: str) -> dict:
+    """The other 13 ``REGISTRY`` names at full width, from seeded weights:
+    each distinct model's f32 encode + decode on the card against the CPU;
+    six names trained through ``cli/train.py``'s trainer (bf16, B=32); a
+    train step of ``modelnet_nolbo`` in three layouts no name uses; serving
+    without class priors (a VAE with the zero fill over HTTP; an AE's
+    ``cli.evaluate --latents-out`` -> ``cli.export --prior-means`` -> ``cli.serve
+    --artifact``) and ``anytime_eval`` with those anchors. Returns the
+    phase's launch counts."""
+    from anytime3d_tpu_torch.cli import evaluate as cli_evaluate
+    from anytime3d_tpu_torch.cli import export as cli_export
+    from anytime3d_tpu_torch.serving.export import load_infer
+    from anytime3d_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    var_counts = dict.fromkeys(read_counts(), 0)
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            var_counts[k] += v
+
+    # 1. each distinct model, f32, card against CPU: one encode (posterior mean) + decode of 2 items
+    n = VARIANT_SLICE_BATCH
+    for name, launches in VARIANT_MODELS.items():
+        cfg = REGISTRY[name]()
+        t0 = time.perf_counter()
+        model_cpu = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED)).eval()
+        model_gpu = copy.deepcopy(model_cpu).to(device)
+        if cfg.encoder == "image":
+            labels = dataclasses.replace(cfg, category_dim=cfg.category_dim or 40, inst_dim=cfg.inst_dim or 10)
+            x = torch.from_numpy(image_batch(labels, n, IMAGE_SIZE, IMAGE_SIZE, SEED + 14)["input"])
+        else:
+            x = torch.from_numpy(synthetic_grids(n, cfg.decoder.output_shape[0], SEED + 14))
+        outs = {}
+        for label, model, dev in (("cpu", model_cpu, torch.device("cpu")), ("card", model_gpu, device)):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                reset_counts()
+            with torch.inference_mode():
+                enc = model.encode(x.to(dev))
+                out = {"z_mean": enc.mean, "pred": model.decode(enc.mean)}
+                if enc.log_var is not None:
+                    out["z_log_var"] = enc.log_var
+            outs[label] = {k: v.float().cpu() for k, v in out.items()}
+            if dev.type == "cuda":
+                add(expect_counts(f"variant {name}, f32", launches, 0, 0, tensor_cores=False))
+        line = compare_outputs(f"variant {name} card vs CPU", outs["card"], outs["cpu"], SLICE_TOL_F32)
+        if tuple(outs["card"]["pred"].shape) != (n, *cfg.decoder.output_shape) or float(outs["card"]["pred"].std()) < 1e-3:
+            raise AssertionError(f"variant {name}: pred {tuple(outs['card']['pred'].shape)}, constant or misshapen")
+        print(f"variant {name} ({sum(p.numel() for p in model_cpu.parameters())} params, {cfg.encoder} encoder, "
+              f"decoder {cfg.decoder.final_mode}{' blocked tail' if cfg.decoder.tail_blocked else ''}, "
+              f"variational {cfg.variational}): f32 encode + decode of {n}, card vs CPU (tol {SLICE_TOL_F32}): {line}; "
+              f"{launches} conv_k2 launches; built and run in {time.perf_counter() - t0:.1f} s", flush=True)
+        del model_cpu, model_gpu
+
+    # 2. training through cli/train.py's trainer: bf16, B=32, packed synthetic batches
+    rows, cols = IMAGE_BENCH
+    for name, (fwd, dx, dw) in VARIANT_TRAIN.items():
+        t0 = time.perf_counter()
+        args = cli_train.parse_args(["--config", name, "--data", "synthetic", "--packed", "--bf16", "--batch-size",
+                                     str(TRAIN_BATCH), "--steps", str(VARIANT_TRAIN_STEPS), "--eval-every", "0"])
+        trainer, _ = cli_train.build_trainer(args)
+        cfg = trainer.model.config
+        size = "64^3 packed"
+        if cfg.encoder == "image":  # the image phase's shape: bench.py's 96x128 images, packed-blocked targets
+            loader = SyntheticImageObjectLoader(num_samples=IMAGE_TRAIN_SAMPLES, dim=cfg.decoder.output_shape[0],
+                                                num_classes=cfg.category_dim or 40, num_inst=cfg.inst_dim or 10)
+            trainer.batch_fn = cli_train.build_batch_fn(loader, cfg, TRAIN_BATCH, packed=True, native=True,
+                                                        image_size=(cols, rows))
+            size = f"{rows}x{cols} images, 64^3 packed-blocked targets"
+        built = time.perf_counter() - t0
+        reset_counts()
+        step_ms, host, wall, peak = timed_train(trainer, f"variant train {name}")
+        add(expect_counts(f"variant train {name}", fwd * VARIANT_TRAIN_STEPS, dx * VARIANT_TRAIN_STEPS,
+                          dw * VARIANT_TRAIN_STEPS, tensor_cores=True))
+        hist = trainer.history
+        print(f"variant train {name}: {VARIANT_TRAIN_STEPS} steps, B={TRAIN_BATCH} bf16, {size}: loss_total "
+              f"{hist[0]['loss_total']:.1f} -> {hist[-1]['loss_total']:.1f}, last {dict(hist[-1])}; device time per "
+              f"step (CUDA events, steps {TRAIN_WARMUP}..{VARIANT_TRAIN_STEPS - 1}) median {np.median(step_ms):.2f} ms "
+              f"(min {step_ms.min():.2f}, max {step_ms.max():.2f}); host wall per step, start to start, median "
+              f"{np.median(host):.2f} ms; whole run {wall:.2f} s (built in {built:.1f} s); peak memory allocated "
+              f"{peak / 2**30:.2f} GiB; conv_k2 launches {fwd} / {dx} / {dw} a step, on wgmma [{card}]", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # 3. modelnet_nolbo in layouts that no REGISTRY name uses: a bf16 train step at B=32
+    base, loss_cfg = configs.variant("modelnet_nolbo")
+    classic = dataclasses.replace(
+        base, encoder3d=dataclasses.replace(base.encoder3d, stem_space_to_depth=1, head_blocked=False),
+        decoder=dataclasses.replace(base.decoder, final_mode="transpose", tail_blocked=False))
+    layouts = {"classic": classic,
+               "blocked_dynfix": dataclasses.replace(base, decoder=dataclasses.replace(
+                   base.decoder, tail_init_match_transpose=True, tail_phase_norm=True)),
+               "classic_s2d2": dataclasses.replace(classic, encoder3d=dataclasses.replace(
+                   classic.encoder3d, stem_space_to_depth=2))}
+    for label, cfg in layouts.items():
+        (fwd, dx, dw), tensor_cores = VARIANT_LAYOUTS[label]
+        model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16).to(device)
+        state = create_train_state(model)
+        step = make_train_step(model, loss_cfg)
+        loader = SyntheticVoxelLoader(num_samples=TRAIN_BATCH, dim=cfg.decoder.output_shape[0],
+                                      num_classes=cfg.category_dim)
+        batch = to_device(cli_train.build_batch_fn(loader, cfg, TRAIN_BATCH, packed=True, native=True)(0), device)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        step(state, batch, gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        n_steps = VARIANT_LAYOUT_STEPS
+        ms = cuda_ms(lambda: step(state, batch, gen), iters=n_steps, warmup=0)
+        metrics = {k: float(v) for k, v in step(state, batch, gen)[1].items()}
+        add(expect_counts(f"layout {label}", fwd * (n_steps + 1), dx * (n_steps + 1), dw * (n_steps + 1),
+                          tensor_cores))
+        if not (all(math.isfinite(v) for v in metrics.values()) and metrics["grads_finite"] == 1.0):
+            raise AssertionError(f"layout {label}: {metrics}")
+        print(f"layout {label} of modelnet_nolbo (encoder head_blocked {cfg.encoder3d.head_blocked}, stem "
+              f"s2d({cfg.encoder3d.stem_space_to_depth}); decoder {cfg.decoder.final_mode}, tail_blocked "
+              f"{cfg.decoder.tail_blocked}, tail_phase_norm {cfg.decoder.tail_phase_norm}, tail_init_match_transpose "
+              f"{cfg.decoder.tail_init_match_transpose}): bf16 train step B={TRAIN_BATCH}, device time (CUDA events, "
+              f"mean of {n_steps} after 1) {ms:.2f} ms; peak memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; conv_k2 {fwd} / {dx} / {dw} a step "
+              f"({'wgmma' if tensor_cores else 'FFMA' if fwd else 'none'}); metrics {metrics} [{card}]", flush=True)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+
+    # 4a. an HTTP server for modelnet_vae (no class prior): the zero fill, replies without a category
+    cfg = REGISTRY["modelnet_vae"]()
+    item = cfg.decoder.output_shape
+    item_bytes = math.prod(item) // 8
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED)).to(device)
+    grids, masks = serve_requests(N_REQUESTS // 4, item[0], cfg.z_dim, SEED + 15)
+    server = InferenceServer(make_packed_infer(model, item), (item_bytes,), cfg.z_dim, batch_size=BATCH,
+                             device=device)
+    try:
+        reset_counts()
+        port = server.serve(0, background=True)
+        latencies, replies, wall, health = http_load(port, grids, masks)
+    finally:
+        server.close()
+    check_replies("variant serve modelnet_vae", replies, cfg, item_bytes, classes=0)
+    batches = int(health["batches_run"])
+    add(expect_counts(f"variant serve modelnet_vae, {batches} f32 batches", 4 * batches, 0, 0, tensor_cores=False))
+    lat = np.sort(latencies) * 1e3
+    empty = [r for r, m in zip(replies, masks) if not m.any()]
+    if not all(not any(r["z_mean"]) for r in empty):
+        raise AssertionError("variant serve modelnet_vae: an empty mask's latent is not filled with zeros")
+    print(f"variant serve modelnet_vae (no class prior, zero fill): {len(masks)} requests from {N_CLIENTS} threads, "
+          f"batch {BATCH}, {batches} batches, no category in any reply, {len(empty)} empty masks read back as zeros; "
+          f"p50 {np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} ms, {len(masks) / wall:.1f} shapes/s "
+          f"[{card}]", flush=True)
+    del model, server
+
+    # 4b. modelnet_ae: cli.evaluate --latents-out -> cli.export --prior-means -> cli.serve --artifact
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_variants_")
+    try:
+        cfg = REGISTRY["modelnet_ae"]()
+        vec_path, art_path = os.path.join(tmp, "v.npy"), os.path.join(tmp, "ae.pt2")
+        t0 = time.perf_counter()
+        reset_counts()
+        vecs = cli_evaluate.main(["--config", "modelnet_ae", "--latents-out", vec_path, "--batches", "2",
+                                  "--batch-size", str(TRAIN_BATCH)])
+        torch.cuda.synchronize()
+        add(expect_counts("variant cli.evaluate --latents-out", 2 * 2, 0, 0, tensor_cores=False))
+        seen = int((np.abs(vecs).sum(-1) > 0).sum())
+        if vecs.shape != (40, cfg.z_dim) or not np.isfinite(vecs).all() or seen < 2:
+            raise AssertionError(f"variant latents: {vecs.shape}, {seen} classes seen")
+        latents_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_export.main(["--config", "modelnet_ae", "--prior-means", vec_path, "--batch-size", str(BATCH),
+                         "--out", art_path])
+        export_s = time.perf_counter() - t0
+        with open(art_path, "rb") as fh:
+            fn = load_infer(fh.read())
+        model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0)).to(device)  # the CLIs' seed
+        eager = make_infer_fn(model, prior_means=vecs)
+        x8 = torch.from_numpy(synthetic_grids(BATCH, item[0], SEED + 16)).to(device)
+        mask8 = torch.from_numpy(latent_masks(BATCH, cfg.z_dim, SEED + 16)).to(device)
+        fn(x8, mask8)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = fn(x8, mask8)
+        torch.cuda.synchronize()
+        add(expect_counts("variant AE artifact, f32", 4, 0, 0, tensor_cores=False))
+        line = compare_outputs("variant AE artifact vs eager", got, eager(x8, mask8), EXPORT_TOL_F32)
+        if got["z_log_var"].abs().max() != 0:
+            raise AssertionError("variant AE artifact: z_log_var is not zero")
+        (proc, port, started), = serving_subprocesses([["--artifact", art_path]], device)
+        replies = []
+        try:
+            for i in range(VARIANT_ARTIFACT_REQUESTS):
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+                body = json.dumps({"input": x8[i % BATCH].cpu().numpy().tolist(), "mask": mask8[i % BATCH].tolist()})
+                conn.request("POST", "/infer", body, {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                replies.append((resp.status, json.loads(resp.read())))
+                conn.close()
+        finally:
+            proc.terminate()
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = f"killed after 60 s ({proc.wait()})"
+        cats = [r.get("category") for _, r in replies]
+        want = [int(got["category"][i % BATCH]) for i in range(VARIANT_ARTIFACT_REQUESTS)]
+        if any(status != 200 for status, _ in replies) or cats != want or rc != 0:
+            raise AssertionError(f"variant serve --artifact: statuses {[s for s, _ in replies]}, categories {cats} "
+                                 f"(in-process program {want}), exit {rc}")
+        print(f"variant modelnet_ae: cli.evaluate --latents-out {vecs.shape} ({seen} classes seen) in {latents_s:.1f} "
+              f"s; cli.export --prior-means {export_s:.1f} s; the artifact against the eager program with the same "
+              f"anchors: {line}; cli.serve --artifact (subprocess, ready {started:.1f} s): {len(replies)} float "
+              f"requests, categories {cats}, equal to the in-process program's [{card}]", flush=True)
+
+        # 4c. anytime_eval at B=32 with those anchors, bf16, masked and clean
+        model16 = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16).to(device)
+        loader = SyntheticVoxelLoader(num_samples=TRAIN_BATCH, dim=item[0], num_classes=40, seed=1)
+        a_batch = to_device(cli_train.build_batch_fn(loader, cfg, TRAIN_BATCH, packed=True, native=True,
+                                                     category=True)(0), device)
+        anchors = torch.from_numpy(vecs).to(device)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        torch.cuda.synchronize()
+        reset_counts()
+        masked = anytime_eval(model16, a_batch, gen, missing_prob=0.5, prior_means=anchors)
+        clean = anytime_eval(model16, a_batch, gen, prior_means=anchors)
+        torch.cuda.synchronize()
+        add(expect_counts("variant anytime, one masked and one clean batch", 6 + 4, 0, 0, tensor_cores=True))
+        if not all(math.isfinite(float(v)) for v in {**masked, **clean}.values()) or "acc_category" not in masked:
+            raise AssertionError(f"variant anytime: {masked}, {clean}")
+        ms_masked = cuda_ms(lambda: anytime_eval(model16, a_batch, gen, missing_prob=0.5, prior_means=anchors),
+                            iters=10)
+        ms_clean = cuda_ms(lambda: anytime_eval(model16, a_batch, gen, prior_means=anchors), iters=10)
+        print(f"variant anytime, modelnet_ae with its cli.evaluate anchors, B={TRAIN_BATCH} bf16 packed-blocked: "
+              f"device time per batch (CUDA events, 10 calls) at missing 0.5 {ms_masked:.3f} ms, at 0.0 "
+              f"{ms_clean:.3f} ms; masked {({k: round(float(v), 4) for k, v in masked.items()})} [{card}]", flush=True)
+        del model, model16, fn, a_batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"variants phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return var_counts
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -2178,9 +2556,13 @@ def main() -> None:
     for kernel, cases in phase_detector_kernels(card).items():
         kernels[kernel].update(cases)
     detector_counts = phase_detector(device, card)
+    for kernel, cases in phase_stem_kernels(card).items():
+        kernels[kernel].update(cases)
+    variant_counts = phase_variants(device, card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts,
-                                                artifact_counts, image_counts, detector_counts)}), flush=True)
+                                                artifact_counts, image_counts, detector_counts, variant_counts)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

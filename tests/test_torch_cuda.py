@@ -263,6 +263,33 @@ def test_ffma_dw_matches_plain_at_the_tile_edges(cuda, B, D, H, W, C, N, dtype):
     assert err <= 1e-5 * float(ref.abs().max()), err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [2, 8])
+def test_s2d_stem_kernels_match_plain(cuda, B, dtype):
+    """The classic encoder's space-to-depth(2) stem, ``conv_k2`` 8 -> 64 at
+    32^3 (no tensor-core or narrow plan: the FFMA kernels), forward and dw
+    against their plain versions, with the forward's and the FFMA dw's
+    tolerances; dw the same bits twice."""
+    C, N, G = 8, 64, 32
+    assert wgmma_plan(B, G, G, G, C, N) is None and narrow_plan(B, G, G, G, C, N, dtype=dtype) is None
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
+    g = torch.randn(B, G, G, G, N, generator=gen).to(cuda, dtype)
+    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
+    with torch.no_grad():
+        y, dw, again = conv_k2(x, w), conv_k2_dw(x, g), conv_k2_dw(x, g)
+        y_ref, dw_ref = conv_k2_reference(x, w), conv_k2_dw_reference(x, g)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1], before[2] + 2)
+    assert _wgmma_counts() == before_wg and _narrow_counts() == before_nr
+    err = float((y.float() - y_ref.float()).abs().max())
+    assert err <= (1e-4 if dtype == torch.float32 else 2.0**-7 * float(y_ref.float().abs().max())), err
+    assert torch.equal(dw, again)
+    err = float((dw - dw_ref).abs().max())
+    assert err <= 1e-5 * float(dw_ref.abs().max()), err
+
+
 def test_backward_launches_only_what_is_asked(cuda):
     x = torch.randn(1, 4, 4, 4, 8, device=cuda)
     w = torch.randn(2, 2, 2, 8, 8, device=cuda)

@@ -212,9 +212,37 @@ def test_pixel_shuffle_decoder_matches_flax(name):
 @pytest.mark.parametrize("change", [{"final_mode": "transpose"}, {"strides": (1, 2, 1)}, {"mid_equiv": True},
                                     {"tail_init_match_transpose": True}])
 def test_other_decoder_layouts_still_raise(change):
-    _, cfg = decoder_configs("tiny16")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ae.Decoder3D(dataclasses.replace(cfg, **change))
+    """The tiny decoder (16^3, k=3) in the other layouts of the JAX package:
+    a transposed-conv final stage (``'transpose'``, and any last stride 1),
+    ``mid_equiv`` (no k=4 s=2 stage here: the classic blocks stay) and
+    ``tail_init_match_transpose`` (no blocked tail here: the pixel shuffle
+    stays). flax's names, the output and the gradients w.r.t. the latent and
+    every leaf."""
+    jax_cfg, cfg = (dataclasses.replace(c, **change) for c in decoder_configs("tiny16"))
+    rng = np.random.default_rng(4)
+    z = rng.normal(size=(3, cfg.input_dim)).astype(np.float32)
+    mod = jax_ae.Decoder3D(jax_cfg)
+    tree = random_tree(lambda k: mod.init(k, jnp.asarray(z)), rng)
+    y_ref, vjp = jax.vjp(jax.jit(lambda p, zz: mod.apply({"params": p}, zz)), tree, jnp.asarray(z))
+    g = rng.normal(size=y_ref.shape).astype(np.float32)
+    dp, dz = vjp(jnp.asarray(g))
+    dec = ae.Decoder3D(cfg)
+    transposed = cfg.final_mode == "transpose" or cfg.strides[-1] == 1
+    assert hasattr(dec, "convtranspose_0") == transposed and hasattr(dec, "conv_0") == (not transposed)
+    state = params_from_flax(tree)
+    assert state.keys() == dec.state_dict().keys()
+    dec.load_state_dict(state)
+    zt = torch.from_numpy(z).requires_grad_(True)
+    y = dec(zt)
+    names, params = zip(*dec.named_parameters())
+    grads = torch.autograd.grad(y, [zt, *params], torch.from_numpy(g))
+    assert y.shape == y_ref.shape
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref), **NET_TOL)
+    want = params_from_flax(np_tree(dp))
+    want["z"] = torch.from_numpy(np.array(dz))
+    for n, gr in zip(("z", *names), grads):  # relative to the leaf's largest entry
+        w = want[n].numpy()
+        assert float(np.abs(gr.numpy() - w).max()) <= GRAD_REL * float(np.abs(w).max()), n
 
 
 # ---------------------------------------------------------------- NMS

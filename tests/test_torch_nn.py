@@ -15,6 +15,7 @@ import torch
 
 from anytime3d_tpu.models import configs as jax_configs
 from anytime3d_tpu.models.mmvae import MultiModalVAE as JaxVAE
+from anytime3d_tpu.nn import autoencoder3d as jax_ae
 from anytime3d_tpu.nn import blocks as jax_blocks
 from anytime3d_tpu.nn.priornet import PriorNet as JaxPriorNet
 from anytime3d_tpu.nn.priornet import PriorNetConfig as JaxPriorNetConfig
@@ -270,21 +271,44 @@ def test_init_is_seeded_and_flax_shaped():
     assert torch.equal(a["decoder.groupnorm_0.weight"], torch.ones(64))
 
 
-def test_modelnet_nolbo_config_mirrors_jax():
-    assert dataclasses.asdict(configs.modelnet_nolbo()) == dataclasses.asdict(jax_configs.modelnet_nolbo())
-    assert set(configs.REGISTRY) <= set(jax_configs.REGISTRY)
+@pytest.mark.parametrize("name", sorted(jax_configs.REGISTRY))
+def test_modelnet_nolbo_config_mirrors_jax(name):
+    """Each of the JAX package's 16 ``REGISTRY`` names, its config and its
+    loss config, field for field; the two registries hold the same names."""
+    assert set(configs.REGISTRY) == set(jax_configs.REGISTRY)
+    assert dataclasses.asdict(configs.REGISTRY[name]()) == dataclasses.asdict(jax_configs.REGISTRY[name]())
+    assert dataclasses.asdict(configs.loss_config(name)) == dataclasses.asdict(jax_configs.loss_config(name))
 
 
 @pytest.mark.parametrize("part,change", [
     ("encoder3d", {"head_blocked": False}),
     ("encoder3d", {"mid_blocked": True}),
-    ("decoder", {"tail_blocked": False, "final_mode": "transpose"}),  # the pixel-shuffle decoder is ported
+    ("decoder", {"tail_blocked": False, "final_mode": "transpose"}),
     ("decoder", {"final_mode": "transpose_equiv"}),
     ("decoder", {"mid_equiv": True}),
     ("decoder", {"tail_phase_norm": True}),
+    ("decoder", {"mid_blocked": True}),
 ])
 def test_unported_layouts_raise(part, change):
-    cfg = configs.modelnet_nolbo()
+    """The layouts the flagship does not use, on its 32^3 narrow form: each
+    ported one builds with flax's submodule names and computes flax's
+    encoder or decoder on the same random weights; ``mid_blocked`` still
+    raises."""
+    jax_cfg, cfg = (dataclasses.replace(getattr(c, part), **change) for c in small_configs())
     cls = Encoder3D if part == "encoder3d" else Decoder3D
-    with pytest.raises(NotImplementedError):
-        cls(dataclasses.replace(getattr(cfg, part), **change))
+    if change.get("mid_blocked"):
+        with pytest.raises(NotImplementedError, match="mid_blocked"):
+            cls(cfg)
+        return
+    rng = np.random.default_rng(len(str(change)))
+    if part == "encoder3d":
+        jax_mod, x = jax_ae.Encoder3D(jax_cfg), (rng.uniform(size=(2, 32, 32, 32, 1)) > 0.7).astype(np.float32)
+    else:
+        jax_mod, x = jax_ae.Decoder3D(jax_cfg), rng.normal(size=(2, cfg.input_dim)).astype(np.float32)
+    tree = _perturb(_np_tree(jax.jit(lambda k: jax_mod.init(k, jnp.asarray(x)))(jax.random.PRNGKey(0))["params"]), 11)
+    port = _port(cls(cfg), tree)
+    ref = np.asarray(jax.jit(lambda p, v: jax_mod.apply({"params": p}, v))(tree, jnp.asarray(x)))
+    with torch.no_grad():
+        y = port(torch.from_numpy(x)).numpy()
+    assert y.shape == ref.shape and ref.std() > 1e-3
+    np.testing.assert_allclose(y, ref, rtol=1e-4, atol=1e-5)
