@@ -5,7 +5,9 @@ the port by name: each auto-named flax module ``Class_i`` is the port's
 submodule ``class_i`` (``_ResBlock_3`` is ``_resblock_3``; explicit names
 such as ``encoder3d``, ``backbone``, ``head`` or ``decoder`` stay: the
 detector's ``head/Conv_0`` is ``head.conv_0``, its decoder's pixel-shuffle
-``decoder/Conv_0`` is ``decoder.conv_0``), and each leaf is renamed and
+``decoder/Conv_0`` is ``decoder.conv_0``, the classifier's ``backbone/...``
+and ``head/...`` are ``backbone.`` and ``head.`` for each of the three
+backbones), and each leaf is renamed and
 laid out as the port holds it:
 
 - ``Conv_*/kernel`` of a 2-D conv: HWIO -> OIHW (``F.conv2d``);

@@ -10,8 +10,11 @@ reads the shard indices present on disk, whether or not they are contiguous.
 same seed, and ``SyntheticImageObjectLoader`` renders them to images in the
 Pascal loader's tuple form, the same arrays as the JAX loader's;
 ``SyntheticMultiObjectLoader`` pastes several renders into one scene with its
-grid targets, the same batches as the JAX loader's. The part-based instance
-shapes (``structural_inst``) are not ported yet.
+grid targets, the same batches as the JAX loader's. With
+``structural_inst=True`` the voxel and image loaders draw the part-based
+instance shapes of ``data/instances.py`` (voxelized natively; the loader
+raises where the native voxelizer cannot be built), the same grids as the JAX
+package's native ones.
 """
 
 from __future__ import annotations
@@ -85,6 +88,17 @@ class ModelNetLoader:
         }
 
 
+def _jitter_zoom(grid: np.ndarray, factors) -> np.ndarray:
+    """Anisotropic nearest-neighbour rescale of a cubic grid about its center
+    by ``factors`` (one an axis, each about 1): the per-sample jitter of the
+    structural instance shapes."""
+    d = grid.shape[0]
+    c = (d - 1) / 2.0
+    idx = [np.clip(np.round((np.arange(d) - c) / f + c), 0, d - 1).astype(int)
+           for f in np.asarray(factors, np.float64)]
+    return grid[np.ix_(idx[0], idx[1], idx[2])]
+
+
 class SyntheticVoxelLoader:
     """Procedural shapes behind the ModelNet loader's interface:
     ``getNextBatch(batchSize)`` -> ``input_images`` (B, dim, dim, dim, 1),
@@ -94,18 +108,24 @@ class SyntheticVoxelLoader:
     Class-informative by construction: each class owns one of 8 shape families
     and class-specific half-extents; each instance scales those by a fixed
     factor within ``1 +- inst_spread``; each sample adds a small jitter and
-    one of 4 yaw rotations. All voxels are generated at construction."""
+    one of 4 yaw rotations. All voxels are generated at construction.
+
+    ``structural_inst=True`` takes each sample's base shape from
+    ``data/instances.py::instance_grid`` (class, instance): instances then
+    differ in structure (leg count, shade, wings...), not only in scale;
+    each sample rescales it by its jitter over the mean of its three
+    extents, then turns it. Those grids are voxelized natively: construction
+    raises RuntimeError where the native voxelizer cannot be built."""
 
     def __init__(self, num_samples: int = 512, dim: int = 64, num_classes: int = 40, num_inst: int = 10,
                  seed: int = 0, inst_spread: float = 0.15, structural_inst: bool = False):
-        if structural_inst:
-            raise NotImplementedError("not ported yet: structural_inst (the part-based instance shapes)")
         self.epoch = 0
         self.batchStart = 0
         self.dataLength = num_samples
         self._dim = dim
         self._num_classes = num_classes
         self._num_inst = num_inst
+        self._structural = structural_inst
         rng = np.random.default_rng(seed)
         self._labels = rng.integers(0, num_classes, num_samples)
         self._insts = rng.integers(0, num_inst, num_samples)
@@ -127,7 +147,17 @@ class SyntheticVoxelLoader:
         self._cache = np.stack([self._generate(i) for i in range(num_samples)]).astype(bool)
 
     def _generate(self, i: int) -> np.ndarray:
-        """Occupancy of sample i: family = class % 8, rotated by the sample's yaw quarter-turns."""
+        """Occupancy of sample i: family = class % 8 (or the structural
+        instance shape), rotated by the sample's yaw quarter-turns."""
+        if self._structural:
+            from anytime3d_tpu_torch.data.instances import instance_grid
+
+            base = instance_grid(int(self._labels[i]), int(self._insts[i]), self._dim)
+            occ = _jitter_zoom(base, self._params[i] / self._params[i].mean())
+            k = int(self._rots[i])
+            if k:
+                occ = np.rot90(occ, k=k, axes=(0, 2)).copy()
+            return occ.astype(np.float32)
         a, b, c = self._params[i]
         g = self._grid
         x, y, z = g[..., 0], g[..., 1], g[..., 2]

@@ -2,8 +2,9 @@
 SVD, and the metric lifting of detections.
 
 Counterpart of ``anytime3d_tpu/geometry``, batched over objects and
-hypotheses on the tensors' device. The JAX package's bundle adjustment, pose
-graph, two-view and feature modules are not ported yet.
+hypotheses on the tensors' device. Of the JAX package's geometry, only the
+bundle adjustment, pose graph, two-view and feature modules (``ba``,
+``posegraph``, ``twoview``, ``features``) are not ported yet.
 """
 
 from anytime3d_tpu_torch.geometry.lifting import lift_detections, rescale_transform_points, voxel_grid_points

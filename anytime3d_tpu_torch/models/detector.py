@@ -28,6 +28,7 @@ import torch.nn as nn
 
 from anytime3d_tpu_torch.nn.autoencoder3d import Decoder3D, Decoder3DConfig
 from anytime3d_tpu_torch.nn.darknet import BACKBONES, Head2D
+from anytime3d_tpu_torch.ops.metrics import top_k_stable
 from anytime3d_tpu_torch.ops.nms import nms
 from anytime3d_tpu_torch.ops.sampling import reparameterize
 
@@ -60,13 +61,6 @@ class DetectorConfig:
     @property
     def head_output_dim(self) -> int:
         return self.predictor_num * self.channels_per_predictor
-
-
-def top_k_stable(scores: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the ``k`` largest entries of the last axis, ties broken by the
-    lower index, as ``jax.lax.top_k`` breaks them (``torch.topk`` promises no
-    order among ties): the first ``k`` of a stable descending sort."""
-    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
 class DetectorReconstructor(nn.Module):

@@ -1,9 +1,8 @@
 """Loss functions of the multi-modal VAE family.
 
-Counterpart of ``anytime3d_tpu/ops/losses.py:18-96``. Every function is
-batched over the leading axis and reduces per sample (a sum over the feature
-axes), so the caller picks the batch reduction. ``softmax_cross_entropy``
-(classifier pretraining) is not ported yet.
+Counterpart of ``anytime3d_tpu/ops/losses.py``. Every function is batched
+over the leading axis and reduces per sample (a sum over the feature axes),
+so the caller picks the batch reduction.
 """
 
 from __future__ import annotations
@@ -64,3 +63,13 @@ def prior_repulsion(z_mean: torch.Tensor, z_log_var: torch.Tensor, dist_in_z_spa
         differ = (class_onehot[:, None, :] - class_onehot[None, :, :]).abs().sum(dim=-1)
         penalty = penalty * (differ <= 0.0).to(penalty.dtype)
     return penalty.sum(dim=-1)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Per-sample softmax cross-entropy against (possibly smoothed) one-hot
+    targets, in float32 whatever the inputs' dtype: the max-shifted
+    log-softmax, as the JAX package writes it (classifier pretraining)."""
+    logits = logits.float()
+    shifted = logits - logits.amax(dim=-1, keepdim=True)
+    log_p = shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+    return -(onehot.float() * log_p).sum(dim=-1)

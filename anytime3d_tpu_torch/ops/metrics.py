@@ -1,7 +1,6 @@
-"""Voxel precision, recall and IoU.
+"""Voxel precision, recall and IoU; top-k accuracy of class logits.
 
-Counterpart of ``anytime3d_tpu/ops/metrics.py:13-46``; ``topk_accuracy``
-(classifier pretraining) is not ported yet.
+Counterpart of ``anytime3d_tpu/ops/metrics.py``.
 """
 
 from __future__ import annotations
@@ -32,3 +31,19 @@ def voxel_iou(target: torch.Tensor, pred: torch.Tensor, threshold: float = 0.5,
     """Batch-mean voxel intersection-over-union at ``threshold``."""
     tp, fp, fn = voxel_tp_fp_fn(target, pred, threshold)
     return (tp / (tp + fp + fn + eps)).mean()
+
+
+def top_k_stable(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries of the last axis, ties broken by the
+    lower index, as ``jax.lax.top_k`` breaks them (``torch.topk`` promises no
+    order among ties): the first ``k`` of a stable descending sort."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def topk_accuracy(logits: torch.Tensor, onehot: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """Batch-mean top-k accuracy against one-hot targets, a float32 scalar.
+    Tied logits rank the lower index first, as ``jax.lax.top_k`` (and, for
+    k = 1, ``argmax``) ranks them."""
+    gt = onehot.argmax(dim=-1)
+    top = top_k_stable(logits.float(), k)
+    return (top == gt[:, None]).any(dim=-1).float().mean()

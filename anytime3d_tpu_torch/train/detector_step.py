@@ -25,9 +25,9 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from anytime3d_tpu_torch.data.packing import unpack_voxels
-from anytime3d_tpu_torch.models.detector import DetectorReconstructor, top_k_stable
+from anytime3d_tpu_torch.models.detector import DetectorReconstructor
 from anytime3d_tpu_torch.ops.losses import focal_binary_loss, gaussian_kl
-from anytime3d_tpu_torch.ops.metrics import voxel_tp_fp_fn
+from anytime3d_tpu_torch.ops.metrics import top_k_stable, voxel_tp_fp_fn
 from anytime3d_tpu_torch.ops.sampling import reparameterize
 from anytime3d_tpu_torch.train.state import TrainState, l2_penalty
 from anytime3d_tpu_torch.train.step import apply_gradients_if_finite

@@ -149,7 +149,25 @@ order, any failure ending the run with a non-zero exit:
    ``cli.serve --artifact`` in a subprocess (float requests, every reply's
    ``category`` that of the in-process program); ``anytime_eval`` at B=32,
    bf16, with those anchors, masked and clean (6 and 4 launches), device ms.
-   The phase's wall time printed.
+   The phase's wall time printed;
+15. pretraining and streaming (``phase_pretrain_stream``): ``cli/pretrain.py``'s
+   ``main`` at full width (darknet19 classifier, 224x224, B=64, bf16, 16
+   steps and one eval, ``--save-path``; no ``conv_k2`` launch: its convs are
+   2-D), device ms a step, host wall, images/s, peak memory, the step alone
+   on the card and its host enqueue, the loader's batch cold and cached; the
+   trained classifier's f32 logits on the card against the CPU; its
+   ``backbone`` grafted into a fresh ``pascal_nolbo`` (``graft_submodule``,
+   held bit for bit, every other tensor untouched) and 4 bf16 steps at B=32
+   on 64x64 images (2 / 2 / 2 ``wgmma`` launches a step); the structural
+   instance shapes (``SyntheticVoxelLoader(structural_inst=True)`` at 64^3,
+   every part voxelized natively, none in NumPy), their build time a grid,
+   and 10 bf16 steps of ``modelnet_nolbo`` on them at B=32 (4 / 3 / 4); the
+   streaming ``AnytimeReconstructor`` on full-width ``modelnet_nolbo`` in
+   f32, 32 objects x 8 masked views (``encode_observation``,
+   ``observe_stream``, ``classify``, ``correct``, ``decode``,
+   ``observe_decoded``; 16 + 2 + 16 FFMA launches), the first 4 objects held
+   to the CPU (beliefs, labels, decodes), each call timed. The phase's wall
+   time printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -321,6 +339,15 @@ VARIANT_ARTIFACT_REQUESTS = 8  # float-input requests (262144 floats of JSON eac
 # blocked_dynfix, and the classic encoder on an s2d(2) stem), with their launches a step and whether on wgmma
 VARIANT_LAYOUTS = {"classic": ((0, 0, 0), False), "blocked_dynfix": ((4, 3, 4), True), "classic_s2d2": ((1, 0, 1), False)}
 STEM_K2 = (32, 8, 64)  # grid, C, N of the s2d(2) stem: 64^3 x 1 folded to 32^3 x 8, 8 -> 64
+# phase 15: pretraining, the graft, structural shapes, the streaming reconstructor
+PRETRAIN_BATCH, PRETRAIN_SIZE, PRETRAIN_STEPS = 64, 224, 16  # cli/pretrain.py's batch and size
+PRETRAIN_SLICE_BATCH = 2  # the f32 classifier forward also run on the CPU
+PRETRAIN_LOADER_BATCHES = 4  # timed cold, then again cached
+GRAFT_STEPS = 3  # timed, after one warm-up step
+STRUCT_SAMPLES = 128  # structural grids at 64^3: 40 classes x 10 instances, the pairs these samples draw
+STRUCT_STEPS = 10
+STREAM_OBJECTS, STREAM_VIEWS = 32, 8
+STREAM_CPU_OBJECTS = 4  # the objects also streamed on the CPU
 STEM_CASES = [("stem_b8_f32", 8, torch.float32), ("stem_b8_bf16", 8, torch.bfloat16),
               ("stem_b32_f32", 32, torch.float32), ("stem_b32_bf16", 32, torch.bfloat16)]
 
@@ -611,7 +638,8 @@ def phase_kernels(card: str) -> dict:
 
 
 def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict, life_counts: dict,
-                   artifact_counts: dict, image_counts: dict, detector_counts: dict, variant_counts: dict) -> list:
+                   artifact_counts: dict, image_counts: dict, detector_counts: dict, variant_counts: dict,
+                   stream_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
@@ -620,13 +648,15 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     number but ``bound_ms`` was measured in this run. ``launches`` sums
     the served runs, the train run, the anytime sweep, the lifecycle's train,
     restored and evaluate runs, its exported programs' batches, the image
-    phase's runs, the detector phase's and the variants phase's;
+    phase's runs, the detector phase's, the variants phase's and the
+    pretraining and streaming phase's (the graft's steps, the structural
+    train run, the streaming reconstructor);
     ``launches_wgmma`` is the part of
     them that took the tensor-core kernels, ``launches_narrow`` the part that
     took the narrow kernels (the detector's final conv, all three in both
     types)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
-             variant_counts)
+             variant_counts, stream_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
@@ -647,6 +677,7 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "launches_image": image_counts[kernel],
             "launches_detector": detector_counts[kernel],
             "launches_variants": variant_counts[kernel],
+            "launches_pretrain_stream": stream_counts[kernel],
             **head,
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
@@ -2261,11 +2292,9 @@ def phase_stem_kernels(card: str) -> dict:
     return res
 
 
-def timed_train(trainer, what: str) -> tuple[np.ndarray, np.ndarray, float, int]:
-    """Run ``trainer`` to its ``total_steps``: device ms a step by CUDA events
-    and host wall ms between step starts (both after ``TRAIN_WARMUP`` steps),
-    the run's wall seconds and its peak memory. Fails on a non-finite metric
-    or gradient."""
+def install_step_timer(trainer) -> tuple[list, list]:
+    """Wrap ``trainer.step_fn`` to record each step's CUDA events and the host
+    time it was entered; returns the two lists the wrapper fills."""
     events, entries = [], []
     inner = trainer.step_fn
 
@@ -2279,6 +2308,32 @@ def timed_train(trainer, what: str) -> tuple[np.ndarray, np.ndarray, float, int]
         return out
 
     trainer.step_fn = timed_step
+    return events, entries
+
+
+def check_trained(trainer, what: str) -> None:
+    """Fail unless ``trainer`` ran to its ``total_steps`` with every logged
+    metric finite and every step's gradients finite."""
+    rows = trainer.history
+    if trainer.state.step != trainer.cfg.total_steps or trainer.aborted_nan or not all(
+            math.isfinite(v) for row in rows for v in row.values()):
+        raise AssertionError(f"{what}: step {trainer.state.step}, aborted {trainer.aborted_nan}")
+    if any(row["grads_finite"] != 1.0 for row in rows):
+        raise AssertionError(f"{what}: a step's gradients were not finite")
+
+
+def step_times(events: list, entries: list) -> tuple[np.ndarray, np.ndarray]:
+    """Device ms a step and host wall ms between step starts, both after ``TRAIN_WARMUP`` steps."""
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in events[TRAIN_WARMUP:]])
+    return step_ms, np.diff(np.asarray(entries[TRAIN_WARMUP:])) * 1e3
+
+
+def timed_train(trainer, what: str) -> tuple[np.ndarray, np.ndarray, float, int]:
+    """Run ``trainer`` to its ``total_steps``: device ms a step by CUDA events
+    and host wall ms between step starts (both after ``TRAIN_WARMUP`` steps),
+    the run's wall seconds and its peak memory. Fails on a non-finite metric
+    or gradient."""
+    events, entries = install_step_timer(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2286,14 +2341,8 @@ def timed_train(trainer, what: str) -> tuple[np.ndarray, np.ndarray, float, int]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     print("", flush=True)  # end the logger's carriage-return line
-    rows = trainer.history
-    if trainer.state.step != trainer.cfg.total_steps or trainer.aborted_nan or not all(
-            math.isfinite(v) for row in rows for v in row.values()):
-        raise AssertionError(f"{what}: step {trainer.state.step}, aborted {trainer.aborted_nan}")
-    if any(row["grads_finite"] != 1.0 for row in rows):
-        raise AssertionError(f"{what}: a step's gradients were not finite")
-    step_ms = np.asarray([a.elapsed_time(b) for a, b in events[TRAIN_WARMUP:]])
-    return step_ms, np.diff(np.asarray(entries[TRAIN_WARMUP:])) * 1e3, wall, torch.cuda.max_memory_allocated()
+    check_trained(trainer, what)
+    return (*step_times(events, entries), wall, torch.cuda.max_memory_allocated())
 
 
 def phase_variants(device: torch.device, card: str) -> dict:
@@ -2537,6 +2586,263 @@ def phase_variants(device: torch.device, card: str) -> dict:
     return var_counts
 
 
+def view_masks(n_views: int, n: int, dim: int, seed: int) -> torch.Tensor:
+    """(n_views, n, dim, dim, dim, 1) float32 visibility on the CPU: view t of
+    object i sees the voxels on one side of a plane a quarter of the grid
+    behind its center, across a random direction."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(n_views * n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    coords = torch.from_numpy((np.indices((dim,) * 3).reshape(3, -1).T + 0.5 - dim / 2).astype(np.float32))
+    seen = (torch.from_numpy(dirs.astype(np.float32)) @ coords.T) > -0.25 * dim
+    return seen.float().reshape(n_views, n, dim, dim, dim, 1)
+
+
+def stream_calls(rec, views: torch.Tensor, masks: torch.Tensor, vis: torch.Tensor) -> tuple[dict, dict]:
+    """The reconstructor's streaming calls over ``views`` (T, B, ...): encode
+    each view of the B objects, fuse the T latents with their ``masks``,
+    classify, correct, decode the corrected belief and fuse each view's
+    decode into the occupancy belief under its visibility ``vis``. Returns
+    (the outputs on the CPU, each call's CUDA-event ms: the card's time for a
+    model on the card)."""
+    events = {}
+
+    def timed(name: str, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        events[name] = (start, end)
+        return out
+
+    def fuse_views():
+        occ = rec.new_shape_belief(pred.shape)
+        for t in range(views.shape[0]):
+            occ = rec.observe_decoded(occ, means[t], vis[t])
+        return occ.probs
+
+    means, lvs = timed("encode_observation",
+                       lambda: [torch.stack(b) for b in zip(*(rec.encode_observation(v) for v in views))])
+    belief = timed("observe_stream", lambda: rec.observe_stream(rec.new_object(means.shape[1:2]), means, lvs, masks))
+    labels = timed("classify", lambda: rec.classify(belief))
+    corrected = timed("correct", lambda: rec.correct(belief))
+    pred = timed("decode", lambda: rec.decode(corrected))
+    probs = timed("observe_decoded", fuse_views)
+    torch.cuda.synchronize()
+    out = {"info": belief.info, "precision": belief.precision, "category": labels, "corrected_info": corrected.info,
+           "corrected_precision": corrected.precision, "pred": pred, "fused_probs": probs}
+    return {k: v.cpu() for k, v in out.items()}, {k: a.elapsed_time(b) for k, (a, b) in events.items()}
+
+
+def phase_pretrain_stream(device: torch.device, card: str) -> dict:
+    """Classifier pretraining through ``cli/pretrain.py``'s ``main`` at full
+    width (darknet19, 224x224, B=64, bf16) and its f32 forward on the card
+    against the CPU; its backbone grafted into a fresh ``pascal_nolbo`` and
+    trained a few bf16 steps; the structural instance shapes at 64^3 built
+    (native) and trained on with ``modelnet_nolbo``; the streaming
+    ``AnytimeReconstructor`` on full-width ``modelnet_nolbo`` (32 objects x 8
+    masked views, f32), timed by call and held to the CPU. Returns the
+    phase's launch counts."""
+    from anytime3d_tpu_torch.anytime import AnytimeReconstructor
+    from anytime3d_tpu_torch.cli import pretrain as cli_pretrain
+    from anytime3d_tpu_torch.data import voxelize
+    from anytime3d_tpu_torch.models.classifier import Classifier
+    from anytime3d_tpu_torch.train.checkpoint import CHECKPOINT_FILE, graft_submodule
+    from anytime3d_tpu_torch.train.classifier_step import make_classifier_train_step
+    from anytime3d_tpu_torch.train.step import make_train_step
+    from anytime3d_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    phase_counts = dict.fromkeys(read_counts(), 0)
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            phase_counts[k] += v
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    try:
+        # 1. pretraining: cli.pretrain.main, its trainer's steps timed
+        ckpt = os.path.join(tmp, "ckpt")
+        argv = ["--data", "synthetic", "--backbone", "darknet19", "--batch-size", str(PRETRAIN_BATCH),
+                "--image-size", str(PRETRAIN_SIZE), "--bf16", "--steps", str(PRETRAIN_STEPS), "--eval-every",
+                str(PRETRAIN_STEPS), "--save-path", ckpt]
+        timers = []
+        build_trainer = cli_pretrain.build_trainer
+
+        def build_timed(args):
+            trainer, loader = build_trainer(args)
+            timers.append(install_step_timer(trainer))
+            return trainer, loader
+
+        cli_pretrain.build_trainer = build_timed
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = cli_pretrain.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            cli_pretrain.build_trainer = build_trainer
+        add(expect_counts("pretrain (2-D convolutions only)", 0, 0, 0, tensor_cores=False))
+        peak = torch.cuda.max_memory_allocated()
+        check_trained(trainer, "pretrain")
+        step_ms, host = step_times(*timers[0])
+        if not os.path.exists(os.path.join(ckpt, CHECKPOINT_FILE)) or len(trainer.eval_history) != 1:
+            raise AssertionError(f"pretrain: no checkpoint under {ckpt} or {len(trainer.eval_history)} evals")
+        hist = trainer.history
+        loader = SyntheticImageObjectLoader(num_samples=PRETRAIN_LOADER_BATCHES * PRETRAIN_BATCH, dim=32,
+                                            num_classes=10)
+        batch_fn = cli_pretrain.build_batch_fn(loader, PRETRAIN_BATCH, PRETRAIN_SIZE)
+        host_ms = []
+        for i in range(2 * PRETRAIN_LOADER_BATCHES):
+            t0 = time.perf_counter()
+            batch = batch_fn(i)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        cold, cached = host_ms[:PRETRAIN_LOADER_BATCHES], host_ms[PRETRAIN_LOADER_BATCHES:]
+        # the step outside the loop: on the card alone, and the host's time to enqueue it
+        step = make_classifier_train_step(trainer.model)
+        batch = to_device(batch, device)
+        alone_ms = device_ms(lambda: step(trainer.state, batch), iters=5, warmup=1)
+        enqueue_ms = host_enqueue_ms(lambda: step(trainer.state, batch), iters=3)
+        print(f"pretrain: cli.pretrain.main darknet19 classifier ({sum(p.numel() for p in trainer.model.parameters())}"
+              f" params), B={PRETRAIN_BATCH} {PRETRAIN_SIZE}x{PRETRAIN_SIZE} bf16, {PRETRAIN_STEPS} steps and one "
+              f"eval: loss_ce {hist[0]['loss_ce']:.4f} -> {hist[-1]['loss_ce']:.4f}, last top1 {hist[-1]['top1']:.3f}"
+              f" top5 {hist[-1]['top5']:.3f}, eval {trainer.eval_history[-1]}; device time per step (CUDA events, "
+              f"steps {TRAIN_WARMUP}..{PRETRAIN_STEPS - 1}) median {np.median(step_ms):.2f} ms (min "
+              f"{step_ms.min():.2f}, max {step_ms.max():.2f}), {PRETRAIN_BATCH / np.median(step_ms) * 1e3:.0f} "
+              f"images/s; host wall per step, start to start, median {np.median(host):.2f} ms "
+              f"({PRETRAIN_BATCH / np.median(host) * 1e3:.0f} images/s); the step alone on the card (5 steps, "
+              f"device_ms) {alone_ms:.2f} ms ({PRETRAIN_BATCH / alone_ms * 1e3:.0f} images/s), the host's time to "
+              f"enqueue one {enqueue_ms:.2f} ms; whole main {wall:.2f} s; peak memory "
+              f"allocated {peak / 2**30:.2f} GiB; the host's batch ({PRETRAIN_BATCH} renders at {PRETRAIN_SIZE}^2) cold median "
+              f"{np.median(cold):.2f} ms, cached median {np.median(cached):.2f} ms; no conv_k2 launch [{card}]",
+              flush=True)
+
+        params = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+        clf_cpu = Classifier(trainer.model.config)
+        clf_cpu.load_state_dict(params)
+        clf_gpu = copy.deepcopy(clf_cpu).to(device)
+        images = torch.from_numpy(cli_pretrain.build_batch_fn(SyntheticImageObjectLoader(
+            num_samples=PRETRAIN_SLICE_BATCH, dim=32, num_classes=10, seed=1), PRETRAIN_SLICE_BATCH,
+            PRETRAIN_SIZE)(0)["images"])
+        with torch.inference_mode():
+            got = {"logits": clf_gpu(images.to(device))}
+            want = {"logits": clf_cpu(images)}
+        line = compare_outputs("pretrain classifier f32 card vs CPU", got, want, SLICE_TOL_F32)
+        print(f"pretrain classifier, the trained weights in f32, B={PRETRAIN_SLICE_BATCH} {PRETRAIN_SIZE}^2, card vs "
+              f"CPU (tol {SLICE_TOL_F32}): {line} [{card}]", flush=True)
+        del trainer, step, batch, clf_cpu, clf_gpu
+        torch.cuda.empty_cache()
+
+        # 2. the graft: the pretrained backbone into a fresh pascal_nolbo, then bf16 steps at B=32
+        cfg = REGISTRY["pascal_nolbo"]()
+        model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16).to(device)
+        state = create_train_state(model)
+        before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        graft_submodule(state, ckpt, "backbone")
+        donor = torch.load(os.path.join(ckpt, CHECKPOINT_FILE), map_location="cpu", weights_only=True)["params"]
+        grafted = 0
+        for k, v in model.state_dict().items():
+            is_backbone = k.startswith("backbone.")
+            if not torch.equal(v.cpu(), donor[k] if is_backbone else before[k]):
+                raise AssertionError(f"graft: {k} is not the {'donor' if is_backbone else 'fresh model'}'s")
+            grafted += is_backbone
+        step = make_train_step(model, configs.loss_config("pascal_nolbo"))
+        batch = to_device(image_step_batch(image_batch(cfg, TRAIN_BATCH, IMAGE_SIZE, IMAGE_SIZE, SEED + 30),
+                                           TRAIN_BATCH), device)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        step(state, batch, gen)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        ms = cuda_ms(lambda: step(state, batch, gen), iters=GRAFT_STEPS, warmup=0)
+        metrics = {k: float(v) for k, v in step(state, batch, gen)[1].items()}
+        n = GRAFT_STEPS + 1
+        add(expect_counts("graft steps", 2 * n, 2 * n, 2 * n, tensor_cores=True))
+        if not (all(math.isfinite(v) for v in metrics.values()) and metrics["grads_finite"] == 1.0):
+            raise AssertionError(f"graft steps: {metrics}")
+        print(f"graft: the pretrained backbone ({grafted} tensors) into a fresh pascal_nolbo, bit for bit, every "
+              f"other tensor untouched; bf16 train step B={TRAIN_BATCH} {IMAGE_SIZE}x{IMAGE_SIZE} on it, device time "
+              f"(CUDA events, mean of {GRAFT_STEPS} after 1) {ms:.2f} ms; conv_k2 2 / 2 / 2 a step on wgmma; "
+              f"metrics {metrics} [{card}]", flush=True)
+        del model, state, step, batch, donor
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 3. structural instance shapes at modelnet_nolbo's 64^3, native, and modelnet_nolbo trained on them
+    cfg, loss_cfg = configs.variant("modelnet_nolbo")
+    dim = cfg.decoder.output_shape[0]
+    calls = (voxelize.voxelize.native_calls, voxelize.voxelize.numpy_calls)
+    t0 = time.perf_counter()
+    loader = SyntheticVoxelLoader(num_samples=STRUCT_SAMPLES, dim=dim, num_classes=cfg.category_dim, num_inst=10,
+                                  structural_inst=True)
+    build_s = time.perf_counter() - t0
+    pairs = len(set(zip(loader._labels.tolist(), loader._insts.tolist())))
+    native_calls = voxelize.voxelize.native_calls - calls[0]
+    if voxelize.voxelize.numpy_calls != calls[1] or native_calls == 0:
+        raise AssertionError(f"structural: {native_calls} native and {voxelize.voxelize.numpy_calls - calls[1]} "
+                             "NumPy voxelizations")
+    occupancy = loader._cache.reshape(STRUCT_SAMPLES, -1).mean(axis=1)
+    if not (occupancy > 0.003).all():
+        raise AssertionError(f"structural: a sample of occupancy {occupancy.min():.4f}")
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16).to(device)
+    trainer = Trainer(model, create_train_state(model),
+                      cli_train.build_batch_fn(loader, cfg, TRAIN_BATCH, packed=True, native=True),
+                      loss_config=loss_cfg, config=TrainerConfig(total_steps=STRUCT_STEPS, eval_every=0))
+    reset_counts()
+    step_ms, host, wall, peak = timed_train(trainer, "structural train")
+    add(expect_counts("structural train", 4 * STRUCT_STEPS, 3 * STRUCT_STEPS, 4 * STRUCT_STEPS, tensor_cores=True))
+    hist = trainer.history
+    print(f"structural: SyntheticVoxelLoader(structural_inst=True) of {STRUCT_SAMPLES} samples at {dim}^3, "
+          f"{pairs} (class, instance) grids, {native_calls} native part voxelizations, none in NumPy: built in "
+          f"{build_s:.2f} s, {build_s / pairs * 1e3:.1f} ms a grid (jitter and turn included); occupancy "
+          f"{occupancy.min():.4f}..{occupancy.max():.4f}. modelnet_nolbo on them, {STRUCT_STEPS} steps B="
+          f"{TRAIN_BATCH} bf16 packed-blocked: loss_total {hist[0]['loss_total']:.1f} -> {hist[-1]['loss_total']:.1f}"
+          f"; device time per step (CUDA events, steps {TRAIN_WARMUP}..{STRUCT_STEPS - 1}) median "
+          f"{np.median(step_ms):.2f} ms; host wall per step median {np.median(host):.2f} ms; whole run {wall:.2f} s;"
+          f" peak memory allocated {peak / 2**30:.2f} GiB; conv_k2 4 / 3 / 4 a step on wgmma [{card}]", flush=True)
+    del model, trainer, loader
+    torch.cuda.empty_cache()
+
+    # 4. the streaming reconstructor: full-width modelnet_nolbo, f32, card against CPU
+    cfg = REGISTRY["modelnet_nolbo"]()
+    dim = cfg.decoder.output_shape[0]
+    model_cpu = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED))
+    model_gpu = copy.deepcopy(model_cpu).to(device)
+    grids = torch.from_numpy(synthetic_grids(STREAM_OBJECTS, dim, SEED + 31))
+    vis = view_masks(STREAM_VIEWS, STREAM_OBJECTS, dim, SEED + 31)
+    views = grids[None] * vis
+    masks = torch.from_numpy((np.random.default_rng(SEED + 31).uniform(
+        size=(STREAM_VIEWS, STREAM_OBJECTS, cfg.z_category_dim)) < 0.5).astype(np.float32))
+    rec_gpu, rec_cpu = AnytimeReconstructor(model_gpu), AnytimeReconstructor(model_cpu)
+    operands = [t.to(device) for t in (views, masks, vis)]
+    torch.cuda.synchronize()
+    reset_counts()
+    got, _ = stream_calls(rec_gpu, *operands)
+    torch.cuda.synchronize()
+    add(expect_counts("streaming", 2 * STREAM_VIEWS + 2 + 2 * STREAM_VIEWS, 0, 0, tensor_cores=False))
+    k = STREAM_CPU_OBJECTS
+    want, _ = stream_calls(rec_cpu, views[:, :k], masks[:, :k], vis[:, :k])
+    line = compare_outputs("streaming card vs CPU", {n: v[:k] for n, v in got.items()}, want, SLICE_TOL_F32)
+    for name in ("pred", "fused_probs"):
+        if float(got[name].std()) < 1e-3:
+            raise AssertionError(f"streaming: {name} is constant")
+    _, ms = stream_calls(rec_gpu, *operands)  # a second run, timed
+    print(f"streaming: AnytimeReconstructor on modelnet_nolbo (prior-net anchors), f32, {STREAM_OBJECTS} objects x "
+          f"{STREAM_VIEWS} masked views at {dim}^3 (latent masks keep 0.5, each view a plane's visibility); the first "
+          f"{k} objects card vs CPU (tol {SLICE_TOL_F32}): {line}; labels {got['category'][:8].tolist()}...; device "
+          f"time by call (CUDA events, the second run): " + ", ".join(f"{n} {v:.3f} ms" for n, v in ms.items())
+          + f" (encode_observation: {STREAM_VIEWS} calls of {STREAM_OBJECTS}; observe_decoded: {STREAM_VIEWS} "
+          f"decodes of {STREAM_OBJECTS} and their fusion); conv_k2 {2 * STREAM_VIEWS} + 2 + {2 * STREAM_VIEWS} "
+          f"FFMA launches [{card}]", flush=True)
+    del model_cpu, model_gpu, rec_gpu, rec_cpu, operands
+    torch.cuda.empty_cache()
+    print(f"pretrain and streaming phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return phase_counts
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -2559,9 +2865,11 @@ def main() -> None:
     for kernel, cases in phase_stem_kernels(card).items():
         kernels[kernel].update(cases)
     variant_counts = phase_variants(device, card)
+    stream_counts = phase_pretrain_stream(device, card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts,
-                                                artifact_counts, image_counts, detector_counts, variant_counts)}),
+                                                artifact_counts, image_counts, detector_counts, variant_counts,
+                                                stream_counts)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -903,3 +903,66 @@ def test_small_detector_on_card_matches_cpu(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(served["valid"].cpu(), ref["valid"])
     np.testing.assert_allclose(served["vox"].cpu().numpy(), shapes_ref.numpy(), rtol=0, atol=1e-4)
+
+
+# sha256 over np.packbits(instance_grid(cls, inst, 32) > 0.5) for cls 0..7, inst 0..3, in that order: the
+# native voxelizer's grids, which tests/test_torch_voxelize.py holds bit-equal to the JAX package's and to this digest
+INSTANCE_GRIDS_SHA256 = "adc83819f9edd454563080cc31fad453f4964f6cee72bbe0a0d265e0adc4e16e"
+
+
+def instance_grids_digest() -> str:
+    import hashlib
+
+    from anytime3d_tpu_torch.data.instances import instance_grid
+
+    digest = hashlib.sha256()
+    for cls in range(8):
+        for inst in range(4):
+            digest.update(np.packbits(instance_grid(cls, inst, 32) > 0.5).tobytes())
+    return digest.hexdigest()
+
+
+def test_native_instance_grids_on_the_card_host(cuda):
+    """The native voxelizer built with ``-march=native`` on the card's host
+    gives the structural shapes that the CPU tests hold to the JAX package's."""
+    from anytime3d_tpu_torch.data import voxelize
+
+    before = voxelize.voxelize.numpy_calls
+    assert instance_grids_digest() == INSTANCE_GRIDS_SHA256
+    assert voxelize.voxelize.numpy_calls == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_classifier_step_on_card_matches_cpu(cuda, dtype):
+    """Two darknet19 classifier steps (B=2, 64x64, 10 classes) on the card
+    against the CPU from the same weights and batch: f32 logits to 1e-4 of
+    their largest entry and the first step's metrics to rtol 1e-4 (summation
+    order), top-1 / top-5 equal; bf16 the card's against the CPU's bf16, 5%.
+    No conv_k2 launch: the 2-D convolutions are cuDNN's."""
+    from anytime3d_tpu_torch.models.classifier import Classifier, ClassifierConfig
+    from anytime3d_tpu_torch.train.classifier_step import make_classifier_train_step
+
+    rng = np.random.default_rng(9)
+    batch = {"images": torch.from_numpy(rng.uniform(size=(2, 64, 64, 3)).astype(np.float32)),
+             "labels": torch.from_numpy(np.eye(10, dtype=np.float32)[[2, 7]])}
+    model_cpu = Classifier(ClassifierConfig(num_classes=10), generator=torch.Generator().manual_seed(0), dtype=dtype)
+    model_gpu = copy.deepcopy(model_cpu).to(cuda)
+    if dtype == torch.float32:
+        with torch.no_grad():
+            ref, got = model_cpu(batch["images"]), model_gpu(batch["images"].to(cuda)).cpu()
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-4 * float(ref.abs().max()))
+    history = {}
+    before = _counts()
+    for name, model, dev in (("cpu", model_cpu, torch.device("cpu")), ("card", model_gpu, cuda)):
+        state, step = create_train_state(model), make_classifier_train_step(model)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        history[name] = [{k: float(v) for k, v in step(state, b)[1].items()} for _ in range(2)]
+    assert _counts() == before
+    rtol = 1e-4 if dtype == torch.float32 else 0.05
+    for k, v in history["cpu"][0].items():
+        if k.startswith("top") and dtype == torch.float32:
+            assert history["card"][0][k] == v, k
+        else:
+            np.testing.assert_allclose(history["card"][0][k], v, rtol=rtol, atol=1e-6, err_msg=k)
+    for row in history["card"]:
+        assert all(np.isfinite(v) for v in row.values()) and row["grads_finite"] == 1.0

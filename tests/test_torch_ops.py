@@ -166,6 +166,14 @@ def test_synthetic_loader_matches_jax(seed):
     assert ours.epoch == 1
 
 
-def test_synthetic_loader_refuses_structural_shapes():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+def test_synthetic_loader_refuses_structural_shapes(monkeypatch):
+    """The structural shapes are the native voxelizer's: where it cannot be
+    built the loader refuses them rather than voxelize in NumPy."""
+    from anytime3d_tpu_torch.data import instances, voxelize
+
+    monkeypatch.setattr(voxelize, "_native", {"error": RuntimeError("native voxelizer unavailable: no g++")})
+    monkeypatch.setattr(instances, "_BANK", instances.InstanceShapeBank())
+    before = voxelize.voxelize.numpy_calls
+    with pytest.raises(RuntimeError, match="native voxelizer unavailable"):
         modelnet.SyntheticVoxelLoader(num_samples=1, dim=8, structural_inst=True)
+    assert voxelize.voxelize.numpy_calls == before
