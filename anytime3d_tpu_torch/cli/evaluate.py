@@ -19,9 +19,11 @@ dir/`` writes GT and decoded grids per missing rate (``evaluation/dump.py``).
 --save-path`` (``train/checkpoint.py``); ``--weights`` takes flax params as a
 flat ``.npz`` (``convert.load_flax_npz``); without either the model holds
 seeded random weights (``--seed``). ``--data synthetic`` evaluates on
-procedural voxels (the eval split of ``cli.train``), a path on the ModelNet
-test split under it, sent as packed bits; an image config's renders are
-``--image-size`` pixels square (64 by default). The device defaults to ``cuda``; when
+procedural voxels (the eval split of ``cli.train``), a path on the eval
+split ``cli.train`` reads there (the ModelNet test shards, the Pascal3D val
+crops, or the KITTI val crops with ``--cad-path``), sent as packed bits, the
+config rebuilt at a dataset's class count as ``cli.train`` rebuilds it; an
+image config's images are ``--image-size`` pixels square (64 by default). The device defaults to ``cuda``; when
 CUDA is absent the command fails rather than run on the CPU.
 """
 
@@ -39,7 +41,9 @@ def parse_args(argv=None):
     p.add_argument("--weights", default=None, help="flax params as a flat .npz")
     p.add_argument("--ckpt", default=None, help="a checkpoint directory of cli.train --save-path")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
-    p.add_argument("--data", default="synthetic", help="'synthetic' or a ModelNet dataset path")
+    p.add_argument("--data", default="synthetic",
+                   help="'synthetic', or a ModelNet (voxel configs), Pascal3D (image configs) or KITTI path")
+    p.add_argument("--cad-path", default=None, help="CAD voxel dir (KITTI configs)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--batches", type=int, default=8)
     p.add_argument("--rates", default="0.3,0.5,0.7,0.9")
@@ -55,7 +59,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from anytime3d_tpu_torch.cli.train import build_batch_fn, build_loaders
+    from anytime3d_tpu_torch.cli.train import build_batch_fn, build_loaders, dataset_variant
     from anytime3d_tpu_torch.convert import load_flax_npz
     from anytime3d_tpu_torch.data.prefetch import to_device
     from anytime3d_tpu_torch.evaluation.dump import dump_reconstructions
@@ -72,6 +76,8 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to evaluate on the CPU)")
     cfg = REGISTRY[args.config]()
+    _, loader = build_loaders(args, cfg)
+    cfg, _ = dataset_variant(args.config, cfg, None, loader)
     model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(args.seed),
                           dtype=torch.bfloat16 if args.bf16 else torch.float32)
     if args.weights:
@@ -79,7 +85,6 @@ def main(argv=None):
     if args.ckpt:
         model.load_state_dict(restore_params(args.ckpt, model.state_dict()))
     model = model.to(device).eval()
-    _, loader = build_loaders(args, cfg)
     image_size = (args.image_size, args.image_size) if cfg.encoder == "image" else None
     batch_fn = build_batch_fn(loader, cfg, args.batch_size, packed=True, native=True if device.type == "cuda" else None,
                               image_size=image_size, category=True if args.latents_out else None)

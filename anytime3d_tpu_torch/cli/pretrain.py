@@ -2,6 +2,7 @@
 
     python -m anytime3d_tpu_torch.cli.pretrain --data synthetic [--backbone darknet19] [--bf16]
         [--image-size 224] [--batch-size 64] [--steps 1000] [--save-path ckpt/]
+    python -m anytime3d_tpu_torch.cli.pretrain --data <dir of one subdirectory a class> --bf16
 
 Counterpart of ``anytime3d_tpu/cli/pretrain.py``, with its flags and
 ``--device`` (``cuda`` by default; the command fails without CUDA rather
@@ -9,10 +10,14 @@ than train on the CPU). ``--data synthetic`` trains on renders of the
 procedural shapes (``SyntheticImageObjectLoader``, 1024 samples of 32^3,
 ``--num-classes`` classes, 10 by default) at ``--image-size`` squared and
 evaluates on 256 more (seed 1) every ``--eval-every`` steps, through the
-shared train loop (prefetch, checkpoints, NaN restarts). The checkpoint's
-``backbone`` loads into any image model of the same backbone with
+shared train loop (prefetch, checkpoints, NaN restarts). ``--data <dir>``
+trains on an ImageNet-layout tree (``ImagenetLoader``: one subdirectory a
+class, augmented crops), evaluates on the same loader (the reference
+pretrainer has no held-out split) and takes the class count from it unless
+``--num-classes`` is given. The checkpoint's ``backbone`` loads into any
+image model of the same backbone with
 ``train/checkpoint.py::graft_submodule(state, path, "backbone")``.
-``--data <dir>`` (the ImageNet loader) and ``--mesh`` are not ported yet.
+``--mesh`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,12 +28,14 @@ import numpy as np
 
 
 def build_batch_fn(loader, batch_size: int, image_size: int):
-    """``batch_fn(step)`` of ``{"images": (B, S, S, 3) float32, "labels": (B, K) one-hot}``."""
+    """``batch_fn(step)`` of ``{"images": (B, S, S, 3) float32, "labels": (B, K) one-hot}``
+    from the synthetic loader's 6-tuples or the ImageNet loader's ``(images, labels)``."""
     size = (image_size, image_size)
 
     def batch_fn(_it: int):
-        _inst, cls, _sin, _cos, images, _vox = loader.getNextBatch(batch_size, imageSize=size)
-        return {"images": np.asarray(images, np.float32), "labels": np.asarray(cls, np.float32)}
+        b = loader.getNextBatch(batch_size, imageSize=size)
+        images, labels = b if len(b) == 2 else (b[4], b[1])
+        return {"images": np.asarray(images, np.float32), "labels": np.asarray(labels, np.float32)}
 
     return batch_fn
 
@@ -37,6 +44,7 @@ def build_trainer(args):
     """(trainer, loader) from parsed arguments."""
     import torch
 
+    from anytime3d_tpu_torch.data.imagenet import ImagenetLoader
     from anytime3d_tpu_torch.data.modelnet import SyntheticImageObjectLoader
     from anytime3d_tpu_torch.models.classifier import Classifier, ClassifierConfig
     from anytime3d_tpu_torch.train.classifier_step import (
@@ -49,14 +57,16 @@ def build_trainer(args):
 
     if args.mesh:
         raise NotImplementedError("not ported yet (A19): --mesh, the data-parallel train step")
-    if args.data != "synthetic":
-        raise NotImplementedError("not ported yet (A14b: ImageNet loader)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to train on the CPU)")
-    n_cls = args.num_classes or 10
-    loader = SyntheticImageObjectLoader(num_samples=1024, dim=32, num_classes=n_cls)
-    eval_loader = SyntheticImageObjectLoader(num_samples=256, dim=32, num_classes=n_cls, seed=1)
+    if args.data == "synthetic":
+        n_cls = args.num_classes or 10
+        loader = SyntheticImageObjectLoader(num_samples=1024, dim=32, num_classes=n_cls)
+        eval_loader = SyntheticImageObjectLoader(num_samples=256, dim=32, num_classes=n_cls, seed=1)
+    else:
+        loader = eval_loader = ImagenetLoader(args.data)
+        n_cls = args.num_classes or loader.class_num
     model = Classifier(ClassifierConfig(num_classes=n_cls, backbone=args.backbone),
                        generator=torch.Generator().manual_seed(0),
                        dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
@@ -76,7 +86,7 @@ def build_trainer(args):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--data", default="synthetic", help="'synthetic' (an ImageNet path is not ported yet)")
+    p.add_argument("--data", default="synthetic", help="'synthetic' or an ImageNet-layout directory")
     p.add_argument("--backbone", default="darknet19", choices=("darknet19", "darknet53", "darknet53tiny"))
     p.add_argument("--num-classes", type=int, default=None, help="defaults to the dataset's class count")
     p.add_argument("--batch-size", type=int, default=64)

@@ -3,15 +3,22 @@
     python -m anytime3d_tpu_torch.cli.train --config modelnet_nolbo --data synthetic --packed --bf16
     python -m anytime3d_tpu_torch.cli.train --config modelnet_nolbo --data <modelnet dir> --save-path ckpt/
     python -m anytime3d_tpu_torch.cli.train --config pascal_nolbo --bf16 --image-size 64 [--multi-scale 64,96]
+    python -m anytime3d_tpu_torch.cli.train --config pascal_nolbo --data <Pascal3D dir> --bf16
+    python -m anytime3d_tpu_torch.cli.train --config kitti_inst_only --data <KITTI dir> --cad-path <CAD/car> --bf16
 
 ``--data synthetic`` trains on procedural voxels, or for an image config
-(``pascal_*``) on their renders at ``--image-size`` (square; ``--multi-scale``
-walks a list of square sizes three steps each, in an order reshuffled every
-round; image batches ship dense voxel targets, as in the JAX command, and
-``--packed`` concerns voxel configs only); a path trains a voxel config on the
-pre-voxelized ModelNet shards under it (``<path>/32to64_4rot_64sqr/{train,test}``,
-every shard present) and evaluates on its test split (``--swap-splits``:
-the other way round). ``--save-path`` checkpoints the full train state
+(``pascal_*``, ``kitti_*``) on their renders at ``--image-size`` (square;
+``--multi-scale`` walks a list of square sizes three steps each, in an order
+reshuffled every round; image batches ship dense voxel targets, as in the JAX
+command, and ``--packed`` concerns voxel configs only). A path trains a voxel
+config on the pre-voxelized ModelNet shards under it
+(``<path>/32to64_4rot_64sqr/{train,test}``, every shard present) and
+evaluates on its test split (``--swap-splits``: the other way round); an image
+config on the Pascal3D crops under it (``Pascal3DSingleObjectLoader``, train
+and val splits), or for a ``kitti`` config on the KITTI crops under it with
+the CAD voxels of ``--cad-path`` (``KittiSingleObjectLoader``). Where a
+dataset defines another class count than the config's ``category_dim``, the
+config is rebuilt at the dataset's. ``--save-path`` checkpoints the full train state
 (parameters, Adam state, step) every ``--save-every`` steps and at the end;
 ``--load-path`` resumes from such a checkpoint. The device defaults to
 ``cuda``; when CUDA is absent the command fails rather than train on the
@@ -33,8 +40,9 @@ def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False
                    multi_scale=None, category=None):
     """Adapt a loader to the train step's batch dict of numpy arrays: the
     modelnet-style dict batches (``input_images``, ``class_list``,
-    ``inst_list``) and the Pascal-style 6-tuples ``(inst, cls, sin, cos,
-    images, voxels)`` of the image loaders. ``packed`` ships the voxels as
+    ``inst_list``), the Pascal-style 6-tuples ``(inst, cls, sin, cos,
+    images, voxels)`` of the image loaders and the KITTI 5-tuples ``(inst,
+    sin, cos, images, voxels)``, which carry no class. ``packed`` ships the voxels as
     bits, pre-ordered in the blocked layout where the model reads it (the
     input of a blocked-IO model, the target of a blocked-tail decoder), so
     the device unpacks with no relayout; ``native`` is
@@ -65,9 +73,13 @@ def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False
                 out = {"input_packed": pack_voxels(b["input_images"])}
             cls, inst = b["class_list"], b["inst_list"]
         else:
-            if len(b) != 6:
-                raise NotImplementedError(f"not ported yet (A15): loader tuples of {len(b)} (the KITTI loader's are 5)")
-            inst, cls, _sin, _cos, images, voxels = b
+            if len(b) == 5:
+                inst, _sin, _cos, images, voxels = b
+                cls = None
+            elif len(b) == 6:
+                inst, cls, _sin, _cos, images, voxels = b
+            else:
+                raise ValueError(f"loader tuples of {len(b)}: the Pascal loader's are 6, the KITTI loader's 5")
             out = {"input": np.asarray(images)}
             if not packed:
                 out["target"] = np.asarray(voxels, np.float32)
@@ -75,7 +87,7 @@ def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False
                 out["target_packed_blocked"] = pack_voxels_blocked(voxels, dec_block, native)
             else:
                 out["target_packed"] = pack_voxels(voxels)
-        if wants_category:
+        if wants_category and cls is not None:
             out["category_onehot"] = np.asarray(cls, np.float32)
         if model_cfg.inst_dim:
             out["inst_onehot"] = np.asarray(inst, np.float32)
@@ -86,13 +98,23 @@ def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False
 
 def build_loaders(args, model_cfg):
     """(train, eval) loaders: procedural shapes (rendered to images for an
-    image config) for ``--data synthetic``, else the ModelNet train and test
-    shards under the path (every shard present)."""
+    image config) for ``--data synthetic``; else the ModelNet train and test
+    shards under the path (every shard present) for a voxel config, the
+    KITTI train and val crops with ``--cad-path``'s CAD voxels for a
+    ``kitti`` config, and the Pascal3D train and val crops for another
+    image config."""
+    from anytime3d_tpu_torch.data.kitti import KittiSingleObjectLoader
     from anytime3d_tpu_torch.data.modelnet import ModelNetLoader, SyntheticImageObjectLoader, SyntheticVoxelLoader
+    from anytime3d_tpu_torch.data.pascal3d import Pascal3DSingleObjectLoader
 
     if args.data != "synthetic":
-        if model_cfg.encoder != "voxel" or "kitti" in args.config:
-            raise NotImplementedError("not ported yet (A14b/A15): the Pascal3D and KITTI loaders")
+        if "kitti" in args.config:
+            cad = getattr(args, "cad_path", None)
+            if cad is None:
+                raise SystemExit("KITTI configs need --cad-path (64^3 CAD .npy dir)")
+            return KittiSingleObjectLoader(args.data, cad, "train"), KittiSingleObjectLoader(args.data, cad, "val")
+        if model_cfg.encoder == "image":
+            return Pascal3DSingleObjectLoader(args.data, "train"), Pascal3DSingleObjectLoader(args.data, "val")
         return (ModelNetLoader(args.data, "train", partial_num=None),
                 ModelNetLoader(args.data, "test", partial_num=None))
     n_cls = model_cfg.category_dim if model_cfg.category_dim else 40
@@ -103,6 +125,19 @@ def build_loaders(args, model_cfg):
         make(num_samples=1024, dim=dim, num_classes=n_cls, num_inst=n_inst),
         make(num_samples=256, dim=dim, num_classes=n_cls, num_inst=n_inst, seed=1),
     )
+
+
+def dataset_variant(name: str, model_cfg, loss_cfg, loader):
+    """``(model_cfg, loss_cfg)`` of ``name`` at the class count of
+    ``loader``'s ``class_index`` where it has one that differs from the
+    config's ``category_dim`` (a Pascal3D subset), else as given."""
+    from anytime3d_tpu_torch.models import configs
+
+    n_data_cls = len(getattr(loader, "class_index", ()) or ())
+    if n_data_cls and model_cfg.category_dim and n_data_cls != model_cfg.category_dim:
+        print(f"dataset defines {n_data_cls} classes (config default {model_cfg.category_dim}) — resizing")
+        return configs.variant(name, category_dim=n_data_cls)
+    return model_cfg, loss_cfg
 
 
 def build_trainer(args):
@@ -118,11 +153,12 @@ def build_trainer(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to train on the CPU)")
     model_cfg, loss_cfg = configs.variant(args.config)
-    model = MultiModalVAE(model_cfg, generator=torch.Generator().manual_seed(0),
-                          dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
     loader, eval_loader = build_loaders(args, model_cfg)
     if args.swap_splits:
         loader, eval_loader = eval_loader, loader
+    model_cfg, loss_cfg = dataset_variant(args.config, model_cfg, loss_cfg, loader)
+    model = MultiModalVAE(model_cfg, generator=torch.Generator().manual_seed(0),
+                          dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
     native = True if device.type == "cuda" else None  # on the card the native packer or nothing
     image = model_cfg.encoder == "image"
     # image batches ship dense targets, as the JAX command sends them
@@ -148,7 +184,8 @@ def parse_args(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", required=True, choices=sorted(REGISTRY))
-    p.add_argument("--data", default="synthetic", help="'synthetic' or a ModelNet dataset path (voxel configs)")
+    p.add_argument("--data", default="synthetic",
+                   help="'synthetic', or a ModelNet (voxel configs), Pascal3D (image configs) or KITTI path")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--learning-rate", type=float, default=1e-4)
@@ -163,6 +200,7 @@ def parse_args(argv=None):
     p.add_argument("--image-size", type=int, default=64, help="square image size of image configs")
     p.add_argument("--multi-scale", default=None,
                    help="comma list of square image sizes, e.g. '64,96': the multi-scale schedule of image configs")
+    p.add_argument("--cad-path", default=None, help="CAD voxel dir (KITTI configs; Pascal uses --data's CAD/)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 

@@ -6,10 +6,13 @@
 
 Trains ``DetectorReconstructor`` (Darknet19, the 1024-wide grid head, 5
 predictors a cell, z = 16 with log-variance, the pixel-shuffle decoder at
-``--voxel-dim``) with ``train/detector_step.py`` on synthetic multi-object
-scenes (``SyntheticMultiObjectLoader``) through the shared train loop
-(prefetch, checkpoints, NaN restarts), then evaluates detection on 2 more
-batches. Counterpart of ``anytime3d_tpu/cli/train_detector.py``, with its
+``--voxel-dim``) with ``train/detector_step.py`` through the shared train
+loop (prefetch, checkpoints, NaN restarts), then evaluates detection on 2
+more batches. ``--data synthetic`` trains on synthetic multi-object scenes
+(``SyntheticMultiObjectLoader``), a path on the Pascal3D train split under
+it (``Pascal3DMultiObjectLoader``: the images holding a car, at
+``--image-size`` on a ``--grid-size`` grid; its CAD voxels are 64^3, so
+``--voxel-dim 64``). Counterpart of ``anytime3d_tpu/cli/train_detector.py``, with its
 flags, and ``--max-objects``, ``--max-detections`` (the JAX CLI's fixed
 3 and 16 by default; the reference-scale run takes 6 and 32) and
 ``--device`` (``cuda`` by default; the command fails without CUDA rather
@@ -73,6 +76,7 @@ def build_trainer(args):
     import torch
 
     from anytime3d_tpu_torch.data.modelnet import SyntheticMultiObjectLoader
+    from anytime3d_tpu_torch.data.pascal3d import Pascal3DMultiObjectLoader
     from anytime3d_tpu_torch.models.detector import DetectorReconstructor
     from anytime3d_tpu_torch.train.detector_step import DetectorLossConfig, make_detector_train_step
     from anytime3d_tpu_torch.train.state import create_train_state
@@ -80,14 +84,18 @@ def build_trainer(args):
 
     if args.mesh:
         raise NotImplementedError("not ported yet (A19): --mesh, the data-parallel train step")
-    if args.data != "synthetic":
-        raise NotImplementedError("not ported yet: Pascal3DMultiObjectLoader (A14b)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to train on the CPU)")
     image_size, grid_size = tuple(args.image_size), tuple(args.grid_size)
-    loader = SyntheticMultiObjectLoader(num_samples=1024, dim=args.voxel_dim, image_size=image_size,
-                                        grid_size=grid_size, max_objects=args.max_objects)
+    if args.data == "synthetic":
+        loader = SyntheticMultiObjectLoader(num_samples=1024, dim=args.voxel_dim, image_size=image_size,
+                                            grid_size=grid_size, max_objects=args.max_objects)
+    else:
+        loader = Pascal3DMultiObjectLoader(args.data, "train", image_size=image_size, grid_size=grid_size)
+        dims = {v.shape[1] for v in loader.cad_shapes.values()}
+        if dims != {args.voxel_dim}:
+            raise SystemExit(f"the dataset's CAD voxels are {sorted(dims)}^3: pass --voxel-dim {min(dims)}")
     model = DetectorReconstructor(detector_config(args.voxel_dim, args.max_detections),
                                   generator=torch.Generator().manual_seed(0),
                                   dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
@@ -105,7 +113,7 @@ def build_trainer(args):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--data", default="synthetic")
+    p.add_argument("--data", default="synthetic", help="'synthetic' or a Pascal3D dataset path")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--image-size", type=int, nargs=2, default=(128, 96), metavar=("COLS", "ROWS"))
     p.add_argument("--grid-size", type=int, nargs=2, default=(4, 3), metavar=("COLS", "ROWS"))

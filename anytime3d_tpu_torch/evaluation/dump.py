@@ -45,7 +45,7 @@ def dump_reconstructions(model: MultiModalVAE, batch: Mapping, out_dir: str,
     gives them."""
     os.makedirs(out_dir, exist_ok=True)
     device = next(model.parameters()).device
-    block = model.blocked_io_block
+    block = model.decoder_block  # the coarse layout of the decoder's output and of the target beside it
     was_training = model.training
     model.eval()
     try:
@@ -61,7 +61,7 @@ def dump_reconstructions(model: MultiModalVAE, batch: Mapping, out_dir: str,
                 pred = model.decode(z, blocked_output=blocked_out)
                 return _host(depth_to_space3d(pred, block) if blocked_out else pred)
 
-            gt = _host(depth_to_space3d(b["target"], block) if blocked_in else b["target"])
+            gt = _host(depth_to_space3d(b["target"], block) if blocked_out else b["target"])
             paths = {}
             for rate in rates:
                 d = (draws or {}).get(rate, {})

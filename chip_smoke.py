@@ -167,7 +167,36 @@ order, any failure ending the run with a non-zero exit:
    ``observe_stream``, ``classify``, ``correct``, ``decode``,
    ``observe_decoded``; 16 + 2 + 16 FFMA launches), the first 4 objects held
    to the CPU (beliefs, labels, decodes), each call timed. The phase's wall
-   time printed.
+   time printed;
+16. the real-image data path (``phase_real_data``) on the repo's fixtures:
+   (a) every fixture PNG read by ``cv2.imread`` on the card's host (the
+   loaders' ``imread_color``), each held to the sha256 the CPU tests record
+   (``FIXTURE_PNG_SHA256``), the host ms of a read (the fixtures; VOC- and
+   KITTI-sized frames written here), which ``cv2``, PIL and ``g++`` are
+   there, and whether this ``cv2`` gives the bits of the photometric
+   jitter's ``cv2`` calls that the CPU tests saw (``CV2_DIGESTS``: the HSV
+   round trip over every colour and the two blurs); (b) the native warp built on this host against its
+   NumPy twin on a 375x500 and a 375x1242 frame (within ``AUG_TWIN_TOL``),
+   then ms a crop to 64^2 and a frame to 416^2, with and without the
+   photometric jitter, none of them on the NumPy twin; (c) ``pascal_nolbo``
+   through ``cli/train.py --data tests/fixtures/pascal3d`` (``category_dim``
+   resized to the fixture's 2 classes): one f32 step of the full-width model
+   on the val crops card against CPU (every loss term and gradient leaf, the
+   image phase's tolerances), then ``REAL_STEPS`` bf16 steps at B=32 on
+   64x64 crops with packed-blocked targets (2 / 2 / 2 ``wgmma`` launches a
+   step); (d) ``kitti_inst_only`` through ``cli/train.py --data
+   tests/fixtures/kitti --cad-path``, ``REAL_KITTI_STEPS`` bf16 steps at
+   B=32 (2 / 2 / 2); (e) the detector through ``cli/train_detector.py --data
+   tests/fixtures/pascal3d`` at 416x416 on a 13x13 grid, B=8, bf16 (1 / 1 / 1
+   narrow launches a step), then ``evaluate_detector`` on 2 batches; (f)
+   darknet19 pretraining through ``cli/pretrain.py --data`` on an
+   ImageNet-layout tree of the fixture PNGs, B=64 at 224^2, bf16; each loop
+   with its step alone on the card, the host's enqueue of one, the host wall
+   a step, images/s, the loader's batch cold and warm, and which side bounds
+   it; (g) ``kmeans_sincos`` and ``orientation_anchors`` (k=30, 1000
+   iterations, 8192 seeded Euler triples) card against CPU: assignments
+   equal, centres within ``KMEANS_TOL``, each fit's host wall. The phase's
+   wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -201,7 +230,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from anytime3d_tpu_torch.anytime.engine import anytime_eval  # noqa: E402
 from anytime3d_tpu_torch.cli import train as cli_train  # noqa: E402
+from anytime3d_tpu_torch.data.imagenet import ImagenetLoader  # noqa: E402
 from anytime3d_tpu_torch.data.modelnet import SyntheticImageObjectLoader, SyntheticVoxelLoader  # noqa: E402
+from anytime3d_tpu_torch.data.pascal3d import Pascal3DMultiObjectLoader  # noqa: E402
 from anytime3d_tpu_torch.data.packing import (  # noqa: E402
     pack_voxels,
     pack_voxels_blocked,
@@ -350,6 +381,15 @@ STREAM_OBJECTS, STREAM_VIEWS = 32, 8
 STREAM_CPU_OBJECTS = 4  # the objects also streamed on the CPU
 STEM_CASES = [("stem_b8_f32", 8, torch.float32), ("stem_b8_bf16", 8, torch.bfloat16),
               ("stem_b32_f32", 32, torch.float32), ("stem_b32_bf16", 32, torch.bfloat16)]
+# phase 16: the real-image data path. sha256 of each fixture PNG as cv2.imread(path, IMREAD_COLOR) gives it
+# (tests/test_torch_augment.py holds the port's imread_color to these on the CPU)
+FIXTURE_PNG_SHA256 = {
+    "tests/fixtures/kitti/training/image_2/000000.png": "d3c67cb468304cd944a4e38daf144e683dcada8b3f53554e7174d67c7f2f0a25",
+    "tests/fixtures/kitti/training/image_2/000001.png": "fc01367c49c5b014bb829f4379fe086a7985004532f180a87157af24af35f266",
+    "tests/fixtures/pascal3d/Images/car_a.png": "1b8c89b758380957a7c17cf08ff17cf842940f7925395330b59bb34d0369bb02",
+    "tests/fixtures/pascal3d/Images/car_d.png": "cd91670bb99a1cc93e5b4f4157d04ef52a06097b58ccf089eef7532ff9c4b0c3",
+    "tests/fixtures/pascal3d/Images/chair_c.png": "cbd8fec3ab196f211c3f02be29732b0ff96888069b476e7c1f9b5ee1fe815e93",
+}
 
 
 def card_line() -> str:
@@ -639,7 +679,7 @@ def phase_kernels(card: str) -> dict:
 
 def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict, life_counts: dict,
                    artifact_counts: dict, image_counts: dict, detector_counts: dict, variant_counts: dict,
-                   stream_counts: dict) -> list:
+                   stream_counts: dict, real_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
@@ -648,15 +688,16 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     number but ``bound_ms`` was measured in this run. ``launches`` sums
     the served runs, the train run, the anytime sweep, the lifecycle's train,
     restored and evaluate runs, its exported programs' batches, the image
-    phase's runs, the detector phase's, the variants phase's and the
+    phase's runs, the detector phase's, the variants phase's, the
     pretraining and streaming phase's (the graft's steps, the structural
-    train run, the streaming reconstructor);
+    train run, the streaming reconstructor) and the real-data phase's (the
+    f32 step, the Pascal3D, KITTI and detector train runs);
     ``launches_wgmma`` is the part of
     them that took the tensor-core kernels, ``launches_narrow`` the part that
     took the narrow kernels (the detector's final conv, all three in both
     types)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
-             variant_counts, stream_counts)
+             variant_counts, stream_counts, real_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
@@ -678,6 +719,7 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "launches_detector": detector_counts[kernel],
             "launches_variants": variant_counts[kernel],
             "launches_pretrain_stream": stream_counts[kernel],
+            "launches_real_data": real_counts[kernel],
             **head,
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
@@ -2843,6 +2885,390 @@ def phase_pretrain_stream(device: torch.device, card: str) -> dict:
     return phase_counts
 
 
+# phase 16: the real-image data path (decode -> augment -> loaders -> CLIs) on the repo's fixtures
+PASCAL_FIXTURES = os.path.join(REPO, "tests", "fixtures", "pascal3d")  # 3 train and 1 val objects, 2 classes
+KITTI_FIXTURES = os.path.join(REPO, "tests", "fixtures", "kitti")  # 2 frames, 3 cars tall enough
+REAL_STEPS = 20  # pascal_nolbo on the Pascal3D crops
+REAL_KITTI_STEPS = 10
+REAL_DET_STEPS = 10
+REAL_PRETRAIN_STEPS = 10
+REAL_LOADER_BATCHES = 4  # timed after a fresh loader's first batch
+REAL_AUG_CALLS = 20  # seeds a timing of the warp runs over
+VOC_FRAME, KITTI_FRAME = (375, 500), (375, 1242)  # (rows, cols) of a Pascal VOC and a KITTI frame
+KMEANS_POINTS, KMEANS_K, KMEANS_ITERS = 8192, 30, 1000
+KMEANS_TOL = 1e-4  # centres, card against CPU: float32 distances and float64 sums in another order
+AUG_TWIN_TOL = 1e-2  # the NumPy twin samples in float64 coordinates, the engine in float32 (0..255 scale)
+
+
+# sha256 of what the photometric jitter's cv2 calls give on the CPU the tests run on, and that cv2's version
+CV2_DIGESTS = {
+    "version": "5.0.0",
+    "rgb2hsv": "a5b38b214f65aed9d382cc07bf40311aff2e3e324c98da86df77bef285f224eb",
+    "hsv2rgb": "480b1c6168e0d875c27b92831a2184de8f40ebdeafdceac450afe4785b054334",
+    "hsv2rgb_short_rows": "12230679e143445f6d87a789f13afa150837aec44b091e9deb9e25d2199e7fcb",
+    "blur3": "2e6ff52fb4475dbb0b538269995158b3b7cdf45841b19342897a9852fa3c063e",
+    "blur5": "3e2f986bcbd7493ce41b526346d973123c1df107d6a93ac2506323138fe0110b",
+}
+
+
+def cv2_digests() -> dict:
+    """sha256 of ``cv2``'s outputs for the photometric jitter's calls: RGB2HSV
+    of every 8-bit colour, HSV2RGB of every byte triple (as 4096 rows of
+    4096, and as rows of 1..70 pixels), ``GaussianBlur`` k = 3 and 5 of a
+    seeded float32 image."""
+    import hashlib
+
+    import cv2
+
+    v = np.arange(1 << 24, dtype=np.uint32)
+    every = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1).astype(np.uint8).reshape(4096, 4096, 3)
+    rows = b"".join(cv2.cvtColor(every.reshape(-1, 3)[w * 7919:w * 7919 + 5 * w].reshape(5, w, 3),
+                                 cv2.COLOR_HSV2RGB).tobytes() for w in range(1, 71))
+    img = np.random.default_rng(SEED).uniform(-40, 300, (375, 500, 3)).astype(np.float32)
+    out = {"rgb2hsv": cv2.cvtColor(every, cv2.COLOR_RGB2HSV).tobytes(),
+           "hsv2rgb": cv2.cvtColor(every, cv2.COLOR_HSV2RGB).tobytes(), "hsv2rgb_short_rows": rows}
+    out.update({f"blur{k}": cv2.GaussianBlur(img, (k, k), 0).tobytes() for k in (3, 5)})
+    return {k: hashlib.sha256(b).hexdigest() for k, b in out.items()}
+
+
+def photo_frame(rows: int, cols: int, seed: int) -> np.ndarray:
+    """A seeded uint8 RGB frame with smooth regions and edges, as a photo has them."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:rows, 0:cols].astype(np.float32)
+    img = np.stack([np.sin(xx / (17 + 9 * c)) * 90 + np.cos(yy / (23 + 5 * c)) * 60 + 128 for c in range(3)], -1)
+    img += rng.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def mean_ms(fn, n: int) -> float:
+    """Mean host milliseconds of ``fn(i)`` for i in range(n)."""
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def loader_batch_ms(loader, batch_fn) -> tuple[float, float]:
+    """A fresh ``loader``'s first batch through ``batch_fn`` (cold: the
+    pool's threads start) and the mean of the next ``REAL_LOADER_BATCHES``,
+    host milliseconds; the loader closed after."""
+    try:
+        t0 = time.perf_counter()
+        batch_fn(0)
+        cold = (time.perf_counter() - t0) * 1e3
+        return cold, mean_ms(lambda i: batch_fn(i + 1), REAL_LOADER_BATCHES)
+    finally:
+        loader.close()
+
+
+def step_alone(trainer, step, loader_batch) -> tuple[float, float]:
+    """The train ``step`` on one host batch outside the loop: on the card
+    alone (``device_ms``, 5 steps) and the host's time to enqueue one."""
+    batch = trainer.to_device(loader_batch)
+    gen = torch.Generator(device=batch[next(iter(batch))].device).manual_seed(SEED)
+    alone = device_ms(lambda: step(trainer.state, batch, gen), iters=5, warmup=1)
+    return alone, host_enqueue_ms(lambda: step(trainer.state, batch, gen), iters=3)
+
+
+def real_train_line(what: str, trainer, step_ms: np.ndarray, host: np.ndarray, wall: float, peak: int,
+                    batch: int, loader_ms: tuple, alone: tuple, card: str) -> str:
+    """A real-data loop's numbers, and which side bounds it: the host where
+    its wall a step exceeds the step alone on the card by a fifth."""
+    hist = trainer.history
+    key = "loss_total" if "loss_total" in hist[0] else "loss_ce"
+    wall_ms = float(np.median(host))
+    bound = (f"the host (the loader's batch {loader_ms[1]:.2f} ms on the prefetch thread, the step's enqueue "
+             f"{alone[1]:.2f} ms)" if wall_ms > 1.2 * alone[0] else "the card")
+    return (f"{what}: {key} {hist[0][key]:.2f} -> {hist[-1][key]:.2f}; the step alone on the card {alone[0]:.2f} ms "
+            f"({batch / alone[0] * 1e3:.0f} images/s), the host's enqueue of one {alone[1]:.2f} ms; in the loop, by "
+            f"CUDA events (steps {TRAIN_WARMUP}..{len(hist) - 1}; they read the host's gaps too) median "
+            f"{np.median(step_ms):.2f} ms, host wall per step, start to start, median {wall_ms:.2f} ms "
+            f"({batch / wall_ms * 1e3:.0f} images/s); the loader's batch cold {loader_ms[0]:.2f} ms, warm "
+            f"{loader_ms[1]:.2f} ms (mean of {REAL_LOADER_BATCHES}); bound by {bound}; whole run {wall:.2f} s; peak "
+            f"memory allocated {peak / 2**30:.2f} GiB [{card}]")
+
+
+def phase_real_data(device: torch.device, card: str) -> dict:
+    """The real-image data path on the card's host and the card: the
+    fixture images read as the CPU tests read them, the native warp against its NumPy
+    twin and timed, ``pascal_nolbo`` and ``kitti_inst_only`` trained on the
+    fixtures' crops through ``cli/train.py`` (one f32 step of
+    ``pascal_nolbo`` card against CPU), the detector on the Pascal3D frames
+    through ``cli/train_detector.py``, darknet19 pretraining on an
+    ImageNet-layout tree through ``cli/pretrain.py``, and ``kmeans_sincos``
+    card against CPU. Returns the phase's launch counts."""
+    import hashlib
+    import importlib
+
+    import cv2
+
+    from anytime3d_tpu_torch.cli import pretrain as cli_pretrain
+    from anytime3d_tpu_torch.cli import train_detector as cli_det
+    from anytime3d_tpu_torch.data import augment
+    from anytime3d_tpu_torch.data.imread import imread_color
+    from anytime3d_tpu_torch.data.kitti import KittiSingleObjectLoader
+    from anytime3d_tpu_torch.data.pascal3d import ObjRecord, Pascal3DSingleObjectLoader, orientation_anchors
+    from anytime3d_tpu_torch.evaluation.detection import evaluate_detector
+    from anytime3d_tpu_torch.ops.kmeans import kmeans_sincos
+    from anytime3d_tpu_torch.train.step import compute_losses
+
+    t_phase = time.perf_counter()
+    phase_counts = dict.fromkeys(read_counts(), 0)
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            phase_counts[k] += v
+
+    # (a) read every fixture PNG on the card's host, against the digests of the CPU tests; this cv2's jitter bits
+    host_libs = {}
+    for name in ("cv2", "PIL"):
+        try:
+            host_libs[name] = getattr(importlib.import_module(name), "__version__", "imports")
+        except ImportError as e:
+            host_libs[name] = f"absent ({e})"
+    host_libs["g++"] = shutil.which("g++") or "absent"
+    decode_ms = {}
+    for rel, digest in sorted(FIXTURE_PNG_SHA256.items()):
+        img = imread_color(os.path.join(REPO, rel))
+        if img is None or hashlib.sha256(img.tobytes()).hexdigest() != digest:
+            raise AssertionError(f"decode: {rel} is not the image cv2.imread gives on the CPU")
+        decode_ms[os.path.basename(rel)] = mean_ms(lambda _: imread_color(os.path.join(REPO, rel)), 5)
+    frames = {name: photo_frame(*shape, SEED + 40 + i) for i, (name, shape) in
+              enumerate((("voc", VOC_FRAME), ("kitti", KITTI_FRAME)))}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_frames_") as tmp:
+        for name, rgb in frames.items():
+            path = os.path.join(tmp, f"{name}.png")
+            cv2.imwrite(path, rgb)
+            if not np.array_equal(imread_color(path), rgb):
+                raise AssertionError(f"decode: the {name} frame does not round-trip")
+            decode_ms[f"{name} frame {rgb.shape[0]}x{rgb.shape[1]}"] = mean_ms(lambda _: imread_color(path), 5)
+    same = {k: v == CV2_DIGESTS.get(k) for k, v in cv2_digests().items()}
+    print(f"real data (a) decode: {len(FIXTURE_PNG_SHA256)} fixture PNGs equal to the CPU tests' digests on this host; "
+          f"imports here: cv2 {host_libs['cv2']}, PIL {host_libs['PIL']}, g++ {host_libs['g++']}; host ms a read by "
+          "cv2.imread: " + ", ".join(f"{k} {v:.2f}" for k, v in decode_ms.items())
+          + f"; the jitter's cv2 calls give the bits of cv2 {CV2_DIGESTS['version']} on the CPU tests' machine: {same}"
+          + f" [{card}]", flush=True)
+
+    # (b) the native warp on this host against its NumPy twin, then timed with and without the photometric jitter
+    if not augment.augment_native_available():
+        raise AssertionError("augment: the native engine does not build on the card's host")
+    for name, rgb in frames.items():
+        img = rgb.astype(np.float32)
+        for seed in range(3):
+            rng = np.random.default_rng(SEED + seed)
+            args = (416, 416, float(rng.uniform(0.8, 1.2)), float(rng.uniform(-0.2, 0.2)), float(rng.uniform(-0.2, 0.2)))
+            native, p_native = augment._augment_one_native(augment.native_augment(), img, *args, flip=seed == 1)
+            twin, p_twin = augment._augment_one_numpy(img, *args, flip=seed == 1)
+            err = float(np.abs(native - twin).max())
+            if not (err <= AUG_TWIN_TOL and np.allclose(p_native, p_twin, rtol=1e-6, atol=1e-7)):
+                raise AssertionError(f"augment {name} seed {seed}: native against the NumPy twin {err:.3e}")
+    crop = frames["voc"][100:260, 120:330]
+    aug_ms = {}
+    calls = augment.image_random_augmentation.native_calls, augment.image_random_augmentation.numpy_calls
+    for label, src, size in (("crop 160x210 -> 64x64", crop, (64, 64)), ("VOC frame -> 416x416", frames["voc"],
+                                                                        (416, 416))):
+        for noise in (False, True):
+            aug_ms[f"{label}{' + photometric' if noise else ''}"] = mean_ms(
+                lambda i: augment.image_random_augmentation(np.random.default_rng(i), src, size, add_noise=noise,
+                                                            pad_to_aspect=size != (64, 64)), REAL_AUG_CALLS)
+    if augment.image_random_augmentation.numpy_calls != calls[1]:
+        raise AssertionError("augment: a warp took the NumPy twin on the card's host")
+    print(f"real data (b) augment: the native engine against its NumPy twin on a {VOC_FRAME} and a {KITTI_FRAME} frame"
+          f" to 416x416, 3 draws each, within {AUG_TWIN_TOL}; host ms a call (mean of {REAL_AUG_CALLS} seeds): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in aug_ms.items()) + f" [{card}]", flush=True)
+
+    # (c) pascal_nolbo on the Pascal3D crops through cli/train.py: the 2-class resize, one f32 step card vs CPU,
+    # then REAL_STEPS bf16 steps at B=32 on 64x64 crops with packed-blocked targets
+    argv = ["--config", "pascal_nolbo", "--data", PASCAL_FIXTURES, "--bf16", "--batch-size", str(TRAIN_BATCH),
+            "--image-size", str(IMAGE_SIZE), "--steps", str(REAL_STEPS), "--eval-every", "0"]
+    trainer, loader = cli_train.build_trainer(cli_train.parse_args(argv))
+    cfg = trainer.model.config
+    if cfg.category_dim != 2 or loader.class_num != 2:
+        raise AssertionError(f"pascal: category_dim {cfg.category_dim}, the fixture's classes {loader.class_num}")
+    loss_cfg = configs.loss_config("pascal_nolbo")
+    no_drop = dataclasses.replace(cfg, prior_category=dataclasses.replace(cfg.prior_category, dropout_rate=0.0),
+                                  prior_inst=dataclasses.replace(cfg.prior_inst, dropout_rate=0.0))
+    model_cpu = MultiModalVAE(no_drop, generator=torch.Generator().manual_seed(SEED))
+    model_gpu = copy.deepcopy(model_cpu).to(device)
+    val = Pascal3DSingleObjectLoader(PASCAL_FIXTURES, "val", workers=2)
+    n = IMAGE_SLICE_BATCH
+    batch = {k: torch.from_numpy(v) for k, v in cli_train.build_batch_fn(
+        val, cfg, n, packed=True, native=True, image_size=(IMAGE_SIZE, IMAGE_SIZE))(0).items()}
+    val.close()
+    draws = image_draws(n, cfg.z_category_dim, cfg.z_inst_dim, loss_cfg.mix_element_prob, SEED + 41)
+    draws = {k: draws[k] for k in ("eps_cat", "eps_inst", "eps_prior_cat", "eps_prior_inst", "coin", "take_prior")}
+    results = {}
+    for name, model, dev in (("card", model_gpu, device), ("cpu", model_cpu, torch.device("cpu"))):
+        if dev.type == "cuda":
+            reset_counts()
+        total, metrics = compute_losses(model, loss_cfg, {k: v.to(dev) for k, v in batch.items()},
+                                        draws={k: v.to(dev) for k, v in draws.items()})
+        names, params = zip(*model.named_parameters())
+        grads = dict(zip(names, torch.autograd.grad(total, params)))
+        results[name] = ({k: float(v) for k, v in metrics.items()}, {k: g.cpu() for k, g in grads.items()})
+        if dev.type == "cuda":
+            add(expect_counts("real pascal f32 step", 2, 2, 2, tensor_cores=False))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = results["card"], results["cpu"]
+    for k, v in m_cpu.items():
+        if not (math.isfinite(m_gpu[k]) and abs(m_gpu[k] - v) <= TRAIN_TOL_LOSS_REL * abs(v) + 1e-6):
+            raise AssertionError(f"real pascal f32 step: {k} card {m_gpu[k]} vs CPU {v}")
+    worst = max(((k, float((g_gpu[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)) for k, g in g_cpu.items()),
+                key=lambda kv: kv[1])
+    if not worst[1] <= TRAIN_TOL_GRAD_REL:
+        raise AssertionError(f"real pascal f32 step: gradient of {worst[0]} off by {worst[1]} of its largest entry")
+    print(f"real data (c) pascal_nolbo (category_dim resized 12 -> 2 by the fixture) f32 step on the val crops, B={n} "
+          f"{IMAGE_SIZE}x{IMAGE_SIZE}, card vs CPU: metrics {m_gpu}; {len(g_cpu)} gradient leaves, worst {worst[0]} at "
+          f"{worst[1]:.3e} of its largest entry (tol {TRAIN_TOL_GRAD_REL}, losses {TRAIN_TOL_LOSS_REL})", flush=True)
+    del model_cpu, model_gpu, results, g_gpu, g_cpu
+
+    def packed_fn(ld, model_cfg, batch_size):
+        return cli_train.build_batch_fn(ld, model_cfg, batch_size, packed=True, native=True,
+                                        image_size=(IMAGE_SIZE, IMAGE_SIZE))
+
+    trainer.batch_fn = packed_fn(loader, cfg, TRAIN_BATCH)
+    fresh = Pascal3DSingleObjectLoader(PASCAL_FIXTURES, "train", seed=1)
+    loader_ms = loader_batch_ms(fresh, packed_fn(fresh, cfg, TRAIN_BATCH))
+    step = trainer.step_fn
+    reset_counts()
+    step_ms, host, wall, peak = timed_train(trainer, "real pascal train")
+    add(expect_counts("real pascal train", 2 * REAL_STEPS, 2 * REAL_STEPS, 2 * REAL_STEPS, tensor_cores=True))
+    alone = step_alone(trainer, step, trainer.batch_fn(0))
+    print("real data (c) " + real_train_line(
+        f"pascal_nolbo through cli/train.py --data <Pascal3D fixture>, {REAL_STEPS} steps, B={TRAIN_BATCH} bf16, "
+        f"{IMAGE_SIZE}x{IMAGE_SIZE} augmented crops, packed-blocked 64^3 targets, conv_k2 2 / 2 / 2 a step on wgmma",
+        trainer, step_ms, host, wall, peak, TRAIN_BATCH, loader_ms, alone, card), flush=True)
+    loader.close()
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) kitti_inst_only on the KITTI crops with --cad-path, REAL_KITTI_STEPS bf16 steps at B=32
+    cad = os.path.join(KITTI_FIXTURES, "cad")
+    argv = ["--config", "kitti_inst_only", "--data", KITTI_FIXTURES, "--cad-path", cad, "--bf16", "--batch-size",
+            str(TRAIN_BATCH), "--image-size", str(IMAGE_SIZE), "--steps", str(REAL_KITTI_STEPS), "--eval-every", "0"]
+    trainer, loader = cli_train.build_trainer(cli_train.parse_args(argv))
+    trainer.batch_fn = packed_fn(loader, trainer.model.config, TRAIN_BATCH)
+    fresh = KittiSingleObjectLoader(KITTI_FIXTURES, cad, "train", seed=1)
+    loader_ms = loader_batch_ms(fresh, packed_fn(fresh, trainer.model.config, TRAIN_BATCH))
+    if set(trainer.batch_fn(0)) != {"input", "target_packed_blocked", "inst_onehot"}:
+        raise AssertionError("kitti: the 5-tuple batch carries a class")
+    step = trainer.step_fn
+    reset_counts()
+    step_ms, host, wall, peak = timed_train(trainer, "real kitti train")
+    add(expect_counts("real kitti train", 2 * REAL_KITTI_STEPS, 2 * REAL_KITTI_STEPS, 2 * REAL_KITTI_STEPS,
+                      tensor_cores=True))
+    alone = step_alone(trainer, step, trainer.batch_fn(0))
+    print("real data (d) " + real_train_line(
+        f"kitti_inst_only through cli/train.py --data <KITTI fixture> --cad-path, {REAL_KITTI_STEPS} steps, "
+        f"B={TRAIN_BATCH} bf16, {IMAGE_SIZE}x{IMAGE_SIZE} crops, conv_k2 2 / 2 / 2 a step on wgmma",
+        trainer, step_ms, host, wall, peak, TRAIN_BATCH, loader_ms, alone, card), flush=True)
+    loader.close()
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (e) the detector on the Pascal3D frames (the car images) through cli/train_detector.py, then its eval
+    argv = ["--data", PASCAL_FIXTURES, "--bf16", "--batch-size", str(DET_TRAIN_BATCH), "--image-size",
+            str(DET_FRAME), str(DET_FRAME), "--grid-size", str(DET_GRID), str(DET_GRID), "--voxel-dim",
+            str(DET_VOXEL), "--max-detections", str(DET_MAX_DETECTIONS), "--steps", str(REAL_DET_STEPS)]
+    args = cli_det.parse_args(argv)
+    trainer, loader = cli_det.build_trainer(args)
+    fresh = Pascal3DMultiObjectLoader(PASCAL_FIXTURES, "train", image_size=(DET_FRAME,) * 2,
+                                      grid_size=(DET_GRID,) * 2, seed=1)
+    loader_ms = loader_batch_ms(fresh, cli_det.build_batch_fn(fresh, DET_TRAIN_BATCH, args.max_slots))
+    step = trainer.step_fn
+    reset_counts()
+    step_ms, host, wall, peak = timed_train(trainer, "real detector train")
+    add(expect_counts("real detector train", REAL_DET_STEPS, REAL_DET_STEPS, REAL_DET_STEPS, tensor_cores=False,
+                      narrow=(REAL_DET_STEPS,) * 3))
+    alone = step_alone(trainer, step, trainer.batch_fn(0))
+    t0 = time.perf_counter()
+    det = evaluate_detector(trainer.model, cli_det.build_batch_fn(loader, DET_TRAIN_BATCH, args.max_slots),
+                            num_batches=2)
+    eval_s = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in det.values()):
+        raise AssertionError(f"real detector eval: {det}")
+    print("real data (e) " + real_train_line(
+        f"the detector through cli/train_detector.py --data <Pascal3D fixture> ({loader.dataLength} car frames), "
+        f"{REAL_DET_STEPS} steps, B={DET_TRAIN_BATCH} bf16, {DET_FRAME}x{DET_FRAME} frames, {DET_GRID}x{DET_GRID} "
+        f"grid, {DET_VOXEL}^3 voxels, conv_k2 1 / 1 / 1 a step, all narrow", trainer, step_ms, host, wall, peak,
+        DET_TRAIN_BATCH, loader_ms, alone, card) + f"; evaluate_detector on 2 batches {eval_s:.2f} s, "
+        f"{ {k: round(v, 4) for k, v in det.items()} }", flush=True)
+    loader.close()
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (f) darknet19 pretraining through cli/pretrain.py --data on an ImageNet-layout tree of the fixture PNGs
+    tree = tempfile.mkdtemp(prefix="chip_smoke_imagenet_")
+    try:
+        for i, rel in enumerate(sorted(FIXTURE_PNG_SHA256)):
+            os.makedirs(os.path.join(tree, f"n0{i % 3}"), exist_ok=True)
+            shutil.copy(os.path.join(REPO, rel), os.path.join(tree, f"n0{i % 3}", f"img{i}.png"))
+        argv = ["--data", tree, "--backbone", "darknet19", "--batch-size", str(PRETRAIN_BATCH), "--image-size",
+                str(PRETRAIN_SIZE), "--bf16", "--steps", str(REAL_PRETRAIN_STEPS), "--eval-every", "0"]
+        timers = []
+        build_trainer = cli_pretrain.build_trainer
+
+        def build_timed(a):
+            tr, ld = build_trainer(a)
+            timers.append((ld, tr.step_fn, install_step_timer(tr)))
+            return tr, ld
+
+        cli_pretrain.build_trainer = build_timed
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = cli_pretrain.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            cli_pretrain.build_trainer = build_trainer
+        add(expect_counts("real pretrain (2-D convolutions only)", 0, 0, 0, tensor_cores=False))
+        peak = torch.cuda.max_memory_allocated()
+        check_trained(trainer, "real pretrain")
+        loader, step, (events, entries) = timers[0]
+        if trainer.model.config.num_classes != 3:
+            raise AssertionError(f"pretrain: {trainer.model.config.num_classes} classes, the tree has 3")
+        step_ms, host = step_times(events, entries)
+        alone = step_alone(trainer, step, trainer.batch_fn(0))
+        loader.close()
+        fresh = ImagenetLoader(tree, seed=1)
+        loader_ms = loader_batch_ms(fresh, cli_pretrain.build_batch_fn(fresh, PRETRAIN_BATCH, PRETRAIN_SIZE))
+        print("real data (f) " + real_train_line(
+            f"darknet19 pretraining through cli/pretrain.py --data <ImageNet-layout tree of the {len(FIXTURE_PNG_SHA256)}"
+            f" fixture PNGs, 3 classes>, {REAL_PRETRAIN_STEPS} steps, B={PRETRAIN_BATCH} bf16, {PRETRAIN_SIZE}^2 "
+            "augmented images, no conv_k2", trainer, step_ms, host, wall, peak, PRETRAIN_BATCH, loader_ms, alone, card),
+            flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+
+    # (g) kmeans_sincos / orientation_anchors, k=30, 1000 iterations, card against CPU
+    rng = np.random.default_rng(SEED + 42)
+    euler = (rng.uniform(-np.pi, np.pi, (KMEANS_POINTS, 3)) * np.array([1.0, 0.3, 0.2])).astype(np.float32)
+    x = np.concatenate([np.sin(euler), np.cos(euler)], axis=-1)
+    t0 = time.perf_counter()
+    got = kmeans_sincos(x, KMEANS_K, KMEANS_ITERS, device=device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = kmeans_sincos(x, KMEANS_K, KMEANS_ITERS)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(got[0] - want[0]).max())
+    if not (np.array_equal(got[1], want[1]) and err <= KMEANS_TOL):
+        raise AssertionError(f"kmeans: {int((got[1] != want[1]).sum())} assignments differ, centres off by {err:.3e}")
+    records = [ObjRecord("car", "", 1, (0.0, 0.0, 1.0, 1.0), tuple(e)) for e in euler.tolist()]
+    anchors = orientation_anchors(records, k=KMEANS_K, max_iter=KMEANS_ITERS, device=device)
+    if float(np.abs(anchors - want[0]).max()) > KMEANS_TOL:
+        raise AssertionError("orientation_anchors on the card: not kmeans_sincos's centres")
+    print(f"real data (g) kmeans_sincos k={KMEANS_K}, {KMEANS_ITERS} iterations (after 10 on a subsample) on "
+          f"{KMEANS_POINTS} seeded Euler triples: card against CPU, assignments equal, centres within {err:.3e} (tol "
+          f"{KMEANS_TOL}); orientation_anchors on the card the same centres; host wall of the whole fit, card "
+          f"{card_s * 1e3:.1f} ms, CPU {cpu_s * 1e3:.1f} ms [{card}]", flush=True)
+    print(f"real data phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return phase_counts
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -2866,10 +3292,11 @@ def main() -> None:
         kernels[kernel].update(cases)
     variant_counts = phase_variants(device, card)
     stream_counts = phase_pretrain_stream(device, card)
+    real_counts = phase_real_data(device, card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts,
                                                 artifact_counts, image_counts, detector_counts, variant_counts,
-                                                stream_counts)}),
+                                                stream_counts, real_counts)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

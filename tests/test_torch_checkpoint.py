@@ -348,7 +348,7 @@ def test_cli_train_and_evaluate_refuse_what_they_cannot_do(tmp_path):
     with pytest.raises(FileNotFoundError, match="no \\*Full.npy"):
         cli_train.build_loaders(args, configs.modelnet_nolbo())
     image = dataclasses.replace(configs.modelnet_nolbo(), encoder="image")
-    with pytest.raises(NotImplementedError, match="A14b/A15"):
+    with pytest.raises(FileNotFoundError, match="CAD"):  # an image config reads a Pascal3D tree there
         cli_train.build_loaders(args, image)
     with pytest.raises(SystemExit, match="not both"):
         cli_evaluate.main(["--config", "modelnet_nolbo", "--device", "cpu", "--ckpt", "a", "--weights", "b"])

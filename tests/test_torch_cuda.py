@@ -966,3 +966,71 @@ def test_classifier_step_on_card_matches_cpu(cuda, dtype):
             np.testing.assert_allclose(history["card"][0][k], v, rtol=rtol, atol=1e-6, err_msg=k)
     for row in history["card"]:
         assert all(np.isfinite(v) for v in row.values()) and row["grads_finite"] == 1.0
+
+
+def test_kmeans_sincos_on_card_matches_cpu(cuda):
+    """``kmeans_sincos`` (k = 30, 300 iterations) on the card against the CPU
+    on 2048 seeded Euler triples: the assignments equal, the centres within
+    1e-5 (float32 distances; the float64 sums' atomic order); the Lloyd loop
+    reads nothing back to the host."""
+    from anytime3d_tpu_torch.ops import kmeans
+
+    rng = np.random.default_rng(11)
+    e = (rng.uniform(-np.pi, np.pi, (2048, 3)) * np.array([1.0, 0.3, 0.2])).astype(np.float32)
+    x = np.concatenate([np.sin(e), np.cos(e)], axis=-1)
+    got = kmeans.kmeans_sincos(x, 30, 300, seed=2, device=cuda)
+    want = kmeans.kmeans_sincos(x, 30, 300, seed=2)
+    assert np.array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    xs = torch.from_numpy(x).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kmeans._fit(xs, xs[:30].clone(), 20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_pascal_nolbo_step_on_a_fixture_batch_on_card_matches_cpu(cuda):
+    """One float32 train step of ``pascal_nolbo`` at the fixture's 2 classes
+    (Darknet19 at full width, the 64^3 decoder narrowed) on a batch of the
+    Pascal3D fixture's val crops (the port's decoder and warp, no
+    augmentation), card against CPU from the same weights and draws: every
+    metric to rtol 1e-4, every gradient leaf to 1e-3 of its largest entry
+    (summation order)."""
+    import os
+
+    from anytime3d_tpu_torch.cli.train import build_batch_fn
+    from anytime3d_tpu_torch.data.pascal3d import Pascal3DSingleObjectLoader
+    from anytime3d_tpu_torch.train.step import compute_losses
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "pascal3d")
+    base = pascal_nolbo(category_dim=2)
+    cfg = dataclasses.replace(
+        base, decoder=dataclasses.replace(base.decoder, filter_nums=(32, 16, 64, 8, 1)),
+        prior_category=dataclasses.replace(base.prior_category, dropout_rate=0.0),
+        prior_inst=dataclasses.replace(base.prior_inst, dropout_rate=0.0))
+    loader = Pascal3DSingleObjectLoader(root, "val", workers=1)
+    batch = {k: torch.from_numpy(v) for k, v in build_batch_fn(loader, cfg, 2, image_size=(64, 64))(0).items()}
+    loader.close()
+    assert batch["category_onehot"].shape == (2, 2) and batch["input"].shape == (2, 64, 64, 3)
+    rng = np.random.default_rng(12)
+    draws = {k: torch.from_numpy(rng.normal(size=(2, 8)).astype(np.float32))
+             for k in ("eps_cat", "eps_inst", "eps_prior_cat", "eps_prior_inst")}
+    draws.update(coin=torch.tensor(True), take_prior=torch.from_numpy(rng.uniform(size=(2, 16)) < 0.5))
+    model_cpu = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0))
+    model_gpu = copy.deepcopy(model_cpu).to(cuda)
+    out = {}
+    for name, model, dev in (("cpu", model_cpu, torch.device("cpu")), ("card", model_gpu, cuda)):
+        model.zero_grad()
+        loss, metrics = compute_losses(model, loss_config("pascal_nolbo"), {k: v.to(dev) for k, v in batch.items()},
+                                       draws={k: v.to(dev) for k, v in draws.items()})
+        loss.backward()
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters() if p.grad is not None})
+    for k, v in out["cpu"][0].items():
+        np.testing.assert_allclose(out["card"][0][k], v, rtol=1e-4, atol=1e-6, err_msg=k)
+    assert out["card"][1].keys() == out["cpu"][1].keys()
+    for k, g in out["cpu"][1].items():
+        top = float(g.abs().max())
+        assert float((out["card"][1][k] - g).abs().max()) <= 1e-3 * max(top, 1e-12), k

@@ -309,7 +309,7 @@ def test_cli_pretrain_runs_on_the_cpu_and_grafts(tmp_path, capsys):
 
 
 def test_cli_pretrain_refusals():
-    with pytest.raises(NotImplementedError, match=r"A14b: ImageNet loader"):
+    with pytest.raises(FileNotFoundError, match="/data/imagenet"):
         cli_pretrain.main(["--data", "/data/imagenet", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match=r"A19"):
         cli_pretrain.main(["--mesh", "--device", "cpu"])

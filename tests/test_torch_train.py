@@ -260,13 +260,17 @@ def test_batch_forms_give_the_same_loss(setup):
 @pytest.mark.parametrize("n", [4, 5, 7])
 def test_unported_batch_forms_raise(setup, n):
     """Image batches (explicit voxel targets, uint8 images, packed targets)
-    are ported and held to the JAX package in ``test_torch_image.py``; loader
-    tuples other than the Pascal loader's 6 (the KITTI loader's 5) are not."""
+    are ported and held to the JAX package in ``test_torch_image.py``; of the
+    loader tuples, the Pascal loader's 6 and the KITTI loader's 5 (no class:
+    no ``category_onehot``) are read, and any other length raises."""
     class Loader:
         def getNextBatch(self, batch_size):
             return tuple(np.zeros((batch_size, 1), np.float32) for _ in range(n))
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    if n == 5:
+        assert set(cli_train.build_batch_fn(Loader(), setup[3], 2)(0)) == {"input", "target"}
+        return
+    with pytest.raises(ValueError, match="loader tuples of"):
         cli_train.build_batch_fn(Loader(), setup[3], 2)(0)
 
 
@@ -370,7 +374,7 @@ def test_cli_train_fails_without_cuda_or_data():
     args = cli_train.parse_args(["--config", "modelnet_nolbo", "--data", "/some/path"])
     with pytest.raises(FileNotFoundError, match="/some/path"):
         cli_train.build_loaders(args, configs.modelnet_nolbo())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(FileNotFoundError, match="/some/path"):  # an image config reads a Pascal3D tree there
         cli_train.build_loaders(args, dataclasses.replace(configs.modelnet_nolbo(), encoder="image"))
     with pytest.raises(SystemExit):
         cli_train.parse_args(["--config", "modelnet_nolbo", "--mesh"])
