@@ -13,9 +13,10 @@ loop):
 Random draws come from an explicit ``torch.Generator`` on the model's device,
 or are handed in (``draws``, ``eps``), so a test can give both packages the
 same numbers. ``anytime_eval_jit`` has no counterpart: eager PyTorch needs no
-compiled wrapper, and every rate of a sweep runs the same code. The mesh form
-of ``fuse_sequence`` (``fuse_sequence_sharded``) waits for the port of data
-parallelism.
+compiled wrapper, and every rate of a sweep runs the same code.
+``fuse_sequence_sharded`` splits a stream of observations over the ranks of
+a mesh (``parallel.make_mesh``) and sums their information with one
+all-reduce.
 """
 
 from __future__ import annotations
@@ -319,3 +320,28 @@ def fuse_sequence(means: torch.Tensor, log_vars: torch.Tensor, masks: Optional[t
     for t in range(means.shape[0]):
         belief = fuse_observation(belief, means[t], log_vars[t], None if masks is None else masks[t])
     return belief
+
+
+def fuse_sequence_sharded(mesh, means: torch.Tensor, log_vars: torch.Tensor, masks: Optional[torch.Tensor] = None,
+                          prior: Optional[GaussianBelief] = None, axis: str = "data") -> GaussianBelief:
+    """``fuse_sequence`` with the (T, ...) stream split over the ``axis``
+    ranks of ``mesh``: every rank holds the whole stream and fuses its
+    contiguous T/N chunk from zero information, one float32 all-reduce (SUM)
+    adds the ranks' information and precision, and the prior joins once,
+    after it. The fusion is a sum, so this is ``fuse_sequence`` up to the
+    order of the float additions. T must divide by N."""
+    import torch.distributed as dist
+
+    n, rank = mesh.size(mesh.mesh_dim_names.index(axis)), mesh.get_local_rank(axis)
+    t = means.shape[0]
+    if t % n:
+        raise ValueError(f"stream length {t} % mesh axis '{axis}'={n} != 0")
+    if prior is None:
+        prior = GaussianBelief.uninformative(means.shape[1:], device=means.device)
+    chunk = slice(rank * t // n, (rank + 1) * t // n)
+    zero = torch.zeros(means.shape[1:], dtype=torch.float32, device=means.device)
+    local = fuse_sequence(means[chunk], log_vars[chunk], None if masks is None else masks[chunk],
+                          prior=GaussianBelief(info=zero, precision=zero))
+    sums = torch.stack([local.info, local.precision]).float()
+    dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
+    return GaussianBelief(info=prior.info + sums[0], precision=prior.precision + sums[1])

@@ -13,8 +13,9 @@ Counterpart of ``anytime3d_tpu/anytime/reconstructor.py``::
 
 Beliefs are ``anytime.engine`` dataclasses of tensors, batched over any
 leading axes; the fusion is the information-filter update of
-``engine.fuse_observation``. Model calls run without autograd. The mesh form
-of ``observe_stream`` waits for the port of data parallelism.
+``engine.fuse_observation``. Model calls run without autograd.
+``observe_stream(mesh=)`` splits the stream over the ranks of a mesh
+(``engine.fuse_sequence_sharded``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from anytime3d_tpu_torch.anytime.engine import (
     fuse_observation,
     fuse_occupancy,
     fuse_sequence,
+    fuse_sequence_sharded,
 )
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
 from anytime3d_tpu_torch.ops.sampling import reparameterize
@@ -75,11 +77,13 @@ class AnytimeReconstructor:
         return fuse_observation(belief, mean, log_var, mask)
 
     def observe_stream(self, belief: GaussianBelief, means: torch.Tensor, log_vars: torch.Tensor,
-                       masks: Optional[torch.Tensor] = None, mesh=None) -> GaussianBelief:
+                       masks: Optional[torch.Tensor] = None, mesh=None, axis: str = "data") -> GaussianBelief:
         """Fuse a stacked (T, ...) stream of observations in order
-        (``engine.fuse_sequence``), from ``belief``."""
+        (``engine.fuse_sequence``), from ``belief``; with a ``mesh``
+        (``parallel.make_mesh``), split over its ``axis`` ranks
+        (``engine.fuse_sequence_sharded``)."""
         if mesh is not None:
-            raise NotImplementedError("not ported yet (A19): observe_stream over a device mesh")
+            return fuse_sequence_sharded(mesh, means, log_vars, masks, prior=belief, axis=axis)
         return fuse_sequence(means, log_vars, masks, prior=belief)
 
     # ---- anytime outputs

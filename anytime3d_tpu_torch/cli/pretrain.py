@@ -17,7 +17,9 @@ pretrainer has no held-out split) and takes the class count from it unless
 ``--num-classes`` is given. The checkpoint's ``backbone`` loads into any
 image model of the same backbone with
 ``train/checkpoint.py::graft_submodule(state, path, "backbone")``.
-``--mesh`` is not ported yet.
+``--mesh`` trains data-parallel, one process a device, as ``cli.train
+--mesh`` does (the ranks join through ``COORDINATOR_ADDRESS``,
+``NUM_PROCESSES`` and ``PROCESS_ID``; without them the run is one rank).
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ def build_trainer(args):
     from anytime3d_tpu_torch.train.state import create_train_state
     from anytime3d_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    if args.mesh:
-        raise NotImplementedError("not ported yet (A19): --mesh, the data-parallel train step")
+    from anytime3d_tpu_torch.parallel import make_mesh, mesh_device
+
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to train on the CPU)")
@@ -67,6 +69,9 @@ def build_trainer(args):
     else:
         loader = eval_loader = ImagenetLoader(args.data)
         n_cls = args.num_classes or loader.class_num
+    mesh = make_mesh(device=device) if args.mesh else None
+    if mesh is not None:  # on CUDA each rank takes its own device
+        device = mesh_device(mesh)
     model = Classifier(ClassifierConfig(num_classes=n_cls, backbone=args.backbone),
                        generator=torch.Generator().manual_seed(0),
                        dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
@@ -77,9 +82,10 @@ def build_trainer(args):
         build_batch_fn(loader, args.batch_size, args.image_size),
         eval_batch_fn=build_batch_fn(eval_loader, args.batch_size, args.image_size),
         config=TrainerConfig(total_steps=args.steps, eval_every=args.eval_every, save_every=args.save_every,
-                             save_path=args.save_path, load_path=args.load_path, jsonl_path=args.jsonl),
-        step_fn=make_classifier_train_step(model, loss_cfg),
-        eval_fn=make_classifier_eval_step(model, loss_cfg),
+                             save_path=args.save_path, load_path=args.load_path, jsonl_path=args.jsonl,
+                             use_mesh=args.mesh),
+        step_fn=make_classifier_train_step(model, loss_cfg, mesh=mesh),
+        eval_fn=make_classifier_eval_step(model, loss_cfg, mesh=mesh),
     )
     return trainer, loader
 
@@ -99,7 +105,7 @@ def parse_args(argv=None):
     p.add_argument("--save-every", type=int, default=1000)
     p.add_argument("--eval-every", type=int, default=200)
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute dtype (float32 parameters)")
-    p.add_argument("--mesh", action="store_true", help="data parallel over every device (not ported yet)")
+    p.add_argument("--mesh", action="store_true", help="data parallel over every rank of the run, one process a device")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 

@@ -27,6 +27,14 @@ optimizer. Batches are made on a prefetch thread two steps ahead; on CUDA,
 ``--packed`` batches of a blocked-IO model are packed by the native packer,
 and the run fails if ``g++`` cannot build it. Each eval reports the losses, P/R and the anytime
 protocol's metrics at missing rate 0.5 (``anytime_*``).
+
+``--mesh`` trains data-parallel, one process a device: start one process a
+device with ``COORDINATOR_ADDRESS`` (host:port of rank 0),
+``NUM_PROCESSES`` and ``PROCESS_ID`` set (``parallel/multihost.py``); without
+them the run is one rank. The ranks join over NCCL on CUDA (gloo with
+``--device cpu``), each makes the same global batch of ``--batch-size``
+and keeps its rows, and each step equals the single-device step on the
+global batch.
 """
 
 from __future__ import annotations
@@ -149,9 +157,13 @@ def build_trainer(args):
     from anytime3d_tpu_torch.train.state import create_train_state
     from anytime3d_tpu_torch.train.trainer import Trainer, TrainerConfig
 
+    from anytime3d_tpu_torch.parallel import make_mesh, mesh_device
+
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to train on the CPU)")
+    if args.mesh:  # join the ranks first: on CUDA each takes its own device
+        device = mesh_device(make_mesh(device=device))
     model_cfg, loss_cfg = configs.variant(args.config)
     loader, eval_loader = build_loaders(args, model_cfg)
     if args.swap_splits:
@@ -174,7 +186,8 @@ def build_trainer(args):
         loss_config=loss_cfg,
         eval_batch_fn=build_batch_fn(eval_loader, model_cfg, args.batch_size, packed, native, size),
         config=TrainerConfig(total_steps=args.steps, eval_every=args.eval_every, save_every=args.save_every,
-                             save_path=args.save_path, load_path=args.load_path, jsonl_path=args.jsonl),
+                             save_path=args.save_path, load_path=args.load_path, jsonl_path=args.jsonl,
+                             use_mesh=args.mesh),
     )
     return trainer, loader
 
@@ -201,6 +214,8 @@ def parse_args(argv=None):
     p.add_argument("--multi-scale", default=None,
                    help="comma list of square image sizes, e.g. '64,96': the multi-scale schedule of image configs")
     p.add_argument("--cad-path", default=None, help="CAD voxel dir (KITTI configs; Pascal uses --data's CAD/)")
+    p.add_argument("--mesh", action="store_true",
+                   help="data parallel over every rank of the run, one process a device (see above)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 

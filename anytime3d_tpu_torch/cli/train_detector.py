@@ -17,7 +17,9 @@ flags, and ``--max-objects``, ``--max-detections`` (the JAX CLI's fixed
 3 and 16 by default; the reference-scale run takes 6 and 32) and
 ``--device`` (``cuda`` by default; the command fails without CUDA rather
 than train on the CPU). Training batches travel as uint8 images and
-bit-packed voxels.
+bit-packed voxels. ``--mesh`` trains data-parallel, one process a device,
+as ``cli.train --mesh`` does; the detection eval then runs on each rank's
+model, which every rank holds whole.
 """
 
 from __future__ import annotations
@@ -82,8 +84,8 @@ def build_trainer(args):
     from anytime3d_tpu_torch.train.state import create_train_state
     from anytime3d_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    if args.mesh:
-        raise NotImplementedError("not ported yet (A19): --mesh, the data-parallel train step")
+    from anytime3d_tpu_torch.parallel import make_mesh, mesh_device
+
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu to train on the CPU)")
@@ -96,6 +98,9 @@ def build_trainer(args):
         dims = {v.shape[1] for v in loader.cad_shapes.values()}
         if dims != {args.voxel_dim}:
             raise SystemExit(f"the dataset's CAD voxels are {sorted(dims)}^3: pass --voxel-dim {min(dims)}")
+    mesh = make_mesh(device=device) if args.mesh else None
+    if mesh is not None:  # on CUDA each rank takes its own device
+        device = mesh_device(mesh)
     model = DetectorReconstructor(detector_config(args.voxel_dim, args.max_detections),
                                   generator=torch.Generator().manual_seed(0),
                                   dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
@@ -105,8 +110,8 @@ def build_trainer(args):
         create_train_state(model, learning_rate=args.learning_rate),
         lambda it: transfer_forms(batch_fn(it)),
         config=TrainerConfig(total_steps=args.steps, save_every=args.save_every, save_path=args.save_path,
-                             load_path=args.load_path, jsonl_path=args.jsonl),
-        step_fn=make_detector_train_step(model, DetectorLossConfig()),
+                             load_path=args.load_path, jsonl_path=args.jsonl, use_mesh=args.mesh),
+        step_fn=make_detector_train_step(model, DetectorLossConfig(), mesh=mesh),
     )
     return trainer, loader
 
@@ -128,7 +133,7 @@ def parse_args(argv=None):
     p.add_argument("--jsonl", default=None)
     p.add_argument("--save-every", type=int, default=1000)
     p.add_argument("--bf16", action="store_true")
-    p.add_argument("--mesh", action="store_true", help="data parallel over every device (not ported yet)")
+    p.add_argument("--mesh", action="store_true", help="data parallel over every rank of the run, one process a device")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 

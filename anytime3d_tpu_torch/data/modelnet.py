@@ -43,13 +43,16 @@ class ModelNetLoader:
     ``class_list`` (B, 40) and ``inst_list`` one-hots, all float32; ``epoch``,
     ``batchStart`` and ``dataLength`` for progress. ``partial_num``: the
     number of train shards to read, indices 0.. (the reference's 30; the test
-    split has 5); None reads every shard present."""
+    split has 5); None reads every shard present. ``process_index`` of
+    ``process_count`` reads every ``process_count``-th of those shards from
+    its own, and shuffles with ``seed + process_index``: a host's part of the
+    data for a loader a host."""
 
     def __init__(self, data_path: str, train_or_test: str = "train", partial_num: Optional[int] = 30,
-                 seed: int = 0):
+                 process_index: int = 0, process_count: int = 1, seed: int = 0):
         self.epoch = 0
         self.batchStart = 0
-        self._rng = np.random.default_rng(seed)
+        self._rng = np.random.default_rng(seed + process_index)
         split = "train" if train_or_test == "train" else "test"
         base = os.path.join(data_path, "32to64_4rot_64sqr", split)
         if partial_num is None:
@@ -57,7 +60,7 @@ class ModelNetLoader:
         else:
             indices = list(range(partial_num if split == "train" else 5))
         parts: Dict[str, list] = {"Full": [], "Class": [], "Inst": []}
-        for i in indices:
+        for i in indices[process_index::process_count]:
             for kind, arrays in parts.items():
                 path = os.path.join(base, f"{i}{kind}.npy")
                 if not os.path.exists(path):

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from anytime3d_tpu_torch.nn.blocks import activation, dense, layer_norm
+from anytime3d_tpu_torch.ops.sampling import uniform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +45,7 @@ class _Tower(nn.Module):
         for i in range(self.depth - 1):
             x = getattr(self, f"layernorm_{i}")(getattr(self, f"dense_{i}")(x))
             if self.training and self.dropout_rate > 0.0:
-                keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout_rate
+                keep = uniform(x.shape, generator, x.device) >= self.dropout_rate
                 x = torch.where(keep, x / (1.0 - self.dropout_rate), torch.zeros_like(x))
             x = self.act(x)
         return getattr(self, f"dense_{self.depth - 1}")(x)

@@ -48,19 +48,24 @@ def focal_binary_loss(pred: torch.Tensor, target: torch.Tensor, gamma: float = 0
 
 
 def prior_repulsion(z_mean: torch.Tensor, z_log_var: torch.Tensor, dist_in_z_space: float,
-                    class_onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    class_onehot: Optional[torch.Tensor] = None, z_mean_cols: Optional[torch.Tensor] = None,
+                    class_onehot_cols: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pairwise repulsion of prior Gaussians in latent space, per sample.
 
     For each ordered pair (i, j) of the batch the variance-normalised L1
     distance d_ij = sum_k |mu_i - mu_j|_k / exp(0.5 * lv_i)_k is hinged at
     ``dist_in_z_space``: pairs closer than the margin pay (d_ij - margin)^2.
     The diagonal (d_ii = 0) pays the constant margin^2, as in the JAX package.
-    ``class_onehot`` gates the penalty to same-class pairs."""
-    diff = (z_mean[:, None, :] - z_mean[None, :, :]).abs() / torch.exp(0.5 * z_log_var[:, None, :])
+    ``class_onehot`` gates the penalty to same-class pairs. The j of a pair
+    runs over ``z_mean_cols`` (and ``class_onehot_cols``) where given: a
+    data-parallel rank's rows i against the means of the whole batch."""
+    cols = z_mean if z_mean_cols is None else z_mean_cols
+    diff = (z_mean[:, None, :] - cols[None, :, :]).abs() / torch.exp(0.5 * z_log_var[:, None, :])
     hinge = diff.sum(dim=-1) - dist_in_z_space  # (B, B)
     penalty = torch.where(hinge > 0.0, torch.zeros_like(hinge), torch.square(hinge))
     if class_onehot is not None:
-        differ = (class_onehot[:, None, :] - class_onehot[None, :, :]).abs().sum(dim=-1)
+        onehot_cols = class_onehot if class_onehot_cols is None else class_onehot_cols
+        differ = (class_onehot[:, None, :] - onehot_cols[None, :, :]).abs().sum(dim=-1)
         penalty = penalty * (differ <= 0.0).to(penalty.dtype)
     return penalty.sum(dim=-1)
 

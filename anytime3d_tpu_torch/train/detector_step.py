@@ -14,6 +14,13 @@ The top-K cells are picked by a stable descending sort: the target mask is
 0/1, so ties are the rule, and ``jax.lax.top_k`` breaks them by the lower
 index. The latents' draws come from a ``torch.Generator`` or are given as
 ``draws["eps_z"]`` (B, K, z), the draw the JAX step makes from its key.
+
+With a ``mesh`` (``parallel.make_mesh``) the step is the single-device step
+on the global batch whose rows this rank holds: the batch-wide counts that
+normalise the terms (the object count, the grid's size, the decoded cells)
+are all-reduced before the division, the draws are the global batch's rows
+(``train.step.sharded_draws``), the metrics are summed over the ranks and
+the gradients all-reduced in float32.
 """
 
 from __future__ import annotations
@@ -29,8 +36,15 @@ from anytime3d_tpu_torch.models.detector import DetectorReconstructor
 from anytime3d_tpu_torch.ops.losses import focal_binary_loss, gaussian_kl
 from anytime3d_tpu_torch.ops.metrics import top_k_stable, voxel_tp_fp_fn
 from anytime3d_tpu_torch.ops.sampling import reparameterize
+from anytime3d_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    all_reduce_sum,
+    data_rank_and_size,
+    rank_share,
+    reduce_metrics,
+)
 from anytime3d_tpu_torch.train.state import TrainState, l2_penalty
-from anytime3d_tpu_torch.train.step import apply_gradients_if_finite
+from anytime3d_tpu_torch.train.step import apply_gradients_if_finite, sharded_draws
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -67,24 +81,26 @@ def materialize_detector_batch(model: DetectorReconstructor, batch: Batch) -> Di
 
 def detector_losses(model: DetectorReconstructor, cfg: DetectorLossConfig, batch: Batch,
                     generator: Optional[torch.Generator] = None,
-                    draws: Optional[Mapping[str, torch.Tensor]] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                    draws: Optional[Mapping[str, torch.Tensor]] = None,
+                    mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns ``(total, metrics)``. Batch: ``images`` (B, H, W, 3) float or
     uint8; grid targets ``objness`` (B, gh, gw, P, 1), ``bbox`` (h, w, x, y),
     ``sin``/``cos`` (..., 3), optionally ``bbox3d`` (..., 3) and
     ``z_prior_mean`` (..., z); ``voxels`` (B, S, D, H, W, 1) or
     ``voxels_packed`` with ``voxel_slot`` (B, gh, gw, P) int indices into them
-    (-1: none). The model's parameters are the ones differentiated."""
+    (-1: none). The model's parameters are the ones differentiated. With a
+    ``mesh``, this rank's rows of the global batch (see the module's doc)."""
     model.train()
     batch = materialize_detector_batch(model, batch)
     fields = model(batch["images"])
     mask = batch["objness"][..., 0]  # (B, gh, gw, P)
-    n_obj = mask.sum().clamp_min(1.0)
+    n_obj = all_reduce_sum(mask.sum(), mesh).clamp_min(1.0)
     metrics: Dict[str, torch.Tensor] = {}
 
     p_obj = fields["objness"][..., 0].float().clamp(1e-6, 1 - 1e-6)
     bce = -(mask * torch.log(p_obj) + (1.0 - mask) * torch.log(1.0 - p_obj))
     w = cfg.lambda_obj * mask + cfg.lambda_noobj * (1.0 - mask)
-    loss_obj = (w * bce).sum() / mask.numel()
+    loss_obj = (w * bce).sum() / (mask.numel() * data_rank_and_size(mesh)[1])
     metrics["loss_obj"] = loss_obj
 
     bbox2d = fields["bbox2d"].float()
@@ -123,14 +139,15 @@ def detector_losses(model: DetectorReconstructor, cfg: DetectorLossConfig, batch
         zlv = torch.gather(fields["z_log_var"].reshape(b, -1, zdim), 1, pick)
         slot = torch.gather(batch["voxel_slot"].reshape(b, -1).long(), 1, top_idx)
         vmask = (torch.gather(flat_mask, 1, top_idx) > 0).reshape(-1).float()
-        z = reparameterize(zm, zlv.clamp(-10.0, 10.0), generator, (draws or {}).get("eps_z")).reshape(b * k, zdim)
+        with sharded_draws(mesh):
+            z = reparameterize(zm, zlv.clamp(-10.0, 10.0), generator, (draws or {}).get("eps_z")).reshape(b * k, zdim)
         pred_vox = model.decoder(z).float()
         voxels = batch["voxels"]
         tgt_vox = voxels[torch.arange(b, device=voxels.device)[:, None], slot.clamp_min(0)].reshape(
             b * k, *voxels.shape[2:])
         per = focal_binary_loss(pred_vox, tgt_vox, gamma=cfg.gamma)
         # a per-voxel mean: the per-sample voxel sum outweighs the detection terms through the shared trunk
-        n_dec = vmask.sum().clamp_min(1.0)
+        n_dec = all_reduce_sum(vmask.sum(), mesh).clamp_min(1.0)
         loss_shape = cfg.lambda_shape * (per * vmask).sum() / (n_dec * float(math.prod(voxels.shape[2:])))
         metrics["loss_shape"] = loss_shape
         total = total + loss_shape
@@ -141,22 +158,35 @@ def detector_losses(model: DetectorReconstructor, cfg: DetectorLossConfig, batch
             metrics["precision"] = torch.where(sel, tp / (tp + fp + 1e-10), zero).sum() / n_dec
             metrics["recall"] = torch.where(sel, tp / (tp + fn + 1e-10), zero).sum() / n_dec
 
-    total = total + l2_penalty(dict(model.named_parameters()), cfg.l2_weight)
+    total = total + rank_share(l2_penalty(dict(model.named_parameters()), cfg.l2_weight), mesh)
     metrics["loss_total"] = total
-    return total, {name: v.detach() for name, v in metrics.items()}
+    return total, reduce_metrics({name: v.detach() for name, v in metrics.items()}, mesh)
 
 
-def make_detector_train_step(model: DetectorReconstructor, cfg: DetectorLossConfig = DetectorLossConfig()):
+def detector_loss_and_grads(model: DetectorReconstructor, cfg: DetectorLossConfig, batch: Batch,
+                            generator: Optional[torch.Generator] = None,
+                            draws: Optional[Mapping[str, torch.Tensor]] = None, mesh=None):
+    """(gradients by parameter name, metrics): zero for a parameter no term
+    reaches, as JAX's are; with a ``mesh``, all-reduced in float32."""
+    total, metrics = detector_losses(model, cfg, batch, generator, draws, mesh)
+    names, params = zip(*model.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)))
+    if mesh is not None:
+        grads = all_reduce_grads(grads, mesh)
+    return grads, metrics
+
+
+def make_detector_train_step(model: DetectorReconstructor, cfg: DetectorLossConfig = DetectorLossConfig(),
+                             mesh=None):
     """Build ``step(state, batch, generator=None, draws=None) -> (state,
-    metrics)``: the losses, their gradients (zero for a parameter no term
-    reaches, as JAX's are), the update zeroed whole on a non-finite gradient,
-    Adam. ``state`` is updated in place; ``metrics`` are scalars on the device."""
+    metrics)``: the losses, their gradients, the update zeroed whole on a
+    non-finite gradient, Adam. ``state`` is updated in place; ``metrics`` are
+    scalars on the device. With a ``mesh``, the step of the global batch
+    whose rows ``batch`` and ``draws`` hold."""
 
     def step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
              draws: Optional[Mapping[str, torch.Tensor]] = None):
-        total, metrics = detector_losses(model, cfg, batch, generator, draws)
-        names, params = zip(*model.named_parameters())
-        grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
-        return apply_gradients_if_finite(state, dict(zip(names, grads)), metrics)
+        grads, metrics = detector_loss_and_grads(model, cfg, batch, generator, draws, mesh)
+        return apply_gradients_if_finite(state, grads, metrics)
 
     return step

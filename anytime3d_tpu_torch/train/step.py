@@ -15,11 +15,24 @@ samples of the category and instance blocks; a one-block latent draws from
 and element mask), ``drop_rate`` and ``drop_keep`` (the `_dr` variants'
 dropout rate, U(0, 0.95), and keep mask, drawn after the mix).
 
-The explicit data-parallel step waits for the port of the mesh.
+Data parallelism (``parallel.make_mesh``; one process a device, each with
+its equal shard of the global batch). With a ``mesh`` the steps compute the
+single-device step on the global batch: every draw is made for the global
+batch from the ranks' common generator and sliced
+(``ops.sampling.batch_shard``), each batch mean is the rank's share of the
+global one (``parallel.global_mean``), the prior repulsion runs this rank's
+rows against the means of every rank (gathered with their gradients), the
+metrics are summed over the ranks, and the gradients are all-reduced in
+float32 before the finite check, so every rank takes the same update.
+``make_train_step_dp`` is the explicit data-parallel step instead: each
+rank differentiates the mean loss of its own shard with draws of its own,
+and the gradients are all-reduced in a lower precision (bfloat16 by
+default), upcast to float32 and then averaged.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -30,7 +43,15 @@ from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
 from anytime3d_tpu_torch.nn.blocks import space_to_depth3d
 from anytime3d_tpu_torch.ops.losses import focal_binary_loss, gaussian_kl, prior_repulsion, standard_gaussian_kl
 from anytime3d_tpu_torch.ops.metrics import voxel_tp_fp_fn
-from anytime3d_tpu_torch.ops.sampling import reparameterize
+from anytime3d_tpu_torch.ops.sampling import batch_shard, fold_in, reparameterize, uniform
+from anytime3d_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_reduce_grads,
+    data_rank_and_size,
+    global_mean,
+    rank_share,
+    reduce_metrics,
+)
 from anytime3d_tpu_torch.train.state import TrainState, grads_finite_flag, l2_penalty
 
 Batch = Mapping[str, torch.Tensor]
@@ -160,9 +181,9 @@ def _encode_and_sample(model: MultiModalVAE, cfg: LossConfig, batch: Batch, gene
         z_prior = torch.cat(parts, dim=-1)
         coin, take = draws.get("coin"), draws.get("take_prior")
         if coin is None:
-            coin = torch.rand((), generator=generator, device=z.device) < cfg.mix_coin_prob
+            coin = uniform((), generator, z.device) < cfg.mix_coin_prob
         if take is None:
-            take = torch.rand(z.shape, generator=generator, device=z.device) < cfg.mix_element_prob
+            take = uniform(z.shape, generator, z.device) < cfg.mix_element_prob
         z = torch.where(coin.bool() & take.bool(), z_prior, z)
 
     # the `_dr` variants: dropout on the (mixed) z at a rate drawn from U(0, 0.95) each step; in float32,
@@ -170,9 +191,9 @@ def _encode_and_sample(model: MultiModalVAE, cfg: LossConfig, batch: Batch, gene
     if mcfg.latent_dropout and not deterministic:
         rate, keep = draws.get("drop_rate"), draws.get("drop_keep")
         if rate is None:
-            rate = torch.rand((), generator=generator, device=z.device) * 0.95
+            rate = uniform((), generator, z.device) * 0.95
         if keep is None:
-            keep = torch.rand(z.shape, generator=generator, device=z.device) < 1.0 - rate
+            keep = uniform(z.shape, generator, z.device) < 1.0 - rate
         z = torch.where(keep.bool(), z.float() / (1.0 - rate.float()), 0.0)
 
     out["z"] = z
@@ -180,9 +201,16 @@ def _encode_and_sample(model: MultiModalVAE, cfg: LossConfig, batch: Batch, gene
     return out
 
 
+def sharded_draws(mesh):
+    """The context in which a rank of ``mesh`` draws its rows of the global batch's draws (none without a mesh)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return batch_shard(*data_rank_and_size(mesh))
+
+
 def compute_losses(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
                    generator: Optional[torch.Generator] = None, deterministic: bool = False,
-                   draws: Optional[Draws] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   draws: Optional[Draws] = None, mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns ``(total_loss, metrics)``. Batch keys: ``input`` (a dense
     (B, D, H, W, 1) grid, or (B, H, W, 3) images, float or uint8),
     ``input_packed`` or ``input_packed_blocked`` (bit-packed uint8,
@@ -190,18 +218,21 @@ def compute_losses(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
     ``target_packed`` or ``target_packed_blocked``), and ``category_onehot``
     / ``inst_onehot`` for the prior variants. The model's parameters are the
     ones differentiated; ``deterministic`` puts the model in eval mode (no
-    dropout, no prior mix)."""
+    dropout, no prior mix). With a ``mesh``, ``batch`` and ``draws`` are this
+    rank's rows, and the loss is its share of the global batch's (see the
+    module's doc)."""
     mcfg = model.config
     model.train(not deterministic)
     batch, blocked_in, blocked_out = materialize_batch(model, batch)
-    fwd = _encode_and_sample(model, cfg, batch, generator, deterministic, blocked_in, blocked_out, draws)
+    with sharded_draws(mesh):
+        fwd = _encode_and_sample(model, cfg, batch, generator, deterministic, blocked_in, blocked_out, draws)
     enc = fwd["enc"]
     # the voxel BCE sums ~262k log terms per sample: float32 whatever the model computes in
     pred = fwd["pred"].float()
     target = batch["target"].float()
 
     metrics: Dict[str, torch.Tensor] = {}
-    loss_shape = focal_binary_loss(pred, target, gamma=cfg.gamma, b_range=cfg.b_range).mean()
+    loss_shape = global_mean(focal_binary_loss(pred, target, gamma=cfg.gamma, b_range=cfg.b_range), mesh)
     metrics["loss_shape"] = loss_shape
     total = loss_shape
 
@@ -213,12 +244,12 @@ def compute_losses(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
                 mc, lvc = (t.float() for t in fwd["prior_cat"])
                 mean = enc.mean_category if enc.mean_category is not None else enc.mean_inst
                 log_var = enc.log_var_category if enc.log_var_category is not None else enc.log_var_inst
-                kl = kl + gaussian_kl(mean.float(), log_var.float(), mc, lvc).mean()
+                kl = kl + global_mean(gaussian_kl(mean.float(), log_var.float(), mc, lvc), mesh)
             if mcfg.prior_inst is not None:
                 mi, lvi = (t.float() for t in fwd["prior_inst"])
-                kl = kl + gaussian_kl(enc.mean_inst.float(), enc.log_var_inst.float(), mi, lvi).mean()
+                kl = kl + global_mean(gaussian_kl(enc.mean_inst.float(), enc.log_var_inst.float(), mi, lvi), mesh)
         else:
-            kl = standard_gaussian_kl(enc.mean.float(), enc.log_var.float()).mean()
+            kl = global_mean(standard_gaussian_kl(enc.mean.float(), enc.log_var.float()), mesh)
         metrics["loss_kl"] = kl
         total = total + cfg.kl_weight * kl
 
@@ -226,23 +257,27 @@ def compute_losses(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
         reg = 0.0
         if mcfg.prior_category is not None:
             mc, lvc = (t.float() for t in fwd["prior_cat"])
-            reg = reg + prior_repulsion(mc, lvc, cfg.reg_margin_scale_category * mc.shape[-1]).mean()
+            reg = reg + global_mean(prior_repulsion(mc, lvc, cfg.reg_margin_scale_category * mc.shape[-1],
+                                                    z_mean_cols=all_gather_rows(mc, mesh, grad=True)), mesh)
         if mcfg.prior_inst is not None:
             mi, lvi = (t.float() for t in fwd["prior_inst"])
             gate = batch["category_onehot"] if mcfg.category_dim > 0 else None
-            reg = reg + prior_repulsion(mi, lvi, cfg.reg_margin_scale_inst * mi.shape[-1], class_onehot=gate).mean()
+            reg = reg + global_mean(prior_repulsion(
+                mi, lvi, cfg.reg_margin_scale_inst * mi.shape[-1], class_onehot=gate,
+                z_mean_cols=all_gather_rows(mi, mesh, grad=True),
+                class_onehot_cols=None if gate is None else all_gather_rows(gate, mesh)), mesh)
         metrics["loss_reg"] = reg
         total = total + cfg.reg_weight * reg
 
     if cfg.l2_weight:  # skipped at weight 0: a reduction over every kernel otherwise
-        total = total + l2_penalty(dict(model.named_parameters()), cfg.l2_weight)
+        total = total + rank_share(l2_penalty(dict(model.named_parameters()), cfg.l2_weight), mesh)
 
     with torch.no_grad():
         tp, fp, fn = voxel_tp_fp_fn(target, pred)
-        metrics["precision"] = (tp / (tp + fp + 1e-10)).mean()
-        metrics["recall"] = (tp / (tp + fn + 1e-10)).mean()
+        metrics["precision"] = global_mean(tp / (tp + fp + 1e-10), mesh)
+        metrics["recall"] = global_mean(tp / (tp + fn + 1e-10), mesh)
     metrics["loss_total"] = total
-    return total, {k: v.detach() for k, v in metrics.items()}
+    return total, reduce_metrics({k: v.detach() for k, v in metrics.items()}, mesh)
 
 
 def apply_gradients_if_finite(state: TrainState, grads: Dict[str, torch.Tensor],
@@ -263,27 +298,68 @@ def apply_gradients_if_finite(state: TrainState, grads: Dict[str, torch.Tensor],
 StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
 
 
-def make_train_step(model: MultiModalVAE, cfg: LossConfig = LossConfig()) -> StepFn:
+def loss_and_grads(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
+                   generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None,
+                   mesh=None) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(gradients by parameter name, metrics) of the train loss; with a
+    ``mesh``, the global batch's, the gradients all-reduced in float32."""
+    total, metrics = compute_losses(model, cfg, batch, generator, deterministic=False, draws=draws, mesh=mesh)
+    names, params = zip(*model.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(total, params)))
+    if mesh is not None:
+        grads = all_reduce_grads(grads, mesh)
+    return grads, metrics
+
+
+def make_train_step(model: MultiModalVAE, cfg: LossConfig = LossConfig(), mesh=None) -> StepFn:
     """Build ``step(state, batch, generator=None, draws=None) -> (state, metrics)``.
-    ``state`` is updated in place; ``metrics`` are scalars on the device."""
+    ``state`` is updated in place; ``metrics`` are scalars on the device.
+    With a ``mesh`` (``parallel.make_mesh``), ``batch`` and ``draws`` are this
+    rank's rows of the global batch, and the step is the single-device step
+    on that batch (see the module's doc)."""
 
     def step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
              draws: Optional[Draws] = None):
-        total, metrics = compute_losses(model, cfg, batch, generator, deterministic=False, draws=draws)
-        names, params = zip(*model.named_parameters())
-        grads = dict(zip(names, torch.autograd.grad(total, params)))
+        grads, metrics = loss_and_grads(model, cfg, batch, generator, draws, mesh)
         return apply_gradients_if_finite(state, grads, metrics)
 
     return step
 
 
-def make_eval_step(model: MultiModalVAE, cfg: LossConfig = LossConfig()):
+def make_train_step_dp(model: MultiModalVAE, cfg: LossConfig = LossConfig(), mesh=None,
+                       grad_psum_dtype: Optional[torch.dtype] = torch.bfloat16) -> StepFn:
+    """The explicit data-parallel step over ``mesh``'s "data" ranks, each
+    with its own shard of the batch: each rank takes the gradient of its
+    shard's mean loss (the prior repulsion within the shard) under draws of
+    its own (``ops.sampling.fold_in`` of the generator by the rank, or the
+    given ``draws``), casts it to ``grad_psum_dtype`` (None: float32), and one
+    all-reduce sums the ranks' gradients; the sum is upcast to float32 and
+    only then divided by the number of ranks. Metrics are averaged in
+    float32. Then the guarded Adam update, the same on every rank.
+    ``step(state, batch, generator=None, draws=None) -> (state, metrics)``."""
+    if mesh is None:
+        raise ValueError("make_train_step_dp needs a mesh")
+    rank, _ = data_rank_and_size(mesh)
+    dtype = grad_psum_dtype or torch.float32
+
+    def step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
+             draws: Optional[Draws] = None):
+        own = fold_in(generator, rank) if generator is not None and draws is None else None
+        grads, metrics = loss_and_grads(model, cfg, batch, own, draws)
+        grads = all_reduce_grads(grads, mesh, dtype=dtype, average=True)
+        return apply_gradients_if_finite(state, grads, reduce_metrics(metrics, mesh, average=True))
+
+    return step
+
+
+def make_eval_step(model: MultiModalVAE, cfg: LossConfig = LossConfig(), mesh=None):
     """Build ``step(batch, generator=None, draws=None) -> metrics``: the losses
-    and P/R at a posterior sample, no dropout, no prior mix, no gradient."""
+    and P/R at a posterior sample, no dropout, no prior mix, no gradient;
+    with a ``mesh``, of the global batch whose rows ``batch`` holds."""
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None):
         with torch.no_grad():
-            _, metrics = compute_losses(model, cfg, batch, generator, deterministic=True, draws=draws)
+            _, metrics = compute_losses(model, cfg, batch, generator, deterministic=True, draws=draws, mesh=mesh)
         return metrics
 
     return step

@@ -21,6 +21,15 @@ and aborts otherwise; a final save follows unless the run aborted. The
 multi-scale image schedule changes the batch a loader makes, so it lives in
 the batch function (``cli.train.build_batch_fn``), which walks
 :func:`multi_scale_schedule`.
+
+``use_mesh`` trains data-parallel over every rank of the run
+(``parallel.make_mesh``, one process a device): every rank calls
+``batch_fn`` for the same global batch and keeps its rows, and the default
+steps (or the ``step_fn`` a caller builds with the same mesh) compute the
+single-device step on the global batch, so every rank holds the same state
+after each step. Rank 0 alone logs to ``jsonl_path`` and prints, and alone
+writes the checkpoints, each of which every rank waits for at a barrier, so
+that a restore reads a whole file.
 """
 
 from __future__ import annotations
@@ -34,9 +43,10 @@ import torch
 
 from anytime3d_tpu_torch.anytime.engine import anytime_eval
 from anytime3d_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+from anytime3d_tpu_torch.parallel import data_rank_and_size, make_global_batch, make_mesh, reduce_metrics
 from anytime3d_tpu_torch.train.checkpoint import restore_state, save_state
 from anytime3d_tpu_torch.train.state import TrainState
-from anytime3d_tpu_torch.train.step import LossConfig, make_eval_step, make_train_step
+from anytime3d_tpu_torch.train.step import LossConfig, make_eval_step, make_train_step, sharded_draws
 from anytime3d_tpu_torch.utils.logging import MetricLogger
 
 
@@ -54,6 +64,8 @@ class TrainerConfig:
     prefetch_depth: int = 2
     # on a non-finite loss, restore the last checkpoint this many times before aborting
     max_nan_restarts: int = 0
+    # data parallel over every rank of the run, the batch split over them
+    use_mesh: bool = False
 
 
 class Trainer:
@@ -82,10 +94,13 @@ class Trainer:
         self.cfg = config
         self.loss_cfg = loss_config
         self.device = next(model.parameters()).device
+        self.mesh = make_mesh(device=self.device) if config.use_mesh else None
+        self.rank = data_rank_and_size(self.mesh)[0]
         self._custom_step = step_fn is not None
-        self.step_fn = step_fn or make_train_step(model, loss_config)
-        self.eval_fn = eval_fn or (None if step_fn else make_eval_step(model, loss_config))
-        self.logger = MetricLogger(config.jsonl_path, print_every=config.log_every)
+        self.step_fn = step_fn or make_train_step(model, loss_config, mesh=self.mesh)
+        self.eval_fn = eval_fn or (None if step_fn else make_eval_step(model, loss_config, mesh=self.mesh))
+        lead = self.rank == 0
+        self.logger = MetricLogger(config.jsonl_path if lead else None, print_every=config.log_every if lead else 0)
         self.history: List[Dict[str, float]] = []
         self.eval_history: List[Dict[str, float]] = []
         self.aborted_nan = False
@@ -96,6 +111,20 @@ class Trainer:
     def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return to_device(batch, self.device)
 
+    def _host_batch(self, fn: Callable[[int], Mapping[str, np.ndarray]], it: int) -> Mapping[str, np.ndarray]:
+        """``fn(it)``, or under a mesh this rank's rows of it."""
+        batch = fn(it)
+        return batch if self.mesh is None else make_global_batch(batch, self.mesh)
+
+    def _save(self, wait: bool) -> None:
+        """Save the state; under a mesh rank 0 writes it whole and every rank waits for it at a barrier."""
+        if self.mesh is None:
+            save_state(self.cfg.save_path, self.state, wait=wait)
+            return
+        if self.rank == 0:
+            save_state(self.cfg.save_path, self.state, wait=True)
+        torch.distributed.barrier(group=self.mesh.get_group("data"))
+
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -105,7 +134,8 @@ class Trainer:
         if self.cfg.prefetch_depth <= 0:
             return None
         steps = iter(range(start, self.cfg.total_steps))
-        return DevicePrefetcher(lambda: self.batch_fn(next(steps)), self.device, self.cfg.prefetch_depth)
+        return DevicePrefetcher(lambda: self._host_batch(self.batch_fn, next(steps)), self.device,
+                                self.cfg.prefetch_depth)
 
     def run(self, epoch_fn: Optional[Callable[[], int]] = None) -> TrainState:
         self._stream = self._prefetcher(self.state.step)
@@ -122,7 +152,8 @@ class Trainer:
         it = self.state.step
         nan_restarts, last_saved_step = 0, -1
         while it < cfg.total_steps:
-            batch = self._stream.get() if self._stream is not None else self.to_device(self.batch_fn(it))
+            batch = (self._stream.get() if self._stream is not None
+                     else self.to_device(self._host_batch(self.batch_fn, it)))
             self.state, metrics = self.step_fn(self.state, batch, generator)
             if it % cfg.log_every == 0 or it == cfg.total_steps - 1:
                 host_metrics = {k: float(v) for k, v in metrics.items()}
@@ -147,13 +178,13 @@ class Trainer:
             # finite loss with overflowed gradients would save poison too (two scalar syncs a save)
             if cfg.save_path and (it + 1) % cfg.save_every == 0:
                 if math.isfinite(float(metrics["loss_total"])) and float(metrics["grads_finite"]) > 0:
-                    save_state(cfg.save_path, self.state, wait=False)
+                    self._save(wait=False)
                     last_saved_step = it
             if self.eval_batch_fn is not None and cfg.eval_every > 0 and (it + 1) % cfg.eval_every == 0:
                 self.evaluate(it)
             it += 1
         if cfg.save_path and not self.aborted_nan:
-            save_state(cfg.save_path, self.state)
+            self._save(wait=True)
         self.logger.close()
         return self.state
 
@@ -161,17 +192,21 @@ class Trainer:
         """Losses and P/R of one eval batch at a posterior sample, no gradient;
         for a model with a category prior, also the anytime protocol on the
         same batch at ``eval_missing_prob`` (``anytime_*``). Both draw from
-        generators seeded with ``it``. Without an ``eval_fn``, nothing."""
+        generators seeded with ``it``; under a mesh, of the global eval batch.
+        Without an ``eval_fn``, nothing."""
         if self.eval_fn is None:
             return {}
-        batch = self.to_device(self.eval_batch_fn(it))
+        batch = self.to_device(self._host_batch(self.eval_batch_fn, it))
         metrics = self.eval_fn(batch, self._generator(it))
         out = {f"eval_{k}": float(v) for k, v in metrics.items()}
         if not self._custom_step and self.model.config.prior_category is not None and self.cfg.eval_missing_prob > 0:
-            anytime = anytime_eval(self.model, batch, self._generator(it), missing_prob=self.cfg.eval_missing_prob)
+            with sharded_draws(self.mesh):  # under a mesh the global batch's draws; every metric is a batch mean
+                anytime = anytime_eval(self.model, batch, self._generator(it), missing_prob=self.cfg.eval_missing_prob)
+            anytime = reduce_metrics(anytime, self.mesh, average=True)
             out.update({f"anytime_{k}": float(v) for k, v in anytime.items()})
         self.eval_history.append(out)
-        print("\n" + " ".join(f"{k}:{v:.4f}" for k, v in sorted(out.items())))
+        if self.rank == 0:
+            print("\n" + " ".join(f"{k}:{v:.4f}" for k, v in sorted(out.items())))
         return out
 
 

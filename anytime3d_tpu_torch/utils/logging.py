@@ -1,6 +1,7 @@
 """Metric logging: running means, a live stdout line and a JSONL file sink.
 
-Counterpart of ``anytime3d_tpu/utils/logging.py``.
+Counterpart of ``anytime3d_tpu/utils/logging.py``. ``print_every`` 0 prints
+nothing (the ranks after the first of a data-parallel run).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ class MetricLogger:
             rec = {"step": step, "epoch": epoch, "t": round(time.time() - self._t0, 3)}
             rec.update({k: float(v) for k, v in metrics.items()})
             self._fh.write(json.dumps(rec) + "\n")
-        if step % self._print_every == 0:
+        if self._print_every and step % self._print_every == 0:
             self._print_line(step, epoch)
 
     def means(self) -> Dict[str, float]:

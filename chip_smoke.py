@@ -196,7 +196,30 @@ order, any failure ending the run with a non-zero exit:
    it; (g) ``kmeans_sincos`` and ``orientation_anchors`` (k=30, 1000
    iterations, 8192 seeded Euler triples) card against CPU: assignments
    equal, centres within ``KMEANS_TOL``, each fit's host wall. The phase's
-   wall time printed.
+   wall time printed;
+17. the mapping geometry and data parallelism (``phase_mapping_dp``): (a)
+   ``evaluation/viz.py::draw_scene`` on ``viz_scene()``, its sha256 held to
+   the one the CPU tests pin (``VIZ_SHA256``), then on phase 12's f32 scene
+   pass, the host ms of a draw; (b) bundle adjustment, P=32 poses, L=8192
+   landmarks, f32 on the card: the first step's residuals, Jacobians and
+   reduced system against the CPU (``GEOM_TOL``) and its float64 update
+   (1e-9), then a 10-step ``solve`` whose mse must fall 20x, ms a step; (c)
+   the pose graph, N=64, E=192: the first step against the CPU, 10 steps
+   whose cost must fall, ms a step; (d) Harris keypoints (256), descriptors
+   and matches on a 375x1242 frame and its shifted copy, card against CPU
+   (keypoints and matches equal), ms each; (e) ``two_view_pose`` of 512
+   seeded correspondences: R and t against the truth and the CPU, ms; (f)
+   ``cli/train.py --mesh`` at one rank (NCCL) against the same run without
+   it, ``MESH_STEPS`` bf16 steps at B=32 with cuDNN deterministic: every
+   logged metric equal bit for bit, 4 / 3 / 4 ``wgmma`` launches a step,
+   the step's device ms beside, the gradient all-reduce's ms in f32 and
+   bf16; ``make_train_step_dp`` at one rank against the plain step fed its
+   gradients rounded to bf16 (parameters and metrics bit for bit); (g)
+   ``fuse_sequence_sharded`` and ``observe_stream(mesh=)`` against
+   ``fuse_sequence``; (h) ``cli/pretrain.py --mesh`` and
+   ``cli/train_detector.py --mesh`` 2 steps each (the detector 1 / 1 / 1
+   narrow launches a step). The process group is destroyed at the end; the
+   phase's wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -679,7 +702,7 @@ def phase_kernels(card: str) -> dict:
 
 def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict, life_counts: dict,
                    artifact_counts: dict, image_counts: dict, detector_counts: dict, variant_counts: dict,
-                   stream_counts: dict, real_counts: dict) -> list:
+                   stream_counts: dict, real_counts: dict, mapping_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
@@ -690,14 +713,16 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     restored and evaluate runs, its exported programs' batches, the image
     phase's runs, the detector phase's, the variants phase's, the
     pretraining and streaming phase's (the graft's steps, the structural
-    train run, the streaming reconstructor) and the real-data phase's (the
-    f32 step, the Pascal3D, KITTI and detector train runs);
+    train run, the streaming reconstructor), the real-data phase's (the
+    f32 step, the Pascal3D, KITTI and detector train runs) and the mapping and
+    data-parallel phase's (the train runs with and without ``--mesh``, the
+    explicit DP step and its reference, the detector's ``--mesh`` run);
     ``launches_wgmma`` is the part of
     them that took the tensor-core kernels, ``launches_narrow`` the part that
     took the narrow kernels (the detector's final conv, all three in both
     types)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
-             variant_counts, stream_counts, real_counts)
+             variant_counts, stream_counts, real_counts, mapping_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
@@ -720,6 +745,7 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "launches_variants": variant_counts[kernel],
             "launches_pretrain_stream": stream_counts[kernel],
             "launches_real_data": real_counts[kernel],
+            "launches_mapping_dp": mapping_counts[kernel],
             **head,
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
@@ -2048,6 +2074,7 @@ def phase_detector(device: torch.device, card: str) -> dict:
         if not err <= SLICE_TOL_F32:
             raise AssertionError("detector reconstruct: card f32 disagrees with the CPU")
     scene = scene_reconstruction(model_gpu, frame_gpu, DET_IMAGE_PX, sample_shapes=False)
+    DETECTOR_SCENE.update(frame=frame[0], scene=scene)  # drawn in phase 17
     scene_cpu = scene_reconstruction(model_cpu, frame, DET_IMAGE_PX, sample_shapes=False)
     line = compare_lifts("detector scene", scene, scene_cpu, 1)
     print(f"detector f32 card vs CPU, scene_reconstruction (sample_shapes=False): {line}", flush=True)
@@ -2988,6 +3015,36 @@ def real_train_line(what: str, trainer, step_ms: np.ndarray, host: np.ndarray, w
             f"memory allocated {peak / 2**30:.2f} GiB [{card}]")
 
 
+# phase 17: the mapping geometry and data parallelism
+# draw_scene of viz_scene(), as tests/test_torch_viz.py pins it
+VIZ_SHA256 = "c4f6fe7f9f06879d32eccebc10687b798a8c9782f807bbbff2be0c3d64c4ea11"
+BA_POSES, BA_LANDMARKS, BA_STEPS = 32, 8192, 10
+PG_NODES, PG_EDGES, PG_STEPS = 64, 192, 10
+FEATURE_KEYPOINTS = 256
+FEATURE_SHIFT = (3, 5)  # (rows, cols) of the shifted copy
+TWOVIEW_POINTS = 512
+TWOVIEW_TOL = (1e-2, 1e-3)  # R and t against the truth (1e-4 of noise, the f32 eigh of A^T A), and card against CPU
+MESH_STEPS = 12  # --mesh and plain, each; every logged metric compared bit for bit
+GEOM_TOL = 1e-4  # f32 card against CPU, relative to the largest entry: the mapping tests' f32 tolerance
+DETECTOR_SCENE = {}  # phase 12's f32 scene pass on the card, drawn in phase 17
+
+
+def viz_scene() -> tuple:
+    """A fixed frame (120 x 160, values in [0, 1]) and a scene of 4 slots in
+    ``scene_reconstruction``'s keys: a lifted detection, a kept one that did
+    not lift, a dropped one and a lifted one half off the frame."""
+    rng = np.random.default_rng(SEED + 170)
+    image = rng.uniform(size=(120, 160, 3)).astype(np.float32)
+    bbox2d = np.array([[0.1, 0.1, 0.45, 0.5, 0.9], [0.5, 0.2, 0.9, 0.7, 0.8], [0.2, 0.6, 0.4, 0.9, 0.7],
+                       [0.8, 0.7, 1.2, 1.1, 0.6]], np.float32)
+    corners = np.stack([np.array([[20, 18], [22, 40], [48, 16], [50, 42], [28, 24], [30, 50], [60, 22], [62, 48]]) + 3 * k
+                        for k in range(4)]).astype(np.float32)
+    corners[3] += 120  # the last box mostly off the frame
+    scene = {"bbox2d": bbox2d, "bbox3d_corners_px": corners, "valid": np.array([True, False, False, True]),
+             "valid_det": np.array([True, True, False, True])}
+    return image, scene
+
+
 def phase_real_data(device: torch.device, card: str) -> dict:
     """The real-image data path on the card's host and the card: the
     fixture images read as the CPU tests read them, the native warp against its NumPy
@@ -3269,6 +3326,361 @@ def phase_real_data(device: torch.device, card: str) -> dict:
     return phase_counts
 
 
+def ba_problem(p: int, n_l: int, seed: int):
+    """``tests/test_ba.py::make_problem``'s scene at any size: ``p`` cameras
+    along x looking at ``n_l`` points about z = 10, pixels of the true poses
+    (``project``, float64) with 0.5 px of noise, every point seen by every
+    camera; the poses (but the gauge's) and the points perturbed. A CPU float32
+    ``BAProblem``."""
+    from torch.func import vmap
+
+    from anytime3d_tpu_torch.geometry.ba import BAProblem, project
+
+    rng = np.random.default_rng(seed)
+    poses = np.zeros((p, 6))
+    poses[:, 3] = np.linspace(-1, 1, p)
+    poses[:, :3] = rng.normal(0, 0.02, (p, 3))
+    points = rng.normal([0, 0, 10], [2, 2, 1], (n_l, 3))
+    intr = torch.tensor([500.0, 500.0, 320.0, 240.0], dtype=torch.float64)
+    obs = vmap(vmap(lambda pose, pt: project(pose, pt, intr), in_dims=(None, 0)), in_dims=(0, None))(
+        torch.from_numpy(poses), torch.from_numpy(points)).numpy()
+    obs = obs + rng.normal(0, 0.5, obs.shape)
+    poses0 = poses + rng.normal(0, 0.05, poses.shape)
+    poses0[0] = poses[0]
+    points0 = points + rng.normal(0, 0.2, points.shape)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    return BAProblem(f32(poses0), f32(points0), f32(obs), torch.ones((p, n_l)), intr.float())
+
+
+def pose_graph(n: int, n_edges: int, seed: int):
+    """A chain of ``n`` poses (a turn of 0.05 rad and 1 m a step, jittered),
+    its noisy odometry (0.1 m on each translation) and ``n_edges - n + 1``
+    exact loop closures between seeded pairs; the poses start from the noisy
+    odometry integrated. A CPU float32 ``PoseGraph``."""
+    from anytime3d_tpu_torch.geometry.posegraph import PoseGraph, compose, relative
+
+    rng = np.random.default_rng(seed)
+    gt = [torch.zeros(6, dtype=torch.float64)]
+    for _ in range(n - 1):
+        step = torch.tensor([0.0, 0.0, 0.05, 1.0, 0.0, 0.0], dtype=torch.float64) + torch.from_numpy(
+            rng.normal(0, 0.01, 6))
+        gt.append(compose(gt[-1], step))
+    ei, ej, meas, w = [], [], [], []
+    for i in range(n - 1):
+        m = relative(gt[i], gt[i + 1]).numpy()
+        m[3:] += rng.normal(0, 0.1, 3)
+        ei, ej, meas, w = ei + [i], ej + [i + 1], meas + [m], w + [1.0]
+    while len(ei) < n_edges:
+        i, j = sorted(rng.choice(n, 2, replace=False))
+        ei, ej, meas, w = ei + [i], ej + [j], meas + [relative(gt[i], gt[j]).numpy()], w + [2.0]
+    poses = [torch.zeros(6, dtype=torch.float64)]
+    for i in range(n - 1):
+        poses.append(compose(poses[-1], torch.from_numpy(meas[i])))
+    return PoseGraph(torch.stack(poses).float(), torch.tensor(ei), torch.tensor(ej),
+                     torch.from_numpy(np.asarray(meas, np.float32)), torch.tensor(w))
+
+
+def two_view_pair(n: int, seed: int, noise: float = 1e-4) -> tuple:
+    """``tests/test_twoview.py::_synthetic_pair`` at ``n`` points: calibrated
+    (pts1, pts2) float32 of a seeded scene under a seeded motion, and (R, t)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-1.0, -1.0, 4.0], [1.0, 1.0, 8.0], size=(n, 3))
+    aa = 0.15 * rng.standard_normal(3)
+    theta = np.linalg.norm(aa)
+    k = aa / theta
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    r = np.eye(3) + np.sin(theta) * kx + (1 - np.cos(theta)) * kx @ kx
+    t = np.array([0.5, -0.1, 0.2])
+    pc2 = pts @ r.T + t
+    p1 = pts[:, :2] / pts[:, 2:3] + rng.normal(scale=noise, size=(n, 2))
+    p2 = pc2[:, :2] / pc2[:, 2:3] + rng.normal(scale=noise, size=(n, 2))
+    return torch.from_numpy(p1.astype(np.float32)), torch.from_numpy(p2.astype(np.float32)), r, t
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, on the CPU in float64."""
+    got, want = (torch.as_tensor(x).detach().cpu().double() for x in (got, want))
+    return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-30)
+
+
+def event_ms(fn) -> tuple:
+    """(fn's result, its milliseconds by CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_mapping_dp(device: torch.device, card: str) -> dict:
+    """Phase 17: drawing, the mapping geometry and data parallelism at one
+    rank (NCCL on the card). Returns the phase's launch counts."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from anytime3d_tpu_torch.anytime import AnytimeReconstructor
+    from anytime3d_tpu_torch.anytime.engine import fuse_sequence, fuse_sequence_sharded
+    from anytime3d_tpu_torch.cli import pretrain as cli_pretrain
+    from anytime3d_tpu_torch.cli import train_detector as cli_det
+    from anytime3d_tpu_torch.evaluation.viz import draw_scene
+    from anytime3d_tpu_torch.geometry import ba, features, posegraph, twoview
+    from anytime3d_tpu_torch.ops.sampling import fold_in
+    from anytime3d_tpu_torch.parallel import all_reduce_grads, make_mesh
+    from anytime3d_tpu_torch.parallel import mesh as mesh_module
+    from anytime3d_tpu_torch.train.step import loss_and_grads, make_train_step_dp
+
+    t_phase = time.perf_counter()
+    phase_counts = dict.fromkeys(read_counts(), 0)
+    cpu = torch.device("cpu")
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            phase_counts[k] += v
+
+    # (a) drawing: the pinned frame, then phase 12's scene pass from the card
+    image, scene = viz_scene()
+    digest = hashlib.sha256(draw_scene(image, scene).tobytes()).hexdigest()
+    if digest != VIZ_SHA256:
+        raise AssertionError(f"viz: draw_scene gives {digest} on this host, the CPU tests pin {VIZ_SHA256}")
+    line = "no scene pass (phase 12 did not run)"
+    if DETECTOR_SCENE:
+        frame, det_scene = DETECTOR_SCENE["frame"], DETECTOR_SCENE["scene"]
+        drawn = draw_scene(frame, det_scene)
+        if drawn.shape != tuple(frame.shape) or drawn.dtype != np.uint8:
+            raise AssertionError(f"viz: the scene pass drew a {drawn.shape} {drawn.dtype} frame")
+        line = (f"phase 12's scene pass ({int(det_scene['valid_det'].sum())} detections kept, "
+                f"{int(det_scene['valid'].sum())} lifted) drawn on its {frame.shape[0]}x{frame.shape[1]} frame in "
+                f"{mean_ms(lambda _: draw_scene(frame, det_scene), 10):.3f} ms of host")
+    print(f"mapping (a) viz: the pinned frame's drawing equals the CPU tests' (sha256 {digest[:16]}...); {line} "
+          f"[{card}]", flush=True)
+
+    # (b) bundle adjustment at P x L on the card: the first step's pieces and update against the CPU, then a solve
+    problem = ba_problem(BA_POSES, BA_LANDMARKS, SEED + 171)
+    on = lambda prob, dev, dtype=torch.float32: ba.BAProblem(  # noqa: E731
+        *(getattr(prob, f.name).to(dev, dtype) for f in dataclasses.fields(prob)))
+    args = lambda prob: (prob.poses, prob.points, prob.observations, prob.mask, prob.intrinsics)  # noqa: E731
+    pieces = {}
+    for dev in (device, cpu):
+        r, jp, jl = ba._residual_and_jacobians(*args(on(problem, dev)))
+        s, rhs, *_ = ba._schur_reduce(r, jp, jl, 1e-3)
+        pieces[dev.type] = {"r": r, "jp": jp, "jl": jl, "S": s, "rhs": rhs}
+    errs = {k: rel_err(pieces[device.type][k], pieces["cpu"][k]) for k in pieces["cpu"]}
+    step64 = {dev.type: ba.ba_step(on(problem, dev, torch.float64))[0] for dev in (device, cpu)}
+    err64 = max(rel_err(getattr(step64[device.type], k), getattr(step64["cpu"], k)) for k in ("poses", "points"))
+    del pieces, step64
+    if max(errs.values()) > GEOM_TOL or err64 > 1e-9:
+        raise AssertionError(f"ba: the card's first step against the CPU's: f32 {errs}, f64 update {err64}")
+    gpu_problem = on(problem, device)
+    ba.solve(gpu_problem, iters=1)  # warm-up
+    (final, hist), solve_ms = event_ms(lambda: ba.solve(gpu_problem, iters=BA_STEPS))
+    hist = hist.cpu().numpy()
+    if not (np.all(np.isfinite(hist)) and hist[-1] < 0.05 * hist[0]):
+        raise AssertionError(f"ba: the mse history does not fall 20x: {hist}")
+    w_mb = BA_LANDMARKS * BA_POSES * 6 * 3 * 4 / 1e6
+    print(f"mapping (b) bundle adjustment P={BA_POSES}, L={BA_LANDMARKS} (W {w_mb:.1f} MB), f32 on the card: the "
+          f"first step's residuals, Jacobians and reduced system against the CPU within "
+          f"{max(errs.values()):.2e} of each array's largest entry (tol {GEOM_TOL}), its f64 update within "
+          f"{err64:.2e}; {BA_STEPS} steps, mse {hist[0]:.3f} -> {hist[-1]:.3f}, {solve_ms / BA_STEPS:.2f} ms a step "
+          f"[{card}]", flush=True)
+
+    # (c) the pose graph
+    graph = pose_graph(PG_NODES, PG_EDGES, SEED + 172)
+    g_on = lambda dev: posegraph.PoseGraph(  # noqa: E731
+        *(getattr(graph, f.name).to(dev) for f in dataclasses.fields(graph)))
+    first = {dev.type: posegraph.pgo_step(g_on(dev)) for dev in (device, cpu)}
+    err = rel_err(first[device.type][0].poses, first["cpu"][0].poses)
+    cost_err = rel_err(first[device.type][1], first["cpu"][1])
+    if err > GEOM_TOL or cost_err > GEOM_TOL:
+        raise AssertionError(f"pose graph: the card's first step is {err} (cost {cost_err}) off the CPU's")
+    gpu_graph = g_on(device)
+    posegraph.solve_pose_graph(gpu_graph, iters=1)
+    (final_g, hist_g), pg_ms = event_ms(lambda: posegraph.solve_pose_graph(gpu_graph, iters=PG_STEPS))
+    hist_g = hist_g.cpu().numpy()
+    if not (np.all(np.isfinite(hist_g)) and hist_g[-1] < hist_g[0]):
+        raise AssertionError(f"pose graph: the cost does not fall: {hist_g}")
+    print(f"mapping (c) pose graph N={PG_NODES}, E={PG_EDGES} (a {6 * PG_EDGES}x{6 * PG_NODES} Jacobian), f32 on "
+          f"the card: the first step within {err:.2e} of the CPU's (cost {cost_err:.2e}, tol {GEOM_TOL}); "
+          f"{PG_STEPS} steps, cost {hist_g[0]:.3f} -> {hist_g[-1]:.5f}, {pg_ms / PG_STEPS:.2f} ms a step [{card}]",
+          flush=True)
+
+    # (d) features on a KITTI-sized frame and its shifted copy
+    rgb = photo_frame(*KITTI_FRAME, SEED + 173).astype(np.float32) / 255.0
+    frames = [torch.from_numpy(rgb), torch.from_numpy(np.roll(rgb, FEATURE_SHIFT, (0, 1)))]
+    out = {}
+    for dev in (device, cpu):
+        fa, fb = (f.to(dev) for f in frames)
+        ka, kb = (features.detect_keypoints(f, FEATURE_KEYPOINTS) for f in (fa, fb))
+        da, db = features.extract_descriptors(fa, ka), features.extract_descriptors(fb, kb)
+        out[dev.type] = (ka, kb, da, db, features.match_descriptors(da, db, ka.valid, kb.valid))
+    (ka, kb, da, db, m), (cka, ckb, cda, cdb, cm) = out[device.type], out["cpu"]
+    for got, want in ((ka, cka), (kb, ckb)):
+        if not (torch.equal(got.valid.cpu(), want.valid) and torch.equal(got.rowcol.cpu(), want.rowcol)):
+            raise AssertionError("features: the card's keypoints are not the CPU's")
+    if not (torch.equal(m.valid.cpu(), cm.valid) and torch.equal(m.index_b.cpu()[cm.valid], cm.index_b[cm.valid])):
+        raise AssertionError("features: the card's matches are not the CPU's")
+    d_err = max(rel_err(da, cda), rel_err(db, cdb))
+    moved = (ka.rowcol[m.index_a.long()] - kb.rowcol[m.index_b.long()])[m.valid].cpu().numpy()
+    on_shift = float(np.mean(np.all(moved == -np.asarray(FEATURE_SHIFT), axis=-1))) if len(moved) else 0.0
+    fa = frames[0].to(device)
+    t_det = cuda_ms(lambda: features.detect_keypoints(fa, FEATURE_KEYPOINTS), iters=10)
+    t_desc = cuda_ms(lambda: features.extract_descriptors(fa, ka), iters=10)
+    t_match = cuda_ms(lambda: features.match_descriptors(da, db, ka.valid, kb.valid), iters=10)
+    print(f"mapping (d) features on a {KITTI_FRAME[0]}x{KITTI_FRAME[1]} frame and its copy shifted by "
+          f"{FEATURE_SHIFT}: {int(ka.valid.sum())} + {int(kb.valid.sum())} keypoints of {FEATURE_KEYPOINTS}, "
+          f"{int(m.valid.sum())} matches ({on_shift:.0%} of them on the shift), keypoints and matches equal to the "
+          f"CPU's, descriptors within {d_err:.2e}; ms on the card: detect {t_det:.3f}, describe {t_desc:.3f}, match "
+          f"{t_match:.3f} [{card}]", flush=True)
+    if int(m.valid.sum()) < 10 or on_shift < 0.8:
+        raise AssertionError(f"features: {int(m.valid.sum())} matches, {on_shift:.0%} on the shift")
+
+    # (e) two-view pose
+    p1, p2, r_true, t_true = two_view_pair(TWOVIEW_POINTS, SEED + 174)
+    w = torch.ones(TWOVIEW_POINTS)
+    res = {dev.type: twoview.two_view_pose(p1.to(dev), p2.to(dev), w.to(dev)) for dev in (device, cpu)}
+    rg, rc = res[device.type], res["cpu"]
+    t_unit = t_true / np.linalg.norm(t_true)
+    r_err = float(np.abs(rg.rotation.cpu().numpy() - r_true).max())
+    t_err = float(np.abs(rg.translation.cpu().numpy() - t_unit).max())
+    cc = max(rel_err(rg.rotation, rc.rotation), rel_err(rg.translation, rc.translation))
+    e_sign = float(torch.sign((rg.essential.cpu() * rc.essential).sum()))
+    e_err = rel_err(rg.essential.cpu() * e_sign, rc.essential)
+    tv_ms = cuda_ms(lambda: twoview.two_view_pose(p1.to(device), p2.to(device), w.to(device)), iters=10)
+    print(f"mapping (e) two-view pose of {TWOVIEW_POINTS} calibrated correspondences (1e-4 noise), f32 on the card: "
+          f"R within {r_err:.2e} and t within {t_err:.2e} of the truth (tol {TWOVIEW_TOL[0]}); card against CPU: R "
+          f"and t within {cc:.2e} (tol {TWOVIEW_TOL[1]}), E within {e_err:.2e} up to sign; {tv_ms:.3f} ms [{card}]", flush=True)
+    if max(r_err, t_err) > TWOVIEW_TOL[0] or cc > TWOVIEW_TOL[1]:
+        raise AssertionError(f"two-view: R {r_err}, t {t_err}, card against CPU {cc}")
+
+    # (f) --mesh at one rank: NCCL on the card (gloo on the CPU), the flagship bf16 run with and without it
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False  # the two runs must take the same algorithms
+    try:
+        runs = {}
+        for flag in ([], ["--mesh"]):
+            args = cli_train.parse_args(["--config", "modelnet_nolbo", "--data", "synthetic", "--packed", "--bf16",
+                                         "--batch-size", str(TRAIN_BATCH), "--steps", str(MESH_STEPS),
+                                         "--eval-every", "0", "--device", device.type] + flag)
+            trainer, _ = cli_train.build_trainer(args)
+            events, entries = install_step_timer(trainer)
+            sync()
+            reset_counts()
+            trainer.run()
+            sync()
+            print("", flush=True)
+            check_trained(trainer, f"mesh run {flag}")
+            add(expect_counts(f"train run {flag}", 4 * MESH_STEPS, 3 * MESH_STEPS, 4 * MESH_STEPS,
+                              tensor_cores=device.type == "cuda"))
+            runs["mesh" if flag else "plain"] = (trainer, step_times(events, entries)[0])
+        mesh = runs["mesh"][0].mesh
+        backend = dist.get_backend(mesh.get_group("data"))
+        plain_rows, mesh_rows = runs["plain"][0].history, runs["mesh"][0].history
+        if plain_rows != mesh_rows:
+            raise AssertionError(f"--mesh at one rank: the metrics differ from the run without it: {mesh_rows} "
+                                 f"against {plain_rows}")
+        grads = {n: torch.randn_like(p) for n, p in runs["mesh"][0].model.named_parameters()}
+        n_params = sum(g.numel() for g in grads.values())
+        ar_f32 = cuda_ms(lambda: all_reduce_grads(grads, mesh), iters=10)
+        ar_bf16 = cuda_ms(lambda: all_reduce_grads(grads, mesh, dtype=torch.bfloat16, average=True), iters=10)
+        print(f"mapping (f) cli.train --mesh at 1 rank ({backend}): {MESH_STEPS} bf16 steps at B={TRAIN_BATCH}, every "
+              f"logged metric equal bit for bit to the run without --mesh (loss_total "
+              f"{plain_rows[0]['loss_total']:.4f} -> {plain_rows[-1]['loss_total']:.4f}); 4 / 3 / 4 conv_k2 "
+              f"launches a step on the tensor cores in both; device ms a step by CUDA events (steps "
+              f"{TRAIN_WARMUP}..{MESH_STEPS - 1}, cudnn deterministic) median {np.median(runs['mesh'][1]):.2f} "
+              f"with --mesh, {np.median(runs['plain'][1]):.2f} without; the gradient all-reduce of {n_params} "
+              f"parameters (one flat buffer) {ar_f32:.3f} ms in f32, {ar_bf16:.3f} ms in bf16 with the average "
+              f"[{card}]", flush=True)
+        del runs, grads
+
+        # make_train_step_dp at one rank against the plain step fed its gradients rounded to bf16
+        cfg = REGISTRY["modelnet_nolbo"]()
+        loss_cfg = configs.loss_config("modelnet_nolbo")
+        model_dp = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED)).to(device)
+        model_ref = copy.deepcopy(model_dp)
+        state_dp, state_ref = create_train_state(model_dp), create_train_state(model_ref)
+        rng = np.random.default_rng(SEED + 175)
+        batch = {"input_packed_blocked": torch.from_numpy(pack_voxels_blocked(
+            synthetic_grids(TRAIN_SLICE_BATCH, cfg.decoder.output_shape[0], SEED + 175), 4)).to(device),
+            "category_onehot": torch.from_numpy(np.eye(cfg.category_dim, dtype=np.float32)[
+                rng.integers(0, cfg.category_dim, TRAIN_SLICE_BATCH)]).to(device)}
+        gen = torch.Generator(device=device).manual_seed(SEED + 175)
+        gen_ref = torch.Generator(device=device)
+        gen_ref.set_state(gen.get_state())
+        reset_counts()
+        state_dp, m_dp = make_train_step_dp(model_dp, loss_cfg, mesh)(state_dp, batch, gen)
+        g_ref, m_ref = loss_and_grads(model_ref, loss_cfg, batch, fold_in(gen_ref, 0))
+        state_ref, m_ref = apply_gradients_if_finite(state_ref, {k: v.bfloat16().float() for k, v in g_ref.items()},
+                                                     m_ref)
+        sync()
+        add(expect_counts("make_train_step_dp and its reference, f32", 8, 6, 8, tensor_cores=False))
+        same = all(torch.equal(p, q) for p, q in zip(model_dp.parameters(), model_ref.parameters()))
+        m_same = {k: float(v) for k, v in m_dp.items()} == {k: float(v) for k, v in m_ref.items()}
+        if not (same and m_same):
+            raise AssertionError(f"make_train_step_dp at one rank: parameters equal {same}, metrics equal {m_same}")
+        print(f"mapping (f) make_train_step_dp at 1 rank, full width f32 B={TRAIN_SLICE_BATCH}: parameters and "
+              f"metrics after the step equal bit for bit to the plain step fed its gradients rounded to bf16 "
+              f"[{card}]", flush=True)
+
+        # (g) the sharded fusion at one rank against the sequential one
+        frng = np.random.default_rng(SEED + 176)
+        means, lvs = (torch.from_numpy(frng.normal(scale=s, size=(64, cfg.z_category_dim)).astype(np.float32))
+                      .to(device) for s in (1.0, 0.5))
+        masks = torch.from_numpy((frng.uniform(size=(64, cfg.z_category_dim)) > 0.4).astype(np.float32)).to(device)
+        rec = AnytimeReconstructor(model_dp)
+        prior = rec.new_object()
+        seq = fuse_sequence(means, lvs, masks, prior=prior)
+        fused = [fuse_sequence_sharded(mesh, means, lvs, masks, prior=prior),
+                 rec.observe_stream(prior, means, lvs, masks, mesh=mesh)]
+        f_err = max(max(rel_err(b.info, seq.info), rel_err(b.precision, seq.precision)) for b in fused)
+        print(f"mapping (g) fuse_sequence_sharded and observe_stream(mesh=) at 1 rank, 64 observations of "
+              f"{cfg.z_category_dim} dims: within {f_err:.2e} of fuse_sequence (the same sums in another order) "
+              f"[{card}]", flush=True)
+        if f_err > 1e-6:
+            raise AssertionError(f"fusion: the sharded form is {f_err} off the sequential one")
+        del model_dp, model_ref, state_dp, state_ref, rec
+
+        # (h) the two other CLIs with --mesh, 2 steps each
+        reset_counts()
+        pre = cli_pretrain.main(["--data", "synthetic", "--backbone", "darknet19", "--batch-size",
+                                 str(PRETRAIN_BATCH), "--image-size", str(PRETRAIN_SIZE), "--bf16", "--steps", "2",
+                                 "--mesh", "--device", device.type])
+        sync()
+        print("", flush=True)
+        check_trained(pre, "cli.pretrain --mesh")
+        add(expect_counts("cli.pretrain --mesh (2-D convolutions only)", 0, 0, 0, tensor_cores=False))
+        det, det_metrics = cli_det.main(["--bf16", "--batch-size", str(DET_TRAIN_BATCH), "--image-size",
+                                         str(DET_FRAME), str(DET_FRAME), "--grid-size", str(DET_GRID), str(DET_GRID),
+                                         "--voxel-dim", str(DET_VOXEL), "--max-slots", str(DET_SLOTS),
+                                         "--max-objects", str(DET_MAX_OBJECTS), "--max-detections",
+                                         str(DET_MAX_DETECTIONS), "--steps", "2", "--mesh", "--device", device.type])
+        sync()
+        check_trained(det, "cli.train_detector --mesh")
+        counts = read_counts()
+        add(counts)
+        if device.type == "cuda" and not (counts["conv_k2_dx"] == counts["conv_k2_dw"] == 2 <= counts["conv_k2"]
+                                          and counts["conv_k2_narrow"] == counts["conv_k2"]):
+            raise AssertionError(f"cli.train_detector --mesh: launches {counts}, expected 1 / 1 / 1 narrow a step")
+        print(f"mapping (h) cli.pretrain --mesh (darknet19, B={PRETRAIN_BATCH}, {PRETRAIN_SIZE}^2, bf16) and "
+              f"cli.train_detector --mesh (B={DET_TRAIN_BATCH}, {DET_FRAME}^2, bf16) 2 steps each at 1 rank: loss "
+              f"{pre.history[-1]['loss_total']:.3f} and {det.history[-1]['loss_total']:.3f}, detection eval "
+              f"{ {k: round(v, 3) for k, v in det_metrics.items() if k in ('map50', 'det_recall')} }; the "
+              f"detector's launches {counts} [{card}]", flush=True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mesh_module._mesh.cache_clear()
+    print(f"mapping and data parallel phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return phase_counts
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -3293,10 +3705,11 @@ def main() -> None:
     variant_counts = phase_variants(device, card)
     stream_counts = phase_pretrain_stream(device, card)
     real_counts = phase_real_data(device, card)
+    mapping_counts = phase_mapping_dp(device, card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts,
                                                 artifact_counts, image_counts, detector_counts, variant_counts,
-                                                stream_counts, real_counts)}),
+                                                stream_counts, real_counts, mapping_counts)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1034,3 +1034,95 @@ def test_pascal_nolbo_step_on_a_fixture_batch_on_card_matches_cpu(cuda):
     for k, g in out["cpu"][1].items():
         top = float(g.abs().max())
         assert float((out["card"][1][k] - g).abs().max()) <= 1e-3 * max(top, 1e-12), k
+
+
+def test_mapping_geometry_on_card_matches_cpu(cuda):
+    """The mapping layer at small sizes, card against CPU: a BA step's
+    residuals, Jacobians and reduced system (f32, 1e-4 of each array's
+    largest entry) and its update (f64, 1e-9); a pose-graph step (f32, 1e-4);
+    keypoints, descriptors and matches on a frame and its shifted copy
+    (keypoints and matches equal: every response is summed in one order on
+    both); the two-view pose (1e-3)."""
+    import chip_smoke
+    from anytime3d_tpu_torch.geometry import ba, features, posegraph, twoview
+
+    cpu = torch.device("cpu")
+    prob = chip_smoke.ba_problem(4, 96, 0)
+
+    def on(p, dev, dtype=torch.float32):
+        return ba.BAProblem(*(getattr(p, f.name).to(dev, dtype) for f in dataclasses.fields(p)))
+
+    pieces = {}
+    for dev in (cuda, cpu):
+        p = on(prob, dev)
+        r = ba._residual_and_jacobians(p.poses, p.points, p.observations, p.mask, p.intrinsics)
+        pieces[dev.type] = list(r) + list(ba._schur_reduce(*r, 1e-3)[:2])
+    for got, want in zip(pieces["cuda"], pieces["cpu"]):
+        assert chip_smoke.rel_err(got, want) <= 1e-4
+    new = {dev.type: ba.ba_step(on(prob, dev, torch.float64))[0] for dev in (cuda, cpu)}
+    assert chip_smoke.rel_err(new["cuda"].points, new["cpu"].points) <= 1e-9
+    _, hist = ba.solve(on(prob, cuda), iters=5)
+    assert float(hist[-1]) < float(hist[0])
+
+    graph = chip_smoke.pose_graph(8, 16, 1)
+    steps = {dev.type: posegraph.pgo_step(posegraph.PoseGraph(
+        *(getattr(graph, f.name).to(dev) for f in dataclasses.fields(graph)))) for dev in (cuda, cpu)}
+    assert chip_smoke.rel_err(steps["cuda"][0].poses, steps["cpu"][0].poses) <= 1e-4
+
+    rgb = chip_smoke.photo_frame(96, 128, 2).astype(np.float32) / 255.0
+    frames = [torch.from_numpy(rgb), torch.from_numpy(np.roll(rgb, (2, 3), (0, 1)))]
+    out = {}
+    for dev in (cuda, cpu):
+        ka, kb = (features.detect_keypoints(f.to(dev), 64) for f in frames)
+        da, db = (features.extract_descriptors(f.to(dev), k) for f, k in zip(frames, (ka, kb)))
+        out[dev.type] = (ka, kb, da, db, features.match_descriptors(da, db, ka.valid, kb.valid))
+    (ka, kb, da, db, m), (cka, ckb, cda, cdb, cm) = out["cuda"], out["cpu"]
+    for got, want in ((ka, cka), (kb, ckb)):
+        assert torch.equal(got.rowcol.cpu(), want.rowcol) and torch.equal(got.valid.cpu(), want.valid)
+    assert chip_smoke.rel_err(da, cda) <= 1e-5 and chip_smoke.rel_err(db, cdb) <= 1e-5
+    assert torch.equal(m.valid.cpu(), cm.valid) and torch.equal(m.index_b.cpu()[cm.valid], cm.index_b[cm.valid])
+    assert int(m.valid.sum()) >= 10
+
+    p1, p2, r_true, _ = chip_smoke.two_view_pair(128, 3)
+    w = torch.ones(128)
+    res = {dev.type: twoview.two_view_pose(p1.to(dev), p2.to(dev), w.to(dev)) for dev in (cuda, cpu)}
+    assert chip_smoke.rel_err(res["cuda"].rotation, res["cpu"].rotation) <= 1e-3
+    assert np.abs(res["cuda"].rotation.cpu().numpy() - r_true).max() < 1e-2
+
+
+def test_one_rank_nccl_mesh_step_equals_the_plain_step(cuda):
+    """The small model's train step with ``mesh=make_mesh()`` (one rank,
+    NCCL) against the step without it, 3 steps in bf16 from the same weights,
+    batch and draws, cuDNN deterministic: the metrics and the parameters equal
+    bit for bit (the all-reduces are sums of one)."""
+    import torch.distributed as dist
+
+    from anytime3d_tpu_torch.parallel import mesh as mesh_module
+
+    cfg, loss_cfg = small_config(dropout_rate=0.0, planned=True), loss_config("modelnet_nolbo")
+    rng = np.random.default_rng(4)
+    vox = (rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32)
+    batch = {"input_packed_blocked": torch.from_numpy(pack_voxels_blocked(vox, 4)).to(cuda),
+             "category_onehot": torch.from_numpy(np.eye(5, dtype=np.float32)[rng.integers(0, 5, 4)]).to(cuda)}
+    draws = {"eps_inst": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)).to(cuda),
+             "eps_prior_cat": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)).to(cuda),
+             "coin": torch.tensor(True, device=cuda),
+             "take_prior": torch.from_numpy(rng.uniform(size=(4, 8)) < 0.3).to(cuda)}
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16).to(cuda)
+    twin = copy.deepcopy(model)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = mesh_module.make_mesh(device="cuda")
+        assert dist.get_backend(mesh.get_group("data")) == "nccl"
+        rows = {}
+        for name, m, mesh_arg in (("plain", model, None), ("mesh", twin, mesh)):
+            state, step = create_train_state(m), make_train_step(m, loss_cfg, mesh=mesh_arg)
+            rows[name] = [{k: float(v) for k, v in step(state, batch, draws=draws)[1].items()} for _ in range(3)]
+        assert rows["plain"] == rows["mesh"]
+        assert all(torch.equal(p, q) for p, q in zip(model.parameters(), twin.parameters()))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mesh_module._mesh.cache_clear()

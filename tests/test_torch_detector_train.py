@@ -400,8 +400,9 @@ def test_trainer_step_fn_checkpoints_and_restarts_after_nan(tiny, tmp_path):
 def test_cli_train_detector_main_on_the_cpu(capsys):
     """``main`` for 2 steps at a tiny size (64x64 frames, a 2x2 grid, 16^3
     shapes; the model is the CLI's: Darknet19 and the 1024-wide head), then
-    the 2-batch detection eval; a path that holds no Pascal3D tree and
-    ``--mesh`` (not ported yet) raise."""
+    the 2-batch detection eval; a path that holds no Pascal3D tree raises;
+    ``--mesh`` parses (its runs, over 2 ranks, are in
+    ``tests/test_torch_parallel.py``)."""
     trainer, det = cli.main(["--image-size", "64", "64", "--grid-size", "2", "2", "--voxel-dim", "16", "--steps", "2",
                              "--batch-size", "2", "--device", "cpu"])
     assert trainer.state.step == 2 and len(trainer.history) == 2
@@ -410,8 +411,7 @@ def test_cli_train_detector_main_on_the_cpu(capsys):
     assert "detection eval:" in capsys.readouterr().out
     with pytest.raises(FileNotFoundError, match="/nowhere"):
         cli.build_trainer(cli.parse_args(["--data", "/nowhere", "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="A19"):
-        cli.build_trainer(cli.parse_args(["--mesh", "--device", "cpu"]))
+    assert cli.parse_args(["--mesh", "--device", "cpu"]).mesh
     dense = cli.build_batch_fn(SyntheticMultiObjectLoader(num_samples=8, dim=16, image_size=(32, 32),
                                                           grid_size=(2, 2)), 2, 4)(0)
     packed = cli.transfer_forms(dense)

@@ -369,12 +369,16 @@ def test_cli_pretrain_on_an_imagenet_tree(imagenet_tree):
 
 
 def test_the_data_parallel_paths_still_raise():
-    """A19 is not ported: ``--mesh`` and ``observe_stream(mesh=)`` raise."""
-    with pytest.raises(NotImplementedError, match="A19"):
-        cli_detector.build_trainer(cli_detector.parse_args(["--data", PASCAL, "--mesh", "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="A19"):
-        cli_pretrain.main(["--data", PASCAL, "--mesh", "--device", "cpu"])
-    from anytime3d_tpu_torch.anytime.reconstructor import AnytimeReconstructor
+    """What the data-parallel paths refuse, before any rank joins: the
+    dataset's 64^3 CAD voxels against the default ``--voxel-dim`` under
+    ``--mesh`` as without it, a "model" mesh axis (tensor parallelism is
+    not in the port) and the explicit data-parallel step without a mesh."""
+    from anytime3d_tpu_torch.parallel import make_mesh
+    from anytime3d_tpu_torch.train.step import make_train_step_dp
 
-    with pytest.raises(NotImplementedError, match="A19"):
-        AnytimeReconstructor.observe_stream(None, None, None, None, mesh=object())
+    with pytest.raises(SystemExit, match="--voxel-dim 64"):
+        cli_detector.build_trainer(cli_detector.parse_args(["--data", PASCAL, "--mesh", "--device", "cpu"]))
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        make_mesh(model=2, device="cpu")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_train_step_dp(None)

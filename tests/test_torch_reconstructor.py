@@ -8,7 +8,7 @@ and zeros by a seeded normal). Each of that file's four reconstructor tests is
 mirrored here against the JAX reconstructor, with its property checks kept:
 the streaming loop (monotone uncertainty, the decoded shape; the sampled
 decode on JAX's normal draw handed over), ``observe_stream`` against the loop
-(the mesh form is not ported and raises), ``classify`` and ``correct``; then
+(the mesh form at one rank), ``classify`` and ``correct``; then
 the class anchors, ``encode_observation`` and the occupancy-space fusion.
 
 Tolerances (float32 both sides): the encoded blocks and the class anchors
@@ -132,7 +132,8 @@ def test_streaming_observation_loop(recs):
 
 def test_observe_stream_matches_loop(recs):
     """Eight observations at once against the loop and against JAX's stream;
-    the mesh form raises."""
+    the mesh form at one rank (gloo, an in-process store) against the
+    stream. Over 2 ranks it is held to JAX's in ``test_torch_parallel.py``."""
     jrec, rec, batch = recs
     (jm, jlv), (m, lv) = encode_both(jrec, rec, batch["input"][:1])
     T = 8
@@ -150,8 +151,18 @@ def test_observe_stream_matches_loop(recs):
     jstream = jrec.observe_stream(jrec.new_object(), jnp.stack([jm + 0.01 * t for t in range(T)]),
                                   jnp.stack([jlv] * T), jnp.asarray(masks))
     assert_beliefs_close(stream, jstream)
-    with pytest.raises(NotImplementedError, match="A19"):
-        rec.observe_stream(belief0, means, lvs, torch.from_numpy(masks), mesh=object())
+    import torch.distributed as dist
+
+    from anytime3d_tpu_torch.parallel import mesh as mesh_module
+
+    try:
+        sharded = rec.observe_stream(belief0, means, lvs, torch.from_numpy(masks),
+                                     mesh=mesh_module.make_mesh(device="cpu"))
+    finally:
+        dist.destroy_process_group()
+        mesh_module._mesh.cache_clear()
+    np.testing.assert_allclose(sharded.precision.numpy(), stream.precision.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(sharded.mean.numpy(), stream.mean.numpy(), rtol=1e-5, atol=1e-7)
 
 
 def test_classify_returns_index(recs):
