@@ -7,8 +7,12 @@ such as ``encoder3d``, ``backbone``, ``head`` or ``decoder`` stay: the
 detector's ``head/Conv_0`` is ``head.conv_0``, its decoder's pixel-shuffle
 ``decoder/Conv_0`` is ``decoder.conv_0``, the classifier's ``backbone/...``
 and ``head/...`` are ``backbone.`` and ``head.`` for each of the three
-backbones), and each leaf is renamed and
-laid out as the port holds it:
+backbones; a ``mid_blocked`` decoder's middle ``decoder/Conv_i`` and
+``decoder/GroupNorm_i``, numbered per class with the blocked tail's, are
+``decoder.conv_i`` and ``decoder.groupnorm_i``, its encoder's folded stages
+``encoder3d/ConvBlock3D_i`` as any stage; a learned prior log-variance's
+``prior_category/log_var_tower/...`` is ``prior_category.log_var_tower.``),
+and each leaf is renamed and laid out as the port holds it:
 
 - ``Conv_*/kernel`` of a 2-D conv: HWIO -> OIHW (``F.conv2d``);
 - ``Conv_*/kernel`` of a 3-D conv: DHWIO -> OIDHW (``F.conv3d``), except the

@@ -96,9 +96,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv_k2_forward.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.conv_k2_backward_input.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.conv_k2_backward_weight.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
-    lib.conv_k2_forward_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
-    lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 3 + [i32] * 16 + [ptr]
-    lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
+    lib.conv_k2_forward_wgmma.argtypes = [ptr] * 3 + [i32] * 17 + [ptr]
+    lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 3 + [i32] * 17 + [ptr]
+    lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 16 + [ptr]
     lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_backward_input_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_backward_weight_narrow.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
@@ -126,7 +126,11 @@ class WgmmaPlan:
 
     Forward: an output tile is ``bm`` rows (128 or 256) by ``bn`` columns (64
     or 128); ``box`` is the (w, h, d) extents of the TMA box of ``x`` that
-    holds a tile's rows, 64 channels (128 bytes) wide, inside one batch item.
+    holds a tile's rows, 64 channels (128 bytes) wide, and ``box_items`` its
+    extent in the batch: 1 where the box lies inside one batch item, else the
+    number of whole items it spans (a grid of fewer rows than the box, such
+    as 4^3; ``box`` is then the whole grid and each tap's shift stays inside
+    each item, the TMA filling zeros per axis).
     The ring has ``stages`` slots and the block ``smem_bytes`` of dynamic
     shared memory (ring, alignment room, barriers), which the launcher holds
     to its own arithmetic, as it does ``tiles``. The ``tiles`` output tiles
@@ -138,7 +142,7 @@ class WgmmaPlan:
     rows by ``bn`` columns of dx and whose box holds those rows of ``g``.
 
     dw: an output tile is 128 rows of (tap, c) by ``bn`` columns and a stage
-    64 rows m, whose box is ``dw_box``; the ring has ``dw_stages`` slots in
+    64 rows m, whose box is ``dw_box`` by ``dw_box_items``; the ring has ``dw_stages`` slots in
     ``dw_smem_bytes``. ``dw_grid`` is (column tiles, row tiles, splits); a
     split reduces ``dw_stages_per_split`` stages, the last one the rest.
     """
@@ -153,18 +157,21 @@ class WgmmaPlan:
     dw_box: tuple[int, int, int]
     dw_stages: int
     dw_smem_bytes: int
-    dw_stages: int
     dw_grid: tuple[int, int, int]
     dw_stages_per_split: int
+    box_items: int = 1
+    dw_box_items: int = 1
 
 
-def _row_box(rows: int, D: int, H: int, W: int) -> tuple[int, int, int] | None:
-    """(w, h, d) extents of a box of ``rows`` consecutive rows of one batch
-    item such that consecutive boxes tile the (D, H, W) grid, or None: whole
-    w-lines before a second h, whole (h, w) planes before a second d."""
+def _row_box(rows: int, B: int, D: int, H: int, W: int) -> tuple[int, int, int, int] | None:
+    """(w, h, d, b) extents of a box of ``rows`` consecutive rows such that
+    consecutive boxes tile the (B, D, H, W) grid, or None: whole w-lines
+    before a second h, whole (h, w) planes before a second d, and whole batch
+    items before a second b (a box spans items only where an item has fewer
+    rows than the box, and then a whole number of them)."""
     extents = []
     whole = True  # every faster axis is covered whole
-    for size in (W, H, D):
+    for size in (W, H, D, B):
         take = min(size, rows) if whole else 1
         if rows % take or size % take:
             return None
@@ -186,21 +193,33 @@ def _ring(a_tiles: int, bn: int, blocks_per_sm: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=256)  # a model asks for the same few shapes at every step
-def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> WgmmaPlan | None:
+def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
+               bm: int | None = None) -> WgmmaPlan | None:
     """The tensor-core kernels' plan for bfloat16 ``x`` (B,D,H,W,C) and ``w``
     (2,2,2,C,N), or None where they do not apply: C and N multiples of 64 and
-    a grid whose rows tile into boxes of 128 and of 64 (16^3, 8^3, 32^3, ...).
-    Pure arithmetic; ``sms`` is the card's count of multiprocessors."""
+    a grid whose rows tile into boxes of 128 and of 64 (16^3, 8^3, 32^3, ...;
+    at 4^3, boxes of whole items, so B even). Pure arithmetic; ``sms`` is
+    the card's count of multiprocessors; ``bm`` forces the forward's tile rows
+    (128 or 256) where the grid allows them, to measure one against the
+    other."""
     if min(B, D, H, W, C, N) < 1 or C % _WG_DEPTH or N % 64 or B * D * H * W >= 2**31:
         return None
-    box, dw_box = _row_box(_WG_ROWS, D, H, W), _row_box(_WG_DEPTH, D, H, W)
+    box, dw_box = _row_box(_WG_ROWS, B, D, H, W), _row_box(_WG_DEPTH, B, D, H, W)
     if box is None or dw_box is None:
         return None
     rows = B * D * H * W
     bn = 128 if N % 128 == 0 else 64
     # forward: tiles of 256 rows (one block an SM, the B tile fetched half as often) where the rows
-    # tile so and a tile is at least 16 stages deep: its store then hides without a second block
-    box_256 = _row_box(256, D, H, W) if C >= 128 else None
+    # tile so and a tile is at least 16 stages deep: its store then hides without a second block. Where
+    # a box spans batch items (a small grid such as 4^3) only if those tiles still fill 7/8 of the SMs:
+    # below that, 128-row tiles won on an H100, the kernels alone (PERF.md section 6: 0.097 against
+    # 0.153 ms at B=32, 2048 -> 512, 32 tiles of 256 rows; 256 rows 0.049 against 0.062 at 512 -> 2048,
+    # 128 tiles)
+    fills = 8 * (rows // 256) * (N // bn) >= 7 * sms
+    want_256 = (C >= 128 and (box[3] == 1 or fills)) if bm is None else bm == 256
+    box_256 = _row_box(256, B, D, H, W) if want_256 else None
+    if bm == 256 and box_256 is None:
+        return None
     bm, box = (_WG_ROWS, box) if box_256 is None else (256, box_256)
     blocks_per_sm = 2 if bm == _WG_ROWS else 1
     stages, smem_bytes = _ring(2 * bm // _WG_ROWS, bn, blocks_per_sm)
@@ -212,10 +231,10 @@ def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -
     splits = max(1, min(2 * sms // tiles, total // _WG_DW_MIN_STAGES))
     per_split = -(-total // splits)
     splits = -(-total // per_split)
-    return WgmmaPlan(bm=bm, bn=bn, box=box, stages=stages, smem_bytes=smem_bytes, tiles=fwd_tiles,
-                     grid=min(fwd_tiles, blocks_per_sm * sms), dw_box=dw_box, dw_stages=dw_stages,
+    return WgmmaPlan(bm=bm, bn=bn, box=box[:3], stages=stages, smem_bytes=smem_bytes, tiles=fwd_tiles,
+                     grid=min(fwd_tiles, blocks_per_sm * sms), dw_box=dw_box[:3], dw_stages=dw_stages,
                      dw_smem_bytes=dw_smem_bytes, dw_grid=(N // bn, 8 * C // _WG_ROWS, splits),
-                     dw_stages_per_split=per_split)
+                     dw_stages_per_split=per_split, box_items=box[3], dw_box_items=dw_box[3])
 
 
 # The narrow kernels' tiling (csrc/conv_k2_narrow.cuh): a box of at most 1024
@@ -424,6 +443,34 @@ def _check_cuda_operand(what: str, name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{what} kernel takes a non-empty contiguous NDHWC {name}; got {tuple(t.shape)}")
 
 
+def forward_wgmma(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, plan: WgmmaPlan) -> None:
+    """Launch the tensor-core forward into ``y`` on the tiles of ``plan``
+    (the wrapper's, or one of :func:`wgmma_plan`'s ``bm`` choices, to time
+    one against the other). Counts nothing: the op's CUDA implementation
+    counts its launches."""
+    B, D, H, W, C = x.shape
+    N = y.shape[-1]
+    w = w.to(x.dtype).contiguous()
+    _check_operands("conv_k2", C, N, x, w, y)
+    _check_launch("conv_k2 (wgmma)", _lib().conv_k2_forward_wgmma(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *plan.box, plan.box_items, plan.bm, plan.bn,
+        plan.stages, plan.grid, plan.smem_bytes, plan.tiles, x.device.index, _stream(x)))
+
+
+def dx_wgmma(g: torch.Tensor, w: torch.Tensor, dx: torch.Tensor, plan: WgmmaPlan) -> None:
+    """Launch the tensor-core dx into ``dx`` on the tiles of ``plan``, the
+    plan of the forward from N to C channels. Counts nothing, as
+    :func:`forward_wgmma`."""
+    B, D, H, W, N = g.shape
+    C = dx.shape[-1]
+    # w as it lies: its (c, n) boxes are the K-major B tiles of dx
+    wc = w.to(g.dtype).contiguous()
+    _check_operands("conv_k2 dx", C, N, g, wc, dx, depth_is_n=True)
+    _check_launch("conv_k2 dx (wgmma)", _lib().conv_k2_backward_input_wgmma(
+        g.data_ptr(), wc.data_ptr(), dx.data_ptr(), B, D, H, W, C, N, *plan.box, plan.box_items, plan.bm, plan.bn,
+        plan.stages, plan.grid, plan.smem_bytes, plan.tiles, g.device.index, _stream(g)))
+
+
 @torch.library.custom_op("anytime3d_torch::conv_k2", mutates_args=(), device_types="cpu")
 def _conv_k2_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The forward: the plain version on the CPU, the kernel on CUDA (``w`` cast to ``x``'s dtype)."""
@@ -442,9 +489,7 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     plan = _plan_for(x, N)
     narrow = None if plan is not None else _narrow_for(x, N)
     if plan is not None:
-        _check_launch("conv_k2 (wgmma)", _lib().conv_k2_forward_wgmma(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *plan.box, plan.bm, plan.bn, plan.stages,
-            plan.grid, plan.smem_bytes, plan.tiles, x.device.index, _stream(x)))
+        forward_wgmma(x, w, y, plan)
         conv_k2.launches_wgmma += 1
     elif narrow is not None:
         _check_launch("conv_k2 (narrow)", _lib().conv_k2_forward_narrow(
@@ -480,12 +525,7 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     plan = _plan_for(g, C)
     narrow = None if plan is not None else _narrow_for(g, C)
     if plan is not None:
-        # w as it lies: its (c, n) boxes are the K-major B tiles of dx
-        wc = w.to(g.dtype).contiguous()
-        _check_operands("conv_k2 dx", C, N, g, wc, dx, depth_is_n=True)
-        _check_launch("conv_k2 dx (wgmma)", _lib().conv_k2_backward_input_wgmma(
-            g.data_ptr(), wc.data_ptr(), dx.data_ptr(), B, D, H, W, C, N, *plan.box, plan.bm, plan.bn, plan.stages,
-            plan.grid, plan.smem_bytes, plan.tiles, g.device.index, _stream(g)))
+        dx_wgmma(g, w, dx, plan)
         conv_k2.launches_dx_wgmma += 1
     elif narrow is not None:
         # (2,2,2,N,C), w'[s] = w[7 - s]^T: the forward's weights over g read one voxel lower.
@@ -578,7 +618,7 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if plan is not None:
         _check_launch("conv_k2 dw (wgmma)", _lib().conv_k2_backward_weight_wgmma(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, plan.dw_stages_per_split,
-            B, D, H, W, C, N, *plan.dw_box, plan.bn, plan.dw_stages, plan.dw_smem_bytes,
+            B, D, H, W, C, N, *plan.dw_box, plan.dw_box_items, plan.bn, plan.dw_stages, plan.dw_smem_bytes,
             x.device.index, _stream(x)))
         conv_k2.launches_dw_wgmma += 1
     elif narrow is not None:

@@ -619,12 +619,12 @@ cudaError_t launch_dw(const void* x, const void* g, float* dw, float* workspace,
 // true: x := g, `depth` = N, `cols` = C, y := dx) at the tile the plan names.
 template <bool DX>
 int launch_wgmma_gemm(const void* x, const void* w, void* y, int B, int D, int H, int W, int depth, int cols,
-                      int bw, int bh, int bd, int bm, int bn, int stages, int grid, int smem_bytes, int tiles,
+                      int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid, int smem_bytes, int tiles,
                       cudaStream_t s) {
-  if (depth % wg::BK || cols % bn || bw * bh * bd != bm || static_cast<long long>(D) * H * W % bm || stages < 2 ||
+  if (depth % wg::BK || cols % bn || !wg::box_tiles(B, D, H, W, bw, bh, bd, bb, bm) || stages < 2 ||
       stages > wg::MAX_STAGES || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-#define GEMM_ARGS x, w, y, B, D, H, W, depth, cols, bw, bh, bd, stages, grid, smem_bytes, tiles, s
+#define GEMM_ARGS x, w, y, B, D, H, W, depth, cols, bw, bh, bd, bb, stages, grid, smem_bytes, tiles, s
   if (bm == 128 && bn == 128) return wg::launch_fwd<128, 1, DX>(GEMM_ARGS);
   if (bm == 128 && bn == 64) return wg::launch_fwd<64, 1, DX>(GEMM_ARGS);
   if (bm == 256 && bn == 128) return wg::launch_fwd<128, 2, DX>(GEMM_ARGS);
@@ -687,56 +687,58 @@ int conv_k2_backward_weight(const void* x, const void* g, void* dw, void* worksp
 
 // The bfloat16 tensor-core forward. The wrapper's plan gives the output tile
 // (bm rows, 128 or 256, by bn columns, 64 or 128), the box of its bm rows
-// (bw, bh, bd) in (w, h, d), the ring's stages, the number of blocks that
+// (bw, bh, bd) in (w, h, d) by bb batch items (bb > 1 only where the box is
+// the whole grid of each item), the ring's stages, the number of blocks that
 // share the output tiles, and the dynamic shared memory and the tile count it
 // worked out, which must be this file's own (else wg::PLAN_MISMATCH). Needs
-// C % 64 == 0, N % bn == 0 and D*H*W % bm == 0.
+// C % 64 == 0, N % bn == 0 and boxes that tile the rows (wg::box_tiles).
 int conv_k2_forward_wgmma(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
-                          int N, int bw, int bh, int bd, int bm, int bn, int stages, int grid, int smem_bytes,
-                          int tiles, int device, void* stream) {
+                          int N, int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid,
+                          int smem_bytes, int tiles, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_wgmma_gemm<false>(x, w, y, B, D, H, W, C, N, bw, bh, bd, bm, bn, stages, grid, smem_bytes, tiles,
-                                  static_cast<cudaStream_t>(stream));
+  return launch_wgmma_gemm<false>(x, w, y, B, D, H, W, C, N, bw, bh, bd, bb, bm, bn, stages, grid, smem_bytes,
+                                  tiles, static_cast<cudaStream_t>(stream));
 }
 
 // The bfloat16 tensor-core dx [B,D,H,W,C] from g [B,D,H,W,N] and w [2,2,2,C,N]
 // as it lies (no re-lay). The plan is that of a forward from N to C channels:
 // tiles of bm rows by bn columns of C, the same box, ring, grid, shared memory
-// and tile count. Needs N % 64 == 0, C % bn == 0 and D*H*W % bm == 0.
+// and tile count. Needs N % 64 == 0, C % bn == 0 and boxes that tile the rows.
 int conv_k2_backward_input_wgmma(const void* g, const void* w, void* dx, int B, int D, int H, int W, int C,
-                                 int N, int bw, int bh, int bd, int bm, int bn, int stages, int grid,
+                                 int N, int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid,
                                  int smem_bytes, int tiles, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_wgmma_gemm<true>(g, w, dx, B, D, H, W, N, C, bw, bh, bd, bm, bn, stages, grid, smem_bytes, tiles,
-                                 static_cast<cudaStream_t>(stream));
+  return launch_wgmma_gemm<true>(g, w, dx, B, D, H, W, N, C, bw, bh, bd, bb, bm, bn, stages, grid, smem_bytes,
+                                 tiles, static_cast<cudaStream_t>(stream));
 }
 
-// The bfloat16 tensor-core dw: the box of a stage's 64 rows (bw, bh, bd); the
-// M/64 stages of the row reduction are cut into `splits` parts of
-// `stages_per_split` (the last may be shorter, none is empty); `workspace`
-// holds splits*8*C*N floats (unused when splits == 1); `smem_bytes` is the
-// plan's dynamic shared memory, held to this file's own.
+// The bfloat16 tensor-core dw: the box of a stage's 64 rows (bw, bh, bd) by bb
+// batch items; the M/64 stages of the row reduction are cut into `splits`
+// parts of `stages_per_split` (the last may be shorter, none is empty);
+// `workspace` holds splits*8*C*N floats (unused when splits == 1);
+// `smem_bytes` is the plan's dynamic shared memory, held to this file's own.
 int conv_k2_backward_weight_wgmma(const void* x, const void* g, void* dw, void* workspace, int splits,
                                   int stages_per_split, int B, int D, int H, int W, int C, int N, int bw,
-                                  int bh, int bd, int bn, int stages, int smem_bytes, int device, void* stream) {
+                                  int bh, int bd, int bb, int bn, int stages, int smem_bytes, int device,
+                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long total = static_cast<long long>(B) * D * H * W / wg::BK;
-  if (C % wg::BK || N % bn || bw * bh * bd != wg::BK || stages < 2 || stages > wg::MAX_STAGES ||
-      !splits_cover(splits, stages_per_split, total))
+  if (C % wg::BK || N % bn || !wg::box_tiles(B, D, H, W, bw, bh, bd, bb, wg::BK) || stages < 2 ||
+      stages > wg::MAX_STAGES || !splits_cover(splits, stages_per_split, total))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(dw);
   float* part = splits == 1 ? out : static_cast<float*>(workspace);
   int rc;
   if (bn == 128)
-    rc = wg::launch_dw<128>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, stages, smem_bytes,
-                            s);
+    rc = wg::launch_dw<128>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, bb, stages,
+                            smem_bytes, s);
   else if (bn == 64)
-    rc = wg::launch_dw<64>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, stages, smem_bytes,
-                           s);
+    rc = wg::launch_dw<64>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, bb, stages,
+                           smem_bytes, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (rc || splits == 1) return rc;

@@ -23,10 +23,12 @@
 //
 // - The gather is a box copy. x is described to the TMA as the 5-D tensor it
 //   is, (C, W, H, D, B) innermost first. The rows of an output tile are a box
-//   of one batch item (at 16^3: 8 h-lines of one (b, d)), so the A tile of tap
+//   of one batch item (at 16^3: 8 h-lines of one (b, d)), or on a grid of
+//   fewer rows than the tile (4^3) a box of whole items, so the A tile of tap
 //   (dz, dy, dx) is that box at coordinates shifted by the tap. Where the box
-//   leaves the tensor the TMA writes zeros, which is SAME padding (lo 0, hi
-//   1): no mask, no division and no address register in any consumer thread.
+//   leaves the tensor the TMA writes zeros, axis by axis, which is SAME
+//   padding (lo 0, hi 1) in every item: no mask, no division and no address
+//   register in any consumer thread.
 //   The inner 64 channels are 128 bytes, written with the 128-byte swizzle
 //   that a wgmma descriptor reads directly.
 //
@@ -576,12 +578,27 @@ inline int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint6
   return res == CUDA_SUCCESS ? 0 : ENCODE_FAILED + static_cast<int>(res);
 }
 
-// x [B, D, H, W, C] with a box of 64 channels and bw * bh * bd rows of one batch item.
-inline int encode_x_map(CUtensorMap* map, const void* x, int B, int D, int H, int W, int C, int bw, int bh, int bd) {
+// Whether boxes of (bw, bh, bd) voxels by bb batch items, `rows` rows each,
+// laid one after the other, tile the rows of x [B, D, H, W, .] in order:
+// inside one item (bb == 1), whole w-lines before a second h and whole (h, w)
+// planes before a second d; or whole items (bb > 1, the box the whole grid).
+__host__ __device__ inline bool box_tiles(int B, int D, int H, int W, int bw, int bh, int bd, int bb, int rows) {
+  if (bw < 1 || bh < 1 || bd < 1 || bb < 1 || bw > 256 || bh > 256 || bd > 256 || bb > 256 ||
+      bw * bh * bd * bb != rows || W % bw || H % bh || D % bd || B % bb)
+    return false;
+  if (bb > 1) return bw == W && bh == H && bd == D;
+  return (bh == 1 || bw == W) && (bd == 1 || bh == H);
+}
+
+// x [B, D, H, W, C] with a box of 64 channels by bw * bh * bd voxels of bb
+// batch items. A tap shifts only w, h and d, so the zero fill past the grid
+// is per item even where a box spans items.
+inline int encode_x_map(CUtensorMap* map, const void* x, int B, int D, int H, int W, int C, int bw, int bh, int bd,
+                        int bb) {
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(B)};
   const cuuint32_t box[5] = {BK, static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh),
-                             static_cast<cuuint32_t>(bd), 1};
+                             static_cast<cuuint32_t>(bd), static_cast<cuuint32_t>(bb)};
   return encode_map(map, x, 5, dims, box);
 }
 
@@ -595,14 +612,14 @@ inline int encode_matrix_map(CUtensorMap* map, const void* p, long long rows, in
 // The forward, or (DX) dx with x := g, C := g's channel count, N := dx's, y := dx.
 template <int BN, int MT, bool DX>
 int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw, int bh,
-               int bd, int stages, int grid, int plan_smem, int plan_tiles, cudaStream_t s) {
+               int bd, int bb, int stages, int grid, int plan_smem, int plan_tiles, cudaStream_t s) {
   // the wrapper's plan and this file must agree on the ring's size and the tile count
   const size_t smem = smem_bytes<BN, MT>(stages);
   const long long M = static_cast<long long>(B) * D * H * W;
   const long long tiles = (M / (BM * MT)) * (N / BN);
   if (static_cast<size_t>(plan_smem) != smem || plan_tiles != tiles) return PLAN_MISMATCH;
   CUtensorMap map_x, map_w;
-  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd);
+  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd, bb);
   if (rc) return rc;
   rc = DX ? encode_matrix_map(&map_w, w, 8LL * N, C) : encode_matrix_map(&map_w, w, 8LL * C, N);
   if (rc) return rc;
@@ -616,12 +633,12 @@ int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W
 
 template <int BN>
 int launch_dw(const void* x, const void* g, float* part, int splits, int stages_per_split, int B, int D, int H,
-              int W, int C, int N, int bw, int bh, int bd, int stages, int plan_smem, cudaStream_t s) {
+              int W, int C, int N, int bw, int bh, int bd, int bb, int stages, int plan_smem, cudaStream_t s) {
   const size_t smem = smem_bytes<BN, 1>(stages);
   if (static_cast<size_t>(plan_smem) != smem) return PLAN_MISMATCH;
   const long long M = static_cast<long long>(B) * D * H * W;
   CUtensorMap map_x, map_g;
-  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd);
+  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd, bb);
   if (rc) return rc;
   rc = encode_matrix_map(&map_g, g, M, N);
   if (rc) return rc;

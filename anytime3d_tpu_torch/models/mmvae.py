@@ -134,7 +134,7 @@ class MultiModalVAE(nn.Module):
         else:
             enc_cfg = cfg.encoder3d or Encoder3DConfig(output_dim=cfg.enc_output_dim)
             self.encoder3d = Encoder3D(enc_cfg, in_channels=cfg.decoder.output_shape[-1], generator=generator,
-                                       dtype=dtype)
+                                       dtype=dtype, grid=tuple(cfg.decoder.output_shape[:3]))
         self.decoder = Decoder3D(cfg.decoder, generator=generator, dtype=dtype)
         self.prior_category = (
             PriorNet(cfg.prior_category, generator=generator, dtype=dtype)

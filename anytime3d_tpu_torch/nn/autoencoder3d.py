@@ -1,5 +1,4 @@
-"""3-D convolutional voxel encoder/decoder in every layout of the JAX package
-but ``mid_blocked``.
+"""3-D convolutional voxel encoder/decoder in every layout of the JAX package.
 
 Counterpart of ``anytime3d_tpu/nn/autoencoder3d.py``. The configs mirror the
 JAX dataclasses field by field.
@@ -9,10 +8,15 @@ JAX dataclasses field by field.
   (the ``conv_k2`` kernel), then the remaining stages. Classic: an optional
   space-to-depth(b) stem (``stem_space_to_depth``; a k=4 s=2 stem becomes k=2
   s=1 over 8 channels at b=2, the ``conv_k2`` kernel), then every stage as
-  configured. Both end in a final conv (no norm) and a mean, max or no pool.
+  configured. With ``mid_blocked`` every k=4 s=2 stage whose input grid is at
+  least 2 on each axis is a space-to-depth(2) and a k=2 s=1 conv over 8 times
+  the channels (``conv_k2``): the same 4-tap family, reparameterized. Both end
+  in a final conv (no norm) and a mean, max or no pool.
 - ``Decoder3D``: dense to a small grid, then a transposed conv for every stage
   but the last (``DeconvEquivBlock3D``, the same function in its phase
-  lowering, for the k=4 s=2 stages under ``mid_equiv``), then one of: the
+  lowering, for the k=4 s=2 stages under ``mid_equiv``; under ``mid_blocked`` a
+  k=2 conv emitting 8 f phase channels, ``conv_k2``, then depth-to-space(2),
+  GroupNorm(f) and the activation at the fine grid), then one of: the
   blocked tail (two k=2 convs emitting phase channels, ``conv_k2``; its norm
   per phase, or with ``tail_phase_norm`` the fine grid's ``PhaseGroupNorm``;
   ``tail_init_match_transpose`` scales their init variance by 1/8), one
@@ -29,8 +33,8 @@ The train step keeps the whole voxel round trip in the coarse layout
 fine 64^3 x 1 grid is never laid out on the device.
 
 Submodules carry the names flax gives them, lowercased and numbered per
-class (``_decoder_stage_names``). ``mid_blocked`` (encoder and decoder) stays
-unported and raises ``NotImplementedError``.
+class (``_decoder_stage_names``; a ``mid_blocked`` decoder stage is a flax
+``Conv_i`` and ``GroupNorm_j`` of the decoder itself, numbered with the tail's).
 """
 
 from __future__ import annotations
@@ -210,22 +214,30 @@ def _conv(in_features: int, features: int, k: int, s: int, generator: Optional[t
                                                                                       generator)
 
 
-def _refuse_mid_blocked(cfg) -> None:
-    if cfg.mid_blocked:
-        raise NotImplementedError("not ported: mid_blocked (the blocked middle stages)")
+def _mid_blocked_stage(cfg: Encoder3DConfig, k: int, s: int, grid: Tuple[int, int, int]) -> bool:
+    """Whether an encoder stage of kernel ``k`` and stride ``s`` whose input
+    grid is ``grid`` runs as space-to-depth(2) + a k=2 s=1 conv, as the JAX
+    encoder decides it from the shape it is traced with."""
+    return cfg.mid_blocked and s == 2 and k == 4 and min(grid) >= 2
 
 
 class Encoder3D(nn.Module):
     """Voxel grid (B, D, H, W, C) -> latent vector (B, output_dim), or with
-    ``final_pool='none'`` the final conv's map."""
+    ``final_pool='none'`` the final conv's map.
+
+    ``grid``: the (D, H, W) of the input, which decides which stages
+    ``mid_blocked`` folds (flax decides at trace time; here the parameters'
+    shapes depend on it). None assumes every stage's grid is at least 2 on
+    each axis; a forward on a grid that decides otherwise raises."""
 
     def __init__(self, config: Encoder3DConfig, in_channels: int = 1,
-                 generator: Optional[torch.Generator] = None, dtype: Optional[torch.dtype] = None):
+                 generator: Optional[torch.Generator] = None, dtype: Optional[torch.dtype] = None,
+                 grid: Optional[Tuple[int, int, int]] = None):
         super().__init__()
         cfg = config
-        _refuse_mid_blocked(cfg)
         if cfg.final_pool not in ("average", "max", "none"):
             raise ValueError(f"unknown final_pool {cfg.final_pool!r}")
+        self.config = cfg
         self.dtype = dtype  # compute dtype; None: that of the input
         self.blocked = encoder_head_blocked_active(cfg)
         self.final_pool = cfg.final_pool
@@ -242,11 +254,20 @@ class Encoder3D(nn.Module):
                 sizes[0] = max(1, -(-sizes[0] // self.fold))  # the stem's receptive field, ceil-divided
                 strides[0] //= self.fold
             stages = list(zip(filters[:-1], sizes[:-1], strides[:-1]))
+        self.stages = stages  # (features, kernel, stride) as configured
+        g = tuple(n // self.fold for n in grid) if grid is not None else None
         cin = in_channels * self.fold**3
+        self.mid = []  # per stage: space-to-depth(2) then a k=2 s=1 conv
         for i, (f, k, s) in enumerate(stages):
-            self.add_module(f"convblock3d_{i}", ConvBlock3D(cin, f, k, s, cfg.act, generator))
+            mid = _mid_blocked_stage(cfg, k, s, g if g is not None else (2, 2, 2))
+            if mid:
+                self.add_module(f"convblock3d_{i}", ConvBlock3D(8 * cin, f, 2, 1, cfg.act, generator))
+            else:
+                self.add_module(f"convblock3d_{i}", ConvBlock3D(cin, f, k, s, cfg.act, generator))
+            self.mid.append(mid)
+            if g is not None:
+                g = tuple(-(-n // s) for n in g)  # SAME: ceil(n / s)
             cin = f
-        self.num_blocks = len(stages)
         # final conv: no norm, no activation
         self.conv_0 = _conv(cin, filters[-1], cfg.filter_sizes[-1], cfg.strides[-1], generator)
         self.final_act = activation(cfg.final_act)
@@ -260,7 +281,13 @@ class Encoder3D(nn.Module):
         x = x.to(self.dtype or x.dtype)
         if self.fold > 1 and not blocked_input:
             x = space_to_depth3d(x, self.fold)
-        for i in range(self.num_blocks):
+        for i, (_, k, s) in enumerate(self.stages):
+            if _mid_blocked_stage(self.config, k, s, x.shape[1:4]) != self.mid[i]:
+                raise ValueError(f"Encoder3D stage {i} was built {'with' if self.mid[i] else 'without'} the "
+                                 f"mid_blocked fold, which a {tuple(x.shape[1:4])} grid decides otherwise; "
+                                 "build it with grid= the input's (D, H, W)")
+            if self.mid[i]:
+                x = space_to_depth3d(x, 2)
             x = getattr(self, f"convblock3d_{i}")(x)
         x = self.conv_0(x)
         if self.final_pool == "average":
@@ -277,7 +304,6 @@ class Decoder3D(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = config
-        _refuse_mid_blocked(cfg)
         self.dtype = dtype  # compute dtype; None: that of the input
         self.blocked = decoder_tail_blocked_active(cfg)
         self.spatial = tuple(n // math.prod(cfg.strides) for n in cfg.output_shape[:-1])
@@ -286,32 +312,42 @@ class Decoder3D(nn.Module):
                                        cfg.act, generator)
         names = [n.lower() for n in _decoder_stage_names(cfg)]
         n_mid = len(cfg.filter_nums) - (2 if self.blocked else 1)
-        self.stages = names[:n_mid]
+        # the middle stages as (conv or block name, norm name or None): a mid_blocked stage is a conv of the
+        # decoder's own and a GroupNorm numbered as flax numbers them, the tail's after them
+        self.stages = []
+        norms = 0
         cin = self.channels
-        for name, f, k, s in zip(self.stages, cfg.filter_nums, cfg.filter_sizes, cfg.strides):
-            if name.startswith("deconvequivblock3d"):
+        for name, f, k, s in zip(names[:n_mid], cfg.filter_nums, cfg.filter_sizes, cfg.strides):
+            norm = None
+            if name.startswith("conv_"):  # mid_blocked: k=2 to 8 f phase channels, d2s(2), norm and act
+                self.add_module(name, ConvK2(cin, 8 * f, generator))
+                norm, norms = f"groupnorm_{norms}", norms + 1
+                self.add_module(norm, group_norm(f))
+            elif name.startswith("deconvequivblock3d"):
                 self.add_module(name, DeconvEquivBlock3D(cin, f, cfg.act, generator))
             else:
                 self.add_module(name, DeconvBlock3D(cin, f, k, s, cfg.act, generator))
+            self.stages.append((name, norm))
             cin = f
         f, k, s = cfg.filter_nums[-1], cfg.filter_sizes[-1], cfg.strides[-1]
         self.final = names[-1]
         self.final_features = f
+        self.act = activation(cfg.act)
         if self.blocked:
             # the last two stride-2 stages as k=2 convs at the coarse grid
             f4 = cfg.filter_nums[-2]
             scale = TRANSPOSE_MATCH_SCALE if cfg.tail_init_match_transpose else 1.0
-            self.conv_0 = ConvK2(cin, f4 * 8, generator, scale)
-            self.tail_norm = "phasegroupnorm_0" if cfg.tail_phase_norm else "groupnorm_0"
+            self.tail = (names[-2], names[-1])
+            self.add_module(names[-2], ConvK2(cin, f4 * 8, generator, scale))
+            self.tail_norm = "phasegroupnorm_0" if cfg.tail_phase_norm else f"groupnorm_{norms}"
             self.add_module(self.tail_norm, PhaseGroupNorm(f4, 8) if cfg.tail_phase_norm else group_norm(f4 * 8))
-            self.conv_1 = ConvK2(f4 * 8, f * 64, generator, scale)
-            self.act = activation(cfg.act)
+            self.add_module(names[-1], ConvK2(f4 * 8, f * 64, generator, scale))
         elif self.final.startswith("convtransposeequiv3d"):
             self.convtransposeequiv3d_0 = ConvTransposeEquiv3D(cin, f, generator)
         elif self.final.startswith("conv_"):
             # pixel shuffle: a stride-1 SAME conv of ceil(k/s) emitting f * s^3 phase channels
             self.shuffle = s
-            self.conv_0 = _conv(cin, f * s**3, max(1, -(-k // s)), 1, generator)
+            self.add_module(self.final, _conv(cin, f * s**3, max(1, -(-k // s)), 1, generator))
         else:
             self.convtranspose_0 = ConvTranspose3d(cin, f, k, s, generator)
         self.final_act = activation(cfg.final_act)
@@ -327,10 +363,13 @@ class Decoder3D(nn.Module):
         z = z.to(self.dtype or z.dtype)
         # the dense output is laid out channels-last, (B, *spatial, channels)
         x = self.denseblock_0(z).reshape(z.shape[0], *self.spatial, self.channels)
-        for name in self.stages:
+        for name, norm in self.stages:
             x = getattr(self, name)(x)
+            if norm is not None:
+                x = self.act(getattr(self, norm)(depth_to_space3d(x, 2)))
         if self.blocked:
-            x = self.conv_1(self.act(getattr(self, self.tail_norm)(self.conv_0(x))))
+            first, second = (getattr(self, n) for n in self.tail)
+            x = second(self.act(getattr(self, self.tail_norm)(first(x))))
             if not blocked_output:
                 x = depth_to_space3d(x, 4)
         elif equiv:
@@ -338,7 +377,7 @@ class Decoder3D(nn.Module):
             if blocked_output:
                 x = phase2_to_block4(x, self.final_features)
         elif self.final.startswith("conv_"):
-            x = depth_to_space3d(self.conv_0(x), self.shuffle)
+            x = depth_to_space3d(getattr(self, self.final)(x), self.shuffle)
         else:
             x = self.convtranspose_0(x)
         return self.final_act(x)

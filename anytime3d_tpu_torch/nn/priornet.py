@@ -2,9 +2,11 @@
 
 Counterpart of ``anytime3d_tpu/nn/priornet.py``: a tower of
 Dense + LayerNorm + Dropout + activation layers over ``2*onehot - 1`` and a
-linear last layer gives the mean; ``const_log_var`` pins the log-variance.
+linear last layer gives the mean; ``const_log_var`` pins the log-variance, or
+with ``const_log_var=None`` a second tower of the same shape learns it.
 Dropout follows the module's train/eval mode (flax's ``deterministic``) and
-draws from the ``torch.Generator`` it is handed.
+draws from the ``torch.Generator`` it is handed: the mean tower's masks
+first, then the log-var tower's.
 """
 
 from __future__ import annotations
@@ -58,15 +60,18 @@ class PriorNet(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype  # compute dtype; None: that of the input
-        if config.const_log_var is None:
-            raise NotImplementedError("PriorNet with a learned log-var tower is not ported yet")
         self.config = config
         self.mean_tower = _Tower(config.input_dim, config.unit_nums, config.act,
                                  config.dropout_rate, generator)
+        self.log_var_tower = (_Tower(config.input_dim, config.unit_nums, config.act, config.dropout_rate, generator)
+                              if config.const_log_var is None else None)
 
     def forward(self, onehot: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """``generator`` feeds the dropout masks in train mode."""
         onehot = onehot.to(self.dtype or onehot.dtype)
-        mean = self.mean_tower(2.0 * onehot - 1.0, generator)
+        x = 2.0 * onehot - 1.0
+        mean = self.mean_tower(x, generator)
+        if self.log_var_tower is not None:
+            return mean, self.log_var_tower(x, generator)
         return mean, torch.full_like(mean, self.config.const_log_var)

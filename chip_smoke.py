@@ -219,7 +219,28 @@ order, any failure ending the run with a non-zero exit:
    ``fuse_sequence``; (h) ``cli/pretrain.py --mesh`` and
    ``cli/train_detector.py --mesh`` 2 steps each (the detector 1 / 1 / 1
    narrow launches a step). The process group is destroyed at the end; the
-   phase's wall time printed.
+   phase's wall time printed;
+18. the ``mid_blocked`` layout (``phase_mid_blocked``): full-width
+   ``modelnet_nolbo`` with ``mid_blocked`` on its encoder and decoder (blocked
+   head, two folded encoder stages at 8^3 and 4^3, two middle decoder stages
+   as k=2 convs and depth-to-space, blocked tail): an f32 served batch of 8
+   (8 FFMA launches) and an f32 train step at B=2 (8 / 7 / 8) on the card
+   against the CPU; bf16 served batches (8 ``wgmma`` launches each, timed
+   beside the default layout's 4); ``cli/train.py``'s trainer, bf16, B=32,
+   packed batches, ``MID_TRAIN_STEPS`` steps at 8 / 7 / 8 ``wgmma`` launches
+   a step, then as many of the default layout (4 / 3 / 4), each step's device
+   ms and host wall; ``conv_k2``, dx and dw at the four new stages (8^3
+   1024 -> 256 and 256 -> 1024, 4^3 2048 -> 512 and 512 -> 2048, whose boxes
+   span whole batch items) at B=32 in bf16 and f32 and the 4^3 ones at B=8 in
+   bf16, against their plain versions and float64 products, timed beside
+   cuDNN's k=2 call and their bound, the forward and dx also on the other
+   tile height (the same bits); the cuDNN k=4 s=2 conv or transposed conv
+   each stage replaces, beside the stage's ``mid_blocked`` layer, forward
+   and forward + backward (a record); ``SubpixelDeconv3D`` at 16^3, 64 -> 64,
+   against its plain version and ``ConvTransposeEquiv3D`` on the same weight;
+   a bf16 step with ``create_train_state(flat_opt=True)`` beside the per-leaf
+   Adam (one update from the same gradients compared, the update alone and
+   the step timed). The phase's wall time printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -702,7 +723,7 @@ def phase_kernels(card: str) -> dict:
 
 def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict, life_counts: dict,
                    artifact_counts: dict, image_counts: dict, detector_counts: dict, variant_counts: dict,
-                   stream_counts: dict, real_counts: dict, mapping_counts: dict) -> list:
+                   stream_counts: dict, real_counts: dict, mapping_counts: dict, mid_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
@@ -714,15 +735,17 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     phase's runs, the detector phase's, the variants phase's, the
     pretraining and streaming phase's (the graft's steps, the structural
     train run, the streaming reconstructor), the real-data phase's (the
-    f32 step, the Pascal3D, KITTI and detector train runs) and the mapping and
+    f32 step, the Pascal3D, KITTI and detector train runs), the mapping and
     data-parallel phase's (the train runs with and without ``--mesh``, the
-    explicit DP step and its reference, the detector's ``--mesh`` run);
+    explicit DP step and its reference, the detector's ``--mesh`` run) and the
+    ``mid_blocked`` phase's (its served batches and train runs, the default
+    layout's beside them, the flat-optimizer steps);
     ``launches_wgmma`` is the part of
     them that took the tensor-core kernels, ``launches_narrow`` the part that
     took the narrow kernels (the detector's final conv, all three in both
     types)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
-             variant_counts, stream_counts, real_counts, mapping_counts)
+             variant_counts, stream_counts, real_counts, mapping_counts, mid_counts)
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
@@ -746,6 +769,7 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "launches_pretrain_stream": stream_counts[kernel],
             "launches_real_data": real_counts[kernel],
             "launches_mapping_dp": mapping_counts[kernel],
+            "launches_mid_blocked": mid_counts[kernel],
             **head,
             "cases": cases,
             "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
@@ -861,12 +885,15 @@ def phase_slice(cfg, device: torch.device, card: str) -> tuple[MultiModalVAE, di
     return model_gpu, counts
 
 
-def phase_train_slice(cfg, device: torch.device) -> None:
+def phase_train_slice(cfg, device: torch.device, n: int = TRAIN_SLICE_BATCH,
+                      launches: tuple[int, int, int] = (4, 3, 4), what: str = "train slice") -> dict:
     """One full-width float32 train step on ``device`` against the same step on
-    the CPU: same weights, same packed batch, same injected draws."""
+    the CPU: same weights, same packed batch, same injected draws; ``n``
+    items, ``launches`` forward / dx / dw on the card (FFMA). Returns the
+    card's launch counts."""
     loss_cfg = configs.loss_config("modelnet_nolbo")
     item = cfg.decoder.output_shape
-    n, z_dim = TRAIN_SLICE_BATCH, cfg.z_category_dim
+    z_dim = cfg.z_category_dim
     rng = np.random.default_rng(SEED + 2)
     batch = {
         "input_packed_blocked": torch.from_numpy(pack_voxels_blocked(synthetic_grids(n, item[0], SEED + 2), 4)),
@@ -882,7 +909,7 @@ def phase_train_slice(cfg, device: torch.device) -> None:
     no_drop = dataclasses.replace(cfg, prior_category=dataclasses.replace(cfg.prior_category, dropout_rate=0.0))
     model_cpu = MultiModalVAE(no_drop, generator=torch.Generator().manual_seed(SEED))
     model_gpu = copy.deepcopy(model_cpu).to(device)
-    results = {}
+    results, counts = {}, {}
     for name, model, dev in (("card", model_gpu, device), ("cpu", model_cpu, torch.device("cpu"))):
         state = create_train_state(model)
         before = {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -899,24 +926,25 @@ def phase_train_slice(cfg, device: torch.device) -> None:
         metrics = {k: float(v) for k, v in metrics.items()}
         moved = max(float((p.detach() - before[k]).abs().max()) for k, p in model.named_parameters())
         results[name] = (metrics, kept, moved, state.step)
-        print(f"train slice {name}: {time.perf_counter() - t0:.1f} s, {metrics}", flush=True)
+        print(f"{what} {name}: {time.perf_counter() - t0:.1f} s, {metrics}", flush=True)
         if dev.type == "cuda":
-            expect_counts("train slice, f32", 4, 3, 4, tensor_cores=False)
+            counts = expect_counts(f"{what}, f32", *launches, tensor_cores=False)
     (m_gpu, g_gpu, moved_gpu, step_gpu), (m_cpu, g_cpu, _, _) = results["card"], results["cpu"]
     for k, v in m_cpu.items():
         if not (math.isfinite(m_gpu[k]) and abs(m_gpu[k] - v) <= TRAIN_TOL_LOSS_REL * abs(v) + 1e-6):
-            raise AssertionError(f"train slice: {k} card {m_gpu[k]} vs CPU {v}")
+            raise AssertionError(f"{what}: {k} card {m_gpu[k]} vs CPU {v}")
     if m_gpu["grads_finite"] != 1.0 or step_gpu != 1 or not 0.0 < moved_gpu <= 1.01e-4:
-        raise AssertionError(f"train slice: grads_finite {m_gpu['grads_finite']}, step {step_gpu}, moved {moved_gpu}")
+        raise AssertionError(f"{what}: grads_finite {m_gpu['grads_finite']}, step {step_gpu}, moved {moved_gpu}")
     worst = ("", 0.0)
     for k, g in g_cpu.items():
         rel = float((g_gpu[k] - g).abs().max()) / float(g.abs().max())
         worst = max(worst, (k, rel), key=lambda kv: kv[1])
-    print(f"train slice f32 card vs CPU: {len(g_cpu)} gradient leaves, largest error relative to its leaf's "
+    print(f"{what} f32 card vs CPU: {len(g_cpu)} gradient leaves, largest error relative to its leaf's "
           f"largest entry {worst[1]:.3e} ({worst[0]}; tol {TRAIN_TOL_GRAD_REL}); largest parameter move "
           f"{moved_gpu:.3e} (Adam's first step is at most lr = 1e-4)", flush=True)
     if not worst[1] <= TRAIN_TOL_GRAD_REL:
-        raise AssertionError(f"train slice: gradient of {worst[0]} off by {worst[1]} of its largest entry")
+        raise AssertionError(f"{what}: gradient of {worst[0]} off by {worst[1]} of its largest entry")
+    return counts
 
 
 def anytime_draws(n: int, z_dim: int, seed: int) -> dict:
@@ -3676,6 +3704,291 @@ def phase_mapping_dp(device: torch.device, card: str) -> dict:
     return phase_counts
 
 
+# phase 18: the mid_blocked layout of modelnet_nolbo. (grid, C, N) of its four conv_k2 stages beyond the blocked head
+# and tail: encoder stage 3 (s2d of 16^3) and 4 (s2d of 8^3), decoder stage 2 (then d2s to 8^3) and 3 (d2s to 16^3)
+MID_K2 = [(8, 1024, 256), (4, 2048, 512), (4, 512, 2048), (8, 256, 1024)]
+# (label, batch, dtype, stages) of its kernel rows: the train step's shapes in both types, and the 4^3 ones at B=8
+MID_CASES = [("mid_b32_bf16", TRAIN_BATCH, torch.bfloat16, MID_K2), ("mid_b32_f32", TRAIN_BATCH, torch.float32, MID_K2),
+             ("mid_b8_bf16_4cubed", BATCH, torch.bfloat16, [k for k in MID_K2 if k[0] == 4])]
+MID_TRAIN_STEPS = 20
+MID_SLICE_BATCH = 2  # the f32 train step also run on the CPU
+MID_SERVE_BATCHES = 5
+MID_FLAT_STEPS = 5  # bf16 steps timed with each optimizer
+SUBPIXEL_CASE = (BATCH, 16, 64, 64)  # B, grid, C_in, C_out of the sub-pixel deconv check
+SUBPIXEL_TOL_F32 = 1e-4  # f32: the k=2 conv and the k=3 phase conv sum the same products in another order
+
+
+def mid_blocked_factory(base_factory):
+    """``base_factory`` (a ``REGISTRY`` entry) with ``mid_blocked`` on its encoder and decoder."""
+    def factory(**kw):
+        cfg = base_factory(**kw)
+        return dataclasses.replace(cfg, encoder3d=dataclasses.replace(cfg.encoder3d, mid_blocked=True),
+                                   decoder=dataclasses.replace(cfg.decoder, mid_blocked=True))
+    return factory
+
+
+def mid_stage_layers(grid: int, C: int, N: int, device: torch.device):
+    """(the default layout's layer, the mid_blocked layer) of one stage, each
+    a function of its NDHWC input: a k=4 s=2 ``Conv3d`` against space-to-depth(2)
+    and a k=2 conv (the encoder, N < C / 4), or a k=4 s=2 ``ConvTranspose3d``
+    against a k=2 conv to 8 N and depth-to-space(2) (the decoder)."""
+    from anytime3d_tpu_torch.nn.blocks import ConvK2, Conv3d, ConvTranspose3d, space_to_depth3d
+
+    gen = torch.Generator().manual_seed(SEED + 19)
+    if C > N:  # encoder: input (grid*2)^3 x C/8
+        c_in = C // 8
+        plain, mid = Conv3d(c_in, N, 4, 2, gen).to(device), ConvK2(C, N, gen).to(device)
+        return c_in, 2 * grid, plain, lambda x: mid(space_to_depth3d(x, 2))
+    n_out = N // 8
+    plain, mid = ConvTranspose3d(C, n_out, 4, 2, gen).to(device), ConvK2(C, N, gen).to(device)
+    return C, grid, plain, lambda x: depth_to_space3d(mid(x), 2)
+
+
+def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
+    """``modelnet_nolbo`` with ``mid_blocked`` on its encoder and decoder at
+    full width: a served f32 batch of 8 and an f32 train step at B=2 on the
+    card against the CPU; bf16 served batches (8 ``wgmma`` launches each);
+    ``MID_TRAIN_STEPS`` bf16 steps at B=32 through ``cli/train.py``'s trainer
+    (8 / 7 / 8 ``wgmma`` launches a step) beside as many of the default layout
+    (4 / 3 / 4); ``conv_k2``, dx and dw at the four new stages (and the 4^3
+    ones at B=8) against their plain versions and float64 products, timed
+    beside cuDNN's k=2 call and their bound, the other tile height beside;
+    the cuDNN k=4 s=2 conv or transposed conv each stage replaces (a record);
+    ``SubpixelDeconv3D`` against its plain version and ``ConvTransposeEquiv3D``;
+    a bf16 step with ``flat_opt=True`` beside the per-leaf Adam. Returns the
+    phase's launch counts and its kernel rows ``{kernel: {case: numbers}}``."""
+    from anytime3d_tpu_torch.kernels import conv_k2 as k2mod
+    from anytime3d_tpu_torch.kernels import subpixel
+    from anytime3d_tpu_torch.nn.blocks import ConvTransposeEquiv3D
+    from anytime3d_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    phase_counts = dict.fromkeys(read_counts(), 0)
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            phase_counts[k] += v
+
+    base_factory = REGISTRY["modelnet_nolbo"]
+    cfg = mid_blocked_factory(base_factory)()
+    item = cfg.decoder.output_shape
+
+    # (a) f32, card against CPU: one served batch of 8 (8 FFMA forward launches), one train step at B=2
+    t0 = time.perf_counter()
+    model_cpu = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED)).eval()
+    model_gpu = copy.deepcopy(model_cpu).to(device)
+    if model_cpu.encoder3d.mid != [False, False, True, True]:
+        raise AssertionError(f"mid_blocked encoder folds {model_cpu.encoder3d.mid}")
+    x = torch.from_numpy(synthetic_grids(BATCH, item[0], SEED + 19))
+    mask = torch.from_numpy(latent_masks(BATCH, cfg.z_category_dim, SEED + 19))
+    with torch.inference_mode():
+        cpu = make_infer_fn(model_cpu)(x, mask)
+        torch.cuda.synchronize()
+        reset_counts()
+        gpu = make_infer_fn(model_gpu)(x.to(device), mask.to(device))
+        torch.cuda.synchronize()
+    add(expect_counts("mid_blocked served batch, f32", 8, 0, 0, tensor_cores=False))
+    line = compare_outputs("mid_blocked served batch card vs CPU", gpu, cpu, SLICE_TOL_F32)
+    if float(gpu["pred"].float().std()) < 1e-3:
+        raise AssertionError("mid_blocked served batch: pred is constant")
+    print(f"mid_blocked modelnet_nolbo ({sum(p.numel() for p in model_cpu.parameters())} params; encoder folds "
+          f"{model_cpu.encoder3d.mid}): f32 served batch of {BATCH}, card vs CPU (tol {SLICE_TOL_F32}): {line}; "
+          f"8 conv_k2 launches (FFMA); {time.perf_counter() - t0:.1f} s", flush=True)
+    del model_cpu, model_gpu
+    add(phase_train_slice(cfg, device, n=MID_SLICE_BATCH, launches=(8, 7, 8), what="mid_blocked train slice"))
+
+    # (b) bf16 served batches: 8 tensor-core launches each, beside the default layout's 4
+    served_ms = {}
+    for label, layout_cfg, launches in (("mid_blocked", cfg, 8), ("default", base_factory(), 4)):
+        model16 = MultiModalVAE(layout_cfg, generator=torch.Generator().manual_seed(SEED)).to(torch.bfloat16).to(device)
+        infer = make_packed_infer(model16, item)
+        packed = torch.from_numpy(pack_voxels(x.numpy())).to(device)
+        infer(packed, mask.to(device))  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = [infer(packed, mask.to(device)) for _ in range(MID_SERVE_BATCHES)]
+        torch.cuda.synchronize()
+        add(expect_counts(f"{label} bf16 served batches", launches * MID_SERVE_BATCHES, 0, 0, tensor_cores=True))
+        if not torch.isfinite(outs[-1]["z_mean"].float()).all():
+            raise AssertionError(f"{label} bf16 served batch: z_mean not finite")
+        served_ms[label] = cuda_ms(lambda: infer(packed, mask.to(device)))
+        del model16, infer
+    print(f"mid_blocked bf16 served batch of {BATCH}: {MID_SERVE_BATCHES} batches, 8 wgmma launches each; device "
+          f"time per batch (CUDA events) {served_ms['mid_blocked']:.3f} ms, the default layout's "
+          f"{served_ms['default']:.3f} ms [{card}]", flush=True)
+
+    # (c) the train CLI's trainer, bf16, B=32, packed batches: mid_blocked, then the default layout
+    runs = {}
+    for label, launches in (("mid_blocked", (8, 7, 8)), ("default", (4, 3, 4))):
+        REGISTRY["modelnet_nolbo"] = mid_blocked_factory(base_factory) if label == "mid_blocked" else base_factory
+        try:
+            args = cli_train.parse_args(["--config", "modelnet_nolbo", "--data", "synthetic", "--packed", "--bf16",
+                                         "--batch-size", str(TRAIN_BATCH), "--steps", str(MID_TRAIN_STEPS),
+                                         "--eval-every", "0"])
+            trainer, _ = cli_train.build_trainer(args)
+        finally:
+            REGISTRY["modelnet_nolbo"] = base_factory
+        if (label == "mid_blocked") != trainer.model.config.decoder.mid_blocked:
+            raise AssertionError(f"{label} train run built {trainer.model.config.decoder}")
+        reset_counts()
+        step_ms, host, wall, peak = timed_train(trainer, f"{label} train run")
+        add(expect_counts(f"{label} train run", *(n * MID_TRAIN_STEPS for n in launches), tensor_cores=True))
+        hist = trainer.history
+        runs[label] = (np.median(step_ms), np.median(host))
+        print(f"{label} train run: {MID_TRAIN_STEPS} steps, B={TRAIN_BATCH} bf16, 64^3 packed: loss_total "
+              f"{hist[0]['loss_total']:.1f} -> {hist[-1]['loss_total']:.1f}; device time per step (CUDA events, steps "
+              f"{TRAIN_WARMUP}..{MID_TRAIN_STEPS - 1}) median {np.median(step_ms):.2f} ms (min {step_ms.min():.2f}, "
+              f"max {step_ms.max():.2f}); host wall per step median {np.median(host):.2f} ms; whole run {wall:.2f} s; "
+              f"peak memory allocated {peak / 2**30:.2f} GiB; conv_k2 {launches[0]} / {launches[1]} / {launches[2]} "
+              f"a step, on wgmma [{card}]", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    print(f"mid_blocked against the default layout, bf16 step at B={TRAIN_BATCH}: device {runs['mid_blocked'][0]:.2f} "
+          f"vs {runs['default'][0]:.2f} ms, host wall {runs['mid_blocked'][1]:.2f} vs {runs['default'][1]:.2f} ms "
+          f"[{card}]", flush=True)
+
+    # (d) the kernels at the new stages: plain, float64, cuDNN's k=2 call, the bound, the other tile height
+    gen = torch.Generator().manual_seed(SEED + 20)
+    rows = {"conv_k2": {}, "conv_k2_dx": {}, "conv_k2_dw": {}}
+    with torch.inference_mode():
+        for case, batch, dtype, stages in MID_CASES:
+            for grid, C, N in stages:
+                x_, w_, g_ = k2_operands(gen, (batch, grid, grid, grid), C, N, dtype)
+                exact = float64_products(x_, w_, g_) if dtype == torch.bfloat16 else {}
+                want = "wgmma" if dtype == torch.bfloat16 else "ffma"
+                for kernel, (run, plain, library) in k2_runs(x_, w_, g_).items():
+                    label = f"{case} {grid}^3 {C}->{N}"
+                    checked = check_kernel(kernel, label, run, plain, exact.get(kernel), want)
+                    p1, t1, t2, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
+                    ms, plain_ms, library_ms = (t1 + t2) / 2, (p1 + p2) / 2, cuda_ms(library)
+                    bound_ms, bound_by = k2_bound_ms(kernel, batch, C, N, dtype, grid)
+                    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                           "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": checked["design"]}
+                    extra = ""
+                    if want == "wgmma" and kernel != "conv_k2_dw":
+                        # the other tile height (128 <-> 256 rows) where the grid allows it, launched directly
+                        cin, cout = (C, N) if kernel == "conv_k2" else (N, C)
+                        plan = wgmma_plan(batch, grid, grid, grid, cin, cout)
+                        alt = wgmma_plan(batch, grid, grid, grid, cin, cout, bm=384 - plan.bm)
+                        if alt is not None:
+                            src, out = (x_, run()) if kernel == "conv_k2" else (g_, run())
+                            other = torch.empty_like(out)
+                            launch = k2mod.forward_wgmma if kernel == "conv_k2" else k2mod.dx_wgmma
+                            launch(src, w_, other, alt)
+                            if not torch.equal(other, out):
+                                raise AssertionError(f"{kernel} {label}: {alt.bm}-row tiles differ from {plan.bm}")
+                            # both heights launched the same way and timed on the card alone (the op's host
+                            # side can outlast a 0.05 ms kernel), in the order plan, other, other, plan
+                            by_plan, by_alt = (lambda: launch(src, w_, other, plan)), (lambda: launch(src, w_, other, alt))
+                            q1, o1, o2, q2 = (device_ms(f, iters=50) for f in (by_plan, by_alt, by_alt, by_plan))
+                            row[f"device_ms_bm{plan.bm}"], row[f"device_ms_bm{alt.bm}"] = (q1 + q2) / 2, (o1 + o2) / 2
+                            extra = (f"; on the card alone the plan's {plan.bm}-row tiles ({plan.tiles} tiles) "
+                                     f"{(q1 + q2) / 2:.4f} ms ({q1:.4f}, {q2:.4f}), {alt.bm}-row tiles ({alt.tiles} "
+                                     f"tiles) {(o1 + o2) / 2:.4f} ms ({o1:.4f}, {o2:.4f}), same bits")
+                    print(f"{kernel} {label} [{checked['design']}]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                          f"library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); kernel / bound "
+                          f"{ms / bound_ms:.1f}, kernel / library {ms / library_ms:.2f}{extra} [{card}]", flush=True)
+                    rows[kernel][f"{label}"] = row
+                del x_, w_, g_, exact
+
+    # (e) a record: the cuDNN k=4 s=2 conv or transposed conv each stage replaces, beside the stage's mid_blocked
+    # layer (space-to-depth + conv_k2, or conv_k2 + depth-to-space), bf16 at B=32, forward and forward + backward
+    for grid, C, N in MID_K2:
+        c_in, g_in, plain, mid = mid_stage_layers(grid, C, N, device)
+        xs = torch.randn(TRAIN_BATCH, g_in, g_in, g_in, c_in, device=device, dtype=torch.bfloat16)
+        times = {}
+        for label, layer in (("k=4 s=2 (cuDNN)", plain), ("mid_blocked", mid)):
+            y0 = layer(xs)
+            gy = torch.randn_like(y0)
+            xg = xs.clone().requires_grad_(True)
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: layer(xs))
+            both = cuda_ms(lambda: layer(xg).backward(gy))
+            times[label] = (fwd, both)
+        kind = "conv" if C > N else "transposed conv"
+        print(f"stage {grid}^3 {C}->{N} at B={TRAIN_BATCH} bf16: the default layout's k=4 s=2 {kind} forward "
+              f"{times['k=4 s=2 (cuDNN)'][0]:.4f} ms, forward + backward {times['k=4 s=2 (cuDNN)'][1]:.4f} ms; the "
+              f"mid_blocked layer forward {times['mid_blocked'][0]:.4f} ms, forward + backward "
+              f"{times['mid_blocked'][1]:.4f} ms (a record) [{card}]", flush=True)
+        del xs, plain, mid
+
+    # (f) SubpixelDeconv3D: conv_k2 on a (D+1)^3 grid (no plan: FFMA), against its plain version and
+    # ConvTransposeEquiv3D on the same transposed-conv weight
+    b, grid, c_in, c_out = SUBPIXEL_CASE
+    equiv = ConvTransposeEquiv3D(c_in, c_out, generator=torch.Generator().manual_seed(SEED + 21)).to(device)
+    sub = subpixel.SubpixelDeconv3D(c_in, c_out).to(device)
+    with torch.no_grad():
+        sub.weight.copy_(subpixel.convtranspose_kernel_to_subpixel(equiv.weight.flip(2, 3, 4).permute(2, 3, 4, 0, 1)))
+    xs = torch.randn(b, grid, grid, grid, c_in, generator=torch.Generator().manual_seed(SEED + 21)).to(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = xs.to(dtype)
+        with torch.inference_mode():
+            before = conv_k2.launches
+            y = sub(xd)
+            if xd.is_cuda and conv_k2.launches != before + 1:
+                raise AssertionError("SubpixelDeconv3D: not one conv_k2 launch")
+            k2mod_conv = subpixel.conv_k2
+            subpixel.conv_k2 = conv_k2_reference  # the plain version: the same function on the plain conv
+            try:
+                y_plain = sub(xd)
+                plain_ms = cuda_ms(lambda: sub(xd))
+            finally:
+                subpixel.conv_k2 = k2mod_conv
+            y_equiv = equiv(xd)
+            ms, equiv_ms = cuda_ms(lambda: sub(xd)), cuda_ms(lambda: equiv(xd))
+        top = float(y_equiv.float().abs().max())
+        err_p, err_e = (float((y.float() - t.float()).abs().max()) for t in (y_plain, y_equiv))
+        tol = SUBPIXEL_TOL_F32 * max(1.0, top) if dtype == torch.float32 else K2_TOL_BF16_REL * 2 * top
+        print(f"SubpixelDeconv3D {grid}^3 {c_in}->{c_out}, B={b}, {dtype}: against its plain version "
+              f"{err_p:.3e}, against ConvTransposeEquiv3D {err_e:.3e} (tol {tol:.3e}); {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, ConvTransposeEquiv3D {equiv_ms:.4f} ms [{card}]", flush=True)
+        if not (err_p <= tol and err_e <= tol and y.shape == (b, 2 * grid, 2 * grid, 2 * grid, c_out)):
+            raise AssertionError(f"SubpixelDeconv3D {dtype}: off its plain version or ConvTransposeEquiv3D")
+    del equiv, sub, xs
+
+    # (g) a bf16 step of the default layout with flat_opt=True beside the per-leaf Adam
+    base_cfg, loss_cfg = configs.variant("modelnet_nolbo")
+    models = {}
+    for flat in (False, True):
+        model = MultiModalVAE(base_cfg, generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16).to(device)
+        models[flat] = (model, create_train_state(model, flat_opt=flat), make_train_step(model, loss_cfg))
+    loader = SyntheticVoxelLoader(num_samples=TRAIN_BATCH, dim=item[0], num_classes=base_cfg.category_dim)
+    batch = to_device(cli_train.build_batch_fn(loader, base_cfg, TRAIN_BATCH, packed=True, native=True)(0), device)
+    # the same update from the same gradients: the two optimizers agree
+    grads = {k: torch.randn(p.shape, generator=torch.Generator().manual_seed(i), dtype=torch.float32).to(device) * 1e-2
+             for i, (k, p) in enumerate(models[False][0].named_parameters())}
+    for flat in (False, True):
+        models[flat][1].apply_gradients(grads)
+    with torch.no_grad():
+        diff = max(float((a - b).abs().max()) for a, b in zip(models[False][0].parameters(),
+                                                             models[True][0].parameters()))
+    if not diff <= 1e-6:
+        raise AssertionError(f"flat_opt: one update from the same gradients differs by {diff}")
+    update_ms = {}
+    for flat in (False, True, True, False):
+        update_ms.setdefault(flat, []).append(cuda_ms(lambda: models[flat][1].apply_gradients(grads)))
+    step_ms = {}
+    for flat in (False, True, True, False):
+        model, state, step = models[flat]
+        g = torch.Generator(device=device).manual_seed(SEED)
+        step(state, batch, g)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        step_ms.setdefault(flat, []).append(cuda_ms(lambda: step(state, batch, g), iters=MID_FLAT_STEPS, warmup=0))
+        add(expect_counts(f"bf16 step, flat_opt {flat}", 4 * MID_FLAT_STEPS, 3 * MID_FLAT_STEPS, 4 * MID_FLAT_STEPS,
+                          tensor_cores=True))
+    print(f"flat_opt, bf16 step of modelnet_nolbo at B={TRAIN_BATCH}: one update from the same gradients agrees "
+          f"within {diff:.3e}; the update alone (CUDA events, 20 calls, two rounds) per-leaf Adam "
+          f"{np.mean(update_ms[False]):.3f} ms ({', '.join(f'{v:.3f}' for v in update_ms[False])}), flat "
+          f"{np.mean(update_ms[True]):.3f} ms ({', '.join(f'{v:.3f}' for v in update_ms[True])}); the step (mean of {MID_FLAT_STEPS}, two rounds) per-leaf "
+          f"{np.mean(step_ms[False]):.2f} ms ({', '.join(f'{v:.2f}' for v in step_ms[False])}), flat "
+          f"{np.mean(step_ms[True]):.2f} ms ({', '.join(f'{v:.2f}' for v in step_ms[True])}) [{card}]", flush=True)
+    del models, batch, grads
+    torch.cuda.empty_cache()
+    print(f"mid_blocked phase: {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return phase_counts, rows
+
+
 def sync() -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -3706,10 +4019,13 @@ def main() -> None:
     stream_counts = phase_pretrain_stream(device, card)
     real_counts = phase_real_data(device, card)
     mapping_counts = phase_mapping_dp(device, card)
+    mid_counts, mid_rows = phase_mid_blocked(device, card)
+    for kernel, cases in mid_rows.items():
+        kernels[kernel].update(cases)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts,
                                                 artifact_counts, image_counts, detector_counts, variant_counts,
-                                                stream_counts, real_counts, mapping_counts)}),
+                                                stream_counts, real_counts, mapping_counts, mid_counts)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

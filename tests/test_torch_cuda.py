@@ -225,6 +225,74 @@ def test_backward_kernels_match_plain_on_planned_shapes(cuda, B, G, C, N):
     assert float((dw_ref.double() - dw64).abs().max()) <= tol
 
 
+# (C, N) of the mid_blocked stages at 4^3: the encoder's last (s2d of 8^3) and the decoder's first (then d2s)
+MID_4CUBED = [(2048, 512), (512, 2048)]
+
+
+@pytest.mark.parametrize("B", [8, 32])
+@pytest.mark.parametrize("C,N", MID_4CUBED)
+def test_wgmma_at_4cubed_matches_plain_and_float64(cuda, B, C, N):
+    """At 4^3 an item has 64 rows, so a tile's box spans two whole items (four
+    at 256 rows): the forward, dx and dw on the tensor cores (their counters
+    move) against their plain versions and float64 products of the same bf16
+    operands; dw twice, the same bits; the forward also on the other tile
+    height (``wgmma_plan(..., bm=...)``), which must give the plan's bits."""
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn(B, 4, 4, 4, C, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, torch.bfloat16)
+    g = torch.randn(B, 4, 4, 4, N, generator=gen).to(cuda, torch.bfloat16)
+    plan = wgmma_plan(B, 4, 4, 4, C, N)
+    for p in (plan, wgmma_plan(B, 4, 4, 4, N, C)):
+        assert p.box == (4, 4, 4) and p.box_items == p.bm // 64
+    with torch.inference_mode():
+        before, before_wg = _counts(), _wgmma_counts()
+        y, dx = conv_k2(x, w), k2.conv_k2_dx(g, w)
+        dw = conv_k2_dw(x, g), conv_k2_dw(x, g)
+        assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 2)
+        assert _wgmma_counts() == (before_wg[0] + 1, before_wg[1] + 1, before_wg[2] + 2)
+        y_other = torch.empty_like(y)
+        k2.forward_wgmma(x, w, y_other, wgmma_plan(B, 4, 4, 4, C, N, bm=384 - plan.bm))
+        y_ref, (dx_ref, dw_ref) = conv_k2_reference(x, w), conv_k2_backward_reference(x, w, g)
+        y64 = sum(torch.nn.functional.pad(x.double(), (0, 0) + (0, 1) * 3)[
+            :, t >> 2:(t >> 2) + 4, (t >> 1) & 1:((t >> 1) & 1) + 4, t & 1:(t & 1) + 4] @ w.double().reshape(8, C, N)[t]
+            for t in range(8))
+        dx64, dw64 = _dx_float64(g, w), _dw_float64(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dw[0], dw[1]) and torch.equal(y, y_other)
+    for out, ref, exact in ((y, y_ref, y64), (dx, dx_ref, dx64)):
+        # one rounding of an f32 sum to bf16 on each side (2 ulps of the largest entry); against float64 half
+        # an ulp and the sum's own error, as chip_smoke.py holds the forward
+        assert float((out.float() - ref.float()).abs().max()) <= 2.0**-7 * float(ref.float().abs().max())
+        tol64 = (2.0**-8 + DW_TOL_F64_REL) * float(exact.abs().max())
+        assert float((out.double() - exact).abs().max()) <= tol64
+        assert float((ref.double() - exact).abs().max()) <= tol64
+    tol = DW_TOL_F64_REL * float(dw64.abs().max())
+    assert float((dw[0].double() - dw64).abs().max()) <= tol and float((dw_ref.double() - dw64).abs().max()) <= tol
+
+
+def test_odd_batch_at_4cubed_takes_ffma(cuda):
+    """B = 7 at 4^3: no box of whole items tiles the rows, so no plan; the
+    forward, dx and dw run on the FFMA kernels (no tensor-core counter moves)
+    and match their plain versions."""
+    B, C, N = 7, 512, 256
+    assert wgmma_plan(B, 4, 4, 4, C, N) is None and wgmma_plan(B, 4, 4, 4, N, C) is None
+    gen = torch.Generator().manual_seed(18)
+    x = torch.randn(B, 4, 4, 4, C, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, torch.bfloat16)
+    g = torch.randn(B, 4, 4, 4, N, generator=gen).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
+        y, dx, dw = conv_k2(x, w), k2.conv_k2_dx(g, w), conv_k2_dw(x, g)
+        assert _counts() == tuple(v + 1 for v in before)
+        assert _wgmma_counts() == before_wg and _narrow_counts() == before_nr
+        y_ref, (dx_ref, dw_ref) = conv_k2_reference(x, w), conv_k2_backward_reference(x, w, g)
+    torch.cuda.synchronize()
+    for out, ref in ((y, y_ref), (dx, dx_ref)):
+        assert float((out.float() - ref.float()).abs().max()) <= 2.0**-7 * float(ref.float().abs().max())
+    # the FFMA dw sums in f32 in another order than the plain version: 1e-5 of the largest entry (chip_smoke.py)
+    assert float((dw - dw_ref).abs().max()) <= 1e-5 * float(dw_ref.abs().max())
+
+
 # (B, D, H, W, C, N) at the edges of the FFMA dw's tile and splits, none with a
 # plan: a ragged grid with 8C < 128 and N <= 64 (the 128 x 64 tile), 8C not a
 # multiple of 128, N % 128 != 0 on the 128-column tile, bf16 rows of g only
@@ -414,6 +482,39 @@ def test_small_train_step_on_card_matches_cpu(cuda, dtype, planned):
     assert all(torch.isfinite(v) for v in out.values())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mid_blocked_flagship_layout_on_card_matches_cpu(cuda, dtype):
+    """``modelnet_nolbo`` at full width with ``mid_blocked`` on its encoder
+    and decoder, a served batch of 2: 8 ``conv_k2`` launches (the blocked
+    head's and tail's 2 each, the folded encoder stages at 8^3 and 4^3, the
+    decoder's middle stages), all on the tensor cores in bfloat16 (the 4^3
+    boxes span both items). float32 against the CPU within chip_smoke.py's
+    ``SLICE_TOL_F32`` (1e-3: ~20 layers of f32 in another order); bfloat16
+    against the CPU's float32 within its 5%."""
+    base = modelnet_nolbo()
+    cfg = dataclasses.replace(base, encoder3d=dataclasses.replace(base.encoder3d, mid_blocked=True),
+                              decoder=dataclasses.replace(base.decoder, mid_blocked=True))
+    model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    card = copy.deepcopy(model).to(dtype).to(cuda)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.uniform(size=(2, 64, 64, 64, 1)) > 0.7).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=(2, 64)) < 0.5).astype(np.float32))
+    with torch.inference_mode():
+        ref = make_infer_fn(model)(x, mask)
+        before, before_wg = conv_k2.launches, conv_k2.launches_wgmma
+        out = make_infer_fn(card)(x.to(cuda, dtype), mask.to(cuda))
+        torch.cuda.synchronize()
+    assert conv_k2.launches == before + 8
+    assert conv_k2.launches_wgmma == before_wg + (8 if dtype == torch.bfloat16 else 0)
+    tol = 1e-3 if dtype == torch.float32 else 0.05
+    for k in ("z_mean", "pred"):
+        got, want = out[k].float().cpu(), ref[k]
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max())), k
+    if dtype == torch.float32:
+        assert torch.equal(out["category"].cpu(), ref["category"])
+
+
 def test_small_slice_on_card_matches_cpu(cuda):
     """modelnet_nolbo's layout at 32^3 with narrow filters: served on the card
     through the kernel (4 launches a batch), equal to the CPU run within f32
@@ -456,15 +557,17 @@ def test_small_bf16_slice_on_card_takes_tensor_cores(cuda):
 
 
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 64, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64)),
-                                         (torch.bfloat16, (2, 8, 8, 8, 32, 8)), (torch.float32, (1, 3, 4, 5, 8, 16))],
-                         ids=["f32_ffma", "bf16_wgmma", "bf16_narrow", "f32_narrow"])
+                                         (torch.bfloat16, (2, 8, 8, 8, 32, 8)), (torch.float32, (1, 3, 4, 5, 8, 16)),
+                                         (torch.bfloat16, (4, 4, 4, 4, 64, 64))],
+                         ids=["f32_ffma", "bf16_wgmma", "bf16_narrow", "f32_narrow", "bf16_wgmma_4cubed"])
 @pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
 def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     """The three ops on CUDA tensors: schema, autograd registration (the
     forward's backward calls the dx and dw ops), the fake implementation
     against the kernel's output, and an AOT-autograd trace; in float32 at
     C = 64, which has no narrow plan (all FFMA); in bfloat16 at a shape with
-    a plan, so the tensor-core kernels answer; at 32 -> 8, where the narrow
+    a plan (8^3, and 4^3, whose boxes span two items), so the tensor-core
+    kernels answer; at 32 -> 8, where the narrow
     forward, dx (8 -> 32) and dw do; and in float32 at 8 -> 16, where the
     narrow FFMA forward, dx (16 -> 8) and dw do."""
     *grid, C, N = shape

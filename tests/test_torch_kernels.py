@@ -12,6 +12,7 @@ the plain versions and the JAX package, and which kernel each dtype and shape
 is routed to."""
 
 import ctypes
+import math
 import os
 import subprocess
 import sys
@@ -125,12 +126,34 @@ FLAGSHIP_K2 = [(64, 512), (512, 128), (128, 512), (512, 64)]  # (C, N) at 16^3
 # train batch, and the card tests' 8^3 and 32^3 and some grids that are no cubes
 PLANNED = ([(B, 16, 16, 16, C, N) for B in (8, 32) for C, N in FLAGSHIP_K2]
            + [(1, 8, 8, 8, 64, 64), (3, 8, 8, 8, 64, 128), (1, 32, 32, 32, 64, 64), (3, 32, 32, 32, 128, 64),
-              (2, 4, 8, 16, 64, 64), (1, 2, 4, 32, 64, 192), (1, 2, 2, 256, 64, 64)])
+              (2, 4, 8, 16, 64, 64), (1, 2, 4, 32, 64, 192), (1, 2, 2, 256, 64, 64)]
+           # the mid_blocked stages at 4^3: a box of two whole items (64 rows each); and 2^3, one of 16
+           + [(B, 4, 4, 4, C, N) for B in (8, 32) for C, N in ((2048, 512), (512, 2048))]
+           + [(2, 4, 4, 4, 64, 64), (16, 2, 2, 2, 64, 128)])
 # and without: narrow or ragged channels, grids whose rows do not tile into boxes
 UNPLANNED = [(2, 5, 6, 7, 64, 64), (8, 16, 17, 18, 64, 512), (1, 4, 4, 4, 64, 64), (2, 16, 16, 16, 8, 16),
              (2, 16, 16, 16, 136, 8), (2, 16, 16, 16, 16, 24), (2, 16, 16, 16, 64, 4), (1, 16, 16, 12, 64, 64),
-             (1, 8, 8, 8, 96, 64), (1, 8, 8, 8, 64, 96)]
+             (1, 8, 8, 8, 96, 64), (1, 8, 8, 8, 64, 96), (7, 4, 4, 4, 2048, 512), (3, 4, 4, 4, 512, 2048),
+             (8, 2, 2, 2, 64, 64)]
 SMEM_PER_BLOCK = 232_448  # what one block may have on an H100
+# The plans of the grids whose boxes lie inside one batch item, as they were
+# before boxes could span items: (bm, bn, box, stages, smem_bytes, tiles, grid,
+# dw_box, dw_stages, dw_smem_bytes, dw_grid, dw_stages_per_split)
+KEPT_PLANS = {
+    (8, 16, 16, 16, 64, 512): (128, 128, (16, 8, 1), 3, 99456, 1024, 264, (16, 4, 1), 3, 99456, (4, 4, 16), 32),
+    (8, 16, 16, 16, 512, 128): (256, 128, (16, 16, 1), 4, 197760, 128, 128, (16, 4, 1), 3, 99456, (1, 32, 8), 64),
+    (8, 16, 16, 16, 128, 512): (256, 128, (16, 16, 1), 4, 197760, 512, 132, (16, 4, 1), 3, 99456, (4, 8, 8), 64),
+    (8, 16, 16, 16, 512, 64): (256, 64, (16, 16, 1), 4, 164992, 128, 128, (16, 4, 1), 4, 99456, (1, 32, 8), 64),
+    (32, 16, 16, 16, 64, 512): (128, 128, (16, 8, 1), 3, 99456, 4096, 264, (16, 4, 1), 3, 99456, (4, 4, 16), 128),
+    (32, 16, 16, 16, 512, 128): (256, 128, (16, 16, 1), 4, 197760, 512, 132, (16, 4, 1), 3, 99456, (1, 32, 8), 256),
+    (32, 16, 16, 16, 128, 512): (256, 128, (16, 16, 1), 4, 197760, 2048, 132, (16, 4, 1), 3, 99456, (4, 8, 8), 256),
+    (32, 16, 16, 16, 512, 64): (256, 64, (16, 16, 1), 4, 164992, 512, 132, (16, 4, 1), 4, 99456, (1, 32, 8), 256),
+    (32, 8, 8, 8, 1024, 256): (256, 128, (8, 8, 4), 4, 197760, 128, 128, (8, 8, 1), 3, 99456, (2, 64, 2), 128),
+    (32, 8, 8, 8, 256, 1024): (256, 128, (8, 8, 4), 4, 197760, 512, 132, (8, 8, 1), 3, 99456, (8, 16, 2), 128),
+    (8, 8, 8, 8, 1024, 256): (256, 128, (8, 8, 4), 4, 197760, 32, 32, (8, 8, 1), 3, 99456, (2, 64, 2), 32),
+    (3, 8, 8, 8, 64, 128): (128, 128, (8, 8, 2), 3, 99456, 12, 12, (8, 8, 1), 3, 99456, (1, 4, 1), 24),
+    (3, 32, 32, 32, 128, 64): (256, 64, (32, 8, 1), 4, 164992, 384, 132, (32, 2, 1), 4, 99456, (1, 8, 33), 47),
+}
 
 
 def _origin(row, D, H, W):
@@ -140,21 +163,22 @@ def _origin(row, D, H, W):
     return row // D, row % D, h0, w0
 
 
-def _box_read(x, origin, extents, tap, c0, sign=1):
+def _box_read(x, origin, extents, tap, c0, sign=1, items=1):
     """The (rows, 64) tile a TMA box copy of ``x`` (B,D,H,W,C) delivers: the
-    box of ``extents`` (w, h, d) at ``origin`` (b, d, h, w) shifted by
-    ``sign`` times the tap (+1 the forward and dw, -1 dx: a start coordinate
-    may be negative), 64 channels from ``c0``, zeros wherever it leaves the
-    tensor, below 0 as well as past the end."""
+    box of ``extents`` (w, h, d) by ``items`` batch items at ``origin`` (b,
+    d, h, w) shifted by ``sign`` times the tap in d, h and w (+1 the forward
+    and dw, -1 dx: a start coordinate may be negative), 64 channels from
+    ``c0``, zeros wherever it leaves the tensor, below 0 as well as past the
+    end, axis by axis (so in each item of a box that spans items)."""
     (b, d, h, w), (bw, bh, bd) = origin, extents
     d, h, w = d + sign * (tap >> 2), h + sign * ((tap >> 1) & 1), w + sign * (tap & 1)
     _, D, H, W, _ = x.shape
-    out = torch.zeros(bd, bh, bw, 64, dtype=x.dtype)
+    out = torch.zeros(items, bd, bh, bw, 64, dtype=x.dtype)
     # per axis: the part [lo, hi) of the box that lies inside the tensor
     (d0, d1), (h0, h1), (w0, w1) = ((max(0, -lo), max(0, min(n, size - lo))) for n, size, lo in
                                     ((bd, D, d), (bh, H, h), (bw, W, w)))
     if d0 < d1 and h0 < h1 and w0 < w1:
-        out[d0:d1, h0:h1, w0:w1] = x[b, d + d0:d + d1, h + h0:h + h1, w + w0:w + w1, c0:c0 + 64]
+        out[:, d0:d1, h0:h1, w0:w1] = x[b:b + items, d + d0:d + d1, h + h0:h + h1, w + w0:w + w1, c0:c0 + 64]
     return out.reshape(-1, 64)
 
 
@@ -174,7 +198,8 @@ def _emulate_forward(x, w, plan):
             acc = torch.zeros(plan.bm, plan.bn)
             for it in range(8 * C // 64):
                 tap, c0 = it * 64 // C, it * 64 % C
-                acc += _box_read(x, _origin(row0, D, H, W), plan.box, tap, c0) @ w2[it * 64:it * 64 + 64, n0:n0 + plan.bn]
+                acc += (_box_read(x, _origin(row0, D, H, W), plan.box, tap, c0, items=plan.box_items)
+                        @ w2[it * 64:it * 64 + 64, n0:n0 + plan.bn])
             y[row0:row0 + plan.bm, n0:n0 + plan.bn] = acc
             written[row0:row0 + plan.bm, n0:n0 + plan.bn] += 1
     return y.reshape(B, D, H, W, N), written
@@ -198,7 +223,7 @@ def _emulate_dx(g, w, plan):
             acc = torch.zeros(plan.bm, plan.bn)
             for it in range(8 * N // 64):
                 tap, n0 = it * 64 // N, it * 64 % N
-                a = _box_read(g, _origin(row0, D, H, W), plan.box, tap, n0, sign=-1)
+                a = _box_read(g, _origin(row0, D, H, W), plan.box, tap, n0, sign=-1, items=plan.box_items)
                 for j in range(plan.bn // 64):  # one 64 x 64 box of w a 64-column block
                     rows = tap * C + c0 + 64 * j
                     acc[:, 64 * j:64 * j + 64] += a @ w2[rows:rows + 64, n0:n0 + 64].T
@@ -225,7 +250,7 @@ def _emulate_dw(x, g, plan):
             m0 = stage * 64
             for r0 in range(0, rt * 128, 64):
                 tap, c0 = r0 // C, r0 % C
-                a = _box_read(x, _origin(m0, D, H, W), plan.dw_box, tap, c0)
+                a = _box_read(x, _origin(m0, D, H, W), plan.dw_box, tap, c0, items=plan.dw_box_items)
                 for n0 in range(0, nt * plan.bn, plan.bn):
                     part[z, r0:r0 + 64, n0:n0 + plan.bn] += a.T @ g2[m0:m0 + 64, n0:n0 + plan.bn]
                     depth[r0:r0 + 64, n0:n0 + plan.bn] += 64
@@ -242,9 +267,12 @@ def test_wgmma_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     rows = B * D * H * W
     # boxes: 64 channels = 128 bytes inner (the 128-byte swizzle), every extent
     # within the TMA's 256, bm rows a forward tile and 64 rows a dw stage
-    assert 64 * 2 == 128 and max(*plan.box, *plan.dw_box, 64) <= 256
+    assert 64 * 2 == 128 and max(*plan.box, *plan.dw_box, plan.box_items, plan.dw_box_items, 64) <= 256
     assert plan.bm in (128, 256) and plan.bn in (64, 128) and N % plan.bn == 0
-    assert plan.box[0] * plan.box[1] * plan.box[2] == plan.bm and plan.dw_box[0] * plan.dw_box[1] * plan.dw_box[2] == 64
+    assert math.prod(plan.box) * plan.box_items == plan.bm and math.prod(plan.dw_box) * plan.dw_box_items == 64
+    # a box spans batch items only as whole items of a grid with fewer rows than the box
+    for box, items in ((plan.box, plan.box_items), (plan.dw_box, plan.dw_box_items)):
+        assert items == 1 or (box == (W, H, D) and B % items == 0)
     # rings of at least 3 stages of 8 KB tiles; two blocks share an SM's shared
     # memory, except the forward at 256 rows, which has it alone
     per_sm = 2 if plan.bm == 128 else 1
@@ -255,13 +283,14 @@ def test_wgmma_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     # forward: the boxes of consecutive tiles tile the grid, every row once
     seen = np.zeros((B, D, H, W), np.int32)
     bw, bh, bd = plan.box
+    bb = plan.box_items
     for row0 in range(0, rows, plan.bm):
         b, d, h, w = _origin(row0, D, H, W)
-        assert d + bd <= D and h + bh <= H and w + bw <= W
-        flat = np.ravel_multi_index(np.meshgrid([b], np.arange(d, d + bd), np.arange(h, h + bh), np.arange(w, w + bw),
-                                                indexing="ij"), (B, D, H, W)).ravel()
+        assert b + bb <= B and d + bd <= D and h + bh <= H and w + bw <= W
+        flat = np.ravel_multi_index(np.meshgrid(np.arange(b, b + bb), np.arange(d, d + bd), np.arange(h, h + bh),
+                                                np.arange(w, w + bw), indexing="ij"), (B, D, H, W)).ravel()
         assert (flat == np.arange(row0, row0 + plan.bm)).all()  # the box's rows, in order, are the tile's rows
-        seen[b, d:d + bd, h:h + bh, w:w + bw] += 1
+        seen[b:b + bb, d:d + bd, h:h + bh, w:w + bw] += 1
     assert (seen == 1).all()
     assert plan.tiles == rows // plan.bm * (N // plan.bn) and 1 <= plan.grid <= min(plan.tiles, per_sm * 132)
     walked = sorted(t for block in range(plan.grid) for t in range(block, plan.tiles, plan.grid))
@@ -270,7 +299,7 @@ def test_wgmma_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     bw, bh, bd = plan.dw_box
     for m0 in range(0, rows, 64):
         b, d, h, w = _origin(m0, D, H, W)
-        assert d + bd <= D and h + bh <= H and w + bw <= W
+        assert b + plan.dw_box_items <= B and d + bd <= D and h + bh <= H and w + bw <= W
         assert np.ravel_multi_index((b, d, h, w), (B, D, H, W)) == m0
     nt, rt, splits = plan.dw_grid
     assert nt * plan.bn == N and rt * 128 == 8 * C
@@ -285,10 +314,43 @@ def test_wgmma_plan_is_none_where_the_kernels_do_not_apply(B, D, H, W, C, N):
     assert wgmma_plan(B, D, H, W, C, N) is None
 
 
+@pytest.mark.parametrize("shape", sorted(KEPT_PLANS))
+def test_wgmma_plans_inside_one_item_are_kept(shape):
+    """Boxes that span batch items changed no plan whose boxes lie inside one
+    item: the 16^3 flagship stages, 8^3 and 32^3 give the tiles, boxes, rings
+    and splits they gave before."""
+    p = wgmma_plan(*shape)
+    assert (p.bm, p.bn, p.box, p.stages, p.smem_bytes, p.tiles, p.grid, p.dw_box, p.dw_stages, p.dw_smem_bytes,
+            p.dw_grid, p.dw_stages_per_split) == KEPT_PLANS[shape]
+    assert p.box_items == p.dw_box_items == 1
+
+
+@pytest.mark.parametrize("B,C,N", [(8, 2048, 512), (32, 2048, 512), (8, 512, 2048), (32, 512, 2048), (2, 64, 64)])
+def test_wgmma_plan_spans_items_at_4cubed(B, C, N):
+    """At 4^3 an item has 64 rows: the forward's 128-row box is two whole
+    items, its 256-row box four, dw's 64-row box one; dx's plan (the forward
+    from N to C) likewise. 256-row tiles only where they fill 7/8 of the 132
+    SMs (B=32, 512 -> 2048: 128 of them), else 128 rows. An odd B has no
+    plan."""
+    for c, n in ((C, N), (N, C)):
+        p = wgmma_plan(B, 4, 4, 4, c, n)
+        bm = 256 if (B, n) == (32, 2048) else 128
+        assert (p.bm, p.box, p.box_items, p.dw_box, p.dw_box_items) == (bm, (4, 4, 4), bm // 64, (4, 4, 4), 1)
+        assert p.tiles == B * 64 // bm * (n // p.bn)
+        if B % 4 == 0 and c >= 128:
+            for rows in (128, 256):
+                forced = wgmma_plan(B, 4, 4, 4, c, n, bm=rows)
+                assert (forced.bm, forced.box, forced.box_items) == (rows, (4, 4, 4), rows // 64)
+        assert wgmma_plan(B + 1, 4, 4, 4, c, n) is None
+    assert k2._row_box(128, B, 4, 4, 4) == (4, 4, 4, 2) and k2._row_box(256, B + 1, 4, 4, 4) is None
+
+
 # small grids, cubes and not: the box spans two d-planes (8^3), part of a
-# plane (4x8x16), part of a line (2x2x256); N = 128 takes the wide tile
+# plane (4x8x16), part of a line (2x2x256); N = 128 takes the wide tile; at
+# 4^3 and 2^3 (as the mid_blocked encoder and decoder reach) the box spans
+# whole batch items, 2 of them for the forward at 4^3 and 16 at 2^3
 EMULATED = [(1, 8, 8, 8, 64, 64), (2, 8, 8, 8, 128, 128), (1, 4, 8, 16, 64, 128), (1, 2, 4, 32, 64, 64),
-            (1, 2, 2, 256, 64, 64), (1, 16, 16, 16, 64, 64)]
+            (1, 2, 2, 256, 64, 64), (1, 16, 16, 16, 64, 64), (4, 4, 4, 4, 128, 64), (16, 2, 2, 2, 64, 128)]
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", EMULATED)
@@ -362,10 +424,10 @@ def test_dx_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     ring = plan.stages * (plan.bm // 64 + plan.bn // 64) * 64 * 64 * 2
     assert 3 <= plan.stages <= 8 and ring + 1024 <= plan.smem_bytes <= SMEM_PER_BLOCK // per_sm
     bw, bh, bd = plan.box
-    assert bw * bh * bd == plan.bm and max(bw, bh, bd) <= 256
-    for row0 in range(0, rows, plan.bm):  # the box of a tile's rows stays inside one batch item before the shift
+    assert bw * bh * bd * plan.box_items == plan.bm and max(bw, bh, bd, plan.box_items) <= 256
+    for row0 in range(0, rows, plan.bm):  # the box of a tile's rows stays inside its batch items before the shift
         b, d, h, w = _origin(row0, D, H, W)
-        assert d + bd <= D and h + bh <= H and w + bw <= W
+        assert b + plan.box_items <= B and d + bd <= D and h + bh <= H and w + bw <= W
         assert np.ravel_multi_index((b, d, h, w), (B, D, H, W)) == row0
     assert plan.tiles == rows // plan.bm * (C // plan.bn) and 1 <= plan.grid <= min(plan.tiles, per_sm * 132)
     written = np.zeros((rows // plan.bm, C // plan.bn), np.int32)

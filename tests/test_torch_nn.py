@@ -291,15 +291,11 @@ def test_modelnet_nolbo_config_mirrors_jax(name):
 ])
 def test_unported_layouts_raise(part, change):
     """The layouts the flagship does not use, on its 32^3 narrow form: each
-    ported one builds with flax's submodule names and computes flax's
-    encoder or decoder on the same random weights; ``mid_blocked`` still
-    raises."""
+    one (``mid_blocked`` too, since it was ported) builds with flax's
+    submodule names and computes flax's encoder or decoder on the same random
+    weights."""
     jax_cfg, cfg = (dataclasses.replace(getattr(c, part), **change) for c in small_configs())
     cls = Encoder3D if part == "encoder3d" else Decoder3D
-    if change.get("mid_blocked"):
-        with pytest.raises(NotImplementedError, match="mid_blocked"):
-            cls(cfg)
-        return
     rng = np.random.default_rng(len(str(change)))
     if part == "encoder3d":
         jax_mod, x = jax_ae.Encoder3D(jax_cfg), (rng.uniform(size=(2, 32, 32, 32, 1)) > 0.7).astype(np.float32)

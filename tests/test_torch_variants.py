@@ -340,10 +340,23 @@ def test_remap_decoder_params_refuses_what_jax_refuses():
 
 @pytest.mark.parametrize("part,change", [("encoder3d", {"mid_blocked": True}), ("decoder", {"mid_blocked": True})])
 def test_mid_blocked_stays_unported(part, change):
-    cfg = configs.modelnet_nolbo()
-    cls = ae.Encoder3D if part == "encoder3d" else ae.Decoder3D
-    with pytest.raises(NotImplementedError, match="mid_blocked"):
-        cls(dataclasses.replace(getattr(cfg, part), **change))
+    """``mid_blocked``, once refused, is ported: at full width on
+    ``modelnet_nolbo`` the flax tree of that layout fills the port's model
+    exactly (the folded encoder stages' 8 C-deep k=2 convs, the decoder's
+    middle ``Conv_i`` and ``GroupNorm_i`` numbered with the tail's), and
+    the stages it folds run on ``conv_k2``."""
+    jax_base, base = jax_configs.modelnet_nolbo(), configs.modelnet_nolbo()
+    jax_cfg = dataclasses.replace(jax_base, **{part: dataclasses.replace(getattr(jax_base, part), **change)})
+    cfg = dataclasses.replace(base, **{part: dataclasses.replace(getattr(base, part), **change)})
+    shapes = jax.eval_shape(lambda k: JaxVAE(jax_cfg).init({"params": k, "dropout": k},
+                                                           jnp.zeros((1, *cfg.decoder.output_shape)),
+                                                           method=JaxVAE.initialize), jax.random.PRNGKey(0))["params"]
+    tree = jax.tree.map(lambda s: np.broadcast_to(np.float32(0), s.shape), shapes)
+    with torch.device("meta"):
+        model = MultiModalVAE(cfg)
+    model.load_state_dict(params_from_flax(tree), strict=True, assign=True)
+    convs = [m for m in getattr(model, part).modules() if isinstance(m, blocks.ConvK2)]
+    assert len(convs) == 2 + 2  # the blocked head's or tail's two, and the two folded stages
 
 
 # ---------------------------------------------------------------- the model without a category prior
