@@ -24,27 +24,13 @@ and ``nvcc``. The port calls none of this.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
+
+from anytime3d_tpu_torch.utils.timing import card_line, cuda_ms
 
 PROBES = {0: "whole", 1: "without the store", 2: "without the products", 3: "without both"}
 DW_PROBES = {0: "whole", 1: "without each row's loads", 2: "8 FFMA a row for 64", 3: "without the loop over rows"}
 B, G, C, N = 32, 32, 32, 8  # decodes, grid, channels in and out
-
-
-def _events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main() -> None:
@@ -55,8 +41,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("probe_narrow: needs a CUDA GPU")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     with ThreadPoolExecutor(len(PROBES)) as pool:  # one nvcc a build, all at once
         paths = list(pool.map(lambda m: build.build("conv_k2", (f"CONV_K2_NARROW_PROBE={m}",) if m else ()), PROBES))
     libs = {m: k2.bind(ctypes.CDLL(str(p))) for m, p in zip(PROBES, paths)}
@@ -117,7 +102,7 @@ def main() -> None:
     times = {name: [] for name in runs}
     for _ in range(2):
         for name, fn in runs.items():
-            times[name].append(_events_ms(fn))
+            times[name].append(cuda_ms(fn))
     for name, (a, b) in times.items():
         extra = f", max_abs_err {err[name]:.3e}" if name in err else ""
         print(f"float32 narrow {name}, {B} decodes of {G}^3, {C} -> {N}: {a:.4f} / {b:.4f} ms by events{extra} "

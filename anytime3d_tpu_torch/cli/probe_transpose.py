@@ -25,24 +25,11 @@ comparison alone, at whatever size is given.
 from __future__ import annotations
 
 import argparse
-import subprocess
 
 import torch
 
 from anytime3d_tpu_torch.nn.blocks import ConvTranspose3d, ConvTransposeEquiv3D
-
-
-def _ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+from anytime3d_tpu_torch.utils.timing import card_line, cuda_ms
 
 
 def main(argv=None) -> dict:
@@ -58,8 +45,7 @@ def main(argv=None) -> dict:
         raise SystemExit("probe_transpose: --device cuda but CUDA is not available")
     card = "cpu"
     if device.type == "cuda":
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                              capture_output=True, text=True, check=True).stdout.strip()
+        card = card_line()
     gen = torch.Generator().manual_seed(0)
     conv = ConvTranspose3d(args.cin, args.cout, 4, 2, generator=gen).to(device)
     equiv = ConvTransposeEquiv3D(args.cin, args.cout).to(device)
@@ -100,7 +86,7 @@ def main(argv=None) -> dict:
             return run
 
         for what, make in (("forward", fwd), ("forward+backward", train)):
-            t1, p1, p2, t2 = (_ms(make(f)) for f in ("transpose", "phase_k3", "phase_k3", "transpose"))
+            t1, p1, p2, t2 = (cuda_ms(make(f)) for f in ("transpose", "phase_k3", "phase_k3", "transpose"))
             t, ph = (t1 + t2) / 2, (p1 + p2) / 2
             results[name][what] = {"transpose_ms": t, "phase_k3_ms": ph}
             print(f"probe_transpose {name} {what} B={args.batch} {args.grid}^3 {args.cin}->{args.cout}: "

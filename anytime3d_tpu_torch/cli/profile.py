@@ -27,8 +27,9 @@ from __future__ import annotations
 import argparse
 import copy
 import json
-import subprocess
 import time
+
+from anytime3d_tpu_torch.utils.timing import card_line, kernel_rows
 
 
 def main(argv=None):
@@ -51,8 +52,7 @@ def main(argv=None):
     batch_size, steps, profiled_steps = 32, 10, 3
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA GPU")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
 
     train_args = ["--config", args.config, "--data", "synthetic", "--packed", "--batch-size", str(batch_size)]
     trainer, _ = cli_train.build_trainer(cli_train.parse_args(train_args + ([] if args.f32 else ["--bf16"])))
@@ -178,18 +178,6 @@ def main(argv=None):
                        "kernels": [{"name": n, "ms_per_step": ms, "calls_per_step": c} for n, ms, c in rows],
                        "serve_ms": serve_ms, "serve_busy_ms": serve_busy,
                        "serve_kernels": [{"name": n, "ms": ms, "calls": c} for n, ms, c in serve_rows]}, fh, indent=1)
-
-
-def kernel_rows(prof, n: int) -> list:
-    """(name, device ms, calls) per kernel of a profile, each over ``n`` runs,
-    the longest first. Kernel rows only: operator rows and annotated ranges
-    repeat their kernels' device time."""
-    from torch.autograd import DeviceType
-
-    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)]
-    return sorted(rows, key=lambda r: -r[1])
 
 
 def print_kernels(rows: list, busy_ms: float, top: int, label: str) -> None:

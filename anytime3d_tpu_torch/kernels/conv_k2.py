@@ -6,12 +6,16 @@ convolutions of the flagship model (the blocked encoder head and decoder
 tail at 16^3) are this operation. ``csrc/conv_k2.cu`` says how the kernels
 are formed and what bounds them. There are three designs: bfloat16 operands
 whose shape has a plan (:func:`wgmma_plan`) take the tensor-core kernels of
-``csrc/conv_k2_wgmma.cuh`` in the forward, in dx and in dw; else operands of
+``csrc/conv_k2_wgmma.cuh`` in the forward, in dx and in dw (the forward and dx
+split their depth over blocks where their tiles leave the card idle, and a
+reduce adds the splits); else operands of
 a narrow output (N = 8, 16 or 32) whose shape has a narrow plan
 (:func:`narrow_plan`) take the halo-box kernels of ``csrc/conv_k2_narrow.cuh``
 in the forward, dw and dx (dx where the forward from N to C channels has a
-plan): on ``mma.sync`` in bfloat16, on FFMA in float32; the rest take the
-FFMA kernels. The choice is made from shape and dtype before
+plan): on ``mma.sync`` in bfloat16, on FFMA in float32; a bfloat16 dw of a
+narrow input and N = 64 (the s2d(2) stem's) whose shape has a dw-only plan
+(:func:`narrow_dw_plan`) takes the halo-box dw on ``mma.sync``; the rest take
+the FFMA kernels. The choice is made from shape and dtype before
 the launch, never by catching a failure.
 
 The forward, dx and dw are the custom operators ``anytime3d_torch::conv_k2``,
@@ -96,8 +100,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv_k2_forward.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.conv_k2_backward_input.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.conv_k2_backward_weight.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
-    lib.conv_k2_forward_wgmma.argtypes = [ptr] * 3 + [i32] * 17 + [ptr]
-    lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 3 + [i32] * 17 + [ptr]
+    lib.conv_k2_forward_wgmma.argtypes = [ptr] * 4 + [i32] * 19 + [ptr]
+    lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 4 + [i32] * 19 + [ptr]
     lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 16 + [ptr]
     lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_backward_input_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
@@ -117,7 +121,8 @@ _WG_ROWS = 128
 _WG_DEPTH = 64
 _WG_TILE_BYTES = 64 * 64 * 2
 _WG_SMEM_MAX = 232_448  # what one block may have on an H100
-_WG_DW_MIN_STAGES = 16  # a split of dw's row reduction is at least this deep
+_WG_DW_MIN_STAGES = 16  # a split of dw's row reduction, or of the forward's depth, is at least this deep
+_WG_SPLIT_MAX_VOXELS = 8**3  # the forward's depth splits only on grids of at most 8^3 an item (the mid_blocked stages)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,9 +138,15 @@ class WgmmaPlan:
     each item, the TMA filling zeros per axis).
     The ring has ``stages`` slots and the block ``smem_bytes`` of dynamic
     shared memory (ring, alignment room, barriers), which the launcher holds
-    to its own arithmetic, as it does ``tiles``. The ``tiles`` output tiles
-    (column tiles fastest) are walked by ``grid`` blocks, block i taking tiles
-    i, i + grid, ...
+    to its own arithmetic, as it does ``tiles``. The depth's 8C/64 stages are
+    cut into ``splits`` runs of ``stages_per_split`` (the last may be shorter;
+    one split of all stages unless the grid has at most 8^3 voxels an item
+    and the tiles fill at most half a wave of blocks: then as many as fill one
+    wave, each at least 16 stages deep). The ``tiles`` x ``splits`` work items
+    (tile, split), column tiles fastest, then splits, are walked by ``grid``
+    blocks, block i taking items i, i + grid, ...; with splits > 1 each item's
+    f32 partial goes to a workspace, which the launcher's reduce adds into the
+    output.
 
     dx has no fields of its own: it is cut by the plan of the forward from N
     to C channels, ``wgmma_plan(B, D, H, W, N, C)``, whose tiles are ``bm``
@@ -159,6 +170,8 @@ class WgmmaPlan:
     dw_smem_bytes: int
     dw_grid: tuple[int, int, int]
     dw_stages_per_split: int
+    splits: int
+    stages_per_split: int
     box_items: int = 1
     dw_box_items: int = 1
 
@@ -194,13 +207,14 @@ def _ring(a_tiles: int, bn: int, blocks_per_sm: int) -> tuple[int, int]:
 
 @functools.lru_cache(maxsize=256)  # a model asks for the same few shapes at every step
 def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
-               bm: int | None = None) -> WgmmaPlan | None:
+               bm: int | None = None, split: bool = True) -> WgmmaPlan | None:
     """The tensor-core kernels' plan for bfloat16 ``x`` (B,D,H,W,C) and ``w``
     (2,2,2,C,N), or None where they do not apply: C and N multiples of 64 and
     a grid whose rows tile into boxes of 128 and of 64 (16^3, 8^3, 32^3, ...;
     at 4^3, boxes of whole items, so B even). Pure arithmetic; ``sms`` is
     the card's count of multiprocessors; ``bm`` forces the forward's tile rows
-    (128 or 256) where the grid allows them, to measure one against the
+    (128 or 256) where the grid allows them, and ``split=False`` the plan
+    without the depth split (the one before it), to measure one against the
     other."""
     if min(B, D, H, W, C, N) < 1 or C % _WG_DEPTH or N % 64 or B * D * H * W >= 2**31:
         return None
@@ -211,12 +225,16 @@ def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
     bn = 128 if N % 128 == 0 else 64
     # forward: tiles of 256 rows (one block an SM, the B tile fetched half as often) where the rows
     # tile so and a tile is at least 16 stages deep: its store then hides without a second block. Where
-    # a box spans batch items (a small grid such as 4^3) only if those tiles still fill 7/8 of the SMs:
-    # below that, 128-row tiles won on an H100, the kernels alone (PERF.md section 6: 0.097 against
-    # 0.153 ms at B=32, 2048 -> 512, 32 tiles of 256 rows; 256 rows 0.049 against 0.062 at 512 -> 2048,
-    # 128 tiles)
+    # a box spans batch items (a small grid such as 4^3) only if those tiles still fill 7/8 of the SMs,
+    # or if 128-row tiles would fill at most half a wave and split their depth (below): unsplit, 128-row
+    # tiles won on an H100, the kernels alone (PERF.md section 6: 0.097 against 0.153 ms at B=32, 2048 ->
+    # 512, 32 tiles of 256 rows; 256 rows 0.049 against 0.062 at 512 -> 2048, 128 tiles); split, 256 rows
+    # won at every such shape (0.0551 against 0.0665 ms at B=32, 2048 -> 512; 0.0270 against 0.0288 at B=8)
+    depth = 8 * C // _WG_DEPTH
+    split = split and D * H * W <= _WG_SPLIT_MAX_VOXELS
     fills = 8 * (rows // 256) * (N // bn) >= 7 * sms
-    want_256 = (C >= 128 and (box[3] == 1 or fills)) if bm is None else bm == 256
+    splits_128 = split and rows // _WG_ROWS * (N // bn) <= sms and depth >= 2 * _WG_DW_MIN_STAGES
+    want_256 = (C >= 128 and (box[3] == 1 or fills or splits_128)) if bm is None else bm == 256
     box_256 = _row_box(256, B, D, H, W) if want_256 else None
     if bm == 256 and box_256 is None:
         return None
@@ -224,6 +242,15 @@ def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
     blocks_per_sm = 2 if bm == _WG_ROWS else 1
     stages, smem_bytes = _ring(2 * bm // _WG_ROWS, bn, blocks_per_sm)
     fwd_tiles = (rows // bm) * (N // bn)
+    # the forward's depth split where its tiles fill at most half a wave (the 4^3 stages at B=8: 8 tiles of 256
+    # rows on 132 SMs), as many splits as fill one wave, each at least 16 stages deep; else one split, the walk
+    # over tiles alone. Only on grids of at most 8^3 an item, where it was measured: the 16^3 convs keep their
+    # path at every batch
+    fwd_splits = 1
+    if split and 2 * fwd_tiles <= blocks_per_sm * sms:
+        fwd_splits = max(1, min(blocks_per_sm * sms // fwd_tiles, depth // _WG_DW_MIN_STAGES))
+    fwd_per_split = -(-depth // fwd_splits)
+    fwd_splits = -(-depth // fwd_per_split)
     # dw: one wave of blocks, two an SM, each split a whole number of stages
     dw_stages, dw_smem_bytes = _ring(2, bn, 2)
     total = rows // _WG_DEPTH
@@ -232,9 +259,10 @@ def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
     per_split = -(-total // splits)
     splits = -(-total // per_split)
     return WgmmaPlan(bm=bm, bn=bn, box=box[:3], stages=stages, smem_bytes=smem_bytes, tiles=fwd_tiles,
-                     grid=min(fwd_tiles, blocks_per_sm * sms), dw_box=dw_box[:3], dw_stages=dw_stages,
+                     grid=min(fwd_tiles * fwd_splits, blocks_per_sm * sms), dw_box=dw_box[:3], dw_stages=dw_stages,
                      dw_smem_bytes=dw_smem_bytes, dw_grid=(N // bn, 8 * C // _WG_ROWS, splits),
-                     dw_stages_per_split=per_split, box_items=box[3], dw_box_items=dw_box[3])
+                     dw_stages_per_split=per_split, splits=fwd_splits, stages_per_split=fwd_per_split,
+                     box_items=box[3], dw_box_items=dw_box[3])
 
 
 # The narrow kernels' tiling (csrc/conv_k2_narrow.cuh): a box of at most 1024
@@ -246,6 +274,8 @@ _NR_ALIGN = 1024
 _NR_CHANNELS = (8, 16, 32, 64)  # C: one TMA box of all channels
 _NR_ROW_BYTES = 128  # a voxel's channels in at most 128 bytes (float32: C <= 32)
 _NR_OUTPUTS = (8, 16, 32)  # N: 1, 2 or 4 mma n8 tiles
+_NR_DW_WIDE = 64  # N of the bfloat16 dw-only plan: 8 n8 tiles, in units of 4, one unit a warp
+_NR_DW_ACCUMULATORS = 4096  # 8C x N of that dw: the 8 warps' units of 16 x 32 (so C = 8)
 _NR_ESIZE = {torch.bfloat16: 2, torch.float32: 4}
 _NR_CHUNK = 256  # rows of the float32 forward's output chunk: one a thread
 
@@ -280,6 +310,20 @@ class NarrowPlan:
     grid: int
     smem_bytes: int
     chunk_d: int
+    dw_box: tuple[int, int, int]
+    dw_boxes: int
+    dw_splits: int
+    dw_boxes_per_split: int
+    dw_smem_bytes: int
+    dw_stages: int
+
+
+@dataclasses.dataclass(frozen=True)
+class NarrowDwPlan:
+    """The dw part of a :class:`NarrowPlan` alone (its fields, their meaning):
+    the plan of :func:`narrow_dw_plan`, a bfloat16 dw whose forward and dx keep
+    their routes."""
+
     dw_box: tuple[int, int, int]
     dw_boxes: int
     dw_splits: int
@@ -382,18 +426,43 @@ def narrow_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
     if (esize is None or C not in _NR_CHANNELS or esize * C > _NR_ROW_BYTES or N not in _NR_OUTPUTS
             or min(B, D, H, W) < 1 or B * D * H * W >= 2**31 or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None):
         return None
-    box, dw_box = _narrow_box(D, H, W, C, N, False, esize), _narrow_box(D, H, W, C, N, True, esize)
-    if box is None or dw_box is None:
+    box, dw = _narrow_box(D, H, W, C, N, False, esize), _narrow_dw(B, D, H, W, C, N, sms, esize)
+    if box is None or dw is None:
         return None
-    boxes, dw_boxes = _boxes(B, D, H, W, box), _boxes(B, D, H, W, dw_box)
-    # dw: one wave of blocks, one an SM, each a run of whole boxes
-    per_split = -(-dw_boxes // min(dw_boxes, sms))
-    chunk_d, dw_stages = _narrow_chunk_d(box, False, esize), _narrow_stages(True, esize)
+    boxes, chunk_d = _boxes(B, D, H, W, box), _narrow_chunk_d(box, False, esize)
     return NarrowPlan(box=box, boxes=boxes, grid=min(boxes, sms),
                       smem_bytes=_narrow_smem(box, C, N, False, esize, 2, chunk_d), chunk_d=chunk_d,
-                      dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
-                      dw_boxes_per_split=per_split,
-                      dw_smem_bytes=_narrow_smem(dw_box, C, N, True, esize, dw_stages, 0), dw_stages=dw_stages)
+                      **dataclasses.asdict(dw))
+
+
+def _narrow_dw(B: int, D: int, H: int, W: int, C: int, N: int, sms: int, esize: int) -> NarrowDwPlan | None:
+    """The narrow dw's box, walk and shared memory: one wave of blocks, one an
+    SM, each a run of whole boxes; or None where no box fits."""
+    dw_box = _narrow_box(D, H, W, C, N, True, esize)
+    if dw_box is None:
+        return None
+    dw_boxes, dw_stages = _boxes(B, D, H, W, dw_box), _narrow_stages(True, esize)
+    per_split = -(-dw_boxes // min(dw_boxes, sms))
+    return NarrowDwPlan(dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
+                        dw_boxes_per_split=per_split,
+                        dw_smem_bytes=_narrow_smem(dw_box, C, N, True, esize, dw_stages, 0), dw_stages=dw_stages)
+
+
+@functools.lru_cache(maxsize=256)
+def narrow_dw_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
+                   dtype: torch.dtype = torch.bfloat16) -> NarrowDwPlan | None:
+    """The narrow dw's plan for a bfloat16 ``x`` (B,D,H,W,C) and ``g``
+    (B,D,H,W,N) of a narrow input and a wide output, whose forward and dx keep
+    their routes: N = 64 and 8C x N <= 4096 accumulators (C = 8: the s2d(2)
+    stem's 8 -> 64), g's rows of 128 bytes in the box beside x's halo; or None:
+    float32 (its FFMA dw wins there), other shapes, and wherever
+    :func:`wgmma_plan` or :func:`narrow_plan` applies. Pure arithmetic; ``sms``
+    is the card's count of multiprocessors."""
+    if (dtype != torch.bfloat16 or C not in _NR_CHANNELS or N != _NR_DW_WIDE or 8 * C * N > _NR_DW_ACCUMULATORS
+            or min(B, D, H, W) < 1 or B * D * H * W >= 2**31 or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None
+            or narrow_plan(B, D, H, W, C, N, sms=sms, dtype=dtype) is not None):
+        return None
+    return _narrow_dw(B, D, H, W, C, N, sms, _NR_ESIZE[dtype])
 
 
 def _sms(x: torch.Tensor) -> int:
@@ -443,32 +512,47 @@ def _check_cuda_operand(what: str, name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{what} kernel takes a non-empty contiguous NDHWC {name}; got {tuple(t.shape)}")
 
 
+def _split_workspace(plan: WgmmaPlan, out: torch.Tensor) -> torch.Tensor | None:
+    """The f32 partials [splits, *out.shape] of a split launch into ``out``,
+    or None where the plan has one split (the library is given a null
+    pointer)."""
+    if plan.splits == 1:
+        return None
+    return torch.empty((plan.splits, *out.shape), dtype=torch.float32, device=out.device)
+
+
 def forward_wgmma(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, plan: WgmmaPlan) -> None:
     """Launch the tensor-core forward into ``y`` on the tiles of ``plan``
-    (the wrapper's, or one of :func:`wgmma_plan`'s ``bm`` choices, to time
-    one against the other). Counts nothing: the op's CUDA implementation
-    counts its launches."""
+    (the wrapper's, or one of :func:`wgmma_plan`'s ``bm`` or ``split``
+    choices, to time one against the other); with ``plan.splits > 1`` into a
+    workspace of f32 partials, then the reduce that sums them into ``y``, both
+    launched by one call into the library. Counts nothing: the op's CUDA
+    implementation counts its launches."""
     B, D, H, W, C = x.shape
     N = y.shape[-1]
     w = w.to(x.dtype).contiguous()
     _check_operands("conv_k2", C, N, x, w, y)
+    part = _split_workspace(plan, y)
     _check_launch("conv_k2 (wgmma)", _lib().conv_k2_forward_wgmma(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *plan.box, plan.box_items, plan.bm, plan.bn,
-        plan.stages, plan.grid, plan.smem_bytes, plan.tiles, x.device.index, _stream(x)))
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), 0 if part is None else part.data_ptr(), B, D, H, W, C, N, *plan.box,
+        plan.box_items, plan.bm, plan.bn, plan.stages, plan.grid, plan.smem_bytes, plan.tiles, plan.splits,
+        plan.stages_per_split, x.device.index, _stream(x)))
 
 
 def dx_wgmma(g: torch.Tensor, w: torch.Tensor, dx: torch.Tensor, plan: WgmmaPlan) -> None:
     """Launch the tensor-core dx into ``dx`` on the tiles of ``plan``, the
-    plan of the forward from N to C channels. Counts nothing, as
-    :func:`forward_wgmma`."""
+    plan of the forward from N to C channels (its splits and reduce too).
+    Counts nothing, as :func:`forward_wgmma`."""
     B, D, H, W, N = g.shape
     C = dx.shape[-1]
     # w as it lies: its (c, n) boxes are the K-major B tiles of dx
     wc = w.to(g.dtype).contiguous()
     _check_operands("conv_k2 dx", C, N, g, wc, dx, depth_is_n=True)
+    part = _split_workspace(plan, dx)
     _check_launch("conv_k2 dx (wgmma)", _lib().conv_k2_backward_input_wgmma(
-        g.data_ptr(), wc.data_ptr(), dx.data_ptr(), B, D, H, W, C, N, *plan.box, plan.box_items, plan.bm, plan.bn,
-        plan.stages, plan.grid, plan.smem_bytes, plan.tiles, g.device.index, _stream(g)))
+        g.data_ptr(), wc.data_ptr(), dx.data_ptr(), 0 if part is None else part.data_ptr(), B, D, H, W, C, N, *plan.box,
+        plan.box_items, plan.bm, plan.bn, plan.stages, plan.grid, plan.smem_bytes, plan.tiles, plan.splits,
+        plan.stages_per_split, g.device.index, _stream(g)))
 
 
 @torch.library.custom_op("anytime3d_torch::conv_k2", mutates_args=(), device_types="cpu")
@@ -491,6 +575,7 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if plan is not None:
         forward_wgmma(x, w, y, plan)
         conv_k2.launches_wgmma += 1
+        conv_k2.launches_split += plan.splits > 1
     elif narrow is not None:
         _check_launch("conv_k2 (narrow)", _lib().conv_k2_forward_narrow(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
@@ -527,6 +612,7 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if plan is not None:
         dx_wgmma(g, w, dx, plan)
         conv_k2.launches_dx_wgmma += 1
+        conv_k2.launches_dx_split += plan.splits > 1
     elif narrow is not None:
         # (2,2,2,N,C), w'[s] = w[7 - s]^T: the forward's weights over g read one voxel lower.
         # Plumbing on <= 2K elements
@@ -605,7 +691,9 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     B, D, H, W, C = x.shape
     N = g.shape[-1]
     plan = _plan_for(x, N)
-    narrow = None if plan is not None else _narrow_for(x, N)
+    # the narrow plan, else (bfloat16, N = 64) the dw-only one: their dw fields are the same
+    narrow = None if plan is not None else _narrow_for(x, N) or narrow_dw_plan(*x.shape, N, sms=_sms(x),
+                                                                               dtype=x.dtype)
     if plan is not None:
         splits = plan.dw_grid[2]
     elif narrow is not None:
@@ -627,6 +715,8 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             B, D, H, W, C, N, *narrow.dw_box, narrow.dw_smem_bytes, narrow.dw_stages, _DTYPE_CODES[x.dtype],
             x.device.index, _stream(x)))
         conv_k2.launches_dw_narrow += 1
+        if isinstance(narrow, NarrowDwPlan):
+            conv_k2.launches_dw_wide += 1
     else:
         _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, per_split, B, D, H, W, C, N,
@@ -645,7 +735,9 @@ def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     (B,D,H,W,C) and the output gradient ``g`` (B,D,H,W,N) of the same dtype:
     the op ``anytime3d_torch::conv_k2_dw``. CUDA tensors go through a kernel
     (adding one to ``conv_k2.launches_dw``, and to ``launches_dw_wgmma`` or
-    ``launches_dw_narrow`` where the shape has that plan) or the call raises; CPU
+    ``launches_dw_narrow`` where the shape has that plan, the latter also where
+    it has a dw-only plan (:func:`narrow_dw_plan`), which adds one to
+    ``launches_dw_wide`` too) or the call raises; CPU
     tensors through :func:`conv_k2_dw_reference`. The result is the same
     from run to run."""
     return _conv_k2_dw_op(x, g)
@@ -682,7 +774,10 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``conv_k2.launches_dx_wgmma`` or ``conv_k2.launches_dw_wgmma``, and of a
     narrow kernel (bfloat16 or float32) to ``conv_k2.launches_narrow``
     (forward), ``conv_k2.launches_dx_narrow`` or
-    ``conv_k2.launches_dw_narrow``."""
+    ``conv_k2.launches_dw_narrow`` (and ``launches_dw_wide`` on the dw-only
+    plan). A tensor-core forward or dx whose plan splits its depth (and then
+    launches the reduce of its partials) adds one to
+    ``conv_k2.launches_split`` or ``launches_dx_split``."""
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:4]) != (2, 2, 2, x.shape[-1]):
         raise ValueError(f"conv_k2 takes x (B,D,H,W,C) and w (2,2,2,C,N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:
@@ -705,3 +800,6 @@ conv_k2.launches_dw_wgmma = 0
 conv_k2.launches_narrow = 0
 conv_k2.launches_dx_narrow = 0
 conv_k2.launches_dw_narrow = 0
+conv_k2.launches_split = 0
+conv_k2.launches_dx_split = 0
+conv_k2.launches_dw_wide = 0

@@ -57,13 +57,17 @@
 // multiples of 64, rows that tile into boxes: the flagship stages) run on the
 // tensor cores: conv_k2_wgmma.cuh holds those kernels (wgmma products,
 // operands brought in by TMA box copies into a ring of swizzled shared-memory
-// tiles) and says how they are formed. Narrow outputs (N = 8, 16, 32; C = 8,
+// tiles) and says how they are formed; on grids of at most 8^3 an item
+// whose output tiles fill at most half a wave (the mid_blocked stages at 4^3
+// and 8^3, B=8), the forward and dx split their depth over blocks and
+// conv_k2_split_reduce_kernel adds the splits. Narrow outputs (N = 8, 16, 32; C = 8,
 // 16, 32, 64, and at most 32 in float32: the detector decoder's last conv) run
 // over one halo box of x a block, conv_k2_narrow.cuh: the forward, dw and dx
 // (the forward from N to C channels, the box one voxel lower), on mma.sync in
-// bfloat16 and on FFMA in float32. Which design a call takes is settled
+// bfloat16 and on FFMA in float32; so does the bfloat16 dw of a narrow input
+// and N = 64 (the s2d(2) stem's 8 -> 64). Which design a call takes is settled
 // by the Python wrapper from shape and dtype, before the launch: the wgmma
-// plan, else the narrow plan, else FFMA.
+// plan, else the narrow plan, else the dw-only narrow plan (dw), else FFMA.
 //
 // The FFMA forward and dx (conv_k2_gemm_kernel, namespace gemm). The float32
 // serving path launches it four times a batch, and what bounds it is the FFMA
@@ -538,18 +542,58 @@ conv_k2_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __res
 
 }  // namespace gemm
 
-// dw[i] = sum_z part[z][i], z ascending: the same order in every run.
-__global__ void conv_k2_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
-                                         long long count4, int splits) {
+__device__ __forceinline__ void add_to(float4& a, const float4 b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+__device__ __forceinline__ void add_to(float& a, const float b) { a += b; }
+
+// dw[i] = sum_z part[z][i], z ascending: the same order in every run, so the
+// same bits whether a thread takes one entry (Vec = float) or four (float4).
+// The loop is unrolled so that a thread has 16 loads in flight, not one: the
+// adds keep their order, the loads of a run of splits go out together.
+template <typename Vec>
+__global__ void conv_k2_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw, long long count,
+                                         int splits) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const Vec* p = reinterpret_cast<const Vec*>(part);
+  Vec sum = p[i];
+#pragma unroll 16
+  for (int z = 1; z < splits; ++z) add_to(sum, p[static_cast<long long>(z) * count + i]);
+  reinterpret_cast<Vec*>(dw)[i] = sum;
+}
+
+// The dw reduce of `count` entries (a multiple of 4): four a thread in blocks
+// of 256 where that fills the card; else (the narrow kernels' dw, a few
+// thousand entries over ~128 splits) one a thread in blocks of 64, so that the
+// loads spread over as many SMs as there are 64 entries. Four a thread in
+// blocks of 256 put the s2d(2) stem's 128 x 4096 partials on 4 SMs, whose
+// load rate then bounded the reduce (the stem's dw at B=8 on an H100 took
+// 0.0378 ms with that launch, 0.0331 with this one; PERF.md section 6).
+cudaError_t launch_dw_reduce(const float* part, float* dw, long long count, int splits, cudaStream_t s) {
+  const long long count4 = count / 4;
+  if (count4 >= 132LL * 256)
+    conv_k2_dw_reduce_kernel<float4><<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(part, dw, count4,
+                                                                                                 splits);
+  else
+    conv_k2_dw_reduce_kernel<float><<<static_cast<unsigned>((count + 63) / 64), 64, 0, s>>>(part, dw, count, splits);
+  return cudaGetLastError();
+}
+
+// The split forward's (and dx's) y[i] = bf16(sum_z part[z][i]), z ascending,
+// rounded once: the f32 partials of conv_k2_fwd_wgmma_kernel's splits
+// (conv_k2_wgmma.cuh), 4 elements a thread, 16 loads in flight as above. What
+// bounds it: bytes, splits x 4 bytes read for 2 written an element; the
+// partials were written just before, so most come from L2.
+__global__ void conv_k2_split_reduce_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ y,
+                                            long long count4, int splits) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= count4) return;
   const float4* p = reinterpret_cast<const float4*>(part);
   float4 sum = p[i];
-  for (int z = 1; z < splits; ++z) {
-    const float4 v = p[static_cast<long long>(z) * count4 + i];
-    sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
-  }
-  reinterpret_cast<float4*>(dw)[i] = sum;
+#pragma unroll 16
+  for (int z = 1; z < splits; ++z) add_to(sum, p[static_cast<long long>(z) * count4 + i]);
+  reinterpret_cast<uint2*>(y)[i] = make_uint2(wg::pack_bf16(sum.x, sum.y), wg::pack_bf16(sum.z, sum.w));
 }
 
 template <typename T, bool BWD, int TILE_N, int TM>
@@ -600,10 +644,7 @@ cudaError_t launch_dw_tile(const void* x, const void* g, float* dw, float* works
       stages_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const long long count4 = static_cast<long long>(8) * C * N / 4;
-  conv_k2_dw_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(
-      workspace, dw, count4, splits);
-  return cudaGetLastError();
+  return launch_dw_reduce(workspace, dw, static_cast<long long>(8) * C * N, splits, s);
 }
 
 // The forward's choice of tile: 128 columns and 16 rows a thread, or 64 and 8 where N <= 64.
@@ -617,20 +658,31 @@ cudaError_t launch_dw(const void* x, const void* g, float* dw, float* workspace,
 
 // The tensor-core forward (DX = false: `depth` = C, `cols` = N) or dx (DX =
 // true: x := g, `depth` = N, `cols` = C, y := dx) at the tile the plan names.
+// With splits > 1 the depth's 8 depth/64 stages are cut into `splits` runs of
+// `stages_per_split`, the kernel writes f32 partials to `part` [splits, M,
+// cols], and conv_k2_split_reduce_kernel then sums them into y (as the dw
+// entries launch their reduce: one call from the host for both).
 template <bool DX>
-int launch_wgmma_gemm(const void* x, const void* w, void* y, int B, int D, int H, int W, int depth, int cols,
-                      int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid, int smem_bytes, int tiles,
-                      cudaStream_t s) {
+int launch_wgmma_gemm(const void* x, const void* w, void* y, float* part, int B, int D, int H, int W, int depth,
+                      int cols, int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid, int smem_bytes,
+                      int tiles, int splits, int stages_per_split, cudaStream_t s) {
   if (depth % wg::BK || cols % bn || !wg::box_tiles(B, D, H, W, bw, bh, bd, bb, bm) || stages < 2 ||
-      stages > wg::MAX_STAGES || grid < 1)
+      stages > wg::MAX_STAGES || grid < 1 || !splits_cover(splits, stages_per_split, 8LL * depth / wg::BK))
     return static_cast<int>(cudaErrorInvalidValue);
-#define GEMM_ARGS x, w, y, B, D, H, W, depth, cols, bw, bh, bd, bb, stages, grid, smem_bytes, tiles, s
-  if (bm == 128 && bn == 128) return wg::launch_fwd<128, 1, DX>(GEMM_ARGS);
-  if (bm == 128 && bn == 64) return wg::launch_fwd<64, 1, DX>(GEMM_ARGS);
-  if (bm == 256 && bn == 128) return wg::launch_fwd<128, 2, DX>(GEMM_ARGS);
-  if (bm == 256 && bn == 64) return wg::launch_fwd<64, 2, DX>(GEMM_ARGS);
+#define GEMM_ARGS x, w, y, part, B, D, H, W, depth, cols, bw, bh, bd, bb, stages, grid, smem_bytes, tiles, splits, \
+                  stages_per_split, s
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  if (bm == 128 && bn == 128) rc = wg::launch_fwd<128, 1, DX>(GEMM_ARGS);
+  else if (bm == 128 && bn == 64) rc = wg::launch_fwd<64, 1, DX>(GEMM_ARGS);
+  else if (bm == 256 && bn == 128) rc = wg::launch_fwd<128, 2, DX>(GEMM_ARGS);
+  else if (bm == 256 && bn == 64) rc = wg::launch_fwd<64, 2, DX>(GEMM_ARGS);
 #undef GEMM_ARGS
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (rc || splits == 1) return rc;
+  // cols % 64 == 0: whole float4 groups; 4 outputs a thread
+  const long long count4 = static_cast<long long>(B) * D * H * W * cols / 4;
+  conv_k2_split_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(
+      part, static_cast<__nv_bfloat16*>(y), count4, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -689,29 +741,38 @@ int conv_k2_backward_weight(const void* x, const void* g, void* dw, void* worksp
 // (bm rows, 128 or 256, by bn columns, 64 or 128), the box of its bm rows
 // (bw, bh, bd) in (w, h, d) by bb batch items (bb > 1 only where the box is
 // the whole grid of each item), the ring's stages, the number of blocks that
-// share the output tiles, and the dynamic shared memory and the tile count it
-// worked out, which must be this file's own (else wg::PLAN_MISMATCH). Needs
-// C % 64 == 0, N % bn == 0 and boxes that tile the rows (wg::box_tiles).
-int conv_k2_forward_wgmma(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
-                          int N, int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid,
-                          int smem_bytes, int tiles, int device, void* stream) {
+// share the work items (tile, split), and the dynamic shared memory and the
+// tile count it worked out, which must be this file's own (else
+// wg::PLAN_MISMATCH). With `splits` > 1 the 8C/64 stages of the sum are cut
+// into runs of `stages_per_split` (the last may be shorter, none is empty),
+// `workspace` [splits, B*D*H*W, N] f32 receives the partials, and
+// conv_k2_split_reduce_kernel, launched next on the same stream, sums them
+// into y. Needs C % 64 == 0, N % bn == 0 and boxes that tile the rows
+// (wg::box_tiles).
+int conv_k2_forward_wgmma(const void* x, const void* w, void* y, void* workspace, int B, int D, int H, int W,
+                          int C, int N, int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid,
+                          int smem_bytes, int tiles, int splits, int stages_per_split, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_wgmma_gemm<false>(x, w, y, B, D, H, W, C, N, bw, bh, bd, bb, bm, bn, stages, grid, smem_bytes,
-                                  tiles, static_cast<cudaStream_t>(stream));
+  return launch_wgmma_gemm<false>(x, w, y, static_cast<float*>(workspace), B, D, H, W, C, N, bw, bh, bd, bb, bm, bn,
+                                  stages, grid, smem_bytes, tiles, splits, stages_per_split,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // The bfloat16 tensor-core dx [B,D,H,W,C] from g [B,D,H,W,N] and w [2,2,2,C,N]
 // as it lies (no re-lay). The plan is that of a forward from N to C channels:
-// tiles of bm rows by bn columns of C, the same box, ring, grid, shared memory
-// and tile count. Needs N % 64 == 0, C % bn == 0 and boxes that tile the rows.
-int conv_k2_backward_input_wgmma(const void* g, const void* w, void* dx, int B, int D, int H, int W, int C,
-                                 int N, int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid,
-                                 int smem_bytes, int tiles, int device, void* stream) {
+// tiles of bm rows by bn columns of C, the same box, ring, grid, shared memory,
+// tile count and splits (of the 8N/64 stages; partials [splits, B*D*H*W, C]).
+// Needs N % 64 == 0, C % bn == 0 and boxes that tile the rows.
+int conv_k2_backward_input_wgmma(const void* g, const void* w, void* dx, void* workspace, int B, int D, int H,
+                                 int W, int C, int N, int bw, int bh, int bd, int bb, int bm, int bn, int stages,
+                                 int grid, int smem_bytes, int tiles, int splits, int stages_per_split, int device,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_wgmma_gemm<true>(g, w, dx, B, D, H, W, N, C, bw, bh, bd, bb, bm, bn, stages, grid, smem_bytes,
-                                 tiles, static_cast<cudaStream_t>(stream));
+  return launch_wgmma_gemm<true>(g, w, dx, static_cast<float*>(workspace), B, D, H, W, N, C, bw, bh, bd, bb, bm, bn,
+                                 stages, grid, smem_bytes, tiles, splits, stages_per_split,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // The bfloat16 tensor-core dw: the box of a stage's 64 rows (bw, bh, bd) by bb
@@ -742,9 +803,7 @@ int conv_k2_backward_weight_wgmma(const void* x, const void* g, void* dw, void* 
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (rc || splits == 1) return rc;
-  const long long count4 = static_cast<long long>(8) * C * N / 4;
-  conv_k2_dw_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(part, out, count4, splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dw_reduce(part, out, static_cast<long long>(8) * C * N, splits, s));
 }
 
 // The forward for narrow outputs, bfloat16 on mma.sync or float32 on FFMA:
@@ -795,9 +854,7 @@ int conv_k2_backward_weight_narrow(const void* x, const void* g, void* dw, void*
   const int rc = nr::launch_dw(x, g, part, splits, boxes_per_split, B, D, H, W, C, N, bw, bh, bd, smem_bytes, stages,
                                dtype, s);
   if (rc || splits == 1) return rc;
-  const long long count4 = static_cast<long long>(8) * C * N / 4;
-  conv_k2_dw_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(part, out, count4, splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dw_reduce(part, out, static_cast<long long>(8) * C * N, splits, s));
 }
 
 // Codes from wg::PLAN_MISMATCH up are this library's own, not cudaError_t.

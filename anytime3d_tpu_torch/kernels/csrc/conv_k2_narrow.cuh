@@ -1,12 +1,15 @@
 // conv_k2 for narrow outputs (N = 8, 16 or 32) on Hopper: in bfloat16 the
-// forward, dx and dw on mma.sync, in float32 the forward, dx and dw on FFMA.
+// forward, dx and dw on mma.sync, in float32 the forward, dx and dw on FFMA;
+// and the bfloat16 dw of a narrow input with N = 64 (C = 8), on mma.sync.
 // Included by conv_k2.cu, which states what the operation computes; the
 // barrier and TMA helpers are conv_k2_wgmma.cuh's.
 //
 // Replaces, for operands whose shape has a narrow plan (see
 // kernels/conv_k2.py::narrow_plan), the forward of the TPU kernel
 // anytime3d_tpu/kernels/conv_k2.py::_conv_k2_pallas (:129-169) and the dx and
-// dw products of its backward (_conv_k2_bwd_impl, :172-205), in both types.
+// dw products of its backward (_conv_k2_bwd_impl, :172-205), in both types;
+// for bfloat16 shapes with a dw-only narrow plan (narrow_dw_plan), the dw
+// product (_conv_k2_bwd_impl, :181-205).
 //
 // What bounds them on this card: bytes. At the detector decoder's last conv
 // (32 decodes of 32^3, C = 32 -> N = 8) the forward reads 67 MB of x and
@@ -120,6 +123,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MAX_ROWS = 1024;      // output rows of a box
 constexpr int MAX_EXTENT = 255;     // a box extent; its halo's is one more, within the TMA's 256
 constexpr int DW_MAX_M_TILES = 4;   // m16 tiles of dw's 8C rows a warp: C <= 64
+constexpr int DW_WIDE_ACCUMULATORS = 4096;  // 8C x N of the bfloat16 dw at N = 64: 16 a lane, one unit a warp
 constexpr uint32_t ALIGN = 1024;    // stage alignment: the longest swizzle's period
 
 // CONV_K2_NARROW_PROBE builds the float32 kernels with a part left out, to
@@ -546,14 +550,30 @@ conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const _
 }
 
 // dw partial: part[z] [8C, N] (N = 8 NT) over the boxes [z * per_split,
-// min(boxes, (z + 1) * per_split)) of block z. The 8C/16 m-tiles of dw's rows
-// (tap, c) are dealt to the warps, `mw` a warp (1, 2 or 4); where there are
-// fewer than 8 (C = 8: 4), the other warps only take part in the barriers.
+// min(boxes, (z + 1) * per_split)) of block z. dw's accumulators are units of
+// one m16 tile of its rows (tap, c) by NW n8 tiles: all NT of them for N <= 32,
+// half of them (4) for N = 64. The units are dealt to the warps, `mw` a warp
+// (1, 2 or 4; the unit u is m-tile u % (8C/16) of the column half u /
+// (8C/16)); where there are fewer than 8 (C = 8, N <= 32: 4), the other warps
+// only take part in the barriers.
+//
+// N = 64 (NT = 8), the dw-only route of a narrow input and a wide output:
+// the s2d(2) stem's 8 -> 64 at 32^3 (kernels/conv_k2.py::narrow_dw_plan). It
+// replaces there the FFMA dw (0.18 ms at B=8 against cuDNN's 0.08), which
+// computed a 64-deep contraction with 128-row tiles of (tap, c) for 64 rows.
+// What bounds it: bytes, g's 33.5 MB of the 37.7 at B=8 for 2.1 GFLOP (~57
+// operations a byte). The box keeps two stages of g's 128-byte rows under
+// the 128-byte swizzle in shared memory (16 x 8 x 4 voxels at 32^3: 2 x 76
+// KB); the 4 m-tiles x 8 n8 tiles (8C x N = 4096 accumulators, 16 a lane) are
+// 8 units, one a warp, so every warp computes; a k-step is one ldmatrix of x
+// and 4 of g for 4 products.
 template <int NT>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
                          float* __restrict__ part, const Geom g, int per_split) {
   constexpr int N = 8 * NT;
+  constexpr int NW = NT > 4 ? 4 : NT;  // n8 tiles a unit
+  constexpr int MAX_MW = NT > 4 ? 1 : DW_MAX_M_TILES;  // units a warp: N = 64 keeps 8C N <= 4096, one a warp
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = wg::smem_u32(smem_raw);
   const uint32_t base = round_up(raw, ALIGN);
@@ -586,24 +606,26 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
     for (int s = 0; s < 2 && s < n_boxes; ++s) issue(s, first + s);
 
   const int mtiles = g.C / 2;  // 8C / 16
-  const int wpg = min(WARPS, mtiles), mw = mtiles / wpg;  // warps that compute, m-tiles each
+  const int units = mtiles * (NT / NW);
+  const int wpg = min(WARPS, units), mw = units / wpg;  // warps that compute, units each
+  const int col0 = 8 * NW * (warp / mtiles);  // the first column of this warp's units: one half of N a warp
   const uint32_t xmask = g.row / 16 - 1, gmask = 2 * N / 16 - 1;
   const int log_c = __ffs(g.C) - 1;
   // A (x, transposed): lane l gives row m = 16 ks + (l % 8) + 8 (l / 16) of the k-step, the 8 channels
   // of half (l / 8) % 2 of its m-tile's 16 rows (tap, c), one tap each
-  uint32_t aoff[DW_MAX_M_TILES];
+  uint32_t aoff[MAX_MW];
 #pragma unroll
-  for (int m = 0; m < DW_MAX_M_TILES; ++m) {
-    const int tc = 16 * (warp + wpg * m) + 8 * ((lane >> 3) & 1);
+  for (int m = 0; m < MAX_MW; ++m) {
+    const int tc = 16 * ((warp + wpg * m) % mtiles) + 8 * ((lane >> 3) & 1);
     aoff[m] = m < mw ? tap_offset(g, tc >> log_c) + 2 * (tc & (g.C - 1)) : 0;
   }
   const int a_row = (lane & 7) + 8 * (lane >> 4);
   const int b_row = lane & 15;  // B (g, transposed): rows 16 ks + l % 16 of the k-step
-  float acc[DW_MAX_M_TILES][NT][4];
+  float acc[MAX_MW][NW][4];
 #pragma unroll
-  for (int m = 0; m < DW_MAX_M_TILES; ++m)
+  for (int m = 0; m < MAX_MW; ++m)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NW; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
   const float zero[4] = {0.f, 0.f, 0.f, 0.f};
@@ -615,18 +637,19 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
     for (int ks = 0; warp < wpg && ks < g.rows16 / 16; ++ks) {
       // every ldmatrix of the k-step first, then its products: the loads' latencies overlap
       const uint32_t va = vrow[16 * ks + a_row];
-      uint32_t bf[NT][2], a[DW_MAX_M_TILES][4];
+      uint32_t bf[NW][2], a[MAX_MW][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        ldsm_x2_trans(gs + swizzle(static_cast<uint32_t>((16 * ks + b_row) * 2 * N + 16 * j), gmask), bf[j]);
+      for (int j = 0; j < NW; ++j)
+        ldsm_x2_trans(gs + swizzle(static_cast<uint32_t>((16 * ks + b_row) * 2 * N + 2 * col0 + 16 * j), gmask),
+                      bf[j]);
 #pragma unroll
-      for (int m = 0; m < DW_MAX_M_TILES; ++m)
+      for (int m = 0; m < MAX_MW; ++m)
         if (m < mw) ldsm_x4_trans(xs + swizzle(va + aoff[m], xmask), a[m]);
 #pragma unroll
-      for (int m = 0; m < DW_MAX_M_TILES; ++m) {
+      for (int m = 0; m < MAX_MW; ++m) {
         if (m >= mw) continue;
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
+        for (int j = 0; j < NW; ++j) {
           float d[4];
           mma(d, a[m], bf[j][0], bf[j][1], zero);
 #pragma unroll
@@ -641,12 +664,12 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
   if (warp >= wpg) return;
   float* out = part + static_cast<long long>(blockIdx.x) * 8 * g.C * N;
 #pragma unroll
-  for (int m = 0; m < DW_MAX_M_TILES; ++m) {
+  for (int m = 0; m < MAX_MW; ++m) {
     if (m >= mw) break;
-    const int row = 16 * (warp + wpg * m) + (lane >> 2);
+    const int row = 16 * ((warp + wpg * m) % mtiles) + (lane >> 2);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = 8 * j + 2 * (lane & 3);
+    for (int j = 0; j < NW; ++j) {
+      const int n = col0 + 8 * j + 2 * (lane & 3);
       *reinterpret_cast<float2*>(out + row * N + n) = make_float2(acc[m][j][0], acc[m][j][1]);
       *reinterpret_cast<float2*>(out + (row + 8) * N + n) = make_float2(acc[m][j][2], acc[m][j][3]);
     }
@@ -761,7 +784,8 @@ conv_k2_narrow_dw_f32_kernel(const __grid_constant__ CUtensorMap map_x, const __
 
 // The box of a launch, checked: C a power of two from 8 to 64 whose rows of
 // `esize` C bytes (esize 2: bfloat16, 4: float32) are 16 to 128 bytes (one TMA
-// box of all C channels), N = 8, 16 or 32, extents within the grid and
+// box of all C channels), N = 8, 16 or 32 (the bfloat16 dw also N = 64 where
+// 8C N <= 4096, so C = 8: g's rows of 128 bytes), extents within the grid and
 // MAX_EXTENT, at most MAX_ROWS rows; `dw` adds the stage of g (rows of esize N
 // bytes). The plan's choices are checked, not made here: `stages` copies a
 // block holds (2; the float32 dw may take 3) and `chunk_d`, the d-planes of
@@ -771,8 +795,9 @@ conv_k2_narrow_dw_f32_kernel(const __grid_constant__ CUtensorMap map_x, const __
 // apply.
 inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw, int bh, int bd, bool dw,
                       int esize, int stages, int chunk_d) {
+  const bool wide_dw = dw && esize == 2 && N == 64 && 8 * C * N <= DW_WIDE_ACCUMULATORS;
   if ((C != 8 && C != 16 && C != 32 && C != 64) || (esize != 2 && esize != 4) || esize * C > 128 ||
-      (N != 8 && N != 16 && N != 32) || B < 1 || (stages != 2 && !(dw && esize == 4 && stages == 3)))
+      (N != 8 && N != 16 && N != 32 && !wide_dw) || B < 1 || (stages != 2 && !(dw && esize == 4 && stages == 3)))
     return false;
   if (bw < 1 || bh < 1 || bd < 1 || bw > W || bh > H || bd > D || bw > MAX_EXTENT || bh > MAX_EXTENT ||
       bd > MAX_EXTENT || bw * bh * bd > MAX_ROWS)
@@ -898,19 +923,31 @@ inline int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H
             : launch_fwd_bf16<false>(map_x, w, y, g, N, grid, smem, s);
 }
 
-template <int NT, bool F32>
-int launch_dw_nt(const CUtensorMap& map_x, const CUtensorMap& map_g, float* part, const Geom& g, int splits,
-                 int per_split, size_t smem, cudaStream_t s) {
-  auto kernel = F32 ? conv_k2_narrow_dw_f32_kernel<NT> : conv_k2_narrow_dw_kernel<NT>;
+template <typename Kernel>
+int launch_dw_kernel(Kernel kernel, const CUtensorMap& map_x, const CUtensorMap& map_g, float* part, const Geom& g,
+                     int splits, int per_split, size_t smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(splits), THREADS, smem, s>>>(map_x, map_g, part, g, per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Only the instance of the dtype: the bfloat16 dw has an N = 64 one, the float32 dw none.
+template <int NT, bool F32>
+int launch_dw_nt(const CUtensorMap& map_x, const CUtensorMap& map_g, float* part, const Geom& g, int splits,
+                 int per_split, size_t smem, cudaStream_t s) {
+  if constexpr (F32)
+    return launch_dw_kernel(conv_k2_narrow_dw_f32_kernel<NT>, map_x, map_g, part, g, splits, per_split, smem, s);
+  else
+    return launch_dw_kernel(conv_k2_narrow_dw_kernel<NT>, map_x, map_g, part, g, splits, per_split, smem, s);
+}
+
 template <bool F32>
 int launch_dw_n(const CUtensorMap& map_x, const CUtensorMap& map_g, float* part, const Geom& g, int N, int splits,
                 int per_split, size_t smem, cudaStream_t s) {
+  if constexpr (!F32) {  // make_geom lets N = 64 through for the bfloat16 dw only
+    if (N == 64) return launch_dw_nt<8, false>(map_x, map_g, part, g, splits, per_split, smem, s);
+  }
   if (N == 8) return launch_dw_nt<1, F32>(map_x, map_g, part, g, splits, per_split, smem, s);
   if (N == 16) return launch_dw_nt<2, F32>(map_x, map_g, part, g, splits, per_split, smem, s);
   return launch_dw_nt<4, F32>(map_x, map_g, part, g, splits, per_split, smem, s);

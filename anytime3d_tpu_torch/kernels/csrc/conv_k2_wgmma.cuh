@@ -50,6 +50,23 @@
 //   exchanged within each quad of lanes so that a lane holds 8 consecutive
 //   columns, and stored from registers 16 bytes a lane.
 //
+// The forward's split depth (forward and dx). Where the output tiles fill at
+//   most half a wave of blocks, the card idles: the mid_blocked encoder's last
+//   stage at 4^3 and B=8 (2048 -> 512) has 512 rows, 16 tiles of 128 x 128 on
+//   132 SMs, each summing 16384 deep (256 stages) and streaming 4 MB of w
+//   through one ring: 0.11 ms for 8.6 GFLOP, 1.6x cuDNN. The plan then cuts the
+//   8C/64 stages into `splits` runs of `stages_per_split` (at least 16, the
+//   last may be shorter), so that tiles x splits fill one wave; it does so only
+//   on grids of at most 8^3 voxels an item (the mid_blocked stages, where the
+//   split was measured), so the 16^3 convs keep one split. A work item is
+//   (tile, split), column tiles fastest, then splits, then row tiles; with one
+//   split the items are the tiles, in the same order. A split's block reduces
+//   its run into f32 accumulators from zero and stores them from registers (8
+//   bytes a lane) to part[split][row][col], a workspace the wrapper allocates;
+//   conv_k2_split_reduce_kernel (conv_k2.cu), launched by the same host call,
+//   sums the splits in ascending order and rounds once to bf16. No atomics: the same bits every run, and as
+//   accurate as one block's sum (f32 partials, one rounding).
+//
 // dx: dx [M, C] = A [M, 8N] * B [8N, C], depth in (tap, n) order, one stage =
 //   one tap and 64 channels n. It is the forward with the roles of C and N
 //   swapped and two differences. A is the box of g at mirrored coordinates:
@@ -375,32 +392,45 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // DX: the same walk computes dx. Then x is g, C its channel count (the depth's),
 // N the channel count of dx and y is dx; map_w still describes w [8N, C] as it
 // lies (rows (tap, channel of dx), the depth's channel contiguous).
-template <int BN, int MT, bool DX>
+//
+// SPLIT: the walk is over work items (tile, split), `tiles` x `splits` of
+// them, and the block stores its f32 partial to `part`, leaving y to the
+// reduce (see "The forward's split depth" above). Without it `split_count`,
+// `split_stages` and `part` are not read: one split of all stages, the items
+// are the tiles, and the instance carries none of the split's state (a
+// runtime branch cost the 16^3 stages a register spill).
+template <int BN, int MT, bool DX, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
 conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
-                         __nv_bfloat16* __restrict__ y, int D, int H, int W, int C, int N, long long tiles,
-                         int stages) {
+                         __nv_bfloat16* __restrict__ y, float* __restrict__ part, int D, int H, int W, int C, int N,
+                         long long tiles, int stages, int split_count, int split_stages) {
   extern __shared__ uint8_t smem_raw[];
   const Ring r = ring_setup(smem_raw, stages, stage_bytes<BN, MT>());
 
   const int n_tiles = N / BN;
   const int c_blocks = C / BK;
-  const int n_iter = 8 * c_blocks;
+  const int total = 8 * c_blocks;  // stages of the whole sum
+  const int splits = SPLIT ? split_count : 1;
+  const int stages_per_split = SPLIT ? split_stages : total;
+  const long long items = tiles * splits;
   const int warp = threadIdx.x >> 5;
 
   if (warp == CONSUMER_WARPS) {
     if ((threadIdx.x & 31) != 0) return;
     int slot = 0;
     uint32_t parity = 1;  // a fresh slot is empty
-    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int n0 = static_cast<int>(tile % n_tiles) * BN;
+    for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+      const int n0 = static_cast<int>(item % n_tiles) * BN;
+      const long long rest = item / n_tiles;
+      const int first = static_cast<int>(rest % splits) * stages_per_split;
+      const int last = min(total, first + stages_per_split);
       // origin of the tile's box in (w, h, d, b)
-      long long t = tile / n_tiles * (BM * MT);
+      long long t = rest / splits * (BM * MT);
       const int w0 = static_cast<int>(t % W); t /= W;
       const int h0 = static_cast<int>(t % H); t /= H;
       const int d0 = static_cast<int>(t % D);
       const int b0 = static_cast<int>(t / D);
-      for (int it = 0; it < n_iter; ++it) {
+      for (int it = first; it < last; ++it) {
         const int tap = it / c_blocks;
         const int c0 = (it - tap * c_blocks) * BK;
         const uint32_t full = r.full + 8 * slot;
@@ -436,10 +466,27 @@ conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) acc[i][j] = 0.f;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const long long rest = item / n_tiles;
+    const int split = static_cast<int>(rest % splits);
+    const int n_iter = min(stages_per_split, total - split * stages_per_split);
     consume<BN, false, MT, DX>(r, stages, n_iter, wgroup, slot, parity, acc);
-    const int n0 = static_cast<int>(tile % n_tiles) * BN;
-    const long long row = tile / n_tiles * (BM * MT) + wgroup * (64 * MT) + (warp & 3) * 16 + (lane >> 2);
+    const int n0 = static_cast<int>(item % n_tiles) * BN;
+    const long long row = rest / splits * (BM * MT) + wgroup * (64 * MT) + (warp & 3) * 16 + (lane >> 2);
+    if (SPLIT) {  // the f32 partial: rows lane/4 and lane/4 + 8, columns 8j + 2q, 8j + 2q + 1
+      const long long M = tiles / n_tiles * (BM * MT);
+      float* out = part + (split * M + row) * N + n0 + 2 * q;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          *reinterpret_cast<float2*>(out + 64 * i * static_cast<long long>(N) + 8 * j) =
+              make_float2(acc[i][4 * j], acc[i][4 * j + 1]);
+          *reinterpret_cast<float2*>(out + (64 * i + 8) * static_cast<long long>(N) + 8 * j) =
+              make_float2(acc[i][4 * j + 2], acc[i][4 * j + 3]);
+        }
+      continue;
+    }
     __nv_bfloat16* out = y + row * N + n0 + 8 * q;
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
@@ -609,25 +656,29 @@ inline int encode_matrix_map(CUtensorMap* map, const void* p, long long rows, in
   return encode_map(map, p, 2, dims, box);
 }
 
-// The forward, or (DX) dx with x := g, C := g's channel count, N := dx's, y := dx.
+// The forward, or (DX) dx with x := g, C := g's channel count, N := dx's, y := dx;
+// with splits > 1 into the f32 partials `part` [splits, M, N] instead of y.
 template <int BN, int MT, bool DX>
-int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw, int bh,
-               int bd, int bb, int stages, int grid, int plan_smem, int plan_tiles, cudaStream_t s) {
+int launch_fwd(const void* x, const void* w, void* y, float* part, int B, int D, int H, int W, int C, int N, int bw,
+               int bh, int bd, int bb, int stages, int grid, int plan_smem, int plan_tiles, int splits,
+               int stages_per_split, cudaStream_t s) {
   // the wrapper's plan and this file must agree on the ring's size and the tile count
   const size_t smem = smem_bytes<BN, MT>(stages);
   const long long M = static_cast<long long>(B) * D * H * W;
   const long long tiles = (M / (BM * MT)) * (N / BN);
   if (static_cast<size_t>(plan_smem) != smem || plan_tiles != tiles) return PLAN_MISMATCH;
+  if (grid > tiles * splits || (splits > 1 && part == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_x, map_w;
   int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd, bb);
   if (rc) return rc;
   rc = DX ? encode_matrix_map(&map_w, w, 8LL * N, C) : encode_matrix_map(&map_w, w, 8LL * C, N);
   if (rc) return rc;
-  cudaError_t err = cudaFuncSetAttribute(conv_k2_fwd_wgmma_kernel<BN, MT, DX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  auto kernel =
+      splits > 1 ? conv_k2_fwd_wgmma_kernel<BN, MT, DX, true> : conv_k2_fwd_wgmma_kernel<BN, MT, DX, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_k2_fwd_wgmma_kernel<BN, MT, DX><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
-      map_x, map_w, static_cast<__nv_bfloat16*>(y), D, H, W, C, N, tiles, stages);
+  kernel<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(map_x, map_w, static_cast<__nv_bfloat16*>(y), part, D, H,
+                                                            W, C, N, tiles, stages, splits, stages_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 

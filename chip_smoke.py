@@ -293,6 +293,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
     conv_k2_dx,
     conv_k2_dx_reference,
     conv_k2_reference,
+    narrow_dw_plan,
     narrow_plan,
     wgmma_plan,
 )
@@ -304,6 +305,14 @@ from anytime3d_tpu_torch.serving.export import make_infer_fn, make_packed_infer 
 from anytime3d_tpu_torch.serving.server import InferenceServer  # noqa: E402
 from anytime3d_tpu_torch.train.state import create_train_state  # noqa: E402
 from anytime3d_tpu_torch.train.step import apply_gradients_if_finite, compute_losses, materialize_batch  # noqa: E402
+from anytime3d_tpu_torch.utils.timing import (  # noqa: E402
+    card_line,
+    cuda_ms,
+    device_ms,
+    host_enqueue_ms,
+    kernel_rows,
+    profile_rows,
+)
 
 BATCH = 8
 TRAIN_BATCH = 32
@@ -322,7 +331,6 @@ N_CLIENTS = 8
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds:
 # device memory 3.35 TB/s; 989 TFLOP/s in bf16 on the tensor cores; 67 TFLOP/s
 # in float32 outside them (the float32 comparisons here are true float32).
-SLEEP_CYCLES_PER_MS = 2.0e6  # torch.cuda._sleep's cycles: the H100's top clock is 1.98 GHz
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -412,7 +420,10 @@ VARIANT_LAYOUT_STEPS = 3  # timed, after one warm-up step
 VARIANT_ARTIFACT_REQUESTS = 8  # float-input requests (262144 floats of JSON each) to the exported AE
 # layouts of modelnet_nolbo that no REGISTRY name uses (benchmarks/quality_parity.py's classic and
 # blocked_dynfix, and the classic encoder on an s2d(2) stem), with their launches a step and whether on wgmma
-VARIANT_LAYOUTS = {"classic": ((0, 0, 0), False), "blocked_dynfix": ((4, 3, 4), True), "classic_s2d2": ((1, 0, 1), False)}
+# layout: ((forward, dx, dw) launches a step, all on the tensor cores, (forward, dx, dw) of them narrow): the s2d(2)
+# stem's forward on FFMA, its bf16 dw on the dw-only narrow plan (N = 64; conv_k2_dw_wide)
+VARIANT_LAYOUTS = {"classic": ((0, 0, 0), False, (0, 0, 0)), "blocked_dynfix": ((4, 3, 4), True, (0, 0, 0)),
+                   "classic_s2d2": ((1, 0, 1), False, (0, 0, 1))}
 STEM_K2 = (32, 8, 64)  # grid, C, N of the s2d(2) stem: 64^3 x 1 folded to 32^3 x 8, 8 -> 64
 # phase 15: pretraining, the graft, structural shapes, the streaming reconstructor
 PRETRAIN_BATCH, PRETRAIN_SIZE, PRETRAIN_STEPS = 64, 224, 16  # cli/pretrain.py's batch and size
@@ -434,59 +445,6 @@ FIXTURE_PNG_SHA256 = {
     "tests/fixtures/pascal3d/Images/car_d.png": "cd91670bb99a1cc93e5b4f4157d04ef52a06097b58ccf089eef7532ff9c4b0c3",
     "tests/fixtures/pascal3d/Images/chair_c.png": "cbd8fec3ab196f211c3f02be29732b0ff96888069b476e7c1f9b5ee1fe815e93",
 }
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip()
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of one call, by CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of one call on the card alone: ``cuda_ms``, with the
-    card first held busy (``torch.cuda._sleep``) for longer than the host
-    takes to enqueue the ``iters`` calls, so that they run back to back and a
-    call whose host side outlasts its kernels is timed by its kernels."""
-    for _ in range(warmup):
-        fn()
-    host = host_enqueue_ms(fn, iters=3)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((2 * iters * host + 1.0) * SLEEP_CYCLES_PER_MS))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def host_enqueue_ms(fn, iters: int = 10) -> float:
-    """Mean host milliseconds of one call, from an idle card until the call
-    returns with its work enqueued: the host's share of a served batch."""
-    total = 0.0
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        total += time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return total / iters * 1e3
 
 
 def phase_device() -> str:
@@ -514,28 +472,42 @@ def reset_counts() -> None:
     conv_k2.launches = conv_k2.launches_dx = conv_k2.launches_dw = 0
     conv_k2.launches_wgmma = conv_k2.launches_dx_wgmma = conv_k2.launches_dw_wgmma = 0
     conv_k2.launches_narrow = conv_k2.launches_dx_narrow = conv_k2.launches_dw_narrow = 0
+    conv_k2.launches_split = conv_k2.launches_dx_split = 0
+    conv_k2.launches_dw_wide = 0
 
 
 def read_counts() -> dict:
     """Launches since ``reset_counts``: every launch by kernel, under
     ``*_wgmma`` those of them that took the tensor-core kernels and under
-    ``*_narrow`` those that took the narrow ones."""
+    ``*_narrow`` those that took the narrow ones; under ``*_split`` the
+    tensor-core forward and dx launches that split their depth, under
+    ``conv_k2_split_reduce`` the reduces of their partials (one each, which
+    the same call into the library launches after the split kernel), under
+    ``conv_k2_dw_wide`` the narrow dw launches on the dw-only plan (N = 64)."""
     return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
             "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dx_wgmma": conv_k2.launches_dx_wgmma,
             "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma, "conv_k2_narrow": conv_k2.launches_narrow,
-            "conv_k2_dx_narrow": conv_k2.launches_dx_narrow, "conv_k2_dw_narrow": conv_k2.launches_dw_narrow}
+            "conv_k2_dx_narrow": conv_k2.launches_dx_narrow, "conv_k2_dw_narrow": conv_k2.launches_dw_narrow,
+            "conv_k2_split": conv_k2.launches_split, "conv_k2_dx_split": conv_k2.launches_dx_split,
+            "conv_k2_split_reduce": conv_k2.launches_split + conv_k2.launches_dx_split,
+            "conv_k2_dw_wide": conv_k2.launches_dw_wide}
 
 
 def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
-                  narrow: tuple[int, int, int] = (0, 0, 0)) -> dict:
+                  narrow: tuple[int, int, int] = (0, 0, 0), split: tuple[int, int] = (0, 0),
+                  wide: int = 0) -> dict:
     """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
-    all of them on the tensor-core kernels or none of them, and ``narrow``'s
-    forward / dx / dw launches of them on the narrow kernels."""
+    all of them on the tensor-core kernels or none of them, ``narrow``'s
+    forward / dx / dw launches of them on the narrow kernels, ``wide`` of the
+    narrow dw's on the dw-only plan, and ``split``'s forward / dx launches of
+    the tensor-core ones that split their depth, each with its reduce (only
+    the mid_blocked stages at 4^3 and 8^3 split)."""
     counts = read_counts()
     want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
             "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dx_wgmma": dx if tensor_cores else 0,
             "conv_k2_dw_wgmma": dw if tensor_cores else 0, "conv_k2_narrow": narrow[0],
-            "conv_k2_dx_narrow": narrow[1], "conv_k2_dw_narrow": narrow[2]}
+            "conv_k2_dx_narrow": narrow[1], "conv_k2_dw_narrow": narrow[2], "conv_k2_split": split[0],
+            "conv_k2_dx_split": split[1], "conv_k2_split_reduce": split[0] + split[1], "conv_k2_dw_wide": wide}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     return counts
@@ -556,6 +528,15 @@ def k2_bound_ms(kernel: str, batch: int, C: int, N: int, dtype: torch.dtype, gri
         nbytes = rows * (C + N) * item + 8 * C * N * item
     t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes > t_flops else "operations"
+
+
+def split_reduce_plain(part: torch.Tensor) -> torch.Tensor:
+    """The plain version of the split forward's reduce: the f32 partials
+    [splits, ...] added in ascending order, rounded once to bfloat16."""
+    total = part[0].clone()
+    for z in range(1, part.shape[0]):
+        total += part[z]
+    return total.to(torch.bfloat16)
 
 
 def float64_forward(x: torch.Tensor, w: torch.Tensor, chunk: int = 64) -> torch.Tensor:
@@ -743,40 +724,46 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     ``launches_wgmma`` is the part of
     them that took the tensor-core kernels, ``launches_narrow`` the part that
     took the narrow kernels (the detector's final conv, all three in both
-    types)."""
+    types), ``launches_split`` the tensor-core forward and dx launches that
+    split their depth. Two entries of this PR's kernels stand beside the
+    three: ``conv_k2_split_reduce``, the reduce of the split forward's and
+    dx's partials (headline: the served batch's 4^3 2048 -> 512, B=8), and
+    ``conv_k2_dw_wide``, the narrow dw's N = 64 instance on the dw-only plan
+    (headline: the s2d(2) stem at B=32, bf16)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
              variant_counts, stream_counts, real_counts, mapping_counts, mid_counts)
+    names = ("serve", "train", "anytime", "lifecycle", "artifact", "image", "detector", "variants", "pretrain_stream",
+             "real_data", "mapping_dp", "mid_blocked")
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
-                "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184"}
+                "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184",
+                # the split forward's and dx's reduce: the forward's sum (and dx's), split over blocks
+                "conv_k2_split_reduce": "anytime3d_tpu/kernels/conv_k2.py:156",
+                "conv_k2_dw_wide": "anytime3d_tpu/kernels/conv_k2.py:184"}
+    # the case of the headline numbers: the shapes its main path gives each kernel
+    heads = {"conv_k2": "b8_f32", "conv_k2_dx": "b32_bf16", "conv_k2_dw": "b32_bf16",
+             "conv_k2_split_reduce": "mid_b8_bf16_4cubed 4^3 2048->512", "conv_k2_dw_wide": "stem_b32_bf16"}
+    sources = {"conv_k2_dw_wide": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh"}
     entries = []
     for kernel, cases in res.items():
-        head = cases["b8_f32" if kernel == "conv_k2" else "b32_bf16"]
-        entries.append({
+        entry = {
             "name": kernel,
             "route": "cuda",
-            "source": "anytime3d_tpu_torch/kernels/csrc/conv_k2.cu",
+            "source": sources.get(kernel, "anytime3d_tpu_torch/kernels/csrc/conv_k2.cu"),
             "replaces": replaces[kernel],
             "launches": sum(c[kernel] for c in paths),
-            "launches_serve": serve_counts[kernel],
-            "launches_train": train_counts[kernel],
-            "launches_anytime": anytime_counts[kernel],
-            "launches_lifecycle": life_counts[kernel],
-            "launches_artifact": artifact_counts[kernel],
-            "launches_image": image_counts[kernel],
-            "launches_detector": detector_counts[kernel],
-            "launches_variants": variant_counts[kernel],
-            "launches_pretrain_stream": stream_counts[kernel],
-            "launches_real_data": real_counts[kernel],
-            "launches_mapping_dp": mapping_counts[kernel],
-            "launches_mid_blocked": mid_counts[kernel],
-            **head,
+            **{f"launches_{name}": c[kernel] for name, c in zip(names, paths)},
+            **cases[heads[kernel]],
             "cases": cases,
-            "source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
-            "launches_wgmma": sum(c[f"{kernel}_wgmma"] for c in paths),
-            "source_narrow": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
-            "launches_narrow": sum(c[f"{kernel}_narrow"] for c in paths),
-        })
+        }
+        if kernel in ("conv_k2", "conv_k2_dx", "conv_k2_dw"):
+            entry |= {"source_wgmma": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
+                      "launches_wgmma": sum(c[f"{kernel}_wgmma"] for c in paths),
+                      "source_narrow": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
+                      "launches_narrow": sum(c[f"{kernel}_narrow"] for c in paths)}
+        if kernel in ("conv_k2", "conv_k2_dx"):  # the tensor-core launches that split their depth
+            entry["launches_split"] = sum(c[f"{kernel}_split"] for c in paths)
+        entries.append(entry)
     return entries
 
 
@@ -2028,7 +2015,7 @@ def profile_kernels(what: str, fn, runs: int, card: str, top: int = 10) -> None:
     longest kernels (``cli/profile.py``'s table)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from anytime3d_tpu_torch.cli.profile import kernel_rows, print_kernels
+    from anytime3d_tpu_torch.cli.profile import print_kernels
 
     for _ in range(2):
         fn()
@@ -2346,26 +2333,32 @@ def phase_detector(device: torch.device, card: str) -> dict:
 
 def phase_stem_kernels(card: str) -> dict:
     """``conv_k2`` and dw at the classic encoder's space-to-depth(2) stem
-    (64^3 x 1 folded to 32^3 x 8, C=8 -> N=64: no wgmma or narrow plan, the
-    FFMA kernels) at B=8 and B=32 in float32 and bfloat16: each against its
-    plain version and a float64 product of the same operands, timed beside
-    its library call and its bound. Returns ``{kernel: {case: numbers}}``
-    as ``phase_kernels``."""
+    (64^3 x 1 folded to 32^3 x 8, C=8 -> N=64: no wgmma or narrow plan, so
+    the forward takes the FFMA kernel; dw in bfloat16 the dw-only narrow plan,
+    in float32 the FFMA dw) at B=8 and B=32 in float32 and bfloat16: each
+    against its plain version and a float64 product of the same operands,
+    timed by events and on the card alone beside its library call and its
+    bound, each row labelled with the route it took. Returns ``{kernel: {case:
+    numbers}}`` as ``phase_kernels``, the bfloat16 dw rows also under
+    ``conv_k2_dw_wide``."""
     grid, C, N = STEM_K2
     gen = torch.Generator().manual_seed(SEED + 13)
-    res = {"conv_k2": {}, "conv_k2_dw": {}}
+    res = {"conv_k2": {}, "conv_k2_dw": {}, "conv_k2_dw_wide": {}}
     with torch.inference_mode():
         for case, batch, dtype in STEM_CASES:
             assert wgmma_plan(batch, grid, grid, grid, C, N) is None
             assert narrow_plan(batch, grid, grid, grid, C, N, dtype=dtype) is None
+            wide = narrow_dw_plan(batch, grid, grid, grid, C, N, dtype=dtype)
+            assert (wide is not None) == (dtype == torch.bfloat16)
             x, w, g = k2_operands(gen, (batch, grid, grid, grid), C, N, dtype)
             exact = float64_products(x, w, g)
             runs = k2_runs(x, w, g)
-            for kernel in res:
+            for kernel in ("conv_k2", "conv_k2_dw"):
                 run, plain, library = runs[kernel]
+                route = "narrow" if kernel == "conv_k2_dw" and wide is not None else "ffma"
                 label = f"s2d(2) stem {case} B={batch} {grid}^3 {C}->{N}"
-                checked = check_kernel(kernel, label, run, plain, None, "ffma")
-                # the FFMA kernels held to float64 too: f32 sums of at most 64 (forward) or 2^20 (dw) products
+                checked = check_kernel(kernel, label, run, plain, None, route)
+                # held to float64 too: f32 sums of at most 64 (forward) or 2^20 (dw) products
                 out, ref, top64 = run(), plain(), float(exact[kernel].abs().max())
                 if kernel == "conv_k2_dw":
                     tol64 = K2_TOL_DW_F64_REL * top64
@@ -2376,15 +2369,26 @@ def phase_stem_kernels(card: str) -> dict:
                 err_k, err_p = (float((t.double() - exact[kernel]).abs().max()) for t in (out, ref))
                 p1, k1, k2_, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
                 ms, plain_ms, library_ms = (k1 + k2_) / 2, (p1 + p2) / 2, cuda_ms(library)
+                # on the card alone, kernel and library in turns
+                a1, l1, l2, a2 = (device_ms(f, iters=50) for f in (run, library, library, run))
+                alone, library_alone = (a1 + a2) / 2, (l1 + l2) / 2
                 bound_ms, bound_by = k2_bound_ms(kernel, batch, C, N, dtype, grid)
-                print(f"{kernel} {label} [ffma]: against float64 (largest entry {top64:.3e}) kernel {err_k:.3e} "
-                      f"plain {err_p:.3e} (tol {tol64:.3e}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
-                      f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); kernel / bound {ms / bound_ms:.1f}, "
-                      f"kernel / library {ms / library_ms:.2f} [{card}]", flush=True)
+                detail = (f" (dw-only plan: box {wide.dw_box}, {wide.dw_splits} splits of {wide.dw_boxes_per_split} "
+                          f"boxes)" if route == "narrow" else "")
+                print(f"{kernel} {label} [{route}]{detail}: against float64 (largest entry {top64:.3e}) kernel "
+                      f"{err_k:.3e} plain {err_p:.3e} (tol {tol64:.3e}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                      f"library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); on the card alone kernel "
+                      f"{alone:.4f} ms ({a1:.4f}, {a2:.4f}) library {library_alone:.4f} ms ({l1:.4f}, {l2:.4f}); "
+                      f"kernel / bound {ms / bound_ms:.1f} (alone {alone / bound_ms:.1f}), kernel / library "
+                      f"{ms / library_ms:.2f} (alone {alone / library_alone:.2f}) [{card}]", flush=True)
                 if not (err_k <= tol64 and err_p <= tol64):
                     raise AssertionError(f"{kernel} {label}: off the float64 product")
-                res[kernel][case] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                                     "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": "ffma"}
+                row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                       "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": route,
+                       "device_ms": alone, "library_device_ms": library_alone}
+                res[kernel][case] = row
+                if route == "narrow":
+                    res["conv_k2_dw_wide"][case] = row
             del x, w, g, exact, runs
     return res
 
@@ -2538,7 +2542,7 @@ def phase_variants(device: torch.device, card: str) -> dict:
                "classic_s2d2": dataclasses.replace(classic, encoder3d=dataclasses.replace(
                    classic.encoder3d, stem_space_to_depth=2))}
     for label, cfg in layouts.items():
-        (fwd, dx, dw), tensor_cores = VARIANT_LAYOUTS[label]
+        (fwd, dx, dw), tensor_cores, narrow = VARIANT_LAYOUTS[label]
         model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16).to(device)
         state = create_train_state(model)
         step = make_train_step(model, loss_cfg)
@@ -2554,7 +2558,8 @@ def phase_variants(device: torch.device, card: str) -> dict:
         ms = cuda_ms(lambda: step(state, batch, gen), iters=n_steps, warmup=0)
         metrics = {k: float(v) for k, v in step(state, batch, gen)[1].items()}
         add(expect_counts(f"layout {label}", fwd * (n_steps + 1), dx * (n_steps + 1), dw * (n_steps + 1),
-                          tensor_cores))
+                          tensor_cores, narrow=tuple(n * (n_steps + 1) for n in narrow),
+                          wide=narrow[2] * (n_steps + 1)))
         if not (all(math.isfinite(v) for v in metrics.values()) and metrics["grads_finite"] == 1.0):
             raise AssertionError(f"layout {label}: {metrics}")
         print(f"layout {label} of modelnet_nolbo (encoder head_blocked {cfg.encoder3d.head_blocked}, stem "
@@ -2563,7 +2568,8 @@ def phase_variants(device: torch.device, card: str) -> dict:
               f"{cfg.decoder.tail_init_match_transpose}): bf16 train step B={TRAIN_BATCH}, device time (CUDA events, "
               f"mean of {n_steps} after 1) {ms:.2f} ms; peak memory allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; conv_k2 {fwd} / {dx} / {dw} a step "
-              f"({'wgmma' if tensor_cores else 'FFMA' if fwd else 'none'}); metrics {metrics} [{card}]", flush=True)
+              f"({'wgmma' if tensor_cores else 'FFMA' if fwd else 'none'}; narrow {narrow[0]} / {narrow[1]} / "
+              f"{narrow[2]}); metrics {metrics} [{card}]", flush=True)
         del model, state, step, batch
         torch.cuda.empty_cache()
 
@@ -3707,9 +3713,15 @@ def phase_mapping_dp(device: torch.device, card: str) -> dict:
 # phase 18: the mid_blocked layout of modelnet_nolbo. (grid, C, N) of its four conv_k2 stages beyond the blocked head
 # and tail: encoder stage 3 (s2d of 16^3) and 4 (s2d of 8^3), decoder stage 2 (then d2s to 8^3) and 3 (d2s to 16^3)
 MID_K2 = [(8, 1024, 256), (4, 2048, 512), (4, 512, 2048), (8, 256, 1024)]
-# (label, batch, dtype, stages) of its kernel rows: the train step's shapes in both types, and the 4^3 ones at B=8
+# (label, batch, dtype, stages) of its kernel rows: the train step's shapes in both types, and the served batch's
+# that split their depth (the 4^3 ones and 8^3 1024 -> 256 at B=8)
 MID_CASES = [("mid_b32_bf16", TRAIN_BATCH, torch.bfloat16, MID_K2), ("mid_b32_f32", TRAIN_BATCH, torch.float32, MID_K2),
-             ("mid_b8_bf16_4cubed", BATCH, torch.bfloat16, [k for k in MID_K2 if k[0] == 4])]
+             ("mid_b8_bf16_4cubed", BATCH, torch.bfloat16, [k for k in MID_K2 if k[0] == 4]),
+             ("mid_b8_bf16_8cubed", BATCH, torch.bfloat16, [MID_K2[0]])]
+# forward / dx launches that split their depth: a served bf16 batch of 8 (8^3 1024 -> 256, 4^3 2048 -> 512 and
+# 512 -> 2048), a bf16 train step at B=32 (the forward of 4^3 2048 -> 512, the dx of 512 -> 2048)
+MID_SPLIT_SERVED = 3
+MID_SPLIT_STEP = (1, 1)
 MID_TRAIN_STEPS = 20
 MID_SLICE_BATCH = 2  # the f32 train step also run on the CPU
 MID_SERVE_BATCHES = 5
@@ -3752,7 +3764,9 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
     (8 / 7 / 8 ``wgmma`` launches a step) beside as many of the default layout
     (4 / 3 / 4); ``conv_k2``, dx and dw at the four new stages (and the 4^3
     ones at B=8) against their plain versions and float64 products, timed
-    beside cuDNN's k=2 call and their bound, the other tile height beside;
+    beside cuDNN's k=2 call and their bound, the other tile height beside
+    and, where the plan splits the depth, the plan unsplit (on the card alone
+    and the host's enqueue), the split reduce's device time from the profiler;
     the cuDNN k=4 s=2 conv or transposed conv each stage replaces (a record);
     ``SubpixelDeconv3D`` against its plain version and ``ConvTransposeEquiv3D``;
     a bf16 step with ``flat_opt=True`` beside the per-leaf Adam. Returns the
@@ -3808,12 +3822,15 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
         reset_counts()
         outs = [infer(packed, mask.to(device)) for _ in range(MID_SERVE_BATCHES)]
         torch.cuda.synchronize()
-        add(expect_counts(f"{label} bf16 served batches", launches * MID_SERVE_BATCHES, 0, 0, tensor_cores=True))
+        split = (MID_SPLIT_SERVED * MID_SERVE_BATCHES if label == "mid_blocked" else 0, 0)
+        add(expect_counts(f"{label} bf16 served batches", launches * MID_SERVE_BATCHES, 0, 0, tensor_cores=True,
+                          split=split))
         if not torch.isfinite(outs[-1]["z_mean"].float()).all():
             raise AssertionError(f"{label} bf16 served batch: z_mean not finite")
         served_ms[label] = cuda_ms(lambda: infer(packed, mask.to(device)))
         del model16, infer
-    print(f"mid_blocked bf16 served batch of {BATCH}: {MID_SERVE_BATCHES} batches, 8 wgmma launches each; device "
+    print(f"mid_blocked bf16 served batch of {BATCH}: {MID_SERVE_BATCHES} batches, 8 wgmma launches each "
+          f"({MID_SPLIT_SERVED} of them split, each with its reduce); device "
           f"time per batch (CUDA events) {served_ms['mid_blocked']:.3f} ms, the default layout's "
           f"{served_ms['default']:.3f} ms [{card}]", flush=True)
 
@@ -3832,7 +3849,9 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
             raise AssertionError(f"{label} train run built {trainer.model.config.decoder}")
         reset_counts()
         step_ms, host, wall, peak = timed_train(trainer, f"{label} train run")
-        add(expect_counts(f"{label} train run", *(n * MID_TRAIN_STEPS for n in launches), tensor_cores=True))
+        split = tuple(n * MID_TRAIN_STEPS for n in (MID_SPLIT_STEP if label == "mid_blocked" else (0, 0)))
+        add(expect_counts(f"{label} train run", *(n * MID_TRAIN_STEPS for n in launches), tensor_cores=True,
+                          split=split))
         hist = trainer.history
         runs[label] = (np.median(step_ms), np.median(host))
         print(f"{label} train run: {MID_TRAIN_STEPS} steps, B={TRAIN_BATCH} bf16, 64^3 packed: loss_total "
@@ -3865,11 +3884,23 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
                     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                            "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": checked["design"]}
                     extra = ""
+                    if want == "wgmma":
+                        # on the card alone, kernel and cuDNN's call in turns (the op's host side can outlast a
+                        # 0.03 ms kernel)
+                        a1, l1, l2, a2 = (device_ms(f, iters=50) for f in (run, library, library, run))
+                        row["device_ms"], row["library_device_ms"] = (a1 + a2) / 2, (l1 + l2) / 2
+                        extra += (f"; on the card alone kernel {row['device_ms']:.4f} ms ({a1:.4f}, {a2:.4f}) library "
+                                  f"{row['library_device_ms']:.4f} ms ({l1:.4f}, {l2:.4f}), kernel / library "
+                                  f"{row['device_ms'] / row['library_device_ms']:.2f}")
                     if want == "wgmma" and kernel != "conv_k2_dw":
                         # the other tile height (128 <-> 256 rows) where the grid allows it, launched directly
                         cin, cout = (C, N) if kernel == "conv_k2" else (N, C)
                         plan = wgmma_plan(batch, grid, grid, grid, cin, cout)
                         alt = wgmma_plan(batch, grid, grid, grid, cin, cout, bm=384 - plan.bm)
+                        row["splits"], row["stages_per_split"], row["tiles"] = (plan.splits, plan.stages_per_split,
+                                                                               plan.tiles)
+                        extra += (f"; {plan.tiles} tiles of {plan.bm} rows, the depth in {plan.splits} split(s) of "
+                                  f"{plan.stages_per_split} stages")
                         if alt is not None:
                             src, out = (x_, run()) if kernel == "conv_k2" else (g_, run())
                             other = torch.empty_like(out)
@@ -3882,14 +3913,68 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
                             by_plan, by_alt = (lambda: launch(src, w_, other, plan)), (lambda: launch(src, w_, other, alt))
                             q1, o1, o2, q2 = (device_ms(f, iters=50) for f in (by_plan, by_alt, by_alt, by_plan))
                             row[f"device_ms_bm{plan.bm}"], row[f"device_ms_bm{alt.bm}"] = (q1 + q2) / 2, (o1 + o2) / 2
-                            extra = (f"; on the card alone the plan's {plan.bm}-row tiles ({plan.tiles} tiles) "
-                                     f"{(q1 + q2) / 2:.4f} ms ({q1:.4f}, {q2:.4f}), {alt.bm}-row tiles ({alt.tiles} "
-                                     f"tiles) {(o1 + o2) / 2:.4f} ms ({o1:.4f}, {o2:.4f}), same bits")
+                            extra += (f"; launched directly, the plan's {plan.bm}-row tiles ({plan.tiles} tiles, "
+                                      f"{plan.splits} splits) {(q1 + q2) / 2:.4f} ms ({q1:.4f}, {q2:.4f}), "
+                                      f"{alt.bm}-row tiles ({alt.tiles} tiles, {alt.splits} splits) "
+                                      f"{(o1 + o2) / 2:.4f} ms ({o1:.4f}, {o2:.4f}), same bits")
+                        if plan.splits > 1:
+                            # against the plan without the split (the one before it), launched the same way, in
+                            # turns: on the card alone, and the host's time to enqueue the launch (the split's
+                            # workspace, its reduce launched by the same call into the library)
+                            src, out = (x_, run()) if kernel == "conv_k2" else (g_, run())
+                            other = torch.empty_like(out)
+                            launch = k2mod.forward_wgmma if kernel == "conv_k2" else k2mod.dx_wgmma
+                            unsplit = wgmma_plan(batch, grid, grid, grid, cin, cout, split=False)
+                            launch(src, w_, other, unsplit)
+                            torch.cuda.synchronize()
+                            off = float((other.float() - out.float()).abs().max())
+                            if off > 2.0**-7 * float(out.float().abs().max()):
+                                raise AssertionError(f"{kernel} {label}: unsplit differs from split by {off}")
+                            by_plan, by_un = (lambda: launch(src, w_, other, plan)), (lambda: launch(src, w_, other,
+                                                                                                     unsplit))
+                            q1, u1, u2, q2 = (device_ms(f, iters=50) for f in (by_plan, by_un, by_un, by_plan))
+                            h1, v1, v2, h2 = (host_enqueue_ms(f, iters=20) for f in (by_plan, by_un, by_un, by_plan))
+                            row |= {"device_ms_split": (q1 + q2) / 2, "device_ms_unsplit": (u1 + u2) / 2,
+                                    "host_ms_split": (h1 + h2) / 2, "host_ms_unsplit": (v1 + v2) / 2}
+                            extra += (f"; against the plan unsplit ({unsplit.tiles} tiles of {unsplit.bm} rows), "
+                                      f"launched directly, on the card alone split {(q1 + q2) / 2:.4f} ms ({q1:.4f}, "
+                                      f"{q2:.4f}) unsplit {(u1 + u2) / 2:.4f} ms ({u1:.4f}, {u2:.4f}), host enqueue "
+                                      f"split {(h1 + h2) / 2:.4f} ms ({h1:.4f}, {h2:.4f}) unsplit "
+                                      f"{(v1 + v2) / 2:.4f} ms ({v1:.4f}, {v2:.4f})")
                     print(f"{kernel} {label} [{checked['design']}]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                           f"library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); kernel / bound "
                           f"{ms / bound_ms:.1f}, kernel / library {ms / library_ms:.2f}{extra} [{card}]", flush=True)
                     rows[kernel][f"{label}"] = row
                 del x_, w_, g_, exact
+        # the split forward's reduce, launched by the forward's own call into the library: its device time a
+        # launch from the profiler, at the served batch's 4^3 2048 -> 512 (16 partials of 512 x 512), beside the
+        # split kernel's; its plain version (the partials added in ascending order in f32, rounded once) timed on
+        # partials of that shape; its output is the forward's, held above to the plain version and float64. The
+        # bound: bytes (the partials read once, y written once) over the memory rate
+        plan = wgmma_plan(BATCH, 4, 4, 4, 2048, 512)
+        x_, w_, _ = k2_operands(gen, (BATCH, 4, 4, 4), 2048, 512, torch.bfloat16)
+        prof = profile_rows(lambda: conv_k2(x_, w_), runs=20)
+        reduce_ms = sum(ms for name, ms, _ in prof if "split_reduce" in name)
+        split_ms = sum(ms for name, ms, _ in prof if "conv_k2_fwd_wgmma" in name)
+        part = torch.randn(plan.splits, BATCH, 4, 4, 4, 512, generator=gen).to(device)
+        p1, p2 = cuda_ms(lambda: split_reduce_plain(part)), cuda_ms(lambda: split_reduce_plain(part))
+        count = BATCH * 64 * 512
+        t_bytes, t_ops = (part.numel() * 4 + count * 2) / PEAK_BYTES_PER_S, (plan.splits - 1) * count / PEAK_FLOPS[
+            torch.float32]
+        forward_row = rows["conv_k2"]["mid_b8_bf16_4cubed 4^3 2048->512"]
+        rows["conv_k2_split_reduce"] = {"mid_b8_bf16_4cubed 4^3 2048->512": {
+            "ms": reduce_ms, "plain_ms": (p1 + p2) / 2, "library_ms": None, "split_kernel_ms": split_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "max_abs_err": forward_row["max_abs_err"], "design": "reduce"}}
+        r = rows["conv_k2_split_reduce"]["mid_b8_bf16_4cubed 4^3 2048->512"]
+        print(f"conv_k2_split_reduce {plan.splits} x {count} f32 -> bf16 (the split forward's partials at 4^3 "
+              f"2048->512, B={BATCH}; the profiler's device time a launch): the reduce {reduce_ms:.4f} ms, the split "
+              f"kernel {split_ms:.4f} ms; plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); the forward's max abs err against its plain version {r['max_abs_err']:.3e} "
+              f"[{card}]", flush=True)
+        if reduce_ms <= 0 or split_ms <= 0:
+            raise AssertionError(f"the profiler saw no split kernel or reduce: {prof}")
+        del part, x_, w_
 
     # (e) a record: the cuDNN k=4 s=2 conv or transposed conv each stage replaces, beside the stage's mid_blocked
     # layer (space-to-depth + conv_k2, or conv_k2 + depth-to-space), bf16 at B=32, forward and forward + backward
@@ -4014,19 +4099,24 @@ def main() -> None:
         kernels[kernel].update(cases)
     detector_counts = phase_detector(device, card)
     for kernel, cases in phase_stem_kernels(card).items():
-        kernels[kernel].update(cases)
+        kernels.setdefault(kernel, {}).update(cases)
     variant_counts = phase_variants(device, card)
     stream_counts = phase_pretrain_stream(device, card)
     real_counts = phase_real_data(device, card)
     mapping_counts = phase_mapping_dp(device, card)
     mid_counts, mid_rows = phase_mid_blocked(device, card)
     for kernel, cases in mid_rows.items():
-        kernels[kernel].update(cases)
+        kernels.setdefault(kernel, {}).update(cases)
+    entries = kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts, artifact_counts,
+                             image_counts, detector_counts, variant_counts, stream_counts, real_counts, mapping_counts,
+                             mid_counts)
+    # every kernel, and every design of the three, went through the main paths
+    for e in entries:
+        for key in ("launches", "launches_wgmma", "launches_narrow", "launches_split"):
+            if e.get(key, 1) < 1:
+                raise AssertionError(f"{e['name']}: {key} {e[key]} on the main paths")
     print(card, flush=True)
-    print(json.dumps({"kernels": kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts,
-                                                artifact_counts, image_counts, detector_counts, variant_counts,
-                                                stream_counts, real_counts, mapping_counts, mid_counts)}),
-          flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

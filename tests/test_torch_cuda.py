@@ -34,6 +34,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2_dw_reference,
     conv_k2_reference,
     ffma_dw_split,
+    narrow_dw_plan,
     narrow_plan,
     wgmma_plan,
 )
@@ -270,6 +271,64 @@ def test_wgmma_at_4cubed_matches_plain_and_float64(cuda, B, C, N):
     assert float((dw[0].double() - dw64).abs().max()) <= tol and float((dw_ref.double() - dw64).abs().max()) <= tol
 
 
+def _split_counts():
+    return conv_k2.launches_split, conv_k2.launches_dx_split
+
+
+def _check_split_forward_and_dx(cuda, B, C, N, seed):
+    """conv_k2 and dx at 4^3 twice: the plans' split counters move, the same bits both runs, and each within 2
+    bf16 ulps of the largest entry of the plain version (as every bf16 forward) and within half an ulp and
+    the sum's own error of a float64 product of the same operands (the 4^3 tolerances). Returns the plans'
+    splits (forward, dx)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, 4, 4, 4, C, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, torch.bfloat16)
+    g = torch.randn(B, 4, 4, 4, N, generator=gen).to(cuda, torch.bfloat16)
+    fwd_splits, dx_splits = wgmma_plan(B, 4, 4, 4, C, N).splits, wgmma_plan(B, 4, 4, 4, N, C).splits
+    with torch.inference_mode():
+        before, before_split = _wgmma_counts(), _split_counts()
+        y, dx = conv_k2(x, w), k2.conv_k2_dx(g, w)
+        again = conv_k2(x, w), k2.conv_k2_dx(g, w)
+        moved = [a - b for a, b in zip(_split_counts(), before_split)]
+        assert _wgmma_counts()[:2] == (before[0] + 2, before[1] + 2)
+        assert moved == [2 * (fwd_splits > 1), 2 * (dx_splits > 1)]
+        y_ref, dx_ref = conv_k2_reference(x, w), k2.conv_k2_dx_reference(g, w)
+        y64 = sum(torch.nn.functional.pad(x.double(), (0, 0) + (0, 1) * 3)[
+            :, t >> 2:(t >> 2) + 4, (t >> 1) & 1:((t >> 1) & 1) + 4, t & 1:(t & 1) + 4] @ w.double().reshape(8, C, N)[t]
+            for t in range(8))
+        dx64 = _dx_float64(g, w)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again[0]) and torch.equal(dx, again[1])
+    for out, ref, exact in ((y, y_ref, y64), (dx, dx_ref, dx64)):
+        assert float((out.float() - ref.float()).abs().max()) <= 2.0**-7 * float(ref.float().abs().max())
+        tol64 = (2.0**-8 + DW_TOL_F64_REL) * float(exact.abs().max())
+        assert float((out.double() - exact).abs().max()) <= tol64
+    return fwd_splits, dx_splits
+
+
+@pytest.mark.parametrize("B", [2, 8, 32])
+@pytest.mark.parametrize("C,N", MID_4CUBED)
+def test_split_forward_and_dx_at_4cubed_match_plain_and_float64(cuda, B, C, N):
+    """The tensor-core forward and dx whose plan splits the depth (every one of these but the forward of
+    512 -> 2048 at B=32, whose 128 tiles fill the card): each split's f32 partial to the workspace, then the
+    reduce in ascending order, rounded once, both launched by the one call into the library; held to the plain
+    version and float64, the same bits from two runs, the split counters moving with the plans."""
+    no_split = (32, 512)  # a plan of 512 -> 2048 at B=32: 128 tiles of 256 rows fill the card
+    fwd_splits, dx_splits = _check_split_forward_and_dx(cuda, B, C, N, seed=21)
+    assert (fwd_splits > 1) == ((B, C) != no_split) and (dx_splits > 1) == ((B, N) != no_split)
+
+
+@pytest.mark.parametrize("B", [2, 8])
+@pytest.mark.parametrize("C,N", [(512, 64), (64, 512)])
+def test_split_with_64_columns_matches_plain_and_float64(cuda, B, C, N):
+    """The split instances of 64-column tiles: the forward of 512 -> 64 at 4^3 and the dx of 64 -> 512 (the
+    plan of 512 -> 64: 4 splits of 16 stages, 128-row tiles at B=2, 256 at B=8), as the test above; the
+    8-stage sum of 64 -> 512 and the dx of 512 -> 64 keep one split."""
+    fwd_splits, dx_splits = _check_split_forward_and_dx(cuda, B, C, N, seed=23)
+    assert (fwd_splits > 1, dx_splits > 1) == ((C == 512), (N == 512))
+    assert wgmma_plan(B, 4, 4, 4, 512, 64).bn == 64
+
+
 def test_odd_batch_at_4cubed_takes_ffma(cuda):
     """B = 7 at 4^3: no box of whole items tiles the rows, so no plan; the
     forward, dx and dw run on the FFMA kernels (no tensor-core counter moves)
@@ -335,27 +394,34 @@ def test_ffma_dw_matches_plain_at_the_tile_edges(cuda, B, D, H, W, C, N, dtype):
 @pytest.mark.parametrize("B", [2, 8])
 def test_s2d_stem_kernels_match_plain(cuda, B, dtype):
     """The classic encoder's space-to-depth(2) stem, ``conv_k2`` 8 -> 64 at
-    32^3 (no tensor-core or narrow plan: the FFMA kernels), forward and dw
-    against their plain versions, with the forward's and the FFMA dw's
-    tolerances; dw the same bits twice."""
+    32^3 (no tensor-core or narrow plan: the forward on the FFMA kernel), and
+    dw: in bfloat16 on the dw-only narrow plan (``launches_dw_narrow`` and
+    ``launches_dw_wide`` move), in float32 on the FFMA dw. Against their plain
+    versions with the forward's and dw's tolerances (dw also against a float64
+    product, as every tensor-core dw); dw the same bits twice."""
     C, N, G = 8, 64, 32
     assert wgmma_plan(B, G, G, G, C, N) is None and narrow_plan(B, G, G, G, C, N, dtype=dtype) is None
+    wide = dtype == torch.bfloat16
+    assert (narrow_dw_plan(B, G, G, G, C, N, dtype=dtype) is not None) == wide
     gen = torch.Generator().manual_seed(6)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
     g = torch.randn(B, G, G, G, N, generator=gen).to(cuda, dtype)
-    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
+    before, before_wg, before_nr, before_wide = _counts(), _wgmma_counts(), _narrow_counts(), conv_k2.launches_dw_wide
     with torch.no_grad():
         y, dw, again = conv_k2(x, w), conv_k2_dw(x, g), conv_k2_dw(x, g)
         y_ref, dw_ref = conv_k2_reference(x, w), conv_k2_dw_reference(x, g)
+        dw64 = _dw_float64(x, g)
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1], before[2] + 2)
-    assert _wgmma_counts() == before_wg and _narrow_counts() == before_nr
+    assert _wgmma_counts() == before_wg and _narrow_counts() == (before_nr[0], before_nr[1], before_nr[2] + 2 * wide)
+    assert conv_k2.launches_dw_wide == before_wide + 2 * wide
     err = float((y.float() - y_ref.float()).abs().max())
     assert err <= (1e-4 if dtype == torch.float32 else 2.0**-7 * float(y_ref.float().abs().max())), err
     assert torch.equal(dw, again)
     err = float((dw - dw_ref).abs().max())
     assert err <= 1e-5 * float(dw_ref.abs().max()), err
+    assert float((dw.double() - dw64).abs().max()) <= DW_TOL_F64_REL * float(dw64.abs().max())
 
 
 def test_backward_launches_only_what_is_asked(cuda):
@@ -558,8 +624,10 @@ def test_small_bf16_slice_on_card_takes_tensor_cores(cuda):
 
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 64, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64)),
                                          (torch.bfloat16, (2, 8, 8, 8, 32, 8)), (torch.float32, (1, 3, 4, 5, 8, 16)),
-                                         (torch.bfloat16, (4, 4, 4, 4, 64, 64))],
-                         ids=["f32_ffma", "bf16_wgmma", "bf16_narrow", "f32_narrow", "bf16_wgmma_4cubed"])
+                                         (torch.bfloat16, (4, 4, 4, 4, 64, 64)),
+                                         (torch.bfloat16, (2, 4, 4, 4, 256, 256))],
+                         ids=["f32_ffma", "bf16_wgmma", "bf16_narrow", "f32_narrow", "bf16_wgmma_4cubed",
+                              "bf16_wgmma_split"])
 @pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
 def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     """The three ops on CUDA tensors: schema, autograd registration (the
@@ -568,11 +636,14 @@ def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     C = 64, which has no narrow plan (all FFMA); in bfloat16 at a shape with
     a plan (8^3, and 4^3, whose boxes span two items), so the tensor-core
     kernels answer; at 32 -> 8, where the narrow
-    forward, dx (8 -> 32) and dw do; and in float32 at 8 -> 16, where the
-    narrow FFMA forward, dx (16 -> 8) and dw do."""
+    forward, dx (8 -> 32) and dw do; in float32 at 8 -> 16, where the
+    narrow FFMA forward, dx (16 -> 8) and dw do; and in bfloat16 at 4^3, 256
+    -> 256, B=2, whose forward and dx split their depth in two and reduce."""
     *grid, C, N = shape
-    assert (narrow_plan(*grid, C, N, dtype=dtype) is None) == (shape[4] == 64)
-    assert (narrow_plan(*grid, N, C, dtype=dtype) is None) == (shape[4] == 64)
+    assert (narrow_plan(*grid, C, N, dtype=dtype) is None) == (shape[4] >= 64)
+    assert (narrow_plan(*grid, N, C, dtype=dtype) is None) == (shape[4] >= 64)
+    if C == 256:
+        assert wgmma_plan(*grid, C, N).splits == wgmma_plan(*grid, N, C).splits == 2
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(*grid, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, N, generator=gen) * 0.1).to(cuda)

@@ -34,6 +34,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2_dx_reference,
     conv_k2_reference,
     ffma_dw_split,
+    narrow_dw_plan,
     narrow_plan,
     wgmma_plan,
 )
@@ -138,7 +139,9 @@ UNPLANNED = [(2, 5, 6, 7, 64, 64), (8, 16, 17, 18, 64, 512), (1, 4, 4, 4, 64, 64
 SMEM_PER_BLOCK = 232_448  # what one block may have on an H100
 # The plans of the grids whose boxes lie inside one batch item, as they were
 # before boxes could span items: (bm, bn, box, stages, smem_bytes, tiles, grid,
-# dw_box, dw_stages, dw_smem_bytes, dw_grid, dw_stages_per_split)
+# dw_box, dw_stages, dw_smem_bytes, dw_grid, dw_stages_per_split). 8^3 at B=8,
+# 1024 -> 256, whose 32 tiles fill a quarter of the card, has since split its
+# depth into 4: 128 blocks walk its (tile, split) items (grid 32 before).
 KEPT_PLANS = {
     (8, 16, 16, 16, 64, 512): (128, 128, (16, 8, 1), 3, 99456, 1024, 264, (16, 4, 1), 3, 99456, (4, 4, 16), 32),
     (8, 16, 16, 16, 512, 128): (256, 128, (16, 16, 1), 4, 197760, 128, 128, (16, 4, 1), 3, 99456, (1, 32, 8), 64),
@@ -150,9 +153,23 @@ KEPT_PLANS = {
     (32, 16, 16, 16, 512, 64): (256, 64, (16, 16, 1), 4, 164992, 512, 132, (16, 4, 1), 4, 99456, (1, 32, 8), 256),
     (32, 8, 8, 8, 1024, 256): (256, 128, (8, 8, 4), 4, 197760, 128, 128, (8, 8, 1), 3, 99456, (2, 64, 2), 128),
     (32, 8, 8, 8, 256, 1024): (256, 128, (8, 8, 4), 4, 197760, 512, 132, (8, 8, 1), 3, 99456, (8, 16, 2), 128),
-    (8, 8, 8, 8, 1024, 256): (256, 128, (8, 8, 4), 4, 197760, 32, 32, (8, 8, 1), 3, 99456, (2, 64, 2), 32),
+    (8, 8, 8, 8, 1024, 256): (256, 128, (8, 8, 4), 4, 197760, 32, 128, (8, 8, 1), 3, 99456, (2, 64, 2), 32),
     (3, 8, 8, 8, 64, 128): (128, 128, (8, 8, 2), 3, 99456, 12, 12, (8, 8, 1), 3, 99456, (1, 4, 1), 24),
     (3, 32, 32, 32, 128, 64): (256, 64, (32, 8, 1), 4, 164992, 384, 132, (32, 2, 1), 4, 99456, (1, 8, 33), 47),
+    # the flagship's 16^3 convs below the served batch (the lifecycle's B=4): their tiles leave the card idle, but
+    # a 16^3 grid never splits its depth
+    (1, 16, 16, 16, 64, 512): (128, 128, (16, 8, 1), 3, 99456, 128, 128, (16, 4, 1), 3, 99456, (4, 4, 4), 16),
+    (1, 16, 16, 16, 512, 128): (256, 128, (16, 16, 1), 4, 197760, 16, 16, (16, 4, 1), 3, 99456, (1, 32, 4), 16),
+    (1, 16, 16, 16, 128, 512): (256, 128, (16, 16, 1), 4, 197760, 64, 64, (16, 4, 1), 3, 99456, (4, 8, 4), 16),
+    (1, 16, 16, 16, 512, 64): (256, 64, (16, 16, 1), 4, 164992, 16, 16, (16, 4, 1), 4, 99456, (1, 32, 4), 16),
+    (2, 16, 16, 16, 64, 512): (128, 128, (16, 8, 1), 3, 99456, 256, 256, (16, 4, 1), 3, 99456, (4, 4, 8), 16),
+    (2, 16, 16, 16, 512, 128): (256, 128, (16, 16, 1), 4, 197760, 32, 32, (16, 4, 1), 3, 99456, (1, 32, 8), 16),
+    (2, 16, 16, 16, 128, 512): (256, 128, (16, 16, 1), 4, 197760, 128, 128, (16, 4, 1), 3, 99456, (4, 8, 8), 16),
+    (2, 16, 16, 16, 512, 64): (256, 64, (16, 16, 1), 4, 164992, 32, 32, (16, 4, 1), 4, 99456, (1, 32, 8), 16),
+    (4, 16, 16, 16, 64, 512): (128, 128, (16, 8, 1), 3, 99456, 512, 264, (16, 4, 1), 3, 99456, (4, 4, 16), 16),
+    (4, 16, 16, 16, 512, 128): (256, 128, (16, 16, 1), 4, 197760, 64, 64, (16, 4, 1), 3, 99456, (1, 32, 8), 32),
+    (4, 16, 16, 16, 128, 512): (256, 128, (16, 16, 1), 4, 197760, 256, 132, (16, 4, 1), 3, 99456, (4, 8, 8), 32),
+    (4, 16, 16, 16, 512, 64): (256, 64, (16, 16, 1), 4, 164992, 64, 64, (16, 4, 1), 4, 99456, (1, 32, 8), 32),
 }
 
 
@@ -292,9 +309,10 @@ def test_wgmma_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
         assert (flat == np.arange(row0, row0 + plan.bm)).all()  # the box's rows, in order, are the tile's rows
         seen[b:b + bb, d:d + bd, h:h + bh, w:w + bw] += 1
     assert (seen == 1).all()
-    assert plan.tiles == rows // plan.bm * (N // plan.bn) and 1 <= plan.grid <= min(plan.tiles, per_sm * 132)
-    walked = sorted(t for block in range(plan.grid) for t in range(block, plan.tiles, plan.grid))
-    assert walked == list(range(plan.tiles))
+    items = plan.tiles * plan.splits  # (tile, split): one split of all stages but where the tiles idle the card
+    assert plan.tiles == rows // plan.bm * (N // plan.bn) and 1 <= plan.grid <= min(items, per_sm * 132)
+    walked = sorted(t for block in range(plan.grid) for t in range(block, items, plan.grid))
+    assert walked == list(range(items))
     # dw: stages of 64 rows are boxes too; the splits are whole stages, none empty, all of them
     bw, bh, bd = plan.dw_box
     for m0 in range(0, rows, 64):
@@ -329,12 +347,13 @@ def test_wgmma_plans_inside_one_item_are_kept(shape):
 def test_wgmma_plan_spans_items_at_4cubed(B, C, N):
     """At 4^3 an item has 64 rows: the forward's 128-row box is two whole
     items, its 256-row box four, dw's 64-row box one; dx's plan (the forward
-    from N to C) likewise. 256-row tiles only where they fill 7/8 of the 132
-    SMs (B=32, 512 -> 2048: 128 of them), else 128 rows. An odd B has no
-    plan."""
+    from N to C) likewise. 256-row tiles where they fill 7/8 of the 132 SMs
+    (B=32, 512 -> 2048: 128 of them) or where 128-row tiles would split their
+    depth (every other shape here with C >= 128), else 128 rows. An odd B has
+    no plan."""
     for c, n in ((C, N), (N, C)):
         p = wgmma_plan(B, 4, 4, 4, c, n)
-        bm = 256 if (B, n) == (32, 2048) else 128
+        bm = 256 if c >= 128 else 128
         assert (p.bm, p.box, p.box_items, p.dw_box, p.dw_box_items) == (bm, (4, 4, 4), bm // 64, (4, 4, 4), 1)
         assert p.tiles == B * 64 // bm * (n // p.bn)
         if B % 4 == 0 and c >= 128:
@@ -343,6 +362,142 @@ def test_wgmma_plan_spans_items_at_4cubed(B, C, N):
                 assert (forced.bm, forced.box, forced.box_items) == (rows, (4, 4, 4), rows // 64)
         assert wgmma_plan(B + 1, 4, 4, 4, c, n) is None
     assert k2._row_box(128, B, 4, 4, 4) == (4, 4, 4, 2) and k2._row_box(256, B + 1, 4, 4, 4) is None
+
+
+# ---- the forward's split depth (the forward and dx of the tensor-core kernels) ----
+
+# named (B, D, H, W, C, N) that keep one split and the tiles they had: the flagship's four 16^3 convs at B=8 and
+# B=32 and below the served batch (B=1, 2, 4: a 16^3 grid never splits), and the mid_blocked stages whose tiles
+# fill the card at B=32 (8^3 both ways, 4^3 512 -> 2048)
+ONE_SPLIT = {f"flagship_b{B}_{C}to{N}": (B, 16, 16, 16, C, N) for B in (1, 2, 4, 8, 32) for C, N in FLAGSHIP_K2} | {
+    "mid_b32_8cubed_1024to256": (32, 8, 8, 8, 1024, 256), "mid_b32_8cubed_256to1024": (32, 8, 8, 8, 256, 1024),
+    "mid_b32_4cubed_512to2048": (32, 4, 4, 4, 512, 2048)}
+# the shapes whose forward splits: the mid_blocked stages whose tiles fill at most half a wave of blocks, and
+# their (bm, tiles, splits, stages_per_split, grid)
+SPLIT = {(8, 4, 4, 4, 2048, 512): (256, 8, 16, 16, 128), (32, 4, 4, 4, 2048, 512): (256, 32, 4, 64, 128),
+         (8, 4, 4, 4, 512, 2048): (256, 32, 4, 16, 128), (8, 8, 8, 8, 1024, 256): (256, 32, 4, 32, 128),
+         (2, 4, 4, 4, 2048, 512): (128, 4, 16, 16, 64)}
+
+
+def _check_split(plan, C, voxels, sms=132):
+    """The forward's split arithmetic: every one of the 8C/64 stages in exactly one split, in order, none empty;
+    more than one split only on a grid of at most 8^3 ``voxels`` an item whose tiles fill at most half a wave of
+    blocks and whose depth allows two runs of 16 stages, each split then at least 16 deep and the work items
+    (tile, split) within one wave."""
+    per_sm = 2 if plan.bm == 128 else 1
+    depth = 8 * C // 64
+    runs = [range(z * plan.stages_per_split, min(depth, (z + 1) * plan.stages_per_split)) for z in range(plan.splits)]
+    assert [s for r in runs for s in r] == list(range(depth)) and all(len(r) > 0 for r in runs)
+    idle = 2 * plan.tiles <= per_sm * sms
+    assert (plan.splits > 1) == (idle and depth >= 32 and voxels <= 512)
+    assert plan.splits == 1 or (plan.stages_per_split >= 16 and plan.tiles * plan.splits <= per_sm * sms)
+    assert plan.grid == min(plan.tiles * plan.splits, per_sm * sms)
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", PLANNED + sorted(SPLIT) + [(1, 16, 16, 16, 512, 128), (4, 16, 16, 16, 512, 64)])
+def test_wgmma_plan_split_covers_every_stage_once(B, D, H, W, C, N):
+    """The forward's plan and dx's (the forward from N to C) cut their depth so: at the card's 132 SMs and at 8
+    (where more shapes leave the card idle)."""
+    for sms in (132, 8):
+        _check_split(wgmma_plan(B, D, H, W, C, N, sms=sms), C, D * H * W, sms)
+        _check_split(wgmma_plan(B, D, H, W, N, C, sms=sms), N, D * H * W, sms)
+
+
+@pytest.mark.parametrize("name", sorted(ONE_SPLIT))
+def test_wgmma_plan_keeps_one_split(name):
+    """The shapes that fill the card keep one split of all stages and the tiles, grid and ring they had."""
+    B, D, H, W, C, N = shape = ONE_SPLIT[name]
+    p = wgmma_plan(*shape)
+    assert (p.splits, p.stages_per_split) == (1, 8 * C // 64)
+    # 4^3 512 -> 2048 at B=32 is not in KEPT_PLANS: its plan of 128 tiles of 256 rows
+    kept = KEPT_PLANS.get(shape, (256, 128, (4, 4, 4), 4, 197760, 128, 128))
+    assert (p.bm, p.bn, p.box, p.stages, p.smem_bytes, p.tiles, p.grid) == kept[:7]
+    assert p == wgmma_plan(*shape, split=False)
+
+
+@pytest.mark.parametrize("shape", sorted(SPLIT))
+def test_wgmma_plan_splits_where_tiles_idle_the_card(shape):
+    """Where 128-row tiles would fill at most half a wave the plan takes 256 rows (one block an SM) where the
+    rows tile so, and splits: 4^3 2048 -> 512 at B=8, 8 tiles on 132 SMs, 256 stages: 16 splits of 16. At B=32
+    32 tiles, 4 splits; 512 -> 2048 at B=8 (the dx of 2048 -> 512) 32 tiles of a 64-stage sum, 4 of 16; 8^3
+    1024 -> 256 at B=8 32 tiles, 4 of 32. At B=2 no 256-row box tiles the rows (4 items): 4 tiles of 128 rows
+    on 264 block slots, 16 splits."""
+    p = wgmma_plan(*shape)
+    assert (p.bm, p.tiles, p.splits, p.stages_per_split, p.grid) == SPLIT[shape]
+
+
+# the plans of SPLIT's shapes without the split, as they were before it: (bm, tiles, grid, box, box_items)
+UNSPLIT = {(8, 4, 4, 4, 2048, 512): (128, 16, 16, (4, 4, 4), 2), (32, 4, 4, 4, 2048, 512): (128, 64, 64, (4, 4, 4), 2),
+           (8, 4, 4, 4, 512, 2048): (128, 64, 64, (4, 4, 4), 2), (8, 8, 8, 8, 1024, 256): (256, 32, 32, (8, 8, 4), 1),
+           (2, 4, 4, 4, 2048, 512): (128, 4, 4, (4, 4, 4), 2)}
+
+
+@pytest.mark.parametrize("shape", sorted(UNSPLIT))
+def test_wgmma_plan_without_split_is_the_plan_before_it(shape):
+    """``split=False`` (what the card's measurements set the split against) gives one split of all stages and
+    the tiles, box and grid the plan had before the split; the dw fields do not change."""
+    p, q = wgmma_plan(*shape, split=False), wgmma_plan(*shape)
+    assert (p.splits, p.stages_per_split) == (1, 8 * shape[4] // 64)
+    assert (p.bm, p.tiles, p.grid, p.box, p.box_items) == UNSPLIT[shape]
+    assert (p.dw_box, p.dw_grid, p.dw_stages_per_split) == (q.dw_box, q.dw_grid, q.dw_stages_per_split)
+
+
+def _emulate_split(src, w, plan, dx=False):
+    """The forward (or, ``dx``, dx over g with the plan of the forward from N to C) as the split kernel walks
+    it: block i takes the work items i, i + grid, ... of (tile, split), column tiles fastest, then splits; an
+    item sums its run of stages from zero into an f32 partial [splits, rows, cols]; the partials summed in
+    ascending order (as ``conv_k2_split_reduce_kernel``, without its rounding). Returns the sum and how often
+    each partial element was written."""
+    B, D, H, W, depth_ch = src.shape
+    C, N = w.shape[3], w.shape[4]
+    cols, w2 = (C if dx else N), w.reshape(8 * C, N)
+    n_tiles, items, depth = cols // plan.bn, plan.tiles * plan.splits, 8 * depth_ch // 64
+    part = torch.zeros(plan.splits, B * D * H * W, cols)
+    written = torch.zeros(plan.splits, B * D * H * W, cols, dtype=torch.int32)
+    for block in range(plan.grid):
+        for item in range(block, items, plan.grid):
+            n0, rest = item % n_tiles * plan.bn, item // n_tiles
+            split, row0 = rest % plan.splits, rest // plan.splits * plan.bm
+            acc = torch.zeros(plan.bm, plan.bn)
+            first = split * plan.stages_per_split
+            for it in range(first, min(depth, first + plan.stages_per_split)):
+                tap, k0 = it * 64 // depth_ch, it * 64 % depth_ch
+                a = _box_read(src, _origin(row0, D, H, W), plan.box, tap, k0, sign=-1 if dx else 1,
+                              items=plan.box_items)
+                if dx:  # B[(tap, n), c] = w[tap, c, n]: a 64 x 64 box of w a 64-column block
+                    for j in range(plan.bn // 64):
+                        rows = tap * C + n0 + 64 * j
+                        acc[:, 64 * j:64 * j + 64] += a @ w2[rows:rows + 64, k0:k0 + 64].T
+                else:
+                    acc += a @ w2[it * 64:it * 64 + 64, n0:n0 + plan.bn]
+            part[split, row0:row0 + plan.bm, n0:n0 + plan.bn] = acc
+            written[split, row0:row0 + plan.bm, n0:n0 + plan.bn] += 1
+    total = part[0].clone()
+    for z in range(1, plan.splits):
+        total += part[z]
+    return total.reshape(B, D, H, W, cols), written
+
+
+# (B, C, N) at 4^3 whose forward and dx both split: 2 and 4 splits of narrow channels, and the mid_blocked
+# encoder's last stage (2048 -> 512) at B=2 and B=4, its forward in 16 splits and its dx in 4
+SPLIT_EMULATED = [(2, 256, 256), (4, 512, 256), (2, 2048, 512), (4, 2048, 512)]
+
+
+@pytest.mark.parametrize("B,C,N", SPLIT_EMULATED)
+def test_split_depth_partials_give_the_forward_and_dx(B, C, N):
+    """The split walk writes each partial element once, and the splits' partials over their runs of stages,
+    summed in ascending order, equal ``conv_k2_reference`` and ``conv_k2_dx_reference`` (f32, summation order
+    only: 1e-5 of the largest entry)."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(B, 4, 4, 4, C)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(2, 2, 2, C, N)) / math.sqrt(8 * C)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(B, 4, 4, 4, N)).astype(np.float32))
+    for src, plan, dx, ref in ((x, wgmma_plan(B, 4, 4, 4, C, N), False, conv_k2_reference(x, w)),
+                               (g, wgmma_plan(B, 4, 4, 4, N, C), True, conv_k2_dx_reference(g, w))):
+        assert plan.splits > 1
+        out, written = _emulate_split(src, w, plan, dx)
+        assert (written == 1).all()
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5 * float(ref.abs().max()), rtol=0)
 
 
 # small grids, cubes and not: the box spans two d-planes (8^3), part of a
@@ -429,12 +584,14 @@ def test_dx_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
         b, d, h, w = _origin(row0, D, H, W)
         assert b + plan.box_items <= B and d + bd <= D and h + bh <= H and w + bw <= W
         assert np.ravel_multi_index((b, d, h, w), (B, D, H, W)) == row0
-    assert plan.tiles == rows // plan.bm * (C // plan.bn) and 1 <= plan.grid <= min(plan.tiles, per_sm * 132)
+    items = plan.tiles * plan.splits  # (tile, split), as the forward's
+    assert plan.tiles == rows // plan.bm * (C // plan.bn) and 1 <= plan.grid <= min(items, per_sm * 132)
     written = np.zeros((rows // plan.bm, C // plan.bn), np.int32)
     for block in range(plan.grid):
-        for tile in range(block, plan.tiles, plan.grid):
+        for item in range(block, items, plan.grid):
+            tile = item // (C // plan.bn) // plan.splits * (C // plan.bn) + item % (C // plan.bn)
             written[tile // (C // plan.bn), tile % (C // plan.bn)] += 1
-    assert (written == 1).all()
+    assert (written == plan.splits).all()  # every tile once a split
     # a stage is one tap and 64 channels n: 8N/64 stages a tile, each 64 deep
     assert 8 * N % 64 == 0 and 8 * N // 64 >= 8
 
@@ -511,6 +668,10 @@ def _check_narrow_walk(plan):
     assert 1 <= plan.grid <= min(plan.boxes, 132)
     walked = sorted(t for block in range(plan.grid) for t in range(block, plan.boxes, plan.grid))
     assert walked == list(range(plan.boxes))
+    _check_narrow_dw_walk(plan)
+
+
+def _check_narrow_dw_walk(plan):
     splits, per = plan.dw_splits, plan.dw_boxes_per_split
     assert 1 <= splits <= 132 and (splits - 1) * per < plan.dw_boxes <= splits * per
     runs = [range(z * per, min(plan.dw_boxes, (z + 1) * per)) for z in range(splits)]
@@ -535,6 +696,60 @@ def test_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
 @pytest.mark.parametrize("shape,dtype", NARROW_NONE)
 def test_narrow_plan_is_none_where_the_kernels_do_not_apply(shape, dtype):
     assert narrow_plan(*shape, dtype=dtype) is None
+
+
+# (B, D, H, W, C, N) with a dw-only narrow plan (bfloat16, C = 8 -> N = 64): the s2d(2) stem at 32^3 at the
+# served and the train batch, a whole-grid box, ragged boxes along every axis
+NARROW_DW = [(8, 32, 32, 32, 8, 64), (32, 32, 32, 32, 8, 64), (3, 5, 6, 7, 8, 64), (1, 33, 33, 33, 8, 64)]
+# and without: float32 (its FFMA dw), float16, 8C x N past 4096 accumulators (C = 16), N outside {64} (48,
+# 128), C not one TMA box (12), shapes that narrow_plan (N = 32) or wgmma_plan (C = 64) takes
+NARROW_DW_NONE = [((8, 32, 32, 32, 8, 64), torch.float32), ((8, 32, 32, 32, 8, 64), torch.float16),
+                  ((2, 8, 8, 8, 16, 64), torch.bfloat16), ((2, 8, 8, 8, 8, 48), torch.bfloat16),
+                  ((2, 8, 8, 8, 8, 128), torch.bfloat16), ((2, 8, 8, 8, 12, 64), torch.bfloat16),
+                  ((2, 8, 8, 8, 8, 32), torch.bfloat16), ((2, 8, 8, 8, 64, 64), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_DW)
+def test_narrow_dw_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
+    """The stem's dw: neither wgmma_plan nor narrow_plan applies (the forward keeps FFMA, dx of 64 -> 8 its
+    narrow plan); the dw-only plan's box holds x's halo and g's 128-byte rows in two stages within one block's
+    shared memory (at 32^3 a 16 x 8 x 4 box: 2 x 76 KB, 158,736 bytes), every voxel in one box, every box in one
+    split's run, one wave."""
+    assert wgmma_plan(B, D, H, W, C, N) is None and narrow_plan(B, D, H, W, C, N) is None
+    plan = narrow_dw_plan(B, D, H, W, C, N)
+    assert plan is not None and plan.dw_stages == 2
+    _check_narrow_boxes(B, D, H, W, C, N, plan.dw_box, plan.dw_boxes, plan.dw_smem_bytes, True, 2, plan.dw_stages)
+    _check_narrow_dw_walk(plan)
+    if (D, H, W) == (32, 32, 32):
+        assert plan.dw_box == (16, 8, 4) and plan.dw_smem_bytes == 158_736
+
+
+@pytest.mark.parametrize("shape,dtype", NARROW_DW_NONE)
+def test_narrow_dw_plan_is_none_where_it_does_not_apply(shape, dtype):
+    assert narrow_dw_plan(*shape, dtype=dtype) is None
+
+
+@pytest.mark.parametrize("C,N", [(8, 8), (16, 8), (32, 8), (64, 8), (8, 16), (32, 16), (64, 32), (8, 64)])
+def test_narrow_dw_units_cover_every_accumulator_once(C, N):
+    """The bf16 dw's deal (``conv_k2_narrow_dw_kernel``): units of one m16 tile of rows (tap, c) by NW n8 tiles
+    (all N/8, or 4 of N = 64's 8), ``mw`` a warp, unit u = warp + wpg m the m-tile u % (8C/16) of the column
+    half warp / (8C/16): every one of the 8C x N accumulators is one warp's, a warp's units share one column
+    half, and at N = 64 all 8 warps compute."""
+    nt = N // 8
+    nw = 4 if nt > 4 else nt
+    mtiles = C // 2
+    units = mtiles * (nt // nw)
+    wpg = min(8, units)
+    mw = units // wpg
+    covered = np.zeros((8 * C, N), np.int32)
+    for warp in range(wpg):
+        col0 = 8 * nw * (warp // mtiles)
+        for m in range(mw):
+            u = warp + wpg * m
+            assert u // mtiles == warp // mtiles  # one column half a warp
+            covered[16 * (u % mtiles):16 * (u % mtiles) + 16, col0:col0 + 8 * nw] += 1
+    assert (covered == 1).all() and mw <= (1 if nt > 4 else 4)
+    assert wpg == 8 or N < 64
 
 
 # (B, D, H, W, C, N) that float32 takes on the narrow kernels: NARROW's shapes whose rows are at most 128 bytes
@@ -687,15 +902,15 @@ def test_narrow_halo_reads_give_the_forward(B, D, H, W, C, N):
     np.testing.assert_allclose(y.numpy(), np.asarray(conv_k2_xla(jnp.asarray(x), jnp.asarray(w))), atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED)
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED + [(1, 32, 32, 32, 8, 64), (3, 5, 6, 7, 8, 64)])
 def test_narrow_halo_reads_give_dw(B, D, H, W, C, N):
     """The emulated dw walk (halo boxes of x, boxes of g, splits summed in order) reduces every row once and
     equals ``conv_k2_dw_reference`` and ``_conv_k2_bwd_impl``'s dw: f32, summation order only, 1e-5 of the
-    largest entry."""
+    largest entry. The s2d(2) stem's 8 -> 64 at 32^3 (and a whole-grid box) walks the dw-only plan's boxes."""
     rng = np.random.default_rng(8)
     x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
     g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
-    plan = narrow_plan(B, D, H, W, C, N, sms=2)
+    plan = narrow_plan(B, D, H, W, C, N, sms=2) or narrow_dw_plan(B, D, H, W, C, N, sms=2)
     dw, seen = _emulate_narrow_dw(torch.from_numpy(x), torch.from_numpy(g), plan)
     assert (seen == 1).all()
     ref = conv_k2_dw_reference(torch.from_numpy(x), torch.from_numpy(g)).numpy()
@@ -867,41 +1082,62 @@ def routes(monkeypatch):
     return lib
 
 
-# (B, D, H, W, C, N, dtype, forward, dx, dw): the entry point each kernel takes. The detector's 32 -> 8, bf16
-# and float32: all three narrow (dx by the plan of 8 -> 32); bf16 64 -> 8: the forward and dw narrow, dx FFMA
-# (8 -> 64 has no narrow plan); float32 64 -> 8 (256-byte rows, and 8 -> 64): all FFMA
+# (B, D, H, W, C, N, dtype, forward, dx, dw): the entry points each kernel takes ("/split": with the plan's
+# depth split, the entry then launching the reduce too). The detector's 32 -> 8, bf16 and float32: all three
+# narrow (dx by the plan of 8 -> 32); bf16 64 -> 8: the forward and dw narrow, dx FFMA (8 -> 64 has no narrow
+# plan); float32 64 -> 8 (256-byte rows, and 8 -> 64): all FFMA; bf16 with a plan: all three wgmma, at 4^3
+# (mid_blocked) the forward and dx with their split, at 16^3 and B=4 (the lifecycle's) without; the s2d(2)
+# stem 8 -> 64: the forward FFMA, dx narrow (64 -> 8), dw on the dw-only narrow plan in bf16, FFMA in float32
 ROUTES = [(2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 32, 8, torch.float32, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 64, 8, torch.bfloat16, "forward_narrow", "backward_input", "backward_weight_narrow"),
           (2, 8, 8, 8, 64, 8, torch.float32, "forward", "backward_input", "backward_weight"),
-          (1, 8, 8, 8, 64, 64, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma")]
+          (1, 8, 8, 8, 64, 64, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma"),
+          (8, 4, 4, 4, 2048, 512, torch.bfloat16, "forward_wgmma/split", "backward_input_wgmma/split",
+           "backward_weight_wgmma"),
+          (32, 4, 4, 4, 512, 2048, torch.bfloat16, "forward_wgmma", "backward_input_wgmma/split",
+           "backward_weight_wgmma"),
+          (4, 16, 16, 16, 512, 128, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma"),
+          (1, 32, 32, 32, 8, 64, torch.bfloat16, "forward", "backward_input_narrow", "backward_weight_narrow"),
+          (1, 32, 32, 32, 8, 64, torch.float32, "forward", "backward_input", "backward_weight")]
+_COUNTERS = ("launches_narrow", "launches_dx_narrow", "launches_dw_narrow", "launches_split", "launches_dx_split",
+             "launches_dw_wide")
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N,dtype,fwd,dx,dw", ROUTES)
 def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, dw):
     """The launchers' choice, from shape and dtype alone: the narrow forward with the plan of its dtype and the
     dtype's code; the narrow dx with the plan of the forward from N to C, ``narrow_plan(B, D, H, W, N, C)`` of
-    its dtype, and w'[s] = w[7 - s]^T laid out as (2, 2, 2, N, C); the narrow dw with the plan's dw part and the
-    dtype's code; the counters of the route taken."""
+    its dtype, and w'[s] = w[7 - s]^T laid out as (2, 2, 2, N, C); the narrow dw with the plan's dw part (or the
+    dw-only plan's) and the dtype's code; the tensor-core forward and dx with their plan's tiles and splits, and
+    where it splits a workspace for its partials; the counters of the route taken."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(B, D, H, W, C, generator=gen).to(dtype)
     w = torch.randn(2, 2, 2, C, N, generator=gen)
     g = torch.randn(B, D, H, W, N, generator=gen).to(dtype)
-    counters = ("launches_narrow", "launches_dx_narrow", "launches_dw_narrow")
-    before = [getattr(conv_k2, c) for c in counters]
-    k2._launch_forward(x, w)
-    k2._launch_dx(g, w)
-    k2._launch_dw(x, g)
-    assert [name for name, _ in routes.calls] == [f"conv_k2_{fwd}", f"conv_k2_{dx}", f"conv_k2_{dw}"]
-    moved = [getattr(conv_k2, c) - b for c, b in zip(counters, before)]
-    assert moved == [int(fwd.endswith("narrow")), int(dx.endswith("narrow")), int(dw.endswith("narrow"))]
-    (_, fargs), (_, dargs), (_, wargs) = routes.calls
+    before = [getattr(conv_k2, c) for c in _COUNTERS]
+    k2._launch_forward(x, w), k2._launch_dx(g, w), k2._launch_dw(x, g)
+    assert [name for name, _ in routes.calls] == [f"conv_k2_{route.split('/')[0]}" for route in (fwd, dx, dw)]
+    moved = [getattr(conv_k2, c) - b for c, b in zip(_COUNTERS, before)]
+    wide = dw == "backward_weight_narrow" and N == 64
+    assert moved == [int(fwd.endswith("narrow")), int(dx.endswith("narrow")), int(dw.endswith("narrow")),
+                     int(fwd.endswith("/split")), int(dx.endswith("/split")), int(wide)]
+    fargs = routes.calls[0][1]
+    dargs = next(a for name, a in routes.calls if name.startswith("conv_k2_backward_input"))
     code = k2._DTYPE_CODES[dtype]
+    for kernel, args, plan_cn in (("forward", fargs, (C, N)), ("dx", dargs, (N, C))):
+        route = fwd if kernel == "forward" else dx
+        if route.startswith(("forward_wgmma", "backward_input_wgmma")):
+            plan = wgmma_plan(B, D, H, W, *plan_cn)
+            assert args[4:] == (B, D, H, W, C, N, *plan.box, plan.box_items, plan.bm, plan.bn, plan.stages, plan.grid,
+                                plan.smem_bytes, plan.tiles, plan.splits, plan.stages_per_split, None, 0)
+            assert (plan.splits > 1) == route.endswith("/split") == (args[3] != 0)  # the partials' workspace
+    (_, wargs) = routes.calls[-1]
     if fwd == "forward_narrow":
         plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
         assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, plan.chunk_d, code, None, 0)
     if dw == "backward_weight_narrow":
-        plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
+        plan = narrow_plan(B, D, H, W, C, N, dtype=dtype) or narrow_dw_plan(B, D, H, W, C, N, dtype=dtype)
         assert wargs[4:] == (plan.dw_splits, plan.dw_boxes_per_split, B, D, H, W, C, N, *plan.dw_box,
                              plan.dw_smem_bytes, plan.dw_stages, code, None, 0)
     if dx == "backward_input_narrow":
@@ -1071,6 +1307,14 @@ def test_probe_narrow_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA GPU"):
         probe_narrow.main()
+
+
+def test_probe_split_needs_a_card(monkeypatch):
+    from anytime3d_tpu_torch.cli import probe_split
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA GPU"):
+        probe_split.main([])
 
 
 def test_default_build_waits_without_a_trap():
