@@ -8,14 +8,16 @@ are formed and what bounds them. There are three designs: bfloat16 operands
 whose shape has a plan (:func:`wgmma_plan`) take the tensor-core kernels of
 ``csrc/conv_k2_wgmma.cuh`` in the forward, in dx and in dw (the forward and dx
 split their depth over blocks where their tiles leave the card idle, and a
-reduce adds the splits); else operands of
+reduce adds the splits; on grids of at most 8^3 an item dw runs on persistent
+blocks whose stores overlap their products); else operands of
 a narrow output (N = 8, 16 or 32) whose shape has a narrow plan
 (:func:`narrow_plan`) take the halo-box kernels of ``csrc/conv_k2_narrow.cuh``
 in the forward, dw and dx (dx where the forward from N to C channels has a
 plan): on ``mma.sync`` in bfloat16, on FFMA in float32; a bfloat16 dw of a
 narrow input and N = 64 (the s2d(2) stem's) whose shape has a dw-only plan
 (:func:`narrow_dw_plan`) takes the halo-box dw on ``mma.sync``; the rest take
-the FFMA kernels. The choice is made from shape and dtype before
+the FFMA kernels (in float32 the forward and dx split their depth where
+:func:`ffma_split` says so). The choice is made from shape and dtype before
 the launch, never by catching a failure.
 
 The forward, dx and dw are the custom operators ``anytime3d_torch::conv_k2``,
@@ -97,18 +99,20 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib``, a build of ``csrc/conv_k2.cu``, with the argument and result
     types of its entry points set."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv_k2_forward.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
-    lib.conv_k2_backward_input.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
+    lib.conv_k2_forward.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
+    lib.conv_k2_backward_input.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
     lib.conv_k2_backward_weight.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
     lib.conv_k2_forward_wgmma.argtypes = [ptr] * 4 + [i32] * 19 + [ptr]
     lib.conv_k2_backward_input_wgmma.argtypes = [ptr] * 4 + [i32] * 19 + [ptr]
     lib.conv_k2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 16 + [ptr]
+    lib.conv_k2_backward_weight_persistent.argtypes = [ptr] * 4 + [i32] * 18 + [ptr]
     lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_backward_input_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_backward_weight_narrow.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
     for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
                lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma,
-               lib.conv_k2_forward_narrow, lib.conv_k2_backward_input_narrow, lib.conv_k2_backward_weight_narrow):
+               lib.conv_k2_backward_weight_persistent, lib.conv_k2_forward_narrow, lib.conv_k2_backward_input_narrow,
+               lib.conv_k2_backward_weight_narrow):
         fn.restype = i32
     lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p
@@ -123,6 +127,32 @@ _WG_TILE_BYTES = 64 * 64 * 2
 _WG_SMEM_MAX = 232_448  # what one block may have on an H100
 _WG_DW_MIN_STAGES = 16  # a split of dw's row reduction, or of the forward's depth, is at least this deep
 _WG_SPLIT_MAX_VOXELS = 8**3  # the forward's depth splits only on grids of at most 8^3 an item (the mid_blocked stages)
+_DW_PERSISTENT_MAX_VOXELS = 4**3  # dw takes the persistent kernel only on grids of at most 4^3 an item
+_DW_PERSISTENT_BN = 256  # its tiles' columns (csrc's DW_PERSISTENT_BN)
+_DW_STORE_BUFS = 2  # the persistent dw's chunk buffers (16 rows x 128 bytes) a consumer warp, csrc's DW_STORE_BUFS
+
+
+@dataclasses.dataclass(frozen=True)
+class PersistentDwPlan:
+    """How the persistent tensor-core dw (``conv_k2_dw_persistent_kernel``) cuts
+    one shape: output tiles of 128 rows (tap, c) by ``bn`` = 256 columns,
+    ``tiles`` of them; the M/64 stages of the row reduction
+    in ``splits`` runs of ``stages_per_split`` (the last may be shorter; more
+    than one only where the tiles fill at most half the SMs, then as many as
+    fill them, each at least 16 stages deep); ``grid`` blocks, one an SM, walk
+    the ``tiles`` x ``splits`` work items (split fastest, then row tiles, then
+    column tiles), block i taking items i, i + grid, ...; a ring of ``stages``
+    slots and the store's chunk buffers in ``smem_bytes``, which the launcher
+    holds to its own arithmetic, as it does ``tiles``. The stage boxes are the
+    plan's ``dw_box`` by ``dw_box_items``."""
+
+    bn: int
+    stages: int
+    smem_bytes: int
+    tiles: int
+    splits: int
+    stages_per_split: int
+    grid: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +185,11 @@ class WgmmaPlan:
     dw: an output tile is 128 rows of (tap, c) by ``bn`` columns and a stage
     64 rows m, whose box is ``dw_box`` by ``dw_box_items``; the ring has ``dw_stages`` slots in
     ``dw_smem_bytes``. ``dw_grid`` is (column tiles, row tiles, splits); a
-    split reduces ``dw_stages_per_split`` stages, the last one the rest.
+    split reduces ``dw_stages_per_split`` stages, the last one the rest. Where
+    ``dw_persistent`` is set (grids of at most 4^3 an item and N % 256 == 0:
+    the mid_blocked stages at 4^3, whose reductions are short and outputs large) dw
+    takes the persistent kernel on that plan instead, over the same stage
+    boxes; the grid kernel's fields stay, to launch it for comparison.
     """
 
     bm: int
@@ -174,6 +208,7 @@ class WgmmaPlan:
     stages_per_split: int
     box_items: int = 1
     dw_box_items: int = 1
+    dw_persistent: PersistentDwPlan | None = None
 
 
 def _row_box(rows: int, B: int, D: int, H: int, W: int) -> tuple[int, int, int, int] | None:
@@ -205,17 +240,50 @@ def _ring(a_tiles: int, bn: int, blocks_per_sm: int) -> tuple[int, int]:
     return stages, smem_bytes
 
 
+def persistent_dw_ring(store_bufs: int = _DW_STORE_BUFS) -> tuple[int, int]:
+    """(stages, dynamic shared memory) of the persistent dw with ``store_bufs``
+    chunk buffers a consumer warp: as many stages of 48 KB as fit beside them,
+    the barriers' swizzle period and the room to align the ring."""
+    stage_bytes, staging = (2 + _DW_PERSISTENT_BN // 64) * _WG_TILE_BYTES, 8 * store_bufs * 16 * 128
+    stages = min(8, (_WG_SMEM_MAX - 2 * 1024 - staging) // stage_bytes)
+    return stages, 2 * 1024 + stages * stage_bytes + staging
+
+
+def _persistent_dw(B: int, D: int, H: int, W: int, C: int, N: int, sms: int,
+                   anywhere: bool = False) -> PersistentDwPlan | None:
+    """The persistent dw's plan on grids of at most 4^3 voxels an item (or,
+    ``anywhere``, on any grid) with N a multiple of 256 (the mid_blocked
+    stages at 4^3: 8 to 32 stages of 64 rows a tile, 33.5 MB of f32 output),
+    or None: every other shape keeps the grid kernel (the flagship's 16^3 dw
+    and the mid_blocked 8^3 stages among them)."""
+    bn = _DW_PERSISTENT_BN
+    if N % bn or (D * H * W > _DW_PERSISTENT_MAX_VOXELS and not anywhere):
+        return None
+    stages, smem_bytes = persistent_dw_ring()
+    assert 3 <= stages and smem_bytes <= _WG_SMEM_MAX
+    tiles, total = (8 * C // _WG_ROWS) * (N // bn), B * D * H * W // _WG_DEPTH
+    # as many splits as fill the SMs where the tiles fill at most half of them, each at least 16 stages deep
+    splits = 1
+    if 2 * tiles <= sms:
+        splits = max(1, min(sms // tiles, total // _WG_DW_MIN_STAGES))
+    per_split = -(-total // splits)
+    splits = -(-total // per_split)
+    return PersistentDwPlan(bn=bn, stages=stages, smem_bytes=smem_bytes, tiles=tiles, splits=splits,
+                            stages_per_split=per_split, grid=min(tiles * splits, sms))
+
+
 @functools.lru_cache(maxsize=256)  # a model asks for the same few shapes at every step
 def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
-               bm: int | None = None, split: bool = True) -> WgmmaPlan | None:
+               bm: int | None = None, split: bool = True, persistent_dw: bool | None = None) -> WgmmaPlan | None:
     """The tensor-core kernels' plan for bfloat16 ``x`` (B,D,H,W,C) and ``w``
     (2,2,2,C,N), or None where they do not apply: C and N multiples of 64 and
     a grid whose rows tile into boxes of 128 and of 64 (16^3, 8^3, 32^3, ...;
     at 4^3, boxes of whole items, so B even). Pure arithmetic; ``sms`` is
     the card's count of multiprocessors; ``bm`` forces the forward's tile rows
-    (128 or 256) where the grid allows them, and ``split=False`` the plan
-    without the depth split (the one before it), to measure one against the
-    other."""
+    (128 or 256) where the grid allows them, ``split=False`` the plan
+    without the depth split (the one before it), ``persistent_dw=False`` dw
+    on the grid kernel and ``persistent_dw=True`` dw on the persistent kernel
+    on any grid where N allows it, to measure one against the other."""
     if min(B, D, H, W, C, N) < 1 or C % _WG_DEPTH or N % 64 or B * D * H * W >= 2**31:
         return None
     box, dw_box = _row_box(_WG_ROWS, B, D, H, W), _row_box(_WG_DEPTH, B, D, H, W)
@@ -262,7 +330,9 @@ def wgmma_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
                      grid=min(fwd_tiles * fwd_splits, blocks_per_sm * sms), dw_box=dw_box[:3], dw_stages=dw_stages,
                      dw_smem_bytes=dw_smem_bytes, dw_grid=(N // bn, 8 * C // _WG_ROWS, splits),
                      dw_stages_per_split=per_split, splits=fwd_splits, stages_per_split=fwd_per_split,
-                     box_items=box[3], dw_box_items=dw_box[3])
+                     box_items=box[3], dw_box_items=dw_box[3],
+                     dw_persistent=None if persistent_dw is False else _persistent_dw(B, D, H, W, C, N, sms,
+                                                                                        bool(persistent_dw)))
 
 
 # The narrow kernels' tiling (csrc/conv_k2_narrow.cuh): a box of at most 1024
@@ -512,13 +582,36 @@ def _check_cuda_operand(what: str, name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{what} kernel takes a non-empty contiguous NDHWC {name}; got {tuple(t.shape)}")
 
 
-def _split_workspace(plan: WgmmaPlan, out: torch.Tensor) -> torch.Tensor | None:
-    """The f32 partials [splits, *out.shape] of a split launch into ``out``,
-    or None where the plan has one split (the library is given a null
-    pointer)."""
-    if plan.splits == 1:
+def _split_workspace(splits: int, out: torch.Tensor) -> torch.Tensor | None:
+    """The f32 partials [splits, *out.shape] of a split launch into ``out``
+    (the tensor-core forward or dx, or the float32 FFMA ones), or None with
+    one split (the library is given a null pointer)."""
+    if splits == 1:
         return None
-    return torch.empty((plan.splits, *out.shape), dtype=torch.float32, device=out.device)
+    return torch.empty((splits, *out.shape), dtype=torch.float32, device=out.device)
+
+
+def dw_wgmma(x: torch.Tensor, g: torch.Tensor, dw: torch.Tensor, plan: WgmmaPlan) -> None:
+    """Launch the tensor-core dw into ``dw`` (2,2,2,C,N) float32 on ``plan``:
+    the persistent kernel where ``plan.dw_persistent`` is set, else the grid
+    kernel, each with the reduce of its splits (one call into the library).
+    Counts nothing, as :func:`forward_wgmma`."""
+    B, D, H, W, C = x.shape
+    N = g.shape[-1]
+    walk = plan.dw_persistent
+    splits = plan.dw_grid[2] if walk is None else walk.splits
+    workspace = torch.empty((splits if splits > 1 else 0, 8 * C, N), dtype=torch.float32, device=x.device)
+    _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
+    if walk is None:
+        _check_launch("conv_k2 dw (wgmma)", _lib().conv_k2_backward_weight_wgmma(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, plan.dw_stages_per_split,
+            B, D, H, W, C, N, *plan.dw_box, plan.dw_box_items, plan.bn, plan.dw_stages, plan.dw_smem_bytes,
+            x.device.index, _stream(x)))
+    else:
+        _check_launch("conv_k2 dw (persistent wgmma)", _lib().conv_k2_backward_weight_persistent(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), B, D, H, W, C, N, *plan.dw_box,
+            plan.dw_box_items, walk.bn, walk.stages, walk.grid, walk.smem_bytes, walk.tiles, walk.splits,
+            walk.stages_per_split, x.device.index, _stream(x)))
 
 
 def forward_wgmma(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, plan: WgmmaPlan) -> None:
@@ -532,7 +625,7 @@ def forward_wgmma(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, plan: Wgmma
     N = y.shape[-1]
     w = w.to(x.dtype).contiguous()
     _check_operands("conv_k2", C, N, x, w, y)
-    part = _split_workspace(plan, y)
+    part = _split_workspace(plan.splits, y)
     _check_launch("conv_k2 (wgmma)", _lib().conv_k2_forward_wgmma(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), 0 if part is None else part.data_ptr(), B, D, H, W, C, N, *plan.box,
         plan.box_items, plan.bm, plan.bn, plan.stages, plan.grid, plan.smem_bytes, plan.tiles, plan.splits,
@@ -548,11 +641,52 @@ def dx_wgmma(g: torch.Tensor, w: torch.Tensor, dx: torch.Tensor, plan: WgmmaPlan
     # w as it lies: its (c, n) boxes are the K-major B tiles of dx
     wc = w.to(g.dtype).contiguous()
     _check_operands("conv_k2 dx", C, N, g, wc, dx, depth_is_n=True)
-    part = _split_workspace(plan, dx)
+    part = _split_workspace(plan.splits, dx)
     _check_launch("conv_k2 dx (wgmma)", _lib().conv_k2_backward_input_wgmma(
         g.data_ptr(), wc.data_ptr(), dx.data_ptr(), 0 if part is None else part.data_ptr(), B, D, H, W, C, N, *plan.box,
         plan.box_items, plan.bm, plan.bn, plan.stages, plan.grid, plan.smem_bytes, plan.tiles, plan.splits,
         plan.stages_per_split, g.device.index, _stream(g)))
+
+
+# The FFMA GEMM's tiling (csrc/conv_k2.cu, gemm::Tile): output tiles of 128
+# rows by 128 columns, two blocks an SM, or by 64 columns where N <= 64, four
+# blocks an SM (gemm::Tile::MIN_BLOCKS); stages of 16 (the forward's depth, dw's
+# rows m). dw's tile is the forward's, its rows (tap, c).
+_FFMA_ROWS = 128
+_FFMA_DEPTH = 16
+_FFMA_MIN_STAGES = 16  # a split of the forward's depth or of dw's row reduction is at least this deep
+
+
+def _ffma_tile(N: int) -> tuple[int, int]:
+    """(columns of a tile, blocks an SM) of the FFMA kernels for N output columns."""
+    return (64, 4) if N <= 64 else (128, 2)
+
+
+def ffma_split(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> tuple[int, int]:
+    """``(splits, stages_per_split)`` of the float32 FFMA forward's depth for x
+    (B,D,H,W,C) and w (2,2,2,C,N) (dx: called with C and N swapped, the
+    forward from N to C): its 8C/16 stages cut into ``splits`` runs of
+    ``stages_per_split`` (the last may be shorter, none is empty). More than
+    one only on grids of at most 8^3 voxels an item whose output tiles fill at
+    most half a wave of blocks on ``sms`` multiprocessors (the mid_blocked
+    stages: 4^3 2048 -> 512 at B=8 is 16 tiles, each 1024 stages deep); then
+    as many as fill one wave, each at least 16 stages deep. Every 16^3 and
+    larger grid keeps one split. Pure arithmetic."""
+    bn, per_sm = _ffma_tile(N)
+    tiles = -(-B * D * H * W // _FFMA_ROWS) * -(-N // bn)
+    stages = -(-8 * C // _FFMA_DEPTH)
+    splits = 1
+    if D * H * W <= _WG_SPLIT_MAX_VOXELS and 2 * tiles <= per_sm * sms:
+        splits = max(1, min(per_sm * sms // tiles, stages // _FFMA_MIN_STAGES))
+    per_split = -(-stages // splits)
+    return -(-stages // per_split), per_split
+
+
+def _ffma_splits(src: torch.Tensor, C: int, N: int) -> tuple[int, int]:
+    """The split of an FFMA launch over ``src`` from C to N channels: float32's plan; bfloat16 keeps one."""
+    if src.dtype != torch.float32:
+        return 1, -(-8 * C // _FFMA_DEPTH)
+    return ffma_split(*src.shape[:4], C, N, sms=_sms(src))
 
 
 @torch.library.custom_op("anytime3d_torch::conv_k2", mutates_args=(), device_types="cpu")
@@ -582,9 +716,12 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             narrow.smem_bytes, narrow.chunk_d, _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
         conv_k2.launches_narrow += 1
     else:
+        splits, per_split = _ffma_splits(x, C, N)
+        part = _split_workspace(splits, y)
         _check_launch("conv_k2", _lib().conv_k2_forward(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N,
-            _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), 0 if part is None else part.data_ptr(), splits, per_split,
+            B, D, H, W, C, N, _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+        conv_k2.launches_ffma_split += splits > 1
     conv_k2.launches += 1
     return y
 
@@ -627,9 +764,12 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         # flip, the kernel's mirrored shift already pairs tap t with w[t]
         wt = w.to(g.dtype).transpose(3, 4).contiguous()
         _check_operands("conv_k2 dx", C, N, g, wt, dx, depth_is_n=True)
+        splits, per_split = _ffma_splits(g, N, C)  # the forward from N to C's
+        part = _split_workspace(splits, dx)
         _check_launch("conv_k2 dx", _lib().conv_k2_backward_input(
-            g.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, D, H, W, C, N,
-            _DTYPE_CODES[g.dtype], g.device.index, _stream(g)))
+            g.data_ptr(), wt.data_ptr(), dx.data_ptr(), 0 if part is None else part.data_ptr(), splits, per_split,
+            B, D, H, W, C, N, _DTYPE_CODES[g.dtype], g.device.index, _stream(g)))
+        conv_k2.launches_dx_ffma_split += splits > 1
     conv_k2.launches_dx += 1
     return dx
 
@@ -646,17 +786,10 @@ def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     one to ``conv_k2.launches_dx``, and to ``conv_k2.launches_dx_wgmma`` or
     ``conv_k2.launches_dx_narrow`` where it is the tensor-core or the narrow
     kernel: bfloat16 whose shape, as a forward from N to C, has a wgmma plan,
-    or either type whose shape so has a narrow plan) or the call raises; CPU
-    tensors through :func:`conv_k2_dx_reference`."""
+    or either type whose shape so has a narrow plan; to
+    ``launches_dx_ffma_split`` where a float32 FFMA dx splits its depth) or the
+    call raises; CPU tensors through :func:`conv_k2_dx_reference`."""
     return _conv_k2_dx_op(g, w)
-
-
-# The FFMA dw's tiling (csrc/conv_k2.cu, gemm::DwTile): output tiles of 128
-# rows (tap, c) by 128 columns, two blocks an SM, or by 64 columns where
-# N <= 64, four blocks an SM (gemm::Tile::MIN_BLOCKS); stages of 16 rows m.
-_FFMA_DW_ROWS = 128
-_FFMA_DW_DEPTH = 16
-_FFMA_DW_MIN_STAGES = 16  # a split of the row reduction is at least this deep
 
 
 def ffma_dw_split(rows: int, C: int, N: int, sms: int = 132) -> tuple[int, int]:
@@ -667,10 +800,10 @@ def ffma_dw_split(rows: int, C: int, N: int, sms: int = 132) -> tuple[int, int]:
     output tiles times the splits make one wave of blocks on ``sms``
     multiprocessors and each split is at least 16 stages deep. Pure
     arithmetic."""
-    bn, per_sm = (64, 4) if N <= 64 else (128, 2)
-    tiles = -(-8 * C // _FFMA_DW_ROWS) * -(-N // bn)
-    stages = -(-rows // _FFMA_DW_DEPTH)
-    splits = max(1, min(per_sm * sms // tiles, stages // _FFMA_DW_MIN_STAGES))
+    bn, per_sm = _ffma_tile(N)
+    tiles = -(-8 * C // _FFMA_ROWS) * -(-N // bn)
+    stages = -(-rows // _FFMA_DEPTH)
+    splits = max(1, min(per_sm * sms // tiles, stages // _FFMA_MIN_STAGES))
     per_split = -(-stages // splits)
     return -(-stages // per_split), per_split
 
@@ -690,26 +823,23 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                          f"{tuple(g.shape)} {g.dtype}")
     B, D, H, W, C = x.shape
     N = g.shape[-1]
+    dw = torch.empty((2, 2, 2, C, N), dtype=torch.float32, device=x.device)
     plan = _plan_for(x, N)
-    # the narrow plan, else (bfloat16, N = 64) the dw-only one: their dw fields are the same
-    narrow = None if plan is not None else _narrow_for(x, N) or narrow_dw_plan(*x.shape, N, sms=_sms(x),
-                                                                               dtype=x.dtype)
     if plan is not None:
-        splits = plan.dw_grid[2]
-    elif narrow is not None:
+        dw_wgmma(x, g, dw, plan)
+        conv_k2.launches_dw_wgmma += 1
+        conv_k2.launches_dw_persistent += plan.dw_persistent is not None
+        conv_k2.launches_dw += 1
+        return dw
+    # the narrow plan, else (bfloat16, N = 64) the dw-only one: their dw fields are the same
+    narrow = _narrow_for(x, N) or narrow_dw_plan(*x.shape, N, sms=_sms(x), dtype=x.dtype)
+    if narrow is not None:
         splits = narrow.dw_splits
     else:
         splits, per_split = ffma_dw_split(B * D * H * W, C, N, sms=_sms(x))
-    dw = torch.empty((2, 2, 2, C, N), dtype=torch.float32, device=x.device)
     workspace = torch.empty((splits if splits > 1 else 0, 8 * C, N), dtype=torch.float32, device=x.device)
     _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
-    if plan is not None:
-        _check_launch("conv_k2 dw (wgmma)", _lib().conv_k2_backward_weight_wgmma(
-            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, plan.dw_stages_per_split,
-            B, D, H, W, C, N, *plan.dw_box, plan.dw_box_items, plan.bn, plan.dw_stages, plan.dw_smem_bytes,
-            x.device.index, _stream(x)))
-        conv_k2.launches_dw_wgmma += 1
-    elif narrow is not None:
+    if narrow is not None:
         _check_launch("conv_k2 dw (narrow)", _lib().conv_k2_backward_weight_narrow(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, narrow.dw_boxes_per_split,
             B, D, H, W, C, N, *narrow.dw_box, narrow.dw_smem_bytes, narrow.dw_stages, _DTYPE_CODES[x.dtype],
@@ -735,9 +865,10 @@ def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     (B,D,H,W,C) and the output gradient ``g`` (B,D,H,W,N) of the same dtype:
     the op ``anytime3d_torch::conv_k2_dw``. CUDA tensors go through a kernel
     (adding one to ``conv_k2.launches_dw``, and to ``launches_dw_wgmma`` or
-    ``launches_dw_narrow`` where the shape has that plan, the latter also where
-    it has a dw-only plan (:func:`narrow_dw_plan`), which adds one to
-    ``launches_dw_wide`` too) or the call raises; CPU
+    ``launches_dw_narrow`` where the shape has that plan, the former also to
+    ``launches_dw_persistent`` where the plan's dw is the persistent kernel,
+    the latter also where it has a dw-only plan (:func:`narrow_dw_plan`),
+    which adds one to ``launches_dw_wide`` too) or the call raises; CPU
     tensors through :func:`conv_k2_dw_reference`. The result is the same
     from run to run."""
     return _conv_k2_dw_op(x, g)
@@ -777,7 +908,10 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``conv_k2.launches_dw_narrow`` (and ``launches_dw_wide`` on the dw-only
     plan). A tensor-core forward or dx whose plan splits its depth (and then
     launches the reduce of its partials) adds one to
-    ``conv_k2.launches_split`` or ``launches_dx_split``."""
+    ``conv_k2.launches_split`` or ``launches_dx_split``; a float32 FFMA
+    forward or dx that splits its depth (:func:`ffma_split`), to
+    ``launches_ffma_split`` or ``launches_dx_ffma_split``; a persistent
+    tensor-core dw, to ``launches_dw_persistent``."""
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:4]) != (2, 2, 2, x.shape[-1]):
         raise ValueError(f"conv_k2 takes x (B,D,H,W,C) and w (2,2,2,C,N); got {tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:
@@ -803,3 +937,6 @@ conv_k2.launches_dw_narrow = 0
 conv_k2.launches_split = 0
 conv_k2.launches_dx_split = 0
 conv_k2.launches_dw_wide = 0
+conv_k2.launches_ffma_split = 0
+conv_k2.launches_dx_ffma_split = 0
+conv_k2.launches_dw_persistent = 0

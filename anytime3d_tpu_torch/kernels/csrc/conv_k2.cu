@@ -60,7 +60,9 @@
 // tiles) and says how they are formed; on grids of at most 8^3 an item
 // whose output tiles fill at most half a wave (the mid_blocked stages at 4^3
 // and 8^3, B=8), the forward and dx split their depth over blocks and
-// conv_k2_split_reduce_kernel adds the splits. Narrow outputs (N = 8, 16, 32; C = 8,
+// conv_k2_split_reduce_kernel adds the splits; at 4^3 (the mid_blocked
+// stages' short reductions) dw runs on persistent blocks whose f32 tiles the
+// TMA stores from shared memory (conv_k2_dw_persistent_kernel). Narrow outputs (N = 8, 16, 32; C = 8,
 // 16, 32, 64, and at most 32 in float32: the detector decoder's last conv) run
 // over one halo box of x a block, conv_k2_narrow.cuh: the forward, dw and dx
 // (the forward from N to C channels, the box one voxel lower), on mma.sync in
@@ -92,6 +94,14 @@
 //   the loads of the next two stages are in flight under this one's FFMAs.
 //   The (tap, channel) of a thread's pieces advances with the stages: no
 //   division in the loop.
+// - the depth split: on grids of at most 8^3 voxels an item whose tiles fill at
+//   most half a wave (the mid_blocked stages in float32: 4^3 2048 -> 512 at
+//   B=8 is 16 tiles of 128 x 128 on 132 SMs, each 16384 deep), the SPLIT
+//   instance gives blockIdx.z a run of stages and stores f32 partials to a
+//   workspace; conv_k2_dw_reduce_kernel, launched by the same C entry, sums
+//   them in ascending order (no atomics: the same bits every run). The plan is
+//   kernels/conv_k2.py::ffma_split: as many splits as fill one wave, each at
+//   least 16 stages deep; float32 only.
 // `python -m anytime3d_tpu_torch.cli.probe_ffma` (csrc/ffma_probe.cu) times the
 // inner loop alone, which is what this kernel can at most reach as compiled.
 //
@@ -247,10 +257,14 @@ __device__ __forceinline__ void load_k(const T* p, float* out) {
 // Forward (BWD = false): y = conv(x, w), x [M, C], w [8C, N], y [M, N].
 // dx (BWD = true): called with x := g [M, N'], w := w^T [8N', C'], y := dx
 // [M, C'], C := N', N := C'; tap t reads row m - shift(t), masked at the low edge.
-template <typename T, bool BWD, int BN, int TM>
+// SPLIT: blockIdx.z is a split of the depth, the stages [z * split_stages,
+// min(8C/BK, (z + 1) * split_stages)), and the block stores its f32 partial to
+// part[z] [M, N] instead of y. Without it `part` and `split_stages` are not
+// read and the instance carries none of the split's state.
+template <typename T, bool BWD, int BN, int TM, bool SPLIT>
 __global__ void __launch_bounds__(Tile<T, BN, TM>::THREADS, Tile<T, BN, TM>::MIN_BLOCKS)
-conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                    int D, int H, int W, int C, int N, long long M) {
+conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, float* __restrict__ part,
+                    int D, int H, int W, int C, int N, long long M, int split_stages) {
   using L = Tile<T, BN, TM>;
   // stage s: A [BM][A_PITCH] as it lies in x (k contiguous), then B [BK][BN]
   extern __shared__ __align__(16) uint8_t gemm_smem[];
@@ -259,7 +273,8 @@ conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restr
   const int tid = threadIdx.x;
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const int n0 = blockIdx.y * BN;
-  const int n_stages = 8 * C / BK;
+  const int first = SPLIT ? static_cast<int>(blockIdx.z) * split_stages : 0;  // the split's first stage
+  const int n_stages = SPLIT ? min(split_stages, 8 * C / BK - first) : 8 * C / BK;
 
   // A loader: pieces of 16 bytes, L::A_PIECES_ROW consecutive threads on one
   // row; this thread's piece i is row a_row + i * A_ROW_STEP, elements a_k ..
@@ -296,8 +311,8 @@ conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restr
 
   // (tap, channel) of this thread's pieces of A in the next stage to load: a piece is 4 or 8
   // elements from a multiple of as many, and C % 8 == 0, so it lies in one tap
-  int tap = a_k / C;
-  int c = a_k - tap * C;
+  int tap = (first * BK + a_k) / C;
+  int c = first * BK + a_k - tap * C;
 
   auto load_stage = [&](int stage, int slot) {
     T* const As = smem + slot * L::STAGE_ELEMS;
@@ -335,14 +350,14 @@ conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restr
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_stages) load_stage(s, s);
+    if (s < n_stages) load_stage(first + s, s);
     cp_async_commit();
   }
   int slot = 0, load_slot = STAGES - 1;
   for (int stage = 0; stage < n_stages; ++stage) {
     cp_async_wait<STAGES - 2>();  // this thread's pieces of `stage` have landed
     __syncthreads();              // everyone's have, and everyone is done with the slot loaded next
-    if (stage + STAGES - 1 < n_stages) load_stage(stage + STAGES - 1, load_slot);
+    if (stage + STAGES - 1 < n_stages) load_stage(first + stage + STAGES - 1, load_slot);
     cp_async_commit();  // an empty group at the tail keeps the count of pending groups
     const T* const a_base = smem + slot * L::STAGE_ELEMS + row0 * L::A_PITCH;
     const T* const b_base = smem + slot * L::STAGE_ELEMS + BM * L::A_PITCH + col0;
@@ -366,6 +381,10 @@ conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restr
     if (++load_slot == STAGES) load_slot = 0;
   }
 
+  auto* const out = [&] {
+    if constexpr (SPLIT) return part + blockIdx.z * M * N;
+    else return y;
+  }();
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const long long mo = m0 + row0 + i * LANE_ROWS;
@@ -373,7 +392,7 @@ conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restr
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int n = n0 + col0 + half * (WARP_N / 2);
-      if (n < N) store4(y + mo * N + n, acc[i] + 4 * half);
+      if (n < N) store4(out + mo * N + n, acc[i] + 4 * half);
     }
   }
 }
@@ -596,36 +615,47 @@ __global__ void conv_k2_split_reduce_kernel(const float* __restrict__ part, __nv
   reinterpret_cast<uint2*>(y)[i] = make_uint2(wg::pack_bf16(sum.x, sum.y), wg::pack_bf16(sum.z, sum.w));
 }
 
+// `splits` parts of `per_split` stages each cover `total` stages, the last part possibly shorter, none empty.
+bool splits_cover(int splits, int per_split, long long total) {
+  return splits >= 1 && per_split >= 1 && static_cast<long long>(splits - 1) * per_split < total &&
+         static_cast<long long>(splits) * per_split >= total;
+}
+
+// The forward or dx at one tile; with splits > 1 (float32 only) the SPLIT instance writes the f32
+// partials of its runs of stages to `part` [splits, M, N], and conv_k2_dw_reduce_kernel sums them into
+// y in ascending order, launched next: one call from the host for both.
 template <typename T, bool BWD, int TILE_N, int TM>
-cudaError_t launch_gemm_tile(const void* x, const void* w, void* y, int D, int H, int W, int C, int N,
-                             long long M, cudaStream_t s) {
+cudaError_t launch_gemm_tile(const void* x, const void* w, void* y, float* part, int splits, int per_split, int D,
+                             int H, int W, int C, int N, long long M, cudaStream_t s) {
   using L = gemm::Tile<T, TILE_N, TM>;
-  cudaError_t err = cudaFuncSetAttribute(gemm::conv_k2_gemm_kernel<T, BWD, TILE_N, TM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = gemm::conv_k2_gemm_kernel<T, BWD, TILE_N, TM, false>;
+  if constexpr (sizeof(T) == 4) {
+    if (splits > 1) kernel = gemm::conv_k2_gemm_kernel<T, BWD, TILE_N, TM, true>;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::SMEM_BYTES));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((M + gemm::BM - 1) / gemm::BM),
-                  static_cast<unsigned>((N + TILE_N - 1) / TILE_N));
-  gemm::conv_k2_gemm_kernel<T, BWD, TILE_N, TM><<<grid, L::THREADS, L::SMEM_BYTES, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), D, H, W, C, N, M);
-  return cudaGetLastError();
+                  static_cast<unsigned>((N + TILE_N - 1) / TILE_N), static_cast<unsigned>(splits));
+  kernel<<<grid, L::THREADS, L::SMEM_BYTES, s>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                                  static_cast<T*>(y), part, D, H, W, C, N, M, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_dw_reduce(part, static_cast<float*>(y), M * N, splits, s);
 }
 
 // Tiles of 128 columns and 16 rows a thread, or of 64 and 8 where the output is no wider: there 16
 // rows a thread would leave an SM four warps at the flagship sizes, too few to hide anything. Outputs of
 // 8, 16 or 32 columns come here only without a narrow plan (float32 at C = 64, shapes whose box does not
-// fit), and then leave most of the 64 idle.
+// fit), and then leave most of the 64 idle. The depth's 8C/16 stages are cut into `splits` runs of
+// `per_split` (kernels/conv_k2.py::ffma_split; only float32 splits).
 template <typename T, bool BWD>
-cudaError_t launch_gemm(const void* x, const void* w, void* y, int D, int H, int W, int C, int N,
-                        long long M, cudaStream_t s) {
-  if (N <= 64) return launch_gemm_tile<T, BWD, 64, 8>(x, w, y, D, H, W, C, N, M, s);
-  return launch_gemm_tile<T, BWD, 128, 16>(x, w, y, D, H, W, C, N, M, s);
-}
-
-// `splits` parts of `per_split` stages each cover `total` stages, the last part possibly shorter, none empty.
-bool splits_cover(int splits, int per_split, long long total) {
-  return splits >= 1 && per_split >= 1 && static_cast<long long>(splits - 1) * per_split < total &&
-         static_cast<long long>(splits) * per_split >= total;
+cudaError_t launch_gemm(const void* x, const void* w, void* y, float* part, int splits, int per_split, int D, int H,
+                        int W, int C, int N, long long M, cudaStream_t s) {
+  if (!splits_cover(splits, per_split, 8LL * C / gemm::BK) || (splits > 1 && (sizeof(T) != 4 || part == nullptr)))
+    return cudaErrorInvalidValue;
+  if (N <= 64) return launch_gemm_tile<T, BWD, 64, 8>(x, w, y, part, splits, per_split, D, H, W, C, N, M, s);
+  return launch_gemm_tile<T, BWD, 128, 16>(x, w, y, part, splits, per_split, D, H, W, C, N, M, s);
 }
 
 // dw's partial sums (into dw itself where splits == 1), then their sum: the tile of the forward's shape.
@@ -693,27 +723,38 @@ extern "C" {
 // (a cudaStream_t) of `device`, does not synchronise, allocates nothing, and
 // returns the cudaError_t of the launch (0 on success).
 
-// y [B,D,H,W,N] = conv_k2(x [B,D,H,W,C], w [2,2,2,C,N]).
-int conv_k2_forward(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
-                    int N, int dtype, int device, void* stream) {
+// y [B,D,H,W,N] = conv_k2(x [B,D,H,W,C], w [2,2,2,C,N]). The 8C/16 stages of
+// the depth are cut into `splits` runs of `stages_per_split` (the last may be
+// shorter, none is empty; more than one in float32 only); `workspace` holds
+// splits*B*D*H*W*N floats of partials (null when splits == 1), which the
+// reduce launched next sums into y.
+int conv_k2_forward(const void* x, const void* w, void* y, void* workspace, int splits, int stages_per_split, int B,
+                    int D, int H, int W, int C, int N, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long M = static_cast<long long>(B) * D * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_gemm<float, false>(x, w, y, D, H, W, C, N, M, s));
-  if (dtype == 1) return static_cast<int>(launch_gemm<__nv_bfloat16, false>(x, w, y, D, H, W, C, N, M, s));
+  float* part = static_cast<float*>(workspace);
+#define GEMM_ARGS x, w, y, part, splits, stages_per_split, D, H, W, C, N, M, s
+  if (dtype == 0) return static_cast<int>(launch_gemm<float, false>(GEMM_ARGS));
+  if (dtype == 1) return static_cast<int>(launch_gemm<__nv_bfloat16, false>(GEMM_ARGS));
+#undef GEMM_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dx [B,D,H,W,C] from g [B,D,H,W,N] and wt [2,2,2,N,C] (each tap of w transposed).
-int conv_k2_backward_input(const void* g, const void* wt, void* dx, int B, int D, int H, int W,
-                           int C, int N, int dtype, int device, void* stream) {
+// dx [B,D,H,W,C] from g [B,D,H,W,N] and wt [2,2,2,N,C] (each tap of w
+// transposed); the 8N/16 stages of its depth split as the forward's.
+int conv_k2_backward_input(const void* g, const void* wt, void* dx, void* workspace, int splits, int stages_per_split,
+                           int B, int D, int H, int W, int C, int N, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long M = static_cast<long long>(B) * D * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_gemm<float, true>(g, wt, dx, D, H, W, N, C, M, s));
-  if (dtype == 1) return static_cast<int>(launch_gemm<__nv_bfloat16, true>(g, wt, dx, D, H, W, N, C, M, s));
+  float* part = static_cast<float*>(workspace);
+#define GEMM_ARGS g, wt, dx, part, splits, stages_per_split, D, H, W, N, C, M, s
+  if (dtype == 0) return static_cast<int>(launch_gemm<float, true>(GEMM_ARGS));
+  if (dtype == 1) return static_cast<int>(launch_gemm<__nv_bfloat16, true>(GEMM_ARGS));
+#undef GEMM_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -802,6 +843,34 @@ int conv_k2_backward_weight_wgmma(const void* x, const void* g, void* dw, void* 
                            smem_bytes, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  if (rc || splits == 1) return rc;
+  return static_cast<int>(launch_dw_reduce(part, out, static_cast<long long>(8) * C * N, splits, s));
+}
+
+// The bfloat16 tensor-core dw on persistent blocks (the plan's dw_persistent):
+// tiles of 128 rows (tap, c) by bn = 256 columns, `tiles` of them, the
+// M/64 stages of the row reduction cut into `splits` runs of
+// `stages_per_split` (the last may be shorter, none is empty); `grid` blocks
+// walk the (tile, split) items; `workspace` holds splits*8*C*N floats (unused
+// when splits == 1), summed into dw by conv_k2_dw_reduce_kernel, launched
+// next. The box of a stage's 64 rows is (bw, bh, bd) by bb batch items;
+// `smem_bytes` and `tiles` are the plan's, held to this file's own.
+int conv_k2_backward_weight_persistent(const void* x, const void* g, void* dw, void* workspace, int B, int D, int H,
+                                       int W, int C, int N, int bw, int bh, int bd, int bb, int bn, int stages,
+                                       int grid, int smem_bytes, int tiles, int splits, int stages_per_split,
+                                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(B) * D * H * W / wg::BK;
+  if (C % wg::BK || N % bn || !wg::box_tiles(B, D, H, W, bw, bh, bd, bb, wg::BK) || stages < 2 ||
+      stages > wg::MAX_STAGES || !splits_cover(splits, stages_per_split, total))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(dw);
+  float* part = splits == 1 ? out : static_cast<float*>(workspace);
+  if (bn != wg::DW_PERSISTENT_BN) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = wg::launch_dw_persistent(x, g, part, B, D, H, W, C, N, bw, bh, bd, bb, stages, grid, smem_bytes,
+                                          tiles, splits, stages_per_split, s);
   if (rc || splits == 1) return rc;
   return static_cast<int>(launch_dw_reduce(part, out, static_cast<long long>(8) * C * N, splits, s));
 }

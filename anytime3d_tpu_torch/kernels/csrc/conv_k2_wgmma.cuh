@@ -89,6 +89,28 @@
 //   to the workspace and conv_k2_dw_reduce_kernel sums the splits in
 //   ascending order. No atomics: the same bits every run.
 //
+// dw on persistent blocks (conv_k2_dw_persistent_kernel): the same stages and
+//   products for short reductions over many output tiles, the mid_blocked
+//   stages at 4^3 (8 to 32 stages a tile). There the grid kernel above ran 512
+//   blocks of 8 stages at B=8, each filling its ring from cold and storing a
+//   64 KB f32 tile from registers at its end, and read 134 MB from L2 for a
+//   33.5 MB output (g once for each of 128 row tiles, x once for each of 4
+//   column tiles). Here one block an SM walks the work items (row tile,
+//   column tile, split), splits fastest, then row tiles; the ring runs on
+//   across items, so the producer loads the next item's stages while the
+//   consumers store this one's. A tile is 128 rows by 256 columns (two
+//   m64n128 accumulators a warpgroup), which reads 48 KB of L2 a stage for
+//   twice the products of the 32 KB of a 128 x 128 tile. The store goes
+//   through shared memory: each consumer warp writes its 16 rows in chunks of
+//   32 f32 columns (2 KB, the 128-byte swizzle, so a warp's 8-byte writes fall
+//   into two wavefronts) and one lane hands each chunk to the TMA
+//   (cp.async.bulk.tensor store, DW_STORE_BUFS chunk buffers a warp), which
+//   writes dw in whole lines. What bounds it: the f32 store, 33.5 MB at 4^3
+//   (0.010 ms at the card's memory rate), which every block makes at once at
+//   the end of each item (cli/probe_split.py). Where the tiles fill at most
+//   half the SMs the rows split, each split's partial stored the same way
+//   into the workspace, then conv_k2_dw_reduce_kernel.
+//
 // Shared memory of a stage: A 2 MT tiles of 8 KB (64 rows each) + B BN/64
 // tiles of 8 KB; every tile starts on a 1024-byte boundary (the swizzle's
 // period). Built with -DCONV_K2_WAIT_TRAP_NS=<ns> (bring-up and the card
@@ -116,6 +138,21 @@ constexpr uint32_t TILE_BYTES = 64 * 128;  // a 64 x 64 bf16 box
 constexpr uint32_t SWIZZLE_PERIOD = 1024;  // 8 rows of 128 bytes
 constexpr uint32_t K16_IN_ROW = 32;        // K-major: 16 bf16 further along a 128-byte row
 constexpr uint32_t K16_ROWS = 16 * 128;    // MN-major: 16 rows further down
+// the persistent dw: tiles of 128 x DW_PERSISTENT_BN, stored through shared memory behind the ring's barriers,
+// a consumer warp's 16 rows in chunks of 32 f32 columns (one 128-byte swizzled row each), DW_STORE_BUFS chunk
+// buffers a warp (CONV_K2_DW_STORE_BUFS: 2 in the port, fewer ring stages for more in cli/probe_split.py)
+#ifndef CONV_K2_DW_STORE_BUFS
+#define CONV_K2_DW_STORE_BUFS 2
+#endif
+constexpr int DW_PERSISTENT_BN = 256;
+constexpr uint32_t DW_CHUNK_BYTES = 16 * 128;
+constexpr int DW_STORE_BUFS = CONV_K2_DW_STORE_BUFS;
+constexpr uint32_t DW_STAGING_BYTES = CONSUMER_WARPS * DW_STORE_BUFS * DW_CHUNK_BYTES;
+
+// CONV_K2_DW_PROBE (cli/probe_split.py's builds): 1 leaves out dw's store, 2 its loads of g. 0 in the port.
+#ifndef CONV_K2_DW_PROBE
+#define CONV_K2_DW_PROBE 0
+#endif
 
 // A stage holds MT tiles of A for each of the two warpgroups, then BN/64 tiles of B.
 template <int MT>
@@ -132,6 +169,12 @@ __host__ __device__ constexpr uint32_t stage_bytes() {
 template <int BN, int MT>
 __host__ __device__ constexpr size_t smem_bytes(int stages) {
   return SWIZZLE_PERIOD + static_cast<size_t>(stages) * stage_bytes<BN, MT>() + 2 * MAX_STAGES * 8;
+}
+
+// The persistent dw's: the ring, room to align it, the barriers in a swizzle period of their own (so that
+// the store's chunk buffers after them start on one), the chunk buffers.
+__host__ __device__ constexpr size_t dw_persistent_smem_bytes(int stages) {
+  return 2 * SWIZZLE_PERIOD + static_cast<size_t>(stages) * stage_bytes<DW_PERSISTENT_BN, 1>() + DW_STAGING_BYTES;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -202,6 +245,32 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
+}
+
+// A box of `map` from shared memory at `src` to coordinates (c0, c1), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Until at most PENDING of this thread's bulk groups still read shared memory (READ) or are still running.
+template <int PENDING, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Orders this thread's shared-memory writes before a later TMA read of them.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void st_shared_f32x2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -543,14 +612,15 @@ conv_k2_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_
       const uint32_t full = r.full + 8 * slot;
       const uint32_t dst = r.base + slot * stage_bytes<BN, 1>();
       mbar_wait(r.empty + 8 * slot, parity);
-      mbar_arrive_expect_tx(full, stage_bytes<BN, 1>());
+      mbar_arrive_expect_tx(full, CONV_K2_DW_PROBE == 2 ? a_bytes<1>() : stage_bytes<BN, 1>());
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         tma_load_5d(dst + i * TILE_BYTES, &map_x, full, c0[i], w0 + (tap[i] & 1), h0 + ((tap[i] >> 1) & 1),
                     d0 + (tap[i] >> 2), b0);
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j)
-        tma_load_2d(dst + a_bytes<1>() + j * TILE_BYTES, &map_g, full, n0 + 64 * j, static_cast<int>(m0));
+        if (CONV_K2_DW_PROBE != 2)
+          tma_load_2d(dst + a_bytes<1>() + j * TILE_BYTES, &map_g, full, n0 + 64 * j, static_cast<int>(m0));
       if (++slot == stages) {
         slot = 0;
         parity ^= 1;
@@ -570,12 +640,157 @@ conv_k2_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_
   const int lane = threadIdx.x & 31;
   const long long row = r0 + wgroup * 64 + (warp & 3) * 16 + (lane >> 2);
   float* out = part + (static_cast<long long>(blockIdx.z) * 8 * C + row) * N + n0 + 2 * (lane & 3);
+  if (CONV_K2_DW_PROBE == 1) return;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[0][4 * j], acc[0][4 * j + 1]);
     *reinterpret_cast<float2*>(out + 8 * static_cast<long long>(N) + 8 * j) =
         make_float2(acc[0][4 * j + 2], acc[0][4 * j + 3]);
   }
+}
+
+// The persistent dw's consumer side of the ring: as consume (A and B both
+// MN-major), into NB accumulators of 64 x 128 a warpgroup, columns 128 h ..
+// of the tile for accumulator h.
+template <int NB>
+__device__ __forceinline__ void consume_dw(const Ring& r, int stages, int n_iter, int wgroup, int& slot,
+                                           uint32_t& parity, float (&acc)[NB][64]) {
+  constexpr int BN = 128 * NB;
+  const int lane = threadIdx.x & 31;
+  int prev = -1;
+  for (int it = 0; it < n_iter; ++it) {
+    mbar_wait(r.full + 8 * slot, parity);
+    const uint32_t a = r.base + slot * stage_bytes<BN, 1>() + wgroup * TILE_BYTES;
+    const uint32_t b = r.base + slot * stage_bytes<BN, 1>() + a_bytes<1>();
+#pragma unroll
+    for (int h = 0; h < NB; ++h) pin(acc[h]);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k) {
+      const uint64_t da = smem_desc(a + k * K16_ROWS, TILE_BYTES, SWIZZLE_PERIOD);
+#pragma unroll
+      for (int h = 0; h < NB; ++h)
+        wgmma_bf16<1, 1>(acc[h], da, smem_desc(b + 2 * h * TILE_BYTES + k * K16_ROWS, TILE_BYTES, SWIZZLE_PERIOD),
+                         (it | k) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: its slot is free
+    if (prev >= 0 && lane == 0) mbar_arrive(r.empty + 8 * prev);
+    prev = slot;
+    if (++slot == stages) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  if (prev >= 0 && lane == 0) mbar_arrive(r.empty + 8 * prev);
+#pragma unroll
+  for (int h = 0; h < NB; ++h) pin(acc[h]);
+}
+
+// dw (or its split partials) on persistent blocks: `gridDim.x` blocks, one an
+// SM, walk the work items (split fastest, then the 8C/128 row tiles, then the
+// N/256 column tiles), block i taking items i, i + gridDim.x, ...; an item
+// reduces the stages [split * stages_per_split, ...) of 64 rows m into a 128 x
+// 256 tile. map_out is the f32 matrix [splits * 8C, N]: dw itself with one
+// split, else the workspace, whose split z holds rows z 8C ..
+__global__ void __launch_bounds__(THREADS, 1)
+conv_k2_dw_persistent_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
+                             const __grid_constant__ CUtensorMap map_out, int D, int H, int W, int C, int N,
+                             int total_stages, int splits, int stages_per_split, int stages) {
+  constexpr int BN = DW_PERSISTENT_BN;
+  constexpr int NB = BN / 128;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring r = ring_setup(smem_raw, stages, stage_bytes<BN, 1>());
+
+  const int row_tiles = 8 * C / BM;
+  const long long items = static_cast<long long>(row_tiles) * (N / BN) * splits;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp == CONSUMER_WARPS) {
+    if ((threadIdx.x & 31) != 0) return;
+    int slot = 0;
+    uint32_t parity = 1;  // a fresh slot is empty
+    for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+      const int first = static_cast<int>(item % splits) * stages_per_split;
+      const int last = min(total_stages, first + stages_per_split);
+      const long long rest = item / splits;
+      const int r0 = static_cast<int>(rest % row_tiles) * BM;
+      const int n0 = static_cast<int>(rest / row_tiles) * BN;
+      int tap[2], c0[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // the 64 output rows (tap, c) of warpgroup i
+        tap[i] = (r0 + 64 * i) / C;
+        c0[i] = (r0 + 64 * i) - tap[i] * C;
+      }
+      for (int st = first; st < last; ++st) {
+        long long t = static_cast<long long>(st) * BK;
+        const int m0 = static_cast<int>(t);
+        const int w0 = static_cast<int>(t % W); t /= W;
+        const int h0 = static_cast<int>(t % H); t /= H;
+        const int d0 = static_cast<int>(t % D);
+        const int b0 = static_cast<int>(t / D);
+        const uint32_t full = r.full + 8 * slot;
+        const uint32_t dst = r.base + slot * stage_bytes<BN, 1>();
+        mbar_wait(r.empty + 8 * slot, parity);
+        mbar_arrive_expect_tx(full, CONV_K2_DW_PROBE == 2 ? a_bytes<1>() : stage_bytes<BN, 1>());
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          tma_load_5d(dst + i * TILE_BYTES, &map_x, full, c0[i], w0 + (tap[i] & 1), h0 + ((tap[i] >> 1) & 1),
+                      d0 + (tap[i] >> 2), b0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          if (CONV_K2_DW_PROBE != 2) tma_load_2d(dst + a_bytes<1>() + j * TILE_BYTES, &map_g, full, n0 + 64 * j, m0);
+        if (++slot == stages) {
+          slot = 0;
+          parity ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int wgroup = warp >> 2;
+  const int lane = threadIdx.x & 31;
+  const int q = lane & 3, lr = lane >> 2;
+  // this warp's chunk buffers, after the barriers' swizzle period
+  const uint32_t staging = r.full + SWIZZLE_PERIOD + warp * DW_STORE_BUFS * DW_CHUNK_BYTES;
+  int slot = 0, chunk = 0;
+  uint32_t parity = 0;
+  float acc[NB][64];
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int split = static_cast<int>(item % splits);
+    const long long rest = item / splits;
+    const int r0 = static_cast<int>(rest % row_tiles) * BM;
+    const int n0 = static_cast<int>(rest / row_tiles) * BN;
+    consume_dw<NB>(r, stages, min(stages_per_split, total_stages - split * stages_per_split), wgroup, slot, parity,
+                   acc);
+    if (CONV_K2_DW_PROBE == 1) continue;
+    // the warp's 16 rows, in chunks of 32 columns: row lr (and lr + 8) of a chunk holds columns 8 jj + 2 q, + 1
+    // of accumulator entries 4 j (4 j + 2), j = 4 (k % 4) + jj, in 16-byte unit 2 jj + q / 2 of its 128-byte
+    // row, at unit ^ (row % 8) under the swizzle (lr + 8 falls on the same units, 1 KB on)
+    const int row = split * 8 * C + r0 + wgroup * 64 + (warp & 3) * 16;
+#pragma unroll
+    for (int k = 0; k < BN / 32; ++k, ++chunk) {
+      const uint32_t buf = staging + (chunk % DW_STORE_BUFS) * DW_CHUNK_BYTES;
+      if (lane == 0) bulk_wait<DW_STORE_BUFS - 1, true>();  // the store that last read this buffer has read it
+      __syncwarp();
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * (k % 4) + jj;
+        const uint32_t addr = buf + lr * 128 + (((2 * jj + (q >> 1)) ^ lr) << 4) + (q & 1) * 8;
+        st_shared_f32x2(addr, acc[k / 4][4 * j], acc[k / 4][4 * j + 1]);
+        st_shared_f32x2(addr + 8 * 128, acc[k / 4][4 * j + 2], acc[k / 4][4 * j + 3]);
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        tma_store_2d(&map_out, buf, n0 + 32 * k, row);
+        bulk_commit();
+      }
+    }
+  }
+  if (lane == 0) bulk_wait<0, false>();  // every store has landed before the block's shared memory goes
 }
 
 // ---- host side ----
@@ -606,19 +821,20 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims (innermost first, dense) and its box, written
-// with the 128-byte swizzle, zeros where the box leaves the tensor.
-inline int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint32_t* box) {
+// A bf16 (or f32) tensor of `rank` dims (innermost first, dense) and its box,
+// written with the 128-byte swizzle, zeros where the box leaves the tensor.
+inline int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint32_t* box,
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (!encode) return NO_ENCODER;
   cuuint64_t strides[4];  // bytes, from dim 1 on
-  cuuint64_t stride = 2;
+  cuuint64_t stride = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   for (int i = 0; i + 1 < rank; ++i) {
     stride *= dims[i];
     strides[i] = stride;
   }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+  const CUresult res = encode(map, type, static_cast<cuuint32_t>(rank),
                               const_cast<void*>(ptr), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -699,6 +915,34 @@ int launch_dw(const void* x, const void* g, float* part, int splits, int stages_
   const dim3 grid(static_cast<unsigned>(N / BN), static_cast<unsigned>(8 * C / BM), static_cast<unsigned>(splits));
   conv_k2_dw_wgmma_kernel<BN><<<grid, THREADS, smem, s>>>(map_x, map_g, part, D, H, W, C, N,
                                                          static_cast<int>(M / BK), stages_per_split, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The persistent dw into `out`, the f32 matrix [splits * 8C, N] (dw, or with
+// splits > 1 the workspace of partials), on `grid` blocks.
+inline int launch_dw_persistent(const void* x, const void* g, float* out, int B, int D, int H, int W, int C, int N,
+                                int bw, int bh, int bd, int bb, int stages, int grid, int plan_smem, int plan_tiles,
+                                int splits, int stages_per_split, cudaStream_t s) {
+  const size_t smem = dw_persistent_smem_bytes(stages);
+  const long long tiles = (8LL * C / BM) * (N / DW_PERSISTENT_BN);
+  if (static_cast<size_t>(plan_smem) != smem || plan_tiles != tiles) return PLAN_MISMATCH;
+  if (grid < 1 || grid > tiles * splits) return static_cast<int>(cudaErrorInvalidValue);
+  const long long M = static_cast<long long>(B) * D * H * W;
+  CUtensorMap map_x, map_g, map_out;
+  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd, bb);
+  if (rc) return rc;
+  rc = encode_matrix_map(&map_g, g, M, N);
+  if (rc) return rc;
+  // a chunk: 32 f32 columns (128 bytes) by a warp's 16 rows
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(splits) * 8 * C};
+  const cuuint32_t box[2] = {32, 16};
+  rc = encode_map(&map_out, out, 2, dims, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_dw_persistent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_k2_dw_persistent_kernel<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+      map_x, map_g, map_out, D, H, W, C, N, static_cast<int>(M / BK), splits, stages_per_split, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

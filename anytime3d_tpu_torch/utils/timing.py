@@ -85,17 +85,24 @@ def kernel_rows(prof, n: int) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profile_rows(fn, runs: int = 3) -> list:
-    """``kernel_rows`` of ``runs`` calls of ``fn`` (after one unprofiled)."""
+def profile_rows(fn, runs: int = 3, tries: int = 3) -> list:
+    """``kernel_rows`` of ``runs`` calls of ``fn`` (after one unprofiled).
+    A profile that comes back without a kernel row is taken again, up to
+    ``tries`` times: on the card's host a later profiler session of a process
+    has come back empty once (chip_smoke.py's phase 18)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return kernel_rows(prof, runs)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof, runs)
+        if rows:
+            break
+    return rows
 
 
 def busy_ms(fn, runs: int = 3) -> float:

@@ -224,17 +224,22 @@ order, any failure ending the run with a non-zero exit:
    ``modelnet_nolbo`` with ``mid_blocked`` on its encoder and decoder (blocked
    head, two folded encoder stages at 8^3 and 4^3, two middle decoder stages
    as k=2 convs and depth-to-space, blocked tail): an f32 served batch of 8
-   (8 FFMA launches) and an f32 train step at B=2 (8 / 7 / 8) on the card
-   against the CPU; bf16 served batches (8 ``wgmma`` launches each, timed
-   beside the default layout's 4); ``cli/train.py``'s trainer, bf16, B=32,
-   packed batches, ``MID_TRAIN_STEPS`` steps at 8 / 7 / 8 ``wgmma`` launches
-   a step, then as many of the default layout (4 / 3 / 4), each step's device
-   ms and host wall; ``conv_k2``, dx and dw at the four new stages (8^3
-   1024 -> 256 and 256 -> 1024, 4^3 2048 -> 512 and 512 -> 2048, whose boxes
-   span whole batch items) at B=32 in bf16 and f32 and the 4^3 ones at B=8 in
-   bf16, against their plain versions and float64 products, timed beside
-   cuDNN's k=2 call and their bound, the forward and dx also on the other
-   tile height (the same bits); the cuDNN k=4 s=2 conv or transposed conv
+   (8 FFMA launches, 3 of them with the depth split since PR 19; timed on the
+   card alone and by the profiler's busy time) and an f32 train step at B=2
+   (8 / 7 / 8, 4 forwards and 4 dx split) on the card against the CPU; bf16
+   served batches (8 ``wgmma`` launches each, timed beside the default
+   layout's 4); ``cli/train.py``'s trainer, bf16, B=32, packed batches,
+   ``MID_TRAIN_STEPS`` steps at 8 / 7 / 8 ``wgmma`` launches a step (2 dw a
+   step on persistent blocks), then as many of the default layout (4 / 3 /
+   4), each step's device ms and host wall; ``conv_k2``, dx and dw at the four
+   new stages (8^3 1024 -> 256 and 256 -> 1024, 4^3 2048 -> 512 and 512 ->
+   2048, whose boxes span whole batch items) at B=32 in bf16 and f32 and the
+   4^3 ones and 8^3 1024 -> 256 at B=8 in both types, against their plain
+   versions (bf16 also float64 products), timed by events and on the card
+   alone beside cuDNN's k=2 call and their bound, the bf16 forward and dx also
+   on the other tile height (the same bits), the split forward and dx against
+   their plans unsplit (bf16 and f32), the persistent dw against the grid
+   kernel; the cuDNN k=4 s=2 conv or transposed conv
    each stage replaces, beside the stage's ``mid_blocked`` layer, forward
    and forward + backward (a record); ``SubpixelDeconv3D`` at 16^3, 64 -> 64,
    against its plain version and ``ConvTransposeEquiv3D`` on the same weight;
@@ -293,6 +298,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
     conv_k2_dx,
     conv_k2_dx_reference,
     conv_k2_reference,
+    ffma_split,
     narrow_dw_plan,
     narrow_plan,
     wgmma_plan,
@@ -306,6 +312,7 @@ from anytime3d_tpu_torch.serving.server import InferenceServer  # noqa: E402
 from anytime3d_tpu_torch.train.state import create_train_state  # noqa: E402
 from anytime3d_tpu_torch.train.step import apply_gradients_if_finite, compute_losses, materialize_batch  # noqa: E402
 from anytime3d_tpu_torch.utils.timing import (  # noqa: E402
+    busy_ms,
     card_line,
     cuda_ms,
     device_ms,
@@ -474,6 +481,7 @@ def reset_counts() -> None:
     conv_k2.launches_narrow = conv_k2.launches_dx_narrow = conv_k2.launches_dw_narrow = 0
     conv_k2.launches_split = conv_k2.launches_dx_split = 0
     conv_k2.launches_dw_wide = 0
+    conv_k2.launches_ffma_split = conv_k2.launches_dx_ffma_split = conv_k2.launches_dw_persistent = 0
 
 
 def read_counts() -> dict:
@@ -483,31 +491,41 @@ def read_counts() -> dict:
     tensor-core forward and dx launches that split their depth, under
     ``conv_k2_split_reduce`` the reduces of their partials (one each, which
     the same call into the library launches after the split kernel), under
-    ``conv_k2_dw_wide`` the narrow dw launches on the dw-only plan (N = 64)."""
+    ``conv_k2_dw_wide`` the narrow dw launches on the dw-only plan (N = 64),
+    under ``*_ffma_split`` the float32 FFMA forward and dx launches that split
+    their depth (each with the reduce of its partials), under
+    ``conv_k2_dw_persistent`` the tensor-core dw launches on the persistent
+    kernel."""
     return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
             "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dx_wgmma": conv_k2.launches_dx_wgmma,
             "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma, "conv_k2_narrow": conv_k2.launches_narrow,
             "conv_k2_dx_narrow": conv_k2.launches_dx_narrow, "conv_k2_dw_narrow": conv_k2.launches_dw_narrow,
             "conv_k2_split": conv_k2.launches_split, "conv_k2_dx_split": conv_k2.launches_dx_split,
             "conv_k2_split_reduce": conv_k2.launches_split + conv_k2.launches_dx_split,
-            "conv_k2_dw_wide": conv_k2.launches_dw_wide}
+            "conv_k2_dw_wide": conv_k2.launches_dw_wide, "conv_k2_ffma_split": conv_k2.launches_ffma_split,
+            "conv_k2_dx_ffma_split": conv_k2.launches_dx_ffma_split,
+            "conv_k2_dw_persistent": conv_k2.launches_dw_persistent}
 
 
 def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
                   narrow: tuple[int, int, int] = (0, 0, 0), split: tuple[int, int] = (0, 0),
-                  wide: int = 0) -> dict:
+                  wide: int = 0, ffma_split: tuple[int, int] = (0, 0), persistent: int = 0) -> dict:
     """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
     all of them on the tensor-core kernels or none of them, ``narrow``'s
     forward / dx / dw launches of them on the narrow kernels, ``wide`` of the
-    narrow dw's on the dw-only plan, and ``split``'s forward / dx launches of
-    the tensor-core ones that split their depth, each with its reduce (only
-    the mid_blocked stages at 4^3 and 8^3 split)."""
+    narrow dw's on the dw-only plan, ``split``'s forward / dx launches of
+    the tensor-core ones that split their depth, each with its reduce,
+    ``ffma_split``'s forward / dx launches of the float32 FFMA ones that do
+    (only the mid_blocked stages at 4^3 and 8^3 split), and ``persistent`` of
+    the tensor-core dw's on the persistent kernel (the mid_blocked stages)."""
     counts = read_counts()
     want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
             "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dx_wgmma": dx if tensor_cores else 0,
             "conv_k2_dw_wgmma": dw if tensor_cores else 0, "conv_k2_narrow": narrow[0],
             "conv_k2_dx_narrow": narrow[1], "conv_k2_dw_narrow": narrow[2], "conv_k2_split": split[0],
-            "conv_k2_dx_split": split[1], "conv_k2_split_reduce": split[0] + split[1], "conv_k2_dw_wide": wide}
+            "conv_k2_dx_split": split[1], "conv_k2_split_reduce": split[0] + split[1], "conv_k2_dw_wide": wide,
+            "conv_k2_ffma_split": ffma_split[0], "conv_k2_dx_ffma_split": ffma_split[1],
+            "conv_k2_dw_persistent": persistent}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     return counts
@@ -574,16 +592,20 @@ def float64_products(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> dict:
 def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None, want: str) -> dict:
     """Launch ``run`` once, hold it against ``plain`` with the tolerance of its
     design and dtype, and hold the design the launch took to ``want`` ("wgmma",
-    "narrow" or "ffma"). With ``exact`` (a float64 product) the tensor-core and
-    narrow kernels and their plain versions are also held against it; dw must
-    give the same bits twice."""
+    "persistent" (the tensor-core dw on persistent blocks), "narrow",
+    "ffma_split" (the float32 FFMA forward or dx with its depth split) or
+    "ffma"). With ``exact`` (a float64 product) the tensor-core and narrow
+    kernels and their plain versions are also held against it; dw must give
+    the same bits twice."""
+    designs = ("persistent", "ffma_split", "wgmma", "narrow")
+
     def launched(design: str) -> int:
         return sum(n for name, n in read_counts().items() if name.endswith(f"_{design}"))
 
-    before = {d: launched(d) for d in ("wgmma", "narrow")}
+    before = {d: launched(d) for d in designs}
     out, ref = run(), plain()
     torch.cuda.synchronize()
-    design = next((d for d in ("wgmma", "narrow") if launched(d) > before[d]), "ffma")
+    design = next((d for d in designs if launched(d) > before[d]), "ffma")
     if design != want:
         raise AssertionError(f"{kernel} {label}: took the {design} kernel, expected {want}")
     if out.shape != ref.shape or out.dtype != ref.dtype:
@@ -591,13 +613,13 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
     err = float((out.float() - ref.float()).abs().max())
     top = float(ref.float().abs().max())
     if kernel == "conv_k2_dw":
-        tol = (2 * K2_TOL_DW_F64_REL if design == "wgmma" else K2_TOL_DW_REL) * top
+        tol = (2 * K2_TOL_DW_F64_REL if design in ("wgmma", "persistent") else K2_TOL_DW_REL) * top
     else:
         tol = K2_TOL_F32 if ref.dtype == torch.float32 else K2_TOL_BF16_REL * top
     line = f"{kernel} {label} [{design}]: max_abs_err {err:.3e} (tol {tol:.3e})"
     if not err <= tol:
         raise AssertionError(f"{line}: the kernel disagrees with its plain version")
-    if design != "ffma" and exact is not None:
+    if design not in ("ffma", "ffma_split") and exact is not None:
         err_k, err_p = (float((t.double() - exact).abs().max()) for t in (out, ref))
         top64 = float(exact.abs().max())
         if kernel == "conv_k2_dw":
@@ -729,7 +751,13 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     three: ``conv_k2_split_reduce``, the reduce of the split forward's and
     dx's partials (headline: the served batch's 4^3 2048 -> 512, B=8), and
     ``conv_k2_dw_wide``, the narrow dw's N = 64 instance on the dw-only plan
-    (headline: the s2d(2) stem at B=32, bf16)."""
+    (headline: the s2d(2) stem at B=32, bf16); and two of PR 19's:
+    ``conv_k2_ffma_split``, the float32 FFMA forward and dx with their depth
+    split and the reduce of their partials (headline: the f32 served batch's
+    4^3 2048 -> 512 forward, B=8; ``launches`` its forward and dx launches),
+    and ``conv_k2_dw_persistent``, the bf16 dw on persistent blocks (headline:
+    4^3 2048 -> 512 at B=8). ``launches_ffma_split`` on the forward and dx and
+    ``launches_persistent`` on dw count those launches of each."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
              variant_counts, stream_counts, real_counts, mapping_counts, mid_counts)
     names = ("serve", "train", "anytime", "lifecycle", "artifact", "image", "detector", "variants", "pretrain_stream",
@@ -739,11 +767,18 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184",
                 # the split forward's and dx's reduce: the forward's sum (and dx's), split over blocks
                 "conv_k2_split_reduce": "anytime3d_tpu/kernels/conv_k2.py:156",
-                "conv_k2_dw_wide": "anytime3d_tpu/kernels/conv_k2.py:184"}
+                "conv_k2_dw_wide": "anytime3d_tpu/kernels/conv_k2.py:184",
+                "conv_k2_ffma_split": "anytime3d_tpu/kernels/conv_k2.py:156",
+                "conv_k2_dw_persistent": "anytime3d_tpu/kernels/conv_k2.py:184"}
     # the case of the headline numbers: the shapes its main path gives each kernel
     heads = {"conv_k2": "b8_f32", "conv_k2_dx": "b32_bf16", "conv_k2_dw": "b32_bf16",
-             "conv_k2_split_reduce": "mid_b8_bf16_4cubed 4^3 2048->512", "conv_k2_dw_wide": "stem_b32_bf16"}
-    sources = {"conv_k2_dw_wide": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh"}
+             "conv_k2_split_reduce": "mid_b8_bf16_4cubed 4^3 2048->512", "conv_k2_dw_wide": "stem_b32_bf16",
+             "conv_k2_ffma_split": "conv_k2 mid_b8_f32_4cubed 4^3 2048->512",
+             "conv_k2_dw_persistent": "mid_b8_bf16_4cubed 4^3 2048->512"}
+    sources = {"conv_k2_dw_wide": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
+               "conv_k2_dw_persistent": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh"}
+    # the counters of an entry's launches: its own, but the split FFMA's are its forward's and its dx's
+    counted = {"conv_k2_ffma_split": ("conv_k2_ffma_split", "conv_k2_dx_ffma_split")}
     entries = []
     for kernel, cases in res.items():
         entry = {
@@ -751,8 +786,9 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             "route": "cuda",
             "source": sources.get(kernel, "anytime3d_tpu_torch/kernels/csrc/conv_k2.cu"),
             "replaces": replaces[kernel],
-            "launches": sum(c[kernel] for c in paths),
-            **{f"launches_{name}": c[kernel] for name, c in zip(names, paths)},
+            "launches": sum(c[k] for c in paths for k in counted.get(kernel, (kernel,))),
+            **{f"launches_{name}": sum(c[k] for k in counted.get(kernel, (kernel,)))
+               for name, c in zip(names, paths)},
             **cases[heads[kernel]],
             "cases": cases,
         }
@@ -761,8 +797,11 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
                       "launches_wgmma": sum(c[f"{kernel}_wgmma"] for c in paths),
                       "source_narrow": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
                       "launches_narrow": sum(c[f"{kernel}_narrow"] for c in paths)}
-        if kernel in ("conv_k2", "conv_k2_dx"):  # the tensor-core launches that split their depth
+        if kernel in ("conv_k2", "conv_k2_dx"):  # the tensor-core and the FFMA launches that split their depth
             entry["launches_split"] = sum(c[f"{kernel}_split"] for c in paths)
+            entry["launches_ffma_split"] = sum(c[f"{kernel}_ffma_split"] for c in paths)
+        if kernel == "conv_k2_dw":  # the tensor-core dw launches on persistent blocks
+            entry["launches_persistent"] = sum(c["conv_k2_dw_persistent"] for c in paths)
         entries.append(entry)
     return entries
 
@@ -873,11 +912,13 @@ def phase_slice(cfg, device: torch.device, card: str) -> tuple[MultiModalVAE, di
 
 
 def phase_train_slice(cfg, device: torch.device, n: int = TRAIN_SLICE_BATCH,
-                      launches: tuple[int, int, int] = (4, 3, 4), what: str = "train slice") -> dict:
+                      launches: tuple[int, int, int] = (4, 3, 4), what: str = "train slice",
+                      ffma_split: tuple[int, int] = (0, 0)) -> dict:
     """One full-width float32 train step on ``device`` against the same step on
     the CPU: same weights, same packed batch, same injected draws; ``n``
-    items, ``launches`` forward / dx / dw on the card (FFMA). Returns the
-    card's launch counts."""
+    items, ``launches`` forward / dx / dw on the card (FFMA), ``ffma_split``'s
+    forward / dx of them with their depth split. Returns the card's launch
+    counts."""
     loss_cfg = configs.loss_config("modelnet_nolbo")
     item = cfg.decoder.output_shape
     z_dim = cfg.z_category_dim
@@ -915,7 +956,7 @@ def phase_train_slice(cfg, device: torch.device, n: int = TRAIN_SLICE_BATCH,
         results[name] = (metrics, kept, moved, state.step)
         print(f"{what} {name}: {time.perf_counter() - t0:.1f} s, {metrics}", flush=True)
         if dev.type == "cuda":
-            counts = expect_counts(f"{what}, f32", *launches, tensor_cores=False)
+            counts = expect_counts(f"{what}, f32", *launches, tensor_cores=False, ffma_split=ffma_split)
     (m_gpu, g_gpu, moved_gpu, step_gpu), (m_cpu, g_cpu, _, _) = results["card"], results["cpu"]
     for k, v in m_cpu.items():
         if not (math.isfinite(m_gpu[k]) and abs(m_gpu[k] - v) <= TRAIN_TOL_LOSS_REL * abs(v) + 1e-6):
@@ -3714,14 +3755,56 @@ def phase_mapping_dp(device: torch.device, card: str) -> dict:
 # and tail: encoder stage 3 (s2d of 16^3) and 4 (s2d of 8^3), decoder stage 2 (then d2s to 8^3) and 3 (d2s to 16^3)
 MID_K2 = [(8, 1024, 256), (4, 2048, 512), (4, 512, 2048), (8, 256, 1024)]
 # (label, batch, dtype, stages) of its kernel rows: the train step's shapes in both types, and the served batch's
-# that split their depth (the 4^3 ones and 8^3 1024 -> 256 at B=8)
+# that split their depth (the 4^3 ones and 8^3 1024 -> 256 at B=8), in both types
 MID_CASES = [("mid_b32_bf16", TRAIN_BATCH, torch.bfloat16, MID_K2), ("mid_b32_f32", TRAIN_BATCH, torch.float32, MID_K2),
              ("mid_b8_bf16_4cubed", BATCH, torch.bfloat16, [k for k in MID_K2 if k[0] == 4]),
-             ("mid_b8_bf16_8cubed", BATCH, torch.bfloat16, [MID_K2[0]])]
+             ("mid_b8_bf16_8cubed", BATCH, torch.bfloat16, [MID_K2[0]]),
+             ("mid_b8_f32_4cubed", BATCH, torch.float32, [k for k in MID_K2 if k[0] == 4]),
+             ("mid_b8_f32_8cubed", BATCH, torch.float32, [MID_K2[0]])]
 # forward / dx launches that split their depth: a served bf16 batch of 8 (8^3 1024 -> 256, 4^3 2048 -> 512 and
 # 512 -> 2048), a bf16 train step at B=32 (the forward of 4^3 2048 -> 512, the dx of 512 -> 2048)
 MID_SPLIT_SERVED = 3
 MID_SPLIT_STEP = (1, 1)
+
+
+def mid_ffma_splits(batch: int) -> tuple[int, int]:
+    """The mid_blocked stages' float32 FFMA forwards and dx at ``batch`` whose depth splits (``ffma_split``; dx:
+    the forward from N to C): 3 forwards at the served batch of 8; 4 and 4 at B=2."""
+    return (sum(ffma_split(batch, g, g, g, C, N)[0] > 1 for g, C, N in MID_K2),
+            sum(ffma_split(batch, g, g, g, N, C)[0] > 1 for g, C, N in MID_K2))
+
+
+# the bf16 dw launches of a mid_blocked train step at B=32 on the persistent kernel: its two stages at 4^3
+MID_PERSISTENT_STEP = sum(wgmma_plan(TRAIN_BATCH, g, g, g, C, N).dw_persistent is not None for g, C, N in MID_K2)
+
+
+def mid_design(kernel: str, batch: int, grid: int, C: int, N: int, dtype: torch.dtype) -> str:
+    """The design ``kernel`` takes at a mid_blocked stage (``check_kernel``'s ``want``): in bf16 the tensor-core
+    kernels, dw on persistent blocks where the plan says so; in float32 FFMA, the forward and dx with their
+    depth split where ``ffma_split`` says so (dx: the forward from N to C)."""
+    if dtype == torch.bfloat16:
+        persistent = kernel == "conv_k2_dw" and wgmma_plan(batch, grid, grid, grid, C, N).dw_persistent is not None
+        return "persistent" if persistent else "wgmma"
+    if kernel == "conv_k2_dw":
+        return "ffma"
+    c, n = (C, N) if kernel == "conv_k2" else (N, C)
+    return "ffma_split" if ffma_split(batch, grid, grid, grid, c, n)[0] > 1 else "ffma"
+
+
+def ffma_launch(kernel: str, src: torch.Tensor, w: torch.Tensor, out: torch.Tensor, splits: int):
+    """A function that launches the float32 FFMA forward (or dx) of ``src`` into ``out`` straight through the
+    library, its depth in ``splits`` runs (1: the kernel without the split), to time the two launched alike."""
+    from anytime3d_tpu_torch.kernels import conv_k2 as k2mod
+
+    B, D, H, W, depth = src.shape
+    C, N = (depth, out.shape[-1]) if kernel == "conv_k2" else (out.shape[-1], depth)
+    per_split = -(-(8 * depth // 16) // splits)
+    part = k2mod._split_workspace(splits, out)
+    wk = w.contiguous() if kernel == "conv_k2" else w.transpose(3, 4).contiguous()
+    entry = k2mod._lib().conv_k2_forward if kernel == "conv_k2" else k2mod._lib().conv_k2_backward_input
+    args = (src.data_ptr(), wk.data_ptr(), out.data_ptr(), 0 if part is None else part.data_ptr(), splits, per_split,
+            B, D, H, W, C, N, 0, out.device.index, k2mod._stream(out))
+    return lambda: k2mod._check_launch(f"{kernel} (FFMA, {splits} splits)", entry(*args))
 MID_TRAIN_STEPS = 20
 MID_SLICE_BATCH = 2  # the f32 train step also run on the CPU
 MID_SERVE_BATCHES = 5
@@ -3767,6 +3850,8 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
     beside cuDNN's k=2 call and their bound, the other tile height beside
     and, where the plan splits the depth, the plan unsplit (on the card alone
     and the host's enqueue), the split reduce's device time from the profiler;
+    in f32 at B=8 too, the split FFMA forward and dx against the kernel
+    unsplit, and the persistent dw against the grid kernel;
     the cuDNN k=4 s=2 conv or transposed conv each stage replaces (a record);
     ``SubpixelDeconv3D`` against its plain version and ``ConvTransposeEquiv3D``;
     a bf16 step with ``flat_opt=True`` beside the per-leaf Adam. Returns the
@@ -3801,15 +3886,24 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
         reset_counts()
         gpu = make_infer_fn(model_gpu)(x.to(device), mask.to(device))
         torch.cuda.synchronize()
-    add(expect_counts("mid_blocked served batch, f32", 8, 0, 0, tensor_cores=False))
+    served_splits = mid_ffma_splits(BATCH)[0]
+    add(expect_counts("mid_blocked served batch, f32", 8, 0, 0, tensor_cores=False, ffma_split=(served_splits, 0)))
     line = compare_outputs("mid_blocked served batch card vs CPU", gpu, cpu, SLICE_TOL_F32)
     if float(gpu["pred"].float().std()) < 1e-3:
         raise AssertionError("mid_blocked served batch: pred is constant")
+    # its time: on the card alone (5 batches back to back) and the profiler's busy time a batch
+    infer32, x_dev, mask_dev = make_infer_fn(model_gpu), x.to(device), mask.to(device)
+    with torch.inference_mode():
+        served32 = lambda: infer32(x_dev, mask_dev)  # noqa: E731
+        alone32, busy32 = device_ms(served32, iters=5), busy_ms(served32)
     print(f"mid_blocked modelnet_nolbo ({sum(p.numel() for p in model_cpu.parameters())} params; encoder folds "
           f"{model_cpu.encoder3d.mid}): f32 served batch of {BATCH}, card vs CPU (tol {SLICE_TOL_F32}): {line}; "
-          f"8 conv_k2 launches (FFMA); {time.perf_counter() - t0:.1f} s", flush=True)
-    del model_cpu, model_gpu
-    add(phase_train_slice(cfg, device, n=MID_SLICE_BATCH, launches=(8, 7, 8), what="mid_blocked train slice"))
+          f"8 conv_k2 launches (FFMA, {served_splits} of them with the depth split); on the card alone "
+          f"{alone32:.3f} ms a batch, device busy {busy32:.3f} ms; {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    del model_cpu, model_gpu, infer32
+    add(phase_train_slice(cfg, device, n=MID_SLICE_BATCH, launches=(8, 7, 8), what="mid_blocked train slice",
+                          ffma_split=mid_ffma_splits(MID_SLICE_BATCH)))
 
     # (b) bf16 served batches: 8 tensor-core launches each, beside the default layout's 4
     served_ms = {}
@@ -3850,8 +3944,9 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
         reset_counts()
         step_ms, host, wall, peak = timed_train(trainer, f"{label} train run")
         split = tuple(n * MID_TRAIN_STEPS for n in (MID_SPLIT_STEP if label == "mid_blocked" else (0, 0)))
+        persistent = MID_PERSISTENT_STEP * MID_TRAIN_STEPS if label == "mid_blocked" else 0
         add(expect_counts(f"{label} train run", *(n * MID_TRAIN_STEPS for n in launches), tensor_cores=True,
-                          split=split))
+                          split=split, persistent=persistent))
         hist = trainer.history
         runs[label] = (np.median(step_ms), np.median(host))
         print(f"{label} train run: {MID_TRAIN_STEPS} steps, B={TRAIN_BATCH} bf16, 64^3 packed: loss_total "
@@ -3859,7 +3954,8 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
               f"{TRAIN_WARMUP}..{MID_TRAIN_STEPS - 1}) median {np.median(step_ms):.2f} ms (min {step_ms.min():.2f}, "
               f"max {step_ms.max():.2f}); host wall per step median {np.median(host):.2f} ms; whole run {wall:.2f} s; "
               f"peak memory allocated {peak / 2**30:.2f} GiB; conv_k2 {launches[0]} / {launches[1]} / {launches[2]} "
-              f"a step, on wgmma [{card}]", flush=True)
+              f"a step, on wgmma ({persistent // MID_TRAIN_STEPS} dw a step on persistent blocks) [{card}]",
+              flush=True)
         del trainer
         torch.cuda.empty_cache()
     print(f"mid_blocked against the default layout, bf16 step at B={TRAIN_BATCH}: device {runs['mid_blocked'][0]:.2f} "
@@ -3874,24 +3970,71 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
             for grid, C, N in stages:
                 x_, w_, g_ = k2_operands(gen, (batch, grid, grid, grid), C, N, dtype)
                 exact = float64_products(x_, w_, g_) if dtype == torch.bfloat16 else {}
-                want = "wgmma" if dtype == torch.bfloat16 else "ffma"
                 for kernel, (run, plain, library) in k2_runs(x_, w_, g_).items():
                     label = f"{case} {grid}^3 {C}->{N}"
+                    want = mid_design(kernel, batch, grid, C, N, dtype)
                     checked = check_kernel(kernel, label, run, plain, exact.get(kernel), want)
                     p1, t1, t2, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
                     ms, plain_ms, library_ms = (t1 + t2) / 2, (p1 + p2) / 2, cuda_ms(library)
                     bound_ms, bound_by = k2_bound_ms(kernel, batch, C, N, dtype, grid)
                     row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                            "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": checked["design"]}
-                    extra = ""
-                    if want == "wgmma":
-                        # on the card alone, kernel and cuDNN's call in turns (the op's host side can outlast a
-                        # 0.03 ms kernel)
-                        a1, l1, l2, a2 = (device_ms(f, iters=50) for f in (run, library, library, run))
-                        row["device_ms"], row["library_device_ms"] = (a1 + a2) / 2, (l1 + l2) / 2
-                        extra += (f"; on the card alone kernel {row['device_ms']:.4f} ms ({a1:.4f}, {a2:.4f}) library "
-                                  f"{row['library_device_ms']:.4f} ms ({l1:.4f}, {l2:.4f}), kernel / library "
-                                  f"{row['device_ms'] / row['library_device_ms']:.2f}")
+                    # on the card alone, kernel and cuDNN's call in turns (the op's host side can outlast a 0.03 ms
+                    # kernel)
+                    a1, l1, l2, a2 = (device_ms(f, iters=50) for f in (run, library, library, run))
+                    row["device_ms"], row["library_device_ms"] = (a1 + a2) / 2, (l1 + l2) / 2
+                    extra = (f"; on the card alone kernel {row['device_ms']:.4f} ms ({a1:.4f}, {a2:.4f}) library "
+                             f"{row['library_device_ms']:.4f} ms ({l1:.4f}, {l2:.4f}), kernel / library "
+                             f"{row['device_ms'] / row['library_device_ms']:.2f}")
+                    if kernel == "conv_k2_dw":  # what the two write: cuDNN's weight gradient in the operands' type
+                        out_lib = library()
+                        row["library_dtype"] = str(out_lib.dtype).removeprefix("torch.")
+                        extra += (f"; cuDNN's dw is {row['library_dtype']} "
+                                  f"({out_lib.numel() * out_lib.element_size() / 1e6:.1f} MB), this one float32 "
+                                  f"({8 * C * N * 4 / 1e6:.1f} MB)")
+                    if want == "persistent":
+                        # against the grid kernel (the route before it) on the same operands, launched the same
+                        # way, on the card alone in turns
+                        plan = wgmma_plan(batch, grid, grid, grid, C, N)
+                        grid_plan = wgmma_plan(batch, grid, grid, grid, C, N, persistent_dw=False)
+                        walk, out, other = plan.dw_persistent, run(), torch.empty(2, 2, 2, C, N, device=device)
+                        k2mod.dw_wgmma(x_, g_, other, grid_plan)
+                        torch.cuda.synchronize()
+                        off = float((other - out).abs().max())
+                        if off > 2 * K2_TOL_DW_F64_REL * float(out.abs().max()):
+                            raise AssertionError(f"{kernel} {label}: the grid kernel differs by {off}")
+                        by_plan = lambda: k2mod.dw_wgmma(x_, g_, other, plan)
+                        by_grid = lambda: k2mod.dw_wgmma(x_, g_, other, grid_plan)
+                        q1, u1, u2, q2 = (device_ms(f, iters=50) for f in (by_plan, by_grid, by_grid, by_plan))
+                        row |= {"device_ms_persistent": (q1 + q2) / 2, "device_ms_grid": (u1 + u2) / 2,
+                                "tiles": walk.tiles, "splits": walk.splits}
+                        extra += (f"; {walk.tiles} tiles of 128 x {walk.bn} on {walk.grid} blocks, the rows in "
+                                  f"{walk.splits} split(s) of {walk.stages_per_split} stages; launched directly, "
+                                  f"persistent {(q1 + q2) / 2:.4f} ms ({q1:.4f}, {q2:.4f}), the grid kernel "
+                                  f"{grid_plan.dw_grid} {(u1 + u2) / 2:.4f} ms ({u1:.4f}, {u2:.4f}), "
+                                  f"{off:.1e} apart")
+                    if want == "ffma_split":
+                        # against the FFMA kernel without the split, both launched straight through the library,
+                        # on the card alone in turns, and the host's time to enqueue each
+                        src, out = (x_, run()) if kernel == "conv_k2" else (g_, run())
+                        cin, cout = (C, N) if kernel == "conv_k2" else (N, C)
+                        splits, per_split = ffma_split(batch, grid, grid, grid, cin, cout)
+                        other = torch.empty_like(out)
+                        by_plan, by_un = (ffma_launch(kernel, src, w_, other, n) for n in (splits, 1))
+                        by_un()
+                        torch.cuda.synchronize()
+                        off = float((other - out).abs().max())
+                        if off > 2 * K2_TOL_F32:  # two f32 sums in other orders, each within K2_TOL_F32 of plain
+                            raise AssertionError(f"{kernel} {label}: unsplit differs from split by {off}")
+                        q1, u1, u2, q2 = (device_ms(f, iters=20) for f in (by_plan, by_un, by_un, by_plan))
+                        h1, v1, v2, h2 = (host_enqueue_ms(f, iters=20) for f in (by_plan, by_un, by_un, by_plan))
+                        row |= {"device_ms_split": (q1 + q2) / 2, "device_ms_unsplit": (u1 + u2) / 2,
+                                "host_ms_split": (h1 + h2) / 2, "host_ms_unsplit": (v1 + v2) / 2, "splits": splits,
+                                "stages_per_split": per_split}
+                        extra += (f"; the depth in {splits} splits of {per_split} stages of 16; launched directly, "
+                                  f"on the card alone split {(q1 + q2) / 2:.4f} ms ({q1:.4f}, {q2:.4f}) unsplit "
+                                  f"{(u1 + u2) / 2:.4f} ms ({u1:.4f}, {u2:.4f}), host enqueue split "
+                                  f"{(h1 + h2) / 2:.4f} ms unsplit {(v1 + v2) / 2:.4f} ms, {off:.1e} apart")
                     if want == "wgmma" and kernel != "conv_k2_dw":
                         # the other tile height (128 <-> 256 rows) where the grid allows it, launched directly
                         cin, cout = (C, N) if kernel == "conv_k2" else (N, C)
@@ -3975,6 +4118,12 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
         if reduce_ms <= 0 or split_ms <= 0:
             raise AssertionError(f"the profiler saw no split kernel or reduce: {prof}")
         del part, x_, w_
+    # the rows of this PR's two designs: the float32 FFMA forward and dx with their depth split, and the bf16 dw on
+    # persistent blocks
+    rows["conv_k2_ffma_split"] = {f"{kernel} {label}": row for kernel in ("conv_k2", "conv_k2_dx")
+                                  for label, row in rows[kernel].items() if row["design"] == "ffma_split"}
+    rows["conv_k2_dw_persistent"] = {label: row for label, row in rows["conv_k2_dw"].items()
+                                     if row["design"] == "persistent"}
 
     # (e) a record: the cuDNN k=4 s=2 conv or transposed conv each stage replaces, beside the stage's mid_blocked
     # layer (space-to-depth + conv_k2, or conv_k2 + depth-to-space), bf16 at B=32, forward and forward + backward
@@ -4112,7 +4261,8 @@ def main() -> None:
                              mid_counts)
     # every kernel, and every design of the three, went through the main paths
     for e in entries:
-        for key in ("launches", "launches_wgmma", "launches_narrow", "launches_split"):
+        for key in ("launches", "launches_wgmma", "launches_narrow", "launches_split", "launches_ffma_split",
+                    "launches_persistent"):
             if e.get(key, 1) < 1:
                 raise AssertionError(f"{e['name']}: {key} {e[key]} on the main paths")
     print(card, flush=True)

@@ -329,6 +329,126 @@ def test_split_with_64_columns_matches_plain_and_float64(cuda, B, C, N):
     assert wgmma_plan(B, 4, 4, 4, 512, 64).bn == 64
 
 
+def _f32_forward64(x, w):
+    """conv_k2(x, w) as a float64 product of the same operands, tap by tap."""
+    _, D, H, W, C = x.shape
+    xp = torch.nn.functional.pad(x.double(), (0, 0) + (0, 1) * 3)
+    w64 = w.double().reshape(8, C, -1)
+    return sum(xp[:, t >> 2:(t >> 2) + D, (t >> 1) & 1:((t >> 1) & 1) + H, t & 1:(t & 1) + W] @ w64[t]
+               for t in range(8))
+
+
+def _ffma_split_counts():
+    return conv_k2.launches_ffma_split, conv_k2.launches_dx_ffma_split
+
+
+# (B, grid, C, N) of the float32 mid_blocked stages whose FFMA forward or dx splits its depth (k2.ffma_split): 4^3
+# both ways at B=2, 8 and 32 (the forward of 2048 -> 512 in 64, 16 and 4 splits; the dx of 512 -> 2048 likewise;
+# the forward of 512 -> 2048 at B=32, 256 tiles, in one), 8^3 1024 -> 256 at B=8 (4 splits, its dx one)
+FFMA_SPLIT_CASES = [(B, 4, C, N) for B in (2, 8, 32) for C, N in MID_4CUBED] + [(8, 8, 1024, 256)]
+
+
+@pytest.mark.parametrize("B,G,C,N", FFMA_SPLIT_CASES)
+def test_ffma_split_forward_and_dx_match_plain_and_float64(cuda, B, G, C, N):
+    """The float32 FFMA forward and dx of the mid_blocked stages: each split's f32 partial to the workspace,
+    then conv_k2_dw_reduce_kernel in ascending order, both launched by one call into the library; the split
+    counters moving with ``ffma_split``; the same bits from two runs; against the plain version at this file's
+    f32 tolerance (1e-4: summation order, O(1) outputs) and, kernel and plain version, against a float64 product
+    of the same operands: f32 chains of up to 16384 adds (2^-24 each, growing as their square root) and the
+    partials' sum, 5e-5 of the largest entry."""
+    fwd, dx_split = k2.ffma_split(B, G, G, G, C, N), k2.ffma_split(B, G, G, G, N, C)
+    assert max(fwd[0], dx_split[0]) > 1
+    gen = torch.Generator().manual_seed(29)
+    x = torch.randn(B, G, G, G, C, generator=gen).to(cuda)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda)
+    g = torch.randn(B, G, G, G, N, generator=gen).to(cuda)
+    with torch.inference_mode():
+        before, before_split = _counts(), _ffma_split_counts()
+        y, dx = conv_k2(x, w), k2.conv_k2_dx(g, w)
+        again = conv_k2(x, w), k2.conv_k2_dx(g, w)
+        assert _counts()[:2] == (before[0] + 2, before[1] + 2)
+        moved = [a - b for a, b in zip(_ffma_split_counts(), before_split)]
+        assert moved == [2 * (fwd[0] > 1), 2 * (dx_split[0] > 1)]
+        y_ref, dx_ref = conv_k2_reference(x, w), k2.conv_k2_dx_reference(g, w)
+        y64, dx64 = _f32_forward64(x, w), _dx_float64(g, w)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again[0]) and torch.equal(dx, again[1])
+    for out, ref, exact in ((y, y_ref, y64), (dx, dx_ref, dx64)):
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        assert float((out - ref).abs().max()) <= 1e-4
+        tol64 = 5e-5 * float(exact.abs().max())
+        assert float((out.double() - exact).abs().max()) <= tol64
+        assert float((ref.double() - exact).abs().max()) <= tol64
+
+
+# (B, grid, C, N) of the tensor-core dw at the five mid_blocked shapes of the record: 4^3 both ways at B=8 and 32
+# (the plan's dw on the persistent kernel) and 8^3 1024 -> 256 at B=8 (the grid kernel's, 2 splits)
+PERSISTENT_DW_CASES = [(B, 4, C, N) for B in (8, 32) for C, N in MID_4CUBED] + [(8, 8, 1024, 256)]
+
+
+def _check_dw(dw, x, g):
+    """dw (f32) of bf16 x and g against its plain version (twice the float64 tolerance) and, with the plain
+    version, against the float64 sum of the same products (DW_TOL_F64_REL of the largest entry)."""
+    ref, dw64 = conv_k2_dw_reference(x, g), _dw_float64(x, g)
+    tol = DW_TOL_F64_REL * float(dw64.abs().max())
+    assert dw.dtype == torch.float32 and dw.shape == ref.shape
+    assert float((dw - ref).abs().max()) <= 2 * tol
+    assert float((dw.double() - dw64).abs().max()) <= tol and float((ref.double() - dw64).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("B,G,C,N", PERSISTENT_DW_CASES)
+def test_persistent_dw_matches_plain_and_float64(cuda, B, G, C, N):
+    """The bfloat16 dw of the mid_blocked stages: the op (``launches_dw_persistent`` moves at 4^3, where the
+    plan takes the persistent kernel, and not at 8^3) and the persistent kernel launched directly
+    (``persistent_dw=True``), each against its plain version and float64 and the same bits from two calls; the
+    grid kernel on the same operands (``persistent_dw=False``) gives the persistent kernel's bits where the two
+    cut the rows into the same splits (the same products added in the same order), else agrees within the
+    plain version's tolerance."""
+    walk = wgmma_plan(B, G, G, G, C, N).dw_persistent
+    assert (walk is not None) == (G == 4)
+    persistent = wgmma_plan(B, G, G, G, C, N, persistent_dw=True)
+    grid_plan = wgmma_plan(B, G, G, G, C, N, persistent_dw=False)
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, torch.bfloat16)
+    g = torch.randn(B, G, G, G, N, generator=gen).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        before, before_wg, before_p = _counts(), _wgmma_counts(), conv_k2.launches_dw_persistent
+        dw, again = conv_k2_dw(x, g), conv_k2_dw(x, g)
+        assert _counts()[2] == before[2] + 2 and _wgmma_counts()[2] == before_wg[2] + 2
+        assert conv_k2.launches_dw_persistent == before_p + 2 * (walk is not None)
+        launched, other = (torch.empty_like(dw) for _ in range(2))
+        k2.dw_wgmma(x, g, launched, persistent)
+        k2.dw_wgmma(x, g, other, grid_plan)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, again)
+    for out in (dw, launched):
+        _check_dw(out, x, g)
+    walk = persistent.dw_persistent
+    if (walk.splits, walk.stages_per_split) == grid_plan.dw_grid[2:] + (grid_plan.dw_stages_per_split,):
+        assert torch.equal(launched, other)
+    else:
+        assert float((launched - other).abs().max()) <= 2 * DW_TOL_F64_REL * float(other.abs().max())
+
+
+@pytest.mark.parametrize("B,C,N", [(8, 64, 512), (8, 128, 512)])
+def test_persistent_dw_at_a_flagship_stage(cuda, B, C, N):
+    """The persistent dw launched at the flagship's 16^3 stages (``persistent_dw=True``; the plan keeps the
+    grid kernel there): 8 and 16 tiles, the rows in 16 and 8 splits, then the reduce; against the plain version
+    and float64, the same bits twice."""
+    plan = wgmma_plan(B, 16, 16, 16, C, N, persistent_dw=True)
+    assert plan.dw_persistent.splits > 1 and wgmma_plan(B, 16, 16, 16, C, N).dw_persistent is None
+    gen = torch.Generator().manual_seed(37)
+    x = torch.randn(B, 16, 16, 16, C, generator=gen).to(cuda, torch.bfloat16)
+    g = torch.randn(B, 16, 16, 16, N, generator=gen).to(cuda, torch.bfloat16)
+    dw, again = (torch.empty(2, 2, 2, C, N, device=cuda) for _ in range(2))
+    with torch.inference_mode():
+        k2.dw_wgmma(x, g, dw, plan)
+        k2.dw_wgmma(x, g, again, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, again)
+    _check_dw(dw, x, g)
+
+
 def test_odd_batch_at_4cubed_takes_ffma(cuda):
     """B = 7 at 4^3: no box of whole items tiles the rows, so no plan; the
     forward, dx and dw run on the FFMA kernels (no tensor-core counter moves)
@@ -625,9 +745,10 @@ def test_small_bf16_slice_on_card_takes_tensor_cores(cuda):
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 64, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64)),
                                          (torch.bfloat16, (2, 8, 8, 8, 32, 8)), (torch.float32, (1, 3, 4, 5, 8, 16)),
                                          (torch.bfloat16, (4, 4, 4, 4, 64, 64)),
-                                         (torch.bfloat16, (2, 4, 4, 4, 256, 256))],
+                                         (torch.bfloat16, (2, 4, 4, 4, 256, 256)),
+                                         (torch.float32, (2, 4, 4, 4, 512, 64))],
                          ids=["f32_ffma", "bf16_wgmma", "bf16_narrow", "f32_narrow", "bf16_wgmma_4cubed",
-                              "bf16_wgmma_split"])
+                              "bf16_wgmma_split", "f32_ffma_split"])
 @pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
 def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     """The three ops on CUDA tensors: schema, autograd registration (the
@@ -637,13 +758,18 @@ def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     a plan (8^3, and 4^3, whose boxes span two items), so the tensor-core
     kernels answer; at 32 -> 8, where the narrow
     forward, dx (8 -> 32) and dw do; in float32 at 8 -> 16, where the
-    narrow FFMA forward, dx (16 -> 8) and dw do; and in bfloat16 at 4^3, 256
-    -> 256, B=2, whose forward and dx split their depth in two and reduce."""
+    narrow FFMA forward, dx (16 -> 8) and dw do; in bfloat16 at 4^3, 256
+    -> 256, B=2, whose forward and dx split their depth in two and reduce (and
+    whose dw is the persistent kernel); and in float32 at 4^3, 512 -> 64, B=2,
+    whose FFMA forward splits its depth in 16 and dx in 2."""
     *grid, C, N = shape
     assert (narrow_plan(*grid, C, N, dtype=dtype) is None) == (shape[4] >= 64)
     assert (narrow_plan(*grid, N, C, dtype=dtype) is None) == (shape[4] >= 64)
     if C == 256:
         assert wgmma_plan(*grid, C, N).splits == wgmma_plan(*grid, N, C).splits == 2
+        assert wgmma_plan(*grid, C, N).dw_persistent is not None
+    if C == 512:
+        assert k2.ffma_split(*grid, C, N)[0] == 16 and k2.ffma_split(*grid, N, C)[0] == 2
     gen = torch.Generator().manual_seed(4)
     x = torch.randn(*grid, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, N, generator=gen) * 0.1).to(cuda)

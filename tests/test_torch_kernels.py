@@ -12,6 +12,7 @@ the plain versions and the JAX package, and which kernel each dtype and shape
 is routed to."""
 
 import ctypes
+import dataclasses
 import math
 import os
 import subprocess
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from anytime3d_tpu.kernels.conv_k2 import conv_k2 as jax_conv_k2
 from anytime3d_tpu.kernels.conv_k2 import _conv_k2_bwd_impl, conv_k2_xla
@@ -498,6 +500,227 @@ def test_split_depth_partials_give_the_forward_and_dx(B, C, N):
         out, written = _emulate_split(src, w, plan, dx)
         assert (written == 1).all()
         np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5 * float(ref.abs().max()), rtol=0)
+
+
+# ---- the float32 FFMA forward's split depth (ffma_split) and the persistent tensor-core dw ----
+
+# (B, D, H, W, C, N) of the mid_blocked stages (4^3 and 8^3) at the served and the train batch and below, and
+# small grids whose tiles leave the card idle
+FFMA_SPLIT_SHAPES = ([(B, G, G, G, C, N) for B in (1, 2, 8, 32) for G, C, N in
+                      ((8, 1024, 256), (4, 2048, 512), (4, 512, 2048), (8, 256, 1024))]
+                     + [(2, 8, 8, 8, 64, 8), (2, 5, 6, 7, 24, 16), (3, 2, 2, 2, 8, 4), (1, 4, 4, 4, 136, 200)])
+# (splits, stages_per_split) of the forward (and of dx, the forward from N to C) of the mid_blocked stages at the
+# served batch and the train batch: 4^3 2048 -> 512 at B=8 has 16 tiles of 128 x 128 on 264 block slots, 1024
+# stages deep: 16 splits of 64; at B=32 64 tiles, 4 of 256; 512 -> 2048 (the dx of 2048 -> 512) 64 tiles at
+# B=8, 4 splits; 8^3 1024 -> 256 at B=8 64 tiles, 4 splits
+FFMA_SPLIT = {(8, 4, 4, 4, 2048, 512): (16, 64), (32, 4, 4, 4, 2048, 512): (4, 256), (8, 4, 4, 4, 512, 2048): (4, 64),
+              (32, 4, 4, 4, 512, 2048): (1, 256), (8, 8, 8, 8, 1024, 256): (4, 128), (8, 8, 8, 8, 256, 1024): (1, 128),
+              (32, 8, 8, 8, 1024, 256): (1, 512), (32, 8, 8, 8, 256, 1024): (1, 128)}
+# the shapes of the default layouts, which keep one split at every batch: the flagship's four 16^3 convs (and the
+# dx of each), the s2d(2) stem at 32^3, the detector decoder's last conv at 32^3 (its training batch and the scene
+# pass's 1024 decodes), the sub-pixel deconv on 17^3
+FFMA_ONE_SPLIT = ([(B, 16, 16, 16, C, N) for B in (1, 2, 4, 8, 32) for C, N in FLAGSHIP_K2]
+                  + [(B, 32, 32, 32, 8, 64) for B in (1, 8, 32)] + [(B, 32, 32, 32, 32, 8) for B in (2, 8, 32, 1024)]
+                  + [(8, 17, 17, 17, 64, 64)])
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", FFMA_SPLIT_SHAPES + FFMA_ONE_SPLIT)
+def test_ffma_split_covers_every_stage_once(B, D, H, W, C, N):
+    """The FFMA forward's split (and dx's: the forward from N to C), at 132 SMs and at 8: every one of the 8C/16
+    stages in one run, in order, none empty; more than one run only on a grid of at most 8^3 voxels an item
+    whose tiles fill at most half a wave of blocks (two of the 128-column tile an SM, four of the 64-column one)
+    and whose depth allows two runs of 16 stages; then each run at least 16 deep and the blocks within one
+    wave; the partials' workspace at most 64 MiB (the largest, 4^3 2048 -> 512 at B=32: 16 MiB)."""
+    for sms in (132, 8):
+        for c, n in ((C, N), (N, C)):
+            splits, per_split = k2.ffma_split(B, D, H, W, c, n, sms=sms)
+            stages = -(-8 * c // 16)
+            runs = [range(z * per_split, min(stages, (z + 1) * per_split)) for z in range(splits)]
+            assert [s for r in runs for s in r] == list(range(stages)) and all(len(r) > 0 for r in runs)
+            bn, per_sm = (64, 4) if n <= 64 else (128, 2)
+            tiles = -(-B * D * H * W // 128) * -(-n // bn)
+            assert (splits > 1) == (D * H * W <= 512 and 2 * tiles <= per_sm * sms and stages >= 32)
+            assert splits == 1 or (per_split >= 16 and tiles * splits <= per_sm * sms)
+            assert (splits if splits > 1 else 0) * B * D * H * W * n * 4 <= 2**26
+
+
+@pytest.mark.parametrize("shape", sorted(FFMA_SPLIT))
+def test_ffma_split_of_the_mid_blocked_stages(shape):
+    assert k2.ffma_split(*shape) == FFMA_SPLIT[shape]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", FFMA_ONE_SPLIT)
+def test_ffma_split_keeps_one_split_on_the_default_layouts(B, D, H, W, C, N):
+    """Every 16^3 and larger grid keeps the one split of all stages, forward and dx, at every batch."""
+    for c, n in ((C, N), (N, C)):
+        assert k2.ffma_split(B, D, H, W, c, n) == (1, -(-8 * c // 16))
+
+
+def _shifted_rows(src, tap, sign):
+    """Rows m of ``src`` (B,D,H,W,K) read at (d, h, w) + sign * tap, zeros off the grid: the FFMA loader's
+    A operand for one tap (the forward +1, dx -1)."""
+    B, D, H, W, K = src.shape
+    dz, dy, dx = tap >> 2, (tap >> 1) & 1, tap & 1
+    pad = F.pad(src, (0, 0, 1, 1, 1, 1, 1, 1))
+    return pad[:, 1 + sign * dz:1 + sign * dz + D, 1 + sign * dy:1 + sign * dy + H,
+               1 + sign * dx:1 + sign * dx + W].reshape(-1, K)
+
+
+def _emulate_ffma_split(src, w2, splits, per_split, sign):
+    """The FFMA forward (``sign`` 1; dx: -1 over g, ``w2`` = w^T [8N, C]) as its split instance walks the depth:
+    split z sums the stages [z per_split, ...) of 16 depth entries (tap, channel) into an f32 partial, and the
+    partials are added in ascending order (conv_k2_dw_reduce_kernel). Returns the sum and how often each depth
+    entry entered it."""
+    K = src.shape[-1]
+    taps = [_shifted_rows(src, t, sign) for t in range(8)]
+    a = torch.cat(taps, dim=1)  # [M, 8K], depth (tap, channel)
+    seen = torch.zeros(8 * K, dtype=torch.int64)
+    part = torch.zeros(splits, a.shape[0], w2.shape[1])
+    for z in range(splits):
+        for s in range(z * per_split, min(8 * K // 16, (z + 1) * per_split)):
+            part[z] += a[:, 16 * s:16 * s + 16] @ w2[16 * s:16 * s + 16]
+            seen[16 * s:16 * s + 16] += 1
+    total = part[0].clone()
+    for z in range(1, splits):
+        total += part[z]
+    return total.reshape(*src.shape[:4], -1), seen
+
+
+@pytest.mark.parametrize("C,N", [(2048, 512), (512, 2048), (256, 64), (128, 24)])
+def test_ffma_split_partials_give_the_forward_and_dx(C, N):
+    """At 4^3, B=2 (each of these splits its forward or dx, 4 to 64 runs; 24 columns a ragged tile): the split
+    runs' f32 partials summed in order equal ``conv_k2_reference`` and ``conv_k2_dx_reference`` at the f32
+    tolerance of this file (summation order only: 1e-5 of the largest entry)."""
+    B = 2
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.normal(size=(B, 4, 4, 4, C)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(2, 2, 2, C, N)) / math.sqrt(8 * C)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(B, 4, 4, 4, N)).astype(np.float32))
+    fwd, dx = k2.ffma_split(B, 4, 4, 4, C, N), k2.ffma_split(B, 4, 4, 4, N, C)
+    assert max(fwd[0], dx[0]) > 1
+    for src, w2, (splits, per), sign, ref in (
+            (x, w.reshape(8 * C, N), fwd, 1, conv_k2_reference(x, w)),
+            (g, w.transpose(3, 4).reshape(8 * N, C), dx, -1, conv_k2_dx_reference(g, w))):
+        out, seen = _emulate_ffma_split(src, w2, splits, per, sign)
+        assert (seen == 1).all()
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5 * float(ref.abs().max()), rtol=0)
+
+
+# (B, D, H, W, C, N) of the persistent dw: the mid_blocked stages at 4^3, at the served and the train batch, and
+# small shapes (2^3; a reduction of 32 stages over 4 tiles, in two splits); and its plan's (bn, tiles, splits,
+# stages_per_split, grid) at 132 SMs
+PERSISTENT_DW = {(8, 4, 4, 4, 2048, 512): (256, 256, 1, 8, 132), (8, 4, 4, 4, 512, 2048): (256, 256, 1, 8, 132),
+                 (32, 4, 4, 4, 2048, 512): (256, 256, 1, 32, 132), (32, 4, 4, 4, 512, 2048): (256, 256, 1, 32, 132),
+                 (2, 4, 4, 4, 256, 256): (256, 16, 1, 2, 16), (16, 2, 2, 2, 64, 256): (256, 4, 1, 2, 4),
+                 (32, 4, 4, 4, 64, 256): (256, 4, 2, 16, 8)}
+
+
+@pytest.mark.parametrize("shape", sorted(PERSISTENT_DW))
+def test_persistent_dw_walk_covers_every_tile_and_stage_once(shape):
+    """The persistent dw's plan fits one block an SM (a ring of at least 3 stages and the store's chunk buffers,
+    two of 2 KB a consumer warp, in 227 KB), and its walk, block i taking items i, i + grid, ... of (split, row
+    tile, column tile), splits fastest, reduces every stage of 64 rows into every output tile once; at 132 SMs
+    and at 8."""
+    B, D, H, W, C, N = shape
+    for sms in (132, 8):
+        p = wgmma_plan(*shape, sms=sms).dw_persistent
+        bn, tiles, splits, per_split, grid = PERSISTENT_DW[shape] if sms == 132 else (p.bn, p.tiles, p.splits,
+                                                                                        p.stages_per_split, p.grid)
+        assert (p.bn, p.tiles, p.splits, p.stages_per_split, p.grid) == (bn, tiles, splits, per_split, grid)
+        stage = (2 + bn // 64) * 8192
+        assert 3 <= p.stages <= 8 and p.smem_bytes == 2048 + p.stages * stage + 8 * 2 * 2048 <= SMEM_PER_BLOCK
+        assert bn == 256 and tiles == 8 * C // 128 * (N // bn)
+        total = B * D * H * W // 64
+        assert (splits - 1) * per_split < total <= splits * per_split
+        assert splits == 1 or (per_split >= 16 and 2 * tiles <= sms and tiles * splits <= sms)
+        assert grid == min(tiles * splits, sms)
+        rows, cols = 8 * C // 128, N // bn
+        depth = np.zeros((rows, cols, total), np.int32)
+        for block in range(grid):
+            for item in range(block, tiles * splits, grid):
+                z, rest = item % splits, item // splits
+                rt, ct = rest % rows, rest // rows
+                depth[rt, ct, z * per_split:min(total, (z + 1) * per_split)] += 1
+        assert (depth == 1).all()
+
+
+def test_persistent_dw_is_kept_off_the_default_layouts():
+    """The flagship's 16^3 dw, every grid of more than 4^3 an item (the mid_blocked 8^3 stages too, where the
+    persistent kernel measured no faster than the grid kernel), and N not a multiple of 256 keep the grid
+    kernel; ``persistent_dw=False`` gives the plan without it, every other field the same."""
+    for shape in [(B, 16, 16, 16, C, N) for B in (1, 8, 32) for C, N in FLAGSHIP_K2] + [
+            (B, 8, 8, 8, C, N) for B in (8, 32) for C, N in ((1024, 256), (256, 1024))] + [
+            (3, 32, 32, 32, 128, 64), (1, 8, 8, 8, 64, 64), (2, 4, 4, 4, 64, 64), (2, 4, 4, 4, 64, 128)]:
+        assert wgmma_plan(*shape).dw_persistent is None
+    for shape in PERSISTENT_DW:
+        p, q = wgmma_plan(*shape), wgmma_plan(*shape, persistent_dw=False)
+        assert p.dw_persistent is not None and q.dw_persistent is None
+        assert dataclasses.replace(p, dw_persistent=None) == q
+
+
+def _emulate_persistent_dw(x, g, plan):
+    """dw as the persistent kernel walks it: per item the stages of its split, two boxes of x a stage (one for
+    each 64 output rows of the tile) against 64 rows of g; each split's partial, then the splits summed in
+    ascending order."""
+    B, D, H, W, C = x.shape
+    N = g.shape[-1]
+    walk, g2 = plan.dw_persistent, g.reshape(-1, N)
+    total, rows = g2.shape[0] // 64, 8 * C // 128
+    part = torch.zeros(walk.splits, 8 * C, N)
+    for block in range(walk.grid):
+        for item in range(block, walk.tiles * walk.splits, walk.grid):
+            z, rest = item % walk.splits, item // walk.splits
+            r0, n0 = rest % rows * 128, rest // rows * walk.bn
+            for stage in range(z * walk.stages_per_split, min(total, (z + 1) * walk.stages_per_split)):
+                m0 = stage * 64
+                for half in range(2):
+                    r = r0 + 64 * half
+                    a = _box_read(x, _origin(m0, D, H, W), plan.dw_box, r // C, r % C, items=plan.dw_box_items)
+                    part[z, r:r + 64, n0:n0 + walk.bn] += a.T @ g2[m0:m0 + 64, n0:n0 + walk.bn]
+    dw = part[0].clone()
+    for z in range(1, walk.splits):
+        dw += part[z]
+    return dw.reshape(2, 2, 2, C, N)
+
+
+@pytest.mark.parametrize("B,D,C,N,sms", [(2, 4, 64, 256, 132), (32, 4, 64, 256, 8), (4, 4, 64, 256, 2)])
+def test_persistent_dw_walk_gives_dw(B, D, C, N, sms):
+    """The emulated persistent walk (one split; two splits; one, each block walking several items) equals
+    ``conv_k2_dw_reference`` and the JAX package's dw: f32, summation order only, 1e-5 of the largest entry."""
+    plan = wgmma_plan(B, D, D, D, C, N, sms=sms)
+    assert plan.dw_persistent.splits == (1, 2, 1)[(132, 8, 2).index(sms)]
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(B, D, D, D, C)).astype(np.float32)
+    g = rng.normal(size=(B, D, D, D, N)).astype(np.float32)
+    dw = _emulate_persistent_dw(torch.from_numpy(x), torch.from_numpy(g), plan)
+    ref = conv_k2_dw_reference(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(dw.numpy(), ref, atol=tol, rtol=0)
+    jax_dw = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.zeros((2, 2, 2, C, N), jnp.float32),
+                                          jnp.asarray(g))[1])
+    np.testing.assert_allclose(dw.numpy(), jax_dw, atol=tol, rtol=0)
+
+
+def test_persistent_dw_chunk_writes_land_on_the_swizzled_box():
+    """The persistent dw's store: a warp writes accumulator entries (row lane/4 and lane/4 + 8, columns
+    8 jj + 2 (lane % 4), + 1 for jj < 4) of a chunk of 32 f32 columns at buf + 128 row + 16 ((2 jj + q/2) ^
+    (row % 8)) + 8 (q % 2), which under the TMA's 128-byte swizzle (the 16-byte unit XOR the row's bits 7..9 of
+    a 1024-aligned box) is element (row, column) of the 16 x 32 box, each once; each of the 8 write instructions
+    (jj, upper half or not) puts the 32 lanes' 8 bytes into 2 wavefronts: every bank at most twice."""
+    covered = np.zeros((16, 32), np.int32)
+    for jj in range(4):
+        for upper in (0, 1):
+            banks = np.zeros(32, np.int32)
+            for lane in range(32):
+                q, lr = lane % 4, lane // 4
+                off = lr * 128 + (((2 * jj + (q >> 1)) ^ lr) << 4) + (q & 1) * 8 + upper * 8 * 128
+                row = off // 128
+                col = (((off % 128) // 16) ^ (row % 8)) * 4 + off % 16 // 4
+                assert (row, col) == (lr + 8 * upper, 8 * jj + 2 * q)
+                covered[row, col:col + 2] += 1
+                banks[[off // 4 % 32, off // 4 % 32 + 1]] += 1
+            assert banks.max() <= 2
+    assert (covered == 1).all()
 
 
 # small grids, cubes and not: the box spans two d-planes (8^3), part of a
@@ -1085,23 +1308,26 @@ def routes(monkeypatch):
 # (B, D, H, W, C, N, dtype, forward, dx, dw): the entry points each kernel takes ("/split": with the plan's
 # depth split, the entry then launching the reduce too). The detector's 32 -> 8, bf16 and float32: all three
 # narrow (dx by the plan of 8 -> 32); bf16 64 -> 8: the forward and dw narrow, dx FFMA (8 -> 64 has no narrow
-# plan); float32 64 -> 8 (256-byte rows, and 8 -> 64): all FFMA; bf16 with a plan: all three wgmma, at 4^3
-# (mid_blocked) the forward and dx with their split, at 16^3 and B=4 (the lifecycle's) without; the s2d(2)
-# stem 8 -> 64: the forward FFMA, dx narrow (64 -> 8), dw on the dw-only narrow plan in bf16, FFMA in float32
+# plan); float32 64 -> 8 (256-byte rows, and 8 -> 64): all FFMA, the forward's 32 stages in 2 splits (8^3: its
+# 8 tiles leave the card idle); bf16 with a plan: all three wgmma, at 4^3 (mid_blocked) the forward and dx with
+# their split and dw on the persistent kernel, at 16^3 and B=4 (the lifecycle's) without either, at 8^3 and
+# N = 64 dw on the grid kernel; float32 at 4^3: FFMA, the forward and dx split; the s2d(2) stem 8 -> 64: the
+# forward FFMA, dx narrow (64 -> 8), dw on the dw-only narrow plan in bf16, FFMA in float32
 ROUTES = [(2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 32, 8, torch.float32, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 64, 8, torch.bfloat16, "forward_narrow", "backward_input", "backward_weight_narrow"),
-          (2, 8, 8, 8, 64, 8, torch.float32, "forward", "backward_input", "backward_weight"),
+          (2, 8, 8, 8, 64, 8, torch.float32, "forward/split", "backward_input", "backward_weight"),
           (1, 8, 8, 8, 64, 64, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma"),
           (8, 4, 4, 4, 2048, 512, torch.bfloat16, "forward_wgmma/split", "backward_input_wgmma/split",
-           "backward_weight_wgmma"),
+           "backward_weight_persistent"),
           (32, 4, 4, 4, 512, 2048, torch.bfloat16, "forward_wgmma", "backward_input_wgmma/split",
-           "backward_weight_wgmma"),
+           "backward_weight_persistent"),
+          (8, 4, 4, 4, 2048, 512, torch.float32, "forward/split", "backward_input/split", "backward_weight"),
           (4, 16, 16, 16, 512, 128, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma"),
           (1, 32, 32, 32, 8, 64, torch.bfloat16, "forward", "backward_input_narrow", "backward_weight_narrow"),
           (1, 32, 32, 32, 8, 64, torch.float32, "forward", "backward_input", "backward_weight")]
 _COUNTERS = ("launches_narrow", "launches_dx_narrow", "launches_dw_narrow", "launches_split", "launches_dx_split",
-             "launches_dw_wide")
+             "launches_dw_wide", "launches_ffma_split", "launches_dx_ffma_split", "launches_dw_persistent")
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N,dtype,fwd,dx,dw", ROUTES)
@@ -1110,7 +1336,9 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
     dtype's code; the narrow dx with the plan of the forward from N to C, ``narrow_plan(B, D, H, W, N, C)`` of
     its dtype, and w'[s] = w[7 - s]^T laid out as (2, 2, 2, N, C); the narrow dw with the plan's dw part (or the
     dw-only plan's) and the dtype's code; the tensor-core forward and dx with their plan's tiles and splits, and
-    where it splits a workspace for its partials; the counters of the route taken."""
+    where it splits a workspace for its partials; the FFMA forward and dx with ``ffma_split``'s (dx: of the
+    forward from N to C) and likewise a workspace; the persistent dw with its plan; the counters of the route
+    taken."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(B, D, H, W, C, generator=gen).to(dtype)
     w = torch.randn(2, 2, 2, C, N, generator=gen)
@@ -1120,8 +1348,9 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
     assert [name for name, _ in routes.calls] == [f"conv_k2_{route.split('/')[0]}" for route in (fwd, dx, dw)]
     moved = [getattr(conv_k2, c) - b for c, b in zip(_COUNTERS, before)]
     wide = dw == "backward_weight_narrow" and N == 64
+    wg_split, ffma_split = [[int(r.endswith("/split") and ("wgmma" in r) == tc) for r in (fwd, dx)] for tc in (1, 0)]
     assert moved == [int(fwd.endswith("narrow")), int(dx.endswith("narrow")), int(dw.endswith("narrow")),
-                     int(fwd.endswith("/split")), int(dx.endswith("/split")), int(wide)]
+                     *wg_split, int(wide), *ffma_split, int(dw == "backward_weight_persistent")]
     fargs = routes.calls[0][1]
     dargs = next(a for name, a in routes.calls if name.startswith("conv_k2_backward_input"))
     code = k2._DTYPE_CODES[dtype]
@@ -1132,10 +1361,19 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
             assert args[4:] == (B, D, H, W, C, N, *plan.box, plan.box_items, plan.bm, plan.bn, plan.stages, plan.grid,
                                 plan.smem_bytes, plan.tiles, plan.splits, plan.stages_per_split, None, 0)
             assert (plan.splits > 1) == route.endswith("/split") == (args[3] != 0)  # the partials' workspace
+        if route.split("/")[0] in ("forward", "backward_input"):
+            splits, per_split = k2.ffma_split(B, D, H, W, *plan_cn)
+            assert args[4:] == (splits, per_split, B, D, H, W, C, N, code, None, 0)
+            assert (splits > 1) == route.endswith("/split") == (args[3] != 0)
     (_, wargs) = routes.calls[-1]
     if fwd == "forward_narrow":
         plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
         assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, plan.chunk_d, code, None, 0)
+    if dw == "backward_weight_persistent":
+        plan = wgmma_plan(B, D, H, W, C, N)
+        walk = plan.dw_persistent
+        assert wargs[4:] == (B, D, H, W, C, N, *plan.dw_box, plan.dw_box_items, walk.bn, walk.stages, walk.grid,
+                             walk.smem_bytes, walk.tiles, walk.splits, walk.stages_per_split, None, 0)
     if dw == "backward_weight_narrow":
         plan = narrow_plan(B, D, H, W, C, N, dtype=dtype) or narrow_dw_plan(B, D, H, W, C, N, dtype=dtype)
         assert wargs[4:] == (plan.dw_splits, plan.dw_boxes_per_split, B, D, H, W, C, N, *plan.dw_box,
