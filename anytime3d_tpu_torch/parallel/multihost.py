@@ -1,11 +1,13 @@
-"""Joining the ranks of a data-parallel run, and each rank's part of a batch.
+"""Joining the ranks of a parallel run, and each rank's part of a batch.
 
 Counterpart of ``anytime3d_tpu/parallel/multihost.py``. A run over several
 devices is one process a device, the same program in each: ``initialize``
 joins them through ``torch.distributed`` from the environment variables the
 JAX package reads (``COORDINATOR_ADDRESS`` host:port, ``NUM_PROCESSES``,
 ``PROCESS_ID``). Without them the run is one rank on a local store. The
-backend is NCCL for a CUDA device and gloo for the CPU; where NCCL cannot
+backend is NCCL for a CUDA device and gloo for the CPU unless the caller
+names one (``backend="gloo"`` on CUDA tensors: NCCL refuses two ranks on one
+card, as a tensor-parallel run on a single card has them); where NCCL cannot
 start, ``initialize`` raises, and never falls back to gloo or to the CPU.
 
 Every rank builds the same global batch from the same seed and keeps its
@@ -27,33 +29,34 @@ def _device_of(device) -> torch.device:
     device = torch.device(device if device is not None else "cuda")
     if device.type == "cuda" and device.index is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("a CUDA data-parallel run needs CUDA, which is not available")
+            raise RuntimeError("a CUDA parallel run needs CUDA, which is not available")
         device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
 def initialize(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, device=None) -> Tuple[int, int]:
+               process_id: Optional[int] = None, device=None, backend: Optional[str] = None) -> Tuple[int, int]:
     """Join the process group, once; returns (rank, world size).
 
     Arguments default to ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and
     ``PROCESS_ID``; with no address the run is one rank on an in-process
-    store. On CUDA each rank takes device ``rank % device_count`` and the
-    group is checked by one all-reduce there, so that an NCCL that cannot
-    start raises here."""
+    store. ``backend`` defaults to NCCL on CUDA and gloo on the CPU; gloo
+    on CUDA only where it is asked for by name. On CUDA each rank takes
+    device ``rank % device_count`` and the group is checked by one
+    all-reduce there, so that an NCCL that cannot start raises here."""
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     device = torch.device(device if device is not None else "cuda")
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     address = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
     if address:
         world = num_processes or int(os.environ["NUM_PROCESSES"])
         rank = process_id if process_id is not None else int(os.environ["PROCESS_ID"])
     else:
         world, rank = 1, 0
-    if backend == "nccl":
+    if device.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("a CUDA data-parallel run needs CUDA, which is not available")
+            raise RuntimeError("a CUDA parallel run needs CUDA, which is not available")
         torch.cuda.set_device(device.index if device.index is not None else rank % torch.cuda.device_count())
     if address:
         dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=world, rank=rank)

@@ -5,7 +5,9 @@ Counterpart of ``anytime3d_tpu/train/state.py``. The JAX state is an
 immutable tree that every step replaces; here the module and the optimizer
 are updated in place and the same ``TrainState`` object is handed on.
 ``create_train_state(..., flat_opt=True)`` takes :class:`FlatAdam`, the JAX
-package's ``flat_adam``: the same update over one contiguous buffer.
+package's ``flat_adam``: the same update over one contiguous buffer. Under
+tensor parallelism (``parallel.tensor.parallelize``) a sharded parameter is
+this rank's slice, so Adam holds moments of the slice's size.
 """
 
 from __future__ import annotations
@@ -14,7 +16,10 @@ import dataclasses
 from typing import Dict, Mapping
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+
+from anytime3d_tpu_torch.parallel.mesh import model_rank_and_size
 
 
 @dataclasses.dataclass
@@ -119,17 +124,36 @@ def create_train_state(model: nn.Module, learning_rate: float = 1e-4, flat_opt: 
     return TrainState(model=model, optimizer=opt, step=0)
 
 
-def grads_finite_flag(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def grads_finite_flag(grads: Mapping[str, torch.Tensor], mesh=None) -> torch.Tensor:
     """1.0 iff every gradient leaf is finite, as a float32 scalar on the
     gradients' device (no host sync). An exact per-leaf ``isfinite`` test: a
-    sum of squares could overflow on a large but finite gradient."""
+    sum of squares could overflow on a large but finite gradient. With a
+    ``mesh`` that has a "model" axis the flag is the least over the model
+    ranks, whose sharded leaves differ: a non-finite slice on one rank zeroes
+    every rank's update, as the JAX flag over the global leaves does."""
     flags = torch.stack([torch.isfinite(g).all() for g in grads.values()])
-    return flags.all().float()
+    flag = flags.all().float()
+    if model_rank_and_size(mesh)[1] > 1:
+        bad = 1.0 - flag  # summed: every backend has SUM on every device
+        dist.all_reduce(bad, group=mesh.get_group("model"))
+        flag = (bad == 0).float()
+    return flag
 
 
 def l2_penalty(params: Mapping[str, torch.Tensor], weight: float = 5e-4) -> torch.Tensor:
     """Kernel L2 regularisation, ``weight * sum w^2`` over the conv and dense
     kernels; norm scales and every bias are exempt (the flax leaves named
-    ``kernel`` are the port's ``weight`` tensors of more than one axis)."""
+    ``kernel`` are the port's ``weight`` tensors of more than one axis). A
+    tensor-parallel kernel (marked ``model_group`` by ``parallelize``) is this
+    rank's slice: its squares count summed over the model ranks, whose other
+    slices enter as a constant, so that the gradient is this slice's own; a
+    replicated kernel counts once."""
     kernels = [p for name, p in params.items() if name.endswith(".weight") and p.dim() > 1]
-    return weight * sum(torch.sum(torch.square(p)) for p in kernels)
+    total = sum(torch.sum(torch.square(p)) for p in kernels)
+    shards = [p for p in kernels if getattr(p, "model_group", None) is not None]
+    if shards:
+        own = sum(torch.sum(torch.square(p.detach())) for p in shards)
+        every = own.clone()
+        dist.all_reduce(every, group=shards[0].model_group)
+        total = total + (every - own)
+    return weight * total

@@ -15,19 +15,25 @@ samples of the category and instance blocks; a one-block latent draws from
 and element mask), ``drop_rate`` and ``drop_keep`` (the `_dr` variants'
 dropout rate, U(0, 0.95), and keep mask, drawn after the mix).
 
-Data parallelism (``parallel.make_mesh``; one process a device, each with
-its equal shard of the global batch). With a ``mesh`` the steps compute the
-single-device step on the global batch: every draw is made for the global
-batch from the ranks' common generator and sliced
-(``ops.sampling.batch_shard``), each batch mean is the rank's share of the
-global one (``parallel.global_mean``), the prior repulsion runs this rank's
-rows against the means of every rank (gathered with their gradients), the
-metrics are summed over the ranks, and the gradients are all-reduced in
-float32 before the finite check, so every rank takes the same update.
-``make_train_step_dp`` is the explicit data-parallel step instead: each
-rank differentiates the mean loss of its own shard with draws of its own,
-and the gradients are all-reduced in a lower precision (bfloat16 by
-default), upcast to float32 and then averaged.
+Parallel runs (``parallel.make_mesh``; one process a device). Over "data"
+each rank holds its equal shard of the global batch, and with a ``mesh``
+the steps compute the single-device step on the global batch: every draw is
+made for the global batch from the ranks' common generator and sliced by
+the data rank (``ops.sampling.batch_shard``), each batch mean is the rank's
+share of the global one (``parallel.global_mean``), the prior repulsion
+runs this rank's rows against the means of every rank (gathered with their
+gradients), the metrics are summed over the ranks, and the gradients are
+all-reduced in float32 before the finite check, so every rank takes the
+same update. Over "model" (tensor parallelism, a model sharded by
+``parallel.tensor.parallelize``) the ranks of one data index hold the same
+rows and draw alike; the sharded layers gather their outputs, so the loss
+and the replicated gradients are the same on each, and the gradients are
+all-reduced over "data" only (the sharded leaves as slices); the finite
+flag and the kernel L2 are taken over "model" too. ``make_train_step_dp``
+is the explicit data-parallel step instead: each rank differentiates the
+mean loss of its own shard with draws of its own, and the gradients are
+all-reduced over "data" in a lower precision (bfloat16 by default), upcast
+to float32 and then averaged.
 """
 
 from __future__ import annotations
@@ -281,13 +287,15 @@ def compute_losses(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
 
 
 def apply_gradients_if_finite(state: TrainState, grads: Dict[str, torch.Tensor],
-                              metrics: Dict[str, torch.Tensor]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                              metrics: Dict[str, torch.Tensor],
+                              mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """Overflow-safe update: zero the WHOLE gradient when any leaf is
-    non-finite, then apply as usual, so the parameters and the Adam moments
-    stay finite (the poisoned step still advances the count and decays the
-    moments). ``metrics['grads_finite']`` records it. No host sync: the flag
-    stays on the device and gates every leaf there."""
-    flag = grads_finite_flag(grads)
+    non-finite (on any model rank of ``mesh``), then apply as usual, so the
+    parameters and the Adam moments stay finite (the poisoned step still
+    advances the count and decays the moments). ``metrics['grads_finite']``
+    records it. No host sync: the flag stays on the device and gates every
+    leaf there."""
+    flag = grads_finite_flag(grads, mesh)
     metrics["grads_finite"] = flag
     poisoned = flag <= 0
     for g in grads.values():
@@ -302,7 +310,8 @@ def loss_and_grads(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
                    generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None,
                    mesh=None) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(gradients by parameter name, metrics) of the train loss; with a
-    ``mesh``, the global batch's, the gradients all-reduced in float32."""
+    ``mesh``, the global batch's, the gradients all-reduced over "data" in
+    float32."""
     total, metrics = compute_losses(model, cfg, batch, generator, deterministic=False, draws=draws, mesh=mesh)
     names, params = zip(*model.named_parameters())
     grads = dict(zip(names, torch.autograd.grad(total, params)))
@@ -316,12 +325,13 @@ def make_train_step(model: MultiModalVAE, cfg: LossConfig = LossConfig(), mesh=N
     ``state`` is updated in place; ``metrics`` are scalars on the device.
     With a ``mesh`` (``parallel.make_mesh``), ``batch`` and ``draws`` are this
     rank's rows of the global batch, and the step is the single-device step
-    on that batch (see the module's doc)."""
+    on that batch; a mesh with a "model" axis takes a model sharded over it
+    (``parallel.tensor.parallelize``; see the module's doc)."""
 
     def step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
              draws: Optional[Draws] = None):
         grads, metrics = loss_and_grads(model, cfg, batch, generator, draws, mesh)
-        return apply_gradients_if_finite(state, grads, metrics)
+        return apply_gradients_if_finite(state, grads, metrics, mesh)
 
     return step
 
@@ -335,7 +345,9 @@ def make_train_step_dp(model: MultiModalVAE, cfg: LossConfig = LossConfig(), mes
     given ``draws``), casts it to ``grad_psum_dtype`` (None: float32), and one
     all-reduce sums the ranks' gradients; the sum is upcast to float32 and
     only then divided by the number of ranks. Metrics are averaged in
-    float32. Then the guarded Adam update, the same on every rank.
+    float32. Then the guarded Adam update, the same on every rank. The
+    "model" axis of ``mesh`` works as in :func:`make_train_step`: the ranks
+    of one data index share the shard and its draws.
     ``step(state, batch, generator=None, draws=None) -> (state, metrics)``."""
     if mesh is None:
         raise ValueError("make_train_step_dp needs a mesh")
@@ -347,7 +359,7 @@ def make_train_step_dp(model: MultiModalVAE, cfg: LossConfig = LossConfig(), mes
         own = fold_in(generator, rank) if generator is not None and draws is None else None
         grads, metrics = loss_and_grads(model, cfg, batch, own, draws)
         grads = all_reduce_grads(grads, mesh, dtype=dtype, average=True)
-        return apply_gradients_if_finite(state, grads, reduce_metrics(metrics, mesh, average=True))
+        return apply_gradients_if_finite(state, grads, reduce_metrics(metrics, mesh, average=True), mesh)
 
     return step
 

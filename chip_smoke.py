@@ -245,7 +245,30 @@ order, any failure ending the run with a non-zero exit:
    against its plain version and ``ConvTransposeEquiv3D`` on the same weight;
    a bf16 step with ``create_train_state(flat_opt=True)`` beside the per-leaf
    Adam (one update from the same gradients compared, the update alone and
-   the step timed). The phase's wall time printed.
+   the step timed). The phase's wall time printed;
+19. tensor parallelism (``phase_tensor_parallel``): (a) ``conv_k2``, dx and dw
+   at the four shard shapes of the flagship's k=2 stages over a model axis of
+   2 (16^3, 64 -> 256, 512 -> 64, 128 -> 256, 512 -> 32) at B=32 in bfloat16
+   and float32, against their plain versions (bf16 ``wgmma`` ones also
+   against float64), timed by events and on the card alone beside cuDNN's
+   k=2 call and their bound, each row with its route (512 -> 32 has no
+   tensor-core or narrow plan: the FFMA GEMM in all three passes); (b) full-
+   width ``modelnet_nolbo`` over a ("data", "model") mesh of 1 x 2 as two
+   processes on this one card (``python3 chip_smoke.py --tp-rank <dir>``
+   each, ``initialize(backend="gloo")`` on the card's tensors, the model
+   sharded by ``parallel.parallelize``): the f32 step at B=8 against the
+   1-rank step run here first on the same weights, batch and draws (metrics
+   and parameters after Adam at ``dryrun_multichip``'s tolerances, the
+   gathered gradients within ``TP_TOL_GRAD_REL`` of each leaf's largest
+   entry; both ranks' gathered parameters the same bits), then
+   ``TP_WARMUP`` + ``TP_STEPS`` bf16 steps at B=32 (4 / 3 / 4 launches a
+   step a rank, 3 / 2 / 3 of them ``wgmma``), each rank's device ms, host
+   wall and peak memory, the model axis's all-reduces timed over
+   ``TP_PROBE_STEPS`` more steps, beside the 1-rank bf16 step. Both ranks
+   share one card's SMs and gloo stages through host memory: the phase shows
+   correctness at full width and the shard kernels' own times, not a
+   two-card step's. A rank that fails fails the run. The phase's wall time
+   printed.
 
 The last two lines of standard output are a JSON object of kernel results
 and ``{"ok": true, "device": {...}}``.
@@ -726,7 +749,8 @@ def phase_kernels(card: str) -> dict:
 
 def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_counts: dict, life_counts: dict,
                    artifact_counts: dict, image_counts: dict, detector_counts: dict, variant_counts: dict,
-                   stream_counts: dict, real_counts: dict, mapping_counts: dict, mid_counts: dict) -> list:
+                   stream_counts: dict, real_counts: dict, mapping_counts: dict, mid_counts: dict,
+                   tp_counts: dict) -> list:
     """The ``kernels`` JSON entries. The headline numbers of each kernel are
     at the shapes its main path gives it: the served batch in float32 for the
     forward, the train step's (B=32, bfloat16) for dx and dw; ``cases`` holds
@@ -742,7 +766,9 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     data-parallel phase's (the train runs with and without ``--mesh``, the
     explicit DP step and its reference, the detector's ``--mesh`` run) and the
     ``mid_blocked`` phase's (its served batches and train runs, the default
-    layout's beside them, the flat-optimizer steps);
+    layout's beside them, the flat-optimizer steps) and the tensor-parallel
+    phase's (its 1-rank f32 and bf16 steps, and both model ranks' f32 and
+    bf16 steps, on the shard shapes);
     ``launches_wgmma`` is the part of
     them that took the tensor-core kernels, ``launches_narrow`` the part that
     took the narrow kernels (the detector's final conv, all three in both
@@ -759,9 +785,9 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     4^3 2048 -> 512 at B=8). ``launches_ffma_split`` on the forward and dx and
     ``launches_persistent`` on dw count those launches of each."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
-             variant_counts, stream_counts, real_counts, mapping_counts, mid_counts)
+             variant_counts, stream_counts, real_counts, mapping_counts, mid_counts, tp_counts)
     names = ("serve", "train", "anytime", "lifecycle", "artifact", "image", "detector", "variants", "pretrain_stream",
-             "real_data", "mapping_dp", "mid_blocked")
+             "real_data", "mapping_dp", "mid_blocked", "tensor_parallel")
     replaces = {"conv_k2": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dx": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_dw": "anytime3d_tpu/kernels/conv_k2.py:184",
@@ -4223,6 +4249,338 @@ def phase_mid_blocked(device: torch.device, card: str) -> tuple[dict, dict]:
     return phase_counts, rows
 
 
+# phase 19: tensor parallelism over a ("data", "model") mesh of 1 x 2, two processes on the one card
+TP_MODEL = 2  # the "model" axis
+# (C, N) of the flagship's four k=2 stages on one model rank of 2: each shards its output channels
+TP_K2 = [(64, 256), (512, 64), (128, 256), (512, 32)]
+TP_CASES = [("tp_b32_bf16", TRAIN_BATCH, torch.bfloat16), ("tp_b32_f32", TRAIN_BATCH, torch.float32)]
+TP_SLICE_BATCH = 8  # the float32 step held to the 1-rank step
+TP_WARMUP, TP_STEPS, TP_PROBE_STEPS = 2, 5, 2  # bf16 steps at B=32: warm-up, timed, then with the collectives timed
+TP_RANK_TIMEOUT_S = 600  # both ranks' whole run: start, model, the f32 check, the bf16 steps
+# the f32 tensor-parallel step against the 1-rank step on the same card, weights, batch and draws: the
+# metrics and the parameters after one Adam step at dryrun_multichip's bounds (__graft_entry__.py); the
+# gradients, the same products summed in another order (a shard's GEMM tiles and dx's sum over the two
+# ranks), relative to each leaf's largest entry
+TP_TOL_METRIC = (2e-3, 1e-5)
+TP_TOL_PARAM = (5e-3, 2.2e-4)
+TP_TOL_GRAD_REL = 1e-4
+
+
+def tp_step_inputs(cfg, n: int, seed: int) -> tuple[dict, dict]:
+    """A packed-blocked batch of ``n`` seeded grids and its injected draws
+    (the mixed branch on), as CPU tensors."""
+    loss_cfg = configs.loss_config("modelnet_nolbo")
+    rng = np.random.default_rng(seed)
+    batch = {"input_packed_blocked": torch.from_numpy(pack_voxels_blocked(synthetic_grids(n, cfg.decoder.output_shape[0],
+                                                                                          seed), 4)),
+             "category_onehot": torch.from_numpy(np.eye(cfg.category_dim, dtype=np.float32)[
+                 rng.integers(0, cfg.category_dim, n)])}
+    z = cfg.z_category_dim
+    draws = {"eps_inst": torch.from_numpy(rng.normal(size=(n, z)).astype(np.float32)),
+             "eps_prior_cat": torch.from_numpy(rng.normal(size=(n, z)).astype(np.float32)),
+             "coin": torch.tensor(True),
+             "take_prior": torch.from_numpy(rng.uniform(size=(n, z)) < loss_cfg.mix_element_prob)}
+    return batch, draws
+
+
+def tp_expected(batch: int, dtype: torch.dtype, model: int) -> dict:
+    """The launches of one train step of the flagship with its k=2 stages'
+    output channels split over ``model`` ranks, on each rank: 4 forward, 3 dx
+    (the first stage's input is data), 4 dw, on the routes the plans give
+    their shapes."""
+    want = dict.fromkeys(read_counts(), 0)
+    for stage, (C, N) in enumerate(FLAGSHIP_K2):
+        n = N // model
+        bf16 = dtype == torch.bfloat16
+        fwd, dx = (wgmma_plan(batch, GRID, GRID, GRID, C, n) if bf16 else None,
+                   wgmma_plan(batch, GRID, GRID, GRID, n, C) if bf16 else None)
+        assert narrow_plan(batch, GRID, GRID, GRID, C, n, dtype=dtype) is None
+        want["conv_k2"] += 1
+        want["conv_k2_dw"] += 1
+        want["conv_k2_wgmma"] += fwd is not None
+        want["conv_k2_dw_wgmma"] += fwd is not None
+        want["conv_k2_dw_persistent"] += fwd is not None and fwd.dw_persistent is not None
+        if stage:
+            want["conv_k2_dx"] += 1
+            want["conv_k2_dx_wgmma"] += dx is not None
+    return want
+
+
+def tp_timed_steps(step, state, batch: dict, generator, n: int) -> tuple[np.ndarray, np.ndarray, dict]:
+    """``n`` train steps, each fenced: device ms by CUDA events and host wall
+    ms a step; fails on a non-finite loss or a zeroed update."""
+    device_ms_, host_ms = [], []
+    metrics = {}
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch, generator)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms_.append(start.elapsed_time(end))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if not (math.isfinite(metrics["loss_total"]) and metrics["grads_finite"] == 1.0):
+            raise AssertionError(f"tensor-parallel phase: a step gave {metrics}")
+    return np.asarray(device_ms_), np.asarray(host_ms), metrics
+
+
+def tp_rank(workdir: str) -> None:
+    """One model rank of phase 19 (b), started by ``phase_tensor_parallel``
+    with ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and ``PROCESS_ID``: gloo
+    on the card's tensors, asked for by name. Prints one ``TP_RESULT`` JSON
+    line; any failure raises, so the process exits non-zero."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from anytime3d_tpu_torch.parallel import gather_params, initialize, make_mesh, mesh_device, parallelize
+    from anytime3d_tpu_torch.parallel.mesh import gather_along
+    from anytime3d_tpu_torch.train.step import loss_and_grads, make_train_step
+
+    rank, world = initialize(backend="gloo", device="cuda")
+    torch.backends.cudnn.allow_tf32 = False  # true f32, as the 1-rank reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(data=1, model=TP_MODEL, device="cuda")
+    device = mesh_device(mesh)
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(mesh.get_group("model"))}
+    cfg = REGISTRY["modelnet_nolbo"]()
+    loss_cfg = configs.loss_config("modelnet_nolbo")
+
+    # (b1) the f32 step at B=8 against the 1-rank step's gradients, metrics and parameters after Adam
+    no_drop = dataclasses.replace(cfg, prior_category=dataclasses.replace(cfg.prior_category, dropout_rate=0.0))
+    model = parallelize(MultiModalVAE(no_drop, generator=torch.Generator().manual_seed(SEED)).to(device), mesh)
+    batch, draws = tp_step_inputs(cfg, TP_SLICE_BATCH, SEED + 30)
+    reset_counts()
+    grads, metrics = loss_and_grads(model, loss_cfg, to_device(batch, device), draws=to_device(draws, device),
+                                    mesh=mesh)
+    whole = {n: (grads[n] if getattr(p, "model_axis", None) is None else
+                 gather_along(grads[n], p.model_axis, p.model_group)).cpu() for n, p in model.named_parameters()}
+    _, metrics = apply_gradients_if_finite(create_train_state(model), grads, metrics, mesh)
+    counts = read_counts()
+    if counts != tp_expected(TP_SLICE_BATCH, torch.float32, TP_MODEL):
+        raise AssertionError(f"rank {rank}, f32 step: launches {counts}")
+    params = {k: v.cpu() for k, v in gather_params(model, mesh).items()}
+    digest = hashlib.sha256()
+    for k, v in params.items():
+        digest.update(k.encode() + v.numpy().tobytes())
+    out |= {"f32_counts": counts, "digest": digest.hexdigest(),
+            "sharded": sum(getattr(p, "model_axis", None) is not None for p in model.parameters()),
+            "params_this_rank": sum(p.numel() for p in model.parameters()),
+            "params_whole": sum(v.numel() for v in params.values())}
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if rank == 0:
+        ref = torch.load(os.path.join(workdir, "reference.pt"), weights_only=True)
+        worst = {}
+        for k, want in ref["metrics"].items():
+            if not abs(metrics[k] - want) <= TP_TOL_METRIC[0] * abs(want) + TP_TOL_METRIC[1]:
+                raise AssertionError(f"tensor-parallel f32 step: metric {k} {metrics[k]} against {want}")
+        worst["grad_rel"] = max((float((whole[k] - g).abs().max()) / float(g.abs().max()), k)
+                                for k, g in ref["grads"].items() if float(g.abs().max()) > 0)
+        if not worst["grad_rel"][0] <= TP_TOL_GRAD_REL:
+            raise AssertionError(f"tensor-parallel f32 step: gradient {worst['grad_rel']} of its largest entry")
+        for k, want in ref["params"].items():
+            if not torch.allclose(params[k], want, rtol=TP_TOL_PARAM[0], atol=TP_TOL_PARAM[1]):
+                raise AssertionError(f"tensor-parallel f32 step: parameter {k} off by "
+                                     f"{float((params[k] - want).abs().max())}")
+        worst["param_abs"] = max(float((params[k] - w).abs().max()) for k, w in ref["params"].items())
+        worst["metric_rel"] = max(abs(metrics[k] - w) / max(abs(w), 1e-12) for k, w in ref["metrics"].items())
+        out["f32_check"] = worst
+    del model, grads, whole, params
+    torch.cuda.empty_cache()
+
+    # (b2) bf16 steps at B=32, the draws from one seeded generator on each rank
+    model = parallelize(MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED),
+                                      dtype=torch.bfloat16).to(device), mesh)
+    state = create_train_state(model)
+    step = make_train_step(model, loss_cfg, mesh=mesh)
+    batch = to_device(tp_step_inputs(cfg, TRAIN_BATCH, SEED + 31)[0], device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms, host_ms, metrics = tp_timed_steps(step, state, batch, gen, TP_WARMUP + TP_STEPS)
+    counts = read_counts()
+    want = {k: v * (TP_WARMUP + TP_STEPS) for k, v in tp_expected(TRAIN_BATCH, torch.bfloat16, TP_MODEL).items()}
+    if counts != want:
+        raise AssertionError(f"rank {rank}, bf16 steps: launches {counts}, expected {want}")
+    out |= {"bf16_counts": counts, "step_ms": step_ms[TP_WARMUP:].tolist(), "host_ms": host_ms[TP_WARMUP:].tolist(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loss_total": metrics["loss_total"]}
+
+    # the collectives of more steps, each fenced on both sides (all but those over a group of one rank)
+    real = dist.all_reduce
+    spent = {"ms": 0.0, "calls": 0, "mb": 0.0}
+
+    def timed_all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        if dist.get_world_size(group) == 1:
+            return real(t, op=op, group=group, async_op=async_op)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(t, op=op, group=group, async_op=async_op)
+        torch.cuda.synchronize()
+        spent["ms"] += (time.perf_counter() - t0) * 1e3
+        spent["calls"] += 1
+        spent["mb"] += t.numel() * t.element_size() / 1e6
+        return res
+
+    dist.all_reduce = timed_all_reduce
+    try:
+        probe_ms, probe_host, _ = tp_timed_steps(step, state, batch, gen, TP_PROBE_STEPS)
+    finally:
+        dist.all_reduce = real
+    out["collectives"] = {"ms_per_step": spent["ms"] / TP_PROBE_STEPS, "calls_per_step": spent["calls"] / TP_PROBE_STEPS,
+                          "mb_per_step": spent["mb"] / TP_PROBE_STEPS, "probe_step_ms": probe_host.tolist()}
+    out["counts"] = {k: out["f32_counts"][k] + counts[k] for k in counts}
+    print("TP_RESULT " + json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
+    """Phase 19: tensor parallelism. Returns the phase's launch counts (the
+    1-rank runs here and both ranks' runs) and the shard shapes' kernel rows."""
+    import socket
+
+    from anytime3d_tpu_torch.parallel import param_sharding_rules, tp_coverage
+    from anytime3d_tpu_torch.train.step import loss_and_grads, make_train_step
+
+    t_phase = time.perf_counter()
+    phase_counts = dict.fromkeys(read_counts(), 0)
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            phase_counts[k] += v
+
+    # (a) forward, dx and dw at the shard shapes, in both types, on the routes their plans give them
+    gen = torch.Generator().manual_seed(SEED + 29)
+    rows = {"conv_k2": {}, "conv_k2_dx": {}, "conv_k2_dw": {}}
+    with torch.inference_mode():
+        for case, batch, dtype in TP_CASES:
+            for C, n in TP_K2:
+                x, w, g = k2_operands(gen, (batch, GRID, GRID, GRID), C, n, dtype)
+                exact = float64_products(x, w, g) if dtype == torch.bfloat16 else {}
+                for kernel, (run, plain, library) in k2_runs(x, w, g).items():
+                    cin, cout = (n, C) if kernel == "conv_k2_dx" else (C, n)
+                    plan = wgmma_plan(batch, GRID, GRID, GRID, cin, cout) if dtype == torch.bfloat16 else None
+                    want = "wgmma" if plan is not None else "ffma"
+                    assert (want == "ffma") == (n == 32 or dtype == torch.float32)  # 512 -> 32 has no plan
+                    label = f"{case} {GRID}^3 {C}->{n}"
+                    checked = check_kernel(kernel, label, run, plain, exact.get(kernel), want)
+                    p1, t1, t2, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
+                    ms, plain_ms, library_ms = (t1 + t2) / 2, (p1 + p2) / 2, cuda_ms(library)
+                    a1, l1, l2, a2 = (device_ms(f, iters=50) for f in (run, library, library, run))
+                    bound_ms, bound_by = k2_bound_ms(kernel, batch, C, n, dtype)
+                    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                           "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": checked["design"],
+                           "device_ms": (a1 + a2) / 2, "library_device_ms": (l1 + l2) / 2}
+                    rows[kernel][label] = row
+                    print(f"{kernel} TP shard {label} [{checked['design']}]: kernel {ms:.4f} ms plain "
+                          f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); on "
+                          f"the card alone kernel {row['device_ms']:.4f} ms ({a1:.4f}, {a2:.4f}) library "
+                          f"{row['library_device_ms']:.4f} ms ({l1:.4f}, {l2:.4f}); kernel / bound "
+                          f"{ms / bound_ms:.1f}, kernel / library {ms / library_ms:.2f} (alone "
+                          f"{row['device_ms'] / row['library_device_ms']:.2f}) [{card}]", flush=True)
+                del x, w, g, exact
+    torch.cuda.empty_cache()
+
+    # (b) the flagship at full width: the placements, the 1-rank references here, then two model ranks
+    cfg = REGISTRY["modelnet_nolbo"]()
+    loss_cfg = configs.loss_config("modelnet_nolbo")
+    with torch.device("meta"):
+        shapes = dict(MultiModalVAE(cfg).named_parameters())
+    placements = param_sharding_rules(shapes, TP_MODEL)
+    print(f"tensor parallelism, modelnet_nolbo at model={TP_MODEL}: {sum(a is not None for a in placements.values())} "
+          f"of {len(placements)} leaves sharded, coverage {tp_coverage(shapes, TP_MODEL):.6f} of "
+          f"{sum(p.numel() for p in shapes.values())} parameters", flush=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        no_drop = dataclasses.replace(cfg, prior_category=dataclasses.replace(cfg.prior_category, dropout_rate=0.0))
+        model = MultiModalVAE(no_drop, generator=torch.Generator().manual_seed(SEED)).to(device)
+        batch, draws = tp_step_inputs(cfg, TP_SLICE_BATCH, SEED + 30)
+        reset_counts()
+        grads, metrics = loss_and_grads(model, loss_cfg, to_device(batch, device), draws=to_device(draws, device))
+        ref = {"grads": {k: g.cpu().clone() for k, g in grads.items()}}
+        _, metrics = apply_gradients_if_finite(create_train_state(model), grads, metrics)
+        add(expect_counts("tensor-parallel phase, 1-rank f32 step", 4, 3, 4, tensor_cores=False))
+        ref |= {"metrics": {k: float(v) for k, v in metrics.items()},
+                "params": {k: p.detach().cpu() for k, p in model.named_parameters()}}
+        torch.save(ref, os.path.join(workdir, "reference.pt"))
+        del model, grads, ref
+        model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16).to(device)
+        step = make_train_step(model, loss_cfg)
+        train_batch = to_device(tp_step_inputs(cfg, TRAIN_BATCH, SEED + 31)[0], device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        one_ms, one_host, _ = tp_timed_steps(step, create_train_state(model), train_batch,
+                                              torch.Generator(device=device).manual_seed(SEED), TP_WARMUP + TP_STEPS)
+        add(expect_counts("tensor-parallel phase, 1-rank bf16 steps", *(n * (TP_WARMUP + TP_STEPS) for n in (4, 3, 4)),
+                          tensor_cores=True))
+        one_peak = torch.cuda.max_memory_allocated() / 2**30
+        del model, step, train_batch
+        torch.cuda.empty_cache()
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", workdir], cwd=REPO,
+                                  env=dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}",
+                                           NUM_PROCESSES=str(TP_MODEL), PROCESS_ID=str(r)),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(TP_MODEL)]
+        try:
+            logs = [p.communicate(timeout=TP_RANK_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        results = []
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            lines = [ln for ln in log.splitlines() if ln.startswith("TP_RESULT ")]
+            if p.returncode != 0 or len(lines) != 1:
+                raise AssertionError(f"tensor-parallel rank {r} exited {p.returncode}:\n{log[-6000:]}")
+            results.append(json.loads(lines[0][len("TP_RESULT "):]))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if len({r["digest"] for r in results}) != 1:
+        raise AssertionError("tensor-parallel ranks end with different gathered parameters")
+    for r in results:
+        add(r["counts"])
+    check, (r0, r1) = results[0]["f32_check"], results
+    print(f"tensor-parallel f32 step, modelnet_nolbo full width, B={TP_SLICE_BATCH}, data=1 x model={TP_MODEL} "
+          f"({r0['backend']}): against the 1-rank step, metrics {check['metric_rel']:.2e} relative (tol "
+          f"{TP_TOL_METRIC}), gradients {check['grad_rel'][0]:.2e} of the leaf's largest entry ({check['grad_rel'][1]}; "
+          f"tol {TP_TOL_GRAD_REL}), parameters after Adam {check['param_abs']:.2e} (tol {TP_TOL_PARAM}); "
+          f"{r0['sharded']} sharded leaves, {r0['params_this_rank']} of {r0['params_whole']} parameters on each rank; "
+          f"both ranks' gathered parameters the same bits [{card}]", flush=True)
+    for r in results:
+        c = r["collectives"]
+        print(f"tensor-parallel bf16 steps, rank {r['rank']}, B={TRAIN_BATCH}: device ms a step (CUDA events, steps "
+              f"{TP_WARMUP}..{TP_WARMUP + TP_STEPS - 1}) median {np.median(r['step_ms']):.2f} ({r['step_ms']}); host "
+              f"wall median {np.median(r['host_ms']):.2f} ms; the model axis's all-reduces, each fenced, "
+              f"{c['ms_per_step']:.2f} ms a step over {c['calls_per_step']:.0f} calls and {c['mb_per_step']:.1f} MB "
+              f"(those steps {c['probe_step_ms']} ms); peak memory allocated {r['peak_gib']:.2f} GiB; loss_total "
+              f"{r['loss_total']:.1f}; launches a step {r['bf16_counts']['conv_k2'] // (TP_WARMUP + TP_STEPS)} / "
+              f"{r['bf16_counts']['conv_k2_dx'] // (TP_WARMUP + TP_STEPS)} / "
+              f"{r['bf16_counts']['conv_k2_dw'] // (TP_WARMUP + TP_STEPS)}, on wgmma "
+              f"{r['bf16_counts']['conv_k2_wgmma'] // (TP_WARMUP + TP_STEPS)} / "
+              f"{r['bf16_counts']['conv_k2_dx_wgmma'] // (TP_WARMUP + TP_STEPS)} / "
+              f"{r['bf16_counts']['conv_k2_dw_wgmma'] // (TP_WARMUP + TP_STEPS)} (the 512->32 shard on FFMA) [{card}]",
+              flush=True)
+    print(f"the 1-rank bf16 step beside them, B={TRAIN_BATCH}: device ms median {np.median(one_ms[TP_WARMUP:]):.2f}, "
+          f"host wall median {np.median(one_host[TP_WARMUP:]):.2f} ms, peak memory {one_peak:.2f} GiB, 4 / 3 / 4 "
+          f"on wgmma. Both model ranks shared this one card's SMs and gloo staged every collective through host "
+          f"memory, so the wall time is not a two-card TP step's: the phase shows correctness at full width and "
+          f"each shard kernel's own time. The ranks' run took {ranks_s:.1f} s; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return phase_counts, rows
+
+
 def sync() -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -4256,9 +4614,12 @@ def main() -> None:
     mid_counts, mid_rows = phase_mid_blocked(device, card)
     for kernel, cases in mid_rows.items():
         kernels.setdefault(kernel, {}).update(cases)
+    tp_counts, tp_rows = phase_tensor_parallel(device, card)
+    for kernel, cases in tp_rows.items():
+        kernels[kernel].update(cases)
     entries = kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts, artifact_counts,
                              image_counts, detector_counts, variant_counts, stream_counts, real_counts, mapping_counts,
-                             mid_counts)
+                             mid_counts, tp_counts)
     # every kernel, and every design of the three, went through the main paths
     for e in entries:
         for key in ("launches", "launches_wgmma", "launches_narrow", "launches_split", "launches_ffma_split",
@@ -4272,4 +4633,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-rank"]:  # one model rank of phase 19, started by phase_tensor_parallel
+        tp_rank(sys.argv[2])
+    else:
+        main()

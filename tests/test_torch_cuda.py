@@ -1426,3 +1426,66 @@ def test_one_rank_nccl_mesh_step_equals_the_plain_step(cuda):
         if dist.is_initialized():
             dist.destroy_process_group()
         mesh_module._mesh.cache_clear()
+
+
+# (C, N) of the flagship's four k=2 stages on one model rank of a "model" axis of 2 (tensor parallelism: each
+# shards its output channels)
+TP_SHARDS = [(64, 256), (512, 64), (128, 256), (512, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,N", TP_SHARDS)
+def test_tp_shard_kernels_match_plain(cuda, C, N, dtype):
+    """Forward, dx and dw at a tensor-parallel shard of a flagship stage, B=8
+    at 16^3, through autograd against the plain versions: in bfloat16 on the
+    tensor cores, but 512 -> 32 (N = 32 has no wgmma plan, C = 512 no narrow
+    one: all three on the FFMA GEMM); in float32 all on the FFMA GEMM."""
+    B, G = 8, 16
+    planned = dtype == torch.bfloat16 and N % 64 == 0
+    assert (wgmma_plan(B, G, G, G, C, N) is not None) == (N % 64 == 0)
+    assert narrow_plan(B, G, G, G, C, N, dtype=dtype) is None and narrow_plan(B, G, G, G, N, C, dtype=dtype) is None
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype).requires_grad_()
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
+    g = torch.randn(B, G, G, G, N, generator=gen).to(cuda, dtype)
+    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
+    y = conv_k2(x, w)
+    y.backward(g)
+    assert _counts() == tuple(n + 1 for n in before)
+    assert _wgmma_counts() == tuple(n + planned for n in before_wg)
+    assert _narrow_counts() == before_nr
+    with torch.no_grad():
+        y_ref = conv_k2_reference(x, w)
+        dx_ref, dw_ref = conv_k2_backward_reference(x, w, g)
+    torch.cuda.synchronize()
+    # y and dx as test_kernel_matches_plain (f32: summation order; bf16: one rounding of an f32 sum on each
+    # side); dw: f32 sums of 32768 products in another order (FFMA), or the tensor cores' adds (DW_TOL_F64_REL
+    # of each side against float64, so twice that between them)
+    for got, ref in ((y, y_ref), (x.grad, dx_ref)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        tol = 1e-4 if dtype == torch.float32 else 2.0**-7 * float(ref.float().abs().max())
+        assert float((got.float() - ref.float()).abs().max()) <= tol
+    tol_dw = (2 * DW_TOL_F64_REL if planned else 1e-5) * float(dw_ref.abs().max()) + 1e-5
+    assert w.grad.dtype == torch.float32 and float((w.grad - dw_ref).abs().max()) <= tol_dw
+
+
+@pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
+def test_tp_shard_without_a_plan_passes_opcheck(cuda, op):
+    """The three ops at the 512 -> 32 shard (bfloat16, B=2 at 16^3), which no
+    tensor-core or narrow plan takes: schema, autograd registration, the fake
+    implementation against the FFMA kernels' output, an AOT-autograd trace."""
+    shape = (2, 16, 16, 16)
+    assert wgmma_plan(*shape, 512, 32) is None and wgmma_plan(*shape, 32, 512) is None
+    assert narrow_plan(*shape, 512, 32) is None and narrow_plan(*shape, 32, 512) is None
+    assert narrow_dw_plan(*shape, 512, 32) is None
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(*shape, 512, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(2, 2, 2, 512, 32, generator=gen) * 0.05).to(cuda)
+    g = torch.randn(*shape, 32, generator=gen).to(cuda, torch.bfloat16)
+    fn, args = {"conv_k2": (k2._conv_k2_op, (x.requires_grad_(), w.requires_grad_())),
+                "conv_k2_dx": (k2._conv_k2_dx_op, (g, w.detach())),
+                "conv_k2_dw": (k2._conv_k2_dw_op, (x.detach(), g))}[op]
+    before, before_wg = _counts(), _wgmma_counts()
+    results = torch.library.opcheck(fn, args)
+    assert set(results.values()) == {"SUCCESS"}, results
+    assert _wgmma_counts() == before_wg and _counts() != before

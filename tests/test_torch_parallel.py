@@ -34,7 +34,8 @@ draws, then compares:
 - ``cli.train``, ``cli.pretrain`` and ``cli.train_detector`` with ``--mesh``:
   both ranks end bit-equal, and rank 0's checkpoint restores on both;
 - ``ModelNetLoader``'s process sharding against JAX's, and the mesh's
-  refusal of a "model" axis.
+  refusal of a shape that is not the world's (the "model" axis itself, tensor
+  parallelism, is ``tests/test_torch_tensor_parallel.py``'s).
 """
 
 import dataclasses
@@ -371,6 +372,18 @@ def test_modelnet_loader_process_sharding_matches_jax():
     assert ours.epoch == theirs.epoch > 0
 
 
-def test_make_mesh_refuses_a_model_axis():
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        make_mesh(model=2, device="cpu")
+def test_make_mesh_refuses_a_mesh_that_is_not_the_world():
+    """In a run of one rank (an in-process gloo group, left as it was found),
+    a mesh of 2 ranks, over "data" or over "model", is refused."""
+    import torch.distributed as dist
+
+    from anytime3d_tpu_torch.parallel import mesh as mesh_module
+
+    try:
+        for data, model in ((2, 1), (1, 2)):
+            with pytest.raises(ValueError, match=f"mesh {data}x{model} != 1 ranks"):
+                make_mesh(data=data, model=model, device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mesh_module._mesh.cache_clear()

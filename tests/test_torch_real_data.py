@@ -369,16 +369,25 @@ def test_cli_pretrain_on_an_imagenet_tree(imagenet_tree):
 
 
 def test_the_data_parallel_paths_still_raise():
-    """What the data-parallel paths refuse, before any rank joins: the
-    dataset's 64^3 CAD voxels against the default ``--voxel-dim`` under
-    ``--mesh`` as without it, a "model" mesh axis (tensor parallelism is
-    not in the port) and the explicit data-parallel step without a mesh."""
+    """What the data-parallel paths refuse: the dataset's 64^3 CAD voxels
+    against the default ``--voxel-dim`` under ``--mesh`` as without it,
+    before any rank joins; a "model" mesh axis larger than the run (2 in a
+    run of one rank, an in-process gloo group, left as it was found); and
+    the explicit data-parallel step without a mesh."""
+    import torch.distributed as dist
+
     from anytime3d_tpu_torch.parallel import make_mesh
+    from anytime3d_tpu_torch.parallel import mesh as mesh_module
     from anytime3d_tpu_torch.train.step import make_train_step_dp
 
     with pytest.raises(SystemExit, match="--voxel-dim 64"):
         cli_detector.build_trainer(cli_detector.parse_args(["--data", PASCAL, "--mesh", "--device", "cpu"]))
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        make_mesh(model=2, device="cpu")
+    try:
+        with pytest.raises(ValueError, match="x2 != 1 ranks"):
+            make_mesh(model=2, device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mesh_module._mesh.cache_clear()
     with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step_dp(None)
