@@ -1,14 +1,15 @@
-"""What holds the float32 narrow kernels back: each timed whole and with a
-part left out, at the detector decoder's last conv (32 decodes of 32^3,
-C = 32 -> N = 8; ``kernels/csrc/conv_k2_narrow.cuh``).
+"""What holds the narrow kernels back (``kernels/csrc/conv_k2_narrow.cuh``):
+each timed whole and with a part left out, in two parts.
 
     python -m anytime3d_tpu_torch.cli.probe_narrow
 
 Builds ``csrc/conv_k2.cu`` four times at once, with
-``CONV_K2_NARROW_PROBE`` = 0 (the port's kernels), 1, 2 and 3, and times by
-CUDA events (mean of 20 calls after 3; two rounds) the forward (32 -> 8), dx
-(the forward from 8 to 32 over g) and dw (with its reduce of the splits) of
-each build at the shapes of their plans:
+``CONV_K2_NARROW_PROBE`` = 0 (the port's kernels), 1, 2 and 3.
+
+The float32 kernels at the detector decoder's last conv (32 decodes of
+32^3, C = 32 -> N = 8), timed by CUDA events (mean of 20 calls after 3; two
+rounds): the forward (32 -> 8), dx (the forward from 8 to 32 over g) and dw
+(with its reduce of the splits) of each build at the shapes of their plans:
 
 - the forward and dx: whole; without the store of y; without the products;
   without both (the copies, tables and walk alone). dx also with its rows
@@ -16,9 +17,25 @@ each build at the shapes of their plans:
 - dw: whole; without each row's loads; with 8 FFMA a row for 64; without the
   loop over rows. Also with two stages for the plan's three.
 
+The bfloat16 kernels that walk C in chunks of 64, at the tensor-parallel
+shards of the flagship's last 16^3 stage, B=32: 512 -> 32 (a model axis of
+2), 512 -> 16 and 512 -> 8 (of 4). Timed on the card alone (``device_ms``:
+mean of 50 calls after 3, the card held busy while the host enqueues them;
+two rounds, in turns) at each shape: the chunked forward and dw (with its
+reduce) on their plan (``narrow_plan``), the bfloat16 FFMA GEMM that took
+these shapes before (launched straight through the library, as the op did)
+and cuDNN's k=2 call; dx, which keeps its route (the FFMA GEMM), beside
+cuDNN's. Then, at 512 -> 32, each build's two kernels on the plan: the
+forward without the store of y, without the products (no ``ldmatrix``, no
+``mma``), without both (the copies, tables and walk alone); dw with each
+k-step's products added by the tensor cores' own accumulation (no rounded
+adds), without the loop over k-steps (the copies, the partials' store and
+the reduce).
+
 Every line carries the card's name and power limit, and the whole kernels'
-and the variants' max abs error against the plain version. Needs a CUDA card
-and ``nvcc``. The port calls none of this.
+and the variants' max abs error against the plain version (the bfloat16
+part: of the largest entry, beside the bytes bound). Needs a CUDA card and
+``nvcc``. The port calls none of this.
 """
 
 from __future__ import annotations
@@ -26,11 +43,15 @@ from __future__ import annotations
 import ctypes
 from concurrent.futures import ThreadPoolExecutor
 
-from anytime3d_tpu_torch.utils.timing import card_line, cuda_ms
+from anytime3d_tpu_torch.utils.timing import card_line, cuda_ms, device_ms
 
 PROBES = {0: "whole", 1: "without the store", 2: "without the products", 3: "without both"}
 DW_PROBES = {0: "whole", 1: "without each row's loads", 2: "8 FFMA a row for 64", 3: "without the loop over rows"}
+CHUNKED_DW_PROBES = {0: "whole", 1: "the tensor cores' own accumulation", 3: "without the loop over k-steps"}
 B, G, C, N = 32, 32, 32, 8  # decodes, grid, channels in and out
+TP_B, TP_G, TP_C = 32, 16, 512  # the chunked part: batch, grid, channels in
+TP_SHARDS = (32, 16, 8)  # N: the last stage's 64 output channels over a model axis of 2, 4 and 8
+PEAK_BYTES_PER_S = 3.35e12  # an H100 SXM's device memory (the data sheet)
 
 
 def main() -> None:
@@ -45,6 +66,14 @@ def main() -> None:
     with ThreadPoolExecutor(len(PROBES)) as pool:  # one nvcc a build, all at once
         paths = list(pool.map(lambda m: build.build("conv_k2", (f"CONV_K2_NARROW_PROBE={m}",) if m else ()), PROBES))
     libs = {m: k2.bind(ctypes.CDLL(str(p))) for m, p in zip(PROBES, paths)}
+    float32_part(libs, card)
+    chunked_part(libs, card)
+
+
+def float32_part(libs: dict, card: str) -> None:
+    import torch
+
+    from anytime3d_tpu_torch.kernels import conv_k2 as k2
 
     torch.backends.cudnn.allow_tf32 = False
     f32, dev = torch.float32, torch.device("cuda")
@@ -107,6 +136,103 @@ def main() -> None:
         extra = f", max_abs_err {err[name]:.3e}" if name in err else ""
         print(f"float32 narrow {name}, {B} decodes of {G}^3, {C} -> {N}: {a:.4f} / {b:.4f} ms by events{extra} "
               f"[{card}]", flush=True)
+
+
+
+def chunked_part(libs: dict, card: str) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from anytime3d_tpu_torch.kernels import conv_k2 as k2
+
+    B, G, C = TP_B, TP_G, TP_C
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = libs[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(B, G, G, G, C, generator=gen, device=dev).to(bf16)
+    x_pad = F.pad(x.permute(0, 4, 1, 2, 3), (0, 1) * 3)
+    rows = B * G**3
+
+    for N in TP_SHARDS:
+        w = (torch.randn(2, 2, 2, C, N, generator=gen, device=dev) / (8 * C) ** 0.5).to(bf16)
+        g = torch.randn(B, G, G, G, N, generator=gen, device=dev).to(bf16)
+        w_oidhw, g_ncdhw = w.permute(4, 3, 0, 1, 2).contiguous(), g.permute(0, 4, 1, 2, 3)
+        plan = k2.narrow_plan(B, G, G, G, C, N, sms=sms)
+        y, dw = torch.empty(B, G, G, G, N, device=dev, dtype=bf16), torch.empty(2, 2, 2, C, N, device=dev)
+        dx = torch.empty_like(x)
+        splits, per_split = k2.ffma_dw_split(rows, C, N, sms=sms)
+        workspace = torch.empty(splits, 8 * C, N, device=dev)
+        ws = torch.empty(plan.dw_splits, 8 * C, N, device=dev)
+        wt = w.transpose(3, 4).contiguous()
+
+        def ffma_forward():
+            k2._check_launch("FFMA forward", lib.conv_k2_forward(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), 0, 1, 8 * C // 16, B, G, G, G, C, N, 1, dev.index, stream))
+
+        def ffma_dw():
+            k2._check_launch("FFMA dw", lib.conv_k2_backward_weight(
+                x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, per_split, B, G, G, G, C, N,
+                1, dev.index, stream))
+
+        def ffma_dx():
+            k2._check_launch("FFMA dx", lib.conv_k2_backward_input(
+                g.data_ptr(), wt.data_ptr(), dx.data_ptr(), 0, 1, 8 * N // 16, B, G, G, G, C, N, 1, dev.index,
+                stream))
+
+        def forward(lib):  # each build's chunked forward on the plan
+            return lambda: k2._check_launch("forward", lib.conv_k2_forward_chunked(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), B, G, G, G, C, N, *plan.box, plan.grid, plan.smem_bytes,
+                dev.index, stream))
+
+        def backward_weight(lib):  # each build's chunked dw on the plan, with its reduce
+            return lambda: k2._check_launch("dw", lib.conv_k2_backward_weight_narrow(
+                x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), plan.dw_splits, plan.dw_boxes_per_split,
+                B, G, G, G, C, N, *plan.dw_box, plan.dw_smem_bytes, plan.dw_stages, 1, dev.index, stream))
+
+        runs = {
+            f"forward, chunked, box {plan.box}": (forward(lib), y),
+            "forward, bf16 FFMA GEMM (the route before)": (ffma_forward, y),
+            "forward, cuDNN": (lambda: F.conv3d(x_pad, w_oidhw), None),
+            f"dw, chunked, {plan.dw_stages} stages, box {plan.dw_box}, {plan.dw_splits} splits x {plan.c_chunks} "
+            "chunks": (backward_weight(lib), dw),
+            "dw, bf16 FFMA (the route before)": (ffma_dw, dw),
+            "dw, cuDNN": (lambda: torch.nn.grad.conv3d_weight(x_pad, w_oidhw.shape, g_ncdhw), None),
+            "dx, bf16 FFMA (its route, unchanged)": (ffma_dx, dx),
+            "dx, cuDNN": (lambda: torch.nn.grad.conv3d_input(x_pad.shape, w_oidhw, g_ncdhw), None),
+        }
+        with torch.no_grad():
+            ref = {"forward": k2.conv_k2_reference(x, w), "dw": k2.conv_k2_dw_reference(x, g),
+                   "dx": k2.conv_k2_dx_reference(g, w)}
+        err = {}
+        for name, (fn, out) in runs.items():
+            if out is not None:
+                out.zero_()
+                fn()
+                want = ref[name.split(",")[0]]
+                err[name] = float((out.float() - want.float()).abs().max()) / float(want.float().abs().max())
+        times = {name: [] for name in runs}
+        for _ in range(2):
+            for name, (fn, _) in runs.items():
+                times[name].append(device_ms(fn, iters=50))
+        # each input read once, each output written once: x and y (dx: g and dx) and w in bf16, dw in f32
+        io = rows * (C + N) * 2
+        bound = {"forward": io + 8 * C * N * 2, "dx": io + 8 * C * N * 2, "dw": io + 8 * C * N * 4}
+        for name, (a, b) in times.items():
+            extra = f", max abs err {err[name]:.2e} of the largest entry" if name in err else ""
+            bound_ms = bound[name.split(",")[0]] / PEAK_BYTES_PER_S * 1e3
+            print(f"chunked probe B={B} {G}^3 {C} -> {N} bf16, {name}: on the card alone {a:.4f} / {b:.4f} ms "
+                  f"(bytes bound {bound_ms:.4f} ms){extra} [{card}]", flush=True)
+        if N != 32:
+            continue
+        parts = {f"forward {PROBES[m]}": forward(libs[m]) for m in PROBES}
+        parts |= {f"dw {CHUNKED_DW_PROBES[m]}": backward_weight(libs[m]) for m in CHUNKED_DW_PROBES}
+        times = {name: [device_ms(fn, iters=50) for _ in range(2)] for name, fn in parts.items()}
+        for name, (a, b) in times.items():
+            print(f"chunked probe parts B={B} {G}^3 {C} -> {N} bf16, {name}: on the card alone {a:.4f} / {b:.4f} ms "
+                  f"[{card}]", flush=True)
 
 
 if __name__ == "__main__":

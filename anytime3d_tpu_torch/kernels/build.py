@@ -13,8 +13,8 @@ of the hash; set them before the first kernel is used. The default build has
 none. ``CONV_K2_WAIT_TRAP_NS=<ns>`` makes the tensor-core kernels trap when a
 wait on a barrier lasts that long, for bring-up and the card tests;
 ``CONV_K2_NARROW_PROBE=<1..3>`` leaves a part out of the float32 narrow
-kernels (``cli/probe_narrow.py``, which builds those libraries beside the
-port's with :func:`build`'s ``defines``).
+kernels and of those that walk C in chunks (``cli/probe_narrow.py``, which
+builds those libraries beside the port's with :func:`build`'s ``defines``).
 
 There is no fallback: without ``nvcc`` (on ``PATH``, under ``$CUDA_HOME`` or
 in ``/usr/local/cuda``) the build raises.

@@ -13,7 +13,10 @@ blocks whose stores overlap their products); else operands of
 a narrow output (N = 8, 16 or 32) whose shape has a narrow plan
 (:func:`narrow_plan`) take the halo-box kernels of ``csrc/conv_k2_narrow.cuh``
 in the forward, dw and dx (dx where the forward from N to C channels has a
-plan): on ``mma.sync`` in bfloat16, on FFMA in float32; a bfloat16 dw of a
+plan): on ``mma.sync`` in bfloat16, on FFMA in float32; where C is a
+multiple of 64 above 64 (bfloat16: the tensor-parallel shard 512 -> 32) the
+plan walks C in chunks of 64 (:func:`chunked_plan`), the forward on its own
+kernel, dw by blocks of one chunk each, dx keeping its route; a bfloat16 dw of a
 narrow input and N = 64 (the s2d(2) stem's) whose shape has a dw-only plan
 (:func:`narrow_dw_plan`) takes the halo-box dw on ``mma.sync``; the rest take
 the FFMA kernels (in float32 the forward and dx split their depth where
@@ -109,10 +112,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_backward_input_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_backward_weight_narrow.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
+    lib.conv_k2_forward_chunked.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
     for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
                lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma,
                lib.conv_k2_backward_weight_persistent, lib.conv_k2_forward_narrow, lib.conv_k2_backward_input_narrow,
-               lib.conv_k2_backward_weight_narrow):
+               lib.conv_k2_backward_weight_narrow, lib.conv_k2_forward_chunked):
         fn.restype = i32
     lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p
@@ -348,6 +352,13 @@ _NR_DW_WIDE = 64  # N of the bfloat16 dw-only plan: 8 n8 tiles, in units of 4, o
 _NR_DW_ACCUMULATORS = 4096  # 8C x N of that dw: the 8 warps' units of 16 x 32 (so C = 8)
 _NR_ESIZE = {torch.bfloat16: 2, torch.float32: 4}
 _NR_CHUNK = 256  # rows of the float32 forward's output chunk: one a thread
+_NR_C_CHUNK = 64  # channels of a chunk where a bfloat16 walk takes C in chunks (csrc's chunked kernels)
+
+
+def _chunked_rows(N: int) -> int:
+    """The chunked forward's largest box: 8 warps of ``nr::chunked_mw`` m-tiles (2 at N = 32, 4 at N = 8
+    and 16), whose accumulators stay in registers across the chunks."""
+    return 16 * 8 * (4 if N == 8 else 64 // N)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -373,6 +384,11 @@ class NarrowPlan:
     ``dw_boxes_per_split`` consecutive boxes (the last may be shorter, none is
     empty) in ``dw_smem_bytes`` (float32: with the block's [8C, N] sum of its
     groups' tiles).
+
+    ``c_chunks``: where the walk takes C in chunks of 64 (:func:`chunked_plan`),
+    C / 64, else 1. The forward then walks (box, chunk) steps through two
+    stages, each a chunk's halo box and its w; dw's blocks are (split,
+    chunk), each a chunk's rows of its split's partial.
     """
 
     box: tuple[int, int, int]
@@ -386,6 +402,7 @@ class NarrowPlan:
     dw_boxes_per_split: int
     dw_smem_bytes: int
     dw_stages: int
+    c_chunks: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -400,6 +417,7 @@ class NarrowDwPlan:
     dw_boxes_per_split: int
     dw_smem_bytes: int
     dw_stages: int
+    c_chunks: int = 1
 
 
 def _round_up(v: int, a: int) -> int:
@@ -424,12 +442,15 @@ def _narrow_chunk_d(box: tuple[int, int, int], dw: bool, esize: int) -> int:
     return _NR_CHUNK // (bw * bh)
 
 
-def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool, esize: int, stages: int, chunk_d: int) -> int:
+def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool, esize: int, stages: int, chunk_d: int,
+                 chunked: bool = False) -> int:
     """Dynamic shared memory of a narrow launch (``nr::smem_bytes``) with
     elements of ``esize`` bytes: alignment room, ``stages`` stages (the halo
-    box of x; for dw also the box of g, its rows rounded up to 16), the
-    forward's w (8C x N) and table of output rows, the table of halo rows, a
-    barrier a stage (in a multiple of 16 bytes); the float32 forward's two
+    box of x; for dw also the box of g, its rows rounded up to 16; for the
+    ``chunked`` forward, C a chunk's 64 channels, also the chunk's w, 8C x N),
+    the forward's w (8C x N, but in the chunked forward's stages) and table of
+    output rows, the table of halo rows, a barrier a stage (in a multiple of
+    16 bytes); the float32 forward's two
     chunk buffers of 256 rows (4N bytes each) where ``chunk_d`` is set; and
     the float32 kernels' partial sums: where the forward splits the taps over
     two halves of the block (a box of at most 512 rows), the second half's
@@ -440,38 +461,48 @@ def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool, esize: int
     stage = _round_up((bw + 1) * (bh + 1) * (bd + 1) * esize * C, _NR_ALIGN)
     if dw:
         stage += _round_up(rows16 * esize * N, _NR_ALIGN)
+    elif chunked:
+        stage += 8 * C * N * esize
     sums = 0
     if esize == 4:
         sums = 32 * C * N if dw else 4 * rows * N if rows <= _NR_ROWS // 2 else 0
     chunks = 2 * _round_up(_NR_CHUNK * 4 * N, _NR_ALIGN) if chunk_d else 0
-    return (_NR_ALIGN + stages * stage + chunks + (0 if dw else 8 * C * N * esize + 4 * rows16) + 4 * rows16
+    w_bytes = 0 if dw or chunked else 8 * C * N * esize
+    return (_NR_ALIGN + stages * stage + chunks + w_bytes + (0 if dw else 4 * rows16) + 4 * rows16
             + _round_up(8 * stages, 16) + sums)
 
 
-def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool, esize: int = 2) -> tuple[int, int, int] | None:
+def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool, esize: int = 2,
+                chunked: bool = False) -> tuple[int, int, int] | None:
     """The (w, h, d) extents of the box that reads the fewest halo voxels a
     row (ties: more rows), among boxes of at most 1024 rows whose extents are
     at most 255 and the grid's, w a multiple of 16 (an m-tile's 16 rows on
     one line) or all of W, h and d powers of two or all of H and D, whose
-    launch fits one block's shared memory; or None."""
+    launch fits one block's shared memory; or None. The ``chunked`` forward
+    (C a chunk's 64 channels) also holds a box's accumulators in registers
+    (at most :func:`_chunked_rows` rows) and reads the chunk's w once a box:
+    it takes the box of the fewest L2 bytes a row, its halo's and its share
+    of w's."""
     def extents(size: int, step: int) -> list[int]:
         top = min(size, _NR_EXTENT)
         out = {size} if size <= _NR_EXTENT else set()
         out |= set(range(step, top + 1, step)) if step > 1 else {1 << i for i in range(top.bit_length())}
         return sorted(out)
 
+    w_bytes = 8 * C * N * esize if chunked and not dw else 0
     best, best_key = None, None
     for bd in extents(D, 1):
         for bh in extents(H, 1):
             for bw in extents(W, 16):
                 rows = bw * bh * bd
-                if rows > _NR_ROWS:
+                if rows > _NR_ROWS or (w_bytes and _round_up(rows, 16) > _chunked_rows(N)):
                     continue
                 smem = _narrow_smem((bw, bh, bd), C, N, dw, esize, _narrow_stages(dw, esize),
-                                    _narrow_chunk_d((bw, bh, bd), dw, esize))
+                                    _narrow_chunk_d((bw, bh, bd), dw, esize), chunked)
                 if smem > _WG_SMEM_MAX:
                     continue
-                key = ((bw + 1) * (bh + 1) * (bd + 1) / rows, -rows)
+                halo = (bw + 1) * (bh + 1) * (bd + 1)
+                key = ((halo * esize * C + w_bytes) / rows if w_bytes else halo / rows, -rows)
                 if best_key is None or key < best_key:
                     best, best_key = (bw, bh, bd), key
     return best
@@ -489,12 +520,17 @@ def narrow_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
     or float32) and ``w`` (2,2,2,C,N), or None where they do not apply: N of
     8, 16 or 32, C of 8, 16, 32 or 64 (a multiple of 8, one TMA box of all
     channels in rows of at most 128 bytes, so float32 C <= 32; at most 4 m16
-    tiles of dw's accumulators a warp), and never where :func:`wgmma_plan`
-    applies. Pure arithmetic; ``sms`` is the card's count of
-    multiprocessors."""
+    tiles of dw's accumulators a warp), or a bfloat16 C that is a multiple of
+    64 above 64, walked in chunks of 64 (:func:`chunked_plan`), and never
+    where :func:`wgmma_plan` applies. Pure arithmetic; ``sms`` is the card's
+    count of multiprocessors."""
     esize = _NR_ESIZE.get(dtype)
-    if (esize is None or C not in _NR_CHANNELS or esize * C > _NR_ROW_BYTES or N not in _NR_OUTPUTS
-            or min(B, D, H, W) < 1 or B * D * H * W >= 2**31 or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None):
+    if (esize is None or N not in _NR_OUTPUTS or min(B, D, H, W) < 1 or B * D * H * W >= 2**31
+            or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None):
+        return None
+    if esize == 2 and C > _NR_C_CHUNK and C % _NR_C_CHUNK == 0:
+        return chunked_plan(B, D, H, W, C, N, sms=sms)
+    if C not in _NR_CHANNELS or esize * C > _NR_ROW_BYTES:
         return None
     box, dw = _narrow_box(D, H, W, C, N, False, esize), _narrow_dw(B, D, H, W, C, N, sms, esize)
     if box is None or dw is None:
@@ -503,6 +539,37 @@ def narrow_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
     return NarrowPlan(box=box, boxes=boxes, grid=min(boxes, sms),
                       smem_bytes=_narrow_smem(box, C, N, False, esize, 2, chunk_d), chunk_d=chunk_d,
                       **dataclasses.asdict(dw))
+
+
+@functools.lru_cache(maxsize=256)
+def chunked_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> NarrowPlan | None:
+    """The narrow plan of a bfloat16 ``x`` (B,D,H,W,C) whose C is a multiple
+    of 64 above 64 and ``w`` (2,2,2,C,N), N of 8, 16 or 32, walked in
+    ``c_chunks`` = C / 64 chunks of 64 channels (128-byte rows, as C = 64's);
+    or None. The forward's box reads the fewest L2 bytes a row (its halo and
+    its share of the chunk's w, read once a box) among those whose
+    accumulators fit the warps' registers (at most 256 rows at N = 32, 512 at
+    N = 8 and 16) and
+    whose two stages of halo and w fit one block; dw's box, as C = 64's,
+    with a third stage where that box has room for one. dw's (split, chunk)
+    blocks make one wave on ``sms`` multiprocessors, each split a run of
+    whole boxes. Pure arithmetic."""
+    chunk = _NR_C_CHUNK
+    if C <= chunk or C % chunk or N not in _NR_OUTPUTS or min(B, D, H, W) < 1 or B * D * H * W >= 2**31:
+        return None
+
+    box, dw_box = _narrow_box(D, H, W, chunk, N, False, 2, True), _narrow_box(D, H, W, chunk, N, True)
+    if box is None or dw_box is None:
+        return None
+    # dw's third stage where its best box of two has room for it: more boxes in flight at the same bytes a row
+    dw_stages = 3 if _narrow_smem(dw_box, chunk, N, True, 2, 3, 0) <= _WG_SMEM_MAX else 2
+    chunks, boxes, dw_boxes = C // chunk, _boxes(B, D, H, W, box), _boxes(B, D, H, W, dw_box)
+    per_split = -(-dw_boxes // min(dw_boxes, max(1, sms // chunks)))
+    return NarrowPlan(box=box, boxes=boxes, grid=min(boxes, sms),
+                      smem_bytes=_narrow_smem(box, chunk, N, False, 2, 2, 0, True), chunk_d=0,
+                      dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
+                      dw_boxes_per_split=per_split, dw_smem_bytes=_narrow_smem(dw_box, chunk, N, True, 2, dw_stages, 0),
+                      dw_stages=dw_stages, c_chunks=chunks)
 
 
 def _narrow_dw(B: int, D: int, H: int, W: int, C: int, N: int, sms: int, esize: int) -> NarrowDwPlan | None:
@@ -648,6 +715,35 @@ def dx_wgmma(g: torch.Tensor, w: torch.Tensor, dx: torch.Tensor, plan: WgmmaPlan
         plan.stages_per_split, g.device.index, _stream(g)))
 
 
+def forward_chunked(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, plan: NarrowPlan) -> None:
+    """Launch the chunked forward into ``y`` on ``plan`` (:func:`chunked_plan`),
+    ``w`` as it lies (each stage's TMA copy takes a chunk's rows). Counts
+    nothing, as :func:`forward_wgmma`."""
+    B, D, H, W, C = x.shape
+    N = y.shape[-1]
+    w = w.to(x.dtype).contiguous()
+    _check_operands("conv_k2", C, N, x, w, y)
+    _check_launch("conv_k2 (chunked)", _lib().conv_k2_forward_chunked(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes,
+        x.device.index, _stream(x)))
+
+
+def dw_narrow(x: torch.Tensor, g: torch.Tensor, dw: torch.Tensor, plan: NarrowPlan | NarrowDwPlan) -> None:
+    """Launch the narrow dw into ``dw`` (2,2,2,C,N) float32 on ``plan``'s dw
+    fields (a :class:`NarrowPlan`, chunked or not, or a :class:`NarrowDwPlan`),
+    with the reduce of its splits (one call into the library). Counts
+    nothing, as :func:`forward_wgmma`."""
+    B, D, H, W, C = x.shape
+    N = g.shape[-1]
+    splits = plan.dw_splits
+    workspace = torch.empty((splits if splits > 1 else 0, 8 * C, N), dtype=torch.float32, device=x.device)
+    _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
+    _check_launch("conv_k2 dw (narrow)", _lib().conv_k2_backward_weight_narrow(
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, plan.dw_boxes_per_split,
+        B, D, H, W, C, N, *plan.dw_box, plan.dw_smem_bytes, plan.dw_stages, _DTYPE_CODES[x.dtype],
+        x.device.index, _stream(x)))
+
+
 # The FFMA GEMM's tiling (csrc/conv_k2.cu, gemm::Tile): output tiles of 128
 # rows by 128 columns, two blocks an SM, or by 64 columns where N <= 64, four
 # blocks an SM (gemm::Tile::MIN_BLOCKS); stages of 16 (the forward's depth, dw's
@@ -710,6 +806,10 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         forward_wgmma(x, w, y, plan)
         conv_k2.launches_wgmma += 1
         conv_k2.launches_split += plan.splits > 1
+    elif narrow is not None and narrow.c_chunks > 1:
+        forward_chunked(x, w, y, narrow)
+        conv_k2.launches_narrow += 1
+        conv_k2.launches_chunked += 1
     elif narrow is not None:
         _check_launch("conv_k2 (narrow)", _lib().conv_k2_forward_narrow(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
@@ -743,9 +843,12 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     B, D, H, W, N = g.shape
     C = w.shape[3]
     dx = torch.empty((B, D, H, W, C), dtype=g.dtype, device=g.device)
-    # both plans are those of the forward from N to C channels
+    # both plans are those of the forward from N to C channels; a narrow plan that walks N in chunks is not
+    # dx's (the chunked forward has no instance over g one voxel lower): that dx keeps the FFMA kernel
     plan = _plan_for(g, C)
     narrow = None if plan is not None else _narrow_for(g, C)
+    if narrow is not None and narrow.c_chunks > 1:
+        narrow = None
     if plan is not None:
         dx_wgmma(g, w, dx, plan)
         conv_k2.launches_dx_wgmma += 1
@@ -831,23 +934,17 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         conv_k2.launches_dw_persistent += plan.dw_persistent is not None
         conv_k2.launches_dw += 1
         return dw
-    # the narrow plan, else (bfloat16, N = 64) the dw-only one: their dw fields are the same
+    # the narrow plan (chunked or not), else (bfloat16, N = 64) the dw-only one: their dw fields are the same
     narrow = _narrow_for(x, N) or narrow_dw_plan(*x.shape, N, sms=_sms(x), dtype=x.dtype)
     if narrow is not None:
-        splits = narrow.dw_splits
+        dw_narrow(x, g, dw, narrow)
+        conv_k2.launches_dw_narrow += 1
+        conv_k2.launches_dw_wide += isinstance(narrow, NarrowDwPlan)
+        conv_k2.launches_dw_chunked += narrow.c_chunks > 1
     else:
         splits, per_split = ffma_dw_split(B * D * H * W, C, N, sms=_sms(x))
-    workspace = torch.empty((splits if splits > 1 else 0, 8 * C, N), dtype=torch.float32, device=x.device)
-    _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
-    if narrow is not None:
-        _check_launch("conv_k2 dw (narrow)", _lib().conv_k2_backward_weight_narrow(
-            x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, narrow.dw_boxes_per_split,
-            B, D, H, W, C, N, *narrow.dw_box, narrow.dw_smem_bytes, narrow.dw_stages, _DTYPE_CODES[x.dtype],
-            x.device.index, _stream(x)))
-        conv_k2.launches_dw_narrow += 1
-        if isinstance(narrow, NarrowDwPlan):
-            conv_k2.launches_dw_wide += 1
-    else:
+        workspace = torch.empty((splits if splits > 1 else 0, 8 * C, N), dtype=torch.float32, device=x.device)
+        _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
         _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, per_split, B, D, H, W, C, N,
             _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
@@ -868,7 +965,8 @@ def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     ``launches_dw_narrow`` where the shape has that plan, the former also to
     ``launches_dw_persistent`` where the plan's dw is the persistent kernel,
     the latter also where it has a dw-only plan (:func:`narrow_dw_plan`),
-    which adds one to ``launches_dw_wide`` too) or the call raises; CPU
+    which adds one to ``launches_dw_wide`` too, or a plan that walks C in
+    chunks, ``launches_dw_chunked``) or the call raises; CPU
     tensors through :func:`conv_k2_dw_reference`. The result is the same
     from run to run."""
     return _conv_k2_dw_op(x, g)
@@ -906,7 +1004,8 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     narrow kernel (bfloat16 or float32) to ``conv_k2.launches_narrow``
     (forward), ``conv_k2.launches_dx_narrow`` or
     ``conv_k2.launches_dw_narrow`` (and ``launches_dw_wide`` on the dw-only
-    plan). A tensor-core forward or dx whose plan splits its depth (and then
+    plan; a forward or dw whose plan walks C in chunks, also
+    ``launches_chunked`` or ``launches_dw_chunked``). A tensor-core forward or dx whose plan splits its depth (and then
     launches the reduce of its partials) adds one to
     ``conv_k2.launches_split`` or ``launches_dx_split``; a float32 FFMA
     forward or dx that splits its depth (:func:`ffma_split`), to
@@ -940,3 +1039,5 @@ conv_k2.launches_dw_wide = 0
 conv_k2.launches_ffma_split = 0
 conv_k2.launches_dx_ffma_split = 0
 conv_k2.launches_dw_persistent = 0
+conv_k2.launches_chunked = 0
+conv_k2.launches_dw_chunked = 0

@@ -67,7 +67,9 @@
 // over one halo box of x a block, conv_k2_narrow.cuh: the forward, dw and dx
 // (the forward from N to C channels, the box one voxel lower), on mma.sync in
 // bfloat16 and on FFMA in float32; so does the bfloat16 dw of a narrow input
-// and N = 64 (the s2d(2) stem's 8 -> 64). Which design a call takes is settled
+// and N = 64 (the s2d(2) stem's 8 -> 64); and, walking C in chunks of 64, the
+// bfloat16 forward and dw of a wide input (C a multiple of 64 above 64: the
+// tensor-parallel shard 512 -> 32). Which design a call takes is settled
 // by the Python wrapper from shape and dtype, before the launch: the wgmma
 // plan, else the narrow plan, else the dw-only narrow plan (dw), else FFMA.
 //
@@ -906,12 +908,25 @@ int conv_k2_backward_input_narrow(const void* g, const void* wm, void* dx, int B
                         static_cast<cudaStream_t>(stream));
 }
 
+// The chunked forward for wide inputs and narrow outputs, bfloat16 on
+// mma.sync: x [B,D,H,W,C] with C a multiple of 64 above 64, N in {8, 16, 32},
+// w [2,2,2,C,N] as it lies; the output box (bw, bh, bd), `grid` blocks and the
+// dynamic shared memory of the plan (held to this file's own); two stages.
+int conv_k2_forward_chunked(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw,
+                            int bh, int bd, int grid, int smem_bytes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return nr::launch_chunked_fwd(x, w, y, B, D, H, W, C, N, bw, bh, bd, grid, smem_bytes,
+                                static_cast<cudaStream_t>(stream));
+}
+
 // dw for narrow outputs, bfloat16 on mma.sync or float32 on FFMA: the boxes
 // (bw, bh, bd) of the grid are cut into `splits` runs of `boxes_per_split`
 // (the last may be shorter, none is empty); `workspace` holds splits*8*C*N
 // floats (unused when splits == 1); `smem_bytes` is the plan's dynamic shared
 // memory, held to this file's own, and `stages` its copies of x and g a block
-// (2; the float32 dw's 3).
+// (2; the float32 dw's 3; 2 or 3 for a bfloat16 C that is a multiple of 64
+// above 64, whose blocks take C in chunks of 64, one chunk a block).
 int conv_k2_backward_weight_narrow(const void* x, const void* g, void* dw, void* workspace, int splits,
                                    int boxes_per_split, int B, int D, int H, int W, int C, int N, int bw, int bh,
                                    int bd, int smem_bytes, int stages, int dtype, int device, void* stream) {

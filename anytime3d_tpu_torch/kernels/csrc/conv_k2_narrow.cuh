@@ -105,6 +105,35 @@
 //   shared memory, group 0 first, then 1, ...; the split's partial goes to the
 //   workspace and conv_k2_dw_reduce_kernel adds the splits in order: the same
 //   bits every run.
+// - Wide inputs, chunked (bfloat16, C a multiple of 64 above 64, N = 8, 16,
+//   32; kernels/conv_k2.py::narrow_plan's c_chunks): the flagship's 512 -> 64
+//   stage with its output split over a model axis of 2 is 512 -> 32 on each
+//   rank. A voxel's 512 channels are 1 KB, so the halo box cannot hold them
+//   all: the walk takes C in chunks of 64, one 128-byte swizzled row a voxel
+//   as at C = 64, the chunk's channels cut out of x by the TMA box itself.
+//   At B=32 on 16^3 the forward reads 134 MB of x for 34.4 GFLOP (240
+//   operations a byte), so it is bound by bytes; the FFMA GEMM it replaces
+//   read x through 8 shifted gathers (1.07 GB of L2 traffic) and computed 64
+//   columns for 32.
+//   Forward (conv_k2_chunked_fwd_kernel): a block keeps the N f32
+//   accumulators of a whole box in registers (8 warps, at most 2 m-tiles
+//   each at N = 32 and 4 at N = 8 and 16: boxes of 256 or 512 rows) across
+//   the chunks. A stage of the ring holds one chunk's halo box and that
+//   chunk's w, 8 x 64 x N bf16 as it lies (32 KB at N = 32; one TMA copy of
+//   128-byte rows under the 128-byte swizzle), and the ring walks (box,
+//   chunk) steps: the TMA fills the next steps' stages while the warps take
+//   the 32 k-steps of this one, A from the row table with ldmatrix as the C
+//   <= 64 forward does, B with ldmatrix.trans as dw reads g. After a box's
+//   last chunk the accumulators are rounded to bf16 once and stored. x
+//   comes from device memory once; the halo overlap and w's re-reads (once
+//   a box) come from L2.
+//   dw (conv_k2_narrow_dw_kernel, blockIdx.y the chunk): a block reduces one
+//   64-channel chunk of x's halo boxes against g's boxes (all N) over its
+//   run of boxes, exactly as the C = 64 dw does, and writes its [8 x 64, N]
+//   partial to the chunk's rows (tap, c) of its split's [8C, N]; the splits
+//   are added by conv_k2_dw_reduce_kernel in order. g is read once a chunk,
+//   from L2. The forward walks two stages a block; dw g.stages (2, or 3
+//   where its box has room for a third).
 
 #pragma once
 
@@ -126,11 +155,16 @@ constexpr int DW_MAX_M_TILES = 4;   // m16 tiles of dw's 8C rows a warp: C <= 64
 constexpr int DW_WIDE_ACCUMULATORS = 4096;  // 8C x N of the bfloat16 dw at N = 64: 16 a lane, one unit a warp
 constexpr uint32_t ALIGN = 1024;    // stage alignment: the longest swizzle's period
 
-// CONV_K2_NARROW_PROBE builds the float32 kernels with a part left out, to
-// time the rest (cli/probe_narrow.py; the port's build has 0, all of it). The
-// forward and dx: 1 without the store of y, 2 without the products, 3 without
-// both. dw: 1 without each row's loads (every row's products on the first
-// row's operands), 2 with 8 FFMA a row for 64, 3 without the loop over rows.
+// CONV_K2_NARROW_PROBE builds the float32 kernels and those of the walk in
+// chunks (the chunked forward, and the bfloat16 dw where g.chunks > 1) with a
+// part left out, to time the rest (cli/probe_narrow.py; the port's build has
+// 0, all of it). The forwards and dx: 1 without the store of y, 2 without the
+// products (chunked: no ldmatrix, no mma), 3 without both. The float32 dw: 1
+// without each row's loads (every row's products on the first row's
+// operands), 2 with 8 FFMA a row for 64, 3 without the loop over rows. The
+// chunked dw: 1 each k-step's products added by the tensor cores' own
+// accumulation (no rounded adds), 3 without the loop over k-steps (2 is
+// whole).
 #ifndef CONV_K2_NARROW_PROBE
 #define CONV_K2_NARROW_PROBE 0
 #endif
@@ -139,7 +173,8 @@ constexpr int PROBE = CONV_K2_NARROW_PROBE;
 // Where a launch's shapes meet: the grid, the box and the byte counts, worked
 // out on the host and passed by value.
 struct Geom {
-  int D, H, W, C;
+  int D, H, W, C;       // C: the channels of a box's row, a chunk's 64 where the walk takes C in chunks
+  int c_total, chunks;  // x's channels, and the chunks of 64 of them (1: the box holds them all)
   int row;              // bytes of a voxel's C channels: 2C (bfloat16) or 4C (float32)
   int bw, bh, bd;       // output box
   int nw, nh, nd;       // boxes along w, h and d, the last ones ragged
@@ -149,23 +184,30 @@ struct Geom {
   uint32_t g_bytes;     // rows * esize N: one TMA copy of g (dw)
   uint32_t stage_x;     // halo_bytes rounded up to ALIGN
   uint32_t stage_g;     // rows16 * esize N rounded up to ALIGN (dw; 0 for the forward)
+  uint32_t stage_w;     // a chunk's w, 8 x 64 x N bf16 (the chunked forward; else 0)
   int split;            // the float32 forward's parts of the taps: 2 where rows <= 2 THREADS, else 1
   uint32_t sums;        // float32 partial sums: the split forward's second part (rows x N), dw's tile (8C x N)
   uint32_t stage_y;     // the float32 forward's output chunk (THREADS rows x 4N, two of them), or 0: see make_geom
   int chunk_d;          // d-planes of the box in a chunk, THREADS / (bw bh), or 0: the plan's
-  int stages;           // copies of x (and g) a block holds: the plan's, 2 or (the float32 dw) 3
+  int stages;           // copies of x (and g, or w) a block holds: the plan's, 2 or (the float32 dw, chunked dw) 3
 };
 
 __host__ __device__ constexpr uint32_t round_up(uint32_t v, uint32_t a) { return (v + a - 1) / a * a; }
 
+// m-tiles a warp of the chunked forward holds across the chunks, N = 8 NT: 32 accumulators a lane at N = 16
+// and 32; 16 at N = 8, where 8 m-tiles' operands took every register and spilled. Its box has at most
+// 16 WARPS chunked_mw(NT) rows.
+__host__ __device__ constexpr int chunked_mw(int nt) { return nt == 1 ? 4 : 8 / nt; }
+
 // Dynamic shared memory of a launch: alignment room, the stages (and the
 // float32 forward's two output chunks), the forward's w (8C x N elements: 8 N
-// row bytes) and its table of output rows, the table of halo rows, a barrier a
-// stage (their room a multiple of 16 bytes), and the float32 kernels' partial
-// sums.
+// row bytes; the chunked forward's is in its stages) and its table of output
+// rows, the table of halo rows, a barrier a stage (their room a multiple of 16
+// bytes), and the float32 kernels' partial sums.
 __host__ __device__ inline size_t smem_bytes(const Geom& g, int N, bool dw) {
-  return ALIGN + static_cast<size_t>(g.stages) * (g.stage_x + g.stage_g) + 2 * static_cast<size_t>(g.stage_y) +
-         (dw ? 0 : 8 * N * g.row + 4 * g.rows16) + 4 * g.rows16 + round_up(8 * g.stages, 16) + g.sums;
+  return ALIGN + static_cast<size_t>(g.stages) * (g.stage_x + g.stage_g + g.stage_w) +
+         2 * static_cast<size_t>(g.stage_y) + (dw || g.chunks > 1 ? 0 : 8 * N * g.row) + (dw ? 0 : 4 * g.rows16) +
+         4 * g.rows16 + round_up(8 * g.stages, 16) + g.sums;
 }
 
 // Byte offset `off` of a buffer of rows of `mask` + 1 16-byte pieces, as the
@@ -191,6 +233,14 @@ __device__ __forceinline__ void bulk_wait_read() {  // at most PENDING stores st
 }
 
 __device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 
 __device__ __forceinline__ void fence_proxy_async() {  // this thread's shared-memory writes, seen by the TMA
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -376,6 +426,140 @@ conv_k2_narrow_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __nv_
   }
 }
 
+// The chunked forward: y [B, D, H, W, N] (N = 8 NT) from x [B, D, H, W, 64
+// g.chunks] and w [8, 64 g.chunks, N] as it lies: a stage's w is the chunk's
+// [8 taps][64 c][N] by one TMA copy of 128-byte rows (2N-byte rows of (tap,
+// c), 128 / 2N of them a row) under the 128-byte swizzle, read as the mma's
+// B fragments by ldmatrix.trans (as dw reads g; any 8 consecutive (tap, c)
+// rows fall in 8 bank groups). Block i computes boxes i, i + gridDim.x, ...;
+// step t of its walk is chunk t % chunks of its box t / chunks, through the
+// ring's two stages. Warp w owns m-tiles w, w + 8, ... of the box (MW =
+// chunked_mw(NT) at most: the plan's box has at most 128 MW rows) and their
+// accumulators across the chunks.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_k2_chunked_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                           __nv_bfloat16* __restrict__ y, const Geom g) {
+  constexpr int N = 8 * NT;
+  constexpr int MW = chunked_mw(NT);  // m-tiles a warp
+  constexpr int KSTEPS = 8 * 64 / 16;  // a chunk's depth, 8 taps x 64 channels, in k-steps of 16
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = round_up(raw, ALIGN);
+  uint8_t* const base_p = smem_raw + (base - raw);
+  constexpr int S = 2;  // stages of the ring (make_geom's g.stages)
+  const uint32_t stage = g.stage_x + g.stage_w;
+  int* const vrow = reinterpret_cast<int*>(base_p + S * stage);
+  int* const loc = vrow + g.rows16;
+  const uint32_t bar = base + S * stage + 8 * g.rows16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grid = gridDim.x, n_boxes = (g.boxes - static_cast<int>(blockIdx.x) + grid - 1) / grid;
+  const int n_steps = n_boxes * g.chunks;
+
+  const CUtensorMap *mx = &map_x, *mwt = &map_w;
+  auto issue = [&](int s, int t) {  // thread 0: step t's halo box of its chunk and the chunk's w into stage s
+    int w0, h0, d0, b;
+    box_origin(g, blockIdx.x + t / g.chunks * grid, w0, h0, d0, b);
+    const int chunk = t % g.chunks;
+    const uint32_t full = bar + 8 * s, dst = base + s * stage;
+    wg::mbar_arrive_expect_tx(full, g.halo_bytes + g.stage_w);
+    wg::tma_load_5d(dst, mx, full, 64 * chunk, w0, h0, d0, b);
+    tma_load_3d(dst + g.stage_x, mwt, full, 0, N * chunk, 0);
+  };
+
+  init_barriers(bar, S);
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < S && s < n_steps; ++s) issue(s, s);
+  fill_rows(g, vrow, loc);
+  __syncthreads();
+
+  const int mtiles = g.rows16 / 16;
+  const int mw = (mtiles - warp + WARPS - 1) / WARPS;  // this warp's m-tiles: warp, warp + 8, ...
+  // m-tile m of this warp, kept inside the box's tables where the warp has fewer than MW
+  auto mtile = [&](int m) { return min(warp + WARPS * m, mtiles - 1); };
+  // this lane's ldmatrix row: row lane % 16 of an m-tile, channels 8 (lane / 16) .. of a k-step
+  const int a_row = lane & 15, a_half = lane >> 4;
+  uint32_t vr[MW], toff[8];
+#pragma unroll
+  for (int m = 0; m < MW; ++m) vr[m] = vrow[16 * mtile(m) + a_row];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) toff[t] = tap_offset(g, t) + 16 * a_half;
+  // B: a k-step is 16 rows of w's [512][N], 32 N bytes, so the 128-byte swizzle's 1024-byte period holds P of
+  // them; this lane's ldmatrix row (16 p + lane % 16, n8 tile 2 jj + lane / 16: .x4 takes two tiles, .x2 at
+  // N = 8 one) swizzled once for each p, so that a k-step's B address is the period's base and a constant
+  constexpr int P = 1024 / (32 * N), NB = NT > 1 ? NT / 2 : 1;
+  uint32_t bsw[NB][P];
+#pragma unroll
+  for (int jj = 0; jj < NB; ++jj)
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      bsw[jj][p] = swizzle(static_cast<uint32_t>((16 * p + a_row) * 2 * N + 32 * jj + (NT > 1 ? 16 * a_half : 0)),
+                           7);
+  float acc[MW][NT][4];
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = i % S, chunk = i % g.chunks;
+    if (chunk == 0)
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
+    wg::mbar_wait(bar + 8 * s, (i / S) & 1);
+    const uint32_t xs = base + s * stage, wsm = xs + g.stage_x;
+#pragma unroll
+    for (int ks = 0; ks < (PROBE & 2 ? 0 : KSTEPS); ++ks) {
+      // A: tap ks / 4, channels 16 (ks % 4) .. of the chunk, this lane's 8 of them from its row's halo voxel;
+      // B: rows 16 ks + lane % 16 of the chunk's w [512][N] (ldmatrix.trans, as dw reads g)
+      uint32_t bf[NT][2], a[MW][4];
+      const uint32_t wk = wsm + (ks / P) * 1024;
+      if constexpr (NT > 1) {
+#pragma unroll
+        for (int jj = 0; jj < NB; ++jj) {
+          uint32_t r[4];
+          ldsm_x4_trans(wk + bsw[jj][ks % P], r);
+          bf[2 * jj][0] = r[0], bf[2 * jj][1] = r[1], bf[2 * jj + 1][0] = r[2], bf[2 * jj + 1][1] = r[3];
+        }
+      } else {
+        ldsm_x2_trans(wk + bsw[0][ks % P], bf[0]);
+      }
+      const uint32_t koff = toff[ks >> 2] + 32 * (ks & 3);
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+        if (m < mw) ldsm_x4(xs + swizzle(vr[m] + koff, 7), a[m]);
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+        if (m < mw)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma(acc[m][j], a[m], bf[j][0], bf[j][1], acc[m][j]);
+    }
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && i + S < n_steps) issue(s, i + S);
+    // the probe without the store: g.D > 0 always holds, but the compiler cannot know it and keeps the products
+    if (chunk != g.chunks - 1 || (PROBE & 1 && g.D > 0)) continue;
+    // the box's last chunk: its rows inside the grid (a ragged last box stores fewer), rounded once
+    int w0, h0, d0, b;
+    box_origin(g, blockIdx.x + i / g.chunks * grid, w0, h0, d0, b);
+    const int lim_w = g.W - w0, lim_h = g.H - h0, lim_d = g.D - d0;
+    const long long row0 = ((static_cast<long long>(b) * g.D + d0) * g.H + h0) * g.W + w0;
+#pragma unroll
+    for (int m = 0; m < MW; ++m) {
+      if (m >= mw) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // rows lane/4 and lane/4 + 8 of the m-tile
+        const int l = loc[16 * mtile(m) + (lane >> 2) + 8 * half];
+        const int rw = l & 1023, rh = (l >> 10) & 1023, rd = l >> 20;
+        if (l < 0 || rw >= lim_w || rh >= lim_h || rd >= lim_d) continue;
+        __nv_bfloat16* out = y + (row0 + (static_cast<long long>(rd) * g.H + rh) * g.W + rw) * N + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          *reinterpret_cast<uint32_t*>(out + 8 * j) = wg::pack_bf16(acc[m][j][2 * half], acc[m][j][2 * half + 1]);
+      }
+    }
+  }
+}
+
 // Forward in float32: y [B, D, H, W, N] from x [B, D, H, W, C] and w [8C, N]
 // (N = 8 NT), each product an FFMA; DX: dx from g and w' with the halo box one
 // voxel lower, as the bf16 kernel's DX instance. The walk, stages and tables
@@ -555,7 +739,11 @@ conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const _
 // half of them (4) for N = 64. The units are dealt to the warps, `mw` a warp
 // (1, 2 or 4; the unit u is m-tile u % (8C/16) of the column half u /
 // (8C/16)); where there are fewer than 8 (C = 8, N <= 32: 4), the other warps
-// only take part in the barriers.
+// only take part in the barriers. Where the walk takes C in chunks
+// (g.chunks > 1), block (z, k) reduces chunk k (C = 64 of g.c_total channels)
+// over split z's run and writes the chunk's rows of part[z] [8 c_total, N].
+// S copies a block: 2, or 3 where the plan of a chunked dw finds room
+// (g.stages, which picks the instance).
 //
 // N = 64 (NT = 8), the dw-only route of a narrow input and a wide output:
 // the s2d(2) stem's 8 -> 64 at 32^3 (kernels/conv_k2.py::narrow_dw_plan). It
@@ -567,7 +755,7 @@ conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const _
 // KB); the 4 m-tiles x 8 n8 tiles (8C x N = 4096 accumulators, 16 a lane) are
 // 8 units, one a warp, so every warp computes; a k-step is one ldmatrix of x
 // and 4 of g for 4 products.
-template <int NT>
+template <int NT, int S>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
                          float* __restrict__ part, const Geom g, int per_split) {
@@ -579,31 +767,32 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
   const uint32_t base = round_up(raw, ALIGN);
   uint8_t* const base_p = smem_raw + (base - raw);
   const uint32_t stage = g.stage_x + g.stage_g;
-  int* const vrow = reinterpret_cast<int*>(base_p + 2 * stage);
-  const uint32_t bar = base + 2 * stage + 4 * g.rows16;
+  int* const vrow = reinterpret_cast<int*>(base_p + S * stage);
+  const uint32_t bar = base + S * stage + 4 * g.rows16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int first = static_cast<int>(blockIdx.x) * per_split;
   const int n_boxes = min(per_split, g.boxes - first);
+  const int c0 = static_cast<int>(blockIdx.y) * g.C;  // the chunk's first channel of x: 0 unchunked
 
   const CUtensorMap *mx = &map_x, *mg = &map_g;
-  auto issue = [&](int s, int box) {  // thread 0: the halo box of x and the box of g into stage s
+  auto issue = [&](int s, int box) {  // thread 0: the halo box of x (the chunk's channels) and the box of g
     int w0, h0, d0, b;
     box_origin(g, box, w0, h0, d0, b);
     const uint32_t full = bar + 8 * s, dst = base + s * stage;
     wg::mbar_arrive_expect_tx(full, g.halo_bytes + g.g_bytes);
-    wg::tma_load_5d(dst, mx, full, 0, w0, h0, d0, b);
+    wg::tma_load_5d(dst, mx, full, c0, w0, h0, d0, b);
     wg::tma_load_5d(dst + g.stage_x, mg, full, 0, w0, h0, d0, b);
   };
 
-  init_barriers(bar);
+  init_barriers(bar, S);
   // g's rows from `rows` to `rows16` stay zero: the copies never write them
-  for (int s = 0; s < 2; ++s)
+  for (int s = 0; s < S; ++s)
     for (int i = g.rows * 2 * N / 16 + tid; i < g.rows16 * 2 * N / 16; i += THREADS)
       reinterpret_cast<uint4*>(base_p + s * stage + g.stage_x)[i] = make_uint4(0, 0, 0, 0);
   fill_rows(g, vrow, nullptr);
   __syncthreads();
   if (tid == 0)
-    for (int s = 0; s < 2 && s < n_boxes; ++s) issue(s, first + s);
+    for (int s = 0; s < S && s < n_boxes; ++s) issue(s, first + s);
 
   const int mtiles = g.C / 2;  // 8C / 16
   const int units = mtiles * (NT / NW);
@@ -631,10 +820,12 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
   const float zero[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (int i = 0; i < n_boxes; ++i) {
-    const int s = i & 1;
-    wg::mbar_wait(bar + 8 * s, (i >> 1) & 1);
+    const int s = i % S;
+    wg::mbar_wait(bar + 8 * s, (i / S) & 1);
     const uint32_t xs = base + s * stage, gs = xs + g.stage_x;
-    for (int ks = 0; warp < wpg && ks < g.rows16 / 16; ++ks) {
+    const bool probe = g.chunks > 1;  // a probe build leaves a part out of the walk in chunks only
+    const int ksteps = PROBE == 3 && probe ? 0 : g.rows16 / 16;
+    for (int ks = 0; warp < wpg && ks < ksteps; ++ks) {
       // every ldmatrix of the k-step first, then its products: the loads' latencies overlap
       const uint32_t va = vrow[16 * ks + a_row];
       uint32_t bf[NW][2], a[MAX_MW][4];
@@ -650,6 +841,10 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
         if (m >= mw) continue;
 #pragma unroll
         for (int j = 0; j < NW; ++j) {
+          if (PROBE == 1 && probe) {  // the probe: the tensor cores' own accumulation
+            mma(acc[m][j], a[m], bf[j][0], bf[j][1], acc[m][j]);
+            continue;
+          }
           float d[4];
           mma(d, a[m], bf[j][0], bf[j][1], zero);
 #pragma unroll
@@ -658,20 +853,23 @@ conv_k2_narrow_dw_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
       }
     }
     __syncthreads();  // every warp is done with stage s
-    if (tid == 0 && i + 2 < n_boxes) issue(s, first + i + 2);
+    if (tid == 0 && i + S < n_boxes) issue(s, first + i + S);
   }
 
   if (warp >= wpg) return;
-  float* out = part + static_cast<long long>(blockIdx.x) * 8 * g.C * N;
+  // the split's [8C, N] partial (C = g.c_total); the chunk's rows (t, c) are rows t C + c0 + c of it
+  float* out = part + static_cast<long long>(blockIdx.x) * 8 * g.c_total * N;
+  auto out_row = [&](int r) { return (r >> log_c) * g.c_total + c0 + (r & (g.C - 1)); };
 #pragma unroll
   for (int m = 0; m < MAX_MW; ++m) {
     if (m >= mw) break;
     const int row = 16 * ((warp + wpg * m) % mtiles) + (lane >> 2);
+    const int lo = out_row(row), hi = out_row(row + 8);
 #pragma unroll
     for (int j = 0; j < NW; ++j) {
       const int n = col0 + 8 * j + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(out + row * N + n) = make_float2(acc[m][j][0], acc[m][j][1]);
-      *reinterpret_cast<float2*>(out + (row + 8) * N + n) = make_float2(acc[m][j][2], acc[m][j][3]);
+      *reinterpret_cast<float2*>(out + lo * N + n) = make_float2(acc[m][j][0], acc[m][j][1]);
+      *reinterpret_cast<float2*>(out + hi * N + n) = make_float2(acc[m][j][2], acc[m][j][3]);
     }
   }
 }
@@ -791,18 +989,32 @@ conv_k2_narrow_dw_f32_kernel(const __grid_constant__ CUtensorMap map_x, const __
 // block holds (2; the float32 dw may take 3) and `chunk_d`, the d-planes of
 // the float32 forward's output chunk of THREADS rows where it stores through
 // shared memory (0: from registers; else the box has no tap split and is
-// whole chunks of whole d-planes). Returns false where the kernels do not
-// apply.
+// whole chunks of whole d-planes). A bfloat16 C that is a multiple of 64
+// above 64 is walked in chunks of 64 (g.chunks = C / 64, N = 8, 16 or 32; the
+// forward two stages, dw 2 or 3): the box holds a chunk's channels, and the
+// forward's box at most 16 WARPS chunked_mw(NT) rows (its accumulators stay
+// in registers across the chunks).
+// Returns false where the kernels do not apply.
 inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw, int bh, int bd, bool dw,
                       int esize, int stages, int chunk_d) {
+  const int chunks = esize == 2 && C > 64 && C % 64 == 0 ? C / 64 : 1;
+  const int c_total = C;
+  C /= chunks;
   const bool wide_dw = dw && esize == 2 && N == 64 && 8 * C * N <= DW_WIDE_ACCUMULATORS;
+  const bool narrow_n = N == 8 || N == 16 || N == 32;
   if ((C != 8 && C != 16 && C != 32 && C != 64) || (esize != 2 && esize != 4) || esize * C > 128 ||
-      (N != 8 && N != 16 && N != 32 && !wide_dw) || B < 1 || (stages != 2 && !(dw && esize == 4 && stages == 3)))
+      (!narrow_n && !wide_dw) || B < 1 ||
+      (stages != 2 && !(dw && stages == 3 && (esize == 4 || chunks > 1))))
     return false;
   if (bw < 1 || bh < 1 || bd < 1 || bw > W || bh > H || bd > D || bw > MAX_EXTENT || bh > MAX_EXTENT ||
       bd > MAX_EXTENT || bw * bh * bd > MAX_ROWS)
     return false;
+  if (chunks > 1 && (!narrow_n || chunk_d != 0 ||
+                     (!dw && round_up(bw * bh * bd, 16) > 16u * WARPS * chunked_mw(N / 8))))
+    return false;
   g.D = D; g.H = H; g.W = W; g.C = C;
+  g.c_total = c_total;
+  g.chunks = chunks;
   g.row = esize * C;
   g.bw = bw; g.bh = bh; g.bd = bd;
   g.nw = (W + bw - 1) / bw; g.nh = (H + bh - 1) / bh; g.nd = (D + bd - 1) / bd;
@@ -815,6 +1027,7 @@ inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw,
   g.g_bytes = dw ? static_cast<uint32_t>(g.rows * esize * N) : 0;
   g.stage_x = round_up(g.halo_bytes, ALIGN);
   g.stage_g = dw ? round_up(g.rows16 * esize * N, ALIGN) : 0;
+  g.stage_w = !dw && chunks > 1 ? 8 * C * N * esize : 0;
   g.split = !dw && esize == 4 && g.rows <= 2 * THREADS ? 2 : 1;
   g.sums = esize != 4 ? 0 : dw ? 32 * C * N : g.split > 1 ? 4 * g.rows * N : 0;
   if (chunk_d != 0 && (dw || esize != 4 || g.split != 1 || chunk_d * bw * bh != THREADS || g.rows % THREADS != 0))
@@ -826,11 +1039,13 @@ inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw,
 }
 
 // A tensor [B, D, H, W, ch] of bfloat16 (esize 2) or float32 (esize 4) as the
-// TMA sees it, (ch, W, H, D, B) innermost first, in boxes of (ch, bw, bh, bd,
-// 1): rows of esize ch bytes (16 to 128) under the swizzle of that width,
-// zeros where a box leaves the tensor.
+// TMA sees it, (ch, W, H, D, B) innermost first, in boxes of (box_ch, bw, bh,
+// bd, 1) (box_ch: all ch, or a chunk's 64 of them): rows of esize box_ch bytes
+// (16 to 128) under the swizzle of that width, zeros where a box leaves the
+// tensor.
 inline int encode_box_map(CUtensorMap* map, const void* p, int B, int D, int H, int W, int ch, int bw, int bh,
-                          int bd, int esize) {
+                          int bd, int esize, int box_ch = 0) {
+  if (box_ch == 0) box_ch = ch;
   wg::EncodeTiledFn encode = wg::encode_tiled_fn();
   if (!encode) return wg::NO_ENCODER;
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(ch), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
@@ -841,10 +1056,10 @@ inline int encode_box_map(CUtensorMap* map, const void* p, int B, int D, int H, 
     stride *= dims[i];
     strides[i] = stride;
   }
-  const cuuint32_t box[5] = {static_cast<cuuint32_t>(ch), static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh),
-                             static_cast<cuuint32_t>(bd), 1};
+  const cuuint32_t box[5] = {static_cast<cuuint32_t>(box_ch), static_cast<cuuint32_t>(bw),
+                             static_cast<cuuint32_t>(bh), static_cast<cuuint32_t>(bd), 1};
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const int row = esize * ch;
+  const int row = esize * box_ch;
   const CUtensorMapSwizzle swizzle = row == 16   ? CU_TENSOR_MAP_SWIZZLE_NONE
                                      : row == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                      : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -853,6 +1068,21 @@ inline int encode_box_map(CUtensorMap* map, const void* p, int B, int D, int H, 
   const CUresult res = encode(map, type, 5, const_cast<void*>(p), dims, strides, box, ones,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : wg::ENCODE_FAILED + static_cast<int>(res);
+}
+
+// w [8, C, N] bfloat16 (C a multiple of 64) as the TMA sees it: each tap's C N
+// elements as rows of 64 (128 bytes), in boxes of a chunk's 8 x N rows (its
+// [8 taps][64 c][N]) under the 128-byte swizzle.
+inline int encode_chunk_w_map(CUtensorMap* map, const void* w, int C, int N) {
+  wg::EncodeTiledFn encode = wg::encode_tiled_fn();
+  if (!encode) return wg::NO_ENCODER;
+  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(C) * N / 64, 8};
+  const cuuint64_t strides[2] = {128, 2ull * N * C};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(N), 8}, ones[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), dims, strides, box, ones,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : wg::ENCODE_FAILED + static_cast<int>(res);
 }
 
@@ -909,7 +1139,7 @@ inline int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H
   const int esize = dtype == 0 ? 4 : 2;
   Geom g;
   if ((dtype != 0 && dtype != 1) || !make_geom(g, B, D, H, W, C, N, bw, bh, bd, false, esize, 2, chunk_d) ||
-      grid < 1 || grid > g.boxes)
+      g.chunks > 1 || grid < 1 || grid > g.boxes)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(g, N, false);
   if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
@@ -923,12 +1153,46 @@ inline int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H
             : launch_fwd_bf16<false>(map_x, w, y, g, N, grid, smem, s);
 }
 
+template <int NT>
+int launch_chunked_fwd_nt(const CUtensorMap& map_x, const CUtensorMap& map_w, void* y, const Geom& g, int grid,
+                          size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_chunked_fwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_k2_chunked_fwd_kernel<NT><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+      map_x, map_w, static_cast<__nv_bfloat16*>(y), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunked bfloat16 forward (C a multiple of 64 above 64, N = 8, 16, 32) at
+// the box (bw, bh, bd) with `grid` blocks and two stages, w [2,2,2,C,N] as it
+// lies; `plan_smem` is the wrapper's dynamic shared memory, held to this
+// file's own.
+inline int launch_chunked_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N,
+                              int bw, int bh, int bd, int grid, int plan_smem, cudaStream_t s) {
+  Geom g;
+  if (!make_geom(g, B, D, H, W, C, N, bw, bh, bd, false, 2, 2, 0) || g.chunks < 2 || grid < 1 ||
+      grid > g.boxes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(g, N, false);
+  if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
+  CUtensorMap map_x, map_w;
+  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, 2, g.C);
+  if (rc) return rc;
+  rc = encode_chunk_w_map(&map_w, w, C, N);
+  if (rc) return rc;
+  if (N == 8) return launch_chunked_fwd_nt<1>(map_x, map_w, y, g, grid, smem, s);
+  if (N == 16) return launch_chunked_fwd_nt<2>(map_x, map_w, y, g, grid, smem, s);
+  return launch_chunked_fwd_nt<4>(map_x, map_w, y, g, grid, smem, s);
+}
+
 template <typename Kernel>
 int launch_dw_kernel(Kernel kernel, const CUtensorMap& map_x, const CUtensorMap& map_g, float* part, const Geom& g,
                      int splits, int per_split, size_t smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(splits), THREADS, smem, s>>>(map_x, map_g, part, g, per_split);
+  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(g.chunks));
+  kernel<<<grid, THREADS, smem, s>>>(map_x, map_g, part, g, per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -936,10 +1200,15 @@ int launch_dw_kernel(Kernel kernel, const CUtensorMap& map_x, const CUtensorMap&
 template <int NT, bool F32>
 int launch_dw_nt(const CUtensorMap& map_x, const CUtensorMap& map_g, float* part, const Geom& g, int splits,
                  int per_split, size_t smem, cudaStream_t s) {
-  if constexpr (F32)
+  if constexpr (F32) {
     return launch_dw_kernel(conv_k2_narrow_dw_f32_kernel<NT>, map_x, map_g, part, g, splits, per_split, smem, s);
-  else
-    return launch_dw_kernel(conv_k2_narrow_dw_kernel<NT>, map_x, map_g, part, g, splits, per_split, smem, s);
+  } else {
+    if constexpr (NT <= 4) {  // make_geom lets three stages through for a chunked dw only: N <= 32
+      if (g.stages == 3)
+        return launch_dw_kernel(conv_k2_narrow_dw_kernel<NT, 3>, map_x, map_g, part, g, splits, per_split, smem, s);
+    }
+    return launch_dw_kernel(conv_k2_narrow_dw_kernel<NT, 2>, map_x, map_g, part, g, splits, per_split, smem, s);
+  }
 }
 
 template <bool F32>
@@ -955,7 +1224,8 @@ int launch_dw_n(const CUtensorMap& map_x, const CUtensorMap& map_g, float* part,
 
 // dw's partial sums of bfloat16 (dtype 1) or float32 (dtype 0) operands, one
 // [8C, N] a split, into `part`: the splits are runs of `per_split` boxes (the
-// last may be shorter, none is empty), walked through `stages` copies.
+// last may be shorter, none is empty), walked through `stages` copies; a
+// bfloat16 C that is a multiple of 64 above 64 by blocks (split, chunk).
 inline int launch_dw(const void* x, const void* gr, float* part, int splits, int per_split, int B, int D, int H, int W,
                      int C, int N, int bw, int bh, int bd, int plan_smem, int stages, int dtype, cudaStream_t s) {
   const int esize = dtype == 0 ? 4 : 2;
@@ -967,7 +1237,7 @@ inline int launch_dw(const void* x, const void* gr, float* part, int splits, int
   const size_t smem = smem_bytes(g, N, true);
   if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
   CUtensorMap map_x, map_g;
-  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, esize);
+  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, esize, g.C);
   if (rc) return rc;
   rc = encode_box_map(&map_g, gr, B, D, H, W, N, bw, bh, bd, esize);
   if (rc) return rc;

@@ -505,6 +505,7 @@ def reset_counts() -> None:
     conv_k2.launches_split = conv_k2.launches_dx_split = 0
     conv_k2.launches_dw_wide = 0
     conv_k2.launches_ffma_split = conv_k2.launches_dx_ffma_split = conv_k2.launches_dw_persistent = 0
+    conv_k2.launches_chunked = conv_k2.launches_dw_chunked = 0
 
 
 def read_counts() -> dict:
@@ -518,7 +519,9 @@ def read_counts() -> dict:
     under ``*_ffma_split`` the float32 FFMA forward and dx launches that split
     their depth (each with the reduce of its partials), under
     ``conv_k2_dw_persistent`` the tensor-core dw launches on the persistent
-    kernel."""
+    kernel, under ``conv_k2_chunked`` / ``conv_k2_dw_chunked`` the narrow
+    forward and dw launches whose plan walks C in chunks of 64 (the
+    tensor-parallel shard 512 -> 32)."""
     return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
             "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dx_wgmma": conv_k2.launches_dx_wgmma,
             "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma, "conv_k2_narrow": conv_k2.launches_narrow,
@@ -527,20 +530,24 @@ def read_counts() -> dict:
             "conv_k2_split_reduce": conv_k2.launches_split + conv_k2.launches_dx_split,
             "conv_k2_dw_wide": conv_k2.launches_dw_wide, "conv_k2_ffma_split": conv_k2.launches_ffma_split,
             "conv_k2_dx_ffma_split": conv_k2.launches_dx_ffma_split,
-            "conv_k2_dw_persistent": conv_k2.launches_dw_persistent}
+            "conv_k2_dw_persistent": conv_k2.launches_dw_persistent, "conv_k2_chunked": conv_k2.launches_chunked,
+            "conv_k2_dw_chunked": conv_k2.launches_dw_chunked}
 
 
 def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
                   narrow: tuple[int, int, int] = (0, 0, 0), split: tuple[int, int] = (0, 0),
-                  wide: int = 0, ffma_split: tuple[int, int] = (0, 0), persistent: int = 0) -> dict:
+                  wide: int = 0, ffma_split: tuple[int, int] = (0, 0), persistent: int = 0,
+                  chunked: tuple[int, int] = (0, 0)) -> dict:
     """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
     all of them on the tensor-core kernels or none of them, ``narrow``'s
     forward / dx / dw launches of them on the narrow kernels, ``wide`` of the
     narrow dw's on the dw-only plan, ``split``'s forward / dx launches of
     the tensor-core ones that split their depth, each with its reduce,
     ``ffma_split``'s forward / dx launches of the float32 FFMA ones that do
-    (only the mid_blocked stages at 4^3 and 8^3 split), and ``persistent`` of
-    the tensor-core dw's on the persistent kernel (the mid_blocked stages)."""
+    (only the mid_blocked stages at 4^3 and 8^3 split), ``persistent`` of
+    the tensor-core dw's on the persistent kernel (the mid_blocked stages),
+    and ``chunked``'s forward / dw launches of the narrow ones whose plan walks
+    C in chunks."""
     counts = read_counts()
     want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
             "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dx_wgmma": dx if tensor_cores else 0,
@@ -548,7 +555,7 @@ def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
             "conv_k2_dx_narrow": narrow[1], "conv_k2_dw_narrow": narrow[2], "conv_k2_split": split[0],
             "conv_k2_dx_split": split[1], "conv_k2_split_reduce": split[0] + split[1], "conv_k2_dw_wide": wide,
             "conv_k2_ffma_split": ffma_split[0], "conv_k2_dx_ffma_split": ffma_split[1],
-            "conv_k2_dw_persistent": persistent}
+            "conv_k2_dw_persistent": persistent, "conv_k2_chunked": chunked[0], "conv_k2_dw_chunked": chunked[1]}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     return counts
@@ -616,11 +623,12 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
     """Launch ``run`` once, hold it against ``plain`` with the tolerance of its
     design and dtype, and hold the design the launch took to ``want`` ("wgmma",
     "persistent" (the tensor-core dw on persistent blocks), "narrow",
+    "chunked" (the narrow forward or dw that walks C in chunks of 64),
     "ffma_split" (the float32 FFMA forward or dx with its depth split) or
     "ffma"). With ``exact`` (a float64 product) the tensor-core and narrow
     kernels and their plain versions are also held against it; dw must give
     the same bits twice."""
-    designs = ("persistent", "ffma_split", "wgmma", "narrow")
+    designs = ("persistent", "ffma_split", "wgmma", "chunked", "narrow")
 
     def launched(design: str) -> int:
         return sum(n for name, n in read_counts().items() if name.endswith(f"_{design}"))
@@ -783,7 +791,10 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     4^3 2048 -> 512 forward, B=8; ``launches`` its forward and dx launches),
     and ``conv_k2_dw_persistent``, the bf16 dw on persistent blocks (headline:
     4^3 2048 -> 512 at B=8). ``launches_ffma_split`` on the forward and dx and
-    ``launches_persistent`` on dw count those launches of each."""
+    ``launches_persistent`` on dw count those launches of each;
+    ``launches_chunked`` on the forward and dw the narrow launches whose plan
+    walks C in chunks of 64 (the tensor-parallel shard 512 -> 32 in bf16,
+    part of ``launches_narrow``)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
              variant_counts, stream_counts, real_counts, mapping_counts, mid_counts, tp_counts)
     names = ("serve", "train", "anytime", "lifecycle", "artifact", "image", "detector", "variants", "pretrain_stream",
@@ -828,6 +839,8 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             entry["launches_ffma_split"] = sum(c[f"{kernel}_ffma_split"] for c in paths)
         if kernel == "conv_k2_dw":  # the tensor-core dw launches on persistent blocks
             entry["launches_persistent"] = sum(c["conv_k2_dw_persistent"] for c in paths)
+        if kernel in ("conv_k2", "conv_k2_dw"):  # the narrow launches that walk C in chunks
+            entry["launches_chunked"] = sum(c[f"{kernel}_chunked"] for c in paths)
         entries.append(entry)
     return entries
 
@@ -4287,19 +4300,26 @@ def tp_expected(batch: int, dtype: torch.dtype, model: int) -> dict:
     """The launches of one train step of the flagship with its k=2 stages'
     output channels split over ``model`` ranks, on each rank: 4 forward, 3 dx
     (the first stage's input is data), 4 dw, on the routes the plans give
-    their shapes."""
+    their shapes: in bf16 the tensor-core ones, but 512 -> 32 at a model axis
+    of 2, whose forward and dw walk C in chunks (the narrow kernels) and whose
+    dx (the forward from 32 to 512) has no plan."""
     want = dict.fromkeys(read_counts(), 0)
     for stage, (C, N) in enumerate(FLAGSHIP_K2):
         n = N // model
         bf16 = dtype == torch.bfloat16
         fwd, dx = (wgmma_plan(batch, GRID, GRID, GRID, C, n) if bf16 else None,
                    wgmma_plan(batch, GRID, GRID, GRID, n, C) if bf16 else None)
-        assert narrow_plan(batch, GRID, GRID, GRID, C, n, dtype=dtype) is None
+        narrow = narrow_plan(batch, GRID, GRID, GRID, C, n, dtype=dtype)
+        assert narrow is None or narrow.c_chunks > 1  # only the walk in chunks: no other narrow shard
+        assert narrow_plan(batch, GRID, GRID, GRID, n, C, dtype=dtype) is None
+        chunked = narrow is not None
         want["conv_k2"] += 1
         want["conv_k2_dw"] += 1
         want["conv_k2_wgmma"] += fwd is not None
         want["conv_k2_dw_wgmma"] += fwd is not None
         want["conv_k2_dw_persistent"] += fwd is not None and fwd.dw_persistent is not None
+        for kernel in ("conv_k2_narrow", "conv_k2_dw_narrow", "conv_k2_chunked", "conv_k2_dw_chunked"):
+            want[kernel] += chunked
         if stage:
             want["conv_k2_dx"] += 1
             want["conv_k2_dx_wgmma"] += dx is not None
@@ -4463,9 +4483,13 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
                 exact = float64_products(x, w, g) if dtype == torch.bfloat16 else {}
                 for kernel, (run, plain, library) in k2_runs(x, w, g).items():
                     cin, cout = (n, C) if kernel == "conv_k2_dx" else (C, n)
-                    plan = wgmma_plan(batch, GRID, GRID, GRID, cin, cout) if dtype == torch.bfloat16 else None
-                    want = "wgmma" if plan is not None else "ffma"
-                    assert (want == "ffma") == (n == 32 or dtype == torch.float32)  # 512 -> 32 has no plan
+                    bf16 = dtype == torch.bfloat16
+                    plan = wgmma_plan(batch, GRID, GRID, GRID, cin, cout) if bf16 else None
+                    narrow = narrow_plan(batch, GRID, GRID, GRID, cin, cout, dtype=dtype)
+                    # 512 -> 32 in bf16: the forward and dw walk C in chunks; dx (32 -> 512) has no plan
+                    want = "wgmma" if plan is not None else "chunked" if narrow is not None else "ffma"
+                    assert (want == "chunked") == (bf16 and n == 32 and kernel != "conv_k2_dx")
+                    assert (want == "ffma") == (not bf16 or (n == 32 and kernel == "conv_k2_dx"))
                     label = f"{case} {GRID}^3 {C}->{n}"
                     checked = check_kernel(kernel, label, run, plain, exact.get(kernel), want)
                     p1, t1, t2, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
@@ -4484,6 +4508,14 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
                           f"{row['device_ms'] / row['library_device_ms']:.2f}) [{card}]", flush=True)
                 del x, w, g, exact
     torch.cuda.empty_cache()
+    for case in (c for c, _, dtype in TP_CASES if dtype == torch.bfloat16):  # K8: the shard that walks C in chunks
+        parts = []
+        for kernel in ("conv_k2", "conv_k2_dw", "conv_k2_dx"):
+            r = rows[kernel][f"{case} {GRID}^3 512->32"]
+            parts.append(f"{kernel} [{r['design']}] alone {r['device_ms']:.4f} ms against cuDNN's call alone "
+                         f"{r['library_device_ms']:.4f} ms ({r['device_ms'] / r['library_device_ms']:.2f}x), bound "
+                         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"TP shard {case} {GRID}^3 512->32 (K8): " + "; ".join(parts) + f" [{card}]", flush=True)
 
     # (b) the flagship at full width: the placements, the 1-rank references here, then two model ranks
     cfg = REGISTRY["modelnet_nolbo"]()
@@ -4570,8 +4602,10 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
               f"{r['bf16_counts']['conv_k2_dw'] // (TP_WARMUP + TP_STEPS)}, on wgmma "
               f"{r['bf16_counts']['conv_k2_wgmma'] // (TP_WARMUP + TP_STEPS)} / "
               f"{r['bf16_counts']['conv_k2_dx_wgmma'] // (TP_WARMUP + TP_STEPS)} / "
-              f"{r['bf16_counts']['conv_k2_dw_wgmma'] // (TP_WARMUP + TP_STEPS)} (the 512->32 shard on FFMA) [{card}]",
-              flush=True)
+              f"{r['bf16_counts']['conv_k2_dw_wgmma'] // (TP_WARMUP + TP_STEPS)}, chunked "
+              f"{r['bf16_counts']['conv_k2_chunked'] // (TP_WARMUP + TP_STEPS)} / 0 / "
+              f"{r['bf16_counts']['conv_k2_dw_chunked'] // (TP_WARMUP + TP_STEPS)} (the 512->32 shard; its dx "
+              f"on FFMA) [{card}]", flush=True)
     print(f"the 1-rank bf16 step beside them, B={TRAIN_BATCH}: device ms median {np.median(one_ms[TP_WARMUP:]):.2f}, "
           f"host wall median {np.median(one_host[TP_WARMUP:]):.2f} ms, peak memory {one_peak:.2f} GiB, 4 / 3 / 4 "
           f"on wgmma. Both model ranks shared this one card's SMs and gloo staged every collective through host "
@@ -4623,7 +4657,7 @@ def main() -> None:
     # every kernel, and every design of the three, went through the main paths
     for e in entries:
         for key in ("launches", "launches_wgmma", "launches_narrow", "launches_split", "launches_ffma_split",
-                    "launches_persistent"):
+                    "launches_persistent", "launches_chunked"):
             if e.get(key, 1) < 1:
                 raise AssertionError(f"{e['name']}: {key} {e[key]} on the main paths")
     print(card, flush=True)

@@ -1433,34 +1433,45 @@ def test_one_rank_nccl_mesh_step_equals_the_plain_step(cuda):
 TP_SHARDS = [(64, 256), (512, 64), (128, 256), (512, 32)]
 
 
+def _chunked_counts():
+    return conv_k2.launches_chunked, conv_k2.launches_dw_chunked
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,N", TP_SHARDS)
 def test_tp_shard_kernels_match_plain(cuda, C, N, dtype):
     """Forward, dx and dw at a tensor-parallel shard of a flagship stage, B=8
     at 16^3, through autograd against the plain versions: in bfloat16 on the
-    tensor cores, but 512 -> 32 (N = 32 has no wgmma plan, C = 512 no narrow
-    one: all three on the FFMA GEMM); in float32 all on the FFMA GEMM."""
+    tensor cores, but 512 -> 32 (N = 32 has no wgmma plan): its forward and dw
+    on the chunked narrow kernels (C in 8 chunks of 64), its dx (the forward
+    from 32 to 512, no plan) on the FFMA GEMM; in float32 all on the FFMA
+    GEMM."""
     B, G = 8, 16
     planned = dtype == torch.bfloat16 and N % 64 == 0
+    chunked = dtype == torch.bfloat16 and N == 32
     assert (wgmma_plan(B, G, G, G, C, N) is not None) == (N % 64 == 0)
-    assert narrow_plan(B, G, G, G, C, N, dtype=dtype) is None and narrow_plan(B, G, G, G, N, C, dtype=dtype) is None
+    plan = narrow_plan(B, G, G, G, C, N, dtype=dtype)
+    assert (plan is not None) == chunked and (plan is None or plan.c_chunks == C // 64)
+    assert narrow_plan(B, G, G, G, N, C, dtype=dtype) is None
     gen = torch.Generator().manual_seed(5)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype).requires_grad_()
     w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
     g = torch.randn(B, G, G, G, N, generator=gen).to(cuda, dtype)
-    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
+    before, before_wg, before_nr, before_ch = _counts(), _wgmma_counts(), _narrow_counts(), _chunked_counts()
     y = conv_k2(x, w)
     y.backward(g)
     assert _counts() == tuple(n + 1 for n in before)
     assert _wgmma_counts() == tuple(n + planned for n in before_wg)
-    assert _narrow_counts() == before_nr
+    assert _narrow_counts() == (before_nr[0] + chunked, before_nr[1], before_nr[2] + chunked)
+    assert _chunked_counts() == tuple(n + chunked for n in before_ch)
     with torch.no_grad():
         y_ref = conv_k2_reference(x, w)
         dx_ref, dw_ref = conv_k2_backward_reference(x, w, g)
     torch.cuda.synchronize()
     # y and dx as test_kernel_matches_plain (f32: summation order; bf16: one rounding of an f32 sum on each
-    # side); dw: f32 sums of 32768 products in another order (FFMA), or the tensor cores' adds (DW_TOL_F64_REL
-    # of each side against float64, so twice that between them)
+    # side); dw: f32 sums of 32768 products in another order (FFMA, or the chunked kernel's rounded adds of
+    # each k-step's product), or the tensor cores' adds (DW_TOL_F64_REL of each side against float64, so
+    # twice that between them)
     for got, ref in ((y, y_ref), (x.grad, dx_ref)):
         assert got.dtype == dtype and got.shape == ref.shape
         tol = 1e-4 if dtype == torch.float32 else 2.0**-7 * float(ref.float().abs().max())
@@ -1469,23 +1480,101 @@ def test_tp_shard_kernels_match_plain(cuda, C, N, dtype):
     assert w.grad.dtype == torch.float32 and float((w.grad - dw_ref).abs().max()) <= tol_dw
 
 
+def _opcheck_ops(cuda, shape, C, N, seed):
+    """The op and its arguments for ``torch.library.opcheck`` of each of the three ops on seeded bfloat16
+    operands of ``shape`` + (C,) and + (N,), w an f32 parameter: {op: (op, args)}."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, C, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) * 0.05).to(cuda)
+    g = torch.randn(*shape, N, generator=gen).to(cuda, torch.bfloat16)
+    return {"conv_k2": (k2._conv_k2_op, (x.requires_grad_(), w.requires_grad_())),
+            "conv_k2_dx": (k2._conv_k2_dx_op, (g, w.detach())),
+            "conv_k2_dw": (k2._conv_k2_dw_op, (x.detach(), g))}
+
+
 @pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
 def test_tp_shard_without_a_plan_passes_opcheck(cuda, op):
     """The three ops at the 512 -> 32 shard (bfloat16, B=2 at 16^3), which no
-    tensor-core or narrow plan takes: schema, autograd registration, the fake
-    implementation against the FFMA kernels' output, an AOT-autograd trace."""
+    tensor-core plan takes: the forward and dw on the chunked narrow plan
+    (their chunked counters move, no tensor-core one), dx (the forward from 32
+    to 512) without any plan, on the FFMA GEMM (no narrow counter moves)."""
     shape = (2, 16, 16, 16)
     assert wgmma_plan(*shape, 512, 32) is None and wgmma_plan(*shape, 32, 512) is None
-    assert narrow_plan(*shape, 512, 32) is None and narrow_plan(*shape, 32, 512) is None
-    assert narrow_dw_plan(*shape, 512, 32) is None
-    gen = torch.Generator().manual_seed(6)
-    x = torch.randn(*shape, 512, generator=gen).to(cuda, torch.bfloat16)
-    w = (torch.randn(2, 2, 2, 512, 32, generator=gen) * 0.05).to(cuda)
-    g = torch.randn(*shape, 32, generator=gen).to(cuda, torch.bfloat16)
-    fn, args = {"conv_k2": (k2._conv_k2_op, (x.requires_grad_(), w.requires_grad_())),
-                "conv_k2_dx": (k2._conv_k2_dx_op, (g, w.detach())),
-                "conv_k2_dw": (k2._conv_k2_dw_op, (x.detach(), g))}[op]
-    before, before_wg = _counts(), _wgmma_counts()
+    assert narrow_plan(*shape, 512, 32).c_chunks == 8 and narrow_plan(*shape, 32, 512) is None
+    fn, args = _opcheck_ops(cuda, shape, 512, 32, 6)[op]
+    before, before_wg, before_nr, before_ch = _counts(), _wgmma_counts(), _narrow_counts(), _chunked_counts()
     results = torch.library.opcheck(fn, args)
     assert set(results.values()) == {"SUCCESS"}, results
     assert _wgmma_counts() == before_wg and _counts() != before
+    moved_nr = [a - b for a, b in zip(_narrow_counts(), before_nr)]
+    moved_ch = [a - b for a, b in zip(_chunked_counts(), before_ch)]
+    # the forward's opcheck also runs its backward: dx, and dw on the chunked kernel
+    if op == "conv_k2":
+        assert moved_ch[0] > 0 and moved_nr[:2] == [moved_ch[0], 0] and moved_nr[2] == moved_ch[1]
+    elif op == "conv_k2_dx":
+        assert moved_nr == [0, 0, 0] and moved_ch == [0, 0]
+    else:
+        assert moved_ch[0] == 0 and moved_ch[1] > 0 and moved_nr == [0, 0, moved_ch[1]]
+
+
+@pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
+def test_unplanned_bf16_shape_passes_opcheck(cuda, op):
+    """The FFMA route's own check in bfloat16: the three ops at 96 -> 32 (B=2
+    at 16^3; C neither a multiple of 64 nor one TMA box), which no plan takes,
+    so every launch is the FFMA GEMM's (no tensor-core, narrow or chunked
+    counter moves)."""
+    shape = (2, 16, 16, 16)
+    for cin, cout in ((96, 32), (32, 96)):
+        assert wgmma_plan(*shape, cin, cout) is None and narrow_plan(*shape, cin, cout) is None
+    assert narrow_dw_plan(*shape, 96, 32) is None
+    fn, args = _opcheck_ops(cuda, shape, 96, 32, 7)[op]
+    before, before_wg, before_nr, before_ch = _counts(), _wgmma_counts(), _narrow_counts(), _chunked_counts()
+    results = torch.library.opcheck(fn, args)
+    assert set(results.values()) == {"SUCCESS"}, results
+    assert _counts() != before and _wgmma_counts() == before_wg
+    assert _narrow_counts() == before_nr and _chunked_counts() == before_ch
+
+
+# (B, D, H, W, C) of the chunked route (bfloat16, C a multiple of 64 above 64): two and eight chunks, ragged
+# boxes along every axis (5x6x7: one whole-grid box; 9x10x40: boxes cut at each edge), and the shard's 16^3
+CHUNKED_GRIDS = [(3, 5, 6, 7, 128), (2, 9, 10, 40, 512), (2, 16, 16, 16, 128), (4, 16, 16, 16, 512)]
+
+
+@pytest.mark.parametrize("N", [8, 16, 32])
+@pytest.mark.parametrize("B,D,H,W,C", CHUNKED_GRIDS)
+def test_chunked_kernels_match_plain_and_float64(cuda, B, D, H, W, C, N):
+    """The chunked forward and dw, called as the ops (their narrow and chunked
+    counters move, no tensor-core one; dw on two stages or three, as its plan
+    finds room: both among these shapes): the forward against its plain
+    version (2^-7 of the largest output) and against the float64 product (an
+    f32 sum rounded once to bf16, half an ulp of the largest entry, plus the
+    sum's own error); dw against its plain version (f32 sums in another
+    order, 1e-5 of the largest entry) and against the float64 sum
+    (DW_TOL_F64_REL), the same bits from two calls."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = narrow_plan(B, D, H, W, C, N, sms=sms)
+    assert plan is not None and plan.c_chunks == C // 64 and wgmma_plan(B, D, H, W, C, N) is None
+    gen = torch.Generator().manual_seed(23)
+    x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, torch.bfloat16)
+    g = torch.randn(B, D, H, W, N, generator=gen).to(cuda, torch.bfloat16)
+    before, before_wg, before_nr, before_ch = _counts(), _wgmma_counts(), _narrow_counts(), _chunked_counts()
+    with torch.inference_mode():
+        y, dw, again = conv_k2(x, w), conv_k2_dw(x, g), conv_k2_dw(x, g)
+        assert _counts() == (before[0] + 1, before[1], before[2] + 2) and _wgmma_counts() == before_wg
+        assert _narrow_counts() == (before_nr[0] + 1, before_nr[1], before_nr[2] + 2)
+        assert _chunked_counts() == (before_ch[0] + 1, before_ch[1] + 2)
+        y_ref, dw_ref = conv_k2_reference(x, w), conv_k2_dw_reference(x, g)
+        y64, dw64 = _float64_forward(x, w), _dw_float64(x, g)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (B, D, H, W, N)
+    top = float(y_ref.float().abs().max())
+    assert float((y.float() - y_ref.float()).abs().max()) <= 2.0**-7 * top
+    tol_y64 = (2.0**-8 + DW_TOL_F64_REL) * float(y64.abs().max())
+    for out in (y, y_ref):
+        assert float((out.double() - y64).abs().max()) <= tol_y64
+    assert dw.dtype == torch.float32 and torch.equal(dw, again)
+    assert float((dw - dw_ref).abs().max()) <= 1e-5 * float(dw_ref.abs().max())
+    tol_dw64 = DW_TOL_F64_REL * float(dw64.abs().max())
+    for out in (dw, dw_ref):
+        assert float((out.double() - dw64).abs().max()) <= tol_dw64

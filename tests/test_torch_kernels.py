@@ -828,13 +828,20 @@ NARROW = [(3, 8, 8, 8, 8, 8), (1, 8, 8, 8, 64, 16), (3, 8, 8, 8, 32, 32), (32, 3
           (1024, 32, 32, 32, 32, 8), (2, 32, 32, 32, 64, 8), (3, 32, 32, 32, 16, 32), (5, 5, 6, 7, 16, 8),
           (3, 5, 6, 7, 64, 32), (1, 2, 2, 256, 32, 16), (1, 2, 2, 256, 8, 8), (2, 9, 10, 40, 16, 8),
           (1, 33, 33, 33, 8, 8)]
-# and without: float32 rows past 128 bytes (C = 64), N outside {8, 16, 32}, C % 8 != 0 or C not one TMA box (24,
-# 128), shapes a wgmma plan takes
+# bfloat16 shapes whose plan walks C in chunks of 64 (C a multiple of 64 above 64): the tensor-parallel shard
+# 512 -> 32 at the train and the served batch, the shards of a model axis of 4 (512 -> 16, 512 -> 8), C = 128
+# and 192 (two and three chunks) at 8^3, a whole-grid box, ragged boxes along every axis
+CHUNKED = [(32, 16, 16, 16, 512, 32), (8, 16, 16, 16, 512, 32), (32, 16, 16, 16, 512, 16), (32, 16, 16, 16, 512, 8),
+           (2, 8, 8, 8, 128, 8), (3, 8, 8, 8, 192, 32), (3, 5, 6, 7, 128, 16), (2, 9, 10, 40, 512, 32),
+           (1, 33, 33, 33, 128, 8)]
+# and without: float32 rows past 128 bytes (C = 64; C = 512, which float32 does not chunk), N outside {8, 16,
+# 32}, C % 8 != 0 or C neither one TMA box nor whole chunks of 64 (24, 96, 136), shapes a wgmma plan takes
 NARROW_NONE = [((3, 8, 8, 8, 64, 8), torch.float32), ((32, 32, 32, 32, 32, 4), torch.bfloat16),
                ((32, 32, 32, 32, 32, 24), torch.bfloat16), ((2, 8, 8, 8, 64, 64), torch.bfloat16),
                ((2, 5, 6, 7, 12, 8), torch.bfloat16), ((2, 5, 6, 7, 24, 8), torch.bfloat16),
-               ((2, 8, 8, 8, 128, 8), torch.bfloat16), ((2, 5, 6, 7, 136, 8), torch.bfloat16),
-               ((1, 16, 16, 16, 64, 64), torch.bfloat16), ((8, 16, 16, 16, 512, 64), torch.bfloat16)]
+               ((2, 8, 8, 8, 96, 8), torch.bfloat16), ((2, 5, 6, 7, 136, 8), torch.bfloat16),
+               ((1, 16, 16, 16, 64, 64), torch.bfloat16), ((8, 16, 16, 16, 512, 64), torch.bfloat16),
+               ((8, 16, 16, 16, 512, 32), torch.float32), ((2, 8, 8, 8, 128, 64), torch.bfloat16)]
 
 
 def _narrow_boxes(B, D, H, W, box):
@@ -843,38 +850,44 @@ def _narrow_boxes(B, D, H, W, box):
     return [(b, d, h, w) for b in range(B) for d in range(0, D, bd) for h in range(0, H, bh) for w in range(0, W, bw)]
 
 
-def _narrow_smem_of(box, C, N, dw, esize, stages, chunk_d):
+def _narrow_smem_of(box, C, N, dw, esize, stages, chunk_d, chunked=False):
     """What ``nr::smem_bytes`` allots for elements of ``esize`` bytes: 1024 bytes of alignment room, ``stages``
     stages (the halo box of x, esize C bytes a voxel, and for dw the box of g, rows rounded up to 16), the
     forward's w (8C x N) and its table of output rows, the table of halo rows, a barrier a stage (their room
     rounded up to 16 bytes); stages in whole KiB. The float32 forward of a box of at most 512 rows splits the taps
     over the block's two halves: the second half's sums, rows x N floats, besides; where ``chunk_d`` is set, two
-    chunk buffers of 256 rows x N floats; the float32 dw sums its groups' tiles in 8C x N floats."""
+    chunk buffers of 256 rows x N floats; the float32 dw sums its groups' tiles in 8C x N floats. The
+    ``chunked`` forward (C a chunk's 64 channels) holds the chunk's w in each stage, not once beside them."""
     bw, bh, bd = box
     rows = bw * bh * bd
     rows16 = -(-rows // 16) * 16
     kib = lambda n: -(-n // 1024) * 1024  # noqa: E731
-    stage = kib((bw + 1) * (bh + 1) * (bd + 1) * esize * C) + (kib(rows16 * esize * N) if dw else 0)
+    w_bytes = 8 * C * N * esize
+    stage = (kib((bw + 1) * (bh + 1) * (bd + 1) * esize * C) + (kib(rows16 * esize * N) if dw else 0)
+             + (w_bytes if chunked and not dw else 0))
     sums = 0
     if esize == 4:
         sums = 4 * 8 * C * N if dw else 4 * rows * N if rows <= 512 else 0
     chunks = 2 * kib(256 * 4 * N) if chunk_d else 0
-    return (1024 + stages * stage + chunks + (0 if dw else 8 * C * N * esize + 4 * rows16) + 4 * rows16
+    return (1024 + stages * stage + chunks + (0 if dw else (0 if chunked else w_bytes) + 4 * rows16) + 4 * rows16
             + -(-8 * stages // 16) * 16 + sums)
 
 
-def _check_narrow_boxes(B, D, H, W, C, N, box, boxes, smem, dw, esize, stages=2, chunk_d=0):
+def _check_narrow_boxes(B, D, H, W, C, N, box, boxes, smem, dw, esize, stages=2, chunk_d=0, chunked=False):
     bw, bh, bd = box
     # the halo box (one more along each axis) within the TMA's 256 a dimension, at most 1024 rows a box,
     # an m-tile's 16 rows on one w-line unless the box spans all of W, one block an SM
     assert max(bw, bh, bd) + 1 <= 256 and bw <= W and bh <= H and bd <= D and bw * bh * bd <= 1024
     assert bw % 16 == 0 or bw == W
-    # what nr::make_geom takes of the plan's choices: two stages, or three for the float32 dw; an output chunk
-    # only in the float32 forward without a tap split, 256 rows of whole d-planes, the box whole chunks
-    assert stages == 2 or (dw and esize == 4 and stages == 3)
+    # what nr::make_geom takes of the plan's choices: two stages, or three for the float32 dw and for a dw that
+    # walks C in chunks; an output chunk only in the float32 forward without a tap split, 256 rows of whole d-planes, the
+    # box whole chunks; the chunked forward's box within its warps' accumulators (nr::chunked_mw: 2 m-tiles a
+    # warp at N = 32, 4 at N = 8 and 16)
+    assert stages == 2 or (dw and stages == 3 and (esize == 4 or chunked))
     assert chunk_d == 0 or (not dw and esize == 4 and bw * bh * bd > 512 and chunk_d * bw * bh == 256
                             and bd % chunk_d == 0)
-    assert smem == _narrow_smem_of(box, C, N, dw, esize, stages, chunk_d) <= SMEM_PER_BLOCK
+    assert not chunked or dw or -(-bw * bh * bd // 16) <= 8 * (2 if N == 32 else 4)
+    assert smem == _narrow_smem_of(box, C, N, dw, esize, stages, chunk_d, chunked) <= SMEM_PER_BLOCK
     # the boxes of each batch item cover every voxel of its grid once (the last along an axis ragged)
     origins = _narrow_boxes(B, D, H, W, box)
     assert len(origins) == boxes
@@ -895,25 +908,57 @@ def _check_narrow_walk(plan):
 
 
 def _check_narrow_dw_walk(plan):
+    """One wave of blocks, (split, chunk) where the walk takes C in chunks; each split a run of whole boxes."""
     splits, per = plan.dw_splits, plan.dw_boxes_per_split
-    assert 1 <= splits <= 132 and (splits - 1) * per < plan.dw_boxes <= splits * per
+    assert 1 <= splits * plan.c_chunks <= 132 and (splits - 1) * per < plan.dw_boxes <= splits * per
     runs = [range(z * per, min(plan.dw_boxes, (z + 1) * per)) for z in range(splits)]
     assert all(len(r) > 0 for r in runs) and [t for r in runs for t in r] == list(range(plan.dw_boxes))
 
 
 def _check_narrow_plan(B, D, H, W, C, N, plan, esize):
-    """The forward's and dw's boxes, shared memory and choices, and both walks."""
-    _check_narrow_boxes(B, D, H, W, C, N, plan.box, plan.boxes, plan.smem_bytes, False, esize, 2, plan.chunk_d)
-    _check_narrow_boxes(B, D, H, W, C, N, plan.dw_box, plan.dw_boxes, plan.dw_smem_bytes, True, esize,
-                        plan.dw_stages)
+    """The forward's and dw's boxes, shared memory and choices, and both walks; a walk in chunks of 64
+    channels where C is a bfloat16 multiple of 64 above 64, its boxes holding a chunk's channels."""
+    chunked = esize == 2 and C > 64 and C % 64 == 0
+    assert plan.c_chunks == (C // 64 if chunked else 1)
+    cb = 64 if chunked else C
+    _check_narrow_boxes(B, D, H, W, cb, N, plan.box, plan.boxes, plan.smem_bytes, False, esize, 2, plan.chunk_d,
+                        chunked)
+    _check_narrow_boxes(B, D, H, W, cb, N, plan.dw_box, plan.dw_boxes, plan.dw_smem_bytes, True, esize,
+                        plan.dw_stages, 0, chunked)
     _check_narrow_walk(plan)
 
 
-@pytest.mark.parametrize("B,D,H,W,C,N", NARROW)
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW + CHUNKED)
 def test_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     plan = narrow_plan(B, D, H, W, C, N)
     assert plan is not None and wgmma_plan(B, D, H, W, C, N) is None
     _check_narrow_plan(B, D, H, W, C, N, plan, 2)
+
+
+# N: (the forward's box and shared memory, dw's box, stages and shared memory, dw's boxes a split)
+TP_CHUNKED_PLANS = {32: ((16, 4, 4), 179_216, (16, 4, 4), 3, 217_120, 32),
+                    16: ((16, 4, 4), 146_448, (16, 4, 4), 3, 192_544, 32),
+                    8: ((16, 8, 4), 218_128, (16, 8, 4), 2, 216_080, 16)}
+
+
+@pytest.mark.parametrize("N", [32, 16, 8])
+def test_chunked_plan_of_the_tp_shard(N):
+    """512 -> N at B=32 on 16^3, the flagship's last stage on one rank of a model axis of 2 (N = 32) or of 4 and
+    8: C in 8 chunks of 64. The forward's box is the one of the fewest L2 bytes a row (its halo and its share of
+    w, 8 x 64 x N bf16 a box) whose accumulators fit 2 m-tiles a warp at N = 32, 4 at N = 16 and 8, in two
+    stages (86 KB each at N = 32); dw's takes a third stage where its box has room (16 x 4 x 4 at N = 32 and 16;
+    not 16 x 8 x 4 at N = 8), 16 splits x 8 chunks, one wave of 128 blocks. dx (the forward from N to 512) and
+    float32 have no narrow plan."""
+    box, smem, dw_box, dw_stages, dw_smem, per_split = TP_CHUNKED_PLANS[N]
+    plan = narrow_plan(32, 16, 16, 16, 512, N)
+    assert plan == k2.chunked_plan(32, 16, 16, 16, 512, N) and plan.c_chunks == 8 and plan.chunk_d == 0
+    assert (plan.box, plan.smem_bytes) == (box, smem)
+    assert (plan.dw_box, plan.dw_stages, plan.dw_smem_bytes) == (dw_box, dw_stages, dw_smem)
+    assert (plan.dw_splits, plan.dw_boxes_per_split, plan.dw_boxes) == (16, per_split, 16 * per_split)
+    assert plan.grid == 132 and plan.boxes == 32 * 16**3 // (box[0] * box[1] * box[2])
+    _check_narrow_plan(32, 16, 16, 16, 512, N, plan, 2)
+    assert narrow_plan(32, 16, 16, 16, N, 512) is None
+    assert narrow_plan(32, 16, 16, 16, 512, N, dtype=torch.float32) is None
 
 
 @pytest.mark.parametrize("shape,dtype", NARROW_NONE)
@@ -1056,19 +1101,26 @@ def _narrow_a(halo, vrow, toff, C):
 def _emulate_narrow_forward(x, w, plan, lower=0):
     """The narrow forward as its blocks walk it: block i takes boxes i, i + grid, ...; each reads its halo box
     once (``lower`` voxels below the box along d, h and w: 1 for dx), forms A from the row table and stores the
-    rows that lie inside the grid. Returns y and how often each output row was written."""
+    rows that lie inside the grid. Where the plan walks C in chunks of 64, a box is ``c_chunks`` steps, each
+    the halo box of the chunk's channels against the chunk's rows (tap, c) of w, summed into the box's
+    accumulators before the rows are stored. Returns y and how often each output row was written."""
     B, D, H, W, C = x.shape
     N = w.shape[-1]
     bw, bh, bd = plan.box
+    cc = C // plan.c_chunks
     origins = _narrow_boxes(B, D, H, W, plan.box)
-    vrow, toff, rows = _narrow_rows(plan.box, C)
+    vrow, toff, rows = _narrow_rows(plan.box, cc)
+    wk = [w[:, :, :, k * cc:(k + 1) * cc].reshape(8 * cc, N) for k in range(plan.c_chunks)]
     y = torch.zeros(B, D, H, W, N)
     written = torch.zeros(B, D, H, W, dtype=torch.int32)
     for block in range(plan.grid):
         for box in range(block, plan.boxes, plan.grid):
             b, d0, h0, w0 = origins[box]
-            halo = _narrow_operand(x, (bw + 1, bh + 1, bd + 1), (b, d0 - lower, h0 - lower, w0 - lower))
-            acc = _narrow_a(halo, vrow, toff, C) @ w.reshape(8 * C, N)
+            acc = 0
+            for k in range(plan.c_chunks):
+                halo = _narrow_operand(x[..., k * cc:(k + 1) * cc], (bw + 1, bh + 1, bd + 1),
+                                       (b, d0 - lower, h0 - lower, w0 - lower))
+                acc = acc + _narrow_a(halo, vrow, toff, cc) @ wk[k]
             for r in range(rows):
                 d, h, ww = d0 + r // bw // bh, h0 + r // bw % bh, w0 + r % bw
                 if d < D and h < H and ww < W:  # the ragged edge is not stored
@@ -1079,23 +1131,27 @@ def _emulate_narrow_forward(x, w, plan, lower=0):
 
 def _emulate_narrow_dw(x, g, plan):
     """The narrow dw as its splits walk it: split z reduces the run of boxes z * per ..., each a halo box of x
-    and a box of g (zeros past the grid, and on the rows that round the box up to 16); the splits' partial sums
-    added in ascending order. Returns dw and how often each row m entered the sum."""
+    and a box of g (zeros past the grid, and on the rows that round the box up to 16); where the plan walks C
+    in chunks of 64, block (z, k) does so for chunk k's channels and writes the rows (tap, c) of its chunk in
+    split z's partial; the splits' partial sums added in ascending order. Returns dw and how often each row m
+    entered the sum (once a chunk)."""
     B, D, H, W, C = x.shape
     N = g.shape[-1]
     bw, bh, bd = plan.dw_box
+    cc = C // plan.c_chunks
     origins = _narrow_boxes(B, D, H, W, plan.dw_box)
-    vrow, toff, rows = _narrow_rows(plan.dw_box, C)
-    part = torch.zeros(plan.dw_splits, 8 * C, N)
+    vrow, toff, rows = _narrow_rows(plan.dw_box, cc)
+    part = torch.zeros(plan.dw_splits, 8, C, N)
     seen = torch.zeros(B, D, H, W, dtype=torch.int64)
     for z in range(plan.dw_splits):
-        for box in range(z * plan.dw_boxes_per_split, min(plan.dw_boxes, (z + 1) * plan.dw_boxes_per_split)):
-            b, d0, h0, w0 = origins[box]
-            halo = _narrow_operand(x, (bw + 1, bh + 1, bd + 1), origins[box])
-            gbox = torch.zeros(len(vrow), N)
-            gbox[:rows] = _narrow_operand(g, plan.dw_box, origins[box])
-            part[z] += _narrow_a(halo, vrow, toff, C).T @ gbox
-            seen[b, d0:d0 + bd, h0:h0 + bh, w0:w0 + bw] += 1
+        for k in range(plan.c_chunks):
+            for box in range(z * plan.dw_boxes_per_split, min(plan.dw_boxes, (z + 1) * plan.dw_boxes_per_split)):
+                b, d0, h0, w0 = origins[box]
+                halo = _narrow_operand(x[..., k * cc:(k + 1) * cc], (bw + 1, bh + 1, bd + 1), origins[box])
+                gbox = torch.zeros(len(vrow), N)
+                gbox[:rows] = _narrow_operand(g, plan.dw_box, origins[box])
+                part[z, :, k * cc:(k + 1) * cc] += (_narrow_a(halo, vrow, toff, cc).T @ gbox).reshape(8, cc, N)
+                seen[b, d0:d0 + bd, h0:h0 + bh, w0:w0 + bw] += 1
     dw = part[0].clone()
     for z in range(1, plan.dw_splits):
         dw += part[z]
@@ -1106,13 +1162,17 @@ def _emulate_narrow_dw(x, g, plan):
 # boxes along every axis; every N and every C
 NARROW_EMULATED = [(3, 8, 8, 8, 8, 8), (1, 8, 8, 8, 64, 16), (3, 5, 6, 7, 32, 32), (1, 2, 2, 256, 16, 8),
                    (2, 9, 10, 40, 16, 8), (1, 33, 33, 33, 8, 16)]
+# the walk in chunks of 64 channels: C = 128 and 192 at 8^3 and less, several boxes a block (3 x 8 x 8 x 16 at
+# N = 32: 12 boxes of 16 x 4 x 4), a whole-grid box, every N
+CHUNKED_EMULATED = [(2, 8, 8, 8, 128, 8), (3, 8, 8, 16, 128, 32), (1, 5, 6, 7, 192, 16)]
 
 
-@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED)
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED + CHUNKED_EMULATED)
 def test_narrow_halo_reads_give_the_forward(B, D, H, W, C, N):
     """The halo box zero-filled past the grid is SAME padding (0, 1), and the row table with the taps' offsets
     gathers every shifted row: the emulated walk writes every output once and equals the plain version and
-    ``conv_k2_xla`` (f32, summation order only: 1e-5 of the largest output)."""
+    ``conv_k2_xla`` (f32, summation order only: 1e-5 of the largest output). Where the plan walks C in chunks,
+    each box sums its chunks' products."""
     rng = np.random.default_rng(7)
     x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
     w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
@@ -1125,17 +1185,20 @@ def test_narrow_halo_reads_give_the_forward(B, D, H, W, C, N):
     np.testing.assert_allclose(y.numpy(), np.asarray(conv_k2_xla(jnp.asarray(x), jnp.asarray(w))), atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED + [(1, 32, 32, 32, 8, 64), (3, 5, 6, 7, 8, 64)])
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED + [(1, 32, 32, 32, 8, 64), (3, 5, 6, 7, 8, 64)]
+                         + CHUNKED_EMULATED)
 def test_narrow_halo_reads_give_dw(B, D, H, W, C, N):
-    """The emulated dw walk (halo boxes of x, boxes of g, splits summed in order) reduces every row once and
-    equals ``conv_k2_dw_reference`` and ``_conv_k2_bwd_impl``'s dw: f32, summation order only, 1e-5 of the
-    largest entry. The s2d(2) stem's 8 -> 64 at 32^3 (and a whole-grid box) walks the dw-only plan's boxes."""
+    """The emulated dw walk (halo boxes of x, boxes of g, splits summed in order) reduces every row once (once
+    a chunk where the plan walks C in chunks, each block a chunk's rows of its split) and equals
+    ``conv_k2_dw_reference`` and ``_conv_k2_bwd_impl``'s dw: f32, summation order only, 1e-5 of the largest
+    entry. The s2d(2) stem's 8 -> 64 at 32^3 (and a whole-grid box) walks the dw-only plan's boxes."""
     rng = np.random.default_rng(8)
     x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
     g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
-    plan = narrow_plan(B, D, H, W, C, N, sms=2) or narrow_dw_plan(B, D, H, W, C, N, sms=2)
+    sms = 2 * max(1, C // 64)  # 2 splits (of every chunk): each a run of several boxes where there are
+    plan = narrow_plan(B, D, H, W, C, N, sms=sms) or narrow_dw_plan(B, D, H, W, C, N, sms=sms)
     dw, seen = _emulate_narrow_dw(torch.from_numpy(x), torch.from_numpy(g), plan)
-    assert (seen == 1).all()
+    assert (seen == plan.c_chunks).all()
     ref = conv_k2_dw_reference(torch.from_numpy(x), torch.from_numpy(g)).numpy()
     tol = 1e-5 * float(np.abs(ref).max())
     np.testing.assert_allclose(dw.numpy(), ref, atol=tol, rtol=0)
@@ -1312,8 +1375,14 @@ def routes(monkeypatch):
 # 8 tiles leave the card idle); bf16 with a plan: all three wgmma, at 4^3 (mid_blocked) the forward and dx with
 # their split and dw on the persistent kernel, at 16^3 and B=4 (the lifecycle's) without either, at 8^3 and
 # N = 64 dw on the grid kernel; float32 at 4^3: FFMA, the forward and dx split; the s2d(2) stem 8 -> 64: the
-# forward FFMA, dx narrow (64 -> 8), dw on the dw-only narrow plan in bf16, FFMA in float32
-ROUTES = [(2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
+# forward FFMA, dx narrow (64 -> 8), dw on the dw-only narrow plan in bf16, FFMA in float32; bf16 with C a
+# multiple of 64 above 64 and N <= 32 (the tensor-parallel shard 512 -> 32, and 128 -> 8): the forward and dw
+# walk C in chunks, dx (the forward from N to C) FFMA; and 8 -> 128, whose dx would be the chunked forward from
+# 128 to 8 but keeps the FFMA kernel
+ROUTES = [(4, 16, 16, 16, 512, 32, torch.bfloat16, "forward_chunked", "backward_input", "backward_weight_narrow"),
+          (2, 8, 8, 8, 128, 8, torch.bfloat16, "forward_chunked", "backward_input", "backward_weight_narrow"),
+          (2, 16, 16, 16, 8, 128, torch.bfloat16, "forward", "backward_input", "backward_weight"),
+          (2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 32, 8, torch.float32, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 64, 8, torch.bfloat16, "forward_narrow", "backward_input", "backward_weight_narrow"),
           (2, 8, 8, 8, 64, 8, torch.float32, "forward/split", "backward_input", "backward_weight"),
@@ -1327,7 +1396,8 @@ ROUTES = [(2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_
           (1, 32, 32, 32, 8, 64, torch.bfloat16, "forward", "backward_input_narrow", "backward_weight_narrow"),
           (1, 32, 32, 32, 8, 64, torch.float32, "forward", "backward_input", "backward_weight")]
 _COUNTERS = ("launches_narrow", "launches_dx_narrow", "launches_dw_narrow", "launches_split", "launches_dx_split",
-             "launches_dw_wide", "launches_ffma_split", "launches_dx_ffma_split", "launches_dw_persistent")
+             "launches_dw_wide", "launches_ffma_split", "launches_dx_ffma_split", "launches_dw_persistent",
+             "launches_chunked", "launches_dw_chunked")
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N,dtype,fwd,dx,dw", ROUTES)
@@ -1335,7 +1405,8 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
     """The launchers' choice, from shape and dtype alone: the narrow forward with the plan of its dtype and the
     dtype's code; the narrow dx with the plan of the forward from N to C, ``narrow_plan(B, D, H, W, N, C)`` of
     its dtype, and w'[s] = w[7 - s]^T laid out as (2, 2, 2, N, C); the narrow dw with the plan's dw part (or the
-    dw-only plan's) and the dtype's code; the tensor-core forward and dx with their plan's tiles and splits, and
+    dw-only plan's, or the chunked plan's) and the dtype's code; the chunked forward with its plan's box, grid
+    and shared memory; the tensor-core forward and dx with their plan's tiles and splits, and
     where it splits a workspace for its partials; the FFMA forward and dx with ``ffma_split``'s (dx: of the
     forward from N to C) and likewise a workspace; the persistent dw with its plan; the counters of the route
     taken."""
@@ -1348,9 +1419,11 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
     assert [name for name, _ in routes.calls] == [f"conv_k2_{route.split('/')[0]}" for route in (fwd, dx, dw)]
     moved = [getattr(conv_k2, c) - b for c, b in zip(_COUNTERS, before)]
     wide = dw == "backward_weight_narrow" and N == 64
+    chunked = fwd == "forward_chunked"
     wg_split, ffma_split = [[int(r.endswith("/split") and ("wgmma" in r) == tc) for r in (fwd, dx)] for tc in (1, 0)]
-    assert moved == [int(fwd.endswith("narrow")), int(dx.endswith("narrow")), int(dw.endswith("narrow")),
-                     *wg_split, int(wide), *ffma_split, int(dw == "backward_weight_persistent")]
+    assert moved == [int(fwd.endswith(("narrow", "chunked"))), int(dx.endswith("narrow")), int(dw.endswith("narrow")),
+                     *wg_split, int(wide), *ffma_split, int(dw == "backward_weight_persistent"), int(chunked),
+                     int(chunked)]
     fargs = routes.calls[0][1]
     dargs = next(a for name, a in routes.calls if name.startswith("conv_k2_backward_input"))
     code = k2._DTYPE_CODES[dtype]
@@ -1369,6 +1442,12 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
     if fwd == "forward_narrow":
         plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
         assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, plan.chunk_d, code, None, 0)
+    if chunked:
+        plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
+        assert plan.c_chunks == C // 64 and narrow_plan(B, D, H, W, N, C, dtype=dtype) is None
+        assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, None, 0)
+    if (C, N) == (8, 128):  # dx's plan, the forward from 128 to 8, walks in chunks: not dx's route
+        assert narrow_plan(B, D, H, W, N, C, dtype=dtype).c_chunks == 2
     if dw == "backward_weight_persistent":
         plan = wgmma_plan(B, D, H, W, C, N)
         walk = plan.dw_persistent
