@@ -1,5 +1,6 @@
-"""What holds the narrow kernels back (``kernels/csrc/conv_k2_narrow.cuh``):
-each timed whole and with a part left out, in two parts.
+"""What holds the narrow kernels back (``kernels/csrc/conv_k2_narrow.cuh``,
+``conv_k2_chunked_dx.cuh``): each timed whole and with a part left out, in
+three parts.
 
     python -m anytime3d_tpu_torch.cli.probe_narrow
 
@@ -22,15 +23,21 @@ shards of the flagship's last 16^3 stage, B=32: 512 -> 32 (a model axis of
 2), 512 -> 16 and 512 -> 8 (of 4). Timed on the card alone (``device_ms``:
 mean of 50 calls after 3, the card held busy while the host enqueues them;
 two rounds, in turns) at each shape: the chunked forward and dw (with its
-reduce) on their plan (``narrow_plan``), the bfloat16 FFMA GEMM that took
-these shapes before (launched straight through the library, as the op did)
-and cuDNN's k=2 call; dx, which keeps its route (the FFMA GEMM), beside
-cuDNN's. Then, at 512 -> 32, each build's two kernels on the plan: the
-forward without the store of y, without the products (no ``ldmatrix``, no
-``mma``), without both (the copies, tables and walk alone); dw with each
-k-step's products added by the tensor cores' own accumulation (no rounded
-adds), without the loop over k-steps (the copies, the partials' store and
-the reduce).
+reduce) on their plan (``narrow_plan``) and dx on the chunked dx's
+(``chunked_dx_plan``), each beside the bfloat16 FFMA GEMM that took these
+shapes before (launched straight through the library, as the op did) and
+cuDNN's k=2 call. Then, at 512 -> 32, each build's three kernels on their
+plans: the forward and dx without the store (of y, of dx), without the
+products (no ``ldmatrix``, no ``mma`` or ``wgmma``), without both (the
+copies, tables and walk alone); dw with each k-step's products added by the
+tensor cores' own accumulation (no rounded adds), without the loop over
+k-steps (the copies, the partials' store and the reduce).
+
+The float32 forward that walks C in chunks of 16, on the card alone as the
+second part: at the shards 512 -> 32, -> 16, -> 8 (B=32, 16^3) and at the
+default ``DetectorConfig``'s 64 -> 8 (32 decodes of 32^3), beside the FFMA
+GEMM that took them before (with its depth split where ``ffma_split`` has
+one) and cuDNN's call.
 
 Every line carries the card's name and power limit, and the whole kernels'
 and the variants' max abs error against the plain version (the bfloat16
@@ -68,6 +75,7 @@ def main() -> None:
     libs = {m: k2.bind(ctypes.CDLL(str(p))) for m, p in zip(PROBES, paths)}
     float32_part(libs, card)
     chunked_part(libs, card)
+    chunked_f32_part(libs[0], card)
 
 
 def float32_part(libs: dict, card: str) -> None:
@@ -167,6 +175,8 @@ def chunked_part(libs: dict, card: str) -> None:
         workspace = torch.empty(splits, 8 * C, N, device=dev)
         ws = torch.empty(plan.dw_splits, 8 * C, N, device=dev)
         wt = w.transpose(3, 4).contiguous()
+        dx_plan = k2.chunked_dx_plan(B, G, G, G, C, N, sms=sms)
+        wm = w.reshape(8, C, N).permute(1, 0, 2).contiguous()  # w as [C, 8N], as the wrapper lays it out
 
         def ffma_forward():
             k2._check_launch("FFMA forward", lib.conv_k2_forward(
@@ -184,8 +194,13 @@ def chunked_part(libs: dict, card: str) -> None:
 
         def forward(lib):  # each build's chunked forward on the plan
             return lambda: k2._check_launch("forward", lib.conv_k2_forward_chunked(
-                x.data_ptr(), w.data_ptr(), y.data_ptr(), B, G, G, G, C, N, *plan.box, plan.grid, plan.smem_bytes,
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), B, G, G, G, C, N, *plan.box, plan.grid, plan.smem_bytes, 1,
                 dev.index, stream))
+
+        def backward_input(lib):  # each build's chunked dx on its plan
+            return lambda: k2._check_launch("dx", lib.conv_k2_backward_input_chunked(
+                g.data_ptr(), wm.data_ptr(), dx.data_ptr(), B, G, G, G, C, N, *dx_plan.box, dx_plan.bn,
+                dx_plan.stages, dx_plan.grid, dx_plan.smem_bytes, dev.index, stream))
 
         def backward_weight(lib):  # each build's chunked dw on the plan, with its reduce
             return lambda: k2._check_launch("dw", lib.conv_k2_backward_weight_narrow(
@@ -200,7 +215,9 @@ def chunked_part(libs: dict, card: str) -> None:
             "chunks": (backward_weight(lib), dw),
             "dw, bf16 FFMA (the route before)": (ffma_dw, dw),
             "dw, cuDNN": (lambda: torch.nn.grad.conv3d_weight(x_pad, w_oidhw.shape, g_ncdhw), None),
-            "dx, bf16 FFMA (its route, unchanged)": (ffma_dx, dx),
+            f"dx, chunked on the tensor cores, box {dx_plan.box}, {dx_plan.chunks} chunks of {dx_plan.bn}, "
+            f"{dx_plan.stages} stages": (backward_input(lib), dx),
+            "dx, bf16 FFMA GEMM (the route before)": (ffma_dx, dx),
             "dx, cuDNN": (lambda: torch.nn.grad.conv3d_input(x_pad.shape, w_oidhw, g_ncdhw), None),
         }
         with torch.no_grad():
@@ -228,11 +245,66 @@ def chunked_part(libs: dict, card: str) -> None:
         if N != 32:
             continue
         parts = {f"forward {PROBES[m]}": forward(libs[m]) for m in PROBES}
+        parts |= {f"dx {PROBES[m]}": backward_input(libs[m]) for m in PROBES}
         parts |= {f"dw {CHUNKED_DW_PROBES[m]}": backward_weight(libs[m]) for m in CHUNKED_DW_PROBES}
         times = {name: [device_ms(fn, iters=50) for _ in range(2)] for name, fn in parts.items()}
         for name, (a, b) in times.items():
             print(f"chunked probe parts B={B} {G}^3 {C} -> {N} bf16, {name}: on the card alone {a:.4f} / {b:.4f} ms "
                   f"[{card}]", flush=True)
+
+
+def chunked_f32_part(lib, card: str) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from anytime3d_tpu_torch.kernels import conv_k2 as k2
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for B, G, C, N in [(TP_B, TP_G, TP_C, n) for n in TP_SHARDS] + [(32, 32, 64, 8)]:
+        x = torch.randn(B, G, G, G, C, generator=gen, device=dev)
+        w = torch.randn(2, 2, 2, C, N, generator=gen, device=dev) / (8 * C) ** 0.5
+        plan = k2.narrow_plan(B, G, G, G, C, N, sms=sms, dtype=torch.float32)
+        splits, per_split = k2.ffma_split(B, G, G, G, C, N, sms=sms)
+        y = torch.empty(B, G, G, G, N, device=dev)
+        part = k2._split_workspace(splits, y)
+        x_pad, w_oidhw = F.pad(x.permute(0, 4, 1, 2, 3), (0, 1) * 3), w.permute(4, 3, 0, 1, 2).contiguous()
+
+        def chunked():
+            k2._check_launch("forward", lib.conv_k2_forward_chunked(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), B, G, G, G, C, N, *plan.box, plan.grid, plan.smem_bytes, 0,
+                dev.index, stream))
+
+        def ffma():
+            k2._check_launch("FFMA forward", lib.conv_k2_forward(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), 0 if part is None else part.data_ptr(), splits, per_split,
+                B, G, G, G, C, N, 0, dev.index, stream))
+
+        runs = {f"chunked, box {plan.box}, {plan.c_chunks} chunks of {C // plan.c_chunks}": chunked,
+                f"FFMA GEMM, {splits} split(s) (the route before)": ffma,
+                "cuDNN": lambda: F.conv3d(x_pad, w_oidhw)}
+        with torch.no_grad():
+            ref = k2.conv_k2_reference(x, w)
+        err = {}
+        for name in list(runs)[:2]:
+            y.zero_()
+            runs[name]()
+            err[name] = float((y - ref).abs().max())
+        times = {name: [] for name in runs}
+        for _ in range(2):
+            for name, fn in runs.items():
+                times[name].append(device_ms(fn, iters=20))
+        # operations on the grid (a tap past the edge is no work) at the card's f32 peak, beside bytes
+        flops = 2.0 * B * (2 * G - 1) ** 3 * C * N
+        bound_ms = max(flops / 67e12, (B * G**3 * (C + N) + 8 * C * N) * 4 / PEAK_BYTES_PER_S) * 1e3
+        for name, (a, b) in times.items():
+            extra = f", max abs err {err[name]:.2e}" if name in err else ""
+            print(f"float32 chunked probe B={B} {G}^3 {C} -> {N}, {name}: on the card alone {a:.4f} / {b:.4f} ms "
+                  f"(bound {bound_ms:.4f} ms){extra} [{card}]", flush=True)
+        del x, w, y, part, x_pad, w_oidhw, ref
 
 
 if __name__ == "__main__":

@@ -16,9 +16,13 @@ in the forward, dw and dx (dx where the forward from N to C channels has a
 plan): on ``mma.sync`` in bfloat16, on FFMA in float32; where C is a
 multiple of 64 above 64 (bfloat16: the tensor-parallel shard 512 -> 32) the
 plan walks C in chunks of 64 (:func:`chunked_plan`), the forward on its own
-kernel, dw by blocks of one chunk each, dx keeping its route; a bfloat16 dw of a
-narrow input and N = 64 (the s2d(2) stem's) whose shape has a dw-only plan
-(:func:`narrow_dw_plan`) takes the halo-box dw on ``mma.sync``; the rest take
+kernel, dw by blocks of one chunk each; where a float32 C is a multiple of 32
+above 32 (that shard in float32) the forward alone walks it in chunks of 16;
+the bfloat16 dx of a narrow g and a wide dx (that shard's) takes the chunked
+dx on the tensor cores (:func:`chunked_dx_plan`,
+``csrc/conv_k2_chunked_dx.cuh``: halo boxes of g, a column chunk of w a
+block); a bfloat16 dw of a narrow input and N = 64 (the s2d(2) stem's)
+whose shape has a dw-only plan (:func:`narrow_dw_plan`) takes the halo-box dw on ``mma.sync``; the rest take
 the FFMA kernels (in float32 the forward and dx split their depth where
 :func:`ffma_split` says so). The choice is made from shape and dtype before
 the launch, never by catching a failure.
@@ -112,11 +116,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv_k2_forward_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_backward_input_narrow.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_backward_weight_narrow.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
-    lib.conv_k2_forward_chunked.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
+    lib.conv_k2_forward_chunked.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
+    lib.conv_k2_backward_input_chunked.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
                lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma,
                lib.conv_k2_backward_weight_persistent, lib.conv_k2_forward_narrow, lib.conv_k2_backward_input_narrow,
-               lib.conv_k2_backward_weight_narrow, lib.conv_k2_forward_chunked):
+               lib.conv_k2_backward_weight_narrow, lib.conv_k2_forward_chunked, lib.conv_k2_backward_input_chunked):
         fn.restype = i32
     lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p
@@ -353,12 +358,26 @@ _NR_DW_ACCUMULATORS = 4096  # 8C x N of that dw: the 8 warps' units of 16 x 32 (
 _NR_ESIZE = {torch.bfloat16: 2, torch.float32: 4}
 _NR_CHUNK = 256  # rows of the float32 forward's output chunk: one a thread
 _NR_C_CHUNK = 64  # channels of a chunk where a bfloat16 walk takes C in chunks (csrc's chunked kernels)
+_NR_C_CHUNK_F32 = 16  # and where a float32 forward does
 
 
-def _chunked_rows(N: int) -> int:
-    """The chunked forward's largest box: 8 warps of ``nr::chunked_mw`` m-tiles (2 at N = 32, 4 at N = 8
-    and 16), whose accumulators stay in registers across the chunks."""
-    return 16 * 8 * (4 if N == 8 else 64 // N)
+def _c_chunk(C: int, esize: int) -> int | None:
+    """The channels of a chunk where the narrow walk takes C in chunks: a bfloat16 C that is a multiple of 64
+    above 64 in chunks of 64 (128-byte rows, as C = 64's); a float32 C that is a multiple of 32 above 32 in
+    chunks of 16 (64-byte rows: a 1024-row box's halo of 128-byte rows would leave room for one stage of the
+    two). Else None: C is one box's."""
+    if esize == 2 and C > _NR_C_CHUNK and C % _NR_C_CHUNK == 0:
+        return _NR_C_CHUNK
+    if esize == 4 and C > 32 and C % 32 == 0:
+        return _NR_C_CHUNK_F32
+    return None
+
+
+def _chunked_rows(N: int, esize: int) -> int:
+    """The chunked forward's largest box, whose accumulators stay in registers across the chunks: in
+    bfloat16 8 warps of ``nr::chunked_mw`` m-tiles (2 at N = 32, 4 at N = 8 and 16); in float32 the
+    kernel's 4 rows a thread, 1024."""
+    return 16 * 8 * (4 if N == 8 else 64 // N) if esize == 2 else _NR_ROWS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,10 +404,12 @@ class NarrowPlan:
     empty) in ``dw_smem_bytes`` (float32: with the block's [8C, N] sum of its
     groups' tiles).
 
-    ``c_chunks``: where the walk takes C in chunks of 64 (:func:`chunked_plan`),
-    C / 64, else 1. The forward then walks (box, chunk) steps through two
-    stages, each a chunk's halo box and its w; dw's blocks are (split,
-    chunk), each a chunk's rows of its split's partial.
+    ``c_chunks``: where the walk takes C in chunks (:func:`chunked_plan`: of
+    64 in bfloat16, of 16 in float32), C over the chunk, else 1. The forward
+    then walks (box, chunk) steps through two stages, each a chunk's halo box
+    and its w; dw's blocks are (split, chunk), each a chunk's rows of its
+    split's partial. A float32 plan that walks C in chunks is the forward's
+    alone: its dw fields are None (that dw keeps the FFMA kernel).
     """
 
     box: tuple[int, int, int]
@@ -396,12 +417,12 @@ class NarrowPlan:
     grid: int
     smem_bytes: int
     chunk_d: int
-    dw_box: tuple[int, int, int]
-    dw_boxes: int
-    dw_splits: int
-    dw_boxes_per_split: int
-    dw_smem_bytes: int
-    dw_stages: int
+    dw_box: tuple[int, int, int] | None = None
+    dw_boxes: int | None = None
+    dw_splits: int | None = None
+    dw_boxes_per_split: int | None = None
+    dw_smem_bytes: int | None = None
+    dw_stages: int | None = None
     c_chunks: int = 1
 
 
@@ -447,14 +468,15 @@ def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool, esize: int
     """Dynamic shared memory of a narrow launch (``nr::smem_bytes``) with
     elements of ``esize`` bytes: alignment room, ``stages`` stages (the halo
     box of x; for dw also the box of g, its rows rounded up to 16; for the
-    ``chunked`` forward, C a chunk's 64 channels, also the chunk's w, 8C x N),
+    ``chunked`` forward, C a chunk's channels, also the chunk's w, 8C x N),
     the forward's w (8C x N, but in the chunked forward's stages) and table of
     output rows, the table of halo rows, a barrier a stage (in a multiple of
     16 bytes); the float32 forward's two
     chunk buffers of 256 rows (4N bytes each) where ``chunk_d`` is set; and
     the float32 kernels' partial sums: where the forward splits the taps over
-    two halves of the block (a box of at most 512 rows), the second half's
-    (rows x N); dw's sum of its groups' tiles (8C x N)."""
+    two halves of the block (a box of at most 512 rows; not the chunked
+    forward), the second half's (rows x N); dw's sum of its groups' tiles (8C
+    x N)."""
     bw, bh, bd = box
     rows = bw * bh * bd
     rows16 = _round_up(rows, 16)
@@ -465,7 +487,7 @@ def _narrow_smem(box: tuple[int, int, int], C: int, N: int, dw: bool, esize: int
         stage += 8 * C * N * esize
     sums = 0
     if esize == 4:
-        sums = 32 * C * N if dw else 4 * rows * N if rows <= _NR_ROWS // 2 else 0
+        sums = 32 * C * N if dw else 4 * rows * N if rows <= _NR_ROWS // 2 and not chunked else 0
     chunks = 2 * _round_up(_NR_CHUNK * 4 * N, _NR_ALIGN) if chunk_d else 0
     w_bytes = 0 if dw or chunked else 8 * C * N * esize
     return (_NR_ALIGN + stages * stage + chunks + w_bytes + (0 if dw else 4 * rows16) + 4 * rows16
@@ -479,10 +501,10 @@ def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool, esize: int = 2
     at most 255 and the grid's, w a multiple of 16 (an m-tile's 16 rows on
     one line) or all of W, h and d powers of two or all of H and D, whose
     launch fits one block's shared memory; or None. The ``chunked`` forward
-    (C a chunk's 64 channels) also holds a box's accumulators in registers
-    (at most :func:`_chunked_rows` rows) and reads the chunk's w once a box:
-    it takes the box of the fewest L2 bytes a row, its halo's and its share
-    of w's."""
+    (C a chunk's channels) also holds a box's accumulators in registers
+    (at most :func:`_chunked_rows` rows), stores its rows from registers and
+    reads the chunk's w once a box: it takes the box of the fewest L2 bytes a
+    row, its halo's and its share of w's."""
     def extents(size: int, step: int) -> list[int]:
         top = min(size, _NR_EXTENT)
         out = {size} if size <= _NR_EXTENT else set()
@@ -495,10 +517,10 @@ def _narrow_box(D: int, H: int, W: int, C: int, N: int, dw: bool, esize: int = 2
         for bh in extents(H, 1):
             for bw in extents(W, 16):
                 rows = bw * bh * bd
-                if rows > _NR_ROWS or (w_bytes and _round_up(rows, 16) > _chunked_rows(N)):
+                if rows > _NR_ROWS or (w_bytes and _round_up(rows, 16) > _chunked_rows(N, esize)):
                     continue
-                smem = _narrow_smem((bw, bh, bd), C, N, dw, esize, _narrow_stages(dw, esize),
-                                    _narrow_chunk_d((bw, bh, bd), dw, esize), chunked)
+                chunk_d = 0 if w_bytes else _narrow_chunk_d((bw, bh, bd), dw, esize)
+                smem = _narrow_smem((bw, bh, bd), C, N, dw, esize, _narrow_stages(dw, esize), chunk_d, chunked)
                 if smem > _WG_SMEM_MAX:
                     continue
                 halo = (bw + 1) * (bh + 1) * (bd + 1)
@@ -520,16 +542,17 @@ def narrow_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
     or float32) and ``w`` (2,2,2,C,N), or None where they do not apply: N of
     8, 16 or 32, C of 8, 16, 32 or 64 (a multiple of 8, one TMA box of all
     channels in rows of at most 128 bytes, so float32 C <= 32; at most 4 m16
-    tiles of dw's accumulators a warp), or a bfloat16 C that is a multiple of
-    64 above 64, walked in chunks of 64 (:func:`chunked_plan`), and never
-    where :func:`wgmma_plan` applies. Pure arithmetic; ``sms`` is the card's
-    count of multiprocessors."""
+    tiles of dw's accumulators a warp), or a C walked in chunks
+    (:func:`chunked_plan`: a bfloat16 C that is a multiple of 64 above 64, a
+    float32 C that is a multiple of 32 above 32, the latter the forward's
+    alone), and never where :func:`wgmma_plan` applies. Pure arithmetic;
+    ``sms`` is the card's count of multiprocessors."""
     esize = _NR_ESIZE.get(dtype)
     if (esize is None or N not in _NR_OUTPUTS or min(B, D, H, W) < 1 or B * D * H * W >= 2**31
             or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None):
         return None
-    if esize == 2 and C > _NR_C_CHUNK and C % _NR_C_CHUNK == 0:
-        return chunked_plan(B, D, H, W, C, N, sms=sms)
+    if _c_chunk(C, esize) is not None:
+        return chunked_plan(B, D, H, W, C, N, sms=sms, dtype=dtype)
     if C not in _NR_CHANNELS or esize * C > _NR_ROW_BYTES:
         return None
     box, dw = _narrow_box(D, H, W, C, N, False, esize), _narrow_dw(B, D, H, W, C, N, sms, esize)
@@ -542,34 +565,43 @@ def narrow_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
 
 
 @functools.lru_cache(maxsize=256)
-def chunked_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> NarrowPlan | None:
-    """The narrow plan of a bfloat16 ``x`` (B,D,H,W,C) whose C is a multiple
-    of 64 above 64 and ``w`` (2,2,2,C,N), N of 8, 16 or 32, walked in
-    ``c_chunks`` = C / 64 chunks of 64 channels (128-byte rows, as C = 64's);
-    or None. The forward's box reads the fewest L2 bytes a row (its halo and
-    its share of the chunk's w, read once a box) among those whose
-    accumulators fit the warps' registers (at most 256 rows at N = 32, 512 at
-    N = 8 and 16) and
-    whose two stages of halo and w fit one block; dw's box, as C = 64's,
-    with a third stage where that box has room for one. dw's (split, chunk)
-    blocks make one wave on ``sms`` multiprocessors, each split a run of
-    whole boxes. Pure arithmetic."""
-    chunk = _NR_C_CHUNK
-    if C <= chunk or C % chunk or N not in _NR_OUTPUTS or min(B, D, H, W) < 1 or B * D * H * W >= 2**31:
+def chunked_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
+                 dtype: torch.dtype = torch.bfloat16) -> NarrowPlan | None:
+    """The narrow plan of ``x`` (B,D,H,W,C) and ``w`` (2,2,2,C,N), N of 8, 16
+    or 32, whose C the walk takes in ``c_chunks`` chunks (:func:`_c_chunk`):
+    a bfloat16 C that is a multiple of 64 above 64 in chunks of 64 (128-byte
+    rows, as C = 64's), a float32 C that is a multiple of 32 above 32 in
+    chunks of 16 (64-byte rows); or None. The forward's box reads the fewest
+    L2 bytes a row (its halo and its share of the chunk's w, read once a box)
+    among those whose accumulators fit the warps' registers (bfloat16: at
+    most 256 rows at N = 32, 512 at N = 8 and 16; float32: 1024, 4 rows a
+    thread) and whose two stages of halo and w fit one block. bfloat16 also
+    has a dw part: dw's box, as C = 64's, with a third stage where that box
+    has room for one, and (split, chunk) blocks that make one wave on ``sms``
+    multiprocessors, each split a run of whole boxes. A float32 plan has none
+    (its dw keeps the FFMA kernel, as its dx). Pure arithmetic."""
+    esize = _NR_ESIZE.get(dtype)
+    chunk = None if esize is None else _c_chunk(C, esize)
+    if chunk is None or N not in _NR_OUTPUTS or min(B, D, H, W) < 1 or B * D * H * W >= 2**31:
         return None
-
-    box, dw_box = _narrow_box(D, H, W, chunk, N, False, 2, True), _narrow_box(D, H, W, chunk, N, True)
-    if box is None or dw_box is None:
+    box = _narrow_box(D, H, W, chunk, N, False, esize, True)
+    if box is None:
+        return None
+    chunks, boxes = C // chunk, _boxes(B, D, H, W, box)
+    forward = dict(box=box, boxes=boxes, grid=min(boxes, sms), chunk_d=0, c_chunks=chunks,
+                   smem_bytes=_narrow_smem(box, chunk, N, False, esize, 2, 0, True))
+    if esize == 4:
+        return NarrowPlan(**forward)
+    dw_box = _narrow_box(D, H, W, chunk, N, True)
+    if dw_box is None:
         return None
     # dw's third stage where its best box of two has room for it: more boxes in flight at the same bytes a row
     dw_stages = 3 if _narrow_smem(dw_box, chunk, N, True, 2, 3, 0) <= _WG_SMEM_MAX else 2
-    chunks, boxes, dw_boxes = C // chunk, _boxes(B, D, H, W, box), _boxes(B, D, H, W, dw_box)
+    dw_boxes = _boxes(B, D, H, W, dw_box)
     per_split = -(-dw_boxes // min(dw_boxes, max(1, sms // chunks)))
-    return NarrowPlan(box=box, boxes=boxes, grid=min(boxes, sms),
-                      smem_bytes=_narrow_smem(box, chunk, N, False, 2, 2, 0, True), chunk_d=0,
-                      dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
+    return NarrowPlan(**forward, dw_box=dw_box, dw_boxes=dw_boxes, dw_splits=-(-dw_boxes // per_split),
                       dw_boxes_per_split=per_split, dw_smem_bytes=_narrow_smem(dw_box, chunk, N, True, 2, dw_stages, 0),
-                      dw_stages=dw_stages, c_chunks=chunks)
+                      dw_stages=dw_stages)
 
 
 def _narrow_dw(B: int, D: int, H: int, W: int, C: int, N: int, sms: int, esize: int) -> NarrowDwPlan | None:
@@ -602,6 +634,86 @@ def narrow_dw_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 13
     return _narrow_dw(B, D, H, W, C, N, sms, _NR_ESIZE[dtype])
 
 
+# The chunked dx's tiling (csrc/conv_k2_chunked_dx.cuh): a box of 128 output voxels, 64 of them each of two
+# consumer warpgroups; a column chunk of 128 (or 64) channels a block; up to 4 halo stages.
+_DX_BOX_ROWS = 128
+_DX_MAX_STAGES = 4
+_DX_BARRIER_BYTES = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkedDxPlan:
+    """How the chunked dx (``conv_k2_chunked_dx_kernel``) cuts the bfloat16
+    dx of a narrow g (N = 8, 16 or 32) and a wide dx (C a multiple of 64 above
+    64): boxes of ``box`` (w, h, d), 128 output voxels of one batch item,
+    ``boxes`` of them (w fastest, the last along each axis ragged), each read
+    as one halo box of g one voxel lower; ``sub_box``, the first 64 rows of a
+    box (the first consumer warpgroup's; the second's the next 64); column
+    chunks of ``bn`` channels, ``chunks`` = C / bn of them; ``grid`` blocks, a
+    multiple of ``chunks``: block i holds chunk i % chunks of w in shared
+    memory and walks boxes i / chunks, + grid / chunks, ...; a ring of
+    ``stages`` halo stages, and ``smem_bytes`` of dynamic shared memory, which
+    the launcher holds to its own arithmetic."""
+
+    box: tuple[int, int, int]
+    sub_box: tuple[int, int, int]
+    boxes: int
+    bn: int
+    chunks: int
+    grid: int
+    stages: int
+    smem_bytes: int
+
+
+def _chunked_dx_smem(box: tuple[int, int, int], N: int, bn: int, stages: int) -> int:
+    """Dynamic shared memory of the chunked dx (``cdx::smem_bytes``): alignment room, the chunk's w (8N/64
+    tiles of bn rows x 128 bytes), two staging buffers of 64 rows x bn bf16 for each warpgroup, ``stages``
+    halo stages of 2N-byte rows (each in whole KiB), the barriers."""
+    bw, bh, bd = box
+    halo = _round_up((bw + 1) * (bh + 1) * (bd + 1) * 2 * N, _NR_ALIGN)
+    return _NR_ALIGN + (8 * N // 64) * bn * 128 + 2 * 2 * bn * 128 + stages * halo + _DX_BARRIER_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def chunked_dx_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> ChunkedDxPlan | None:
+    """The chunked dx's plan for the bfloat16 dx of ``conv_k2`` from C to N
+    channels (g (B,D,H,W,N), dx (B,D,H,W,C)), or None where it does not apply:
+    N of 8, 16 or 32 and C a multiple of 64 above 64 (the tensor-parallel
+    shards 512 -> 32, -> 16, -> 8), whose dx neither plan of the forward from
+    N to C takes. The box: 128 voxels whose extents are powers of two, w at
+    least 8 (an ldmatrix phase's 8 rows on one line) and each at most 128,
+    whose first 64 rows tile it as a sub-box; of those, the fewest boxes (the
+    products and the store), then the fewest halo voxels (L2 bytes). Chunks
+    of 128 columns (64 where C is an odd multiple of 64); as many blocks of a
+    chunk as fill ``sms`` multiprocessors, one block each; as many halo stages
+    as fit beside the chunk's w and the staging buffers, at most 4. Pure
+    arithmetic."""
+    if C <= 64 or C % 64 or N not in _NR_OUTPUTS or min(B, D, H, W) < 1 or B * D * H * W >= 2**31:
+        return None
+    best, best_key = None, None
+    for bd in (1 << i for i in range(8)):
+        for bh in (1 << i for i in range(8)):
+            bw = _DX_BOX_ROWS // (bd * bh)
+            if bw < 8 or bw * bh * bd != _DX_BOX_ROWS:
+                continue
+            sub = _row_box(_DX_BOX_ROWS // 2, 1, bd, bh, bw)
+            if sub is None:
+                continue
+            key = (_boxes(B, D, H, W, (bw, bh, bd)), (bw + 1) * (bh + 1) * (bd + 1))
+            if best_key is None or key < best_key:
+                best, best_key = ((bw, bh, bd), sub[:3]), key
+    box, sub = best
+    bn = 128 if C % 128 == 0 else 64
+    fixed = _chunked_dx_smem(box, N, bn, 0)
+    stages = min(_DX_MAX_STAGES, (_WG_SMEM_MAX - fixed) // (_chunked_dx_smem(box, N, bn, 1) - fixed))
+    if stages < 2:
+        return None
+    boxes, chunks = best_key[0], C // bn
+    per_chunk = max(1, min(boxes, sms // chunks))
+    return ChunkedDxPlan(box=box, sub_box=sub, boxes=boxes, bn=bn, chunks=chunks, grid=chunks * per_chunk,
+                         stages=stages, smem_bytes=_chunked_dx_smem(box, N, bn, stages))
+
+
 def _sms(x: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(x.device).multi_processor_count
 
@@ -618,6 +730,13 @@ def _narrow_for(x: torch.Tensor, N: int) -> NarrowPlan | None:
     if x.dtype not in _NR_ESIZE:
         return None
     return narrow_plan(*x.shape, N, sms=_sms(x), dtype=x.dtype)
+
+
+def _chunked_dx_for(g: torch.Tensor, C: int) -> ChunkedDxPlan | None:
+    """The chunked dx plan of a CUDA g (bfloat16 only) and C channels of dx, or None."""
+    if g.dtype != torch.bfloat16:
+        return None
+    return chunked_dx_plan(*g.shape[:4], C, g.shape[-1], sms=_sms(g))
 
 
 def _check_launch(what: str, rc: int) -> None:
@@ -716,16 +835,33 @@ def dx_wgmma(g: torch.Tensor, w: torch.Tensor, dx: torch.Tensor, plan: WgmmaPlan
 
 
 def forward_chunked(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, plan: NarrowPlan) -> None:
-    """Launch the chunked forward into ``y`` on ``plan`` (:func:`chunked_plan`),
-    ``w`` as it lies (each stage's TMA copy takes a chunk's rows). Counts
-    nothing, as :func:`forward_wgmma`."""
+    """Launch the chunked forward (bfloat16 on ``mma.sync``, float32 on FFMA)
+    into ``y`` on ``plan`` (:func:`chunked_plan`), ``w`` as it lies (each
+    stage's TMA copy takes a chunk's rows). Counts nothing, as
+    :func:`forward_wgmma`."""
     B, D, H, W, C = x.shape
     N = y.shape[-1]
     w = w.to(x.dtype).contiguous()
     _check_operands("conv_k2", C, N, x, w, y)
     _check_launch("conv_k2 (chunked)", _lib().conv_k2_forward_chunked(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes,
-        x.device.index, _stream(x)))
+        _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+
+
+def dx_chunked(g: torch.Tensor, w: torch.Tensor, dx: torch.Tensor, plan: ChunkedDxPlan) -> None:
+    """Launch the chunked dx into ``dx`` (bfloat16, on the tensor cores) on
+    ``plan`` (:func:`chunked_dx_plan`), w laid out as [C, 8N], the K-major
+    rows of the products' B operand (the kernel pairs w's tap t with g's
+    mirrored tap). Counts nothing, as :func:`forward_wgmma`."""
+    B, D, H, W, N = g.shape
+    C = dx.shape[-1]
+    # wt[c, t N + n] = w[t, c, n], each column's depth contiguous: one copy (and cast) of <= 256 KB
+    wt = torch.empty((C, 8, N), dtype=g.dtype, device=g.device)
+    wt.copy_(w.reshape(8, C, N).permute(1, 0, 2))
+    _check_operands("conv_k2 dx", C, N, g, wt, dx, depth_is_n=True)
+    _check_launch("conv_k2 dx (chunked)", _lib().conv_k2_backward_input_chunked(
+        g.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, D, H, W, C, N, *plan.box, plan.bn, plan.stages, plan.grid,
+        plan.smem_bytes, g.device.index, _stream(g)))
 
 
 def dw_narrow(x: torch.Tensor, g: torch.Tensor, dw: torch.Tensor, plan: NarrowPlan | NarrowDwPlan) -> None:
@@ -810,6 +946,7 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         forward_chunked(x, w, y, narrow)
         conv_k2.launches_narrow += 1
         conv_k2.launches_chunked += 1
+        conv_k2.launches_chunked_f32 += x.dtype == torch.float32
     elif narrow is not None:
         _check_launch("conv_k2 (narrow)", _lib().conv_k2_forward_narrow(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
@@ -844,11 +981,13 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     C = w.shape[3]
     dx = torch.empty((B, D, H, W, C), dtype=g.dtype, device=g.device)
     # both plans are those of the forward from N to C channels; a narrow plan that walks N in chunks is not
-    # dx's (the chunked forward has no instance over g one voxel lower): that dx keeps the FFMA kernel
+    # dx's (the chunked forward has no instance over g one voxel lower): that dx keeps the FFMA kernel. Where
+    # neither applies, a narrow g and a wide dx (bfloat16) take the chunked dx
     plan = _plan_for(g, C)
     narrow = None if plan is not None else _narrow_for(g, C)
     if narrow is not None and narrow.c_chunks > 1:
         narrow = None
+    wide = None if plan is not None or narrow is not None else _chunked_dx_for(g, C)
     if plan is not None:
         dx_wgmma(g, w, dx, plan)
         conv_k2.launches_dx_wgmma += 1
@@ -862,6 +1001,10 @@ def _launch_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             g.data_ptr(), wm.data_ptr(), dx.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
             narrow.smem_bytes, narrow.chunk_d, _DTYPE_CODES[g.dtype], g.device.index, _stream(g)))
         conv_k2.launches_dx_narrow += 1
+    elif wide is not None:
+        dx_chunked(g, w, dx, wide)
+        conv_k2.launches_dx_narrow += 1
+        conv_k2.launches_dx_chunked += 1
     else:
         # (2,2,2,N,C): the depth of dx is (tap, n). Plumbing on <= 2.1 M elements; no
         # flip, the kernel's mirrored shift already pairs tap t with w[t]
@@ -889,9 +1032,11 @@ def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     one to ``conv_k2.launches_dx``, and to ``conv_k2.launches_dx_wgmma`` or
     ``conv_k2.launches_dx_narrow`` where it is the tensor-core or the narrow
     kernel: bfloat16 whose shape, as a forward from N to C, has a wgmma plan,
-    or either type whose shape so has a narrow plan; to
-    ``launches_dx_ffma_split`` where a float32 FFMA dx splits its depth) or the
-    call raises; CPU tensors through :func:`conv_k2_dx_reference`."""
+    or either type whose shape so has a narrow plan, or bfloat16 with a
+    chunked dx plan (:func:`chunked_dx_plan`), which adds one to
+    ``launches_dx_chunked`` too; to ``launches_dx_ffma_split`` where a float32
+    FFMA dx splits its depth) or the call raises; CPU tensors through
+    :func:`conv_k2_dx_reference`."""
     return _conv_k2_dx_op(g, w)
 
 
@@ -934,8 +1079,12 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         conv_k2.launches_dw_persistent += plan.dw_persistent is not None
         conv_k2.launches_dw += 1
         return dw
-    # the narrow plan (chunked or not), else (bfloat16, N = 64) the dw-only one: their dw fields are the same
-    narrow = _narrow_for(x, N) or narrow_dw_plan(*x.shape, N, sms=_sms(x), dtype=x.dtype)
+    # the narrow plan (chunked or not) where it has a dw part (the float32 walk in chunks is the forward's
+    # alone), else (bfloat16, N = 64) the dw-only one: their dw fields are the same
+    narrow = _narrow_for(x, N)
+    if narrow is not None and narrow.dw_box is None:
+        narrow = None
+    narrow = narrow or narrow_dw_plan(*x.shape, N, sms=_sms(x), dtype=x.dtype)
     if narrow is not None:
         dw_narrow(x, g, dw, narrow)
         conv_k2.launches_dw_narrow += 1
@@ -1005,7 +1154,9 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (forward), ``conv_k2.launches_dx_narrow`` or
     ``conv_k2.launches_dw_narrow`` (and ``launches_dw_wide`` on the dw-only
     plan; a forward or dw whose plan walks C in chunks, also
-    ``launches_chunked`` or ``launches_dw_chunked``). A tensor-core forward or dx whose plan splits its depth (and then
+    ``launches_chunked`` or ``launches_dw_chunked``, a float32 such forward
+    ``launches_chunked_f32`` too; a dx on the chunked dx plan
+    ``launches_dx_chunked``). A tensor-core forward or dx whose plan splits its depth (and then
     launches the reduce of its partials) adds one to
     ``conv_k2.launches_split`` or ``launches_dx_split``; a float32 FFMA
     forward or dx that splits its depth (:func:`ffma_split`), to
@@ -1041,3 +1192,5 @@ conv_k2.launches_dx_ffma_split = 0
 conv_k2.launches_dw_persistent = 0
 conv_k2.launches_chunked = 0
 conv_k2.launches_dw_chunked = 0
+conv_k2.launches_dx_chunked = 0
+conv_k2.launches_chunked_f32 = 0

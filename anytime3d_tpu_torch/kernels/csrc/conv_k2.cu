@@ -69,9 +69,13 @@
 // bfloat16 and on FFMA in float32; so does the bfloat16 dw of a narrow input
 // and N = 64 (the s2d(2) stem's 8 -> 64); and, walking C in chunks of 64, the
 // bfloat16 forward and dw of a wide input (C a multiple of 64 above 64: the
-// tensor-parallel shard 512 -> 32). Which design a call takes is settled
-// by the Python wrapper from shape and dtype, before the launch: the wgmma
-// plan, else the narrow plan, else the dw-only narrow plan (dw), else FFMA.
+// tensor-parallel shard 512 -> 32), in chunks of 16 the float32 forward (C a
+// multiple of 32 above 32). That shard's bfloat16 dx, a narrow g and a wide dx,
+// runs on the tensor cores over halo boxes of g, a column chunk of dx a block
+// (conv_k2_chunked_dx.cuh). Which design a call takes is settled by the
+// Python wrapper from shape and dtype, before the launch: the wgmma plan,
+// else the narrow plan, else the dw-only narrow plan (dw) or the chunked dx
+// plan (dx), else FFMA.
 //
 // The FFMA forward and dx (conv_k2_gemm_kernel, namespace gemm). The float32
 // serving path launches it four times a batch, and what bounds it is the FFMA
@@ -140,6 +144,7 @@
 
 #include <stdint.h>
 
+#include "conv_k2_chunked_dx.cuh"
 #include "conv_k2_narrow.cuh"
 #include "conv_k2_wgmma.cuh"
 
@@ -908,16 +913,32 @@ int conv_k2_backward_input_narrow(const void* g, const void* wm, void* dx, int B
                         static_cast<cudaStream_t>(stream));
 }
 
-// The chunked forward for wide inputs and narrow outputs, bfloat16 on
-// mma.sync: x [B,D,H,W,C] with C a multiple of 64 above 64, N in {8, 16, 32},
-// w [2,2,2,C,N] as it lies; the output box (bw, bh, bd), `grid` blocks and the
-// dynamic shared memory of the plan (held to this file's own); two stages.
+// The chunked forward for wide inputs and narrow outputs: x [B,D,H,W,C], N in
+// {8, 16, 32}, w [2,2,2,C,N] as it lies; bfloat16 on mma.sync with C a
+// multiple of 64 above 64, or float32 on FFMA with C a multiple of 32 above
+// 32; the output box (bw, bh, bd), `grid` blocks and the dynamic shared memory
+// of the plan (held to this file's own); two stages.
 int conv_k2_forward_chunked(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N, int bw,
-                            int bh, int bd, int grid, int smem_bytes, int device, void* stream) {
+                            int bh, int bd, int grid, int smem_bytes, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return nr::launch_chunked_fwd(x, w, y, B, D, H, W, C, N, bw, bh, bd, grid, smem_bytes,
+  return nr::launch_chunked_fwd(x, w, y, B, D, H, W, C, N, bw, bh, bd, grid, smem_bytes, dtype,
                                 static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 dx of a narrow g and a wide dx on the tensor cores: dx
+// [B,D,H,W,C] with C a multiple of bn (128, or 64) above 64 from g
+// [B,D,H,W,N], N in {8, 16, 32}, and wt [C, 8N], w laid out by the wrapper
+// (wt[c, t N + n] = w[t, c, n]); the plan's box of 128 voxels (bw, bh,
+// bd), column chunk bn, halo stages, `grid` blocks (a multiple of C / bn) and
+// dynamic shared memory, held to this file's own.
+int conv_k2_backward_input_chunked(const void* g, const void* wt, void* dx, int B, int D, int H, int W, int C, int N,
+                                   int bw, int bh, int bd, int bn, int stages, int grid, int smem_bytes, int device,
+                                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return cdx::launch(g, wt, dx, B, D, H, W, C, N, bw, bh, bd, bn, stages, grid, smem_bytes,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // dw for narrow outputs, bfloat16 on mma.sync or float32 on FFMA: the boxes

@@ -134,6 +134,18 @@
 //   are added by conv_k2_dw_reduce_kernel in order. g is read once a chunk,
 //   from L2. The forward walks two stages a block; dw g.stages (2, or 3
 //   where its box has room for a third).
+//   Forward in float32 (conv_k2_chunked_fwd_f32_kernel; C a multiple of 32
+//   above 32, the same shard in the float32 step): bound by operations (34.4
+//   GFLOP of FFMA at 67 TFLOP/s against 285 MB, at B=32 on 16^3); the FFMA
+//   GEMM it replaces computed 64 columns for 32. The float32 forward's inner
+//   loop (f32_tap_products: 4 rows and all N columns a thread, w as float4
+//   broadcasts) on a box of 1024 rows, its accumulators in registers across
+//   the chunks. A chunk is 16 channels, 64-byte rows under the 64-byte
+//   swizzle: a 1024-row box's halo of 128-byte rows (32 channels) is 176 KB,
+//   room for one stage, where the ring needs two (2 x 103 KB at 16 channels,
+//   with the chunk's w, 16 KB at N = 32). The result is stored once, from
+//   registers: y is 17 MB of the 285, and the two stages leave no room for
+//   the chunk buffers. dx and dw of these shapes keep the FFMA kernels.
 
 #pragma once
 
@@ -158,8 +170,9 @@ constexpr uint32_t ALIGN = 1024;    // stage alignment: the longest swizzle's pe
 // CONV_K2_NARROW_PROBE builds the float32 kernels and those of the walk in
 // chunks (the chunked forward, and the bfloat16 dw where g.chunks > 1) with a
 // part left out, to time the rest (cli/probe_narrow.py; the port's build has
-// 0, all of it). The forwards and dx: 1 without the store of y, 2 without the
-// products (chunked: no ldmatrix, no mma), 3 without both. The float32 dw: 1
+// 0, all of it; conv_k2_chunked_dx.cuh reads it too). The forwards and dx: 1
+// without the store of y (dx), 2 without the products (chunked: no ldmatrix,
+// no mma or wgmma), 3 without both. The float32 dw: 1
 // without each row's loads (every row's products on the first row's
 // operands), 2 with 8 FFMA a row for 64, 3 without the loop over rows. The
 // chunked dw: 1 each k-step's products added by the tensor cores' own
@@ -560,6 +573,48 @@ conv_k2_chunked_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __gr
   }
 }
 
+// The float32 products of one tap: acc[q][n] += sum over c < C of x[c] of the
+// halo voxel toff bytes past vr[q] (this thread's row q) times wt[c][n], wt
+// the tap's C rows of w (N floats each) in shared memory. A k-step of 4
+// channels reads one float4 of each row, under the swizzle of `mask` (a row's
+// pieces lie inside its row bytes, so its swizzle is one XOR key a tap:
+// swizzle(rb + 16 c4) = rb + (16 c4 ^ key)), and N float4 of w, the same for
+// every lane (broadcasts), for 16 N FFMA a row.
+template <int RT, int N>
+__device__ __forceinline__ void f32_tap_products(float (&acc)[RT][N], const uint8_t* xs, const uint32_t (&vr)[RT],
+                                                 uint32_t toff, uint32_t mask, const float4* wt, int C) {
+  constexpr int NV = N / 4;  // float4 a row of w
+  uint32_t rb[RT], key[RT];
+#pragma unroll
+  for (int q = 0; q < RT; ++q) {
+    rb[q] = vr[q] + toff;
+    key[q] = ((rb[q] >> 7) & mask) << 4;
+  }
+#pragma unroll 2
+  for (int c4 = 0; c4 < C / 4; ++c4) {
+    float4 a[RT];
+#pragma unroll
+    for (int q = 0; q < RT; ++q) a[q] = *reinterpret_cast<const float4*>(xs + rb[q] + ((c4 << 4) ^ key[q]));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 wv[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) wv[j] = wt[(4 * c4 + kk) * NV + j];  // the same for every lane
+#pragma unroll
+      for (int q = 0; q < RT; ++q) {
+        const float av = kk == 0 ? a[q].x : kk == 1 ? a[q].y : kk == 2 ? a[q].z : a[q].w;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          acc[q][4 * j] = fmaf(av, wv[j].x, acc[q][4 * j]);
+          acc[q][4 * j + 1] = fmaf(av, wv[j].y, acc[q][4 * j + 1]);
+          acc[q][4 * j + 2] = fmaf(av, wv[j].z, acc[q][4 * j + 2]);
+          acc[q][4 * j + 3] = fmaf(av, wv[j].w, acc[q][4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
 // Forward in float32: y [B, D, H, W, N] from x [B, D, H, W, C] and w [8C, N]
 // (N = 8 NT), each product an FFMA; DX: dx from g and w' with the halo box one
 // voxel lower, as the bf16 kernel's DX instance. The walk, stages and tables
@@ -630,40 +685,8 @@ conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const _
 #pragma unroll
         for (int n = 0; n < N; ++n) acc[q][n] = 0.f;
       }
-      for (int t = tap0; t < (PROBE & 2 ? tap0 : tap1); ++t) {
-        // a row's pieces lie inside its row bytes, so its swizzle is one XOR key a tap:
-        // swizzle(rb + 16 c4) = rb + (16 c4 ^ key)
-        uint32_t rb[RT], key[RT];
-#pragma unroll
-        for (int q = 0; q < RT; ++q) {
-          rb[q] = vr[q] + tap_offset(g, t);
-          key[q] = ((rb[q] >> 7) & mask) << 4;
-        }
-        const float4* const wt = ws + t * g.C * NV;  // rows (t, c) of w
-#pragma unroll 2
-        for (int c4 = 0; c4 < g.C / 4; ++c4) {
-          float4 a[RT];
-#pragma unroll
-          for (int q = 0; q < RT; ++q) a[q] = *reinterpret_cast<const float4*>(xs + rb[q] + ((c4 << 4) ^ key[q]));
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            float4 wv[NV];
-#pragma unroll
-            for (int j = 0; j < NV; ++j) wv[j] = wt[(4 * c4 + kk) * NV + j];  // the same for every lane
-#pragma unroll
-            for (int q = 0; q < RT; ++q) {
-              const float av = kk == 0 ? a[q].x : kk == 1 ? a[q].y : kk == 2 ? a[q].z : a[q].w;
-#pragma unroll
-              for (int j = 0; j < NV; ++j) {
-                acc[q][4 * j] = fmaf(av, wv[j].x, acc[q][4 * j]);
-                acc[q][4 * j + 1] = fmaf(av, wv[j].y, acc[q][4 * j + 1]);
-                acc[q][4 * j + 2] = fmaf(av, wv[j].z, acc[q][4 * j + 2]);
-                acc[q][4 * j + 3] = fmaf(av, wv[j].w, acc[q][4 * j + 3]);
-              }
-            }
-          }
-        }
-      }
+      for (int t = tap0; t < (PROBE & 2 ? tap0 : tap1); ++t)
+        f32_tap_products(acc, xs, vr, tap_offset(g, t), mask, ws + t * g.C * NV, g.C);
       if (g.split > 1) {  // the second part's sums into the first's: [row][N] floats
         if (part == 1)
 #pragma unroll
@@ -731,6 +754,98 @@ conv_k2_narrow_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const _
     if (tid == 0 && i + 2 < n_boxes) issue(s, blockIdx.x + (i + 2) * grid);
   }
   if (g.stage_y && tid == 0) bulk_wait_all();  // the chunk buffers stay until the last store has read them
+}
+
+// The chunked forward in float32: y [B, D, H, W, N] (N = 8 NT) from x [B, D,
+// H, W, 16 g.chunks] and w [8, 16 g.chunks, N] as it lies, each product an
+// FFMA. Block i computes boxes i, i + gridDim.x, ...; step t of its walk is
+// chunk t % chunks of its box t / chunks, through the ring's two stages, each
+// the chunk's halo box (64-byte rows under the 64-byte swizzle) and the
+// chunk's w, [8 taps][16 c][N] floats, by one TMA copy each. A thread owns
+// rows tid + THREADS q (q < RT) of the box and all N columns, their
+// accumulators in registers across the chunks (rows past the box compute on
+// voxel 0); after the box's last chunk the rows inside the grid are stored
+// from registers.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_k2_chunked_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                               float* __restrict__ y, const Geom g) {
+  constexpr int N = 8 * NT;
+  constexpr int NV = N / 4;  // float4 a row of w or y
+  constexpr int RT = MAX_ROWS / THREADS;
+  constexpr int S = 2;  // stages of the ring (make_geom's g.stages)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = round_up(raw, ALIGN);
+  uint8_t* const base_p = smem_raw + (base - raw);
+  const uint32_t stage = g.stage_x + g.stage_w;
+  int* const vrow = reinterpret_cast<int*>(base_p + S * stage);
+  int* const loc = vrow + g.rows16;
+  const uint32_t bar = base + S * stage + 8 * g.rows16;
+  const int tid = threadIdx.x;
+  const int grid = gridDim.x, n_boxes = (g.boxes - static_cast<int>(blockIdx.x) + grid - 1) / grid;
+  const int n_steps = n_boxes * g.chunks;
+
+  const CUtensorMap *mx = &map_x, *mwt = &map_w;
+  auto issue = [&](int s, int t) {  // thread 0: step t's halo box of its chunk and the chunk's w into stage s
+    int w0, h0, d0, b;
+    box_origin(g, blockIdx.x + t / g.chunks * grid, w0, h0, d0, b);
+    const int c0 = g.C * (t % g.chunks);
+    const uint32_t full = bar + 8 * s, dst = base + s * stage;
+    wg::mbar_arrive_expect_tx(full, g.halo_bytes + g.stage_w);
+    wg::tma_load_5d(dst, mx, full, c0, w0, h0, d0, b);
+    tma_load_3d(dst + g.stage_x, mwt, full, 0, c0, 0);
+  };
+
+  init_barriers(bar, S);
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < S && s < n_steps; ++s) issue(s, s);
+  fill_rows(g, vrow, loc);
+  __syncthreads();
+
+  const uint32_t mask = g.row / 16 - 1;
+  uint32_t vr[RT];
+#pragma unroll
+  for (int q = 0; q < RT; ++q) {
+    const int r = tid + THREADS * q;
+    vr[q] = r < g.rows ? vrow[r] : 0;
+  }
+  float acc[RT][N];
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = i % S, chunk = i % g.chunks;
+    if (chunk == 0)
+#pragma unroll
+      for (int q = 0; q < RT; ++q)
+#pragma unroll
+        for (int n = 0; n < N; ++n) acc[q][n] = 0.f;
+    wg::mbar_wait(bar + 8 * s, (i / S) & 1);
+    const uint8_t* const xs = base_p + s * stage;
+    const float4* const ws = reinterpret_cast<const float4*>(xs + g.stage_x);  // rows (t, c) of the chunk's w
+    for (int t = 0; t < (PROBE & 2 ? 0 : 8); ++t)
+      f32_tap_products(acc, xs, vr, tap_offset(g, t), mask, ws + t * g.C * NV, g.C);
+    __syncthreads();  // every thread is done with stage s
+    if (tid == 0 && i + S < n_steps) issue(s, i + S);
+    // the probe without the store: g.D > 0 always holds, but the compiler cannot know it and keeps the products
+    if (chunk != g.chunks - 1 || (PROBE & 1 && g.D > 0)) continue;
+    // the box's last chunk: its rows inside the grid (a ragged last box stores fewer), N / 4 float4 a row
+    int w0, h0, d0, b;
+    box_origin(g, blockIdx.x + i / g.chunks * grid, w0, h0, d0, b);
+    const int lim_w = g.W - w0, lim_h = g.H - h0, lim_d = g.D - d0;
+    const long long row0 = ((static_cast<long long>(b) * g.D + d0) * g.H + h0) * g.W + w0;
+#pragma unroll
+    for (int q = 0; q < RT; ++q) {
+      const int r = tid + THREADS * q;
+      if (r >= g.rows) continue;
+      const int l = loc[r];
+      const int rw = l & 1023, rh = (l >> 10) & 1023, rd = l >> 20;
+      if (rw >= lim_w || rh >= lim_h || rd >= lim_d) continue;
+      float4* out = reinterpret_cast<float4*>(y + (row0 + (static_cast<long long>(rd) * g.H + rh) * g.W + rw) * N);
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        out[j] = make_float4(acc[q][4 * j], acc[q][4 * j + 1], acc[q][4 * j + 2], acc[q][4 * j + 3]);
+    }
+  }
 }
 
 // dw partial: part[z] [8C, N] (N = 8 NT) over the boxes [z * per_split,
@@ -993,11 +1108,15 @@ conv_k2_narrow_dw_f32_kernel(const __grid_constant__ CUtensorMap map_x, const __
 // above 64 is walked in chunks of 64 (g.chunks = C / 64, N = 8, 16 or 32; the
 // forward two stages, dw 2 or 3): the box holds a chunk's channels, and the
 // forward's box at most 16 WARPS chunked_mw(NT) rows (its accumulators stay
-// in registers across the chunks).
+// in registers across the chunks). A float32 C that is a multiple of 32 above
+// 32 is walked by the forward alone in chunks of 16 (g.chunks = C / 16,
+// 64-byte rows; no tap split, rows stored from registers).
 // Returns false where the kernels do not apply.
 inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw, int bh, int bd, bool dw,
                       int esize, int stages, int chunk_d) {
-  const int chunks = esize == 2 && C > 64 && C % 64 == 0 ? C / 64 : 1;
+  const int chunks = esize == 2 && C > 64 && C % 64 == 0   ? C / 64
+                     : esize == 4 && C > 32 && C % 32 == 0 ? C / 16
+                                                           : 1;
   const int c_total = C;
   C /= chunks;
   const bool wide_dw = dw && esize == 2 && N == 64 && 8 * C * N <= DW_WIDE_ACCUMULATORS;
@@ -1009,8 +1128,8 @@ inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw,
   if (bw < 1 || bh < 1 || bd < 1 || bw > W || bh > H || bd > D || bw > MAX_EXTENT || bh > MAX_EXTENT ||
       bd > MAX_EXTENT || bw * bh * bd > MAX_ROWS)
     return false;
-  if (chunks > 1 && (!narrow_n || chunk_d != 0 ||
-                     (!dw && round_up(bw * bh * bd, 16) > 16u * WARPS * chunked_mw(N / 8))))
+  if (chunks > 1 && (!narrow_n || chunk_d != 0 || (dw && esize == 4) ||
+                     (!dw && esize == 2 && round_up(bw * bh * bd, 16) > 16u * WARPS * chunked_mw(N / 8))))
     return false;
   g.D = D; g.H = H; g.W = W; g.C = C;
   g.c_total = c_total;
@@ -1028,7 +1147,7 @@ inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw,
   g.stage_x = round_up(g.halo_bytes, ALIGN);
   g.stage_g = dw ? round_up(g.rows16 * esize * N, ALIGN) : 0;
   g.stage_w = !dw && chunks > 1 ? 8 * C * N * esize : 0;
-  g.split = !dw && esize == 4 && g.rows <= 2 * THREADS ? 2 : 1;
+  g.split = !dw && esize == 4 && chunks == 1 && g.rows <= 2 * THREADS ? 2 : 1;
   g.sums = esize != 4 ? 0 : dw ? 32 * C * N : g.split > 1 ? 4 * g.rows * N : 0;
   if (chunk_d != 0 && (dw || esize != 4 || g.split != 1 || chunk_d * bw * bh != THREADS || g.rows % THREADS != 0))
     return false;
@@ -1153,37 +1272,60 @@ inline int launch_fwd(const void* x, const void* w, void* y, int B, int D, int H
             : launch_fwd_bf16<false>(map_x, w, y, g, N, grid, smem, s);
 }
 
-template <int NT>
-int launch_chunked_fwd_nt(const CUtensorMap& map_x, const CUtensorMap& map_w, void* y, const Geom& g, int grid,
-                          size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(conv_k2_chunked_fwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// w [8, C, N] float32 as the TMA sees it, (n, c, tap) innermost first, in
+// boxes of a chunk's [8 taps][chunk c][N] (rows of 4N bytes, no swizzle: the
+// kernel reads them as broadcasts).
+inline int encode_chunk_w_f32_map(CUtensorMap* map, const void* w, int C, int N, int chunk) {
+  wg::EncodeTiledFn encode = wg::encode_tiled_fn();
+  if (!encode) return wg::NO_ENCODER;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(C), 8};
+  const cuuint64_t strides[2] = {4ull * N, 4ull * N * C};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(N), static_cast<cuuint32_t>(chunk), 8}, ones[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(w), dims, strides, box, ones,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : wg::ENCODE_FAILED + static_cast<int>(res);
+}
+
+template <typename T, typename Kernel>
+int launch_chunked_fwd_kernel(Kernel kernel, const CUtensorMap& map_x, const CUtensorMap& map_w, void* y,
+                              const Geom& g, int grid, size_t smem, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_k2_chunked_fwd_kernel<NT><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
-      map_x, map_w, static_cast<__nv_bfloat16*>(y), g);
+  kernel<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(map_x, map_w, static_cast<T*>(y), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The chunked bfloat16 forward (C a multiple of 64 above 64, N = 8, 16, 32) at
-// the box (bw, bh, bd) with `grid` blocks and two stages, w [2,2,2,C,N] as it
-// lies; `plan_smem` is the wrapper's dynamic shared memory, held to this
-// file's own.
+template <int NT>
+int launch_chunked_fwd_nt(const CUtensorMap& map_x, const CUtensorMap& map_w, void* y, const Geom& g, int esize,
+                          int grid, size_t smem, cudaStream_t s) {
+  if (esize == 4)
+    return launch_chunked_fwd_kernel<float>(conv_k2_chunked_fwd_f32_kernel<NT>, map_x, map_w, y, g, grid, smem, s);
+  return launch_chunked_fwd_kernel<__nv_bfloat16>(conv_k2_chunked_fwd_kernel<NT>, map_x, map_w, y, g, grid, smem, s);
+}
+
+// The chunked forward (N = 8, 16, 32) of bfloat16 (dtype 1: C a multiple of 64
+// above 64, chunks of 64) or float32 (dtype 0: C a multiple of 32 above 32,
+// chunks of 16) at the box (bw, bh, bd) with `grid` blocks and two stages, w
+// [2,2,2,C,N] as it lies; `plan_smem` is the wrapper's dynamic shared memory,
+// held to this file's own.
 inline int launch_chunked_fwd(const void* x, const void* w, void* y, int B, int D, int H, int W, int C, int N,
-                              int bw, int bh, int bd, int grid, int plan_smem, cudaStream_t s) {
+                              int bw, int bh, int bd, int grid, int plan_smem, int dtype, cudaStream_t s) {
+  const int esize = dtype == 0 ? 4 : 2;
   Geom g;
-  if (!make_geom(g, B, D, H, W, C, N, bw, bh, bd, false, 2, 2, 0) || g.chunks < 2 || grid < 1 ||
-      grid > g.boxes)
+  if ((dtype != 0 && dtype != 1) || !make_geom(g, B, D, H, W, C, N, bw, bh, bd, false, esize, 2, 0) ||
+      g.chunks < 2 || grid < 1 || grid > g.boxes)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(g, N, false);
   if (static_cast<size_t>(plan_smem) != smem) return wg::PLAN_MISMATCH;
   CUtensorMap map_x, map_w;
-  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, 2, g.C);
+  int rc = encode_box_map(&map_x, x, B, D, H, W, C, bw + 1, bh + 1, bd + 1, esize, g.C);
   if (rc) return rc;
-  rc = encode_chunk_w_map(&map_w, w, C, N);
+  rc = esize == 4 ? encode_chunk_w_f32_map(&map_w, w, C, N, g.C) : encode_chunk_w_map(&map_w, w, C, N);
   if (rc) return rc;
-  if (N == 8) return launch_chunked_fwd_nt<1>(map_x, map_w, y, g, grid, smem, s);
-  if (N == 16) return launch_chunked_fwd_nt<2>(map_x, map_w, y, g, grid, smem, s);
-  return launch_chunked_fwd_nt<4>(map_x, map_w, y, g, grid, smem, s);
+  if (N == 8) return launch_chunked_fwd_nt<1>(map_x, map_w, y, g, esize, grid, smem, s);
+  if (N == 16) return launch_chunked_fwd_nt<2>(map_x, map_w, y, g, esize, grid, smem, s);
+  return launch_chunked_fwd_nt<4>(map_x, map_w, y, g, esize, grid, smem, s);
 }
 
 template <typename Kernel>

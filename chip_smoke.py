@@ -252,7 +252,10 @@ order, any failure ending the run with a non-zero exit:
    and float32, against their plain versions (bf16 ``wgmma`` ones also
    against float64), timed by events and on the card alone beside cuDNN's
    k=2 call and their bound, each row with its route (512 -> 32 has no
-   tensor-core or narrow plan: the FFMA GEMM in all three passes); (b) full-
+   tensor-core plan: in bfloat16 its forward and dw walk C in chunks of 64
+   on the narrow kernels, its dx takes the chunked dx on the tensor cores; in
+   float32 its forward walks C in chunks of 16 on FFMA, dx and dw keep the
+   FFMA GEMM); (b) full-
    width ``modelnet_nolbo`` over a ("data", "model") mesh of 1 x 2 as two
    processes on this one card (``python3 chip_smoke.py --tp-rank <dir>``
    each, ``initialize(backend="gloo")`` on the card's tensors, the model
@@ -315,6 +318,7 @@ from anytime3d_tpu_torch.data.prefetch import to_device  # noqa: E402
 from anytime3d_tpu_torch.evaluation.protocols import missing_rate_sweep, pr_curve  # noqa: E402
 from anytime3d_tpu_torch.kernels import build  # noqa: E402
 from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
+    chunked_dx_plan,
     conv_k2,
     conv_k2_dw,
     conv_k2_dw_reference,
@@ -506,6 +510,7 @@ def reset_counts() -> None:
     conv_k2.launches_dw_wide = 0
     conv_k2.launches_ffma_split = conv_k2.launches_dx_ffma_split = conv_k2.launches_dw_persistent = 0
     conv_k2.launches_chunked = conv_k2.launches_dw_chunked = 0
+    conv_k2.launches_dx_chunked = conv_k2.launches_chunked_f32 = 0
 
 
 def read_counts() -> dict:
@@ -520,8 +525,10 @@ def read_counts() -> dict:
     their depth (each with the reduce of its partials), under
     ``conv_k2_dw_persistent`` the tensor-core dw launches on the persistent
     kernel, under ``conv_k2_chunked`` / ``conv_k2_dw_chunked`` the narrow
-    forward and dw launches whose plan walks C in chunks of 64 (the
-    tensor-parallel shard 512 -> 32)."""
+    forward and dw launches whose plan walks C in chunks (the tensor-parallel
+    shard 512 -> 32), under ``conv_k2_chunked_f32`` the float32 ones of those
+    forwards, under ``conv_k2_dx_chunked`` the dx launches on the chunked dx
+    (that shard's bfloat16 dx, also under ``conv_k2_dx_narrow``)."""
     return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
             "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dx_wgmma": conv_k2.launches_dx_wgmma,
             "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma, "conv_k2_narrow": conv_k2.launches_narrow,
@@ -531,13 +538,14 @@ def read_counts() -> dict:
             "conv_k2_dw_wide": conv_k2.launches_dw_wide, "conv_k2_ffma_split": conv_k2.launches_ffma_split,
             "conv_k2_dx_ffma_split": conv_k2.launches_dx_ffma_split,
             "conv_k2_dw_persistent": conv_k2.launches_dw_persistent, "conv_k2_chunked": conv_k2.launches_chunked,
-            "conv_k2_dw_chunked": conv_k2.launches_dw_chunked}
+            "conv_k2_dw_chunked": conv_k2.launches_dw_chunked, "conv_k2_dx_chunked": conv_k2.launches_dx_chunked,
+            "conv_k2_chunked_f32": conv_k2.launches_chunked_f32}
 
 
 def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
                   narrow: tuple[int, int, int] = (0, 0, 0), split: tuple[int, int] = (0, 0),
                   wide: int = 0, ffma_split: tuple[int, int] = (0, 0), persistent: int = 0,
-                  chunked: tuple[int, int] = (0, 0)) -> dict:
+                  chunked: tuple[int, int, int] = (0, 0, 0)) -> dict:
     """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
     all of them on the tensor-core kernels or none of them, ``narrow``'s
     forward / dx / dw launches of them on the narrow kernels, ``wide`` of the
@@ -546,8 +554,9 @@ def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
     ``ffma_split``'s forward / dx launches of the float32 FFMA ones that do
     (only the mid_blocked stages at 4^3 and 8^3 split), ``persistent`` of
     the tensor-core dw's on the persistent kernel (the mid_blocked stages),
-    and ``chunked``'s forward / dw launches of the narrow ones whose plan walks
-    C in chunks."""
+    and ``chunked``'s forward / dx / dw launches of the narrow ones whose
+    plan walks C in chunks (dx: the chunked dx; all in bfloat16: the float32
+    ones run in phase 19 alone, which holds its counts to ``tp_expected``)."""
     counts = read_counts()
     want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
             "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dx_wgmma": dx if tensor_cores else 0,
@@ -555,7 +564,8 @@ def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
             "conv_k2_dx_narrow": narrow[1], "conv_k2_dw_narrow": narrow[2], "conv_k2_split": split[0],
             "conv_k2_dx_split": split[1], "conv_k2_split_reduce": split[0] + split[1], "conv_k2_dw_wide": wide,
             "conv_k2_ffma_split": ffma_split[0], "conv_k2_dx_ffma_split": ffma_split[1],
-            "conv_k2_dw_persistent": persistent, "conv_k2_chunked": chunked[0], "conv_k2_dw_chunked": chunked[1]}
+            "conv_k2_dw_persistent": persistent, "conv_k2_chunked": chunked[0], "conv_k2_dx_chunked": chunked[1],
+            "conv_k2_dw_chunked": chunked[2], "conv_k2_chunked_f32": 0}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     return counts
@@ -623,11 +633,13 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
     """Launch ``run`` once, hold it against ``plain`` with the tolerance of its
     design and dtype, and hold the design the launch took to ``want`` ("wgmma",
     "persistent" (the tensor-core dw on persistent blocks), "narrow",
-    "chunked" (the narrow forward or dw that walks C in chunks of 64),
+    "chunked" (the narrow forward or dw that walks C in chunks, or the
+    chunked dx),
     "ffma_split" (the float32 FFMA forward or dx with its depth split) or
     "ffma"). With ``exact`` (a float64 product) the tensor-core and narrow
-    kernels and their plain versions are also held against it; dw must give
-    the same bits twice."""
+    kernels and their plain versions are also held against it; dw and the
+    chunked kernels must give the same bits twice (a chunked dx that freed a
+    halo stage too early gave other bits at most launches)."""
     designs = ("persistent", "ffma_split", "wgmma", "chunked", "narrow")
 
     def launched(design: str) -> int:
@@ -663,11 +675,11 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
                  f"plain {err_p:.3e} ({err_p / top64:.2e} rel), tol {tol64:.3e}")
         if not (err_k <= tol64 and err_p <= tol64):
             raise AssertionError(f"{line}: off the float64 product")
-    if kernel == "conv_k2_dw":
+    if kernel == "conv_k2_dw" or design == "chunked":
         same = bool(torch.equal(out, run()))
         line += f"; same bits twice: {same}"
         if not same:
-            raise AssertionError(f"{line}: dw differs between two calls")
+            raise AssertionError(f"{line}: {kernel} differs between two calls")
     print(line, flush=True)
     return {"design": design, "max_abs_err": err}
 
@@ -793,8 +805,12 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     4^3 2048 -> 512 at B=8). ``launches_ffma_split`` on the forward and dx and
     ``launches_persistent`` on dw count those launches of each;
     ``launches_chunked`` on the forward and dw the narrow launches whose plan
-    walks C in chunks of 64 (the tensor-parallel shard 512 -> 32 in bf16,
-    part of ``launches_narrow``)."""
+    walks C in chunks (the tensor-parallel shard 512 -> 32, part of
+    ``launches_narrow``), on dx its launches on the chunked dx. And two
+    more: ``conv_k2_dx_chunked``, the chunked dx on the tensor cores
+    (headline: that shard's bf16 dx at B=32), and ``conv_k2_chunked_f32``,
+    the float32 forward that walks C in chunks of 16 (headline: that shard's
+    f32 forward at B=32)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
              variant_counts, stream_counts, real_counts, mapping_counts, mid_counts, tp_counts)
     names = ("serve", "train", "anytime", "lifecycle", "artifact", "image", "detector", "variants", "pretrain_stream",
@@ -806,14 +822,20 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
                 "conv_k2_split_reduce": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dw_wide": "anytime3d_tpu/kernels/conv_k2.py:184",
                 "conv_k2_ffma_split": "anytime3d_tpu/kernels/conv_k2.py:156",
-                "conv_k2_dw_persistent": "anytime3d_tpu/kernels/conv_k2.py:184"}
+                "conv_k2_dw_persistent": "anytime3d_tpu/kernels/conv_k2.py:184",
+                "conv_k2_dx_chunked": "anytime3d_tpu/kernels/conv_k2.py:178",
+                "conv_k2_chunked_f32": "anytime3d_tpu/kernels/conv_k2.py:156"}
     # the case of the headline numbers: the shapes its main path gives each kernel
     heads = {"conv_k2": "b8_f32", "conv_k2_dx": "b32_bf16", "conv_k2_dw": "b32_bf16",
              "conv_k2_split_reduce": "mid_b8_bf16_4cubed 4^3 2048->512", "conv_k2_dw_wide": "stem_b32_bf16",
              "conv_k2_ffma_split": "conv_k2 mid_b8_f32_4cubed 4^3 2048->512",
-             "conv_k2_dw_persistent": "mid_b8_bf16_4cubed 4^3 2048->512"}
+             "conv_k2_dw_persistent": "mid_b8_bf16_4cubed 4^3 2048->512",
+             "conv_k2_dx_chunked": f"tp_b32_bf16 {GRID}^3 512->32",
+             "conv_k2_chunked_f32": f"tp_b32_f32 {GRID}^3 512->32"}
     sources = {"conv_k2_dw_wide": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
-               "conv_k2_dw_persistent": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh"}
+               "conv_k2_dw_persistent": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
+               "conv_k2_dx_chunked": "anytime3d_tpu_torch/kernels/csrc/conv_k2_chunked_dx.cuh",
+               "conv_k2_chunked_f32": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh"}
     # the counters of an entry's launches: its own, but the split FFMA's are its forward's and its dx's
     counted = {"conv_k2_ffma_split": ("conv_k2_ffma_split", "conv_k2_dx_ffma_split")}
     entries = []
@@ -839,7 +861,7 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
             entry["launches_ffma_split"] = sum(c[f"{kernel}_ffma_split"] for c in paths)
         if kernel == "conv_k2_dw":  # the tensor-core dw launches on persistent blocks
             entry["launches_persistent"] = sum(c["conv_k2_dw_persistent"] for c in paths)
-        if kernel in ("conv_k2", "conv_k2_dw"):  # the narrow launches that walk C in chunks
+        if kernel in ("conv_k2", "conv_k2_dx", "conv_k2_dw"):  # the launches that walk in chunks
             entry["launches_chunked"] = sum(c[f"{kernel}_chunked"] for c in paths)
         entries.append(entry)
     return entries
@@ -4302,27 +4324,35 @@ def tp_expected(batch: int, dtype: torch.dtype, model: int) -> dict:
     (the first stage's input is data), 4 dw, on the routes the plans give
     their shapes: in bf16 the tensor-core ones, but 512 -> 32 at a model axis
     of 2, whose forward and dw walk C in chunks (the narrow kernels) and whose
-    dx (the forward from 32 to 512) has no plan."""
+    dx (the forward from 32 to 512, which neither plan of that forward takes)
+    is the chunked dx; in f32 the FFMA ones, but that shard's forward, which
+    walks C in chunks of 16 (its dx and dw keep FFMA)."""
     want = dict.fromkeys(read_counts(), 0)
+    bf16 = dtype == torch.bfloat16
     for stage, (C, N) in enumerate(FLAGSHIP_K2):
         n = N // model
-        bf16 = dtype == torch.bfloat16
         fwd, dx = (wgmma_plan(batch, GRID, GRID, GRID, C, n) if bf16 else None,
                    wgmma_plan(batch, GRID, GRID, GRID, n, C) if bf16 else None)
         narrow = narrow_plan(batch, GRID, GRID, GRID, C, n, dtype=dtype)
         assert narrow is None or narrow.c_chunks > 1  # only the walk in chunks: no other narrow shard
         assert narrow_plan(batch, GRID, GRID, GRID, n, C, dtype=dtype) is None
-        chunked = narrow is not None
+        chunked, chunked_dw = narrow is not None, narrow is not None and narrow.dw_box is not None
+        chunked_dx = bf16 and dx is None and chunked_dx_plan(batch, GRID, GRID, GRID, C, n) is not None
         want["conv_k2"] += 1
         want["conv_k2_dw"] += 1
         want["conv_k2_wgmma"] += fwd is not None
         want["conv_k2_dw_wgmma"] += fwd is not None
         want["conv_k2_dw_persistent"] += fwd is not None and fwd.dw_persistent is not None
-        for kernel in ("conv_k2_narrow", "conv_k2_dw_narrow", "conv_k2_chunked", "conv_k2_dw_chunked"):
-            want[kernel] += chunked
+        want["conv_k2_narrow"] += chunked
+        want["conv_k2_chunked"] += chunked
+        want["conv_k2_chunked_f32"] += chunked and not bf16
+        want["conv_k2_dw_narrow"] += chunked_dw
+        want["conv_k2_dw_chunked"] += chunked_dw
         if stage:
             want["conv_k2_dx"] += 1
             want["conv_k2_dx_wgmma"] += dx is not None
+            want["conv_k2_dx_narrow"] += chunked_dx
+            want["conv_k2_dx_chunked"] += chunked_dx
     return want
 
 
@@ -4475,7 +4505,7 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
 
     # (a) forward, dx and dw at the shard shapes, in both types, on the routes their plans give them
     gen = torch.Generator().manual_seed(SEED + 29)
-    rows = {"conv_k2": {}, "conv_k2_dx": {}, "conv_k2_dw": {}}
+    rows = {"conv_k2": {}, "conv_k2_dx": {}, "conv_k2_dw": {}, "conv_k2_dx_chunked": {}, "conv_k2_chunked_f32": {}}
     with torch.inference_mode():
         for case, batch, dtype in TP_CASES:
             for C, n in TP_K2:
@@ -4486,10 +4516,15 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
                     bf16 = dtype == torch.bfloat16
                     plan = wgmma_plan(batch, GRID, GRID, GRID, cin, cout) if bf16 else None
                     narrow = narrow_plan(batch, GRID, GRID, GRID, cin, cout, dtype=dtype)
-                    # 512 -> 32 in bf16: the forward and dw walk C in chunks; dx (32 -> 512) has no plan
+                    if kernel == "conv_k2_dx":  # the forward from n to C has no narrow plan here
+                        narrow = chunked_dx_plan(batch, GRID, GRID, GRID, C, n) if bf16 else None
+                    elif kernel == "conv_k2_dw" and narrow is not None and narrow.dw_box is None:
+                        narrow = None  # the f32 walk in chunks is the forward's alone
+                    # 512 -> 32: in bf16 the forward and dw walk C in chunks, dx takes the chunked dx; in f32 the
+                    # forward walks C in chunks of 16, dx and dw keep FFMA
                     want = "wgmma" if plan is not None else "chunked" if narrow is not None else "ffma"
-                    assert (want == "chunked") == (bf16 and n == 32 and kernel != "conv_k2_dx")
-                    assert (want == "ffma") == (not bf16 or (n == 32 and kernel == "conv_k2_dx"))
+                    assert (want == "chunked") == (n == 32 and (bf16 or kernel == "conv_k2"))
+                    assert (want == "ffma") == (not bf16 and (n != 32 or kernel != "conv_k2"))
                     label = f"{case} {GRID}^3 {C}->{n}"
                     checked = check_kernel(kernel, label, run, plain, exact.get(kernel), want)
                     p1, t1, t2, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
@@ -4500,6 +4535,9 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
                            "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": checked["design"],
                            "device_ms": (a1 + a2) / 2, "library_device_ms": (l1 + l2) / 2}
                     rows[kernel][label] = row
+                    if checked["design"] == "chunked" and (kernel == "conv_k2_dx" or not bf16):
+                        # the kernels of this shard's own entries: the chunked dx, the float32 chunked forward
+                        rows["conv_k2_dx_chunked" if bf16 else "conv_k2_chunked_f32"][label] = row
                     print(f"{kernel} TP shard {label} [{checked['design']}]: kernel {ms:.4f} ms plain "
                           f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); on "
                           f"the card alone kernel {row['device_ms']:.4f} ms ({a1:.4f}, {a2:.4f}) library "
@@ -4508,14 +4546,14 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
                           f"{row['device_ms'] / row['library_device_ms']:.2f}) [{card}]", flush=True)
                 del x, w, g, exact
     torch.cuda.empty_cache()
-    for case in (c for c, _, dtype in TP_CASES if dtype == torch.bfloat16):  # K8: the shard that walks C in chunks
+    for case, _, _ in TP_CASES:  # K8, K8b, K3: the shard that walks C in chunks
         parts = []
         for kernel in ("conv_k2", "conv_k2_dw", "conv_k2_dx"):
             r = rows[kernel][f"{case} {GRID}^3 512->32"]
             parts.append(f"{kernel} [{r['design']}] alone {r['device_ms']:.4f} ms against cuDNN's call alone "
                          f"{r['library_device_ms']:.4f} ms ({r['device_ms'] / r['library_device_ms']:.2f}x), bound "
-                         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-        print(f"TP shard {case} {GRID}^3 512->32 (K8): " + "; ".join(parts) + f" [{card}]", flush=True)
+                         f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_ms'] / r['device_ms']:.1%} of it)")
+        print(f"TP shard {case} {GRID}^3 512->32 (K8, K8b, K3): " + "; ".join(parts) + f" [{card}]", flush=True)
 
     # (b) the flagship at full width: the placements, the 1-rank references here, then two model ranks
     cfg = REGISTRY["modelnet_nolbo"]()
@@ -4603,9 +4641,10 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
               f"{r['bf16_counts']['conv_k2_wgmma'] // (TP_WARMUP + TP_STEPS)} / "
               f"{r['bf16_counts']['conv_k2_dx_wgmma'] // (TP_WARMUP + TP_STEPS)} / "
               f"{r['bf16_counts']['conv_k2_dw_wgmma'] // (TP_WARMUP + TP_STEPS)}, chunked "
-              f"{r['bf16_counts']['conv_k2_chunked'] // (TP_WARMUP + TP_STEPS)} / 0 / "
-              f"{r['bf16_counts']['conv_k2_dw_chunked'] // (TP_WARMUP + TP_STEPS)} (the 512->32 shard; its dx "
-              f"on FFMA) [{card}]", flush=True)
+              f"{r['bf16_counts']['conv_k2_chunked'] // (TP_WARMUP + TP_STEPS)} / "
+              f"{r['bf16_counts']['conv_k2_dx_chunked'] // (TP_WARMUP + TP_STEPS)} / "
+              f"{r['bf16_counts']['conv_k2_dw_chunked'] // (TP_WARMUP + TP_STEPS)} (the 512->32 shard) [{card}]",
+              flush=True)
     print(f"the 1-rank bf16 step beside them, B={TRAIN_BATCH}: device ms median {np.median(one_ms[TP_WARMUP:]):.2f}, "
           f"host wall median {np.median(one_host[TP_WARMUP:]):.2f} ms, peak memory {one_peak:.2f} GiB, 4 / 3 / 4 "
           f"on wgmma. Both model ranks shared this one card's SMs and gloo staged every collective through host "
@@ -4650,7 +4689,7 @@ def main() -> None:
         kernels.setdefault(kernel, {}).update(cases)
     tp_counts, tp_rows = phase_tensor_parallel(device, card)
     for kernel, cases in tp_rows.items():
-        kernels[kernel].update(cases)
+        kernels.setdefault(kernel, {}).update(cases)
     entries = kernel_entries(kernels, serve_counts, train_counts, anytime_counts, life_counts, artifact_counts,
                              image_counts, detector_counts, variant_counts, stream_counts, real_counts, mapping_counts,
                              mid_counts, tp_counts)

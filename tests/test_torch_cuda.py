@@ -28,10 +28,13 @@ from anytime3d_tpu_torch.data.prefetch import DevicePrefetcher
 from anytime3d_tpu_torch.kernels import build
 from anytime3d_tpu_torch.kernels import conv_k2 as k2
 from anytime3d_tpu_torch.kernels.conv_k2 import (
+    chunked_dx_plan,
     conv_k2,
     conv_k2_backward_reference,
     conv_k2_dw,
     conv_k2_dw_reference,
+    conv_k2_dx,
+    conv_k2_dx_reference,
     conv_k2_reference,
     ffma_dw_split,
     narrow_dw_plan,
@@ -742,7 +745,7 @@ def test_small_bf16_slice_on_card_takes_tensor_cores(cuda):
     assert float((z - ref["z_mean"]).abs().max()) <= 0.05 * max(1.0, float(ref["z_mean"].abs().max()))
 
 
-@pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 64, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64)),
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (1, 3, 4, 5, 48, 16)), (torch.bfloat16, (1, 8, 8, 8, 64, 64)),
                                          (torch.bfloat16, (2, 8, 8, 8, 32, 8)), (torch.float32, (1, 3, 4, 5, 8, 16)),
                                          (torch.bfloat16, (4, 4, 4, 4, 64, 64)),
                                          (torch.bfloat16, (2, 4, 4, 4, 256, 256)),
@@ -754,7 +757,8 @@ def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     """The three ops on CUDA tensors: schema, autograd registration (the
     forward's backward calls the dx and dw ops), the fake implementation
     against the kernel's output, and an AOT-autograd trace; in float32 at
-    C = 64, which has no narrow plan (all FFMA); in bfloat16 at a shape with
+    C = 48, which has no narrow plan (rows past 128 bytes that are not whole
+    chunks of 32: all FFMA); in bfloat16 at a shape with
     a plan (8^3, and 4^3, whose boxes span two items), so the tensor-core
     kernels answer; at 32 -> 8, where the narrow
     forward, dx (8 -> 32) and dw do; in float32 at 8 -> 16, where the
@@ -763,8 +767,8 @@ def test_ops_pass_opcheck_on_the_card(cuda, op, dtype, shape):
     whose dw is the persistent kernel); and in float32 at 4^3, 512 -> 64, B=2,
     whose FFMA forward splits its depth in 16 and dx in 2."""
     *grid, C, N = shape
-    assert (narrow_plan(*grid, C, N, dtype=dtype) is None) == (shape[4] >= 64)
-    assert (narrow_plan(*grid, N, C, dtype=dtype) is None) == (shape[4] >= 64)
+    assert (narrow_plan(*grid, C, N, dtype=dtype) is None) == (shape[4] > 32)
+    assert (narrow_plan(*grid, N, C, dtype=dtype) is None) == (shape[4] > 32)
     if C == 256:
         assert wgmma_plan(*grid, C, N).splits == wgmma_plan(*grid, N, C).splits == 2
         assert wgmma_plan(*grid, C, N).dw_persistent is not None
@@ -986,16 +990,18 @@ def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
     """Forward, dx and dw at N = 8 against their plain versions: in bfloat16
     the forward and dw on the narrow kernels, and dx where its forward from 8
     to C channels has a narrow plan (C = 8, 32; C = 64 stays FFMA); in float32
-    all three on the narrow kernels where C <= 32 (at C = 64 all FFMA). The
-    counters of the narrow kernels move as that says, no tensor-core one
-    does; dw gives the same bits twice. Tolerances as
-    ``test_kernel_matches_plain`` and ``test_backward_kernels_match_plain``."""
+    all three on the narrow kernels where C <= 32 (at C = 64 the forward
+    walks C in chunks of 16, dx and dw stay FFMA). The counters of the narrow
+    kernels move as that says, no tensor-core one does; dw gives the same
+    bits twice. Tolerances as ``test_kernel_matches_plain`` and
+    ``test_backward_kernels_match_plain``."""
     assert wgmma_plan(B, G, G, G, C, 8) is None
     bf16 = dtype == torch.bfloat16
     assert narrow_plan(B, G, G, G, C, 8) is not None
-    narrow_fwd = narrow_plan(B, G, G, G, C, 8, dtype=dtype) is not None
+    plan = narrow_plan(B, G, G, G, C, 8, dtype=dtype)
+    narrow_fwd, narrow_dw = plan is not None, plan is not None and plan.dw_box is not None
     narrow_dx = narrow_plan(B, G, G, G, 8, C, dtype=dtype) is not None
-    assert narrow_fwd == (bf16 or C <= 32) and narrow_dx == (C <= 32)
+    assert narrow_fwd and narrow_dw == (bf16 or C <= 32) and narrow_dx == (C <= 32)
     gen = torch.Generator().manual_seed(9)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, 8, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
@@ -1007,7 +1013,7 @@ def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
         y_ref, dx_ref, dw_ref = conv_k2_reference(x, w), k2.conv_k2_dx_reference(g, w), conv_k2_dw_reference(x, g)
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 2) and _wgmma_counts() == before_wg
-    assert _narrow_counts() == (before_nr[0] + narrow_fwd, before_nr[1] + narrow_dx, before_nr[2] + 2 * narrow_fwd)
+    assert _narrow_counts() == (before_nr[0] + narrow_fwd, before_nr[1] + narrow_dx, before_nr[2] + 2 * narrow_dw)
     assert torch.equal(dw, again)
     for out, ref in ((y, y_ref), (dx, dx_ref)):
         assert out.shape == ref.shape and out.dtype == dtype
@@ -1434,7 +1440,9 @@ TP_SHARDS = [(64, 256), (512, 64), (128, 256), (512, 32)]
 
 
 def _chunked_counts():
-    return conv_k2.launches_chunked, conv_k2.launches_dw_chunked
+    """The launches whose plan walks in chunks: the forward, dx (the chunked dx), dw, and the float32 forward."""
+    return (conv_k2.launches_chunked, conv_k2.launches_dx_chunked, conv_k2.launches_dw_chunked,
+            conv_k2.launches_chunked_f32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1444,15 +1452,18 @@ def test_tp_shard_kernels_match_plain(cuda, C, N, dtype):
     at 16^3, through autograd against the plain versions: in bfloat16 on the
     tensor cores, but 512 -> 32 (N = 32 has no wgmma plan): its forward and dw
     on the chunked narrow kernels (C in 8 chunks of 64), its dx (the forward
-    from 32 to 512, no plan) on the FFMA GEMM; in float32 all on the FFMA
-    GEMM."""
+    from 32 to 512, which no plan of that forward takes) on the chunked dx; in
+    float32 all on the FFMA GEMM, but 512 -> 32's forward on the chunked
+    float32 kernel (C in 32 chunks of 16)."""
     B, G = 8, 16
-    planned = dtype == torch.bfloat16 and N % 64 == 0
-    chunked = dtype == torch.bfloat16 and N == 32
+    bf16 = dtype == torch.bfloat16
+    planned = bf16 and N % 64 == 0
+    chunked = N == 32  # the forward in both types; dx and dw in bfloat16
     assert (wgmma_plan(B, G, G, G, C, N) is not None) == (N % 64 == 0)
     plan = narrow_plan(B, G, G, G, C, N, dtype=dtype)
-    assert (plan is not None) == chunked and (plan is None or plan.c_chunks == C // 64)
+    assert (plan is not None) == chunked and (plan is None or plan.c_chunks == C // (64 if bf16 else 16))
     assert narrow_plan(B, G, G, G, N, C, dtype=dtype) is None
+    assert (chunked_dx_plan(B, G, G, G, C, N) is not None) == chunked
     gen = torch.Generator().manual_seed(5)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype).requires_grad_()
     w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
@@ -1462,8 +1473,10 @@ def test_tp_shard_kernels_match_plain(cuda, C, N, dtype):
     y.backward(g)
     assert _counts() == tuple(n + 1 for n in before)
     assert _wgmma_counts() == tuple(n + planned for n in before_wg)
-    assert _narrow_counts() == (before_nr[0] + chunked, before_nr[1], before_nr[2] + chunked)
-    assert _chunked_counts() == tuple(n + chunked for n in before_ch)
+    both = chunked and bf16
+    assert _narrow_counts() == (before_nr[0] + chunked, before_nr[1] + both, before_nr[2] + both)
+    assert _chunked_counts() == (before_ch[0] + chunked, before_ch[1] + both, before_ch[2] + both,
+                                 before_ch[3] + (chunked and not bf16))
     with torch.no_grad():
         y_ref = conv_k2_reference(x, w)
         dx_ref, dw_ref = conv_k2_backward_reference(x, w, g)
@@ -1480,41 +1493,47 @@ def test_tp_shard_kernels_match_plain(cuda, C, N, dtype):
     assert w.grad.dtype == torch.float32 and float((w.grad - dw_ref).abs().max()) <= tol_dw
 
 
-def _opcheck_ops(cuda, shape, C, N, seed):
-    """The op and its arguments for ``torch.library.opcheck`` of each of the three ops on seeded bfloat16
-    operands of ``shape`` + (C,) and + (N,), w an f32 parameter: {op: (op, args)}."""
+def _opcheck_ops(cuda, shape, C, N, seed, dtype=torch.bfloat16):
+    """The op and its arguments for ``torch.library.opcheck`` of each of the three ops on seeded operands of
+    ``dtype`` and ``shape`` + (C,) and + (N,), w an f32 parameter: {op: (op, args)}."""
     gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(*shape, C, generator=gen).to(cuda, torch.bfloat16)
+    x = torch.randn(*shape, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, N, generator=gen) * 0.05).to(cuda)
-    g = torch.randn(*shape, N, generator=gen).to(cuda, torch.bfloat16)
+    g = torch.randn(*shape, N, generator=gen).to(cuda, dtype)
     return {"conv_k2": (k2._conv_k2_op, (x.requires_grad_(), w.requires_grad_())),
             "conv_k2_dx": (k2._conv_k2_dx_op, (g, w.detach())),
             "conv_k2_dw": (k2._conv_k2_dw_op, (x.detach(), g))}
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
-def test_tp_shard_without_a_plan_passes_opcheck(cuda, op):
-    """The three ops at the 512 -> 32 shard (bfloat16, B=2 at 16^3), which no
-    tensor-core plan takes: the forward and dw on the chunked narrow plan
-    (their chunked counters move, no tensor-core one), dx (the forward from 32
-    to 512) without any plan, on the FFMA GEMM (no narrow counter moves)."""
+def test_tp_shard_without_a_plan_passes_opcheck(cuda, op, dtype):
+    """The three ops at the 512 -> 32 shard (B=2 at 16^3), which no
+    tensor-core plan takes. In bfloat16 the forward and dw on the chunked
+    narrow plan, dx (the forward from 32 to 512, which no plan of that forward
+    takes) on the chunked dx: each one's narrow and chunked counters move, no
+    tensor-core one. In float32 the forward on the chunked float32 plan (its
+    narrow, chunked and float32 chunked counters move), dx and dw on the FFMA
+    GEMM (none of them moves)."""
     shape = (2, 16, 16, 16)
     assert wgmma_plan(*shape, 512, 32) is None and wgmma_plan(*shape, 32, 512) is None
     assert narrow_plan(*shape, 512, 32).c_chunks == 8 and narrow_plan(*shape, 32, 512) is None
-    fn, args = _opcheck_ops(cuda, shape, 512, 32, 6)[op]
+    assert narrow_plan(*shape, 512, 32, dtype=torch.float32).c_chunks == 32 and chunked_dx_plan(*shape, 512, 32)
+    fn, args = _opcheck_ops(cuda, shape, 512, 32, 6, dtype)[op]
     before, before_wg, before_nr, before_ch = _counts(), _wgmma_counts(), _narrow_counts(), _chunked_counts()
     results = torch.library.opcheck(fn, args)
     assert set(results.values()) == {"SUCCESS"}, results
     assert _wgmma_counts() == before_wg and _counts() != before
-    moved_nr = [a - b for a, b in zip(_narrow_counts(), before_nr)]
-    moved_ch = [a - b for a, b in zip(_chunked_counts(), before_ch)]
-    # the forward's opcheck also runs its backward: dx, and dw on the chunked kernel
-    if op == "conv_k2":
-        assert moved_ch[0] > 0 and moved_nr[:2] == [moved_ch[0], 0] and moved_nr[2] == moved_ch[1]
-    elif op == "conv_k2_dx":
-        assert moved_nr == [0, 0, 0] and moved_ch == [0, 0]
+    nr = [a - b for a, b in zip(_narrow_counts(), before_nr)]
+    ch = [a - b for a, b in zip(_chunked_counts(), before_ch)]
+    # the forward's opcheck also runs its backward: dx and dw, on their routes
+    if dtype == torch.float32:
+        assert ch[1:3] == [0, 0] and nr[1:] == [0, 0] and nr[0] == ch[0] == ch[3] and (ch[0] > 0) == (op == "conv_k2")
+    elif op == "conv_k2":
+        assert min(ch[:3]) > 0 and nr == ch[:3] and ch[3] == 0
     else:
-        assert moved_ch[0] == 0 and moved_ch[1] > 0 and moved_nr == [0, 0, moved_ch[1]]
+        k = 1 if op == "conv_k2_dx" else 2
+        assert ch[k] > 0 and nr[k] == ch[k] and sum(nr) + sum(ch) == 2 * ch[k]
 
 
 @pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dx", "conv_k2_dw"])
@@ -1535,44 +1554,89 @@ def test_unplanned_bf16_shape_passes_opcheck(cuda, op):
     assert _narrow_counts() == before_nr and _chunked_counts() == before_ch
 
 
-# (B, D, H, W, C) of the chunked route (bfloat16, C a multiple of 64 above 64): two and eight chunks, ragged
-# boxes along every axis (5x6x7: one whole-grid box; 9x10x40: boxes cut at each edge), and the shard's 16^3
-CHUNKED_GRIDS = [(3, 5, 6, 7, 128), (2, 9, 10, 40, 512), (2, 16, 16, 16, 128), (4, 16, 16, 16, 512)]
+def test_chunked_dx_gives_the_same_bits_at_the_tp_shard(cuda):
+    """The chunked dx at the shard's own shape (B=32, 16^3, 512 -> 32, bf16),
+    20 launches through the op: each the same bits as the first, and the
+    first within 2^-7 of the largest entry of the plain version (each side
+    rounds an f32 sum once to bf16). A halo stage handed back to the producer
+    before the products had read its rows gave wrong rows in most launches
+    at this shape, and in none of the smaller ones."""
+    B, G, C, N = 32, 16, 512, 32
+    assert chunked_dx_plan(B, G, G, G, C, N) is not None
+    gen = torch.Generator().manual_seed(29)
+    g = torch.randn(B, G, G, G, N, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        first = conv_k2_dx(g, w)
+        differ = sum(not torch.equal(conv_k2_dx(g, w), first) for _ in range(19))
+        ref = conv_k2_dx_reference(g, w)
+    assert differ == 0
+    assert float((first.float() - ref.float()).abs().max()) <= 2.0**-7 * float(ref.float().abs().max())
 
 
+# (B, D, H, W, C) of the chunked routes (bfloat16, C a multiple of 64 above 64; float32, of 32 above 32): two,
+# three and eight chunks of 64 (8, 12 and 32 of 16), ragged boxes along every axis (5x6x7: one whole-grid box;
+# 9x10x40: boxes cut at each edge), and the shard's 16^3; C = 192, dx's column chunks of 64
+CHUNKED_GRIDS = [(3, 5, 6, 7, 128), (2, 9, 10, 40, 512), (2, 16, 16, 16, 128), (4, 16, 16, 16, 512),
+                 (2, 8, 8, 8, 192)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("N", [8, 16, 32])
 @pytest.mark.parametrize("B,D,H,W,C", CHUNKED_GRIDS)
-def test_chunked_kernels_match_plain_and_float64(cuda, B, D, H, W, C, N):
-    """The chunked forward and dw, called as the ops (their narrow and chunked
-    counters move, no tensor-core one; dw on two stages or three, as its plan
-    finds room: both among these shapes): the forward against its plain
-    version (2^-7 of the largest output) and against the float64 product (an
-    f32 sum rounded once to bf16, half an ulp of the largest entry, plus the
-    sum's own error); dw against its plain version (f32 sums in another
-    order, 1e-5 of the largest entry) and against the float64 sum
-    (DW_TOL_F64_REL), the same bits from two calls."""
+def test_chunked_kernels_match_plain_and_float64(cuda, B, D, H, W, C, N, dtype):
+    """The chunked kernels, called as the ops (their narrow and chunked
+    counters move, no tensor-core one). bfloat16: the forward, dx (the
+    chunked dx on the tensor cores) and dw (on two stages or three, as its
+    plan finds room: both among these shapes); the forward and dx against
+    their plain versions (2^-7 of the largest output: each side rounds an f32
+    sum once to bf16) and against the float64 product (half an ulp of the
+    largest entry, plus the sum's own error); dw against its plain version
+    (f32 sums in another order, 1e-5 of the largest entry) and against the
+    float64 sum (DW_TOL_F64_REL), the same bits from two calls. float32: the
+    forward alone walks C in chunks (exact FFMA): against its plain version
+    (true f32, summation order only: 1e-4, as ``test_kernel_matches_plain``)
+    and both against the float64 product (f32 sums of 8C products: 1e-5 of
+    the largest entry for 256 of them, times the square root of 8C / 256)."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plan = narrow_plan(B, D, H, W, C, N, sms=sms)
-    assert plan is not None and plan.c_chunks == C // 64 and wgmma_plan(B, D, H, W, C, N) is None
+    bf16 = dtype == torch.bfloat16
+    plan = narrow_plan(B, D, H, W, C, N, sms=sms, dtype=dtype)
+    assert plan is not None and plan.c_chunks == C // (64 if bf16 else 16) and wgmma_plan(B, D, H, W, C, N) is None
+    assert (plan.dw_box is None) == (not bf16) and chunked_dx_plan(B, D, H, W, C, N, sms=sms) is not None
     gen = torch.Generator().manual_seed(23)
-    x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, torch.bfloat16)
-    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, torch.bfloat16)
-    g = torch.randn(B, D, H, W, N, generator=gen).to(cuda, torch.bfloat16)
+    x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, dtype)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
+    g = torch.randn(B, D, H, W, N, generator=gen).to(cuda, dtype)
     before, before_wg, before_nr, before_ch = _counts(), _wgmma_counts(), _narrow_counts(), _chunked_counts()
+    if not bf16:
+        with torch.inference_mode():
+            y = conv_k2(x, w)
+            assert _counts() == (before[0] + 1, before[1], before[2]) and _wgmma_counts() == before_wg
+            assert _narrow_counts() == (before_nr[0] + 1, before_nr[1], before_nr[2])
+            assert _chunked_counts() == (before_ch[0] + 1, before_ch[1], before_ch[2], before_ch[3] + 1)
+            y_ref, y64 = conv_k2_reference(x, w), _float64_forward(x, w)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.float32 and y.shape == (B, D, H, W, N)
+        assert float((y - y_ref).abs().max()) <= 1e-4
+        tol_y64 = 1e-5 * (8 * C / 256) ** 0.5 * float(y64.abs().max())
+        for out in (y, y_ref):
+            assert float((out.double() - y64).abs().max()) <= tol_y64
+        return
     with torch.inference_mode():
-        y, dw, again = conv_k2(x, w), conv_k2_dw(x, g), conv_k2_dw(x, g)
-        assert _counts() == (before[0] + 1, before[1], before[2] + 2) and _wgmma_counts() == before_wg
-        assert _narrow_counts() == (before_nr[0] + 1, before_nr[1], before_nr[2] + 2)
-        assert _chunked_counts() == (before_ch[0] + 1, before_ch[1] + 2)
-        y_ref, dw_ref = conv_k2_reference(x, w), conv_k2_dw_reference(x, g)
-        y64, dw64 = _float64_forward(x, w), _dw_float64(x, g)
+        y, dx, dw, again = conv_k2(x, w), conv_k2_dx(g, w), conv_k2_dw(x, g), conv_k2_dw(x, g)
+        assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 2) and _wgmma_counts() == before_wg
+        assert _narrow_counts() == (before_nr[0] + 1, before_nr[1] + 1, before_nr[2] + 2)
+        assert _chunked_counts() == (before_ch[0] + 1, before_ch[1] + 1, before_ch[2] + 2, before_ch[3])
+        y_ref, dx_ref, dw_ref = conv_k2_reference(x, w), conv_k2_dx_reference(g, w), conv_k2_dw_reference(x, g)
+        y64, dx64, dw64 = _float64_forward(x, w), _dx_float64(g, w), _dw_float64(x, g)
     torch.cuda.synchronize()
-    assert y.dtype == torch.bfloat16 and y.shape == (B, D, H, W, N)
-    top = float(y_ref.float().abs().max())
-    assert float((y.float() - y_ref.float()).abs().max()) <= 2.0**-7 * top
-    tol_y64 = (2.0**-8 + DW_TOL_F64_REL) * float(y64.abs().max())
-    for out in (y, y_ref):
-        assert float((out.double() - y64).abs().max()) <= tol_y64
+    for out, ref, exact, shape in ((y, y_ref, y64, (B, D, H, W, N)), (dx, dx_ref, dx64, (B, D, H, W, C))):
+        assert out.dtype == torch.bfloat16 and out.shape == shape
+        top = float(ref.float().abs().max())
+        assert float((out.float() - ref.float()).abs().max()) <= 2.0**-7 * top
+        tol64 = (2.0**-8 + DW_TOL_F64_REL) * float(exact.abs().max())
+        for got in (out, ref):
+            assert float((got.double() - exact).abs().max()) <= tol64
     assert dw.dtype == torch.float32 and torch.equal(dw, again)
     assert float((dw - dw_ref).abs().max()) <= 1e-5 * float(dw_ref.abs().max())
     tol_dw64 = DW_TOL_F64_REL * float(dw64.abs().max())

@@ -30,9 +30,11 @@ from anytime3d_tpu.kernels.conv_k2 import _conv_k2_bwd_impl, conv_k2_xla
 from anytime3d_tpu_torch.kernels import build
 from anytime3d_tpu_torch.kernels import conv_k2 as k2
 from anytime3d_tpu_torch.kernels.conv_k2 import (
+    chunked_dx_plan,
     conv_k2,
     conv_k2_backward_reference,
     conv_k2_dw_reference,
+    conv_k2_dx,
     conv_k2_dx_reference,
     conv_k2_reference,
     ffma_dw_split,
@@ -834,14 +836,15 @@ NARROW = [(3, 8, 8, 8, 8, 8), (1, 8, 8, 8, 64, 16), (3, 8, 8, 8, 32, 32), (32, 3
 CHUNKED = [(32, 16, 16, 16, 512, 32), (8, 16, 16, 16, 512, 32), (32, 16, 16, 16, 512, 16), (32, 16, 16, 16, 512, 8),
            (2, 8, 8, 8, 128, 8), (3, 8, 8, 8, 192, 32), (3, 5, 6, 7, 128, 16), (2, 9, 10, 40, 512, 32),
            (1, 33, 33, 33, 128, 8)]
-# and without: float32 rows past 128 bytes (C = 64; C = 512, which float32 does not chunk), N outside {8, 16,
-# 32}, C % 8 != 0 or C neither one TMA box nor whole chunks of 64 (24, 96, 136), shapes a wgmma plan takes
-NARROW_NONE = [((3, 8, 8, 8, 64, 8), torch.float32), ((32, 32, 32, 32, 32, 4), torch.bfloat16),
+# and without: float32 rows past 128 bytes that are not whole chunks of 32 (C = 48; N = 64 at C = 512), N
+# outside {8, 16, 32}, C % 8 != 0 or C neither one TMA box nor whole chunks of 64 (24, 96, 136), shapes a wgmma
+# plan takes
+NARROW_NONE = [((3, 8, 8, 8, 48, 8), torch.float32), ((32, 32, 32, 32, 32, 4), torch.bfloat16),
                ((32, 32, 32, 32, 32, 24), torch.bfloat16), ((2, 8, 8, 8, 64, 64), torch.bfloat16),
                ((2, 5, 6, 7, 12, 8), torch.bfloat16), ((2, 5, 6, 7, 24, 8), torch.bfloat16),
                ((2, 8, 8, 8, 96, 8), torch.bfloat16), ((2, 5, 6, 7, 136, 8), torch.bfloat16),
                ((1, 16, 16, 16, 64, 64), torch.bfloat16), ((8, 16, 16, 16, 512, 64), torch.bfloat16),
-               ((8, 16, 16, 16, 512, 32), torch.float32), ((2, 8, 8, 8, 128, 64), torch.bfloat16)]
+               ((8, 16, 16, 16, 512, 64), torch.float32), ((2, 8, 8, 8, 128, 64), torch.bfloat16)]
 
 
 def _narrow_boxes(B, D, H, W, box):
@@ -866,8 +869,8 @@ def _narrow_smem_of(box, C, N, dw, esize, stages, chunk_d, chunked=False):
     stage = (kib((bw + 1) * (bh + 1) * (bd + 1) * esize * C) + (kib(rows16 * esize * N) if dw else 0)
              + (w_bytes if chunked and not dw else 0))
     sums = 0
-    if esize == 4:
-        sums = 4 * 8 * C * N if dw else 4 * rows * N if rows <= 512 else 0
+    if esize == 4:  # the chunked forward splits no taps
+        sums = 4 * 8 * C * N if dw else 4 * rows * N if rows <= 512 and not chunked else 0
     chunks = 2 * kib(256 * 4 * N) if chunk_d else 0
     return (1024 + stages * stage + chunks + (0 if dw else (0 if chunked else w_bytes) + 4 * rows16) + 4 * rows16
             + -(-8 * stages // 16) * 16 + sums)
@@ -885,8 +888,9 @@ def _check_narrow_boxes(B, D, H, W, C, N, box, boxes, smem, dw, esize, stages=2,
     # warp at N = 32, 4 at N = 8 and 16)
     assert stages == 2 or (dw and stages == 3 and (esize == 4 or chunked))
     assert chunk_d == 0 or (not dw and esize == 4 and bw * bh * bd > 512 and chunk_d * bw * bh == 256
-                            and bd % chunk_d == 0)
-    assert not chunked or dw or -(-bw * bh * bd // 16) <= 8 * (2 if N == 32 else 4)
+                            and bd % chunk_d == 0 and not chunked)
+    # (the float32 chunked forward: its kernel's 4 rows a thread, at most 1024)
+    assert not chunked or dw or -(-bw * bh * bd // 16) <= (64 if esize == 4 else 8 * (2 if N == 32 else 4))
     assert smem == _narrow_smem_of(box, C, N, dw, esize, stages, chunk_d, chunked) <= SMEM_PER_BLOCK
     # the boxes of each batch item cover every voxel of its grid once (the last along an axis ragged)
     origins = _narrow_boxes(B, D, H, W, box)
@@ -917,28 +921,79 @@ def _check_narrow_dw_walk(plan):
 
 def _check_narrow_plan(B, D, H, W, C, N, plan, esize):
     """The forward's and dw's boxes, shared memory and choices, and both walks; a walk in chunks of 64
-    channels where C is a bfloat16 multiple of 64 above 64, its boxes holding a chunk's channels."""
-    chunked = esize == 2 and C > 64 and C % 64 == 0
-    assert plan.c_chunks == (C // 64 if chunked else 1)
-    cb = 64 if chunked else C
+    channels where C is a bfloat16 multiple of 64 above 64, of 16 where C is a float32 multiple of 32 above
+    32, its boxes holding a chunk's channels; the float32 walk in chunks is the forward's alone (no dw part)."""
+    whole = 64 if esize == 2 else 32  # C above this and a multiple of it is walked in chunks
+    chunk = (64 if esize == 2 else 16) if C > whole and C % whole == 0 else 0
+    chunked = chunk > 0
+    assert plan.c_chunks == (C // chunk if chunked else 1)
+    cb = chunk if chunked else C
     _check_narrow_boxes(B, D, H, W, cb, N, plan.box, plan.boxes, plan.smem_bytes, False, esize, 2, plan.chunk_d,
                         chunked)
+    if chunked and esize == 4:
+        assert plan.dw_box is None and plan.dw_splits is None and plan.chunk_d == 0
+        assert 1 <= plan.grid <= min(plan.boxes, 132)
+        walked = sorted(t for block in range(plan.grid) for t in range(block, plan.boxes, plan.grid))
+        assert walked == list(range(plan.boxes))
+        return
     _check_narrow_boxes(B, D, H, W, cb, N, plan.dw_box, plan.dw_boxes, plan.dw_smem_bytes, True, esize,
                         plan.dw_stages, 0, chunked)
     _check_narrow_walk(plan)
 
 
+def _check_chunked_dx_plan(B, D, H, W, C, N, plan, sms=132):
+    """The chunked dx's plan: a box of 128 voxels (powers of two, w at least 8, its halo within the TMA's
+    256), whose first 64 rows (w fastest) are a sub-box that tiles it in two (the two warpgroups' rows, each
+    stored by one TMA box a 64-channel chunk); its shared memory (alignment room, the chunk's w' of 8N/64
+    tiles of bn x 128 bytes, two staging buffers of 64 x bn bf16 a warpgroup, the halo stages of 2N-byte rows
+    in whole KiB, 128 bytes of barriers) within one block; the boxes tile every item's grid once; one block
+    a chunk's share of the SMs, every (box, chunk) walked once."""
+    bw, bh, bd = plan.box
+    sw, sh, sd = plan.sub_box
+    assert bw * bh * bd == 128 and all(e & (e - 1) == 0 for e in plan.box) and bw >= 8 and max(plan.box) + 1 <= 256
+    assert sw * sh * sd == 64 and (sw, sh) in ((bw, bh), (bw, bh // 2), (bw // 2, 1)) and bd % sd == 0
+    assert (sh == bh or sd == 1) and (sw == bw or sh == 1)
+    assert plan.bn == (128 if C % 128 == 0 else 64) and plan.chunks * plan.bn == C
+    kib = lambda n: -(-n // 1024) * 1024  # noqa: E731
+    halo = kib((bw + 1) * (bh + 1) * (bd + 1) * 2 * N)
+    assert 2 <= plan.stages <= 4
+    assert plan.smem_bytes == 1024 + (8 * N // 64) * plan.bn * 128 + 4 * plan.bn * 128 + plan.stages * halo + 128
+    assert plan.smem_bytes <= SMEM_PER_BLOCK and (plan.stages == 4 or plan.smem_bytes + halo > SMEM_PER_BLOCK)
+    origins = _narrow_boxes(B, D, H, W, plan.box)
+    assert len(origins) == plan.boxes
+    seen = np.zeros((D, H, W), np.int32)
+    for b, d, h, w in origins[:plan.boxes // B]:
+        seen[d:d + bd, h:h + bh, w:w + bw] += 1
+    assert (seen == 1).all()
+    per = plan.grid // plan.chunks
+    assert plan.grid % plan.chunks == 0 and 1 <= per <= max(1, sms // plan.chunks) and per <= plan.boxes
+    walked = sorted((i % plan.chunks, t) for i in range(plan.grid) for t in range(i // plan.chunks, plan.boxes, per))
+    assert walked == [(k, t) for k in range(plan.chunks) for t in range(plan.boxes)]
+
+
 @pytest.mark.parametrize("B,D,H,W,C,N", NARROW + CHUNKED)
 def test_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
+    """bfloat16: the narrow plan's forward and dw; where C is whole chunks of 64 (CHUNKED), also the chunked
+    dx's plan (the dx of C -> N, which neither plan of the forward from N to C takes), and no chunked dx plan
+    for the shapes C takes whole."""
     plan = narrow_plan(B, D, H, W, C, N)
     assert plan is not None and wgmma_plan(B, D, H, W, C, N) is None
     _check_narrow_plan(B, D, H, W, C, N, plan, 2)
+    dx_plan = chunked_dx_plan(B, D, H, W, C, N)
+    assert (dx_plan is not None) == (plan.c_chunks > 1)
+    if dx_plan is not None:
+        assert wgmma_plan(B, D, H, W, N, C) is None and narrow_plan(B, D, H, W, N, C) is None
+        _check_chunked_dx_plan(B, D, H, W, C, N, dx_plan)
 
 
 # N: (the forward's box and shared memory, dw's box, stages and shared memory, dw's boxes a split)
 TP_CHUNKED_PLANS = {32: ((16, 4, 4), 179_216, (16, 4, 4), 3, 217_120, 32),
                     16: ((16, 4, 4), 146_448, (16, 4, 4), 3, 192_544, 32),
                     8: ((16, 8, 4), 218_128, (16, 8, 4), 2, 216_080, 16)}
+# N: the chunked dx's shared memory (8 x 4 x 4 boxes, four halo stages, chunks of 128, 33 blocks a chunk), the
+# float32 forward's (16 x 8 x 8 boxes, 32 chunks of 16 channels, 128 blocks)
+TP_CHUNKED_DX_SMEM = {32: 193_664, 16: 132_224, 8: 99_456}
+TP_CHUNKED_F32_SMEM = {32: 220_176, 16: 203_792, 8: 195_600}
 
 
 @pytest.mark.parametrize("N", [32, 16, 8])
@@ -947,8 +1002,10 @@ def test_chunked_plan_of_the_tp_shard(N):
     8: C in 8 chunks of 64. The forward's box is the one of the fewest L2 bytes a row (its halo and its share of
     w, 8 x 64 x N bf16 a box) whose accumulators fit 2 m-tiles a warp at N = 32, 4 at N = 16 and 8, in two
     stages (86 KB each at N = 32); dw's takes a third stage where its box has room (16 x 4 x 4 at N = 32 and 16;
-    not 16 x 8 x 4 at N = 8), 16 splits x 8 chunks, one wave of 128 blocks. dx (the forward from N to 512) and
-    float32 have no narrow plan."""
+    not 16 x 8 x 4 at N = 8), 16 splits x 8 chunks, one wave of 128 blocks. dx (the forward from N to 512) has
+    no narrow plan but the chunked dx's: 8 x 4 x 4 boxes (the fewest halo voxels of a 128-voxel box, 225), 4
+    column chunks of 128, 33 blocks each, four halo stages. float32: the forward walks 32 chunks of 16 on
+    16 x 8 x 8 boxes (the fewest L2 bytes a row among boxes of at most 1024 rows), 128 blocks, no dw part."""
     box, smem, dw_box, dw_stages, dw_smem, per_split = TP_CHUNKED_PLANS[N]
     plan = narrow_plan(32, 16, 16, 16, 512, N)
     assert plan == k2.chunked_plan(32, 16, 16, 16, 512, N) and plan.c_chunks == 8 and plan.chunk_d == 0
@@ -958,7 +1015,15 @@ def test_chunked_plan_of_the_tp_shard(N):
     assert plan.grid == 132 and plan.boxes == 32 * 16**3 // (box[0] * box[1] * box[2])
     _check_narrow_plan(32, 16, 16, 16, 512, N, plan, 2)
     assert narrow_plan(32, 16, 16, 16, N, 512) is None
-    assert narrow_plan(32, 16, 16, 16, 512, N, dtype=torch.float32) is None
+    dx = chunked_dx_plan(32, 16, 16, 16, 512, N)
+    assert (dx.box, dx.sub_box, dx.bn, dx.chunks, dx.grid, dx.stages) == ((8, 4, 4), (8, 4, 2), 128, 4, 132, 4)
+    assert dx.boxes == 1024 and dx.smem_bytes == TP_CHUNKED_DX_SMEM[N]
+    _check_chunked_dx_plan(32, 16, 16, 16, 512, N, dx)
+    f32 = narrow_plan(32, 16, 16, 16, 512, N, dtype=torch.float32)
+    assert f32 == k2.chunked_plan(32, 16, 16, 16, 512, N, dtype=torch.float32)
+    assert (f32.box, f32.boxes, f32.grid, f32.c_chunks, f32.smem_bytes) == ((16, 8, 8), 128, 128, 32,
+                                                                          TP_CHUNKED_F32_SMEM[N])
+    _check_narrow_plan(32, 16, 16, 16, 512, N, f32, 4)
 
 
 @pytest.mark.parametrize("shape,dtype", NARROW_NONE)
@@ -1020,21 +1085,26 @@ def test_narrow_dw_units_cover_every_accumulator_once(C, N):
     assert wpg == 8 or N < 64
 
 
-# (B, D, H, W, C, N) that float32 takes on the narrow kernels: NARROW's shapes whose rows are at most 128 bytes
+# (B, D, H, W, C, N) that float32 takes on the narrow kernels: NARROW's shapes whose rows are at most 128 bytes;
+# and (the forward alone) those whose C is whole chunks of 32 above 32, walked in chunks of 16: CHUNKED's,
+# the default DetectorConfig's 64 -> 8 at 32^3, C = 96 on a whole-grid box
 NARROW_F32 = [s for s in NARROW if s[4] <= 32]
-# and without: C = 64 (256-byte rows: the dw of 64 -> 8), N outside {8, 16, 32} (N = 64: the dx of 64 -> 8, a
-# forward of 8 -> 64), C % 8 != 0, C = 24
-NARROW_F32_NONE = [(2, 32, 32, 32, 64, 8), (3, 5, 6, 7, 64, 32), (32, 32, 32, 32, 32, 4), (2, 8, 8, 8, 32, 64),
+CHUNKED_F32 = CHUNKED + [(32, 32, 32, 32, 64, 8), (3, 5, 6, 7, 96, 32)]
+# and without: C = 48 and 80 (rows past 128 bytes, not whole chunks of 32), N outside {8, 16, 32} (N = 64: the
+# dx of 64 -> 8, a forward of 8 -> 64), C % 8 != 0, C = 24
+NARROW_F32_NONE = [(2, 32, 32, 32, 48, 8), (3, 5, 6, 7, 80, 32), (32, 32, 32, 32, 32, 4), (2, 8, 8, 8, 32, 64),
                    (2, 5, 6, 7, 12, 8), (2, 5, 6, 7, 24, 16), (2, 32, 32, 32, 8, 64)]
 
 
-@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_F32)
+@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_F32 + CHUNKED_F32)
 def test_f32_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
     """float32's plan: 4C-byte rows in the halo box and w of 8C x N floats in one block's shared memory (at
     32^3, C = 32, a 16 x 8 x 4 box: 2 x 98 KB of stages), every voxel in one box, every box walked once; its dw
     part: the halo box of x and the box of g (rows of 4N bytes) in three stages beside the 8C x N sum of the
     groups' tiles within the block's shared memory (at 32^3, C = 32 -> N = 8, a 16 x 4 x 4 box in 200,736
-    bytes), every voxel in one box, every box in one split's run."""
+    bytes), every voxel in one box, every box in one split's run. Where C is whole chunks of 32 above 32, the
+    forward alone, in chunks of 16: two stages of a chunk's halo (64-byte rows) and its w in one block's shared
+    memory, at most 1024 rows a box, no dw part (dx and dw keep FFMA)."""
     plan = narrow_plan(B, D, H, W, C, N, dtype=torch.float32)
     assert plan is not None
     _check_narrow_plan(B, D, H, W, C, N, plan, 4)
@@ -1165,24 +1235,34 @@ NARROW_EMULATED = [(3, 8, 8, 8, 8, 8), (1, 8, 8, 8, 64, 16), (3, 5, 6, 7, 32, 32
 # the walk in chunks of 64 channels: C = 128 and 192 at 8^3 and less, several boxes a block (3 x 8 x 8 x 16 at
 # N = 32: 12 boxes of 16 x 4 x 4), a whole-grid box, every N
 CHUNKED_EMULATED = [(2, 8, 8, 8, 128, 8), (3, 8, 8, 16, 128, 32), (1, 5, 6, 7, 192, 16)]
+# the float32 forward's walk in chunks of 16: C = 64, 96 and 128, a whole-grid box, several boxes a block
+CHUNKED_F32_EMULATED = [(2, 8, 8, 8, 64, 8), (3, 8, 8, 16, 128, 32), (1, 5, 6, 7, 96, 16)]
+FORWARD_EMULATED = ([pytest.param(*s, torch.bfloat16, id="-".join(map(str, s)))
+                     for s in NARROW_EMULATED + CHUNKED_EMULATED]
+                    + [pytest.param(*s, torch.float32, id="-".join(map(str, s)) + "-f32")
+                       for s in CHUNKED_F32_EMULATED])
 
 
-@pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED + CHUNKED_EMULATED)
-def test_narrow_halo_reads_give_the_forward(B, D, H, W, C, N):
+@pytest.mark.parametrize("B,D,H,W,C,N,dtype", FORWARD_EMULATED)
+def test_narrow_halo_reads_give_the_forward(B, D, H, W, C, N, dtype):
     """The halo box zero-filled past the grid is SAME padding (0, 1), and the row table with the taps' offsets
     gathers every shifted row: the emulated walk writes every output once and equals the plain version and
-    ``conv_k2_xla`` (f32, summation order only: 1e-5 of the largest output). Where the plan walks C in chunks,
-    each box sums its chunks' products."""
+    ``conv_k2_xla`` (f32, summation order only: 1e-5 of the largest output), as does the port's op on the CPU.
+    Where the plan walks C in chunks (of 64 in bfloat16, of 16 in float32), each box sums its chunks'
+    products."""
     rng = np.random.default_rng(7)
     x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
     w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
-    plan = narrow_plan(B, D, H, W, C, N, sms=2)  # 2 blocks: each walks several boxes where there are
+    plan = narrow_plan(B, D, H, W, C, N, sms=2, dtype=dtype)  # 2 blocks: each walks several boxes where there are
+    assert plan.c_chunks == (C // 16 if dtype == torch.float32 else max(1, C // 64))
     y, written = _emulate_narrow_forward(torch.from_numpy(x), torch.from_numpy(w), plan)
     assert (written == 1).all()
     ref = conv_k2_reference(torch.from_numpy(x), torch.from_numpy(w)).numpy()
     tol = 1e-5 * float(np.abs(ref).max())
     np.testing.assert_allclose(y.numpy(), ref, atol=tol, rtol=0)
-    np.testing.assert_allclose(y.numpy(), np.asarray(conv_k2_xla(jnp.asarray(x), jnp.asarray(w))), atol=tol, rtol=0)
+    jax_y = np.asarray(conv_k2_xla(jnp.asarray(x), jnp.asarray(w)))
+    np.testing.assert_allclose(y.numpy(), jax_y, atol=tol, rtol=0)
+    np.testing.assert_allclose(conv_k2(torch.from_numpy(x), torch.from_numpy(w)).numpy(), jax_y, atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", NARROW_EMULATED + [(1, 32, 32, 32, 8, 64), (3, 5, 6, 7, 8, 64)]
@@ -1276,6 +1356,70 @@ NARROW_DX_CASES = ([pytest.param(*s, torch.bfloat16, id="-".join(map(str, s))) f
                       if narrow_plan(*s[:4], s[5], s[4], dtype=torch.float32) is not None])
 
 
+def _emulate_chunked_dx(g, w, plan):
+    """The chunked dx as its blocks walk it: block i holds column chunk i % chunks of w laid out as [C, 8N]
+    (wt[c, t N + n] = w[t, c, n], as the wrapper lays it out) and walks boxes i // chunks, + grid // chunks, ...;
+    each box's halo of g one voxel lower (zeros below 0 and past the grid) gives its 128 rows' A, each 8-channel
+    piece of a k-step from the row's voxel shifted by the mirror of the piece's tap (the ldmatrix addresses:
+    w'[s] = w[7 - s]^T), against the chunk's columns; warpgroup j's 64 rows (box rows 64 j ..) land as the TMA
+    store lays them: row r of the sub-box (w fastest) at the sub-box's origin in the box (row 64 j's voxel),
+    clipped at the grid. Returns dx and how often each (voxel, chunk) was written."""
+    B, D, H, W, N = g.shape
+    C = w.shape[3]
+    bw, bh, bd = plan.box
+    sw, sh, sd = plan.sub_box
+    wt = w.reshape(8, C, N).permute(1, 0, 2).reshape(C, 8 * N)
+    origins = _narrow_boxes(B, D, H, W, plan.box)
+    vrow, toff, rows = _narrow_rows(plan.box, N)
+    assert rows == len(vrow) == 128
+    per = plan.grid // plan.chunks
+    dx = torch.zeros(B, D, H, W, C)
+    written = torch.zeros(B, D, H, W, plan.chunks, dtype=torch.int32)
+    for block in range(plan.grid):
+        k = block % plan.chunks
+        cols = slice(k * plan.bn, (k + 1) * plan.bn)
+        for box in range(block // plan.chunks, plan.boxes, per):
+            b, d0, h0, w0 = origins[box]
+            halo = _narrow_operand(g, (bw + 1, bh + 1, bd + 1), (b, d0 - 1, h0 - 1, w0 - 1))
+            out = _narrow_a(halo, vrow, toff[::-1], N) @ wt[cols].T
+            for j in range(2):
+                ow, oh, od = 64 * j % bw, 64 * j // bw % bh, 64 * j // (bw * bh)
+                for r in range(64):
+                    d, h, ww = d0 + od + r // (sw * sh), h0 + oh + r // sw % sh, w0 + ow + r % sw
+                    if d < D and h < H and ww < W:  # the TMA clips the ragged edge
+                        dx[b, d, h, ww, cols] = out[64 * j + r]
+                        written[b, d, h, ww, k] += 1
+    return dx, written
+
+
+# the chunked dx: C = 128 (one column chunk of 128, two blocks of it) and 192 (three chunks of 64), several
+# boxes a block, boxes past the grid (5 x 6 x 7), every N
+CHUNKED_DX_EMULATED = CHUNKED_EMULATED + [(2, 8, 8, 8, 128, 16)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", CHUNKED_DX_EMULATED)
+def test_chunked_dx_halo_reads_give_dx(B, D, H, W, C, N):
+    """The chunked dx's walk (``conv_k2_chunked_dx_kernel``): halo boxes of g one voxel lower (the zeros below
+    0 are the low-edge mask), A from the row table at the mirrored taps, reused for every column of the block's
+    chunk, the two
+    warpgroups' sub-boxes stored clipped at the grid. The emulated walk writes every (voxel, chunk) of dx
+    once and equals ``conv_k2_dx_reference`` and ``_conv_k2_bwd_impl``'s dx (f32, summation order only: 1e-5
+    of the largest entry); the port's ``conv_k2_dx`` on the CPU equals JAX's at these shapes too."""
+    rng = np.random.default_rng(11)
+    g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
+    w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
+    plan = chunked_dx_plan(B, D, H, W, C, N, sms=2)  # few blocks: each walks several boxes where there are
+    dx, written = _emulate_chunked_dx(torch.from_numpy(g), torch.from_numpy(w), plan)
+    assert (written == 1).all()
+    ref = conv_k2_dx_reference(torch.from_numpy(g), torch.from_numpy(w)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(dx.numpy(), ref, atol=tol, rtol=0)
+    x = np.zeros((B, D, H, W, C), np.float32)
+    jax_dx = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))[0])
+    np.testing.assert_allclose(dx.numpy(), jax_dx, atol=tol, rtol=0)
+    np.testing.assert_allclose(conv_k2_dx(torch.from_numpy(g), torch.from_numpy(w)).numpy(), jax_dx, atol=tol, rtol=0)
+
+
 @pytest.mark.parametrize("B,D,H,W,C,N,dtype", NARROW_DX_CASES)
 def test_narrow_mirrored_halo_reads_give_dx(B, D, H, W, C, N, dtype):
     """dx as the narrow kernel's DX instance walks it (bfloat16's and float32's, each at the plan of its
@@ -1340,7 +1484,8 @@ def test_swizzled_f32_rows_read_as_float4_fall_in_distinct_banks(C):
 
 class _FakeLib:
     """Stands in for the built library on the CPU: records each entry point's arguments, returns 0; of the
-    narrow dx also the bytes of w' ([8N, C] of the dtype whose code it is given) as the launch is given them."""
+    narrow dx also the bytes of w' ([8N, C] of the dtype whose code it is given), of the chunked dx those of
+    its w ([C, 8N] bfloat16), as the launch is given them."""
 
     def __init__(self):
         self.calls = []
@@ -1352,6 +1497,9 @@ class _FakeLib:
             if name == "conv_k2_backward_input_narrow":
                 C, N, dtype = args[7], args[8], args[15]
                 self.wm = ctypes.string_at(args[1], 8 * N * C * (4 if dtype == 0 else 2))
+            if name == "conv_k2_backward_input_chunked":
+                C, N = args[7], args[8]
+                self.wm = ctypes.string_at(args[1], 8 * N * C * 2)
             return 0
 
         return entry
@@ -1376,16 +1524,22 @@ def routes(monkeypatch):
 # their split and dw on the persistent kernel, at 16^3 and B=4 (the lifecycle's) without either, at 8^3 and
 # N = 64 dw on the grid kernel; float32 at 4^3: FFMA, the forward and dx split; the s2d(2) stem 8 -> 64: the
 # forward FFMA, dx narrow (64 -> 8), dw on the dw-only narrow plan in bf16, FFMA in float32; bf16 with C a
-# multiple of 64 above 64 and N <= 32 (the tensor-parallel shard 512 -> 32, and 128 -> 8): the forward and dw
-# walk C in chunks, dx (the forward from N to C) FFMA; and 8 -> 128, whose dx would be the chunked forward from
-# 128 to 8 but keeps the FFMA kernel
-ROUTES = [(4, 16, 16, 16, 512, 32, torch.bfloat16, "forward_chunked", "backward_input", "backward_weight_narrow"),
-          (2, 8, 8, 8, 128, 8, torch.bfloat16, "forward_chunked", "backward_input", "backward_weight_narrow"),
+# multiple of 64 above 64 and N <= 32 (the tensor-parallel shard 512 -> 32, 128 -> 8, and 192 -> 16, whose dx
+# takes column chunks of 64): the forward and dw walk C in chunks, dx (the forward from N to C, which neither
+# plan of that forward takes) the chunked dx; float32 with C a multiple of 32 above 32 and N <= 32 (512 -> 32,
+# 64 -> 8): the forward walks C in chunks of 16, dx and dw FFMA; and 8 -> 128, whose dx would be the chunked
+# forward from 128 to 8 but keeps the FFMA kernel
+ROUTES = [(4, 16, 16, 16, 512, 32, torch.bfloat16, "forward_chunked", "backward_input_chunked",
+           "backward_weight_narrow"),
+          (2, 8, 8, 8, 128, 8, torch.bfloat16, "forward_chunked", "backward_input_chunked", "backward_weight_narrow"),
+          (1, 5, 6, 7, 192, 16, torch.bfloat16, "forward_chunked", "backward_input_chunked",
+           "backward_weight_narrow"),
+          (4, 16, 16, 16, 512, 32, torch.float32, "forward_chunked", "backward_input", "backward_weight"),
           (2, 16, 16, 16, 8, 128, torch.bfloat16, "forward", "backward_input", "backward_weight"),
           (2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 32, 8, torch.float32, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 64, 8, torch.bfloat16, "forward_narrow", "backward_input", "backward_weight_narrow"),
-          (2, 8, 8, 8, 64, 8, torch.float32, "forward/split", "backward_input", "backward_weight"),
+          (2, 8, 8, 8, 64, 8, torch.float32, "forward_chunked", "backward_input", "backward_weight"),
           (1, 8, 8, 8, 64, 64, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma"),
           (8, 4, 4, 4, 2048, 512, torch.bfloat16, "forward_wgmma/split", "backward_input_wgmma/split",
            "backward_weight_persistent"),
@@ -1397,7 +1551,7 @@ ROUTES = [(4, 16, 16, 16, 512, 32, torch.bfloat16, "forward_chunked", "backward_
           (1, 32, 32, 32, 8, 64, torch.float32, "forward", "backward_input", "backward_weight")]
 _COUNTERS = ("launches_narrow", "launches_dx_narrow", "launches_dw_narrow", "launches_split", "launches_dx_split",
              "launches_dw_wide", "launches_ffma_split", "launches_dx_ffma_split", "launches_dw_persistent",
-             "launches_chunked", "launches_dw_chunked")
+             "launches_chunked", "launches_dw_chunked", "launches_dx_chunked", "launches_chunked_f32")
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N,dtype,fwd,dx,dw", ROUTES)
@@ -1405,8 +1559,10 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
     """The launchers' choice, from shape and dtype alone: the narrow forward with the plan of its dtype and the
     dtype's code; the narrow dx with the plan of the forward from N to C, ``narrow_plan(B, D, H, W, N, C)`` of
     its dtype, and w'[s] = w[7 - s]^T laid out as (2, 2, 2, N, C); the narrow dw with the plan's dw part (or the
-    dw-only plan's, or the chunked plan's) and the dtype's code; the chunked forward with its plan's box, grid
-    and shared memory; the tensor-core forward and dx with their plan's tiles and splits, and
+    dw-only plan's, or the chunked plan's) and the dtype's code; the chunked forward with its plan's box, grid,
+    shared memory and the dtype's code; the chunked dx with its plan's box, chunk width, stages, grid and
+    shared memory, and w laid out as [C, 8N], wt[c, t N + n] = w[t, c, n]; the tensor-core forward and dx
+    with their plan's tiles and splits, and
     where it splits a workspace for its partials; the FFMA forward and dx with ``ffma_split``'s (dx: of the
     forward from N to C) and likewise a workspace; the persistent dw with its plan; the counters of the route
     taken."""
@@ -1420,10 +1576,13 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
     moved = [getattr(conv_k2, c) - b for c, b in zip(_COUNTERS, before)]
     wide = dw == "backward_weight_narrow" and N == 64
     chunked = fwd == "forward_chunked"
+    dx_chunked = dx == "backward_input_chunked"
     wg_split, ffma_split = [[int(r.endswith("/split") and ("wgmma" in r) == tc) for r in (fwd, dx)] for tc in (1, 0)]
-    assert moved == [int(fwd.endswith(("narrow", "chunked"))), int(dx.endswith("narrow")), int(dw.endswith("narrow")),
-                     *wg_split, int(wide), *ffma_split, int(dw == "backward_weight_persistent"), int(chunked),
-                     int(chunked)]
+    assert moved == [int(fwd.endswith(("narrow", "chunked"))), int(dx.endswith(("narrow", "chunked"))),
+                     int(dw.endswith("narrow")), *wg_split, int(wide), *ffma_split,
+                     int(dw == "backward_weight_persistent"), int(chunked),
+                     int(chunked and dw == "backward_weight_narrow"), int(dx_chunked),
+                     int(chunked and dtype == torch.float32)]
     fargs = routes.calls[0][1]
     dargs = next(a for name, a in routes.calls if name.startswith("conv_k2_backward_input"))
     code = k2._DTYPE_CODES[dtype]
@@ -1444,8 +1603,14 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
         assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, plan.chunk_d, code, None, 0)
     if chunked:
         plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
-        assert plan.c_chunks == C // 64 and narrow_plan(B, D, H, W, N, C, dtype=dtype) is None
-        assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, None, 0)
+        assert plan.c_chunks == C // (16 if dtype == torch.float32 else 64)
+        assert narrow_plan(B, D, H, W, N, C, dtype=dtype) is None
+        assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.grid, plan.smem_bytes, code, None, 0)
+    if dx_chunked:
+        plan = chunked_dx_plan(B, D, H, W, C, N)
+        assert dargs[3:] == (B, D, H, W, C, N, *plan.box, plan.bn, plan.stages, plan.grid, plan.smem_bytes, None, 0)
+        wt = w.to(dtype).reshape(8, C, N).permute(1, 0, 2).reshape(C, 8 * N)
+        assert torch.equal(torch.frombuffer(bytearray(routes.wm), dtype=dtype).reshape(C, 8 * N), wt)
     if (C, N) == (8, 128):  # dx's plan, the forward from 128 to 8, walks in chunks: not dx's route
         assert narrow_plan(B, D, H, W, N, C, dtype=dtype).c_chunks == 2
     if dw == "backward_weight_persistent":
