@@ -21,11 +21,15 @@ above 32 (that shard in float32) the forward alone walks it in chunks of 16;
 the bfloat16 dx of a narrow g and a wide dx (that shard's) takes the chunked
 dx on the tensor cores (:func:`chunked_dx_plan`,
 ``csrc/conv_k2_chunked_dx.cuh``: halo boxes of g, a column chunk of w a
-block); a bfloat16 dw of a narrow input and N = 64 (the s2d(2) stem's)
-whose shape has a dw-only plan (:func:`narrow_dw_plan`) takes the halo-box dw on ``mma.sync``; the rest take
+block); the bfloat16 forward of a narrow input and a wide output (the
+s2d(2) stem's 8 -> 64) takes that kernel run forward (:func:`wide_plan`: the
+halo box of x at the box, the taps unmirrored); a bfloat16 dw of a narrow
+input and N = 64 (the s2d(2) stem's) whose shape has a dw-only plan
+(:func:`narrow_dw_plan`) takes the halo-box dw on ``mma.sync``; the rest take
 the FFMA kernels (in float32 the forward and dx split their depth where
-:func:`ffma_split` says so). The choice is made from shape and dtype before
-the launch, never by catching a failure.
+:func:`ffma_split` says so; dw takes a tile fitted to a narrow side where N <=
+32 or 8C <= 64, :func:`ffma_dw_fitted`). The choice is made from shape and
+dtype before the launch, never by catching a failure.
 
 The forward, dx and dw are the custom operators ``anytime3d_torch::conv_k2``,
 ``::conv_k2_dx`` and ``::conv_k2_dw`` (``torch.library``): a CUDA
@@ -118,10 +122,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv_k2_backward_weight_narrow.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
     lib.conv_k2_forward_chunked.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
     lib.conv_k2_backward_input_chunked.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
+    lib.conv_k2_forward_wide.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
                lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma,
                lib.conv_k2_backward_weight_persistent, lib.conv_k2_forward_narrow, lib.conv_k2_backward_input_narrow,
-               lib.conv_k2_backward_weight_narrow, lib.conv_k2_forward_chunked, lib.conv_k2_backward_input_chunked):
+               lib.conv_k2_backward_weight_narrow, lib.conv_k2_forward_chunked, lib.conv_k2_backward_input_chunked,
+               lib.conv_k2_forward_wide):
         fn.restype = i32
     lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p
@@ -635,7 +641,8 @@ def narrow_dw_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 13
 
 
 # The chunked dx's tiling (csrc/conv_k2_chunked_dx.cuh): a box of 128 output voxels, 64 of them each of two
-# consumer warpgroups; a column chunk of 128 (or 64) channels a block; up to 4 halo stages.
+# consumer warpgroups; a column chunk of 128 (or 64) channels a block; up to 4 halo stages. Its forward instance
+# (the wide forward) cuts the same way.
 _DX_BOX_ROWS = 128
 _DX_MAX_STAGES = 4
 _DX_BARRIER_BYTES = 128
@@ -643,17 +650,20 @@ _DX_BARRIER_BYTES = 128
 
 @dataclasses.dataclass(frozen=True)
 class ChunkedDxPlan:
-    """How the chunked dx (``conv_k2_chunked_dx_kernel``) cuts the bfloat16
-    dx of a narrow g (N = 8, 16 or 32) and a wide dx (C a multiple of 64 above
-    64): boxes of ``box`` (w, h, d), 128 output voxels of one batch item,
-    ``boxes`` of them (w fastest, the last along each axis ragged), each read
-    as one halo box of g one voxel lower; ``sub_box``, the first 64 rows of a
-    box (the first consumer warpgroup's; the second's the next 64); column
-    chunks of ``bn`` channels, ``chunks`` = C / bn of them; ``grid`` blocks, a
-    multiple of ``chunks``: block i holds chunk i % chunks of w in shared
-    memory and walks boxes i / chunks, + grid / chunks, ...; a ring of
-    ``stages`` halo stages, and ``smem_bytes`` of dynamic shared memory, which
-    the launcher holds to its own arithmetic."""
+    """How ``conv_k2_chunked_dx_kernel`` cuts a product of a narrow operand
+    (8, 16 or 32 channels) and a wide result (a multiple of 64 channels),
+    bfloat16: the dx of a narrow g and a wide dx (:func:`chunked_dx_plan`),
+    or, run forward, the forward of a narrow x and a wide y
+    (:func:`wide_plan`). Boxes of ``box`` (w, h, d), 128 output voxels of one
+    batch item, ``boxes`` of them (w fastest, the last along each axis ragged),
+    each read as one halo box of the narrow operand (g one voxel lower; x at
+    the box); ``sub_box``, the first 64 rows of a box (the first consumer
+    warpgroup's; the second's the next 64); column chunks of ``bn`` channels
+    of the result, ``chunks`` of them; ``grid`` blocks, a multiple of
+    ``chunks``: block i holds chunk i % chunks of w in shared memory and walks
+    boxes i / chunks, + grid / chunks, ...; a ring of ``stages`` halo stages,
+    and ``smem_bytes`` of dynamic shared memory, which the launcher holds to
+    its own arithmetic."""
 
     box: tuple[int, int, int]
     sub_box: tuple[int, int, int]
@@ -668,27 +678,21 @@ class ChunkedDxPlan:
 def _chunked_dx_smem(box: tuple[int, int, int], N: int, bn: int, stages: int) -> int:
     """Dynamic shared memory of the chunked dx (``cdx::smem_bytes``): alignment room, the chunk's w (8N/64
     tiles of bn rows x 128 bytes), two staging buffers of 64 rows x bn bf16 for each warpgroup, ``stages``
-    halo stages of 2N-byte rows (each in whole KiB), the barriers."""
+    halo stages of 2N-byte rows (each in whole KiB), the barriers. N is the narrow operand's channels."""
     bw, bh, bd = box
     halo = _round_up((bw + 1) * (bh + 1) * (bd + 1) * 2 * N, _NR_ALIGN)
     return _NR_ALIGN + (8 * N // 64) * bn * 128 + 2 * 2 * bn * 128 + stages * halo + _DX_BARRIER_BYTES
 
 
-@functools.lru_cache(maxsize=256)
-def chunked_dx_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> ChunkedDxPlan | None:
-    """The chunked dx's plan for the bfloat16 dx of ``conv_k2`` from C to N
-    channels (g (B,D,H,W,N), dx (B,D,H,W,C)), or None where it does not apply:
-    N of 8, 16 or 32 and C a multiple of 64 above 64 (the tensor-parallel
-    shards 512 -> 32, -> 16, -> 8), whose dx neither plan of the forward from
-    N to C takes. The box: 128 voxels whose extents are powers of two, w at
-    least 8 (an ldmatrix phase's 8 rows on one line) and each at most 128,
-    whose first 64 rows tile it as a sub-box; of those, the fewest boxes (the
-    products and the store), then the fewest halo voxels (L2 bytes). Chunks
-    of 128 columns (64 where C is an odd multiple of 64); as many blocks of a
-    chunk as fill ``sms`` multiprocessors, one block each; as many halo stages
-    as fit beside the chunk's w and the staging buffers, at most 4. Pure
-    arithmetic."""
-    if C <= 64 or C % 64 or N not in _NR_OUTPUTS or min(B, D, H, W) < 1 or B * D * H * W >= 2**31:
+def _chunked_wide_plan(B: int, D: int, H: int, W: int, narrow: int, wide: int, sms: int) -> ChunkedDxPlan | None:
+    """The plan of ``conv_k2_chunked_dx_kernel`` for a narrow operand of ``narrow`` channels (8, 16 or 32) and
+    a result of ``wide`` (a multiple of 64) on the (B, D, H, W) grid, whichever instance runs it, or None. The
+    box: 128 voxels whose extents are powers of two, w at least 8 (an ldmatrix phase's 8 rows on one line) and
+    each at most 128, whose first 64 rows tile it as a sub-box; of those, the fewest boxes (the products and
+    the store), then the fewest halo voxels (L2 bytes). Chunks of 128 columns (64 where ``wide`` is an odd
+    multiple of 64); as many blocks of a chunk as fill ``sms`` multiprocessors, one block each; as many halo
+    stages as fit beside the chunk's w and the staging buffers, at most 4."""
+    if wide < 64 or wide % 64 or narrow not in _NR_OUTPUTS or min(B, D, H, W) < 1 or B * D * H * W >= 2**31:
         return None
     best, best_key = None, None
     for bd in (1 << i for i in range(8)):
@@ -703,15 +707,46 @@ def chunked_dx_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 1
             if best_key is None or key < best_key:
                 best, best_key = ((bw, bh, bd), sub[:3]), key
     box, sub = best
-    bn = 128 if C % 128 == 0 else 64
-    fixed = _chunked_dx_smem(box, N, bn, 0)
-    stages = min(_DX_MAX_STAGES, (_WG_SMEM_MAX - fixed) // (_chunked_dx_smem(box, N, bn, 1) - fixed))
+    bn = 128 if wide % 128 == 0 else 64
+    fixed = _chunked_dx_smem(box, narrow, bn, 0)
+    stages = min(_DX_MAX_STAGES, (_WG_SMEM_MAX - fixed) // (_chunked_dx_smem(box, narrow, bn, 1) - fixed))
     if stages < 2:
         return None
-    boxes, chunks = best_key[0], C // bn
+    boxes, chunks = best_key[0], wide // bn
     per_chunk = max(1, min(boxes, sms // chunks))
     return ChunkedDxPlan(box=box, sub_box=sub, boxes=boxes, bn=bn, chunks=chunks, grid=chunks * per_chunk,
-                         stages=stages, smem_bytes=_chunked_dx_smem(box, N, bn, stages))
+                         stages=stages, smem_bytes=_chunked_dx_smem(box, narrow, bn, stages))
+
+
+@functools.lru_cache(maxsize=256)
+def chunked_dx_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132) -> ChunkedDxPlan | None:
+    """The chunked dx's plan for the bfloat16 dx of ``conv_k2`` from C to N
+    channels (g (B,D,H,W,N), dx (B,D,H,W,C)), or None where it does not apply:
+    N of 8, 16 or 32 and C a multiple of 64 above 64 (the tensor-parallel
+    shards 512 -> 32, -> 16, -> 8), whose dx neither plan of the forward from
+    N to C takes; and C = 64 (64 -> 8, the default ``DetectorConfig``'s: on
+    an H100 0.0591 ms alone against the FFMA dx's 0.2905). The cut is
+    :func:`_chunked_wide_plan`'s. Pure arithmetic."""
+    if C < 64:
+        return None
+    return _chunked_wide_plan(B, D, H, W, N, C, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(B: int, D: int, H: int, W: int, C: int, N: int, sms: int = 132,
+              dtype: torch.dtype = torch.bfloat16) -> ChunkedDxPlan | None:
+    """The wide forward's plan (the chunked dx's kernel run forward) for a
+    bfloat16 ``x`` (B,D,H,W,C) of a narrow input, C of 8, 16 or 32, and ``w``
+    (2,2,2,C,N) of a wide output, N a multiple of 64 (the s2d(2) stem's 8 ->
+    64: one chunk of 64 columns, all of w in every block), or None: another
+    dtype, other shapes, and wherever :func:`wgmma_plan` or
+    :func:`narrow_plan` applies. The cut is :func:`_chunked_wide_plan`'s, the
+    halo box of x at the box's origin. Pure arithmetic; ``sms`` is the card's
+    count of multiprocessors."""
+    if (dtype != torch.bfloat16 or wgmma_plan(B, D, H, W, C, N, sms=sms) is not None
+            or narrow_plan(B, D, H, W, C, N, sms=sms, dtype=dtype) is not None):
+        return None
+    return _chunked_wide_plan(B, D, H, W, C, N, sms)
 
 
 def _sms(x: torch.Tensor) -> int:
@@ -737,6 +772,13 @@ def _chunked_dx_for(g: torch.Tensor, C: int) -> ChunkedDxPlan | None:
     if g.dtype != torch.bfloat16:
         return None
     return chunked_dx_plan(*g.shape[:4], C, g.shape[-1], sms=_sms(g))
+
+
+def _wide_for(x: torch.Tensor, N: int) -> ChunkedDxPlan | None:
+    """The wide forward's plan of a CUDA x (bfloat16 only) and N output channels, or None."""
+    if x.dtype != torch.bfloat16:
+        return None
+    return wide_plan(*x.shape, N, sms=_sms(x))
 
 
 def _check_launch(what: str, rc: int) -> None:
@@ -864,6 +906,22 @@ def dx_chunked(g: torch.Tensor, w: torch.Tensor, dx: torch.Tensor, plan: Chunked
         plan.smem_bytes, g.device.index, _stream(g)))
 
 
+def forward_wide(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor, plan: ChunkedDxPlan) -> None:
+    """Launch the wide forward into ``y`` (bfloat16, on the tensor cores: the
+    chunked dx's kernel run forward) on ``plan`` (:func:`wide_plan`), w laid
+    out as [N, 8C], the K-major rows of the products' B operand. Counts
+    nothing, as :func:`forward_wgmma`."""
+    B, D, H, W, C = x.shape
+    N = y.shape[-1]
+    # wt[n, t C + c] = w[t, c, n], each column's depth contiguous: one copy (and cast), 8 KB at the stem
+    wt = torch.empty((N, 8, C), dtype=x.dtype, device=x.device)
+    wt.copy_(w.reshape(8, C, N).permute(2, 0, 1))
+    _check_operands("conv_k2", C, N, x, wt, y)
+    _check_launch("conv_k2 (wide)", _lib().conv_k2_forward_wide(
+        x.data_ptr(), wt.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *plan.box, plan.bn, plan.stages, plan.grid,
+        plan.smem_bytes, x.device.index, _stream(x)))
+
+
 def dw_narrow(x: torch.Tensor, g: torch.Tensor, dw: torch.Tensor, plan: NarrowPlan | NarrowDwPlan) -> None:
     """Launch the narrow dw into ``dw`` (2,2,2,C,N) float32 on ``plan``'s dw
     fields (a :class:`NarrowPlan`, chunked or not, or a :class:`NarrowDwPlan`),
@@ -883,10 +941,14 @@ def dw_narrow(x: torch.Tensor, g: torch.Tensor, dw: torch.Tensor, plan: NarrowPl
 # The FFMA GEMM's tiling (csrc/conv_k2.cu, gemm::Tile): output tiles of 128
 # rows by 128 columns, two blocks an SM, or by 64 columns where N <= 64, four
 # blocks an SM (gemm::Tile::MIN_BLOCKS); stages of 16 (the forward's depth, dw's
-# rows m). dw's tile is the forward's, its rows (tap, c).
+# rows m). dw's tiles (gemm::DwTile), its rows (tap, c), are the forward's, but
+# where a side is narrow: 128 x 32 where N <= 32, 64 x 64 where 8C <= 64.
 _FFMA_ROWS = 128
 _FFMA_DEPTH = 16
 _FFMA_MIN_STAGES = 16  # a split of the forward's depth or of dw's row reduction is at least this deep
+_FFMA_STAGES = 3  # stages in flight (gemm::STAGES)
+_SM_SMEM = 233_472  # shared memory of an H100 SM, of which each resident block also takes 1 KB
+_FFMA_DW_FIT_MAX_SPLITS = 512  # splits of the FFMA dw on a tile fitted to a narrow side, at most
 
 
 def _ffma_tile(N: int) -> tuple[int, int]:
@@ -938,6 +1000,7 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_operands("conv_k2", C, N, x, w, y)
     plan = _plan_for(x, N)
     narrow = None if plan is not None else _narrow_for(x, N)
+    wide = None if plan is not None or narrow is not None else _wide_for(x, N)
     if plan is not None:
         forward_wgmma(x, w, y, plan)
         conv_k2.launches_wgmma += 1
@@ -952,6 +1015,9 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), w.data_ptr(), y.data_ptr(), B, D, H, W, C, N, *narrow.box, narrow.grid,
             narrow.smem_bytes, narrow.chunk_d, _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
         conv_k2.launches_narrow += 1
+    elif wide is not None:
+        forward_wide(x, w, y, wide)
+        conv_k2.launches_wide += 1
     else:
         splits, per_split = _ffma_splits(x, C, N)
         part = _split_workspace(splits, y)
@@ -1040,18 +1106,41 @@ def conv_k2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _conv_k2_dx_op(g, w)
 
 
-def ffma_dw_split(rows: int, C: int, N: int, sms: int = 132) -> tuple[int, int]:
+def ffma_dw_fitted(C: int, N: int) -> bool:
+    """Whether the FFMA dw of x with C and g with N channels takes a tile
+    fitted to a narrow side (N <= 32, or 8C <= 64)."""
+    return N <= 32 or 8 * C <= 64
+
+
+def _ffma_dw_tile(C: int, N: int, esize: int = 4) -> tuple[int, int, int]:
+    """(rows, columns, blocks an SM) of the FFMA dw's tile (``csrc/conv_k2.cu::launch_dw``) for x with C and g
+    with N channels of ``esize`` bytes: 128 x 32 where N <= 32 and 64 x 64 where 8C <= 64, each on 64
+    threads of 8 x 8 outputs (8 blocks an SM by registers, fewer where three stages of a block's shared
+    memory allow fewer: 7 for the float32 128 x 32); else the forward's tiles."""
+    if ffma_dw_fitted(C, N):
+        bm, bn = (128, 32) if N <= 32 else (64, 64)
+        stage_bytes = _FFMA_DEPTH * (bm + bn) * esize
+        return bm, bn, min(8, _SM_SMEM // (_FFMA_STAGES * stage_bytes + 1024))
+    return (_FFMA_ROWS, *_ffma_tile(N))
+
+
+def ffma_dw_split(rows: int, C: int, N: int, sms: int = 132, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """``(splits, stages_per_split)`` of the FFMA dw's row reduction over
-    ``rows`` = B*D*H*W rows for x with C and g with N channels: its
-    ceil(rows / 16) stages of 16 rows cut into ``splits`` parts of
+    ``rows`` = B*D*H*W rows for x with C and g with N channels of ``dtype``:
+    its ceil(rows / 16) stages of 16 rows cut into ``splits`` parts of
     ``stages_per_split`` (the last may be shorter, none is empty), so that the
-    output tiles times the splits make one wave of blocks on ``sms``
-    multiprocessors and each split is at least 16 stages deep. Pure
-    arithmetic."""
-    bn, per_sm = _ffma_tile(N)
-    tiles = -(-8 * C // _FFMA_ROWS) * -(-N // bn)
+    output tiles (:func:`_ffma_dw_tile`) times the splits make one wave of
+    blocks on ``sms`` multiprocessors and each split is at least 16 stages
+    deep; on a tile fitted to a narrow side, at most 512 splits: the reduce
+    adds each entry's splits one after another, and at the s2d(2) stem
+    (one tile of 64 x 64, 1041 splits in a wave at B=32) 1024 splits took
+    0.042 ms more than 512 on an H100, 256 0.021 ms more. Pure arithmetic."""
+    bm, bn, per_sm = _ffma_dw_tile(C, N, torch.empty((), dtype=dtype).element_size())
+    tiles = -(-8 * C // bm) * -(-N // bn)
     stages = -(-rows // _FFMA_DEPTH)
     splits = max(1, min(per_sm * sms // tiles, stages // _FFMA_MIN_STAGES))
+    if ffma_dw_fitted(C, N):
+        splits = min(splits, _FFMA_DW_FIT_MAX_SPLITS)
     per_split = -(-stages // splits)
     return -(-stages // per_split), per_split
 
@@ -1091,12 +1180,13 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         conv_k2.launches_dw_wide += isinstance(narrow, NarrowDwPlan)
         conv_k2.launches_dw_chunked += narrow.c_chunks > 1
     else:
-        splits, per_split = ffma_dw_split(B * D * H * W, C, N, sms=_sms(x))
+        splits, per_split = ffma_dw_split(B * D * H * W, C, N, sms=_sms(x), dtype=x.dtype)
         workspace = torch.empty((splits if splits > 1 else 0, 8 * C, N), dtype=torch.float32, device=x.device)
         _check_operands("conv_k2 dw", C, N, x, g, dw, workspace)
         _check_launch("conv_k2 dw", _lib().conv_k2_backward_weight(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), workspace.data_ptr(), splits, per_split, B, D, H, W, C, N,
             _DTYPE_CODES[x.dtype], x.device.index, _stream(x)))
+        conv_k2.launches_dw_ffma_fit += ffma_dw_fitted(C, N)
     conv_k2.launches_dw += 1
     return dw
 
@@ -1115,7 +1205,8 @@ def conv_k2_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     ``launches_dw_persistent`` where the plan's dw is the persistent kernel,
     the latter also where it has a dw-only plan (:func:`narrow_dw_plan`),
     which adds one to ``launches_dw_wide`` too, or a plan that walks C in
-    chunks, ``launches_dw_chunked``) or the call raises; CPU
+    chunks, ``launches_dw_chunked``; an FFMA dw on a tile fitted to a narrow
+    side adds one to ``launches_dw_ffma_fit``) or the call raises; CPU
     tensors through :func:`conv_k2_dw_reference`. The result is the same
     from run to run."""
     return _conv_k2_dw_op(x, g)
@@ -1156,7 +1247,10 @@ def conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     plan; a forward or dw whose plan walks C in chunks, also
     ``launches_chunked`` or ``launches_dw_chunked``, a float32 such forward
     ``launches_chunked_f32`` too; a dx on the chunked dx plan
-    ``launches_dx_chunked``). A tensor-core forward or dx whose plan splits its depth (and then
+    ``launches_dx_chunked``); a forward on the wide plan (:func:`wide_plan`,
+    the chunked dx's kernel run forward) adds one to ``launches_wide``, and
+    an FFMA dw on a tile fitted to a narrow side (:func:`ffma_dw_fitted`) to
+    ``launches_dw_ffma_fit``. A tensor-core forward or dx whose plan splits its depth (and then
     launches the reduce of its partials) adds one to
     ``conv_k2.launches_split`` or ``launches_dx_split``; a float32 FFMA
     forward or dx that splits its depth (:func:`ffma_split`), to
@@ -1194,3 +1288,5 @@ conv_k2.launches_chunked = 0
 conv_k2.launches_dw_chunked = 0
 conv_k2.launches_dx_chunked = 0
 conv_k2.launches_chunked_f32 = 0
+conv_k2.launches_wide = 0
+conv_k2.launches_dw_ffma_fit = 0

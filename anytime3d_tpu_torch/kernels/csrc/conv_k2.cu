@@ -112,9 +112,16 @@
 // inner loop alone, which is what this kernel can at most reach as compiled.
 //
 // The FFMA dw (conv_k2_dw_kernel, namespace gemm; the float32 train step
-// launches it four times a step) is built on the same Tile and pipeline:
+// launches it four times a step) is built on the same pipeline, on tiles of
+// its own (gemm::DwTile):
 // - a block owns 128 output rows r = (tap, c) by 128 columns n (by 64 where
-//   N <= 64) on 128 threads, 16 (or 8) rows by 8 columns a thread.
+//   N <= 64) on 128 threads, 16 (or 8) rows by 8 columns a thread, the
+//   forward's tiles. Where a side is narrow the tile fits it: 128 rows by 32
+//   columns where N <= 32 (the tensor-parallel shard 512 -> 32), 64 rows by
+//   64 columns where 8C <= 64 (the s2d(2) stem's 8 -> 64), each on 64
+//   threads of 8 x 8, whose warps take 32 (or 64) columns; a 128 x 64 tile
+//   left half its columns, or half its rows, idle there (29% and 28% of the
+//   bound on an H100).
 // - both operands are depth-major, so a stage is 16 rows m of x, shifted by
 //   the tile's taps, and the same 16 rows of g, and each lands in shared
 //   memory as it lies, [m][r] and [m][n]: no transpose, no padding. A thread
@@ -129,7 +136,8 @@
 //   as 8 bits; a source size of 0 writes the zeros of a masked tap, of rows
 //   past 8C and columns past N, and of rows past the end of the split.
 // - the row reduction is split over blockIdx.z into whole stages (the Python
-//   wrapper chooses the splits: one wave of blocks); every split writes its
+//   wrapper chooses the splits: one wave of blocks, kernels/conv_k2.py::
+//   ffma_dw_split, which mirrors the tiles); every split writes its
 //   partial [8C, N] tile into a workspace and conv_k2_dw_reduce_kernel sums
 //   them in ascending order.
 //
@@ -404,38 +412,52 @@ conv_k2_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restr
   }
 }
 
-// dw's stage on the forward's Tile (the same threads, thread tile and blocks
-// an SM): BK rows m of x, shifted by the tile's taps, as [BK][BM] and the same
-// rows of g as [BK][BN], each as it lies in device memory. Thread tid loads row
-// tid / ROW_THREADS of the stage; its pieces of x are 16 bytes (A_ELEMS rows r),
-// A_STEP rows r apart, and of g 4 elements, B_STEP columns apart.
-template <typename T, int BN, int TM>
+// dw's tile: BM output rows r = (tap, c) by BN columns n on warps of WARP_M
+// rows by WARP_N columns, LC lanes of a warp along the columns and 32 / LC
+// along the rows; a thread holds TM rows (runs of 4, RUN_STEP apart) by 8
+// columns (two runs of 4, WARP_N / 2 apart). LC = 8 gives the forward Tile's
+// warps (64 columns); LC = 4 warps of 32 columns. A stage is BK rows m of x,
+// shifted by the tile's taps, as [BK][BM] and the same rows of g as [BK][BN],
+// each as it lies in device memory. Thread tid loads row tid / ROW_THREADS of
+// the stage; its pieces of x are 16 bytes (A_ELEMS rows r), A_STEP rows r
+// apart, and of g 4 elements, B_STEP columns apart.
+template <typename T, int BM_, int BN, int TM, int LC>
 struct DwTile {
-  using L = Tile<T, BN, TM>;
-  static constexpr int ROW_THREADS = L::THREADS / BK;  // 8
-  static constexpr int A_PER_THREAD = BM / L::A_ELEMS / ROW_THREADS;
-  static constexpr int A_STEP = ROW_THREADS * L::A_ELEMS;
+  static constexpr int BM = BM_;
+  static constexpr int LANE_ROWS = 32 / LC;
+  static constexpr int WARP_N = 8 * LC;
+  static constexpr int WARP_M = LANE_ROWS * TM;
+  static constexpr int THREADS = (BM / WARP_M) * (BN / WARP_N) * 32;
+  // blocks an SM: 128 registers a thread for 8 x 8 outputs, up to 255 for 16 x 8
+  static constexpr int MIN_BLOCKS = (TM == 8 ? 512 : 256) / THREADS;
+  static constexpr int A_ELEMS = 16 / sizeof(T);
+  static constexpr int ROW_THREADS = THREADS / BK;
+  static constexpr int A_PER_THREAD = BM / A_ELEMS / ROW_THREADS;
+  static constexpr int A_STEP = ROW_THREADS * A_ELEMS;
   static constexpr int B_PER_THREAD = BN / 4 / ROW_THREADS;
   static constexpr int B_STEP = ROW_THREADS * 4;
   static constexpr int RUN_STEP = LANE_ROWS * 4;  // a thread's rows: runs of 4, this far apart
   static constexpr int STAGE_ELEMS = BK * (BM + BN);
   static constexpr size_t SMEM_BYTES = static_cast<size_t>(STAGES) * STAGE_ELEMS * sizeof(T);
-  static_assert(ROW_THREADS * BK == L::THREADS, "the threads cover the stage's rows");
-  static_assert(A_PER_THREAD >= 1 && A_PER_THREAD * A_STEP == BM, "A pieces");
+  static_assert(LC == 4 || LC == 8, "a quarter warp reads one or two addresses of A and 128 or 64 bytes of B");
+  static_assert(TM == 8 || TM == 16, "MIN_BLOCKS is set for these");
+  static_assert(BM % WARP_M == 0 && BN % WARP_N == 0, "warps tile the block");
+  static_assert(ROW_THREADS * BK == THREADS, "the threads cover the stage's rows");
+  static_assert(A_PER_THREAD >= 1 && A_PER_THREAD <= 8 && A_PER_THREAD * A_STEP == BM, "A pieces, 4 tap bits each");
   static_assert(B_PER_THREAD >= 1 && B_PER_THREAD * B_STEP == BN, "B pieces");
-  static_assert(TM % 4 == 0 && RUN_STEP * (TM / 4) == L::WARP_M, "a thread's runs cover its warp's rows");
+  static_assert(TM % 4 == 0 && RUN_STEP * (TM / 4) == WARP_M, "a thread's runs cover its warp's rows");
 };
 
 // dw partial: part[z][r][n] = sum over the rows m of split z of x[m + shift(t), c] * g[m, n],
 // r = t*C + c; x [M, C], g [M, N], part [gridDim.z][8C][N] in f32. blockIdx.x is the row tile,
 // blockIdx.y the column tile; split z reduces the rows [z * BK * stages_per_split, min(M, (z + 1)
 // * BK * stages_per_split)).
-template <typename T, int BN, int TM>
-__global__ void __launch_bounds__(Tile<T, BN, TM>::THREADS, Tile<T, BN, TM>::MIN_BLOCKS)
+template <typename T, int BM_, int BN, int TM, int LC>
+__global__ void __launch_bounds__(DwTile<T, BM_, BN, TM, LC>::THREADS, DwTile<T, BM_, BN, TM, LC>::MIN_BLOCKS)
 conv_k2_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ part,
                   int D, int H, int W, int C, int N, long long M, int stages_per_split) {
-  using L = Tile<T, BN, TM>;
-  using DL = DwTile<T, BN, TM>;
+  using DL = DwTile<T, BM_, BN, TM, LC>;
+  constexpr int BM = DL::BM;
   // stage s: A [BK][BM], then B [BK][BN]
   extern __shared__ __align__(16) uint8_t dw_smem[];
   T* const smem = reinterpret_cast<T*>(dw_smem);
@@ -459,7 +481,7 @@ conv_k2_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __res
   unsigned a_tap = 0;
 #pragma unroll
   for (int i = 0; i < DL::A_PER_THREAD; ++i) {
-    const int r = r0 + lp * L::A_ELEMS + i * DL::A_STEP;
+    const int r = r0 + lp * DL::A_ELEMS + i * DL::A_STEP;
     const int t = r < R ? r / C : 8;
     const int c = r - t * C;
     a_off[i] = t < 8 ? (((t >> 2) * H + ((t >> 1) & 1)) * W + (t & 1)) * C + c : 0;
@@ -485,7 +507,7 @@ conv_k2_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __res
   int rows_left = split_rows - lr;  // the loaders' row lies in the split while this is > 0
 
   auto load_stage = [&](int slot) {
-    T* const As = smem + slot * DL::STAGE_ELEMS + lr * BM + lp * L::A_ELEMS;
+    T* const As = smem + slot * DL::STAGE_ELEMS + lr * BM + lp * DL::A_ELEMS;
     T* const Bs = smem + slot * DL::STAGE_ELEMS + BK * BM + lr * BN + lp * 4;
     // bit t: tap t of this row lies inside the grid (odd taps step in w, taps 2, 3, 6, 7 in h, 4-7 in d)
     unsigned inside = rows_left > 0 ? 0xFFu : 0u;
@@ -514,36 +536,38 @@ conv_k2_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __res
   };
 
   // this thread's outputs: rows row0 + RUN_STEP * j + 0..3 (j < TM / 4), columns col0 .. + 3 and
-  // col0 + 32 .. + 35 of the block's tile
+  // col0 + WARP_N / 2 .. + 3 of the block's tile
   const int warp = tid >> 5, lane = tid & 31;
-  const int row0 = (warp / (BN / WARP_N)) * L::WARP_M + (lane >> 3) * 4;
-  const int col0 = (warp % (BN / WARP_N)) * WARP_N + (lane & 7) * 4;
+  const int row0 = (warp / (BN / DL::WARP_N)) * DL::WARP_M + (lane / LC) * 4;
+  const int col0 = (warp % (BN / DL::WARP_N)) * DL::WARP_N + (lane % LC) * 4;
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
+  // CONV_K2_NARROW_PROBE (cli/probe_narrow.py's builds): 1 without the loads, 2 without the products
+  constexpr bool LOADS = !(nr::PROBE & 1), PRODUCTS = !(nr::PROBE & 2);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_stages) load_stage(s);
+    if (LOADS && s < n_stages) load_stage(s);
     cp_async_commit();
   }
   int slot = 0, load_slot = STAGES - 1;
   for (int stage = 0; stage < n_stages; ++stage) {
     cp_async_wait<STAGES - 2>();  // this thread's pieces of `stage` have landed
     __syncthreads();              // everyone's have, and everyone is done with the slot loaded next
-    if (stage + STAGES - 1 < n_stages) load_stage(load_slot);
+    if (LOADS && stage + STAGES - 1 < n_stages) load_stage(load_slot);
     cp_async_commit();  // an empty group at the tail keeps the count of pending groups
     const T* const a_base = smem + slot * DL::STAGE_ELEMS + row0;
     const T* const b_base = smem + slot * DL::STAGE_ELEMS + BK * BM + col0;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < (PRODUCTS ? BK : 0); ++kk) {
       float a[TM], b[TN];
 #pragma unroll
       for (int j = 0; j < TM / 4; ++j) load4(a_base + kk * BM + j * DL::RUN_STEP, a + 4 * j);
       load4(b_base + kk * BN, b);
-      load4(b_base + kk * BN + WARP_N / 2, b + 4);
+      load4(b_base + kk * BN + DL::WARP_N / 2, b + 4);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -560,7 +584,7 @@ conv_k2_dw_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __res
     if (r >= R) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int n = n0 + col0 + half * (WARP_N / 2);
+      const int n = n0 + col0 + half * (DL::WARP_N / 2);
       if (n < N) store4(out + static_cast<long long>(r) * N + n, acc[i] + 4 * half);
     }
   }
@@ -665,32 +689,39 @@ cudaError_t launch_gemm(const void* x, const void* w, void* y, float* part, int 
   return launch_gemm_tile<T, BWD, 128, 16>(x, w, y, part, splits, per_split, D, H, W, C, N, M, s);
 }
 
-// dw's partial sums (into dw itself where splits == 1), then their sum: the tile of the forward's shape.
-template <typename T, int TILE_N, int TM>
+// dw's partial sums (into dw itself where splits == 1), then their sum, at one tile.
+template <typename T, int TILE_M, int TILE_N, int TM, int LC>
 cudaError_t launch_dw_tile(const void* x, const void* g, float* dw, float* workspace, int splits, int stages_per_split,
                            int D, int H, int W, int C, int N, long long M, cudaStream_t s) {
-  using DL = gemm::DwTile<T, TILE_N, TM>;
-  cudaError_t err = cudaFuncSetAttribute(gemm::conv_k2_dw_kernel<T, TILE_N, TM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  using DL = gemm::DwTile<T, TILE_M, TILE_N, TM, LC>;
+  auto kernel = gemm::conv_k2_dw_kernel<T, TILE_M, TILE_N, TM, LC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(DL::SMEM_BYTES));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((8 * C + gemm::BM - 1) / gemm::BM),
+  const dim3 grid(static_cast<unsigned>((8 * C + TILE_M - 1) / TILE_M),
                   static_cast<unsigned>((N + TILE_N - 1) / TILE_N), static_cast<unsigned>(splits));
-  gemm::conv_k2_dw_kernel<T, TILE_N, TM><<<grid, DL::L::THREADS, DL::SMEM_BYTES, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), splits == 1 ? dw : workspace, D, H, W, C, N, M,
-      stages_per_split);
+  kernel<<<grid, DL::THREADS, DL::SMEM_BYTES, s>>>(static_cast<const T*>(x), static_cast<const T*>(g),
+                                                   splits == 1 ? dw : workspace, D, H, W, C, N, M, stages_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   return launch_dw_reduce(workspace, dw, static_cast<long long>(8) * C * N, splits, s);
 }
 
-// The forward's choice of tile: 128 columns and 16 rows a thread, or 64 and 8 where N <= 64.
+// The tile (kernels/conv_k2.py::_ffma_dw_tile mirrors it): where a side is narrow, one that fits it, 128 rows
+// by 32 columns where N <= 32 (the tensor-parallel shard 512 -> 32) and 64 rows by 64 columns where 8C <= 64
+// (the s2d(2) stem's 8 -> 64), each on 64 threads of 8 x 8 outputs: the 128 x 64 tile left half its
+// columns or rows idle there. Else the forward's tiles: 128 columns and 16 rows a thread, or 64 and 8 where
+// N <= 64.
 template <typename T>
 cudaError_t launch_dw(const void* x, const void* g, float* dw, float* workspace, int splits, int stages_per_split,
                       int D, int H, int W, int C, int N, long long M, cudaStream_t s) {
   if (!splits_cover(splits, stages_per_split, (M + gemm::BK - 1) / gemm::BK)) return cudaErrorInvalidValue;
-  if (N <= 64) return launch_dw_tile<T, 64, 8>(x, g, dw, workspace, splits, stages_per_split, D, H, W, C, N, M, s);
-  return launch_dw_tile<T, 128, 16>(x, g, dw, workspace, splits, stages_per_split, D, H, W, C, N, M, s);
+#define DW_ARGS x, g, dw, workspace, splits, stages_per_split, D, H, W, C, N, M, s
+  if (N <= 32) return launch_dw_tile<T, 128, 32, 8, 4>(DW_ARGS);
+  if (8 * C <= 64) return launch_dw_tile<T, 64, 64, 8, 8>(DW_ARGS);
+  if (N <= 64) return launch_dw_tile<T, 128, 64, 8, 8>(DW_ARGS);
+  return launch_dw_tile<T, 128, 128, 16, 8>(DW_ARGS);
+#undef DW_ARGS
 }
 
 // The tensor-core forward (DX = false: `depth` = C, `cols` = N) or dx (DX =
@@ -937,8 +968,23 @@ int conv_k2_backward_input_chunked(const void* g, const void* wt, void* dx, int 
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return cdx::launch(g, wt, dx, B, D, H, W, C, N, bw, bh, bd, bn, stages, grid, smem_bytes,
-                     static_cast<cudaStream_t>(stream));
+  return cdx::launch<false>(g, wt, dx, B, D, H, W, C, N, bw, bh, bd, bn, stages, grid, smem_bytes,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 forward of a narrow x and a wide y on the tensor cores, the
+// chunked dx's kernel run forward: y [B,D,H,W,N] with N a multiple of bn (128,
+// or 64), at least 64, from x [B,D,H,W,C], C in {8, 16, 32}, and wt [N, 8C],
+// w laid out by the wrapper (wt[n, t C + c] = w[t, c, n]); the plan's box of
+// 128 voxels (bw, bh, bd), column chunk bn, halo stages, `grid` blocks (a
+// multiple of N / bn) and dynamic shared memory, held to this file's own.
+int conv_k2_forward_wide(const void* x, const void* wt, void* y, int B, int D, int H, int W, int C, int N, int bw,
+                         int bh, int bd, int bn, int stages, int grid, int smem_bytes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the kernel's narrow operand is x (its "N" = C) and its wide result y (its "C" = N)
+  return cdx::launch<true>(x, wt, y, B, D, H, W, N, C, bw, bh, bd, bn, stages, grid, smem_bytes,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // dw for narrow outputs, bfloat16 on mma.sync or float32 on FFMA: the boxes

@@ -1,42 +1,58 @@
-// conv_k2's dx for a narrow g (N = 8, 16 or 32) and a wide dx (C a multiple
-// of 64 above 64), bfloat16, on Hopper's tensor cores: the tensor-parallel
-// shards 512 -> 32, -> 16 and -> 8 (the flagship's last 16^3 stage over a
-// model axis of 2, 4 and 8). Included by conv_k2.cu, which states what the
-// operation computes; the barrier, TMA and wgmma helpers are
-// conv_k2_wgmma.cuh's, the halo-box helpers conv_k2_narrow.cuh's.
+// conv_k2's products of a narrow operand (8, 16 or 32 channels) and a wide
+// result (a multiple of 64 channels), bfloat16, on Hopper's tensor cores, in
+// two instances. Included by conv_k2.cu, which states what the operation
+// computes; the barrier, TMA and wgmma helpers are conv_k2_wgmma.cuh's, the
+// halo-box helpers conv_k2_narrow.cuh's.
 //
-// Replaces, for shapes with a plan (kernels/conv_k2.py::chunked_dx_plan), the
-// dx product of the TPU kernel's backward
-// anytime3d_tpu/kernels/conv_k2.py::_conv_k2_bwd_impl (:172-180): dx[p, c] =
-// sum_s sum_n g[p - 1 + s, n] w'[s, n, c], w'[s] = w[7 - s]^T, the forward
-// from N to C channels over g read one voxel lower.
+// - dx (FWD = false): dx of a narrow g and a wide dx, the tensor-parallel
+//   shards 512 -> 32, -> 16 and -> 8 (the flagship's last 16^3 stage over a
+//   model axis of 2, 4 and 8). Replaces, for shapes with a plan
+//   (kernels/conv_k2.py::chunked_dx_plan), the dx product of the TPU kernel's
+//   backward anytime3d_tpu/kernels/conv_k2.py::_conv_k2_bwd_impl (:172-180):
+//   dx[p, c] = sum_s sum_n g[p - 1 + s, n] w'[s, n, c], w'[s] = w[7 - s]^T,
+//   the forward from N to C channels over g read one voxel lower.
+// - the forward (FWD = true) of a narrow x and a wide y: the classic
+//   encoder's space-to-depth(2) stem, 8 -> 64 at 32^3. Replaces, for shapes
+//   with a plan (kernels/conv_k2.py::wide_plan), the TPU kernel
+//   anytime3d_tpu/kernels/conv_k2.py::_conv_k2_pallas (:129-169): y[p, n] =
+//   sum_t sum_c x[p + t, c] w[t, c, n], x read as zeros past the grid.
+//
+// The two differ in where a box's halo starts (one voxel lower for dx, at the
+// box for the forward, whose halo grows on the high side) and in the tap that
+// A's rows pair with B's (mirrored for dx, the same for the forward). Below,
+// "g" is the narrow operand (g, or x), N its channels, "dx" the wide result
+// (dx, or y) and C its channels, as for dx.
 //
 // What bounds it on this card: bytes, nearly as much as operations. At B=32 on
 // 16^3, 32 -> 512 stores 134.2 MB of dx for 8.4 MB of g and 31.2 GFLOP of
 // on-grid products: 0.0401 ms of store at 3.35 TB/s, 0.0316 ms of products at
-// 989 TFLOP/s. The FFMA GEMM it replaces ran at ~32 TFLOP/s (0.98 ms). So the
-// products go to the tensor cores and the store streams behind them:
+// 989 TFLOP/s. The stem's forward at B=32 stores 134.2 MB of y for 16.8 MB of
+// x and 8.2 GFLOP: store-bound, 0.0451 ms. The FFMA GEMMs they replace ran at
+// ~32 TFLOP/s (0.98 ms) and at 15% of the bound (0.30 ms). So the products go
+// to the tensor cores and the store streams behind them:
 //
 // - A block owns one column chunk of dx, BN = 128 (or 64) channels, for its
-//   whole life: the chunk's rows of w, [8N, BN] (64 KB at N = 32), are
-//   brought in once by the TMA, K-major under the 128-byte swizzle (the
-//   wrapper lays w out as [C, 8N], its taps in order, in one copy of <= 256
-//   KB), and are the B operand of every product. Blocks b, b + chunks, ...
+//   whole life: the chunk's rows of w, [8N, BN] (64 KB at N = 32, 8 KB for the
+//   stem), are brought in once by the TMA, K-major under the 128-byte swizzle
+//   (the wrapper lays w out as [C, 8N], its taps in order, in one copy of <=
+//   256 KB), and are the B operand of every product. Blocks b, b + chunks, ...
 //   share a chunk and walk its boxes.
-// - A box is 128 output voxels (bw x bh x bd; 8 x 4 x 4 at 16^3), one batch
-//   item. A TMA copy brings the box's halo of g, grown by one voxel and
-//   starting one voxel lower along d, h and w, into a ring of stages: rows of
-//   2N bytes under the swizzle of that width, zeros below 0 and past the
-//   grid (the low-edge mask and the ragged edge). g is read from device
-//   memory once; the halo overlap and the re-reads by the other chunks' blocks
-//   come from L2.
+// - A box is 128 output voxels (bw x bh x bd; 8 x 4 x 4 at 16^3 and 32^3), one
+//   batch item. A TMA copy brings the box's halo of g, grown by one voxel
+//   (starting one voxel lower along d, h and w for dx, at the box for the
+//   forward), into a ring of stages: rows of 2N bytes under the swizzle of
+//   that width, zeros below 0 and past the grid (dx's low-edge mask, the
+//   forward's high pad, the ragged edge). g is read from device memory once;
+//   the halo overlap and the re-reads by the other chunks' blocks come from
+//   L2.
 // - Each of two consumer warpgroups takes 64 of the box's rows (a sub-box:
 //   8 x 4 x 2 at 16^3). Its warps load the A fragments of their 16 rows for
 //   the whole depth, 8 taps x N channels (16 k-steps at N = 32), by ldmatrix
 //   from the halo stage: each lane's row address picks its row's voxel shifted
 //   by the k-step's tap, as the narrow kernels' row table does; the depth
-//   (t, n) of B is w's tap t, so A's is the mirrored tap 7 - t (w'[s] =
-//   w[7 - s]^T). The stage goes back to the producer once the products that
+//   (t, n) of B is w's tap t, so A's is the mirrored tap 7 - t for dx (w'[s] =
+//   w[7 - s]^T) and tap t for the forward. The stage goes back to the
+//   producer once the products that
 //   read those fragments are done: released right after the ldmatrix issue,
 //   the next copy overwrote rows whose loads were still in flight (at N = 32,
 //   16 of them a warp, most launches at B=32 came out wrong).
@@ -186,10 +202,12 @@ __device__ __forceinline__ void box_origin(const Geom& g, int box, int& w0, int&
 }
 
 // dx [B, D, H, W, C] (bf16) from g [B, D, H, W, N] (N = 8 NT) and w laid out
-// as [C, 8N] (wt[c, t N + n] = w[t, c, n]). Block i owns column chunk i % g.chunks
-// (BN channels) and walks the boxes i / chunks, + gridDim.x / chunks, ...
-// (gridDim.x a multiple of g.chunks).
-template <int NT, int BN>
+// as [C, 8N] (wt[c, t N + n] = w[t, c, n]); with FWD, y [B, D, H, W, C] from
+// x [B, D, H, W, N] and w [2, 2, 2, N, C] laid out as [C, 8N] (wt[c, t N + n] =
+// w[t, n, c]). Block i owns column chunk i % g.chunks (BN channels) and walks
+// the boxes i / chunks, + gridDim.x / chunks, ... (gridDim.x a multiple of
+// g.chunks).
+template <int NT, int BN, bool FWD>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_k2_chunked_dx_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constant__ CUtensorMap map_w,
                           const __grid_constant__ CUtensorMap map_dx, const Geom g) {
@@ -229,8 +247,9 @@ conv_k2_chunked_dx_kernel(const __grid_constant__ CUtensorMap map_g, const __gri
       box_origin(g, first + i * per, w0, h0, d0, b);
       wg::mbar_wait(empty + 8 * slot, parity);
       wg::mbar_arrive_expect_tx(full + 8 * slot, g.halo_bytes);
-      // dx reads g one voxel lower; below 0 the TMA writes zeros
-      wg::tma_load_5d(ring + slot * g.stage_x, &map_g, full + 8 * slot, 0, w0 - 1, h0 - 1, d0 - 1, b);
+      // dx reads g one voxel lower (below 0 the TMA writes zeros), the forward x from the box (zeros past the grid)
+      constexpr int lo = FWD ? 0 : 1;
+      wg::tma_load_5d(ring + slot * g.stage_x, &map_g, full + 8 * slot, 0, w0 - lo, h0 - lo, d0 - lo, b);
       if (++slot == g.stages) {
         slot = 0;
         parity ^= 1;
@@ -241,7 +260,8 @@ conv_k2_chunked_dx_kernel(const __grid_constant__ CUtensorMap map_g, const __gri
 
   const int wgroup = warp >> 2, wtid = tid & 127;
   // this lane's ldmatrix row: row 64 wgroup + 16 (warp % 4) + lane % 16 of the box, its own halo voxel; its
-  // channels of a k-step 8 (lane / 16) ..: k-step ks is w's tap (16 ks + 8 (lane / 16)) / N, g's the mirror
+  // channels of a k-step 8 (lane / 16) ..: k-step ks is w's tap (16 ks + 8 (lane / 16)) / N, g's the mirror for
+  // dx and the same tap for the forward
   uint32_t vr;
   {
     const int r = 64 * wgroup + 16 * (warp & 3) + (lane & 15);
@@ -251,7 +271,7 @@ conv_k2_chunked_dx_kernel(const __grid_constant__ CUtensorMap map_g, const __gri
   uint32_t koff[KSTEPS];
 #pragma unroll
   for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int k = 16 * ks + 8 * (lane >> 4), t = 7 - k / N;
+    const int k = 16 * ks + 8 * (lane >> 4), t = FWD ? k / N : 7 - k / N;
     koff[ks] = (((t >> 2) * (g.bh + 1) + ((t >> 1) & 1)) * (g.bw + 1) + (t & 1)) * ROW + 2 * (k % N);
   }
   const uint32_t mask = ROW / 16 - 1;
@@ -326,13 +346,13 @@ conv_k2_chunked_dx_kernel(const __grid_constant__ CUtensorMap map_g, const __gri
 // ---- host side ----
 
 // The geometry of a launch, checked: N = 8, 16 or 32; C a multiple of bn (128,
-// or 64) above 64; a box of 128 voxels, each extent at most 255, whose first
+// or 64), at least 64; a box of 128 voxels, each extent at most 255, whose first
 // 64 rows (w fastest) are a sub-box that tiles it (the second warpgroup's at
 // the returned origin); 2 to MAX_STAGES halo stages. Returns false where the
 // kernel does not apply.
 inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw, int bh, int bd, int bn,
                       int stages, int& sbw, int& sbh, int& sbd) {
-  if ((N != 8 && N != 16 && N != 32) || (bn != 64 && bn != 128) || C <= 64 || C % bn || B < 1 || D < 1 ||
+  if ((N != 8 && N != 16 && N != 32) || (bn != 64 && bn != 128) || C < 64 || C % bn || B < 1 || D < 1 ||
       H < 1 || W < 1 || stages < 2 || stages > MAX_STAGES)
     return false;
   if (bw < 1 || bh < 1 || bd < 1 || bw > nr::MAX_EXTENT || bh > nr::MAX_EXTENT || bd > nr::MAX_EXTENT ||
@@ -361,28 +381,30 @@ inline bool make_geom(Geom& g, int B, int D, int H, int W, int C, int N, int bw,
   return true;
 }
 
-template <int NT, int BN>
+template <int NT, int BN, bool FWD>
 int launch_nt(const CUtensorMap& map_g, const CUtensorMap& map_w, const CUtensorMap& map_dx, const Geom& g, int grid,
               size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(conv_k2_chunked_dx_kernel<NT, BN>,
+  cudaError_t err = cudaFuncSetAttribute(conv_k2_chunked_dx_kernel<NT, BN, FWD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_k2_chunked_dx_kernel<NT, BN><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(map_g, map_w, map_dx, g);
+  conv_k2_chunked_dx_kernel<NT, BN, FWD><<<static_cast<unsigned>(grid), THREADS, smem, s>>>(map_g, map_w, map_dx, g);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN>
+template <int BN, bool FWD>
 int launch_bn(const CUtensorMap& map_g, const CUtensorMap& map_w, const CUtensorMap& map_dx, const Geom& g, int grid,
               size_t smem, cudaStream_t s) {
-  if (g.N == 8) return launch_nt<1, BN>(map_g, map_w, map_dx, g, grid, smem, s);
-  if (g.N == 16) return launch_nt<2, BN>(map_g, map_w, map_dx, g, grid, smem, s);
-  return launch_nt<4, BN>(map_g, map_w, map_dx, g, grid, smem, s);
+  if (g.N == 8) return launch_nt<1, BN, FWD>(map_g, map_w, map_dx, g, grid, smem, s);
+  if (g.N == 16) return launch_nt<2, BN, FWD>(map_g, map_w, map_dx, g, grid, smem, s);
+  return launch_nt<4, BN, FWD>(map_g, map_w, map_dx, g, grid, smem, s);
 }
 
-// dx [B,D,H,W,C] from g [B,D,H,W,N] and wt [C, 8N] (w), at the plan's box
-// (bw, bh, bd), chunk width bn, halo stages and `grid` blocks (a multiple of
-// C / bn); `plan_smem` is the wrapper's dynamic shared memory, held to this
-// file's own.
+// dx [B,D,H,W,C] from g [B,D,H,W,N] and wt [C, 8N] (w), or with FWD y
+// [B,D,H,W,C] from x [B,D,H,W,N] (passed as `gr`) and wt [C, 8N], at the
+// plan's box (bw, bh, bd), chunk width bn, halo stages and `grid` blocks (a
+// multiple of C / bn); `plan_smem` is the wrapper's dynamic shared memory,
+// held to this file's own.
+template <bool FWD>
 inline int launch(const void* gr, const void* wt, void* dx, int B, int D, int H, int W, int C, int N, int bw, int bh,
                   int bd, int bn, int stages, int grid, int plan_smem, cudaStream_t s) {
   Geom g;
@@ -401,8 +423,8 @@ inline int launch(const void* gr, const void* wt, void* dx, int B, int D, int H,
   if (rc) return rc;
   rc = nr::encode_box_map(&map_dx, dx, B, D, H, W, C, sbw, sbh, sbd, 2, 64);
   if (rc) return rc;
-  return bn == 128 ? launch_bn<128>(map_g, map_w, map_dx, g, grid, smem, s)
-                   : launch_bn<64>(map_g, map_w, map_dx, g, grid, smem, s);
+  return bn == 128 ? launch_bn<128, FWD>(map_g, map_w, map_dx, g, grid, smem, s)
+                   : launch_bn<64, FWD>(map_g, map_w, map_dx, g, grid, smem, s);
 }
 
 }  // namespace cdx

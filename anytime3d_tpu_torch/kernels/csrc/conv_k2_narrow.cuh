@@ -177,7 +177,9 @@ constexpr uint32_t ALIGN = 1024;    // stage alignment: the longest swizzle's pe
 // operands), 2 with 8 FFMA a row for 64, 3 without the loop over rows. The
 // chunked dw: 1 each k-step's products added by the tensor cores' own
 // accumulation (no rounded adds), 3 without the loop over k-steps (2 is
-// whole).
+// whole). conv_k2.cu's FFMA dw reads it too: 1 without its loads (no
+// cp.async of x or g: every stage's products on what shared memory holds),
+// 2 without its products, 3 without both.
 #ifndef CONV_K2_NARROW_PROBE
 #define CONV_K2_NARROW_PROBE 0
 #endif

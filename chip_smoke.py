@@ -325,10 +325,12 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
     conv_k2_dx,
     conv_k2_dx_reference,
     conv_k2_reference,
+    ffma_dw_fitted,
     ffma_split,
     narrow_dw_plan,
     narrow_plan,
     wgmma_plan,
+    wide_plan,
 )
 from anytime3d_tpu_torch.models import configs  # noqa: E402
 from anytime3d_tpu_torch.models.configs import REGISTRY  # noqa: E402
@@ -454,10 +456,11 @@ VARIANT_LAYOUT_STEPS = 3  # timed, after one warm-up step
 VARIANT_ARTIFACT_REQUESTS = 8  # float-input requests (262144 floats of JSON each) to the exported AE
 # layouts of modelnet_nolbo that no REGISTRY name uses (benchmarks/quality_parity.py's classic and
 # blocked_dynfix, and the classic encoder on an s2d(2) stem), with their launches a step and whether on wgmma
-# layout: ((forward, dx, dw) launches a step, all on the tensor cores, (forward, dx, dw) of them narrow): the s2d(2)
-# stem's forward on FFMA, its bf16 dw on the dw-only narrow plan (N = 64; conv_k2_dw_wide)
-VARIANT_LAYOUTS = {"classic": ((0, 0, 0), False, (0, 0, 0)), "blocked_dynfix": ((4, 3, 4), True, (0, 0, 0)),
-                   "classic_s2d2": ((1, 0, 1), False, (0, 0, 1))}
+# layout: ((forward, dx, dw) launches a step, all on the tensor cores, (forward, dx, dw) of them narrow, forwards
+# of them on the wide plan): the s2d(2) stem's bf16 forward on the wide plan (the chunked dx's kernel run
+# forward; conv_k2_wide), its bf16 dw on the dw-only narrow plan (N = 64; conv_k2_dw_wide)
+VARIANT_LAYOUTS = {"classic": ((0, 0, 0), False, (0, 0, 0), 0), "blocked_dynfix": ((4, 3, 4), True, (0, 0, 0), 0),
+                   "classic_s2d2": ((1, 0, 1), False, (0, 0, 1), 1)}
 STEM_K2 = (32, 8, 64)  # grid, C, N of the s2d(2) stem: 64^3 x 1 folded to 32^3 x 8, 8 -> 64
 # phase 15: pretraining, the graft, structural shapes, the streaming reconstructor
 PRETRAIN_BATCH, PRETRAIN_SIZE, PRETRAIN_STEPS = 64, 224, 16  # cli/pretrain.py's batch and size
@@ -511,6 +514,7 @@ def reset_counts() -> None:
     conv_k2.launches_ffma_split = conv_k2.launches_dx_ffma_split = conv_k2.launches_dw_persistent = 0
     conv_k2.launches_chunked = conv_k2.launches_dw_chunked = 0
     conv_k2.launches_dx_chunked = conv_k2.launches_chunked_f32 = 0
+    conv_k2.launches_wide = conv_k2.launches_dw_ffma_fit = 0
 
 
 def read_counts() -> dict:
@@ -528,7 +532,10 @@ def read_counts() -> dict:
     forward and dw launches whose plan walks C in chunks (the tensor-parallel
     shard 512 -> 32), under ``conv_k2_chunked_f32`` the float32 ones of those
     forwards, under ``conv_k2_dx_chunked`` the dx launches on the chunked dx
-    (that shard's bfloat16 dx, also under ``conv_k2_dx_narrow``)."""
+    (that shard's bfloat16 dx, also under ``conv_k2_dx_narrow``), under
+    ``conv_k2_wide`` the forward launches on the wide plan (the s2d(2) stem's
+    bfloat16 forward), under ``conv_k2_dw_ffma_fit`` the FFMA dw launches on a
+    tile fitted to a narrow side (N <= 32 or 8C <= 64)."""
     return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
             "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dx_wgmma": conv_k2.launches_dx_wgmma,
             "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma, "conv_k2_narrow": conv_k2.launches_narrow,
@@ -539,13 +546,14 @@ def read_counts() -> dict:
             "conv_k2_dx_ffma_split": conv_k2.launches_dx_ffma_split,
             "conv_k2_dw_persistent": conv_k2.launches_dw_persistent, "conv_k2_chunked": conv_k2.launches_chunked,
             "conv_k2_dw_chunked": conv_k2.launches_dw_chunked, "conv_k2_dx_chunked": conv_k2.launches_dx_chunked,
-            "conv_k2_chunked_f32": conv_k2.launches_chunked_f32}
+            "conv_k2_chunked_f32": conv_k2.launches_chunked_f32, "conv_k2_wide": conv_k2.launches_wide,
+            "conv_k2_dw_ffma_fit": conv_k2.launches_dw_ffma_fit}
 
 
 def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
                   narrow: tuple[int, int, int] = (0, 0, 0), split: tuple[int, int] = (0, 0),
                   wide: int = 0, ffma_split: tuple[int, int] = (0, 0), persistent: int = 0,
-                  chunked: tuple[int, int, int] = (0, 0, 0)) -> dict:
+                  chunked: tuple[int, int, int] = (0, 0, 0), wide_forward: int = 0, ffma_fit: int = 0) -> dict:
     """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
     all of them on the tensor-core kernels or none of them, ``narrow``'s
     forward / dx / dw launches of them on the narrow kernels, ``wide`` of the
@@ -556,7 +564,9 @@ def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
     the tensor-core dw's on the persistent kernel (the mid_blocked stages),
     and ``chunked``'s forward / dx / dw launches of the narrow ones whose
     plan walks C in chunks (dx: the chunked dx; all in bfloat16: the float32
-    ones run in phase 19 alone, which holds its counts to ``tp_expected``)."""
+    ones run in phase 19 alone, which holds its counts to ``tp_expected``),
+    ``wide_forward`` forward launches on the wide plan and ``ffma_fit`` FFMA
+    dw launches on a tile fitted to a narrow side."""
     counts = read_counts()
     want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
             "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dx_wgmma": dx if tensor_cores else 0,
@@ -565,7 +575,8 @@ def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
             "conv_k2_dx_split": split[1], "conv_k2_split_reduce": split[0] + split[1], "conv_k2_dw_wide": wide,
             "conv_k2_ffma_split": ffma_split[0], "conv_k2_dx_ffma_split": ffma_split[1],
             "conv_k2_dw_persistent": persistent, "conv_k2_chunked": chunked[0], "conv_k2_dx_chunked": chunked[1],
-            "conv_k2_dw_chunked": chunked[2], "conv_k2_chunked_f32": 0}
+            "conv_k2_dw_chunked": chunked[2], "conv_k2_chunked_f32": 0, "conv_k2_wide": wide_forward,
+            "conv_k2_dw_ffma_fit": ffma_fit}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     return counts
@@ -634,13 +645,16 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
     design and dtype, and hold the design the launch took to ``want`` ("wgmma",
     "persistent" (the tensor-core dw on persistent blocks), "narrow",
     "chunked" (the narrow forward or dw that walks C in chunks, or the
-    chunked dx),
-    "ffma_split" (the float32 FFMA forward or dx with its depth split) or
+    chunked dx), "wide" (the forward on the wide plan, the chunked dx's
+    kernel run forward),
+    "ffma_split" (the float32 FFMA forward or dx with its depth split),
+    "ffma_fit" (the FFMA dw on a tile fitted to a narrow side) or
     "ffma"). With ``exact`` (a float64 product) the tensor-core and narrow
     kernels and their plain versions are also held against it; dw and the
-    chunked kernels must give the same bits twice (a chunked dx that freed a
-    halo stage too early gave other bits at most launches)."""
-    designs = ("persistent", "ffma_split", "wgmma", "chunked", "narrow")
+    chunked and wide kernels must give the same bits twice (a chunked dx that
+    freed a halo stage too early gave other bits at most launches)."""
+    # the first whose counter moved: a narrow dw on the dw-only plan also moves conv_k2_dw_wide
+    designs = ("persistent", "ffma_split", "wgmma", "chunked", "narrow", "wide", "ffma_fit")
 
     def launched(design: str) -> int:
         return sum(n for name, n in read_counts().items() if name.endswith(f"_{design}"))
@@ -675,7 +689,7 @@ def check_kernel(kernel: str, label: str, run, plain, exact: torch.Tensor | None
                  f"plain {err_p:.3e} ({err_p / top64:.2e} rel), tol {tol64:.3e}")
         if not (err_k <= tol64 and err_p <= tol64):
             raise AssertionError(f"{line}: off the float64 product")
-    if kernel == "conv_k2_dw" or design == "chunked":
+    if kernel == "conv_k2_dw" or design in ("chunked", "wide"):
         same = bool(torch.equal(out, run()))
         line += f"; same bits twice: {same}"
         if not same:
@@ -746,9 +760,11 @@ def phase_kernels(card: str) -> dict:
                     for key, v in zip(keys, (ms, plain_ms, library_ms, bound_ms)):
                         r[key] += v
                 del exact
-        # off the main path, bfloat16: a shape with a wgmma plan (8^3), one with none (ragged grid, N = 24) and one
-        # with a narrow plan (a whole-grid box of 210 rows): the design of forward, dx and dw each
-        for shape, C, N, designs in (((3, 8, 8, 8), 64, 64, ("wgmma",) * 3), ((2, 5, 6, 7), 16, 24, ("ffma",) * 3),
+        # off the main path, bfloat16: a shape with a wgmma plan (8^3), one with none (ragged grid, N = 24: its dw on
+        # the FFMA tile fitted to N <= 32) and one with a narrow plan (a whole-grid box of 210 rows): the design of
+        # forward, dx and dw each
+        for shape, C, N, designs in (((3, 8, 8, 8), 64, 64, ("wgmma",) * 3),
+                                     ((2, 5, 6, 7), 16, 24, ("ffma", "ffma", "ffma_fit")),
                                      ((3, 5, 6, 7), 16, 16, ("narrow",) * 3)):
             assert (wgmma_plan(*shape, C, N) is not None) == (designs[0] == "wgmma")
             assert (narrow_plan(*shape, C, N) is not None) == (designs[0] == "narrow")
@@ -810,7 +826,11 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     more: ``conv_k2_dx_chunked``, the chunked dx on the tensor cores
     (headline: that shard's bf16 dx at B=32), and ``conv_k2_chunked_f32``,
     the float32 forward that walks C in chunks of 16 (headline: that shard's
-    f32 forward at B=32)."""
+    f32 forward at B=32). And two more: ``conv_k2_wide``, the bf16 forward of
+    a narrow input and a wide output on the chunked dx's kernel run forward
+    (headline: the s2d(2) stem at B=32), and ``conv_k2_dw_ffma_fit``, the FFMA
+    dw on a tile fitted to a narrow side (headline: that shard's f32 dw at
+    B=32; the stem's f32 dw among its cases)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
              variant_counts, stream_counts, real_counts, mapping_counts, mid_counts, tp_counts)
     names = ("serve", "train", "anytime", "lifecycle", "artifact", "image", "detector", "variants", "pretrain_stream",
@@ -824,18 +844,22 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
                 "conv_k2_ffma_split": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_dw_persistent": "anytime3d_tpu/kernels/conv_k2.py:184",
                 "conv_k2_dx_chunked": "anytime3d_tpu/kernels/conv_k2.py:178",
-                "conv_k2_chunked_f32": "anytime3d_tpu/kernels/conv_k2.py:156"}
+                "conv_k2_chunked_f32": "anytime3d_tpu/kernels/conv_k2.py:156",
+                "conv_k2_wide": "anytime3d_tpu/kernels/conv_k2.py:156",
+                "conv_k2_dw_ffma_fit": "anytime3d_tpu/kernels/conv_k2.py:184"}
     # the case of the headline numbers: the shapes its main path gives each kernel
     heads = {"conv_k2": "b8_f32", "conv_k2_dx": "b32_bf16", "conv_k2_dw": "b32_bf16",
              "conv_k2_split_reduce": "mid_b8_bf16_4cubed 4^3 2048->512", "conv_k2_dw_wide": "stem_b32_bf16",
              "conv_k2_ffma_split": "conv_k2 mid_b8_f32_4cubed 4^3 2048->512",
              "conv_k2_dw_persistent": "mid_b8_bf16_4cubed 4^3 2048->512",
              "conv_k2_dx_chunked": f"tp_b32_bf16 {GRID}^3 512->32",
-             "conv_k2_chunked_f32": f"tp_b32_f32 {GRID}^3 512->32"}
+             "conv_k2_chunked_f32": f"tp_b32_f32 {GRID}^3 512->32", "conv_k2_wide": "stem_b32_bf16",
+             "conv_k2_dw_ffma_fit": f"tp_b32_f32 {GRID}^3 512->32"}
     sources = {"conv_k2_dw_wide": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
                "conv_k2_dw_persistent": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
                "conv_k2_dx_chunked": "anytime3d_tpu_torch/kernels/csrc/conv_k2_chunked_dx.cuh",
-               "conv_k2_chunked_f32": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh"}
+               "conv_k2_chunked_f32": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
+               "conv_k2_wide": "anytime3d_tpu_torch/kernels/csrc/conv_k2_chunked_dx.cuh"}
     # the counters of an entry's launches: its own, but the split FFMA's are its forward's and its dx's
     counted = {"conv_k2_ffma_split": ("conv_k2_ffma_split", "conv_k2_dx_ffma_split")}
     entries = []
@@ -2435,29 +2459,41 @@ def phase_detector(device: torch.device, card: str) -> dict:
 
 def phase_stem_kernels(card: str) -> dict:
     """``conv_k2`` and dw at the classic encoder's space-to-depth(2) stem
-    (64^3 x 1 folded to 32^3 x 8, C=8 -> N=64: no wgmma or narrow plan, so
-    the forward takes the FFMA kernel; dw in bfloat16 the dw-only narrow plan,
-    in float32 the FFMA dw) at B=8 and B=32 in float32 and bfloat16: each
-    against its plain version and a float64 product of the same operands,
-    timed by events and on the card alone beside its library call and its
-    bound, each row labelled with the route it took. Returns ``{kernel: {case:
-    numbers}}`` as ``phase_kernels``, the bfloat16 dw rows also under
-    ``conv_k2_dw_wide``."""
+    (64^3 x 1 folded to 32^3 x 8, C=8 -> N=64: no wgmma or narrow plan) at
+    B=8 and B=32 in float32 and bfloat16, on their routes: the bfloat16
+    forward on the wide plan (the chunked dx's kernel run forward), the
+    float32 forward on the FFMA GEMM; dw in bfloat16 on the dw-only narrow
+    plan, in float32 on the FFMA dw's 64 x 64 tile (fitted to 8C = 64 rows).
+    Each against its plain version and a float64 product of the same
+    operands, timed by events and on the card alone beside its library call
+    and its bound, each row labelled with the route it took; the bfloat16
+    forward also beside the FFMA GEMM it replaced, launched straight through
+    the library on the card alone. Returns ``{kernel: {case: numbers}}`` as
+    ``phase_kernels``, the bfloat16 forward rows also under ``conv_k2_wide``,
+    the bfloat16 dw rows under ``conv_k2_dw_wide`` and the float32 dw rows
+    under ``conv_k2_dw_ffma_fit``."""
+    from anytime3d_tpu_torch.kernels import conv_k2 as k2mod
+
     grid, C, N = STEM_K2
     gen = torch.Generator().manual_seed(SEED + 13)
-    res = {"conv_k2": {}, "conv_k2_dw": {}, "conv_k2_dw_wide": {}}
+    res = {"conv_k2": {}, "conv_k2_dw": {}, "conv_k2_wide": {}, "conv_k2_dw_wide": {}, "conv_k2_dw_ffma_fit": {}}
+    routes = {("conv_k2", torch.bfloat16): "wide", ("conv_k2", torch.float32): "ffma",
+              ("conv_k2_dw", torch.bfloat16): "narrow", ("conv_k2_dw", torch.float32): "ffma_fit"}
+    entries = {"wide": "conv_k2_wide", "narrow": "conv_k2_dw_wide", "ffma_fit": "conv_k2_dw_ffma_fit"}
     with torch.inference_mode():
         for case, batch, dtype in STEM_CASES:
             assert wgmma_plan(batch, grid, grid, grid, C, N) is None
             assert narrow_plan(batch, grid, grid, grid, C, N, dtype=dtype) is None
-            wide = narrow_dw_plan(batch, grid, grid, grid, C, N, dtype=dtype)
-            assert (wide is not None) == (dtype == torch.bfloat16)
+            wide_dw = narrow_dw_plan(batch, grid, grid, grid, C, N, dtype=dtype)
+            wide_fwd = wide_plan(batch, grid, grid, grid, C, N, dtype=dtype)
+            assert (wide_dw is not None) == (wide_fwd is not None) == (dtype == torch.bfloat16)
+            assert ffma_dw_fitted(C, N)
             x, w, g = k2_operands(gen, (batch, grid, grid, grid), C, N, dtype)
             exact = float64_products(x, w, g)
             runs = k2_runs(x, w, g)
             for kernel in ("conv_k2", "conv_k2_dw"):
                 run, plain, library = runs[kernel]
-                route = "narrow" if kernel == "conv_k2_dw" and wide is not None else "ffma"
+                route = routes[kernel, dtype]
                 label = f"s2d(2) stem {case} B={batch} {grid}^3 {C}->{N}"
                 checked = check_kernel(kernel, label, run, plain, None, route)
                 # held to float64 too: f32 sums of at most 64 (forward) or 2^20 (dw) products
@@ -2475,8 +2511,24 @@ def phase_stem_kernels(card: str) -> dict:
                 a1, l1, l2, a2 = (device_ms(f, iters=50) for f in (run, library, library, run))
                 alone, library_alone = (a1 + a2) / 2, (l1 + l2) / 2
                 bound_ms, bound_by = k2_bound_ms(kernel, batch, C, N, dtype, grid)
-                detail = (f" (dw-only plan: box {wide.dw_box}, {wide.dw_splits} splits of {wide.dw_boxes_per_split} "
-                          f"boxes)" if route == "narrow" else "")
+                detail = ""
+                if route == "narrow":
+                    detail = (f" (dw-only plan: box {wide_dw.dw_box}, {wide_dw.dw_splits} splits of "
+                              f"{wide_dw.dw_boxes_per_split} boxes)")
+                elif route == "ffma_fit":
+                    splits, per_split = k2mod.ffma_dw_split(batch * grid**3, C, N, dtype=dtype)
+                    bm, bn, per_sm = k2mod._ffma_dw_tile(C, N)
+                    detail = f" ({bm} x {bn} tiles, {per_sm} blocks an SM, {splits} splits of {per_split} stages)"
+                elif route == "wide":
+                    # the route it replaced, the bf16 FFMA GEMM, launched straight through the library
+                    y = torch.empty(batch, grid, grid, grid, N, dtype=dtype, device=x.device)
+                    ffma = lambda: k2mod._check_launch("FFMA forward", k2mod._lib().conv_k2_forward(  # noqa: E731
+                        x.data_ptr(), w.data_ptr(), y.data_ptr(), 0, 1, 8 * C // 16, batch, grid, grid, grid, C, N,
+                        1, x.device.index, k2mod._stream(x)))
+                    f1, f2 = device_ms(ffma, iters=50), device_ms(ffma, iters=50)
+                    detail = (f" (box {wide_fwd.box}, {wide_fwd.chunks} chunk of {wide_fwd.bn}, {wide_fwd.stages} "
+                              f"halo stages, {wide_fwd.grid} blocks; the FFMA GEMM it replaced, alone "
+                              f"{(f1 + f2) / 2:.4f} ms ({f1:.4f}, {f2:.4f}))")
                 print(f"{kernel} {label} [{route}]{detail}: against float64 (largest entry {top64:.3e}) kernel "
                       f"{err_k:.3e} plain {err_p:.3e} (tol {tol64:.3e}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                       f"library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); on the card alone kernel "
@@ -2489,8 +2541,8 @@ def phase_stem_kernels(card: str) -> dict:
                        "max_abs_err": checked["max_abs_err"], "bound_by": bound_by, "design": route,
                        "device_ms": alone, "library_device_ms": library_alone}
                 res[kernel][case] = row
-                if route == "narrow":
-                    res["conv_k2_dw_wide"][case] = row
+                if route in entries:
+                    res[entries[route]][case] = row
             del x, w, g, exact, runs
     return res
 
@@ -2644,7 +2696,7 @@ def phase_variants(device: torch.device, card: str) -> dict:
                "classic_s2d2": dataclasses.replace(classic, encoder3d=dataclasses.replace(
                    classic.encoder3d, stem_space_to_depth=2))}
     for label, cfg in layouts.items():
-        (fwd, dx, dw), tensor_cores, narrow = VARIANT_LAYOUTS[label]
+        (fwd, dx, dw), tensor_cores, narrow, wide_fwd = VARIANT_LAYOUTS[label]
         model = MultiModalVAE(cfg, generator=torch.Generator().manual_seed(SEED), dtype=torch.bfloat16).to(device)
         state = create_train_state(model)
         step = make_train_step(model, loss_cfg)
@@ -2661,7 +2713,7 @@ def phase_variants(device: torch.device, card: str) -> dict:
         metrics = {k: float(v) for k, v in step(state, batch, gen)[1].items()}
         add(expect_counts(f"layout {label}", fwd * (n_steps + 1), dx * (n_steps + 1), dw * (n_steps + 1),
                           tensor_cores, narrow=tuple(n * (n_steps + 1) for n in narrow),
-                          wide=narrow[2] * (n_steps + 1)))
+                          wide=narrow[2] * (n_steps + 1), wide_forward=wide_fwd * (n_steps + 1)))
         if not (all(math.isfinite(v) for v in metrics.values()) and metrics["grads_finite"] == 1.0):
             raise AssertionError(f"layout {label}: {metrics}")
         print(f"layout {label} of modelnet_nolbo (encoder head_blocked {cfg.encoder3d.head_blocked}, stem "
@@ -2671,7 +2723,7 @@ def phase_variants(device: torch.device, card: str) -> dict:
               f"mean of {n_steps} after 1) {ms:.2f} ms; peak memory allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; conv_k2 {fwd} / {dx} / {dw} a step "
               f"({'wgmma' if tensor_cores else 'FFMA' if fwd else 'none'}; narrow {narrow[0]} / {narrow[1]} / "
-              f"{narrow[2]}); metrics {metrics} [{card}]", flush=True)
+              f"{narrow[2]}; wide forward {wide_fwd}); metrics {metrics} [{card}]", flush=True)
         del model, state, step, batch
         torch.cuda.empty_cache()
 
@@ -4326,7 +4378,8 @@ def tp_expected(batch: int, dtype: torch.dtype, model: int) -> dict:
     of 2, whose forward and dw walk C in chunks (the narrow kernels) and whose
     dx (the forward from 32 to 512, which neither plan of that forward takes)
     is the chunked dx; in f32 the FFMA ones, but that shard's forward, which
-    walks C in chunks of 16 (its dx and dw keep FFMA)."""
+    walks C in chunks of 16 (its dx and dw keep FFMA, dw on the tile fitted to
+    its 32 columns)."""
     want = dict.fromkeys(read_counts(), 0)
     bf16 = dtype == torch.bfloat16
     for stage, (C, N) in enumerate(FLAGSHIP_K2):
@@ -4348,6 +4401,7 @@ def tp_expected(batch: int, dtype: torch.dtype, model: int) -> dict:
         want["conv_k2_chunked_f32"] += chunked and not bf16
         want["conv_k2_dw_narrow"] += chunked_dw
         want["conv_k2_dw_chunked"] += chunked_dw
+        want["conv_k2_dw_ffma_fit"] += fwd is None and not chunked_dw and ffma_dw_fitted(C, n)
         if stage:
             want["conv_k2_dx"] += 1
             want["conv_k2_dx_wgmma"] += dx is not None
@@ -4505,7 +4559,8 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
 
     # (a) forward, dx and dw at the shard shapes, in both types, on the routes their plans give them
     gen = torch.Generator().manual_seed(SEED + 29)
-    rows = {"conv_k2": {}, "conv_k2_dx": {}, "conv_k2_dw": {}, "conv_k2_dx_chunked": {}, "conv_k2_chunked_f32": {}}
+    rows = {"conv_k2": {}, "conv_k2_dx": {}, "conv_k2_dw": {}, "conv_k2_dx_chunked": {}, "conv_k2_chunked_f32": {},
+            "conv_k2_dw_ffma_fit": {}}
     with torch.inference_mode():
         for case, batch, dtype in TP_CASES:
             for C, n in TP_K2:
@@ -4521,10 +4576,13 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
                     elif kernel == "conv_k2_dw" and narrow is not None and narrow.dw_box is None:
                         narrow = None  # the f32 walk in chunks is the forward's alone
                     # 512 -> 32: in bf16 the forward and dw walk C in chunks, dx takes the chunked dx; in f32 the
-                    # forward walks C in chunks of 16, dx and dw keep FFMA
+                    # forward walks C in chunks of 16, dx keeps FFMA and dw takes the FFMA tile of 32 columns
                     want = "wgmma" if plan is not None else "chunked" if narrow is not None else "ffma"
+                    if want == "ffma" and kernel == "conv_k2_dw" and ffma_dw_fitted(C, n):
+                        want = "ffma_fit"
                     assert (want == "chunked") == (n == 32 and (bf16 or kernel == "conv_k2"))
-                    assert (want == "ffma") == (not bf16 and (n != 32 or kernel != "conv_k2"))
+                    assert (want == "ffma_fit") == (not bf16 and n == 32 and kernel == "conv_k2_dw")
+                    assert (want == "ffma") == (not bf16 and (n != 32 or kernel == "conv_k2_dx"))
                     label = f"{case} {GRID}^3 {C}->{n}"
                     checked = check_kernel(kernel, label, run, plain, exact.get(kernel), want)
                     p1, t1, t2, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
@@ -4538,6 +4596,8 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
                     if checked["design"] == "chunked" and (kernel == "conv_k2_dx" or not bf16):
                         # the kernels of this shard's own entries: the chunked dx, the float32 chunked forward
                         rows["conv_k2_dx_chunked" if bf16 else "conv_k2_chunked_f32"][label] = row
+                    if checked["design"] == "ffma_fit":  # and the float32 dw on the FFMA tile of 32 columns
+                        rows["conv_k2_dw_ffma_fit"][label] = row
                     print(f"{kernel} TP shard {label} [{checked['design']}]: kernel {ms:.4f} ms plain "
                           f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); on "
                           f"the card alone kernel {row['device_ms']:.4f} ms ({a1:.4f}, {a2:.4f}) library "
@@ -4546,14 +4606,15 @@ def phase_tensor_parallel(device: torch.device, card: str) -> tuple[dict, dict]:
                           f"{row['device_ms'] / row['library_device_ms']:.2f}) [{card}]", flush=True)
                 del x, w, g, exact
     torch.cuda.empty_cache()
-    for case, _, _ in TP_CASES:  # K8, K8b, K3: the shard that walks C in chunks
+    for case, _, _ in TP_CASES:  # K8, K8b, K3 and the FFMA dw's tile of 32 columns: the shard 512 -> 32
         parts = []
         for kernel in ("conv_k2", "conv_k2_dw", "conv_k2_dx"):
             r = rows[kernel][f"{case} {GRID}^3 512->32"]
             parts.append(f"{kernel} [{r['design']}] alone {r['device_ms']:.4f} ms against cuDNN's call alone "
                          f"{r['library_device_ms']:.4f} ms ({r['device_ms'] / r['library_device_ms']:.2f}x), bound "
                          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_ms'] / r['device_ms']:.1%} of it)")
-        print(f"TP shard {case} {GRID}^3 512->32 (K8, K8b, K3): " + "; ".join(parts) + f" [{card}]", flush=True)
+        print(f"TP shard {case} {GRID}^3 512->32 (K8, K8b, K3, the f32 dw's fitted tile): " + "; ".join(parts)
+              + f" [{card}]", flush=True)
 
     # (b) the flagship at full width: the placements, the 1-rank references here, then two model ranks
     cfg = REGISTRY["modelnet_nolbo"]()

@@ -36,10 +36,12 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2_dx,
     conv_k2_dx_reference,
     conv_k2_reference,
+    ffma_dw_fitted,
     ffma_dw_split,
     narrow_dw_plan,
     narrow_plan,
     wgmma_plan,
+    wide_plan,
 )
 from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo, pascal_nolbo
 from anytime3d_tpu_torch.models.detector import DetectorConfig, DetectorReconstructor
@@ -517,34 +519,112 @@ def test_ffma_dw_matches_plain_at_the_tile_edges(cuda, B, D, H, W, C, N, dtype):
 @pytest.mark.parametrize("B", [2, 8])
 def test_s2d_stem_kernels_match_plain(cuda, B, dtype):
     """The classic encoder's space-to-depth(2) stem, ``conv_k2`` 8 -> 64 at
-    32^3 (no tensor-core or narrow plan: the forward on the FFMA kernel), and
-    dw: in bfloat16 on the dw-only narrow plan (``launches_dw_narrow`` and
-    ``launches_dw_wide`` move), in float32 on the FFMA dw. Against their plain
-    versions with the forward's and dw's tolerances (dw also against a float64
-    product, as every tensor-core dw); dw the same bits twice."""
+    32^3 (no tensor-core or narrow plan), and dw: in bfloat16 the forward on
+    the wide plan (the chunked dx's kernel run forward: ``launches_wide``
+    moves) and dw on the dw-only narrow plan (``launches_dw_narrow`` and
+    ``launches_dw_wide`` move); in float32 the forward on the FFMA GEMM and
+    dw on the FFMA dw's 64 x 64 tile (``launches_dw_ffma_fit`` moves).
+    Against their plain versions with the forward's and dw's tolerances, and
+    against float64 products: dw as every tensor-core dw, the bfloat16
+    forward as the chunked kernels' (half an ulp of the largest entry, plus
+    the sum's own error); dw the same bits twice."""
     C, N, G = 8, 64, 32
     assert wgmma_plan(B, G, G, G, C, N) is None and narrow_plan(B, G, G, G, C, N, dtype=dtype) is None
     wide = dtype == torch.bfloat16
     assert (narrow_dw_plan(B, G, G, G, C, N, dtype=dtype) is not None) == wide
+    assert (wide_plan(B, G, G, G, C, N, dtype=dtype) is not None) == wide and ffma_dw_fitted(C, N)
     gen = torch.Generator().manual_seed(6)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
     g = torch.randn(B, G, G, G, N, generator=gen).to(cuda, dtype)
-    before, before_wg, before_nr, before_wide = _counts(), _wgmma_counts(), _narrow_counts(), conv_k2.launches_dw_wide
+    before, before_wg, before_nr = _counts(), _wgmma_counts(), _narrow_counts()
+    before_wide = (conv_k2.launches_wide, conv_k2.launches_dw_wide, conv_k2.launches_dw_ffma_fit)
     with torch.no_grad():
         y, dw, again = conv_k2(x, w), conv_k2_dw(x, g), conv_k2_dw(x, g)
         y_ref, dw_ref = conv_k2_reference(x, w), conv_k2_dw_reference(x, g)
-        dw64 = _dw_float64(x, g)
+        y64, dw64 = _float64_forward(x, w), _dw_float64(x, g)
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1], before[2] + 2)
     assert _wgmma_counts() == before_wg and _narrow_counts() == (before_nr[0], before_nr[1], before_nr[2] + 2 * wide)
-    assert conv_k2.launches_dw_wide == before_wide + 2 * wide
+    assert (conv_k2.launches_wide, conv_k2.launches_dw_wide, conv_k2.launches_dw_ffma_fit) == (
+        before_wide[0] + wide, before_wide[1] + 2 * wide, before_wide[2] + 2 * (not wide))
     err = float((y.float() - y_ref.float()).abs().max())
     assert err <= (1e-4 if dtype == torch.float32 else 2.0**-7 * float(y_ref.float().abs().max())), err
+    if wide:
+        tol64 = (2.0**-8 + DW_TOL_F64_REL) * float(y64.abs().max())
+        for out in (y, y_ref):
+            assert float((out.double() - y64).abs().max()) <= tol64
     assert torch.equal(dw, again)
     err = float((dw - dw_ref).abs().max())
     assert err <= 1e-5 * float(dw_ref.abs().max()), err
     assert float((dw.double() - dw64).abs().max()) <= DW_TOL_F64_REL * float(dw64.abs().max())
+
+
+def test_wide_forward_gives_the_same_bits_at_the_stem(cuda):
+    """The wide forward at the stem's train batch (B=32, 32^3, 8 -> 64, bf16), 20 launches through the op:
+    each the same bits as the first, and the first within 2^-7 of the largest entry of the plain version
+    (each side rounds an f32 sum once to bf16). The chunked dx it runs forward gave wrong rows in most
+    launches at its largest shape when a halo stage went back to the producer too early."""
+    B, G, C, N = 32, 32, 8, 64
+    assert wide_plan(B, G, G, G, C, N) is not None
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, torch.bfloat16)
+    before = conv_k2.launches_wide
+    with torch.inference_mode():
+        first = conv_k2(x, w)
+        differ = sum(not torch.equal(conv_k2(x, w), first) for _ in range(19))
+        ref = conv_k2_reference(x, w)
+    assert conv_k2.launches_wide == before + 20 and differ == 0
+    assert float((first.float() - ref.float()).abs().max()) <= 2.0**-7 * float(ref.float().abs().max())
+
+
+# (B, D, H, W, C, N) of the FFMA dw's tiles fitted to a narrow side: 128 x 32 where N <= 32 (N = 32, 16, 8 below
+# 8C of several row tiles, the tensor-parallel shard 512 -> 32 at B=8), 64 x 64 where 8C <= 64 (C = 8: N = 64 on
+# ragged grids, N = 128 and 192 in two and three column tiles), and C = 8 with N = 32 (the 128 x 32 tile with
+# half its rows past 8C); one split where the grid is small, several else
+FFMA_DW_FITTED = [(2, 5, 6, 7, 64, 32), (2, 9, 10, 11, 24, 16), (1, 16, 16, 16, 136, 8), (8, 16, 16, 16, 512, 32),
+                  (2, 5, 6, 7, 8, 64), (3, 9, 10, 11, 8, 128), (1, 16, 16, 16, 8, 192), (2, 9, 10, 11, 8, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,D,H,W,C,N", FFMA_DW_FITTED)
+def test_ffma_dw_fitted_tiles_match_plain_and_float64(cuda, B, D, H, W, C, N, dtype):
+    """The FFMA dw on its fitted tiles, launched straight through the library (so that bfloat16 shapes the
+    narrow plans take run the FFMA dw too) with ``ffma_dw_split``'s splits of the dtype, and through the op
+    where no plan takes the shape (``launches_dw_ffma_fit`` moves): against ``conv_k2_dw_reference`` (f32
+    sums of the same products in another order, 1e-5 of the largest entry) and the float64 sum
+    (DW_TOL_F64_REL); the same bits from two launches."""
+    assert ffma_dw_fitted(C, N)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, dtype)
+    g = torch.randn(B, D, H, W, N, generator=gen).to(cuda, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, per_split = ffma_dw_split(B * D * H * W, C, N, sms=sms, dtype=dtype)
+    workspace = torch.empty(splits if splits > 1 else 0, 8 * C, N, device=cuda)
+    dw, again = (torch.empty(2, 2, 2, C, N, device=cuda) for _ in range(2))
+    for out in (dw, again):
+        k2._check_launch("dw", k2._lib().conv_k2_backward_weight(
+            x.data_ptr(), g.data_ptr(), out.data_ptr(), workspace.data_ptr(), splits, per_split, B, D, H, W, C, N,
+            k2._DTYPE_CODES[dtype], cuda.index or 0, torch.cuda.current_stream().cuda_stream))
+    with torch.no_grad():
+        ref, dw64 = conv_k2_dw_reference(x, g), _dw_float64(x, g)
+    plan = narrow_plan(B, D, H, W, C, N, dtype=dtype)
+    planned = plan is not None and plan.dw_box is not None
+    planned = planned or narrow_dw_plan(B, D, H, W, C, N, dtype=dtype) is not None
+    if not planned:
+        before = (conv_k2.launches_dw, conv_k2.launches_dw_ffma_fit, conv_k2.launches_dw_narrow)
+        with torch.no_grad():
+            op = conv_k2_dw(x, g)
+        assert (conv_k2.launches_dw, conv_k2.launches_dw_ffma_fit, conv_k2.launches_dw_narrow) == (
+            before[0] + 1, before[1] + 1, before[2])
+        assert torch.equal(op, dw)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, again)
+    assert float((dw - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    tol64 = DW_TOL_F64_REL * float(dw64.abs().max())
+    for out in (dw, ref):
+        assert float((out.double() - dw64).abs().max()) <= tol64
 
 
 def test_backward_launches_only_what_is_asked(cuda):
@@ -989,7 +1069,8 @@ N8_SHAPES = [(2, 8, 8), (4, 32, 32), (2, 32, 64)]
 def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
     """Forward, dx and dw at N = 8 against their plain versions: in bfloat16
     the forward and dw on the narrow kernels, and dx where its forward from 8
-    to C channels has a narrow plan (C = 8, 32; C = 64 stays FFMA); in float32
+    to C channels has a narrow plan (C = 8, 32; at C = 64 the chunked dx,
+    counted as narrow too); in float32
     all three on the narrow kernels where C <= 32 (at C = 64 the forward
     walks C in chunks of 16, dx and dw stay FFMA). The counters of the narrow
     kernels move as that says, no tensor-core one does; dw gives the same
@@ -1002,6 +1083,8 @@ def test_kernels_match_plain_at_n8(cuda, B, G, C, dtype):
     narrow_fwd, narrow_dw = plan is not None, plan is not None and plan.dw_box is not None
     narrow_dx = narrow_plan(B, G, G, G, 8, C, dtype=dtype) is not None
     assert narrow_fwd and narrow_dw == (bf16 or C <= 32) and narrow_dx == (C <= 32)
+    assert (chunked_dx_plan(B, G, G, G, C, 8) is not None) == (C == 64)
+    narrow_dx = narrow_dx or (bf16 and C == 64)
     gen = torch.Generator().manual_seed(9)
     x = torch.randn(B, G, G, G, C, generator=gen).to(cuda, dtype)
     w = (torch.randn(2, 2, 2, C, 8, generator=gen) / (8 * C) ** 0.5).to(cuda, dtype)
@@ -1049,17 +1132,18 @@ def _float64_forward(x, w):
 def test_narrow_kernels_match_plain_and_float64(cuda, B, D, H, W, C, N):
     """bfloat16 shapes with a narrow plan, through autograd: the forward and
     dw on the narrow kernels, dx too where its forward from N to C has a
-    narrow plan, else on the FFMA kernel (the counters move as that says, no
-    tensor-core one does). The forward and dx against their plain versions
-    (2^-7 of the largest output) and, the forward and a narrow dx, both
-    sides against a float64 product (an f32 sum rounded once to bf16, half an
+    narrow plan (C <= 32), else (C = 64) on the chunked dx, counted as narrow
+    too (the counters move as that says, no tensor-core one does). The forward and dx against their plain versions
+    (2^-7 of the largest output) and, the forward and a narrow or chunked dx,
+    both sides against a float64 product (an f32 sum rounded once to bf16, half an
     ulp of the largest entry, plus the sum's own error); dw against its plain
     version (f32 sums in another order, 1e-5 of the largest entry) and both
     against the float64 sum (DW_TOL_F64_REL); dw the same bits from two
     calls."""
     assert wgmma_plan(B, D, H, W, C, N) is None and narrow_plan(B, D, H, W, C, N) is not None
     narrow_dx = narrow_plan(B, D, H, W, N, C) is not None
-    assert narrow_dx == (C <= 32)
+    assert narrow_dx == (C <= 32) and (chunked_dx_plan(B, D, H, W, C, N) is not None) == (C == 64)
+    narrow_dx = narrow_dx or C == 64
     gen = torch.Generator().manual_seed(11)
     x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, torch.bfloat16).requires_grad_()
     w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda).requires_grad_()  # an f32 parameter
@@ -1642,3 +1726,56 @@ def test_chunked_kernels_match_plain_and_float64(cuda, B, D, H, W, C, N, dtype):
     tol_dw64 = DW_TOL_F64_REL * float(dw64.abs().max())
     for out in (dw, dw_ref):
         assert float((out.double() - dw64).abs().max()) <= tol_dw64
+
+
+# (B, D, H, W) and (C, N) of the wide forward: the stem's 8 -> 64, C = 16 and 32, N in one chunk of 64, one of
+# 128 and three of 64 (192); ragged boxes along every axis (5x6x7: one box, past the grid on every side;
+# 9x10x40: boxes cut at each edge), 16^3 and 32^3
+WIDE_GRIDS = [(3, 5, 6, 7), (2, 9, 10, 40), (2, 16, 16, 16), (1, 32, 32, 32)]
+WIDE_PAIRS = [(8, 64), (16, 128), (32, 192), (32, 64), (8, 192)]
+
+
+@pytest.mark.parametrize("C,N", WIDE_PAIRS)
+@pytest.mark.parametrize("B,D,H,W", WIDE_GRIDS)
+def test_wide_forward_matches_plain_and_float64(cuda, B, D, H, W, C, N):
+    """The bfloat16 forward of a narrow input and a wide output on the wide plan (the chunked dx's kernel run
+    forward: the halo box of x at the box, zeros past the grid; the taps unmirrored), called as the op
+    (``launches_wide`` moves, no tensor-core, narrow or chunked counter): against its plain version (2^-7 of
+    the largest output: each side rounds an f32 sum once to bf16) and the float64 product (half an ulp of
+    the largest entry, plus the sum's own error); the same bits from two calls."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = wide_plan(B, D, H, W, C, N, sms=sms)
+    assert plan is not None and plan.chunks * plan.bn == N
+    gen = torch.Generator().manual_seed(37)
+    x = torch.randn(B, D, H, W, C, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(2, 2, 2, C, N, generator=gen) / (8 * C) ** 0.5).to(cuda, torch.bfloat16)
+    before, before_wg, before_nr, before_ch = _counts(), _wgmma_counts(), _narrow_counts(), _chunked_counts()
+    before_wide = conv_k2.launches_wide
+    with torch.inference_mode():
+        y, again = conv_k2(x, w), conv_k2(x, w)
+        y_ref, y64 = conv_k2_reference(x, w), _float64_forward(x, w)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 2, before[1], before[2]) and conv_k2.launches_wide == before_wide + 2
+    assert (_wgmma_counts(), _narrow_counts(), _chunked_counts()) == (before_wg, before_nr, before_ch)
+    assert y.dtype == torch.bfloat16 and y.shape == (B, D, H, W, N) and torch.equal(y, again)
+    assert float((y.float() - y_ref.float()).abs().max()) <= 2.0**-7 * float(y_ref.float().abs().max())
+    tol64 = (2.0**-8 + DW_TOL_F64_REL) * float(y64.abs().max())
+    for out in (y, y_ref):
+        assert float((out.double() - y64).abs().max()) <= tol64
+
+
+@pytest.mark.parametrize("op", ["conv_k2", "conv_k2_dw"])
+def test_wide_forward_passes_opcheck(cuda, op):
+    """The forward op on the wide plan at the stem's 8 -> 64 (B=2 at 16^3, bf16): schema, autograd (its
+    backward's dx, from 64 to 8, and dw, on the dw-only narrow plan), the fake implementation against the
+    kernel's output, an AOT-autograd trace; ``launches_wide`` moves. And dw there in float32, on the FFMA dw's
+    64 x 64 tile (``launches_dw_ffma_fit`` moves)."""
+    shape = (2, 16, 16, 16)
+    dtype = torch.bfloat16 if op == "conv_k2" else torch.float32
+    assert wide_plan(*shape, 8, 64) is not None and narrow_dw_plan(*shape, 8, 64) is not None
+    fn, args = _opcheck_ops(cuda, shape, 8, 64, 8, dtype)[op]
+    counter = "launches_wide" if op == "conv_k2" else "launches_dw_ffma_fit"
+    before = getattr(conv_k2, counter)
+    results = torch.library.opcheck(fn, args)
+    assert set(results.values()) == {"SUCCESS"}, results
+    assert getattr(conv_k2, counter) > before

@@ -37,10 +37,12 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     conv_k2_dx,
     conv_k2_dx_reference,
     conv_k2_reference,
+    ffma_dw_fitted,
     ffma_dw_split,
     narrow_dw_plan,
     narrow_plan,
     wgmma_plan,
+    wide_plan,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -973,14 +975,14 @@ def _check_chunked_dx_plan(B, D, H, W, C, N, plan, sms=132):
 
 @pytest.mark.parametrize("B,D,H,W,C,N", NARROW + CHUNKED)
 def test_narrow_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
-    """bfloat16: the narrow plan's forward and dw; where C is whole chunks of 64 (CHUNKED), also the chunked
-    dx's plan (the dx of C -> N, which neither plan of the forward from N to C takes), and no chunked dx plan
-    for the shapes C takes whole."""
+    """bfloat16: the narrow plan's forward and dw; where C is whole chunks of 64 (CHUNKED) or 64, also the
+    chunked dx's plan (the dx of C -> N, which neither plan of the forward from N to C takes), and no chunked dx
+    plan for the other shapes C takes whole (C <= 32: their dx has a narrow plan)."""
     plan = narrow_plan(B, D, H, W, C, N)
     assert plan is not None and wgmma_plan(B, D, H, W, C, N) is None
     _check_narrow_plan(B, D, H, W, C, N, plan, 2)
     dx_plan = chunked_dx_plan(B, D, H, W, C, N)
-    assert (dx_plan is not None) == (plan.c_chunks > 1)
+    assert (dx_plan is not None) == (plan.c_chunks > 1 or C == 64)
     if dx_plan is not None:
         assert wgmma_plan(B, D, H, W, N, C) is None and narrow_plan(B, D, H, W, N, C) is None
         _check_chunked_dx_plan(B, D, H, W, C, N, dx_plan)
@@ -1024,6 +1026,49 @@ def test_chunked_plan_of_the_tp_shard(N):
     assert (f32.box, f32.boxes, f32.grid, f32.c_chunks, f32.smem_bytes) == ((16, 8, 8), 128, 128, 32,
                                                                           TP_CHUNKED_F32_SMEM[N])
     _check_narrow_plan(32, 16, 16, 16, 512, N, f32, 4)
+
+
+# (B, D, H, W, C, N) of the wide forward (the chunked dx's kernel run forward: a narrow x, a wide y): the s2d(2)
+# stem at the served and the train batch, a ragged grid, C = 16 and 32, N of one chunk of 64 or 128 and of three
+# of 64
+WIDE = [(8, 32, 32, 32, 8, 64), (32, 32, 32, 32, 8, 64), (3, 5, 6, 7, 8, 64), (2, 16, 16, 16, 16, 64),
+        (2, 16, 16, 16, 32, 128), (1, 8, 8, 8, 16, 128), (2, 9, 10, 40, 32, 192)]
+# and without: float32 and float16, C = 64 (wgmma_plan's), C = 24 and 4 (no narrow width), N not a multiple of
+# 64 (96, 32: narrow_plan's)
+WIDE_NONE = [((8, 32, 32, 32, 8, 64), torch.float32), ((8, 32, 32, 32, 8, 64), torch.float16),
+             ((2, 8, 8, 8, 64, 64), torch.bfloat16), ((2, 8, 8, 8, 24, 64), torch.bfloat16),
+             ((2, 8, 8, 8, 4, 64), torch.bfloat16), ((2, 8, 8, 8, 8, 96), torch.bfloat16),
+             ((2, 8, 8, 8, 8, 32), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", WIDE)
+def test_wide_plan_fits_the_card_and_covers_every_row(B, D, H, W, C, N):
+    """The wide forward's plan is the chunked dx's cut with the roles of C and N swapped (x's C channels the
+    narrow operand's, y's N the wide result's): a box of 128 voxels whose first 64 rows tile it, its halo of 2C-byte
+    rows in whole KiB, the chunk's w of 8C/64 tiles of bn x 128 bytes, up to four stages within one block, every
+    (box, chunk) walked once; and no other plan takes the shape."""
+    plan = wide_plan(B, D, H, W, C, N)
+    assert plan is not None and wgmma_plan(B, D, H, W, C, N) is None and narrow_plan(B, D, H, W, C, N) is None
+    assert plan == k2._chunked_wide_plan(B, D, H, W, C, N, 132)
+    _check_chunked_dx_plan(B, D, H, W, N, C, plan)
+    for sms in (2, 7):
+        _check_chunked_dx_plan(B, D, H, W, N, C, wide_plan(B, D, H, W, C, N, sms=sms), sms=sms)
+
+
+@pytest.mark.parametrize("B", [8, 32])
+def test_wide_plan_of_the_stem(B):
+    """The s2d(2) stem's 8 -> 64 at 32^3: 8 x 4 x 4 boxes (the fewest halo voxels of a 128-voxel box, 225, in
+    3600 bytes: one 4 KiB stage), one chunk of 64 columns (all of w, 8 KB, in every block), four halo stages,
+    one block an SM: 58,496 bytes of shared memory."""
+    plan = wide_plan(B, 32, 32, 32, 8, 64)
+    assert (plan.box, plan.sub_box, plan.bn, plan.chunks, plan.grid, plan.stages) == ((8, 4, 4), (8, 4, 2), 64, 1,
+                                                                                      132, 4)
+    assert plan.boxes == B * 32**3 // 128 and plan.smem_bytes == 1024 + 8192 + 4 * 64 * 128 + 4 * 4096 + 128
+
+
+@pytest.mark.parametrize("shape,dtype", WIDE_NONE)
+def test_wide_plan_is_none_where_it_does_not_apply(shape, dtype):
+    assert wide_plan(*shape, dtype=dtype) is None
 
 
 @pytest.mark.parametrize("shape,dtype", NARROW_NONE)
@@ -1356,45 +1401,49 @@ NARROW_DX_CASES = ([pytest.param(*s, torch.bfloat16, id="-".join(map(str, s))) f
                       if narrow_plan(*s[:4], s[5], s[4], dtype=torch.float32) is not None])
 
 
-def _emulate_chunked_dx(g, w, plan):
-    """The chunked dx as its blocks walk it: block i holds column chunk i % chunks of w laid out as [C, 8N]
-    (wt[c, t N + n] = w[t, c, n], as the wrapper lays it out) and walks boxes i // chunks, + grid // chunks, ...;
-    each box's halo of g one voxel lower (zeros below 0 and past the grid) gives its 128 rows' A, each 8-channel
-    piece of a k-step from the row's voxel shifted by the mirror of the piece's tap (the ldmatrix addresses:
-    w'[s] = w[7 - s]^T), against the chunk's columns; warpgroup j's 64 rows (box rows 64 j ..) land as the TMA
+def _emulate_chunked(src, w, plan, forward=False):
+    """The chunked dx (or, ``forward``, the wide forward: the same kernel run forward) as its blocks walk it:
+    block i holds column chunk i % chunks of w laid out as the wrapper lays it out, [wide, 8 narrow] (dx:
+    wt[c, t N + n] = w[t, c, n]; forward: wt[n, t C + c] = w[t, c, n]), and walks boxes i // chunks, + grid //
+    chunks, ...; each box's halo of the narrow operand (dx: g one voxel lower; forward: x at the box; zeros
+    below 0 and past the grid) gives its 128 rows' A, each 8-channel piece of a k-step from the row's voxel
+    shifted by the piece's tap (dx: mirrored, w'[s] = w[7 - s]^T; forward: the tap itself, as the ldmatrix
+    addresses pick it), against the chunk's columns; warpgroup j's 64 rows (box rows 64 j ..) land as the TMA
     store lays them: row r of the sub-box (w fastest) at the sub-box's origin in the box (row 64 j's voxel),
-    clipped at the grid. Returns dx and how often each (voxel, chunk) was written."""
-    B, D, H, W, N = g.shape
-    C = w.shape[3]
+    clipped at the grid. Returns the result and how often each (voxel, chunk) was written."""
+    B, D, H, W, narrow = src.shape
+    wide = w.shape[4] if forward else w.shape[3]
     bw, bh, bd = plan.box
     sw, sh, sd = plan.sub_box
-    wt = w.reshape(8, C, N).permute(1, 0, 2).reshape(C, 8 * N)
+    C, N = (narrow, wide) if forward else (wide, narrow)
+    wt = w.reshape(8, C, N).permute(*((2, 0, 1) if forward else (1, 0, 2))).reshape(wide, 8 * narrow)
+    lower = 0 if forward else 1
     origins = _narrow_boxes(B, D, H, W, plan.box)
-    vrow, toff, rows = _narrow_rows(plan.box, N)
+    vrow, toff, rows = _narrow_rows(plan.box, narrow)
     assert rows == len(vrow) == 128
     per = plan.grid // plan.chunks
-    dx = torch.zeros(B, D, H, W, C)
+    out = torch.zeros(B, D, H, W, wide)
     written = torch.zeros(B, D, H, W, plan.chunks, dtype=torch.int32)
     for block in range(plan.grid):
         k = block % plan.chunks
         cols = slice(k * plan.bn, (k + 1) * plan.bn)
         for box in range(block // plan.chunks, plan.boxes, per):
             b, d0, h0, w0 = origins[box]
-            halo = _narrow_operand(g, (bw + 1, bh + 1, bd + 1), (b, d0 - 1, h0 - 1, w0 - 1))
-            out = _narrow_a(halo, vrow, toff[::-1], N) @ wt[cols].T
+            halo = _narrow_operand(src, (bw + 1, bh + 1, bd + 1), (b, d0 - lower, h0 - lower, w0 - lower))
+            tile = _narrow_a(halo, vrow, toff if forward else toff[::-1], narrow) @ wt[cols].T
             for j in range(2):
                 ow, oh, od = 64 * j % bw, 64 * j // bw % bh, 64 * j // (bw * bh)
                 for r in range(64):
                     d, h, ww = d0 + od + r // (sw * sh), h0 + oh + r // sw % sh, w0 + ow + r % sw
                     if d < D and h < H and ww < W:  # the TMA clips the ragged edge
-                        dx[b, d, h, ww, cols] = out[64 * j + r]
+                        out[b, d, h, ww, cols] = tile[64 * j + r]
                         written[b, d, h, ww, k] += 1
-    return dx, written
+    return out, written
 
 
 # the chunked dx: C = 128 (one column chunk of 128, two blocks of it) and 192 (three chunks of 64), several
 # boxes a block, boxes past the grid (5 x 6 x 7), every N
-CHUNKED_DX_EMULATED = CHUNKED_EMULATED + [(2, 8, 8, 8, 128, 16)]
+CHUNKED_DX_EMULATED = CHUNKED_EMULATED + [(2, 8, 8, 8, 128, 16), (2, 8, 8, 8, 64, 8), (1, 5, 6, 7, 64, 32)]
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", CHUNKED_DX_EMULATED)
@@ -1409,7 +1458,7 @@ def test_chunked_dx_halo_reads_give_dx(B, D, H, W, C, N):
     g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
     w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
     plan = chunked_dx_plan(B, D, H, W, C, N, sms=2)  # few blocks: each walks several boxes where there are
-    dx, written = _emulate_chunked_dx(torch.from_numpy(g), torch.from_numpy(w), plan)
+    dx, written = _emulate_chunked(torch.from_numpy(g), torch.from_numpy(w), plan)
     assert (written == 1).all()
     ref = conv_k2_dx_reference(torch.from_numpy(g), torch.from_numpy(w)).numpy()
     tol = 1e-5 * float(np.abs(ref).max())
@@ -1418,6 +1467,30 @@ def test_chunked_dx_halo_reads_give_dx(B, D, H, W, C, N):
     jax_dx = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))[0])
     np.testing.assert_allclose(dx.numpy(), jax_dx, atol=tol, rtol=0)
     np.testing.assert_allclose(conv_k2_dx(torch.from_numpy(g), torch.from_numpy(w)).numpy(), jax_dx, atol=tol, rtol=0)
+
+
+# the wide forward: the stem's 8 -> 64 on a small grid and a ragged one, C = 16 and 32, N in one chunk of 128 or
+# three of 64, several boxes a block
+WIDE_EMULATED = [(2, 8, 8, 8, 8, 64), (1, 5, 6, 7, 8, 64), (2, 4, 8, 16, 16, 128), (1, 9, 10, 11, 32, 192)]
+
+
+@pytest.mark.parametrize("B,D,H,W,C,N", WIDE_EMULATED)
+def test_wide_forward_halo_reads_give_the_forward(B, D, H, W, C, N):
+    """The wide forward's walk (``conv_k2_chunked_dx_kernel`` run forward): halo boxes of x at the box's origin,
+    one voxel higher (the zeros past the grid are the high pad), A from the row table at the unmirrored taps,
+    reused for every column of the block's chunk, the two warpgroups' sub-boxes stored clipped at the grid. The
+    emulated walk writes every (voxel, chunk) of y once and equals ``conv_k2_reference`` and ``conv_k2_xla`` (f32,
+    summation order only: 1e-5 of the largest entry)."""
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
+    w = (rng.normal(size=(2, 2, 2, C, N)) * 0.05).astype(np.float32)
+    plan = wide_plan(B, D, H, W, C, N, sms=2)  # few blocks: each walks several boxes where there are
+    y, written = _emulate_chunked(torch.from_numpy(x), torch.from_numpy(w), plan, forward=True)
+    assert (written == 1).all()
+    ref = conv_k2_reference(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    tol = 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(y.numpy(), ref, atol=tol, rtol=0)
+    np.testing.assert_allclose(y.numpy(), np.asarray(conv_k2_xla(jnp.asarray(x), jnp.asarray(w))), atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N,dtype", NARROW_DX_CASES)
@@ -1485,11 +1558,13 @@ def test_swizzled_f32_rows_read_as_float4_fall_in_distinct_banks(C):
 class _FakeLib:
     """Stands in for the built library on the CPU: records each entry point's arguments, returns 0; of the
     narrow dx also the bytes of w' ([8N, C] of the dtype whose code it is given), of the chunked dx those of
-    its w ([C, 8N] bfloat16), as the launch is given them."""
+    its w ([C, 8N] bfloat16), of the wide forward those of its w ([N, 8C] bfloat16), as the launch is given
+    them."""
 
     def __init__(self):
         self.calls = []
         self.wm = None
+        self.wt = None
 
     def __getattr__(self, name):
         def entry(*args):
@@ -1500,6 +1575,9 @@ class _FakeLib:
             if name == "conv_k2_backward_input_chunked":
                 C, N = args[7], args[8]
                 self.wm = ctypes.string_at(args[1], 8 * N * C * 2)
+            if name == "conv_k2_forward_wide":
+                C, N = args[7], args[8]
+                self.wt = ctypes.string_at(args[1], 8 * C * N * 2)
             return 0
 
         return entry
@@ -1518,27 +1596,32 @@ def routes(monkeypatch):
 
 # (B, D, H, W, C, N, dtype, forward, dx, dw): the entry points each kernel takes ("/split": with the plan's
 # depth split, the entry then launching the reduce too). The detector's 32 -> 8, bf16 and float32: all three
-# narrow (dx by the plan of 8 -> 32); bf16 64 -> 8: the forward and dw narrow, dx FFMA (8 -> 64 has no narrow
-# plan); float32 64 -> 8 (256-byte rows, and 8 -> 64): all FFMA, the forward's 32 stages in 2 splits (8^3: its
-# 8 tiles leave the card idle); bf16 with a plan: all three wgmma, at 4^3 (mid_blocked) the forward and dx with
-# their split and dw on the persistent kernel, at 16^3 and B=4 (the lifecycle's) without either, at 8^3 and
-# N = 64 dw on the grid kernel; float32 at 4^3: FFMA, the forward and dx split; the s2d(2) stem 8 -> 64: the
-# forward FFMA, dx narrow (64 -> 8), dw on the dw-only narrow plan in bf16, FFMA in float32; bf16 with C a
-# multiple of 64 above 64 and N <= 32 (the tensor-parallel shard 512 -> 32, 128 -> 8, and 192 -> 16, whose dx
-# takes column chunks of 64): the forward and dw walk C in chunks, dx (the forward from N to C, which neither
-# plan of that forward takes) the chunked dx; float32 with C a multiple of 32 above 32 and N <= 32 (512 -> 32,
-# 64 -> 8): the forward walks C in chunks of 16, dx and dw FFMA; and 8 -> 128, whose dx would be the chunked
-# forward from 128 to 8 but keeps the FFMA kernel
+# narrow (dx by the plan of 8 -> 32); bf16 64 -> 8: the forward and dw narrow, dx (8 -> 64 has no narrow plan)
+# the chunked dx, whose plan takes C = 64; float32 64 -> 8 (256-byte rows, and 8 -> 64): all FFMA, the
+# forward's 32 stages in 2 splits (8^3: its 8 tiles leave the card idle), dw on the tile of 32 columns; bf16
+# with a plan: all three wgmma, at 4^3 (mid_blocked) the forward and dx with their split and dw on the
+# persistent kernel, at 16^3 and B=4 (the lifecycle's) without either, at 8^3 and N = 64 dw on the grid
+# kernel; float32 at 4^3: FFMA, the forward and dx split; the s2d(2) stem 8 -> 64: the forward on the wide
+# plan (the chunked dx's kernel run forward) in bf16, FFMA in float32, dx narrow (64 -> 8), dw on the dw-only
+# narrow plan in bf16, on the FFMA tile of 64 rows in float32; bf16 with C a multiple of 64 above 64 and N <=
+# 32 (the tensor-parallel shard 512 -> 32, 128 -> 8, and 192 -> 16, whose dx takes column chunks of 64): the
+# forward and dw walk C in chunks, dx (the forward from N to C, which neither plan of that forward takes) the
+# chunked dx; float32 with C a multiple of 32 above 32 and N <= 32 (512 -> 32, 64 -> 8): the forward walks C
+# in chunks of 16, dx FFMA, dw FFMA on the tile of 32 columns; 8 -> 128 in bf16, whose forward takes the wide
+# plan and whose dx would be the chunked forward from 128 to 8 but keeps the FFMA kernel (dw FFMA on the tile
+# of 64 rows, 8C = 64); and 16 -> 64 in bf16: the forward wide, dx (64 -> 16) narrow, dw FFMA on the 128 x 64
+# tile (8C = 128; 8C x N past the dw-only plan's accumulators)
 ROUTES = [(4, 16, 16, 16, 512, 32, torch.bfloat16, "forward_chunked", "backward_input_chunked",
            "backward_weight_narrow"),
           (2, 8, 8, 8, 128, 8, torch.bfloat16, "forward_chunked", "backward_input_chunked", "backward_weight_narrow"),
           (1, 5, 6, 7, 192, 16, torch.bfloat16, "forward_chunked", "backward_input_chunked",
            "backward_weight_narrow"),
           (4, 16, 16, 16, 512, 32, torch.float32, "forward_chunked", "backward_input", "backward_weight"),
-          (2, 16, 16, 16, 8, 128, torch.bfloat16, "forward", "backward_input", "backward_weight"),
+          (2, 16, 16, 16, 8, 128, torch.bfloat16, "forward_wide", "backward_input", "backward_weight"),
+          (2, 8, 8, 8, 16, 64, torch.bfloat16, "forward_wide", "backward_input_narrow", "backward_weight"),
           (2, 8, 8, 8, 32, 8, torch.bfloat16, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
           (2, 8, 8, 8, 32, 8, torch.float32, "forward_narrow", "backward_input_narrow", "backward_weight_narrow"),
-          (2, 8, 8, 8, 64, 8, torch.bfloat16, "forward_narrow", "backward_input", "backward_weight_narrow"),
+          (2, 8, 8, 8, 64, 8, torch.bfloat16, "forward_narrow", "backward_input_chunked", "backward_weight_narrow"),
           (2, 8, 8, 8, 64, 8, torch.float32, "forward_chunked", "backward_input", "backward_weight"),
           (1, 8, 8, 8, 64, 64, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma"),
           (8, 4, 4, 4, 2048, 512, torch.bfloat16, "forward_wgmma/split", "backward_input_wgmma/split",
@@ -1547,11 +1630,12 @@ ROUTES = [(4, 16, 16, 16, 512, 32, torch.bfloat16, "forward_chunked", "backward_
            "backward_weight_persistent"),
           (8, 4, 4, 4, 2048, 512, torch.float32, "forward/split", "backward_input/split", "backward_weight"),
           (4, 16, 16, 16, 512, 128, torch.bfloat16, "forward_wgmma", "backward_input_wgmma", "backward_weight_wgmma"),
-          (1, 32, 32, 32, 8, 64, torch.bfloat16, "forward", "backward_input_narrow", "backward_weight_narrow"),
+          (1, 32, 32, 32, 8, 64, torch.bfloat16, "forward_wide", "backward_input_narrow", "backward_weight_narrow"),
           (1, 32, 32, 32, 8, 64, torch.float32, "forward", "backward_input", "backward_weight")]
 _COUNTERS = ("launches_narrow", "launches_dx_narrow", "launches_dw_narrow", "launches_split", "launches_dx_split",
              "launches_dw_wide", "launches_ffma_split", "launches_dx_ffma_split", "launches_dw_persistent",
-             "launches_chunked", "launches_dw_chunked", "launches_dx_chunked", "launches_chunked_f32")
+             "launches_chunked", "launches_dw_chunked", "launches_dx_chunked", "launches_chunked_f32", "launches_wide",
+             "launches_dw_ffma_fit")
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N,dtype,fwd,dx,dw", ROUTES)
@@ -1561,11 +1645,12 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
     its dtype, and w'[s] = w[7 - s]^T laid out as (2, 2, 2, N, C); the narrow dw with the plan's dw part (or the
     dw-only plan's, or the chunked plan's) and the dtype's code; the chunked forward with its plan's box, grid,
     shared memory and the dtype's code; the chunked dx with its plan's box, chunk width, stages, grid and
-    shared memory, and w laid out as [C, 8N], wt[c, t N + n] = w[t, c, n]; the tensor-core forward and dx
-    with their plan's tiles and splits, and
+    shared memory, and w laid out as [C, 8N], wt[c, t N + n] = w[t, c, n]; the wide forward with its plan's box,
+    chunk width, stages, grid and shared memory, and w laid out as [N, 8C], wt[n, t C + c] = w[t, c, n]; the
+    tensor-core forward and dx with their plan's tiles and splits, and
     where it splits a workspace for its partials; the FFMA forward and dx with ``ffma_split``'s (dx: of the
-    forward from N to C) and likewise a workspace; the persistent dw with its plan; the counters of the route
-    taken."""
+    forward from N to C) and likewise a workspace; the FFMA dw with ``ffma_dw_split``'s splits of its dtype;
+    the persistent dw with its plan; the counters of the route taken."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(B, D, H, W, C, generator=gen).to(dtype)
     w = torch.randn(2, 2, 2, C, N, generator=gen)
@@ -1582,7 +1667,8 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
                      int(dw.endswith("narrow")), *wg_split, int(wide), *ffma_split,
                      int(dw == "backward_weight_persistent"), int(chunked),
                      int(chunked and dw == "backward_weight_narrow"), int(dx_chunked),
-                     int(chunked and dtype == torch.float32)]
+                     int(chunked and dtype == torch.float32), int(fwd == "forward_wide"),
+                     int(dw == "backward_weight" and ffma_dw_fitted(C, N))]
     fargs = routes.calls[0][1]
     dargs = next(a for name, a in routes.calls if name.startswith("conv_k2_backward_input"))
     code = k2._DTYPE_CODES[dtype]
@@ -1611,6 +1697,13 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
         assert dargs[3:] == (B, D, H, W, C, N, *plan.box, plan.bn, plan.stages, plan.grid, plan.smem_bytes, None, 0)
         wt = w.to(dtype).reshape(8, C, N).permute(1, 0, 2).reshape(C, 8 * N)
         assert torch.equal(torch.frombuffer(bytearray(routes.wm), dtype=dtype).reshape(C, 8 * N), wt)
+    if fwd == "forward_wide":
+        plan = wide_plan(B, D, H, W, C, N)
+        assert fargs[3:] == (B, D, H, W, C, N, *plan.box, plan.bn, plan.stages, plan.grid, plan.smem_bytes, None, 0)
+        wt = w.to(dtype).reshape(8, C, N).permute(2, 0, 1).reshape(N, 8 * C)
+        assert torch.equal(torch.frombuffer(bytearray(routes.wt), dtype=dtype).reshape(N, 8 * C), wt)
+    if dw == "backward_weight":
+        assert wargs[4:6] == ffma_dw_split(B * D * H * W, C, N, dtype=dtype)
     if (C, N) == (8, 128):  # dx's plan, the forward from 128 to 8, walks in chunks: not dx's route
         assert narrow_plan(B, D, H, W, N, C, dtype=dtype).c_chunks == 2
     if dw == "backward_weight_persistent":
@@ -1634,19 +1727,42 @@ def test_each_kernel_takes_its_route(routes, B, D, H, W, C, N, dtype, fwd, dx, d
 
 # (B, D, H, W, C, N): the flagship stages at the served and the train batch, and
 # small shapes: ragged grids, 8C < 128, 8C not a multiple of 128, N <= 64 and
-# N % 128 != 0, a grid smaller than a stage, few rows (one split) and many
+# N % 128 != 0, a grid smaller than a stage, few rows (one split) and many; the
+# tiles fitted to a narrow side at full size: the tensor-parallel shard 512 ->
+# 32 at B=32 and the s2d(2) stem's 8 -> 64 at 32^3, B=8 and B=32
 FFMA_DW_SPLIT = ([(B, 16, 16, 16, C, N) for B in (8, 32) for C, N in FLAGSHIP_K2]
                  + [(2, 5, 6, 7, 8, 16), (2, 5, 6, 7, 136, 8), (1, 4, 4, 4, 64, 200), (2, 9, 10, 11, 24, 68),
-                    (1, 16, 16, 16, 136, 96), (3, 2, 2, 2, 8, 4), (4, 16, 16, 16, 512, 40), (1, 1, 1, 1, 8, 4)])
+                    (1, 16, 16, 16, 136, 96), (3, 2, 2, 2, 8, 4), (4, 16, 16, 16, 512, 40), (1, 1, 1, 1, 8, 4)]
+                 + [(32, 16, 16, 16, 512, 32), (8, 32, 32, 32, 8, 64), (32, 32, 32, 32, 8, 64)])
+
+
+def _expected_dw_tile(C, N, dtype):
+    """(rows, columns, blocks an SM) of the FFMA dw's tile as ``csrc/conv_k2.cu::launch_dw`` picks it: 128 x 32 on
+    64 threads where N <= 32 (seven blocks of three 10 KiB float32 stages and 1 KiB each fit an SM's 228 KiB;
+    eight, by registers, in bfloat16), 64 x 64 on 64 threads where 8C <= 64 (eight), else the forward's: 128 x 64
+    (four) where N <= 64, 128 x 128 (two)."""
+    if N <= 32:
+        return 128, 32, 7 if dtype == torch.float32 else 8
+    if 8 * C <= 64:
+        return 64, 64, 8
+    return (128, 64, 4) if N <= 64 else (128, 128, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,N", sorted({(C, N) for _, _, _, _, C, N in FFMA_DW_SPLIT}))
+def test_ffma_dw_tile_of_each_dtype(C, N, dtype):
+    """The tile ``ffma_dw_split`` counts with is the one ``launch_dw`` picks, its blocks an SM those that fit."""
+    assert k2._ffma_dw_tile(C, N, torch.empty((), dtype=dtype).element_size()) == _expected_dw_tile(C, N, dtype)
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", FFMA_DW_SPLIT)
 def test_ffma_dw_split_covers_every_row_once(B, D, H, W, C, N):
     """The splits are whole 16-row stages that reduce every row once, none
     empty; output tiles times splits make at most one wave at 132 SMs (two
-    blocks of the 128-column tile an SM, four of the 64-column one); a split
-    is at least 16 stages deep, so few rows make one split; the workspace
-    holds at most 16 MiB."""
+    blocks of the 128-column tile an SM, four of the 64-column one, seven or
+    eight of the tiles fitted to a narrow side); a split is at least 16
+    stages deep, so few rows make one split, and a fitted tile takes at most
+    512; the workspace holds at most 16 MiB."""
     rows = B * D * H * W
     splits, per_split = ffma_dw_split(rows, C, N)
     stages = -(-rows // 16)
@@ -1658,10 +1774,11 @@ def test_ffma_dw_split_covers_every_row_once(B, D, H, W, C, N):
         assert rows_z.size > 0  # no split is empty
         rows_z += 1
     assert (seen == 1).all()
-    bn, per_sm = (64, 4) if N <= 64 else (128, 2)
-    tiles = -(-8 * C // 128) * -(-N // bn)
+    bm, bn, per_sm = _expected_dw_tile(C, N, torch.float32)
+    tiles = -(-8 * C // bm) * -(-N // bn)
     assert tiles * splits <= max(tiles, per_sm * 132)
     assert splits == 1 or per_split >= 16
+    assert splits <= 512 or not ffma_dw_fitted(C, N)  # the reduce adds a fitted tile's splits one by one
     if stages < 32:
         assert splits == 1
     workspace_bytes = (splits if splits > 1 else 0) * 8 * C * N * 4
@@ -1671,28 +1788,41 @@ def test_ffma_dw_split_covers_every_row_once(B, D, H, W, C, N):
 @pytest.mark.parametrize("B", [8, 32])
 def test_ffma_dw_split_at_the_flagship_stages(B):
     """At 16^3 the four stages have 16, 32, 32 and 32 output tiles (the last 128
-    x 64): 16, 8, 8 and 16 splits, a wave of 256, 256, 256 and 512 blocks."""
+    x 64): 16, 8, 8 and 16 splits, a wave of 256, 256, 256 and 512 blocks. The
+    tiles fitted to a narrow side: the shard 512 -> 32 at 16^3 has 32 tiles of
+    128 x 32, 28 splits (896 blocks of 924, seven an SM); the stem's 8 -> 64 at
+    32^3 one tile of 64 x 64 and 512 splits, the most a fitted tile takes (a
+    wave would be 1056), 32 stages deep at B=8 and 128 at B=32."""
     got = [ffma_dw_split(B * 16**3, C, N) for C, N in FLAGSHIP_K2]
     assert [s for s, _ in got] == [16, 8, 8, 16]
     assert [p * 16 for _, p in got] == [B * 256, B * 512, B * 512, B * 256]  # rows a split
+    assert ffma_dw_split(B * 16**3, 512, 32) == (28, -(-B * 256 // 28))
+    assert ffma_dw_split(B * 32**3, 8, 64) == (512, 4 * B)
 
 
-def _emulate_ffma_dw(x, g, splits, per_split):
+def _emulate_ffma_dw(x, g, splits, per_split, tile):
     """dw as the FFMA kernel's loaders walk it. Split z reduces the stages from
     z * per_split on; loader row lr of a stage is row m_begin + lr + 16 s,
     whose (d, h, w) is found by division once and then carried forward 16 rows
     a stage; 8 tap bits from it (and whether m lies in the split) decide which
     shifted rows of x are copied and which are zeros (a copy of source size 0).
-    The splits' partial sums are added in ascending order. Returns dw and how
-    often each row m entered the sum."""
+    The blocks of a split are ``tile``'s (rows, columns) of the [8C, N]
+    output: each adds the stage's rows (tap, c) and columns of its tile, zeros
+    past 8C and N, and stores those that lie inside. The splits' partial sums
+    are added in ascending order. Returns dw, how often each row m entered the
+    sum and how often each output was stored by a split."""
     B, D, H, W, C = x.shape
     N = g.shape[-1]
+    bm, bn = tile
     M, S = B * D * H * W, D * H * W
+    R = 8 * C
+    rt, ct = -(-R // bm), -(-N // bn)
     x2, g2 = x.reshape(M, C), g.reshape(M, N)
     shifts = [(dz * H + dy) * W + dx for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
     step = 16 % S
     sd, sh, sw = step // (H * W), step // W % H, step % W
-    part = torch.zeros(splits, 8 * C, N)
+    part = torch.zeros(splits, rt * bm, ct * bn)
+    stored = torch.zeros(splits, R, N, dtype=torch.int32)
     seen = torch.zeros(M, dtype=torch.int64)
     for z in range(splits):
         m_begin = z * per_split * 16
@@ -1706,12 +1836,16 @@ def _emulate_ffma_dw(x, g, splits, per_split):
             inside = torch.where(w + 1 >= W, inside & 0x55, inside)
             inside = torch.where(h + 1 >= H, inside & 0x33, inside)
             inside = torch.where(d + 1 >= D, inside & 0x0F, inside)
-            a = torch.zeros(16, 8 * C)
+            a = torch.zeros(16, rt * bm)  # the stage's A of every row tile, zeros past 8C
             for t, shift in enumerate(shifts):
                 ok = (inside >> t) & 1 == 1
                 a[ok, t * C:(t + 1) * C] = x2[m[ok] + shift]
-            b = torch.where(live[:, None], g2[m.clamp(max=M - 1)], 0.0)
-            part[z] += a.T @ b
+            b = torch.zeros(16, ct * bn)  # and B of every column tile, zeros past N
+            b[:, :N] = torch.where(live[:, None], g2[m.clamp(max=M - 1)], 0.0)
+            for i in range(rt):
+                for j in range(ct):
+                    rows, cols = slice(i * bm, (i + 1) * bm), slice(j * bn, (j + 1) * bn)
+                    part[z, rows, cols] += a[:, rows].T @ b[:, cols]
             seen[m[live]] += 1
             m = m + 16
             w = w + sw
@@ -1720,37 +1854,93 @@ def _emulate_ffma_dw(x, g, splits, per_split):
             d, h = d + (h >= H).long(), torch.where(h >= H, h - H, h)
             d = d + sd
             d = torch.where(d >= D, d - D, d)
-    dw = part[0].clone()
+        for i in range(rt):  # each block stores the outputs of its tile that lie inside
+            for j in range(ct):
+                stored[z, i * bm:(i + 1) * bm, j * bn:(j + 1) * bn] += 1
+    dw = part[0, :R, :N].clone()
     for z in range(1, splits):
-        dw += part[z]
-    return dw.reshape(2, 2, 2, C, N), seen
+        dw += part[z, :R, :N]
+    return dw.reshape(2, 2, 2, C, N), seen, stored
 
 
 # a ragged grid with 8C < 128 (C = 8), a tile over two taps (C = 64) and 8C not
 # a multiple of 128 (C = 136), all in one split; several splits on a ragged grid
-# and at 16^3; a grid smaller than a stage (the carried position wraps)
+# and at 16^3; a grid smaller than a stage (the carried position wraps); the
+# tiles fitted to a narrow side: N = 32 over four row tiles of 128 x 32 (C = 64),
+# C = 8 on the tile of 64 x 64 in one column tile (N = 64) and in two (N = 96,
+# the second ragged), several splits each
 FFMA_DW_EMULATED = [(2, 5, 6, 7, 8, 16), (2, 5, 6, 7, 64, 24), (2, 5, 6, 7, 136, 8), (2, 9, 10, 11, 8, 16),
-                    (1, 16, 16, 16, 136, 8), (3, 2, 2, 2, 8, 4)]
+                    (1, 16, 16, 16, 136, 8), (3, 2, 2, 2, 8, 4), (2, 9, 10, 11, 64, 32), (2, 9, 10, 11, 8, 64),
+                    (1, 16, 16, 16, 8, 96)]
 
 
 @pytest.mark.parametrize("B,D,H,W,C,N", FFMA_DW_EMULATED)
 def test_ffma_dw_loader_walk_gives_dw(B, D, H, W, C, N):
     """The emulated walk of the FFMA dw (stages of 16 rows, zero-filled shifted
-    rows of x, the splits of ``ffma_dw_split`` summed in order) reduces every
-    row once and equals ``conv_k2_dw_reference`` and ``_conv_k2_bwd_impl``'s dw:
-    f32, summation order only, 1e-5 of the largest entry."""
+    rows of x, the blocks of its tile, the splits of ``ffma_dw_split`` summed
+    in order) reduces every row once, stores every output once a split, and
+    equals ``conv_k2_dw_reference`` and ``_conv_k2_bwd_impl``'s dw: f32,
+    summation order only, 1e-5 of the largest entry."""
     rng = np.random.default_rng(6)
     x = rng.normal(size=(B, D, H, W, C)).astype(np.float32)
     g = rng.normal(size=(B, D, H, W, N)).astype(np.float32)
     splits, per_split = ffma_dw_split(B * D * H * W, C, N)
-    dw, seen = _emulate_ffma_dw(torch.from_numpy(x), torch.from_numpy(g), splits, per_split)
-    assert (seen == 1).all()
+    bm, bn, _ = k2._ffma_dw_tile(C, N)
+    dw, seen, stored = _emulate_ffma_dw(torch.from_numpy(x), torch.from_numpy(g), splits, per_split, (bm, bn))
+    assert (seen == 1).all() and (stored == 1).all()
     ref = conv_k2_dw_reference(torch.from_numpy(x), torch.from_numpy(g)).numpy()
     tol = 1e-5 * float(np.abs(ref).max())
     np.testing.assert_allclose(dw.numpy(), ref, atol=tol, rtol=0)
     w = np.zeros((2, 2, 2, C, N), np.float32)
     jax_dw = np.asarray(_conv_k2_bwd_impl(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))[1])
     np.testing.assert_allclose(dw.numpy(), jax_dw, atol=tol, rtol=0)
+
+
+# (rows, columns, a thread's rows, lanes of a warp along the columns) of the FFMA dw's tiles (gemm::DwTile): the
+# forward's two and the two fitted to a narrow side
+DW_TILES = [(128, 128, 16, 8), (128, 64, 8, 8), (128, 32, 8, 4), (64, 64, 8, 8)]
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("bm,bn,tm,lc", DW_TILES)
+def test_ffma_dw_tile_threads_cover_every_output_and_stage_once(bm, bn, tm, lc, esize):
+    """The index arithmetic of ``conv_k2_dw_kernel`` over a block's threads: each output of the tile is held by
+    exactly one thread (rows row0 + RUN_STEP j + 0..3, columns col0 + 0..3 and col0 + WARP_N / 2 + 0..3), and
+    each element of a stage's A [16][bm] and B [16][bn] is loaded by exactly one of the loaders' pieces (A in
+    16-byte pieces, B in pieces of 4 elements). The fitted tiles run on 64 threads, the forward's on 128; every
+    thread holds 8 x 8 outputs but on the 128 x 128 tile, 16 x 8. A quarter warp reads one or two addresses of A
+    (a broadcast) and 64 or 128 consecutive bytes of B."""
+    lane_rows, warp_n = 32 // lc, 8 * lc
+    warp_m = lane_rows * tm
+    threads = (bm // warp_m) * (bn // warp_n) * 32
+    assert threads == (64 if (bm, bn) in ((128, 32), (64, 64)) else 128)
+    held = np.zeros((bm, bn), np.int32)
+    for tid in range(threads):
+        warp, lane = divmod(tid, 32)
+        row0 = (warp // (bn // warp_n)) * warp_m + (lane // lc) * 4
+        col0 = (warp % (bn // warp_n)) * warp_n + (lane % lc) * 4
+        for i in range(tm):
+            r = row0 + (i // 4) * lane_rows * 4 + i % 4
+            for half in range(2):
+                held[r, col0 + half * warp_n // 2:col0 + half * warp_n // 2 + 4] += 1
+    assert (held == 1).all()
+    for quarter in range(4):  # the rows and columns a quarter warp reads at one k
+        lanes = range(8 * quarter, 8 * quarter + 8)
+        assert len({lane // lc for lane in lanes}) == 8 // lc  # rows row0: 4 apart, one float4 of A each
+        assert sorted({lane % lc for lane in lanes}) == list(range(lc))  # columns col0: consecutive float4 of B
+    row_threads = threads // 16
+    a_elems = 16 // esize
+    a_per, a_step = bm // a_elems // row_threads, row_threads * a_elems
+    b_per, b_step = bn // 4 // row_threads, row_threads * 4
+    assert 1 <= a_per <= 8 and b_per >= 1
+    a_seen, b_seen = np.zeros((16, bm), np.int32), np.zeros((16, bn), np.int32)
+    for tid in range(threads):
+        lr, lp = divmod(tid, row_threads)
+        for i in range(a_per):
+            a_seen[lr, lp * a_elems + i * a_step:lp * a_elems + i * a_step + a_elems] += 1
+        for i in range(b_per):
+            b_seen[lr, lp * 4 + i * b_step:lp * 4 + i * b_step + 4] += 1
+    assert (a_seen == 1).all() and (b_seen == 1).all()
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
