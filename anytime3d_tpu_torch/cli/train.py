@@ -56,10 +56,13 @@ def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False
     the device unpacks with no relayout; ``native`` is
     ``pack_voxels_blocked``'s choice of packer. Image loaders are asked for
     ``image_size`` = (cols, rows), or with ``multi_scale``, a list of (rows,
-    cols, batch), for the size and batch of ``multi_scale_schedule``."""
+    cols, batch), for the size and batch of ``multi_scale_schedule``. Spans:
+    ``batch.load`` (the loader's batch), ``batch.pack`` (the packer, or the
+    float32 casts of dense grids, and the one-hots)."""
     from anytime3d_tpu_torch.data.packing import pack_voxels, pack_voxels_blocked
     from anytime3d_tpu_torch.models.mmvae import blocked_io_block, decoder_blocked_block
     from anytime3d_tpu_torch.train.trainer import multi_scale_schedule
+    from anytime3d_tpu_torch.utils.profiling import span
 
     block, dec_block = blocked_io_block(model_cfg), decoder_blocked_block(model_cfg)
     wants_category = model_cfg.prior_category is not None or model_cfg.category_dim
@@ -71,7 +74,12 @@ def build_batch_fn(loader, model_cfg, batch_size: int = 32, packed: bool = False
         if multi_scale:
             rows, cols, bs = multi_scale_schedule(multi_scale, it)
             size = (cols, rows)
-        b = loader.getNextBatch(bs) if size is None else loader.getNextBatch(bs, imageSize=size)
+        with span("batch.load"):
+            b = loader.getNextBatch(bs) if size is None else loader.getNextBatch(bs, imageSize=size)
+        with span("batch.pack"):
+            return _pack(b)
+
+    def _pack(b):
         if isinstance(b, dict):
             if not packed:
                 out = {"input": np.asarray(b["input_images"], np.float32)}

@@ -14,6 +14,12 @@ memory.
 Batch making overlaps the device only where it releases the interpreter
 lock: NumPy's copies and casts, and ctypes calls such as the native packer
 (``data/packing.py``), do; Python loops do not.
+
+Spans (``utils/profiling.py``), on the worker thread: ``prefetch.make``
+(``next_batch_fn``), ``prefetch.stage`` (the wait on the slot's last copy,
+then the pinned copies; on the CPU, the arrays made tensors),
+``prefetch.h2d`` (enqueuing the copies and their event),
+``prefetch.queue_full`` (the wait for room in the queue).
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+
+from anytime3d_tpu_torch.utils.profiling import span
 
 HostBatch = Mapping[str, np.ndarray]
 
@@ -85,10 +93,12 @@ class DevicePrefetcher:
         self._thread.start()
 
     def _copy(self, batch: HostBatch, slot: _Slot):
-        if slot.event is not None:
-            slot.event.synchronize()  # the last copy out of these buffers is done
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            out = {k: slot.stage(k, v).to(self.device, non_blocking=True) for k, v in batch.items()}
+        with span("prefetch.stage"):
+            if slot.event is not None:
+                slot.event.synchronize()  # the last copy out of these buffers is done
+            staged = {k: slot.stage(k, v) for k, v in batch.items()}
+        with span("prefetch.h2d"), torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            out = {k: v.to(self.device, non_blocking=True) for k, v in staged.items()}
             slot.event = torch.cuda.Event()
             slot.event.record(self.stream)
         return out, slot.event
@@ -97,18 +107,21 @@ class DevicePrefetcher:
         try:
             n = 0
             while not self._stop.is_set():
-                batch = self._fn()
+                with span("prefetch.make"):
+                    batch = self._fn()
                 if self.stream is not None:
                     item = self._copy(batch, self._slots[n % len(self._slots)])
                 else:
-                    item = ({k: torch.as_tensor(v) for k, v in batch.items()}, None)
+                    with span("prefetch.stage"):
+                        item = ({k: torch.as_tensor(v) for k, v in batch.items()}, None)
                 n += 1
-                while not self._stop.is_set():
-                    try:
-                        self._q.put(item, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
+                with span("prefetch.queue_full"):
+                    while not self._stop.is_set():
+                        try:
+                            self._q.put(item, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
         except Exception as e:  # noqa: BLE001 — raised by get(), after the batches made before it
             self._error = e
 

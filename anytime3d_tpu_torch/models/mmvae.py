@@ -38,6 +38,7 @@ from anytime3d_tpu_torch.nn.autoencoder3d import (
 from anytime3d_tpu_torch.nn.darknet import BACKBONES, Head2D
 from anytime3d_tpu_torch.nn.heads import Head2DConfig
 from anytime3d_tpu_torch.nn.priornet import PriorNet, PriorNetConfig
+from anytime3d_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,7 +160,11 @@ class MultiModalVAE(nn.Module):
         (``blocked_input`` concerns voxels only). The flat encoder output is
         [mean_cat | log_var_cat | mean_inst | log_var_inst] with a category
         split, [mean | log_var] without; an AE model's is the means alone,
-        [z_cat | z_inst] or z."""
+        [z_cat | z_inst] or z. Span: ``model.encode``."""
+        with span("model.encode"):
+            return self._encode(x, blocked_input)
+
+    def _encode(self, x: torch.Tensor, blocked_input: bool) -> EncoderOutput:
         cfg = self.config
         if cfg.encoder == "image":
             feats = self.backbone(x)
@@ -185,7 +190,9 @@ class MultiModalVAE(nn.Module):
         return EncoderOutput(None, None, out[..., :zi], out[..., zi:].clamp(-clip, clip))
 
     def decode(self, z: torch.Tensor, blocked_output: bool = False) -> torch.Tensor:
-        return self.decoder(z, blocked_output=blocked_output)
+        """Latents (B, z_dim) -> the decoder's output. Span: ``model.decode``."""
+        with span("model.decode"):
+            return self.decoder(z, blocked_output=blocked_output)
 
     def priors_category(self, category_onehot: torch.Tensor,
                         generator: Optional[torch.Generator] = None) -> tuple[torch.Tensor, torch.Tensor]:

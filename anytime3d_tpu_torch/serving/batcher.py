@@ -11,6 +11,13 @@ and threads:
   without blocking, on a CUDA device) and enqueues the call; a completion
   thread fetches the outputs with ``.cpu()`` and resolves the futures in
   FIFO order, so up to ``max_in_flight`` batches overlap.
+
+Spans (``utils/profiling.py``): on the dispatcher ``batcher.collect``,
+``batcher.assemble`` (pad and row copies), ``batcher.h2d`` (pin and copy),
+``batcher.launch`` (the ``infer_fn`` call) and ``batcher.backpressure``
+(the hand-off that blocks at ``max_in_flight``); on the completion thread
+``batcher.fetch`` (the outputs' ``.cpu()``) and ``batcher.resolve`` (the
+futures and their done callbacks).
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from anytime3d_tpu_torch.utils.profiling import span
 
 
 class MicroBatcher:
@@ -139,7 +148,8 @@ class MicroBatcher:
     def _run(self):
         """Dispatcher: coalesce -> pad -> copy to the device -> enqueue the call."""
         while True:
-            group = self._collect()
+            with span("batcher.collect"):
+                group = self._collect()
             if not group:
                 if self._closed.is_set() and self._q.empty():
                     return
@@ -147,17 +157,22 @@ class MicroBatcher:
             # a failure here resolves this group's waiters instead of killing
             # the worker and stranding every later submit
             try:
-                xs = np.zeros((self._b,) + self._item_shape, self._dtype)
-                masks = np.ones((self._b, self._mask_dim), np.float32)
-                for i, (x, m, _) in enumerate(group):
-                    xs[i] = x
-                    masks[i] = m
-                out = self._fn(self._to_device(xs), self._to_device(masks))
+                with span("batcher.assemble"):
+                    xs = np.zeros((self._b,) + self._item_shape, self._dtype)
+                    masks = np.ones((self._b, self._mask_dim), np.float32)
+                    for i, (x, m, _) in enumerate(group):
+                        xs[i] = x
+                        masks[i] = m
+                with span("batcher.h2d"):
+                    xs, masks = self._to_device(xs), self._to_device(masks)
+                with span("batcher.launch"):
+                    out = self._fn(xs, masks)
             except Exception as e:
                 for _, _, fut in group:
                     self._resolve(fut, exc=e)
                 continue
-            self._pending.put((group, out))  # blocks at max_in_flight (backpressure)
+            with span("batcher.backpressure"):
+                self._pending.put((group, out))  # blocks at max_in_flight
 
     def _complete(self):
         """Completion thread: fetch each batch's outputs and resolve its futures."""
@@ -169,11 +184,13 @@ class MicroBatcher:
             resolved = 0
             # a device error surfaces at the fetch: fail the waiters, not this thread
             try:
-                out = {k: v.cpu().numpy() for k, v in out.items()}
+                with span("batcher.fetch"):
+                    out = {k: v.cpu().numpy() for k, v in out.items()}
                 self.batches_run += 1
-                for i in range(len(group)):
-                    self._resolve(group[i][2], {k: v[i] for k, v in out.items()})
-                    resolved += 1
+                with span("batcher.resolve"):
+                    for i in range(len(group)):
+                        self._resolve(group[i][2], {k: v[i] for k, v in out.items()})
+                        resolved += 1
             except Exception as e:
                 for _, _, fut in group[resolved:]:
                     self._resolve(fut, exc=e)

@@ -32,6 +32,7 @@ import anytime3d_tpu_torch.kernels.conv_k2  # noqa: F401  registers the ops an e
 from anytime3d_tpu_torch.anytime.engine import classify_by_prior
 from anytime3d_tpu_torch.data.packing import pack_voxels_device, unpack_voxels
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
+from anytime3d_tpu_torch.utils.profiling import span
 
 InferFn = Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -45,7 +46,10 @@ class _ServingProgram(nn.Module):
     net's means over all K one-hots, else none. With ``item_shape`` it takes
     packed bits, (B, N/8) uint8, of (B, *item_shape) grids; with
     ``threshold`` it returns ``pred_packed`` bits of ``pred > threshold`` in
-    place of ``pred``."""
+    place of ``pred``. Spans: ``serve.unpack`` (the bits, or the cast, to
+    the model's input), ``model.encode``, ``serve.classify`` (the nearest
+    anchor and the fill of the missing dims), ``model.decode``,
+    ``serve.pack`` (the output's cast and bits)."""
 
     def __init__(self, model: MultiModalVAE, correction: bool = True, item_shape=None, threshold=None,
                  prior_means=None):
@@ -71,36 +75,42 @@ class _ServingProgram(nn.Module):
         self.threshold = threshold
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if self.item_shape is not None:
-            x = unpack_voxels(x, self.item_shape)
-        enc = self.model.encode(x.to(self.dtype))
-        if enc.mean_category is not None:
-            z_cat, lv_cat = enc.mean_category, enc.log_var_category
-            z_parts, lv_parts = [enc.mean_inst], [enc.log_var_inst]
-        else:
-            z_cat, lv_cat = enc.mean_inst, enc.log_var_inst
-            z_parts, lv_parts = [], []
-        out = {}
-        prior_means = self.prior_means
-        if prior_means is not None:
-            if self.correction:  # the class over the observed dims; the missing ones take its mean
-                category = classify_by_prior(z_cat, prior_means, mask=mask)
-                z_cat = torch.where(mask > 0, z_cat, prior_means[category])
+        with span("serve.unpack"):
+            if self.item_shape is not None:
+                x = unpack_voxels(x, self.item_shape)
+            x = x.to(self.dtype)
+        enc = self.model.encode(x)
+        with span("serve.classify"):
+            if enc.mean_category is not None:
+                z_cat, lv_cat = enc.mean_category, enc.log_var_category
+                z_parts, lv_parts = [enc.mean_inst], [enc.log_var_inst]
             else:
-                category = classify_by_prior(z_cat, prior_means)
-            out["category"] = category
-        elif self.correction:  # no anchors: the missing dims take N(0, I)'s mean, 0
-            z_cat = torch.where(mask > 0, z_cat, torch.zeros_like(z_cat))
-        # an AE model has no log-var: zeros
-        lv_parts = [torch.zeros_like(z) if lv is None else lv for z, lv in zip([z_cat, *z_parts], [lv_cat, *lv_parts])]
-        z = torch.cat([z_cat, *z_parts], dim=-1)
-        out["z_mean"] = z.float()
-        out["z_log_var"] = torch.cat(lv_parts, dim=-1).float()
-        pred = self.model.decode(z).float()
-        if self.threshold is None:
-            out["pred"] = pred
-        else:
-            out["pred_packed"] = pack_voxels_device(pred, self.threshold)
+                z_cat, lv_cat = enc.mean_inst, enc.log_var_inst
+                z_parts, lv_parts = [], []
+            out = {}
+            prior_means = self.prior_means
+            if prior_means is not None:
+                if self.correction:  # the class over the observed dims; the missing ones take its mean
+                    category = classify_by_prior(z_cat, prior_means, mask=mask)
+                    z_cat = torch.where(mask > 0, z_cat, prior_means[category])
+                else:
+                    category = classify_by_prior(z_cat, prior_means)
+                out["category"] = category
+            elif self.correction:  # no anchors: the missing dims take N(0, I)'s mean, 0
+                z_cat = torch.where(mask > 0, z_cat, torch.zeros_like(z_cat))
+            # an AE model has no log-var: zeros
+            lv_parts = [torch.zeros_like(z) if lv is None else lv
+                        for z, lv in zip([z_cat, *z_parts], [lv_cat, *lv_parts])]
+            z = torch.cat([z_cat, *z_parts], dim=-1)
+            out["z_mean"] = z.float()
+            out["z_log_var"] = torch.cat(lv_parts, dim=-1).float()
+        pred = self.model.decode(z)
+        with span("serve.pack"):
+            pred = pred.float()
+            if self.threshold is None:
+                out["pred"] = pred
+            else:
+                out["pred_packed"] = pack_voxels_device(pred, self.threshold)
         return out
 
 

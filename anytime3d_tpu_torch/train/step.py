@@ -34,6 +34,11 @@ is the explicit data-parallel step instead: each rank differentiates the
 mean loss of its own shard with draws of its own, and the gradients are
 all-reduced over "data" in a lower precision (bfloat16 by default), upcast
 to float32 and then averaged.
+
+Spans (``utils/profiling.py``): ``step.forward`` (``compute_losses`` in
+``loss_and_grads``), ``step.backward`` (``torch.autograd.grad``, and under
+a mesh the gradients' all-reduce), ``step.update``
+(``apply_gradients_if_finite``).
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from anytime3d_tpu_torch.parallel.mesh import (
     reduce_metrics,
 )
 from anytime3d_tpu_torch.train.state import TrainState, grads_finite_flag, l2_penalty
+from anytime3d_tpu_torch.utils.profiling import span
 
 Batch = Mapping[str, torch.Tensor]
 Draws = Mapping[str, torch.Tensor]
@@ -295,12 +301,13 @@ def apply_gradients_if_finite(state: TrainState, grads: Dict[str, torch.Tensor],
     advances the count and decays the moments). ``metrics['grads_finite']``
     records it. No host sync: the flag stays on the device and gates every
     leaf there."""
-    flag = grads_finite_flag(grads, mesh)
-    metrics["grads_finite"] = flag
-    poisoned = flag <= 0
-    for g in grads.values():
-        g.masked_fill_(poisoned, 0.0)  # in place: the gradients are this step's own
-    return state.apply_gradients(grads), metrics
+    with span("step.update"):
+        flag = grads_finite_flag(grads, mesh)
+        metrics["grads_finite"] = flag
+        poisoned = flag <= 0
+        for g in grads.values():
+            g.masked_fill_(poisoned, 0.0)  # in place: the gradients are this step's own
+        return state.apply_gradients(grads), metrics
 
 
 StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
@@ -312,11 +319,13 @@ def loss_and_grads(model: MultiModalVAE, cfg: LossConfig, batch: Batch,
     """(gradients by parameter name, metrics) of the train loss; with a
     ``mesh``, the global batch's, the gradients all-reduced over "data" in
     float32."""
-    total, metrics = compute_losses(model, cfg, batch, generator, deterministic=False, draws=draws, mesh=mesh)
-    names, params = zip(*model.named_parameters())
-    grads = dict(zip(names, torch.autograd.grad(total, params)))
-    if mesh is not None:
-        grads = all_reduce_grads(grads, mesh)
+    with span("step.forward"):
+        total, metrics = compute_losses(model, cfg, batch, generator, deterministic=False, draws=draws, mesh=mesh)
+    with span("step.backward"):
+        names, params = zip(*model.named_parameters())
+        grads = dict(zip(names, torch.autograd.grad(total, params)))
+        if mesh is not None:
+            grads = all_reduce_grads(grads, mesh)
     return grads, metrics
 
 

@@ -22,6 +22,13 @@ multi-scale image schedule changes the batch a loader makes, so it lives in
 the batch function (``cli.train.build_batch_fn``), which walks
 :func:`multi_scale_schedule`.
 
+Spans (``utils/profiling.py``), one of which is open at every point of an
+iteration but the loop's own lines: ``trainer.batch_wait`` (the
+prefetcher's ``get``, or at depth 0 the batch made and copied in line),
+``trainer.step`` (the ``step_fn`` call), ``trainer.fetch`` (the metrics'
+``float``: the sync), ``trainer.log`` (logger, history, the NaN check and
+restart), ``trainer.save``, ``trainer.eval``.
+
 ``use_mesh`` trains data-parallel over every rank of the run
 (``parallel.make_mesh``, one process a device): every rank calls
 ``batch_fn`` for the same global batch and keeps its rows, and the default
@@ -48,6 +55,7 @@ from anytime3d_tpu_torch.train.checkpoint import restore_state, save_state
 from anytime3d_tpu_torch.train.state import TrainState
 from anytime3d_tpu_torch.train.step import LossConfig, make_eval_step, make_train_step, sharded_draws
 from anytime3d_tpu_torch.utils.logging import MetricLogger
+from anytime3d_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -152,36 +160,42 @@ class Trainer:
         it = self.state.step
         nan_restarts, last_saved_step = 0, -1
         while it < cfg.total_steps:
-            batch = (self._stream.get() if self._stream is not None
-                     else self.to_device(self._host_batch(self.batch_fn, it)))
-            self.state, metrics = self.step_fn(self.state, batch, generator)
+            with span("trainer.batch_wait"):
+                batch = (self._stream.get() if self._stream is not None
+                         else self.to_device(self._host_batch(self.batch_fn, it)))
+            with span("trainer.step"):
+                self.state, metrics = self.step_fn(self.state, batch, generator)
             if it % cfg.log_every == 0 or it == cfg.total_steps - 1:
-                host_metrics = {k: float(v) for k, v in metrics.items()}
-                self.logger.update(host_metrics, step=it, epoch=epoch_fn() if epoch_fn else 0)
-                self.history.append(host_metrics)
-                if not math.isfinite(host_metrics["loss_total"]):
-                    if nan_restarts < cfg.max_nan_restarts and cfg.save_path and last_saved_step >= 0:
-                        nan_restarts += 1
-                        print(f"\nNaN/Inf loss at step {it}, restoring the checkpoint of step {last_saved_step} "
-                              f"(restart {nan_restarts}/{cfg.max_nan_restarts})")
-                        self.state = restore_state(cfg.save_path, self.state)
-                        generator = self._generator(self.state.step * 7919 + nan_restarts)
-                        it = self.state.step
-                        if self._stream is not None:  # rewind the batch stream to the restored step
-                            self._stream.close()
-                            self._stream = self._prefetcher(it)
-                        continue
-                    print("\nNaN/Inf loss, aborting")
-                    self.aborted_nan = True
-                    break
+                with span("trainer.fetch"):
+                    host_metrics = {k: float(v) for k, v in metrics.items()}
+                with span("trainer.log"):
+                    self.logger.update(host_metrics, step=it, epoch=epoch_fn() if epoch_fn else 0)
+                    self.history.append(host_metrics)
+                    if not math.isfinite(host_metrics["loss_total"]):
+                        if nan_restarts < cfg.max_nan_restarts and cfg.save_path and last_saved_step >= 0:
+                            nan_restarts += 1
+                            print(f"\nNaN/Inf loss at step {it}, restoring the checkpoint of step "
+                                  f"{last_saved_step} (restart {nan_restarts}/{cfg.max_nan_restarts})")
+                            self.state = restore_state(cfg.save_path, self.state)
+                            generator = self._generator(self.state.step * 7919 + nan_restarts)
+                            it = self.state.step
+                            if self._stream is not None:  # rewind the batch stream to the restored step
+                                self._stream.close()
+                                self._stream = self._prefetcher(it)
+                            continue
+                        print("\nNaN/Inf loss, aborting")
+                        self.aborted_nan = True
+                        break
             # never checkpoint a non-finite state: the loss is checked on the log cadence only, and a
             # finite loss with overflowed gradients would save poison too (two scalar syncs a save)
             if cfg.save_path and (it + 1) % cfg.save_every == 0:
-                if math.isfinite(float(metrics["loss_total"])) and float(metrics["grads_finite"]) > 0:
-                    self._save(wait=False)
-                    last_saved_step = it
+                with span("trainer.save"):
+                    if math.isfinite(float(metrics["loss_total"])) and float(metrics["grads_finite"]) > 0:
+                        self._save(wait=False)
+                        last_saved_step = it
             if self.eval_batch_fn is not None and cfg.eval_every > 0 and (it + 1) % cfg.eval_every == 0:
-                self.evaluate(it)
+                with span("trainer.eval"):
+                    self.evaluate(it)
             it += 1
         if cfg.save_path and not self.aborted_nan:
             self._save(wait=True)

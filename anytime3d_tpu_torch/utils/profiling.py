@@ -1,50 +1,58 @@
-"""Profiling annotations and a trace of a span of work.
+"""Named spans of the program's stages, on the profiler's clock.
 
-Counterpart of ``anytime3d_tpu/utils/profiling.py``'s ``step_annotation`` and
-``trace`` on ``torch.profiler``: a step's span carries its name and number in
-the trace (and, where CUDA is present, in an NVTX range, which a CUDA
-profiler reads); ``trace`` records the host and, where present, the CUDA
-device and writes a Chrome trace into ``log_dir``. The JAX package's
-``enable_compilation_cache`` has no counterpart: the port compiles its
-kernels once into ``kernels/_build/``.
+``span(name)`` marks a stage of the work. While a profiler runs
+(``torch.profiler.profile``; or ``torch.autograd.profiler.emit_nvtx``
+under Nsight Systems, which makes every such range an NVTX range) the span
+is a ``torch.profiler.record_function`` range, so it lies in the same trace
+as the kernels and copies launched inside it, on the same clock. With no
+profiler on, ``span`` returns one shared no-op context and records nothing;
+while ``torch.compile`` or ``torch.export`` traces, it records nothing
+either, so an exported program holds no profiler op. A span closes only
+what it opened: a profiler that starts or stops inside an open span leaves
+the trace well formed.
+
+Names are fixed ``<layer>.<stage>`` strings, with no step number, so that a
+trace's spans group by name:
+
+- input path: ``prefetch.make``, ``prefetch.stage``, ``prefetch.h2d``,
+  ``prefetch.queue_full`` (``data/prefetch.py``, the worker thread);
+  ``batch.load``, ``batch.pack`` (``cli/train.py::build_batch_fn``, on the
+  thread that makes the batch);
+- train loop: ``trainer.batch_wait``, ``trainer.step``, ``trainer.fetch``,
+  ``trainer.log``, ``trainer.save``, ``trainer.eval``
+  (``train/trainer.py``);
+- train step: ``step.forward``, ``step.backward``, ``step.update``
+  (``train/step.py``);
+- model: ``model.encode``, ``model.decode`` (``models/mmvae.py``);
+- micro-batcher: ``batcher.collect``, ``batcher.assemble``,
+  ``batcher.h2d``, ``batcher.launch``, ``batcher.backpressure`` (the
+  dispatcher thread); ``batcher.fetch``, ``batcher.resolve`` (the
+  completion thread) (``serving/batcher.py``);
+- serving program: ``serve.unpack``, ``serve.classify``, ``serve.pack``
+  (``serving/export.py``).
+
+The JAX package's ``step_annotation``, ``trace`` and
+``enable_compilation_cache`` have no counterpart: ``span`` is the one
+mechanism, a trace is taken with ``torch.profiler.profile``, and the port
+compiles its kernels once into ``kernels/_build/``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()  # the one no-op context of every span with no profiler on
 
 
-@contextlib.contextmanager
-def step_annotation(name: str, step: int):
-    """Mark the work inside as step ``step`` of ``name``: a
-    ``torch.profiler.record_function`` span named ``"{name} step {step}"``
-    and, where CUDA is present, an NVTX range of that name."""
-    label = f"{name} step {step}"
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(label)
-    try:
-        with torch.profiler.record_function(label):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Profile the work inside (the host, and the CUDA device where there is
-    one) and write its Chrome trace into ``log_dir`` as
-    ``trace-<pid>-<ns>.json`` on the way out. Yields the profiler, whose
-    ``key_averages()`` can be read after."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+def span(name: str):
+    """A context that marks the work inside as the stage ``name`` in a
+    running profiler's trace (a ``record_function`` range, which closes at
+    exit only what it opened at entry); the shared no-op context where no
+    profiler runs or where ``torch.compile`` or ``torch.export`` traces."""
+    if not _autograd_profiler._is_profiler_enabled or torch.compiler.is_compiling():
+        return _OFF
+    return record_function(name)

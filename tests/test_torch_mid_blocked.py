@@ -4,8 +4,9 @@ composition ``tests/test_nn.py`` builds, their flax names, the strict load,
 forward and every gradient leaf; the whole train step's losses and
 gradients on a ``mid_blocked`` model), the learned log-var ``PriorNet`` with
 JAX's dropout masks, ``create_train_state(flat_opt=True)`` against
-``flat_adam`` and ``optax.adam``, ``kernels/subpixel.py`` (mirroring
-``tests/test_kernels.py``) and ``utils/profiling.py``.
+``flat_adam`` and ``optax.adam``, and ``kernels/subpixel.py`` (mirroring
+``tests/test_kernels.py``). The spans of ``utils/profiling.py`` are held
+in ``tests/test_torch_tracing.py``.
 
 Weights are flax trees drawn in numpy and converted with
 ``convert.params_from_flax``; inputs come from numpy seeds; the JAX side runs
@@ -16,9 +17,7 @@ float32; each tolerance is stated where it is set.
 import copy
 import dataclasses
 import itertools
-import json
 import math
-import os
 
 import flax.linen as fnn
 import jax
@@ -47,7 +46,6 @@ from anytime3d_tpu_torch.nn import blocks
 from anytime3d_tpu_torch.nn import priornet
 from anytime3d_tpu_torch.train import step as port_step
 from anytime3d_tpu_torch.train.state import FlatAdam, create_train_state
-from anytime3d_tpu_torch.utils import profiling
 
 TOL = dict(rtol=1e-4, atol=1e-5)  # f32 both sides, summation order only, through a few layers
 GRAD_REL = 1e-4  # each gradient leaf against JAX's, relative to that leaf's largest entry
@@ -478,21 +476,3 @@ def test_subpixel_module_matches_flax():
     with torch.no_grad():
         np.testing.assert_allclose(port(torch.from_numpy(x)).numpy(), equiv(torch.from_numpy(x)).numpy(), **TOL)
 
-
-# ---------------------------------------------------------------- utils/profiling.py
-
-def test_step_annotation_and_trace_write_a_trace(tmp_path):
-    """``trace`` records the work inside and writes one Chrome trace into
-    ``log_dir``; each ``step_annotation`` is a named span in it."""
-    x = torch.randn(2, 4, 4, 4, 8)
-    w = torch.randn(2, 2, 2, 8, 8)
-    with profiling.trace(str(tmp_path / "t")) as prof:
-        for step in range(2):
-            with profiling.step_annotation("train", step):
-                conv_k2(x, w)
-    files = os.listdir(tmp_path / "t")
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(tmp_path / "t" / files[0]) as fh:
-        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
-    assert {"train step 0", "train step 1"} <= names
-    assert {"train step 0", "train step 1"} <= {e.key for e in prof.key_averages()}
