@@ -123,11 +123,17 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv_k2_forward_chunked.argtypes = [ptr] * 3 + [i32] * 13 + [ptr]
     lib.conv_k2_backward_input_chunked.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
     lib.conv_k2_forward_wide.argtypes = [ptr] * 3 + [i32] * 14 + [ptr]
+    # the lowered stride-2 k=4 conv (kernels/conv_k4s2.py)
+    lib.conv_k4s2_forward_wgmma.argtypes = [ptr] * 4 + [i32] * 19 + [ptr]
+    lib.conv_k4s2_backward_input_wgmma.argtypes = [ptr] * 3 + [i32] * 17 + [ptr]
+    lib.conv_k4s2_backward_weight_wgmma.argtypes = [ptr] * 4 + [i32] * 16 + [ptr]
+    lib.conv_k4s2_backward_weight_persistent.argtypes = [ptr] * 4 + [i32] * 18 + [ptr]
     for fn in (lib.conv_k2_forward, lib.conv_k2_backward_input, lib.conv_k2_backward_weight,
                lib.conv_k2_forward_wgmma, lib.conv_k2_backward_input_wgmma, lib.conv_k2_backward_weight_wgmma,
                lib.conv_k2_backward_weight_persistent, lib.conv_k2_forward_narrow, lib.conv_k2_backward_input_narrow,
                lib.conv_k2_backward_weight_narrow, lib.conv_k2_forward_chunked, lib.conv_k2_backward_input_chunked,
-               lib.conv_k2_forward_wide):
+               lib.conv_k2_forward_wide, lib.conv_k4s2_forward_wgmma, lib.conv_k4s2_backward_input_wgmma,
+               lib.conv_k4s2_backward_weight_wgmma, lib.conv_k4s2_backward_weight_persistent):
         fn.restype = i32
     lib.conv_k2_error_string.argtypes = [i32]
     lib.conv_k2_error_string.restype = ctypes.c_char_p

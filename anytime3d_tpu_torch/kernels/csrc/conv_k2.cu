@@ -729,8 +729,9 @@ cudaError_t launch_dw(const void* x, const void* g, float* dw, float* workspace,
 // With splits > 1 the depth's 8 depth/64 stages are cut into `splits` runs of
 // `stages_per_split`, the kernel writes f32 partials to `part` [splits, M,
 // cols], and conv_k2_split_reduce_kernel then sums them into y (as the dw
-// entries launch their reduce: one call from the host for both).
-template <bool DX>
+// entries launch their reduce: one call from the host for both). K4: the
+// lowered stride-2 k=4 conv's (conv_k4s2_* below).
+template <bool DX, bool K4 = false>
 int launch_wgmma_gemm(const void* x, const void* w, void* y, float* part, int B, int D, int H, int W, int depth,
                       int cols, int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid, int smem_bytes,
                       int tiles, int splits, int stages_per_split, cudaStream_t s) {
@@ -740,10 +741,10 @@ int launch_wgmma_gemm(const void* x, const void* w, void* y, float* part, int B,
 #define GEMM_ARGS x, w, y, part, B, D, H, W, depth, cols, bw, bh, bd, bb, stages, grid, smem_bytes, tiles, splits, \
                   stages_per_split, s
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  if (bm == 128 && bn == 128) rc = wg::launch_fwd<128, 1, DX>(GEMM_ARGS);
-  else if (bm == 128 && bn == 64) rc = wg::launch_fwd<64, 1, DX>(GEMM_ARGS);
-  else if (bm == 256 && bn == 128) rc = wg::launch_fwd<128, 2, DX>(GEMM_ARGS);
-  else if (bm == 256 && bn == 64) rc = wg::launch_fwd<64, 2, DX>(GEMM_ARGS);
+  if (bm == 128 && bn == 128) rc = wg::launch_fwd<128, 1, DX, K4>(GEMM_ARGS);
+  else if (bm == 128 && bn == 64) rc = wg::launch_fwd<64, 1, DX, K4>(GEMM_ARGS);
+  else if (bm == 256 && bn == 128) rc = wg::launch_fwd<128, 2, DX, K4>(GEMM_ARGS);
+  else if (bm == 256 && bn == 64) rc = wg::launch_fwd<64, 2, DX, K4>(GEMM_ARGS);
 #undef GEMM_ARGS
   if (rc || splits == 1) return rc;
   // cols % 64 == 0: whole float4 groups; 4 outputs a thread
@@ -751,6 +752,49 @@ int launch_wgmma_gemm(const void* x, const void* w, void* y, float* part, int B,
   conv_k2_split_reduce_kernel<<<static_cast<unsigned>((count4 + 255) / 256), 256, 0, s>>>(
       part, static_cast<__nv_bfloat16*>(y), count4, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core dw (the entries' checks, the kernel, the reduce of its splits). K4: the lowered conv's, C
+// = 8 cf the channels of X, D, H, W g's grid.
+template <bool K4>
+int launch_wgmma_dw(const void* x, const void* g, void* dw, void* workspace, int splits, int stages_per_split, int B,
+                    int D, int H, int W, int C, int N, int bw, int bh, int bd, int bb, int bn, int stages,
+                    int smem_bytes, cudaStream_t s) {
+  const long long total = static_cast<long long>(B) * D * H * W / wg::BK;
+  if (C % wg::BK || N % bn || !wg::box_tiles(B, D, H, W, bw, bh, bd, bb, wg::BK) || stages < 2 ||
+      stages > wg::MAX_STAGES || !splits_cover(splits, stages_per_split, total))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* out = static_cast<float*>(dw);
+  float* part = splits == 1 ? out : static_cast<float*>(workspace);
+  int rc;
+  if (bn == 128)
+    rc = wg::launch_dw<128, K4>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, bb, stages,
+                                smem_bytes, s);
+  else if (bn == 64)
+    rc = wg::launch_dw<64, K4>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, bb, stages,
+                               smem_bytes, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rc || splits == 1) return rc;
+  return static_cast<int>(launch_dw_reduce(part, out, static_cast<long long>(8) * C * N, splits, s));
+}
+
+// The persistent tensor-core dw, as launch_wgmma_dw.
+template <bool K4>
+int launch_persistent_dw(const void* x, const void* g, void* dw, void* workspace, int B, int D, int H, int W, int C,
+                         int N, int bw, int bh, int bd, int bb, int bn, int stages, int grid, int smem_bytes, int tiles,
+                         int splits, int stages_per_split, cudaStream_t s) {
+  const long long total = static_cast<long long>(B) * D * H * W / wg::BK;
+  if (C % wg::BK || N % bn || !wg::box_tiles(B, D, H, W, bw, bh, bd, bb, wg::BK) || stages < 2 ||
+      stages > wg::MAX_STAGES || !splits_cover(splits, stages_per_split, total))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* out = static_cast<float*>(dw);
+  float* part = splits == 1 ? out : static_cast<float*>(workspace);
+  if (bn != wg::DW_PERSISTENT_BN) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = wg::launch_dw_persistent<K4>(x, g, part, B, D, H, W, C, N, bw, bh, bd, bb, stages, grid,
+                                              smem_bytes, tiles, splits, stages_per_split, s);
+  if (rc || splits == 1) return rc;
+  return static_cast<int>(launch_dw_reduce(part, out, static_cast<long long>(8) * C * N, splits, s));
 }
 
 }  // namespace
@@ -865,24 +909,8 @@ int conv_k2_backward_weight_wgmma(const void* x, const void* g, void* dw, void* 
                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(B) * D * H * W / wg::BK;
-  if (C % wg::BK || N % bn || !wg::box_tiles(B, D, H, W, bw, bh, bd, bb, wg::BK) || stages < 2 ||
-      stages > wg::MAX_STAGES || !splits_cover(splits, stages_per_split, total))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(dw);
-  float* part = splits == 1 ? out : static_cast<float*>(workspace);
-  int rc;
-  if (bn == 128)
-    rc = wg::launch_dw<128>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, bb, stages,
-                            smem_bytes, s);
-  else if (bn == 64)
-    rc = wg::launch_dw<64>(x, g, part, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, bb, stages,
-                           smem_bytes, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (rc || splits == 1) return rc;
-  return static_cast<int>(launch_dw_reduce(part, out, static_cast<long long>(8) * C * N, splits, s));
+  return launch_wgmma_dw<false>(x, g, dw, workspace, splits, stages_per_split, B, D, H, W, C, N, bw, bh, bd, bb, bn,
+                                stages, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // The bfloat16 tensor-core dw on persistent blocks (the plan's dw_persistent):
@@ -899,18 +927,8 @@ int conv_k2_backward_weight_persistent(const void* x, const void* g, void* dw, v
                                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(B) * D * H * W / wg::BK;
-  if (C % wg::BK || N % bn || !wg::box_tiles(B, D, H, W, bw, bh, bd, bb, wg::BK) || stages < 2 ||
-      stages > wg::MAX_STAGES || !splits_cover(splits, stages_per_split, total))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(dw);
-  float* part = splits == 1 ? out : static_cast<float*>(workspace);
-  if (bn != wg::DW_PERSISTENT_BN) return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = wg::launch_dw_persistent(x, g, part, B, D, H, W, C, N, bw, bh, bd, bb, stages, grid, smem_bytes,
-                                          tiles, splits, stages_per_split, s);
-  if (rc || splits == 1) return rc;
-  return static_cast<int>(launch_dw_reduce(part, out, static_cast<long long>(8) * C * N, splits, s));
+  return launch_persistent_dw<false>(x, g, dw, workspace, B, D, H, W, C, N, bw, bh, bd, bb, bn, stages, grid,
+                                     smem_bytes, tiles, splits, stages_per_split, static_cast<cudaStream_t>(stream));
 }
 
 // The forward for narrow outputs, bfloat16 on mma.sync or float32 on FFMA:
@@ -1006,6 +1024,57 @@ int conv_k2_backward_weight_narrow(const void* x, const void* g, void* dw, void*
                                dtype, s);
   if (rc || splits == 1) return rc;
   return static_cast<int>(launch_dw_reduce(part, out, static_cast<long long>(8) * C * N, splits, s));
+}
+
+// The lowered stride-2 k=4 SAME conv (kernels/conv_k4s2.py; conv_k2_wgmma.cuh says how it is formed): y
+// [B,D,H,W,N] = conv(x [B,2D,2H,2W,C], w) with w2 [2,2,2,8C,N], the weight re-laid by phase (row (tap,
+// (pd, ph, pw), c)). The plan is the tensor-core forward's of (B, D, H, W, 8C, N), splits and reduce included.
+// Needs C % 64 == 0.
+int conv_k4s2_forward_wgmma(const void* x, const void* w2, void* y, void* workspace, int B, int D, int H, int W,
+                            int C, int N, int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid,
+                            int smem_bytes, int tiles, int splits, int stages_per_split, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C % wg::BK) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wgmma_gemm<false, true>(x, w2, y, static_cast<float*>(workspace), B, D, H, W, 8 * C, N, bw, bh, bd,
+                                        bb, bm, bn, stages, grid, smem_bytes, tiles, splits, stages_per_split,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// Its dx [B,2D,2H,2W,C] from g [B,D,H,W,N] and w2 as the forward's, on the unsplit plan of a forward from N
+// to 8C channels. A column tile holds channels of one phase: C % bn == 0.
+int conv_k4s2_backward_input_wgmma(const void* g, const void* w2, void* dx, int B, int D, int H, int W, int C, int N,
+                                   int bw, int bh, int bd, int bb, int bm, int bn, int stages, int grid,
+                                   int smem_bytes, int tiles, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C % wg::BK || C % bn) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wgmma_gemm<true, true>(g, w2, dx, nullptr, B, D, H, W, N, 8 * C, bw, bh, bd, bb, bm, bn, stages,
+                                       grid, smem_bytes, tiles, 1, 8 * N / wg::BK, static_cast<cudaStream_t>(stream));
+}
+
+// Its dw2 [2,2,2,8C,N] in float32 (w2's layout) from x [B,2D,2H,2W,C] and g [B,D,H,W,N], on the dw fields of
+// the forward's plan: as conv_k2_backward_weight_wgmma at 8C channels.
+int conv_k4s2_backward_weight_wgmma(const void* x, const void* g, void* dw2, void* workspace, int splits,
+                                    int stages_per_split, int B, int D, int H, int W, int C, int N, int bw, int bh,
+                                    int bd, int bb, int bn, int stages, int smem_bytes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C % wg::BK) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wgmma_dw<true>(x, g, dw2, workspace, splits, stages_per_split, B, D, H, W, 8 * C, N, bw, bh, bd, bb,
+                               bn, stages, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The same on persistent blocks: as conv_k2_backward_weight_persistent at 8C channels.
+int conv_k4s2_backward_weight_persistent(const void* x, const void* g, void* dw2, void* workspace, int B, int D,
+                                         int H, int W, int C, int N, int bw, int bh, int bd, int bb, int bn,
+                                         int stages, int grid, int smem_bytes, int tiles, int splits,
+                                         int stages_per_split, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (C % wg::BK) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_persistent_dw<true>(x, g, dw2, workspace, B, D, H, W, 8 * C, N, bw, bh, bd, bb, bn, stages, grid,
+                                    smem_bytes, tiles, splits, stages_per_split, static_cast<cudaStream_t>(stream));
 }
 
 // Codes from wg::PLAN_MISMATCH up are this library's own, not cudaError_t.

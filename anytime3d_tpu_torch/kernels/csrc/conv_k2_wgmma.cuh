@@ -111,6 +111,32 @@
 //   half the SMs the rows split, each split's partial stored the same way
 //   into the workspace, then conv_k2_dw_reduce_kernel.
 //
+// The lowered stride-2 k=4 SAME conv (conv_k4s2_*_kernel, kernels/conv_k4s2.py).
+//   It replaces no TPU kernel: the JAX package leaves the voxel encoder's
+//   stride-2 k=4 convs to XLA, and on the card cuDNN ran them on its legacy
+//   engines (implicit_convolveNd_sgemm, wgrad_alg1_nd_float_engine), off the
+//   tensor cores. Such a conv of x [B, 2D, 2H, 2W, C] is exactly a k=2 VALID
+//   conv over X, the space-to-depth(2) of x padded by one voxel on each side:
+//   X [B, D+1, H+1, W+1, 8C], channels (pd, ph, pw, c), with
+//   W2 [tap (bd, bh, bw), (pd, ph, pw, c), n] = w[n, c, 2bd+pd, 2bh+ph, 2bw+pw].
+//   The output grid is D x H x W, one voxel smaller than X's, and it tiles as
+//   the mid_blocked stages' do (8^3 1024 -> 256, 4^3 2048 -> 512), so the
+//   three products are this file's kernels on the plan of (B, D, H, W, 8C, N).
+//   What bounds them is the same: operations (69 GFLOP a product at the first
+//   flagship stage, B=32). X is never written: X[j + tap] at phase p is x's
+//   own phase grid 7 - p (the voxels (2d + 1 - pd, ...)) at j + tap - 1 + p,
+//   and each of x's eight phase grids is a strided 5-D tensor map
+//   (encode_phase_maps), whose zero fill at -1 and at D is the SAME pad. The
+//   forward and dw pick the map by the phase of their depth chunk or row tile
+//   (tma_load_phase); the rest of the walk is conv_k2's.
+//   dx is written straight into x's fine grid: a column tile of dx (bn
+//   channels of one phase q of x's own space-to-depth, C % bn == 0) is a
+//   2x2x2-tap correlation of g with the phase-flipped weights W2[tap][7 - q],
+//   read one voxel higher along each axis where q is 1 (per axis, fine voxel
+//   2i reads g at i and i - 1, 2i + 1 at i + 1 and i). It is the DX instance
+//   with g's box shifted by the tile's phase, w's rows taken from phase 7 - q
+//   and an epilogue that stores each row at its fine voxel. The dx is unsplit.
+//
 // Shared memory of a stage: A 2 MT tiles of 8 KB (64 rows each) + B BN/64
 // tiles of 8 KB; every tile starts on a 1024-byte boundary (the swizzle's
 // period). Built with -DCONV_K2_WAIT_TRAP_NS=<ns> (bring-up and the card
@@ -126,6 +152,8 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace wg {
 
@@ -148,6 +176,14 @@ constexpr int DW_PERSISTENT_BN = 256;
 constexpr uint32_t DW_CHUNK_BYTES = 16 * 128;
 constexpr int DW_STORE_BUFS = CONV_K2_DW_STORE_BUFS;
 constexpr uint32_t DW_STAGING_BYTES = CONSUMER_WARPS * DW_STORE_BUFS * DW_CHUNK_BYTES;
+
+// x's eight phase grids, the A source of the lowered conv's forward and dw (encode_phase_maps); its dx reads
+// g through one map, as conv_k2's kernels read x.
+struct PhaseMaps {
+  CUtensorMap m[8];
+};
+template <bool PHASES>
+using XSource = std::conditional_t<PHASES, PhaseMaps, CUtensorMap>;
 
 // CONV_K2_DW_PROBE (cli/probe_split.py's builds): 1 leaves out dw's store, 2 its loads of g. 0 in the port.
 #ifndef CONV_K2_DW_PROBE
@@ -245,6 +281,16 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
+}
+
+// The lowered conv's A box for the output box at (w0, h0, d0, b0): tap `tap` (bd, bh, bw) and the 64 channels
+// from c0 of X's 8 cf, phase p = c0 / cf (pd, ph, pw), channel c0 % cf. X[j + tap] at phase p is x's phase
+// grid 7 - p at j + tap - 1 + p; below 0 and past the grid the TMA writes zeros, the SAME pad.
+__device__ __forceinline__ void tma_load_phase(uint32_t dst, const PhaseMaps& xs, uint32_t full, int tap, int c0,
+                                               int cf, int w0, int h0, int d0, int b0) {
+  const int p = c0 / cf;
+  tma_load_5d(dst, &xs.m[7 - p], full, c0 - p * cf, w0 + (tap & 1) - 1 + (p & 1),
+              h0 + ((tap >> 1) & 1) - 1 + ((p >> 1) & 1), d0 + (tap >> 2) - 1 + (p >> 2), b0);
 }
 
 // A box of `map` from shared memory at `src` to coordinates (c0, c1), in this thread's bulk group.
@@ -468,11 +514,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // `split_stages` and `part` are not read: one split of all stages, the items
 // are the tiles, and the instance carries none of the split's state (a
 // runtime branch cost the 16^3 stages a register spill).
-template <int BN, int MT, bool DX, bool SPLIT>
-__global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
-conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
-                         __nv_bfloat16* __restrict__ y, float* __restrict__ part, int D, int H, int W, int C, int N,
-                         long long tiles, int stages, int split_count, int split_stages) {
+//
+// K4: the lowered stride-2 k=4 conv (above); conv_k4s2_fwd_wgmma_kernel.
+template <int BN, int MT, bool DX, bool SPLIT, bool K4, class XS>
+__device__ __forceinline__ void fwd_wgmma(const XS& src_x, const CUtensorMap& map_w, __nv_bfloat16* __restrict__ y,
+                                          float* __restrict__ part, int D, int H, int W, int C, int N, long long tiles,
+                                          int stages, int split_count, int split_stages) {
   extern __shared__ uint8_t smem_raw[];
   const Ring r = ring_setup(smem_raw, stages, stage_bytes<BN, MT>());
 
@@ -483,6 +530,7 @@ conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
   const int stages_per_split = SPLIT ? split_stages : total;
   const long long items = tiles * splits;
   const int warp = threadIdx.x >> 5;
+  const int cf = (DX ? N : C) / 8;  // K4: x's channels, of which X and dx's columns hold 8 phases
 
   if (warp == CONSUMER_WARPS) {
     if ((threadIdx.x & 31) != 0) return;
@@ -490,6 +538,8 @@ conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
     uint32_t parity = 1;  // a fresh slot is empty
     for (long long item = blockIdx.x; item < items; item += gridDim.x) {
       const int n0 = static_cast<int>(item % n_tiles) * BN;
+      // K4 dx: the phase (pd, ph, pw) of x's grid whose channels the column tile holds
+      const int phase = K4 && DX ? n0 / cf : 0;
       const long long rest = item / n_tiles;
       const int first = static_cast<int>(rest % splits) * stages_per_split;
       const int last = min(total, first + stages_per_split);
@@ -506,13 +556,19 @@ conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
         const uint32_t dst = r.base + slot * stage_bytes<BN, MT>();
         mbar_wait(r.empty + 8 * slot, parity);
         mbar_arrive_expect_tx(full, stage_bytes<BN, MT>());
-        const int sign = DX ? -1 : 1;  // dx reads g at the origin minus the tap; below 0 the TMA writes zeros
-        tma_load_5d(dst, &map_x, full, c0, w0 + sign * (tap & 1), h0 + sign * ((tap >> 1) & 1),
-                    d0 + sign * (tap >> 2), b0);
+        if constexpr (K4 && !DX) {
+          tma_load_phase(dst, src_x, full, tap, c0, cf, w0, h0, d0, b0);
+        } else {
+          // dx reads g at the origin minus the tap (K4: plus the phase); below 0 the TMA writes zeros
+          const int sign = DX ? -1 : 1;
+          tma_load_5d(dst, &src_x, full, c0, w0 + sign * (tap & 1) + (phase & 1),
+                      h0 + sign * ((tap >> 1) & 1) + ((phase >> 1) & 1), d0 + sign * (tap >> 2) + (phase >> 2), b0);
+        }
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j) {
-          if (DX)  // rows (tap, n0 + 64 j ..) of w [8N, C], columns c0 .. of the depth: a K-major tile
-            tma_load_2d(dst + a_bytes<MT>() + j * TILE_BYTES, &map_w, full, c0, tap * N + n0 + 64 * j);
+          if (DX)  // rows (tap, n0 + 64 j ..) of w [8N, C] (K4: of phase 7 - phase), columns c0 .. of the depth
+            tma_load_2d(dst + a_bytes<MT>() + j * TILE_BYTES, &map_w, full, c0,
+                        tap * N + n0 + (K4 ? (7 - 2 * phase) * cf : 0) + 64 * j);
           else  // rows it*64 .. of w [8C, N]: (tap, c) order
             tma_load_2d(dst + a_bytes<MT>() + j * TILE_BYTES, &map_w, full, n0 + 64 * j, it * BK);
         }
@@ -556,33 +612,78 @@ conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid
         }
       continue;
     }
-    __nv_bfloat16* out = y + row * N + n0 + 8 * q;
+    if constexpr (K4 && DX) {
+      // dx in x's own grid [B, 2D, 2H, 2W, cf]: row rr is g's voxel (b, d, h, w), stored at the fine voxel
+      // (2d + pd, 2h + ph, 2w + pw) of the tile's phase, in that phase's channels n0 - phase cf ..
+      const int phase = n0 / cf;
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
+      for (int i = 0; i < MT; ++i) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {  // rows lane/4 and lane/4 + 8
+        for (int half = 0; half < 2; ++half) {  // rows lane/4 and lane/4 + 8
+          long long v = row + 64 * i + 8 * half;
+          const int ww = static_cast<int>(v % W); v /= W;
+          const int hh = static_cast<int>(v % H); v /= H;
+          const int dd = static_cast<int>(v % D); v /= D;
+          const long long fine =
+              ((v * 2 * D + 2 * dd + (phase >> 2)) * 2 * H + 2 * hh + ((phase >> 1) & 1)) * 2 * W + 2 * ww + (phase & 1);
+          __nv_bfloat16* out = y + fine * cf + (n0 - phase * cf) + 8 * q;
 #pragma unroll
-        for (int j = 0; j < BN / 8; j += 4) {
-          uint32_t p[4];
+          for (int j = 0; j < BN / 8; j += 4) {
+            uint32_t p[4];
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            p[u] = pack_bf16(acc[i][4 * (j + u) + 2 * half], acc[i][4 * (j + u) + 2 * half + 1]);
-          *reinterpret_cast<uint4*>(out + (64 * i + 8 * half) * static_cast<long long>(N) + 8 * j) =
-              quad_transpose(p, q);
+            for (int u = 0; u < 4; ++u)
+              p[u] = pack_bf16(acc[i][4 * (j + u) + 2 * half], acc[i][4 * (j + u) + 2 * half + 1]);
+            *reinterpret_cast<uint4*>(out + 8 * j) = quad_transpose(p, q);
+          }
+        }
+      }
+    } else {
+      __nv_bfloat16* out = y + row * N + n0 + 8 * q;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // rows lane/4 and lane/4 + 8
+#pragma unroll
+          for (int j = 0; j < BN / 8; j += 4) {
+            uint32_t p[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              p[u] = pack_bf16(acc[i][4 * (j + u) + 2 * half], acc[i][4 * (j + u) + 2 * half + 1]);
+            *reinterpret_cast<uint4*>(out + (64 * i + 8 * half) * static_cast<long long>(N) + 8 * j) =
+                quad_transpose(p, q);
+          }
         }
       }
     }
   }
 }
 
+template <int BN, int MT, bool DX, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
+conv_k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                         __nv_bfloat16* __restrict__ y, float* __restrict__ part, int D, int H, int W, int C, int N,
+                         long long tiles, int stages, int split_count, int split_stages) {
+  fwd_wgmma<BN, MT, DX, SPLIT, false>(map_x, map_w, y, part, D, H, W, C, N, tiles, stages, split_count, split_stages);
+}
+
+// The lowered stride-2 k=4 conv's forward (src_x: x's phase grids; C = 8 cf, the depth of X; D, H, W the
+// output grid) and, DX, its dx (src_x: g; N = 8 cf, y = dx in x's grid [B, 2D, 2H, 2W, cf]; never split).
+template <int BN, int MT, bool DX, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
+conv_k4s2_fwd_wgmma_kernel(const __grid_constant__ XSource<!DX> src_x, const __grid_constant__ CUtensorMap map_w,
+                           __nv_bfloat16* __restrict__ y, float* __restrict__ part, int D, int H, int W, int C, int N,
+                           long long tiles, int stages, int split_count, int split_stages) {
+  fwd_wgmma<BN, MT, DX, SPLIT, true>(src_x, map_w, y, part, D, H, W, C, N, tiles, stages, split_count, split_stages);
+}
+
 // dw partial: part[z][r][n] over the stages [z * stages_per_split, ...) of the
 // rows m. Grid: (N / BN, 8C / 128, splits). Always 128 rows a tile: 256 gained
 // nothing here.
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 2)
-conv_k2_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
-                        float* __restrict__ part, int D, int H, int W, int C, int N, int total_stages,
-                        int stages_per_split, int stages) {
+// K4: the lowered conv's (src_x: x's phase grids; C = 8 cf, the channels of X; D, H, W g's grid).
+template <int BN, bool K4, class XS>
+__device__ __forceinline__ void dw_wgmma(const XS& src_x, const CUtensorMap& map_g, float* __restrict__ part, int D,
+                                         int H, int W, int C, int N, int total_stages, int stages_per_split,
+                                         int stages) {
   extern __shared__ uint8_t smem_raw[];
   const Ring r = ring_setup(smem_raw, stages, stage_bytes<BN, 1>());
 
@@ -614,9 +715,13 @@ conv_k2_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_
       mbar_wait(r.empty + 8 * slot, parity);
       mbar_arrive_expect_tx(full, CONV_K2_DW_PROBE == 2 ? a_bytes<1>() : stage_bytes<BN, 1>());
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        tma_load_5d(dst + i * TILE_BYTES, &map_x, full, c0[i], w0 + (tap[i] & 1), h0 + ((tap[i] >> 1) & 1),
-                    d0 + (tap[i] >> 2), b0);
+      for (int i = 0; i < 2; ++i) {
+        if constexpr (K4)
+          tma_load_phase(dst + i * TILE_BYTES, src_x, full, tap[i], c0[i], C / 8, w0, h0, d0, b0);
+        else
+          tma_load_5d(dst + i * TILE_BYTES, &src_x, full, c0[i], w0 + (tap[i] & 1), h0 + ((tap[i] >> 1) & 1),
+                      d0 + (tap[i] >> 2), b0);
+      }
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j)
         if (CONV_K2_DW_PROBE != 2)
@@ -647,6 +752,22 @@ conv_k2_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_
     *reinterpret_cast<float2*>(out + 8 * static_cast<long long>(N) + 8 * j) =
         make_float2(acc[0][4 * j + 2], acc[0][4 * j + 3]);
   }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 2)
+conv_k2_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
+                        float* __restrict__ part, int D, int H, int W, int C, int N, int total_stages,
+                        int stages_per_split, int stages) {
+  dw_wgmma<BN, false>(map_x, map_g, part, D, H, W, C, N, total_stages, stages_per_split, stages);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 2)
+conv_k4s2_dw_wgmma_kernel(const __grid_constant__ PhaseMaps src_x, const __grid_constant__ CUtensorMap map_g,
+                          float* __restrict__ part, int D, int H, int W, int C, int N, int total_stages,
+                          int stages_per_split, int stages) {
+  dw_wgmma<BN, true>(src_x, map_g, part, D, H, W, C, N, total_stages, stages_per_split, stages);
 }
 
 // The persistent dw's consumer side of the ring: as consume (A and B both
@@ -693,11 +814,12 @@ __device__ __forceinline__ void consume_dw(const Ring& r, int stages, int n_iter
 // N/256 column tiles), block i taking items i, i + gridDim.x, ...; an item
 // reduces the stages [split * stages_per_split, ...) of 64 rows m into a 128 x
 // 256 tile. map_out is the f32 matrix [splits * 8C, N]: dw itself with one
-// split, else the workspace, whose split z holds rows z 8C ..
-__global__ void __launch_bounds__(THREADS, 1)
-conv_k2_dw_persistent_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
-                             const __grid_constant__ CUtensorMap map_out, int D, int H, int W, int C, int N,
-                             int total_stages, int splits, int stages_per_split, int stages) {
+// split, else the workspace, whose split z holds rows z 8C .. K4: the lowered
+// conv's, as dw_wgmma's.
+template <bool K4, class XS>
+__device__ __forceinline__ void dw_persistent(const XS& src_x, const CUtensorMap& map_g, const CUtensorMap& map_out,
+                                              int D, int H, int W, int C, int N, int total_stages, int splits,
+                                              int stages_per_split, int stages) {
   constexpr int BN = DW_PERSISTENT_BN;
   constexpr int NB = BN / 128;
   extern __shared__ uint8_t smem_raw[];
@@ -735,9 +857,13 @@ conv_k2_dw_persistent_kernel(const __grid_constant__ CUtensorMap map_x, const __
         mbar_wait(r.empty + 8 * slot, parity);
         mbar_arrive_expect_tx(full, CONV_K2_DW_PROBE == 2 ? a_bytes<1>() : stage_bytes<BN, 1>());
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          tma_load_5d(dst + i * TILE_BYTES, &map_x, full, c0[i], w0 + (tap[i] & 1), h0 + ((tap[i] >> 1) & 1),
-                      d0 + (tap[i] >> 2), b0);
+        for (int i = 0; i < 2; ++i) {
+          if constexpr (K4)
+            tma_load_phase(dst + i * TILE_BYTES, src_x, full, tap[i], c0[i], C / 8, w0, h0, d0, b0);
+          else
+            tma_load_5d(dst + i * TILE_BYTES, &src_x, full, c0[i], w0 + (tap[i] & 1), h0 + ((tap[i] >> 1) & 1),
+                        d0 + (tap[i] >> 2), b0);
+        }
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j)
           if (CONV_K2_DW_PROBE != 2) tma_load_2d(dst + a_bytes<1>() + j * TILE_BYTES, &map_g, full, n0 + 64 * j, m0);
@@ -791,6 +917,20 @@ conv_k2_dw_persistent_kernel(const __grid_constant__ CUtensorMap map_x, const __
     }
   }
   if (lane == 0) bulk_wait<0, false>();  // every store has landed before the block's shared memory goes
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv_k2_dw_persistent_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
+                             const __grid_constant__ CUtensorMap map_out, int D, int H, int W, int C, int N,
+                             int total_stages, int splits, int stages_per_split, int stages) {
+  dw_persistent<false>(map_x, map_g, map_out, D, H, W, C, N, total_stages, splits, stages_per_split, stages);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv_k4s2_dw_persistent_kernel(const __grid_constant__ PhaseMaps src_x, const __grid_constant__ CUtensorMap map_g,
+                               const __grid_constant__ CUtensorMap map_out, int D, int H, int W, int C, int N,
+                               int total_stages, int splits, int stages_per_split, int stages) {
+  dw_persistent<true>(src_x, map_g, map_out, D, H, W, C, N, total_stages, splits, stages_per_split, stages);
 }
 
 // ---- host side ----
@@ -872,9 +1012,49 @@ inline int encode_matrix_map(CUtensorMap* map, const void* p, long long rows, in
   return encode_map(map, p, 2, dims, box);
 }
 
+// x [B, 2D, 2H, 2W, cf] as its eight phase grids, the A source of the lowered
+// conv's forward and dw: grid p = 4 pd + 2 ph + pw is the 5-D tensor (cf, W, H,
+// D, B) of the voxels (2d + pd, 2h + ph, 2w + pw), strided, in boxes of 64
+// channels by bw * bh * bd voxels of bb batch items.
+inline int encode_phase_maps(PhaseMaps* maps, const void* x, int B, int D, int H, int W, int cf, int bw, int bh,
+                             int bd, int bb) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode) return NO_ENCODER;
+  const cuuint64_t voxel = 2ull * cf;  // bytes of a voxel's channels
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(cf), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(B)};
+  // bytes, from dim 1 on: every other voxel of a line, of a plane's lines, of an item's planes; whole items
+  const cuuint64_t strides[4] = {2 * voxel, 4ull * W * voxel, 8ull * H * W * voxel, 8ull * D * H * W * voxel};
+  const cuuint32_t box[5] = {BK, static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh),
+                             static_cast<cuuint32_t>(bd), static_cast<cuuint32_t>(bb)};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  for (int p = 0; p < 8; ++p) {
+    const long long first = ((p >> 2) * 2LL * H + ((p >> 1) & 1)) * 2LL * W + (p & 1);  // the voxel (pd, ph, pw)
+    const CUresult res = encode(&maps->m[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+                                const_cast<char*>(static_cast<const char*>(x)) + first * voxel, dims, strides, box,
+                                ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(res);
+  }
+  return 0;
+}
+
+// The A source of the forward or dw: x [B, D, H, W, C] as it lies, or (PHASES) the phase grids of x [B, 2D,
+// 2H, 2W, C / 8].
+template <bool PHASES>
+inline int encode_x_source(XSource<PHASES>* src, const void* x, int B, int D, int H, int W, int C, int bw, int bh,
+                           int bd, int bb) {
+  if constexpr (PHASES)
+    return encode_phase_maps(src, x, B, D, H, W, C / 8, bw, bh, bd, bb);
+  else
+    return encode_x_map(src, x, B, D, H, W, C, bw, bh, bd, bb);
+}
+
 // The forward, or (DX) dx with x := g, C := g's channel count, N := dx's, y := dx;
 // with splits > 1 into the f32 partials `part` [splits, M, N] instead of y.
-template <int BN, int MT, bool DX>
+// K4: the lowered conv's (D, H, W the output grid; the forward's C = 8 cf over
+// x [B, 2D, 2H, 2W, cf], dx's N = 8 cf into dx of that shape).
+template <int BN, int MT, bool DX, bool K4 = false>
 int launch_fwd(const void* x, const void* w, void* y, float* part, int B, int D, int H, int W, int C, int N, int bw,
                int bh, int bd, int bb, int stages, int grid, int plan_smem, int plan_tiles, int splits,
                int stages_per_split, cudaStream_t s) {
@@ -884,52 +1064,76 @@ int launch_fwd(const void* x, const void* w, void* y, float* part, int B, int D,
   const long long tiles = (M / (BM * MT)) * (N / BN);
   if (static_cast<size_t>(plan_smem) != smem || plan_tiles != tiles) return PLAN_MISMATCH;
   if (grid > tiles * splits || (splits > 1 && part == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map_x, map_w;
-  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd, bb);
+  XSource<K4 && !DX> src_x;
+  CUtensorMap map_w;
+  int rc = encode_x_source<K4 && !DX>(&src_x, x, B, D, H, W, C, bw, bh, bd, bb);
   if (rc) return rc;
   rc = DX ? encode_matrix_map(&map_w, w, 8LL * N, C) : encode_matrix_map(&map_w, w, 8LL * C, N);
   if (rc) return rc;
-  auto kernel =
-      splits > 1 ? conv_k2_fwd_wgmma_kernel<BN, MT, DX, true> : conv_k2_fwd_wgmma_kernel<BN, MT, DX, false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(map_x, map_w, static_cast<__nv_bfloat16*>(y), part, D, H,
-                                                            W, C, N, tiles, stages, splits, stages_per_split);
+  if constexpr (K4) {
+    auto kernel =
+        splits > 1 ? conv_k4s2_fwd_wgmma_kernel<BN, MT, DX, true> : conv_k4s2_fwd_wgmma_kernel<BN, MT, DX, false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(src_x, map_w, static_cast<__nv_bfloat16*>(y), part, D,
+                                                              H, W, C, N, tiles, stages, splits, stages_per_split);
+  } else {
+    auto kernel =
+        splits > 1 ? conv_k2_fwd_wgmma_kernel<BN, MT, DX, true> : conv_k2_fwd_wgmma_kernel<BN, MT, DX, false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(src_x, map_w, static_cast<__nv_bfloat16*>(y), part, D,
+                                                              H, W, C, N, tiles, stages, splits, stages_per_split);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN>
+// K4: the lowered conv's dw [8 8cf, N] over x [B, 2D, 2H, 2W, cf] (C = 8 cf) and g [B, D, H, W, N].
+template <int BN, bool K4 = false>
 int launch_dw(const void* x, const void* g, float* part, int splits, int stages_per_split, int B, int D, int H,
               int W, int C, int N, int bw, int bh, int bd, int bb, int stages, int plan_smem, cudaStream_t s) {
   const size_t smem = smem_bytes<BN, 1>(stages);
   if (static_cast<size_t>(plan_smem) != smem) return PLAN_MISMATCH;
   const long long M = static_cast<long long>(B) * D * H * W;
-  CUtensorMap map_x, map_g;
-  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd, bb);
+  XSource<K4> src_x;
+  CUtensorMap map_g;
+  int rc = encode_x_source<K4>(&src_x, x, B, D, H, W, C, bw, bh, bd, bb);
   if (rc) return rc;
   rc = encode_matrix_map(&map_g, g, M, N);
   if (rc) return rc;
-  cudaError_t err = cudaFuncSetAttribute(conv_k2_dw_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(N / BN), static_cast<unsigned>(8 * C / BM), static_cast<unsigned>(splits));
-  conv_k2_dw_wgmma_kernel<BN><<<grid, THREADS, smem, s>>>(map_x, map_g, part, D, H, W, C, N,
-                                                         static_cast<int>(M / BK), stages_per_split, stages);
+  if constexpr (K4) {
+    cudaError_t err = cudaFuncSetAttribute(conv_k4s2_dw_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv_k4s2_dw_wgmma_kernel<BN><<<grid, THREADS, smem, s>>>(src_x, map_g, part, D, H, W, C, N,
+                                                             static_cast<int>(M / BK), stages_per_split, stages);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(conv_k2_dw_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv_k2_dw_wgmma_kernel<BN><<<grid, THREADS, smem, s>>>(src_x, map_g, part, D, H, W, C, N,
+                                                           static_cast<int>(M / BK), stages_per_split, stages);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The persistent dw into `out`, the f32 matrix [splits * 8C, N] (dw, or with
-// splits > 1 the workspace of partials), on `grid` blocks.
-inline int launch_dw_persistent(const void* x, const void* g, float* out, int B, int D, int H, int W, int C, int N,
-                                int bw, int bh, int bd, int bb, int stages, int grid, int plan_smem, int plan_tiles,
-                                int splits, int stages_per_split, cudaStream_t s) {
+// splits > 1 the workspace of partials), on `grid` blocks. K4: as launch_dw's.
+template <bool K4 = false>
+int launch_dw_persistent(const void* x, const void* g, float* out, int B, int D, int H, int W, int C, int N, int bw,
+                         int bh, int bd, int bb, int stages, int grid, int plan_smem, int plan_tiles, int splits,
+                         int stages_per_split, cudaStream_t s) {
   const size_t smem = dw_persistent_smem_bytes(stages);
   const long long tiles = (8LL * C / BM) * (N / DW_PERSISTENT_BN);
   if (static_cast<size_t>(plan_smem) != smem || plan_tiles != tiles) return PLAN_MISMATCH;
   if (grid < 1 || grid > tiles * splits) return static_cast<int>(cudaErrorInvalidValue);
   const long long M = static_cast<long long>(B) * D * H * W;
-  CUtensorMap map_x, map_g, map_out;
-  int rc = encode_x_map(&map_x, x, B, D, H, W, C, bw, bh, bd, bb);
+  XSource<K4> src_x;
+  CUtensorMap map_g, map_out;
+  int rc = encode_x_source<K4>(&src_x, x, B, D, H, W, C, bw, bh, bd, bb);
   if (rc) return rc;
   rc = encode_matrix_map(&map_g, g, M, N);
   if (rc) return rc;
@@ -938,11 +1142,19 @@ inline int launch_dw_persistent(const void* x, const void* g, float* out, int B,
   const cuuint32_t box[2] = {32, 16};
   rc = encode_map(&map_out, out, 2, dims, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (rc) return rc;
-  cudaError_t err = cudaFuncSetAttribute(conv_k2_dw_persistent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  conv_k2_dw_persistent_kernel<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
-      map_x, map_g, map_out, D, H, W, C, N, static_cast<int>(M / BK), splits, stages_per_split, stages);
+  if constexpr (K4) {
+    cudaError_t err = cudaFuncSetAttribute(conv_k4s2_dw_persistent_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv_k4s2_dw_persistent_kernel<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+        src_x, map_g, map_out, D, H, W, C, N, static_cast<int>(M / BK), splits, stages_per_split, stages);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(conv_k2_dw_persistent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv_k2_dw_persistent_kernel<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+        src_x, map_g, map_out, D, H, W, C, N, static_cast<int>(M / BK), splits, stages_per_split, stages);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

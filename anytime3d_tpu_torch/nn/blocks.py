@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from anytime3d_tpu_torch.kernels.conv_k2 import conv_k2
+from anytime3d_tpu_torch.kernels.conv_k4s2 import conv_k4s2, lowers
 
 
 def depth_to_space3d(x: torch.Tensor, b: int) -> torch.Tensor:
@@ -228,7 +229,10 @@ def maxpool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor
 
 class Conv3d(nn.Module):
     """flax ``nn.Conv(features, (k, k, k), strides=(s, s, s), padding='SAME',
-    use_bias=False)`` on NDHWC, via ``F.conv3d``. ``weight`` is OIDHW."""
+    use_bias=False)`` on NDHWC, via ``F.conv3d``. ``weight`` is OIDHW. A k=4
+    s=2 conv of a bfloat16 CUDA input whose lowered shape has a plan runs on
+    the tensor-core kernels of ``conv_k4s2`` instead (``kernels/conv_k4s2.py::
+    lowering_plans``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int, stride: int,
                  generator: Optional[torch.Generator] = None):
@@ -239,6 +243,8 @@ class Conv3d(nn.Module):
         lecun_normal_(self.weight, k**3 * in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if lowers(x, self.weight, self.kernel_size, self.stride):
+            return conv_k4s2(x, self.weight)
         xc = F.pad(x.permute(0, 4, 1, 2, 3), _same_pad_list(x, self.kernel_size, self.stride))
         y = F.conv3d(xc, self.weight.to(x.dtype), stride=self.stride)
         return y.permute(0, 2, 3, 4, 1).contiguous()

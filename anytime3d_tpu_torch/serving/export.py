@@ -10,8 +10,9 @@ the program, on the model's device and in its dtype) and saves it with
 any process, with no model class, config or checkpoint. An artifact is tied to
 the torch version that saved it: load it with the same version. Its batch
 shape is static, as in the JAX artifact: the micro-batcher pads requests to it.
-The ``conv_k2`` stages are the op ``anytime3d_torch::conv_k2`` in the program;
-importing this module registers it.
+The ``conv_k2`` stages are the op ``anytime3d_torch::conv_k2`` in the program,
+and a bfloat16 program traced on the card holds the encoder's stride-2 k=4
+convs as ``anytime3d_torch::conv_k4s2``; importing this module registers both.
 
 One deliberate difference: the JAX program applies a sigmoid to the decoder
 output, which the decoder has already passed through its own sigmoid, so its
@@ -29,6 +30,7 @@ import torch
 import torch.nn as nn
 
 import anytime3d_tpu_torch.kernels.conv_k2  # noqa: F401  registers the ops an exported program calls
+import anytime3d_tpu_torch.kernels.conv_k4s2  # noqa: F401
 from anytime3d_tpu_torch.anytime.engine import classify_by_prior
 from anytime3d_tpu_torch.data.packing import pack_voxels_device, unpack_voxels
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE

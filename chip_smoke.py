@@ -332,6 +332,7 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (  # noqa: E402
     wgmma_plan,
     wide_plan,
 )
+from anytime3d_tpu_torch.kernels.conv_k4s2 import conv_k4s2, lowering_plans  # noqa: E402
 from anytime3d_tpu_torch.models import configs  # noqa: E402
 from anytime3d_tpu_torch.models.configs import REGISTRY  # noqa: E402
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE  # noqa: E402
@@ -462,6 +463,10 @@ VARIANT_ARTIFACT_REQUESTS = 8  # float-input requests (262144 floats of JSON eac
 VARIANT_LAYOUTS = {"classic": ((0, 0, 0), False, (0, 0, 0), 0), "blocked_dynfix": ((4, 3, 4), True, (0, 0, 0), 0),
                    "classic_s2d2": ((1, 0, 1), False, (0, 0, 1), 1)}
 STEM_K2 = (32, 8, 64)  # grid, C, N of the s2d(2) stem: 64^3 x 1 folded to 32^3 x 8, 8 -> 64
+# (grid, C, N) of the flagship encoder's stride-2 k=4 stages, lowered onto conv_k2's tensor-core kernels
+# (kernels/conv_k4s2.py), and the batches they are checked and timed at
+K4S2_STAGES = [(16, 128, 256), (8, 256, 512)]
+K4S2_BATCHES = [32]
 # phase 15: pretraining, the graft, structural shapes, the streaming reconstructor
 PRETRAIN_BATCH, PRETRAIN_SIZE, PRETRAIN_STEPS = 64, 224, 16  # cli/pretrain.py's batch and size
 PRETRAIN_SLICE_BATCH = 2  # the f32 classifier forward also run on the CPU
@@ -515,6 +520,7 @@ def reset_counts() -> None:
     conv_k2.launches_chunked = conv_k2.launches_dw_chunked = 0
     conv_k2.launches_dx_chunked = conv_k2.launches_chunked_f32 = 0
     conv_k2.launches_wide = conv_k2.launches_dw_ffma_fit = 0
+    conv_k4s2.launches = conv_k4s2.launches_dx = conv_k4s2.launches_dw = 0
 
 
 def read_counts() -> dict:
@@ -535,7 +541,9 @@ def read_counts() -> dict:
     (that shard's bfloat16 dx, also under ``conv_k2_dx_narrow``), under
     ``conv_k2_wide`` the forward launches on the wide plan (the s2d(2) stem's
     bfloat16 forward), under ``conv_k2_dw_ffma_fit`` the FFMA dw launches on a
-    tile fitted to a narrow side (N <= 32 or 8C <= 64)."""
+    tile fitted to a narrow side (N <= 32 or 8C <= 64); under ``conv_k4s2``,
+    ``conv_k4s2_dx`` and ``conv_k4s2_dw`` the lowered stride-2 k=4 conv's
+    launches (``kernels/conv_k4s2.py``)."""
     return {"conv_k2": conv_k2.launches, "conv_k2_dx": conv_k2.launches_dx, "conv_k2_dw": conv_k2.launches_dw,
             "conv_k2_wgmma": conv_k2.launches_wgmma, "conv_k2_dx_wgmma": conv_k2.launches_dx_wgmma,
             "conv_k2_dw_wgmma": conv_k2.launches_dw_wgmma, "conv_k2_narrow": conv_k2.launches_narrow,
@@ -547,13 +555,15 @@ def read_counts() -> dict:
             "conv_k2_dw_persistent": conv_k2.launches_dw_persistent, "conv_k2_chunked": conv_k2.launches_chunked,
             "conv_k2_dw_chunked": conv_k2.launches_dw_chunked, "conv_k2_dx_chunked": conv_k2.launches_dx_chunked,
             "conv_k2_chunked_f32": conv_k2.launches_chunked_f32, "conv_k2_wide": conv_k2.launches_wide,
-            "conv_k2_dw_ffma_fit": conv_k2.launches_dw_ffma_fit}
+            "conv_k2_dw_ffma_fit": conv_k2.launches_dw_ffma_fit, "conv_k4s2": conv_k4s2.launches,
+            "conv_k4s2_dx": conv_k4s2.launches_dx, "conv_k4s2_dw": conv_k4s2.launches_dw}
 
 
 def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
                   narrow: tuple[int, int, int] = (0, 0, 0), split: tuple[int, int] = (0, 0),
                   wide: int = 0, ffma_split: tuple[int, int] = (0, 0), persistent: int = 0,
-                  chunked: tuple[int, int, int] = (0, 0, 0), wide_forward: int = 0, ffma_fit: int = 0) -> dict:
+                  chunked: tuple[int, int, int] = (0, 0, 0), wide_forward: int = 0, ffma_fit: int = 0,
+                  k4s2: tuple[int, int, int] | None = None) -> dict:
     """Read the counts and hold them to ``forward`` / ``dx`` / ``dw`` launches,
     all of them on the tensor-core kernels or none of them, ``narrow``'s
     forward / dx / dw launches of them on the narrow kernels, ``wide`` of the
@@ -566,7 +576,9 @@ def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
     plan walks C in chunks (dx: the chunked dx; all in bfloat16: the float32
     ones run in phase 19 alone, which holds its counts to ``tp_expected``),
     ``wide_forward`` forward launches on the wide plan and ``ffma_fit`` FFMA
-    dw launches on a tile fitted to a narrow side."""
+    dw launches on a tile fitted to a narrow side; where ``k4s2`` is given,
+    also the lowered stride-2 k=4 conv's forward / dx / dw launches (else
+    they are counted and returned, not held)."""
     counts = read_counts()
     want = {"conv_k2": forward, "conv_k2_dx": dx, "conv_k2_dw": dw,
             "conv_k2_wgmma": forward if tensor_cores else 0, "conv_k2_dx_wgmma": dx if tensor_cores else 0,
@@ -577,9 +589,21 @@ def expect_counts(what: str, forward: int, dx: int, dw: int, tensor_cores: bool,
             "conv_k2_dw_persistent": persistent, "conv_k2_chunked": chunked[0], "conv_k2_dx_chunked": chunked[1],
             "conv_k2_dw_chunked": chunked[2], "conv_k2_chunked_f32": 0, "conv_k2_wide": wide_forward,
             "conv_k2_dw_ffma_fit": ffma_fit}
-    if counts != want:
+    if k4s2 is not None:
+        want |= {"conv_k4s2": k4s2[0], "conv_k4s2_dx": k4s2[1], "conv_k4s2_dw": k4s2[2]}
+    if {k: v for k, v in counts.items() if k in want} != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     return counts
+
+
+def k4s2_lowered(batch: int) -> int:
+    """How many of the flagship encoder's stride-2 k=4 stages ``Conv3d``
+    lowers onto the tensor-core kernels at ``batch`` in bfloat16 on this
+    card (``kernels/conv_k4s2.py::lowering_plans``): each a forward, dx and
+    dw launch of a train step, a forward of an encode."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sum(lowering_plans((batch, n, n, n, C), N, 4, 2, torch.bfloat16, "cuda", sms) is not None
+               for n, C, N in K4S2_STAGES)
 
 
 def k2_bound_ms(kernel: str, batch: int, C: int, N: int, dtype: torch.dtype, grid: int = GRID) -> tuple[float, str]:
@@ -830,7 +854,11 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
     a narrow input and a wide output on the chunked dx's kernel run forward
     (headline: the s2d(2) stem at B=32), and ``conv_k2_dw_ffma_fit``, the FFMA
     dw on a tile fitted to a narrow side (headline: that shard's f32 dw at
-    B=32; the stem's f32 dw among its cases)."""
+    B=32; the stem's f32 dw among its cases). And three of the lowered
+    stride-2 k=4 conv (``kernels/conv_k4s2.py``), which replace no TPU kernel
+    (the JAX package leaves the conv to XLA): ``conv_k4s2``, ``conv_k4s2_dx``
+    and ``conv_k4s2_dw`` (headline: the flagship encoder's 16^3 -> 8^3 128 ->
+    256 at B=32, bf16)."""
     paths = (serve_counts, train_counts, anytime_counts, life_counts, artifact_counts, image_counts, detector_counts,
              variant_counts, stream_counts, real_counts, mapping_counts, mid_counts, tp_counts)
     names = ("serve", "train", "anytime", "lifecycle", "artifact", "image", "detector", "variants", "pretrain_stream",
@@ -846,7 +874,10 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
                 "conv_k2_dx_chunked": "anytime3d_tpu/kernels/conv_k2.py:178",
                 "conv_k2_chunked_f32": "anytime3d_tpu/kernels/conv_k2.py:156",
                 "conv_k2_wide": "anytime3d_tpu/kernels/conv_k2.py:156",
-                "conv_k2_dw_ffma_fit": "anytime3d_tpu/kernels/conv_k2.py:184"}
+                "conv_k2_dw_ffma_fit": "anytime3d_tpu/kernels/conv_k2.py:184",
+                # no TPU kernel: XLA's conv of the voxel encoder's stride-2 stages
+                **dict.fromkeys(("conv_k4s2", "conv_k4s2_dx", "conv_k4s2_dw"),
+                                "none (XLA's nn.Conv, anytime3d_tpu/nn/blocks.py:111)")}
     # the case of the headline numbers: the shapes its main path gives each kernel
     heads = {"conv_k2": "b8_f32", "conv_k2_dx": "b32_bf16", "conv_k2_dw": "b32_bf16",
              "conv_k2_split_reduce": "mid_b8_bf16_4cubed 4^3 2048->512", "conv_k2_dw_wide": "stem_b32_bf16",
@@ -854,12 +885,15 @@ def kernel_entries(res: dict, serve_counts: dict, train_counts: dict, anytime_co
              "conv_k2_dw_persistent": "mid_b8_bf16_4cubed 4^3 2048->512",
              "conv_k2_dx_chunked": f"tp_b32_bf16 {GRID}^3 512->32",
              "conv_k2_chunked_f32": f"tp_b32_f32 {GRID}^3 512->32", "conv_k2_wide": "stem_b32_bf16",
-             "conv_k2_dw_ffma_fit": f"tp_b32_f32 {GRID}^3 512->32"}
+             "conv_k2_dw_ffma_fit": f"tp_b32_f32 {GRID}^3 512->32",
+             **dict.fromkeys(("conv_k4s2", "conv_k4s2_dx", "conv_k4s2_dw"), "b32_16")}
     sources = {"conv_k2_dw_wide": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
                "conv_k2_dw_persistent": "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh",
                "conv_k2_dx_chunked": "anytime3d_tpu_torch/kernels/csrc/conv_k2_chunked_dx.cuh",
                "conv_k2_chunked_f32": "anytime3d_tpu_torch/kernels/csrc/conv_k2_narrow.cuh",
-               "conv_k2_wide": "anytime3d_tpu_torch/kernels/csrc/conv_k2_chunked_dx.cuh"}
+               "conv_k2_wide": "anytime3d_tpu_torch/kernels/csrc/conv_k2_chunked_dx.cuh",
+               **dict.fromkeys(("conv_k4s2", "conv_k4s2_dx", "conv_k4s2_dw"),
+                               "anytime3d_tpu_torch/kernels/csrc/conv_k2_wgmma.cuh")}
     # the counters of an entry's launches: its own, but the split FFMA's are its forward's and its dx's
     counted = {"conv_k2_ffma_split": ("conv_k2_ffma_split", "conv_k2_dx_ffma_split")}
     entries = []
@@ -932,7 +966,7 @@ def phase_slice(cfg, device: torch.device, card: str) -> tuple[MultiModalVAE, di
     reset_counts()
     outs = [infer_packed(packed_gpu, mask_gpu) for _ in range(2)]
     card_out = {k: v.cpu() for k, v in outs[0].items()}
-    counts = expect_counts("slice, f32", 4 * len(outs), 0, 0, tensor_cores=False)
+    counts = expect_counts("slice, f32", 4 * len(outs), 0, 0, tensor_cores=False, k4s2=(0, 0, 0))
     print(f"slice: conv_k2 launches {counts['conv_k2']} for {len(outs)} f32 batches", flush=True)
 
     with torch.inference_mode():
@@ -986,7 +1020,8 @@ def phase_slice(cfg, device: torch.device, card: str) -> tuple[MultiModalVAE, di
     reset_counts()
     served = [infer_bf16(packed_gpu, mask_gpu) for _ in range(SERVE_BF16_BATCHES)]
     torch.cuda.synchronize()
-    counts = expect_counts("bf16 served run", 4 * SERVE_BF16_BATCHES, 0, 0, tensor_cores=True)
+    counts = expect_counts("bf16 served run", 4 * SERVE_BF16_BATCHES, 0, 0, tensor_cores=True,
+                           k4s2=(k4s2_lowered(BATCH) * SERVE_BF16_BATCHES, 0, 0))
     z = served[-1]["z_mean"].float().cpu()
     if not (torch.isfinite(z).all() and float((z - gpu["z_mean"]).abs().max()) <= tol_zb):
         raise AssertionError("bf16 served run: z_mean strays from the f32 slice")
@@ -1581,7 +1616,8 @@ def phase_lifecycle(cfg, device: torch.device, card: str) -> tuple[dict, dict]:
             _, m = make_train_step(state.model, loss_cfg)(state, batch, torch.Generator(device=device).manual_seed(7))
             metrics.append({k: float(v) for k, v in m.items()})
         torch.cuda.synchronize()
-        add(expect_counts("lifecycle restored step", 8, 6, 8, tensor_cores=True))
+        add(expect_counts("lifecycle restored step", 8, 6, 8, tensor_cores=True,
+                          k4s2=(2 * k4s2_lowered(LIFE_BATCH),) * 3))
         moved = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(ours, state_leaves(restored))
                     if a.is_floating_point())
         if metrics[0] != metrics[1] or not moved <= LIFE_TOL_PARAM:
@@ -2544,6 +2580,105 @@ def phase_stem_kernels(card: str) -> dict:
                 if route in entries:
                     res[entries[route]][case] = row
             del x, w, g, exact, runs
+    return res
+
+
+def phase_k4s2_kernels(card: str) -> dict:
+    """The lowered stride-2 k=4 conv (``kernels/conv_k4s2.py``) at the flagship encoder's two stages in
+    bfloat16: its forward, dx and dw (each counter moves once a call) against their plain versions (the
+    lowering in PyTorch) and the float64 products of the same operands (``F.conv3d`` and its gradients in
+    float64), timed by events and on the card alone beside their bound (``k2_bound_ms`` of the lowered
+    k=2 conv, 8C -> N at the output grid: the taps that land on x's grid, not on the pad) and cuDNN's
+    ``F.conv3d``, ``conv3d_input`` and ``conv3d_weight`` on the operands ``Conv3d`` handed it before the
+    lowering (x padded (1, 1) and permuted, the weight in bf16), on the card alone with cuDNN's default
+    heuristic and with ``cudnn.benchmark`` (the fastest engine it finds, picked in a warm-up call, named
+    by a profile of one call). Returns ``{kernel: {case: numbers}}``."""
+    from anytime3d_tpu_torch.kernels import conv_k4s2 as k4
+
+    res = {"conv_k4s2": {}, "conv_k4s2_dx": {}, "conv_k4s2_dw": {}}
+    gen = torch.Generator().manual_seed(SEED + 27)
+    dev = torch.device("cuda")
+    for batch in K4S2_BATCHES:
+        for n, C, N in K4S2_STAGES:
+            m = n // 2
+            plan, dx_plan = k4.k4s2_plans(batch, m, m, m, C, N, sms=torch.cuda.get_device_properties(0)
+                                          .multi_processor_count)
+            x = torch.randn(batch, n, n, n, C, generator=gen).to(dev, torch.bfloat16)
+            w = (torch.randn(N, C, 4, 4, 4, generator=gen) / math.sqrt(64 * C)).to(dev)
+            g = torch.randn(batch, m, m, m, N, generator=gen).to(dev, torch.bfloat16)
+            w16 = w.to(torch.bfloat16)
+            x64, w64 = x.double().requires_grad_(), w16.double().requires_grad_()
+            y64 = F.conv3d(F.pad(x64.permute(0, 4, 1, 2, 3), (1, 1) * 3), w64, stride=2)
+            dx64, dw64 = torch.autograd.grad(y64, (x64, w64), g.double().permute(0, 4, 1, 2, 3))
+            exact = {"conv_k4s2": y64.detach().permute(0, 2, 3, 4, 1), "conv_k4s2_dx": dx64, "conv_k4s2_dw": dw64}
+            del x64, w64, y64
+            x_pad = F.pad(x.permute(0, 4, 1, 2, 3), (1, 1) * 3)
+            g_nc = g.permute(0, 4, 1, 2, 3)
+            runs = {
+                "conv_k4s2": (lambda: k4.conv_k4s2(x, w), lambda: k4.conv_k4s2_reference(x, w),
+                              lambda: F.conv3d(x_pad, w16, stride=2)),
+                "conv_k4s2_dx": (lambda: k4.conv_k4s2_dx(g, w, (n, n, n)),
+                                 lambda: k4.conv_k4s2_dx_reference(g, w, (n, n, n)),
+                                 lambda: torch.nn.grad.conv3d_input(x_pad.shape, w16, g_nc, stride=2)),
+                "conv_k4s2_dw": (lambda: k4.conv_k4s2_dw(x, g), lambda: k4.conv_k4s2_dw_reference(x, g),
+                                 lambda: torch.nn.grad.conv3d_weight(x_pad, w16.shape, g_nc, stride=2)),
+            }
+            counters = {"conv_k4s2": "launches", "conv_k4s2_dx": "launches_dx", "conv_k4s2_dw": "launches_dw"}
+            with torch.inference_mode():
+                for kernel, (run, plain, library) in runs.items():
+                    label = f"B={batch} {n}^3 -> {m}^3 {C}->{N}"
+                    before = getattr(k4.conv_k4s2, counters[kernel])
+                    out, ref = run(), plain()
+                    torch.cuda.synchronize()
+                    if getattr(k4.conv_k4s2, counters[kernel]) != before + 1:
+                        raise AssertionError(f"{kernel} {label}: its counter did not move once")
+                    top, top64 = float(ref.float().abs().max()), float(exact[kernel].abs().max())
+                    err = float((out.float() - ref.float()).abs().max())
+                    err_k, err_p = (float((t.double() - exact[kernel]).abs().max()) for t in (out, ref))
+                    if kernel == "conv_k4s2_dw":
+                        tol, tol64 = 2 * K2_TOL_DW_F64_REL * top, K2_TOL_DW_F64_REL * top64
+                        if not torch.equal(out, run()):
+                            raise AssertionError(f"{kernel} {label}: differs between two calls")
+                    else:
+                        tol, tol64 = K2_TOL_BF16_REL * top, (2.0**-8 + K2_TOL_DW_F64_REL) * top64
+                    p1, k1, k2_, p2 = cuda_ms(plain), cuda_ms(run), cuda_ms(run), cuda_ms(plain)
+                    ms, plain_ms, library_ms = (k1 + k2_) / 2, (p1 + p2) / 2, cuda_ms(library)
+                    a1, l1, l2, a2 = (device_ms(f, iters=50) for f in (run, library, library, run))
+                    alone, library_alone = (a1 + a2) / 2, (l1 + l2) / 2
+                    # cuDNN with benchmark on: the engine it finds fastest for these operands
+                    torch.backends.cudnn.benchmark = True
+                    try:
+                        engines = profile_rows(library, runs=1)  # its unprofiled first call picks the engine
+                        engine = engines[0][0] if engines else "not profiled"
+                        b1, b2 = device_ms(library, iters=50), device_ms(library, iters=50)
+                    finally:
+                        torch.backends.cudnn.benchmark = False
+                    bench_alone = (b1 + b2) / 2
+                    bound_ms, bound_by = k2_bound_ms("conv_k2_dw" if kernel == "conv_k4s2_dw" else "conv_k2", batch,
+                                                     8 * C, N, torch.bfloat16, grid=m)
+                    walk = (f"box {plan.box} x {plan.box_items}, {plan.bm} x {plan.bn} tiles, {plan.splits} splits"
+                            if kernel == "conv_k4s2" else
+                            f"box {dx_plan.box} x {dx_plan.box_items}, {dx_plan.bm} x {dx_plan.bn} tiles"
+                            if kernel == "conv_k4s2_dx" else
+                            "persistent" if plan.dw_persistent is not None else f"grid {plan.dw_grid}")
+                    line = (f"{kernel} {label} [{walk}]: max_abs_err {err:.3e} (tol {tol:.3e}); against float64 "
+                            f"(largest entry {top64:.3e}) kernel {err_k:.3e} plain {err_p:.3e} (tol {tol64:.3e}); "
+                            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+                            f"{bound_ms:.4f} ms ({bound_by}); on the card alone kernel {alone:.4f} ms ({a1:.4f}, "
+                            f"{a2:.4f}) library {library_alone:.4f} ms ({l1:.4f}, {l2:.4f}), with cudnn.benchmark "
+                            f"{bench_alone:.4f} ms ({b1:.4f}, {b2:.4f}; its longest kernel {engine}); bound / "
+                            f"kernel alone {100 * bound_ms / alone:.1f}%, kernel / library alone "
+                            f"{alone / library_alone:.2f}, kernel / benchmarked library alone "
+                            f"{alone / bench_alone:.2f} [{card}]")
+                    print(line, flush=True)
+                    if not (err <= tol and err_k <= tol64 and err_p <= tol64):
+                        raise AssertionError(f"{line}: the kernel disagrees")
+                    res[kernel][f"b{batch}_{n}"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                                    "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": alone,
+                                                    "library_device_ms": library_alone,
+                                                    "library_benchmark_device_ms": bench_alone,
+                                                    "library_benchmark_engine": engine, "max_abs_err": err}
+            del x, w, g, exact, runs, x_pad, g_nc
     return res
 
 
@@ -4379,7 +4514,9 @@ def tp_expected(batch: int, dtype: torch.dtype, model: int) -> dict:
     dx (the forward from 32 to 512, which neither plan of that forward takes)
     is the chunked dx; in f32 the FFMA ones, but that shard's forward, which
     walks C in chunks of 16 (its dx and dw keep FFMA, dw on the tile fitted to
-    its 32 columns)."""
+    its 32 columns). In bf16 the encoder's stride-2 k=4 stages, their
+    output channels split as well, add a lowered forward, dx and dw each
+    where ``lowering_plans`` takes the shard."""
     want = dict.fromkeys(read_counts(), 0)
     bf16 = dtype == torch.bfloat16
     for stage, (C, N) in enumerate(FLAGSHIP_K2):
@@ -4407,6 +4544,12 @@ def tp_expected(batch: int, dtype: torch.dtype, model: int) -> dict:
             want["conv_k2_dx_wgmma"] += dx is not None
             want["conv_k2_dx_narrow"] += chunked_dx
             want["conv_k2_dx_chunked"] += chunked_dx
+    # the encoder's stride-2 k=4 stages, their output channels split too: lowered in bf16 where a plan takes them
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, C, N in K4S2_STAGES:
+        if bf16 and lowering_plans((batch, n, n, n, C), N // model, 4, 2, dtype, "cuda", sms) is not None:
+            for key in ("conv_k4s2", "conv_k4s2_dx", "conv_k4s2_dw"):
+                want[key] += 1
     return want
 
 
@@ -4740,6 +4883,8 @@ def main() -> None:
         kernels[kernel].update(cases)
     detector_counts = phase_detector(device, card)
     for kernel, cases in phase_stem_kernels(card).items():
+        kernels.setdefault(kernel, {}).update(cases)
+    for kernel, cases in phase_k4s2_kernels(card).items():
         kernels.setdefault(kernel, {}).update(cases)
     variant_counts = phase_variants(device, card)
     stream_counts = phase_pretrain_stream(device, card)

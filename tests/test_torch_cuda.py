@@ -43,10 +43,20 @@ from anytime3d_tpu_torch.kernels.conv_k2 import (
     wgmma_plan,
     wide_plan,
 )
+from anytime3d_tpu_torch.kernels.conv_k4s2 import (
+    conv_k4s2,
+    conv_k4s2_dw,
+    conv_k4s2_dw_reference,
+    conv_k4s2_dx,
+    conv_k4s2_dx_reference,
+    conv_k4s2_reference,
+    k4s2_plans,
+)
 from anytime3d_tpu_torch.models.configs import loss_config, modelnet_nolbo, pascal_nolbo
 from anytime3d_tpu_torch.models.detector import DetectorConfig, DetectorReconstructor
 from anytime3d_tpu_torch.models.mmvae import MultiModalVAE
 from anytime3d_tpu_torch.nn.autoencoder3d import Decoder3DConfig
+from anytime3d_tpu_torch.nn.blocks import Conv3d
 from anytime3d_tpu_torch.serving.export import export_detector, export_infer, load_infer, make_infer_fn, make_packed_infer
 from anytime3d_tpu_torch.train.state import create_train_state
 from anytime3d_tpu_torch.train.step import make_eval_step, make_train_step
@@ -1779,3 +1789,128 @@ def test_wide_forward_passes_opcheck(cuda, op):
     results = torch.library.opcheck(fn, args)
     assert set(results.values()) == {"SUCCESS"}, results
     assert getattr(conv_k2, counter) > before
+
+
+# ---- the lowered stride-2 k=4 conv (kernels/conv_k4s2.py) ----
+
+# (grid, C, N) of the flagship encoder's two stride-2 k=4 stages: 16^3 -> 8^3 and 8^3 -> 4^3, in the train and
+# serve cells alike (B=32)
+K4S2_STAGES = [(16, 128, 256), (8, 256, 512)]
+
+
+def _k4s2_counts():
+    return conv_k4s2.launches, conv_k4s2.launches_dx, conv_k4s2.launches_dw
+
+
+def _k4s2_float64(x, w, g):
+    """y, dx and dw of the k=4 s=2 SAME conv as float64 products of the same operands: ``F.conv3d`` on x
+    padded (1, 1) and its gradients, in float64."""
+    x64, w64 = x.double().requires_grad_(), w.double().requires_grad_()
+    y = torch.nn.functional.conv3d(torch.nn.functional.pad(x64.permute(0, 4, 1, 2, 3), (1, 1) * 3), w64, stride=2)
+    y = y.permute(0, 2, 3, 4, 1)
+    dx, dw = torch.autograd.grad(y, (x64, w64), g.double())
+    return y.detach(), dx, dw
+
+
+@pytest.mark.parametrize("B", [2, 8, 32])
+@pytest.mark.parametrize("n,C,N", K4S2_STAGES)
+def test_k4s2_kernels_match_plain_and_float64(cuda, B, n, C, N):
+    """The forward, dx and dw on the tensor cores (each counter moves once; dw twice, the same bits) against
+    their plain versions (the lowering in PyTorch; 2^-7 of the largest entry for the bf16 outputs, each side
+    rounding an f32 sum once) and float64 products of the same bf16 operands (half an ulp of the largest
+    entry plus the sum's own error; dw DW_TOL_F64_REL of its largest)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert k4s2_plans(B, n // 2, n // 2, n // 2, C, N, sms=sms) is not None
+    gen = torch.Generator().manual_seed(41 + B)
+    x = torch.randn(B, n, n, n, C, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(N, C, 4, 4, 4, generator=gen) / (64 * C) ** 0.5).to(cuda)  # a float32 parameter
+    g = torch.randn(B, n // 2, n // 2, n // 2, N, generator=gen).to(cuda, torch.bfloat16)
+    before = _k4s2_counts()
+    with torch.inference_mode():
+        y, dx = conv_k4s2(x, w), conv_k4s2_dx(g, w, x.shape[1:4])
+        dw = conv_k4s2_dw(x, g), conv_k4s2_dw(x, g)
+        y_ref, dx_ref = conv_k4s2_reference(x, w), conv_k4s2_dx_reference(g, w, x.shape[1:4])
+        dw_ref = conv_k4s2_dw_reference(x, g)
+    y64, dx64, dw64 = _k4s2_float64(x, w.to(torch.bfloat16), g)
+    torch.cuda.synchronize()
+    assert _k4s2_counts() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    assert y.dtype == dx.dtype == torch.bfloat16 and dw[0].dtype == torch.float32
+    assert y.shape == y64.shape and dx.shape == x.shape and dw[0].shape == w.shape
+    assert torch.equal(dw[0], dw[1])
+    for out, ref, exact in ((y, y_ref, y64), (dx, dx_ref, dx64)):
+        assert float((out.float() - ref.float()).abs().max()) <= 2.0**-7 * float(ref.float().abs().max())
+        tol64 = (2.0**-8 + DW_TOL_F64_REL) * float(exact.abs().max())
+        assert float((out.double() - exact).abs().max()) <= tol64
+        assert float((ref.double() - exact).abs().max()) <= tol64
+    tol = DW_TOL_F64_REL * float(dw64.abs().max())
+    assert float((dw[0].double() - dw64).abs().max()) <= tol and float((dw_ref.double() - dw64).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("n,C,N", K4S2_STAGES)
+def test_conv3d_lowers_k4s2_in_bf16(cuda, n, C, N):
+    """``Conv3d`` at a flagship stage in bf16 takes the lowering (one launch of each kernel), and its
+    output and both gradients match ``F.conv3d`` (cuDNN, as the layer ran before) on the same operands:
+    2^-7 of the largest entry (each side rounds its f32 sums once to bf16; cuDNN's dw of the bf16 weight
+    is bf16 too). In float32 the layer stays on ``F.conv3d``: no counter moves."""
+    layer = Conv3d(C, N, 4, 2, generator=torch.Generator().manual_seed(5)).to(cuda)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(8, n, n, n, C, generator=gen).to(cuda, torch.bfloat16).requires_grad_()
+    g = torch.randn(8, n // 2, n // 2, n // 2, N, generator=gen).to(cuda, torch.bfloat16)
+    before = _k4s2_counts()
+    y = layer(x)
+    dx, dw = torch.autograd.grad(y, (x, layer.weight), g)
+    torch.cuda.synchronize()
+    assert _k4s2_counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert y.dtype == dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    xc, wc = x.detach().requires_grad_(), layer.weight.detach().requires_grad_()
+    y_ref = torch.nn.functional.conv3d(torch.nn.functional.pad(xc.permute(0, 4, 1, 2, 3), (1, 1) * 3),
+                                       wc.to(torch.bfloat16), stride=2).permute(0, 2, 3, 4, 1)
+    dx_ref, dw_ref = torch.autograd.grad(y_ref, (xc, wc), g)
+    for out, ref in ((y, y_ref), (dx, dx_ref), (dw, dw_ref)):
+        assert out.shape == ref.shape
+        assert float((out.float() - ref.float()).abs().max()) <= 2.0**-7 * float(ref.float().abs().max())
+    before = _k4s2_counts()
+    with torch.no_grad():
+        layer(x.detach().float())
+    assert _k4s2_counts() == before
+
+
+@pytest.mark.parametrize("op", ["conv_k4s2", "conv_k4s2_dw"])
+def test_k4s2_ops_pass_opcheck(cuda, op):
+    """The forward op (its backward: the dx and dw ops) and the dw op at B=2, 8^3 -> 4^3, 256 -> 512 under
+    ``torch.library.opcheck``: schema, autograd, the fake implementation against the kernel's output, an
+    AOT-autograd trace."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 8, 8, 8, 256, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(512, 256, 4, 4, 4, generator=gen) / 128.0).to(cuda)
+    if op == "conv_k4s2":
+        fn, args = torch.ops.anytime3d_torch.conv_k4s2.default, (x.requires_grad_(), w.requires_grad_())
+    else:
+        g = torch.randn(2, 4, 4, 4, 512, generator=gen).to(cuda, torch.bfloat16)
+        fn, args = torch.ops.anytime3d_torch.conv_k4s2_dw.default, (x, g)
+    before = _k4s2_counts()
+    results = torch.library.opcheck(fn, args)
+    assert set(results.values()) == {"SUCCESS"}, results
+    assert _k4s2_counts() != before
+
+
+def test_flagship_encoder_launches_no_legacy_cudnn_kernel(cuda):
+    """The flagship encoder's forward and backward in bf16 (B=8) under the profiler: its two stride-2 k=4
+    stages run the lowering (2 launches of each kernel), and no kernel is cuDNN's legacy
+    ``implicit_convolveNd_sgemm`` or ``wgrad_alg1_nd_float_engine``."""
+    model = MultiModalVAE(modelnet_nolbo(), generator=torch.Generator().manual_seed(0)).to(cuda)
+    encoder = model.encoder3d
+    x = (torch.rand(8, 64, 64, 64, 1, generator=torch.Generator().manual_seed(1)) > 0.7).to(cuda, torch.bfloat16)
+    encoder.dtype = torch.bfloat16
+    encoder(x).float().sum().backward()  # warm: builds the kernels
+    torch.cuda.synchronize()
+    before = _k4s2_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        encoder(x).float().sum().backward()
+        torch.cuda.synchronize()
+    assert _k4s2_counts() == (before[0] + 2, before[1] + 2, before[2] + 2)
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert names, "the profiler saw no kernel"
+    legacy = sorted(n for n in names if "implicit_convolveNd_sgemm" in n or "wgrad_alg1_nd" in n)
+    assert not legacy, legacy
+
